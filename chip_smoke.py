@@ -10,7 +10,8 @@ Phases (any failure raises, so the exit code is non-zero):
 3. kernels against their plain PyTorch versions on the card, at the
    shapes the training paths give them and at small ragged ones (~10%
    ignore pixels, one masked class where there are more than two), with
-   the tolerance printed;
+   the tolerance printed; the packed body's five forward kernels at every
+   shape of its 512² path and at 24² × 16 channels, in f32 and bf16;
 4. the baseline_1 preset as it ships, through ``train()``: 16 steps and
    one eval (the fused head+CE kernels), then the same shape with
    ``train.fused_head_ce=false`` (the CE kernels) through
@@ -18,6 +19,13 @@ Phases (any failure raises, so the exit code is non-zero):
    from the same weights and batch;
 5. full width: 512², batch 8, 19 classes, bf16, the standard body —
    images/s and peak memory, with the fused head and without;
+5p. full width through the packed body (levels 0–2 in the five packed
+   forward kernels), from phase 5's trained weights: ``evaluate_task``
+   with its launch counts, mIoU and a timed eval step (images/s, peak
+   memory) against the standard body on the same weights; then the
+   packed body on the card against the port's packed body on the CPU
+   (plain versions) at 128², base 32, depth 4, f32, in eval mode and in
+   one train-mode forward without grad (logits and running statistics);
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take.
 
@@ -243,27 +251,193 @@ def kernel_times(case):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3 / 6: the packed body's forward kernels
+# ---------------------------------------------------------------------------
+
+PACKED_KERNELS = {  # launch-count key: (source, TPU kernel's pallas_call)
+    "conv3x3_bn_fwd": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:833"),
+    "bn_relu_fwd": ("cl_tpu_torch/csrc/packed_eltwise.cu", "cl_tpu/pallas/packed_eltwise.py:93"),
+    "add_stats_fwd": ("cl_tpu_torch/csrc/packed_eltwise.cu",
+                      "cl_tpu/pallas/packed_eltwise.py:202"),
+    "maxpool_fwd": ("cl_tpu_torch/csrc/pool.cu", "cl_tpu/pallas/pool_pack.py:238"),
+    "upconv_fwd": ("cl_tpu_torch/csrc/upconv.cu", "cl_tpu/pallas/upconv_pack.py:150"),
+}
+# Every shape of one packed forward at 512², batch 8 (prefix 3), with its
+# launches per forward: conv (H, Cin, Cout, prologue); the others (H, C);
+# the up-conv (H_in, Cin, Cout).
+PACKED_PATH = {
+    "conv3x3_bn_fwd": [((512, 3, 32, False), 1), ((512, 32, 32, True), 2),
+                       ((512, 32, 32, False), 2), ((256, 32, 64, False), 1),
+                       ((256, 64, 64, True), 2), ((256, 64, 64, False), 2),
+                       ((128, 64, 128, False), 1), ((128, 128, 128, True), 2),
+                       ((128, 128, 128, False), 2)],
+    "bn_relu_fwd": [((512, 32), 2), ((256, 64), 2), ((128, 128), 2)],
+    "add_stats_fwd": [((512, 32), 1), ((256, 64), 1), ((128, 128), 1)],
+    "maxpool_fwd": [((512, 32), 1), ((256, 64), 1), ((128, 128), 1)],
+    "upconv_fwd": [((64, 256, 128), 1), ((128, 128, 64), 1), ((256, 64, 32), 1)],
+}
+PER_FORWARD = {k: sum(n for _, n in shapes) for k, shapes in PACKED_PATH.items()}
+ODD = {"conv3x3_bn_fwd": [(24, 16, 16, False), (24, 16, 16, True), (24, 3, 16, False)],
+       "bn_relu_fwd": [(24, 16)], "add_stats_fwd": [(24, 16)],
+       "maxpool_fwd": [(24, 16)], "upconv_fwd": [(24, 16, 16)]}
+
+
+def packed_operands(kernel, shape, dtype_name, batch=8, seed=0):
+    """Seeded operands on the card for one kernel call."""
+    import torch
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*sh, scale=1.0):
+        return torch.randn(*sh, generator=g, device="cuda") * scale
+
+    if kernel == "conv3x3_bn_fwd":
+        H, cin, cout, prologue = shape
+        return (randn(batch, H, H, cin).to(dt), randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5),
+                randn(cin).abs() + 0.5, randn(cin) * 0.5 + 0.25, prologue)
+    if kernel == "upconv_fwd":
+        H, cin, cout = shape
+        return (randn(batch, H, H, cin).to(dt), randn(cin, cout, 2, 2, scale=cin ** -0.5),
+                randn(cout))
+    H, C = shape
+    x = randn(batch, H, H, C).to(dt)
+    if kernel == "bn_relu_fwd":
+        return x, randn(C).abs() + 0.5, randn(C)
+    if kernel == "add_stats_fwd":
+        return x, randn(batch, H, H, C).to(dt)
+    return (x,)
+
+
+def packed_fns(kernel):
+    """(kernel launch, plain version, library call or None) of one kernel."""
+    import torch.nn.functional as F
+
+    from cl_tpu_torch.kernels import conv3x3, packed_eltwise, pool_pack, upconv_pack
+
+    if kernel == "conv3x3_bn_fwd":
+        def lib(x, w, a, b, prologue):  # cuDNN, the conv alone
+            return F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), padding=1)
+        return conv3x3.launch_conv_bn, conv3x3.conv_bn_plain, lib
+    if kernel == "bn_relu_fwd":
+        return packed_eltwise.launch_bn_relu, packed_eltwise.bn_relu_plain, None
+    if kernel == "add_stats_fwd":
+        return packed_eltwise.launch_add_stats, packed_eltwise.add_stats_plain, None
+    if kernel == "maxpool_fwd":
+        def lib(x):
+            return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)
+        return pool_pack.launch_maxpool2x2, pool_pack.maxpool2x2_plain, lib
+
+    def lib(x, w, b):
+        return F.conv_transpose2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype),
+                                  stride=2)
+    return upconv_pack.launch_upconv2x2, upconv_pack.upconv2x2_plain, lib
+
+
+def packed_name(kernel, shape, dtype_name):
+    return f"{kernel}[{','.join(str(v) for v in shape)},{dtype_name}]"
+
+
+def compare_packed(kernel, shape, dtype_name, batch=8):
+    """Kernel vs plain on the card; returns the max abs error of the main
+    output. Tolerances: exact where both round one exact f32 value (the
+    eltwise passes, the pool); for the conv and up-conv 1e-5 + 1e-5·|plain|
+    in f32 (f32 sums in another order) and one bf16 ulp + 1e-5 in bf16;
+    the conv's and add's sums against a sum of the kernel's own output at
+    1e-5 of Σ|term|."""
+    import torch
+
+    launch, plain, _ = packed_fns(kernel)
+    ops = packed_operands(kernel, shape, dtype_name, batch)
+    k_out, p_out = launch(*ops), plain(*ops)
+    torch.cuda.synchronize()
+    if not isinstance(k_out, tuple):
+        k_out, p_out = (k_out,), (p_out,)
+    name = packed_name(kernel, shape, dtype_name)
+    y, yp = k_out[0], p_out[0]
+    need(y.shape == yp.shape and y.dtype == yp.dtype, f"{name} shape/dtype")
+    yf, pf = y.float(), yp.float()
+    need(bool(torch.isfinite(yf).all()), f"{name} not finite")
+    diff = (yf - pf).abs()
+    if kernel in ("bn_relu_fwd", "add_stats_fwd", "maxpool_fwd"):
+        tol, tol_txt = torch.zeros_like(pf), "exact"
+    elif dtype_name == "bfloat16":
+        tol, tol_txt = bf16_ulp(torch.maximum(yf.abs(), pf.abs())) + 1e-5, "1 bf16 ulp + 1e-5"
+    else:
+        tol, tol_txt = 1e-5 + 1e-5 * pf.abs(), "1e-5 + 1e-5 rel"
+    ok = bool((diff <= tol).all())
+    msg = f"  {name}: max abs err {diff.max().item():.3g} (tol {tol_txt})"
+    if len(k_out) == 3:  # the stats epilogue: Σ and Σ² of the stored output
+        rows = yf.reshape(-1, yf.shape[-1])
+        for i, terms in ((1, rows), (2, rows * rows)):
+            want = terms.sum(0)
+            serr = (k_out[i] - want).abs()
+            sok = bool((serr <= 1e-5 * terms.abs().sum(0) + 1e-6).all())
+            ok = ok and sok
+            msg += f"; sum{i} err {serr.max().item():.3g} vs plain {(k_out[i] - p_out[i]).abs().max().item():.3g}"
+    print(msg + (" ok" if ok else " FAIL"))
+    need(ok, name)
+    return diff.max().item()
+
+
+def packed_bytes_ops(kernel, shape, dtype_name, batch=8):
+    es = 2 if dtype_name == "bfloat16" else 4
+    if kernel == "conv3x3_bn_fwd":
+        H, cin, cout, prologue = shape
+        px = batch * H * H
+        nbytes = px * (cin + cout) * es + 9 * cin * cout * es + 8 * cout \
+            + (8 * cin if prologue else 0)
+        return nbytes, 18 * px * cin * cout + (3 * px * cin if prologue else 0) + 3 * px * cout
+    if kernel == "upconv_fwd":
+        H, cin, cout = shape
+        px = batch * H * H
+        return px * (cin + 4 * cout) * es + 4 * cin * cout * es + 4 * cout, \
+            8 * px * cin * cout
+    H, C = shape
+    n = batch * H * H * C
+    return {"bn_relu_fwd": (2 * n * es + 8 * C, 3 * n),
+            "add_stats_fwd": (3 * n * es + 8 * C, 4 * n),
+            "maxpool_fwd": (n * es + n // 4 * es, 3 * n // 4)}[kernel]
+
+
+def packed_times(kernel, shape, dtype_name="bfloat16"):
+    """(ms, plain_ms, library_ms or None) at one shape."""
+    launch, plain, lib = packed_fns(kernel)
+    ops = packed_operands(kernel, shape, dtype_name)
+    return (time_ms(lambda: launch(*ops)), time_ms(lambda: plain(*ops)),
+            None if lib is None else time_ms(lambda: lib(*ops)))
+
+
+# ---------------------------------------------------------------------------
 # Phases 4 / 5: training paths
 # ---------------------------------------------------------------------------
 
 
-def reset_counts():
-    from cl_tpu_torch.kernels import ce_loss, head_ce
+def _count_dicts():
+    from cl_tpu_torch.kernels import (ce_loss, conv3x3, head_ce, packed_eltwise,
+                                      pool_pack, upconv_pack)
 
-    for d in (head_ce.LAUNCHES, ce_loss.LAUNCHES):
+    return (head_ce.LAUNCHES, ce_loss.LAUNCHES, conv3x3.LAUNCHES,
+            packed_eltwise.LAUNCHES, pool_pack.LAUNCHES, upconv_pack.LAUNCHES)
+
+
+def reset_counts():
+    for d in _count_dicts():
         for k in d:
             d[k] = 0
 
 
 def read_counts() -> dict:
-    from cl_tpu_torch.kernels import ce_loss, head_ce
+    out = {}
+    for d in _count_dicts():
+        out.update(d)
+    return out
 
-    return {**head_ce.LAUNCHES, **ce_loss.LAUNCHES}
 
-
-def run_steps(cfg, n_warm, n_timed, device, seed_batch=0):
+def run_steps(cfg, n_warm, n_timed, device, seed_batch=0, keep=None):
     """make_train_step on one prebuilt batch; returns (counts, img/s,
-    peak MiB, last loss). Counts cover exactly these steps."""
+    peak MiB, last loss). Counts cover exactly these steps. ``keep``, a
+    dict, receives the trained weights as a flax variable tree."""
     import torch
 
     from cl_tpu_torch import train as tl
@@ -292,6 +466,10 @@ def run_steps(cfg, n_warm, n_timed, device, seed_batch=0):
     need(np.isfinite(loss), f"finite loss ({loss})")
     ips = cfg.data.batch_size * n_timed / dt
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if keep is not None:
+        from cl_tpu_torch.interop import export_jax_variables
+
+        keep["variables"] = export_jax_variables(model)
     del model, opt, step
     return counts, ips, peak, loss
 
@@ -330,6 +508,92 @@ def agree_with_cpu(fused: str):
     need(abs(lg - lc) <= 1e-4 and perr <= 1e-4, f"card vs CPU step ({fused})")
 
 
+def eval_pass(cfg, model, device):
+    """``evaluate_task`` of task 0 through ``make_eval_step``; returns the
+    result, the launch counts of exactly this pass and its forwards."""
+    import torch
+
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.data import tasks
+
+    step = tl.make_eval_step(cfg, model, device)
+    seen = tasks.valid_class_mask(cfg.data.num_classes,
+                                  tasks.seen_classes(cfg.classes_per_task, 0))
+    torch.cuda.synchronize()
+    reset_counts()
+    res = tl.evaluate_task(cfg, step, 0, seen, device)
+    torch.cuda.synchronize()
+    forwards = -(-cfg.data.val_images_per_task // cfg.data.batch_size)
+    return res, read_counts(), forwards
+
+
+def timed_eval(cfg, model, device, n_warm=2, n_timed=10):
+    """Eval steps on one prebuilt batch: (images/s, peak MiB)."""
+    import torch
+
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.data import pipeline
+
+    step = tl.make_eval_step(cfg, model, device)
+    batch = pipeline.put_batch(next(iter(pipeline.val_batches(cfg, 0))), device)
+    valid = torch.ones(cfg.data.num_classes, dtype=torch.bool, device=device)
+    conf = torch.zeros(cfg.data.num_classes, cfg.data.num_classes, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n_warm):
+        conf = step(conf, batch, valid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        conf = step(conf, batch, valid)
+    torch.cuda.synchronize()
+    ips = cfg.data.batch_size * n_timed / (time.perf_counter() - t0)
+    return ips, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def packed_agrees_with_cpu():
+    """The packed body on the card (kernels) against the port's packed body
+    on the CPU (plain versions), 128², base 32, depth 4 (prefix 3), f32, from
+    the same weights with random running statistics: eval logits within 1e-4, then
+    one train-mode forward without grad, logits within 1e-4 and running
+    statistics within 1e-5."""
+    import torch
+
+    from cl_tpu_torch.interop import export_jax_variables, load_jax_variables
+    from cl_tpu_torch.models.unet import UNet, init_weights
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 128, 128, 3).astype(np.float32))
+    seeded = UNet(3, 32, 4)
+    init_weights(seeded, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, t in seeded.state_dict().items():
+            if name.endswith("running_var"):
+                t.copy_(torch.from_numpy(rng.rand(*t.shape).astype(np.float32) + 0.5))
+            elif name.endswith("running_mean"):
+                t.copy_(torch.from_numpy(rng.randn(*t.shape).astype(np.float32) * 0.1))
+    variables = export_jax_variables(seeded)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = UNet(3, 32, 4, packed=True).to(device=dev, memory_format=torch.channels_last)
+        load_jax_variables(model, variables)
+        need(model.packed_levels(128, 128) == 3, "prefix 3 at 128², base 32, depth 4")
+        with torch.no_grad():
+            ev = model.eval()(x.to(dev)).cpu()
+            tr = model.train()(x.to(dev)).cpu()
+        stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
+        out[dev] = (ev, tr, stats)
+    (ec, tc, sc), (eg, tg, sg) = out["cpu"], out["cuda"]
+    e_err = (eg - ec).abs().max().item()
+    t_err = (tg - tc).abs().max().item()
+    s_ok = all(torch.allclose(sg[k], sc[k], rtol=1e-5, atol=1e-5) for k in sc)
+    s_err = max((sg[k] - sc[k]).abs().max().item() for k in sc)
+    print(f"  card vs CPU, 128² f32 packed: eval logits max abs err {e_err:.3g}, "
+          f"train-mode logits {t_err:.3g} (tol 1e-4); running stats {s_err:.3g} "
+          f"(tol 1e-5 abs + rel)")
+    need(e_err <= 1e-4 and t_err <= 1e-4 and s_ok, "packed body, card vs CPU")
+
+
 def main() -> int:
     import torch
 
@@ -337,6 +601,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # f32 means f32 for the plain versions' cuDNN convs too
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     from cl_tpu_torch import train as tl
     from cl_tpu_torch.config import get_preset, parse_overrides
     from cl_tpu_torch.kernels import build
@@ -364,6 +631,16 @@ def main() -> int:
                   make_case("ce", 1000, 0, 3, "float32", 7),
                   make_case("ce", 1000, 0, 5, "bfloat16", 8)):
         compare(extra)
+    packed_errs = {}  # (kernel, shape) -> bf16 max abs err at full width
+    for kernel, shapes in PACKED_PATH.items():
+        for shape, _ in shapes:
+            for dtype_name in ("float32", "bfloat16"):
+                err = compare_packed(kernel, shape, dtype_name)
+                if dtype_name == "bfloat16":
+                    packed_errs[(kernel, shape)] = err
+        for shape in ODD[kernel]:
+            for dtype_name in ("float32", "bfloat16"):
+                compare_packed(kernel, shape, dtype_name, batch=3)
 
     print("[4] baseline_1 as it ships, through train()")
     cfg1 = get_preset("baseline_1")
@@ -395,8 +672,9 @@ def main() -> int:
             "data.num_classes=19", "train.compute_dtype=bfloat16",
             "model.packed_unet=false", "data.dataset=synthetic",
             "train.data_parallel=false"]
+    trained = {}
     counts_f, ips_f, peak_f, loss_f = run_steps(
-        parse_overrides(full), 3, 10, torch.device("cuda"))
+        parse_overrides(full), 3, 10, torch.device("cuda"), keep=trained)
     print(f"  fused head: {ips_f:.2f} img/s, peak {peak_f:.0f} MiB, loss {loss_f:.4f}, "
           f"launches {counts_f}")
     need(counts_f["head_ce_fwd"] == 13 and counts_f["head_ce_bwd"] == 13,
@@ -408,6 +686,33 @@ def main() -> int:
           f"loss {loss_u:.4f}, launches {counts_u}")
     need(counts_u["ce_fwd"] == 7 and counts_u["ce_bwd"] == 7,
          "ce launches == steps (full width)")
+
+    print("[5p] full width through the packed body (eval), phase 5's weights")
+    from cl_tpu_torch.interop import load_jax_variables
+
+    cuda = torch.device("cuda")
+    bodies = {}
+    for body, packed in (("packed", "true"), ("standard", "false")):
+        cfg_e = parse_overrides([f if f != "model.packed_unet=false" else
+                                 f"model.packed_unet={packed}" for f in full])
+        model = tl.init_state(cfg_e, tl.build_model(cfg_e), cuda)
+        load_jax_variables(model, trained["variables"])
+        need(model.packed_levels(512, 512) == (3 if packed == "true" else 0),
+             f"{body} body engages as configured")
+        res, counts, forwards = eval_pass(cfg_e, model, cuda)
+        ips, peak = timed_eval(cfg_e, model, cuda)
+        bodies[body] = (res["miou"], ips, peak, counts, forwards)
+        print(f"  {body} body: evaluate_task mIoU {res['miou']:.5f} ({forwards} "
+              f"forwards); eval step {ips:.2f} img/s, peak {peak:.0f} MiB")
+        need(np.isfinite(res["miou"]), f"finite {body} mIoU")
+        del model
+    counts_p, forwards_p = bodies["packed"][3], bodies["packed"][4]
+    print(f"  packed launches: { {k: counts_p[k] for k in PER_FORWARD} } "
+          f"for {forwards_p} forwards")
+    for k, n in PER_FORWARD.items():
+        need(counts_p[k] == forwards_p * n, f"{k} launches == forwards x {n}")
+        need(bodies["standard"][3][k] == 0, f"no {k} launch in the standard body")
+    packed_agrees_with_cpu()
 
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
@@ -438,6 +743,35 @@ def main() -> int:
             print(f"  {entry['name']}: {ms:.4f} ms (plain {plain_ms:.4f}, library "
                   f"{lib_ms:.4f}, bound {entry['bound_ms']:.4f} by "
                   f"{entry['bound_by']}); launches {entry['launches']}")
+    per_forward_ms = {}
+    for kernel, shapes in PACKED_PATH.items():
+        for shape, n_fwd in shapes:
+            ms, plain_ms, lib_ms = packed_times(kernel, shape)
+            nbytes, ops = packed_bytes_ops(kernel, shape, "bfloat16")
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
+            entry = {
+                "name": packed_name(kernel, shape, "bfloat16"), "route": "cuda",
+                "source": PACKED_KERNELS[kernel][0], "replaces": PACKED_KERNELS[kernel][1],
+                "launches": counts_p[kernel], "max_abs_err": packed_errs[(kernel, shape)],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib_ms}
+            need(entry["launches"] > 0, f"{entry['name']} launched on its path")
+            kernels.append(entry)
+            acc = per_forward_ms.setdefault(kernel, [0.0, 0.0, 0.0, 0.0])
+            for i, v in enumerate((ms, plain_ms, entry["bound_ms"], lib_ms or 0.0)):
+                acc[i] += n_fwd * v
+            lib_txt = "—" if lib_ms is None else f"{lib_ms:.4f}"
+            print(f"  {entry['name']} x{n_fwd}/forward: {ms:.4f} ms (plain {plain_ms:.4f}, "
+                  f"library {lib_txt}, bound {entry['bound_ms']:.4f} by {entry['bound_by']})")
+    for kernel, (ms, plain_ms, bound_ms, lib_ms) in per_forward_ms.items():
+        print(f"  per packed forward, {kernel}: {ms:.4f} ms, plain {plain_ms:.4f}, "
+              f"bound {bound_ms:.4f}, library {lib_ms:.4f} (where one exists); "
+              f"launches {counts_p[kernel]}")
+    print(f"  eval images/s, 512² bf16 batch 8: packed {bodies['packed'][1]:.2f} "
+          f"(peak {bodies['packed'][2]:.0f} MiB), standard {bodies['standard'][1]:.2f} "
+          f"(peak {bodies['standard'][2]:.0f} MiB)")
     print(f"  images/s: baseline_1 train() {b1_ips}, baseline_1 unfused "
           f"{b1u_ips:.2f}, 512² bf16 fused {ips_f:.2f}, unfused {ips_u:.2f}")
     print(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -10,8 +10,9 @@ version.
 Layer map:
   L0 config.py          — frozen dataclass configs + presets (own copy)
   L1 data/              — synthetic task datasets, host pipeline, prefetch
-  L2 models/unet.py     — UNet (standard body), NHWC at the interface,
-                          channels_last inside, bf16-capable
+  L2 models/unet.py     — UNet (standard and packed bodies), NHWC at the
+                          interface, channels_last inside, bf16-capable;
+                          models/packed_gate.py chooses the packed levels
   L4 train.py           — task loop, train/eval steps
   L5 metrics.py         — on-device confusion matrix, mIoU, forgetting
 Hand-written CUDA kernels live in csrc/, their wrappers and plain

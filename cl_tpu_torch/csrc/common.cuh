@@ -25,6 +25,34 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// 16-byte vector access: N elements of T at once (8 bf16 or 4 f32).
+template <typename T> struct Vec16 {
+  static constexpr int N = 16 / sizeof(T);
+};
+template <typename T>
+__device__ __forceinline__ void load16(T (&dst)[Vec16<T>::N], const T* base, int64_t i) {
+  *reinterpret_cast<uint4*>(dst) = reinterpret_cast<const uint4*>(base)[i];
+}
+template <typename T>
+__device__ __forceinline__ void store16(T* base, int64_t i, const T (&src)[Vec16<T>::N]) {
+  reinterpret_cast<uint4*>(base)[i] = *reinterpret_cast<const uint4*>(src);
+}
+
+// d += a * b on the tensor cores: one m16n8k16 product of bf16 fragments
+// (A row-major 16 x 16, B column-major 16 x 8) with f32 accumulation. Lane
+// (g = lane / 4, t = lane % 4) holds a = {A[g][2t..], A[g+8][2t..],
+// A[g][2t+8..], A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]} (pairs of
+// consecutive k, the lower k in the low half) and d = {D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]}.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);

@@ -28,12 +28,18 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_int64
 # C entry points: name -> argtypes (every pointer and the stream as void*).
 SIGNATURES = {
     "cltorch_head_ce_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "cltorch_head_ce_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "cltorch_ce_fwd": [P, P, P, P, P, I, I, I, I, I, P],
     "cltorch_ce_bwd": [P, P, P, P, P, I, I, I, I, I, P],
+    "cltorch_conv3x3_bn_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "cltorch_bn_relu_fwd": [P, P, P, P, L, I, I, P],
+    "cltorch_add_stats_fwd": [P, P, P, P, P, L, I, I, I, P],
+    "cltorch_maxpool_fwd": [P, P, I, I, I, I, I, P],
+    "cltorch_upconv_fwd": [P, P, P, P, I, I, I, I, I, I, P],
 }
 
 

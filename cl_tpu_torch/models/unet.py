@@ -1,5 +1,5 @@
-"""UNet encoder-decoder in PyTorch — the standard body of
-``cl_tpu.models.unet.UNet`` (``_standard_body``).
+"""UNet encoder-decoder in PyTorch — the standard and packed bodies of
+``cl_tpu.models.unet.UNet``.
 
 Structure: ``depth`` encoder levels, each (3×3 SAME conv without bias → BN
 → ReLU) × 2 then a 2×2 max pool; a bottleneck double conv; ``depth``
@@ -19,6 +19,16 @@ BatchNorm follows flax, not ``nn.BatchNorm2d``: train mode normalizes with
 the biased batch variance AND updates ``running = 0.9·running +
 0.1·batch`` with that biased variance (torch's BatchNorm2d would update
 with the unbiased one); eps is 1e-5.
+
+The packed body (``packed=True``, ``cl_tpu``'s ``UNet._packed_body``)
+runs the leading ``packed_gate.packed_prefix`` levels through the packed
+kernels over the SAME submodules, so both bodies share one state dict:
+each level's BatchNorm is deferred (``deferred_bn``) and applied by its
+consumer — the next conv's prologue, or ``bn_relu`` before the pool, the
+up-conv and the head — and the decoder's first conv is split over the
+[skip, up] operands. The deeper levels and the bottleneck run the
+standard modules. Only the forward exists in this slice: a backward
+through a packed kernel raises.
 """
 
 from __future__ import annotations
@@ -28,6 +38,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cl_tpu_torch.kernels import conv3x3, packed_eltwise, pool_pack, upconv_pack
+from cl_tpu_torch.models.packed_gate import packed_prefix
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax convention: weight of the old running value
@@ -83,6 +96,24 @@ class BatchNorm(nn.Module):
         return y
 
 
+def deferred_bn(bn: BatchNorm, s1, s2, n: int, train: bool):
+    """``cl_tpu``'s ``DeferredBatchNorm``: per-channel (scale, shift) of a
+    BatchNorm whose application the consumer does. Train mode takes the
+    batch statistics from the producer's sums (mu = Σy/n, biased var =
+    Σy²/n − mu², f32) and updates the running ones; eval mode uses the
+    running ones."""
+    if train:
+        mu = s1 / n
+        var = s2 / n - mu * mu
+        with torch.no_grad():
+            bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mu)
+            bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+    else:
+        mu, var = bn.running_mean, bn.running_var
+    scale = torch.rsqrt(var + BN_EPS) * bn.weight
+    return scale, bn.bias - mu * scale
+
+
 class DoubleConv(nn.Module):
     """(conv3x3 → norm → ReLU) × 2."""
 
@@ -105,17 +136,46 @@ class DoubleConv(nn.Module):
             x = F.relu(x)
         return x
 
+    def packed_plain(self, x: torch.Tensor, train: bool):
+        """``cl_tpu``'s ``PackedLevel`` in its ``stem`` and ``plain`` modes
+        (the stem's channel padding is a TPU layout device): conv0 with the
+        stats epilogue, its BatchNorm deferred into conv1's prologue, and
+        conv1's BatchNorm deferred to the caller. x is NHWC (already
+        applied); returns (y, scale, shift)."""
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        y, s1, s2 = conv3x3.conv_bn_fused(x, self.conv0.weight)
+        sc, sh = deferred_bn(self.bn0, s1, s2, n, train)
+        y, s1, s2 = conv3x3.conv_bn_fused(y, self.conv1.weight, sc, sh, True)
+        return (y, *deferred_bn(self.bn1, s1, s2, n, train))
+
+    def packed_split(self, skip: torch.Tensor, up: torch.Tensor, train: bool):
+        """``PackedLevel`` in ``split`` mode, the decoder's entry: conv0 of
+        the concat [skip, up] as two convs whose outputs are added with
+        the sum's own statistics (the stats of a sum are not the sum of
+        the stats), then conv1 as in ``packed_plain``."""
+        n = skip.shape[0] * skip.shape[1] * skip.shape[2]
+        f = skip.shape[-1]
+        ys, _, _ = conv3x3.conv_bn_fused(skip, self.conv0.weight[:, :f])
+        yu, _, _ = conv3x3.conv_bn_fused(up, self.conv0.weight[:, f:])
+        y, s1, s2 = packed_eltwise.add_stats(ys, yu)
+        sc, sh = deferred_bn(self.bn0, s1, s2, n, train)
+        y, s1, s2 = conv3x3.conv_bn_fused(y, self.conv1.weight, sc, sh, True)
+        return (y, *deferred_bn(self.bn1, s1, s2, n, train))
+
 
 class UNet(nn.Module):
     """UNet(x: [B, H, W, 3]) -> logits [B, H, W, num_classes] (f32)."""
 
     def __init__(self, num_classes: int, base_channels: int = 32,
                  depth: int = 4, norm: str = "batch",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, packed: bool = False):
         super().__init__()
         c = base_channels
+        self.base_channels = c
         self.depth = depth
+        self.norm = norm
         self.dtype = dtype
+        self.packed = packed
         c_in = 3
         for level in range(depth):
             setattr(self, f"enc{level}", DoubleConv(c_in, c * 2 ** level, norm))
@@ -134,6 +194,11 @@ class UNet(nn.Module):
         [B, H, W, base_channels] in the compute dtype instead of logits:
         the operand of the fused head+CE kernel, which applies the head's
         own params itself."""
+        if self.packed_levels(x.shape[1], x.shape[2]) > 0:
+            z = self._packed_body(x.to(self.dtype).contiguous())
+            if return_features:
+                return z
+            return self.head(z.permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1)
         # NHWC memory seen as NCHW: channels_last for the convs.
         h = x.to(self.dtype).permute(0, 3, 1, 2)
         skips = []
@@ -149,6 +214,51 @@ class UNet(nn.Module):
         if return_features:
             return h.permute(0, 2, 3, 1)
         return self.head(h).float().permute(0, 2, 3, 1)
+
+    def packed_levels(self, h: int, w: int) -> int:
+        """How many leading levels the packed body runs for an h × w input
+        (``cl_tpu``'s engage rule); 0 = the standard body."""
+        if not (self.packed and self.norm == "batch" and h == w):
+            return 0
+        return packed_prefix(h, self.base_channels, self.depth,
+                             self.dtype.itemsize)
+
+    def _packed_body(self, x: torch.Tensor) -> torch.Tensor:
+        """``cl_tpu``'s ``UNet._packed_body`` on NHWC x: levels below the
+        prefix in the packed kernels, the deeper ones and the bottleneck
+        through the standard modules (channels_last), the decoder packing
+        the deep region's output on entry. Returns the pre-head
+        activations [B, H, W, base_channels] (NHWC)."""
+        prefix = self.packed_levels(x.shape[1], x.shape[2])
+        train = self.training
+        skips = []
+        for level in range(prefix):
+            y, sc, sh = getattr(self, f"enc{level}").packed_plain(x, train)
+            z = packed_eltwise.bn_relu(y, sc, sh)
+            skips.append(z)  # the pool's input is the skip (cl_tpu's tee)
+            x = pool_pack.maxpool2x2(z)
+
+        h = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        deep_skips = []
+        for level in range(prefix, self.depth):
+            h = getattr(self, f"enc{level}")(h)
+            deep_skips.append(h)
+            h = F.max_pool2d(h, 2, 2)
+        h = self.bottleneck(h)
+        for level in reversed(range(prefix, self.depth)):
+            h = getattr(self, f"up{level}")(h)
+            h = torch.cat([deep_skips[level - prefix], h], dim=1)
+            h = getattr(self, f"dec{level}")(h)
+
+        below = h.permute(0, 2, 3, 1).contiguous()
+        for level in reversed(range(prefix)):
+            if level + 1 < prefix:
+                below = packed_eltwise.bn_relu(y, sc, sh)
+            up = getattr(self, f"up{level}")
+            u = upconv_pack.upconv2x2(below, up.weight, up.bias)
+            y, sc, sh = getattr(self, f"dec{level}").packed_split(
+                skips[level], u, train)
+        return packed_eltwise.bn_relu(y, sc, sh)
 
 
 def init_weights(model: UNet, generator: torch.Generator) -> None:

@@ -1,8 +1,10 @@
 """L4 — training driver: Python task loop, one eager train step per batch.
 
-The counterpart of ``cl_tpu/train.py`` for the configurations this slice
-of the port runs: the fine-tune baseline (no EWC / LwF / replay), the
-standard UNet body, the host pipeline, one device. Per task: epochs of
+The counterpart of ``cl_tpu/train.py`` for the configurations the port
+runs so far: the fine-tune baseline (no EWC / LwF / replay), the standard
+UNet body, the host pipeline, one device; and the eval step of the packed
+body (``model.packed_unet`` at its engage sizes), whose training is a
+later slice (``check_trainable``). Per task: epochs of
 augment → forward → masked CE → backward → optimizer step, then an eval
 of every seen task; the same JSONL events (``epoch``, ``eval``,
 ``task_done``, ``done``) and the same report as the JAX package.
@@ -63,11 +65,9 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
     instead of running something else."""
     m, t, d, meth = cfg.model, cfg.train, cfg.data, cfg.method
     unported = []
-    if _packed_engages(cfg):
-        unported.append(
-            f"model.packed_unet engages at image_size={d.image_size} "
-            f"(packed_min_size={m.packed_min_size}): the packed body "
-            "(pass model.packed_unet=false for the standard body)")
+    if _packed_engages(cfg) and m.conv_act_store == "int8":
+        unported.append("model.conv_act_store=int8 (int8 saved activations "
+                        "of the packed convs)")
     if m.conv_impl != "xla":
         unported.append(f"model.conv_impl={m.conv_impl!r} (Pallas convs)")
     if m.upconv_impl != "xla":
@@ -106,12 +106,25 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
     _dtype(cfg)
 
 
+def check_trainable(cfg: Config) -> None:
+    """The packed body runs its forward only (eval, and train-mode forward
+    without grad): a config that engages it cannot train yet."""
+    if _packed_engages(cfg):
+        m = cfg.model
+        raise NotImplementedError(
+            f"training with model.packed_unet engaged (image_size="
+            f"{cfg.data.image_size}, packed_min_size={m.packed_min_size}): "
+            "the packed body's backward kernels come in a later slice of the "
+            "port (ROADMAP.md Queue 1); pass model.packed_unet=false to train "
+            "the standard body")
+
+
 def build_model(cfg: Config) -> UNet:
     """The UNet of ``cfg`` on the CPU, weights not yet initialized."""
     return UNet(num_classes=cfg.data.num_classes,
                 base_channels=cfg.model.base_channels,
                 depth=cfg.model.depth, norm=cfg.model.norm,
-                dtype=_dtype(cfg))
+                dtype=_dtype(cfg), packed=_packed_engages(cfg))
 
 
 def init_state(cfg: Config, model: UNet, device: torch.device) -> UNet:
@@ -165,6 +178,7 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
     the step does not wait for the device."""
     device = resolve_device(device)
     check_supported(cfg, device)
+    check_trainable(cfg)
     _set_precision(device)
     d = cfg.data
     compute_dtype = _dtype(cfg)
@@ -268,6 +282,7 @@ def train(cfg: Config, init_variables=None, device=None) -> dict:
 
     device = resolve_device(device)
     check_supported(cfg, device)
+    check_trainable(cfg)
     logger = EventLogger(cfg.train.log_path, cfg.train.tensorboard_dir)
     try:
         return _train_impl(cfg, logger, init_variables, device)

@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -82,6 +83,60 @@ def test_unported_configs_raise(override):
     cfg = config.parse_overrides(["preset=smoke", override])
     with pytest.raises(NotImplementedError, match="later slice"):
         port_train.train(cfg, device="cpu")
+
+
+_PACKED = ["preset=smoke", "model.base_channels=32", "model.depth=2",
+           "data.image_size=64", "data.source_size=80", "model.packed_min_size=0"]
+
+
+def _packed_model(cfg):
+    model = port_train.init_state(cfg, port_train.build_model(cfg),
+                                  torch.device("cpu"))
+    assert model.packed and model.packed_levels(64, 64) == 2
+    return model
+
+
+def test_eval_step_accepts_the_packed_body():
+    from cl_tpu_torch.data import pipeline, tasks
+
+    cfg = config.parse_overrides(_PACKED)
+    model = _packed_model(cfg)
+    step = port_train.make_eval_step(cfg, model, device="cpu")
+    valid = torch.from_numpy(tasks.valid_class_mask(
+        cfg.data.num_classes, tasks.seen_classes(cfg.classes_per_task, 0)))
+    conf = torch.zeros(2, 2)
+    for hb in pipeline.val_batches(cfg, 0):
+        conf = step(conf, pipeline.put_batch(hb, torch.device("cpu")), valid)
+    assert conf.sum().item() == cfg.data.val_images_per_task * 64 * 64
+    with pytest.raises(NotImplementedError, match="later slice"):
+        port_train.make_train_step(cfg, model, port_train.build_optimizer(cfg, model),
+                                   device="cpu")
+
+
+def test_backward_through_the_packed_body_raises():
+    cfg = config.parse_overrides(_PACKED)
+    model = _packed_model(cfg).train()
+    logits = model(torch.randn(2, 64, 64, 3))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        logits.sum().backward()
+
+
+def test_packed_model_exports_the_standard_tree():
+    import jax
+
+    from cl_tpu_torch.interop import export_jax_variables
+
+    cfg = config.parse_overrides(_PACKED)
+    packed = export_jax_variables(_packed_model(cfg))
+    standard = export_jax_variables(port_train.init_state(
+        cfg, port_train.build_model(config.parse_overrides(
+            _PACKED + ["model.packed_unet=false"])), torch.device("cpu")))
+    assert jax.tree_util.tree_structure(packed) == \
+        jax.tree_util.tree_structure(standard)
+    for (pa, a), (pb, b) in zip(jax.tree_util.tree_leaves_with_path(packed),
+                                jax.tree_util.tree_leaves_with_path(standard)):
+        assert pa == pb and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
 
 
 def test_baseline_1_as_shipped_is_supported():
