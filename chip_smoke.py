@@ -10,8 +10,11 @@ Phases (any failure raises, so the exit code is non-zero):
 3. kernels against their plain PyTorch versions on the card, at the
    shapes the training paths give them and at small ragged ones (~10%
    ignore pixels, one masked class where there are more than two), with
-   the tolerance printed; the packed body's five forward kernels at every
-   shape of its 512² path and at 24² × 16 channels, in f32 and bf16;
+   the tolerance printed; the packed body's five forward and eight
+   backward kernels at every shape of its 512² path and at 24² × 16
+   channels, in f32 and bf16 (the pool's backward plain and with the
+   skip tee, the conv's dx with a prologue whose relu(b) > 0, nonzero
+   stats cotangents);
 4. the baseline_1 preset as it ships, through ``train()``: 16 steps and
    one eval (the fused head+CE kernels), then the same shape with
    ``train.fused_head_ce=false`` (the CE kernels) through
@@ -26,6 +29,19 @@ Phases (any failure raises, so the exit code is non-zero):
    packed body on the card against the port's packed body on the CPU
    (plain versions) at 128², base 32, depth 4, f32, in eval mode and in
    one train-mode forward without grad (logits and running statistics);
+5t. full width training through the packed body from a prebuilt batch:
+   ``train.packed_head_ce=false`` (the fused head+CE on the NHWC
+   features) for 3 + 10 steps, then ``train.fused_head_ce=false`` for 2 +
+   3, with launch counts = steps × the per-step counts of all thirteen
+   packed kernels, a finite and falling loss, images/s and peak memory
+   beside phase 5's standard body, then five pairs of 10 packed and 10
+   standard steps in turns and each step's host issue time;
+   ``train()`` on the same config for 2
+   steps and its evals, launch counts checked; then one packed SGD step
+   on the card against one on the CPU (plain versions) at 128², base 32,
+   depth 4, f32, loss and every param within 1e-4, each param's and
+   running statistic's update within 1e-2 of its norm plus one f32 ulp
+   per element;
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take.
 
@@ -65,23 +81,12 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events)."""
-    import torch
+def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
+    """``cl_tpu_torch.kernel_ab.time_ms``: the median of ``reps`` launches
+    from CUDA events, queued back to back unless ``queued`` is false."""
+    from cl_tpu_torch.kernel_ab import time_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return timed(fn, reps, warmup, queued)
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +259,7 @@ def kernel_times(case):
 # Phase 3 / 6: the packed body's forward kernels
 # ---------------------------------------------------------------------------
 
+FORWARD_KERNELS = ("conv3x3_bn_fwd", "bn_relu_fwd", "add_stats_fwd", "maxpool_fwd", "upconv_fwd")
 PACKED_KERNELS = {  # launch-count key: (source, TPU kernel's pallas_call)
     "conv3x3_bn_fwd": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:833"),
     "bn_relu_fwd": ("cl_tpu_torch/csrc/packed_eltwise.cu", "cl_tpu/pallas/packed_eltwise.py:93"),
@@ -276,7 +282,6 @@ PACKED_PATH = {
     "maxpool_fwd": [((512, 32), 1), ((256, 64), 1), ((128, 128), 1)],
     "upconv_fwd": [((64, 256, 128), 1), ((128, 128, 64), 1), ((256, 64, 32), 1)],
 }
-PER_FORWARD = {k: sum(n for _, n in shapes) for k, shapes in PACKED_PATH.items()}
 ODD = {"conv3x3_bn_fwd": [(24, 16, 16, False), (24, 16, 16, True), (24, 3, 16, False)],
        "bn_relu_fwd": [(24, 16)], "add_stats_fwd": [(24, 16)],
        "maxpool_fwd": [(24, 16)], "upconv_fwd": [(24, 16, 16)]}
@@ -401,11 +406,289 @@ def packed_bytes_ops(kernel, shape, dtype_name, batch=8):
 
 
 def packed_times(kernel, shape, dtype_name="bfloat16"):
-    """(ms, plain_ms, library_ms or None) at one shape."""
+    """(ms, plain_ms, library_ms or None, ms synchronised per launch) at
+    one shape."""
     launch, plain, lib = packed_fns(kernel)
     ops = packed_operands(kernel, shape, dtype_name)
     return (time_ms(lambda: launch(*ops)), time_ms(lambda: plain(*ops)),
-            None if lib is None else time_ms(lambda: lib(*ops)))
+            None if lib is None else time_ms(lambda: lib(*ops)),
+            time_ms(lambda: launch(*ops), queued=False))
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 / 6: the packed body's backward kernels
+# ---------------------------------------------------------------------------
+
+PACKED_KERNELS.update({  # the backward kernels
+    "maxpool_bwd": ("cl_tpu_torch/csrc/pool.cu", "cl_tpu/pallas/pool_pack.py:279"),
+    "bn_relu_bwd": ("cl_tpu_torch/csrc/packed_eltwise.cu",
+                    "cl_tpu/pallas/packed_eltwise.py:113"),
+    "dy_eff": ("cl_tpu_torch/csrc/packed_eltwise.cu", "cl_tpu/pallas/packed_eltwise.py:226"),
+    "upconv_dx": ("cl_tpu_torch/csrc/upconv.cu", "cl_tpu/pallas/upconv_pack.py:183"),
+    "upconv_dw": ("cl_tpu_torch/csrc/upconv.cu", "cl_tpu/pallas/upconv_pack.py:201"),
+    "conv3x3_bn_dx": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:1233"),
+    "conv3x3_bn_dx_bn": ("cl_tpu_torch/csrc/conv3x3_bn.cu",
+                         "cl_tpu/pallas/conv3x3_v3.py:1259"),
+    "conv3x3_bn_dw": ("cl_tpu_torch/csrc/conv3x3_bn_bwd.cu",
+                      "cl_tpu/pallas/conv3x3_v3.py:1332"),
+})
+# Every shape of one packed backward at 512², batch 8 (prefix 3), with its
+# launches per step: conv (H, Cin, Cout, prologue) of the FORWARD conv;
+# the pool (H, C, tee), the eltwise passes (H, C); the up-conv (H_in, Cin,
+# Cout). The stem's dx is the image's: never launched.
+PACKED_PATH.update({
+    "conv3x3_bn_dw": PACKED_PATH["conv3x3_bn_fwd"],
+    "conv3x3_bn_dx_bn": [((512, 32, 32, True), 2), ((256, 64, 64, True), 2),
+                         ((128, 128, 128, True), 2)],
+    "conv3x3_bn_dx": [((512, 32, 32, False), 2), ((256, 32, 64, False), 1),
+                      ((256, 64, 64, False), 2), ((128, 64, 128, False), 1),
+                      ((128, 128, 128, False), 2)],
+    "bn_relu_bwd": [((512, 32), 2), ((256, 64), 2), ((128, 128), 2)],
+    "dy_eff": [((512, 32), 1), ((256, 64), 1), ((128, 128), 1)],
+    "maxpool_bwd": [((512, 32, True), 1), ((256, 64, True), 1), ((128, 128, True), 1)],
+    "upconv_dx": PACKED_PATH["upconv_fwd"],
+    "upconv_dw": PACKED_PATH["upconv_fwd"],
+})
+PER_STEP = {k: sum(n for _, n in shapes) for k, shapes in PACKED_PATH.items()}
+PER_FORWARD = {k: PER_STEP[k] for k in FORWARD_KERNELS}
+ODD.update({"conv3x3_bn_dw": ODD["conv3x3_bn_fwd"],
+           "conv3x3_bn_dx_bn": [(24, 16, 16, True)],
+           "conv3x3_bn_dx": [(24, 16, 16, False), (24, 16, 3, False)],
+           "bn_relu_bwd": [(24, 16)], "dy_eff": [(24, 16)],
+           "maxpool_bwd": [(24, 16, False), (24, 16, True)],
+           "upconv_dx": ODD["upconv_fwd"], "upconv_dw": ODD["upconv_fwd"]})
+
+
+def bwd_operands(kernel, shape, dtype_name, batch=8, seed=0, stats=True):
+    """Seeded operands on the card for one backward call: the forward's
+    operands (a prologue with relu(b) > 0), a forward output and the
+    cotangents, with nonzero stats cotangents unless ``stats`` is off."""
+    import torch
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*sh, scale=1.0):
+        return torch.randn(*sh, generator=g, device="cuda") * scale
+
+    if kernel.startswith("conv"):
+        H, cin, cout, prologue = shape
+        x = randn(batch, H, H, cin).to(dt)
+        w = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+        a, b = (randn(cin).abs() + 0.5, randn(cin) * 0.5 + 0.25) if prologue else (None, None)
+        y, dy = randn(batch, H, H, cout).to(dt), randn(batch, H, H, cout).to(dt)
+        ds1, ds2 = (randn(cout) * 0.1, randn(cout) * 0.05) if stats else (None, None)
+        return x, w, a, b, y, dy, ds1, ds2, prologue
+    if kernel.startswith("upconv"):
+        H, cin, cout = shape
+        x, dy = randn(batch, H, H, cin).to(dt), randn(batch, 2 * H, 2 * H, cout).to(dt)
+        return (dy, randn(cin, cout, 2, 2, scale=cin ** -0.5)) if kernel == "upconv_dx" \
+            else (x, dy)
+    if kernel == "maxpool_bwd":
+        H, C, tee = shape
+        x = randn(batch, H, H, C).to(dt)
+        x[:, 1::2, ::3] = x[:, 0::2, ::3]  # ties between the window's rows
+        x[:, ::4, 1::2] = x[:, ::4, 0::2]  # and between its columns
+        dy = randn(batch, H // 2, H // 2, C).to(dt)
+        return x, dy, randn(batch, H, H, C).to(dt) if tee else None
+    H, C = shape
+    z, dz = randn(batch, H, H, C).to(dt), randn(batch, H, H, C).to(dt)
+    if kernel == "bn_relu_bwd":
+        return z, dz, randn(C).abs() + 0.5, randn(C)
+    return dz, z, randn(C) * 0.1, randn(C) * 0.05
+
+
+def bwd_fns(kernel):
+    """(kernel launch, plain version, library call or None) of one backward
+    kernel, each taking ``bwd_operands``; the conv's return (dx, da, db) or
+    dW, the up-conv's dx or (dW, db)."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3, packed_eltwise, pool_pack, upconv_pack
+
+    conv_bwd = torch.ops.aten.convolution_backward
+    if kernel in ("conv3x3_bn_dx", "conv3x3_bn_dx_bn"):
+        def lib(x, w, a, b, y, dy, ds1, ds2, prologue):  # cuDNN, dx of the conv alone
+            return conv_bwd(dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.to(x.dtype), None,
+                            [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, False, False])
+        return conv3x3.launch_conv_dx, conv3x3.conv_dx_plain, \
+            (lib if kernel == "conv3x3_bn_dx" else None)
+    if kernel == "conv3x3_bn_dw":
+        def lib(x, w, a, b, y, dy, ds1, ds2, prologue):  # cuDNN, dW of the conv alone
+            return conv_bwd(dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.to(x.dtype), None,
+                            [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False])
+        return conv3x3.launch_conv_dw, conv3x3.conv_dw_plain, lib
+    if kernel == "upconv_dx":
+        def lib(dy, w):  # cuDNN, the transposed conv's input gradient
+            B, H2, _, _ = dy.shape
+            x = torch.empty(B, w.shape[0], H2 // 2, H2 // 2, dtype=dy.dtype, device=dy.device)
+            return conv_bwd(dy.permute(0, 3, 1, 2), x, w.to(dy.dtype), None, [2, 2], [0, 0],
+                            [1, 1], True, [0, 0], 1, [True, False, False])
+        return upconv_pack.launch_upconv2x2_dx, upconv_pack.upconv2x2_dx_plain, lib
+    if kernel == "upconv_dw":
+        def lib(x, dy):  # cuDNN, the transposed conv's weight and bias gradients
+            w = torch.empty(x.shape[-1], dy.shape[-1], 2, 2, dtype=x.dtype, device=x.device)
+            return conv_bwd(dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, [dy.shape[-1]],
+                            [2, 2], [0, 0], [1, 1], True, [0, 0], 1, [False, True, True])
+        return upconv_pack.launch_upconv2x2_dw, upconv_pack.upconv2x2_dw_plain, lib
+    if kernel == "maxpool_bwd":
+        def lib(x, dy, ds):  # the pool's backward from its indices
+            xn = x.permute(0, 3, 1, 2)
+            _, idx = torch.ops.aten.max_pool2d_with_indices(xn, [2, 2], [2, 2])
+            return lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                dy.permute(0, 3, 1, 2), xn, [2, 2], [2, 2], [0, 0], [1, 1], False, idx)
+        return pool_pack.launch_maxpool2x2_bwd, pool_pack.maxpool2x2_bwd_plain, lib
+    if kernel == "bn_relu_bwd":
+        return packed_eltwise.launch_bn_relu_bwd, packed_eltwise.bn_relu_bwd_plain, None
+    return packed_eltwise.launch_dy_eff, packed_eltwise.dy_eff_plain, None
+
+
+def _abs_terms(kernel, ops):
+    """Per-output Σ|term| of the f32 sums a backward's outputs are made of
+    (for the tolerance of a sum taken in another order): a tuple with None
+    for an output that is not such a sum, or None."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3, upconv_pack
+
+    if kernel == "conv3x3_bn_dx_bn":  # da = Σ [u>0]·dt·x, db = Σ [u>0]·dt
+        x, w, a, b, y, dy, ds1, ds2, _ = ops
+        dt = conv3x3.conv_dx_plain(x, w, None, None, y, dy, ds1, ds2, False)[0].float().abs()
+        xf = x.float()
+        du = torch.where(xf * a + b > 0, dt, 0.0).reshape(-1, x.shape[-1])
+        return None, (du * xf.abs().reshape(du.shape)).sum(0), du.sum(0)
+    if kernel == "conv3x3_bn_dw":
+        x, w, a, b, y, dy, ds1, ds2, prologue = ops
+        e = conv3x3.dy_eff(dy, y, ds1, ds2)
+        t = conv3x3.prologue_t(x, a, b, prologue)
+        return conv3x3.conv_dw_plain(t.abs(), w, None, None, y, e.abs(), None, None, False)
+    if kernel == "upconv_dw":
+        x, dy = ops
+        return upconv_pack.upconv2x2_dw_plain(x.abs(), dy.abs())
+    return None
+
+
+def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True):
+    """Backward kernel vs its plain version on the card; returns the max abs
+    error of its main output. Tolerances: exact for the pool and the two
+    eltwise passes (the same f32 operations, one rounding); dx one bf16 ulp
+    + 1e-5·max(1, a) in bf16, 1e-5 + 1e-5·|plain| in f32 (f32 sums in
+    another order, then one rounding; the prologue's epilogue scales by a);
+    dW and db 2 bf16 ulps + 1e-5·Σ|term| in bf16, 1e-5·Σ|term| + 1e-6 in f32
+    (a sum over every pixel in another order); the per-channel sums of the
+    eltwise and the conv's da, db 1e-5 of Σ|term|. A second launch must
+    give the same bits."""
+    import torch
+
+    launch, plain, _ = bwd_fns(kernel)
+    ops = bwd_operands(kernel, shape, dtype_name, batch, stats=stats)
+    k_out, p_out, again = launch(*ops), plain(*ops), launch(*ops)
+    torch.cuda.synchronize()
+    if not isinstance(k_out, tuple):
+        k_out, p_out, again = (k_out,), (p_out,), (again,)
+    # no float atomics: a second launch repeats every bit
+    need(all(u is None or torch.equal(u, v) for u, v in zip(k_out, again)),
+         f"{kernel}{shape} {dtype_name}: a second launch repeats every bit")
+    name = packed_name(kernel, shape, dtype_name) + ("" if stats else "[no stats]")
+    bf16 = dtype_name == "bfloat16"
+    terms = _abs_terms(kernel, ops)
+    if terms is not None and not isinstance(terms, tuple):
+        terms = (terms,)
+    dw_kernel = kernel in ("conv3x3_bn_dw", "upconv_dw")
+    ok, msg, main_err = True, f"  {name}:", None
+    for i, (k, p) in enumerate(zip(k_out, p_out)):
+        if k is None and p is None:
+            continue
+        need(k.shape == p.shape and k.dtype == p.dtype, f"{name} output {i} shape/dtype")
+        kf, pf = k.float(), p.float()
+        need(bool(torch.isfinite(kf).all()), f"{name} output {i} not finite")
+        diff = (kf - pf).abs()
+        if kernel in ("maxpool_bwd", "dy_eff") or (kernel == "bn_relu_bwd" and i == 0):
+            tol, txt = torch.zeros_like(pf), "exact"
+        elif kernel == "bn_relu_bwd":  # Σ du·y, Σ du
+            y, dz = ops[0].float(), ops[1].float().abs()
+            src = (dz * y.abs() if i == 1 else dz).reshape(-1, pf.shape[0]).sum(0)
+            tol, txt = 1e-5 * src + 1e-6, "1e-5 Σ|term|"
+        elif i == 0 and not dw_kernel:  # dx
+            a = ops[2] if kernel == "conv3x3_bn_dx_bn" else None
+            amax = 1.0 if a is None else max(1.0, a.abs().max().item())
+            if bf16:
+                tol = bf16_ulp(torch.maximum(kf.abs(), pf.abs())) + 1e-5 * amax
+                txt = "1 bf16 ulp + 1e-5 max(1, a)"
+            else:
+                tol, txt = 1e-5 * amax + 1e-5 * pf.abs(), "1e-5 max(1, a) + 1e-5 rel"
+        elif i == 0 and bf16:  # dW, rounded to bf16
+            tol = 1e-5 * terms[i] + 2 * bf16_ulp(torch.maximum(kf.abs(), pf.abs()))
+            txt = "2 bf16 ulp + 1e-5 Σ|term|"
+        else:  # f32 sums over the pixels: dW in f32, db, da
+            tol, txt = 1e-5 * terms[i] + 1e-6, "1e-5 Σ|term| + 1e-6"
+        good = bool((diff <= tol).all())
+        ok = ok and good
+        main_err = diff.max().item() if main_err is None else main_err
+        msg += f" out{i} max abs err {diff.max().item():.3g} ({txt}){'' if good else ' FAIL'};"
+    print(msg + (" ok" if ok else " FAIL"))
+    need(ok, name)
+    return main_err
+
+
+def bwd_bytes_ops(kernel, shape, dtype_name, batch=8):
+    """Bytes the function must move (each input read once, each output
+    written once) and its operations, at the path's operands (stats
+    cotangents present)."""
+    es = 2 if dtype_name == "bfloat16" else 4
+    if kernel.startswith("conv"):
+        H, cin, cout, prologue = shape
+        px = batch * H * H
+        vec = 8 * cout + (8 * cin if prologue else 0)  # ds1, ds2; a, b
+        if kernel == "conv3x3_bn_dw":
+            return (px * (cin + 2 * cout) * es + 9 * cin * cout * 4 + vec,
+                    18 * px * cin * cout + 4 * px * cout + (3 * px * cin if prologue else 0))
+        nbytes = px * (2 * cout + cin) * es + 9 * cin * cout * es + vec
+        ops = 18 * px * cin * cout + 4 * px * cout
+        if kernel == "conv3x3_bn_dx_bn":
+            return nbytes + px * cin * es + 8 * cin, ops + 7 * px * cin
+        return nbytes, ops
+    if kernel.startswith("upconv"):
+        H, cin, cout = shape
+        px = batch * H * H
+        if kernel == "upconv_dx":
+            return px * (4 * cout + cin) * es + 4 * cin * cout * es, 8 * px * cin * cout
+        return px * (cin + 4 * cout) * es + 4 * (4 * cin * cout + cout), \
+            8 * px * cin * cout + 4 * px * cout
+    if kernel == "maxpool_bwd":
+        H, C, tee = shape
+        n = batch * H * H * C
+        return (n * (3 if tee else 2) + n // 4) * es, n * (3 if tee else 2)
+    H, C = shape
+    n = batch * H * H * C
+    return 3 * n * es + 8 * C, 5 * n
+
+
+def bwd_times(kernel, shape, dtype_name="bfloat16"):
+    """(ms, plain_ms, library_ms or None, ms synchronised per launch) at
+    one shape."""
+    launch, plain, lib = bwd_fns(kernel)
+    ops = bwd_operands(kernel, shape, dtype_name)
+    lib_fn = None
+    if lib is not None:
+        lib_fn = lib(*ops) if kernel == "maxpool_bwd" else (lambda: lib(*ops))
+    return (time_ms(lambda: launch(*ops)), time_ms(lambda: plain(*ops)),
+            None if lib_fn is None else time_ms(lib_fn),
+            time_ms(lambda: launch(*ops), queued=False))
+
+
+def kernel_entry(kernel, shape, source, replaces, launches, err, times, bytes_ops):
+    """One line of the ``kernels`` JSON from a kernel's measurements."""
+    ms, plain_ms, lib_ms = times[:3]
+    nbytes, ops = bytes_ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
+    entry = {"name": packed_name(kernel, shape, "bfloat16"), "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms}
+    need(launches > 0, f"{entry['name']} launched on its path")
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -434,10 +717,9 @@ def read_counts() -> dict:
     return out
 
 
-def run_steps(cfg, n_warm, n_timed, device, seed_batch=0, keep=None):
-    """make_train_step on one prebuilt batch; returns (counts, img/s,
-    peak MiB, last loss). Counts cover exactly these steps. ``keep``, a
-    dict, receives the trained weights as a flax variable tree."""
+def build_step(cfg, device, seed_batch=0):
+    """(model, optimizer, make_train_step's step, a prebuilt batch, the
+    valid-class mask) of ``cfg`` on ``device``, from the seeded init."""
     import torch
 
     from cl_tpu_torch import train as tl
@@ -450,10 +732,66 @@ def run_steps(cfg, n_warm, n_timed, device, seed_batch=0, keep=None):
     batch = pipeline.put_batch(hb, device)
     valid = torch.from_numpy(tasks.valid_class_mask(
         cfg.data.num_classes, tasks.seen_classes(cfg.classes_per_task, 0))).to(device)
+    return model, opt, step, batch, valid
+
+
+def host_issue_ms(step, batch, valid, reps=5):
+    """Median host time to issue one step while the card is still busy
+    with ~0.1 s of queued sleep, so the host never waits for it: the
+    step's issue cost alone (a sync inside the step would show as ~100
+    ms)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        step(batch, valid)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def alternating_pairs(cfgs, device, n_pairs=5, n_warm=3, n_timed=10):
+    """images/s of each config in ``cfgs`` ({name: cfg}, both built and
+    warmed first), timed in turns, the order flipped every pair, and each
+    step's host issue time: ({name: [images/s of each pair]}, {name:
+    issue ms})."""
+    import torch
+
+    built = {name: build_step(cfg, device) for name, cfg in cfgs.items()}
+    for _, _, step, batch, valid in built.values():
+        for _ in range(n_warm):
+            step(batch, valid)
+    ips = {name: [] for name in cfgs}
+    names = list(cfgs)
+    for i in range(n_pairs):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            _, _, step, batch, valid = built[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_timed):
+                aux = step(batch, valid)
+            torch.cuda.synchronize()
+            ips[name].append(cfgs[name].data.batch_size * n_timed / (time.perf_counter() - t0))
+            need(np.isfinite(aux["loss"].item()), f"finite loss ({name})")
+    return ips, {name: host_issue_ms(*built[name][2:]) for name in names}
+
+
+def run_steps(cfg, n_warm, n_timed, device, seed_batch=0, keep=None):
+    """make_train_step on one prebuilt batch; returns (counts, img/s,
+    peak MiB, last loss, first loss). Counts cover exactly these steps.
+    ``keep``, a dict, receives the trained weights as a flax variable
+    tree."""
+    import torch
+
+    model, opt, step, batch, valid = build_step(cfg, device, seed_batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    for _ in range(n_warm):
+    first = step(batch, valid)["loss"]
+    for _ in range(n_warm - 1):
         aux = step(batch, valid)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -471,11 +809,11 @@ def run_steps(cfg, n_warm, n_timed, device, seed_batch=0, keep=None):
 
         keep["variables"] = export_jax_variables(model)
     del model, opt, step
-    return counts, ips, peak, loss
+    return counts, ips, peak, loss, first.item()
 
 
-def agree_with_cpu(fused: str):
-    """One step on the card (kernels) against one on the CPU (plain
+def agree_with_cpu(args, label, packed_levels=0):
+    """One SGD step on the card (kernels) against one on the CPU (plain
     versions) from the same weights and batch: loss and params in f32."""
     import torch
 
@@ -484,28 +822,43 @@ def agree_with_cpu(fused: str):
     from cl_tpu_torch.data import pipeline
     from cl_tpu_torch.interop import export_jax_variables, load_jax_variables
 
-    cfg = parse_overrides(["preset=smoke", "data.num_classes=3", "model.depth=3",
-                           "train.optimizer=sgd", "train.lr=0.05",
-                           f"train.fused_head_ce={fused}",
-                           "train.data_parallel=false"])
+    cfg = parse_overrides(args + ["train.optimizer=sgd", "train.lr=0.05",
+                                  "train.data_parallel=false"])
     hb = next(iter(pipeline.train_batches(cfg, 0, 0)))
-    valid = torch.ones(3, dtype=torch.bool)
+    valid = torch.ones(cfg.data.num_classes, dtype=torch.bool)
+    size = cfg.data.image_size
     out = {}
-    variables = None
+    variables = before = None
     for dev in (torch.device("cpu"), torch.device("cuda")):
         model = tl.init_state(cfg, tl.build_model(cfg), dev)
+        need(model.packed_levels(size, size) == packed_levels,
+             f"{label}: {packed_levels} packed levels")
         if variables is None:
             variables = export_jax_variables(model)
         load_jax_variables(model, variables)
+        if before is None:
+            before = {k: v.detach().double().cpu() for k, v in model.state_dict().items()}
         step = tl.make_train_step(cfg, model, tl.build_optimizer(cfg, model), dev)
         aux = step(pipeline.put_batch(hb, dev), valid.to(dev))
         out[dev.type] = (aux["loss"].item(), {
-            k: v.detach().float().cpu() for k, v in model.state_dict().items()})
+            k: v.detach().double().cpu() for k, v in model.state_dict().items()})
     (lc, pc), (lg, pg) = out["cpu"], out["cuda"]
     perr = max((pg[k] - pc[k]).abs().max().item() for k in pc)
-    print(f"  fused_head_ce={fused}: loss cuda {lg:.7f} cpu {lc:.7f}; "
-          f"max |param diff| {perr:.3g} (tol 1e-4)")
-    need(abs(lg - lc) <= 1e-4 and perr <= 1e-4, f"card vs CPU step ({fused})")
+    # each entry's update, (after - before), within 1e-2 of its norm plus
+    # one f32 ulp of the entry per element (a BN scale near 1.0 deep in
+    # the net moves by less than an ulp): a wrong backward in one kernel
+    # may hide under 1e-4 on the params themselves
+    def update_err(k):
+        ulp = torch.exp2(torch.floor(torch.log2(pc[k].abs().clamp_min(2.0 ** -126))) - 23)
+        tol = 1e-2 * (pc[k] - before[k]).norm() + ulp.norm()
+        return ((pg[k] - pc[k]).norm() / tol).item()
+
+    worst = max(pc, key=update_err)
+    print(f"  {label}: loss cuda {lg:.7f} cpu {lc:.7f}; max |param diff| {perr:.3g} "
+          f"(tol 1e-4); worst update diff {update_err(worst):.3g} of its tolerance "
+          f"(1e-2 of its norm + one ulp per element), {worst}")
+    need(abs(lg - lc) <= 1e-4 and perr <= 1e-4 and update_err(worst) <= 1,
+         f"card vs CPU step ({label})")
 
 
 def eval_pass(cfg, model, device):
@@ -633,14 +986,17 @@ def main() -> int:
         compare(extra)
     packed_errs = {}  # (kernel, shape) -> bf16 max abs err at full width
     for kernel, shapes in PACKED_PATH.items():
+        check = compare_packed if kernel in FORWARD_KERNELS else compare_bwd
         for shape, _ in shapes:
             for dtype_name in ("float32", "bfloat16"):
-                err = compare_packed(kernel, shape, dtype_name)
+                err = check(kernel, shape, dtype_name)
                 if dtype_name == "bfloat16":
                     packed_errs[(kernel, shape)] = err
         for shape in ODD[kernel]:
             for dtype_name in ("float32", "bfloat16"):
-                compare_packed(kernel, shape, dtype_name, batch=3)
+                check(kernel, shape, dtype_name, batch=3)
+    # the split convs' dx: no stats cotangents (their sums are unused)
+    compare_bwd("conv3x3_bn_dx", (512, 32, 32, False), "bfloat16", stats=False)
 
     print("[4] baseline_1 as it ships, through train()")
     cfg1 = get_preset("baseline_1")
@@ -659,13 +1015,14 @@ def main() -> int:
     b1_ips = report.get("images_per_sec_per_chip")
 
     cfg1u = parse_overrides(["preset=baseline_1", "train.fused_head_ce=false"])
-    counts_b1u, b1u_ips, _, _ = run_steps(cfg1u, 2, 6, torch.device("cuda"))
+    counts_b1u, b1u_ips, _, _, _ = run_steps(cfg1u, 2, 6, torch.device("cuda"))
     print(f"  baseline_1 fused_head_ce=false, 8 steps: launches {counts_b1u}; "
           f"{b1u_ips:.1f} img/s")
     need(counts_b1u["ce_fwd"] == 8 and counts_b1u["ce_bwd"] == 8
          and counts_b1u["head_ce_fwd"] == 0, "ce launches == steps (baseline_1)")
     for fused in ("auto", "false"):
-        agree_with_cpu(fused)
+        agree_with_cpu(["preset=smoke", "data.num_classes=3", "model.depth=3",
+                        f"train.fused_head_ce={fused}"], f"fused_head_ce={fused}")
 
     print("[5] full width: 512², batch 8, 19 classes, bf16, standard body")
     full = ["preset=baseline_1", "data.image_size=512", "data.source_size=576",
@@ -673,13 +1030,13 @@ def main() -> int:
             "model.packed_unet=false", "data.dataset=synthetic",
             "train.data_parallel=false"]
     trained = {}
-    counts_f, ips_f, peak_f, loss_f = run_steps(
+    counts_f, ips_f, peak_f, loss_f, _ = run_steps(
         parse_overrides(full), 3, 10, torch.device("cuda"), keep=trained)
     print(f"  fused head: {ips_f:.2f} img/s, peak {peak_f:.0f} MiB, loss {loss_f:.4f}, "
           f"launches {counts_f}")
     need(counts_f["head_ce_fwd"] == 13 and counts_f["head_ce_bwd"] == 13,
          "head_ce launches == steps (full width)")
-    counts_u, ips_u, peak_u, loss_u = run_steps(
+    counts_u, ips_u, peak_u, loss_u, _ = run_steps(
         parse_overrides(full + ["train.fused_head_ce=false"]), 2, 5,
         torch.device("cuda"))
     print(f"  fused_head_ce=false: {ips_u:.2f} img/s, peak {peak_u:.0f} MiB, "
@@ -709,10 +1066,67 @@ def main() -> int:
     counts_p, forwards_p = bodies["packed"][3], bodies["packed"][4]
     print(f"  packed launches: { {k: counts_p[k] for k in PER_FORWARD} } "
           f"for {forwards_p} forwards")
-    for k, n in PER_FORWARD.items():
+    for k, n in PER_STEP.items():
+        n = PER_FORWARD.get(k, 0)  # an eval launches no backward kernel
         need(counts_p[k] == forwards_p * n, f"{k} launches == forwards x {n}")
         need(bodies["standard"][3][k] == 0, f"no {k} launch in the standard body")
     packed_agrees_with_cpu()
+
+    print("[5t] full width through the packed body (training), from a prebuilt batch")
+    packed_full = [f if f != "model.packed_unet=false" else "model.packed_unet=true"
+                   for f in full]
+    train_runs = {}
+    for head, n_warm, n_timed in (("train.packed_head_ce=false", 3, 10),
+                                  ("train.fused_head_ce=false", 2, 3)):
+        counts, ips, peak, loss, first = run_steps(
+            parse_overrides(packed_full + [head]), n_warm, n_timed, cuda)
+        steps = n_warm + n_timed
+        train_runs[head] = (counts, ips, peak)
+        print(f"  {head}, {steps} steps: {ips:.2f} img/s, peak {peak:.0f} MiB, loss "
+              f"{first:.4f} -> {loss:.4f}; packed launches "
+              f"{ {k: counts[k] for k in PER_STEP} }")
+        need(loss < first, f"packed training loss falls ({head})")
+        for k, n in PER_STEP.items():
+            need(counts[k] == steps * n, f"{k} launches == steps x {n} ({head})")
+        fused = head == "train.packed_head_ce=false"
+        need(counts["head_ce_fwd"] == counts["head_ce_bwd"] == (steps if fused else 0)
+             and counts["ce_fwd"] == counts["ce_bwd"] == (0 if fused else steps),
+             f"loss kernels of the packed step ({head})")
+    counts_t, ips_t, peak_t = train_runs["train.packed_head_ce=false"]
+    ips_tu, peak_tu = train_runs["train.fused_head_ce=false"][1:]
+    print(f"  train images/s, 512² bf16 batch 8: packed {ips_t:.2f} (peak {peak_t:.0f} MiB), "
+          f"standard {ips_f:.2f} (peak {peak_f:.0f} MiB) with the fused head; packed "
+          f"{ips_tu:.2f} (peak {peak_tu:.0f} MiB), standard {ips_u:.2f} (peak {peak_u:.0f} MiB) "
+          f"with fused_head_ce=false")
+    # packed and standard steps in turns, to read their difference
+    # against the spread between pairs
+    pairs, issue = alternating_pairs({"packed": parse_overrides(packed_full + [
+        "train.packed_head_ce=false"]), "standard": parse_overrides(full)}, cuda)
+    ratios = [p / q for p, q in zip(pairs["packed"], pairs["standard"])]
+    print(f"  alternating pairs, 10 steps each, images/s: packed "
+          f"{[round(v, 2) for v in pairs['packed']]}, standard "
+          f"{[round(v, 2) for v in pairs['standard']]}; packed / standard "
+          f"{[round(r, 4) for r in ratios]}, median {float(np.median(ratios)):.4f}")
+    print(f"  host issue per step (card kept busy): packed {issue['packed']:.3f} ms, "
+          f"standard {issue['standard']:.3f} ms")
+    # the same path through train(): 2 steps, then its evals
+    cfg_tr = parse_overrides(packed_full + ["train.packed_head_ce=false",
+                                            "data.train_images_per_task=16",
+                                            "train.epochs_per_task=1"])
+    steps = cfg_tr.data.train_images_per_task // cfg_tr.data.batch_size
+    forwards = (int(cfg_tr.train.eval_every_epoch) + 1) * -(-cfg_tr.data.val_images_per_task
+                                                           // cfg_tr.data.batch_size)
+    reset_counts()
+    report = tl.train(cfg_tr)
+    counts = read_counts()
+    print(f"  train(), packed, {steps} steps and {forwards} eval forwards: mIoU "
+          f"{report['final_per_task_miou']}")
+    need(np.isfinite(report["final_per_task_miou"]).all(), "finite packed train() mIoU")
+    for k, n in PER_STEP.items():
+        want = steps * n + forwards * PER_FORWARD.get(k, 0)
+        need(counts[k] == want, f"{k} launches == {want} in the packed train()")
+    agree_with_cpu(["preset=baseline_1", "model.packed_min_size=0", "train.packed_head_ce=false"],
+                   "packed step 128² base 32 depth 4 f32", packed_levels=3)
 
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
@@ -743,37 +1157,40 @@ def main() -> int:
             print(f"  {entry['name']}: {ms:.4f} ms (plain {plain_ms:.4f}, library "
                   f"{lib_ms:.4f}, bound {entry['bound_ms']:.4f} by "
                   f"{entry['bound_by']}); launches {entry['launches']}")
-    per_forward_ms = {}
+    per_step_ms = {}
     for kernel, shapes in PACKED_PATH.items():
-        for shape, n_fwd in shapes:
-            ms, plain_ms, lib_ms = packed_times(kernel, shape)
-            nbytes, ops = packed_bytes_ops(kernel, shape, "bfloat16")
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
-            entry = {
-                "name": packed_name(kernel, shape, "bfloat16"), "route": "cuda",
-                "source": PACKED_KERNELS[kernel][0], "replaces": PACKED_KERNELS[kernel][1],
-                "launches": counts_p[kernel], "max_abs_err": packed_errs[(kernel, shape)],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib_ms}
-            need(entry["launches"] > 0, f"{entry['name']} launched on its path")
+        fwd = kernel in FORWARD_KERNELS
+        # launches: the forward kernels' of the packed eval pass (phase
+        # 5p), the backward kernels' of the packed train run (phase 5t)
+        launches = counts_p[kernel] if fwd else counts_t[kernel]
+        for shape, n_step in shapes:
+            times = (packed_times if fwd else bwd_times)(kernel, shape)
+            entry = kernel_entry(
+                kernel, shape, *PACKED_KERNELS[kernel], launches, packed_errs[(kernel, shape)],
+                times, (packed_bytes_ops if fwd else bwd_bytes_ops)(kernel, shape, "bfloat16"))
             kernels.append(entry)
-            acc = per_forward_ms.setdefault(kernel, [0.0, 0.0, 0.0, 0.0])
-            for i, v in enumerate((ms, plain_ms, entry["bound_ms"], lib_ms or 0.0)):
-                acc[i] += n_fwd * v
-            lib_txt = "—" if lib_ms is None else f"{lib_ms:.4f}"
-            print(f"  {entry['name']} x{n_fwd}/forward: {ms:.4f} ms (plain {plain_ms:.4f}, "
-                  f"library {lib_txt}, bound {entry['bound_ms']:.4f} by {entry['bound_by']})")
-    for kernel, (ms, plain_ms, bound_ms, lib_ms) in per_forward_ms.items():
-        print(f"  per packed forward, {kernel}: {ms:.4f} ms, plain {plain_ms:.4f}, "
-              f"bound {bound_ms:.4f}, library {lib_ms:.4f} (where one exists); "
-              f"launches {counts_p[kernel]}")
+            acc = per_step_ms.setdefault(kernel, [0.0] * 5)
+            for i, v in enumerate((entry["ms"], entry["plain_ms"], entry["bound_ms"],
+                                   entry["library_ms"] or 0.0, times[3])):
+                acc[i] += n_step * v
+            lib_txt = "—" if entry["library_ms"] is None else f"{entry['library_ms']:.4f}"
+            print(f"  {entry['name']} x{n_step}/step: {entry['ms']:.4f} ms (synchronised per "
+                  f"launch {times[3]:.4f}; plain {entry['plain_ms']:.4f}, library {lib_txt}, "
+                  f"bound {entry['bound_ms']:.4f} by {entry['bound_by']})")
+    for kernel, (ms, plain_ms, bound_ms, lib_ms, synced_ms) in per_step_ms.items():
+        print(f"  per packed train step, {kernel}: {ms:.4f} ms (synchronised per launch "
+              f"{synced_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.4f}, library "
+              f"{lib_ms:.4f} (where one exists); launches {counts_t[kernel]} in phase 5t"
+              + (f", {counts_p[kernel]} in phase 5p" if kernel in FORWARD_KERNELS else ""))
+    sums = [sum(v[i] for v in per_step_ms.values()) for i in (0, 4)]
+    print(f"  per packed train step, all packed kernels: {sums[0]:.4f} ms (synchronised per "
+          f"launch {sums[1]:.4f})")
     print(f"  eval images/s, 512² bf16 batch 8: packed {bodies['packed'][1]:.2f} "
           f"(peak {bodies['packed'][2]:.0f} MiB), standard {bodies['standard'][1]:.2f} "
           f"(peak {bodies['standard'][2]:.0f} MiB)")
     print(f"  images/s: baseline_1 train() {b1_ips}, baseline_1 unfused "
-          f"{b1u_ips:.2f}, 512² bf16 fused {ips_f:.2f}, unfused {ips_u:.2f}")
+          f"{b1u_ips:.2f}, 512² bf16 fused {ips_f:.2f}, unfused {ips_u:.2f}; packed "
+          f"train {ips_t:.2f}, unfused {ips_tu:.2f}")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

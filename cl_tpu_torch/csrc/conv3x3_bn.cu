@@ -1,40 +1,54 @@
 // 3x3 SAME conv over NHWC with a BN-ReLU prologue and a batch-stats
-// epilogue, forward.
+// epilogue: the forward and the input gradient (dx).
 //
-// Replaces the TPU kernel cl_tpu/pallas/conv3x3_v3.py::_fwd_bn_kernel
-// (launched at conv3x3_v3.py:833 by `conv_bn_fused`, body :710-747):
+// Replaces the TPU kernels of cl_tpu/pallas/conv3x3_v3.py:
+// ::_fwd_bn_kernel (launched at conv3x3_v3.py:833 by `conv_bn_fused`,
+// body :710-747) and, from its VJP's fused branch (`_cbf_bwd`, :951-961),
+// ::_dx_slim_kernel (:1233) and ::_dx_bn_kernel (:1259, `_dx_bn_impl`).
 //
+// Forward:
 //   t = round(relu(x * a[ci] + b[ci]))   when the prologue is on, else x
 //   y = round(conv3x3_SAME(t, w))        f32 accumulation (:384-391)
 //   s1[co] = sum of y, s2[co] = sum of y^2, taken from the ROUNDED y
+// dx (the conv of e with the flipped, transposed weight, e formed while
+// staging, conv3x3_v3.py:1064-1110):
+//   e  = round(dy + ds1[co] + 2 * y * ds2[co])  (e = dy without stats
+//        cotangents), zero outside the image
+//   dt = conv3x3_SAME(e, w_flip^T)       f32 accumulator, not rounded
+//   prologue on: u = x * a + b, du = [u > 0] * dt, dx = round(du * a),
+//                da = sum of du * x, db = sum of du   (:1082-1088)
+//   prologue off: dx = round(dt)
 //
-// The rounding points are the TPU kernel's: t is rounded to the compute
+// The rounding points are the TPU kernels': t is rounded to the compute
 // type before the conv (:686-690), y once after it, and the stats come from
-// the stored y (:727-731). The SAME padding is zero in t-space: the halo is
-// zeroed after the prologue (:693-716), so a border pixel never sees
-// relu(b). The TPU kernel's lane packing and its stem's channel padding
-// (3 -> 128/p, cl_tpu/models/unet.py:476-485) are layout devices: zeros
-// add nothing, and here the input channels are walked in chunks of 16 with
-// the tail zero-filled.
+// the stored y (:727-731); e is rounded before the dx conv (:1050-1061),
+// and the dx epilogue reads the f32 accumulator. The SAME padding is zero
+// in t-space and in e-space (conv3x3_bn.cuh). The TPU kernel's lane packing
+// and its stem's channel padding (3 -> 128/p, cl_tpu/models/unet.py:476-485)
+// are layout devices: zeros add nothing, and here the input channels are
+// walked in chunks of 16 with the tail zero-filled.
 //
 // What bounds it on the H100: at the packed body's shapes, bytes on the
 // tensor cores (512^2 x 32 -> 32 at batch 8: 38.7 GFLOP, 39 us at
-// 989 TFLOP/s, against 268 MB of input and output, 80 us at 3.35 TB/s),
-// operations on the FMA units (580 us at the f32 peak of 67 TFLOP/s).
+// 989 TFLOP/s, against 268 MB of input and output, 80 us at 3.35 TB/s;
+// the dx reads dy, y and x and writes dx, 537 MB, 160 us), operations on
+// the FMA units (580 us at the f32 peak of 67 TFLOP/s).
 //
-// Two kernels:
+// Two kernels, each templated on what it computes (forward or dx); the
+// staging of the window and the epilogue differ, the tile, the tap loop
+// and the fixed-order sums are shared:
 //
 // * bf16: an implicit GEMM on the tensor cores, mma.sync m16n8k16 with f32
 //   accumulation (bf16 products are exact, so only the f32 sum order
 //   differs from the TPU's). A block of 256 threads (8 warps) computes a
 //   16 x 16 pixel tile for 32 or 64 output channels. Per 16-channel input
-//   chunk it stages the 18 x 18 window (prologue applied, out-of-image
-//   pixels zero) as [pixel][channel] and the weights as [tap][co][channel],
-//   both bf16 with a 24-element row (16 channels + 8 of padding), so every
-//   32-bit fragment load of a warp hits 32 distinct banks. Each warp owns
-//   two output rows (two m16 tiles, one image row each) and all the
-//   block's channels; per tap it loads two A fragments straight from the
-//   window (the tap's shift is an offset) and one B fragment per n8 tile.
+//   chunk it stages the 18 x 18 window (t or e, out-of-image pixels zero)
+//   as [pixel][channel] and the weights as [tap][co][channel], both bf16
+//   with a 24-element row (16 channels + 8 of padding), so every 32-bit
+//   fragment load of a warp hits 32 distinct banks. Each warp owns two
+//   output rows (two m16 tiles, one image row each) and all the block's
+//   channels; per tap it loads two A fragments straight from the window
+//   (the tap's shift is an offset) and one B fragment per n8 tile.
 // * f32: FMA, since TF32 would round the products. A block of 128 threads
 //   (4 warps) computes the same 16 x 16 tile for 32 output channels, with
 //   window and weights staged as f32; each warp owns 8 output channels
@@ -42,30 +56,68 @@
 //   one row with 8 x 8 accumulators: per input channel and kernel row it
 //   reads 10 inputs and 3 x 8 weights (as float4) for 192 FMAs.
 //
-// Both epilogues round y, store it, and sum y and y^2 of their pixels; a
-// block sums its threads by shuffles and shared memory in a fixed order and
-// writes one partial row, which a second launch sums over the blocks in a
-// fixed order. No float atomics: a run repeats its sums bit for bit.
+// The epilogues that sum (the forward's stats, the dx's da and db) sum a
+// block's threads by shuffles and shared memory in a fixed order and write
+// one partial row, which a second launch sums over the blocks in a fixed
+// order. No float atomics: a run repeats its sums bit for bit.
 
-#include "common.cuh"
+#include "conv3x3_bn.cuh"
 
 namespace cltorch {
 namespace {
 
-constexpr int kTH = 16, kTW = 16;          // output tile (rows, cols)
-constexpr int kCoT = 32, kCiT = 16;        // output channels / input chunk
-constexpr int kWinH = kTH + 2, kWinW = kTW + 2;
+constexpr int kCoT = 32, kCiT = 16;  // output channels / input chunk
 constexpr int kConvThreads = 128;
 
-template <typename T>
-__global__ void __launch_bounds__(kConvThreads)
-conv3x3_bn_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  const float* __restrict__ pa, const float* __restrict__ pb,
-                  T* __restrict__ y, float* __restrict__ partials, int H, int W, int Cin,
-                  int Cout, int prologue) {
+// Operands of one launch. `Cin` / `Cout` are the channels the kernel reads
+// and writes: for dx, the forward's Cout and Cin.
+template <typename T> struct ConvArgs {
+  const T* in;         // forward: x; dx: dy
+  const T* y;          // dx: the forward's output (for e)
+  const float* s1;     // dx: the stats cotangents, or null (e = dy)
+  const float* s2;
+  const T* w;          // bf16: [3, 3, Cout, Cin]; f32: [Cin, 3, 3, Cout]
+  const float* pa;     // prologue scale/shift: the forward's input
+  const float* pb;     //   channels (forward staging, dx epilogue)
+  const T* x;          // dx epilogue: the forward's input
+  T* out;              // y or dx
+  float* partials;     // per-block rows [2, Cout] of the sums
+  int H, W, Cin, Cout;
+  int prologue;
+};
+
+// The epilogue at one output (pixel offset `pix`, channel o) from the f32
+// accumulator: returns the stored value and adds to the two sums.
+template <bool DX, typename T>
+__device__ __forceinline__ T epilogue_one(const ConvArgs<T>& p, int64_t pix, int o, float acc,
+                                          float& s1, float& s2) {
+  if constexpr (!DX) {
+    const T yv = from_f32<T>(acc);
+    const float yr = to_f32(yv);
+    s1 += yr;
+    s2 = fmaf(yr, yr, s2);
+    return yv;
+  } else {
+    if (!p.prologue) return from_f32<T>(acc);
+    const float xv = to_f32(p.x[pix * p.Cout + o]);
+    const float du = __fadd_rn(__fmul_rn(xv, p.pa[o]), p.pb[o]) > 0.f ? acc : 0.f;
+    s1 = fmaf(du, xv, s1);
+    s2 += du;
+    return from_f32<T>(__fmul_rn(du, p.pa[o]));
+  }
+}
+
+template <bool DX, typename T>
+__device__ __forceinline__ bool has_sums(const ConvArgs<T>& p) {
+  return !DX || p.prologue;
+}
+
+template <bool DX, typename T>
+__global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p) {
   __shared__ __align__(16) float in_s[kCiT][kWinH][kWinW];
   __shared__ __align__(16) float w_s[kCiT][9][kCoT];
 
+  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
   const int tiles_x = (W + kTW - 1) / kTW;
   const int gy0 = (blockIdx.x / tiles_x) * kTH, gx0 = (blockIdx.x % tiles_x) * kTW;
   const int co0 = blockIdx.y * kCoT;
@@ -73,13 +125,13 @@ conv3x3_bn_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ty = lane >> 1, seg = lane & 1;  // output row, 8-pixel segment
   const int cg = warp * 8;                   // first output channel of the warp
-  const T* xb = x + (int64_t)b * H * W * Cin;
+  const int64_t img = (int64_t)b * H * W;    // first pixel of the image
 
   float acc[8][8];
 #pragma unroll
-  for (int p = 0; p < 8; ++p)
+  for (int q = 0; q < 8; ++q)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[p][c] = 0.f;
+    for (int c = 0; c < 8; ++c) acc[q][c] = 0.f;
 
   for (int ci0 = 0; ci0 < Cin; ci0 += kCiT) {
     __syncthreads();
@@ -87,10 +139,10 @@ conv3x3_bn_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int ci = e % kCiT, pix = e / kCiT;
       const int wx = pix % kWinW, wy = pix / kWinW;
       const int gy = gy0 - 1 + wy, gx = gx0 - 1 + wx, c = ci0 + ci;
-      float v = 0.f;  // SAME padding, zero in t-space
+      float v = 0.f;  // SAME padding: zero in t-space and in e-space
       if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin) {
-        v = to_f32(xb[((int64_t)gy * W + gx) * Cin + c]);
-        if (prologue) v = round_to<T>(fmaxf(__fadd_rn(__fmul_rn(v, pa[c]), pb[c]), 0.f));
+        const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
+        v = DX ? e_at(p.in, p.y, i, c, p.s1, p.s2) : t_at(p.in, i, c, p.prologue, p.pa, p.pb);
       }
       in_s[ci][wy][wx] = v;
     }
@@ -98,7 +150,7 @@ conv3x3_bn_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int co = e % kCoT, rest = e / kCoT;
       const int k = rest % 9, ci = rest / 9;
       const int c = ci0 + ci, o = co0 + co;
-      w_s[ci][k][co] = (c < Cin && o < Cout) ? to_f32(w[((int64_t)c * 9 + k) * Cout + o]) : 0.f;
+      w_s[ci][k][co] = (c < Cin && o < Cout) ? to_f32(p.w[((int64_t)c * 9 + k) * Cout + o]) : 0.f;
     }
     __syncthreads();
 
@@ -116,36 +168,32 @@ conv3x3_bn_kernel(const T* __restrict__ x, const T* __restrict__ w,
           const float4 w1 = *reinterpret_cast<const float4*>(&w_s[ci][ky * 3 + kx][cg + 4]);
           const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
-          for (int p = 0; p < 8; ++p)
+          for (int q = 0; q < 8; ++q)
 #pragma unroll
-            for (int c = 0; c < 8; ++c) acc[p][c] = fmaf(v[p + kx], wv[c], acc[p][c]);
+            for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(v[q + kx], wv[c], acc[q][c]);
         }
       }
     }
   }
 
-  // Epilogue: round, store, and sum the stored values.
+  // Epilogue: store, and sum.
   float s1[8], s2[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) s1[c] = s2[c] = 0.f;
   const int gy = gy0 + ty;
 #pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int gx = gx0 + seg * 8 + p;
+  for (int q = 0; q < 8; ++q) {
+    const int gx = gx0 + seg * 8 + q;
     if (gy < H && gx < W) {
-      T* dst = y + (((int64_t)b * H + gy) * W + gx) * Cout + co0 + cg;
+      const int64_t pix = img + (int64_t)gy * W + gx;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        if (co0 + cg + c < Cout) {
-          const T yv = from_f32<T>(acc[p][c]);
-          dst[c] = yv;
-          const float yr = to_f32(yv);
-          s1[c] += yr;
-          s2[c] = fmaf(yr, yr, s2[c]);
-        }
+        const int o = co0 + cg + c;
+        if (o < Cout) p.out[pix * Cout + o] = epilogue_one<DX>(p, pix, o, acc[q][c], s1[c], s2[c]);
       }
     }
   }
+  if (!has_sums<DX>(p)) return;
   const int blk = b * gridDim.x + blockIdx.x;  // partial row of this tile
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
@@ -153,8 +201,8 @@ conv3x3_bn_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const float t2 = warp_sum(s2[c]);
     const int o = co0 + cg + c;
     if (lane == 0 && o < Cout) {
-      partials[(int64_t)blk * 2 * Cout + o] = t1;
-      partials[(int64_t)blk * 2 * Cout + Cout + o] = t2;
+      p.partials[(int64_t)blk * 2 * Cout + o] = t1;
+      p.partials[(int64_t)blk * 2 * Cout + Cout + o] = t2;
     }
   }
 }
@@ -163,49 +211,24 @@ conv3x3_bn_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
 constexpr int kMmaThreads = 256;
 constexpr int kRowS = 24;  // bf16 per staged row: 16 channels + 8 padding
 
-// Eight channels [c, c + 8) of one pixel (or weight row) into `dst`, zero
-// past Cin; with the prologue, t = round(relu(x * a + b)) on the real ones.
-__device__ __forceinline__ void stage8(bf16* dst, const bf16* src, int c, int Cin, bool inside,
-                                       int prologue, const float* pa, const float* pb) {
-  alignas(16) bf16 v[8];
-  if (inside && (Cin & 7) == 0 && c < Cin) {
-    load16<bf16>(v, src, 0);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = (inside && c + k < Cin) ? src[k] : __float2bfloat16(0.f);
-  }
-  if (prologue && inside) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (c + k < Cin)
-        v[k] = __float2bfloat16(
-            fmaxf(__fadd_rn(__fmul_rn(__bfloat162float(v[k]), pa[c + k]), pb[c + k]), 0.f));
-  }
-  store16<bf16>(dst, 0, v);
-}
-
-template <int COT>
-__global__ void __launch_bounds__(kMmaThreads)
-conv3x3_bn_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                      const float* __restrict__ pa, const float* __restrict__ pb,
-                      bf16* __restrict__ y, float* __restrict__ partials, int H, int W, int Cin,
-                      int Cout, int prologue) {
+template <bool DX, int COT>
+__global__ void __launch_bounds__(kMmaThreads) conv3x3_bn_mma_kernel(ConvArgs<bf16> p) {
   constexpr int NT = COT / 8;  // n8 tiles per warp
   __shared__ __align__(16) bf16 in_s[kWinH * kWinW * kRowS];
   __shared__ __align__(16) bf16 w_s[9 * COT * kRowS];
   __shared__ float red[kMmaThreads / 32][2][COT];
 
+  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
   const int tiles_x = (W + kTW - 1) / kTW;
   const int gy0 = (blockIdx.x / tiles_x) * kTH, gx0 = (blockIdx.x % tiles_x) * kTW;
   const int co0 = blockIdx.y * COT;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in group
-  const bf16* xb = x + (int64_t)b * H * W * Cin;
+  const int64_t img = (int64_t)b * H * W;
 
   float acc[2][NT][4];
 #pragma unroll
@@ -222,15 +245,20 @@ conv3x3_bn_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
       const int c = ci0 + half * 8;
-      stage8(&in_s[pix * kRowS + half * 8], xb + ((int64_t)gy * W + gx) * Cin + c, c, Cin,
-             inside, prologue, pa, pb);
+      const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
+      if constexpr (DX)
+        stage8_e(&in_s[pix * kRowS + half * 8], p.in + i, p.s1 ? p.y + i : nullptr, c, Cin,
+                 inside, p.s1, p.s2);
+      else
+        stage8_t(&in_s[pix * kRowS + half * 8], p.in + i, c, Cin, inside, p.prologue, p.pa,
+                 p.pb);
     }
     for (int e = threadIdx.x; e < 9 * COT * 2; e += kMmaThreads) {
       const int half = e & 1, row = e >> 1;  // row = tap * COT + co
       const int co = row % COT, tap = row / COT;
       const int c = ci0 + half * 8;
-      stage8(&w_s[row * kRowS + half * 8], w + ((int64_t)tap * Cout + co0 + co) * Cin + c, c,
-             Cin, co0 + co < Cout, 0, pa, pb);
+      stage8_t(&w_s[row * kRowS + half * 8], p.w + ((int64_t)tap * Cout + co0 + co) * Cin + c, c,
+               Cin, co0 + co < Cout, 0, nullptr, nullptr);
     }
     __syncthreads();
 
@@ -261,8 +289,8 @@ conv3x3_bn_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
   }
 
-  // Epilogue: round, store, and sum the stored values. Thread (g, t) holds
-  // pixels g and g + 8 of rows warp*2 + m, channels n*8 + 2t and + 1.
+  // Epilogue: store, and sum. Thread (g, t) holds pixels g and g + 8 of
+  // rows warp*2 + m, channels n*8 + 2t and + 1.
   float s1[NT][2], s2[NT][2];
 #pragma unroll
   for (int n = 0; n < NT; ++n) s1[n][0] = s1[n][1] = s2[n][0] = s2[n][1] = 0.f;
@@ -273,27 +301,28 @@ conv3x3_bn_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     for (int hp = 0; hp < 2; ++hp) {
       const int gx = gx0 + g + hp * 8;
       if (gy >= H || gx >= W) continue;
-      bf16* dst = y + (((int64_t)b * H + gy) * W + gx) * Cout;
+      const int64_t pix = img + (int64_t)gy * W + gx;
+      bf16* dst = p.out + pix * Cout;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int o = co0 + n * 8 + 2 * t;
-        const bf16 r0 = __float2bfloat16(acc[m][n][hp * 2]);
-        const bf16 r1 = __float2bfloat16(acc[m][n][hp * 2 + 1]);
+        const bf16 r0 = o < Cout
+                            ? epilogue_one<DX>(p, pix, o, acc[m][n][hp * 2], s1[n][0], s2[n][0])
+                            : __float2bfloat16(0.f);
+        const bf16 r1 =
+            o + 1 < Cout
+                ? epilogue_one<DX>(p, pix, o + 1, acc[m][n][hp * 2 + 1], s1[n][1], s2[n][1])
+                : __float2bfloat16(0.f);
         if (o + 1 < Cout && (Cout & 1) == 0) {
           *reinterpret_cast<__nv_bfloat162*>(dst + o) = __halves2bfloat162(r0, r1);
         } else {
           if (o < Cout) dst[o] = r0;
           if (o + 1 < Cout) dst[o + 1] = r1;
         }
-        const float f0 = o < Cout ? __bfloat162float(r0) : 0.f;
-        const float f1 = o + 1 < Cout ? __bfloat162float(r1) : 0.f;
-        s1[n][0] += f0;
-        s1[n][1] += f1;
-        s2[n][0] = fmaf(f0, f0, s2[n][0]);
-        s2[n][1] = fmaf(f1, f1, s2[n][1]);
       }
     }
   }
+  if (!has_sums<DX>(p)) return;
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -319,78 +348,83 @@ conv3x3_bn_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     float v = 0.f;
 #pragma unroll
     for (int wp = 0; wp < kMmaThreads / 32; ++wp) v += red[wp][which][co];
-    if (co0 + co < Cout) partials[(int64_t)blk * 2 * Cout + which * Cout + co0 + co] = v;
+    if (co0 + co < Cout) p.partials[(int64_t)blk * 2 * Cout + which * Cout + co0 + co] = v;
   }
 }
 
-template <int COT>
-void conv3x3_bn_mma_grid(const void* x, const void* w, const void* a, const void* b, void* y,
-                         void* partials, int tiles, int B, int H, int W, int Cin, int Cout,
-                         int prologue, cudaStream_t st) {
-  dim3 grid(tiles, (Cout + COT - 1) / COT, B);
-  conv3x3_bn_mma_kernel<COT><<<grid, kMmaThreads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<bf16*>(y), static_cast<float*>(partials), H, W,
-      Cin, Cout, prologue);
-}
-
-int conv3x3_bn_mma_launch(const void* x, const void* w, const void* a, const void* b, void* y,
-                          void* partials, void* out, int B, int H, int W, int Cin, int Cout,
-                          int prologue, cudaStream_t st) {
+// Launches the kernel of the type and, when it sums, the reduction of its
+// partial rows into out [2, Cout].
+template <bool DX>
+int conv3x3_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, int B, void* out,
+                   cudaStream_t st) {
+  const int H = pf32.H, W = pf32.W, Cout = pf32.Cout;
   const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
-  if (Cout % 64 == 0)
-    conv3x3_bn_mma_grid<64>(x, w, a, b, y, partials, tiles, B, H, W, Cin, Cout, prologue, st);
+  if (!is_bf16)
+    conv3x3_bn_kernel<DX, float>
+        <<<dim3(tiles, (Cout + kCoT - 1) / kCoT, B), kConvThreads, 0, st>>>(pf32);
+  else if (Cout % 64 == 0)
+    conv3x3_bn_mma_kernel<DX, 64><<<dim3(tiles, Cout / 64, B), kMmaThreads, 0, st>>>(pb16);
   else
-    conv3x3_bn_mma_grid<32>(x, w, a, b, y, partials, tiles, B, H, W, Cin, Cout, prologue, st);
+    conv3x3_bn_mma_kernel<DX, 32>
+        <<<dim3(tiles, (Cout + 31) / 32, B), kMmaThreads, 0, st>>>(pb16);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(
-      static_cast<const float*>(partials), tiles * B, 2 * Cout, 2 * Cout, static_cast<float*>(out));
+  if (err != cudaSuccess || (DX && !pf32.prologue)) return (int)err;
+  reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(pf32.partials, tiles * B, 2 * Cout,
+                                                          2 * Cout, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
-
-// ---------------------------------------------------------------------------
-// f32: FMA
-// ---------------------------------------------------------------------------
 
 template <typename T>
-int conv3x3_bn_launch(const void* x, const void* w, const void* a, const void* b, void* y,
-                      void* partials, void* out, int B, int H, int W, int Cin, int Cout,
-                      int prologue, cudaStream_t st) {
-  const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
-  dim3 grid(tiles, (Cout + kCoT - 1) / kCoT, B);
-  conv3x3_bn_kernel<T><<<grid, kConvThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<T*>(y), static_cast<float*>(partials), H, W, Cin,
-      Cout, prologue);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(
-      static_cast<const float*>(partials), tiles * B, 2 * Cout, 2 * Cout, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+ConvArgs<T> conv_args(const void* in, const void* y, const void* s1, const void* s2,
+                      const void* w, const void* a, const void* b, const void* x, void* out,
+                      void* partials, int H, int W, int Cin, int Cout, int prologue) {
+  return ConvArgs<T>{static_cast<const T*>(in),    static_cast<const T*>(y),
+                     static_cast<const float*>(s1), static_cast<const float*>(s2),
+                     static_cast<const T*>(w),     static_cast<const float*>(a),
+                     static_cast<const float*>(b), static_cast<const T*>(x),
+                     static_cast<T*>(out),         static_cast<float*>(partials),
+                     H,                            W,
+                     Cin,                          Cout,
+                     prologue};
 }
 
 }  // namespace
 }  // namespace cltorch
 
-// Plain C interface, loaded with ctypes; returns cudaGetLastError(). The
-// wrapper (cl_tpu_torch/kernels/conv3x3.py) checks the operands: x
-// contiguous NHWC [B, H, W, Cin], 16-byte aligned; w contiguous of x's
-// type, [3, 3, Cout, Cin] for bf16 and [Cin, 3, 3, Cout] for f32; a, b f32
-// [Cin] (read only when `prologue`); y [B, H, W, Cout];
-// `partials` holds (number of 16 x 16 tiles) * B * 2 * Cout floats; `out`
-// is [2, Cout] (sum, sum of squares).
+// Plain C interface, loaded with ctypes; each returns cudaGetLastError().
+// The wrapper (cl_tpu_torch/kernels/conv3x3.py) checks the operands: NHWC
+// tensors contiguous and 16-byte aligned, of one type; w of that type,
+// [3, 3, Cout, Cin] for bf16 and [Cin, 3, 3, Cout] for f32 in the
+// kernel's own Cin / Cout (for dx: the flipped, transposed weight); a, b
+// f32 [Cin] for the forward, [Cout] for dx (read only with `prologue`);
+// s1, s2 f32 [Cin] or null; `partials` holds (number of 16 x 16 tiles) *
+// B * 2 * Cout floats; `out` is [2, Cout]: the forward's (sum, sum of
+// squares), dx's (da, db).
 extern "C" {
 
 int cltorch_conv3x3_bn_fwd(const void* x, const void* w, const void* a, const void* b, void* y,
                            void* partials, void* out, int B, int H, int W, int Cin, int Cout,
                            int prologue, int is_bf16, void* stream) {
   using namespace cltorch;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? conv3x3_bn_mma_launch(x, w, a, b, y, partials, out, B, H, W, Cin, Cout,
-                                         prologue, st)
-                 : conv3x3_bn_launch<float>(x, w, a, b, y, partials, out, B, H, W, Cin, Cout,
-                                            prologue, st);
+  return conv3x3_launch<false>(
+      conv_args<bf16>(x, nullptr, nullptr, nullptr, w, a, b, nullptr, y, partials, H, W, Cin,
+                      Cout, prologue),
+      conv_args<float>(x, nullptr, nullptr, nullptr, w, a, b, nullptr, y, partials, H, W, Cin,
+                       Cout, prologue),
+      is_bf16, B, out, static_cast<cudaStream_t>(stream));
+}
+
+// dx of the conv: dy, y [B, H, W, Cin] (the forward's output side), x and
+// dx [B, H, W, Cout] (its input side).
+int cltorch_conv3x3_bn_dx(const void* dy, const void* y, const void* s1, const void* s2,
+                          const void* w, const void* x, const void* a, const void* b, void* dx,
+                          void* partials, void* out, int B, int H, int W, int Cin, int Cout,
+                          int prologue, int is_bf16, void* stream) {
+  using namespace cltorch;
+  return conv3x3_launch<true>(
+      conv_args<bf16>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
+      conv_args<float>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
+      is_bf16, B, out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,0 +1,115 @@
+"""Time the packed body's kernels of two checkouts in turns on one card.
+
+    python3 -m cl_tpu_torch.kernel_ab OLD_DIR NEW_DIR [KERNEL ...]
+
+Each directory is a checkout's root (it holds ``chip_smoke.py`` and its
+``cl_tpu_torch``). The turns run old, new, new, old, each in a process of
+its own whose ``sys.path`` starts with that checkout, so each version
+builds and launches its own kernels. Every turn times each kernel (default:
+the five forward kernels) at every shape of that checkout's 512² path
+(``chip_smoke.PACKED_PATH``, bf16, batch 8, ``chip_smoke.packed_operands``)
+with this file's ``time_ms`` (``chip_smoke.py`` times with it too), the
+same for both versions: the median of 20 launches from CUDA events around
+each, once with the launches queued back to back and once synchronised
+after each. Prints per kernel and shape the two versions' medians over
+their turns, the sums over one packed step, and the card's
+``nvidia-smi`` name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+FORWARD = ("conv3x3_bn_fwd", "bn_relu_fwd", "add_stats_fwd", "maxpool_fwd", "upconv_fwd")
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
+    """Median device time of ``fn`` over ``reps`` launches, from CUDA events
+    recorded around each. ``queued``: the launches are queued back to back
+    and synchronised once, so the host runs ahead of the card as in a step
+    and a wrapper's host work between its launches (checks, allocation,
+    the fixed-order sum's second launch) is not counted; else each launch
+    is synchronised, and that host work is counted."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        if not queued:
+            end.synchronize()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def _worker(root, kernels):
+    """One turn in checkout ``root``: {kernel: [[shape, n per step, queued
+    ms, synchronised ms], ...]} as one JSON line."""
+    sys.path = [root] + [p for p in sys.path if os.path.abspath(p or ".") !=
+                         os.path.dirname(os.path.abspath(__file__))]
+    import chip_smoke
+    from cl_tpu_torch.kernels import build
+
+    build.build()
+    build.library()
+    out = {}
+    for kernel in kernels:
+        launch = chip_smoke.packed_fns(kernel)[0]
+        for shape, n in chip_smoke.PACKED_PATH[kernel]:
+            ops = chip_smoke.packed_operands(kernel, shape, "bfloat16")
+            out.setdefault(kernel, []).append(
+                [list(shape), n, time_ms(lambda: launch(*ops)),
+                 time_ms(lambda: launch(*ops), queued=False)])
+    print(json.dumps(out))
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--worker"]:
+        _worker(argv[1], argv[2:])
+        return 0
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    dirs = {"old": os.path.abspath(argv[0]), "new": os.path.abspath(argv[1])}
+    kernels = argv[2:] or list(FORWARD)
+    turns = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
+                              dirs[which], *kernels], cwd=dirs[which], capture_output=True,
+                             text=True, check=True)
+        turns[which].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    for kernel in kernels:
+        sums = {}
+        for i, (shape, n, _, _) in enumerate(turns["new"][0][kernel]):
+            row = []
+            for which in ("old", "new"):
+                q, s = (float(np.median([t[kernel][i][j] for t in turns[which]]))
+                        for j in (2, 3))
+                acc = sums.setdefault(which, [0.0, 0.0])
+                acc[0] += n * q
+                acc[1] += n * s
+                row.append(f"{which} {q:.4f} (synchronised {s:.4f})")
+            print(f"{kernel}{shape} x{n}/step: " + ", ".join(row))
+        print(f"{kernel} per step: " + ", ".join(
+            f"{w} {q:.4f} ms (synchronised {s:.4f})" for w, (q, s) in sums.items()))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -40,6 +40,13 @@ SIGNATURES = {
     "cltorch_add_stats_fwd": [P, P, P, P, P, L, I, I, I, P],
     "cltorch_maxpool_fwd": [P, P, I, I, I, I, I, P],
     "cltorch_upconv_fwd": [P, P, P, P, I, I, I, I, I, I, P],
+    "cltorch_bn_relu_bwd": [P, P, P, P, P, P, P, L, I, I, I, P],
+    "cltorch_dy_eff": [P, P, P, P, P, L, I, I, P],
+    "cltorch_maxpool_bwd": [P, P, P, P, I, I, I, I, I, P],
+    "cltorch_upconv_dx": [P, P, P, I, I, I, I, I, I, P],
+    "cltorch_upconv_dw": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "cltorch_conv3x3_bn_dx": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "cltorch_conv3x3_bn_dw": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
 }
 
 

@@ -1,5 +1,5 @@
-"""3×3 SAME conv with a BN·ReLU prologue and a batch-stats epilogue, forward
-(``csrc/conv3x3_bn.cu``).
+"""3×3 SAME conv with a BN·ReLU prologue and a batch-stats epilogue, and its
+backward (``csrc/conv3x3_bn.cu``, ``csrc/conv3x3_bn_bwd.cu``).
 
 Counterpart of ``cl_tpu.pallas.conv3x3_v3.conv_bn_fused``: every conv of
 the packed body. With ``prologue`` on, the input is first mapped to
@@ -9,12 +9,21 @@ summed in f32 and rounded to x's dtype, and the per-channel Σy and Σy² of
 the ROUNDED y. The SAME padding is zero in t-space, never relu(b). The
 TPU kernel returns per-lane sums of its packed view; these are per channel.
 
+The backward follows ``_cbf_bwd``'s fused branch (``conv3x3_v3.py:951-961``):
+e = dy + dΣy + 2·y·dΣy² in f32, rounded to the dtype (e = dy when both
+stats cotangents are None: autograd's cotangent of an unused sum), zero
+outside the image; dt = conv(e, w flipped and transposed) in f32, NOT
+rounded before the prologue's backward: u = x·a + b, dx = [u>0]·dt·a
+rounded, da = Σ[u>0]·dt·x, db = Σ[u>0]·dt (without the prologue dx is dt
+rounded); dW = Σ tᵀ★e with t recomputed, summed in f32 and rounded once to
+the dtype (``dw.astype(w.dtype)``, w being of the compute dtype there).
+dx is computed only where autograd needs it (not for the stem's image).
+
 ``w`` is the port's conv weight [Cout, Cin, 3, 3] (f32), rounded to x's
 dtype as the JAX package rounds its kernel. Tensors are NHWC.
 
-On a CUDA tensor ``conv_bn_fused`` launches the kernel, on a CPU tensor it
-runs ``conv_bn_plain``; the backward is a later slice and raises.
-``LAUNCHES`` counts the kernel launches.
+On a CUDA tensor the wrappers launch the kernels, on a CPU tensor they run
+the plain versions. ``LAUNCHES`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -22,42 +31,110 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from cl_tpu_torch.kernels import backward_later, build
+from cl_tpu_torch.kernels import SPLIT_BLOCKS, build
 
-TILE = 16  # output tile of the kernel (rows and columns)
+TILE = 16  # output tile of the kernels (rows and columns)
 
-LAUNCHES = {"conv3x3_bn_fwd": 0}
+LAUNCHES = {"conv3x3_bn_fwd": 0, "conv3x3_bn_dx": 0, "conv3x3_bn_dx_bn": 0,
+            "conv3x3_bn_dw": 0}
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def prologue_t(x, a, b, prologue):
+    """t: x through the BN·ReLU prologue (rounded to x's dtype), or x."""
+    return torch.relu(x.float() * a + b).to(x.dtype) if prologue else x
+
+
+def _nchw(t):
+    return t.float().permute(0, 3, 1, 2)
 
 
 def conv_bn_plain(x, w, a=None, b=None, prologue=False):
-    t = torch.relu(x.float() * a + b).to(x.dtype) if prologue else x
-    y = F.conv2d(t.float().permute(0, 3, 1, 2), w.to(x.dtype).float(), padding=1)
+    t = prologue_t(x, a, b, prologue)
+    y = F.conv2d(_nchw(t), w.to(x.dtype).float(), padding=1)
     y = y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
     yf = y.float().reshape(-1, y.shape[-1])
     return y, yf.sum(0), (yf * yf).sum(0)
 
 
+def dy_eff(dy, y, ds1, ds2):
+    """e = dy + ds1 + 2·y·ds2 in f32, rounded to dy's dtype; dy itself when
+    both are None."""
+    if ds1 is None and ds2 is None:
+        return dy
+    e = dy.float()
+    if ds1 is not None:
+        e = e + ds1
+    if ds2 is not None:
+        e = e + 2.0 * y.float() * ds2
+    return e.to(dy.dtype)
+
+
+def conv_dx_plain(x, w, a, b, y, dy, ds1, ds2, prologue):
+    """(dx, da, db) of ``conv_bn_fused``; da, db None without the prologue."""
+    e = dy_eff(dy, y, ds1, ds2)
+    dt = F.conv_transpose2d(_nchw(e), w.to(x.dtype).float(), padding=1).permute(0, 2, 3, 1)
+    if not prologue:
+        return dt.to(x.dtype), None, None
+    xf = x.float()
+    du = torch.where(xf * a + b > 0, dt, 0.0)
+    dx = (du * a).to(x.dtype)
+    du, xf = du.reshape(-1, x.shape[-1]), xf.reshape(-1, x.shape[-1])
+    return dx, (du * xf).sum(0), du.sum(0)
+
+
+def conv_dw_plain(x, w, a, b, y, dy, ds1, ds2, prologue):
+    """dW [Cout, Cin, 3, 3] rounded to x's dtype, as f32."""
+    e = dy_eff(dy, y, ds1, ds2)
+    dw = torch.nn.grad.conv2d_weight(_nchw(prologue_t(x, a, b, prologue)), w.shape, _nchw(e),
+                                     padding=1)
+    return dw.to(x.dtype).float()
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+
+def _check_nhwc(t, what):
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: f32 or bf16 only, got {t.dtype}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{what} needs a contiguous 16-byte-aligned NHWC tensor")
+
+
+def _vec(v, n, device, what):
+    v = v.to(device=device, dtype=torch.float32).contiguous()
+    if v.shape != (n,):
+        raise ValueError(f"{what}: per-channel vector of shape ({n},), got {tuple(v.shape)}")
+    return v
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _kernel_weight(w, dtype):
+    """The forward conv's weight as the kernels read it: the tensor-core
+    kernel (bf16) [3, 3, Cout, Cin], the FMA one (f32) [Cin, 3, 3, Cout]."""
+    order = (2, 3, 0, 1) if dtype == torch.bfloat16 else (1, 2, 3, 0)
+    return w.to(dtype).permute(*order).contiguous()
+
+
 def launch_conv_bn(x, w, a=None, b=None, prologue=False):
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"conv3x3_bn kernel: f32 or bf16 only, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("conv3x3_bn kernel needs a contiguous NHWC input")
+    _check_nhwc(x, "conv3x3_bn kernel")
     B, H, W, cin = x.shape
     cout = w.shape[0]
     if w.shape != (cout, cin, 3, 3):
         raise ValueError(f"conv3x3_bn kernel: weight [Cout, {cin}, 3, 3] expected, "
                          f"got {tuple(w.shape)}")
-    if x.data_ptr() % 16:
-        raise ValueError("conv3x3_bn kernel needs a 16-byte-aligned input")
-    # the tensor-core kernel (bf16) reads [3, 3, Cout, Cin], the FMA one
-    # (f32) [Cin, 3, 3, Cout]
-    order = (2, 3, 0, 1) if x.dtype == torch.bfloat16 else (1, 2, 3, 0)
-    wk = w.to(x.dtype).permute(*order).contiguous()
+    wk = _kernel_weight(w, x.dtype)
     if prologue:
-        a = a.to(device=x.device, dtype=torch.float32).contiguous()
-        b = b.to(device=x.device, dtype=torch.float32).contiguous()
-        if a.shape != (cin,) or b.shape != (cin,):
-            raise ValueError(f"conv3x3_bn kernel: prologue vectors of shape ({cin},)")
+        a, b = _vec(a, cin, x.device, "conv prologue"), _vec(b, cin, x.device, "conv prologue")
     else:
         a = b = wk  # not read
     y = torch.empty(B, H, W, cout, dtype=x.dtype, device=x.device)
@@ -67,22 +144,119 @@ def launch_conv_bn(x, w, a=None, b=None, prologue=False):
     err = build.library().cltorch_conv3x3_bn_fwd(
         x.data_ptr(), wk.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
         partials.data_ptr(), out.data_ptr(), B, H, W, cin, cout, int(prologue),
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+        int(x.dtype == torch.bfloat16), _stream(x))
     build.check(err, "conv3x3_bn_fwd")
     return y, out[0], out[1]
+
+
+def _grad_operands(x, w, y, dy, ds1, ds2, what):
+    _check_nhwc(x, what)
+    B, H, W, cin = x.shape
+    cout = w.shape[0]
+    if w.shape != (cout, cin, 3, 3):
+        raise ValueError(f"{what}: weight [Cout, {cin}, 3, 3] expected, got {tuple(w.shape)}")
+    for t in (y, dy):
+        _check_nhwc(t, what)
+        if t.shape != (B, H, W, cout) or t.dtype != x.dtype:
+            raise ValueError(f"{what}: y and dy of shape {(B, H, W, cout)} and {x.dtype}")
+    if ds1 is None and ds2 is None:
+        return None, None
+    zeros = torch.zeros(cout, dtype=torch.float32, device=x.device)
+    return tuple(zeros if v is None else _vec(v, cout, x.device, what) for v in (ds1, ds2))
+
+
+def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue):
+    """(dx, da, db) on the card; da, db None without the prologue."""
+    s1, s2 = _grad_operands(x, w, y, dy, ds1, ds2, "conv3x3_bn dx kernel")
+    B, H, W, cin = x.shape
+    cout = w.shape[0]
+    # the dx conv reads Cout channels and writes Cin: the flipped, transposed
+    # weight in the kernel layout of a conv Cout -> Cin
+    wdx = _kernel_weight(w.flip(2, 3).transpose(0, 1), x.dtype)
+    if prologue:
+        a, b = _vec(a, cin, x.device, "conv prologue"), _vec(b, cin, x.device, "conv prologue")
+    dx = torch.empty_like(x)
+    tiles = -(-H // TILE) * -(-W // TILE)
+    partials = torch.empty(tiles * B if prologue else 1, 2, cin, dtype=torch.float32,
+                           device=x.device)
+    out = torch.empty(2, cin, dtype=torch.float32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = build.library().cltorch_conv3x3_bn_dx(
+        dy.data_ptr(), y.data_ptr(), ptr(s1), ptr(s2), wdx.data_ptr(), x.data_ptr(),
+        ptr(a if prologue else None), ptr(b if prologue else None), dx.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), B, H, W, cout, cin, int(prologue),
+        int(x.dtype == torch.bfloat16), _stream(x))
+    build.check(err, "conv3x3_bn_dx")
+    return (dx, out[0], out[1]) if prologue else (dx, None, None)
+
+
+def dw_splits(cin, cout, B, H, W, bf16):
+    """Blocks the dW kernel splits the pixel tiles over: ~SPLIT_BLOCKS in
+    all, at least one tile each. A function of the shapes alone, so the
+    partial sums run in the same order on every call."""
+    n_tiles = B * -(-H // (TILE if bf16 else TILE // 2)) * -(-W // TILE)
+    channel_tiles = -(-cin // 32) * -(-cout // 32)
+    return max(1, min(-(-SPLIT_BLOCKS // channel_tiles), n_tiles))
+
+
+def launch_conv_dw(x, w, a, b, y, dy, ds1, ds2, prologue):
+    """dW [Cout, Cin, 3, 3] on the card, rounded to x's dtype, as f32."""
+    s1, s2 = _grad_operands(x, w, y, dy, ds1, ds2, "conv3x3_bn dW kernel")
+    B, H, W, cin = x.shape
+    cout = w.shape[0]
+    if prologue:
+        a, b = _vec(a, cin, x.device, "conv prologue"), _vec(b, cin, x.device, "conv prologue")
+    bf16 = x.dtype == torch.bfloat16
+    splits = dw_splits(cin, cout, B, H, W, bf16)
+    partials = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=x.device)
+    dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = build.library().cltorch_conv3x3_bn_dw(
+        x.data_ptr(), ptr(a if prologue else None), ptr(b if prologue else None),
+        dy.data_ptr(), y.data_ptr(), ptr(s1), ptr(s2), partials.data_ptr(), dw.data_ptr(),
+        B, H, W, cin, cout, int(prologue), splits, int(bf16), _stream(x))
+    build.check(err, "conv3x3_bn_dw")
+    return dw.to(x.dtype).float()
+
+
+# ---------------------------------------------------------------------------
+# autograd wrapper and public entry
+# ---------------------------------------------------------------------------
 
 
 class _ConvBN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, a, b, prologue):
+        ctx.set_materialize_grads(False)
+        ctx.prologue = prologue
         if x.is_cuda:
             LAUNCHES["conv3x3_bn_fwd"] += 1
-            return launch_conv_bn(x, w, a, b, prologue)
-        return conv_bn_plain(x, w, a, b, prologue)
+            y, s1, s2 = launch_conv_bn(x, w, a, b, prologue)
+        else:
+            y, s1, s2 = conv_bn_plain(x, w, a, b, prologue)
+        ctx.save_for_backward(x, w, a, b, y)
+        return y, s1, s2
 
     @staticmethod
     def backward(ctx, dy, ds1, ds2):
-        backward_later("conv_bn_fused")
+        x, w, a, b, y = ctx.saved_tensors
+        prologue = ctx.prologue
+        dy = torch.zeros_like(y) if dy is None else dy.to(y.dtype).contiguous()
+        args = (x, w, a, b, y, dy, ds1, ds2, prologue)
+        dx = da = db = dw = None
+        if ctx.needs_input_grad[0] or (prologue and any(ctx.needs_input_grad[2:4])):
+            if x.is_cuda:
+                LAUNCHES["conv3x3_bn_dx_bn" if prologue else "conv3x3_bn_dx"] += 1
+                dx, da, db = launch_conv_dx(*args)
+            else:
+                dx, da, db = conv_dx_plain(*args)
+        if ctx.needs_input_grad[1]:
+            if x.is_cuda:
+                LAUNCHES["conv3x3_bn_dw"] += 1
+                dw = launch_conv_dw(*args)
+            else:
+                dw = conv_dw_plain(*args)
+        return dx, dw, da, db, None
 
 
 def conv_bn_fused(x, w, a=None, b=None, prologue=False):

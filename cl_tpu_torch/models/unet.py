@@ -27,8 +27,12 @@ each level's BatchNorm is deferred (``deferred_bn``) and applied by its
 consumer — the next conv's prologue, or ``bn_relu`` before the pool, the
 up-conv and the head — and the decoder's first conv is split over the
 [skip, up] operands. The deeper levels and the bottleneck run the
-standard modules. Only the forward exists in this slice: a backward
-through a packed kernel raises.
+standard modules. Every packed op is an autograd Function whose backward
+is the JAX package's custom VJP in a kernel of its own, so the packed body
+trains under autograd. Each level's skip and pool are one op whose
+backward takes both cotangents in one launch (``maxpool2x2_packed_tee``):
+``model.pool_tee=false`` gives the same bits in JAX, so the port always
+takes the tee.
 """
 
 from __future__ import annotations
@@ -235,8 +239,9 @@ class UNet(nn.Module):
         for level in range(prefix):
             y, sc, sh = getattr(self, f"enc{level}").packed_plain(x, train)
             z = packed_eltwise.bn_relu(y, sc, sh)
-            skips.append(z)  # the pool's input is the skip (cl_tpu's tee)
-            x = pool_pack.maxpool2x2(z)
+            # the pool's input is the skip
+            z, x = pool_pack.maxpool2x2_tee(z)
+            skips.append(z)
 
         h = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         deep_skips = []

@@ -22,8 +22,11 @@ import torch
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
-    ("loss kernels (cl_tpu_torch)", ("head_ce", "ce_fwd_kernel", "ce_bwd_kernel",
-                                     "reduce_rows")),
+    ("loss kernels (cl_tpu_torch)", ("head_ce", "ce_fwd_kernel", "ce_bwd_kernel")),
+    ("packed body kernels (cl_tpu_torch)", ("conv3x3_bn", "conv3x3_dw", "bn_relu",
+                                            "add_stats", "dy_eff", "maxpool", "upconv",
+                                            "sum_splits")),
+    ("fixed-order sums (cl_tpu_torch)", ("reduce_rows",)),
     ("batch norm", ("batch_norm", "batchnorm", "welford")),
     ("pool", ("max_pool", "pool")),
     ("optimizer", ("adam", "multi_tensor", "foreach")),

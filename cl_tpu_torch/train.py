@@ -2,9 +2,11 @@
 
 The counterpart of ``cl_tpu/train.py`` for the configurations the port
 runs so far: the fine-tune baseline (no EWC / LwF / replay), the standard
-UNet body, the host pipeline, one device; and the eval step of the packed
-body (``model.packed_unet`` at its engage sizes), whose training is a
-later slice (``check_trainable``). Per task: epochs of
+UNet body and the packed one (``model.packed_unet`` at its engage sizes),
+the host pipeline, one device. The packed body trains with the fused
+head+CE on its NHWC features (``train.packed_head_ce=false``) or with the
+CE on logits (``train.fused_head_ce=false``); the packed head+CE kernels
+are a later slice (``check_trainable``). Per task: epochs of
 augment → forward → masked CE → backward → optimizer step, then an eval
 of every seen task; the same JSONL events (``epoch``, ``eval``,
 ``task_done``, ``done``) and the same report as the JAX package.
@@ -107,16 +109,16 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
 
 
 def check_trainable(cfg: Config) -> None:
-    """The packed body runs its forward only (eval, and train-mode forward
-    without grad): a config that engages it cannot train yet."""
-    if _packed_engages(cfg):
-        m = cfg.model
+    """A packed config trains unless its loss would take the packed
+    BN·ReLU + head + CE (``head_cross_entropy_packed_bn``, kernels #7/#8):
+    the fused head with ``train.packed_head_ce`` on, the gate of
+    ``cl_tpu/train.py:371-373``."""
+    if _packed_engages(cfg) and fused_head_on(cfg) and cfg.train.packed_head_ce:
         raise NotImplementedError(
-            f"training with model.packed_unet engaged (image_size="
-            f"{cfg.data.image_size}, packed_min_size={m.packed_min_size}): "
-            "the packed body's backward kernels come in a later slice of the "
-            "port (ROADMAP.md Queue 1); pass model.packed_unet=false to train "
-            "the standard body")
+            "training the packed body with train.packed_head_ce=true: the "
+            "packed BN·ReLU + head + CE kernels (#7/#8) come in a later slice "
+            "of the port (ROADMAP.md Queue 1); pass train.packed_head_ce=false "
+            "(the fused head on the NHWC features) or train.fused_head_ce=false")
 
 
 def build_model(cfg: Config) -> UNet:
