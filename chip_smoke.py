@@ -14,7 +14,10 @@ Phases (any failure raises, so the exit code is non-zero):
    backward kernels at every shape of its 512² path and at 24² × 16
    channels, in f32 and bf16 (the pool's backward plain and with the
    skip tee, the conv's dx with a prologue whose relu(b) > 0, nonzero
-   stats cotangents);
+   stats cotangents); the packed head+CE with the BN·ReLU prologue (#7/#8)
+   and its KD form (#11/#12) at the headline shape (2,097,152 pixels, 32
+   channels, 19 classes, bf16) and at small f32 and ragged ones, each
+   backward launched twice and held bit-equal;
 4. the baseline_1 preset as it ships, through ``train()``: 16 steps and
    one eval (the fused head+CE kernels), then the same shape with
    ``train.fused_head_ce=false`` (the CE kernels) through
@@ -42,6 +45,19 @@ Phases (any failure raises, so the exit code is non-zero):
    depth 4, f32, loss and every param within 1e-4, each param's and
    running statistic's update within 1e-2 of its norm plus one f32 ulp
    per element;
+5h. the headline step: the same config as it ships (``train.packed_head_ce``
+   on: the packed BN·ReLU + head + CE), 3 + 10 steps with launch counts =
+   steps × the per-step counts (one #7 and one #8, one bn_relu forward and
+   backward fewer than 5t's), a falling loss, images/s and peak memory,
+   five pairs of 10 steps in turns against ``train.packed_head_ce=false``,
+   and one SGD step on the card against the CPU at 128² f32;
+5l. LwF on it (``method.methods=lwf``, the teacher a snapshot of the
+   seeded init, the step on task 1): 3 + 10 steps with launch counts (the
+   KD head #11/#12 in place of #7/#8, and the teacher's eval-mode packed
+   forward), images/s and peak memory; one LwF step on the card against
+   the CPU at 128² f32 with a teacher unlike the student (KD term, loss
+   and params); a 2-task ``train()`` at 512² whose mIoU matrix and
+   forgetting report must be finite;
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take.
 
@@ -253,6 +269,186 @@ def kernel_times(case):
                       time_ms(lambda: torch.autograd.grad(lib_loss, zr,
                                                           retain_graph=True)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 / 6: the packed head+CE with the BN·ReLU prologue, alone and with KD
+# ---------------------------------------------------------------------------
+
+BN_KERNELS = {  # launch-count key: (source, TPU kernel's pallas_call)
+    "head_ce_bn_fwd": ("cl_tpu_torch/csrc/head_ce_bn.cu", "cl_tpu/pallas/head_ce.py:571"),
+    "head_ce_bn_bwd": ("cl_tpu_torch/csrc/head_ce_bn.cu", "cl_tpu/pallas/head_ce.py:601"),
+    "head_ce_kd_bn_fwd": ("cl_tpu_torch/csrc/head_ce_kd_bn.cu", "cl_tpu/pallas/head_ce.py:997"),
+    "head_ce_kd_bn_bwd": ("cl_tpu_torch/csrc/head_ce_kd_bn.cu",
+                          "cl_tpu/pallas/head_ce.py:1036"),
+}
+LWF_T = 2.0  # method.lwf_temperature's default
+
+
+def bn_case(P, cin, C, dtype_name, seed):
+    """Seeded operands on the card for the packed head kernels: raw y with
+    its BN vectors (some shifts negative), the head, ~10% ignore pixels and
+    the last class masked (C > 2); a teacher with its own y, vectors and
+    head, and old_valid the first half of the classes (at least two); the
+    cotangents
+    gce = 1/n and gkd = α·weight/n with α = weight = 1."""
+    import torch
+
+    from cl_tpu_torch.kernel_bench import operands
+
+    (y, w, b, labels, valid), gce = operands("head_ce", P, cin, C, getattr(torch, dtype_name),
+                                             seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+
+    def randn(*sh):
+        return torch.randn(*sh, generator=g, device="cuda")
+
+    old_valid = torch.zeros(C, device="cuda")
+    old_valid[:max(2, C // 2)] = 1.0  # two or more: over one class the KD is 0
+    return {"P": P, "Cin": cin, "C": C, "dtype": dtype_name, "y": y, "w": w, "b": b,
+            "labels": labels, "valid": valid, "s": randn(cin).abs() + 0.5,
+            "sh": randn(cin) * 0.5, "yt": randn(P, cin).to(y.dtype),
+            "ts": randn(cin).abs() + 0.5, "tsh": randn(cin) * 0.5, "tw": randn(C, cin) * 0.2,
+            "tb": randn(C) * 0.1, "old_valid": old_valid, "gce": gce.reshape(()),
+            "gkd": gce.reshape(()).clone()}
+
+
+def bn_fns(kernel, case):
+    """(kernel launch, plain version) of one packed head kernel as
+    closures over the case's operands."""
+    from cl_tpu_torch.kernels import head_ce
+
+    c = case
+    st = (c["y"], c["s"], c["sh"], c["w"], c["b"])
+    te = (c["yt"], c["ts"], c["tsh"], c["tw"], c["tb"])
+    lv = (c["labels"], c["valid"])
+    kd = (*st, *te, *lv, c["old_valid"])
+    return {
+        "head_ce_bn_fwd": (lambda: head_ce.launch_bn_fwd(*st, *lv),
+                           lambda: head_ce.head_ce_bn_total_plain(*st, *lv)),
+        "head_ce_bn_bwd": (lambda: head_ce.launch_bn_bwd(*st, *lv, c["gce"]),
+                           lambda: head_ce.head_ce_bn_grads_plain(*st, *lv, c["gce"])),
+        "head_ce_kd_bn_fwd": (lambda: head_ce.launch_kd_bn_fwd(*kd, LWF_T),
+                              lambda: head_ce.head_ce_kd_bn_total_plain(*kd, LWF_T)),
+        "head_ce_kd_bn_bwd": (
+            lambda: head_ce.launch_kd_bn_bwd(*kd, c["gce"], c["gkd"], LWF_T),
+            lambda: head_ce.head_ce_kd_bn_grads_plain(*kd, c["gce"], c["gkd"], LWF_T)),
+    }[kernel]
+
+
+def bn_name(kernel, case):
+    return f"{kernel}[P={case['P']},Cin={case['Cin']},C={case['C']},{case['dtype']}]"
+
+
+def compare_bn(kernel, case):
+    """Kernel vs plain on the card; returns the max abs error of the main
+    output (the loss, or dx). Tolerances: the loss sums 1e-5 relative in
+    f32, 1e-4 in bf16 (f32 sums over P pixels in another order, expf);
+    dx in bf16 two ulps plus one bf16 rounding of each g·W term times
+    |scale| (g = gce·(p − onehot) + gkd·T·(p_new − p_old) may round to the
+    other neighbour before dz = round(g)·W), in f32 1e-5 relative plus
+    1e-5 of Σ_c |g|·|W|·|scale|; the sums over pixels (dscale, dshift, dW,
+    db) as head_ce's backward: 1e-3 of max|plain| in bf16, 1e-4 relative
+    plus 1e-5 of max|plain| in f32. A backward launched twice repeats
+    every bit."""
+    import torch
+
+    launch, plain = bn_fns(kernel, case)
+    k_out, p_out = launch(), plain()
+    again = launch() if kernel.endswith("bwd") else k_out
+    torch.cuda.synchronize()
+    if not isinstance(k_out, tuple):
+        k_out, p_out, again = (k_out,), (p_out,), (again,)
+    name = bn_name(kernel, case)
+    need(all(torch.equal(u, v) for u, v in zip(k_out, again)),
+         f"{name}: a second launch repeats every bit")
+    bf16 = case["dtype"] == "bfloat16"
+    msg, ok, main_err = f"  {name}:", True, None
+    if kernel.endswith("fwd"):
+        for which, k, p in zip(("ce", "kd"), k_out, p_out):
+            rel = abs(k.item() - p.item()) / max(abs(p.item()), 1e-30)
+            tol = 1e-4 if bf16 else 1e-5
+            good = np.isfinite(k.item()) and rel <= tol
+            ok = ok and good
+            msg += (f" {which} kernel {k.item():.9g} plain {p.item():.9g} rel err {rel:.3g} "
+                    f"(tol {tol:g}){'' if good else ' FAIL'};")
+            main_err = abs(k.item() - p.item()) if main_err is None else main_err
+    else:
+        gbound = case["gce"].item() + (LWF_T * case["gkd"].item() if "kd" in kernel else 0.0)
+        w_abs = case["w"].to(case["y"].dtype).float().abs().sum(0)  # Σ_c |W_ck|
+        s_abs = case["s"].abs()
+        for i, (gname, k, p) in enumerate(zip(("dx", "dscale", "dshift", "dW", "db"),
+                                              k_out, p_out)):
+            need(k.shape == p.shape and k.dtype == p.dtype,
+                 f"{name} {gname} shape/dtype {tuple(k.shape)} {k.dtype}")
+            kf, pf = k.float(), p.float()
+            need(bool(torch.isfinite(kf).all()), f"{name} {gname} not finite")
+            diff = (kf - pf).abs()
+            if i == 0 and bf16:
+                tol = (2 * bf16_ulp(torch.maximum(kf.abs(), pf.abs()))
+                       + 2.0 ** -7 * gbound * w_abs * s_abs)
+                txt = "2 bf16 ulp + one rounding of each g·W term, times |s|"
+            elif i == 0:
+                tol = 1e-5 * pf.abs() + 1e-5 * gbound * w_abs * s_abs
+                txt = "1e-5 rel + 1e-5 Σ|g·W·s|"
+            elif bf16:
+                tol, txt = 1e-3 * pf.abs().max(), "1e-3 of max|plain|"
+            else:
+                tol = 1e-4 * pf.abs() + 1e-5 * pf.abs().max()
+                txt = "1e-4 rel + 1e-5 of max|plain|"
+            good = bool((diff <= tol).all())
+            ok = ok and good
+            msg += f" {gname} {diff.max().item():.3g} ({txt}){'' if good else ' FAIL'};"
+            main_err = diff.max().item() if main_err is None else main_err
+    print(msg + (" ok" if ok else " FAIL"))
+    need(ok, name)
+    return main_err
+
+
+def bn_bytes_ops(kernel, case):
+    """Bytes the function must move (each input read once, each output
+    written once) and its operations: 2·C·Cin per pixel and logit pass,
+    3·Cin for the BN·ReLU prologue, ~6·C for the softmax and CE (the KD
+    ~12·C more), the backward's two more products and its ~6·Cin
+    epilogue."""
+    P, cin, C = case["P"], case["Cin"], case["C"]
+    es = 2 if case["dtype"] == "bfloat16" else 4
+    kd = "kd" in kernel
+    one = P * cin * es + (C * cin + C + 2 * cin) * 4      # y, W, b, s, sh
+    inputs = (2 if kd else 1) * one + P * 4 + (2 if kd else 1) * C * 4  # labels, masks
+    passes = 2 if kd else 1
+    ops = passes * (2 * P * C * cin + 3 * P * cin) + (18 if kd else 6) * P * C
+    if kernel.endswith("fwd"):
+        return inputs + (8 if kd else 4), ops
+    return (inputs + P * cin * es + (C * (cin + 1) + 2 * cin) * 4,
+            ops + 4 * P * C * cin + 6 * P * cin + 2 * P * C)
+
+
+def bn_times(kernel, case):
+    """(ms, plain_ms, library_ms or None, ms synchronised per launch). The
+    library call for #7/#8 is ``F.linear`` + ``F.cross_entropy`` on the
+    materialized z (the head and CE only, not the BN·ReLU); none computes
+    the KD forms."""
+    import torch
+    import torch.nn.functional as F
+
+    from cl_tpu_torch.kernels.packed_eltwise import bn_relu_plain
+
+    launch, plain = bn_fns(kernel, case)
+    lib = None
+    if "kd" not in kernel:
+        z = bn_relu_plain(case["y"], case["s"], case["sh"])
+        wx, bx = case["w"].to(z.dtype), case["b"].to(z.dtype)
+        lbl64 = case["labels"].long()
+        if kernel.endswith("fwd"):
+            lib = lambda: F.cross_entropy(F.linear(z, wx, bx), lbl64,  # noqa: E731
+                                          ignore_index=255)
+        else:
+            zr, wr, br = (t.detach().clone().requires_grad_(True) for t in (z, wx, bx))
+            loss = F.cross_entropy(F.linear(zr, wr, br), lbl64, ignore_index=255)
+            lib = lambda: torch.autograd.grad(loss, (zr, wr, br), retain_graph=True)  # noqa: E731
+    return (time_ms(launch), time_ms(plain), None if lib is None else time_ms(lib),
+            time_ms(launch, queued=False))
 
 
 # ---------------------------------------------------------------------------
@@ -717,22 +913,33 @@ def read_counts() -> dict:
     return out
 
 
-def build_step(cfg, device, seed_batch=0):
-    """(model, optimizer, make_train_step's step, a prebuilt batch, the
-    valid-class mask) of ``cfg`` on ``device``, from the seeded init."""
+def seen_mask(cfg, task, device):
     import torch
 
+    from cl_tpu_torch.data import tasks
+
+    return torch.from_numpy(tasks.valid_class_mask(
+        cfg.data.num_classes, tasks.seen_classes(cfg.classes_per_task, task))).to(device)
+
+
+def build_step(cfg, device, seed_batch=0):
+    """(model, optimizer, make_train_step's step, a prebuilt batch, the
+    valid-class mask) of ``cfg`` on ``device``, from the seeded init.
+    Under LwF the teacher is the seeded init snapshotted as after task 0,
+    and the step trains task 1."""
     from cl_tpu_torch import train as tl
-    from cl_tpu_torch.data import pipeline, tasks
+    from cl_tpu_torch.data import pipeline
+    from cl_tpu_torch.methods import lwf as lwf_lib
 
     model = tl.init_state(cfg, tl.build_model(cfg), device)
     opt = tl.build_optimizer(cfg, model)
-    step = tl.make_train_step(cfg, model, opt, device)
-    hb = next(iter(pipeline.train_batches(cfg, 0, seed_batch)))
-    batch = pipeline.put_batch(hb, device)
-    valid = torch.from_numpy(tasks.valid_class_mask(
-        cfg.data.num_classes, tasks.seen_classes(cfg.classes_per_task, 0))).to(device)
-    return model, opt, step, batch, valid
+    lwf, task = None, 0
+    if "lwf" in cfg.method.methods:
+        lwf, task = lwf_lib.make_lwf_state(model), 1
+        lwf_lib.lwf_after_task(lwf, model, seen_mask(cfg, 0, device))
+    step = tl.make_train_step(cfg, model, opt, device, lwf=lwf)
+    hb = next(iter(pipeline.train_batches(cfg, task, seed_batch)))
+    return model, opt, step, pipeline.put_batch(hb, device), seen_mask(cfg, task, device)
 
 
 def host_issue_ms(step, batch, valid, reps=5):
@@ -812,20 +1019,43 @@ def run_steps(cfg, n_warm, n_timed, device, seed_batch=0, keep=None):
     return counts, ips, peak, loss, first.item()
 
 
+def perturbed(variables, seed):
+    """A copy of a flax variable tree with every leaf moved by seeded noise
+    and BatchNorm statistics of its own: a teacher unlike the student."""
+    rng = np.random.RandomState(seed)
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        a = np.asarray(tree, np.float32)
+        if name == "var":
+            return (rng.rand(*a.shape) + 0.5).astype(np.float32)
+        if name == "mean":
+            return (rng.randn(*a.shape) * 0.1).astype(np.float32)
+        return (a + rng.randn(*a.shape) * 0.2 * (np.abs(a).mean() or 0.1)).astype(np.float32)
+
+    return walk(variables)
+
+
 def agree_with_cpu(args, label, packed_levels=0):
     """One SGD step on the card (kernels) against one on the CPU (plain
-    versions) from the same weights and batch: loss and params in f32."""
+    versions) from the same weights and batch: loss and params in f32.
+    Under LwF, with a teacher unlike the student (``perturbed``), weight 1
+    and the first half of the classes (at least two) old; its KD term
+    checked too."""
     import torch
 
     from cl_tpu_torch import train as tl
     from cl_tpu_torch.config import parse_overrides
     from cl_tpu_torch.data import pipeline
     from cl_tpu_torch.interop import export_jax_variables, load_jax_variables
+    from cl_tpu_torch.methods import lwf as lwf_lib
 
     cfg = parse_overrides(args + ["train.optimizer=sgd", "train.lr=0.05",
                                   "train.data_parallel=false"])
     hb = next(iter(pipeline.train_batches(cfg, 0, 0)))
     valid = torch.ones(cfg.data.num_classes, dtype=torch.bool)
+    old_valid = torch.arange(cfg.data.num_classes) < max(2, cfg.data.num_classes // 2)
     size = cfg.data.image_size
     out = {}
     variables = before = None
@@ -838,10 +1068,22 @@ def agree_with_cpu(args, label, packed_levels=0):
         load_jax_variables(model, variables)
         if before is None:
             before = {k: v.detach().double().cpu() for k, v in model.state_dict().items()}
-        step = tl.make_train_step(cfg, model, tl.build_optimizer(cfg, model), dev)
+        lwf = None
+        if "lwf" in cfg.method.methods:
+            lwf = lwf_lib.make_lwf_state(model)
+            load_jax_variables(lwf.teacher, perturbed(variables, 7))
+            lwf.old_valid.copy_(old_valid)
+            lwf.weight = 1.0
+        step = tl.make_train_step(cfg, model, tl.build_optimizer(cfg, model), dev, lwf=lwf)
         aux = step(pipeline.put_batch(hb, dev), valid.to(dev))
         out[dev.type] = (aux["loss"].item(), {
             k: v.detach().double().cpu() for k, v in model.state_dict().items()})
+        if lwf is not None:
+            out[dev.type + "_kd"] = aux["kd"].item()
+    if "cpu_kd" in out:
+        kc, kg = out["cpu_kd"], out["cuda_kd"]
+        print(f"  {label}: KD term cuda {kg:.7f} cpu {kc:.7f} (tol 1e-4)")
+        need(kc > 0 and abs(kg - kc) <= 1e-4, f"card vs CPU KD term ({label})")
     (lc, pc), (lg, pg) = out["cpu"], out["cuda"]
     perr = max((pg[k] - pc[k]).abs().max().item() for k in pc)
     # each entry's update, (after - before), within 1e-2 of its norm plus
@@ -997,6 +1239,14 @@ def main() -> int:
                 check(kernel, shape, dtype_name, batch=3)
     # the split convs' dx: no stats cotangents (their sums are unused)
     compare_bwd("conv3x3_bn_dx", (512, 32, 32, False), "bfloat16", stats=False)
+    # the packed head: at the headline shape, and small f32 / ragged / C <= 8
+    bn_full = bn_case(2097152, 32, 19, "bfloat16", 2)
+    bn_errs = {k: compare_bn(k, bn_full) for k in BN_KERNELS}
+    for args in ((4096, 32, 19, "float32", 7), (1000, 32, 5, "float32", 5),
+                 (1000, 16, 3, "bfloat16", 6)):
+        case = bn_case(*args)
+        for k in BN_KERNELS:
+            compare_bn(k, case)
 
     print("[4] baseline_1 as it ships, through train()")
     cfg1 = get_preset("baseline_1")
@@ -1128,6 +1378,69 @@ def main() -> int:
     agree_with_cpu(["preset=baseline_1", "model.packed_min_size=0", "train.packed_head_ce=false"],
                    "packed step 128² base 32 depth 4 f32", packed_levels=3)
 
+    print("[5h] the headline step: full width, the packed BN·ReLU + head + CE (#7/#8)")
+    # per step: the packed body without its last bn_relu (forward and
+    # backward), the packed head once
+    headline_step = dict(PER_STEP, bn_relu_fwd=PER_STEP["bn_relu_fwd"] - 1,
+                         bn_relu_bwd=PER_STEP["bn_relu_bwd"] - 1,
+                         head_ce_bn_fwd=1, head_ce_bn_bwd=1)
+    no_other_loss = ("head_ce_fwd", "head_ce_bwd", "ce_fwd", "ce_bwd", "head_ce_kd_bn_fwd",
+                     "head_ce_kd_bn_bwd")
+    cfg_h = parse_overrides(packed_full)
+    counts_h, ips_h, peak_h, loss_h, first_h = run_steps(cfg_h, 3, 10, cuda)
+    print(f"  13 steps: {ips_h:.2f} img/s, peak {peak_h:.0f} MiB, loss {first_h:.4f} -> "
+          f"{loss_h:.4f}; launches {counts_h}")
+    need(loss_h < first_h, "headline training loss falls")
+    for k, n in headline_step.items():
+        need(counts_h[k] == 13 * n, f"{k} launches == steps x {n} (headline)")
+    need(all(counts_h[k] == 0 for k in no_other_loss), "no other loss kernel (headline)")
+    print(f"  beside phase 5t's packed_head_ce=false: {ips_t:.2f} img/s, peak {peak_t:.0f} MiB")
+    pairs_h, issue_h = alternating_pairs({"headline": cfg_h, "packed_head_ce=false":
+                                          parse_overrides(packed_full + [
+                                              "train.packed_head_ce=false"])}, cuda)
+    ratios_h = [p / q for p, q in zip(pairs_h["headline"], pairs_h["packed_head_ce=false"])]
+    print(f"  alternating pairs, 10 steps each, images/s: headline "
+          f"{[round(v, 2) for v in pairs_h['headline']]}, packed_head_ce=false "
+          f"{[round(v, 2) for v in pairs_h['packed_head_ce=false']]}; ratio "
+          f"{[round(r, 4) for r in ratios_h]}, median {float(np.median(ratios_h)):.4f}")
+    print(f"  host issue per step (card kept busy): headline {issue_h['headline']:.3f} ms, "
+          f"packed_head_ce=false {issue_h['packed_head_ce=false']:.3f} ms")
+    agree_with_cpu(["preset=baseline_1", "model.packed_min_size=0"],
+                   "headline step 128² base 32 depth 4 f32", packed_levels=3)
+
+    print("[5l] LwF on the headline step: the teacher's packed forward, the KD head (#11/#12)")
+    # per step: the headline step's kernels with the KD head in place of
+    # the packed head, and the teacher's eval-mode packed forward
+    lwf_step = dict(headline_step, head_ce_bn_fwd=0, head_ce_bn_bwd=0,
+                    head_ce_kd_bn_fwd=1, head_ce_kd_bn_bwd=1)
+    for k, n in PER_FORWARD.items():
+        lwf_step[k] += n - (k == "bn_relu_fwd")
+    lwf_full = packed_full + ["method.methods=lwf", "train.num_tasks=2"]
+    counts_l, ips_l, peak_l, loss_l, first_l = run_steps(parse_overrides(lwf_full), 3, 10, cuda)
+    print(f"  13 steps with a teacher: {ips_l:.2f} img/s, peak {peak_l:.0f} MiB, loss "
+          f"{first_l:.4f} -> {loss_l:.4f}; launches {counts_l}")
+    print(f"  beside the headline step: {ips_h:.2f} img/s, peak {peak_h:.0f} MiB")
+    for k, n in lwf_step.items():
+        need(counts_l[k] == 13 * n, f"{k} launches == steps x {n} (LwF)")
+    need(all(counts_l[k] == 0 for k in ("head_ce_fwd", "head_ce_bwd", "ce_fwd", "ce_bwd")),
+         "no other loss kernel (LwF)")
+    agree_with_cpu(["preset=baseline_1", "model.packed_min_size=0", "data.num_classes=3",
+                    "train.num_tasks=2", "method.methods=lwf"],
+                   "LwF step 128² base 32 depth 4 f32", packed_levels=3)
+    cfg_lt = parse_overrides(lwf_full + ["data.train_images_per_task=16",
+                                         "train.epochs_per_task=1"])
+    steps_lt = cfg_lt.train.num_tasks * cfg_lt.data.train_images_per_task // cfg_lt.data.batch_size
+    reset_counts()
+    report_l = tl.train(cfg_lt)
+    counts_lt = read_counts()
+    mat = np.asarray(report_l["miou_matrix"], float)
+    print(f"  train(), LwF, 2 tasks, {steps_lt} steps: mIoU matrix {mat.tolist()}, forgetting "
+          f"{report_l['forgetting_per_task']}")
+    need(np.isfinite(mat[np.tril_indices(2)]).all()
+         and np.isfinite(report_l["forgetting_per_task"]).all(), "finite LwF mIoU and forgetting")
+    need(counts_lt["head_ce_kd_bn_fwd"] == counts_lt["head_ce_kd_bn_bwd"] == steps_lt
+         and counts_lt["head_ce_bn_fwd"] == 0, "KD head launches == steps in the LwF train()")
+
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
         0: counts_b1, 1: counts_f, 2: counts_b1u, 3: counts_u}
@@ -1182,6 +1495,18 @@ def main() -> int:
               f"{synced_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.4f}, library "
               f"{lib_ms:.4f} (where one exists); launches {counts_t[kernel]} in phase 5t"
               + (f", {counts_p[kernel]} in phase 5p" if kernel in FORWARD_KERNELS else ""))
+    for kernel, (source, replaces) in BN_KERNELS.items():
+        times = bn_times(kernel, bn_full)
+        launches = (counts_l if "kd" in kernel else counts_h)[kernel]
+        entry = kernel_entry(kernel, (2097152, 32, 19), source, replaces, launches,
+                             bn_errs[kernel], times, bn_bytes_ops(kernel, bn_full))
+        kernels.append(entry)
+        lib_txt = "—" if entry["library_ms"] is None else \
+            f"{entry['library_ms']:.4f} (head and CE only)"
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms (synchronised per launch "
+              f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library {lib_txt}, bound "
+              f"{entry['bound_ms']:.4f} by {entry['bound_by']}); launches {launches} in phase "
+              f"{'5l' if 'kd' in kernel else '5h'}")
     sums = [sum(v[i] for v in per_step_ms.values()) for i in (0, 4)]
     print(f"  per packed train step, all packed kernels: {sums[0]:.4f} ms (synchronised per "
           f"launch {sums[1]:.4f})")
@@ -1190,7 +1515,8 @@ def main() -> int:
           f"(peak {bodies['standard'][2]:.0f} MiB)")
     print(f"  images/s: baseline_1 train() {b1_ips}, baseline_1 unfused "
           f"{b1u_ips:.2f}, 512² bf16 fused {ips_f:.2f}, unfused {ips_u:.2f}; packed "
-          f"train {ips_t:.2f}, unfused {ips_tu:.2f}")
+          f"train {ips_t:.2f}, unfused {ips_tu:.2f}; headline {ips_h:.2f} (peak "
+          f"{peak_h:.0f} MiB), LwF {ips_l:.2f} (peak {peak_l:.0f} MiB)")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -29,10 +29,16 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_int64
-# C entry points: name -> argtypes (every pointer and the stream as void*).
+F = ctypes.c_float
+# C entry points: name -> argtypes (every pointer and the stream as void*,
+# a float as c_float).
 SIGNATURES = {
     "cltorch_head_ce_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "cltorch_head_ce_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "cltorch_head_ce_bn_fwd": [P] * 16 + [I] * 5 + [F, I, P],
+    "cltorch_head_ce_bn_bwd": [P] * 17 + [I] * 5 + [F, I, P],
+    "cltorch_head_ce_kd_bn_fwd": [P] * 16 + [I] * 5 + [F, I, P],
+    "cltorch_head_ce_kd_bn_bwd": [P] * 17 + [I] * 5 + [F, I, P],
     "cltorch_ce_fwd": [P, P, P, P, P, I, I, I, I, I, P],
     "cltorch_ce_bwd": [P, P, P, P, P, I, I, I, I, I, P],
     "cltorch_conv3x3_bn_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],

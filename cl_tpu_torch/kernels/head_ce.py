@@ -1,16 +1,20 @@
-"""Fused 1×1-head + masked softmax cross-entropy (``csrc/head_ce.cu``).
+"""Fused 1×1-head + masked softmax cross-entropy (``csrc/head_ce.cu``), and
+its forms on the packed body's raw output with the BN·ReLU prologue, alone
+(``csrc/head_ce_bn.cu``) and with the LwF distillation term
+(``csrc/head_ce_kd_bn.cu``; both from ``csrc/head_ce_bn.cuh``).
 
-The counterpart of ``cl_tpu.pallas.head_ce.head_cross_entropy``: the
-train loss computes the head's logits per pixel inside the kernel, so the
-[B, H, W, C] logits never reach device memory, and the backward recomputes
-them and emits dx, dW and db in one pass. Pixel-major: features [P, Cin]
-and labels [P] as they lie in memory (the TPU kernel's class-major
-transpose is a TPU layout device and is not carried over).
+The counterparts of ``cl_tpu.pallas.head_ce.head_cross_entropy``,
+``head_cross_entropy_packed_bn`` and ``head_cross_entropy_kd_packed_bn``:
+the train loss computes the head's logits per pixel inside the kernel, so
+the [B, H, W, C] logits (the teacher's too) never reach device memory, and
+the backward recomputes them and emits every gradient in one pass.
+Pixel-major: features [P, Cin] and labels [P] as they lie in memory (the
+TPU kernels' lane packing and class-major transpose are TPU layout devices
+and are not carried over: the packed forms take the NHWC raw output).
 
-``head_cross_entropy`` runs the CUDA kernels on a CUDA tensor and the
-plain PyTorch version (``head_ce_total_plain`` / ``head_ce_grads_plain``,
-the same arithmetic) on a CPU tensor; nothing falls back from one to the
-other. ``LAUNCHES`` counts the kernel launches.
+Each entry runs the CUDA kernels on a CUDA tensor and the plain PyTorch
+version (``*_plain``, the same arithmetic) on a CPU tensor; nothing falls
+back from one to the other. ``LAUNCHES`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from cl_tpu_torch import losses
 from cl_tpu_torch.kernels import build
+from cl_tpu_torch.kernels.packed_eltwise import bn_relu_bwd_plain, bn_relu_plain
 from cl_tpu_torch.losses import NEG_INF
 
 MAX_CLASSES = 32
@@ -27,7 +33,8 @@ MAX_CIN = 64
 # run in the same order on every card; the rows of the partials buffer.
 N_BLOCKS = 1024
 
-LAUNCHES = {"head_ce_fwd": 0, "head_ce_bwd": 0}
+LAUNCHES = {"head_ce_fwd": 0, "head_ce_bwd": 0, "head_ce_bn_fwd": 0,
+            "head_ce_bn_bwd": 0, "head_ce_kd_bn_fwd": 0, "head_ce_kd_bn_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -36,15 +43,15 @@ LAUNCHES = {"head_ce_fwd": 0, "head_ce_bwd": 0}
 
 
 def _logits_plain(x, w, b, valid):
-    """[P, C] f32 masked logits: x · round(W)ᵀ + b with f32 accumulation."""
+    """[P, C] f32 logits x · round(W)ᵀ + b with f32 accumulation, masked
+    to ``valid`` unless it is None."""
     wr = w.to(x.dtype).float()
     z = x.float() @ wr.T + b
-    return torch.where(valid > 0, z, NEG_INF)
+    return z if valid is None else torch.where(valid > 0, z, NEG_INF)
 
 
-def head_ce_total_plain(x, w, b, labels, valid, ignore_index=255):
-    """Σ over pixels of the masked softmax NLL (f32 scalar)."""
-    z = _logits_plain(x, w, b, valid)
+def _nll_total(z, labels, ignore_index):
+    """Σ over non-ignored pixels of logsumexp(z) − z[label] (f32 scalar)."""
     logz = torch.logsumexp(z, dim=1)
     pix = labels != ignore_index
     lbl0 = torch.where(pix, labels, 0).long()
@@ -52,20 +59,36 @@ def head_ce_total_plain(x, w, b, labels, valid, ignore_index=255):
     return ((logz - picked) * pix).sum()
 
 
-def head_ce_grads_plain(x, w, b, labels, valid, scale, ignore_index=255):
-    """(dx in x's dtype, dW f32 [C, Cin], db f32 [C]) of scale · total."""
-    z = _logits_plain(x, w, b, valid)
+def head_ce_total_plain(x, w, b, labels, valid, ignore_index=255):
+    """Σ over pixels of the masked softmax NLL (f32 scalar)."""
+    return _nll_total(_logits_plain(x, w, b, valid), labels, ignore_index)
+
+
+def _ce_g(z, labels, valid, scale, ignore_index):
+    """d(scale · Σ NLL)/dz, f32 [P, C], from masked logits z."""
     p = torch.softmax(z, dim=1)
     pix = (labels != ignore_index).float()
     lbl0 = torch.where(labels != ignore_index, labels, 0).long()
     onehot = F.one_hot(lbl0, z.shape[1]).float()
     g = (scale * pix)[:, None] * (p - onehot)
-    g = torch.where(valid > 0, g, 0.0)
+    return torch.where(valid > 0, g, 0.0)
+
+
+def _grads_from_g(x, w, g):
+    """(dx, dW, db) of the head from the logit cotangent g: g crosses the
+    feature dtype before the products (the unfused path's dlogits store);
+    db sums the unrounded g."""
     gc = g.to(x.dtype).float()
     dx = (gc @ w.to(x.dtype).float()).to(x.dtype)
     dw = gc.T @ x.float()
     db = g.sum(0)
     return dx, dw, db
+
+
+def head_ce_grads_plain(x, w, b, labels, valid, scale, ignore_index=255):
+    """(dx in x's dtype, dW f32 [C, Cin], db f32 [C]) of scale · total."""
+    z = _logits_plain(x, w, b, valid)
+    return _grads_from_g(x, w, _ce_g(z, labels, valid, scale, ignore_index))
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +176,29 @@ class _HeadCETotal(torch.autograd.Function):
         return dx, dw, db, None, None, None
 
 
+def _head_args(head_kernel, head_bias, cin, C):
+    """The 1×1 head [width, Cin, 1, 1] (or [width, Cin]) as W [C, Cin] and
+    b [C], contiguous; a head narrower than C is zero-padded to C (its dW
+    and db come back at its own width), as in the JAX package."""
+    w = head_kernel.reshape(head_kernel.shape[0], cin)
+    width = w.shape[0]
+    b = head_bias
+    if width != C:
+        w = F.pad(w, (0, 0, 0, C - width))
+        b = F.pad(b, (0, C - width))
+    return w.contiguous(), b.contiguous()
+
+
+def _rows(features):
+    """NHWC features as the contiguous [P, Cin] the kernels take."""
+    x = features.reshape(-1, features.shape[-1])
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def _n_pix(labels, ignore_index):
+    return (labels != ignore_index).sum().float().clamp_min(1.0)
+
+
 def head_cross_entropy(features, head_kernel, head_bias, labels,
                        valid_classes, *, ignore_index=255):
     """Fused head+CE: (mean NLL over non-ignored pixels, n_valid_pixels).
@@ -160,23 +206,288 @@ def head_cross_entropy(features, head_kernel, head_bias, labels,
     ``features`` are the pre-head activations [B, H, W, Cin] in the compute
     dtype; ``head_kernel`` the port's 1×1 head weight [width, Cin, 1, 1]
     (or [width, Cin]) and ``head_bias`` [width], f32; ``labels`` [B, H, W]
-    int; ``valid_classes`` bool [C]. A head narrower than C is zero-padded
-    to C (its dW/db come back at its own width), as in the JAX package."""
-    cin = features.shape[-1]
-    C = valid_classes.shape[0]
-    w = head_kernel.reshape(head_kernel.shape[0], cin)
-    width = w.shape[0]
-    b = head_bias
-    if width != C:
-        w = F.pad(w, (0, 0, 0, C - width))
-        b = F.pad(b, (0, C - width))
-    x = features.reshape(-1, cin)
-    if not x.is_contiguous():
-        x = x.contiguous()
+    int; ``valid_classes`` bool [C]."""
+    x = _rows(features)
+    w, b = _head_args(head_kernel, head_bias, x.shape[1], valid_classes.shape[0])
     lbl = labels.reshape(-1).to(torch.int32)
     valid = valid_classes.to(device=x.device, dtype=torch.float32)
-    pix = labels != ignore_index
-    n = pix.sum().float().clamp_min(1.0)
-    total = _HeadCETotal.apply(x, w.contiguous(), b.contiguous(), lbl, valid,
-                               int(ignore_index))
+    n = _n_pix(labels, ignore_index)
+    total = _HeadCETotal.apply(x, w, b, lbl, valid, int(ignore_index))
     return total / n, n
+
+
+# ---------------------------------------------------------------------------
+# BN·ReLU prologue (#7/#8) and KD (#11/#12): plain versions
+# ---------------------------------------------------------------------------
+
+
+def head_ce_bn_total_plain(y, scale, shift, w, b, labels, valid, ignore_index=255):
+    """Σ masked NLL of the head on z = round(relu(y·scale + shift)): the
+    ``bn_relu`` → head+CE composition (``head_ce.py:482-502``)."""
+    return head_ce_total_plain(bn_relu_plain(y, scale, shift), w, b, labels,
+                               valid, ignore_index)
+
+
+def head_ce_bn_grads_plain(y, scale, shift, w, b, labels, valid, gscale,
+                           ignore_index=255):
+    """(dy in y's dtype, dscale, dshift, dW, db) of gscale · total: the
+    head's dz rounded to the feature dtype, then the BN·ReLU backward with
+    the f32 pre-activation test (``head_ce.py:505-549``)."""
+    z = bn_relu_plain(y, scale, shift)
+    dz, dw, db = head_ce_grads_plain(z, w, b, labels, valid, gscale, ignore_index)
+    dy, dscale, dshift = bn_relu_bwd_plain(y, dz, scale, shift)
+    return dy, dscale, dshift, dw, db
+
+
+def _kd_logits_plain(y, scale, shift, w, b, yt, tscale, tshift, tw, tb, valid):
+    """(z, student logits masked by valid, teacher logits unmasked)."""
+    z = bn_relu_plain(y, scale, shift)
+    zt = bn_relu_plain(yt, tscale, tshift)
+    return z, _logits_plain(z, w, b, valid), _logits_plain(zt, tw, tb, None)
+
+
+def _kd_g(logits, tlogits, old_valid, temperature):
+    """d(kd_pix)/dz before the pix factor: T·(p_new − p_old) on the old
+    classes, 0 elsewhere (``_kd_grad_tile``)."""
+    ov = old_valid > 0
+    t = temperature
+    p_new = torch.softmax(torch.where(ov, logits, NEG_INF) / t, dim=1)
+    p_old = torch.softmax(torch.where(ov, tlogits, NEG_INF) / t, dim=1)
+    return torch.where(ov, t * (p_new - p_old), 0.0)
+
+
+def head_ce_kd_bn_total_plain(y, scale, shift, w, b, yt, tscale, tshift, tw, tb,
+                              labels, valid, old_valid, temperature,
+                              ignore_index=255):
+    """(Σ masked NLL, T²·Σ pix·KL) of the student's and the teacher's
+    BN·ReLU'd heads (``head_ce.py:873-903``)."""
+    _, z, zt = _kd_logits_plain(y, scale, shift, w, b, yt, tscale, tshift, tw,
+                                tb, valid)
+    kd = losses.kd_sum(z, zt, old_valid > 0, labels != ignore_index,
+                       temperature=temperature)
+    return _nll_total(z, labels, ignore_index), kd
+
+
+def head_ce_kd_bn_grads_plain(y, scale, shift, w, b, yt, tscale, tshift, tw, tb,
+                              labels, valid, old_valid, gce, gkd, temperature,
+                              ignore_index=255):
+    """(dy, dscale, dshift, dW, db) of gce·Σ NLL + gkd·Σ KD: the KD term
+    joins g before g is rounded (``head_ce.py:906-958``)."""
+    z, logits, tlogits = _kd_logits_plain(y, scale, shift, w, b, yt, tscale,
+                                          tshift, tw, tb, valid)
+    pix = (labels != ignore_index).float()
+    g = _ce_g(logits, labels, valid, gce, ignore_index)
+    g = g + gkd * (_kd_g(logits, tlogits, old_valid, temperature) * pix[:, None])
+    dz, dw, db = _grads_from_g(z, w, g)
+    dy, dscale, dshift = bn_relu_bwd_plain(y, dz, scale, shift)
+    return dy, dscale, dshift, dw, db
+
+
+# ---------------------------------------------------------------------------
+# BN·ReLU prologue and KD: CUDA launches
+# ---------------------------------------------------------------------------
+
+
+def _check_bn(y, scale, shift, w, labels, valid, teacher=None):
+    """Checks of ``_check_operands`` plus the per-channel vectors, and the
+    teacher's operands (yt, ts, tsh, tw, tb, old_valid) where given."""
+    P, cin, C = _check_operands(y, w, labels, valid)
+    vecs = [scale, shift]
+    if teacher is not None:
+        yt, ts, tsh, tw, tb, ov = teacher
+        if yt.shape != y.shape or yt.dtype != y.dtype or not yt.is_contiguous() \
+                or yt.data_ptr() % 16 or yt.device != y.device:
+            raise ValueError("head_ce KD kernel: teacher features must match the "
+                             "student's in shape, dtype and device, contiguous and "
+                             "16-byte aligned")
+        if tw.shape != w.shape or tb.shape != (C,):
+            raise ValueError("head_ce KD kernel: teacher head must be [C, Cin] and [C]")
+        vecs += [ts, tsh]
+        for t in (tw, tb, ov):
+            if t.dtype != torch.float32 or not t.is_contiguous() or t.device != y.device:
+                raise ValueError("head_ce KD kernel: teacher head and old_valid must "
+                                 f"be contiguous f32 on {y.device}")
+    for v in vecs:
+        if v.shape != (cin,) or v.dtype != torch.float32 or not v.is_contiguous() \
+                or v.device != y.device:
+            raise ValueError(f"head_ce BN kernel: scale/shift must be contiguous f32 "
+                             f"[{cin}] on {y.device}")
+    return P, cin, C
+
+
+def _launch_bn_fwd(y, scale, shift, w, b, labels, valid, teacher, temperature,
+                   ignore_index):
+    P, cin, C = _check_bn(y, scale, shift, w, labels, valid, teacher)
+    kd = teacher is not None
+    partials = torch.empty(N_BLOCKS, 2 if kd else 1, dtype=torch.float32, device=y.device)
+    ce_t = torch.empty((), dtype=torch.float32, device=y.device)
+    kd_t = torch.empty((), dtype=torch.float32, device=y.device) if kd else None
+    yt, ts, tsh, tw, tb, ov = teacher if kd else (None,) * 6
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = build.library()
+    err = (lib.cltorch_head_ce_kd_bn_fwd if kd else lib.cltorch_head_ce_bn_fwd)(
+        y.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(), b.data_ptr(),
+        ptr(yt), ptr(ts), ptr(tsh), ptr(tw), ptr(tb), labels.data_ptr(),
+        valid.data_ptr(), ptr(ov), partials.data_ptr(), ce_t.data_ptr(), ptr(kd_t),
+        P, cin, C, int(ignore_index), int(y.dtype == torch.bfloat16), float(temperature),
+        N_BLOCKS, torch.cuda.current_stream(y.device).cuda_stream)
+    build.check(err, "head_ce_kd_bn_fwd" if kd else "head_ce_bn_fwd")
+    return ce_t, kd_t
+
+
+def _launch_bn_bwd(y, scale, shift, w, b, labels, valid, teacher, cot, temperature,
+                   ignore_index):
+    P, cin, C = _check_bn(y, scale, shift, w, labels, valid, teacher)
+    kd = teacher is not None
+    dy = torch.empty_like(y)
+    n_ent = C * (cin + 1) + 2 * cin
+    partials = torch.empty(N_BLOCKS, n_ent, dtype=torch.float32, device=y.device)
+    out = torch.empty(n_ent, dtype=torch.float32, device=y.device)
+    cot = cot.to(device=y.device, dtype=torch.float32).contiguous()
+    yt, ts, tsh, tw, tb, ov = teacher if kd else (None,) * 6
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = build.library()
+    err = (lib.cltorch_head_ce_kd_bn_bwd if kd else lib.cltorch_head_ce_bn_bwd)(
+        y.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(), b.data_ptr(),
+        ptr(yt), ptr(ts), ptr(tsh), ptr(tw), ptr(tb), labels.data_ptr(),
+        valid.data_ptr(), ptr(ov), cot.data_ptr(), dy.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), P, cin, C, int(ignore_index), int(y.dtype == torch.bfloat16),
+        float(temperature), N_BLOCKS, torch.cuda.current_stream(y.device).cuda_stream)
+    build.check(err, "head_ce_kd_bn_bwd" if kd else "head_ce_bn_bwd")
+    dwb = out[:C * (cin + 1)].view(C, cin + 1)
+    stats = out[C * (cin + 1):]
+    return dy, stats[:cin], stats[cin:], dwb[:, :cin], dwb[:, cin]
+
+
+def launch_bn_fwd(y, scale, shift, w, b, labels, valid, ignore_index=255):
+    """Kernel #7: Σ masked NLL as a 0-d f32 tensor on y's device."""
+    return _launch_bn_fwd(y, scale, shift, w, b, labels, valid, None, 1.0,
+                          ignore_index)[0]
+
+
+def launch_bn_bwd(y, scale, shift, w, b, labels, valid, gscale, ignore_index=255):
+    """Kernel #8: (dy, dscale, dshift, dW, db); ``gscale`` a 0-d f32 device
+    tensor, the cotangent of the total."""
+    return _launch_bn_bwd(y, scale, shift, w, b, labels, valid, None,
+                          gscale.reshape(1), 1.0, ignore_index)
+
+
+def launch_kd_bn_fwd(y, scale, shift, w, b, yt, tscale, tshift, tw, tb, labels,
+                     valid, old_valid, temperature, ignore_index=255):
+    """Kernel #11: (Σ masked NLL, T²·Σ pix·KL), 0-d f32 tensors."""
+    return _launch_bn_fwd(y, scale, shift, w, b, labels, valid,
+                          (yt, tscale, tshift, tw, tb, old_valid), temperature,
+                          ignore_index)
+
+
+def launch_kd_bn_bwd(y, scale, shift, w, b, yt, tscale, tshift, tw, tb, labels,
+                     valid, old_valid, gce, gkd, temperature, ignore_index=255):
+    """Kernel #12: (dy, dscale, dshift, dW, db) of gce·Σ NLL + gkd·Σ KD;
+    ``gce`` and ``gkd`` 0-d f32 device tensors."""
+    return _launch_bn_bwd(y, scale, shift, w, b, labels, valid,
+                          (yt, tscale, tshift, tw, tb, old_valid),
+                          torch.stack([gce.reshape(()), gkd.reshape(())]),
+                          temperature, ignore_index)
+
+
+# ---------------------------------------------------------------------------
+# BN·ReLU prologue and KD: autograd wrappers and public entries
+# ---------------------------------------------------------------------------
+
+
+class _HeadCEBnTotal(torch.autograd.Function):
+    """UNNORMALIZED Σ NLL of the head on relu(y·scale + shift); its backward
+    returns the gradients of y, scale, shift, W and b, so dscale and dshift
+    flow back through ``deferred_bn`` into the conv's stats epilogue."""
+
+    @staticmethod
+    def forward(ctx, y, scale, shift, w, b, labels, valid, ignore_index):
+        ctx.save_for_backward(y, scale, shift, w, b, labels, valid)
+        ctx.ignore_index = ignore_index
+        if y.is_cuda:
+            LAUNCHES["head_ce_bn_fwd"] += 1
+            return launch_bn_fwd(y, scale, shift, w, b, labels, valid, ignore_index)
+        return head_ce_bn_total_plain(y, scale, shift, w, b, labels, valid, ignore_index)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, scale, shift, w, b, labels, valid = ctx.saved_tensors
+        if y.is_cuda:
+            LAUNCHES["head_ce_bn_bwd"] += 1
+            grads = launch_bn_bwd(y, scale, shift, w, b, labels, valid, g,
+                                  ctx.ignore_index)
+        else:
+            grads = head_ce_bn_grads_plain(y, scale, shift, w, b, labels, valid, g,
+                                           ctx.ignore_index)
+        return (*grads, None, None, None)
+
+
+class _HeadCEKdBnTotal(torch.autograd.Function):
+    """(Σ NLL, Σ KD) of the student's and the frozen teacher's BN·ReLU'd
+    heads; the backward takes (gce, gkd) and gives the teacher's operands
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, y, scale, shift, w, b, yt, tscale, tshift, tw, tb, labels,
+                valid, old_valid, temperature, ignore_index):
+        ctx.save_for_backward(y, scale, shift, w, b, yt, tscale, tshift, tw, tb,
+                              labels, valid, old_valid)
+        ctx.temperature, ctx.ignore_index = temperature, ignore_index
+        args = (y, scale, shift, w, b, yt, tscale, tshift, tw, tb, labels, valid,
+                old_valid, temperature, ignore_index)
+        if y.is_cuda:
+            LAUNCHES["head_ce_kd_bn_fwd"] += 1
+            return launch_kd_bn_fwd(*args)
+        return head_ce_kd_bn_total_plain(*args)
+
+    @staticmethod
+    def backward(ctx, gce, gkd):
+        saved = ctx.saved_tensors
+        args = (*saved, gce, gkd, ctx.temperature, ctx.ignore_index)
+        if saved[0].is_cuda:
+            LAUNCHES["head_ce_kd_bn_bwd"] += 1
+            grads = launch_kd_bn_bwd(*args)
+        else:
+            grads = head_ce_kd_bn_grads_plain(*args)
+        return (*grads,) + (None,) * 10
+
+
+def head_cross_entropy_packed_bn(raw, scale, shift, head_kernel, head_bias,
+                                 labels, valid_classes, *, ignore_index=255):
+    """Fused BN·ReLU + head + CE on the packed body's raw last-level output
+    ``raw`` [B, H, W, Cin] (compute dtype) with its deferred per-channel
+    ``scale``/``shift`` (f32 [Cin]): (mean NLL, n_valid_pixels), equal to
+    ``head_cross_entropy(bn_relu(raw, scale, shift), ...)`` without
+    materializing z or the logits."""
+    y = _rows(raw)
+    w, b = _head_args(head_kernel, head_bias, y.shape[1], valid_classes.shape[0])
+    lbl = labels.reshape(-1).to(torch.int32)
+    valid = valid_classes.to(device=y.device, dtype=torch.float32)
+    n = _n_pix(labels, ignore_index)
+    total = _HeadCEBnTotal.apply(y, scale.contiguous(), shift.contiguous(), w, b,
+                                 lbl, valid, int(ignore_index))
+    return total / n, n
+
+
+def head_cross_entropy_kd_packed_bn(raw, scale, shift, head_kernel, head_bias,
+                                    traw, tscale, tshift, t_kernel, t_bias, labels,
+                                    valid_classes, old_valid, *, temperature,
+                                    ignore_index=255):
+    """Fused BN·ReLU + head + CE + LwF-KD on the student's and the teacher's
+    packed raw outputs, each with its own deferred scale/shift: (ce_mean,
+    kd_mean, n). ``kd_mean`` equals ``losses.kd_loss`` of the two
+    materialized logit tensors; α and the LwF weight are the caller's. The
+    teacher's operands get no gradient."""
+    y, yt = _rows(raw), _rows(traw)
+    cin, C = y.shape[1], valid_classes.shape[0]
+    w, b = _head_args(head_kernel, head_bias, cin, C)
+    tw, tb = _head_args(t_kernel, t_bias, cin, C)
+    lbl = labels.reshape(-1).to(torch.int32)
+    valid = valid_classes.to(device=y.device, dtype=torch.float32)
+    ov = old_valid.to(device=y.device, dtype=torch.float32)
+    n = _n_pix(labels, ignore_index)
+    ce_t, kd_t = _HeadCEKdBnTotal.apply(
+        y, scale.contiguous(), shift.contiguous(), w, b, yt, tscale.contiguous(),
+        tshift.contiguous(), tw.detach(), tb.detach(), lbl, valid, ov,
+        float(temperature), int(ignore_index))
+    return ce_t / n, kd_t / n, n

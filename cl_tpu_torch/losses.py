@@ -1,11 +1,11 @@
-"""Masked per-pixel cross-entropy, plain PyTorch.
+"""Masked per-pixel cross-entropy and LwF distillation, plain PyTorch.
 
 The counterpart of ``cl_tpu/losses.py`` (``mask_logits``,
-``cross_entropy``): classes not yet seen get the logit −1e9, pixels with
-the ignore label 255 drop out, and the mean runs over the remaining
-pixels. All loss arithmetic is f32 even when the model computes in bf16.
-This is the path of ``train.use_pallas=false``; the kernels of
-``cl_tpu_torch.kernels`` compute the same function.
+``cross_entropy``, ``kd_loss_jnp``): classes not yet seen get the logit
+−1e9, pixels with the ignore label 255 drop out, and the mean runs over
+the remaining pixels. All loss arithmetic is f32 even when the model
+computes in bf16. This is the path of ``train.use_pallas=false``; the
+kernels of ``cl_tpu_torch.kernels`` compute the same functions.
 """
 
 from __future__ import annotations
@@ -36,3 +36,32 @@ def cross_entropy(
     pixel_nll = (logz - picked) * mask
     n = mask.sum().float().clamp_min(1.0)
     return pixel_nll.sum() / n, n
+
+
+def kd_sum(new_logits, old_logits, old_valid, pix, *, temperature: float):
+    """T² · Σ over pixels of pix · KL(softmax(old/T) ‖ softmax(new/T)), both
+    logit sets masked to the old model's classes ``old_valid`` (bool [C])."""
+    t = temperature
+    new_m = mask_logits(new_logits.float(), old_valid) / t
+    old_m = mask_logits(old_logits.float(), old_valid) / t
+    kl = (torch.softmax(old_m, dim=-1)
+          * (torch.log_softmax(old_m, dim=-1)
+             - torch.log_softmax(new_m, dim=-1))).sum(-1)
+    return (t * t) * (kl * pix).sum()
+
+
+def kd_loss(
+    new_logits: torch.Tensor,    # [B, H, W, C]
+    old_logits: torch.Tensor,    # [B, H, W, C] from the frozen teacher
+    old_valid: torch.Tensor,     # bool [C] classes the teacher knows
+    labels: torch.Tensor,        # int [B, H, W], for the ignore mask
+    *,
+    temperature: float,
+    ignore_index: int = 255,
+) -> torch.Tensor:
+    """LwF distillation on materialized logits, averaged over non-ignored
+    pixels (``kd_loss_jnp``); α and the LwF weight are the caller's."""
+    mask = labels != ignore_index
+    n = mask.sum().float().clamp_min(1.0)
+    return kd_sum(new_logits, old_logits, old_valid, mask,
+                  temperature=temperature) / n

@@ -192,14 +192,21 @@ class UNet(nn.Module):
             setattr(self, f"dec{level}", DoubleConv(feats * 2, feats, norm))
         self.head = Conv(c, num_classes, 1, bias=True)
 
-    def forward(self, x: torch.Tensor, *,
-                return_features: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, return_features: bool = False,
+                packed_features: bool = False):
         """``return_features=True`` returns the pre-head activations
         [B, H, W, base_channels] in the compute dtype instead of logits:
         the operand of the fused head+CE kernel, which applies the head's
-        own params itself."""
+        own params itself. With ``packed_features`` too, the packed body
+        returns its raw last-level output and that level's deferred
+        BatchNorm, ``(y [B, H, W, base_channels], scale, shift)``, and
+        skips the final BN·ReLU (the operands of
+        ``head_ce.head_cross_entropy_packed_bn``, which applies it
+        in-kernel; ``keep_packed`` in ``cl_tpu``). Where the packed body
+        does not engage, the features come back plain, as in ``cl_tpu``."""
         if self.packed_levels(x.shape[1], x.shape[2]) > 0:
-            z = self._packed_body(x.to(self.dtype).contiguous())
+            keep = return_features and packed_features
+            z = self._packed_body(x.to(self.dtype).contiguous(), keep_raw=keep)
             if return_features:
                 return z
             return self.head(z.permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1)
@@ -227,12 +234,13 @@ class UNet(nn.Module):
         return packed_prefix(h, self.base_channels, self.depth,
                              self.dtype.itemsize)
 
-    def _packed_body(self, x: torch.Tensor) -> torch.Tensor:
+    def _packed_body(self, x: torch.Tensor, keep_raw: bool = False):
         """``cl_tpu``'s ``UNet._packed_body`` on NHWC x: levels below the
         prefix in the packed kernels, the deeper ones and the bottleneck
         through the standard modules (channels_last), the decoder packing
         the deep region's output on entry. Returns the pre-head
-        activations [B, H, W, base_channels] (NHWC)."""
+        activations [B, H, W, base_channels] (NHWC), or with ``keep_raw``
+        the last conv's raw output and its deferred (scale, shift)."""
         prefix = self.packed_levels(x.shape[1], x.shape[2])
         train = self.training
         skips = []
@@ -263,6 +271,8 @@ class UNet(nn.Module):
             u = upconv_pack.upconv2x2(below, up.weight, up.bias)
             y, sc, sh = getattr(self, f"dec{level}").packed_split(
                 skips[level], u, train)
+        if keep_raw:
+            return y, sc, sh
         return packed_eltwise.bn_relu(y, sc, sh)
 
 

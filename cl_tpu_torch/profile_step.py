@@ -10,6 +10,8 @@ and prints the device time per step by kernel family and the top kernels,
 the profiled wall time per step, and the share of that wall time in which
 no kernel ran (the device's idle share), then one JSON line with the same
 numbers. The batch is made once, so host data work is outside the window.
+Under ``method.methods=lwf`` the teacher is the seeded init snapshotted
+as after task 0, and the steps train task 1.
 """
 
 from __future__ import annotations
@@ -70,15 +72,26 @@ def profile(cfg, steps: int = 5, warmup: int = 3) -> dict:
     from cl_tpu_torch import train as tl
     from cl_tpu_torch.data import pipeline, tasks
 
+    from cl_tpu_torch.methods import lwf as lwf_lib
+
     device = tl.resolve_device("cuda")
     model = tl.init_state(cfg, tl.build_model(cfg), device)
     opt = tl.build_optimizer(cfg, model)
-    step = tl.make_train_step(cfg, model, opt, device)
-    batch = pipeline.put_batch(next(iter(pipeline.train_batches(cfg, 0, 0))),
+
+    def seen(task):
+        return torch.from_numpy(tasks.valid_class_mask(
+            cfg.data.num_classes, tasks.seen_classes(cfg.classes_per_task, task))).to(device)
+
+    # under LwF: the teacher is the init, snapshotted as after task 0, and
+    # the steps train task 1
+    lwf, task = None, 0
+    if "lwf" in cfg.method.methods:
+        lwf, task = lwf_lib.make_lwf_state(model), 1
+        lwf_lib.lwf_after_task(lwf, model, seen(0))
+    step = tl.make_train_step(cfg, model, opt, device, lwf=lwf)
+    batch = pipeline.put_batch(next(iter(pipeline.train_batches(cfg, task, 0))),
                                device)
-    valid = torch.from_numpy(tasks.valid_class_mask(
-        cfg.data.num_classes,
-        tasks.seen_classes(cfg.classes_per_task, 0))).to(device)
+    valid = seen(task)
     for _ in range(warmup):
         step(batch, valid)
     torch.cuda.synchronize()

@@ -1,23 +1,26 @@
 """L4 — training driver: Python task loop, one eager train step per batch.
 
 The counterpart of ``cl_tpu/train.py`` for the configurations the port
-runs so far: the fine-tune baseline (no EWC / LwF / replay), the standard
-UNet body and the packed one (``model.packed_unet`` at its engage sizes),
-the host pipeline, one device. The packed body trains with the fused
-head+CE on its NHWC features (``train.packed_head_ce=false``) or with the
-CE on logits (``train.fused_head_ce=false``); the packed head+CE kernels
-are a later slice (``check_trainable``). Per task: epochs of
-augment → forward → masked CE → backward → optimizer step, then an eval
-of every seen task; the same JSONL events (``epoch``, ``eval``,
-``task_done``, ``done``) and the same report as the JAX package.
+runs so far: the fine-tune baseline and LwF (no EWC / replay), the
+standard UNet body and the packed one (``model.packed_unet`` at its engage
+sizes), the host pipeline, one device. Per task: epochs of augment →
+forward → loss → backward → optimizer step, then an eval of every seen
+task and, under LwF, the teacher snapshot; the same JSONL events
+(``epoch``, ``eval``, ``task_done``, ``done``) and the same report as the
+JAX package.
 
-The loss takes the JAX package's branches (``cl_tpu/train.py:433-515``):
-the fused head+CE kernel when ``train.fused_head_ce`` resolves on, else
-the CE kernel on materialized logits when ``train.use_pallas``, else the
-plain ``losses.cross_entropy``. Entry points run on the card: ``device``
+The loss takes the JAX package's branches (``cl_tpu/train.py:391-515``):
+on the packed body with the fused head and ``train.packed_head_ce`` (the
+headline step), the packed BN·ReLU + head + CE kernels on the body's raw
+output, or under LwF their KD form with the teacher's raw output; else the
+fused head+CE kernel on NHWC features when ``train.fused_head_ce``
+resolves on; else the CE kernel on materialized logits when
+``train.use_pallas``; else the plain ``losses.cross_entropy`` (plus
+``losses.kd_loss`` under LwF). Entry points run on the card: ``device``
 None means ``cuda``, and without CUDA they raise; the CPU runs only when
 the caller passes ``device="cpu"``. A config that needs a part of the JAX
-package not ported yet raises ``NotImplementedError`` (``check_supported``).
+package not ported yet raises ``NotImplementedError`` (``check_supported``),
+and no route drops to another loss.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from cl_tpu_torch.config import Config
 from cl_tpu_torch.data import pipeline
 from cl_tpu_torch.data import tasks as task_lib
 from cl_tpu_torch.kernels import ce_loss, head_ce
+from cl_tpu_torch.methods import lwf as lwf_lib
 from cl_tpu_torch.models.unet import UNet, init_weights
 
 _LATER = "comes in a later slice of the port (ROADMAP.md Queue 1)"
@@ -80,8 +84,16 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
         unported.append("model.padded_head=false (the grow-the-head variant)")
     if t.use_pallas and t.pallas_augment:
         unported.append("train.pallas_augment (the augment kernel)")
-    if meth.methods:
-        unported.append(f"method.methods={meth.methods} (EWC / LwF / replay)")
+    if set(meth.methods) - {"lwf"}:
+        unported.append(f"method.methods={meth.methods} (EWC: kernels #17-19; "
+                        "replay: kernel #20)")
+    if "lwf" in meth.methods and t.use_pallas and not packed_head_on(cfg):
+        unported.append(
+            "method.methods=lwf with the fused head on NHWC features (the KD "
+            "head kernels #9/#10, head_cross_entropy_kd)" if fused_head_on(cfg) else
+            "method.methods=lwf with the KD on materialized logits (the KD "
+            "kernels #13/#14, kd_loss); LwF runs on the packed KD head or with "
+            "train.use_pallas=false")
     if d.device_cache:
         unported.append("data.device_cache (device-resident dataset)")
     if d.dataset != "synthetic":
@@ -106,19 +118,6 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
             "not in this slice of the port: " + "; ".join(unported)
             + f" — each {_LATER}")
     _dtype(cfg)
-
-
-def check_trainable(cfg: Config) -> None:
-    """A packed config trains unless its loss would take the packed
-    BN·ReLU + head + CE (``head_cross_entropy_packed_bn``, kernels #7/#8):
-    the fused head with ``train.packed_head_ce`` on, the gate of
-    ``cl_tpu/train.py:371-373``."""
-    if _packed_engages(cfg) and fused_head_on(cfg) and cfg.train.packed_head_ce:
-        raise NotImplementedError(
-            "training the packed body with train.packed_head_ce=true: the "
-            "packed BN·ReLU + head + CE kernels (#7/#8) come in a later slice "
-            "of the port (ROADMAP.md Queue 1); pass train.packed_head_ce=false "
-            "(the fused head on the NHWC features) or train.fused_head_ce=false")
 
 
 def build_model(cfg: Config) -> UNet:
@@ -167,53 +166,108 @@ def fused_head_on(cfg: Config) -> bool:
     return cfg.train.use_pallas and on
 
 
+def packed_head_on(cfg: Config) -> bool:
+    """The loss takes the packed BN·ReLU + head + CE (kernels #7/#8; under
+    LwF their KD form, #11/#12): the fused head on the packed body with
+    ``train.packed_head_ce`` (``cl_tpu/train.py:371-373`` and the body's
+    gate)."""
+    return fused_head_on(cfg) and _packed_engages(cfg) and cfg.train.packed_head_ce
+
+
 # ---------------------------------------------------------------------------
 # Train and eval steps
 # ---------------------------------------------------------------------------
 
 
 def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
-                    device=None) -> Callable:
+                    device=None, lwf: lwf_lib.LwFState | None = None) -> Callable:
     """``step(batch, valid_classes) -> aux``: one optimizer step on
     ``model`` (updated in place). ``batch`` is a ``HostBatch`` of tensors
-    on the device; ``aux`` holds 0-d device tensors (loss, ce, n_pix), so
-    the step does not wait for the device."""
+    on the device; ``aux`` holds 0-d device tensors (loss, ce, n_pix, and
+    kd under LwF), so the step does not wait for the device. ``lwf``: the
+    ``methods.lwf.LwFState`` when ``method.methods`` has lwf; the step
+    reads its teacher, ``old_valid`` and weight at every call."""
     device = resolve_device(device)
     check_supported(cfg, device)
-    check_trainable(cfg)
     _set_precision(device)
-    d = cfg.data
+    d, m = cfg.data, cfg.method
     compute_dtype = _dtype(cfg)
+    use_packed_head = packed_head_on(cfg)
     use_fused_head = fused_head_on(cfg)
     use_kernels = cfg.train.use_pallas
+    use_lwf = "lwf" in m.methods
+    if use_lwf and lwf is None:
+        raise ValueError("method.methods has lwf: pass "
+                         "lwf=methods.lwf.make_lwf_state(model)")
+
+    def raw_features(feats, x):
+        # Where the packed body does not engage, cl_tpu drops to the fused
+        # head on NHWC features; the port does not run another loss than
+        # the config asks for.
+        if not isinstance(feats, tuple):
+            raise NotImplementedError(
+                "the packed head+CE (train.packed_head_ce with the fused head on the "
+                "packed body) takes the packed body's raw output, and the packed body "
+                f"does not engage at {x.shape[1]}x{x.shape[2]}; pass "
+                "train.packed_head_ce=false for the fused head on NHWC features")
+        return feats
 
     def loss_fn(x, y, valid_classes):
+        """(ce, n_pix, weighted KD or None). The teacher runs first, as in
+        ``cl_tpu``: its forward's transients are freed before the
+        student's forward saves its activations."""
+        if use_packed_head:
+            if use_lwf:
+                traw, tsc, tsh = raw_features(lwf_lib.old_features(lwf, x, packed=True), x)
+            raw, sc, sh = raw_features(
+                model(x, return_features=True, packed_features=True), x)
+            if use_lwf:
+                ce, kd_raw, n_pix = head_ce.head_cross_entropy_kd_packed_bn(
+                    raw, sc, sh, model.head.weight, model.head.bias, traw, tsc, tsh,
+                    lwf.teacher.head.weight, lwf.teacher.head.bias, y, valid_classes,
+                    lwf.old_valid, temperature=m.lwf_temperature,
+                    ignore_index=d.ignore_index)
+                return ce, n_pix, lwf.weight * kd_raw
+            ce, n_pix = head_ce.head_cross_entropy_packed_bn(
+                raw, sc, sh, model.head.weight, model.head.bias, y, valid_classes,
+                ignore_index=d.ignore_index)
+            return ce, n_pix, None
         if use_fused_head:
             feats = model(x, return_features=True)
-            return head_ce.head_cross_entropy(
+            return (*head_ce.head_cross_entropy(
                 feats, model.head.weight, model.head.bias, y, valid_classes,
-                ignore_index=d.ignore_index)
+                ignore_index=d.ignore_index), None)
+        old = lwf_lib.old_logits(lwf, x) if use_lwf else None
         logits = model(x)
         if use_kernels:
             # The model's f32 logits are upcast compute-dtype head outputs,
             # so the downcast is lossless and halves the kernel's operand.
-            return ce_loss.cross_entropy(logits.to(compute_dtype), y,
-                                         valid_classes,
+            return (*ce_loss.cross_entropy(logits.to(compute_dtype), y,
+                                           valid_classes,
+                                           ignore_index=d.ignore_index), None)
+        ce, n_pix = losses.cross_entropy(logits, y, valid_classes,
                                          ignore_index=d.ignore_index)
-        return losses.cross_entropy(logits, y, valid_classes,
-                                    ignore_index=d.ignore_index)
+        if not use_lwf:
+            return ce, n_pix, None
+        kd = losses.kd_loss(logits, old, lwf.old_valid, y,
+                            temperature=m.lwf_temperature,
+                            ignore_index=d.ignore_index)
+        return ce, n_pix, lwf.weight * kd
 
     def step(batch: pipeline.HostBatch, valid_classes: torch.Tensor) -> dict:
         x, y = augment(batch.image, batch.mask, batch.flip,
                        out_size=d.image_size, mean=d.mean, std=d.std,
                        compute_dtype=compute_dtype)
         model.train()
-        ce, n_pix = loss_fn(x, y, valid_classes)
+        ce, n_pix, kd = loss_fn(x, y, valid_classes)
+        total = ce if kd is None else ce + m.lwf_alpha * kd
         opt.zero_grad(set_to_none=True)
-        ce.backward()
+        total.backward()
         opt.step()
-        ce = ce.detach()
-        return {"loss": ce, "ce": ce, "n_pix": n_pix}
+        aux = {"loss": total.detach(), "ce": ce.detach(), "n_pix": n_pix}
+        if kd is not None:
+            aux["kd"] = kd.detach()
+        return aux
 
     return step
 
@@ -284,7 +338,6 @@ def train(cfg: Config, init_variables=None, device=None) -> dict:
 
     device = resolve_device(device)
     check_supported(cfg, device)
-    check_trainable(cfg)
     logger = EventLogger(cfg.train.log_path, cfg.train.tensorboard_dir)
     try:
         return _train_impl(cfg, logger, init_variables, device)
@@ -300,7 +353,8 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
     if init_variables is not None:
         load_jax_variables(model, init_variables)
     opt = build_optimizer(cfg, model)
-    train_step = make_train_step(cfg, model, opt, device)
+    lwf = lwf_lib.make_lwf_state(model) if "lwf" in cfg.method.methods else None
+    train_step = make_train_step(cfg, model, opt, device, lwf=lwf)
     eval_step = make_eval_step(cfg, model, device)
 
     splits = cfg.classes_per_task
@@ -361,6 +415,8 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
             miou_matrix[task_id, k] = res["miou"]
             logger.log(event="eval", after_task=task_id, task=k,
                        miou=res["miou"])
+        if lwf is not None and task_id < T - 1:
+            lwf_lib.lwf_after_task(lwf, model, valid_dev)
 
         logger.log(event="task_done", task=task_id,
                    seconds=time.perf_counter() - t_task)
