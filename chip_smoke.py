@@ -17,7 +17,13 @@ Phases (any failure raises, so the exit code is non-zero):
    stats cotangents); the packed head+CE with the BN·ReLU prologue (#7/#8)
    and its KD form (#11/#12) at the headline shape (2,097,152 pixels, 32
    channels, 19 classes, bf16) and at small f32 and ragged ones, each
-   backward launched twice and held bit-equal;
+   backward launched twice and held bit-equal; EWC's penalty (#17, also
+   relaunched bit-equal and over two rows of a separate-mode state), its
+   gradient (#18, a cotangent other than 1) and the Fisher accumulation
+   (#19) at the flat param count of UNet-32 with 19 and with 21 classes
+   and at a ragged 1,003; the replay gather (#20) on uint8 image and mask
+   rows at 576² with k = 1, 4 and 8 and on a ragged 37·37·3-byte row,
+   byte-equal;
 4. the baseline_1 preset as it ships, through ``train()``: 16 steps and
    one eval (the fused head+CE kernels), then the same shape with
    ``train.fused_head_ce=false`` (the CE kernels) through
@@ -58,6 +64,23 @@ Phases (any failure raises, so the exit code is non-zero):
    the CPU at 128² f32 with a teacher unlike the student (KD term, loss
    and params); a 2-task ``train()`` at 512² whose mIoU matrix and
    forgetting report must be finite;
+5m. the methods step, baseline_5 on one card (EWC online with λ = 3e4,
+   LwF on the packed KD head, the device-resident replay buffer; batch
+   8 + 1): task 0's after-task hooks on the seeded init (the Fisher pass
+   of 8 batches, #19 launched once per batch; the LwF snapshot; the
+   buffer's fill), then 3 + 10 steps of task 1 with launch counts (phase
+   5l's, plus one #17, one #18 and two #20 per step), a falling loss,
+   images/s and peak memory beside phase 5l's, five pairs of 10 methods
+   and 10 LwF steps in turns with each step's host issue time, and one
+   step (as one of 5h and of 5l) under ``torch.cuda.set_sync_debug_mode
+   ("error")``, which fails at any host wait in the step; one step with all three
+   methods on the card against the CPU at 128² f32 (a perturbed anchor, a
+   positive random Fisher, a teacher unlike the student, a filled buffer:
+   penalty, KD term, loss, params and each update); a 3-task ``train()``
+   of the baseline_5 cut and a 2-task ``train()`` of baseline_3 as it
+   ships (EWC alone, f32, 21 classes), 16 train and 8 val images per
+   task: finite mIoU matrix and forgetting, the methods kernels launched
+   as counted;
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take.
 
@@ -888,16 +911,185 @@ def kernel_entry(kernel, shape, source, replaces, launches, err, times, bytes_op
 
 
 # ---------------------------------------------------------------------------
+# Phase 3 / 6: the methods kernels (EWC's penalty, its gradient, the Fisher
+# accumulation; the replay gather)
+# ---------------------------------------------------------------------------
+
+
+METHODS_KERNELS = {  # launch-count key: (source, TPU kernel's pallas_call)
+    "ewc_penalty": ("cl_tpu_torch/csrc/ewc.cu", "cl_tpu/pallas/ewc_fused.py:72"),
+    "ewc_grad": ("cl_tpu_torch/csrc/ewc.cu", "cl_tpu/pallas/ewc_fused.py:95"),
+    "ewc_sq_acc": ("cl_tpu_torch/csrc/ewc.cu", "cl_tpu/pallas/ewc_fused.py:163"),
+    "replay_gather": ("cl_tpu_torch/csrc/replay_gather.cu",
+                      "cl_tpu/pallas/replay_gather.py:76"),
+}
+S_REPLAY = 576  # the 512² presets' source size: the replay buffer's rows
+
+
+def n_params(num_classes):
+    """Params of UNet-32, depth 4, with a head of ``num_classes``: the
+    length of the flat vectors the EWC kernels take."""
+    from cl_tpu_torch.models.unet import UNet
+
+    return sum(p.numel() for p in UNet(num_classes, 32, 4).parameters())
+
+
+def ewc_operands(n, seed, T=None):
+    """Seeded f32 vectors on the card: θ, an anchor near it, a positive
+    Fisher (rows of [T, n] when T is given), a cotangent g ≠ 1 and a
+    gradient."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (n,) if T is None else (T, n)
+    theta = torch.randn(n, device="cuda", generator=gen) * 0.05
+    anchor = theta + torch.randn(shape, device="cuda", generator=gen) * 0.01
+    fisher = torch.rand(shape, device="cuda", generator=gen) + 0.5
+    g = torch.tensor(0.37 * 3e4, device="cuda")
+    grad = torch.randn(n, device="cuda", generator=gen) * 1e-2
+    return theta, anchor, fisher, g, grad
+
+
+def ulp_err(got, want):
+    """max |got − want| in f32 ulps of want (0 = bit-equal)."""
+    import torch
+
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 23)
+    return ((got - want).abs() / ulp).max().item()
+
+
+def compare_ewc(n, seed):
+    """#17 (relaunched bit-equal, and in separate mode over T = 2 rows),
+    #18 with a cotangent ≠ 1 and #19 against their plain versions at n.
+    Returns {kernel: max abs err}."""
+    import torch
+
+    from cl_tpu_torch.kernels import ewc_fused as ef
+
+    theta, anchor, fisher, g, grad = ewc_operands(n, seed)
+    got = ef.launch_penalty(theta, anchor, fisher)
+    again = ef.launch_penalty(theta, anchor, fisher)
+    want = ef.penalty_plain(theta, anchor, fisher)
+    exact = ef.penalty_plain(theta.double(), anchor.double(), fisher.double()).item()
+    rel = abs(got.item() - want.item()) / want.item()
+    print(f"  ewc_penalty n={n}: {got.item():.8g} (plain {want.item():.8g}, float64 {exact:.8g}); "
+          f"relative err {rel:.3g} (tol 1e-5), relaunch bit-equal {torch.equal(got, again)}")
+    need(rel <= 1e-5 and torch.equal(got, again), f"ewc_penalty n={n}")
+    _, anchor2, fisher2, _, _ = ewc_operands(n, seed + 1, T=2)
+    got2 = sum(ef.launch_penalty(theta, anchor2[t], fisher2[t]) for t in range(2))
+    want2 = sum(ef.penalty_plain(theta, anchor2[t], fisher2[t]) for t in range(2))
+    rel2 = abs(got2.item() - want2.item()) / want2.item()
+    print(f"  ewc_penalty separate T=2 n={n} (row 1 {'un' if (n * 4) % 16 else ''}aligned): "
+          f"relative err {rel2:.3g} (tol 1e-5)")
+    need(rel2 <= 1e-5, f"ewc_penalty separate n={n}")
+    d_got = ef.launch_grad(theta, anchor, fisher, g)
+    d_again = ef.launch_grad(theta, anchor, fisher, g)
+    d_want = ef.grad_plain(theta, anchor, fisher, g)
+    acc = torch.rand(n, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    acc_want = ef.sq_acc_plain(acc.clone(), grad)
+    acc_got = ef.launch_sq_acc(acc, grad)
+    errs = {"ewc_penalty": abs(got.item() - want.item()),
+            "ewc_grad": (d_got - d_want).abs().max().item(),
+            "ewc_sq_acc": (acc_got - acc_want).abs().max().item()}
+    u_grad, u_acc = ulp_err(d_got, d_want), ulp_err(acc_got, acc_want)
+    print(f"  ewc_grad n={n}, g={g.item():.6g}: max abs err {errs['ewc_grad']:.3g}, {u_grad:.3g} "
+          f"ulp (tol 1 ulp), relaunch bit-equal {torch.equal(d_got, d_again)}; ewc_sq_acc: max "
+          f"abs err {errs['ewc_sq_acc']:.3g}, {u_acc:.3g} ulp (tol 1 ulp)")
+    need(u_grad <= 1 and u_acc <= 1 and torch.equal(d_got, d_again), f"ewc_grad / sq_acc n={n}")
+    return errs
+
+
+def replay_buffer(rows, shape, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 256, (rows, *shape), dtype=torch.uint8, device="cuda",
+                         generator=gen)
+
+
+def compare_gather(shape, k, seed):
+    """#20 on a capacity-64 buffer of uint8 rows of ``shape``, k rows
+    (indices with repeats), byte-equal to ``index_select``."""
+    import torch
+
+    from cl_tpu_torch.kernels import replay_gather as rg
+
+    buf = replay_buffer(64, shape, seed)
+    idx = torch.from_numpy(np.random.RandomState(seed).randint(0, 64, size=k).astype(np.int32))
+    idx = idx.cuda()
+    got, want = rg.launch_gather(buf, idx), rg.gather_plain(buf, idx)
+    err = (got.int() - want.int()).abs().max().item()
+    print(f"  replay_gather {shape} k={k}: byte-equal {torch.equal(got, want)}")
+    need(torch.equal(got, want), f"replay_gather {shape} k={k}")
+    return err
+
+
+def methods_bytes_ops(kernel, n=None, shape=None, k=1):
+    """(bytes each input read once and each output written once, operations)."""
+    if kernel == "ewc_penalty":
+        return 3 * n * 4 + 4, 4 * n
+    if kernel == "ewc_grad":
+        return 4 * n * 4 + 4, 3 * n
+    if kernel == "ewc_sq_acc":
+        return 3 * n * 4, 2 * n
+    return 2 * k * int(np.prod(shape)) + 4 * k, 0
+
+
+def methods_times(kernel, n=None, shape=None, k=1, seed=0):
+    """(ms, plain_ms, library_ms or None, ms synchronised per launch)."""
+    import torch
+
+    from cl_tpu_torch.kernels import ewc_fused as ef
+    from cl_tpu_torch.kernels import replay_gather as rg
+
+    if kernel == "replay_gather":
+        buf = replay_buffer(64, shape, seed)
+        idx = torch.arange(k, dtype=torch.int32, device="cuda") * 7 % 64
+        launch, plain = (lambda: rg.launch_gather(buf, idx)), (lambda: rg.gather_plain(buf, idx))
+        lib = lambda: torch.index_select(buf, 0, idx)  # noqa: E731
+    else:
+        theta, anchor, fisher, g, grad = ewc_operands(n, seed)
+        acc = torch.rand(n, device="cuda")
+        fns = {"ewc_penalty": (lambda: ef.launch_penalty(theta, anchor, fisher),
+                               lambda: ef.penalty_plain(theta, anchor, fisher), None),
+               "ewc_grad": (lambda: ef.launch_grad(theta, anchor, fisher, g),
+                            lambda: ef.grad_plain(theta, anchor, fisher, g), None),
+               "ewc_sq_acc": (lambda: ef.launch_sq_acc(acc, grad),
+                              lambda: ef.sq_acc_plain(acc, grad),
+                              lambda: acc.addcmul_(grad, grad))}
+        launch, plain, lib = fns[kernel]
+    return (time_ms(launch), time_ms(plain), None if lib is None else time_ms(lib),
+            time_ms(launch, queued=False))
+
+
+def methods_entry(kernel, name, launches, err, times, bytes_ops):
+    """One line of the ``kernels`` JSON for a methods kernel (f32 or bytes:
+    the f32 peak outside the tensor cores for the operations)."""
+    ms, plain_ms, lib_ms = times[:3]
+    nbytes, ops = bytes_ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS["float32"] * 1e3
+    source, replaces = METHODS_KERNELS[kernel]
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms}
+    need(launches > 0, f"{name} launched on its path")
+    return entry
+
+
+# ---------------------------------------------------------------------------
 # Phases 4 / 5: training paths
 # ---------------------------------------------------------------------------
 
 
 def _count_dicts():
-    from cl_tpu_torch.kernels import (ce_loss, conv3x3, head_ce, packed_eltwise,
-                                      pool_pack, upconv_pack)
+    from cl_tpu_torch.kernels import (ce_loss, conv3x3, ewc_fused, head_ce, packed_eltwise,
+                                      pool_pack, replay_gather, upconv_pack)
 
     return (head_ce.LAUNCHES, ce_loss.LAUNCHES, conv3x3.LAUNCHES,
-            packed_eltwise.LAUNCHES, pool_pack.LAUNCHES, upconv_pack.LAUNCHES)
+            packed_eltwise.LAUNCHES, pool_pack.LAUNCHES, upconv_pack.LAUNCHES,
+            ewc_fused.LAUNCHES, replay_gather.LAUNCHES)
 
 
 def reset_counts():
@@ -913,40 +1105,35 @@ def read_counts() -> dict:
     return out
 
 
-def seen_mask(cfg, task, device):
+def build_step(cfg, device, seed_batch=0, keep=None):
+    """(model, optimizer, make_train_step's step, a prebuilt batch, the
+    valid-class mask) of ``cfg`` on ``device``, from the seeded init
+    (``profile_step.build``). Under a method, task 0's after-task hooks run
+    first (EWC's Fisher pass, the LwF snapshot, the replay buffer's fill)
+    and the step trains task 1, gathering its replay rows at each call
+    from the device-resident buffer. ``keep``, a dict, receives the launch
+    counts of the set-up (``"build_counts"``)."""
     import torch
 
-    from cl_tpu_torch.data import tasks
+    from cl_tpu_torch.profile_step import build
 
-    return torch.from_numpy(tasks.valid_class_mask(
-        cfg.data.num_classes, tasks.seen_classes(cfg.classes_per_task, task))).to(device)
-
-
-def build_step(cfg, device, seed_batch=0):
-    """(model, optimizer, make_train_step's step, a prebuilt batch, the
-    valid-class mask) of ``cfg`` on ``device``, from the seeded init.
-    Under LwF the teacher is the seeded init snapshotted as after task 0,
-    and the step trains task 1."""
-    from cl_tpu_torch import train as tl
-    from cl_tpu_torch.data import pipeline
-    from cl_tpu_torch.methods import lwf as lwf_lib
-
-    model = tl.init_state(cfg, tl.build_model(cfg), device)
-    opt = tl.build_optimizer(cfg, model)
-    lwf, task = None, 0
-    if "lwf" in cfg.method.methods:
-        lwf, task = lwf_lib.make_lwf_state(model), 1
-        lwf_lib.lwf_after_task(lwf, model, seen_mask(cfg, 0, device))
-    step = tl.make_train_step(cfg, model, opt, device, lwf=lwf)
-    hb = next(iter(pipeline.train_batches(cfg, task, seed_batch)))
-    return model, opt, step, pipeline.put_batch(hb, device), seen_mask(cfg, task, device)
+    torch.cuda.synchronize()
+    reset_counts()
+    built = build(cfg, device, seed_batch)
+    torch.cuda.synchronize()
+    if keep is not None:
+        keep["build_counts"] = read_counts()
+    return built
 
 
 def host_issue_ms(step, batch, valid, reps=5):
     """Median host time to issue one step while the card is still busy
     with ~0.1 s of queued sleep, so the host never waits for it: the
     step's issue cost alone (a sync inside the step would show as ~100
-    ms)."""
+    ms). Valid only for a step of fewer launches than the card's queue
+    of pending launches holds (~1,000): the LwF and methods steps launch
+    more, their host blocks until the sleep ends, and this reads ~100 ms
+    without any sync (``run_steps(no_sync=True)`` checks for syncs)."""
     import torch
 
     times = []
@@ -986,14 +1173,17 @@ def alternating_pairs(cfgs, device, n_pairs=5, n_warm=3, n_timed=10):
     return ips, {name: host_issue_ms(*built[name][2:]) for name in names}
 
 
-def run_steps(cfg, n_warm, n_timed, device, seed_batch=0, keep=None):
+def run_steps(cfg, n_warm, n_timed, device, seed_batch=0, keep=None, no_sync=False):
     """make_train_step on one prebuilt batch; returns (counts, img/s,
     peak MiB, last loss, first loss). Counts cover exactly these steps.
-    ``keep``, a dict, receives the trained weights as a flax variable
-    tree."""
+    ``keep``, a dict, receives the set-up's launch counts and the trained
+    weights as a flax variable tree. ``no_sync``: one more step under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    operation that makes the host wait for the card (a blocking copy, an
+    ``.item()``)."""
     import torch
 
-    model, opt, step, batch, valid = build_step(cfg, device, seed_batch)
+    model, opt, step, batch, valid = build_step(cfg, device, seed_batch, keep)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1009,6 +1199,13 @@ def run_steps(cfg, n_warm, n_timed, device, seed_batch=0, keep=None):
     counts = read_counts()
     loss = aux["loss"].item()
     need(np.isfinite(loss), f"finite loss ({loss})")
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(batch, valid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
     ips = cfg.data.batch_size * n_timed / dt
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     if keep is not None:
@@ -1042,17 +1239,25 @@ def agree_with_cpu(args, label, packed_levels=0):
     versions) from the same weights and batch: loss and params in f32.
     Under LwF, with a teacher unlike the student (``perturbed``), weight 1
     and the first half of the classes (at least two) old; its KD term
-    checked too."""
+    checked too. Under EWC, with an anchor unlike the params (``perturbed``),
+    a positive random Fisher and weight 1; its penalty checked. Under
+    replay, the batch widened by rows gathered from a device-resident
+    buffer filled with four of task 0's images (the same seeded draws on
+    both devices)."""
     import torch
 
     from cl_tpu_torch import train as tl
     from cl_tpu_torch.config import parse_overrides
     from cl_tpu_torch.data import pipeline
-    from cl_tpu_torch.interop import export_jax_variables, load_jax_variables
+    from cl_tpu_torch.interop import (export_jax_variables, flat_from_params_tree,
+                                      load_jax_variables)
+    from cl_tpu_torch.kernels.replay_gather import DeviceReplayBuffer
+    from cl_tpu_torch.methods import ewc as ewc_lib
     from cl_tpu_torch.methods import lwf as lwf_lib
 
     cfg = parse_overrides(args + ["train.optimizer=sgd", "train.lr=0.05",
                                   "train.data_parallel=false"])
+    m = cfg.method
     hb = next(iter(pipeline.train_batches(cfg, 0, 0)))
     valid = torch.ones(cfg.data.num_classes, dtype=torch.bool)
     old_valid = torch.arange(cfg.data.num_classes) < max(2, cfg.data.num_classes // 2)
@@ -1068,22 +1273,42 @@ def agree_with_cpu(args, label, packed_levels=0):
         load_jax_variables(model, variables)
         if before is None:
             before = {k: v.detach().double().cpu() for k, v in model.state_dict().items()}
-        lwf = None
-        if "lwf" in cfg.method.methods:
+        lwf = ewc = None
+        if "lwf" in m.methods:
             lwf = lwf_lib.make_lwf_state(model)
             load_jax_variables(lwf.teacher, perturbed(variables, 7))
             lwf.old_valid.copy_(old_valid)
             lwf.weight = 1.0
-        step = tl.make_train_step(cfg, model, tl.build_optimizer(cfg, model), dev, lwf=lwf)
-        aux = step(pipeline.put_batch(hb, dev), valid.to(dev))
+        if "ewc" in m.methods:
+            ewc = ewc_lib.make_ewc_state(model, mode="online")
+            ewc.anchor.copy_(flat_from_params_tree(model, perturbed(variables, 8)["params"]))
+            n = ewc.fisher.shape[0]
+            ewc.fisher.copy_(torch.from_numpy(
+                (np.random.RandomState(9).rand(n) + 0.5).astype(np.float32) * 1e-3))
+            ewc.weight.fill_(1.0)
+        batch = pipeline.put_batch(hb, dev)
+        if "replay" in m.methods:
+            buf = DeviceReplayBuffer(m.replay_capacity, cfg.data.source_size, seed=99,
+                                     device=dev)
+            buf.add_examples(pipeline.make_datasets(cfg, 0)[0], 4, task_id=0)
+            batch = tl._device_replay_mix(buf, batch, m.replay_batch,
+                                          flip_prob=cfg.data.flip_prob)
+        step = tl.make_train_step(cfg, model, tl.build_optimizer(cfg, model), dev, lwf=lwf,
+                                  ewc=ewc)
+        aux = step(batch, valid.to(dev))
         out[dev.type] = (aux["loss"].item(), {
             k: v.detach().double().cpu() for k, v in model.state_dict().items()})
-        if lwf is not None:
-            out[dev.type + "_kd"] = aux["kd"].item()
+        for term in ("kd", "ewc_penalty"):
+            if term in aux:
+                out[f"{dev.type}_{term}"] = aux[term].item()
     if "cpu_kd" in out:
         kc, kg = out["cpu_kd"], out["cuda_kd"]
         print(f"  {label}: KD term cuda {kg:.7f} cpu {kc:.7f} (tol 1e-4)")
         need(kc > 0 and abs(kg - kc) <= 1e-4, f"card vs CPU KD term ({label})")
+    if "cpu_ewc_penalty" in out:
+        pc, pg = out["cpu_ewc_penalty"], out["cuda_ewc_penalty"]
+        print(f"  {label}: EWC penalty cuda {pg:.8g} cpu {pc:.8g} (tol 1e-5 relative)")
+        need(pc > 0 and abs(pg - pc) <= 1e-5 * pc, f"card vs CPU EWC penalty ({label})")
     (lc, pc), (lg, pg) = out["cpu"], out["cuda"]
     perr = max((pg[k] - pc[k]).abs().max().item() for k in pc)
     # each entry's update, (after - before), within 1e-2 of its norm plus
@@ -1101,6 +1326,37 @@ def agree_with_cpu(args, label, packed_levels=0):
           f"(1e-2 of its norm + one ulp per element), {worst}")
     need(abs(lg - lc) <= 1e-4 and perr <= 1e-4 and update_err(worst) <= 1,
          f"card vs CPU step ({label})")
+
+
+def methods_train(label, args, device=None):
+    """``train()`` of a methods config: a finite mIoU matrix and forgetting,
+    and the methods kernels launched as counted: the penalty and its
+    gradient at every step (weight 0 on task 0, as in ``cl_tpu``), the
+    Fisher accumulation once per Fisher batch after every task but the
+    last, the gather twice per step from task 1 on (task 0 widens its
+    batch with its own rows)."""
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.config import parse_overrides
+
+    cfg = parse_overrides(args)
+    T = cfg.train.num_tasks
+    per_task = cfg.data.train_images_per_task // cfg.data.batch_size * cfg.train.epochs_per_task
+    nf = min(cfg.data.train_images_per_task // cfg.data.batch_size,
+             cfg.method.ewc_fisher_batches)
+    want = {"ewc_penalty": T * per_task, "ewc_grad": T * per_task, "ewc_sq_acc": (T - 1) * nf,
+            "replay_gather": 2 * (T - 1) * per_task if "replay" in cfg.method.methods else 0}
+    reset_counts()
+    report = tl.train(cfg, device=device)
+    counts = read_counts()
+    mat = np.asarray(report["miou_matrix"], float)
+    print(f"  train(), {label}: {T} tasks, {T * per_task} steps: mIoU matrix {mat.tolist()}, "
+          f"forgetting {report['forgetting_per_task']}; methods launches "
+          f"{ {k: counts[k] for k in want} }")
+    need(np.isfinite(mat[np.tril_indices(T)]).all()
+         and np.isfinite(report["forgetting_per_task"]).all(),
+         f"finite mIoU and forgetting ({label})")
+    for k, n in want.items():
+        need(counts[k] == n, f"{k} launches == {n} in the train() of {label}")
 
 
 def eval_pass(cfg, model, device):
@@ -1248,6 +1504,19 @@ def main() -> int:
         for k in BN_KERNELS:
             compare_bn(k, case)
 
+    # the methods kernels: the flat params of both methods paths (19 and 21
+    # classes) and a ragged n; the replay gather on the 576² rows
+    n5, n3 = n_params(19), n_params(21)
+    ewc_errs = compare_ewc(n5, 1)
+    for n in (n3, 1003):
+        compare_ewc(n, 2)
+    gather_errs = {}
+    for shape in ((S_REPLAY, S_REPLAY, 3), (S_REPLAY, S_REPLAY)):
+        for k in (1, 4, 8):
+            err = compare_gather(shape, k, k)
+            gather_errs.setdefault(shape, err)
+    compare_gather((37, 37, 3), 4, 5)
+
     print("[4] baseline_1 as it ships, through train()")
     cfg1 = get_preset("baseline_1")
     steps1 = (cfg1.data.train_images_per_task // cfg1.data.batch_size
@@ -1387,7 +1656,7 @@ def main() -> int:
     no_other_loss = ("head_ce_fwd", "head_ce_bwd", "ce_fwd", "ce_bwd", "head_ce_kd_bn_fwd",
                      "head_ce_kd_bn_bwd")
     cfg_h = parse_overrides(packed_full)
-    counts_h, ips_h, peak_h, loss_h, first_h = run_steps(cfg_h, 3, 10, cuda)
+    counts_h, ips_h, peak_h, loss_h, first_h = run_steps(cfg_h, 3, 10, cuda, no_sync=True)
     print(f"  13 steps: {ips_h:.2f} img/s, peak {peak_h:.0f} MiB, loss {first_h:.4f} -> "
           f"{loss_h:.4f}; launches {counts_h}")
     need(loss_h < first_h, "headline training loss falls")
@@ -1416,7 +1685,8 @@ def main() -> int:
     for k, n in PER_FORWARD.items():
         lwf_step[k] += n - (k == "bn_relu_fwd")
     lwf_full = packed_full + ["method.methods=lwf", "train.num_tasks=2"]
-    counts_l, ips_l, peak_l, loss_l, first_l = run_steps(parse_overrides(lwf_full), 3, 10, cuda)
+    counts_l, ips_l, peak_l, loss_l, first_l = run_steps(parse_overrides(lwf_full), 3, 10, cuda,
+                                                         no_sync=True)
     print(f"  13 steps with a teacher: {ips_l:.2f} img/s, peak {peak_l:.0f} MiB, loss "
           f"{first_l:.4f} -> {loss_l:.4f}; launches {counts_l}")
     print(f"  beside the headline step: {ips_h:.2f} img/s, peak {peak_h:.0f} MiB")
@@ -1440,6 +1710,56 @@ def main() -> int:
          and np.isfinite(report_l["forgetting_per_task"]).all(), "finite LwF mIoU and forgetting")
     need(counts_lt["head_ce_kd_bn_fwd"] == counts_lt["head_ce_kd_bn_bwd"] == steps_lt
          and counts_lt["head_ce_bn_fwd"] == 0, "KD head launches == steps in the LwF train()")
+
+    print("[5m] the methods step: baseline_5 on one card (EWC, LwF on the packed KD head, "
+          "device-resident replay)")
+    b5 = ["preset=baseline_5", "data.batch_size=8", "method.replay_batch=1", "train.remat=false",
+          "train.data_parallel=false", "data.dataset=synthetic", "data.device_cache=false"]
+    cfg5 = parse_overrides(b5)
+    keep5 = {}
+    counts_m, ips_m, peak_m, loss_m, first_m = run_steps(cfg5, 3, 10, cuda, keep=keep5,
+                                                         no_sync=True)
+    build5 = keep5["build_counts"]
+    nf = min(cfg5.data.train_images_per_task // cfg5.data.batch_size,
+             cfg5.method.ewc_fisher_batches)
+    print(f"  task 0's hooks: Fisher pass of {nf} batches (ewc_sq_acc launches "
+          f"{build5['ewc_sq_acc']}), the LwF snapshot, the buffer's fill")
+    need(build5["ewc_sq_acc"] == nf and build5["ewc_penalty"] == 0,
+         f"the Fisher pass launches ewc_sq_acc {nf} times")
+    # per step: the LwF step's kernels, one penalty and its gradient, the
+    # gather of the replay rows' images and masks
+    methods_step = dict(lwf_step, ewc_penalty=1, ewc_grad=1, ewc_sq_acc=0, replay_gather=2)
+    print(f"  13 steps of task 1, 8 + 1 images each: {ips_m:.2f} img/s (fresh images), peak "
+          f"{peak_m:.0f} MiB, loss {first_m:.4f} -> {loss_m:.4f}; launches {counts_m}")
+    print(f"  beside phase 5l's LwF step: {ips_l:.2f} img/s, peak {peak_l:.0f} MiB")
+    need(loss_m < first_m, "the methods step's loss falls")
+    for k, n in methods_step.items():
+        need(counts_m[k] == 13 * n, f"{k} launches == steps x {n} (methods step)")
+    need(all(counts_m[k] == 0 for k in ("head_ce_fwd", "head_ce_bwd", "ce_fwd", "ce_bwd",
+                                        "head_ce_bn_fwd", "head_ce_bn_bwd")),
+         "no other loss kernel (methods step)")
+    # the methods step and the LwF step in turns, to read their difference
+    # against the spread between pairs (images/s of the 8 fresh images)
+    pairs_m, issue_m = alternating_pairs({"methods": cfg5, "LwF": parse_overrides(lwf_full)},
+                                         cuda)
+    ratios_m = [p / q for p, q in zip(pairs_m["methods"], pairs_m["LwF"])]
+    print(f"  alternating pairs, 10 steps each, images/s: methods "
+          f"{[round(v, 2) for v in pairs_m['methods']]}, LwF "
+          f"{[round(v, 2) for v in pairs_m['LwF']]}; ratio {[round(r, 4) for r in ratios_m]}, "
+          f"median {float(np.median(ratios_m)):.4f}")
+    print(f"  host issue per step (card kept busy): methods {issue_m['methods']:.3f} ms, "
+          f"LwF {issue_m['LwF']:.3f} ms (over ~1,000 launches a step each: the launch "
+          f"queue fills while the card sleeps, so ~100 ms is the sleep, not the host)")
+    print("  one step of each of 5h, 5l and 5m under sync debug mode 'error': no sync")
+    agree_with_cpu(["preset=baseline_1", "model.packed_min_size=0", "data.num_classes=3",
+                    "train.num_tasks=2", "method.methods=ewc,lwf,replay",
+                    "method.replay_device_resident=true", "method.replay_batch=1"],
+                   "methods step 128² base 32 depth 4 f32", packed_levels=3)
+    small = ["data.train_images_per_task=16", "data.val_images_per_task=8"]
+    methods_train("baseline_5 cut, 3 tasks", b5 + small + ["train.num_tasks=3",
+                                                           "train.epochs_per_task=1"])
+    methods_train("baseline_3 as it ships", ["preset=baseline_3", "data.dataset=synthetic",
+                                             "data.device_cache=false"] + small)
 
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
@@ -1507,6 +1827,29 @@ def main() -> int:
               f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library {lib_txt}, bound "
               f"{entry['bound_ms']:.4f} by {entry['bound_by']}); launches {launches} in phase "
               f"{'5l' if 'kd' in kernel else '5h'}")
+    for kernel in ("ewc_penalty", "ewc_grad", "ewc_sq_acc"):
+        times = methods_times(kernel, n=n5)
+        # the Fisher pass's launches (phase 5m's set-up), the others' of its steps
+        launches = (build5 if kernel == "ewc_sq_acc" else counts_m)[kernel]
+        entry = methods_entry(kernel, f"{kernel} [n={n5} f32]", launches, ewc_errs[kernel],
+                              times, methods_bytes_ops(kernel, n=n5))
+        kernels.append(entry)
+        lib_txt = "—" if entry["library_ms"] is None else f"{entry['library_ms']:.4f}"
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms (synchronised per launch "
+              f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library {lib_txt}, bound "
+              f"{entry['bound_ms']:.4f} by {entry['bound_by']}); launches {launches} in phase 5m")
+    for shape in ((S_REPLAY, S_REPLAY, 3), (S_REPLAY, S_REPLAY)):
+        times = methods_times("replay_gather", shape=shape, k=1)
+        # one launch for the images, one for the masks, at each step
+        launches = counts_m["replay_gather"] // 2
+        entry = methods_entry("replay_gather", f"replay_gather [1 of 64 x {'x'.join(map(str, shape))} "
+                              f"uint8]", launches, gather_errs[shape], times,
+                              methods_bytes_ops("replay_gather", shape=shape, k=1))
+        kernels.append(entry)
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms (synchronised per launch "
+              f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library "
+              f"{entry['library_ms']:.4f}, bound {entry['bound_ms']:.4f} by "
+              f"{entry['bound_by']}); launches {launches} in phase 5m")
     sums = [sum(v[i] for v in per_step_ms.values()) for i in (0, 4)]
     print(f"  per packed train step, all packed kernels: {sums[0]:.4f} ms (synchronised per "
           f"launch {sums[1]:.4f})")
@@ -1516,7 +1859,8 @@ def main() -> int:
     print(f"  images/s: baseline_1 train() {b1_ips}, baseline_1 unfused "
           f"{b1u_ips:.2f}, 512² bf16 fused {ips_f:.2f}, unfused {ips_u:.2f}; packed "
           f"train {ips_t:.2f}, unfused {ips_tu:.2f}; headline {ips_h:.2f} (peak "
-          f"{peak_h:.0f} MiB), LwF {ips_l:.2f} (peak {peak_l:.0f} MiB)")
+          f"{peak_h:.0f} MiB), LwF {ips_l:.2f} (peak {peak_l:.0f} MiB), baseline_5 methods step "
+          f"{ips_m:.2f} (peak {peak_m:.0f} MiB)")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,10 @@ Layer map:
   L2 models/unet.py     — UNet (standard and packed bodies), NHWC at the
                           interface, channels_last inside, bf16-capable;
                           models/packed_gate.py chooses the packed levels
-  L3 methods/lwf.py     — LwF: the frozen teacher and its snapshot
+  L3 methods/           — LwF (the frozen teacher and its snapshot), EWC
+                          (flat anchor and Fisher, the Fisher pass's
+                          gradient), the host replay buffer; the
+                          device-resident buffer is kernels/replay_gather.py
   L4 train.py           — task loop, train/eval steps
   L5 metrics.py         — on-device confusion matrix, mIoU, forgetting
 Hand-written CUDA kernels live in csrc/, their wrappers and plain

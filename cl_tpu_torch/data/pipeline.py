@@ -4,8 +4,9 @@ The host decodes (here: rasterizes) to uint8; resize → flip → normalize
 runs on the device (``cl_tpu_torch.augment``). Batches cross host → device
 as uint8, put ahead of the step by a background thread.
 
-``HostBatch``, ``epoch_plan``, ``batches``, ``train_batches`` and
-``val_batches`` are this package's own copies of ``cl_tpu/data/pipeline.py``:
+``HostBatch``, ``epoch_plan``, ``batches``, ``train_batches``,
+``replay_mix`` and ``val_batches`` are this package's own copies of
+``cl_tpu/data/pipeline.py``:
 the batch stream is bit-identical to the JAX package's (tested).
 """
 
@@ -120,6 +121,14 @@ def train_batches(cfg: Config, task_id: int, epoch: int) -> Iterator[HostBatch]:
     return batches(train_ds, batch_size=cfg.data.batch_size, epoch=epoch,
                    seed=cfg.data.shuffle_seed + 1000 * task_id, shuffle=True,
                    flip_prob=cfg.data.flip_prob)
+
+
+def replay_mix(batch: HostBatch, replay_samples: HostBatch | None) -> HostBatch:
+    """A host batch with a replay sub-batch appended (``cl_tpu``'s
+    ``pipeline.replay_mix``)."""
+    if replay_samples is None:
+        return batch
+    return HostBatch(*(np.concatenate([a, b]) for a, b in zip(batch, replay_samples)))
 
 
 def val_batches(cfg: Config, task_id: int) -> Iterator[HostBatch]:

@@ -16,6 +16,11 @@ Layout mapping:
 
 Module names line up 1:1: the port's UNet names its modules after the flax
 tree (enc{l}.conv{i}/bn{i}, bottleneck, up{l}, dec{l}, head).
+
+``ewc_state_from_jax`` carries ``cl_tpu``'s EWC state (params-shaped trees
+of the anchor and Fisher) into the port's flat vectors through the same
+mapping, in ``model.parameters()`` order (``cl_tpu`` flattens in
+``jax.tree.leaves`` order, so sums over the vectors run in another order).
 """
 
 from __future__ import annotations
@@ -117,3 +122,48 @@ def load_jax_variables(model: torch.nn.Module, variables: dict[str, Any]) -> Non
 def export_jax_variables(model: torch.nn.Module) -> dict[str, Any]:
     """The port's UNet as a flax variable tree of numpy arrays."""
     return torch_state_dict_to_variables(model.state_dict())
+
+
+def flat_from_params_tree(model: torch.nn.Module, tree: dict[str, Any]) -> torch.Tensor:
+    """A flax ``params``-shaped tree (numpy leaves, the transposed-conv flip
+    included) as one f32 vector in ``model.parameters()`` order, on the
+    CPU."""
+    sd = variables_to_torch_state_dict({"params": tree})
+    return torch.cat([torch.from_numpy(np.array(sd[name], np.float32)).reshape(-1)
+                      for name, _ in model.named_parameters()])
+
+
+def _slot(tree, t: int):
+    if isinstance(tree, dict):
+        return {k: _slot(v, t) for k, v in tree.items()}
+    return np.asarray(tree)[t]
+
+
+def ewc_state_from_jax(model: torch.nn.Module, state, *, mode: str):
+    """``cl_tpu.methods.ewc.EWCState`` (its anchor and Fisher trees as
+    numpy or JAX arrays; a leading task axis in ``separate`` mode) as the
+    port's ``methods.ewc.EWCState`` on the model's device."""
+    from cl_tpu_torch.methods.ewc import EWCState
+
+    dev = next(model.parameters()).device
+    if mode == "online":
+        anchor, fisher = (flat_from_params_tree(model, t) for t in (state.anchor, state.fisher))
+    elif mode == "separate":
+        T = np.asarray(next(iter(_leaves(state.anchor)))).shape[0]
+        anchor, fisher = (torch.stack([flat_from_params_tree(model, _slot(tree, t))
+                                       for t in range(T)])
+                          for tree in (state.anchor, state.fisher))
+    else:
+        raise ValueError(f"unknown ewc mode {mode!r}")
+    return EWCState(anchor=anchor.to(dev), fisher=fisher.to(dev),
+                    weight=torch.tensor(float(np.asarray(state.weight)), dtype=torch.float32,
+                                        device=dev),
+                    n_tasks=int(np.asarray(state.n_tasks)))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

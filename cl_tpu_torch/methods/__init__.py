@@ -1,1 +1,1 @@
-"""Continual-learning methods of the port (LwF so far)."""
+"""Continual-learning methods of the port: EWC, LwF and replay."""

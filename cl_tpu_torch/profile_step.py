@@ -7,11 +7,16 @@ as the CLI takes them), runs it on one prebuilt batch on the CUDA card —
 warm-up steps first, then ``--steps`` timed steps without the profiler
 (ms/step and images/s), then ``--steps`` steps inside a profiler window —
 and prints the device time per step by kernel family and the top kernels,
-the profiled wall time per step, and the share of that wall time in which
-no kernel ran (the device's idle share), then one JSON line with the same
-numbers. The batch is made once, so host data work is outside the window.
-Under ``method.methods=lwf`` the teacher is the seeded init snapshotted
-as after task 0, and the steps train task 1.
+the kernel launches per step, the profiled wall time per step, and the
+share of that wall time in which no kernel ran (the device's idle share),
+then one JSON line with the same numbers. The batch is made once, so host data work is outside the window.
+Under a method (with ``train.num_tasks`` >= 2) task 0's after-task hooks
+run first on the seeded init, as ``train()`` runs them (EWC's Fisher pass
+over task 0's batches, a real Fisher; the LwF snapshot; the replay
+buffer's fill), and the steps train task 1; under the device-resident
+replay buffer each step gathers its replay rows (kernel #20), under the
+host buffer the batch is mixed once. The methods' kernels (EWC's and the
+replay gather) are a family of their own.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import torch
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
+    ("methods kernels (cl_tpu_torch)", ("ewc_penalty", "ewc_grad", "ewc_sq_acc",
+                                        "replay_gather")),
     ("loss kernels (cl_tpu_torch)", ("head_ce", "ce_fwd_kernel", "ce_bwd_kernel")),
     ("packed body kernels (cl_tpu_torch)", ("conv3x3_bn", "conv3x3_dw", "bn_relu",
                                             "add_stats", "dy_eff", "maxpool", "upconv",
@@ -65,33 +72,53 @@ def _busy_us(events) -> float:
     return busy
 
 
+def build(cfg, device, batch_epoch: int = 0):
+    """(model, optimizer, step, batch, valid) for ``cfg`` on ``device``
+    from the seeded init: ``step(batch, valid)`` is ``make_train_step``'s,
+    the batch one prebuilt batch of the task the step trains (see the
+    module docstring for the methods)."""
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.data import pipeline, tasks
+    from cl_tpu_torch.kernels.replay_gather import DeviceReplayBuffer
+    from cl_tpu_torch.methods import ewc as ewc_lib
+    from cl_tpu_torch.methods import lwf as lwf_lib
+
+    m, T = cfg.method, cfg.train.num_tasks
+    model = tl.init_state(cfg, tl.build_model(cfg), device)
+    opt = tl.build_optimizer(cfg, model)
+    lwf = lwf_lib.make_lwf_state(model) if "lwf" in m.methods else None
+    ewc = ewc_lib.make_ewc_state(model, mode=m.ewc_mode, max_tasks=max(T - 1, 1)) \
+        if "ewc" in m.methods else None
+    replay = tl.make_replay_buffer(cfg, device)
+    task = 1 if m.methods and T > 1 else 0
+    if task:
+        fisher_step = tl.make_fisher_step(cfg, model, device) if ewc is not None else None
+        tl.after_task(cfg, 0, model, ewc=ewc, fisher_step=fisher_step, lwf=lwf, replay=replay,
+                      device=device)
+    step = tl.make_train_step(cfg, model, opt, device, lwf=lwf, ewc=ewc)
+    hb = next(iter(pipeline.train_batches(cfg, task, batch_epoch)))
+    if isinstance(replay, DeviceReplayBuffer):
+        train_step = step
+
+        def step(batch, valid):
+            return train_step(tl._device_replay_mix(replay, batch, m.replay_batch,
+                                                    flip_prob=cfg.data.flip_prob), valid)
+    elif replay is not None:
+        hb = pipeline.replay_mix(hb, replay.sample_or_current(
+            m.replay_batch, hb, flip_prob=cfg.data.flip_prob))
+    valid = torch.from_numpy(tasks.valid_class_mask(
+        cfg.data.num_classes, tasks.seen_classes(cfg.classes_per_task, task))).to(device)
+    return model, opt, step, pipeline.put_batch(hb, device), valid
+
+
 def profile(cfg, steps: int = 5, warmup: int = 3) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     from cl_tpu_torch import train as tl
-    from cl_tpu_torch.data import pipeline, tasks
-
-    from cl_tpu_torch.methods import lwf as lwf_lib
 
     device = tl.resolve_device("cuda")
-    model = tl.init_state(cfg, tl.build_model(cfg), device)
-    opt = tl.build_optimizer(cfg, model)
-
-    def seen(task):
-        return torch.from_numpy(tasks.valid_class_mask(
-            cfg.data.num_classes, tasks.seen_classes(cfg.classes_per_task, task))).to(device)
-
-    # under LwF: the teacher is the init, snapshotted as after task 0, and
-    # the steps train task 1
-    lwf, task = None, 0
-    if "lwf" in cfg.method.methods:
-        lwf, task = lwf_lib.make_lwf_state(model), 1
-        lwf_lib.lwf_after_task(lwf, model, seen(0))
-    step = tl.make_train_step(cfg, model, opt, device, lwf=lwf)
-    batch = pipeline.put_batch(next(iter(pipeline.train_batches(cfg, task, 0))),
-                               device)
-    valid = seen(task)
+    _, _, step, batch, valid = build(cfg, device)
     for _ in range(warmup):
         step(batch, valid)
     torch.cuda.synchronize()
@@ -127,6 +154,7 @@ def profile(cfg, steps: int = 5, warmup: int = 3) -> dict:
         "images_per_s": cfg.data.batch_size * 1e3 / plain_ms,
         "profiled_wall_ms_per_step": wall_us / steps / 1e3,
         "device_ms_per_step": total / steps / 1e3,
+        "kernels_per_step": len(kernels) / steps,
         "idle_share": (1.0 - busy / wall_us) if kernels else None,
         "families_ms_per_step": {k: v / steps / 1e3 for k, v in
                                  sorted(fams.items(), key=lambda kv: -kv[1])},
@@ -148,8 +176,8 @@ def main(argv: list[str] | None = None) -> int:
     print(f"{res['device']}: {res['ms_per_step']:.3f} ms/step "
           f"({res['images_per_s']:.2f} images/s) unprofiled; profiled "
           f"{res['profiled_wall_ms_per_step']:.3f} ms/step wall, "
-          f"{res['device_ms_per_step']:.3f} ms/step in kernels, idle share "
-          f"{res['idle_share']}")
+          f"{res['device_ms_per_step']:.3f} ms/step in kernels ({res['kernels_per_step']:.0f} "
+          f"launches), idle share {res['idle_share']}")
     for fam, ms in res["families_ms_per_step"].items():
         print(f"  {fam:32s} {ms:8.3f} ms/step")
     for name, ms in res["top_kernels_ms_per_step"]:

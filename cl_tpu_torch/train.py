@@ -1,13 +1,15 @@
 """L4 — training driver: Python task loop, one eager train step per batch.
 
 The counterpart of ``cl_tpu/train.py`` for the configurations the port
-runs so far: the fine-tune baseline and LwF (no EWC / replay), the
-standard UNet body and the packed one (``model.packed_unet`` at its engage
-sizes), the host pipeline, one device. Per task: epochs of augment →
+runs so far: the fine-tune baseline and the three methods (EWC, LwF,
+replay with the host or the device-resident buffer), the standard UNet
+body and the packed one (``model.packed_unet`` at its engage sizes), the
+host pipeline, one device. Per task: epochs of (replay mix →) augment →
 forward → loss → backward → optimizer step, then an eval of every seen
-task and, under LwF, the teacher snapshot; the same JSONL events
-(``epoch``, ``eval``, ``task_done``, ``done``) and the same report as the
-JAX package.
+task and the after-task hooks in ``cl_tpu``'s order (EWC's Fisher pass
+and consolidation, the LwF snapshot, the replay buffer's fill); the same
+JSONL events (``epoch``, ``eval``, ``task_done``, ``done``) and the same
+report as the JAX package.
 
 The loss takes the JAX package's branches (``cl_tpu/train.py:391-515``):
 on the packed body with the fused head and ``train.packed_head_ce`` (the
@@ -16,11 +18,12 @@ output, or under LwF their KD form with the teacher's raw output; else the
 fused head+CE kernel on NHWC features when ``train.fused_head_ce``
 resolves on; else the CE kernel on materialized logits when
 ``train.use_pallas``; else the plain ``losses.cross_entropy`` (plus
-``losses.kd_loss`` under LwF). Entry points run on the card: ``device``
-None means ``cuda``, and without CUDA they raise; the CPU runs only when
-the caller passes ``device="cpu"``. A config that needs a part of the JAX
-package not ported yet raises ``NotImplementedError`` (``check_supported``),
-and no route drops to another loss.
+``losses.kd_loss`` under LwF). EWC adds λ·penalty on every route, through
+the penalty kernels under ``train.use_pallas``. Entry points run on the
+card: ``device`` None means ``cuda``, and without CUDA they raise; the CPU
+runs only when the caller passes ``device="cpu"``. A config that needs a
+part of the JAX package not ported yet raises ``NotImplementedError``
+(``check_supported``), and no route drops to another loss.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ from cl_tpu_torch.augment import augment
 from cl_tpu_torch.config import Config
 from cl_tpu_torch.data import pipeline
 from cl_tpu_torch.data import tasks as task_lib
-from cl_tpu_torch.kernels import ce_loss, head_ce
+from cl_tpu_torch.kernels import ce_loss, ewc_fused, head_ce, replay_gather
+from cl_tpu_torch.methods import ewc as ewc_lib
 from cl_tpu_torch.methods import lwf as lwf_lib
+from cl_tpu_torch.methods.replay import ReplayBuffer
 from cl_tpu_torch.models.unet import UNet, init_weights
 
 _LATER = "comes in a later slice of the port (ROADMAP.md Queue 1)"
@@ -84,9 +89,12 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
         unported.append("model.padded_head=false (the grow-the-head variant)")
     if t.use_pallas and t.pallas_augment:
         unported.append("train.pallas_augment (the augment kernel)")
-    if set(meth.methods) - {"lwf"}:
-        unported.append(f"method.methods={meth.methods} (EWC: kernels #17-19; "
-                        "replay: kernel #20)")
+    if set(meth.methods) - {"ewc", "lwf", "replay"}:
+        unported.append(f"method.methods={meth.methods}")
+    if "ewc" in meth.methods and meth.ewc_fisher_kind != "empirical":
+        unported.append(
+            f"method.ewc_fisher_kind={meth.ewc_fisher_kind!r} (EWC's sampled Fisher "
+            "draws its labels from JAX's PRNG; the port runs the empirical Fisher)")
     if "lwf" in meth.methods and t.use_pallas and not packed_head_on(cfg):
         unported.append(
             "method.methods=lwf with the fused head on NHWC features (the KD "
@@ -95,7 +103,8 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
             "kernels #13/#14, kd_loss); LwF runs on the packed KD head or with "
             "train.use_pallas=false")
     if d.device_cache:
-        unported.append("data.device_cache (device-resident dataset)")
+        unported.append("data.device_cache (the device-resident dataset and its "
+                        "plan-driven epochs, replay's included)")
     if d.dataset != "synthetic":
         unported.append(f"data.dataset={d.dataset!r}")
     if t.checkpoint_dir or t.resume:
@@ -180,13 +189,16 @@ def packed_head_on(cfg: Config) -> bool:
 
 
 def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
-                    device=None, lwf: lwf_lib.LwFState | None = None) -> Callable:
+                    device=None, lwf: lwf_lib.LwFState | None = None,
+                    ewc: ewc_lib.EWCState | None = None) -> Callable:
     """``step(batch, valid_classes) -> aux``: one optimizer step on
     ``model`` (updated in place). ``batch`` is a ``HostBatch`` of tensors
-    on the device; ``aux`` holds 0-d device tensors (loss, ce, n_pix, and
-    kd under LwF), so the step does not wait for the device. ``lwf``: the
-    ``methods.lwf.LwFState`` when ``method.methods`` has lwf; the step
-    reads its teacher, ``old_valid`` and weight at every call."""
+    on the device (under replay already widened by the replay rows);
+    ``aux`` holds 0-d device tensors (loss, ce, n_pix, ``ewc_penalty``
+    under EWC, kd under LwF), so the step does not wait for the device.
+    ``lwf`` / ``ewc``: the ``methods.lwf.LwFState`` / ``methods.ewc.EWCState``
+    when ``method.methods`` has the method; the step reads them at every
+    call."""
     device = resolve_device(device)
     check_supported(cfg, device)
     _set_precision(device)
@@ -199,6 +211,11 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
     if use_lwf and lwf is None:
         raise ValueError("method.methods has lwf: pass "
                          "lwf=methods.lwf.make_lwf_state(model)")
+    use_ewc = "ewc" in m.methods
+    if use_ewc and ewc is None:
+        raise ValueError("method.methods has ewc: pass "
+                         "ewc=methods.ewc.make_ewc_state(model, mode=...)")
+    ewc_penalty = ewc_fused.penalty if use_kernels else ewc_lib.penalty
 
     def raw_features(feats, x):
         # Where the packed body does not engage, cl_tpu drops to the fused
@@ -260,13 +277,20 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
                        compute_dtype=compute_dtype)
         model.train()
         ce, n_pix, kd = loss_fn(x, y, valid_classes)
-        total = ce if kd is None else ce + m.lwf_alpha * kd
+        # cl_tpu's order (train.py:404-420): ce, + λ·penalty, + α·kd
+        total = ce
+        aux = {"ce": ce.detach(), "n_pix": n_pix}
+        if use_ewc:
+            pen = ewc_penalty(ewc_lib.flat_params(model), ewc, mode=m.ewc_mode)
+            total = total + m.ewc_lambda * pen
+            aux["ewc_penalty"] = pen.detach()
+        if kd is not None:
+            total = total + m.lwf_alpha * kd
+            aux["kd"] = kd.detach()
         opt.zero_grad(set_to_none=True)
         total.backward()
         opt.step()
-        aux = {"loss": total.detach(), "ce": ce.detach(), "n_pix": n_pix}
-        if kd is not None:
-            aux["kd"] = kd.detach()
+        aux["loss"] = total.detach()
         return aux
 
     return step
@@ -320,6 +344,111 @@ def eval_result(cfg: Config, conf: torch.Tensor, task_id: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# EWC's Fisher pass and the replay mix
+# ---------------------------------------------------------------------------
+
+
+def make_fisher_step(cfg: Config, model: UNet, device=None) -> Callable:
+    """``step(acc, batch, valid_classes) -> acc``: acc += (∂CE/∂θ)² of one
+    batch, the model in eval mode (``cl_tpu/train.py:773-819``, the
+    empirical Fisher). ``acc``: a flat f32 vector in ``flat_params`` order,
+    updated in place by the accumulation kernel (#19) under
+    ``train.use_pallas``, else by its plain version. The CE is the plain
+    ``losses.cross_entropy``, as in ``cl_tpu``."""
+    device = resolve_device(device)
+    check_supported(cfg, device)
+    _set_precision(device)
+    d = cfg.data
+    compute_dtype = _dtype(cfg)
+    accumulate = ewc_fused.sq_accumulate if cfg.train.use_pallas else ewc_fused.sq_acc_plain
+
+    def step(acc, batch: pipeline.HostBatch, valid_classes):
+        x, y = augment(batch.image, batch.mask, batch.flip,
+                       out_size=d.image_size, mean=d.mean, std=d.std,
+                       compute_dtype=compute_dtype)
+        g = ewc_lib.fisher_batch_grads(model, x, y, valid_classes,
+                                       ignore_index=d.ignore_index)
+        return accumulate(acc, g)
+
+    return step
+
+
+def run_fisher_pass(cfg: Config, fisher_step, model: UNet, task_id: int,
+                    seen_valid: np.ndarray, device=None) -> torch.Tensor:
+    """The mean of the squared gradients over up to
+    ``method.ewc_fisher_batches`` batches of ``train_batches(cfg, task_id,
+    10_000 + task_id)`` (``cl_tpu/train.py:885-911``): a flat f32 vector."""
+    device = resolve_device(device)
+    acc = torch.zeros(ewc_lib.n_params(model), dtype=torch.float32, device=device)
+    valid = torch.from_numpy(np.asarray(seen_valid, bool)).to(device)
+    n = 0
+    batch_it = pipeline.prefetch_to_device(
+        pipeline.train_batches(cfg, task_id, 10_000 + task_id), device=device,
+        depth=cfg.data.prefetch_depth)
+    try:
+        for batch in batch_it:
+            if n >= cfg.method.ewc_fisher_batches:
+                break
+            acc = fisher_step(acc, batch, valid)
+            n += 1
+    finally:
+        batch_it.close()  # the pass usually stops early: retire the prefetch now
+    return acc / max(n, 1)
+
+
+def make_replay_buffer(cfg: Config, device=None):
+    """The config's replay buffer: the device-resident one
+    (``method.replay_device_resident``), the host one, or None."""
+    if "replay" not in cfg.method.methods:
+        return None
+    seed = cfg.data.shuffle_seed + 999
+    if cfg.method.replay_device_resident:
+        return replay_gather.DeviceReplayBuffer(cfg.method.replay_capacity,
+                                                cfg.data.source_size, seed=seed,
+                                                device=resolve_device(device))
+    return ReplayBuffer(cfg.method.replay_capacity, seed=seed)
+
+
+def _device_replay_mix(buf: replay_gather.DeviceReplayBuffer, batch: pipeline.HostBatch,
+                       k: int, *, flip_prob: float) -> pipeline.HostBatch:
+    """Widen a device batch by k rows gathered from the device-resident
+    buffer (kernel #20, once for the images and once for the masks); on an
+    empty buffer (task 0), k rows of the batch itself, so the step has one
+    shape from the first step on (``cl_tpu/train.py:941-961``)."""
+    idx = buf.sample_indices(k)
+    if idx is None:
+        dup = replay_gather.to_device(
+            buf.rng.randint(0, batch.image.shape[0], size=k).astype(np.int64),
+            batch.image.device)
+        extra = pipeline.HostBatch(*(t.index_select(0, dup) for t in batch))
+    else:
+        imgs, masks = buf.gather(idx)
+        extra = pipeline.HostBatch(imgs, masks, buf.sample_flips(k, flip_prob))
+    return pipeline.HostBatch(*(torch.cat([a, b]) for a, b in zip(batch, extra)))
+
+
+def after_task(cfg: Config, task_id: int, model: UNet, *, ewc=None, fisher_step=None,
+               lwf=None, replay=None, device=None) -> None:
+    """The after-task hooks in ``cl_tpu``'s order (``cl_tpu/train.py:1424-1464``):
+    EWC's Fisher pass and consolidation and the LwF snapshot after every
+    task but the last, then the replay buffer's fill with
+    max(1, capacity // T) of the task's train images."""
+    T = cfg.train.num_tasks
+    seen_valid = task_lib.valid_class_mask(
+        cfg.data.num_classes, task_lib.seen_classes(cfg.classes_per_task, task_id))
+    if ewc is not None and task_id < T - 1:
+        fisher_new = run_fisher_pass(cfg, fisher_step, model, task_id, seen_valid, device)
+        ewc_lib.ewc_after_task(ewc, model, fisher_new, mode=cfg.method.ewc_mode,
+                               gamma=cfg.method.ewc_gamma, task_id=task_id)
+    if lwf is not None and task_id < T - 1:
+        lwf_lib.lwf_after_task(lwf, model, torch.from_numpy(seen_valid))
+    if replay is not None:
+        train_ds, _ = pipeline.make_datasets(cfg, task_id)
+        replay.add_examples(train_ds, max(1, cfg.method.replay_capacity // T),
+                            task_id=task_id)
+
+
+# ---------------------------------------------------------------------------
 # Full continual run
 # ---------------------------------------------------------------------------
 
@@ -353,12 +482,18 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
     if init_variables is not None:
         load_jax_variables(model, init_variables)
     opt = build_optimizer(cfg, model)
-    lwf = lwf_lib.make_lwf_state(model) if "lwf" in cfg.method.methods else None
-    train_step = make_train_step(cfg, model, opt, device, lwf=lwf)
+    m = cfg.method
+    T = cfg.train.num_tasks
+    lwf = lwf_lib.make_lwf_state(model) if "lwf" in m.methods else None
+    ewc = ewc_lib.make_ewc_state(model, mode=m.ewc_mode, max_tasks=max(T - 1, 1)) \
+        if "ewc" in m.methods else None
+    fisher_step = make_fisher_step(cfg, model, device) if ewc is not None else None
+    replay = make_replay_buffer(cfg, device)
+    dev_replay = isinstance(replay, replay_gather.DeviceReplayBuffer)
+    train_step = make_train_step(cfg, model, opt, device, lwf=lwf, ewc=ewc)
     eval_step = make_eval_step(cfg, model, device)
 
     splits = cfg.classes_per_task
-    T = cfg.train.num_tasks
     miou_matrix = np.full((T, T), np.nan)
     step_times: list[tuple[float, int]] = []  # (epoch seconds, steps)
     # Eval accounting as in the JAX package: the first eval pass (first
@@ -389,11 +524,19 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
             # Losses stay on the device during the epoch: fetching each
             # one would wait for the device every step.
             losses_dev = []
+            src = pipeline.train_batches(cfg, task_id, epoch)
+            if replay is not None and not dev_replay:
+                # the host buffer's draws run in the prefetch thread, in
+                # the batches' order
+                src = (pipeline.replay_mix(b, replay.sample_or_current(
+                    m.replay_batch, b, flip_prob=cfg.data.flip_prob)) for b in src)
             batch_it = pipeline.prefetch_to_device(
-                pipeline.train_batches(cfg, task_id, epoch), device=device,
-                depth=cfg.data.prefetch_depth)
+                src, device=device, depth=cfg.data.prefetch_depth)
             t_ep = time.perf_counter()
             for batch in batch_it:
+                if dev_replay:
+                    batch = _device_replay_mix(replay, batch, m.replay_batch,
+                                               flip_prob=cfg.data.flip_prob)
                 losses_dev.append(train_step(batch, valid_dev)["loss"])
             # the fetch of the losses is the epoch's sync
             ep_loss = float(np.mean(torch.stack(losses_dev).cpu().numpy())) \
@@ -415,8 +558,8 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
             miou_matrix[task_id, k] = res["miou"]
             logger.log(event="eval", after_task=task_id, task=k,
                        miou=res["miou"])
-        if lwf is not None and task_id < T - 1:
-            lwf_lib.lwf_after_task(lwf, model, valid_dev)
+        after_task(cfg, task_id, model, ewc=ewc, fisher_step=fisher_step, lwf=lwf,
+                   replay=replay, device=device)
 
         logger.log(event="task_done", task=task_id,
                    seconds=time.perf_counter() - t_task)

@@ -226,8 +226,10 @@ def test_lwf_routes_that_run(args):
     (["preset=smoke", "method.methods=lwf"], "#9/#10"),          # fused head, NHWC
     (PACKED + ["train.packed_head_ce=false"], "#9/#10"),
     (["preset=smoke", "method.methods=lwf", "train.fused_head_ce=false"], "#13/#14"),
-    (["preset=smoke", "method.methods=ewc"], "EWC"),
-    (["preset=smoke", "method.methods=lwf,replay", "train.use_pallas=false"], "replay"),
+    (["preset=smoke", "method.methods=ewc,lwf", "train.use_pallas=false",
+      "method.ewc_fisher_kind=true"], "EWC"),                    # the sampled Fisher
+    (["preset=smoke", "method.methods=lwf,replay", "train.use_pallas=false",
+      "data.device_cache=true"], "replay"),                      # plan-driven replay
 ])
 def test_lwf_routes_that_raise(args, match):
     cfg = parse_overrides(args)

@@ -69,8 +69,9 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     "model.norm=group",
     "model.padded_head=false",
     "train.pallas_augment=true",
-    "method.methods=ewc",
-    "method.methods=lwf,replay",
+    # EWC runs since the methods slice; its sampled Fisher does not
+    pytest.param("method.methods=ewc method.ewc_fisher_kind=true", id="method.methods=ewc"),
+    "method.methods=lwf,replay",        # LwF on the NHWC fused head (#9/#10)
     "data.device_cache=true",
     "data.dataset=synthetic_native",
     "train.checkpoint_dir=ckpt",
@@ -84,7 +85,7 @@ def test_unported_configs_raise(override):
     packed body asked for where it does not engage, 32² base 8) the packed
     head+CE without the packed body's raw output, which the port refuses
     rather than take another loss."""
-    cfg = config.parse_overrides(["preset=smoke", override])
+    cfg = config.parse_overrides(["preset=smoke", *override.split()])
     match = "does not engage" if override == "model.packed_min_size=0" else "later slice"
     with pytest.raises(NotImplementedError, match=match):
         port_train.train(cfg, device="cpu")
