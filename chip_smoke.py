@@ -23,7 +23,10 @@ Phases (any failure raises, so the exit code is non-zero):
    (#19) at the flat param count of UNet-32 with 19 and with 21 classes
    and at a ragged 1,003; the replay gather (#20) on uint8 image and mask
    rows at 576² with k = 1, 4 and 8 and on a ragged 37·37·3-byte row,
-   byte-equal;
+   byte-equal; the augment kernels (#15 the image's resize, flip and
+   normalization, #16 the mask's) at 576 → 512 with 8 and 9 images, 320 →
+   256 and 160 → 128 with 8, and 50 → 32 with 3, flips mixed, in f32 and
+   bf16: the mask bit-equal, the image within 1e-5 (f32) or one bf16 ulp;
 4. the baseline_1 preset as it ships, through ``train()``: 16 steps and
    one eval (the fused head+CE kernels), then the same shape with
    ``train.fused_head_ce=false`` (the CE kernels) through
@@ -80,7 +83,22 @@ Phases (any failure raises, so the exit code is non-zero):
    of the baseline_5 cut and a 2-task ``train()`` of baseline_3 as it
    ships (EWC alone, f32, 21 classes), 16 train and 8 val images per
    task: finite mIoU matrix and forgetting, the methods kernels launched
-   as counted;
+   as counted (both on the device-resident dataset, as the presets ship);
+5d. the data path (the native rasterizer, the device-resident dataset,
+   plan-driven epochs): baseline_2 and baseline_3 as they ship and
+   baseline_4 as it ships with ``train.pallas_augment=true`` through
+   ``train()``, every plan-driven step under sync debug mode "error": a
+   finite mIoU matrix and forgetting, ``hbm_live_set`` at every task
+   boundary with the caches freed, every image from the native
+   rasterizer, the steps and the launches as the config implies (#15/#16
+   once per train, eval and Fisher step); baseline_3's images/s on the
+   host pipeline (``data.device_cache=false data.dataset=synthetic``)
+   beside it; three steps of baseline_3 with ``train.pallas_augment`` on
+   and off from the same weights and plan (x within 1e-5, y bit-equal,
+   losses within 1e-5); the plan-driven Fisher pass at 128² f32 on the
+   card against the float64 Fisher of the same batches, and through the
+   augment kernels against without them, each leaf within 2e-4 of its
+   norm (the CPU's f32 Fisher printed beside them);
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take.
 
@@ -896,18 +914,26 @@ def bwd_times(kernel, shape, dtype_name="bfloat16"):
             time_ms(lambda: launch(*ops), queued=False))
 
 
-def kernel_entry(kernel, shape, source, replaces, launches, err, times, bytes_ops):
-    """One line of the ``kernels`` JSON from a kernel's measurements."""
+def json_entry(name, source, replaces, launches, err, times, bytes_ops, peak="bfloat16"):
+    """One line of the ``kernels`` JSON from a kernel's measurements: the
+    bound is the larger of the bytes over the memory rate and the
+    operations over the ``peak`` rate."""
     ms, plain_ms, lib_ms = times[:3]
     nbytes, ops = bytes_ops
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
-    entry = {"name": packed_name(kernel, shape, "bfloat16"), "route": "cuda", "source": source,
-             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+    t_ops = ops / PEAK_OPS[peak] * 1e3
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms}
-    need(launches > 0, f"{entry['name']} launched on its path")
+    need(launches > 0, f"{name} launched on its path")
     return entry
+
+
+def kernel_entry(kernel, shape, source, replaces, launches, err, times, bytes_ops):
+    """A packed kernel's line (bf16 operations)."""
+    return json_entry(packed_name(kernel, shape, "bfloat16"), source, replaces, launches, err,
+                      times, bytes_ops)
 
 
 # ---------------------------------------------------------------------------
@@ -1063,19 +1089,119 @@ def methods_times(kernel, n=None, shape=None, k=1, seed=0):
 
 
 def methods_entry(kernel, name, launches, err, times, bytes_ops):
-    """One line of the ``kernels`` JSON for a methods kernel (f32 or bytes:
-    the f32 peak outside the tensor cores for the operations)."""
-    ms, plain_ms, lib_ms = times[:3]
-    nbytes, ops = bytes_ops
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS["float32"] * 1e3
-    source, replaces = METHODS_KERNELS[kernel]
-    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms}
-    need(launches > 0, f"{name} launched on its path")
-    return entry
+    """A methods kernel's line (f32 or bytes: the f32 peak outside the
+    tensor cores for the operations)."""
+    return json_entry(name, *METHODS_KERNELS[kernel], launches, err, times, bytes_ops,
+                      peak="float32")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 / 6: the augment kernels (#15 the image, #16 the mask)
+# ---------------------------------------------------------------------------
+
+
+AUG_KERNELS = {  # launch-count key: (source, TPU kernel's pallas_call)
+    "augment_image": ("cl_tpu_torch/csrc/augment.cu", "cl_tpu/pallas/augment.py:94"),
+    "augment_mask": ("cl_tpu_torch/csrc/augment.cu", "cl_tpu/pallas/augment.py:110"),
+}
+# (source, output, batch): the 512² presets (8 fresh images, + 1 replay row
+# in baseline_4 and the baseline_5 cut), baseline_2, baseline_1, and an odd
+# shape; each in f32 and bf16
+AUG_SHAPES = [(576, 512, 8), (576, 512, 9), (320, 256, 8), (160, 128, 8), (50, 32, 3)]
+AUG_MAIN = (576, 512, 9, "float32")  # baseline_4's train step with pallas_augment
+MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+
+
+def aug_operands(src, B, seed):
+    """A uint8 batch on the card: images, masks (classes 0–20, some 255)
+    and flips with both values."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    img = rng.randint(0, 256, (B, src, src, 3)).astype(np.uint8)
+    mask = rng.randint(0, 21, (B, src, src)).astype(np.uint8)
+    mask[:, : src // 8] = 255
+    flip = rng.rand(B) < 0.5
+    flip[0], flip[-1] = True, False
+    return tuple(torch.from_numpy(a).cuda() for a in (img, mask, flip))
+
+
+def compare_augment(src, dst, B, dtype_name, seed=0):
+    """#15 and #16 against their plain versions on the card: the mask
+    bit-equal, the image within 1e-5 (f32) or one bf16 ulp (bf16) — the
+    plain version's cuBLAS products may add the two nonzero terms of a
+    row in another order than the kernel's FMA, a few f32 ulps of a value
+    ≤ 255 before the normalization. Returns {kernel: max abs err}."""
+    import torch
+
+    from cl_tpu_torch.kernels import augment as ak
+
+    img, mask, flip = aug_operands(src, B, seed)
+    dtype = getattr(torch, dtype_name)
+    kw = dict(out_size=dst, mean=MEAN, std=STD, compute_dtype=dtype)
+    x = ak.launch_image(img, flip, **kw)
+    xp = ak.image_plain(img, flip, **kw)
+    y, yp = ak.launch_mask(mask, flip, out_size=dst), ak.mask_plain(mask, flip, out_size=dst)
+    torch.cuda.synchronize()
+    err = (x.float() - xp.float()).abs()
+    if dtype_name == "float32":
+        ok, tol_txt = bool((err <= 1e-5).all()), "tol 1e-5"
+    else:
+        ok, tol_txt = bool((err <= bf16_ulp(xp.float())).all()), "tol one bf16 ulp"
+    print(f"  augment {src}->{dst} B={B} {dtype_name} (flips {flip.int().tolist()}): image max abs "
+          f"err {err.max().item():.3g} ({tol_txt}); mask bit-equal {torch.equal(y, yp)}")
+    need(ok and x.shape == (B, dst, dst, 3) and x.dtype == dtype,
+         f"augment_image {src}->{dst} B={B} {dtype_name}")
+    need(torch.equal(y, yp) and y.dtype == torch.int32, f"augment_mask {src}->{dst} B={B}")
+    return {"augment_image": err.max().item(), "augment_mask": 0.0}
+
+
+def aug_bytes_ops(kernel, src, dst, B, dtype_name):
+    """(bytes each input read once and each output written once, operations):
+    the image's two two-tap passes (3 operations an element each) and the
+    normalization (2); the mask moves bytes only."""
+    if kernel == "augment_mask":
+        return B * src * src + B + B * dst * dst * 4, 0
+    item = 4 if dtype_name == "float32" else 2
+    ops = B * 3 * (3 * dst * src + 5 * dst * dst)
+    return B * src * src * 3 + B + B * dst * dst * 3 * item, ops
+
+
+def aug_times(kernel, src, dst, B, dtype_name, seed=0):
+    """(ms, plain_ms, library_ms, ms synchronised per launch). The library
+    call: ``F.interpolate`` bilinear (half-pixel, no antialias: the same
+    coefficients, the edge clamp the same single tap) on the planar f32
+    batch, the resize alone; ``nearest-exact`` for the mask (plain
+    ``nearest`` takes another index rule)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cl_tpu_torch.kernels import augment as ak
+
+    img, mask, flip = aug_operands(src, B, seed)
+    if kernel == "augment_image":
+        kw = dict(out_size=dst, mean=MEAN, std=STD, compute_dtype=getattr(torch, dtype_name))
+        planar = img.permute(0, 3, 1, 2).float().contiguous()
+        launch, plain = (lambda: ak.launch_image(img, flip, **kw)), \
+            (lambda: ak.image_plain(img, flip, **kw))
+        lib = lambda: F.interpolate(planar, size=(dst, dst), mode="bilinear",  # noqa: E731
+                                    align_corners=False, antialias=False)
+    else:
+        planar = mask[:, None]
+        launch, plain = (lambda: ak.launch_mask(mask, flip, out_size=dst)), \
+            (lambda: ak.mask_plain(mask, flip, out_size=dst))
+        lib = lambda: F.interpolate(planar, size=(dst, dst), mode="nearest-exact")  # noqa: E731
+    return time_ms(launch), time_ms(plain), time_ms(lib), time_ms(launch, queued=False)
+
+
+def aug_entry(kernel, launches, err, times, shape):
+    """An augment kernel's line (f32 outside the tensor cores for the
+    operations)."""
+    src, dst, B, dtype_name = shape
+    what = f"{B}x{src}x{src}x3 uint8 -> {dst}² {dtype_name}" if kernel == "augment_image" \
+        else f"{B}x{src}x{src} uint8 -> {dst}² int32"
+    return json_entry(f"{kernel} [{what}]", *AUG_KERNELS[kernel], launches, err, times,
+                      aug_bytes_ops(kernel, src, dst, B, dtype_name), peak="float32")
 
 
 # ---------------------------------------------------------------------------
@@ -1084,12 +1210,12 @@ def methods_entry(kernel, name, launches, err, times, bytes_ops):
 
 
 def _count_dicts():
-    from cl_tpu_torch.kernels import (ce_loss, conv3x3, ewc_fused, head_ce, packed_eltwise,
-                                      pool_pack, replay_gather, upconv_pack)
+    from cl_tpu_torch.kernels import (augment, ce_loss, conv3x3, ewc_fused, head_ce,
+                                      packed_eltwise, pool_pack, replay_gather, upconv_pack)
 
     return (head_ce.LAUNCHES, ce_loss.LAUNCHES, conv3x3.LAUNCHES,
             packed_eltwise.LAUNCHES, pool_pack.LAUNCHES, upconv_pack.LAUNCHES,
-            ewc_fused.LAUNCHES, replay_gather.LAUNCHES)
+            ewc_fused.LAUNCHES, replay_gather.LAUNCHES, augment.LAUNCHES)
 
 
 def reset_counts():
@@ -1359,6 +1485,291 @@ def methods_train(label, args, device=None):
         need(counts[k] == n, f"{k} launches == {n} in the train() of {label}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5d: the data path (native rasterizer, device-resident dataset,
+# plan-driven epochs) through train()
+# ---------------------------------------------------------------------------
+
+
+class NoSyncSteps:
+    """Inside ``with NoSyncSteps() as ns:`` every plan-driven step (the train,
+    eval and Fisher steps that ``train.make_cached_*_step`` build) runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    operation that makes the host wait for the card (the check of phases
+    5h, 5l and 5m, on every step of a ``train()``); ``ns.steps`` counts
+    the steps of each kind."""
+
+    KINDS = ("train", "eval", "fisher")
+
+    def __enter__(self):
+        from cl_tpu_torch import train as tl
+
+        self.tl, self.steps = tl, {k: 0 for k in self.KINDS}
+        self.saved = {k: getattr(tl, f"make_cached_{k}_step") for k in self.KINDS}
+        for kind, make in self.saved.items():
+            setattr(tl, f"make_cached_{kind}_step", self._wrap(kind, make))
+        return self
+
+    def _wrap(self, kind, make):
+        import torch
+
+        def factory(*args, **kw):
+            cstep = make(*args, **kw)
+
+            def checked(*a, **k):
+                self.steps[kind] += 1
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return cstep(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+
+            return checked
+
+        return factory
+
+    def __exit__(self, *exc):
+        for kind, make in self.saved.items():
+            setattr(self.tl, f"make_cached_{kind}_step", make)
+
+
+class Events:
+    """Inside ``with Events() as ev:`` ``ev.events`` collects every event
+    that ``train()`` logs."""
+
+    def __enter__(self):
+        from cl_tpu_torch.logging_utils import EventLogger
+
+        self.cls, self.orig, self.events = EventLogger, EventLogger.log, []
+        orig, events = self.orig, self.events
+
+        def log(logger, **event):
+            events.append(dict(event))
+            return orig(logger, **event)
+
+        EventLogger.log = log
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.log = self.orig
+
+
+def data_path_train(label, args):
+    """``train()`` of ``args`` on the plan-driven path, every step checked
+    for host waits: a finite mIoU matrix and forgetting; an
+    ``hbm_live_set`` event at every task boundary with the train cache
+    freed and no val cache left; every image from the native rasterizer;
+    the steps of each kind and the loss, method and augment kernels'
+    launches as the config implies. Returns (report, launch counts, wall
+    seconds)."""
+    import torch
+
+    from cl_tpu_torch import native
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.config import parse_overrides
+    from cl_tpu_torch.data import synthetic_native
+
+    cfg = parse_overrides(args)
+    d, m, T, E = cfg.data, cfg.method, cfg.train.num_tasks, cfg.train.epochs_per_task
+    per_epoch = d.train_images_per_task // d.batch_size
+    steps = {"train": T * E * per_epoch,
+             "eval": sum(t + 1 for t in range(T)) * -(-d.val_images_per_task // d.batch_size),
+             "fisher": (T - 1) * min(per_epoch, m.ewc_fisher_batches)
+             if "ewc" in m.methods else 0}
+    n = steps["train"]
+    loss_key = (("head_ce_kd_bn" if "lwf" in m.methods else "head_ce_bn")
+                if tl.packed_head_on(cfg) else "head_ce" if tl.fused_head_on(cfg) else "ce")
+    aug = sum(steps.values()) if tl.augment_kernels_on(cfg) else 0
+    want = {f"{loss_key}_fwd": n, f"{loss_key}_bwd": n, "augment_image": aug,
+            "augment_mask": aug,
+            "ewc_penalty": n if "ewc" in m.methods else 0,
+            "ewc_grad": n if "ewc" in m.methods else 0, "ewc_sq_acc": steps["fisher"],
+            # the buffer's rows from task 1 on, images and masks; task 0
+            # duplicates rows of its fresh batch
+            "replay_gather": 2 * (T - 1) * E * per_epoch if "replay" in m.methods else 0}
+    for k in synthetic_native.PRODUCED:
+        synthetic_native.PRODUCED[k] = 0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with NoSyncSteps() as ns, Events() as ev:
+        report = tl.train(cfg)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    mat = np.asarray(report["miou_matrix"], float)
+    live = [e for e in ev.events if e["event"] == "hbm_live_set"]
+    produced = dict(synthetic_native.PRODUCED)
+    print(f"  train(), {label}: {T} tasks, {n} steps, {wall:.1f} s: mIoU matrix {mat.tolist()}, "
+          f"forgetting {report['forgetting_per_task']}; images/s "
+          f"{report.get('images_per_sec_per_chip')}, eval images/s "
+          f"{report.get('eval_images_per_sec_per_chip')}, eval overhead "
+          f"{report.get('eval_overhead_seconds')}")
+    print(f"    steps {ns.steps} (each under sync debug mode 'error'); images rasterized "
+          f"{produced}; launches { {k: counts[k] for k in want} }")
+    for e in live:
+        print(f"    hbm_live_set after task {e['task']}: "
+              f"{ {k: v for k, v in e.items() if k not in ('event', 'task', 't')} }")
+    need(np.isfinite(mat[np.tril_indices(T)]).all()
+         and np.isfinite(report["forgetting_per_task"]).all(),
+         f"finite mIoU and forgetting ({label})")
+    need([e["task"] for e in live] == list(range(T)), f"hbm_live_set at every boundary ({label})")
+    need(all(e["train_cache_mb"] == 0 and e["val_caches_mb"] == 0 and e["val_caches_n"] == 0
+             and e["params_mb"] > 0 for e in live), f"caches freed at the boundaries ({label})")
+    need(native.backend() == "native" and produced["pyref"] == 0
+         and produced["native"] >= T * d.train_images_per_task,
+         f"the native rasterizer made the data ({label})")
+    need(ns.steps == steps, f"plan-driven steps {ns.steps} == {steps} ({label})")
+    for k, v in want.items():
+        need(counts[k] == v, f"{k} launches {counts[k]} == {v} in the train() of {label}")
+    return report, counts, wall
+
+
+def augment_routes_agree(cuda, args=("preset=baseline_3",)):
+    """Three steps of ``args`` (baseline_3 as it ships) from the seeded
+    weights and the same plan, with ``train.pallas_augment`` on and off:
+    each batch's x within 1e-5 and y bit-equal, each step's loss within
+    1e-5."""
+    import torch
+
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.augment import augment
+    from cl_tpu_torch.config import parse_overrides
+    from cl_tpu_torch.data import cached_exec, pipeline, tasks
+    from cl_tpu_torch.data.device_cache import DeviceDatasetCache
+    from cl_tpu_torch.methods import ewc as ewc_lib
+
+    cfgs = {on: parse_overrides([*args, f"train.pallas_augment={on}"])
+            for on in ("true", "false")}
+    cfg = cfgs["false"]
+    d = cfg.data
+    cache = DeviceDatasetCache(pipeline.make_datasets(cfg, 0)[0], cuda)
+    plan = cached_exec.build_plan(cache.n, batch_size=d.batch_size, epoch=0,
+                                  seed=d.shuffle_seed, shuffle=True, flip_prob=d.flip_prob,
+                                  device=cuda)
+    valid = torch.from_numpy(tasks.valid_class_mask(
+        d.num_classes, tasks.seen_classes(cfg.classes_per_task, 0))).to(cuda)
+    x_err, y_same = 0.0, True
+    for s in range(3):
+        b = cached_exec.gather_batch(cache.images, cache.masks, plan, s)
+        kw = dict(out_size=d.image_size, mean=d.mean, std=d.std)
+        x1, y1 = augment(*b, use_kernels=True, **kw)
+        x0, y0 = augment(*b, **kw)
+        x_err = max(x_err, (x1 - x0).abs().max().item())
+        y_same = y_same and torch.equal(y1, y0)
+    losses = {}
+    for on, c in cfgs.items():
+        model = tl.init_state(c, tl.build_model(c), cuda)  # seeded: the same weights
+        ewc = ewc_lib.make_ewc_state(model, mode=c.method.ewc_mode, max_tasks=1)
+        step = tl.make_train_step(c, model, tl.build_optimizer(c, model), cuda, ewc=ewc)
+        losses[on] = [step(cached_exec.gather_batch(cache.images, cache.masks, plan, s),
+                           valid)["loss"].item() for s in range(3)]
+    l_err = max(abs(a - b) for a, b in zip(losses["true"], losses["false"]))
+    print(f"  {' '.join(args)}, 3 steps with pallas_augment on / off: x max abs err {x_err:.3g} "
+          f"(tol 1e-5), y bit-equal {y_same}; losses {losses['true']} / {losses['false']}, "
+          f"max diff {l_err:.3g} (tol 1e-5)")
+    need(x_err <= 1e-5 and y_same and l_err <= 1e-5, "pallas_augment on / off agree")
+
+
+def random_stats(model, seed):
+    """Seeded running statistics, as a trained model has (the Fisher runs
+    in eval mode; ``tests/test_torch_ewc.py`` does the same)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("running_var"):
+                t.copy_(torch.from_numpy(rng.rand(*t.shape).astype(np.float32) + 0.5))
+            elif name.endswith("running_mean"):
+                t.copy_(torch.from_numpy(rng.randn(*t.shape).astype(np.float32) * 0.1))
+
+
+def fisher_card_vs_cpu(cuda):
+    """``run_fisher_pass`` over the train cache (the plan-driven path) at
+    128², base 32, depth 4 (3 packed levels), f32, EWC, from the seeded
+    weights with seeded running statistics, on the card and on the CPU,
+    held against the float64 Fisher of the same batches (the standard body
+    in float64 on the CPU): the card's within 2e-4 of each leaf's norm (the
+    Fisher's conditioning, ``tests/test_torch_ewc.py``); through the augment
+    kernels against without them, the same bound, #15/#16 launched once per
+    Fisher batch. The card against the CPU is printed, not held to 2e-4:
+    at this depth the CPU's own f32 Fisher is that far from float64 (its
+    convolutions with oneDNN and without, both printed), further than the
+    card's, so the CPU is the worse reference of the two."""
+    import torch
+
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.augment import augment
+    from cl_tpu_torch.config import parse_overrides
+    from cl_tpu_torch.data import cached_exec, pipeline, tasks
+    from cl_tpu_torch.data.device_cache import DeviceDatasetCache
+    from cl_tpu_torch.interop import export_jax_variables, load_jax_variables
+    from cl_tpu_torch.methods import ewc as ewc_lib
+    from cl_tpu_torch.models.unet import UNet
+
+    args = ["preset=baseline_1", "model.packed_min_size=0", "data.num_classes=3",
+            "train.num_tasks=2", "method.methods=ewc", "data.dataset=synthetic_native",
+            "data.device_cache=true", "data.train_images_per_task=16"]
+    cpu = torch.device("cpu")
+    out, variables = {}, None
+    for name, dev, aug, onednn in (("cpu", cpu, "false", False), ("cpu_onednn", cpu, "false", True),
+                                   ("card", cuda, "false", True), ("card_aug", cuda, "true", True)):
+        cfg = parse_overrides(args + [f"train.pallas_augment={aug}"])
+        model = tl.init_state(cfg, tl.build_model(cfg), dev)
+        need(model.packed_levels(128, 128) == 3, "3 packed levels at 128², base 32, depth 4")
+        random_stats(model, 3)
+        if variables is None:
+            variables = export_jax_variables(model)
+        seen = tasks.valid_class_mask(cfg.data.num_classes,
+                                      tasks.seen_classes(cfg.classes_per_task, 0))
+        cache = DeviceDatasetCache(pipeline.make_datasets(cfg, 0)[0], dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        with torch.backends.mkldnn.flags(enabled=onednn):
+            fisher = tl.run_fisher_pass(cfg, tl.make_fisher_step(cfg, model, dev), model, 0,
+                                        seen, dev, cache=cache)
+        out[name] = fisher.cpu().double()
+        counts = read_counts()
+        sizes = [p.numel() for p in model.parameters()]
+    # float64: the same batches through the standard body on the CPU
+    nf = min(cfg.data.train_images_per_task // cfg.data.batch_size,
+             cfg.method.ewc_fisher_batches)
+    m64 = UNet(cfg.data.num_classes, 32, 4, dtype=torch.float64)
+    load_jax_variables(m64, variables)
+    m64 = m64.double()
+    cache = DeviceDatasetCache(pipeline.make_datasets(cfg, 0)[0], cpu)
+    plan = cached_exec.build_plan(cache.n, batch_size=cfg.data.batch_size, epoch=10_000,
+                                  seed=cfg.data.shuffle_seed, shuffle=True,
+                                  flip_prob=cfg.data.flip_prob)
+    f64 = 0
+    for s in range(nf):
+        x, y = augment(*cached_exec.gather_batch(cache.images, cache.masks, plan, s),
+                       out_size=cfg.data.image_size, mean=cfg.data.mean, std=cfg.data.std)
+        f64 = f64 + ewc_lib.fisher_batch_grads(m64, x.double(), y, torch.from_numpy(seen)) ** 2
+    out["f64"] = f64 / nf
+
+    def worst(a, b):
+        errs = []
+        for u, v in zip(out[a].split(sizes), out[b].split(sizes)):
+            norm = v.norm().item()
+            errs.append((u - v).norm().item() / norm if norm > 0 else
+                        float((u - v).abs().max().item() > 0) * 1e9)
+        return max(errs)
+
+    w = {k: worst(*k.split(" vs ")) for k in ("card vs cpu", "card vs f64", "cpu vs f64",
+                                             "cpu_onednn vs f64", "card vs cpu_onednn",
+                                             "card_aug vs card")}
+    print(f"  Fisher pass over the train cache, 128² f32, {nf} batches, worst leaf of its norm: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in w.items())
+          + f" (tol 2e-4 for card vs f64 and card_aug vs card); launches with the "
+          f"augment kernels {counts['augment_image']} / {counts['augment_mask']} / ewc_sq_acc "
+          f"{counts['ewc_sq_acc']}")
+    need(out["f64"].norm() > 0 and all(w[k] <= 2e-4 for k in ("card vs f64", "card_aug vs card")),
+         "the card's Fisher")
+    need(counts["augment_image"] == counts["augment_mask"] == counts["ewc_sq_acc"] == nf,
+         "the Fisher pass's augment launches")
+
+
 def eval_pass(cfg, model, device):
     """``evaluate_task`` of task 0 through ``make_eval_step``; returns the
     result, the launch counts of exactly this pass and its forwards."""
@@ -1516,6 +1927,13 @@ def main() -> int:
             err = compare_gather(shape, k, k)
             gather_errs.setdefault(shape, err)
     compare_gather((37, 37, 3), 4, 5)
+    # the augment kernels at the presets' shapes, flips mixed, f32 and bf16
+    aug_errs = {}
+    for src, dst, B in AUG_SHAPES:
+        for dtype_name in ("float32", "bfloat16"):
+            errs_ = compare_augment(src, dst, B, dtype_name, seed=src + B)
+            if (src, dst, B, dtype_name) == AUG_MAIN:
+                aug_errs = errs_
 
     print("[4] baseline_1 as it ships, through train()")
     cfg1 = get_preset("baseline_1")
@@ -1755,11 +2173,38 @@ def main() -> int:
                     "train.num_tasks=2", "method.methods=ewc,lwf,replay",
                     "method.replay_device_resident=true", "method.replay_batch=1"],
                    "methods step 128² base 32 depth 4 f32", packed_levels=3)
+    # train() on the data path as the presets ship it (the native rasterizer,
+    # the device-resident dataset); the timed steps above keep their
+    # prebuilt host batch
     small = ["data.train_images_per_task=16", "data.val_images_per_task=8"]
-    methods_train("baseline_5 cut, 3 tasks", b5 + small + ["train.num_tasks=3",
-                                                           "train.epochs_per_task=1"])
-    methods_train("baseline_3 as it ships", ["preset=baseline_3", "data.dataset=synthetic",
-                                             "data.device_cache=false"] + small)
+    b5_train = [a for a in b5 if a not in ("data.dataset=synthetic", "data.device_cache=false")]
+    methods_train("baseline_5 cut, 3 tasks", b5_train + small + ["train.num_tasks=3",
+                                                                 "train.epochs_per_task=1"])
+    methods_train("baseline_3, 16 + 8 images a task", ["preset=baseline_3"] + small)
+
+    print("[5d] the data path: baselines 2, 3 and 4 as they ship through train() (the "
+          "native rasterizer, the device-resident dataset, plan-driven epochs)")
+    runs_d = {}
+    for label, args in (("baseline_2 as it ships", ["preset=baseline_2"]),
+                        ("baseline_3 as it ships", ["preset=baseline_3"]),
+                        ("baseline_4 as it ships, train.pallas_augment=true",
+                         ["preset=baseline_4", "train.pallas_augment=true"])):
+        runs_d[label.split()[0]] = data_path_train(label, args)
+    counts_b4 = runs_d["baseline_4"][1]
+    # the host pipeline beside the plan: numpy rasterization in a prefetch
+    # thread, one pinned copy a step
+    t0 = time.perf_counter()
+    report_h = tl.train(parse_overrides(["preset=baseline_3", "data.device_cache=false",
+                                         "data.dataset=synthetic"]))
+    wall_h = time.perf_counter() - t0
+    need(np.isfinite(report_h["final_per_task_miou"]).all(), "finite mIoU (host pipeline)")
+    ips_c = runs_d["baseline_3"][0].get("images_per_sec_per_chip")
+    ips_hp = report_h.get("images_per_sec_per_chip")
+    print(f"  baseline_3 train() images/s: as it ships (device cache, native) {ips_c} in "
+          f"{runs_d['baseline_3'][2]:.1f} s; host pipeline (data.device_cache=false "
+          f"data.dataset=synthetic) {ips_hp} in {wall_h:.1f} s; mIoU {report_h['miou_matrix']}")
+    augment_routes_agree(cuda)
+    fisher_card_vs_cpu(cuda)
 
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
@@ -1773,19 +2218,12 @@ def main() -> int:
         times = kernel_times(case)
         for which in ("fwd", "bwd"):
             ms, plain_ms, lib_ms = times[which]
-            nbytes, ops = bytes_ops(case, which)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS[case["dtype"]] * 1e3
             key = f"{case['kind']}_{which}"
-            entry = {
-                "name": case_name(case, which), "route": "cuda",
-                "source": f"cl_tpu_torch/csrc/{'head_ce' if case['kind'] == 'head_ce' else 'ce_loss'}.cu",
-                "replaces": replaces[key], "launches": launches[i][key],
-                "max_abs_err": errs[i][which], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib_ms}
-            need(entry["launches"] > 0, f"{entry['name']} launched on its path")
+            entry = json_entry(
+                case_name(case, which),
+                f"cl_tpu_torch/csrc/{'head_ce' if case['kind'] == 'head_ce' else 'ce_loss'}.cu",
+                replaces[key], launches[i][key], errs[i][which], times[which],
+                bytes_ops(case, which), peak=case["dtype"])
             kernels.append(entry)
             print(f"  {entry['name']}: {ms:.4f} ms (plain {plain_ms:.4f}, library "
                   f"{lib_ms:.4f}, bound {entry['bound_ms']:.4f} by "
@@ -1850,6 +2288,22 @@ def main() -> int:
               f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library "
               f"{entry['library_ms']:.4f}, bound {entry['bound_ms']:.4f} by "
               f"{entry['bound_by']}); launches {launches} in phase 5m")
+    for kernel in AUG_KERNELS:
+        times = aug_times(kernel, *AUG_MAIN)
+        entry = aug_entry(kernel, counts_b4[kernel], aug_errs[kernel], times, AUG_MAIN)
+        kernels.append(entry)
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms (synchronised per launch "
+              f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library "
+              f"{entry['library_ms']:.4f} (the resize alone), bound {entry['bound_ms']:.4f} by "
+              f"{entry['bound_by']}); launches {entry['launches']} in phase 5d's baseline_4")
+    for shape in ((576, 512, 8, "bfloat16"), (320, 256, 8, "float32"),
+                  (160, 128, 8, "float32")):
+        t_img, t_msk = (aug_times(k, *shape) for k in AUG_KERNELS)
+        bounds = [max(b / HBM_BYTES_PER_S, o / PEAK_OPS["float32"]) * 1e3
+                  for b, o in (aug_bytes_ops(k, *shape) for k in AUG_KERNELS)]
+        print(f"  augment at {shape}: image {t_img[0]:.4f} ms (plain {t_img[1]:.4f}, library "
+              f"{t_img[2]:.4f}, bound {bounds[0]:.4f}), mask {t_msk[0]:.4f} ms (plain "
+              f"{t_msk[1]:.4f}, library {t_msk[2]:.4f}, bound {bounds[1]:.4f})")
     sums = [sum(v[i] for v in per_step_ms.values()) for i in (0, 4)]
     print(f"  per packed train step, all packed kernels: {sums[0]:.4f} ms (synchronised per "
           f"launch {sums[1]:.4f})")
@@ -1861,6 +2315,9 @@ def main() -> int:
           f"train {ips_t:.2f}, unfused {ips_tu:.2f}; headline {ips_h:.2f} (peak "
           f"{peak_h:.0f} MiB), LwF {ips_l:.2f} (peak {peak_l:.0f} MiB), baseline_5 methods step "
           f"{ips_m:.2f} (peak {peak_m:.0f} MiB)")
+    print("  train() images/s as the presets ship (phase 5d): " + ", ".join(
+        f"{name} {r[0].get('images_per_sec_per_chip')}" for name, r in runs_d.items())
+        + f"; baseline_3 on the host pipeline {ips_hp}")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -81,14 +81,22 @@ def batches(
     ignore_index: int = 255,
 ) -> Iterator[HostBatch]:
     """Deterministic host batch stream for one epoch (see epoch_plan).
-    With ``pad_final``, padding rows (idx −1) carry an all-ignore mask."""
+    With ``pad_final``, padding rows (idx −1) carry an all-ignore mask.
+    A dataset with ``get_batch`` (the native rasterizer's threaded batch,
+    the directory loader's threaded decode) produces each batch in one
+    call."""
+    batched = getattr(dataset, "get_batch", None)
     for idx, flip in epoch_plan(len(dataset), batch_size=batch_size,
                                 epoch=epoch, seed=seed, shuffle=shuffle,
                                 flip_prob=flip_prob, pad_final=pad_final):
         pad = idx < 0
         safe = np.where(pad, 0, idx)
-        imgs, masks = zip(*(dataset[int(i)] for i in safe))
-        image, masks = np.stack(imgs), np.stack(masks).astype(np.uint8)
+        if batched is not None:
+            image, masks = batched(safe)
+        else:
+            imgs, masks = zip(*(dataset[int(i)] for i in safe))
+            image, masks = np.stack(imgs), np.stack(masks)
+        masks = masks.astype(np.uint8)  # a copy: never the dataset's arrays
         if pad.any():
             masks[pad] = ignore_index
         yield HostBatch(image=image, mask=masks, flip=flip)
@@ -96,24 +104,30 @@ def batches(
 
 @functools.lru_cache(maxsize=16)
 def make_datasets(cfg: Config, task_id: int):
-    """(train_ds, val_ds) for one task; memoized on the frozen config."""
+    """(train_ds, val_ds) for one task, by ``data.dataset`` as in
+    ``cl_tpu``; memoized on the frozen config (directory datasets decode
+    every mask for their class filter when they are built)."""
     splits = cfg.classes_per_task
     task_classes = splits[task_id]
     d = cfg.data
-    if d.dataset != "synthetic":
-        raise NotImplementedError(
-            f"data.dataset={d.dataset!r}: the port reads only the numpy "
-            "'synthetic' dataset so far; the native rasterizer and the "
-            "directory loaders come in a later slice (ROADMAP Queue 1)")
-    train_ds = synthetic.SyntheticSegDataset(
-        num_images=d.train_images_per_task, size=d.source_size,
-        task_classes=task_classes, seed=d.shuffle_seed + task_id,
-        split="train")
-    val_ds = synthetic.SyntheticSegDataset(
-        num_images=d.val_images_per_task, size=d.source_size,
-        task_classes=task_classes, seed=d.shuffle_seed + task_id,
-        split="val")
-    return train_ds, val_ds
+    if d.dataset == "synthetic":
+        mk = lambda n, split: synthetic.SyntheticSegDataset(  # noqa: E731
+            num_images=n, size=d.source_size, task_classes=task_classes,
+            seed=d.shuffle_seed + task_id, split=split)
+    elif d.dataset == "synthetic_native":
+        from cl_tpu_torch.data.synthetic_native import NativeSyntheticSegDataset
+
+        mk = lambda n, split: NativeSyntheticSegDataset(  # noqa: E731
+            num_images=n, size=d.source_size, task_classes=task_classes,
+            seed=d.shuffle_seed + task_id, split=split)
+    elif d.dataset in ("voc_dir", "cityscapes_dir"):
+        from cl_tpu_torch.data import directory
+
+        return directory.make_datasets(cfg, task_id)
+    else:
+        raise ValueError(f"unknown dataset {d.dataset!r}")
+    return (mk(d.train_images_per_task, "train"),
+            mk(d.val_images_per_task, "val"))
 
 
 def train_batches(cfg: Config, task_id: int, epoch: int) -> Iterator[HostBatch]:

@@ -57,6 +57,8 @@ SIGNATURES = {
     "cltorch_ewc_grad": [P, P, P, P, P, L, I, P],
     "cltorch_ewc_sq_acc": [P, P, L, I, P],
     "cltorch_replay_gather": [P, P, P, L, I, I, I, P],
+    "cltorch_augment_image": [P] * 7 + [I] * 3 + [F] * 6 + [I, P],
+    "cltorch_augment_mask": [P] * 4 + [I] * 3 + [P],
 }
 
 

@@ -3,13 +3,17 @@
 The counterpart of ``cl_tpu/train.py`` for the configurations the port
 runs so far: the fine-tune baseline and the three methods (EWC, LwF,
 replay with the host or the device-resident buffer), the standard UNet
-body and the packed one (``model.packed_unet`` at its engage sizes), the
-host pipeline, one device. Per task: epochs of (replay mix →) augment →
-forward → loss → backward → optimizer step, then an eval of every seen
-task and the after-task hooks in ``cl_tpu``'s order (EWC's Fisher pass
-and consolidation, the LwF snapshot, the replay buffer's fill); the same
-JSONL events (``epoch``, ``eval``, ``task_done``, ``done``) and the same
-report as the JAX package.
+body and the packed one (``model.packed_unet`` at its engage sizes), one
+device. Data comes from the host pipeline, or with ``data.device_cache``
+from the task's dataset parked on the device and plan-driven epochs
+(``data/device_cache.py``, ``data/cached_exec.py``): no host → device copy
+and no host wait inside a step. Per task: epochs of (replay mix →) augment
+(the augment kernels #15/#16 under ``train.pallas_augment``) → forward →
+loss → backward → optimizer step, then an eval of every seen task and the
+after-task hooks in ``cl_tpu``'s order (EWC's Fisher pass and
+consolidation, the LwF snapshot, the replay buffer's fill); the same JSONL
+events (``epoch``, ``eval``, ``hbm_live_set``, ``task_done``, ``done``)
+and the same report as the JAX package.
 
 The loss takes the JAX package's branches (``cl_tpu/train.py:391-515``):
 on the packed body with the fused head and ``train.packed_head_ce`` (the
@@ -37,8 +41,9 @@ import torch
 from cl_tpu_torch import losses, metrics
 from cl_tpu_torch.augment import augment
 from cl_tpu_torch.config import Config
-from cl_tpu_torch.data import pipeline
+from cl_tpu_torch.data import cached_exec, pipeline
 from cl_tpu_torch.data import tasks as task_lib
+from cl_tpu_torch.data.device_cache import DeviceDatasetCache
 from cl_tpu_torch.kernels import ce_loss, ewc_fused, head_ce, replay_gather
 from cl_tpu_torch.methods import ewc as ewc_lib
 from cl_tpu_torch.methods import lwf as lwf_lib
@@ -74,7 +79,7 @@ def _packed_engages(cfg: Config) -> bool:
 def check_supported(cfg: Config, device: torch.device | None = None) -> None:
     """Raise ``NotImplementedError`` for a config this slice does not run,
     instead of running something else."""
-    m, t, d, meth = cfg.model, cfg.train, cfg.data, cfg.method
+    m, t, meth = cfg.model, cfg.train, cfg.method
     unported = []
     if _packed_engages(cfg) and m.conv_act_store == "int8":
         unported.append("model.conv_act_store=int8 (int8 saved activations "
@@ -87,8 +92,6 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
         unported.append("model.norm='group'")
     if not m.padded_head:
         unported.append("model.padded_head=false (the grow-the-head variant)")
-    if t.use_pallas and t.pallas_augment:
-        unported.append("train.pallas_augment (the augment kernel)")
     if set(meth.methods) - {"ewc", "lwf", "replay"}:
         unported.append(f"method.methods={meth.methods}")
     if "ewc" in meth.methods and meth.ewc_fisher_kind != "empirical":
@@ -102,11 +105,6 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
             "method.methods=lwf with the KD on materialized logits (the KD "
             "kernels #13/#14, kd_loss); LwF runs on the packed KD head or with "
             "train.use_pallas=false")
-    if d.device_cache:
-        unported.append("data.device_cache (the device-resident dataset and its "
-                        "plan-driven epochs, replay's included)")
-    if d.dataset != "synthetic":
-        unported.append(f"data.dataset={d.dataset!r}")
     if t.checkpoint_dir or t.resume:
         unported.append("train.checkpoint_dir / train.resume (checkpoints)")
     if t.spatial_parallel:
@@ -175,6 +173,13 @@ def fused_head_on(cfg: Config) -> bool:
     return cfg.train.use_pallas and on
 
 
+def augment_kernels_on(cfg: Config) -> bool:
+    """The train, eval and Fisher steps augment through kernels #15/#16
+    (``cl_tpu/train.py:59-69``: ``train.use_pallas`` and
+    ``train.pallas_augment``), else through their plain versions."""
+    return cfg.train.use_pallas and cfg.train.pallas_augment
+
+
 def packed_head_on(cfg: Config) -> bool:
     """The loss takes the packed BN·ReLU + head + CE (kernels #7/#8; under
     LwF their KD form, #11/#12): the fused head on the packed body with
@@ -204,6 +209,7 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
     _set_precision(device)
     d, m = cfg.data, cfg.method
     compute_dtype = _dtype(cfg)
+    aug_kernels = augment_kernels_on(cfg)
     use_packed_head = packed_head_on(cfg)
     use_fused_head = fused_head_on(cfg)
     use_kernels = cfg.train.use_pallas
@@ -274,7 +280,7 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
     def step(batch: pipeline.HostBatch, valid_classes: torch.Tensor) -> dict:
         x, y = augment(batch.image, batch.mask, batch.flip,
                        out_size=d.image_size, mean=d.mean, std=d.std,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, use_kernels=aug_kernels)
         model.train()
         ce, n_pix, kd = loss_fn(x, y, valid_classes)
         # cl_tpu's order (train.py:404-420): ce, + λ·penalty, + α·kd
@@ -304,12 +310,13 @@ def make_eval_step(cfg: Config, model: UNet, device=None) -> Callable:
     _set_precision(device)
     d = cfg.data
     compute_dtype = _dtype(cfg)
+    aug_kernels = augment_kernels_on(cfg)
 
     @torch.no_grad()
     def step(conf, batch: pipeline.HostBatch, valid_classes):
         x, y = augment(batch.image, batch.mask, batch.flip,
                        out_size=d.image_size, mean=d.mean, std=d.std,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, use_kernels=aug_kernels)
         model.eval()
         logits = model(x)
         return metrics.confusion_matrix_update(
@@ -318,13 +325,72 @@ def make_eval_step(cfg: Config, model: UNet, device=None) -> Callable:
     return step
 
 
+# ---------------------------------------------------------------------------
+# Plan-driven steps over the device-resident dataset cache
+# ---------------------------------------------------------------------------
+
+
+def make_cached_train_step(train_step: Callable) -> Callable:
+    """``cstep(s, cache, plan, valid_classes, replay=None) -> aux``: step
+    ``s`` of a plan-driven epoch (``cl_tpu``'s ``make_cached_train_step``):
+    the batch gathered on the device from ``cache`` by row ``s`` of the
+    device-resident ``plan``, widened by step ``s``'s replay rows
+    (``replay``: ``(mode, idx, flips[, images, masks])`` of
+    ``cached_exec.build_replay_plan`` / ``replay_arrays``), then
+    ``train_step``. No host → device copy and no host wait."""
+
+    def cstep(s, cache, plan, valid_classes, replay=None):
+        batch = cached_exec.gather_batch(cache.images, cache.masks, plan, s)
+        if replay is not None:
+            batch = cached_exec.widen_with_replay(batch, replay[0], replay[1], replay[2], s,
+                                                  *replay[3:])
+        return train_step(batch, valid_classes)
+
+    return cstep
+
+
+def make_cached_eval_step(cfg: Config, eval_step: Callable) -> Callable:
+    """``cstep(conf, s, cache, plan, valid_classes) -> conf``: eval step
+    ``s`` over the val cache; the plan's padded rows carry an all-ignore
+    mask."""
+    ignore = cfg.data.ignore_index
+
+    def cstep(conf, s, cache, plan, valid_classes):
+        batch = cached_exec.gather_batch(cache.images, cache.masks, plan, s, ignore_index=ignore)
+        return eval_step(conf, batch, valid_classes)
+
+    return cstep
+
+
+def make_cached_fisher_step(fisher_step: Callable) -> Callable:
+    """``cstep(acc, s, cache, plan, valid_classes) -> acc``: Fisher step
+    ``s`` over the train cache."""
+
+    def cstep(acc, s, cache, plan, valid_classes):
+        return fisher_step(acc, cached_exec.gather_batch(cache.images, cache.masks, plan, s),
+                           valid_classes)
+
+    return cstep
+
+
 def evaluate_task(cfg: Config, eval_step, task_id: int,
-                  seen_valid: np.ndarray, device=None) -> dict:
-    """mIoU of ``task_id``'s val set, predicting among all seen classes."""
+                  seen_valid: np.ndarray, device=None, cache=None) -> dict:
+    """mIoU of ``task_id``'s val set, predicting among all seen classes:
+    from the host pipeline, or, given ``cache`` (the task's val set on the
+    device), over the padded eval plan (``cl_tpu/train.py:1239-1296``)."""
     device = resolve_device(device)
     C = cfg.data.num_classes
     conf = torch.zeros((C, C), dtype=torch.float32, device=device)
     valid = torch.from_numpy(np.asarray(seen_valid, bool)).to(device)
+    if cache is not None:
+        plan = cached_exec.build_plan(
+            cache.n, batch_size=cfg.data.batch_size, epoch=0,
+            seed=cfg.data.shuffle_seed + 1000 * task_id, shuffle=False, flip_prob=0.0,
+            pad_final=True, device=device)
+        cstep = make_cached_eval_step(cfg, eval_step)
+        for s in range(plan.steps):
+            conf = cstep(conf, s, cache, plan, valid)
+        return eval_result(cfg, conf, task_id)
     for batch in pipeline.prefetch_to_device(
             pipeline.val_batches(cfg, task_id), device=device,
             depth=cfg.data.prefetch_depth):
@@ -360,12 +426,13 @@ def make_fisher_step(cfg: Config, model: UNet, device=None) -> Callable:
     _set_precision(device)
     d = cfg.data
     compute_dtype = _dtype(cfg)
+    aug_kernels = augment_kernels_on(cfg)
     accumulate = ewc_fused.sq_accumulate if cfg.train.use_pallas else ewc_fused.sq_acc_plain
 
     def step(acc, batch: pipeline.HostBatch, valid_classes):
         x, y = augment(batch.image, batch.mask, batch.flip,
                        out_size=d.image_size, mean=d.mean, std=d.std,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, use_kernels=aug_kernels)
         g = ewc_lib.fisher_batch_grads(model, x, y, valid_classes,
                                        ignore_index=d.ignore_index)
         return accumulate(acc, g)
@@ -374,13 +441,26 @@ def make_fisher_step(cfg: Config, model: UNet, device=None) -> Callable:
 
 
 def run_fisher_pass(cfg: Config, fisher_step, model: UNet, task_id: int,
-                    seen_valid: np.ndarray, device=None) -> torch.Tensor:
+                    seen_valid: np.ndarray, device=None, cache=None) -> torch.Tensor:
     """The mean of the squared gradients over up to
     ``method.ewc_fisher_batches`` batches of ``train_batches(cfg, task_id,
-    10_000 + task_id)`` (``cl_tpu/train.py:885-911``): a flat f32 vector."""
+    10_000 + task_id)`` (``cl_tpu/train.py:885-911``): a flat f32 vector.
+    Given ``cache`` (the task's train set on the device), the same batches
+    come from the plan of that epoch, truncated to the Fisher's batches
+    (``cl_tpu/train.py:1425-1446``)."""
     device = resolve_device(device)
     acc = torch.zeros(ewc_lib.n_params(model), dtype=torch.float32, device=device)
     valid = torch.from_numpy(np.asarray(seen_valid, bool)).to(device)
+    if cache is not None:
+        plan = cached_exec.build_plan(
+            cache.n, batch_size=cfg.data.batch_size, epoch=10_000 + task_id,
+            seed=cfg.data.shuffle_seed + 1000 * task_id, shuffle=True,
+            flip_prob=cfg.data.flip_prob, device=device)
+        n = min(plan.steps, cfg.method.ewc_fisher_batches)
+        cstep = make_cached_fisher_step(fisher_step)
+        for s in range(n):
+            acc = cstep(acc, s, cache, plan, valid)
+        return acc / max(n, 1)
     n = 0
     batch_it = pipeline.prefetch_to_device(
         pipeline.train_batches(cfg, task_id, 10_000 + task_id), device=device,
@@ -428,16 +508,18 @@ def _device_replay_mix(buf: replay_gather.DeviceReplayBuffer, batch: pipeline.Ho
 
 
 def after_task(cfg: Config, task_id: int, model: UNet, *, ewc=None, fisher_step=None,
-               lwf=None, replay=None, device=None) -> None:
+               lwf=None, replay=None, device=None, cache=None) -> None:
     """The after-task hooks in ``cl_tpu``'s order (``cl_tpu/train.py:1424-1464``):
-    EWC's Fisher pass and consolidation and the LwF snapshot after every
-    task but the last, then the replay buffer's fill with
-    max(1, capacity // T) of the task's train images."""
+    EWC's Fisher pass (over ``cache``, the task's train set on the device,
+    where given) and consolidation and the LwF snapshot after every task
+    but the last, then the replay buffer's fill with max(1, capacity // T)
+    of the task's train images."""
     T = cfg.train.num_tasks
     seen_valid = task_lib.valid_class_mask(
         cfg.data.num_classes, task_lib.seen_classes(cfg.classes_per_task, task_id))
     if ewc is not None and task_id < T - 1:
-        fisher_new = run_fisher_pass(cfg, fisher_step, model, task_id, seen_valid, device)
+        fisher_new = run_fisher_pass(cfg, fisher_step, model, task_id, seen_valid, device,
+                                     cache)
         ewc_lib.ewc_after_task(ewc, model, fisher_new, mode=cfg.method.ewc_mode,
                                gamma=cfg.method.ewc_gamma, task_id=task_id)
     if lwf is not None and task_id < T - 1:
@@ -475,6 +557,58 @@ def train(cfg: Config, init_variables=None, device=None) -> dict:
         pipeline.make_datasets.cache_clear()
 
 
+def _tensors(obj):
+    """Every tensor of a module (params and buffers), a method state (its
+    tensor and module fields) or a tuple of them."""
+    if obj is None:
+        return
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, torch.nn.Module):
+        yield from obj.parameters()
+        yield from obj.buffers()
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors(o)
+    elif hasattr(obj, "__dict__"):
+        for v in vars(obj).values():
+            if isinstance(v, (torch.Tensor, torch.nn.Module)):
+                yield from _tensors(v)
+
+
+def _live_set_mb(model, opt, ewc, lwf, caches: dict, rep_arrays: dict,
+                device: torch.device) -> dict:
+    """MB (1e6 bytes) of every long-lived device buffer by subsystem at a
+    task boundary, with ``cl_tpu``'s keys (``_live_set_mb``,
+    ``cl_tpu/train.py:994-1026``), read from the tensors' ``nbytes``: the
+    params, the optimizer state, the BatchNorm statistics, the EWC and LwF
+    state, the train and val caches (``caches``: the train cache by task
+    id, the val caches by ("val", task id)) and the replay arrays the plan
+    gathers from; on a card also ``cuda_memory_allocated_mb``, all the
+    allocator holds (``torch.cuda.memory_allocated``)."""
+    def mb(tensors) -> float:
+        return sum(t.nbytes for t in tensors) / 1e6
+
+    out = {
+        "params_mb": mb(model.parameters()),
+        "opt_state_mb": mb(v for st in opt.state.values() for v in st.values()
+                           if isinstance(v, torch.Tensor)),
+        "model_state_mb": mb(model.buffers()),
+        "ewc_mb": mb(_tensors(ewc)),
+        "lwf_teacher_mb": mb(_tensors(lwf)),
+    }
+    val = [c for k, c in caches.items() if isinstance(k, tuple)]
+    out["train_cache_mb"] = sum(c.nbytes() for k, c in caches.items()
+                                if not isinstance(k, tuple)) / 1e6
+    out["val_caches_mb"] = sum(c.nbytes() for c in val) / 1e6
+    out["val_caches_n"] = len(val)
+    out["replay_arrays_mb"] = mb(_tensors(tuple(rep_arrays.values())))
+    out["total_mb"] = sum(v for k, v in out.items() if k.endswith("_mb"))
+    if device.type == "cuda":
+        out["cuda_memory_allocated_mb"] = torch.cuda.memory_allocated(device) / 1e6
+    return {k: (round(v, 1) if isinstance(v, float) else v) for k, v in out.items()}
+
+
 def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
     from cl_tpu_torch.interop import load_jax_variables
 
@@ -482,7 +616,7 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
     if init_variables is not None:
         load_jax_variables(model, init_variables)
     opt = build_optimizer(cfg, model)
-    m = cfg.method
+    d, m = cfg.data, cfg.method
     T = cfg.train.num_tasks
     lwf = lwf_lib.make_lwf_state(model) if "lwf" in m.methods else None
     ewc = ewc_lib.make_ewc_state(model, mode=m.ewc_mode, max_tasks=max(T - 1, 1)) \
@@ -493,18 +627,42 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
     train_step = make_train_step(cfg, model, opt, device, lwf=lwf, ewc=ewc)
     eval_step = make_eval_step(cfg, model, device)
 
+    # The device-resident dataset (data.device_cache): the task's train set
+    # and each task's val set parked on the device, the plan-driven steps
+    # over them (cl_tpu/train.py:1174-1199).
+    dev_cache = d.device_cache
+    caches: dict = {}      # task id -> train cache; ("val", task id) -> val cache
+    rep_arrays: dict = {}  # task id -> the replay arrays of the plan (one task's)
+    cached_step = make_cached_train_step(train_step) if dev_cache else None
+    used_modes: set = set()  # replay modes of the plan-driven epochs so far
+
+    def _train_cache(task_id):
+        if task_id not in caches:
+            caches[task_id] = DeviceDatasetCache(pipeline.make_datasets(cfg, task_id)[0],
+                                                 device)
+        return caches[task_id]
+
     splits = cfg.classes_per_task
     miou_matrix = np.full((T, T), np.nan)
     step_times: list[tuple[float, int]] = []  # (epoch seconds, steps)
     # Eval accounting as in the JAX package: the first eval pass (first
-    # use: kernel build, cuDNN set-up) is reported apart from the rate.
+    # use: kernel build, cuDNN set-up) and the val caches' builds are
+    # reported apart from the rate.
     eval_times: list[tuple[float, int]] = []
-    eval_overhead = {"compile_s": 0.0, "compile_passes": 0}
+    eval_overhead = {"cache_build_s": 0.0, "compile_s": 0.0, "compile_passes": 0}
 
     def _eval_task(k, seen_valid):
         first = eval_overhead["compile_passes"] == 0
+        vcache = None
+        if dev_cache:
+            if ("val", k) not in caches:
+                t0 = time.perf_counter()
+                caches[("val", k)] = DeviceDatasetCache(pipeline.make_datasets(cfg, k)[1],
+                                                        device)
+                eval_overhead["cache_build_s"] += time.perf_counter() - t0
+            vcache = caches[("val", k)]
         t0 = time.perf_counter()
-        r = evaluate_task(cfg, eval_step, k, seen_valid, device)
+        r = evaluate_task(cfg, eval_step, k, seen_valid, device, cache=vcache)
         r["n_images"] = len(pipeline.make_datasets(cfg, k)[1])
         exec_s = time.perf_counter() - t0
         if first:
@@ -516,7 +674,7 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
 
     for task_id in range(T):
         seen = task_lib.seen_classes(splits, task_id)
-        seen_valid = task_lib.valid_class_mask(cfg.data.num_classes, seen)
+        seen_valid = task_lib.valid_class_mask(d.num_classes, seen)
         valid_dev = torch.from_numpy(seen_valid).to(device)
         t_task = time.perf_counter()
 
@@ -524,27 +682,59 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
             # Losses stay on the device during the epoch: fetching each
             # one would wait for the device every step.
             losses_dev = []
-            src = pipeline.train_batches(cfg, task_id, epoch)
-            if replay is not None and not dev_replay:
-                # the host buffer's draws run in the prefetch thread, in
-                # the batches' order
-                src = (pipeline.replay_mix(b, replay.sample_or_current(
-                    m.replay_batch, b, flip_prob=cfg.data.flip_prob)) for b in src)
-            batch_it = pipeline.prefetch_to_device(
-                src, device=device, depth=cfg.data.prefetch_depth)
-            t_ep = time.perf_counter()
-            for batch in batch_it:
-                if dev_replay:
-                    batch = _device_replay_mix(replay, batch, m.replay_batch,
-                                               flip_prob=cfg.data.flip_prob)
-                losses_dev.append(train_step(batch, valid_dev)["loss"])
+            first_use = False
+            if dev_cache:
+                # The epoch's plan and replay draws go to the device once
+                # (cl_tpu/train.py:1316-1377); every step then slices its
+                # row. cl_tpu runs epoch_scan=true as one lax.scan over the
+                # plan, which it holds equal to this per-step loop; PyTorch
+                # has no scan, so both values run the loop (a CUDA graph of
+                # the step is later work).
+                cache = _train_cache(task_id)
+                plan = cached_exec.build_plan(
+                    cache.n, batch_size=d.batch_size, epoch=epoch,
+                    seed=d.shuffle_seed + 1000 * task_id, shuffle=True,
+                    flip_prob=d.flip_prob, device=device)
+                rep, mode = None, "none"
+                if replay is not None:
+                    mode, r_idx, r_flip = cached_exec.build_replay_plan(
+                        replay, steps=plan.steps, k=m.replay_batch, batch_size=d.batch_size,
+                        flip_prob=d.flip_prob, device=device)
+                    rep = (mode, r_idx, r_flip)
+                    if mode == "buffer":
+                        if task_id not in rep_arrays:
+                            rep_arrays.clear()  # the previous task's upload
+                            rep_arrays[task_id] = cached_exec.replay_arrays(replay, device)
+                        rep += tuple(rep_arrays[task_id])
+                # the first epoch of each replay mode is left out of the
+                # steady state, as cl_tpu leaves out each program's compile
+                first_use = mode not in used_modes
+                used_modes.add(mode)
+                t_ep = time.perf_counter()
+                for s in range(plan.steps):
+                    losses_dev.append(cached_step(s, cache, plan, valid_dev, rep)["loss"])
+            else:
+                src = pipeline.train_batches(cfg, task_id, epoch)
+                if replay is not None and not dev_replay:
+                    # the host buffer's draws run in the prefetch thread, in
+                    # the batches' order
+                    src = (pipeline.replay_mix(b, replay.sample_or_current(
+                        m.replay_batch, b, flip_prob=d.flip_prob)) for b in src)
+                batch_it = pipeline.prefetch_to_device(
+                    src, device=device, depth=d.prefetch_depth)
+                t_ep = time.perf_counter()
+                for batch in batch_it:
+                    if dev_replay:
+                        batch = _device_replay_mix(replay, batch, m.replay_batch,
+                                                   flip_prob=d.flip_prob)
+                    losses_dev.append(train_step(batch, valid_dev)["loss"])
             # the fetch of the losses is the epoch's sync
             ep_loss = float(np.mean(torch.stack(losses_dev).cpu().numpy())) \
                 if losses_dev else 0.0
             ep_time = time.perf_counter() - t_ep
             # Steady state only: the run's first epoch carries the kernel
             # build and first-use set-up.
-            if not (epoch == 0 and task_id == 0):
+            if not (epoch == 0 and task_id == 0) and not first_use:
                 step_times.append((ep_time, len(losses_dev)))
             logger.log(event="epoch", task=task_id, epoch=epoch,
                        loss=ep_loss, steps=len(losses_dev))
@@ -559,7 +749,18 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
             logger.log(event="eval", after_task=task_id, task=k,
                        miou=res["miou"])
         after_task(cfg, task_id, model, ewc=ewc, fisher_step=fisher_step, lwf=lwf,
-                   replay=replay, device=device)
+                   replay=replay, device=device,
+                   cache=_train_cache(task_id) if dev_cache and ewc is not None else None)
+        # free the finished task's train cache, and with data.val_cache_evict
+        # every val cache: the next task trains with none of them on the
+        # device, and each is rebuilt at the next boundary
+        # (cl_tpu/train.py:1465-1474)
+        caches.pop(task_id, None)
+        if d.val_cache_evict:
+            for key in [k for k in caches if isinstance(k, tuple)]:
+                caches.pop(key)
+        logger.log(event="hbm_live_set", task=task_id,
+                   **_live_set_mb(model, opt, ewc, lwf, caches, rep_arrays, device))
 
         logger.log(event="task_done", task=task_id,
                    seconds=time.perf_counter() - t_task)
@@ -572,17 +773,18 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
     if step_times:
         total_s = sum(t for t, _ in step_times)
         total_steps = sum(n for _, n in step_times)
+        # images a step: the fresh batch and its replay rows, as cl_tpu counts
+        gb = d.batch_size + (m.replay_batch if replay is not None else 0)
         if total_s > 0 and total_steps > 0:
-            report["images_per_sec_per_chip"] = float(
-                cfg.data.batch_size * total_steps / total_s)
+            report["images_per_sec_per_chip"] = float(gb * total_steps / total_s)
     if eval_times:
         e_s = sum(t for t, _ in eval_times)
         e_n = sum(n for _, n in eval_times)
         if e_s > 0 and e_n > 0:
             report["eval_images_per_sec_per_chip"] = float(e_n / e_s)
-    if eval_overhead["compile_passes"]:
+    if eval_overhead["compile_passes"] or eval_overhead["cache_build_s"]:
         report["eval_overhead_seconds"] = {
-            "cache_build": 0.0,
+            "cache_build": round(eval_overhead["cache_build_s"], 3),
             "compile_passes": eval_overhead["compile_passes"],
             "compile": round(eval_overhead["compile_s"], 3)}
     logger.log(event="done", **{k: v for k, v in report.items()

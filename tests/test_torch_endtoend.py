@@ -14,6 +14,7 @@ from cl_tpu.config import parse_overrides as jax_parse
 from cl_tpu_torch import train as port_train
 from cl_tpu_torch.config import parse_overrides
 from cl_tpu_torch.interop import export_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARGS = ["preset=smoke", "data.num_classes=3", "train.data_parallel=false"]
 

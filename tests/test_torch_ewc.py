@@ -37,6 +37,7 @@ from cl_tpu_torch.interop import (ewc_state_from_jax, export_jax_variables,
 from cl_tpu_torch.kernels import ewc_fused
 from cl_tpu_torch.methods import ewc
 from cl_tpu_torch.models.unet import UNet
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 CPU = torch.device("cpu")
 SMOKE = ["preset=smoke", "data.num_classes=3", "model.depth=2", "train.data_parallel=false",
          "train.num_tasks=3", "method.methods=ewc"]

@@ -23,6 +23,7 @@ from cl_tpu.pallas import ce_loss as jax_ce
 from cl_tpu.pallas import head_ce as jax_head_ce
 from cl_tpu_torch import losses as port_losses
 from cl_tpu_torch.kernels import ce_loss, head_ce
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _labels_valid(rng, shape, C, masked):

@@ -32,6 +32,7 @@ from cl_tpu_torch.kernels import head_ce
 from cl_tpu_torch.methods import lwf
 
 from test_torch_packed_head import check_step
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PACKED = ["preset=smoke", "data.num_classes=3", "model.base_channels=32", "model.depth=2",
           "data.image_size=64", "data.source_size=80", "model.packed_min_size=0",
@@ -217,6 +218,8 @@ def test_two_task_lwf_train_matches_jax(monkeypatch):
 @pytest.mark.parametrize("args", [
     PACKED,                                                      # the packed KD head
     ["preset=smoke", "method.methods=lwf", "train.use_pallas=false"],  # KD on logits, plain
+    ["preset=smoke", "method.methods=lwf,replay", "train.use_pallas=false",
+     "data.device_cache=true"],                                  # plan-driven replay
 ])
 def test_lwf_routes_that_run(args):
     port_train.check_supported(parse_overrides(args), CPU)
@@ -228,8 +231,10 @@ def test_lwf_routes_that_run(args):
     (["preset=smoke", "method.methods=lwf", "train.fused_head_ce=false"], "#13/#14"),
     (["preset=smoke", "method.methods=ewc,lwf", "train.use_pallas=false",
       "method.ewc_fisher_kind=true"], "EWC"),                    # the sampled Fisher
-    (["preset=smoke", "method.methods=lwf,replay", "train.use_pallas=false",
-      "data.device_cache=true"], "replay"),                      # plan-driven replay
+    # plan-driven replay runs since the data path's slice; with the KD on
+    # logits it still raises
+    pytest.param(["preset=smoke", "method.methods=lwf,replay", "train.fused_head_ce=false",
+                  "data.device_cache=true"], "#13/#14", id="args4-replay"),
 ])
 def test_lwf_routes_that_raise(args, match):
     cfg = parse_overrides(args)

@@ -33,6 +33,7 @@ from cl_tpu_torch.methods.replay import ReplayBuffer
 from test_torch_ewc import PACKED, _ewc_trees
 from test_torch_lwf import _teacher_variables
 from test_torch_packed_head import check_step
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

@@ -16,6 +16,7 @@ import torch
 from cl_tpu.models.unet import UNet as JaxUNet
 from cl_tpu_torch.interop import export_jax_variables, load_jax_variables
 from cl_tpu_torch.models.unet import UNet, init_weights
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_CLASSES, BASE, DEPTH = 3, 8, 3
 

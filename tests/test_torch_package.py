@@ -14,6 +14,7 @@ import torch
 import cl_tpu.config as jax_config
 from cl_tpu_torch import config
 from cl_tpu_torch import train as port_train
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -68,12 +69,14 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     "model.upconv_impl=matmul",
     "model.norm=group",
     "model.padded_head=false",
-    "train.pallas_augment=true",
+    # the data path runs since its slice (pallas_augment, device_cache,
+    # synthetic_native: test_data_path_configs_run); these three do not
+    "train.multihost=true",
     # EWC runs since the methods slice; its sampled Fisher does not
     pytest.param("method.methods=ewc method.ewc_fisher_kind=true", id="method.methods=ewc"),
     "method.methods=lwf,replay",        # LwF on the NHWC fused head (#9/#10)
-    "data.device_cache=true",
-    "data.dataset=synthetic_native",
+    "method.methods=lwf train.fused_head_ce=false",  # KD on logits (#13/#14)
+    "model.conv_impl=pallas",
     "train.checkpoint_dir=ckpt",
     "train.resume=true",
     "train.spatial_parallel=true",
@@ -89,6 +92,29 @@ def test_unported_configs_raise(override):
     match = "does not engage" if override == "model.packed_min_size=0" else "later slice"
     with pytest.raises(NotImplementedError, match=match):
         port_train.train(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", ["train.pallas_augment=true", "data.device_cache=true",
+                                      "data.dataset=synthetic_native"])
+def test_data_path_configs_run(override):
+    """The three configs the data path's slice made runnable train on the
+    CPU (the augment kernels' plain versions, the device-resident dataset
+    and its plan, the native rasterizer)."""
+    cfg = config.parse_overrides(["preset=smoke", "model.depth=2", override])
+    port_train.check_supported(cfg, torch.device("cpu"))
+    report = port_train.train(cfg, device="cpu")
+    assert np.isfinite(report["final_per_task_miou"]).all()
+
+
+def test_baselines_2_to_4_as_shipped_are_supported():
+    """Baselines 2, 3 and 4 pass ``check_supported`` as they ship on one
+    card; baseline_5 is refused for ``train.remat`` alone."""
+    cpu = torch.device("cpu")
+    for name in ("baseline_2", "baseline_3", "baseline_4"):
+        port_train.check_supported(config.get_preset(name), cpu)
+    with pytest.raises(NotImplementedError) as err:
+        port_train.check_supported(config.get_preset("baseline_5"), cpu)
+    assert str(err.value).startswith("not in this slice of the port: train.remat —")
 
 
 _PACKED = ["preset=smoke", "model.base_channels=32", "model.depth=2",

@@ -42,6 +42,7 @@ from cl_tpu_torch.config import parse_overrides
 from cl_tpu_torch.data import pipeline
 from cl_tpu_torch.interop import export_jax_variables
 from cl_tpu_torch.kernels import conv3x3, packed_eltwise, pool_pack, upconv_pack
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -30,6 +30,7 @@ from cl_tpu_torch.interop import export_jax_variables
 from cl_tpu_torch.kernels import replay_gather
 from cl_tpu_torch.kernels.replay_gather import DeviceReplayBuffer
 from cl_tpu_torch.methods.replay import ReplayBuffer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 ARGS = ["preset=smoke", "data.num_classes=3", "train.data_parallel=false", "train.num_tasks=2"]
@@ -175,11 +176,18 @@ def test_gather_any_row_length(shape):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("resident", ["false", "true"])
-def test_two_task_ewc_replay_train_matches_jax(monkeypatch, resident):
-    args = ARGS + ["method.methods=ewc,replay", f"method.replay_device_resident={resident}",
-                   "method.replay_batch=2", "method.ewc_lambda=1000"]
-    cfg, jcfg = parse_overrides(args), jax_parse(args)
+TRAIN_ARGS = ARGS + ["method.methods=ewc,replay", "method.replay_batch=2",
+                     "method.ewc_lambda=1000"]
+
+
+@pytest.fixture(scope="module")
+def jax_replay_train():
+    """``(variables, cl_tpu.train.train's report)`` of the 2-task EWC +
+    replay run with the host buffer, computed once for both buffers of the
+    port: ``cl_tpu``'s device-resident buffer makes the same RandomState
+    calls and gathers the same rows (``test_device_buffer_matches_cl_tpu``),
+    so its run is the host buffer's."""
+    cfg = parse_overrides(TRAIN_ARGS)
     variables = export_jax_variables(
         port_train.init_state(cfg, port_train.build_model(cfg), CPU))
 
@@ -195,20 +203,29 @@ def test_two_task_ewc_replay_train_matches_jax(monkeypatch, resident):
             ewc=jax_ewc.make_ewc_state(params, mode="online"), lwf=None,
             rng=jax.random.PRNGKey(cfg_.train.seed))
 
-    monkeypatch.setattr(jax_train, "init_state", injected_init_state)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_train, "init_state", injected_init_state)
+        return variables, jax_train.train(jax_parse(TRAIN_ARGS + [
+            "method.replay_device_resident=false"]), init_variables=variables)
+
+
+@pytest.mark.parametrize("resident", ["false", "true"])
+def test_two_task_ewc_replay_train_matches_jax(monkeypatch, jax_replay_train, resident):
+    args = TRAIN_ARGS + [f"method.replay_device_resident={resident}"]
+    cfg = parse_overrides(args)
+    variables, want = jax_replay_train
     fisher_passes, fills = [], []
     real_fisher, real_mix = port_train.run_fisher_pass, port_train._device_replay_mix
     monkeypatch.setattr(port_train, "run_fisher_pass",
                         lambda *a: fisher_passes.append(a[3]) or real_fisher(*a))
     monkeypatch.setattr(port_train, "_device_replay_mix",
                         lambda *a, **k: fills.append(1) or real_mix(*a, **k))
-    want = jax_train.train(jcfg, init_variables=variables)
     got = port_train.train(cfg, init_variables=variables, device="cpu")
 
     assert fisher_passes == [0]  # after task 0 only
     steps = cfg.train.num_tasks * cfg.data.train_images_per_task // cfg.data.batch_size
     assert len(fills) == (steps if resident == "true" else 0)
-    assert got["config_hash"] == want["config_hash"]
+    assert got["config_hash"] == jax_parse(args).config_hash()
     final = np.asarray(got["final_per_task_miou"])
     assert final.shape == (2,) and np.all(np.isfinite(final))
     np.testing.assert_allclose(final, want["final_per_task_miou"], atol=0.005)

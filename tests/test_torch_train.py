@@ -26,6 +26,7 @@ from cl_tpu_torch import train as port_train
 from cl_tpu_torch.config import parse_overrides
 from cl_tpu_torch.data import pipeline
 from cl_tpu_torch.interop import export_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARGS = ["preset=smoke", "data.num_classes=3", "model.depth=3",
         "train.data_parallel=false", "data.train_images_per_task=8"]
