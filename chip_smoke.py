@@ -17,7 +17,14 @@ Phases (any failure raises, so the exit code is non-zero):
    stats cotangents); the packed head+CE with the BN·ReLU prologue (#7/#8)
    and its KD form (#11/#12) at the headline shape (2,097,152 pixels, 32
    channels, 19 classes, bf16) and at small f32 and ragged ones, each
-   backward launched twice and held bit-equal; EWC's penalty (#17, also
+   backward launched twice and held bit-equal; the KD head on NHWC
+   features (#9/#10) at the full width, at 524,288 pixels x 64 channels
+   -> 21 classes in f32 (base 64 with the fused head) and at a small
+   ragged f32 case, and the KD on logits (#13/#14) at 2,097,152 x 19
+   bf16, 524,288 x 21 f32 (baseline_2's model with LwF) and small ragged
+   f32 and bf16 cases, each backward launched twice and held bit-equal,
+   and each with an all-false old_valid (task 0's teacher): the KD and
+   its gradient exactly 0; EWC's penalty (#17, also
    relaunched bit-equal and over two rows of a separate-mode state), its
    gradient (#18, a cotangent other than 1) and the Fisher accumulation
    (#19) at the flat param count of UNet-32 with 19 and with 21 classes
@@ -67,6 +74,25 @@ Phases (any failure raises, so the exit code is non-zero):
    the CPU at 128² f32 with a teacher unlike the student (KD term, loss
    and params); a 2-task ``train()`` at 512² whose mIoU matrix and
    forgetting report must be finite;
+5k. LwF off the packed head. 5k-a: phase 5l's config with
+   ``train.packed_head_ce=false``, the KD head on NHWC features (#9/#10),
+   and 5k-b: with ``train.fused_head_ce=false``, the CE (#3/#4) and KD
+   (#13/#14) kernels on bf16 logits: 3 + 10 steps each with launch counts
+   (phase 5t's packed body, the teacher's eval-mode packed forward, the
+   route's loss kernels once a step and no other), a falling loss,
+   images/s and peak memory beside phase 5l's; one LwF step of each route
+   on the card against the CPU at 128² f32 (KD term, loss, params, each
+   update); 5k-c: baseline_2's model with LwF as users set it
+   (``preset=baseline_2 method.methods=lwf train.num_tasks=2``: UNet-64,
+   256², 21 classes, f32, the device cache; CE #3/#4 and KD #13/#14)
+   through ``train()``, every step under sync debug mode "error", the
+   launches as counted; 5k-d: baseline_1 with LwF (128² is below
+   ``model.packed_min_size``: the KD head on NHWC features) through
+   ``train()`` on the card and on the CPU from the same weights and
+   stream: with SGD, every final per-task mIoU of the card within 0.5
+   points of the CPU's; with the preset's Adam, the kernels' within 0.5
+   points of the plain PyTorch loss's on the card (Adam's card-against-CPU
+   gap, the same with or without the kernels, printed beside them);
 5m. the methods step, baseline_5 on one card (EWC online with λ = 3e4,
    LwF on the packed KD head, the device-resident replay buffer; batch
    8 + 1): task 0's after-task hooks on the seeded init (the Fisher pass
@@ -323,6 +349,12 @@ BN_KERNELS = {  # launch-count key: (source, TPU kernel's pallas_call)
     "head_ce_kd_bn_bwd": ("cl_tpu_torch/csrc/head_ce_kd_bn.cu",
                           "cl_tpu/pallas/head_ce.py:1036"),
 }
+# the KD head on NHWC features (#9/#10): the same template without the
+# BN·ReLU prologue, on bn_case's operands (y as the features x)
+KD_HEAD_KERNELS = {
+    "head_ce_kd_fwd": ("cl_tpu_torch/csrc/head_ce_kd.cu", "cl_tpu/pallas/head_ce.py:784"),
+    "head_ce_kd_bwd": ("cl_tpu_torch/csrc/head_ce_kd.cu", "cl_tpu/pallas/head_ce.py:815"),
+}
 LWF_T = 2.0  # method.lwf_temperature's default
 
 
@@ -364,7 +396,13 @@ def bn_fns(kernel, case):
     te = (c["yt"], c["ts"], c["tsh"], c["tw"], c["tb"])
     lv = (c["labels"], c["valid"])
     kd = (*st, *te, *lv, c["old_valid"])
+    nhwc = (c["y"], c["w"], c["b"], c["yt"], c["tw"], c["tb"], *lv, c["old_valid"])
     return {
+        "head_ce_kd_fwd": (lambda: head_ce.launch_kd_fwd(*nhwc, LWF_T),
+                           lambda: head_ce.head_ce_kd_total_plain(*nhwc, LWF_T)),
+        "head_ce_kd_bwd": (
+            lambda: head_ce.launch_kd_bwd(*nhwc, c["gce"], c["gkd"], LWF_T),
+            lambda: head_ce.head_ce_kd_grads_plain(*nhwc, c["gce"], c["gkd"], LWF_T)),
         "head_ce_bn_fwd": (lambda: head_ce.launch_bn_fwd(*st, *lv),
                            lambda: head_ce.head_ce_bn_total_plain(*st, *lv)),
         "head_ce_bn_bwd": (lambda: head_ce.launch_bn_bwd(*st, *lv, c["gce"]),
@@ -391,7 +429,8 @@ def compare_bn(kernel, case):
     1e-5 of Σ_c |g|·|W|·|scale|; the sums over pixels (dscale, dshift, dW,
     db) as head_ce's backward: 1e-3 of max|plain| in bf16, 1e-4 relative
     plus 1e-5 of max|plain| in f32. A backward launched twice repeats
-    every bit."""
+    every bit. The KD head on NHWC features (``head_ce_kd_*``) has no
+    prologue: |scale| is 1 and its backward gives dx, dW and db."""
     import torch
 
     launch, plain = bn_fns(kernel, case)
@@ -417,9 +456,11 @@ def compare_bn(kernel, case):
     else:
         gbound = case["gce"].item() + (LWF_T * case["gkd"].item() if "kd" in kernel else 0.0)
         w_abs = case["w"].to(case["y"].dtype).float().abs().sum(0)  # Σ_c |W_ck|
-        s_abs = case["s"].abs()
-        for i, (gname, k, p) in enumerate(zip(("dx", "dscale", "dshift", "dW", "db"),
-                                              k_out, p_out)):
+        bn = "_bn_" in kernel
+        s_abs = case["s"].abs() if bn else 1.0
+        names = ("dx", "dscale", "dshift", "dW", "db") if bn else ("dx", "dW", "db")
+        need(len(k_out) == len(names), f"{name}: {len(names)} outputs")
+        for i, (gname, k, p) in enumerate(zip(names, k_out, p_out)):
             need(k.shape == p.shape and k.dtype == p.dtype,
                  f"{name} {gname} shape/dtype {tuple(k.shape)} {k.dtype}")
             kf, pf = k.float(), p.float()
@@ -451,25 +492,28 @@ def bn_bytes_ops(kernel, case):
     written once) and its operations: 2·C·Cin per pixel and logit pass,
     3·Cin for the BN·ReLU prologue, ~6·C for the softmax and CE (the KD
     ~12·C more), the backward's two more products and its ~6·Cin
-    epilogue."""
+    epilogue. The KD head on NHWC features has no prologue and no
+    epilogue: no s, sh, dscale or dshift, and 3·Cin fewer operations."""
     P, cin, C = case["P"], case["Cin"], case["C"]
     es = 2 if case["dtype"] == "bfloat16" else 4
     kd = "kd" in kernel
-    one = P * cin * es + (C * cin + C + 2 * cin) * 4      # y, W, b, s, sh
+    nv = 2 * cin if "_bn_" in kernel else 0                # the BN vectors
+    one = P * cin * es + (C * cin + C + nv) * 4            # y, W, b (, s, sh)
     inputs = (2 if kd else 1) * one + P * 4 + (2 if kd else 1) * C * 4  # labels, masks
     passes = 2 if kd else 1
-    ops = passes * (2 * P * C * cin + 3 * P * cin) + (18 if kd else 6) * P * C
+    ops = passes * (2 * P * C * cin + (3 * P * cin if nv else 0)) + (18 if kd else 6) * P * C
     if kernel.endswith("fwd"):
         return inputs + (8 if kd else 4), ops
-    return (inputs + P * cin * es + (C * (cin + 1) + 2 * cin) * 4,
-            ops + 4 * P * C * cin + 6 * P * cin + 2 * P * C)
+    return (inputs + P * cin * es + (C * (cin + 1) + nv) * 4,
+            ops + 4 * P * C * cin + (6 * P * cin if nv else 0) + 2 * P * C)
 
 
 def bn_times(kernel, case):
     """(ms, plain_ms, library_ms or None, ms synchronised per launch). The
     library call for #7/#8 is ``F.linear`` + ``F.cross_entropy`` on the
-    materialized z (the head and CE only, not the BN·ReLU); none computes
-    the KD forms."""
+    materialized z (the head and CE only, not the BN·ReLU), for the KD head
+    on NHWC features (#9/#10) the same on x (the head and CE only, not the
+    teacher's head or the KD); none for the packed KD forms (#11/#12)."""
     import torch
     import torch.nn.functional as F
 
@@ -477,8 +521,9 @@ def bn_times(kernel, case):
 
     launch, plain = bn_fns(kernel, case)
     lib = None
-    if "kd" not in kernel:
-        z = bn_relu_plain(case["y"], case["s"], case["sh"])
+    if "kd_bn" not in kernel:
+        z = (bn_relu_plain(case["y"], case["s"], case["sh"]) if "_bn_" in kernel
+             else case["y"])
         wx, bx = case["w"].to(z.dtype), case["b"].to(z.dtype)
         lbl64 = case["labels"].long()
         if kernel.endswith("fwd"):
@@ -488,6 +533,151 @@ def bn_times(kernel, case):
             zr, wr, br = (t.detach().clone().requires_grad_(True) for t in (z, wx, bx))
             loss = F.cross_entropy(F.linear(zr, wr, br), lbl64, ignore_index=255)
             lib = lambda: torch.autograd.grad(loss, (zr, wr, br), retain_graph=True)  # noqa: E731
+    return (time_ms(launch), time_ms(plain), None if lib is None else time_ms(lib),
+            time_ms(launch, queued=False))
+
+
+def zero_teacher_kd(kind, case):
+    """Task 0's teacher (``old_valid`` all false) on the card: the KD term
+    exactly 0, and its gradient exactly 0 (the head's backward with gce = 0;
+    the logits' backward). ``kind``: "head" (#9/#10) or "logits"
+    (#13/#14)."""
+    import torch
+
+    from cl_tpu_torch.kernels import head_ce, kd_loss
+
+    c = case
+    zero = torch.zeros_like(c["old_valid"])
+    if kind == "head":
+        args = (c["y"], c["w"], c["b"], c["yt"], c["tw"], c["tb"], c["labels"], c["valid"], zero)
+        kd = head_ce.launch_kd_fwd(*args, LWF_T)[1]
+        grads = head_ce.launch_kd_bwd(*args, torch.zeros_like(c["gce"]), c["gkd"], LWF_T)
+    else:
+        args = (c["new"], c["old"], zero, c["labels"])
+        kd = kd_loss.launch_fwd(*args, LWF_T)
+        grads = (kd_loss.launch_bwd(*args, c["g"] / LWF_T, LWF_T),)
+    torch.cuda.synchronize()
+    name = (bn_name("head_ce_kd", c) if kind == "head" else kd_name("kd", c))
+    ok = kd.item() == 0.0 and not any(bool(g.any()) for g in grads)
+    print(f"  {name}, old_valid all false: KD {kd.item()!r}, its gradient all zero "
+          f"{not any(bool(g.any()) for g in grads)} {'ok' if ok else 'FAIL'}")
+    need(ok, f"{name}: task 0's teacher gives KD 0 and gradient 0")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 / 6: the KD on materialized logits (#13/#14)
+# ---------------------------------------------------------------------------
+
+KD_KERNELS = {  # launch-count key: (source, TPU kernel's pallas_call)
+    "kd_fwd": ("cl_tpu_torch/csrc/kd_loss.cu", "cl_tpu/pallas/kd_loss.py:154"),
+    "kd_bwd": ("cl_tpu_torch/csrc/kd_loss.cu", "cl_tpu/pallas/kd_loss.py:183"),
+}
+
+
+def kd_case(P, C, dtype_name, seed):
+    """Seeded student and teacher logits [P, C] on the card
+    (``kernel_bench.kd_operands``: ~10% ignore pixels, the first half of
+    the classes old, at least two), and the total's cotangent g = T²/n as
+    ``kd_loss`` gives it."""
+    import torch
+
+    from cl_tpu_torch.kernel_bench import kd_operands
+
+    (new, old, old_valid, labels), scale = kd_operands("kd", P, 0, C,
+                                                       getattr(torch, dtype_name), seed)
+    return {"P": P, "C": C, "dtype": dtype_name, "new": new, "old": old,
+            "old_valid": old_valid, "labels": labels, "g": scale * LWF_T ** 2}
+
+
+def kd_name(kernel, case):
+    return f"{kernel}[P={case['P']},C={case['C']},{case['dtype']}]"
+
+
+def kd_fns(kernel, case):
+    from cl_tpu_torch.kernels import kd_loss
+
+    c = case
+    args = (c["new"], c["old"], c["old_valid"], c["labels"])
+    scale = c["g"] / LWF_T
+    return {"kd_fwd": (lambda: kd_loss.launch_fwd(*args, LWF_T),
+                       lambda: kd_loss.kd_total_plain(*args, LWF_T)),
+            "kd_bwd": (lambda: kd_loss.launch_bwd(*args, scale, LWF_T),
+                       lambda: kd_loss.kd_grad_plain(*args, scale, LWF_T))}[kernel]
+
+
+def compare_kd(kernel, case):
+    """Kernel vs plain on the card; returns the max abs error. Tolerances:
+    the KL total 1e-5 relative in f32, 1e-4 in bf16 (f32 sums over P pixels
+    in another order); dnew = s·pix·(p_new − p_old), s = g/T, in f32
+    within 1e-5 relative plus 1e-6·|s| (p from expf and a log-sum in
+    another order: a few f32 ulps of 1 on each p), in bf16 one bf16 ulp
+    plus 1e-6·|s| (the f32 value may round to the other neighbour). A
+    backward launched twice repeats every bit."""
+    import torch
+
+    launch, plain = kd_fns(kernel, case)
+    k, p = launch(), plain()
+    again = launch()
+    torch.cuda.synchronize()
+    name = kd_name(kernel, case)
+    need(torch.equal(k, again), f"{name}: a second launch repeats every bit")
+    bf16 = case["dtype"] == "bfloat16"
+    if kernel == "kd_fwd":
+        rel = abs(k.item() - p.item()) / max(abs(p.item()), 1e-30)
+        tol = 1e-4 if bf16 else 1e-5
+        ok = np.isfinite(k.item()) and p.item() > 0 and rel <= tol
+        print(f"  {name}: KL total kernel {k.item():.9g} plain {p.item():.9g} rel err "
+              f"{rel:.3g} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        need(ok, name)
+        return abs(k.item() - p.item())
+    need(k.shape == p.shape and k.dtype == p.dtype, f"{name} shape/dtype")
+    kf, pf = k.float(), p.float()
+    need(bool(torch.isfinite(kf).all()), f"{name} not finite")
+    diff = (kf - pf).abs()
+    s = abs(case["g"].item()) / LWF_T
+    if bf16:
+        tol, txt = bf16_ulp(torch.maximum(kf.abs(), pf.abs())) + 1e-6 * s, "1 bf16 ulp + 1e-6·|s|"
+    else:
+        tol, txt = 1e-5 * pf.abs() + 1e-6 * s, "1e-5 rel + 1e-6·|s|"
+    ok = bool((diff <= tol).all())
+    print(f"  {name}: dnew max abs err {diff.max().item():.3g} (max|plain| "
+          f"{pf.abs().max().item():.3g}; tol {txt}) {'ok' if ok else 'FAIL'}")
+    need(ok, name)
+    return diff.max().item()
+
+
+def kd_bytes_ops(kernel, case):
+    """Bytes the function must move (both logit tensors, the labels and
+    old_valid read once; the total, or dnew, written once) and its
+    operations: ~16 per logit pair forward (scale, mask, two max, two
+    exp-sums, the KL terms), ~12 backward."""
+    P, C = case["P"], case["C"]
+    es = 2 if case["dtype"] == "bfloat16" else 4
+    inputs = 2 * P * C * es + P * 4 + C * 4
+    if kernel == "kd_fwd":
+        return inputs + 4, 16 * P * C
+    return inputs + 4 + P * C * es, 12 * P * C
+
+
+def kd_times(kernel, case):
+    """(ms, plain_ms, library_ms or None, ms synchronised per launch). The
+    library call for #13 is ``F.kl_div`` of the two log-softmaxes at T on
+    the masked f32 logits (the KL alone: no ignore mask, no T²/n); none
+    for #14."""
+    import torch
+    import torch.nn.functional as F
+
+    from cl_tpu_torch.losses import NEG_INF
+
+    launch, plain = kd_fns(kernel, case)
+    lib = None
+    if kernel == "kd_fwd":
+        ov = case["old_valid"] > 0
+        nm = torch.where(ov, case["new"].float(), NEG_INF)
+        om = torch.where(ov, case["old"].float(), NEG_INF)
+        lib = lambda: F.kl_div(F.log_softmax(nm / LWF_T, 1),  # noqa: E731
+                               F.log_softmax(om / LWF_T, 1), log_target=True,
+                               reduction="sum")
     return (time_ms(launch), time_ms(plain), None if lib is None else time_ms(lib),
             time_ms(launch, queued=False))
 
@@ -1210,10 +1400,10 @@ def aug_entry(kernel, launches, err, times, shape):
 
 
 def _count_dicts():
-    from cl_tpu_torch.kernels import (augment, ce_loss, conv3x3, ewc_fused, head_ce,
+    from cl_tpu_torch.kernels import (augment, ce_loss, conv3x3, ewc_fused, head_ce, kd_loss,
                                       packed_eltwise, pool_pack, replay_gather, upconv_pack)
 
-    return (head_ce.LAUNCHES, ce_loss.LAUNCHES, conv3x3.LAUNCHES,
+    return (head_ce.LAUNCHES, ce_loss.LAUNCHES, kd_loss.LAUNCHES, conv3x3.LAUNCHES,
             packed_eltwise.LAUNCHES, pool_pack.LAUNCHES, upconv_pack.LAUNCHES,
             ewc_fused.LAUNCHES, replay_gather.LAUNCHES, augment.LAUNCHES)
 
@@ -1485,6 +1675,70 @@ def methods_train(label, args, device=None):
         need(counts[k] == n, f"{k} launches == {n} in the train() of {label}")
 
 
+def lwf_card_vs_cpu(args):
+    """``train()`` of an LwF config on the card and on the port's CPU path
+    (plain versions) from the same weights and data stream, with the
+    config's Adam and with SGD, and on the card with the plain PyTorch loss
+    (``train.use_pallas=false``) beside the kernels. With Adam, f32
+    rounding of the model's convolutions (cuDNN against oneDNN) moves the
+    gradients of a few params near 0 to the other sign, and Adam's first
+    steps move each such param by ±lr whatever its gradient's size (the
+    trap the step parity tests avoid with SGD): the card lands as far from
+    the CPU with the plain loss as with the kernels. So the gates, each at
+    the repo's 0.5 points (0.005): with SGD, the card's final per-task mIoU
+    against the CPU's; with Adam, the kernels' against the plain loss's on
+    the card. Adam's card-against-CPU gaps are printed beside them. On the
+    card the KD head on NHWC features runs once a step."""
+    import torch
+
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.config import parse_overrides
+    from cl_tpu_torch.interop import export_jax_variables
+
+    cfg = parse_overrides(args)
+    need(tl.fused_head_on(cfg) and not tl.packed_head_on(cfg),
+         "the LwF config takes the KD head on NHWC features")
+    T = cfg.train.num_tasks
+    steps = T * cfg.data.train_images_per_task // cfg.data.batch_size * cfg.train.epochs_per_task
+    variables = export_jax_variables(tl.init_state(cfg, tl.build_model(cfg),
+                                                   torch.device("cpu")))
+    runs, counts = {}, None
+    for opt in (cfg.train.optimizer, "sgd"):
+        extra = [] if opt == cfg.train.optimizer else ["train.optimizer=sgd", "train.lr=0.05"]
+        for pallas in ("true", "false"):
+            c = parse_overrides(args + extra + [f"train.use_pallas={pallas}"])
+            for dev in ("cuda", "cpu"):
+                if pallas == "false" and dev == "cpu" and opt == "sgd":
+                    continue
+                reset_counts()
+                r = tl.train(c, init_variables=variables, device=dev)
+                if (opt, pallas, dev) == (cfg.train.optimizer, "true", "cuda"):
+                    counts = read_counts()
+                runs[(opt, pallas, dev)] = np.asarray(r["final_per_task_miou"], float)
+
+    def gap(a, b):
+        return float(np.abs(runs[a] - runs[b]).max())
+
+    adam = cfg.train.optimizer
+    gates = {"sgd, card vs CPU (kernels)": gap(("sgd", "true", "cuda"), ("sgd", "true", "cpu")),
+             f"{adam}, card kernels vs card plain loss":
+                 gap((adam, "true", "cuda"), (adam, "false", "cuda"))}
+    shown = {f"{adam}, card vs CPU (kernels)": gap((adam, "true", "cuda"), (adam, "true", "cpu")),
+             f"{adam}, card vs CPU (plain loss)": gap((adam, "false", "cuda"),
+                                                       (adam, "false", "cpu"))}
+    print(f"  5k-d {' '.join(args)}: final per-task mIoU "
+          f"{ {'/'.join(k): v.tolist() for k, v in runs.items()} }")
+    print(f"  5k-d max |final mIoU diff|, gates (tol 0.005 = 0.5 points): "
+          f"{ {k: round(v, 5) for k, v in gates.items()} }; beside them "
+          f"{ {k: round(v, 5) for k, v in shown.items()} }; KD head launches "
+          f"{counts['head_ce_kd_fwd']}/{counts['head_ce_kd_bwd']} for {steps} steps")
+    need(all(np.isfinite(v).all() for v in runs.values()), "finite mIoU (5k-d)")
+    for k, v in gates.items():
+        need(v <= 0.005, f"train() mIoU within 0.5 points: {k} (LwF, 5k-d)")
+    need(counts["head_ce_kd_fwd"] == counts["head_ce_kd_bwd"] == steps
+         and counts["head_ce_fwd"] == 0, "KD head launches == steps (5k-d)")
+
+
 # ---------------------------------------------------------------------------
 # Phase 5d: the data path (native rasterizer, device-resident dataset,
 # plan-driven epochs) through train()
@@ -1577,11 +1831,14 @@ def data_path_train(label, args):
              "fisher": (T - 1) * min(per_epoch, m.ewc_fisher_batches)
              if "ewc" in m.methods else 0}
     n = steps["train"]
-    loss_key = (("head_ce_kd_bn" if "lwf" in m.methods else "head_ce_bn")
-                if tl.packed_head_on(cfg) else "head_ce" if tl.fused_head_on(cfg) else "ce")
+    lwf_on = "lwf" in m.methods
+    loss_key = (("head_ce_kd_bn" if lwf_on else "head_ce_bn") if tl.packed_head_on(cfg)
+                else ("head_ce_kd" if lwf_on else "head_ce") if tl.fused_head_on(cfg) else "ce")
+    # LwF on materialized logits adds the KD kernels to the CE kernels
+    logits_kd = n if lwf_on and loss_key == "ce" else 0
     aug = sum(steps.values()) if tl.augment_kernels_on(cfg) else 0
-    want = {f"{loss_key}_fwd": n, f"{loss_key}_bwd": n, "augment_image": aug,
-            "augment_mask": aug,
+    want = {f"{loss_key}_fwd": n, f"{loss_key}_bwd": n, "kd_fwd": logits_kd,
+            "kd_bwd": logits_kd, "augment_image": aug, "augment_mask": aug,
             "ewc_penalty": n if "ewc" in m.methods else 0,
             "ewc_grad": n if "ewc" in m.methods else 0, "ewc_sq_acc": steps["fisher"],
             # the buffer's rows from task 1 on, images and masks; task 0
@@ -1740,7 +1997,7 @@ def fisher_card_vs_cpu(cuda):
     cache = DeviceDatasetCache(pipeline.make_datasets(cfg, 0)[0], cpu)
     plan = cached_exec.build_plan(cache.n, batch_size=cfg.data.batch_size, epoch=10_000,
                                   seed=cfg.data.shuffle_seed, shuffle=True,
-                                  flip_prob=cfg.data.flip_prob)
+                                  flip_prob=cfg.data.flip_prob, device=cpu)
     f64 = 0
     for s in range(nf):
         x, y = augment(*cached_exec.gather_batch(cache.images, cache.masks, plan, s),
@@ -1914,6 +2171,29 @@ def main() -> int:
         case = bn_case(*args)
         for k in BN_KERNELS:
             compare_bn(k, case)
+    # LwF off the packed head: the KD head on NHWC features (#9/#10) at the
+    # full width, at base 64 with the fused head (Cin 64, baseline_2's 21
+    # classes, f32) and at a small ragged f32 case; the KD on logits
+    # (#13/#14) at the full width, at baseline_2's LwF shape (524,288 x 21
+    # f32) and small ragged f32 and bf16 ones; each also with task 0's
+    # teacher (old_valid all false)
+    kdh_full = bn_case(2097152, 32, 19, "bfloat16", 12)
+    kdh_errs = {k: compare_bn(k, kdh_full) for k in KD_HEAD_KERNELS}
+    zero_teacher_kd("head", kdh_full)
+    for args in ((524288, 64, 21, "float32", 13), (1000, 32, 5, "float32", 14)):
+        case = bn_case(*args)
+        for k in KD_HEAD_KERNELS:
+            compare_bn(k, case)
+        zero_teacher_kd("head", case)
+    kdl_full = kd_case(2097152, 19, "bfloat16", 15)
+    kdl_errs = {k: compare_kd(k, kdl_full) for k in KD_KERNELS}
+    zero_teacher_kd("logits", kdl_full)
+    for args in ((524288, 21, "float32", 16), (1000, 5, "float32", 17),
+                 (1000, 5, "bfloat16", 18)):
+        case = kd_case(*args)
+        for k in KD_KERNELS:
+            compare_kd(k, case)
+        zero_teacher_kd("logits", case)
 
     # the methods kernels: the flat params of both methods paths (19 and 21
     # classes) and a ragged n; the replay gather on the 576² rows
@@ -2129,6 +2409,52 @@ def main() -> int:
     need(counts_lt["head_ce_kd_bn_fwd"] == counts_lt["head_ce_kd_bn_bwd"] == steps_lt
          and counts_lt["head_ce_bn_fwd"] == 0, "KD head launches == steps in the LwF train()")
 
+    print("[5k] LwF off the packed head: the KD head on NHWC features (#9/#10), the KD on "
+          "logits (#13/#14)")
+    loss_kernels = ("head_ce_fwd", "head_ce_bwd", "head_ce_kd_fwd", "head_ce_kd_bwd",
+                    "head_ce_bn_fwd", "head_ce_bn_bwd", "head_ce_kd_bn_fwd", "head_ce_kd_bn_bwd",
+                    "ce_fwd", "ce_bwd", "kd_fwd", "kd_bwd")
+    # per step: the student's packed body with its last bn_relu (phase 5t's
+    # counts), the teacher's eval-mode packed forward, and the route's loss
+    # kernels once each
+    lwf_routes = {}
+    for label, head, loss in (("5k-a the KD head on NHWC features", "train.packed_head_ce=false",
+                               ("head_ce_kd_fwd", "head_ce_kd_bwd")),
+                              ("5k-b the KD on logits", "train.fused_head_ce=false",
+                               ("ce_fwd", "ce_bwd", "kd_fwd", "kd_bwd"))):
+        per_step = dict(PER_STEP, **{k: 1 for k in loss})
+        for k, n in PER_FORWARD.items():
+            per_step[k] += n
+        counts, ips, peak, loss_v, first = run_steps(parse_overrides(lwf_full + [head]), 3, 10,
+                                                     cuda, no_sync=True)
+        lwf_routes[head] = (counts, ips, peak)
+        print(f"  {label} ({head}), 13 steps with a teacher: {ips:.2f} img/s, peak "
+              f"{peak:.0f} MiB, loss {first:.4f} -> {loss_v:.4f}; launches {counts}")
+        need(loss_v < first, f"LwF training loss falls ({head})")
+        for k, n in per_step.items():
+            need(counts[k] == 13 * n, f"{k} launches == steps x {n} ({head})")
+        need(all(counts[k] == 0 for k in loss_kernels if k not in loss),
+             f"no other loss kernel ({head})")
+    counts_ka, ips_ka, peak_ka = lwf_routes["train.packed_head_ce=false"]
+    counts_kb, ips_kb, peak_kb = lwf_routes["train.fused_head_ce=false"]
+    print(f"  beside phase 5l's LwF step on the packed KD head: {ips_l:.2f} img/s, peak "
+          f"{peak_l:.0f} MiB")
+    for head in ("train.packed_head_ce=false", "train.fused_head_ce=false"):
+        agree_with_cpu(["preset=baseline_1", "model.packed_min_size=0", "data.num_classes=3",
+                        "train.num_tasks=2", "method.methods=lwf", head],
+                       f"LwF step {head} 128² base 32 depth 4 f32", packed_levels=3)
+    # 5k-c: baseline_2's model with LwF as users set it (UNet-64, 256², 21
+    # classes, f32, the device cache; fused_head_ce=auto resolves off: CE
+    # #3/#4 and KD #13/#14), cut only to the 2 tasks LwF needs
+    report_kc = data_path_train("5k-c baseline_2 with LwF, 2 tasks",
+                                ["preset=baseline_2", "method.methods=lwf",
+                                 "train.num_tasks=2"])[0]
+    # 5k-d: baseline_1 with LwF (128² < packed_min_size: the KD head on NHWC
+    # features), train() on the card against train() on the CPU
+    lwf_card_vs_cpu(["preset=baseline_1", "data.num_classes=5", "train.num_tasks=2",
+                     "method.methods=lwf", "data.train_images_per_task=16",
+                     "data.val_images_per_task=8"])
+
     print("[5m] the methods step: baseline_5 on one card (EWC, LwF on the packed KD head, "
           "device-resident replay)")
     b5 = ["preset=baseline_5", "data.batch_size=8", "method.replay_batch=1", "train.remat=false",
@@ -2265,6 +2591,26 @@ def main() -> int:
               f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library {lib_txt}, bound "
               f"{entry['bound_ms']:.4f} by {entry['bound_by']}); launches {launches} in phase "
               f"{'5l' if 'kd' in kernel else '5h'}")
+    for kernel, (source, replaces) in KD_HEAD_KERNELS.items():
+        times = bn_times(kernel, kdh_full)
+        entry = kernel_entry(kernel, (2097152, 32, 19), source, replaces, counts_ka[kernel],
+                             kdh_errs[kernel], times, bn_bytes_ops(kernel, kdh_full))
+        kernels.append(entry)
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms (synchronised per launch "
+              f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library "
+              f"{entry['library_ms']:.4f} (head and CE only), bound {entry['bound_ms']:.4f} by "
+              f"{entry['bound_by']}); launches {entry['launches']} in phase 5k-a")
+    for kernel, (source, replaces) in KD_KERNELS.items():
+        times = kd_times(kernel, kdl_full)
+        entry = json_entry(kd_name(kernel, kdl_full), source, replaces, counts_kb[kernel],
+                           kdl_errs[kernel], times, kd_bytes_ops(kernel, kdl_full))
+        kernels.append(entry)
+        lib_txt = "—" if entry["library_ms"] is None else \
+            f"{entry['library_ms']:.4f} (F.kl_div of the log-softmaxes)"
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms (synchronised per launch "
+              f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library {lib_txt}, bound "
+              f"{entry['bound_ms']:.4f} by {entry['bound_by']}); launches {entry['launches']} "
+              f"in phase 5k-b")
     for kernel in ("ewc_penalty", "ewc_grad", "ewc_sq_acc"):
         times = methods_times(kernel, n=n5)
         # the Fisher pass's launches (phase 5m's set-up), the others' of its steps
@@ -2313,7 +2659,10 @@ def main() -> int:
     print(f"  images/s: baseline_1 train() {b1_ips}, baseline_1 unfused "
           f"{b1u_ips:.2f}, 512² bf16 fused {ips_f:.2f}, unfused {ips_u:.2f}; packed "
           f"train {ips_t:.2f}, unfused {ips_tu:.2f}; headline {ips_h:.2f} (peak "
-          f"{peak_h:.0f} MiB), LwF {ips_l:.2f} (peak {peak_l:.0f} MiB), baseline_5 methods step "
+          f"{peak_h:.0f} MiB), LwF {ips_l:.2f} (peak {peak_l:.0f} MiB), LwF off the packed head "
+          f"(5k) {ips_ka:.2f} / {ips_kb:.2f} (peak {peak_ka:.0f} / {peak_kb:.0f} MiB), "
+          f"baseline_2 with LwF train() {report_kc.get('images_per_sec_per_chip')}, "
+          f"baseline_5 methods step "
           f"{ips_m:.2f} (peak {peak_m:.0f} MiB)")
     print("  train() images/s as the presets ship (phase 5d): " + ", ".join(
         f"{name} {r[0].get('images_per_sec_per_chip')}" for name, r in runs_d.items())

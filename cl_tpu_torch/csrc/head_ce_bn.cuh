@@ -2,11 +2,14 @@
 // body's RAW last-level output, forward and backward, alone and with the
 // LwF distillation term of a frozen teacher in the same pass: the kernel
 // templates (KD = false in head_ce_bn.cu, true in head_ce_kd_bn.cu, two
-// translation units so that nvcc builds them in parallel).
+// translation units so that nvcc builds them in parallel). With BN = false
+// the prologue is compiled out and the kernels take NHWC features x as
+// they are: the KD head on plain features (head_ce_kd.cu).
 //
 // Replaces the TPU kernels cl_tpu/pallas/head_ce.py::_pkbn_fwd_kernel
 // (launched at head_ce.py:571), ::_pkbn_bwd_kernel (:601),
-// ::_pkbn_kd_fwd_kernel (:997) and ::_pkbn_kd_bwd_kernel (:1036). The TPU
+// ::_pkbn_kd_fwd_kernel (:997) and ::_pkbn_kd_bwd_kernel (:1036), and with
+// BN = false ::_kd_fwd_kernel (:784) and ::_kd_bwd_kernel (:815). The TPU
 // kernels read a lane-packed [n, p*Cin] view and transpose it per tile to
 // class-major; here y is NHWC [P, Cin] as it lies (the packed view is a
 // reshape of the same memory), one pixel per thread, so per-lane vectors
@@ -14,7 +17,8 @@
 //
 //   prologue:  t = y*s + sh in f32 (product and sum each rounded, as the
 //              plain version and bn_relu do: no FMA), z = round(max(t, 0))
-//              to y's type before the logit product (head_ce.py:491-493)
+//              to y's type before the logit product (head_ce.py:491-493);
+//              without BN, z = y
 //   logits:    zW^T + b, W rounded to y's type, f32 sums, invalid -> -1e9
 //   forward:   sum_p pix (logsumexp - picked)
 //   backward:  g = gce*pix*(softmax - onehot), masked by valid; with KD
@@ -22,7 +26,8 @@
 //              (:942-944); gc = round(g); dz = round(gc W) (:539-541);
 //              du = [t > 0] dz with t the f32 pre-activation; dx =
 //              round(du*s); dscale = sum du*y, dshift = sum du; dW = sum
-//              gc (x) z; db = sum g (f32, unrounded)
+//              gc (x) z; db = sum g (f32, unrounded); without BN, dx = dz
+//              (_kd_bwd_kernel, :733-748)
 //   KD:        the teacher's zt = round(max(yt*ts + tsh, 0)) Wt^T + bt is
 //              NOT masked by valid; both logit sets are masked to old_valid
 //              with -1e9 and divided by T; kd = T^2 sum_p pix sum_c p_old
@@ -46,7 +51,14 @@
 // one pass sums dW/db (register-tiled, as head_ce.cu) and another the
 // per-channel du*y and du (each thread one channel over a stripe of rows).
 // The partial row of a block holds C*(Cin+1) + 2*Cin floats: dW and db,
-// then dscale and dshift.
+// then dscale and dshift (C*(Cin+1) without BN).
+//
+// Why the KD head on NHWC features (#9/#10) is this template with the
+// prologue compiled out, and not head_ce.cu plus a teacher tile: the
+// teacher's tile, its head, old_valid and the KD terms of one pixel
+// (kd_pixel) exist here already and are held against #11/#12's plain
+// versions; without the prologue, staging is a copy and dx = round(gc W),
+// which is head_ce.cu's backward line for line.
 
 #pragma once
 
@@ -65,10 +77,11 @@ struct BnLayout {
 };
 
 // Shared memory: the student's z tile; with KD the teacher's z tile; for
-// the backward the raw y tile, the dx tile, du and g of the tile; then W
-// (and Wt), the vectors b, valid, bt, old_valid [C] and s, sh, ts, tsh
-// [Cin], and the block-sum scratch.
-__host__ __device__ inline BnLayout bn_layout(int Cin, int C, int elem, bool kd, bool bwd) {
+// the backward the raw y tile (BN), the dx tile, du (BN) and g of the tile;
+// then W (and Wt), the vectors b, valid, bt, old_valid [C] and s, sh, ts,
+// tsh [Cin], and the block-sum scratch.
+__host__ __device__ inline BnLayout bn_layout(int Cin, int C, int elem, bool kd, bool bwd,
+                                              bool bn = true) {
   BnLayout L;
   L.row_bytes = Cin * elem;
   L.chunks = L.row_bytes / 16;
@@ -80,9 +93,9 @@ __host__ __device__ inline BnLayout bn_layout(int Cin, int C, int elem, bool kd,
   L.xs_off = 0;
   L.zt_off = L.xs_off + tile;
   L.ys_off = L.zt_off + (kd ? tile : 0);
-  L.ds_off = L.ys_off + (bwd ? tile : 0);
+  L.ds_off = L.ys_off + (bwd && bn ? tile : 0);
   L.us_off = L.ds_off + (bwd ? tile : 0);
-  L.gs_off = L.us_off + (bwd ? (size_t)kTile * L.us_stride * 4 : 0);
+  L.gs_off = L.us_off + (bwd && bn ? (size_t)kTile * L.us_stride * 4 : 0);
   L.w_off = L.gs_off + (bwd ? (size_t)kTile * L.gs_stride * 4 : 0);
   L.wt_off = L.w_off + (size_t)C * Cin * 4;
   L.vec_off = L.wt_off + (kd ? (size_t)C * Cin * 4 : 0);
@@ -95,9 +108,10 @@ struct BnArgs {  // the operands, as the C interface receives them
   const void *y, *s, *sh, *w, *b, *yt, *ts, *tsh, *tw, *tb, *lbl, *valid, *ovalid;
 };
 
-// Stage one tile of raw y with the BN·ReLU prologue: z rows into zs, and
-// the raw rows into ys unless it is null. Rows past `rows` are zero y.
-template <typename T>
+// Stage one tile of raw y with the BN·ReLU prologue (without BN, z = y):
+// z rows into zs, and the raw rows into ys unless it is null. Rows past
+// `rows` are zero y.
+template <typename T, bool BN = true>
 __device__ __forceinline__ void stage_bn(const T* __restrict__ y, int64_t base, int rows,
                                          const BnLayout& L, const float* ss, const float* shs,
                                          unsigned char* zs, unsigned char* ys) {
@@ -108,6 +122,10 @@ __device__ __forceinline__ void stage_bn(const T* __restrict__ y, int64_t base, 
     uint4 v = make_uint4(0, 0, 0, 0);
     if (r < rows) v = *reinterpret_cast<const uint4*>(src + (int64_t)r * L.row_bytes + c16 * 16);
     if (ys != nullptr) *reinterpret_cast<uint4*>(ys + r * L.xs_stride + c16 * 16) = v;
+    if (!BN) {
+      *reinterpret_cast<uint4*>(zs + r * L.xs_stride + c16 * 16) = v;
+      continue;
+    }
     uint4 zv;
     const T* yv = reinterpret_cast<const T*>(&v);
     T* zo = reinterpret_cast<T*>(&zv);
@@ -181,12 +199,12 @@ __device__ __forceinline__ float kd_pixel(const float (&z)[CMAX], float (&zt)[CM
   return kl;
 }
 
-template <typename T, int CMAX, bool KD>
+template <typename T, int CMAX, bool KD, bool BN>
 __global__ void __launch_bounds__(kTile)
 head_ce_bn_fwd_kernel(BnArgs a, float temp, float* __restrict__ partials, int P, int Cin, int C,
                       int ignore_index) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const BnLayout L = bn_layout(Cin, C, sizeof(T), KD, false);
+  const BnLayout L = bn_layout(Cin, C, sizeof(T), KD, false, BN);
   unsigned char* xs = smem + L.xs_off;
   unsigned char* zts = smem + L.zt_off;
   float* ws = reinterpret_cast<float*>(smem + L.w_off);
@@ -200,11 +218,12 @@ head_ce_bn_fwd_kernel(BnArgs a, float temp, float* __restrict__ partials, int P,
   const int* labels = static_cast<const int*>(a.lbl);
   load_head<T>(static_cast<const float*>(a.w), static_cast<const float*>(a.b),
                static_cast<const float*>(a.valid), Cin, C, ws, bs, vs);
-  load_vec2(static_cast<const float*>(a.s), static_cast<const float*>(a.sh), Cin, ss, shs);
+  if (BN) load_vec2(static_cast<const float*>(a.s), static_cast<const float*>(a.sh), Cin, ss, shs);
   if (KD) {
     load_head<T>(static_cast<const float*>(a.tw), static_cast<const float*>(a.tb),
                  static_cast<const float*>(a.ovalid), Cin, C, wts, bts, ovs);
-    load_vec2(static_cast<const float*>(a.ts), static_cast<const float*>(a.tsh), Cin, tss, tshs);
+    if (BN)
+      load_vec2(static_cast<const float*>(a.ts), static_cast<const float*>(a.tsh), Cin, tss, tshs);
   }
 
   const int ntiles = (P + kTile - 1) / kTile;
@@ -213,8 +232,8 @@ head_ce_bn_fwd_kernel(BnArgs a, float temp, float* __restrict__ partials, int P,
     const int64_t base = (int64_t)tile * kTile;
     const int rows = min(kTile, (int)(P - base));
     __syncthreads();  // previous tile's readers are done (and the head is loaded)
-    stage_bn<T>(y, base, rows, L, ss, shs, xs, nullptr);
-    if (KD) stage_bn<T>(yt, base, rows, L, tss, tshs, zts, nullptr);
+    stage_bn<T, BN>(y, base, rows, L, ss, shs, xs, nullptr);
+    if (KD) stage_bn<T, BN>(yt, base, rows, L, tss, tshs, zts, nullptr);
     __syncthreads();
     const int r = threadIdx.x;
     if (r < rows) {
@@ -249,7 +268,7 @@ head_ce_bn_fwd_kernel(BnArgs a, float temp, float* __restrict__ partials, int P,
   }
 }
 
-template <typename T, int CMAX, bool KD>
+template <typename T, int CMAX, bool KD, bool BN>
 __global__ void __launch_bounds__(kTile)
 head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __restrict__ dx,
                       float* __restrict__ partials, int P, int Cin, int C, int ignore_index) {
@@ -259,7 +278,7 @@ head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __
   // at most kRc of them, and db of those classes beside them.
   constexpr int kRc = (CMAX + 7) / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  const BnLayout L = bn_layout(Cin, C, sizeof(T), KD, true);
+  const BnLayout L = bn_layout(Cin, C, sizeof(T), KD, true, BN);
   unsigned char* xs = smem + L.xs_off;
   unsigned char* zts = smem + L.zt_off;
   unsigned char* ys = smem + L.ys_off;
@@ -277,11 +296,12 @@ head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __
   const int* labels = static_cast<const int*>(a.lbl);
   load_head<T>(static_cast<const float*>(a.w), static_cast<const float*>(a.b),
                static_cast<const float*>(a.valid), Cin, C, ws, bs, vs);
-  load_vec2(static_cast<const float*>(a.s), static_cast<const float*>(a.sh), Cin, ss, shs);
+  if (BN) load_vec2(static_cast<const float*>(a.s), static_cast<const float*>(a.sh), Cin, ss, shs);
   if (KD) {
     load_head<T>(static_cast<const float*>(a.tw), static_cast<const float*>(a.tb),
                  static_cast<const float*>(a.ovalid), Cin, C, wts, bts, ovs);
-    load_vec2(static_cast<const float*>(a.ts), static_cast<const float*>(a.tsh), Cin, tss, tshs);
+    if (BN)
+      load_vec2(static_cast<const float*>(a.ts), static_cast<const float*>(a.tsh), Cin, tss, tshs);
   }
   const float gce = cot[0];
   const float gkd = KD ? cot[1] : 0.f;
@@ -307,8 +327,8 @@ head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __
     const int64_t base = (int64_t)tile * kTile;
     const int rows = min(kTile, (int)(P - base));
     __syncthreads();
-    stage_bn<T>(y, base, rows, L, ss, shs, xs, ys);
-    if (KD) stage_bn<T>(yt, base, rows, L, tss, tshs, zts, nullptr);
+    stage_bn<T, BN>(y, base, rows, L, ss, shs, xs, BN ? ys : nullptr);
+    if (KD) stage_bn<T, BN>(yt, base, rows, L, tss, tshs, zts, nullptr);
     __syncthreads();
     const int r = threadIdx.x;
     if (r < rows) {
@@ -344,7 +364,7 @@ head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __
         }
       }
       // dz = round(round(g) W); du = [t > 0] dz; dx = round(du s), into
-      // the dx tile; du into its f32 tile
+      // the dx tile; du into its f32 tile (without BN, dx = dz)
 #pragma unroll
       for (int c = 0; c < CMAX; ++c)
         if (c < C) g[c] = round_to<T>(g[c]);
@@ -352,7 +372,8 @@ head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __
       unsigned char* drow = ds + r * L.xs_stride;
       float* urow = us + r * L.us_stride;
       for (int q = 0; q < L.chunks; ++q) {
-        const uint4 yraw = *reinterpret_cast<const uint4*>(yrow + q * 16);
+        uint4 yraw = make_uint4(0, 0, 0, 0);
+        if (BN) yraw = *reinterpret_cast<const uint4*>(yrow + q * 16);
         const T* yv = reinterpret_cast<const T*>(&yraw);
         uint4 oraw;
         T* out = reinterpret_cast<T*>(&oraw);
@@ -372,6 +393,10 @@ head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __
           }
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
+            if (!BN) {
+              out[4 * j4 + j] = from_f32<T>(d[j]);
+              continue;
+            }
             const int k = k0 + 4 * j4 + j;
             const float t = __fadd_rn(__fmul_rn(to_f32(yv[4 * j4 + j]), ss[k]), shs[k]);
             const float du = t > 0.f ? round_to<T>(d[j]) : 0.f;
@@ -404,7 +429,7 @@ head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __
       }
     }
     // dscale[k] += sum_r du[r][k] y[r][k]; dshift[k] += sum_r du[r][k]
-    if (sg < n_grp) {
+    if (BN && sg < n_grp) {
       for (int rr = sg; rr < rows; rr += n_grp) {
         const float du = us[rr * L.us_stride + sk];
         const float yf = to_f32(reinterpret_cast<const T*>(ys + rr * L.xs_stride)[sk]);
@@ -419,7 +444,7 @@ head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __
           *reinterpret_cast<const uint4*>(ds + rr * L.xs_stride + c16 * 16);
     }
   }
-  const int n_ent = C * (Cin + 1) + 2 * Cin;
+  const int n_ent = C * (Cin + 1) + (BN ? 2 * Cin : 0);
   float* part = partials + (int64_t)blockIdx.x * n_ent;
 #pragma unroll
   for (int i = 0; i < kRc; ++i) {
@@ -430,6 +455,7 @@ head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __
       if (kg == 0) prow[Cin] = dbacc[i];
     }
   }
+  if (!BN) return;
   // the row stripes of dscale/dshift, combined in a fixed order
   if (sg < n_grp) {
     red[(sg * 2 + 0) * Cin + sk] = dsc;
@@ -446,24 +472,26 @@ head_ce_bn_bwd_kernel(BnArgs a, float temp, const float* __restrict__ cot, T* __
 
 // The kernel instances for C classes: CMAX is the least of 8, 16, 24, 32
 // that holds C (the per-class loops are unrolled to CMAX and predicated).
-template <typename T, bool KD>
-decltype(&head_ce_bn_fwd_kernel<T, 8, KD>) bn_fwd_kernel_for(int C) {
-  return C <= 8 ? head_ce_bn_fwd_kernel<T, 8, KD> : C <= 16 ? head_ce_bn_fwd_kernel<T, 16, KD>
-       : C <= 24 ? head_ce_bn_fwd_kernel<T, 24, KD> : head_ce_bn_fwd_kernel<T, 32, KD>;
+template <typename T, bool KD, bool BN>
+decltype(&head_ce_bn_fwd_kernel<T, 8, KD, BN>) bn_fwd_kernel_for(int C) {
+  return C <= 8 ? head_ce_bn_fwd_kernel<T, 8, KD, BN>
+       : C <= 16 ? head_ce_bn_fwd_kernel<T, 16, KD, BN>
+       : C <= 24 ? head_ce_bn_fwd_kernel<T, 24, KD, BN> : head_ce_bn_fwd_kernel<T, 32, KD, BN>;
 }
 
-template <typename T, bool KD>
-decltype(&head_ce_bn_bwd_kernel<T, 8, KD>) bn_bwd_kernel_for(int C) {
-  return C <= 8 ? head_ce_bn_bwd_kernel<T, 8, KD> : C <= 16 ? head_ce_bn_bwd_kernel<T, 16, KD>
-       : C <= 24 ? head_ce_bn_bwd_kernel<T, 24, KD> : head_ce_bn_bwd_kernel<T, 32, KD>;
+template <typename T, bool KD, bool BN>
+decltype(&head_ce_bn_bwd_kernel<T, 8, KD, BN>) bn_bwd_kernel_for(int C) {
+  return C <= 8 ? head_ce_bn_bwd_kernel<T, 8, KD, BN>
+       : C <= 16 ? head_ce_bn_bwd_kernel<T, 16, KD, BN>
+       : C <= 24 ? head_ce_bn_bwd_kernel<T, 24, KD, BN> : head_ce_bn_bwd_kernel<T, 32, KD, BN>;
 }
 
-template <typename T, bool KD>
+template <typename T, bool KD, bool BN = true>
 int launch_bn_fwd(const BnArgs& a, float temp, void* partials, void* out_ce, void* out_kd, int P,
                   int Cin, int C, int ignore_index, int max_blocks, cudaStream_t st) {
-  const BnLayout L = bn_layout(Cin, C, sizeof(T), KD, false);
+  const BnLayout L = bn_layout(Cin, C, sizeof(T), KD, false, BN);
   const int nblk = head_blocks(P, max_blocks);
-  auto kern = bn_fwd_kernel_for<T, KD>(C);
+  auto kern = bn_fwd_kernel_for<T, KD, BN>(C);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
@@ -480,13 +508,13 @@ int launch_bn_fwd(const BnArgs& a, float temp, void* partials, void* out_ce, voi
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool KD>
+template <typename T, bool KD, bool BN = true>
 int launch_bn_bwd(const BnArgs& a, float temp, const void* cot, void* dx, void* partials,
                   void* out, int P, int Cin, int C, int ignore_index, int max_blocks,
                   cudaStream_t st) {
-  const BnLayout L = bn_layout(Cin, C, sizeof(T), KD, true);
+  const BnLayout L = bn_layout(Cin, C, sizeof(T), KD, true, BN);
   const int nblk = head_blocks(P, max_blocks);
-  auto kern = bn_bwd_kernel_for<T, KD>(C);
+  auto kern = bn_bwd_kernel_for<T, KD, BN>(C);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
@@ -494,7 +522,7 @@ int launch_bn_bwd(const BnArgs& a, float temp, const void* cot, void* dx, void* 
                                      static_cast<float*>(partials), P, Cin, C, ignore_index);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n_ent = C * (Cin + 1) + 2 * Cin;
+  const int n_ent = C * (Cin + 1) + (BN ? 2 * Cin : 0);
   reduce_rows_kernel<<<n_ent, kReduceThreads, 0, st>>>(static_cast<const float*>(partials), nblk,
                                                        n_ent, n_ent, static_cast<float*>(out));
   return (int)cudaGetLastError();

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from cl_tpu_torch.data import device_cache, pipeline
+from cl_tpu_torch.devices import resolve_device
 from cl_tpu_torch.kernels import replay_gather
 
 
@@ -43,10 +44,10 @@ class EpochPlan(NamedTuple):
 
 def build_plan(n: int, *, batch_size: int, epoch: int, seed: int, shuffle: bool,
                flip_prob: float, pad_final: bool = False,
-               device: torch.device | str = "cpu") -> EpochPlan:
-    """One epoch's (indices, flips[, pads]) as [S, B] tensors on ``device``,
-    copied from pinned memory without waiting for the card."""
-    device = torch.device(device)
+               device: torch.device | str | None = None) -> EpochPlan:
+    """One epoch's (indices, flips[, pads]) as [S, B] tensors on ``device``
+    (None: the card), copied from pinned memory without waiting for it."""
+    device = resolve_device(device)
     rows = list(pipeline.epoch_plan(
         n, batch_size=batch_size, epoch=epoch, seed=seed, shuffle=shuffle,
         flip_prob=flip_prob, pad_final=pad_final))
@@ -68,15 +69,15 @@ def build_plan(n: int, *, batch_size: int, epoch: int, seed: int, shuffle: bool,
 
 
 def build_replay_plan(buf, *, steps: int, k: int, batch_size: int, flip_prob: float,
-                      device: torch.device | str = "cpu"):
+                      device: torch.device | str | None = None):
     """The epoch's replay draws, in the per-step ``RandomState`` call order
     of ``ReplayBuffer.sample`` / ``DeviceReplayBuffer.sample_indices`` +
     ``sample_flips`` (buffer mode), or of the duplicate-fresh-rows draw
     (empty buffer, task 0).
 
     Returns ("batch", dup_idx [S, k], None) or ("buffer", idx [S, k],
-    flips [S, k]), int32 and bool on ``device``."""
-    device = torch.device(device)
+    flips [S, k]), int32 and bool on ``device`` (None: the card)."""
+    device = resolve_device(device)
     put = replay_gather.to_device
     if len(buf) == 0:
         dup = (np.stack([buf.rng.randint(0, batch_size, size=k) for _ in range(steps)])
@@ -93,12 +94,13 @@ def build_replay_plan(buf, *, steps: int, k: int, batch_size: int, flip_prob: fl
             put(np.stack(flips), device))
 
 
-def replay_arrays(buf, device: torch.device | str = "cpu"):
+def replay_arrays(buf, device: torch.device | str | None = None):
     """(images, masks) on the device to gather replay rows from: the
     device-resident buffer's own tensors, or an upload of the host buffer,
     zero-padded to ``buf.capacity`` rows (as in ``cl_tpu``, where a
     constant shape spares a recompile; the padding rows are never sampled,
-    the plan draws from ``len(buf)``), once per task."""
+    the plan draws from ``len(buf)``), once per task. ``device`` None: the
+    card."""
     if not isinstance(getattr(buf, "images", None), list):  # DeviceReplayBuffer
         return buf.images, buf.masks
     imgs, msks = np.stack(buf.images), np.stack(buf.masks)
@@ -106,7 +108,7 @@ def replay_arrays(buf, device: torch.device | str = "cpu"):
     if pad > 0:
         imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
         msks = np.concatenate([msks, np.zeros((pad,) + msks.shape[1:], msks.dtype)])
-    return tuple(device_cache.upload((imgs, msks), torch.device(device)))
+    return tuple(device_cache.upload((imgs, msks), resolve_device(device)))
 
 
 def gather_batch_row(images, masks, idx, flip, *, pad=None,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from cl_tpu_torch.data import pipeline
+from cl_tpu_torch.devices import resolve_device
 
 
 def _decode(dataset, chunk: int) -> tuple[np.ndarray, np.ndarray]:
@@ -55,11 +56,13 @@ def upload(arrays, device: torch.device) -> list[torch.Tensor]:
 
 class DeviceDatasetCache:
     """``dataset`` decoded on the host (chunked) into two tensors on
-    ``device``: ``images`` uint8 [N, S, S, 3] and ``masks`` uint8 [N, S, S]."""
+    ``device`` (None: the card): ``images`` uint8 [N, S, S, 3] and ``masks``
+    uint8 [N, S, S]."""
 
-    def __init__(self, dataset, device: torch.device | str = "cpu", *, chunk: int = 32):
+    def __init__(self, dataset, device: torch.device | str | None = None, *,
+                 chunk: int = 32):
         self.n = len(dataset)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.images, self.masks = upload(_decode(dataset, chunk), self.device)
 
     def nbytes(self) -> int:

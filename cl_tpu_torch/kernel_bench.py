@@ -2,13 +2,15 @@
 
     python -m cl_tpu_torch.kernel_bench [--reps N]
 
-Runs the head+CE and CE kernels forward and backward on seeded operands
-on the CUDA card, at the shapes of the baseline_1 step (131,072 pixels,
-32 channels, 2 classes, f32) and of the 512² full-width step (2,097,152
-pixels, 32 channels, 19 classes, bf16; also at 8 classes), and prints for
-each case the mean device time of every CUDA kernel it launched and a
-SHA-256 of its outputs (loss, dx, dW, db / dz). Run from two checkouts,
-the hashes tell whether two versions of a kernel give the same bits.
+Runs the head+CE and CE kernels and their LwF forms (the KD head on NHWC
+features, #9/#10, and the KD on logits, #13/#14) forward and backward on
+seeded operands on the CUDA card, at the shapes of the baseline_1 step
+(131,072 pixels, 32 channels, 2 classes, f32) and of the 512² full-width
+step (2,097,152 pixels, 32 channels, 19 classes, bf16; also at 8
+classes), and prints for each case the mean device time of every CUDA
+kernel it launched and a SHA-256 of its outputs (loss, dx, dW, db / dz;
+the KD forms' KD sum too). Run from two checkouts, the hashes tell
+whether two versions of a kernel give the same bits.
 """
 
 from __future__ import annotations
@@ -24,12 +26,16 @@ CASES = (  # kind, pixels, Cin, classes, dtype
     ("head_ce", 2097152, 32, 8, torch.bfloat16),
     ("ce", 131072, 0, 2, torch.float32),
     ("ce", 2097152, 0, 19, torch.bfloat16),
+    ("head_ce_kd", 2097152, 32, 19, torch.bfloat16),
+    ("kd", 2097152, 0, 19, torch.bfloat16),
 )
+LWF_T = 2.0  # method.lwf_temperature's default
 
 
 def operands(kind, P, cin, C, dtype, seed):
     """Seeded operands on the card: ~10% ignore pixels, the last class
-    masked where there are more than two."""
+    masked where there are more than two. The KD forms' operands
+    (``kd_operands``) extend these."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     valid = torch.ones(C, device=dev)
@@ -49,10 +55,38 @@ def operands(kind, P, cin, C, dtype, seed):
     return (z, labels, valid), scale
 
 
+def kd_operands(kind, P, cin, C, dtype, seed):
+    """The KD forms' operands: the student's of ``operands`` (the logits
+    route's z as the student's logits), a teacher of its own (features and
+    head, or logits), the first half of the classes old (at least two: over
+    one class the KD is 0); the scale 1/n."""
+    base_kind = "head_ce" if kind == "head_ce_kd" else "ce"
+    ops, scale = operands(base_kind, P, cin, C, dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    old_valid = torch.zeros(C, device="cuda")
+    old_valid[:max(2, C // 2)] = 1.0
+    if kind == "head_ce_kd":
+        x, w, b, labels, valid = ops
+        xt = torch.randn(P, cin, generator=gen, device="cuda").to(dtype)
+        tw = torch.randn(C, cin, generator=gen, device="cuda") * 0.2
+        tb = torch.randn(C, generator=gen, device="cuda") * 0.1
+        return (x, w, b, xt, tw, tb, labels, valid, old_valid), scale
+    z, labels, _ = ops
+    old = (torch.randn(P, C, generator=gen, device="cuda") * 2).to(dtype)
+    return (z, old, old_valid, labels), scale
+
+
 def run(kind, args, scale):
     """One forward and one backward launch; returns the outputs."""
-    from cl_tpu_torch.kernels import ce_loss, head_ce
+    from cl_tpu_torch.kernels import ce_loss, head_ce, kd_loss
 
+    if kind == "head_ce_kd":
+        s = scale.reshape(())
+        return (*head_ce.launch_kd_fwd(*args, LWF_T),
+                *head_ce.launch_kd_bwd(*args, s, s, LWF_T))
+    if kind == "kd":
+        return (kd_loss.launch_fwd(*args, LWF_T),
+                kd_loss.launch_bwd(*args, scale / LWF_T, LWF_T))
     mod = head_ce if kind == "head_ce" else ce_loss
     grads = mod.launch_bwd(*args, scale)
     return (mod.launch_fwd(*args), *(grads if isinstance(grads, tuple) else (grads,)))
@@ -79,7 +113,8 @@ def main(argv: list[str] | None = None) -> int:
     build.library()
     print(torch.cuda.get_device_name(0))
     for i, (kind, P, cin, C, dtype) in enumerate(CASES):
-        ops, scale = operands(kind, P, cin, C, dtype, seed=i + 1)
+        make = kd_operands if kind in ("head_ce_kd", "kd") else operands
+        ops, scale = make(kind, P, cin, C, dtype, seed=i + 1)
         outs = run(kind, ops, scale)
         for _ in range(3):
             run(kind, ops, scale)
@@ -92,7 +127,7 @@ def main(argv: list[str] | None = None) -> int:
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and "kernel" in e.name:
                 times.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        shape = f"P={P},Cin={cin},C={C}" if kind == "head_ce" else f"P={P},C={C}"
+        shape = f"P={P},Cin={cin},C={C}" if cin else f"P={P},C={C}"
         print(f"{kind}[{shape},{str(dtype).split('.')[-1]}] outputs {digest(outs)}")
         for name, us in sorted(times.items()):
             print(f"  {sum(us) / len(us) / 1e3:.4f} ms mean of {len(us):3d}  {name[:80]}")

@@ -39,8 +39,12 @@ SIGNATURES = {
     "cltorch_head_ce_bn_bwd": [P] * 17 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_kd_bn_fwd": [P] * 16 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_kd_bn_bwd": [P] * 17 + [I] * 5 + [F, I, P],
+    "cltorch_head_ce_kd_fwd": [P] * 16 + [I] * 5 + [F, I, P],
+    "cltorch_head_ce_kd_bwd": [P] * 17 + [I] * 5 + [F, I, P],
     "cltorch_ce_fwd": [P, P, P, P, P, I, I, I, I, I, P],
     "cltorch_ce_bwd": [P, P, P, P, P, I, I, I, I, I, P],
+    "cltorch_kd_fwd": [P] * 6 + [I] * 4 + [F, I, P],
+    "cltorch_kd_bwd": [P] * 6 + [I] * 4 + [F, I, P],
     "cltorch_conv3x3_bn_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "cltorch_bn_relu_fwd": [P, P, P, P, L, I, I, P],
     "cltorch_add_stats_fwd": [P, P, P, P, P, L, I, I, I, P],

@@ -1,10 +1,13 @@
-"""Fused 1×1-head + masked softmax cross-entropy (``csrc/head_ce.cu``), and
-its forms on the packed body's raw output with the BN·ReLU prologue, alone
-(``csrc/head_ce_bn.cu``) and with the LwF distillation term
-(``csrc/head_ce_kd_bn.cu``; both from ``csrc/head_ce_bn.cuh``).
+"""Fused 1×1-head + masked softmax cross-entropy (``csrc/head_ce.cu``), its
+form with the LwF distillation term of a frozen teacher on the same NHWC
+features (``csrc/head_ce_kd.cu``), and its forms on the packed body's raw
+output with the BN·ReLU prologue, alone (``csrc/head_ce_bn.cu``) and with
+the LwF term (``csrc/head_ce_kd_bn.cu``; the last three from
+``csrc/head_ce_bn.cuh``).
 
 The counterparts of ``cl_tpu.pallas.head_ce.head_cross_entropy``,
-``head_cross_entropy_packed_bn`` and ``head_cross_entropy_kd_packed_bn``:
+``head_cross_entropy_kd``, ``head_cross_entropy_packed_bn`` and
+``head_cross_entropy_kd_packed_bn``:
 the train loss computes the head's logits per pixel inside the kernel, so
 the [B, H, W, C] logits (the teacher's too) never reach device memory, and
 the backward recomputes them and emits every gradient in one pass.
@@ -33,8 +36,9 @@ MAX_CIN = 64
 # run in the same order on every card; the rows of the partials buffer.
 N_BLOCKS = 1024
 
-LAUNCHES = {"head_ce_fwd": 0, "head_ce_bwd": 0, "head_ce_bn_fwd": 0,
-            "head_ce_bn_bwd": 0, "head_ce_kd_bn_fwd": 0, "head_ce_kd_bn_bwd": 0}
+LAUNCHES = {"head_ce_fwd": 0, "head_ce_bwd": 0, "head_ce_kd_fwd": 0, "head_ce_kd_bwd": 0,
+            "head_ce_bn_fwd": 0, "head_ce_bn_bwd": 0, "head_ce_kd_bn_fwd": 0,
+            "head_ce_kd_bn_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +221,45 @@ def head_cross_entropy(features, head_kernel, head_bias, labels,
 
 
 # ---------------------------------------------------------------------------
+# KD on NHWC features (#9/#10): plain versions
+# ---------------------------------------------------------------------------
+
+
+def _kd_g(logits, tlogits, old_valid, temperature):
+    """d(kd_pix)/dz before the pix factor: T·(p_new − p_old) on the old
+    classes, 0 elsewhere (``_kd_grad_tile``)."""
+    ov = old_valid > 0
+    t = temperature
+    p_new = torch.softmax(torch.where(ov, logits, NEG_INF) / t, dim=1)
+    p_old = torch.softmax(torch.where(ov, tlogits, NEG_INF) / t, dim=1)
+    return torch.where(ov, t * (p_new - p_old), 0.0)
+
+
+def head_ce_kd_total_plain(x, w, b, xt, tw, tb, labels, valid, old_valid, temperature,
+                           ignore_index=255):
+    """(Σ masked NLL, T²·Σ pix·KL) of the student's head on x (masked by
+    valid) and the teacher's on xt (not masked by valid): ``_kd_fwd_kernel``
+    (``head_ce.py:696-717``)."""
+    z = _logits_plain(x, w, b, valid)
+    zt = _logits_plain(xt, tw, tb, None)
+    kd = losses.kd_sum(z, zt, old_valid > 0, labels != ignore_index,
+                       temperature=temperature)
+    return _nll_total(z, labels, ignore_index), kd
+
+
+def head_ce_kd_grads_plain(x, w, b, xt, tw, tb, labels, valid, old_valid, gce, gkd,
+                           temperature, ignore_index=255):
+    """(dx in x's dtype, dW, db) of gce·Σ NLL + gkd·Σ KD: the KD term joins
+    g before g is rounded (``_kd_bwd_kernel``, ``head_ce.py:720-760``)."""
+    z = _logits_plain(x, w, b, valid)
+    zt = _logits_plain(xt, tw, tb, None)
+    pix = (labels != ignore_index).float()
+    g = _ce_g(z, labels, valid, gce, ignore_index)
+    g = g + gkd * (_kd_g(z, zt, old_valid, temperature) * pix[:, None])
+    return _grads_from_g(x, w, g)
+
+
+# ---------------------------------------------------------------------------
 # BN·ReLU prologue (#7/#8) and KD (#11/#12): plain versions
 # ---------------------------------------------------------------------------
 
@@ -239,60 +282,40 @@ def head_ce_bn_grads_plain(y, scale, shift, w, b, labels, valid, gscale,
     return dy, dscale, dshift, dw, db
 
 
-def _kd_logits_plain(y, scale, shift, w, b, yt, tscale, tshift, tw, tb, valid):
-    """(z, student logits masked by valid, teacher logits unmasked)."""
-    z = bn_relu_plain(y, scale, shift)
-    zt = bn_relu_plain(yt, tscale, tshift)
-    return z, _logits_plain(z, w, b, valid), _logits_plain(zt, tw, tb, None)
-
-
-def _kd_g(logits, tlogits, old_valid, temperature):
-    """d(kd_pix)/dz before the pix factor: T·(p_new − p_old) on the old
-    classes, 0 elsewhere (``_kd_grad_tile``)."""
-    ov = old_valid > 0
-    t = temperature
-    p_new = torch.softmax(torch.where(ov, logits, NEG_INF) / t, dim=1)
-    p_old = torch.softmax(torch.where(ov, tlogits, NEG_INF) / t, dim=1)
-    return torch.where(ov, t * (p_new - p_old), 0.0)
-
-
 def head_ce_kd_bn_total_plain(y, scale, shift, w, b, yt, tscale, tshift, tw, tb,
                               labels, valid, old_valid, temperature,
                               ignore_index=255):
     """(Σ masked NLL, T²·Σ pix·KL) of the student's and the teacher's
-    BN·ReLU'd heads (``head_ce.py:873-903``)."""
-    _, z, zt = _kd_logits_plain(y, scale, shift, w, b, yt, tscale, tshift, tw,
-                                tb, valid)
-    kd = losses.kd_sum(z, zt, old_valid > 0, labels != ignore_index,
-                       temperature=temperature)
-    return _nll_total(z, labels, ignore_index), kd
+    BN·ReLU'd heads (``head_ce.py:873-903``): the ``bn_relu`` → KD head
+    composition."""
+    return head_ce_kd_total_plain(bn_relu_plain(y, scale, shift), w, b,
+                                  bn_relu_plain(yt, tscale, tshift), tw, tb, labels,
+                                  valid, old_valid, temperature, ignore_index)
 
 
 def head_ce_kd_bn_grads_plain(y, scale, shift, w, b, yt, tscale, tshift, tw, tb,
                               labels, valid, old_valid, gce, gkd, temperature,
                               ignore_index=255):
-    """(dy, dscale, dshift, dW, db) of gce·Σ NLL + gkd·Σ KD: the KD term
-    joins g before g is rounded (``head_ce.py:906-958``)."""
-    z, logits, tlogits = _kd_logits_plain(y, scale, shift, w, b, yt, tscale,
-                                          tshift, tw, tb, valid)
-    pix = (labels != ignore_index).float()
-    g = _ce_g(logits, labels, valid, gce, ignore_index)
-    g = g + gkd * (_kd_g(logits, tlogits, old_valid, temperature) * pix[:, None])
-    dz, dw, db = _grads_from_g(z, w, g)
+    """(dy, dscale, dshift, dW, db) of gce·Σ NLL + gkd·Σ KD: the KD head's
+    dz, then the BN·ReLU backward (``head_ce.py:906-958``)."""
+    dz, dw, db = head_ce_kd_grads_plain(
+        bn_relu_plain(y, scale, shift), w, b, bn_relu_plain(yt, tscale, tshift), tw, tb,
+        labels, valid, old_valid, gce, gkd, temperature, ignore_index)
     dy, dscale, dshift = bn_relu_bwd_plain(y, dz, scale, shift)
     return dy, dscale, dshift, dw, db
 
 
 # ---------------------------------------------------------------------------
-# BN·ReLU prologue and KD: CUDA launches
+# KD and BN·ReLU prologue: CUDA launches
 # ---------------------------------------------------------------------------
 
 
 def _check_bn(y, scale, shift, w, labels, valid, teacher=None):
-    """Checks of ``_check_operands`` plus the per-channel vectors, and the
-    teacher's operands (yt, ts, tsh, tw, tb, old_valid) where given."""
+    """Checks of ``_check_operands`` plus the per-channel vectors (none
+    without the BN·ReLU prologue: ``scale`` None), and the teacher's
+    operands (yt, ts, tsh, tw, tb, old_valid) where given."""
     P, cin, C = _check_operands(y, w, labels, valid)
-    vecs = [scale, shift]
+    vecs = [] if scale is None else [scale, shift]
     if teacher is not None:
         yt, ts, tsh, tw, tb, ov = teacher
         if yt.shape != y.shape or yt.dtype != y.dtype or not yt.is_contiguous() \
@@ -302,7 +325,8 @@ def _check_bn(y, scale, shift, w, labels, valid, teacher=None):
                              "16-byte aligned")
         if tw.shape != w.shape or tb.shape != (C,):
             raise ValueError("head_ce KD kernel: teacher head must be [C, Cin] and [C]")
-        vecs += [ts, tsh]
+        if scale is not None:
+            vecs += [ts, tsh]
         for t in (tw, tb, ov):
             if t.dtype != torch.float32 or not t.is_contiguous() or t.device != y.device:
                 raise ValueError("head_ce KD kernel: teacher head and old_valid must "
@@ -315,6 +339,17 @@ def _check_bn(y, scale, shift, w, labels, valid, teacher=None):
     return P, cin, C
 
 
+def _entry(scale, teacher):
+    """The C entry's stem: head_ce_bn, head_ce_kd_bn or (no prologue)
+    head_ce_kd."""
+    return ("head_ce_kd" if teacher is not None else "head_ce") + \
+        ("" if scale is None else "_bn")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_bn_fwd(y, scale, shift, w, b, labels, valid, teacher, temperature,
                    ignore_index):
     P, cin, C = _check_bn(y, scale, shift, w, labels, valid, teacher)
@@ -323,40 +358,59 @@ def _launch_bn_fwd(y, scale, shift, w, b, labels, valid, teacher, temperature,
     ce_t = torch.empty((), dtype=torch.float32, device=y.device)
     kd_t = torch.empty((), dtype=torch.float32, device=y.device) if kd else None
     yt, ts, tsh, tw, tb, ov = teacher if kd else (None,) * 6
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = build.library()
-    err = (lib.cltorch_head_ce_kd_bn_fwd if kd else lib.cltorch_head_ce_bn_fwd)(
-        y.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(), b.data_ptr(),
-        ptr(yt), ptr(ts), ptr(tsh), ptr(tw), ptr(tb), labels.data_ptr(),
-        valid.data_ptr(), ptr(ov), partials.data_ptr(), ce_t.data_ptr(), ptr(kd_t),
+    name = _entry(scale, teacher) + "_fwd"
+    err = getattr(build.library(), "cltorch_" + name)(
+        y.data_ptr(), _ptr(scale), _ptr(shift), w.data_ptr(), b.data_ptr(),
+        _ptr(yt), _ptr(ts), _ptr(tsh), _ptr(tw), _ptr(tb), labels.data_ptr(),
+        valid.data_ptr(), _ptr(ov), partials.data_ptr(), ce_t.data_ptr(), _ptr(kd_t),
         P, cin, C, int(ignore_index), int(y.dtype == torch.bfloat16), float(temperature),
         N_BLOCKS, torch.cuda.current_stream(y.device).cuda_stream)
-    build.check(err, "head_ce_kd_bn_fwd" if kd else "head_ce_bn_fwd")
+    build.check(err, name)
     return ce_t, kd_t
 
 
 def _launch_bn_bwd(y, scale, shift, w, b, labels, valid, teacher, cot, temperature,
                    ignore_index):
+    """(dy, dscale, dshift, dW, db); without the prologue (``scale`` None)
+    (dy, dW, db)."""
     P, cin, C = _check_bn(y, scale, shift, w, labels, valid, teacher)
     kd = teacher is not None
     dy = torch.empty_like(y)
-    n_ent = C * (cin + 1) + 2 * cin
+    n_ent = C * (cin + 1) + (0 if scale is None else 2 * cin)
     partials = torch.empty(N_BLOCKS, n_ent, dtype=torch.float32, device=y.device)
     out = torch.empty(n_ent, dtype=torch.float32, device=y.device)
     cot = cot.to(device=y.device, dtype=torch.float32).contiguous()
     yt, ts, tsh, tw, tb, ov = teacher if kd else (None,) * 6
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = build.library()
-    err = (lib.cltorch_head_ce_kd_bn_bwd if kd else lib.cltorch_head_ce_bn_bwd)(
-        y.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(), b.data_ptr(),
-        ptr(yt), ptr(ts), ptr(tsh), ptr(tw), ptr(tb), labels.data_ptr(),
-        valid.data_ptr(), ptr(ov), cot.data_ptr(), dy.data_ptr(), partials.data_ptr(),
+    name = _entry(scale, teacher) + "_bwd"
+    err = getattr(build.library(), "cltorch_" + name)(
+        y.data_ptr(), _ptr(scale), _ptr(shift), w.data_ptr(), b.data_ptr(),
+        _ptr(yt), _ptr(ts), _ptr(tsh), _ptr(tw), _ptr(tb), labels.data_ptr(),
+        valid.data_ptr(), _ptr(ov), cot.data_ptr(), dy.data_ptr(), partials.data_ptr(),
         out.data_ptr(), P, cin, C, int(ignore_index), int(y.dtype == torch.bfloat16),
         float(temperature), N_BLOCKS, torch.cuda.current_stream(y.device).cuda_stream)
-    build.check(err, "head_ce_kd_bn_bwd" if kd else "head_ce_bn_bwd")
+    build.check(err, name)
     dwb = out[:C * (cin + 1)].view(C, cin + 1)
+    if scale is None:
+        return dy, dwb[:, :cin], dwb[:, cin]
     stats = out[C * (cin + 1):]
     return dy, stats[:cin], stats[cin:], dwb[:, :cin], dwb[:, cin]
+
+
+def launch_kd_fwd(x, w, b, xt, tw, tb, labels, valid, old_valid, temperature,
+                  ignore_index=255):
+    """Kernel #9: (Σ masked NLL, T²·Σ pix·KL), 0-d f32 tensors."""
+    return _launch_bn_fwd(x, None, None, w, b, labels, valid,
+                          (xt, None, None, tw, tb, old_valid), temperature, ignore_index)
+
+
+def launch_kd_bwd(x, w, b, xt, tw, tb, labels, valid, old_valid, gce, gkd, temperature,
+                  ignore_index=255):
+    """Kernel #10: (dx, dW, db) of gce·Σ NLL + gkd·Σ KD; ``gce`` and ``gkd``
+    0-d f32 device tensors."""
+    return _launch_bn_bwd(x, None, None, w, b, labels, valid,
+                          (xt, None, None, tw, tb, old_valid),
+                          torch.stack([gce.reshape(()), gkd.reshape(())]), temperature,
+                          ignore_index)
 
 
 def launch_bn_fwd(y, scale, shift, w, b, labels, valid, ignore_index=255):
@@ -391,8 +445,58 @@ def launch_kd_bn_bwd(y, scale, shift, w, b, yt, tscale, tshift, tw, tb, labels,
 
 
 # ---------------------------------------------------------------------------
-# BN·ReLU prologue and KD: autograd wrappers and public entries
+# KD and BN·ReLU prologue: autograd wrappers and public entries
 # ---------------------------------------------------------------------------
+
+
+class _HeadCEKdTotal(torch.autograd.Function):
+    """(Σ NLL, Σ KD) of the student's head on x and the frozen teacher's on
+    xt; the backward takes (gce, gkd) and gives the teacher's operands no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, xt, tw, tb, labels, valid, old_valid, temperature,
+                ignore_index):
+        ctx.save_for_backward(x, w, b, xt, tw, tb, labels, valid, old_valid)
+        ctx.temperature, ctx.ignore_index = temperature, ignore_index
+        args = (x, w, b, xt, tw, tb, labels, valid, old_valid, temperature, ignore_index)
+        if x.is_cuda:
+            LAUNCHES["head_ce_kd_fwd"] += 1
+            return launch_kd_fwd(*args)
+        return head_ce_kd_total_plain(*args)
+
+    @staticmethod
+    def backward(ctx, gce, gkd):
+        saved = ctx.saved_tensors
+        args = (*saved, gce, gkd, ctx.temperature, ctx.ignore_index)
+        if saved[0].is_cuda:
+            LAUNCHES["head_ce_kd_bwd"] += 1
+            grads = launch_kd_bwd(*args)
+        else:
+            grads = head_ce_kd_grads_plain(*args)
+        return (*grads,) + (None,) * 8
+
+
+def head_cross_entropy_kd(features, head_kernel, head_bias, tfeatures, t_kernel, t_bias,
+                          labels, valid_classes, old_valid, *, temperature,
+                          ignore_index=255):
+    """Fused head + CE + LwF-KD on plain NHWC features: (ce_mean, kd_mean,
+    n). ``features`` and ``tfeatures`` (the frozen teacher's) [B, H, W,
+    Cin] in the compute dtype; the heads as ``head_cross_entropy`` takes
+    them. ``kd_mean`` equals ``losses.kd_loss`` of the two materialized
+    logit tensors, the student's masked by ``valid_classes``; α and the LwF
+    weight are the caller's. The teacher's operands get no gradient."""
+    x, xt = _rows(features), _rows(tfeatures.detach())
+    cin, C = x.shape[1], valid_classes.shape[0]
+    w, b = _head_args(head_kernel, head_bias, cin, C)
+    tw, tb = _head_args(t_kernel, t_bias, cin, C)
+    lbl = labels.reshape(-1).to(torch.int32)
+    valid = valid_classes.to(device=x.device, dtype=torch.float32)
+    ov = old_valid.to(device=x.device, dtype=torch.float32)
+    n = _n_pix(labels, ignore_index)
+    ce_t, kd_t = _HeadCEKdTotal.apply(x, w, b, xt, tw.detach(), tb.detach(), lbl, valid, ov,
+                                      float(temperature), int(ignore_index))
+    return ce_t / n, kd_t / n, n
 
 
 class _HeadCEBnTotal(torch.autograd.Function):

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cl_tpu_torch.devices import resolve_device
 from cl_tpu_torch.kernels import build
 
 LAUNCHES = {"replay_gather": 0}
@@ -80,12 +81,12 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class DeviceReplayBuffer:
     """Fixed-capacity replay store of uint8 images [capacity, S, S, 3] and
-    masks [capacity, S, S] (255 where empty) on ``device``."""
+    masks [capacity, S, S] (255 where empty) on ``device`` (None: the card)."""
 
     def __init__(self, capacity: int, source_size: int, *, seed: int,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.capacity = int(capacity)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         S = int(source_size)
         self.images = torch.zeros((self.capacity, S, S, 3), dtype=torch.uint8, device=self.device)
         self.masks = torch.full((self.capacity, S, S), 255, dtype=torch.uint8, device=self.device)

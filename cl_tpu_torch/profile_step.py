@@ -31,7 +31,8 @@ import torch
 FAMILIES = (
     ("methods kernels (cl_tpu_torch)", ("ewc_penalty", "ewc_grad", "ewc_sq_acc",
                                         "replay_gather")),
-    ("loss kernels (cl_tpu_torch)", ("head_ce", "ce_fwd_kernel", "ce_bwd_kernel")),
+    ("loss kernels (cl_tpu_torch)", ("head_ce", "ce_fwd_kernel", "ce_bwd_kernel",
+                                     "kd_fwd_kernel", "kd_bwd_kernel")),
     ("packed body kernels (cl_tpu_torch)", ("conv3x3_bn", "conv3x3_dw", "bn_relu",
                                             "add_stats", "dy_eff", "maxpool", "upconv",
                                             "sum_splits")),

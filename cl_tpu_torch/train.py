@@ -18,11 +18,14 @@ and the same report as the JAX package.
 The loss takes the JAX package's branches (``cl_tpu/train.py:391-515``):
 on the packed body with the fused head and ``train.packed_head_ce`` (the
 headline step), the packed BN·ReLU + head + CE kernels on the body's raw
-output, or under LwF their KD form with the teacher's raw output; else the
-fused head+CE kernel on NHWC features when ``train.fused_head_ce``
-resolves on; else the CE kernel on materialized logits when
-``train.use_pallas``; else the plain ``losses.cross_entropy`` (plus
-``losses.kd_loss`` under LwF). EWC adds λ·penalty on every route, through
+output, or under LwF their KD form with the teacher's raw output; else
+(and where the packed body does not engage) the fused head+CE kernel on
+NHWC features when ``train.fused_head_ce`` resolves on, under LwF its KD
+form with the teacher's features; else the CE kernel on materialized
+logits when ``train.use_pallas``, under LwF with the KD kernel on both
+logit tensors cast to the compute dtype; else the plain
+``losses.cross_entropy`` (plus ``losses.kd_loss`` under LwF). EWC adds
+λ·penalty on every route, through
 the penalty kernels under ``train.use_pallas``. Entry points run on the
 card: ``device`` None means ``cuda``, and without CUDA they raise; the CPU
 runs only when the caller passes ``device="cpu"``. A config that needs a
@@ -44,23 +47,14 @@ from cl_tpu_torch.config import Config
 from cl_tpu_torch.data import cached_exec, pipeline
 from cl_tpu_torch.data import tasks as task_lib
 from cl_tpu_torch.data.device_cache import DeviceDatasetCache
-from cl_tpu_torch.kernels import ce_loss, ewc_fused, head_ce, replay_gather
+from cl_tpu_torch.devices import resolve_device
+from cl_tpu_torch.kernels import ce_loss, ewc_fused, head_ce, kd_loss, replay_gather
 from cl_tpu_torch.methods import ewc as ewc_lib
 from cl_tpu_torch.methods import lwf as lwf_lib
 from cl_tpu_torch.methods.replay import ReplayBuffer
 from cl_tpu_torch.models.unet import UNet, init_weights
 
 _LATER = "comes in a later slice of the port (ROADMAP.md Queue 1)"
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` → ``cuda``. Raises if CUDA is asked for and absent: the port
-    never drops to the CPU unless the caller names it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("cl_tpu_torch runs on a CUDA device and none is "
-                           "available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def _dtype(cfg: Config) -> torch.dtype:
@@ -98,13 +92,6 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
         unported.append(
             f"method.ewc_fisher_kind={meth.ewc_fisher_kind!r} (EWC's sampled Fisher "
             "draws its labels from JAX's PRNG; the port runs the empirical Fisher)")
-    if "lwf" in meth.methods and t.use_pallas and not packed_head_on(cfg):
-        unported.append(
-            "method.methods=lwf with the fused head on NHWC features (the KD "
-            "head kernels #9/#10, head_cross_entropy_kd)" if fused_head_on(cfg) else
-            "method.methods=lwf with the KD on materialized logits (the KD "
-            "kernels #13/#14, kd_loss); LwF runs on the packed KD head or with "
-            "train.use_pallas=false")
     if t.checkpoint_dir or t.resume:
         unported.append("train.checkpoint_dir / train.resume (checkpoints)")
     if t.spatial_parallel:
@@ -223,58 +210,53 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
                          "ewc=methods.ewc.make_ewc_state(model, mode=...)")
     ewc_penalty = ewc_fused.penalty if use_kernels else ewc_lib.penalty
 
-    def raw_features(feats, x):
-        # Where the packed body does not engage, cl_tpu drops to the fused
-        # head on NHWC features; the port does not run another loss than
-        # the config asks for.
-        if not isinstance(feats, tuple):
-            raise NotImplementedError(
-                "the packed head+CE (train.packed_head_ce with the fused head on the "
-                "packed body) takes the packed body's raw output, and the packed body "
-                f"does not engage at {x.shape[1]}x{x.shape[2]}; pass "
-                "train.packed_head_ce=false for the fused head on NHWC features")
-        return feats
-
     def loss_fn(x, y, valid_classes):
         """(ce, n_pix, weighted KD or None). The teacher runs first, as in
         ``cl_tpu``: its forward's transients are freed before the
         student's forward saves its activations."""
-        if use_packed_head:
-            if use_lwf:
-                traw, tsc, tsh = raw_features(lwf_lib.old_features(lwf, x, packed=True), x)
-            raw, sc, sh = raw_features(
-                model(x, return_features=True, packed_features=True), x)
-            if use_lwf:
-                ce, kd_raw, n_pix = head_ce.head_cross_entropy_kd_packed_bn(
-                    raw, sc, sh, model.head.weight, model.head.bias, traw, tsc, tsh,
-                    lwf.teacher.head.weight, lwf.teacher.head.bias, y, valid_classes,
-                    lwf.old_valid, temperature=m.lwf_temperature,
-                    ignore_index=d.ignore_index)
-                return ce, n_pix, lwf.weight * kd_raw
-            ce, n_pix = head_ce.head_cross_entropy_packed_bn(
-                raw, sc, sh, model.head.weight, model.head.bias, y, valid_classes,
-                ignore_index=d.ignore_index)
-            return ce, n_pix, None
+        ignore, temp = d.ignore_index, m.lwf_temperature
         if use_fused_head:
-            feats = model(x, return_features=True)
-            return (*head_ce.head_cross_entropy(
-                feats, model.head.weight, model.head.bias, y, valid_classes,
-                ignore_index=d.ignore_index), None)
+            hk, hb = model.head.weight, model.head.bias
+            if use_lwf:
+                tfeats = lwf_lib.old_features(lwf, x, packed=use_packed_head)
+                thk, thb = lwf.teacher.head.weight, lwf.teacher.head.bias
+            feats = model(x, return_features=True, packed_features=use_packed_head)
+            # the packed body hands back its raw output and deferred BN where
+            # it engaged; else NHWC features, and the loss takes the fused
+            # head on them (cl_tpu/train.py:441, its `pk` test)
+            if isinstance(feats, tuple):
+                if use_lwf:
+                    ce, kd_raw, n_pix = head_ce.head_cross_entropy_kd_packed_bn(
+                        *feats, hk, hb, *tfeats, thk, thb, y, valid_classes,
+                        lwf.old_valid, temperature=temp, ignore_index=ignore)
+                    return ce, n_pix, lwf.weight * kd_raw
+                return (*head_ce.head_cross_entropy_packed_bn(
+                    *feats, hk, hb, y, valid_classes, ignore_index=ignore), None)
+            if use_lwf:
+                ce, kd_raw, n_pix = head_ce.head_cross_entropy_kd(
+                    feats, hk, hb, tfeats, thk, thb, y, valid_classes, lwf.old_valid,
+                    temperature=temp, ignore_index=ignore)
+                return ce, n_pix, lwf.weight * kd_raw
+            return (*head_ce.head_cross_entropy(feats, hk, hb, y, valid_classes,
+                                                ignore_index=ignore), None)
         old = lwf_lib.old_logits(lwf, x) if use_lwf else None
         logits = model(x)
         if use_kernels:
             # The model's f32 logits are upcast compute-dtype head outputs,
-            # so the downcast is lossless and halves the kernel's operand.
-            return (*ce_loss.cross_entropy(logits.to(compute_dtype), y,
-                                           valid_classes,
-                                           ignore_index=d.ignore_index), None)
-        ce, n_pix = losses.cross_entropy(logits, y, valid_classes,
-                                         ignore_index=d.ignore_index)
+            # so the downcast is lossless and halves the kernels' operands;
+            # the teacher's likewise (cl_tpu/train.py:498-504).
+            logits = logits.to(compute_dtype)
+            ce, n_pix = ce_loss.cross_entropy(logits, y, valid_classes, ignore_index=ignore)
+            if not use_lwf:
+                return ce, n_pix, None
+            kd = kd_loss.kd_loss(logits, old.to(compute_dtype), lwf.old_valid, y,
+                                 temperature=temp, ignore_index=ignore)
+            return ce, n_pix, lwf.weight * kd
+        ce, n_pix = losses.cross_entropy(logits, y, valid_classes, ignore_index=ignore)
         if not use_lwf:
             return ce, n_pix, None
-        kd = losses.kd_loss(logits, old, lwf.old_valid, y,
-                            temperature=m.lwf_temperature,
-                            ignore_index=d.ignore_index)
+        kd = losses.kd_loss(logits, old, lwf.old_valid, y, temperature=temp,
+                            ignore_index=ignore)
         return ce, n_pix, lwf.weight * kd
 
     def step(batch: pipeline.HostBatch, valid_classes: torch.Tensor) -> dict:

@@ -215,17 +215,17 @@ def test_device_cache_batches_match_host_and_cl_tpu(native_ds, pad_final):
 
 def test_zero_step_epoch():
     plan = cached_exec.build_plan(3, batch_size=4, epoch=0, seed=1, shuffle=True,
-                                  flip_prob=0.5)
+                                  flip_prob=0.5, device=CPU)
     assert plan.steps == 0 and tuple(plan.idx.shape) == (0, 4) and plan.pad is None
     buf = ReplayBuffer(4, seed=2)
-    for b in (buf, DeviceReplayBuffer(4, 40, seed=2)):
+    for b in (buf, DeviceReplayBuffer(4, 40, seed=2, device=CPU)):
         mode, idx, flips = cached_exec.build_replay_plan(b, steps=0, k=2, batch_size=4,
-                                                         flip_prob=0.5)
+                                                         flip_prob=0.5, device=CPU)
         assert mode == "batch" and tuple(idx.shape) == (0, 2) and flips is None
     buf.images.append(np.zeros((40, 40, 3), np.uint8))
     buf.masks.append(np.zeros((40, 40), np.uint8))
     mode, idx, flips = cached_exec.build_replay_plan(buf, steps=0, k=2, batch_size=4,
-                                                     flip_prob=0.5)
+                                                     flip_prob=0.5, device=CPU)
     assert mode == "buffer" and tuple(idx.shape) == tuple(flips.shape) == (0, 2)
 
 
@@ -245,11 +245,14 @@ def test_replay_plan_matches_cl_tpu(native_ds, source):
           "device": (DeviceReplayBuffer, JaxDeviceReplayBuffer)}[source]
     bufs = []
     for cls in mk:
-        buf = cls(6, seed=31) if cls in (ReplayBuffer, JaxReplayBuffer) else cls(6, 40, seed=31)
+        buf = (cls(6, seed=31) if cls in (ReplayBuffer, JaxReplayBuffer)
+               else cls(6, 40, seed=31, device=CPU) if cls is DeviceReplayBuffer
+               else cls(6, 40, seed=31))
         if source != "empty":
             buf.add_examples(native_ds, 4, task_id=0)
         bufs.append(buf)
-    got = cached_exec.build_replay_plan(bufs[0], steps=3, k=2, batch_size=4, flip_prob=0.5)
+    got = cached_exec.build_replay_plan(bufs[0], steps=3, k=2, batch_size=4, flip_prob=0.5,
+                                        device=CPU)
     want = jax_cached.build_replay_plan(bufs[1], steps=3, k=2, batch_size=4, flip_prob=0.5)
     assert got[0] == want[0] == ("batch" if source == "empty" else "buffer")
     assert (got[2] is None) == (want[2] is None)
@@ -258,10 +261,10 @@ def test_replay_plan_matches_cl_tpu(native_ds, source):
 
     cache = DeviceDatasetCache(native_ds, CPU)
     plan = cached_exec.build_plan(10, batch_size=4, epoch=0, seed=3, shuffle=True,
-                                  flip_prob=0.5)
+                                  flip_prob=0.5, device=CPU)
     batch = cached_exec.gather_batch(cache.images, cache.masks, plan, 1)
     jbatch = jax_pipeline.HostBatch(*(jnp.asarray(_np(t)) for t in batch))
-    rep = cached_exec.replay_arrays(bufs[0]) if got[0] == "buffer" else (None, None)
+    rep = cached_exec.replay_arrays(bufs[0], CPU) if got[0] == "buffer" else (None, None)
     jrep = jax_cached.replay_arrays(bufs[1]) if got[0] == "buffer" else (None, None)
     if source == "host":
         assert rep[0].shape[0] == 6 and not rep[0][4:].any()  # zero-padded to capacity

@@ -9,7 +9,9 @@ of its norm plus one f32 ulp. Then a 2-task ``train()`` with
 ``train.use_pallas=false`` (the KD on materialized logits) against
 ``cl_tpu.train.train`` from the same ``init_variables``: final per-task
 mIoU within 0.5 points. The teacher snapshot shares no storage with the
-student, and the gates: which LwF routes run and which raise.
+student, and the gates: which LwF routes run and which raise. Where the
+packed head is asked for and the packed body does not engage, the step
+takes the fused head on NHWC features, as ``cl_tpu``'s does.
 """
 
 import jax
@@ -58,18 +60,21 @@ def _teacher_variables(variables, seed):
     return jax.tree_util.tree_map_with_path(perturb, variables)
 
 
-@pytest.fixture(scope="module")
-def lwf_step():
-    """The port's and cl_tpu's state after one LwF step on the packed KD
-    head, each computed once."""
-    cfg, jcfg = parse_overrides(PACKED), jax_parse(PACKED)
-    assert port_train.packed_head_on(cfg)
+def lwf_step_against_cl_tpu(args, watch):
+    """The port's and cl_tpu's state after one LwF step of ``args`` from the
+    same student, a teacher that is a perturbed copy with its own BatchNorm
+    statistics, weight 1 and old_valid = task 0's classes (two or more);
+    ``watch`` ({name: (module, function name)}) records the dtypes of the
+    first two operands of each call of the port's loss entries."""
+    cfg, jcfg = parse_overrides(args), jax_parse(args)
     model = port_train.init_state(cfg, port_train.build_model(cfg), CPU)
     variables = export_jax_variables(model)
     tvars = _teacher_variables(variables, 11)
-    old_valid = jax_tasks.valid_class_mask(3, jax_tasks.seen_classes(jcfg.classes_per_task, 0))
-    valid = jax_tasks.valid_class_mask(3, jax_tasks.seen_classes(jcfg.classes_per_task, 1))
-    assert old_valid.sum() < valid.sum()
+    n_cls = cfg.data.num_classes
+    old_valid = jax_tasks.valid_class_mask(n_cls,
+                                           jax_tasks.seen_classes(jcfg.classes_per_task, 0))
+    valid = jax_tasks.valid_class_mask(n_cls, jax_tasks.seen_classes(jcfg.classes_per_task, 1))
+    assert 2 <= old_valid.sum() < valid.sum()
 
     state_t = lwf.make_lwf_state(model)
     load_jax_variables(state_t.teacher, tvars)
@@ -91,18 +96,28 @@ def lwf_step():
         opt_state=tx.init(params), ewc=None, lwf=jl, rng=jax.random.PRNGKey(0))
     jstep = jax_train.make_train_step(jcfg, jmodel, tx, mesh=None)
 
-    calls = []
-    real = head_ce.head_cross_entropy_kd_packed_bn
-    head_ce.head_cross_entropy_kd_packed_bn = lambda *a, **k: calls.append(1) or real(*a, **k)
+    calls = {name: [] for name in watch}
+    real = {name: getattr(mod, fn) for name, (mod, fn) in watch.items()}
+
+    def counted(name):
+        def f(*a, **k):
+            calls[name].append(tuple(t.dtype for t in a[:2]))  # the operands' dtypes
+            return real[name](*a, **k)
+        return f
+
+    for name, (mod, fn) in watch.items():
+        setattr(mod, fn, counted(name))
     try:
         hb = next(iter(pipeline.train_batches(cfg, 1, 0)))
         aux = step(pipeline.put_batch(hb, CPU), torch.from_numpy(valid))
     finally:
-        head_ce.head_cross_entropy_kd_packed_bn = real
+        for name, (mod, fn) in watch.items():
+            setattr(mod, fn, real[name])
     state, jaux = jstep(state, jax_pipeline.HostBatch(*(jnp.asarray(a) for a in hb)),
                         jnp.asarray(valid))
-    return {"calls": len(calls), "loss": (aux["loss"].item(), float(jaux["loss"])),
-            "kd": (aux["kd"].item(), float(jaux["kd"])),
+    return {"calls": calls, "has_kd": "kd" in aux,
+            "loss": (aux["loss"].item(), float(jaux["loss"])),
+            "kd": (aux["kd"].item() if "kd" in aux else None, float(jaux["kd"])),
             "n_pix": (float(aux["n_pix"]), float(jaux["n_pix"])),
             "teacher": (export_jax_variables(state_t.teacher), tvars),
             "before": dict(jax.tree_util.tree_leaves_with_path(variables)),
@@ -111,8 +126,17 @@ def lwf_step():
                 {"params": state.params, **state.model_state})}
 
 
+@pytest.fixture(scope="module")
+def lwf_step():
+    """The port's and cl_tpu's state after one LwF step on the packed KD
+    head, each computed once."""
+    assert port_train.packed_head_on(parse_overrides(PACKED))
+    return lwf_step_against_cl_tpu(
+        PACKED, {"packed_kd": (head_ce, "head_cross_entropy_kd_packed_bn")})
+
+
 def test_lwf_step_takes_the_packed_kd_head(lwf_step):
-    assert lwf_step["calls"] == 1
+    assert len(lwf_step["calls"]["packed_kd"]) == 1
 
 
 def test_lwf_step_kd_term(lwf_step):
@@ -220,21 +244,20 @@ def test_two_task_lwf_train_matches_jax(monkeypatch):
     ["preset=smoke", "method.methods=lwf", "train.use_pallas=false"],  # KD on logits, plain
     ["preset=smoke", "method.methods=lwf,replay", "train.use_pallas=false",
      "data.device_cache=true"],                                  # plan-driven replay
+    # the KD head on NHWC features (#9/#10) and the KD on logits (#13/#14)
+    ["preset=smoke", "method.methods=lwf"],                      # fused head, NHWC
+    PACKED + ["train.packed_head_ce=false"],
+    ["preset=smoke", "method.methods=lwf", "train.fused_head_ce=false"],
+    ["preset=smoke", "method.methods=lwf,replay", "train.fused_head_ce=false",
+     "data.device_cache=true"],
 ])
 def test_lwf_routes_that_run(args):
     port_train.check_supported(parse_overrides(args), CPU)
 
 
 @pytest.mark.parametrize("args,match", [
-    (["preset=smoke", "method.methods=lwf"], "#9/#10"),          # fused head, NHWC
-    (PACKED + ["train.packed_head_ce=false"], "#9/#10"),
-    (["preset=smoke", "method.methods=lwf", "train.fused_head_ce=false"], "#13/#14"),
     (["preset=smoke", "method.methods=ewc,lwf", "train.use_pallas=false",
       "method.ewc_fisher_kind=true"], "EWC"),                    # the sampled Fisher
-    # plan-driven replay runs since the data path's slice; with the KD on
-    # logits it still raises
-    pytest.param(["preset=smoke", "method.methods=lwf,replay", "train.fused_head_ce=false",
-                  "data.device_cache=true"], "#13/#14", id="args4-replay"),
 ])
 def test_lwf_routes_that_raise(args, match):
     cfg = parse_overrides(args)
@@ -242,18 +265,53 @@ def test_lwf_routes_that_raise(args, match):
         port_train.check_supported(cfg, CPU)
 
 
-def test_packed_head_without_the_packed_body_raises():
+def test_packed_head_without_the_packed_body_takes_the_nhwc_head():
     """The packed head asks for the packed body's raw output; where the
-    body does not engage (32², base 8), the step raises rather than take
-    another loss."""
-    cfg = config.parse_overrides(["preset=smoke", "model.packed_min_size=0",
-                                  "train.data_parallel=false"])
-    assert port_train.packed_head_on(cfg)
+    body does not engage (32², base 8, ``model.packed_min_size=0``), the
+    step takes the fused head+CE on NHWC features (#1/#2's plain versions)
+    as ``cl_tpu``'s does (``cl_tpu/train.py:441``), and matches its step
+    as the standard body's steps do (``test_torch_train.py``)."""
+    args = ["preset=smoke", "model.packed_min_size=0", "train.data_parallel=false",
+            "train.optimizer=sgd", "train.lr=0.05"]
+    cfg, jcfg = config.parse_overrides(args), jax_parse(args)
+    assert port_train.packed_head_on(cfg) and jcfg.train.packed_head_ce
     model = port_train.init_state(cfg, port_train.build_model(cfg), CPU)
+    assert model.packed_levels(32, 32) == 0
+    variables = export_jax_variables(model)
     step = port_train.make_train_step(cfg, model, port_train.build_optimizer(cfg, model), CPU)
-    hb = next(iter(pipeline.train_batches(cfg, 0, 0)))
-    with pytest.raises(NotImplementedError, match="does not engage at 32x32"):
-        step(pipeline.put_batch(hb, CPU), torch.ones(cfg.data.num_classes, dtype=torch.bool))
+    tx = jax_train.build_optimizer(jcfg)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    state = jax_train.TrainState(
+        step=jnp.int32(0), params=params,
+        model_state={"batch_stats": jax.tree.map(jnp.asarray, variables["batch_stats"])},
+        opt_state=tx.init(params), ewc=None, lwf=None, rng=jax.random.PRNGKey(0))
+    jstep = jax_train.make_train_step(jcfg, jax_train.build_model(jcfg), tx, mesh=None)
+
+    calls = {"nhwc": 0, "packed": 0}
+    real = (head_ce.head_cross_entropy, head_ce.head_cross_entropy_packed_bn)
+    head_ce.head_cross_entropy = lambda *a, **k: calls.__setitem__(
+        "nhwc", calls["nhwc"] + 1) or real[0](*a, **k)
+    head_ce.head_cross_entropy_packed_bn = lambda *a, **k: calls.__setitem__(
+        "packed", calls["packed"] + 1) or real[1](*a, **k)
+    try:
+        hb = next(iter(pipeline.train_batches(cfg, 0, 0)))
+        valid = np.ones(cfg.data.num_classes, bool)
+        aux = step(pipeline.put_batch(hb, CPU), torch.from_numpy(valid))
+    finally:
+        head_ce.head_cross_entropy, head_ce.head_cross_entropy_packed_bn = real
+    state, jaux = jstep(state, jax_pipeline.HostBatch(*(jnp.asarray(a) for a in hb)),
+                        jnp.asarray(valid))
+    assert calls == {"nhwc": 1, "packed": 0}
+    # the standard body's step gate (test_torch_train.py): loss, params and
+    # batch statistics within 1e-4
+    np.testing.assert_allclose(aux["loss"].item(), float(jaux["loss"]), rtol=1e-4, atol=1e-4)
+    assert float(aux["n_pix"]) == float(jaux["n_pix"])
+    got = dict(jax.tree_util.tree_leaves_with_path(export_jax_variables(model)))
+    want = jax.tree_util.tree_leaves_with_path({"params": state.params, **state.model_state})
+    assert len(got) == len(want)
+    for path, leaf in want:
+        np.testing.assert_allclose(got[path], np.asarray(leaf), rtol=1e-4, atol=1e-4,
+                                   err_msg=str(path))
 
 
 def test_lwf_step_needs_its_state():

@@ -64,7 +64,11 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    "model.packed_min_size=0",          # the packed body engages
+    # the packed head where the packed body declines runs since the LwF
+    # slice (test_configs_the_lwf_slice_made_runnable); int8 saved
+    # activations of the packed convs do not
+    pytest.param("model.packed_min_size=0 model.conv_act_store=int8",
+                 id="model.packed_min_size=0"),
     "model.conv_impl=v3",
     "model.upconv_impl=matmul",
     "model.norm=group",
@@ -74,8 +78,10 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     "train.multihost=true",
     # EWC runs since the methods slice; its sampled Fisher does not
     pytest.param("method.methods=ewc method.ewc_fisher_kind=true", id="method.methods=ewc"),
-    "method.methods=lwf,replay",        # LwF on the NHWC fused head (#9/#10)
-    "method.methods=lwf train.fused_head_ce=false",  # KD on logits (#13/#14)
+    # LwF on the NHWC fused head (#9/#10) and on logits (#13/#14) run since
+    # the LwF slice; the other opt-in conv kernels do not
+    pytest.param("model.conv_impl=hybrid", id="method.methods=lwf,replay"),
+    pytest.param("model.conv_impl=auto", id="method.methods=lwf train.fused_head_ce=false"),
     "model.conv_impl=pallas",
     "train.checkpoint_dir=ckpt",
     "train.resume=true",
@@ -84,14 +90,24 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     "train.profile_dir=trace",
 ])
 def test_unported_configs_raise(override):
-    """Each raises NotImplementedError: a later slice of the port, or (the
-    packed body asked for where it does not engage, 32² base 8) the packed
-    head+CE without the packed body's raw output, which the port refuses
-    rather than take another loss."""
+    """Each raises NotImplementedError: a later slice of the port."""
     cfg = config.parse_overrides(["preset=smoke", *override.split()])
-    match = "does not engage" if override == "model.packed_min_size=0" else "later slice"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="later slice"):
         port_train.train(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    "model.packed_min_size=0",          # the packed head asked for, the body declines
+    "method.methods=lwf,replay",        # LwF on the NHWC fused head (#9/#10)
+    "method.methods=lwf train.fused_head_ce=false",  # KD on logits (#13/#14)
+])
+def test_configs_the_lwf_slice_made_runnable(override):
+    """The three configs that raised before LwF's routes off the packed head
+    were ported train on the CPU (the plain versions of #1/#2, #9/#10 and
+    #13/#14)."""
+    cfg = config.parse_overrides(["preset=smoke", *override.split()])
+    report = port_train.train(cfg, device="cpu")
+    assert np.isfinite(report["final_per_task_miou"]).all()
 
 
 @pytest.mark.parametrize("override", ["train.pallas_augment=true", "data.device_cache=true",
