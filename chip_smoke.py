@@ -34,6 +34,12 @@ Phases (any failure raises, so the exit code is non-zero):
    normalization, #16 the mask's) at 576 → 512 with 8 and 9 images, 320 →
    256 and 160 → 128 with 8, and 50 → 32 with 3, flips mixed, in f32 and
    bf16: the mask bit-equal, the image within 1e-5 (f32) or one bf16 ulp;
+   the gen-3 plain conv (#30) at baseline_2's 256² × 64 → 64, 128 → 64 and
+   64 → 128 and at 64² × 256 → 256, its dW (#31) at 256² × 64 → 64 and 128 →
+   64, in f32 and bf16, and the two-pass backward's dW (#33) at 64² × 256 →
+   256 in f32 with the prologue on and off, batch 8, and all three at a
+   ragged 20² × 24 → 40 with 3 images, each launched twice and held
+   bit-equal;
 4. the baseline_1 preset as it ships, through ``train()``: 16 steps and
    one eval (the fused head+CE kernels), then the same shape with
    ``train.fused_head_ce=false`` (the CE kernels) through
@@ -125,6 +131,24 @@ Phases (any failure raises, so the exit code is non-zero):
    card against the float64 Fisher of the same batches, and through the
    augment kernels against without them, each leaf within 2e-4 of its
    norm (the CPU's f32 Fisher printed beside them);
+5v. the gen-3 conv on the standard body: 5v-a ``preset=baseline_2
+   model.conv_impl=auto`` as it ships through ``train()`` (the device
+   cache, 128 + 32 images, 2 epochs; every plan-driven step under sync
+   debug mode "error"), with #30 launched 3 times a forward and 3 times
+   (dx) a backward and #31 3 times a backward (enc0.conv1 per conv, dec0
+   packed), images/s and peak memory beside phase 5d's baseline_2 with
+   ``conv_impl=xla``, a finite mIoU; 5v-b ``conv_impl=v3`` in bf16 (every
+   conv the gate admits, at every level), 3 + 10 steps with launch
+   counts, five pairs in turns against ``xla``; 5v-c ``model.packed_min_size=0``
+   (the packed body at 256², base 64, f32), 3 + 10 steps: level 2's two
+   prologue convs take the two-pass backward, #30 (dt) and #33 twice a
+   step in place of two fused dx and dW launches; 5v-d baseline_1 with
+   ``conv_impl=v3`` (128² f32, both routes), one SGD step on the card
+   against the CPU (loss and params within 1e-4) and, each update, against
+   the same step in float64 (within 1e-2 of its norm plus one ulp: the
+   CPU's own f32 step is further than that from float64 in the deep
+   BatchNorm biases; it and the card against the CPU are printed); 5v-e ``preset=baseline_2 model.conv_impl=v3`` in f32 is
+   refused (``cl_tpu`` finds no f32 tile for enc3.conv1 and asserts);
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take.
 
@@ -1395,6 +1419,147 @@ def aug_entry(kernel, launches, err, times, shape):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3 / 6: the gen-3 plain conv (#30), its dW (#31) and the two-pass
+# backward's dW (#33)
+# ---------------------------------------------------------------------------
+
+V3_KERNELS = {  # kernel: (source, TPU kernel's pallas_call, launch-count keys)
+    "conv3x3_fwd": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:522",
+                    ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dt")),
+    "conv3x3_dw": ("cl_tpu_torch/csrc/conv3x3_bn_bwd.cu", "cl_tpu/pallas/conv3x3_v3.py:564",
+                   ("conv3x3_dw",)),
+    "conv3x3_dw_bn": ("cl_tpu_torch/csrc/conv3x3_bn_bwd.cu", "cl_tpu/pallas/conv3x3_v3.py:870",
+                      ("conv3x3_dw_bn",)),
+}
+# (H, Cin, Cout[, prologue]) at batch 8: baseline_2's 256² level under
+# conv_impl=auto (enc0.conv1 and dec0.conv1 64 -> 64, dec0.conv0 128 -> 64
+# and its dx 64 -> 128), and level 2 of baseline_2 with
+# model.packed_min_size=0 (the two-pass convs, 256 -> 256 at 64²); the
+# first shape of each is its phase 6 line
+V3_SHAPES = {"conv3x3_fwd": [(256, 64, 64), (256, 128, 64), (256, 64, 128), (64, 256, 256)],
+             "conv3x3_dw": [(256, 64, 64), (256, 128, 64)],
+             "conv3x3_dw_bn": [(64, 256, 256, True), (64, 256, 256, False)]}
+V3_ODD = {"conv3x3_fwd": [(20, 24, 40)], "conv3x3_dw": [(20, 24, 40)],
+          "conv3x3_dw_bn": [(20, 24, 40, True), (20, 24, 40, False)]}
+
+
+def v3_operands(kernel, shape, dtype_name, batch=8, seed=0):
+    """Seeded operands on the card: (x, w) for #30, (x, dy) for #31,
+    (x, a, b, e, prologue) for #33 (a prologue with relu(b) > 0 on part of
+    the channels)."""
+    import torch
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*sh, scale=1.0):
+        return torch.randn(*sh, generator=g, device="cuda") * scale
+
+    H, cin, cout = shape[:3]
+    x = randn(batch, H, H, cin).to(dt)
+    if kernel == "conv3x3_fwd":
+        return x, randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+    dy = randn(batch, H, H, cout).to(dt)
+    if kernel == "conv3x3_dw":
+        return x, dy
+    return x, randn(cin).abs() + 0.5, randn(cin) * 0.5, dy, shape[3]
+
+
+def v3_fns(kernel):
+    """(kernel launch, plain version, library call) of one v3 kernel, each
+    taking ``v3_operands``; the library calls are cuDNN's: ``F.conv2d`` for
+    #30, ``convolution_backward``'s dW (of x, without the prologue) for
+    #31 and #33."""
+    import torch
+    import torch.nn.functional as F
+
+    from cl_tpu_torch.kernels import conv3x3
+
+    if kernel == "conv3x3_fwd":
+        def lib(x, w):
+            return F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), padding=1)
+        return conv3x3.launch_conv3x3, conv3x3.conv3x3_plain, lib
+
+    def lib(x, *rest):
+        dy = rest[0] if kernel == "conv3x3_dw" else rest[2]
+        w = torch.empty(dy.shape[-1], x.shape[-1], 3, 3, dtype=x.dtype, device=x.device)
+        return torch.ops.aten.convolution_backward(
+            dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w, None, [1, 1], [1, 1], [1, 1],
+            False, [0, 0], 1, [False, True, False])
+    if kernel == "conv3x3_dw":
+        return conv3x3.launch_conv3x3_dw, conv3x3.conv3x3_dw_plain, lib
+    return conv3x3.launch_conv3x3_dw_bn, conv3x3.conv3x3_dw_bn_plain, lib
+
+
+def v3_name(kernel, shape, dtype_name, batch=8):
+    return f"{kernel}[{batch}x{'x'.join(str(v) for v in shape)},{dtype_name}]"
+
+
+def compare_v3(kernel, shape, dtype_name, batch=8):
+    """A v3 kernel against its plain version on the card, launched twice
+    (the second launch must repeat every bit); returns the max abs error.
+    Tolerances: y 1e-5 of Σ|term| in f32 (an f32 sum in another order),
+    plus one bf16 ulp in bf16 (then rounded once); dW (f32, not rounded)
+    1e-5 of Σ|term| + 1e-6."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3
+
+    launch, plain, _ = v3_fns(kernel)
+    ops = v3_operands(kernel, shape, dtype_name, batch)
+    k_out, again, p_out = launch(*ops), launch(*ops), plain(*ops)
+    torch.cuda.synchronize()
+    name = v3_name(kernel, shape, dtype_name, batch)
+    need(torch.equal(k_out, again), f"{name}: a second launch repeats every bit")
+    need(k_out.shape == p_out.shape and k_out.dtype == p_out.dtype, f"{name} shape/dtype")
+    kf, pf = k_out.float(), p_out.float()
+    need(bool(torch.isfinite(kf).all()), f"{name} not finite")
+    if kernel == "conv3x3_fwd":
+        x, w = ops
+        terms = conv3x3.conv3x3_plain(x.float().abs(), w.abs())
+    elif kernel == "conv3x3_dw":
+        x, dy = ops
+        terms = conv3x3.conv3x3_dw_plain(x.float().abs(), dy.float().abs())
+    else:
+        x, a, b, e, prologue = ops
+        t = conv3x3.prologue_t(x, a, b, prologue)
+        terms = conv3x3.conv3x3_dw_plain(t.float().abs(), e.float().abs())
+    tol = 1e-5 * terms.float() + 1e-6
+    txt = "1e-5 Σ|term|"
+    if kernel == "conv3x3_fwd" and dtype_name == "bfloat16":
+        tol = tol + bf16_ulp(torch.maximum(kf.abs(), pf.abs()))
+        txt += " + 1 bf16 ulp"
+    diff = (kf - pf).abs()
+    ok = bool((diff <= tol).all())
+    print(f"  {name}: max abs err {diff.max().item():.3g} (max|plain| "
+          f"{pf.abs().max().item():.3g}; tol {txt}); relaunch bit-equal {'ok' if ok else 'FAIL'}")
+    need(ok, name)
+    return diff.max().item()
+
+
+def v3_bytes_ops(kernel, shape, dtype_name, batch=8):
+    """Bytes each input read once and each output written once, and the
+    operations: 2·9·Cin·Cout a pixel for the conv and each dW, plus the
+    prologue's three a channel."""
+    es = 2 if dtype_name == "bfloat16" else 4
+    H, cin, cout = shape[:3]
+    px = batch * H * H
+    if kernel == "conv3x3_fwd":
+        return px * (cin + cout) * es + 9 * cin * cout * es, 18 * px * cin * cout
+    prologue = kernel == "conv3x3_dw_bn" and shape[3]
+    return (px * (cin + cout) * es + 9 * cin * cout * 4 + (8 * cin if prologue else 0),
+            18 * px * cin * cout + (3 * px * cin if prologue else 0))
+
+
+def v3_times(kernel, shape, dtype_name):
+    """(ms, plain_ms, library_ms, ms synchronised per launch) at one shape."""
+    launch, plain, lib = v3_fns(kernel)
+    ops = v3_operands(kernel, shape, dtype_name)
+    return (time_ms(lambda: launch(*ops)), time_ms(lambda: plain(*ops)),
+            time_ms(lambda: lib(*ops)), time_ms(lambda: launch(*ops), queued=False))
+
+
+# ---------------------------------------------------------------------------
 # Phases 4 / 5: training paths
 # ---------------------------------------------------------------------------
 
@@ -1550,9 +1715,16 @@ def perturbed(variables, seed):
     return walk(variables)
 
 
-def agree_with_cpu(args, label, packed_levels=0):
+def agree_with_cpu(args, label, packed_levels=0, f64=False):
     """One SGD step on the card (kernels) against one on the CPU (plain
     versions) from the same weights and batch: loss and params in f32.
+    With ``f64`` each leaf's update is held against the same step in
+    float64 on the CPU (the standard body with ``model.conv_impl=xla`` and
+    the plain PyTorch loss: the same function) instead of against the
+    CPU's f32 step: at baseline_1's standard body the deep BatchNorm
+    biases' f32 updates on the CPU lie 1.5–5.5 times the tolerance from
+    float64 (by thread count), so the CPU is the worse reference of the
+    two; the CPU's and the card-against-CPU distances are printed.
     Under LwF, with a teacher unlike the student (``perturbed``), weight 1
     and the first half of the classes (at least two) old; its KD term
     checked too. Under EWC, with an anchor unlike the params (``perturbed``),
@@ -1627,20 +1799,39 @@ def agree_with_cpu(args, label, packed_levels=0):
         need(pc > 0 and abs(pg - pc) <= 1e-5 * pc, f"card vs CPU EWC penalty ({label})")
     (lc, pc), (lg, pg) = out["cpu"], out["cuda"]
     perr = max((pg[k] - pc[k]).abs().max().item() for k in pc)
+    ref, ref_name = pc, "the CPU"
+    if f64:
+        cfg64 = parse_overrides(args + ["train.optimizer=sgd", "train.lr=0.05",
+                                        "train.data_parallel=false", "model.conv_impl=xla",
+                                        "train.use_pallas=false"])
+        cpu = torch.device("cpu")
+        model = tl.init_state(cfg64, tl.build_model(cfg64), cpu)
+        load_jax_variables(model, variables)
+        model.double()
+        model.dtype = torch.float64
+        step = tl.make_train_step(cfg64, model, tl.build_optimizer(cfg64, model), cpu)
+        step(pipeline.put_batch(hb, cpu), valid)
+        ref, ref_name = {k: v.detach().double() for k, v in model.state_dict().items()}, "float64"
+
     # each entry's update, (after - before), within 1e-2 of its norm plus
     # one f32 ulp of the entry per element (a BN scale near 1.0 deep in
     # the net moves by less than an ulp): a wrong backward in one kernel
     # may hide under 1e-4 on the params themselves
-    def update_err(k):
-        ulp = torch.exp2(torch.floor(torch.log2(pc[k].abs().clamp_min(2.0 ** -126))) - 23)
-        tol = 1e-2 * (pc[k] - before[k]).norm() + ulp.norm()
-        return ((pg[k] - pc[k]).norm() / tol).item()
+    def update_err(k, got, want):
+        ulp = torch.exp2(torch.floor(torch.log2(want[k].abs().clamp_min(2.0 ** -126))) - 23)
+        tol = 1e-2 * (want[k] - before[k]).norm() + ulp.norm()
+        return ((got[k] - want[k]).norm() / tol).item()
 
-    worst = max(pc, key=update_err)
+    worst = max(ref, key=lambda k: update_err(k, pg, ref))
     print(f"  {label}: loss cuda {lg:.7f} cpu {lc:.7f}; max |param diff| {perr:.3g} "
-          f"(tol 1e-4); worst update diff {update_err(worst):.3g} of its tolerance "
-          f"(1e-2 of its norm + one ulp per element), {worst}")
-    need(abs(lg - lc) <= 1e-4 and perr <= 1e-4 and update_err(worst) <= 1,
+          f"(tol 1e-4); worst update diff from {ref_name} {update_err(worst, pg, ref):.3g} of "
+          f"its tolerance (1e-2 of its norm + one ulp per element), {worst}")
+    if f64:
+        for name, (got, want) in (("CPU vs float64", (pc, ref)), ("card vs CPU", (pg, pc))):
+            k = max(ref, key=lambda k: update_err(k, got, want))
+            print(f"    worst update diff, {name}: {update_err(k, got, want):.3g} of the same "
+                  f"tolerance, {k} (printed, not held)")
+    need(abs(lg - lc) <= 1e-4 and perr <= 1e-4 and update_err(worst, pg, ref) <= 1,
          f"card vs CPU step ({label})")
 
 
@@ -1847,12 +2038,14 @@ def data_path_train(label, args):
     for k in synthetic_native.PRODUCED:
         synthetic_native.PRODUCED[k] = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     with NoSyncSteps() as ns, Events() as ev:
         report = tl.train(cfg)
     wall = time.perf_counter() - t0
     counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
     mat = np.asarray(report["miou_matrix"], float)
     live = [e for e in ev.events if e["event"] == "hbm_live_set"]
     produced = dict(synthetic_native.PRODUCED)
@@ -1878,7 +2071,31 @@ def data_path_train(label, args):
     need(ns.steps == steps, f"plan-driven steps {ns.steps} == {steps} ({label})")
     for k, v in want.items():
         need(counts[k] == v, f"{k} launches {counts[k]} == {v} in the train() of {label}")
-    return report, counts, wall
+    return report, counts, wall, peak, steps
+
+
+def v3_convs(cfg) -> int:
+    """How many of the standard body's convs take the gen-3 conv (either
+    route) under ``cfg``: #30 launches per forward, and #30 (dx) and #31
+    per backward."""
+    from cl_tpu_torch.models import packed_gate as pg
+
+    m = cfg.model
+    return sum(route != "xla"
+               for _, h, ci, f in pg.standard_body_levels(cfg.data.image_size, m.base_channels,
+                                                          m.depth)
+               for route in pg.double_conv_route(h, h, ci, f, m.conv_impl, m.norm))
+
+
+def v3_counts_ok(counts, label, fwd, bwd, dt=0, dw_bn=0):
+    """The gen-3 kernels' launches of a run: ``fwd`` forwards of #30,
+    ``bwd`` dx (#30) and dW (#31) each, ``dt`` and ``dw_bn`` of the
+    two-pass backward."""
+    want = {"conv3x3_fwd": fwd, "conv3x3_dx": bwd, "conv3x3_dw": bwd, "conv3x3_dt": dt,
+            "conv3x3_dw_bn": dw_bn}
+    got = {k: counts[k] for k in want}
+    print(f"    v3 launches {got} (want {want})")
+    need(got == want, f"gen-3 conv launches ({label})")
 
 
 def augment_routes_agree(cuda, args=("preset=baseline_3",)):
@@ -2214,6 +2431,19 @@ def main() -> int:
             errs_ = compare_augment(src, dst, B, dtype_name, seed=src + B)
             if (src, dst, B, dtype_name) == AUG_MAIN:
                 aug_errs = errs_
+    # the gen-3 conv (#30), its dW (#31) and the two-pass dW (#33) at this
+    # slice's full-width shapes (#33 in f32, as the path runs it) and at a
+    # ragged one, each launched twice
+    v3_errs = {}
+    for kernel, shapes in V3_SHAPES.items():
+        for shape in shapes:
+            for dtype_name in ("float32",) if kernel == "conv3x3_dw_bn" else \
+                    ("float32", "bfloat16"):
+                err = compare_v3(kernel, shape, dtype_name)
+                v3_errs.setdefault((kernel, shape), err)
+        for shape in V3_ODD[kernel]:
+            for dtype_name in ("float32", "bfloat16"):
+                compare_v3(kernel, shape, dtype_name, batch=3)
 
     print("[4] baseline_1 as it ships, through train()")
     cfg1 = get_preset("baseline_1")
@@ -2532,6 +2762,68 @@ def main() -> int:
     augment_routes_agree(cuda)
     fisher_card_vs_cpu(cuda)
 
+    print("[5v] the gen-3 conv on the standard body (model.conv_impl=auto|v3: #30, #31) and "
+          "the packed conv's two-pass backward (#33)")
+    # 5v-a: baseline_2 with conv_impl=auto as it ships through train(): the
+    # 256² level's three convs (enc0.conv1 per conv, dec0 packed)
+    args_a = ["preset=baseline_2", "model.conv_impl=auto"]
+    n_a = v3_convs(parse_overrides(args_a))
+    need(n_a == 3, f"conv_impl=auto routes 3 convs of baseline_2, not {n_a}")
+    report_va, counts_va, wall_va, peak_va, steps_va = data_path_train(
+        "5v-a baseline_2 model.conv_impl=auto as it ships", args_a)
+    v3_counts_ok(counts_va, "5v-a", n_a * (steps_va["train"] + steps_va["eval"]),
+                 n_a * steps_va["train"])
+    report_b2, _, wall_b2, peak_b2, _ = runs_d["baseline_2"]
+    print(f"  baseline_2 train() images/s: conv_impl=auto "
+          f"{report_va.get('images_per_sec_per_chip')} (peak {peak_va:.0f} MiB, {wall_va:.1f} "
+          f"s), xla {report_b2.get('images_per_sec_per_chip')} (peak {peak_b2:.0f} MiB, "
+          f"{wall_b2:.1f} s, phase 5d); mIoU auto {report_va['final_per_task_miou']}, xla "
+          f"{report_b2['final_per_task_miou']}")
+    # 5v-b: conv_impl=v3 in bf16: every conv the gate admits, at every level
+    host = ["data.dataset=synthetic", "data.device_cache=false"]
+    args_b = ["preset=baseline_2", "model.conv_impl=v3", "train.compute_dtype=bfloat16"] + host
+    cfg_b = parse_overrides(args_b)
+    n_b = v3_convs(cfg_b)
+    counts_vb, ips_vb, peak_vb, loss_vb, first_vb = run_steps(cfg_b, 3, 10, cuda, no_sync=True)
+    print(f"  5v-b baseline_2 conv_impl=v3 bf16, 13 steps ({n_b} v3 convs): {ips_vb:.2f} img/s, "
+          f"peak {peak_vb:.0f} MiB, loss {first_vb:.4f} -> {loss_vb:.4f}")
+    v3_counts_ok(counts_vb, "5v-b", 13 * n_b, 13 * n_b)
+    cfg_bx = parse_overrides([a if a != "model.conv_impl=v3" else "model.conv_impl=xla"
+                              for a in args_b])
+    pairs_v, issue_v = alternating_pairs({"v3": cfg_b, "xla": cfg_bx}, cuda)
+    ratios_v = [p / q for p, q in zip(pairs_v["v3"], pairs_v["xla"])]
+    print(f"  alternating pairs, 10 steps each, images/s: v3 "
+          f"{[round(v, 2) for v in pairs_v['v3']]}, xla {[round(v, 2) for v in pairs_v['xla']]}; "
+          f"v3 / xla {[round(r, 4) for r in ratios_v]}, median {float(np.median(ratios_v)):.4f}; "
+          f"host issue v3 {issue_v['v3']:.3f} ms, xla {issue_v['xla']:.3f} ms")
+    # 5v-c: the packed body at 256², base 64, f32 (model.packed_min_size=0):
+    # level 2's two 256 -> 256 convs with the prologue take the two-pass
+    # backward, #30 for dt and #33 for dW in place of the fused dx and dW
+    cfg_c = parse_overrides(["preset=baseline_2", "model.packed_min_size=0"] + host)
+    counts_vc, ips_vc, peak_vc, loss_vc, first_vc = run_steps(cfg_c, 3, 10, cuda, no_sync=True)
+    two_pass_step = dict(PER_STEP, conv3x3_bn_dx_bn=PER_STEP["conv3x3_bn_dx_bn"] - 2,
+                         conv3x3_bn_dw=PER_STEP["conv3x3_bn_dw"] - 2, ce_fwd=1, ce_bwd=1)
+    print(f"  5v-c baseline_2 model.packed_min_size=0 (f32), 13 steps: {ips_vc:.2f} img/s, "
+          f"peak {peak_vc:.0f} MiB, loss {first_vc:.4f} -> {loss_vc:.4f}; packed launches "
+          f"{ {k: counts_vc[k] for k in two_pass_step} }")
+    for k, n in two_pass_step.items():
+        need(counts_vc[k] == 13 * n, f"{k} launches == steps x {n} (5v-c)")
+    v3_counts_ok(counts_vc, "5v-c", 0, 0, dt=26, dw_bn=26)
+    # 5v-d: baseline_1 with conv_impl=v3 (128² f32: every conv but the stem,
+    # both routes), one SGD step on the card against the CPU
+    reset_counts()
+    agree_with_cpu(["preset=baseline_1", "model.conv_impl=v3"],
+                   "baseline_1 model.conv_impl=v3 128² f32", f64=True)
+    n_d = v3_convs(parse_overrides(["preset=baseline_1", "model.conv_impl=v3"]))
+    v3_counts_ok(read_counts(), "5v-d", n_d, n_d)
+    # 5v-e: the config cl_tpu fails is refused before training
+    try:
+        tl.check_supported(parse_overrides(["preset=baseline_2", "model.conv_impl=v3"]), cuda)
+    except NotImplementedError as exc:
+        print(f"  5v-e preset=baseline_2 model.conv_impl=v3 (f32) refused: {exc}")
+    else:
+        need(False, "preset=baseline_2 model.conv_impl=v3 (f32) is refused")
+
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
         0: counts_b1, 1: counts_f, 2: counts_b1u, 3: counts_u}
@@ -2650,6 +2942,30 @@ def main() -> int:
         print(f"  augment at {shape}: image {t_img[0]:.4f} ms (plain {t_img[1]:.4f}, library "
               f"{t_img[2]:.4f}, bound {bounds[0]:.4f}), mask {t_msk[0]:.4f} ms (plain "
               f"{t_msk[1]:.4f}, library {t_msk[2]:.4f}, bound {bounds[1]:.4f})")
+    # the gen-3 kernels: #30 and #31 at baseline_2's 256² x 64 -> 64 f32
+    # (launches of 5v-a's train()), #33 at the two-pass shape (5v-c's)
+    v3_launches = {"conv3x3_fwd": sum(counts_va[k] for k in V3_KERNELS["conv3x3_fwd"][2]),
+                   "conv3x3_dw": counts_va["conv3x3_dw"],
+                   "conv3x3_dw_bn": counts_vc["conv3x3_dw_bn"]}
+    for kernel, (source, replaces, _) in V3_KERNELS.items():
+        for i, shape in enumerate(V3_SHAPES[kernel]):
+            for dtype_name in ("float32", "bfloat16"):
+                if kernel == "conv3x3_dw_bn" and dtype_name == "bfloat16":
+                    continue
+                times = v3_times(kernel, shape, dtype_name)
+                bo = v3_bytes_ops(kernel, shape, dtype_name)
+                bound = max(bo[0] / HBM_BYTES_PER_S, bo[1] / PEAK_OPS[dtype_name]) * 1e3
+                line = (f"  {v3_name(kernel, shape, dtype_name)}: {times[0]:.4f} ms "
+                        f"(synchronised per launch {times[3]:.4f}; plain {times[1]:.4f}, "
+                        f"library {times[2]:.4f}, bound {bound:.4f})")
+                if i == 0 and dtype_name == "float32":
+                    entry = json_entry(v3_name(kernel, shape, dtype_name), source, replaces,
+                                       v3_launches[kernel], v3_errs[(kernel, shape)], times,
+                                       bo, peak="float32")
+                    kernels.append(entry)
+                    line += f"; launches {entry['launches']} in phase " + \
+                        ("5v-c" if kernel == "conv3x3_dw_bn" else "5v-a")
+                print(line)
     sums = [sum(v[i] for v in per_step_ms.values()) for i in (0, 4)]
     print(f"  per packed train step, all packed kernels: {sums[0]:.4f} ms (synchronised per "
           f"launch {sums[1]:.4f})")
@@ -2666,7 +2982,10 @@ def main() -> int:
           f"{ips_m:.2f} (peak {peak_m:.0f} MiB)")
     print("  train() images/s as the presets ship (phase 5d): " + ", ".join(
         f"{name} {r[0].get('images_per_sec_per_chip')}" for name, r in runs_d.items())
-        + f"; baseline_3 on the host pipeline {ips_hp}")
+        + f"; baseline_3 on the host pipeline {ips_hp}; baseline_2 with conv_impl=auto "
+        f"{report_va.get('images_per_sec_per_chip')} (5v-a)")
+    print(f"  5v step images/s: baseline_2 conv_impl=v3 bf16 {ips_vb:.2f} (peak {peak_vb:.0f} "
+          f"MiB), packed_min_size=0 f32 {ips_vc:.2f} (peak {peak_vc:.0f} MiB)")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -34,9 +34,20 @@
 // the dx reads dy, y and x and writes dx, 537 MB, 160 us), operations on
 // the FMA units (580 us at the f32 peak of 67 TFLOP/s).
 //
-// Two kernels, each templated on what it computes (forward or dx); the
-// staging of the window and the epilogue differ, the tile, the tap loop
-// and the fixed-order sums are shared:
+// Also the plain gen-3 conv, cl_tpu/pallas/conv3x3_v3.py::_fwd_kernel
+// (launched at conv3x3_v3.py:522 by `_fwd_packed`): y = round(conv3x3_SAME(x,
+// w)), no prologue and no statistics, as the forward of `conv3x3` /
+// `conv3x3_packed` under model.conv_impl=v3|auto, as their dx (the same conv
+// on dy with the flipped, transposed weight, :619-620, :641-642) and as the
+// two-pass backward's dt (:965). Its kernels are the instances
+// `conv3x3_v3_kernel` / `conv3x3_v3_mma_kernel` of the bodies below with
+// MODE = kPlain: x staged as it is, the accumulator rounded and stored,
+// no sums. At baseline_2's 256^2 x 64 -> 64, batch 8, f32 (FMA): 38.7
+// GFLOP, 577 us at 67 TFLOP/s, against 268 MB, 80 us.
+//
+// Two bodies, each templated on what it computes (forward, dx or plain);
+// the staging of the window and the epilogue differ, the tile, the tap
+// loop and the fixed-order sums are shared:
 //
 // * bf16: an implicit GEMM on the tensor cores, mma.sync m16n8k16 with f32
 //   accumulation (bf16 products are exact, so only the f32 sum order
@@ -69,6 +80,10 @@ namespace {
 constexpr int kCoT = 32, kCiT = 16;  // output channels / input chunk
 constexpr int kConvThreads = 128;
 
+// What a body computes: the forward with the BN-ReLU prologue and the stats
+// epilogue, the dx with the prologue's backward, or the plain conv.
+constexpr int kFwd = 0, kDx = 1, kPlain = 2;
+
 // Operands of one launch. `Cin` / `Cout` are the channels the kernel reads
 // and writes: for dx, the forward's Cout and Cin.
 template <typename T> struct ConvArgs {
@@ -88,10 +103,12 @@ template <typename T> struct ConvArgs {
 
 // The epilogue at one output (pixel offset `pix`, channel o) from the f32
 // accumulator: returns the stored value and adds to the two sums.
-template <bool DX, typename T>
+template <int MODE, typename T>
 __device__ __forceinline__ T epilogue_one(const ConvArgs<T>& p, int64_t pix, int o, float acc,
                                           float& s1, float& s2) {
-  if constexpr (!DX) {
+  if constexpr (MODE == kPlain) {
+    return from_f32<T>(acc);
+  } else if constexpr (MODE == kFwd) {
     const T yv = from_f32<T>(acc);
     const float yr = to_f32(yv);
     s1 += yr;
@@ -107,13 +124,21 @@ __device__ __forceinline__ T epilogue_one(const ConvArgs<T>& p, int64_t pix, int
   }
 }
 
-template <bool DX, typename T>
+template <int MODE, typename T>
 __device__ __forceinline__ bool has_sums(const ConvArgs<T>& p) {
-  return !DX || p.prologue;
+  return MODE == kFwd || (MODE == kDx && p.prologue);
 }
 
-template <bool DX, typename T>
-__global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p) {
+// The staged input at one in-image pixel: t (forward: the prologue, if on;
+// plain: x itself) or e (dx).
+template <int MODE, typename T>
+__device__ __forceinline__ float staged_at(const ConvArgs<T>& p, int64_t i, int c) {
+  if constexpr (MODE == kDx) return e_at(p.in, p.y, i, c, p.s1, p.s2);
+  return t_at(p.in, i, c, MODE == kFwd ? p.prologue : 0, p.pa, p.pb);
+}
+
+template <int MODE, typename T>
+__device__ __forceinline__ void conv3x3_fma_body(const ConvArgs<T>& p) {
   __shared__ __align__(16) float in_s[kCiT][kWinH][kWinW];
   __shared__ __align__(16) float w_s[kCiT][9][kCoT];
 
@@ -142,7 +167,7 @@ __global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p)
       float v = 0.f;  // SAME padding: zero in t-space and in e-space
       if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin) {
         const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
-        v = DX ? e_at(p.in, p.y, i, c, p.s1, p.s2) : t_at(p.in, i, c, p.prologue, p.pa, p.pb);
+        v = staged_at<MODE>(p, i, c);
       }
       in_s[ci][wy][wx] = v;
     }
@@ -189,11 +214,12 @@ __global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p)
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int o = co0 + cg + c;
-        if (o < Cout) p.out[pix * Cout + o] = epilogue_one<DX>(p, pix, o, acc[q][c], s1[c], s2[c]);
+        if (o < Cout)
+          p.out[pix * Cout + o] = epilogue_one<MODE>(p, pix, o, acc[q][c], s1[c], s2[c]);
       }
     }
   }
-  if (!has_sums<DX>(p)) return;
+  if (!has_sums<MODE>(p)) return;
   const int blk = b * gridDim.x + blockIdx.x;  // partial row of this tile
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
@@ -207,6 +233,16 @@ __global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p)
   }
 }
 
+template <bool DX, typename T>
+__global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p) {
+  conv3x3_fma_body<DX ? kDx : kFwd>(p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kConvThreads) conv3x3_v3_kernel(ConvArgs<T> p) {
+  conv3x3_fma_body<kPlain>(p);
+}
+
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
@@ -214,8 +250,8 @@ __global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p)
 constexpr int kMmaThreads = 256;
 constexpr int kRowS = 24;  // bf16 per staged row: 16 channels + 8 padding
 
-template <bool DX, int COT>
-__global__ void __launch_bounds__(kMmaThreads) conv3x3_bn_mma_kernel(ConvArgs<bf16> p) {
+template <int MODE, int COT>
+__device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
   constexpr int NT = COT / 8;  // n8 tiles per warp
   __shared__ __align__(16) bf16 in_s[kWinH * kWinW * kRowS];
   __shared__ __align__(16) bf16 w_s[9 * COT * kRowS];
@@ -246,12 +282,12 @@ __global__ void __launch_bounds__(kMmaThreads) conv3x3_bn_mma_kernel(ConvArgs<bf
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
       const int c = ci0 + half * 8;
       const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
-      if constexpr (DX)
+      if constexpr (MODE == kDx)
         stage8_e(&in_s[pix * kRowS + half * 8], p.in + i, p.s1 ? p.y + i : nullptr, c, Cin,
                  inside, p.s1, p.s2);
       else
-        stage8_t(&in_s[pix * kRowS + half * 8], p.in + i, c, Cin, inside, p.prologue, p.pa,
-                 p.pb);
+        stage8_t(&in_s[pix * kRowS + half * 8], p.in + i, c, Cin, inside,
+                 MODE == kFwd ? p.prologue : 0, p.pa, p.pb);
     }
     for (int e = threadIdx.x; e < 9 * COT * 2; e += kMmaThreads) {
       const int half = e & 1, row = e >> 1;  // row = tap * COT + co
@@ -306,12 +342,12 @@ __global__ void __launch_bounds__(kMmaThreads) conv3x3_bn_mma_kernel(ConvArgs<bf
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int o = co0 + n * 8 + 2 * t;
-        const bf16 r0 = o < Cout
-                            ? epilogue_one<DX>(p, pix, o, acc[m][n][hp * 2], s1[n][0], s2[n][0])
-                            : __float2bfloat16(0.f);
+        const bf16 r0 = o < Cout ? epilogue_one<MODE>(p, pix, o, acc[m][n][hp * 2], s1[n][0],
+                                                      s2[n][0])
+                                 : __float2bfloat16(0.f);
         const bf16 r1 =
             o + 1 < Cout
-                ? epilogue_one<DX>(p, pix, o + 1, acc[m][n][hp * 2 + 1], s1[n][1], s2[n][1])
+                ? epilogue_one<MODE>(p, pix, o + 1, acc[m][n][hp * 2 + 1], s1[n][1], s2[n][1])
                 : __float2bfloat16(0.f);
         if (o + 1 < Cout && (Cout & 1) == 0) {
           *reinterpret_cast<__nv_bfloat162*>(dst + o) = __halves2bfloat162(r0, r1);
@@ -322,7 +358,7 @@ __global__ void __launch_bounds__(kMmaThreads) conv3x3_bn_mma_kernel(ConvArgs<bf
       }
     }
   }
-  if (!has_sums<DX>(p)) return;
+  if (!has_sums<MODE>(p)) return;
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -352,21 +388,40 @@ __global__ void __launch_bounds__(kMmaThreads) conv3x3_bn_mma_kernel(ConvArgs<bf
   }
 }
 
-// Launches the kernel of the type and, when it sums, the reduction of its
-// partial rows into out [2, Cout].
-template <bool DX>
+template <bool DX, int COT>
+__global__ void __launch_bounds__(kMmaThreads) conv3x3_bn_mma_kernel(ConvArgs<bf16> p) {
+  conv3x3_mma_body<DX ? kDx : kFwd, COT>(p);
+}
+
+template <int COT>
+__global__ void __launch_bounds__(kMmaThreads) conv3x3_v3_mma_kernel(ConvArgs<bf16> p) {
+  conv3x3_mma_body<kPlain, COT>(p);
+}
+
+// Launches the kernel of the type and mode and, when it sums, the
+// reduction of its partial rows into out [2, Cout].
+template <int MODE>
 int conv3x3_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, int B, void* out,
                    cudaStream_t st) {
+  constexpr bool DX = MODE == kDx;
   const int H = pf32.H, W = pf32.W, Cout = pf32.Cout;
   const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
+  const dim3 grid32(tiles, (Cout + 31) / 32, B);
+  if constexpr (MODE == kPlain) {
+    if (!is_bf16)
+      conv3x3_v3_kernel<float><<<grid32, kConvThreads, 0, st>>>(pf32);
+    else if (Cout % 64 == 0)
+      conv3x3_v3_mma_kernel<64><<<dim3(tiles, Cout / 64, B), kMmaThreads, 0, st>>>(pb16);
+    else
+      conv3x3_v3_mma_kernel<32><<<grid32, kMmaThreads, 0, st>>>(pb16);
+    return (int)cudaGetLastError();
+  }
   if (!is_bf16)
-    conv3x3_bn_kernel<DX, float>
-        <<<dim3(tiles, (Cout + kCoT - 1) / kCoT, B), kConvThreads, 0, st>>>(pf32);
+    conv3x3_bn_kernel<DX, float><<<grid32, kConvThreads, 0, st>>>(pf32);
   else if (Cout % 64 == 0)
     conv3x3_bn_mma_kernel<DX, 64><<<dim3(tiles, Cout / 64, B), kMmaThreads, 0, st>>>(pb16);
   else
-    conv3x3_bn_mma_kernel<DX, 32>
-        <<<dim3(tiles, (Cout + 31) / 32, B), kMmaThreads, 0, st>>>(pb16);
+    conv3x3_bn_mma_kernel<DX, 32><<<grid32, kMmaThreads, 0, st>>>(pb16);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || (DX && !pf32.prologue)) return (int)err;
   reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(pf32.partials, tiles * B, 2 * Cout,
@@ -406,7 +461,7 @@ int cltorch_conv3x3_bn_fwd(const void* x, const void* w, const void* a, const vo
                            void* partials, void* out, int B, int H, int W, int Cin, int Cout,
                            int prologue, int is_bf16, void* stream) {
   using namespace cltorch;
-  return conv3x3_launch<false>(
+  return conv3x3_launch<kFwd>(
       conv_args<bf16>(x, nullptr, nullptr, nullptr, w, a, b, nullptr, y, partials, H, W, Cin,
                       Cout, prologue),
       conv_args<float>(x, nullptr, nullptr, nullptr, w, a, b, nullptr, y, partials, H, W, Cin,
@@ -421,10 +476,23 @@ int cltorch_conv3x3_bn_dx(const void* dy, const void* y, const void* s1, const v
                           void* partials, void* out, int B, int H, int W, int Cin, int Cout,
                           int prologue, int is_bf16, void* stream) {
   using namespace cltorch;
-  return conv3x3_launch<true>(
+  return conv3x3_launch<kDx>(
       conv_args<bf16>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
       conv_args<float>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
       is_bf16, B, out, static_cast<cudaStream_t>(stream));
+}
+
+// The plain gen-3 conv: x [B, H, W, Cin] -> y [B, H, W, Cout], w as for
+// the forward above.
+int cltorch_conv3x3_fwd(const void* x, const void* w, void* y, int B, int H, int W, int Cin,
+                        int Cout, int is_bf16, void* stream) {
+  using namespace cltorch;
+  return conv3x3_launch<kPlain>(
+      conv_args<bf16>(x, nullptr, nullptr, nullptr, w, nullptr, nullptr, nullptr, y, nullptr, H,
+                      W, Cin, Cout, 0),
+      conv_args<float>(x, nullptr, nullptr, nullptr, w, nullptr, nullptr, nullptr, y, nullptr,
+                       H, W, Cin, Cout, 0),
+      is_bf16, B, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Weight gradient of the 3x3 SAME conv with the BN-ReLU prologue.
+// Weight gradient of the 3x3 SAME conv with the BN-ReLU prologue, and of
+// the plain gen-3 conv.
 //
 // Replaces the TPU kernel cl_tpu/pallas/conv3x3_v3.py::_dw_bn2_kernel
 // (launched at conv3x3_v3.py:1332 by `_dw_bn2_impl`, from the fused branch
@@ -12,6 +13,18 @@
 // package's `dw.astype(w.dtype)` does, :957). t and e are staged exactly as
 // the forward and dx kernels stage them (conv3x3_bn.cuh): zero outside the
 // image, the same rounding points.
+//
+// Two more instances of the same bodies (KIND below), each computing only
+// its own function:
+// * cl_tpu/pallas/conv3x3_v3.py::_dw_kernel (launched at :564 by
+//   `_dw_packed`), the dW of `conv3x3` / `conv3x3_packed` under
+//   model.conv_impl=v3|auto: t = x, e = dy, no y or stats reads (kDwPlain;
+//   the VJP rounds dW once to the compute type, :621, :643);
+// * ::_dw_bn_kernel (launched at :870 by `_dw_bn_impl`), the two-pass
+//   backward's dW (:966): t recomputed through the prologue when it is on,
+//   e the MATERIALIZED dy_eff read as it is (kDwBn).
+// At baseline_2's 256^2 x 64 -> 64 (batch 8, f32, FMA) #31 does 38.7 GFLOP,
+// 577 us at 67 TFLOP/s, against 268 MB read, 80 us.
 //
 // What bounds it on the H100: at the packed body's shapes, bytes on the
 // tensor cores (512^2 x 32 -> 32 at batch 8: x, dy and y read once, 403 MB,
@@ -43,6 +56,21 @@ namespace {
 
 constexpr int kDwC = 32;  // input and output channels of a block's tile
 
+// What a body computes: the fused dW (prologue if on, e formed from dy, y
+// and the stats cotangents), the plain dW (t = x, e = dy), or the two-pass
+// dW (prologue if on, e = dy as given).
+constexpr int kDwFused = 0, kDwPlain = 1, kDwBn = 2;
+
+template <int KIND>
+__device__ __forceinline__ int dw_prologue(int prologue) {
+  return KIND == kDwPlain ? 0 : prologue;
+}
+
+template <int KIND>
+__device__ __forceinline__ const float* dw_stats(const float* s) {
+  return KIND == kDwFused ? s : nullptr;
+}
+
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
@@ -50,12 +78,19 @@ constexpr int kDwC = 32;  // input and output channels of a block's tile
 constexpr int kDwThreads = 9 * 32;
 constexpr int kDwRow = 40;  // bf16 per staged pixel: 32 channels + 8 padding
 
-__global__ void __launch_bounds__(kDwThreads)
-conv3x3_dw_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ pa,
-                      const float* __restrict__ pb, const bf16* __restrict__ dy,
-                      const bf16* __restrict__ y, const float* __restrict__ s1,
-                      const float* __restrict__ s2, float* __restrict__ partials, int B, int H,
-                      int W, int Cin, int Cout, int prologue) {
+template <int KIND>
+__device__ __forceinline__ void dw_mma_body(const bf16* __restrict__ x,
+                                            const float* __restrict__ pa,
+                                            const float* __restrict__ pb,
+                                            const bf16* __restrict__ dy,
+                                            const bf16* __restrict__ y,
+                                            const float* __restrict__ s1_in,
+                                            const float* __restrict__ s2_in,
+                                            float* __restrict__ partials, int B, int H, int W,
+                                            int Cin, int Cout, int prologue_in) {
+  const int prologue = dw_prologue<KIND>(prologue_in);
+  const float* s1 = dw_stats<KIND>(s1_in);
+  const float* s2 = dw_stats<KIND>(s2_in);
   __shared__ __align__(16) bf16 t_s[kWinH * kWinW * kDwRow];
   __shared__ __align__(16) bf16 e_s[kTH * kTW * kDwRow];
   const int ci0 = blockIdx.x * kDwC, co0 = blockIdx.y * kDwC;
@@ -141,12 +176,19 @@ conv3x3_dw_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ pa,
 constexpr int kDwfThreads = 256;
 constexpr int kDwfTH = 8;  // pixel tile rows (x 16 columns)
 
-__global__ void __launch_bounds__(kDwfThreads)
-conv3x3_dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ pa,
-                      const float* __restrict__ pb, const float* __restrict__ dy,
-                      const float* __restrict__ y, const float* __restrict__ s1,
-                      const float* __restrict__ s2, float* __restrict__ partials, int B, int H,
-                      int W, int Cin, int Cout, int prologue) {
+template <int KIND>
+__device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
+                                            const float* __restrict__ pa,
+                                            const float* __restrict__ pb,
+                                            const float* __restrict__ dy,
+                                            const float* __restrict__ y,
+                                            const float* __restrict__ s1_in,
+                                            const float* __restrict__ s2_in,
+                                            float* __restrict__ partials, int B, int H, int W,
+                                            int Cin, int Cout, int prologue_in) {
+  const int prologue = dw_prologue<KIND>(prologue_in);
+  const float* s1 = dw_stats<KIND>(s1_in);
+  const float* s2 = dw_stats<KIND>(s2_in);
   __shared__ float t_s[(kDwfTH + 2) * kWinW][kDwC];
   __shared__ __align__(16) float e_s[kDwfTH * kTW][kDwC];
   const int ci0 = blockIdx.x * kDwC, co0 = blockIdx.y * kDwC;
@@ -211,6 +253,39 @@ conv3x3_dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ pa,
   }
 }
 
+// The kernels: one instance of each body per KIND, named for the profile
+// families (conv3x3_dw*: the packed body's; conv3x3_v3_dw*: the gen-3
+// conv's).
+#define CLTORCH_DW_PARAMS(T)                                                              \
+  const T *__restrict__ x, const float *__restrict__ pa, const float *__restrict__ pb,   \
+      const T *__restrict__ dy, const T *__restrict__ y, const float *__restrict__ s1,    \
+      const float *__restrict__ s2, float *__restrict__ partials, int B, int H, int W,    \
+      int Cin, int Cout, int prologue
+#define CLTORCH_DW_ARGS x, pa, pb, dy, y, s1, s2, partials, B, H, W, Cin, Cout, prologue
+
+__global__ void __launch_bounds__(kDwThreads) conv3x3_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
+  dw_mma_body<kDwFused>(CLTORCH_DW_ARGS);
+}
+__global__ void __launch_bounds__(kDwThreads)
+    conv3x3_v3_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
+  dw_mma_body<kDwPlain>(CLTORCH_DW_ARGS);
+}
+__global__ void __launch_bounds__(kDwThreads)
+    conv3x3_v3_dw_bn_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
+  dw_mma_body<kDwBn>(CLTORCH_DW_ARGS);
+}
+__global__ void __launch_bounds__(kDwfThreads) conv3x3_dw_fma_kernel(CLTORCH_DW_PARAMS(float)) {
+  dw_fma_body<kDwFused>(CLTORCH_DW_ARGS);
+}
+__global__ void __launch_bounds__(kDwfThreads)
+    conv3x3_v3_dw_fma_kernel(CLTORCH_DW_PARAMS(float)) {
+  dw_fma_body<kDwPlain>(CLTORCH_DW_ARGS);
+}
+__global__ void __launch_bounds__(kDwfThreads)
+    conv3x3_v3_dw_bn_fma_kernel(CLTORCH_DW_PARAMS(float)) {
+  dw_fma_body<kDwBn>(CLTORCH_DW_ARGS);
+}
+
 // out[j] = sum over s < splits of part[s * n + j], in order of s.
 __global__ void sum_splits_kernel(const float* __restrict__ part, int splits, int64_t n,
                                   float* __restrict__ out) {
@@ -230,33 +305,85 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, int splits, in
 // one type; a, b f32 [Cin] (read only with `prologue`); s1, s2 f32 [Cout]
 // or null (e = dy); `partials` holds splits * Cout * Cin * 9 floats; dw is
 // f32 [Cout, Cin, 3, 3].
+namespace cltorch {
+namespace {
+
+// Launches the dW kernel of the type and KIND, then the fixed-order sum of
+// its partials.
+template <int KIND>
+int dw_launch(const void* x, const void* a, const void* b, const void* dy, const void* y,
+              const void* s1, const void* s2, void* partials, void* dw, int B, int H, int W,
+              int Cin, int Cout, int prologue, int splits, int is_bf16, cudaStream_t st) {
+  const dim3 grid((Cin + kDwC - 1) / kDwC, (Cout + kDwC - 1) / kDwC, splits);
+  const float *fa = static_cast<const float*>(a), *fb = static_cast<const float*>(b);
+  const float *f1 = static_cast<const float*>(s1), *f2 = static_cast<const float*>(s2);
+  float* part = static_cast<float*>(partials);
+  if (is_bf16) {
+    const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
+               *yb = static_cast<const bf16*>(y);
+    if constexpr (KIND == kDwFused)
+      conv3x3_dw_mma_kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part, B,
+                                                          H, W, Cin, Cout, prologue);
+    else if constexpr (KIND == kDwPlain)
+      conv3x3_v3_dw_mma_kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part,
+                                                             B, H, W, Cin, Cout, prologue);
+    else
+      conv3x3_v3_dw_bn_mma_kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2,
+                                                                part, B, H, W, Cin, Cout,
+                                                                prologue);
+  } else {
+    const float *xf = static_cast<const float*>(x), *dyf = static_cast<const float*>(dy),
+                *yf = static_cast<const float*>(y);
+    if constexpr (KIND == kDwFused)
+      conv3x3_dw_fma_kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2, part, B,
+                                                           H, W, Cin, Cout, prologue);
+    else if constexpr (KIND == kDwPlain)
+      conv3x3_v3_dw_fma_kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2, part,
+                                                              B, H, W, Cin, Cout, prologue);
+    else
+      conv3x3_v3_dw_bn_fma_kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2,
+                                                                 part, B, H, W, Cin, Cout,
+                                                                 prologue);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n = (int64_t)Cout * Cin * 9;
+  sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, splits, n,
+                                                                  static_cast<float*>(dw));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace cltorch
+
 extern "C" {
 
 int cltorch_conv3x3_bn_dw(const void* x, const void* a, const void* b, const void* dy,
                           const void* y, const void* s1, const void* s2, void* partials,
                           void* dw, int B, int H, int W, int Cin, int Cout, int prologue,
                           int splits, int is_bf16, void* stream) {
-  using namespace cltorch;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((Cin + kDwC - 1) / kDwC, (Cout + kDwC - 1) / kDwC, splits);
-  const float *fa = static_cast<const float*>(a), *fb = static_cast<const float*>(b);
-  const float *f1 = static_cast<const float*>(s1), *f2 = static_cast<const float*>(s2);
-  if (is_bf16)
-    conv3x3_dw_mma_kernel<<<grid, kDwThreads, 0, st>>>(
-        static_cast<const bf16*>(x), fa, fb, static_cast<const bf16*>(dy),
-        static_cast<const bf16*>(y), f1, f2, static_cast<float*>(partials), B, H, W, Cin, Cout,
-        prologue);
-  else
-    conv3x3_dw_fma_kernel<<<grid, kDwfThreads, 0, st>>>(
-        static_cast<const float*>(x), fa, fb, static_cast<const float*>(dy),
-        static_cast<const float*>(y), f1, f2, static_cast<float*>(partials), B, H, W, Cin, Cout,
-        prologue);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n = (int64_t)Cout * Cin * 9;
-  sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(partials), splits, n, static_cast<float*>(dw));
-  return (int)cudaGetLastError();
+  return cltorch::dw_launch<cltorch::kDwFused>(x, a, b, dy, y, s1, s2, partials, dw, B, H, W,
+                                               Cin, Cout, prologue, splits, is_bf16,
+                                               static_cast<cudaStream_t>(stream));
+}
+
+// The plain gen-3 conv's dW: x [B, H, W, Cin], dy [B, H, W, Cout].
+int cltorch_conv3x3_dw(const void* x, const void* dy, void* partials, void* dw, int B, int H,
+                       int W, int Cin, int Cout, int splits, int is_bf16, void* stream) {
+  return cltorch::dw_launch<cltorch::kDwPlain>(x, nullptr, nullptr, dy, nullptr, nullptr,
+                                               nullptr, partials, dw, B, H, W, Cin, Cout, 0,
+                                               splits, is_bf16,
+                                               static_cast<cudaStream_t>(stream));
+}
+
+// The two-pass backward's dW: x [B, H, W, Cin] through the prologue (a, b
+// f32 [Cin], read only with `prologue`), e [B, H, W, Cout] materialized.
+int cltorch_conv3x3_dw_bn(const void* x, const void* a, const void* b, const void* e,
+                          void* partials, void* dw, int B, int H, int W, int Cin, int Cout,
+                          int prologue, int splits, int is_bf16, void* stream) {
+  return cltorch::dw_launch<cltorch::kDwBn>(x, a, b, e, nullptr, nullptr, nullptr, partials, dw,
+                                            B, H, W, Cin, Cout, prologue, splits, is_bf16,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""Device time of each loss kernel launch, by ``torch.profiler``.
+"""Device time of each loss kernel launch and of the gen-3 conv's, by
+``torch.profiler``.
 
     python -m cl_tpu_torch.kernel_bench [--reps N]
 
@@ -7,10 +8,13 @@ features, #9/#10, and the KD on logits, #13/#14) forward and backward on
 seeded operands on the CUDA card, at the shapes of the baseline_1 step
 (131,072 pixels, 32 channels, 2 classes, f32) and of the 512² full-width
 step (2,097,152 pixels, 32 channels, 19 classes, bf16; also at 8
-classes), and prints for each case the mean device time of every CUDA
-kernel it launched and a SHA-256 of its outputs (loss, dx, dW, db / dz;
-the KD forms' KD sum too). Run from two checkouts, the hashes tell
-whether two versions of a kernel give the same bits.
+classes); then the gen-3 plain conv (#30 forward and dx, #31 dW) at
+baseline_2's 256² × 64 → 64, batch 8, f32 and bf16, and the two-pass
+backward's dW (#33) at 64² × 256 → 256 with the prologue, f32. It prints
+for each case the mean device time of every CUDA kernel it launched and a
+SHA-256 of its outputs (loss, dx, dW, db / dz; the KD forms' KD sum too;
+the conv's y, dx and dW). Run from two checkouts, the hashes tell whether
+two versions of a kernel give the same bits.
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ CASES = (  # kind, pixels, Cin, classes, dtype
     ("ce", 2097152, 0, 19, torch.bfloat16),
     ("head_ce_kd", 2097152, 32, 19, torch.bfloat16),
     ("kd", 2097152, 0, 19, torch.bfloat16),
+    # the gen-3 conv: "pixels" is the batch-8 square's side, Cin -> C
+    ("conv3x3", 256, 64, 64, torch.float32),
+    ("conv3x3", 256, 64, 64, torch.bfloat16),
+    ("conv3x3_dw_bn", 64, 256, 256, torch.float32),
 )
 LWF_T = 2.0  # method.lwf_temperature's default
 
@@ -76,9 +84,30 @@ def kd_operands(kind, P, cin, C, dtype, seed):
     return (z, old, old_valid, labels), scale
 
 
+def conv_operands(kind, H, cin, C, dtype, seed):
+    """The gen-3 conv's operands on the card, batch 8: x, w and dy (#30,
+    #31), or x, a, b and a materialized e (#33, the prologue on)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    x, dy = randn(8, H, H, cin).to(dtype), randn(8, H, H, C).to(dtype)
+    if kind == "conv3x3":
+        return (x, randn(C, cin, 3, 3) * (9 * cin) ** -0.5, dy), None
+    return (x, randn(cin).abs() + 0.5, randn(cin) * 0.5, dy), None
+
+
 def run(kind, args, scale):
     """One forward and one backward launch; returns the outputs."""
-    from cl_tpu_torch.kernels import ce_loss, head_ce, kd_loss
+    from cl_tpu_torch.kernels import ce_loss, conv3x3, head_ce, kd_loss
+
+    if kind == "conv3x3":  # #30 forward and dx, #31
+        x, w, dy = args
+        return (conv3x3.launch_conv3x3(x, w), conv3x3.launch_conv3x3(dy, conv3x3._flip_t(w)),
+                conv3x3.launch_conv3x3_dw(x, dy))
+    if kind == "conv3x3_dw_bn":  # #33
+        return (conv3x3.launch_conv3x3_dw_bn(*args, True),)
 
     if kind == "head_ce_kd":
         s = scale.reshape(())
@@ -113,7 +142,8 @@ def main(argv: list[str] | None = None) -> int:
     build.library()
     print(torch.cuda.get_device_name(0))
     for i, (kind, P, cin, C, dtype) in enumerate(CASES):
-        make = kd_operands if kind in ("head_ce_kd", "kd") else operands
+        make = kd_operands if kind in ("head_ce_kd", "kd") else \
+            conv_operands if kind.startswith("conv") else operands
         ops, scale = make(kind, P, cin, C, dtype, seed=i + 1)
         outs = run(kind, ops, scale)
         for _ in range(3):
@@ -127,7 +157,8 @@ def main(argv: list[str] | None = None) -> int:
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and "kernel" in e.name:
                 times.setdefault(e.name, []).append(e.time_range.elapsed_us())
-        shape = f"P={P},Cin={cin},C={C}" if cin else f"P={P},C={C}"
+        shape = f"8x{P}x{P},{cin}->{C}" if kind.startswith("conv") else \
+            f"P={P},Cin={cin},C={C}" if cin else f"P={P},C={C}"
         print(f"{kind}[{shape},{str(dtype).split('.')[-1]}] outputs {digest(outs)}")
         for name, us in sorted(times.items()):
             print(f"  {sum(us) / len(us) / 1e3:.4f} ms mean of {len(us):3d}  {name[:80]}")

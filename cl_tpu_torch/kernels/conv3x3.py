@@ -1,5 +1,6 @@
 """3×3 SAME conv with a BN·ReLU prologue and a batch-stats epilogue, and its
-backward (``csrc/conv3x3_bn.cu``, ``csrc/conv3x3_bn_bwd.cu``).
+backward (``csrc/conv3x3_bn.cu``, ``csrc/conv3x3_bn_bwd.cu``); and the
+plain gen-3 conv of ``model.conv_impl=v3|auto`` with its backward.
 
 Counterpart of ``cl_tpu.pallas.conv3x3_v3.conv_bn_fused``: every conv of
 the packed body. With ``prologue`` on, the input is first mapped to
@@ -18,6 +19,19 @@ rounded, da = Σ[u>0]·dt·x, db = Σ[u>0]·dt (without the prologue dx is dt
 rounded); dW = Σ tᵀ★e with t recomputed, summed in f32 and rounded once to
 the dtype (``dw.astype(w.dtype)``, w being of the compute dtype there).
 dx is computed only where autograd needs it (not for the stem's image).
+Where ``cl_tpu``'s fused backward kernels find no tile
+(``packed_gate.conv_bwd_two_pass``, at the conv's pack factor ``p``) the
+backward is its two-pass branch (``:962-985``): e materialized (f32,
+rounded to the dtype), dt = the plain conv (#30) of e, ROUNDED to the
+dtype, dW = #33 (the prologue recomputed over the materialized e), and
+the prologue's backward in torch on the rounded dt.
+
+``conv3x3`` is ``cl_tpu.pallas.conv3x3_v3.conv3x3`` (and
+``conv3x3_packed``, the same arithmetic): y = conv3x3_SAME(x, w) summed in
+f32 and rounded to x's dtype, no prologue, no statistics (#30). Its VJP
+(``:629-648``): dy cast to x's dtype, dx = #30 on dy with the flipped,
+transposed weight, dW = Σ xᵀ★dy in f32 (#31) rounded once to the compute
+dtype.
 
 ``w`` is the port's conv weight [Cout, Cin, 3, 3] (f32), rounded to x's
 dtype as the JAX package rounds its kernel. Tensors are NHWC.
@@ -32,11 +46,17 @@ import torch
 import torch.nn.functional as F
 
 from cl_tpu_torch.kernels import SPLIT_BLOCKS, build
+from cl_tpu_torch.models.packed_gate import conv_bwd_two_pass, pick_pack
 
 TILE = 16  # output tile of the kernels (rows and columns)
 
 LAUNCHES = {"conv3x3_bn_fwd": 0, "conv3x3_bn_dx": 0, "conv3x3_bn_dx_bn": 0,
-            "conv3x3_bn_dw": 0}
+            "conv3x3_bn_dw": 0,
+            # the gen-3 plain conv (#30) as a forward, as the dx of its VJP,
+            # and as the two-pass backward's dt; its dW (#31); the two-pass
+            # backward's dW with the prologue (#33)
+            "conv3x3_fwd": 0, "conv3x3_dx": 0, "conv3x3_dt": 0, "conv3x3_dw": 0,
+            "conv3x3_dw_bn": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -53,10 +73,14 @@ def _nchw(t):
     return t.float().permute(0, 3, 1, 2)
 
 
+def conv3x3_plain(x, w):
+    """#30: y = conv3x3_SAME(x, w) in f32, rounded to x's dtype (NHWC)."""
+    y = F.conv2d(_nchw(x), w.to(x.dtype).float(), padding=1)
+    return y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
+
+
 def conv_bn_plain(x, w, a=None, b=None, prologue=False):
-    t = prologue_t(x, a, b, prologue)
-    y = F.conv2d(_nchw(t), w.to(x.dtype).float(), padding=1)
-    y = y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
+    y = conv3x3_plain(prologue_t(x, a, b, prologue), w)
     yf = y.float().reshape(-1, y.shape[-1])
     return y, yf.sum(0), (yf * yf).sum(0)
 
@@ -80,8 +104,14 @@ def conv_dx_plain(x, w, a, b, y, dy, ds1, ds2, prologue):
     dt = F.conv_transpose2d(_nchw(e), w.to(x.dtype).float(), padding=1).permute(0, 2, 3, 1)
     if not prologue:
         return dt.to(x.dtype), None, None
+    return prologue_bwd(x, a, b, dt)
+
+
+def prologue_bwd(x, a, b, dt):
+    """(dx, da, db) of t = relu(x·a + b) from dt (read in f32): u = x·a + b,
+    du = [u > 0]·dt, dx = du·a rounded to x's dtype, da = Σ du·x, db = Σ du."""
     xf = x.float()
-    du = torch.where(xf * a + b > 0, dt, 0.0)
+    du = torch.where(xf * a + b > 0, dt.float(), 0.0)
     dx = (du * a).to(x.dtype)
     du, xf = du.reshape(-1, x.shape[-1]), xf.reshape(-1, x.shape[-1])
     return dx, (du * xf).sum(0), du.sum(0)
@@ -90,9 +120,26 @@ def conv_dx_plain(x, w, a, b, y, dy, ds1, ds2, prologue):
 def conv_dw_plain(x, w, a, b, y, dy, ds1, ds2, prologue):
     """dW [Cout, Cin, 3, 3] rounded to x's dtype, as f32."""
     e = dy_eff(dy, y, ds1, ds2)
-    dw = torch.nn.grad.conv2d_weight(_nchw(prologue_t(x, a, b, prologue)), w.shape, _nchw(e),
-                                     padding=1)
-    return dw.to(x.dtype).float()
+    return conv3x3_dw_bn_plain(x, a, b, e, prologue).to(x.dtype).float()
+
+
+def conv3x3_dw_plain(x, dy):
+    """#31: dW [Cout, Cin, 3, 3] = Σ over the batch of x ★ dy, f32, not
+    rounded (the VJP rounds it)."""
+    return conv3x3_dw_bn_plain(x, None, None, dy, False)
+
+
+def conv3x3_dw_bn_plain(x, a, b, e, prologue):
+    """#33: dW [Cout, Cin, 3, 3] of t = prologue_t(x) against a materialized
+    e, f32, not rounded."""
+    t = prologue_t(x, a, b, prologue)
+    return torch.nn.grad.conv2d_weight(_nchw(t), (e.shape[-1], x.shape[-1], 3, 3), _nchw(e),
+                                       padding=1)
+
+
+def _flip_t(w):
+    """The dx conv's weight: w flipped in space, Cin and Cout swapped."""
+    return w.flip(2, 3).transpose(0, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +219,7 @@ def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue):
     cout = w.shape[0]
     # the dx conv reads Cout channels and writes Cin: the flipped, transposed
     # weight in the kernel layout of a conv Cout -> Cin
-    wdx = _kernel_weight(w.flip(2, 3).transpose(0, 1), x.dtype)
+    wdx = _kernel_weight(_flip_t(w), x.dtype)
     if prologue:
         a, b = _vec(a, cin, x.device, "conv prologue"), _vec(b, cin, x.device, "conv prologue")
     dx = torch.empty_like(x)
@@ -219,16 +266,135 @@ def launch_conv_dw(x, w, a, b, y, dy, ds1, ds2, prologue):
     return dw.to(x.dtype).float()
 
 
+def launch_conv3x3(x, w):
+    """#30 on the card: y = conv3x3_SAME(x, w) in x's dtype."""
+    _check_nhwc(x, "conv3x3 kernel")
+    B, H, W, cin = x.shape
+    cout = w.shape[0]
+    if w.shape != (cout, cin, 3, 3):
+        raise ValueError(f"conv3x3 kernel: weight [Cout, {cin}, 3, 3] expected, "
+                         f"got {tuple(w.shape)}")
+    wk = _kernel_weight(w, x.dtype)
+    y = torch.empty(B, H, W, cout, dtype=x.dtype, device=x.device)
+    err = build.library().cltorch_conv3x3_fwd(
+        x.data_ptr(), wk.data_ptr(), y.data_ptr(), B, H, W, cin, cout,
+        int(x.dtype == torch.bfloat16), _stream(x))
+    build.check(err, "conv3x3_fwd")
+    return y
+
+
+def _dw_outputs(x, e, what):
+    """The dW kernels' shared checks and outputs: (shape args, splits, bf16
+    flag, partials, dW)."""
+    _check_nhwc(x, what)
+    _check_nhwc(e, what)
+    B, H, W, cin = x.shape
+    cout = e.shape[-1]
+    if e.shape[:3] != x.shape[:3] or e.dtype != x.dtype:
+        raise ValueError(f"{what}: dy of shape {(B, H, W)} + [Cout] and {x.dtype} expected")
+    bf16 = x.dtype == torch.bfloat16
+    splits = dw_splits(cin, cout, B, H, W, bf16)
+    partials = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=x.device)
+    dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=x.device)
+    return (B, H, W, cin, cout), splits, int(bf16), partials, dw
+
+
+def launch_conv3x3_dw(x, dy):
+    """#31 on the card: dW [Cout, Cin, 3, 3] f32, not rounded."""
+    shape, splits, bf16, partials, dw = _dw_outputs(x, dy, "conv3x3_dw")
+    err = build.library().cltorch_conv3x3_dw(
+        x.data_ptr(), dy.data_ptr(), partials.data_ptr(), dw.data_ptr(), *shape, splits, bf16,
+        _stream(x))
+    build.check(err, "conv3x3_dw")
+    return dw
+
+
+def launch_conv3x3_dw_bn(x, a, b, e, prologue):
+    """#33 on the card: dW [Cout, Cin, 3, 3] of prologue_t(x) against the
+    materialized e, f32, not rounded."""
+    shape, splits, bf16, partials, dw = _dw_outputs(x, e, "conv3x3_dw_bn")
+    if prologue:
+        a, b = (_vec(v, x.shape[-1], x.device, "conv3x3_dw_bn") for v in (a, b))
+    err = build.library().cltorch_conv3x3_dw_bn(
+        x.data_ptr(), a.data_ptr() if prologue else None, b.data_ptr() if prologue else None,
+        e.data_ptr(), partials.data_ptr(), dw.data_ptr(), *shape, int(prologue), splits, bf16,
+        _stream(x))
+    build.check(err, "conv3x3_dw_bn")
+    return dw
+
+
 # ---------------------------------------------------------------------------
-# autograd wrapper and public entry
+# autograd wrappers and public entries
 # ---------------------------------------------------------------------------
+
+
+def _conv3x3(x, w, key):
+    """#30 (``key`` counts the launch) or its plain version."""
+    if x.is_cuda:
+        LAUNCHES[key] += 1
+        return launch_conv3x3(x, w)
+    return conv3x3_plain(x, w)
+
+
+def _conv3x3_dw(x, dy):
+    if x.is_cuda:
+        LAUNCHES["conv3x3_dw"] += 1
+        return launch_conv3x3_dw(x, dy)
+    return conv3x3_dw_plain(x, dy)
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _conv3x3(x, w, "conv3x3_fwd")
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = _conv3x3(dy, _flip_t(w), "conv3x3_dx") if ctx.needs_input_grad[0] else None
+        dw = _conv3x3_dw(x, dy).to(x.dtype).float() if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def conv3x3(x, w):
+    """``cl_tpu.pallas.conv3x3_v3.conv3x3``: y [B, H, W, Cout] =
+    conv3x3_SAME(x, w) in x's dtype, NHWC; ``w`` the f32 param
+    [Cout, Cin, 3, 3]."""
+    return _Conv3x3.apply(x, w)
+
+
+def _two_pass_backward(ctx, x, w, a, b, y, dy, ds1, ds2):
+    """``_cbf_bwd``'s two-pass branch: e materialized, dt = #30 (rounded),
+    dW = #33, the prologue's backward in torch on the rounded dt."""
+    prologue = ctx.prologue
+    e = dy_eff(dy, y, ds1, ds2)
+    dx = da = db = dw = None
+    if ctx.needs_input_grad[0] or (prologue and any(ctx.needs_input_grad[2:4])):
+        dt = _conv3x3(e, _flip_t(w), "conv3x3_dt")
+        dx, da, db = prologue_bwd(x, a, b, dt) if prologue else (dt, None, None)
+    if ctx.needs_input_grad[1]:
+        if x.is_cuda:
+            LAUNCHES["conv3x3_dw_bn"] += 1
+            dw = launch_conv3x3_dw_bn(x, a, b, e, prologue)
+        else:
+            dw = conv3x3_dw_bn_plain(x, a, b, e, prologue)
+        dw = dw.to(x.dtype).float()
+    return dx, dw, da, db, None, None
 
 
 class _ConvBN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, a, b, prologue):
+    def forward(ctx, x, w, a, b, prologue, p):
         ctx.set_materialize_grads(False)
         ctx.prologue = prologue
+        B, H, W, cin = x.shape
+        cout = w.shape[0]
+        p = p or pick_pack(cin, cout)
+        # cl_tpu's packed view pads the stem's 3 channels to 128 / p
+        cin_view = 128 // p if (p * cin) % 128 else cin
+        ctx.two_pass = conv_bwd_two_pass(H, W, cin_view, cout, p, x.dtype.itemsize, prologue)
         if x.is_cuda:
             LAUNCHES["conv3x3_bn_fwd"] += 1
             y, s1, s2 = launch_conv_bn(x, w, a, b, prologue)
@@ -242,6 +408,8 @@ class _ConvBN(torch.autograd.Function):
         x, w, a, b, y = ctx.saved_tensors
         prologue = ctx.prologue
         dy = torch.zeros_like(y) if dy is None else dy.to(y.dtype).contiguous()
+        if ctx.two_pass:
+            return _two_pass_backward(ctx, x, w, a, b, y, dy, ds1, ds2)
         args = (x, w, a, b, y, dy, ds1, ds2, prologue)
         dx = da = db = dw = None
         if ctx.needs_input_grad[0] or (prologue and any(ctx.needs_input_grad[2:4])):
@@ -256,10 +424,12 @@ class _ConvBN(torch.autograd.Function):
                 dw = launch_conv_dw(*args)
             else:
                 dw = conv_dw_plain(*args)
-        return dx, dw, da, db, None
+        return dx, dw, da, db, None, None
 
 
-def conv_bn_fused(x, w, a=None, b=None, prologue=False):
+def conv_bn_fused(x, w, a=None, b=None, prologue=False, p=None):
     """(y [B, H, W, Cout], Σy [Cout], Σy² [Cout]) of the conv of
-    t = relu(x·a + b) (``prologue``) or t = x, NHWC in x's dtype."""
-    return _ConvBN.apply(x, w, a, b, prologue)
+    t = relu(x·a + b) (``prologue``) or t = x, NHWC in x's dtype. ``p`` is
+    the pack factor of ``cl_tpu``'s packed view (the level's; None = the
+    conv's own), which decides its backward's branch."""
+    return _ConvBN.apply(x, w, a, b, prologue, p)

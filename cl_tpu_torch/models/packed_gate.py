@@ -1,6 +1,9 @@
-"""Which UNet levels run in the packed body: the integer arithmetic of the
-JAX package's packed-domain gate, copied so the port chooses exactly the
-levels ``cl_tpu.models.unet.packed_prefix`` chooses.
+"""Which UNet levels run in the packed body, which convs of the standard
+body take the gen-3 conv under ``model.conv_impl=v3|auto``, and which
+backward a packed conv takes: the integer arithmetic of the JAX package's
+gates, copied so the port routes exactly where ``cl_tpu`` routes
+(``cl_tpu.models.unet.packed_prefix``, ``DoubleConv`` / ``Conv3x3``, and
+``conv3x3_v3._cbf_bwd``'s choice of its fused or two-pass backward).
 
 Which levels run packed changes the arithmetic, not only the speed: a
 packed level defers its last BatchNorm to the consumer, splits the
@@ -9,14 +12,25 @@ statistics from the stored (compute-dtype) conv output. So the port keeps
 the TPU kernels' tiling limits here, as a gate, although its GPU kernels
 do not need them.
 
-Sources (at their default budgets; the JAX package's tuning environment
-variables are not read): ``cl_tpu/pallas/conv3x3.py::pick_pack``,
-``conv3x3_v3.py::_vmem_estimate / _pick_th / supported``,
-``pool_pack.py::supported / _pick_th`` and
-``upconv_pack.py::geometry``.
+The same holds for the gen-3 routes: the TPU kernels need a tile that
+fits their VMEM budget, and ``cl_tpu`` gates a conv on ``supported()`` at
+an itemsize of 2 but picks its tiles at the real one, so an f32 conv it
+admitted can find no tile and fail its ``caller must gate on
+supported()`` assert (``conv3x3_v3.py:218``); ``standard_body_refusal`` says where,
+so the port refuses those configs instead of running them.
+
+Sources (at their default budgets, with ``CL_TPU_DX_PIPE`` and
+``CL_TPU_FUSE_BWD`` off; the JAX package's tuning environment variables
+are not read): ``cl_tpu/pallas/conv3x3.py::pick_pack``,
+``conv3x3_v3.py::_vmem_estimate / _pick_th / supported / profitable /
+_geometry / _vmem_estimate_dx / _pick_th_dx / _pick_th_dw2 / _cbf_bwd``,
+``cl_tpu/models/unet.py::packed_level_geometry``,
+``pool_pack.py::supported / _pick_th`` and ``upconv_pack.py::geometry``.
 """
 
 from __future__ import annotations
+
+import functools
 
 CONV_VMEM_BUDGET = 20 * 1024 * 1024  # conv3x3_v3._VMEM_BUDGET
 CONV_ROW_TARGET = 8192               # conv3x3_v3._ROW_TARGET
@@ -45,17 +59,54 @@ def _conv_vmem(th, wg, lanes, k, p, c_out, itemsize) -> int:
             + rows * p * c_out * 4)
 
 
-def _conv_pick_th(h, wg, lanes, itemsize, k, p, c_out) -> int:
+def _pick_rows(h, wg, fits) -> int:
+    """The tile-height search the conv pickers share: h itself for small
+    images, else the largest multiple-of-8 divisor of h at most ~8192 dot
+    rows whose estimate fits the budget; 0 if none does."""
     if h <= 16:
-        fits = _conv_vmem(h, wg, lanes, k, p, c_out, itemsize) <= CONV_VMEM_BUDGET
-        return h if fits else 0
+        return h if fits(h) else 0
     th = min(h, max(8, (CONV_ROW_TARGET // max(1, wg)) // 8 * 8))
     while th >= 8:
-        if h % th == 0 and _conv_vmem(
-                th, wg, lanes, k, p, c_out, itemsize) <= CONV_VMEM_BUDGET:
+        if h % th == 0 and fits(th):
             return th
         th -= 8
     return 0
+
+
+def _conv_pick_th(h, wg, lanes, itemsize, k, p, c_out) -> int:
+    """``conv3x3_v3._pick_th``."""
+    return _pick_rows(h, wg, lambda th: _conv_vmem(
+        th, wg, lanes, k, p, c_out, itemsize) <= CONV_VMEM_BUDGET)
+
+
+def _dx_vmem(th, wg, lanes, k, out_lanes, itemsize, epilogue) -> int:
+    """``conv3x3_v3._vmem_estimate_dx`` (two dy slots: no ``_DX_PIPE``)."""
+    rows = th * wg
+    est = (4 * (th + 4) * wg * lanes * itemsize
+           + (th + 4) * wg * lanes * 4
+           + 2 * 3 * k * out_lanes * itemsize
+           + 2 * th * wg * out_lanes * itemsize
+           + 3 * rows * lanes * itemsize
+           + rows * out_lanes * 4)
+    if epilogue:
+        est += 2 * th * wg * out_lanes * itemsize + 3 * rows * out_lanes * 4
+    return est
+
+
+def _pick_th_dx(h, wg, lanes, k, out_lanes, itemsize, epilogue) -> int:
+    """``conv3x3_v3._pick_th_dx``: the fused dx kernel's tile."""
+    return _pick_rows(h, wg, lambda th: _dx_vmem(
+        th, wg, lanes, k, out_lanes, itemsize, epilogue) <= CONV_VMEM_BUDGET)
+
+
+def _pick_th_dw2(h, wg, lanes, k, p, c_out, itemsize) -> int:
+    """``conv3x3_v3._pick_th_dw2``: the fused dW kernel's tile (the plain
+    dW's footprint plus its dy and y blocks and the f32 dy_eff temp)."""
+    def fits(th):
+        extra = 4 * th * wg * p * c_out * itemsize + th * wg * p * c_out * 4
+        return _conv_vmem(th, wg, lanes, k, p, c_out, itemsize) + extra <= CONV_VMEM_BUDGET
+
+    return _pick_rows(h, wg, fits)
 
 
 def conv_supported(h: int, w: int, c_in: int, c_out: int,
@@ -72,6 +123,125 @@ def conv_supported(h: int, w: int, c_in: int, c_out: int,
     if h > 16 and h % 8:
         return False
     return _conv_pick_th(h, wg, lanes, itemsize, k, p, c_out) > 0
+
+
+def profitable(h: int, w: int, c_in: int, c_out: int) -> bool:
+    """``conv3x3_v3.profitable``: the shapes ``model.conv_impl=auto`` routes."""
+    return conv_supported(h, w, c_in, c_out) and h * w >= 256 * 256
+
+
+def conv_tile(h: int, w: int, c_in: int, c_out: int, itemsize: int,
+              p: int | None = None) -> int:
+    """The tile height ``conv3x3_v3._geometry`` picks for one launch of the
+    gen-3 conv (forward, or a dx as the conv Cout -> Cin), 0 where it finds
+    none and asserts; ``p`` None = the launch's own pack factor."""
+    p = p or pick_pack(c_in, c_out)
+    if w % p:
+        return 0
+    return _conv_pick_th(h, w // p, p * c_in, itemsize, (p + 2) * c_in, p, c_out)
+
+
+def level_pack(h: int, w: int, c_in: int, features: int, conv_impl: str) -> int:
+    """``cl_tpu.models.unet.packed_level_geometry``'s pack factor, or 0: a
+    DoubleConv runs as a packed level where both convs pass the route's
+    gate (at the gate's itemsize of 2) at one pack factor."""
+    ok = profitable if conv_impl == "auto" else conv_supported
+    if not (ok(h, w, c_in, features) and ok(h, w, features, features)):
+        return 0
+    p = pick_pack(c_in, features)
+    return p if p == pick_pack(features, features) else 0
+
+
+def double_conv_route(h: int, w: int, c_in: int, features: int, conv_impl: str,
+                      norm: str) -> tuple[str, str]:
+    """Each conv's route in a standard-body DoubleConv (``unet.py:113-121,
+    :314-349``): ``"packed"`` (the level through the gen-3 conv with
+    PackedBatchNorm), ``"v3"`` (the conv alone through it), ``"xla"``
+    (cuDNN). Cached per shape (and budget): the model asks at every
+    forward."""
+    return _double_conv_route(h, w, c_in, features, conv_impl, norm, CONV_VMEM_BUDGET)
+
+
+@functools.lru_cache(maxsize=None)
+def _double_conv_route(h, w, c_in, features, conv_impl, norm, budget):
+    if conv_impl not in ("v3", "auto"):
+        return "xla", "xla"
+    if norm == "batch" and level_pack(h, w, c_in, features, conv_impl):
+        return "packed", "packed"
+    ok = profitable if conv_impl == "auto" else conv_supported
+    return tuple("v3" if ok(h, w, ci, features) else "xla" for ci in (c_in, features))
+
+
+def v3_launch_refusal(h: int, w: int, c_in: int, c_out: int, itemsize: int,
+                      packed: bool) -> str | None:
+    """Why ``cl_tpu`` fails a train step's launches of one gen-3 conv at the
+    real itemsize, or None: the forward (and the dW, at the same tile), and
+    the dx, a conv Cout -> Cin at its own pack factor, which on the packed
+    level must also equal the level's (``_cp_bwd``'s view assert)."""
+    p = pick_pack(c_in, c_out)
+    if not conv_tile(h, w, c_in, c_out, itemsize):
+        return (f"the forward {c_in} -> {c_out} at p = {p} finds no tile: "
+                "`caller must gate on supported()` (conv3x3_v3.py:218)")
+    p_dx = pick_pack(c_out, c_in)
+    if not conv_tile(h, w, c_out, c_in, itemsize):
+        return (f"the dx ({c_out} -> {c_in}) at p = {p_dx} finds no tile: "
+                "`caller must gate on supported()` (conv3x3_v3.py:218)")
+    if packed and p_dx != p:
+        return (f"the dx's pack factor {p_dx} is not the level's {p}: `packed view "
+                "mismatch` (conv3x3_v3.py:519)")
+    return None
+
+
+def standard_body_levels(image_size: int, base_channels: int, depth: int):
+    """(name, H = W, Cin, features) of each DoubleConv of the standard body,
+    in forward order."""
+    levels = []
+    c_in = 3
+    for level in range(depth):
+        feats = base_channels * 2 ** level
+        levels.append((f"enc{level}", image_size // 2 ** level, c_in, feats))
+        c_in = feats
+    levels.append(("bottleneck", image_size // 2 ** depth, c_in, base_channels * 2 ** depth))
+    for level in reversed(range(depth)):
+        feats = base_channels * 2 ** level
+        levels.append((f"dec{level}", image_size // 2 ** level, 2 * feats, feats))
+    return levels
+
+
+def standard_body_refusal(image_size: int, base_channels: int, depth: int,
+                          conv_impl: str, norm: str, itemsize: int) -> str | None:
+    """The first conv of the standard body whose gen-3 launches ``cl_tpu``
+    fails (``v3_launch_refusal``), named by level and shape, or None."""
+    for name, h, ci, feats in standard_body_levels(image_size, base_channels, depth):
+        routes = double_conv_route(h, h, ci, feats, conv_impl, norm)
+        for i, (route, cin_i) in enumerate(zip(routes, (ci, feats))):
+            if route == "xla":
+                continue
+            why = v3_launch_refusal(h, h, cin_i, feats, itemsize, route == "packed")
+            if why:
+                return (f"{name}.conv{i} ({route} route, [{h}, {h}, {cin_i}] -> {feats} "
+                        f"channels, itemsize {itemsize}): {why}")
+    return None
+
+
+def conv_bwd_two_pass(h: int, w: int, c_in: int, c_out: int, p: int, itemsize: int,
+                      prologue: bool) -> bool:
+    """Whether ``conv3x3_v3._cbf_bwd`` takes its two-pass backward (a
+    materialized dy_eff, the plain conv for dt and the dW with the
+    prologue) for a packed conv: where the fused dx kernel or the fused dW
+    kernel finds no tile (``:930-952``). ``c_in`` is the channels of the
+    conv's packed input view (the stem's 3 are padded to 128 / p). Cached
+    per shape (and budget)."""
+    return _conv_bwd_two_pass(h, w, c_in, c_out, p, itemsize, bool(prologue),
+                              CONV_VMEM_BUDGET)
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_bwd_two_pass(h, w, c_in, c_out, p, itemsize, prologue, budget):
+    wg = w // p
+    th = _pick_th_dx(h, wg, p * c_out, (p + 2) * c_out, p * c_in, itemsize, prologue)
+    th_dw2 = _pick_th_dw2(h, wg, p * c_in, (p + 2) * c_in, p, c_out, itemsize)
+    return not (th > 0 and th_dw2 > 0)
 
 
 def _pool_pick_th(h, g, lanes, itemsize, units=10) -> int:

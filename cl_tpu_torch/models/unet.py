@@ -33,6 +33,15 @@ trains under autograd. Each level's skip and pool are one op whose
 backward takes both cotangents in one launch (``maxpool2x2_packed_tee``):
 ``model.pool_tee=false`` gives the same bits in JAX, so the port always
 takes the tee.
+
+``conv_impl`` (``model.conv_impl``) routes the standard body's convs as
+``cl_tpu`` does (``packed_gate.double_conv_route``): under "v3" or "auto"
+a DoubleConv whose two convs pass the gate at one pack factor runs both
+through the gen-3 conv (``conv3x3.conv3x3``, kernel #30 and its dW #31),
+each followed by ``packed_batch_norm`` (``cl_tpu``'s PackedBatchNorm);
+else each conv the gate admits runs alone through the gen-3 conv and the
+rest through cuDNN. The packed body's deep region stays on cuDNN, as
+``cl_tpu`` hard-codes there.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cl_tpu_torch.kernels import conv3x3, packed_eltwise, pool_pack, upconv_pack
-from cl_tpu_torch.models.packed_gate import packed_prefix
+from cl_tpu_torch.models.packed_gate import double_conv_route, packed_prefix, pick_pack
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax convention: weight of the old running value
@@ -100,6 +109,56 @@ class BatchNorm(nn.Module):
         return y
 
 
+class _BnReluTrain(torch.autograd.Function):
+    """``cl_tpu``'s ``_bn_relu_train``: z = relu(y·scale + shift) with the
+    batch's own mu and var, and the train-mode BatchNorm backward in two
+    passes (``unet.py:197-221``): the ReLU mask is (ŷ·γ + β) > 0 with
+    ŷ = (y − mu)·r, and the statistics' paths are folded into dy, so mu
+    and var get no cotangent."""
+
+    @staticmethod
+    def forward(ctx, y, mu, var, gamma, beta):
+        ctx.save_for_backward(y, mu, var, gamma, beta)
+        r = torch.rsqrt(var + BN_EPS)
+        scale, shift = r * gamma, beta - (mu * r) * gamma
+        return torch.relu(y.float() * scale + shift).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, dz):
+        y, mu, var, gamma, beta = ctx.saved_tensors
+        c = y.shape[-1]
+        n = y.numel() // c
+        r = torch.rsqrt(var + BN_EPS)
+        yhat = (y.float() - mu) * r
+        g = torch.where(yhat * gamma + beta > 0, dz.float(), 0.0)
+        s1 = g.reshape(-1, c).sum(0)
+        s2 = (g * yhat).reshape(-1, c).sum(0)
+        dy = ((r * gamma) * (g - (s1 + yhat * s2) / n)).to(y.dtype)
+        return dy, None, None, s2, s1
+
+
+def packed_batch_norm(bn: BatchNorm, y: torch.Tensor, train: bool) -> torch.Tensor:
+    """``cl_tpu``'s ``PackedBatchNorm`` + ReLU on NHWC y, with ``bn``'s
+    params and running statistics (the same state as the standard route):
+    train mode takes mu and the fast biased variance Σy²/n − mu² from f32
+    sums of y, updates the running statistics with them and applies
+    through ``_BnReluTrain``; eval mode applies the running ones with
+    ``cl_tpu``'s scale/shift association (``unet.py:259-264``), under
+    plain autograd."""
+    if not train:
+        r = torch.rsqrt(bn.running_var + BN_EPS)
+        scale = r * bn.weight
+        shift = bn.bias - (bn.running_mean * r) * bn.weight
+        return torch.relu(y.float() * scale + shift).to(y.dtype)
+    with torch.no_grad():
+        yf = y.float().reshape(-1, y.shape[-1])
+        mu = yf.sum(0) / yf.shape[0]
+        var = (yf * yf).sum(0) / yf.shape[0] - mu * mu
+        bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mu)
+        bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+    return _BnReluTrain.apply(y, mu, var, bn.weight, bn.bias)
+
+
 def deferred_bn(bn: BatchNorm, s1, s2, n: int, train: bool):
     """``cl_tpu``'s ``DeferredBatchNorm``: per-channel (scale, shift) of a
     BatchNorm whose application the consumer does. Train mode takes the
@@ -127,43 +186,59 @@ class DoubleConv(nn.Module):
             raise NotImplementedError(
                 f"model.norm={norm!r}: GroupNorm comes with spatial "
                 "parallelism in a later slice (ROADMAP Queue 1)")
+        self.norm = norm
         self.conv0 = Conv(c_in, c_out, 3, bias=False)
         self.conv1 = Conv(c_out, c_out, 3, bias=False)
         self.bn0 = BatchNorm(c_out) if norm == "batch" else None
         self.bn1 = BatchNorm(c_out) if norm == "batch" else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
-            x = conv(x)
+    def forward(self, x: torch.Tensor, conv_impl: str = "xla") -> torch.Tensor:
+        """x is NCHW (channels_last memory); ``conv_impl`` routes the convs
+        (``packed_gate.double_conv_route``)."""
+        _, c_in, h, w = x.shape
+        routes = double_conv_route(h, w, c_in, self.conv0.weight.shape[0], conv_impl,
+                                   self.norm)
+        if routes[0] == "packed":
+            x = x.permute(0, 2, 3, 1).contiguous()
+            for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
+                x = packed_batch_norm(bn, conv3x3.conv3x3(x, conv.weight), self.training)
+            return x.permute(0, 3, 1, 2)
+        for conv, bn, route in ((self.conv0, self.bn0, routes[0]),
+                                (self.conv1, self.bn1, routes[1])):
+            if route == "v3":
+                x = conv3x3.conv3x3(x.permute(0, 2, 3, 1).contiguous(),
+                                    conv.weight).permute(0, 3, 1, 2)
+            else:
+                x = conv(x)
             if bn is not None:
                 x = bn(x)
             x = F.relu(x)
         return x
 
-    def packed_plain(self, x: torch.Tensor, train: bool):
+    def packed_plain(self, x: torch.Tensor, train: bool, p: int):
         """``cl_tpu``'s ``PackedLevel`` in its ``stem`` and ``plain`` modes
         (the stem's channel padding is a TPU layout device): conv0 with the
         stats epilogue, its BatchNorm deferred into conv1's prologue, and
         conv1's BatchNorm deferred to the caller. x is NHWC (already
-        applied); returns (y, scale, shift)."""
+        applied); returns (y, scale, shift). ``p``: the body's pack factor."""
         n = x.shape[0] * x.shape[1] * x.shape[2]
-        y, s1, s2 = conv3x3.conv_bn_fused(x, self.conv0.weight)
+        y, s1, s2 = conv3x3.conv_bn_fused(x, self.conv0.weight, p=p)
         sc, sh = deferred_bn(self.bn0, s1, s2, n, train)
-        y, s1, s2 = conv3x3.conv_bn_fused(y, self.conv1.weight, sc, sh, True)
+        y, s1, s2 = conv3x3.conv_bn_fused(y, self.conv1.weight, sc, sh, True, p)
         return (y, *deferred_bn(self.bn1, s1, s2, n, train))
 
-    def packed_split(self, skip: torch.Tensor, up: torch.Tensor, train: bool):
+    def packed_split(self, skip: torch.Tensor, up: torch.Tensor, train: bool, p: int):
         """``PackedLevel`` in ``split`` mode, the decoder's entry: conv0 of
         the concat [skip, up] as two convs whose outputs are added with
         the sum's own statistics (the stats of a sum are not the sum of
         the stats), then conv1 as in ``packed_plain``."""
         n = skip.shape[0] * skip.shape[1] * skip.shape[2]
         f = skip.shape[-1]
-        ys, _, _ = conv3x3.conv_bn_fused(skip, self.conv0.weight[:, :f])
-        yu, _, _ = conv3x3.conv_bn_fused(up, self.conv0.weight[:, f:])
+        ys, _, _ = conv3x3.conv_bn_fused(skip, self.conv0.weight[:, :f], p=p)
+        yu, _, _ = conv3x3.conv_bn_fused(up, self.conv0.weight[:, f:], p=p)
         y, s1, s2 = packed_eltwise.add_stats(ys, yu)
         sc, sh = deferred_bn(self.bn0, s1, s2, n, train)
-        y, s1, s2 = conv3x3.conv_bn_fused(y, self.conv1.weight, sc, sh, True)
+        y, s1, s2 = conv3x3.conv_bn_fused(y, self.conv1.weight, sc, sh, True, p)
         return (y, *deferred_bn(self.bn1, s1, s2, n, train))
 
 
@@ -172,10 +247,12 @@ class UNet(nn.Module):
 
     def __init__(self, num_classes: int, base_channels: int = 32,
                  depth: int = 4, norm: str = "batch",
-                 dtype: torch.dtype = torch.float32, packed: bool = False):
+                 dtype: torch.dtype = torch.float32, packed: bool = False,
+                 conv_impl: str = "xla"):
         super().__init__()
         c = base_channels
         self.base_channels = c
+        self.conv_impl = conv_impl
         self.depth = depth
         self.norm = norm
         self.dtype = dtype
@@ -214,14 +291,14 @@ class UNet(nn.Module):
         h = x.to(self.dtype).permute(0, 3, 1, 2)
         skips = []
         for level in range(self.depth):
-            h = getattr(self, f"enc{level}")(h)
+            h = getattr(self, f"enc{level}")(h, self.conv_impl)
             skips.append(h)
             h = F.max_pool2d(h, 2, 2)
-        h = self.bottleneck(h)
+        h = self.bottleneck(h, self.conv_impl)
         for level in reversed(range(self.depth)):
             h = getattr(self, f"up{level}")(h)
             h = torch.cat([skips[level], h], dim=1)
-            h = getattr(self, f"dec{level}")(h)
+            h = getattr(self, f"dec{level}")(h, self.conv_impl)
         if return_features:
             return h.permute(0, 2, 3, 1)
         return self.head(h).float().permute(0, 2, 3, 1)
@@ -243,9 +320,10 @@ class UNet(nn.Module):
         the last conv's raw output and its deferred (scale, shift)."""
         prefix = self.packed_levels(x.shape[1], x.shape[2])
         train = self.training
+        P = pick_pack(self.base_channels, self.base_channels)
         skips = []
         for level in range(prefix):
-            y, sc, sh = getattr(self, f"enc{level}").packed_plain(x, train)
+            y, sc, sh = getattr(self, f"enc{level}").packed_plain(x, train, P)
             z = packed_eltwise.bn_relu(y, sc, sh)
             # the pool's input is the skip
             z, x = pool_pack.maxpool2x2_tee(z)
@@ -270,7 +348,7 @@ class UNet(nn.Module):
             up = getattr(self, f"up{level}")
             u = upconv_pack.upconv2x2(below, up.weight, up.bias)
             y, sc, sh = getattr(self, f"dec{level}").packed_split(
-                skips[level], u, train)
+                skips[level], u, train, P)
         if keep_raw:
             return y, sc, sh
         return packed_eltwise.bn_relu(y, sc, sh)

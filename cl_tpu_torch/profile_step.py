@@ -33,6 +33,8 @@ FAMILIES = (
                                         "replay_gather")),
     ("loss kernels (cl_tpu_torch)", ("head_ce", "ce_fwd_kernel", "ce_bwd_kernel",
                                      "kd_fwd_kernel", "kd_bwd_kernel")),
+    # the gen-3 plain conv (#30), its dW (#31), the two-pass dW (#33)
+    ("gen-3 conv kernels (cl_tpu_torch)", ("conv3x3_v3",)),
     ("packed body kernels (cl_tpu_torch)", ("conv3x3_bn", "conv3x3_dw", "bn_relu",
                                             "add_stats", "dy_eff", "maxpool", "upconv",
                                             "sum_splits")),

@@ -52,6 +52,7 @@ from cl_tpu_torch.kernels import ce_loss, ewc_fused, head_ce, kd_loss, replay_ga
 from cl_tpu_torch.methods import ewc as ewc_lib
 from cl_tpu_torch.methods import lwf as lwf_lib
 from cl_tpu_torch.methods.replay import ReplayBuffer
+from cl_tpu_torch.models import packed_gate
 from cl_tpu_torch.models.unet import UNet, init_weights
 
 _LATER = "comes in a later slice of the port (ROADMAP.md Queue 1)"
@@ -78,8 +79,8 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
     if _packed_engages(cfg) and m.conv_act_store == "int8":
         unported.append("model.conv_act_store=int8 (int8 saved activations "
                         "of the packed convs)")
-    if m.conv_impl != "xla":
-        unported.append(f"model.conv_impl={m.conv_impl!r} (Pallas convs)")
+    if m.conv_impl not in ("xla", "v3", "auto"):
+        unported.append(f"model.conv_impl={m.conv_impl!r} (the gen-2 Pallas convs)")
     if m.upconv_impl != "xla":
         unported.append(f"model.upconv_impl={m.upconv_impl!r}")
     if m.norm == "group":
@@ -111,7 +112,17 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
         raise NotImplementedError(
             "not in this slice of the port: " + "; ".join(unported)
             + f" — each {_LATER}")
-    _dtype(cfg)
+    dtype = _dtype(cfg)
+    packed = _packed_engages(cfg) and m.norm == "batch" and packed_gate.packed_prefix(
+        cfg.data.image_size, m.base_channels, m.depth, dtype.itemsize) > 0
+    if not packed:  # the standard body: the gen-3 routes
+        why = packed_gate.standard_body_refusal(cfg.data.image_size, m.base_channels, m.depth,
+                                                m.conv_impl, m.norm, dtype.itemsize)
+        if why:
+            raise NotImplementedError(
+                f"model.conv_impl={m.conv_impl!r} at {cfg.data.image_size}² in "
+                f"{cfg.train.compute_dtype}: cl_tpu fails this config's train step, so the "
+                f"port refuses it: {why}")
 
 
 def build_model(cfg: Config) -> UNet:
@@ -119,7 +130,8 @@ def build_model(cfg: Config) -> UNet:
     return UNet(num_classes=cfg.data.num_classes,
                 base_channels=cfg.model.base_channels,
                 depth=cfg.model.depth, norm=cfg.model.norm,
-                dtype=_dtype(cfg), packed=_packed_engages(cfg))
+                dtype=_dtype(cfg), packed=_packed_engages(cfg),
+                conv_impl=cfg.model.conv_impl)
 
 
 def init_state(cfg: Config, model: UNet, device: torch.device) -> UNet:

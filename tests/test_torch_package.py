@@ -69,7 +69,8 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     # activations of the packed convs do not
     pytest.param("model.packed_min_size=0 model.conv_act_store=int8",
                  id="model.packed_min_size=0"),
-    "model.conv_impl=v3",
+    # model.conv_impl=v3 and =auto run since the gen-3 conv's slice
+    # (test_conv_impl_v3_and_auto_train)
     "model.upconv_impl=matmul",
     "model.norm=group",
     "model.padded_head=false",
@@ -81,7 +82,6 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     # LwF on the NHWC fused head (#9/#10) and on logits (#13/#14) run since
     # the LwF slice; the other opt-in conv kernels do not
     pytest.param("model.conv_impl=hybrid", id="method.methods=lwf,replay"),
-    pytest.param("model.conv_impl=auto", id="method.methods=lwf train.fused_head_ce=false"),
     "model.conv_impl=pallas",
     "train.checkpoint_dir=ckpt",
     "train.resume=true",
@@ -108,6 +108,33 @@ def test_configs_the_lwf_slice_made_runnable(override):
     cfg = config.parse_overrides(["preset=smoke", *override.split()])
     report = port_train.train(cfg, device="cpu")
     assert np.isfinite(report["final_per_task_miou"]).all()
+
+
+@pytest.mark.parametrize("impl", ["v3", "auto"])
+def test_conv_impl_v3_and_auto_train(impl):
+    """``model.conv_impl=v3`` and ``=auto``, refused until the gen-3 conv's
+    slice, train on the CPU (the plain versions of #30/#31): at 64², base
+    32, depth 2, v3 takes both routes (enc0's second conv, enc1 and the
+    bottleneck per conv, the decoder levels packed); auto routes nothing
+    below 256²."""
+    cfg = config.parse_overrides(["preset=smoke", "model.base_channels=32", "model.depth=2",
+                                  "data.image_size=64", "data.source_size=80",
+                                  f"model.conv_impl={impl}"])
+    port_train.check_supported(cfg, torch.device("cpu"))
+    report = port_train.train(cfg, device="cpu")
+    assert np.isfinite(report["final_per_task_miou"]).all()
+
+
+def test_conv_impl_v3_refused_where_cl_tpu_fails():
+    """``preset=baseline_2 model.conv_impl=v3`` in f32: ``cl_tpu`` admits
+    enc3's convs at the gate's itemsize of 2 and finds no f32 tile, so the
+    port refuses the config before training; in bf16 it runs."""
+    cpu = torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="enc3.conv1"):
+        port_train.check_supported(
+            config.parse_overrides(["preset=baseline_2", "model.conv_impl=v3"]), cpu)
+    port_train.check_supported(config.parse_overrides(
+        ["preset=baseline_2", "model.conv_impl=v3", "train.compute_dtype=bfloat16"]), cpu)
 
 
 @pytest.mark.parametrize("override", ["train.pallas_augment=true", "data.device_cache=true",
