@@ -39,7 +39,12 @@ Phases (any failure raises, so the exit code is non-zero):
    64, in f32 and bf16, and the two-pass backward's dW (#33) at 64² × 256 →
    256 in f32 with the prologue on and off, batch 8, and all three at a
    ragged 20² × 24 → 40 with 3 images, each launched twice and held
-   bit-equal;
+   bit-equal; the int8 saved activations' kernels at every int8 shape of
+   the headline step (512², 256², 128², batch 8, P = 4) and at ragged 24²
+   ones, f32 and bf16, xq mode on and off, prologue on and off: the
+   quantize (32q) on #32's own output exactly equal to the plain
+   quantizer, the dx (#38) and dW (#39) from int8 within the dtype
+   kernels' tolerances, each launched twice and held bit-equal;
 4. the baseline_1 preset as it ships, through ``train()``: 16 steps and
    one eval (the fused head+CE kernels), then the same shape with
    ``train.fused_head_ce=false`` (the CE kernels) through
@@ -149,6 +154,20 @@ Phases (any failure raises, so the exit code is non-zero):
    CPU's own f32 step is further than that from float64 in the deep
    BatchNorm biases; it and the card against the CPU are printed); 5v-e ``preset=baseline_2 model.conv_impl=v3`` in f32 is
    refused (``cl_tpu`` finds no f32 tile for enc3.conv1 and asserts);
+5q. int8 saved activations (``model.conv_act_store=int8``): 5q-a the
+   headline step with int8, 3 + 10 steps with launch counts (every packed
+   conv qualifies at 512²: 15 #32 and 15 quantize launches, 14 #38 and 15
+   #39 a step, no dtype dx or dW), a falling loss, images/s and peak
+   memory beside phase 5h's, ``profile_step``'s kernel ms by family for
+   both, five pairs int8 / dtype in turns; 5q-b ``preset=baseline_1
+   model.packed_min_size=0 model.conv_act_store=int8`` (128² f32: level 0
+   int8, levels 1–2 dtype), one SGD step on the card against the CPU; 5q-c
+   the same with EWC through ``train()`` on 2 tasks (the Fisher pass's
+   eval-mode backward takes the int8 route): a finite mIoU matrix and
+   forgetting, the int8 launches per backward; 5q-d ``preset=baseline_2
+   model.packed_min_size=0 model.conv_act_store=int8`` (f32), 3 + 10
+   steps: level 2's prologue convs dequantize into the two-pass backward
+   (#30 as dt, #33), the rest run #38/#39;
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take.
 
@@ -1560,6 +1579,254 @@ def v3_times(kernel, shape, dtype_name):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3 / 6: the int8 saved activations (model.conv_act_store=int8): the
+# quantize after #32 (32q), the dx (#38) and dW (#39) from int8
+# ---------------------------------------------------------------------------
+
+Q_KERNELS = {  # launch-count key: (source, TPU kernel)
+    "conv3x3_bn_quant": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:757"),
+    "conv3x3_bn_dx_q": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:1657"),
+    "conv3x3_bn_dw_q": ("cl_tpu_torch/csrc/conv3x3_bn_bwd.cu",
+                        "cl_tpu/pallas/conv3x3_v3.py:1779"),
+}
+Q_P = 4  # the headline body's pack factor: the scales' column grouping
+# Every int8 launch of one headline train step at 512², batch 8, every
+# packed conv on the int8 route: (H, Cin, Cout, prologue, xq) of the
+# forward conv, with its launches a step. The quantize runs after every
+# forward; conv1 of an encoder level saves conv0's pair (xq), the decoder's
+# conv1 its add_stats input; the stem's dx is never launched.
+Q_PATH = {
+    "conv3x3_bn_quant": [((512, 3, 32, False, False), 1), ((512, 32, 32, True, True), 1),
+                         ((512, 32, 32, True, False), 1), ((512, 32, 32, False, False), 2),
+                         ((256, 32, 64, False, False), 1), ((256, 64, 64, True, True), 1),
+                         ((256, 64, 64, True, False), 1), ((256, 64, 64, False, False), 2),
+                         ((128, 64, 128, False, False), 1), ((128, 128, 128, True, True), 1),
+                         ((128, 128, 128, True, False), 1), ((128, 128, 128, False, False), 2)],
+}
+Q_PATH["conv3x3_bn_dw_q"] = Q_PATH["conv3x3_bn_quant"]
+Q_PATH["conv3x3_bn_dx_q"] = Q_PATH["conv3x3_bn_quant"][1:]
+Q_PER_STEP = {k: sum(n for _, n in shapes) for k, shapes in Q_PATH.items()}
+Q_ODD = [(24, 16, 16, False, False), (24, 16, 16, True, True), (24, 16, 16, True, False),
+         (24, 3, 16, False, False), (24, 16, 3, True, True)]
+
+
+def q_operands(shape, dtype_name, batch=8, seed=0):
+    """Seeded operands on the card for the int8 backward: (x or the pair
+    (xq, scale), w, a, b, q, scale, dy, ds1, ds2, prologue, p), the pairs
+    from the plain quantizer on seeded x and y (a prologue with relu(b) > 0
+    on part of the channels, nonzero stats cotangents)."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3
+
+    H, cin, cout, prologue, xq = shape
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*sh, scale=1.0):
+        return torch.randn(*sh, generator=g, device="cuda") * scale
+
+    x = randn(batch, H, H, cin).to(dt)
+    w = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+    a, b = (randn(cin).abs() + 0.5, randn(cin) * 0.5 + 0.25) if prologue else (None, None)
+    q, scale = conv3x3.quant_rows_plain(randn(batch, H, H, cout).to(dt), Q_P)
+    dy = randn(batch, H, H, cout).to(dt)
+    ds1, ds2 = randn(cout) * 0.1, randn(cout) * 0.05
+    x_res = conv3x3.quant_rows_plain(x, Q_P) if xq else x
+    return x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, Q_P
+
+
+def q_name(kernel, shape, dtype_name, batch=8):
+    H, cin, cout, prologue, xq = shape
+    mode = ("prologue" if prologue else "slim") + (",xq" if xq else "")
+    return f"{kernel}[{batch}x{H}x{H},{cin}->{cout},{mode},{dtype_name}]"
+
+
+def compare_quant(shape, dtype_name, batch=8):
+    """32q on the output of #32 (the kernel's own y) against the plain
+    quantizer: q and the scale exact (an exact max, then one rounding per
+    operation); a second launch repeats every bit. Returns 0.0."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3
+
+    H, cin, cout, prologue, _ = shape
+    ops = packed_operands("conv3x3_bn_fwd", (H, cin, cout, prologue), dtype_name, batch)
+    y = conv3x3.launch_conv_bn(*ops)[0]
+    (q, sc), again, (qp, scp) = (conv3x3.launch_quant_rows(y, Q_P),
+                                 conv3x3.launch_quant_rows(y, Q_P),
+                                 conv3x3.quant_rows_plain(y, Q_P))
+    torch.cuda.synchronize()
+    name = q_name("conv3x3_bn_quant", shape, dtype_name, batch)
+    ok = (torch.equal(q, qp) and torch.equal(sc, scp) and torch.equal(q, again[0])
+          and torch.equal(sc, again[1]))
+    err = (q.int() - qp.int()).abs().max().item()
+    print(f"  {name}: max |q - plain| {err}, scale exact {torch.equal(sc, scp)} (tol exact); "
+          f"relaunch bit-equal {'ok' if ok else 'FAIL'}")
+    need(ok, name)
+    return 0.0
+
+
+def q_fns(kernel):
+    """(kernel launch, plain version, library call or None) of #38 / #39,
+    each taking ``q_operands``; cuDNN's ``convolution_backward`` of the
+    conv alone (dx for #38, dW for #39) as the library call."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3
+
+    conv_bwd = torch.ops.aten.convolution_backward
+    mask = [True, False, False] if kernel == "conv3x3_bn_dx_q" else [False, True, False]
+
+    def lib(x_res, w, a, b, q, scale, dy, *_):
+        x = torch.empty(dy.shape[:3] + (w.shape[1],), dtype=dy.dtype, device=dy.device) \
+            if isinstance(x_res, tuple) else x_res
+        return conv_bwd(dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.to(dy.dtype), None,
+                        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
+    if kernel == "conv3x3_bn_dx_q":
+        return conv3x3.launch_conv_dx_q, conv3x3.conv_dx_q_plain, lib
+    return conv3x3.launch_conv_dw_q, conv3x3.conv_dw_q_plain, lib
+
+
+def compare_q_bwd(kernel, shape, dtype_name, batch=8):
+    """#38 or #39 against its plain version on the card, launched twice
+    (the second launch repeats every bit); returns the max abs error of
+    dx or dW. Tolerances as ``compare_bwd``'s for the dtype kernels: e is
+    the same f32 operations in both (deq(y) in f32, unrounded), so dx is
+    one bf16 ulp + 1e-5·max(1, a) in bf16 and 1e-5·max(1, a) + 1e-5 rel in
+    f32; dW 2 bf16 ulps + 1e-5·Σ|term| in bf16, 1e-5·Σ|term| + 1e-6 in f32;
+    da, db 1e-5·Σ|term| + 1e-6."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3
+
+    launch, plain, _ = q_fns(kernel)
+    ops = q_operands(shape, dtype_name, batch)
+    k_out, again, p_out = launch(*ops), launch(*ops), plain(*ops)
+    torch.cuda.synchronize()
+    if not isinstance(k_out, tuple):
+        k_out, again, p_out = (k_out,), (again,), (p_out,)
+    name = q_name(kernel, shape, dtype_name, batch)
+    need(all(u is None or torch.equal(u, v) for u, v in zip(k_out, again)),
+         f"{name}: a second launch repeats every bit")
+    x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p = ops
+    bf16 = dtype_name == "bfloat16"
+    # Σ|term| from the plain versions on |operands|
+    ea = conv3x3.dy_eff(dy, conv3x3.deq_rows(q, scale, p), ds1, ds2).float().abs()
+    x_used = conv3x3._x_f32(x_res, p).float()
+    ok, msg, main_err = True, f"  {name}:", None
+    for i, (k, pv) in enumerate(zip(k_out, p_out)):
+        if k is None and pv is None:
+            continue
+        need(k.shape == pv.shape and k.dtype == pv.dtype, f"{name} output {i} shape/dtype")
+        kf, pf = k.float(), pv.float()
+        need(bool(torch.isfinite(kf).all()), f"{name} output {i} not finite")
+        diff = (kf - pf).abs()
+        if kernel == "conv3x3_bn_dx_q" and i == 0:
+            amax = max(1.0, a.abs().max().item()) if prologue else 1.0
+            if bf16:
+                tol = bf16_ulp(torch.maximum(kf.abs(), pf.abs())) + 1e-5 * amax
+                txt = "1 bf16 ulp + 1e-5 max(1, a)"
+            else:
+                tol, txt = 1e-5 * amax + 1e-5 * pf.abs(), "1e-5 max(1, a) + 1e-5 rel"
+        elif kernel == "conv3x3_bn_dx_q":  # da, db
+            dt = torch.nn.functional.conv_transpose2d(
+                ea.permute(0, 3, 1, 2), w.abs(), padding=1).permute(0, 2, 3, 1)
+            du = torch.where(x_used * a + b > 0, dt, 0.0).reshape(-1, w.shape[1])
+            terms = (du * x_used.abs().reshape(du.shape)).sum(0) if i == 1 else du.sum(0)
+            tol, txt = 1e-5 * terms + 1e-6, "1e-5 Σ|term| + 1e-6"
+        else:
+            t = conv3x3.prologue_t(x_used, a, b, prologue).to(dy.dtype).float().abs()
+            terms = conv3x3.conv3x3_dw_plain(t, ea)
+            tol = 1e-5 * terms + (2 * bf16_ulp(torch.maximum(kf.abs(), pf.abs())) if bf16
+                                  else 1e-6)
+            txt = "2 bf16 ulp + 1e-5 Σ|term|" if bf16 else "1e-5 Σ|term| + 1e-6"
+        good = bool((diff <= tol).all())
+        ok = ok and good
+        main_err = diff.max().item() if main_err is None else main_err
+        msg += f" out{i} max abs err {diff.max().item():.3g} ({txt}){'' if good else ' FAIL'};"
+    print(msg + (" relaunch bit-equal ok" if ok else " FAIL"))
+    need(ok, name)
+    return main_err
+
+
+def q_bytes_ops(kernel, shape, dtype_name, batch=8):
+    """Bytes each input read once and each output written once, and the
+    operations, at the path's operands: the int8 tensors one byte an
+    element, their scales 4 bytes per (row, column mod p, channel)."""
+    es = 2 if dtype_name == "bfloat16" else 4
+    H, cin, cout, prologue, xq = shape
+    px, rows = batch * H * H, batch * H * Q_P
+    if kernel == "conv3x3_bn_quant":  # y read; q and the scales written
+        return px * cout * es + px * cout + rows * cout * 4, 5 * px * cout
+    x_bytes = px * cin + rows * cin * 4 if xq else px * cin * es
+    common = px * cout * es + px * cout + rows * cout * 4 + x_bytes + 8 * cout \
+        + (8 * cin if prologue else 0)  # dy, q, scales, x; ds1, ds2; a, b
+    ops = 18 * px * cin * cout + 5 * px * cout  # the conv; e with deq(y)
+    if kernel == "conv3x3_bn_dx_q":
+        return (common + 9 * cin * cout * es + px * cin * es + (8 * cin if prologue else 0),
+                ops + (8 * px * cin if prologue else 0))
+    return common + 9 * cin * cout * 4, ops + (4 * px * cin if prologue or xq else 0)
+
+
+def q_times(kernel, shape, dtype_name="bfloat16"):
+    """(ms, plain_ms, library_ms or None, ms synchronised per launch) at
+    one shape."""
+    from cl_tpu_torch.kernels import conv3x3
+
+    if kernel == "conv3x3_bn_quant":
+        H, cin, cout, prologue, _ = shape
+        ops = packed_operands("conv3x3_bn_fwd", (H, cin, cout, prologue), dtype_name)
+        y = conv3x3.launch_conv_bn(*ops)[0]
+        launch = lambda: conv3x3.launch_quant_rows(y, Q_P)  # noqa: E731
+        return (time_ms(launch), time_ms(lambda: conv3x3.quant_rows_plain(y, Q_P)), None,
+                time_ms(launch, queued=False))
+    launch, plain, lib = q_fns(kernel)
+    ops = q_operands(shape, dtype_name)
+    return (time_ms(lambda: launch(*ops)), time_ms(lambda: plain(*ops)),
+            time_ms(lambda: lib(*ops)), time_ms(lambda: launch(*ops), queued=False))
+
+
+def saved_set_mib(cfg, device):
+    """MiB that autograd keeps for the backward of one train-mode forward
+    of ``cfg``'s model to its packed raw features (the headline step's
+    body), by dtype of the saved tensors, each storage counted once; on
+    the card also the peak allocated MiB at the end of that forward and
+    over a backward from it (``"peak_fwd"``, ``"peak_bwd"``)."""
+    import torch
+
+    from cl_tpu_torch import train as tl
+
+    model = tl.init_state(cfg, tl.build_model(cfg), device)
+    S, Bt = cfg.data.image_size, cfg.data.batch_size
+    storages, out = set(), {}
+
+    def pack(t):
+        key = t.untyped_storage()._cdata  # one StorageImpl per storage
+        if key not in storages:
+            storages.add(key)
+            name = str(t.dtype).removeprefix("torch.")
+            out[name] = out.get(name, 0.0) + t.untyped_storage().nbytes() / 2 ** 20
+        return t
+
+    x = torch.randn(Bt, S, S, 3, device=device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y = model.train()(x, return_features=True, packed_features=True)[0]
+    if cuda:
+        torch.cuda.synchronize()
+        out["peak_fwd"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        y.float().square().mean().backward()
+        torch.cuda.synchronize()
+        out["peak_bwd"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    del y, model
+    return {k: round(v, 1) for k, v in sorted(out.items())}
+
+
+# ---------------------------------------------------------------------------
 # Phases 4 / 5: training paths
 # ---------------------------------------------------------------------------
 
@@ -2444,6 +2711,23 @@ def main() -> int:
         for shape in V3_ODD[kernel]:
             for dtype_name in ("float32", "bfloat16"):
                 compare_v3(kernel, shape, dtype_name, batch=3)
+    # the int8 saved activations: 32q, #38 and #39 at every int8 shape of
+    # the headline step and at ragged ones, xq mode on and off, prologue on
+    # and off, each launched twice
+    q_errs = {}
+    for kernel, shapes in Q_PATH.items():
+        check = compare_quant if kernel == "conv3x3_bn_quant" else \
+            (lambda *a, k=kernel, **kw: compare_q_bwd(k, *a, **kw))
+        for shape, _ in shapes:
+            for dtype_name in ("float32", "bfloat16"):
+                err = check(shape, dtype_name)
+                if dtype_name == "bfloat16":
+                    q_errs.setdefault((kernel, shape), err)
+        for shape in Q_ODD:
+            if kernel == "conv3x3_bn_dx_q" and shape[1] == 3:
+                continue  # the stem's dx: never launched
+            for dtype_name in ("float32", "bfloat16"):
+                check(shape, dtype_name, batch=3)
 
     print("[4] baseline_1 as it ships, through train()")
     cfg1 = get_preset("baseline_1")
@@ -2824,6 +3108,88 @@ def main() -> int:
     else:
         need(False, "preset=baseline_2 model.conv_impl=v3 (f32) is refused")
 
+    print("[5q] int8 saved activations of the packed convs (model.conv_act_store=int8: 32q, "
+          "#38, #39)")
+    from cl_tpu_torch.profile_step import profile as profile_step
+
+    # 5q-a: the headline step with int8: every packed conv at 512² qualifies
+    cfg_q = parse_overrides(packed_full + ["model.conv_act_store=int8"])
+    q_step = dict(headline_step, conv3x3_bn_dx=0, conv3x3_bn_dx_bn=0, conv3x3_bn_dw=0,
+                  **Q_PER_STEP)
+    counts_q, ips_q, peak_q, loss_q, first_q = run_steps(cfg_q, 3, 10, cuda, no_sync=True)
+    print(f"  5q-a headline int8, 13 steps: {ips_q:.2f} img/s, peak {peak_q:.0f} MiB, loss "
+          f"{first_q:.4f} -> {loss_q:.4f}; beside the headline (dtype, phase 5h) {ips_h:.2f} "
+          f"img/s, peak {peak_h:.0f} MiB")
+    print(f"    launches per step: { {k: counts_q[k] / 13 for k in q_step} }")
+    need(loss_q < first_q, "int8 headline training loss falls")
+    for k, n in q_step.items():
+        need(counts_q[k] == 13 * n, f"{k} launches == steps x {n} (5q-a)")
+    saved_q = {name: saved_set_mib(c, cuda) for name, c in (("int8", cfg_q), ("dtype", cfg_h))}
+    print(f"    saved for the backward of one forward to the raw features, MiB by dtype, and "
+          f"the peak MiB at its end and over a backward from it: {saved_q}")
+    prof_q = {name: profile_step(c, steps=5)
+              for name, c in (("int8", cfg_q), ("dtype", cfg_h))}
+    for name, res in prof_q.items():
+        fams = {k: round(v, 3) for k, v in res["families_ms_per_step"].items()}
+        print(f"    profile {name}: {res['ms_per_step']:.3f} ms/step unprofiled "
+              f"({res['images_per_s']:.2f} img/s), {res['device_ms_per_step']:.3f} ms of "
+              f"kernels ({res['kernels_per_step']:.0f} launches), idle {res['idle_share']:.3f}; "
+              f"{fams}")
+    pairs_q, issue_q = alternating_pairs({"int8": cfg_q, "dtype": cfg_h}, cuda)
+    ratios_q = [u / v for u, v in zip(pairs_q["int8"], pairs_q["dtype"])]
+    print(f"  alternating pairs, 10 steps each, images/s: int8 "
+          f"{[round(v, 2) for v in pairs_q['int8']]}, dtype "
+          f"{[round(v, 2) for v in pairs_q['dtype']]}; int8 / dtype "
+          f"{[round(r, 4) for r in ratios_q]}, median {float(np.median(ratios_q)):.4f}; host "
+          f"issue int8 {issue_q['int8']:.3f} ms, dtype {issue_q['dtype']:.3f} ms")
+    # 5q-b: one SGD step card vs CPU at 128² f32: level 0 int8 (wg 32),
+    # levels 1-2 in the compute dtype
+    reset_counts()
+    args_qb = ["preset=baseline_1", "model.packed_min_size=0", "model.conv_act_store=int8"]
+    agree_with_cpu(args_qb, "int8 step 128² base 32 depth 4 f32", packed_levels=3)
+    counts_qb = read_counts()
+    want_qb = {"conv3x3_bn_quant": 5, "conv3x3_bn_dx_q": 4, "conv3x3_bn_dw_q": 5}
+    print(f"    int8 launches on the card: { {k: counts_qb[k] for k in want_qb} }")
+    need(all(counts_qb[k] == n for k, n in want_qb.items()), "int8 launches (5q-b)")
+    # 5q-c: train() with EWC: the Fisher pass's eval-mode backward takes the
+    # int8 route too
+    args_qc = args_qb + ["data.num_classes=3", "train.num_tasks=2", "method.methods=ewc"]
+    cfg_qc = parse_overrides(args_qc)
+    reset_counts()
+    report_qc = tl.train(cfg_qc)
+    counts_qc = read_counts()
+    T = cfg_qc.train.num_tasks
+    per_task = (cfg_qc.data.train_images_per_task // cfg_qc.data.batch_size
+                * cfg_qc.train.epochs_per_task)
+    n_fisher = min(cfg_qc.data.train_images_per_task // cfg_qc.data.batch_size,
+                   cfg_qc.method.ewc_fisher_batches)
+    backwards = T * per_task + (T - 1) * n_fisher
+    mat_qc = np.asarray(report_qc["miou_matrix"], float)
+    print(f"  5q-c {' '.join(args_qc)}: mIoU matrix {mat_qc.tolist()}, forgetting "
+          f"{report_qc['forgetting_per_task']}; {backwards} backwards ({T * per_task} steps, "
+          f"{(T - 1) * n_fisher} Fisher batches): int8 launches "
+          f"{ {k: counts_qc[k] for k in want_qb} }, #19 {counts_qc['ewc_sq_acc']}")
+    need(np.isfinite(mat_qc[np.tril_indices(T)]).all()
+         and np.isfinite(report_qc["forgetting_per_task"]).all(), "finite mIoU (5q-c)")
+    need(all(counts_qc[k] == n * backwards for k, n in want_qb.items())
+         and counts_qc["ewc_sq_acc"] == (T - 1) * n_fisher, "int8 launches (5q-c)")
+    # 5q-d: the fallback: baseline_2's packed body (256², base 64, f32),
+    # every conv int8 (P = 2: wg 128, 64, 32); level 2's prologue convs find
+    # no fused tile and dequantize into the two-pass backward (#30, #33)
+    cfg_qd = parse_overrides(["preset=baseline_2", "model.packed_min_size=0",
+                              "model.conv_act_store=int8"] + host)
+    counts_qd, ips_qd, peak_qd, loss_qd, first_qd = run_steps(cfg_qd, 3, 10, cuda,
+                                                              no_sync=True)
+    want_qd = {"conv3x3_bn_fwd": 15, "conv3x3_bn_quant": 15, "conv3x3_bn_dx_q": 12,
+               "conv3x3_bn_dw_q": 13, "conv3x3_dt": 2, "conv3x3_dw_bn": 2,
+               "conv3x3_bn_dx": 0, "conv3x3_bn_dx_bn": 0, "conv3x3_bn_dw": 0}
+    print(f"  5q-d baseline_2 packed_min_size=0 int8 (f32), 13 steps: {ips_qd:.2f} img/s "
+          f"(dtype, 5v-c: {ips_vc:.2f}), peak {peak_qd:.0f} MiB (dtype {peak_vc:.0f}), loss "
+          f"{first_qd:.4f} -> {loss_qd:.4f}; launches per step "
+          f"{ {k: counts_qd[k] / 13 for k in want_qd} } (#30 as dt, #33: the fallback)")
+    for k, n in want_qd.items():
+        need(counts_qd[k] == 13 * n, f"{k} launches == steps x {n} (5q-d)")
+
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
         0: counts_b1, 1: counts_f, 2: counts_b1u, 3: counts_u}
@@ -2966,6 +3332,34 @@ def main() -> int:
                     line += f"; launches {entry['launches']} in phase " + \
                         ("5v-c" if kernel == "conv3x3_dw_bn" else "5v-a")
                 print(line)
+    # the int8 kernels at the headline's first int8 shape of each, bf16,
+    # launches of 5q-a's 13 steps; every shape printed
+    q_step_ms = {}
+    for kernel, (source, replaces) in Q_KERNELS.items():
+        for shape, n_step in Q_PATH[kernel]:
+            times = q_times(kernel, shape)
+            bo = q_bytes_ops(kernel, shape, "bfloat16")
+            bound = max(bo[0] / HBM_BYTES_PER_S, bo[1] / PEAK_OPS["bfloat16"]) * 1e3
+            lib_txt = "—" if times[2] is None else f"{times[2]:.4f}"
+            line = (f"  {q_name(kernel, shape, 'bfloat16')} x{n_step}/step: {times[0]:.4f} ms "
+                    f"(synchronised per launch {times[3]:.4f}; plain {times[1]:.4f}, library "
+                    f"{lib_txt}, bound {bound:.4f})")
+            if shape == (512, 32, 32, True, True):
+                entry = json_entry(q_name(kernel, shape, "bfloat16"), source, replaces,
+                                   counts_q[kernel], q_errs[(kernel, shape)], times, bo)
+                kernels.append(entry)
+                line += f"; launches {entry['launches']} in phase 5q-a"
+            acc = q_step_ms.setdefault(kernel, [0.0] * 5)
+            for j, v in enumerate((times[0], times[1], bound, times[2] or 0.0, times[3])):
+                acc[j] += n_step * v
+            print(line)
+    for kernel, (ms, plain_ms, bound_ms, lib_ms, synced_ms) in q_step_ms.items():
+        print(f"  per int8 train step (5q-a's shapes), {kernel}: {ms:.4f} ms (synchronised per "
+              f"launch {synced_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.4f}, library "
+              f"{lib_ms:.4f} (where one exists); launches {counts_q[kernel]} in phase 5q-a")
+    print(f"  the dtype kernels the int8 ones replace, per step: dx "
+          f"{per_step_ms['conv3x3_bn_dx'][0] + per_step_ms['conv3x3_bn_dx_bn'][0]:.4f} ms, dW "
+          f"{per_step_ms['conv3x3_bn_dw'][0]:.4f} ms")
     sums = [sum(v[i] for v in per_step_ms.values()) for i in (0, 4)]
     print(f"  per packed train step, all packed kernels: {sums[0]:.4f} ms (synchronised per "
           f"launch {sums[1]:.4f})")
@@ -2986,6 +3380,10 @@ def main() -> int:
         f"{report_va.get('images_per_sec_per_chip')} (5v-a)")
     print(f"  5v step images/s: baseline_2 conv_impl=v3 bf16 {ips_vb:.2f} (peak {peak_vb:.0f} "
           f"MiB), packed_min_size=0 f32 {ips_vc:.2f} (peak {peak_vc:.0f} MiB)")
+    print(f"  5q step images/s: headline int8 {ips_q:.2f} (peak {peak_q:.0f} MiB) beside dtype "
+          f"{ips_h:.2f} (peak {peak_h:.0f} MiB); pairs int8 / dtype median "
+          f"{float(np.median(ratios_q)):.4f}; baseline_2 packed int8 f32 {ips_qd:.2f} (peak "
+          f"{peak_qd:.0f} MiB)")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

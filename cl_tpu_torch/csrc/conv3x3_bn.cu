@@ -45,7 +45,23 @@
 // no sums. At baseline_2's 256^2 x 64 -> 64, batch 8, f32 (FMA): 38.7
 // GFLOP, 577 us at 67 TFLOP/s, against 268 MB, 80 us.
 //
-// Two bodies, each templated on what it computes (forward, dx or plain);
+// And the int8 saved activations of model.conv_act_store=int8
+// (`conv_bn_fused_q`, conv3x3_v3.py:1800-1870):
+// * 32q, the quantizing epilogue of ::_fwd_bn_q_kernel (:757, launched by
+//   the same pallas_call as the forward, :833, with emit_q; `_quant_rows`
+//   :142-151), here a second kernel, conv3x3_q_quant_kernel, after the
+//   forward, which keeps its bits: q and a scale per image row, column mod
+//   p and channel (conv3x3_bn.cuh). Bound by bytes: y read, q and the
+//   scales written (512^2 x 32 bf16 at batch 8: 201 MB, 60 us).
+// * #38, ::_dx_q_kernel (launched at :1657 by `_dx_q_impl`): the dx
+//   instances conv3x3_q_dx_kernel / conv3x3_q_dx_mma_kernel of the bodies
+//   below with MODE = kDxQ (e from dy and deq(y): the stats term reads
+//   deq(y) in f32, not rounded, :1532-1540) or kDxQX (also the epilogue's
+//   x as deq(xq) in f32, not rounded, :1577-1579). The int8 y and x halve
+//   the dx's reads of them against the compute type's bf16.
+//
+// Two bodies, each templated on what it computes (forward, dx, plain or a
+// dx from int8);
 // the staging of the window and the epilogue differ, the tile, the tap
 // loop and the fixed-order sums are shared:
 //
@@ -81,8 +97,15 @@ constexpr int kCoT = 32, kCiT = 16;  // output channels / input chunk
 constexpr int kConvThreads = 128;
 
 // What a body computes: the forward with the BN-ReLU prologue and the stats
-// epilogue, the dx with the prologue's backward, or the plain conv.
-constexpr int kFwd = 0, kDx = 1, kPlain = 2;
+// epilogue, the dx with the prologue's backward, or the plain conv; the dx
+// from the int8 saved y (kDxQ), and also from the int8 saved x (kDxQX:
+// the XQ mode, the epilogue's x dequantized).
+constexpr int kFwd = 0, kDx = 1, kPlain = 2, kDxQ = 3, kDxQX = 4;
+
+template <int MODE>
+__host__ __device__ constexpr bool is_dx() {
+  return MODE == kDx || MODE == kDxQ || MODE == kDxQX;
+}
 
 // Operands of one launch. `Cin` / `Cout` are the channels the kernel reads
 // and writes: for dx, the forward's Cout and Cin.
@@ -99,13 +122,27 @@ template <typename T> struct ConvArgs {
   float* partials;     // per-block rows [2, Cout] of the sums
   int H, W, Cin, Cout;
   int prologue;
+  const int8_t* yq;    // kDxQ, kDxQX: the forward's y as int8 [B, H, W, Cin]
+  const float* ysc;    //   and its scales [B, H, pack, Cin]
+  const int8_t* xq;    // kDxQX: the forward's x as int8 [B, H, W, Cout]
+  const float* xsc;    //   and its scales [B, H, pack, Cout]
+  int pack;            // the columns' grouping of the scales (mod pack)
 };
 
-// The epilogue at one output (pixel offset `pix`, channel o) from the f32
-// accumulator: returns the stored value and adds to the two sums.
+// The row of the scales of output pixel (b*H + gy, gx) in the XQ mode
+// (kDxQX), once per pixel; 0 in the other modes.
+template <int MODE, typename T>
+__device__ __forceinline__ int64_t x_scale_row(const ConvArgs<T>& p, int row, int gx) {
+  if constexpr (MODE == kDxQX) return (int64_t)row * p.pack + gx % p.pack;
+  return 0;
+}
+
+// The epilogue at one output (pixel offset `pix`, channel o; `srow` its
+// x_scale_row) from the f32 accumulator: returns the stored value and adds
+// to the two sums.
 template <int MODE, typename T>
 __device__ __forceinline__ T epilogue_one(const ConvArgs<T>& p, int64_t pix, int o, float acc,
-                                          float& s1, float& s2) {
+                                          float& s1, float& s2, int64_t srow) {
   if constexpr (MODE == kPlain) {
     return from_f32<T>(acc);
   } else if constexpr (MODE == kFwd) {
@@ -116,7 +153,11 @@ __device__ __forceinline__ T epilogue_one(const ConvArgs<T>& p, int64_t pix, int
     return yv;
   } else {
     if (!p.prologue) return from_f32<T>(acc);
-    const float xv = to_f32(p.x[pix * p.Cout + o]);
+    float xv;
+    if constexpr (MODE == kDxQX)  // deq(x) in f32, not rounded (:1577-1579)
+      xv = deq_f32(p.xq[pix * p.Cout + o], p.xsc[srow * p.Cout + o]);
+    else
+      xv = to_f32(p.x[pix * p.Cout + o]);
     const float du = __fadd_rn(__fmul_rn(xv, p.pa[o]), p.pb[o]) > 0.f ? acc : 0.f;
     s1 = fmaf(du, xv, s1);
     s2 += du;
@@ -126,7 +167,7 @@ __device__ __forceinline__ T epilogue_one(const ConvArgs<T>& p, int64_t pix, int
 
 template <int MODE, typename T>
 __device__ __forceinline__ bool has_sums(const ConvArgs<T>& p) {
-  return MODE == kFwd || (MODE == kDx && p.prologue);
+  return MODE == kFwd || (is_dx<MODE>() && p.prologue);
 }
 
 // The staged input at one in-image pixel: t (forward: the prologue, if on;
@@ -134,6 +175,8 @@ __device__ __forceinline__ bool has_sums(const ConvArgs<T>& p) {
 template <int MODE, typename T>
 __device__ __forceinline__ float staged_at(const ConvArgs<T>& p, int64_t i, int c) {
   if constexpr (MODE == kDx) return e_at(p.in, p.y, i, c, p.s1, p.s2);
+  if constexpr (MODE == kDxQ || MODE == kDxQX)
+    return e_at_q(p.in, p.yq, p.ysc, i, c, p.Cin, p.W, p.pack, p.s1, p.s2);
   return t_at(p.in, i, c, MODE == kFwd ? p.prologue : 0, p.pa, p.pb);
 }
 
@@ -211,11 +254,12 @@ __device__ __forceinline__ void conv3x3_fma_body(const ConvArgs<T>& p) {
     const int gx = gx0 + seg * 8 + q;
     if (gy < H && gx < W) {
       const int64_t pix = img + (int64_t)gy * W + gx;
+      const int64_t srow = x_scale_row<MODE>(p, b * H + gy, gx);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int o = co0 + cg + c;
         if (o < Cout)
-          p.out[pix * Cout + o] = epilogue_one<MODE>(p, pix, o, acc[q][c], s1[c], s2[c]);
+          p.out[pix * Cout + o] = epilogue_one<MODE>(p, pix, o, acc[q][c], s1[c], s2[c], srow);
       }
     }
   }
@@ -285,6 +329,10 @@ __device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
       if constexpr (MODE == kDx)
         stage8_e(&in_s[pix * kRowS + half * 8], p.in + i, p.s1 ? p.y + i : nullptr, c, Cin,
                  inside, p.s1, p.s2);
+      else if constexpr (MODE == kDxQ || MODE == kDxQX)
+        stage8_eq(&in_s[pix * kRowS + half * 8], p.in + i, p.yq + i,
+                  p.ysc + ((int64_t)(b * H + gy) * p.pack + gx % p.pack) * Cin + c, c, Cin,
+                  inside, p.s1, p.s2);
       else
         stage8_t(&in_s[pix * kRowS + half * 8], p.in + i, c, Cin, inside,
                  MODE == kFwd ? p.prologue : 0, p.pa, p.pb);
@@ -338,17 +386,17 @@ __device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
       const int gx = gx0 + g + hp * 8;
       if (gy >= H || gx >= W) continue;
       const int64_t pix = img + (int64_t)gy * W + gx;
+      const int64_t srow = x_scale_row<MODE>(p, b * H + gy, gx);
       bf16* dst = p.out + pix * Cout;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const int o = co0 + n * 8 + 2 * t;
         const bf16 r0 = o < Cout ? epilogue_one<MODE>(p, pix, o, acc[m][n][hp * 2], s1[n][0],
-                                                      s2[n][0])
+                                                      s2[n][0], srow)
                                  : __float2bfloat16(0.f);
-        const bf16 r1 =
-            o + 1 < Cout
-                ? epilogue_one<MODE>(p, pix, o + 1, acc[m][n][hp * 2 + 1], s1[n][1], s2[n][1])
-                : __float2bfloat16(0.f);
+        const bf16 r1 = o + 1 < Cout ? epilogue_one<MODE>(p, pix, o + 1, acc[m][n][hp * 2 + 1],
+                                                          s1[n][1], s2[n][1], srow)
+                                     : __float2bfloat16(0.f);
         if (o + 1 < Cout && (Cout & 1) == 0) {
           *reinterpret_cast<__nv_bfloat162*>(dst + o) = __halves2bfloat162(r0, r1);
         } else {
@@ -398,35 +446,87 @@ __global__ void __launch_bounds__(kMmaThreads) conv3x3_v3_mma_kernel(ConvArgs<bf
   conv3x3_mma_body<kPlain, COT>(p);
 }
 
+// #38: the dx from the int8 saved y (MODE kDxQ) and x (kDxQX).
+template <int MODE, typename T>
+__global__ void __launch_bounds__(kConvThreads) conv3x3_q_dx_kernel(ConvArgs<T> p) {
+  conv3x3_fma_body<MODE>(p);
+}
+
+template <int MODE, int COT>
+__global__ void __launch_bounds__(kMmaThreads) conv3x3_q_dx_mma_kernel(ConvArgs<bf16> p) {
+  conv3x3_mma_body<MODE, COT>(p);
+}
+
 // Launches the kernel of the type and mode and, when it sums, the
 // reduction of its partial rows into out [2, Cout].
 template <int MODE>
 int conv3x3_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, int B, void* out,
                    cudaStream_t st) {
-  constexpr bool DX = MODE == kDx;
+  constexpr bool DX = is_dx<MODE>();
   const int H = pf32.H, W = pf32.W, Cout = pf32.Cout;
   const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
   const dim3 grid32(tiles, (Cout + 31) / 32, B);
+  const dim3 grid64(tiles, Cout / 64, B);
   if constexpr (MODE == kPlain) {
     if (!is_bf16)
       conv3x3_v3_kernel<float><<<grid32, kConvThreads, 0, st>>>(pf32);
     else if (Cout % 64 == 0)
-      conv3x3_v3_mma_kernel<64><<<dim3(tiles, Cout / 64, B), kMmaThreads, 0, st>>>(pb16);
+      conv3x3_v3_mma_kernel<64><<<grid64, kMmaThreads, 0, st>>>(pb16);
     else
       conv3x3_v3_mma_kernel<32><<<grid32, kMmaThreads, 0, st>>>(pb16);
     return (int)cudaGetLastError();
   }
-  if (!is_bf16)
-    conv3x3_bn_kernel<DX, float><<<grid32, kConvThreads, 0, st>>>(pf32);
-  else if (Cout % 64 == 0)
-    conv3x3_bn_mma_kernel<DX, 64><<<dim3(tiles, Cout / 64, B), kMmaThreads, 0, st>>>(pb16);
-  else
-    conv3x3_bn_mma_kernel<DX, 32><<<grid32, kMmaThreads, 0, st>>>(pb16);
+  if constexpr (MODE == kDxQ || MODE == kDxQX) {
+    if (!is_bf16)
+      conv3x3_q_dx_kernel<MODE, float><<<grid32, kConvThreads, 0, st>>>(pf32);
+    else if (Cout % 64 == 0)
+      conv3x3_q_dx_mma_kernel<MODE, 64><<<grid64, kMmaThreads, 0, st>>>(pb16);
+    else
+      conv3x3_q_dx_mma_kernel<MODE, 32><<<grid32, kMmaThreads, 0, st>>>(pb16);
+  } else {
+    if (!is_bf16)
+      conv3x3_bn_kernel<DX, float><<<grid32, kConvThreads, 0, st>>>(pf32);
+    else if (Cout % 64 == 0)
+      conv3x3_bn_mma_kernel<DX, 64><<<grid64, kMmaThreads, 0, st>>>(pb16);
+    else
+      conv3x3_bn_mma_kernel<DX, 32><<<grid32, kMmaThreads, 0, st>>>(pb16);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || (DX && !pf32.prologue)) return (int)err;
   reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(pf32.partials, tiles * B, 2 * Cout,
                                                           2 * Cout, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// 32q: the quantizing epilogue of the forward, as a second kernel. One
+// block per image row (b, h); a thread per lane l = j * C + c (column mod
+// p, channel) walks its W / p columns (lane l of column group g is element
+// g * p * C + l of the row: a warp's reads are consecutive), takes the max
+// of |y|, then writes q = clip(rint(y * (127 / m)), +-127) and the scale
+// m * float32(1 / 127) (`_quant_rows`, conv3x3_v3.py:142-151). Each value
+// comes from one exact max and one rounding per operation, so the result
+// does not depend on the order: no sums, nothing to repeat.
+constexpr int kQuantThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kQuantThreads)
+    conv3x3_q_quant_kernel(const T* __restrict__ y, int8_t* __restrict__ q,
+                           float* __restrict__ scale, int W, int C, int p) {
+  const int64_t row = blockIdx.x;  // b * H + h
+  const int L = p * C, G = W / p;
+  const T* yr = y + row * W * C;
+  int8_t* qr = q + row * W * C;
+  const float inv_qmax = static_cast<float>(1.0 / 127.0);  // as the JAX package rounds it
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    float m = 0.f;
+    for (int g = 0; g < G; ++g) m = fmaxf(m, fabsf(to_f32(yr[(int64_t)g * L + l])));
+    const float inv = m > 0.f ? __fdiv_rn(127.f, m) : 0.f;
+    for (int g = 0; g < G; ++g) {
+      const float v = rintf(__fmul_rn(to_f32(yr[(int64_t)g * L + l]), inv));  // half to even
+      qr[(int64_t)g * L + l] = static_cast<int8_t>(fminf(fmaxf(v, -127.f), 127.f));
+    }
+    scale[row * L + l] = __fmul_rn(m, inv_qmax);
+  }
 }
 
 template <typename T>
@@ -480,6 +580,47 @@ int cltorch_conv3x3_bn_dx(const void* dy, const void* y, const void* s1, const v
       conv_args<bf16>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
       conv_args<float>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
       is_bf16, B, out, static_cast<cudaStream_t>(stream));
+}
+
+// 32q: y [B, H, W, C] -> q int8 [B, H, W, C] and scale f32 [B, H, p, C];
+// W a multiple of p.
+int cltorch_conv3x3_bn_quant(const void* y, void* q, void* scale, int B, int H, int W, int C,
+                             int p, int is_bf16, void* stream) {
+  using namespace cltorch;
+  const int threads = p * C < kQuantThreads ? (p * C + 31) / 32 * 32 : kQuantThreads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    conv3x3_q_quant_kernel<bf16><<<B * H, threads, 0, st>>>(
+        static_cast<const bf16*>(y), static_cast<int8_t*>(q), static_cast<float*>(scale), W, C,
+        p);
+  else
+    conv3x3_q_quant_kernel<float><<<B * H, threads, 0, st>>>(
+        static_cast<const float*>(y), static_cast<int8_t*>(q), static_cast<float*>(scale), W,
+        C, p);
+  return (int)cudaGetLastError();
+}
+
+// #38: dx of the conv from the int8 saved y (yq, ysc [B, H, pack, Cin]) and,
+// when xq is given, the int8 saved x (xq, xsc [B, H, pack, Cout]) in place
+// of x; the other operands as for cltorch_conv3x3_bn_dx.
+int cltorch_conv3x3_bn_dx_q(const void* dy, const void* yq, const void* ysc, const void* s1,
+                            const void* s2, const void* w, const void* x, const void* xq,
+                            const void* xsc, const void* a, const void* b, void* dx,
+                            void* partials, void* out, int B, int H, int W, int Cin, int Cout,
+                            int prologue, int pack, int is_bf16, void* stream) {
+  using namespace cltorch;
+  auto pb16 = conv_args<bf16>(dy, nullptr, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout,
+                              prologue);
+  auto pf32 = conv_args<float>(dy, nullptr, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout,
+                               prologue);
+  pb16.yq = pf32.yq = static_cast<const int8_t*>(yq);
+  pb16.xq = pf32.xq = static_cast<const int8_t*>(xq);
+  pb16.ysc = pf32.ysc = static_cast<const float*>(ysc);
+  pb16.xsc = pf32.xsc = static_cast<const float*>(xsc);
+  pb16.pack = pf32.pack = pack;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return xq != nullptr ? conv3x3_launch<kDxQX>(pb16, pf32, is_bf16, B, out, st)
+                       : conv3x3_launch<kDxQ>(pb16, pf32, is_bf16, B, out, st);
 }
 
 // The plain gen-3 conv: x [B, H, W, Cin] -> y [B, H, W, Cout], w as for

@@ -22,7 +22,14 @@
 //   the VJP rounds dW once to the compute type, :621, :643);
 // * ::_dw_bn_kernel (launched at :870 by `_dw_bn_impl`), the two-pass
 //   backward's dW (:966): t recomputed through the prologue when it is on,
-//   e the MATERIALIZED dy_eff read as it is (kDwBn).
+//   e the MATERIALIZED dy_eff read as it is (kDwBn);
+// * ::_dw2_q_kernel (#39, launched at :1779 by `_dw2_q_impl`), the dW of
+//   `conv_bn_fused_q` under model.conv_act_store=int8 (kDwQ): e =
+//   round(dy + ds1 + 2 * deq(y) * ds2) from the int8 y (deq in f32, not
+//   rounded, :1713-1715), t from x as kDwFused stages it or, in the XQ
+//   mode, t = round(relu(deq(xq) * a + b)) from the int8 x, computed in
+//   f32 and rounded once (:1690-1696). Bound by bytes as kDwFused, with y
+//   (and x in the XQ mode) read as one byte an element.
 // At baseline_2's 256^2 x 64 -> 64 (batch 8, f32, FMA) #31 does 38.7 GFLOP,
 // 577 us at 67 TFLOP/s, against 268 MB read, 80 us.
 //
@@ -57,9 +64,22 @@ namespace {
 constexpr int kDwC = 32;  // input and output channels of a block's tile
 
 // What a body computes: the fused dW (prologue if on, e formed from dy, y
-// and the stats cotangents), the plain dW (t = x, e = dy), or the two-pass
-// dW (prologue if on, e = dy as given).
-constexpr int kDwFused = 0, kDwPlain = 1, kDwBn = 2;
+// and the stats cotangents), the plain dW (t = x, e = dy), the two-pass
+// dW (prologue if on, e = dy as given), or the dW from int8 saved
+// activations (kDwQ: e from dy and deq(y); t from x, or from deq(xq) when
+// the int8 x is given).
+constexpr int kDwFused = 0, kDwPlain = 1, kDwBn = 2, kDwQ = 3;
+
+// kDwQ's int8 operands (conv3x3_bn.cuh): y as int8 [B, H, W, Cout] with
+// scales [B, H, pack, Cout]; x as int8 [B, H, W, Cin] with scales
+// [B, H, pack, Cin], or null (t from x itself).
+struct QArgs {
+  const int8_t* yq;
+  const float* ysc;
+  const int8_t* xq;
+  const float* xsc;
+  int pack;
+};
 
 template <int KIND>
 __device__ __forceinline__ int dw_prologue(int prologue) {
@@ -68,7 +88,7 @@ __device__ __forceinline__ int dw_prologue(int prologue) {
 
 template <int KIND>
 __device__ __forceinline__ const float* dw_stats(const float* s) {
-  return KIND == kDwFused ? s : nullptr;
+  return KIND == kDwFused || KIND == kDwQ ? s : nullptr;
 }
 
 // ---------------------------------------------------------------------------
@@ -87,7 +107,7 @@ __device__ __forceinline__ void dw_mma_body(const bf16* __restrict__ x,
                                             const float* __restrict__ s1_in,
                                             const float* __restrict__ s2_in,
                                             float* __restrict__ partials, int B, int H, int W,
-                                            int Cin, int Cout, int prologue_in) {
+                                            int Cin, int Cout, int prologue_in, const QArgs qa) {
   const int prologue = dw_prologue<KIND>(prologue_in);
   const float* s1 = dw_stats<KIND>(s1_in);
   const float* s2 = dw_stats<KIND>(s2_in);
@@ -120,16 +140,26 @@ __device__ __forceinline__ void dw_mma_body(const bf16* __restrict__ x,
       const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
       const int c = ci0 + q * 8;
-      stage8_t(&t_s[pix * kDwRow + q * 8], x + (img + (int64_t)gy * W + gx) * Cin + c, c, Cin,
-               inside, prologue, pa, pb);
+      const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
+      if (KIND == kDwQ && qa.xq != nullptr)
+        stage8_tq(&t_s[pix * kDwRow + q * 8], qa.xq + i,
+                  qa.xsc + ((int64_t)(b * H + gy) * qa.pack + gx % qa.pack) * Cin + c, c, Cin,
+                  inside, prologue, pa, pb);
+      else
+        stage8_t(&t_s[pix * kDwRow + q * 8], x + i, c, Cin, inside, prologue, pa, pb);
     }
     for (int e = threadIdx.x; e < kTH * kTW * 4; e += kDwThreads) {
       const int pix = e >> 2, q = e & 3;
       const int gy = gy0 + pix / kTW, gx = gx0 + pix % kTW;
       const int c = co0 + q * 8;
       const int64_t i = (img + (int64_t)gy * W + gx) * Cout + c;
-      stage8_e(&e_s[pix * kDwRow + q * 8], dy + i, s1 ? y + i : nullptr, c, Cout,
-               gy < H && gx < W, s1, s2);
+      if constexpr (KIND == kDwQ)
+        stage8_eq(&e_s[pix * kDwRow + q * 8], dy + i, qa.yq + i,
+                  qa.ysc + ((int64_t)(b * H + gy) * qa.pack + gx % qa.pack) * Cout + c, c, Cout,
+                  gy < H && gx < W, s1, s2);
+      else
+        stage8_e(&e_s[pix * kDwRow + q * 8], dy + i, s1 ? y + i : nullptr, c, Cout,
+                 gy < H && gx < W, s1, s2);
     }
     __syncthreads();
 
@@ -185,7 +215,7 @@ __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
                                             const float* __restrict__ s1_in,
                                             const float* __restrict__ s2_in,
                                             float* __restrict__ partials, int B, int H, int W,
-                                            int Cin, int Cout, int prologue_in) {
+                                            int Cin, int Cout, int prologue_in, const QArgs qa) {
   const int prologue = dw_prologue<KIND>(prologue_in);
   const float* s1 = dw_stats<KIND>(s1_in);
   const float* s2 = dw_stats<KIND>(s2_in);
@@ -211,16 +241,23 @@ __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
       const int c = e % kDwC, pix = e / kDwC;
       const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
       float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && ci0 + c < Cin)
-        v = t_at(x, (img + (int64_t)gy * W + gx) * Cin + ci0 + c, ci0 + c, prologue, pa, pb);
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W && ci0 + c < Cin) {
+        const int64_t i = (img + (int64_t)gy * W + gx) * Cin + ci0 + c;
+        v = KIND == kDwQ && qa.xq != nullptr
+                ? t_at_q<float>(qa.xq, qa.xsc, i, ci0 + c, Cin, W, qa.pack, prologue, pa, pb)
+                : t_at(x, i, ci0 + c, prologue, pa, pb);
+      }
       t_s[pix][c] = v;
     }
     for (int e = threadIdx.x; e < kDwfTH * kTW * kDwC; e += kDwfThreads) {
       const int c = e % kDwC, pix = e / kDwC;
       const int gy = gy0 + pix / kTW, gx = gx0 + pix % kTW;
       float v = 0.f;
-      if (gy < H && gx < W && co0 + c < Cout)
-        v = e_at(dy, y, (img + (int64_t)gy * W + gx) * Cout + co0 + c, co0 + c, s1, s2);
+      if (gy < H && gx < W && co0 + c < Cout) {
+        const int64_t i = (img + (int64_t)gy * W + gx) * Cout + co0 + c;
+        v = KIND == kDwQ ? e_at_q(dy, qa.yq, qa.ysc, i, co0 + c, Cout, W, qa.pack, s1, s2)
+                         : e_at(dy, y, i, co0 + c, s1, s2);
+      }
       e_s[pix][c] = v;
     }
     __syncthreads();
@@ -260,8 +297,8 @@ __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
   const T *__restrict__ x, const float *__restrict__ pa, const float *__restrict__ pb,   \
       const T *__restrict__ dy, const T *__restrict__ y, const float *__restrict__ s1,    \
       const float *__restrict__ s2, float *__restrict__ partials, int B, int H, int W,    \
-      int Cin, int Cout, int prologue
-#define CLTORCH_DW_ARGS x, pa, pb, dy, y, s1, s2, partials, B, H, W, Cin, Cout, prologue
+      int Cin, int Cout, int prologue, const QArgs qa
+#define CLTORCH_DW_ARGS x, pa, pb, dy, y, s1, s2, partials, B, H, W, Cin, Cout, prologue, qa
 
 __global__ void __launch_bounds__(kDwThreads) conv3x3_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
   dw_mma_body<kDwFused>(CLTORCH_DW_ARGS);
@@ -274,6 +311,9 @@ __global__ void __launch_bounds__(kDwThreads)
     conv3x3_v3_dw_bn_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
   dw_mma_body<kDwBn>(CLTORCH_DW_ARGS);
 }
+__global__ void __launch_bounds__(kDwThreads) conv3x3_q_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
+  dw_mma_body<kDwQ>(CLTORCH_DW_ARGS);
+}
 __global__ void __launch_bounds__(kDwfThreads) conv3x3_dw_fma_kernel(CLTORCH_DW_PARAMS(float)) {
   dw_fma_body<kDwFused>(CLTORCH_DW_ARGS);
 }
@@ -284,6 +324,9 @@ __global__ void __launch_bounds__(kDwfThreads)
 __global__ void __launch_bounds__(kDwfThreads)
     conv3x3_v3_dw_bn_fma_kernel(CLTORCH_DW_PARAMS(float)) {
   dw_fma_body<kDwBn>(CLTORCH_DW_ARGS);
+}
+__global__ void __launch_bounds__(kDwfThreads) conv3x3_q_dw_fma_kernel(CLTORCH_DW_PARAMS(float)) {
+  dw_fma_body<kDwQ>(CLTORCH_DW_ARGS);
 }
 
 // out[j] = sum over s < splits of part[s * n + j], in order of s.
@@ -313,7 +356,8 @@ namespace {
 template <int KIND>
 int dw_launch(const void* x, const void* a, const void* b, const void* dy, const void* y,
               const void* s1, const void* s2, void* partials, void* dw, int B, int H, int W,
-              int Cin, int Cout, int prologue, int splits, int is_bf16, cudaStream_t st) {
+              int Cin, int Cout, int prologue, int splits, int is_bf16, cudaStream_t st,
+              QArgs qa = QArgs{}) {
   const dim3 grid((Cin + kDwC - 1) / kDwC, (Cout + kDwC - 1) / kDwC, splits);
   const float *fa = static_cast<const float*>(a), *fb = static_cast<const float*>(b);
   const float *f1 = static_cast<const float*>(s1), *f2 = static_cast<const float*>(s2);
@@ -321,29 +365,21 @@ int dw_launch(const void* x, const void* a, const void* b, const void* dy, const
   if (is_bf16) {
     const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
                *yb = static_cast<const bf16*>(y);
-    if constexpr (KIND == kDwFused)
-      conv3x3_dw_mma_kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part, B,
-                                                          H, W, Cin, Cout, prologue);
-    else if constexpr (KIND == kDwPlain)
-      conv3x3_v3_dw_mma_kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part,
-                                                             B, H, W, Cin, Cout, prologue);
-    else
-      conv3x3_v3_dw_bn_mma_kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2,
-                                                                part, B, H, W, Cin, Cout,
-                                                                prologue);
+    auto kernel = KIND == kDwFused   ? conv3x3_dw_mma_kernel
+                  : KIND == kDwPlain ? conv3x3_v3_dw_mma_kernel
+                  : KIND == kDwBn    ? conv3x3_v3_dw_bn_mma_kernel
+                                     : conv3x3_q_dw_mma_kernel;
+    kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part, B, H, W, Cin, Cout,
+                                        prologue, qa);
   } else {
     const float *xf = static_cast<const float*>(x), *dyf = static_cast<const float*>(dy),
                 *yf = static_cast<const float*>(y);
-    if constexpr (KIND == kDwFused)
-      conv3x3_dw_fma_kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2, part, B,
-                                                           H, W, Cin, Cout, prologue);
-    else if constexpr (KIND == kDwPlain)
-      conv3x3_v3_dw_fma_kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2, part,
-                                                              B, H, W, Cin, Cout, prologue);
-    else
-      conv3x3_v3_dw_bn_fma_kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2,
-                                                                 part, B, H, W, Cin, Cout,
-                                                                 prologue);
+    auto kernel = KIND == kDwFused   ? conv3x3_dw_fma_kernel
+                  : KIND == kDwPlain ? conv3x3_v3_dw_fma_kernel
+                  : KIND == kDwBn    ? conv3x3_v3_dw_bn_fma_kernel
+                                     : conv3x3_q_dw_fma_kernel;
+    kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2, part, B, H, W, Cin, Cout,
+                                         prologue, qa);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -374,6 +410,21 @@ int cltorch_conv3x3_dw(const void* x, const void* dy, void* partials, void* dw, 
                                                nullptr, partials, dw, B, H, W, Cin, Cout, 0,
                                                splits, is_bf16,
                                                static_cast<cudaStream_t>(stream));
+}
+
+// #39: the dW from int8 saved activations: y as yq [B, H, W, Cout] with
+// scales ysc [B, H, pack, Cout]; x [B, H, W, Cin] or, when xq is given,
+// xq [B, H, W, Cin] with scales xsc [B, H, pack, Cin] (x then unread).
+int cltorch_conv3x3_bn_dw_q(const void* x, const void* xq, const void* xsc, const void* a,
+                            const void* b, const void* dy, const void* yq, const void* ysc,
+                            const void* s1, const void* s2, void* partials, void* dw, int B,
+                            int H, int W, int Cin, int Cout, int prologue, int pack, int splits,
+                            int is_bf16, void* stream) {
+  const cltorch::QArgs qa{static_cast<const int8_t*>(yq), static_cast<const float*>(ysc),
+                          static_cast<const int8_t*>(xq), static_cast<const float*>(xsc), pack};
+  return cltorch::dw_launch<cltorch::kDwQ>(x, a, b, dy, nullptr, s1, s2, partials, dw, B, H, W,
+                                           Cin, Cout, prologue, splits, is_bf16,
+                                           static_cast<cudaStream_t>(stream), qa);
 }
 
 // The two-pass backward's dW: x [B, H, W, Cin] through the prologue (a, b

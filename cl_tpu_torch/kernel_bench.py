@@ -10,7 +10,10 @@ seeded operands on the CUDA card, at the shapes of the baseline_1 step
 step (2,097,152 pixels, 32 channels, 19 classes, bf16; also at 8
 classes); then the gen-3 plain conv (#30 forward and dx, #31 dW) at
 baseline_2's 256² × 64 → 64, batch 8, f32 and bf16, and the two-pass
-backward's dW (#33) at 64² × 256 → 256 with the prologue, f32. It prints
+backward's dW (#33) at 64² × 256 → 256 with the prologue, f32; then the
+int8 conv kernels of ``model.conv_act_store=int8`` (the quantize 32q, the
+dx #38 and the dW #39 from int8 y and x, the prologue on) at the headline
+step's 512² × 32 → 32, batch 8, bf16 and f32. It prints
 for each case the mean device time of every CUDA kernel it launched and a
 SHA-256 of its outputs (loss, dx, dW, db / dz; the KD forms' KD sum too;
 the conv's y, dx and dW). Run from two checkouts, the hashes tell whether
@@ -36,6 +39,8 @@ CASES = (  # kind, pixels, Cin, classes, dtype
     ("conv3x3", 256, 64, 64, torch.float32),
     ("conv3x3", 256, 64, 64, torch.bfloat16),
     ("conv3x3_dw_bn", 64, 256, 256, torch.float32),
+    ("conv3x3_q", 512, 32, 32, torch.bfloat16),
+    ("conv3x3_q", 512, 32, 32, torch.float32),
 )
 LWF_T = 2.0  # method.lwf_temperature's default
 
@@ -95,6 +100,10 @@ def conv_operands(kind, H, cin, C, dtype, seed):
     x, dy = randn(8, H, H, cin).to(dtype), randn(8, H, H, C).to(dtype)
     if kind == "conv3x3":
         return (x, randn(C, cin, 3, 3) * (9 * cin) ** -0.5, dy), None
+    if kind == "conv3x3_q":  # y, the xq pair, w, a, b, dy, ds1, ds2 (P = 4)
+        return (randn(8, H, H, C).to(dtype), x, randn(C, cin, 3, 3) * (9 * cin) ** -0.5,
+                randn(cin).abs() + 0.5, randn(cin) * 0.5, dy, randn(C) * 0.1,
+                randn(C) * 0.05), None
     return (x, randn(cin).abs() + 0.5, randn(cin) * 0.5, dy), None
 
 
@@ -108,6 +117,12 @@ def run(kind, args, scale):
                 conv3x3.launch_conv3x3_dw(x, dy))
     if kind == "conv3x3_dw_bn":  # #33
         return (conv3x3.launch_conv3x3_dw_bn(*args, True),)
+    if kind == "conv3x3_q":  # 32q on y and on x, #38 and #39 in the xq mode
+        y, x, w, a, b, dy, ds1, ds2 = args
+        q, scale = conv3x3.launch_quant_rows(y, 4)
+        xq = conv3x3.launch_quant_rows(x, 4)
+        qargs = (xq, w, a, b, q, scale, dy, ds1, ds2, True, 4)
+        return (q, scale, *conv3x3.launch_conv_dx_q(*qargs), conv3x3.launch_conv_dw_q(*qargs))
 
     if kind == "head_ce_kd":
         s = scale.reshape(())

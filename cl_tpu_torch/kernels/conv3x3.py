@@ -33,6 +33,25 @@ f32 and rounded to x's dtype, no prologue, no statistics (#30). Its VJP
 transposed weight, dW = Σ xᵀ★dy in f32 (#31) rounded once to the compute
 dtype.
 
+``conv_bn_fused_q`` is ``cl_tpu.pallas.conv3x3_v3.conv_bn_fused_q``
+(``:1800-1870``), the packed conv under ``model.conv_act_store=int8``: the
+same forward (#32, every bit of y and the sums kept) and a quantize
+kernel (32q) that stores y as int8 with one f32 scale per image row,
+column mod p and channel (``_quant_rows``, ``:142-151``: the TPU's per
+(image-row, lane) scale of its packed view, whose lane j·C + c holds the
+columns w ≡ j mod p): m = max |y| over those W/p columns of the stored
+y, q = clip(rint(y·(127/m)), ±127) (0 where m = 0), scale = m·float32(1/127).
+The backward saves (q, scale) in place of y and, where the producer conv
+threads its own pair in (``xq``), that pair in place of x. Its fused
+branch (``_cbfq_bwd``, ``:1826-1863``) runs #38 (dx) and #39 (dW) with
+these rounding points: e = round(dy + ds1 + 2·deq(y)·ds2) with deq(y) =
+q·scale in f32, NOT rounded (``:1532-1540``, ``:1713-1715``); the dx
+epilogue reads x as deq(xq) in f32, not rounded (``:1577-1579``); the dW's
+t = round(relu(deq(xq)·a + b)) computed in f32 and rounded once
+(``:1690-1696``); dW summed in f32 and rounded once. Where no tile fits
+(``conv_bwd_two_pass``) it dequantizes y and x once, ROUNDED to the compute
+dtype, and runs the two-pass backward on them (``:1836-1858``).
+
 ``w`` is the port's conv weight [Cout, Cin, 3, 3] (f32), rounded to x's
 dtype as the JAX package rounds its kernel. Tensors are NHWC.
 
@@ -49,6 +68,7 @@ from cl_tpu_torch.kernels import SPLIT_BLOCKS, build
 from cl_tpu_torch.models.packed_gate import conv_bwd_two_pass, pick_pack
 
 TILE = 16  # output tile of the kernels (rows and columns)
+QMAX = 127.0  # the int8 saved activations' symmetric range
 
 LAUNCHES = {"conv3x3_bn_fwd": 0, "conv3x3_bn_dx": 0, "conv3x3_bn_dx_bn": 0,
             "conv3x3_bn_dw": 0,
@@ -56,7 +76,10 @@ LAUNCHES = {"conv3x3_bn_fwd": 0, "conv3x3_bn_dx": 0, "conv3x3_bn_dx_bn": 0,
             # and as the two-pass backward's dt; its dW (#31); the two-pass
             # backward's dW with the prologue (#33)
             "conv3x3_fwd": 0, "conv3x3_dx": 0, "conv3x3_dt": 0, "conv3x3_dw": 0,
-            "conv3x3_dw_bn": 0}
+            "conv3x3_dw_bn": 0,
+            # the int8 saved activations: the quantize after #32 (32q), the
+            # dx (#38) and dW (#39) from int8
+            "conv3x3_bn_quant": 0, "conv3x3_bn_dx_q": 0, "conv3x3_bn_dw_q": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -107,12 +130,13 @@ def conv_dx_plain(x, w, a, b, y, dy, ds1, ds2, prologue):
     return prologue_bwd(x, a, b, dt)
 
 
-def prologue_bwd(x, a, b, dt):
+def prologue_bwd(x, a, b, dt, dtype=None):
     """(dx, da, db) of t = relu(x·a + b) from dt (read in f32): u = x·a + b,
-    du = [u > 0]·dt, dx = du·a rounded to x's dtype, da = Σ du·x, db = Σ du."""
+    du = [u > 0]·dt, dx = du·a rounded to ``dtype`` (None: x's), da = Σ du·x,
+    db = Σ du."""
     xf = x.float()
     du = torch.where(xf * a + b > 0, dt.float(), 0.0)
-    dx = (du * a).to(x.dtype)
+    dx = (du * a).to(dtype or x.dtype)
     du, xf = du.reshape(-1, x.shape[-1]), xf.reshape(-1, x.shape[-1])
     return dx, (du * xf).sum(0), du.sum(0)
 
@@ -135,6 +159,53 @@ def conv3x3_dw_bn_plain(x, a, b, e, prologue):
     t = prologue_t(x, a, b, prologue)
     return torch.nn.grad.conv2d_weight(_nchw(t), (e.shape[-1], x.shape[-1], 3, 3), _nchw(e),
                                        padding=1)
+
+
+def quant_rows_plain(y, p):
+    """32q: (q int8 [B, H, W, C], scale f32 [B, H, p, C]) of the stored y,
+    one scale per image row, column mod ``p`` and channel. 127/m is an f32
+    division (torch's ``scalar / tensor`` would multiply by a rounded
+    reciprocal) and rint rounds half to even, as ``_quant_rows``."""
+    B, H, W, C = y.shape
+    yf = y.float().reshape(B, H, W // p, p, C)
+    m = yf.abs().amax(dim=2)
+    inv = torch.where(m > 0, torch.full_like(m, QMAX) / m, 0.0)
+    q = torch.round(yf * inv[:, :, None]).clamp(-QMAX, QMAX).to(torch.int8)
+    return q.reshape(B, H, W, C), m * (1.0 / QMAX)  # m·float32(1/127), not m / 127
+
+
+def deq_rows(q, scale, p):
+    """deq(v) = q·scale in f32 [B, H, W, C], not rounded."""
+    B, H, W, C = q.shape
+    return (q.float().reshape(B, H, W // p, p, C) * scale[:, :, None]).reshape(B, H, W, C)
+
+
+def _x_f32(x_res, p):
+    """The forward's input as the int8 backward reads it: x itself, or
+    deq(xq) in f32 (not rounded) where ``x_res`` is the pair (xq, scale)."""
+    return deq_rows(*x_res, p) if isinstance(x_res, tuple) else x_res
+
+
+def conv_dx_q_plain(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
+    """#38: (dx, da, db) of ``conv_bn_fused_q`` from the int8 y (q, scale)
+    and ``x_res`` (x, or the pair (xq, scale)); da, db None without the
+    prologue. e takes deq(y) in f32 (rounding point 1), the epilogue deq(x)
+    in f32 (point 2)."""
+    e = dy_eff(dy, deq_rows(q, scale, p), ds1, ds2)
+    dt = F.conv_transpose2d(_nchw(e), w.to(dy.dtype).float(), padding=1).permute(0, 2, 3, 1)
+    if not prologue:
+        return dt.to(dy.dtype), None, None
+    return prologue_bwd(_x_f32(x_res, p), a, b, dt, dy.dtype)
+
+
+def conv_dw_q_plain(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
+    """#39: dW [Cout, Cin, 3, 3] of ``conv_bn_fused_q``, rounded to the
+    compute dtype, as f32: e from deq(y) in f32 (point 1); t from x, or
+    t = round(relu(deq(xq)·a + b)) computed in f32 and rounded once (point
+    3); the sum in f32, rounded once."""
+    e = dy_eff(dy, deq_rows(q, scale, p), ds1, ds2)
+    t = prologue_t(_x_f32(x_res, p), a, b, prologue).to(dy.dtype)
+    return conv3x3_dw_bn_plain(t, None, None, e, False).to(dy.dtype).float()
 
 
 def _flip_t(w):
@@ -206,10 +277,20 @@ def _grad_operands(x, w, y, dy, ds1, ds2, what):
         _check_nhwc(t, what)
         if t.shape != (B, H, W, cout) or t.dtype != x.dtype:
             raise ValueError(f"{what}: y and dy of shape {(B, H, W, cout)} and {x.dtype}")
+    return _stats_operands(ds1, ds2, cout, x.device, what)
+
+
+def _stats_operands(ds1, ds2, cout, device, what):
+    """The stats cotangents as the kernels read them: both None (e = dy),
+    else both f32 [Cout], a missing one zero."""
     if ds1 is None and ds2 is None:
         return None, None
-    zeros = torch.zeros(cout, dtype=torch.float32, device=x.device)
-    return tuple(zeros if v is None else _vec(v, cout, x.device, what) for v in (ds1, ds2))
+    zeros = torch.zeros(cout, dtype=torch.float32, device=device)
+    return tuple(zeros if v is None else _vec(v, cout, device, what) for v in (ds1, ds2))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue):
@@ -227,10 +308,9 @@ def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue):
     partials = torch.empty(tiles * B if prologue else 1, 2, cin, dtype=torch.float32,
                            device=x.device)
     out = torch.empty(2, cin, dtype=torch.float32, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = build.library().cltorch_conv3x3_bn_dx(
-        dy.data_ptr(), y.data_ptr(), ptr(s1), ptr(s2), wdx.data_ptr(), x.data_ptr(),
-        ptr(a if prologue else None), ptr(b if prologue else None), dx.data_ptr(),
+        dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), wdx.data_ptr(), x.data_ptr(),
+        _ptr(a if prologue else None), _ptr(b if prologue else None), dx.data_ptr(),
         partials.data_ptr(), out.data_ptr(), B, H, W, cout, cin, int(prologue),
         int(x.dtype == torch.bfloat16), _stream(x))
     build.check(err, "conv3x3_bn_dx")
@@ -257,10 +337,9 @@ def launch_conv_dw(x, w, a, b, y, dy, ds1, ds2, prologue):
     splits = dw_splits(cin, cout, B, H, W, bf16)
     partials = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=x.device)
     dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = build.library().cltorch_conv3x3_bn_dw(
-        x.data_ptr(), ptr(a if prologue else None), ptr(b if prologue else None),
-        dy.data_ptr(), y.data_ptr(), ptr(s1), ptr(s2), partials.data_ptr(), dw.data_ptr(),
+        x.data_ptr(), _ptr(a if prologue else None), _ptr(b if prologue else None),
+        dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), partials.data_ptr(), dw.data_ptr(),
         B, H, W, cin, cout, int(prologue), splits, int(bf16), _stream(x))
     build.check(err, "conv3x3_bn_dw")
     return dw.to(x.dtype).float()
@@ -323,6 +402,96 @@ def launch_conv3x3_dw_bn(x, a, b, e, prologue):
     return dw
 
 
+def launch_quant_rows(y, p):
+    """32q on the card: (q int8 [B, H, W, C], scale f32 [B, H, p, C])."""
+    _check_nhwc(y, "conv3x3_bn quantize kernel")
+    B, H, W, C = y.shape
+    if W % p:
+        raise ValueError(f"conv3x3_bn quantize kernel: width {W} is not a multiple of p = {p}")
+    q = torch.empty(B, H, W, C, dtype=torch.int8, device=y.device)
+    scale = torch.empty(B, H, p, C, dtype=torch.float32, device=y.device)
+    err = build.library().cltorch_conv3x3_bn_quant(
+        y.data_ptr(), q.data_ptr(), scale.data_ptr(), B, H, W, C, p,
+        int(y.dtype == torch.bfloat16), _stream(y))
+    build.check(err, "conv3x3_bn_quant")
+    return q, scale
+
+
+def _check_q(q, scale, shape, p, what):
+    """An int8 saved tensor of ``shape`` [B, H, W, C] and its scales."""
+    B, H, W, C = shape
+    if q.dtype != torch.int8 or tuple(q.shape) != tuple(shape) or not q.is_contiguous():
+        raise ValueError(f"{what}: int8 {list(shape)} expected, got {q.dtype} {list(q.shape)}")
+    if (scale.dtype != torch.float32 or tuple(scale.shape) != (B, H, p, C)
+            or not scale.is_contiguous()):
+        raise ValueError(f"{what}: f32 scales {[B, H, p, C]} expected, got {scale.dtype} "
+                         f"{list(scale.shape)}")
+    if q.data_ptr() % 16 or scale.data_ptr() % 16:  # the kernels' vector loads
+        raise ValueError(f"{what}: int8 values and scales must be 16-byte aligned")
+
+
+def _q_operands(x_res, w, q, scale, dy, ds1, ds2, p, what):
+    """The int8 backward's shared checks: (x or None, xq, xs, s1, s2)."""
+    _check_nhwc(dy, what)
+    B, H, W, cout = dy.shape
+    cin = w.shape[1]
+    if w.shape != (cout, cin, 3, 3):
+        raise ValueError(f"{what}: weight [{cout}, Cin, 3, 3] expected, got {tuple(w.shape)}")
+    _check_q(q, scale, dy.shape, p, f"{what} (y)")
+    if isinstance(x_res, tuple):
+        _check_q(*x_res, (B, H, W, cin), p, f"{what} (x)")
+        x, (xq, xs) = None, x_res
+    else:
+        _check_nhwc(x_res, what)
+        if x_res.shape != (B, H, W, cin) or x_res.dtype != dy.dtype:
+            raise ValueError(f"{what}: x of shape {(B, H, W, cin)} and {dy.dtype} expected")
+        x, xq, xs = x_res, None, None
+    return (x, xq, xs, *_stats_operands(ds1, ds2, cout, dy.device, what))
+
+
+def launch_conv_dx_q(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
+    """#38 on the card: (dx, da, db); da, db None without the prologue."""
+    x, xq, xs, s1, s2 = _q_operands(x_res, w, q, scale, dy, ds1, ds2, p, "conv3x3_bn dx_q kernel")
+    B, H, W, cout = dy.shape
+    cin = w.shape[1]
+    wdx = _kernel_weight(_flip_t(w), dy.dtype)
+    if prologue:
+        a, b = _vec(a, cin, dy.device, "conv prologue"), _vec(b, cin, dy.device, "conv prologue")
+    dx = torch.empty(B, H, W, cin, dtype=dy.dtype, device=dy.device)
+    tiles = -(-H // TILE) * -(-W // TILE)
+    partials = torch.empty(tiles * B if prologue else 1, 2, cin, dtype=torch.float32,
+                           device=dy.device)
+    out = torch.empty(2, cin, dtype=torch.float32, device=dy.device)
+    err = build.library().cltorch_conv3x3_bn_dx_q(
+        dy.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(s1), _ptr(s2), wdx.data_ptr(),
+        _ptr(x), _ptr(xq), _ptr(xs), _ptr(a if prologue else None),
+        _ptr(b if prologue else None), dx.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        B, H, W, cout, cin, int(prologue), p, int(dy.dtype == torch.bfloat16), _stream(dy))
+    build.check(err, "conv3x3_bn_dx_q")
+    return (dx, out[0], out[1]) if prologue else (dx, None, None)
+
+
+def launch_conv_dw_q(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
+    """#39 on the card: dW [Cout, Cin, 3, 3] rounded to the compute dtype,
+    as f32."""
+    x, xq, xs, s1, s2 = _q_operands(x_res, w, q, scale, dy, ds1, ds2, p, "conv3x3_bn dw_q kernel")
+    B, H, W, cout = dy.shape
+    cin = w.shape[1]
+    if prologue:
+        a, b = _vec(a, cin, dy.device, "conv prologue"), _vec(b, cin, dy.device, "conv prologue")
+    bf16 = dy.dtype == torch.bfloat16
+    splits = dw_splits(cin, cout, B, H, W, bf16)
+    partials = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=dy.device)
+    dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=dy.device)
+    err = build.library().cltorch_conv3x3_bn_dw_q(
+        _ptr(x), _ptr(xq), _ptr(xs), _ptr(a if prologue else None),
+        _ptr(b if prologue else None), dy.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(s1),
+        _ptr(s2), partials.data_ptr(), dw.data_ptr(), B, H, W, cin, cout, int(prologue), p,
+        splits, int(bf16), _stream(dy))
+    build.check(err, "conv3x3_bn_dw_q")
+    return dw.to(dy.dtype).float()
+
+
 # ---------------------------------------------------------------------------
 # autograd wrappers and public entries
 # ---------------------------------------------------------------------------
@@ -365,23 +534,39 @@ def conv3x3(x, w):
     return _Conv3x3.apply(x, w)
 
 
-def _two_pass_backward(ctx, x, w, a, b, y, dy, ds1, ds2):
+def _two_pass_backward(need_dx, need_dw, prologue, x, w, a, b, y, dy, ds1, ds2):
     """``_cbf_bwd``'s two-pass branch: e materialized, dt = #30 (rounded),
-    dW = #33, the prologue's backward in torch on the rounded dt."""
-    prologue = ctx.prologue
+    dW = #33, the prologue's backward in torch on the rounded dt. Returns
+    (dx, dW, da, db); ``need_dx`` asks for dx (or da, db)."""
     e = dy_eff(dy, y, ds1, ds2)
     dx = da = db = dw = None
-    if ctx.needs_input_grad[0] or (prologue and any(ctx.needs_input_grad[2:4])):
+    if need_dx:
         dt = _conv3x3(e, _flip_t(w), "conv3x3_dt")
         dx, da, db = prologue_bwd(x, a, b, dt) if prologue else (dt, None, None)
-    if ctx.needs_input_grad[1]:
+    if need_dw:
         if x.is_cuda:
             LAUNCHES["conv3x3_dw_bn"] += 1
             dw = launch_conv3x3_dw_bn(x, a, b, e, prologue)
         else:
             dw = conv3x3_dw_bn_plain(x, a, b, e, prologue)
         dw = dw.to(x.dtype).float()
-    return dx, dw, da, db, None, None
+    return dx, dw, da, db
+
+
+def _takes_two_pass(x, w, prologue, p):
+    """``conv_bwd_two_pass`` at the conv's packed view: ``cl_tpu``'s view
+    pads the stem's 3 channels to 128 / p."""
+    B, H, W, cin = x.shape
+    cin_view = 128 // p if (p * cin) % 128 else cin
+    return conv_bwd_two_pass(H, W, cin_view, w.shape[0], p, x.dtype.itemsize, prologue)
+
+
+def _conv_bn(x, w, a, b, prologue):
+    """#32 (counted) or its plain version: (y, Σy, Σy²)."""
+    if x.is_cuda:
+        LAUNCHES["conv3x3_bn_fwd"] += 1
+        return launch_conv_bn(x, w, a, b, prologue)
+    return conv_bn_plain(x, w, a, b, prologue)
 
 
 class _ConvBN(torch.autograd.Function):
@@ -389,17 +574,8 @@ class _ConvBN(torch.autograd.Function):
     def forward(ctx, x, w, a, b, prologue, p):
         ctx.set_materialize_grads(False)
         ctx.prologue = prologue
-        B, H, W, cin = x.shape
-        cout = w.shape[0]
-        p = p or pick_pack(cin, cout)
-        # cl_tpu's packed view pads the stem's 3 channels to 128 / p
-        cin_view = 128 // p if (p * cin) % 128 else cin
-        ctx.two_pass = conv_bwd_two_pass(H, W, cin_view, cout, p, x.dtype.itemsize, prologue)
-        if x.is_cuda:
-            LAUNCHES["conv3x3_bn_fwd"] += 1
-            y, s1, s2 = launch_conv_bn(x, w, a, b, prologue)
-        else:
-            y, s1, s2 = conv_bn_plain(x, w, a, b, prologue)
+        ctx.two_pass = _takes_two_pass(x, w, prologue, p or pick_pack(x.shape[-1], w.shape[0]))
+        y, s1, s2 = _conv_bn(x, w, a, b, prologue)
         ctx.save_for_backward(x, w, a, b, y)
         return y, s1, s2
 
@@ -408,11 +584,13 @@ class _ConvBN(torch.autograd.Function):
         x, w, a, b, y = ctx.saved_tensors
         prologue = ctx.prologue
         dy = torch.zeros_like(y) if dy is None else dy.to(y.dtype).contiguous()
+        need_dx = ctx.needs_input_grad[0] or (prologue and any(ctx.needs_input_grad[2:4]))
         if ctx.two_pass:
-            return _two_pass_backward(ctx, x, w, a, b, y, dy, ds1, ds2)
+            return (*_two_pass_backward(need_dx, ctx.needs_input_grad[1], prologue, x, w, a, b,
+                                        y, dy, ds1, ds2), None, None)
         args = (x, w, a, b, y, dy, ds1, ds2, prologue)
         dx = da = db = dw = None
-        if ctx.needs_input_grad[0] or (prologue and any(ctx.needs_input_grad[2:4])):
+        if need_dx:
             if x.is_cuda:
                 LAUNCHES["conv3x3_bn_dx_bn" if prologue else "conv3x3_bn_dx"] += 1
                 dx, da, db = launch_conv_dx(*args)
@@ -433,3 +611,75 @@ def conv_bn_fused(x, w, a=None, b=None, prologue=False, p=None):
     the pack factor of ``cl_tpu``'s packed view (the level's; None = the
     conv's own), which decides its backward's branch."""
     return _ConvBN.apply(x, w, a, b, prologue, p)
+
+
+def _quant_rows(y, p):
+    """32q (counted) or its plain version."""
+    if y.is_cuda:
+        LAUNCHES["conv3x3_bn_quant"] += 1
+        return launch_quant_rows(y, p)
+    return quant_rows_plain(y, p)
+
+
+class _ConvBNQ(torch.autograd.Function):
+    """``conv_bn_fused_q``: the forward of ``_ConvBN`` and 32q; the backward
+    from the int8 y and, in the xq mode, the int8 x (``x`` then unsaved)."""
+
+    @staticmethod
+    def forward(ctx, x, xq, xs, w, a, b, prologue, p):
+        ctx.set_materialize_grads(False)
+        ctx.prologue, ctx.p, ctx.dtype = prologue, p, x.dtype
+        ctx.two_pass = _takes_two_pass(x, w, prologue, p)
+        y, s1, s2 = _conv_bn(x, w, a, b, prologue)
+        q, scale = _quant_rows(y, p)
+        ctx.mark_non_differentiable(q, scale)
+        # the saved tensors: (q, scale) in place of y; in the xq mode the
+        # producer's pair in place of x, which must not be kept
+        ctx.save_for_backward(None if xq is not None else x, xq, xs, w, a, b, q, scale)
+        return y, s1, s2, q, scale
+
+    @staticmethod
+    def backward(ctx, dy, ds1, ds2, _dq, _dscale):
+        x, xq, xs, w, a, b, q, scale = ctx.saved_tensors
+        prologue, p, dtype = ctx.prologue, ctx.p, ctx.dtype
+        dy = torch.zeros(q.shape, dtype=dtype, device=q.device) if dy is None else \
+            dy.to(dtype).contiguous()
+        need_dx = ctx.needs_input_grad[0] or (prologue and any(ctx.needs_input_grad[4:6]))
+        need_dw = ctx.needs_input_grad[3]
+        if ctx.two_pass:
+            # no tile fits: dequantize y and x once, rounded to the compute
+            # dtype, and take the two-pass backward on them (:1836-1858)
+            x = x if xq is None else deq_rows(xq, xs, p).to(dtype)
+            dx, dw, da, db = _two_pass_backward(need_dx, need_dw, prologue, x, w, a, b,
+                                                deq_rows(q, scale, p).to(dtype), dy, ds1, ds2)
+            return dx, None, None, dw, da, db, None, None
+        args = (x if xq is None else (xq, xs), w, a, b, q, scale, dy, ds1, ds2, prologue, p)
+        dx = da = db = dw = None
+        if need_dx:
+            if dy.is_cuda:
+                LAUNCHES["conv3x3_bn_dx_q"] += 1
+                dx, da, db = launch_conv_dx_q(*args)
+            else:
+                dx, da, db = conv_dx_q_plain(*args)
+        if need_dw:
+            if dy.is_cuda:
+                LAUNCHES["conv3x3_bn_dw_q"] += 1
+                dw = launch_conv_dw_q(*args)
+            else:
+                dw = conv_dw_q_plain(*args)
+        return dx, None, None, dw, da, db, None, None
+
+
+def conv_bn_fused_q(x, xq, w, a, b, prologue, p):
+    """``conv_bn_fused`` with int8 saved activations: (y, Σy, Σy², (q,
+    scale)), y and the sums bit-equal to ``conv_bn_fused``'s; ``xq``, the
+    producer conv's own (q, scale) of x or None, replaces x among the saved
+    tensors. ``p``: the level's pack factor, which groups the scales'
+    columns. Where autograd records nothing (the LwF teacher's and the
+    eval's forwards) the quantize is skipped and the pair is None: nothing
+    would read it, and every result is the same."""
+    if not torch.is_grad_enabled():
+        return (*conv_bn_fused(x, w, a, b, prologue, p), None)
+    xq, xs = (None, None) if xq is None else xq
+    y, s1, s2, q, scale = _ConvBNQ.apply(x, xq, xs, w, a, b, prologue, p)
+    return y, s1, s2, (q, scale)

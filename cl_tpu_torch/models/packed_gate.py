@@ -1,6 +1,7 @@
 """Which UNet levels run in the packed body, which convs of the standard
-body take the gen-3 conv under ``model.conv_impl=v3|auto``, and which
-backward a packed conv takes: the integer arithmetic of the JAX package's
+body take the gen-3 conv under ``model.conv_impl=v3|auto``, which backward
+a packed conv takes and which packed convs store int8 saved activations
+under ``model.conv_act_store=int8``: the integer arithmetic of the JAX package's
 gates, copied so the port routes exactly where ``cl_tpu`` routes
 (``cl_tpu.models.unet.packed_prefix``, ``DoubleConv`` / ``Conv3x3``, and
 ``conv3x3_v3._cbf_bwd``'s choice of its fused or two-pass backward).
@@ -242,6 +243,16 @@ def _conv_bwd_two_pass(h, w, c_in, c_out, p, itemsize, prologue, budget):
     th = _pick_th_dx(h, wg, p * c_out, (p + 2) * c_out, p * c_in, itemsize, prologue)
     th_dw2 = _pick_th_dw2(h, wg, p * c_in, (p + 2) * c_in, p, c_out, itemsize)
     return not (th > 0 and th_dw2 > 0)
+
+
+def q_supported(w: int, p: int) -> bool:
+    """Whether a packed conv of width ``w`` at pack factor ``p`` stores its
+    saved activations as int8 under ``model.conv_act_store=int8``:
+    ``conv3x3_v3.q_supported(wg)`` as the TPU runs it, wg = w / p a
+    multiple of 32 (its int8 tiling; the interpret branch, always true, is
+    not what ``cl_tpu`` runs on its chip). At P = 4: every packed level at
+    512², only level 0 at 128²."""
+    return w % p == 0 and (w // p) % 32 == 0
 
 
 def _pool_pick_th(h, g, lanes, itemsize, units=10) -> int:

@@ -42,6 +42,13 @@ each followed by ``packed_batch_norm`` (``cl_tpu``'s PackedBatchNorm);
 else each conv the gate admits runs alone through the gen-3 conv and the
 rest through cuDNN. The packed body's deep region stays on cuDNN, as
 ``cl_tpu`` hard-codes there.
+
+``act_q`` (``model.conv_act_store=int8``) stores the saved activations of
+every packed conv that ``packed_gate.q_supported`` admits (its input's
+width over the level's P a multiple of 32) as int8 with row scales
+(``conv3x3.conv_bn_fused_q``), as ``cl_tpu``'s ``PackedLevel._conv``
+does: each conv keeps its own y as int8, and a level's conv1 keeps conv0's
+int8 pair in place of its input. The forward is unchanged, bit for bit.
 """
 
 from __future__ import annotations
@@ -53,7 +60,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cl_tpu_torch.kernels import conv3x3, packed_eltwise, pool_pack, upconv_pack
-from cl_tpu_torch.models.packed_gate import double_conv_route, packed_prefix, pick_pack
+from cl_tpu_torch.models.packed_gate import (double_conv_route, packed_prefix, pick_pack,
+                                             q_supported)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax convention: weight of the old running value
@@ -215,30 +223,46 @@ class DoubleConv(nn.Module):
             x = F.relu(x)
         return x
 
-    def packed_plain(self, x: torch.Tensor, train: bool, p: int):
+    @staticmethod
+    def _packed_conv(x, xq, w, a, b, prologue, p, act_q):
+        """``PackedLevel._conv``: (y, Σy, Σy², (q, scale) or None), with
+        int8 saved activations where ``act_q`` and ``q_supported`` at the
+        input's width; ``xq`` is the producer conv's own pair for x."""
+        if act_q and q_supported(x.shape[2], p):
+            return conv3x3.conv_bn_fused_q(x, xq, w, a, b, prologue, p)
+        return (*conv3x3.conv_bn_fused(x, w, a, b, prologue, p), None)
+
+    def packed_plain(self, x: torch.Tensor, train: bool, p: int, act_q: bool = False):
         """``cl_tpu``'s ``PackedLevel`` in its ``stem`` and ``plain`` modes
         (the stem's channel padding is a TPU layout device): conv0 with the
         stats epilogue, its BatchNorm deferred into conv1's prologue, and
         conv1's BatchNorm deferred to the caller. x is NHWC (already
-        applied); returns (y, scale, shift). ``p``: the body's pack factor."""
+        applied); returns (y, scale, shift). ``p``: the body's pack factor.
+        Under ``act_q`` conv0's int8 pair is conv1's saved input (conv0's
+        own input, the image or the pool's output, has no int8 producer)."""
         n = x.shape[0] * x.shape[1] * x.shape[2]
-        y, s1, s2 = conv3x3.conv_bn_fused(x, self.conv0.weight, p=p)
+        y, s1, s2, q0 = self._packed_conv(x, None, self.conv0.weight, None, None, False, p, act_q)
         sc, sh = deferred_bn(self.bn0, s1, s2, n, train)
-        y, s1, s2 = conv3x3.conv_bn_fused(y, self.conv1.weight, sc, sh, True, p)
+        y, s1, s2, _ = self._packed_conv(y, q0, self.conv1.weight, sc, sh, True, p, act_q)
         return (y, *deferred_bn(self.bn1, s1, s2, n, train))
 
-    def packed_split(self, skip: torch.Tensor, up: torch.Tensor, train: bool, p: int):
+    def packed_split(self, skip: torch.Tensor, up: torch.Tensor, train: bool, p: int,
+                     act_q: bool = False):
         """``PackedLevel`` in ``split`` mode, the decoder's entry: conv0 of
         the concat [skip, up] as two convs whose outputs are added with
         the sum's own statistics (the stats of a sum are not the sum of
-        the stats), then conv1 as in ``packed_plain``."""
+        the stats), then conv1 as in ``packed_plain``. Under ``act_q`` each
+        conv keeps its own y as int8; conv1's input comes from
+        ``add_stats``, no int8 producer, and is kept as it is."""
         n = skip.shape[0] * skip.shape[1] * skip.shape[2]
         f = skip.shape[-1]
-        ys, _, _ = conv3x3.conv_bn_fused(skip, self.conv0.weight[:, :f], p=p)
-        yu, _, _ = conv3x3.conv_bn_fused(up, self.conv0.weight[:, f:], p=p)
+        ys, _, _, _ = self._packed_conv(skip, None, self.conv0.weight[:, :f], None, None, False,
+                                        p, act_q)
+        yu, _, _, _ = self._packed_conv(up, None, self.conv0.weight[:, f:], None, None, False,
+                                        p, act_q)
         y, s1, s2 = packed_eltwise.add_stats(ys, yu)
         sc, sh = deferred_bn(self.bn0, s1, s2, n, train)
-        y, s1, s2 = conv3x3.conv_bn_fused(y, self.conv1.weight, sc, sh, True, p)
+        y, s1, s2, _ = self._packed_conv(y, None, self.conv1.weight, sc, sh, True, p, act_q)
         return (y, *deferred_bn(self.bn1, s1, s2, n, train))
 
 
@@ -248,11 +272,12 @@ class UNet(nn.Module):
     def __init__(self, num_classes: int, base_channels: int = 32,
                  depth: int = 4, norm: str = "batch",
                  dtype: torch.dtype = torch.float32, packed: bool = False,
-                 conv_impl: str = "xla"):
+                 conv_impl: str = "xla", act_q: bool = False):
         super().__init__()
         c = base_channels
         self.base_channels = c
         self.conv_impl = conv_impl
+        self.act_q = act_q
         self.depth = depth
         self.norm = norm
         self.dtype = dtype
@@ -323,7 +348,7 @@ class UNet(nn.Module):
         P = pick_pack(self.base_channels, self.base_channels)
         skips = []
         for level in range(prefix):
-            y, sc, sh = getattr(self, f"enc{level}").packed_plain(x, train, P)
+            y, sc, sh = getattr(self, f"enc{level}").packed_plain(x, train, P, self.act_q)
             z = packed_eltwise.bn_relu(y, sc, sh)
             # the pool's input is the skip
             z, x = pool_pack.maxpool2x2_tee(z)
@@ -348,7 +373,7 @@ class UNet(nn.Module):
             up = getattr(self, f"up{level}")
             u = upconv_pack.upconv2x2(below, up.weight, up.bias)
             y, sc, sh = getattr(self, f"dec{level}").packed_split(
-                skips[level], u, train, P)
+                skips[level], u, train, P, self.act_q)
         if keep_raw:
             return y, sc, sh
         return packed_eltwise.bn_relu(y, sc, sh)

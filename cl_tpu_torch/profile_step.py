@@ -35,6 +35,8 @@ FAMILIES = (
                                      "kd_fwd_kernel", "kd_bwd_kernel")),
     # the gen-3 plain conv (#30), its dW (#31), the two-pass dW (#33)
     ("gen-3 conv kernels (cl_tpu_torch)", ("conv3x3_v3",)),
+    # model.conv_act_store=int8: the quantize (32q), dx (#38) and dW (#39)
+    ("int8 conv kernels (cl_tpu_torch)", ("conv3x3_q_",)),
     ("packed body kernels (cl_tpu_torch)", ("conv3x3_bn", "conv3x3_dw", "bn_relu",
                                             "add_stats", "dy_eff", "maxpool", "upconv",
                                             "sum_splits")),

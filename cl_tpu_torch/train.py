@@ -76,9 +76,6 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
     instead of running something else."""
     m, t, meth = cfg.model, cfg.train, cfg.method
     unported = []
-    if _packed_engages(cfg) and m.conv_act_store == "int8":
-        unported.append("model.conv_act_store=int8 (int8 saved activations "
-                        "of the packed convs)")
     if m.conv_impl not in ("xla", "v3", "auto"):
         unported.append(f"model.conv_impl={m.conv_impl!r} (the gen-2 Pallas convs)")
     if m.upconv_impl != "xla":
@@ -131,7 +128,8 @@ def build_model(cfg: Config) -> UNet:
                 base_channels=cfg.model.base_channels,
                 depth=cfg.model.depth, norm=cfg.model.norm,
                 dtype=_dtype(cfg), packed=_packed_engages(cfg),
-                conv_impl=cfg.model.conv_impl)
+                conv_impl=cfg.model.conv_impl,
+                act_q=cfg.model.conv_act_store == "int8")
 
 
 def init_state(cfg: Config, model: UNet, device: torch.device) -> UNet:

@@ -66,9 +66,8 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 @pytest.mark.parametrize("override", [
     # the packed head where the packed body declines runs since the LwF
     # slice (test_configs_the_lwf_slice_made_runnable); int8 saved
-    # activations of the packed convs do not
-    pytest.param("model.packed_min_size=0 model.conv_act_store=int8",
-                 id="model.packed_min_size=0"),
+    # activations of the packed convs since their slice
+    # (test_conv_act_store_int8_trains)
     # model.conv_impl=v3 and =auto run since the gen-3 conv's slice
     # (test_conv_impl_v3_and_auto_train)
     "model.upconv_impl=matmul",
@@ -246,3 +245,26 @@ def test_cli_modes_beyond_train_raise():
     for mode in ("eval", "predict", "plot"):
         with pytest.raises(NotImplementedError, match="later slice"):
             cli.main([mode, "preset=smoke"])
+
+
+def test_conv_act_store_int8_trains(monkeypatch):
+    """``model.conv_act_store=int8`` trains on the CPU (the plain versions of
+    32q, #38 and #39) and finishes its task, with level 0's packed convs
+    (128 wide, P = 4: wg 32) on the int8 route and level 1's not."""
+    from cl_tpu_torch.kernels import conv3x3
+
+    widths = []
+    fused_q = conv3x3.conv_bn_fused_q
+    monkeypatch.setattr(conv3x3, "conv_bn_fused_q",
+                        lambda x, *rest: widths.append((x.shape[2], torch.is_grad_enabled()))
+                        or fused_q(x, *rest))
+    cfg = config.parse_overrides(["preset=smoke", "model.packed_min_size=0",
+                                  "model.conv_act_store=int8", "model.base_channels=32",
+                                  "model.depth=2", "data.image_size=128",
+                                  "data.source_size=160"])
+    report = port_train.train(cfg, device="cpu")
+    assert np.isfinite(report["final_per_task_miou"]).all()
+    steps = cfg.data.train_images_per_task // cfg.data.batch_size
+    # five int8 convs a train step; the evals (no grad) skip the quantize
+    assert [w for w, grad in widths if grad] == [128] * 5 * steps
+    assert {w for w, _ in widths} == {128}
