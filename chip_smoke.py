@@ -44,7 +44,15 @@ Phases (any failure raises, so the exit code is non-zero):
    ones, f32 and bf16, xq mode on and off, prologue on and off: the
    quantize (32q) on #32's own output exactly equal to the plain
    quantizer, the dx (#38) and dW (#39) from int8 within the dtype
-   kernels' tolerances, each launched twice and held bit-equal;
+   kernels' tolerances, each launched twice and held bit-equal; the
+   one-pass conv backward (#37, ``CL_TPU_FUSE_BWD``) at every backward
+   shape of the headline step (the stem without dx) and at ragged ones,
+   f32 and bf16, prologue on and off, relaunched bit-equal, against its
+   plain version and against #34/#35 and #36 launched on the same
+   operands (dx and dW bit-equal; da and db bit-equal in bf16, their f32
+   gap printed); the pipelined dx (34p/35p, ``CL_TPU_DX_PIPE``) at #34/#35's
+   shapes, bit-equal to them; the packed head without a prologue (#5/#6)
+   at 2,097,152 x 32 -> 19 bf16 and small f32 / ragged cases;
 4. the baseline_1 preset as it ships, through ``train()``: 16 steps and
    one eval (the fused head+CE kernels), then the same shape with
    ``train.fused_head_ce=false`` (the CE kernels) through
@@ -168,6 +176,20 @@ Phases (any failure raises, so the exit code is non-zero):
    model.packed_min_size=0 model.conv_act_store=int8`` (f32), 3 + 10
    steps: level 2's prologue convs dequantize into the two-pass backward
    (#30 as dt, #33), the rest run #38/#39;
+5f. the packed conv's backward under the two switches of ``cl_tpu``
+   (``packed_gate.FUSE_BWD`` / ``DX_PIPE``, set per run as the
+   environment would): 5f-a the headline step under ``CL_TPU_FUSE_BWD``
+   (#37 15 times a step, #34-#36 never), ``CL_TPU_DX_PIPE`` (34p/35p 14
+   times a step in place of #34/#35) and both, 3 + 10 steps each with
+   launch counts, a falling loss, images/s and peak memory,
+   ``profile_step`` of each, five pairs in turns against the default;
+   5f-b one ``FUSE_BWD`` step on the card against the CPU at 128² f32;
+   5f-c ``preset=baseline_2 model.packed_min_size=0`` under ``FUSE_BWD``
+   through ``train()``: level 2's prologue convs, two-pass by default,
+   take #37 with the rest; 5f-d the packed head without its prologue
+   (#5/#6) where a user reaches it, ``head_cross_entropy_packed`` on
+   ``bn_relu`` of the headline body's raw output, 3 steps with launch
+   counts, its loss beside ``head_cross_entropy_packed_bn``'s;
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take.
 
@@ -181,6 +203,7 @@ or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -440,7 +463,12 @@ def bn_fns(kernel, case):
     lv = (c["labels"], c["valid"])
     kd = (*st, *te, *lv, c["old_valid"])
     nhwc = (c["y"], c["w"], c["b"], c["yt"], c["tw"], c["tb"], *lv, c["old_valid"])
+    pk = (c["y"], c["w"], c["b"], *lv)
     return {
+        "head_ce_pk_fwd": (lambda: head_ce.launch_pk_fwd(*pk),
+                           lambda: head_ce.head_ce_total_plain(*pk)),
+        "head_ce_pk_bwd": (lambda: head_ce.launch_pk_bwd(*pk, c["gce"]),
+                           lambda: head_ce.head_ce_grads_plain(*pk, c["gce"])),
         "head_ce_kd_fwd": (lambda: head_ce.launch_kd_fwd(*nhwc, LWF_T),
                            lambda: head_ce.head_ce_kd_total_plain(*nhwc, LWF_T)),
         "head_ce_kd_bwd": (
@@ -1787,6 +1815,255 @@ def q_times(kernel, shape, dtype_name="bfloat16"):
             time_ms(lambda: lib(*ops)), time_ms(lambda: launch(*ops), queued=False))
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 / 6: the one-pass conv backward (#37, CL_TPU_FUSE_BWD), the
+# pipelined dx (34p / 35p, CL_TPU_DX_PIPE) and the packed head without a
+# prologue (#5 / #6)
+# ---------------------------------------------------------------------------
+
+SWITCH_KERNELS = {  # launch-count key: (source, TPU kernel)
+    "conv3x3_bn_bwd_fused": ("cl_tpu_torch/csrc/conv3x3_bn_bwd_fused.cu",
+                             "cl_tpu/pallas/conv3x3_v3.py:1480"),
+    # the pipelined kernels run at #34/#35's pallas_call (:1233, :1259)
+    "conv3x3_bn_dx_pipe": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:1187"),
+    "conv3x3_bn_dx_bn_pipe": ("cl_tpu_torch/csrc/conv3x3_bn.cu",
+                              "cl_tpu/pallas/conv3x3_v3.py:1179"),
+}
+# #37 at every conv of the headline step (the stem without dx), the
+# pipelined dx at #34/#35's shapes; with their launches a step
+SWITCH_PATH = {"conv3x3_bn_bwd_fused": PACKED_PATH["conv3x3_bn_dw"],
+               "conv3x3_bn_dx_pipe": PACKED_PATH["conv3x3_bn_dx"],
+               "conv3x3_bn_dx_bn_pipe": PACKED_PATH["conv3x3_bn_dx_bn"]}
+SWITCH_ODD = {"conv3x3_bn_bwd_fused": [(24, 16, 16, False), (24, 16, 16, True),
+                                       (24, 3, 16, False), (24, 16, 3, False),
+                                       (20, 24, 40, True)],
+              "conv3x3_bn_dx_pipe": [(24, 16, 16, False), (24, 16, 3, False)],
+              "conv3x3_bn_dx_bn_pipe": [(24, 16, 16, True), (20, 24, 40, True)]}
+PK_KERNELS = {  # the packed head+CE without a prologue, on bn_case's y as x
+    "head_ce_pk_fwd": ("cl_tpu_torch/csrc/head_ce_pk.cu", "cl_tpu/pallas/head_ce.py:405"),
+    "head_ce_pk_bwd": ("cl_tpu_torch/csrc/head_ce_pk.cu", "cl_tpu/pallas/head_ce.py:431"),
+}
+
+
+def compare_fused(shape, dtype_name, batch=8):
+    """#37 against its plain version on the card, launched twice (the
+    second launch repeats every bit), and against #34/#35 (dx, da, db) and
+    #36 (dW) launched on the same operands. Tolerances against the plain
+    version are ``compare_bwd``'s for #34-#36; against the kernels it
+    stands beside, dx and dW bit-equal, da and db bit-equal in bf16 and in
+    f32 held at 1e-5 of Σ|term| with the gap printed (its 8 x 16 tiles sum
+    them in another order than #35's 16 x 16 ones). The stem (Cin 3) runs
+    without dx. Returns the max abs error of dW against the plain
+    version."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3
+
+    H, cin, cout, prologue = shape
+    ops = bwd_operands("conv3x3_bn_dw", shape, dtype_name, batch)
+    need_dx = cin != 3
+    k = conv3x3.launch_conv_bwd_fused(*ops, need_dx=need_dx)
+    again = conv3x3.launch_conv_bwd_fused(*ops, need_dx=need_dx)
+    p = conv3x3.conv_bwd_fused_plain(*ops, need_dx=need_dx)
+    beside = (*(conv3x3.launch_conv_dx(*ops) if need_dx else (None,) * 3),
+              conv3x3.launch_conv_dw(*ops))
+    torch.cuda.synchronize()
+    name = packed_name("conv3x3_bn_bwd_fused", shape, dtype_name) + ("" if need_dx else
+                                                                     "[no dx]")
+    need(all((u is None and v is None) or torch.equal(u, v) for u, v in zip(k, again)),
+         f"{name}: a second launch repeats every bit")
+    bf16 = dtype_name == "bfloat16"
+    ab_terms = _abs_terms("conv3x3_bn_dx_bn", ops) if prologue else None
+    dw_terms = _abs_terms("conv3x3_bn_dw", ops)
+    ok, msg, dw_err = True, f"  {name}:", None
+    for label, i in (("dx", 0), ("da", 1), ("db", 2), ("dW", 3)):
+        kv, pv, ref = k[i], p[i], beside[i]
+        if kv is None:
+            continue
+        if label in ("da", "db") and not prologue:
+            good = not bool(kv.any()) and not bool(pv.any())
+            ok = ok and good
+            msg += f" {label} zero{'' if good else ' FAIL'};"
+            continue
+        need(kv.shape == pv.shape and kv.dtype == pv.dtype, f"{name} {label} shape/dtype")
+        kf, pf = kv.float(), pv.float()
+        need(bool(torch.isfinite(kf).all()), f"{name} {label} not finite")
+        diff = (kf - pf).abs()
+        if label == "dx":
+            amax = max(1.0, ops[2].abs().max().item()) if prologue else 1.0
+            if bf16:
+                tol = bf16_ulp(torch.maximum(kf.abs(), pf.abs())) + 1e-5 * amax
+                txt = "1 bf16 ulp + 1e-5 max(1, a)"
+            else:
+                tol, txt = 1e-5 * amax + 1e-5 * pf.abs(), "1e-5 max(1, a) + 1e-5 rel"
+        elif label == "dW":
+            tol = 1e-5 * dw_terms + (2 * bf16_ulp(torch.maximum(kf.abs(), pf.abs())) if bf16
+                                     else 1e-6)
+            txt = "2 bf16 ulp + 1e-5 Σ|term|" if bf16 else "1e-5 Σ|term| + 1e-6"
+            dw_err = diff.max().item()
+        else:
+            tol, txt = 1e-5 * ab_terms[i] + 1e-6, "1e-5 Σ|term| + 1e-6"
+        good = bool((diff <= tol).all())
+        same = torch.equal(kv, ref)
+        gap = (kf - ref.float()).abs()
+        if label in ("dx", "dW") or bf16:
+            good_ref = same
+        else:
+            good_ref = bool((gap <= tol).all())
+        ok = ok and good and good_ref
+        msg += (f" {label} max abs err {diff.max().item():.3g} ({txt}), vs "
+                f"{'#36' if label == 'dW' else '#34/#35'} "
+                f"{'bit-equal' if same else f'gap {gap.max().item():.3g}'}"
+                f"{'' if good and good_ref else ' FAIL'};")
+    print(msg + (" relaunch bit-equal ok" if ok else " FAIL"))
+    need(ok, name)
+    return dw_err
+
+
+def compare_pipe(kernel, shape, dtype_name, batch=8, stats=True):
+    """34p / 35p against #34 / #35 on the same operands: every output bit
+    for bit, and a relaunch too; returns the max abs error of dx against
+    the plain version (#34/#35's own, held in ``compare_bwd``)."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3
+
+    ops = bwd_operands("conv3x3_bn_dx", shape, dtype_name, batch, stats=stats)
+    k = conv3x3.launch_conv_dx(*ops, pipe=True)
+    again = conv3x3.launch_conv_dx(*ops, pipe=True)
+    ref = conv3x3.launch_conv_dx(*ops)
+    p = conv3x3.conv_dx_plain(*ops)
+    torch.cuda.synchronize()
+    name = packed_name(kernel, shape, dtype_name) + ("" if stats else "[no stats]")
+    same = all((u is None and v is None) or torch.equal(u, v) for u, v in zip(k, ref))
+    rel = all((u is None and v is None) or torch.equal(u, v) for u, v in zip(k, again))
+    err = (k[0].float() - p[0].float()).abs().max().item()
+    print(f"  {name}: bit-equal to {'#35' if shape[3] else '#34'} {same}, relaunch bit-equal "
+          f"{rel}; dx max abs err vs the plain version {err:.3g} "
+          f"{'ok' if same and rel else 'FAIL'}")
+    need(same and rel, f"{name} bit-equal to the unpipelined dx")
+    return err
+
+
+def switch_fns(kernel):
+    """(kernel launch, plain version, library call or None) of #37 / 34p /
+    35p, each taking ``bwd_operands``; cuDNN's ``convolution_backward`` of
+    the conv alone as the library call: dx and dW in one call for #37, dx
+    for 34p; none for 35p (dx with the prologue's epilogue)."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3
+
+    conv_bwd = torch.ops.aten.convolution_backward
+    mask = [True, True, False] if kernel == "conv3x3_bn_bwd_fused" else [True, False, False]
+
+    def lib(x, w, a, b, y, dy, *_):
+        return conv_bwd(dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.to(x.dtype), None,
+                        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
+    if kernel == "conv3x3_bn_bwd_fused":
+        return conv3x3.launch_conv_bwd_fused, conv3x3.conv_bwd_fused_plain, lib
+    launch = lambda *ops: conv3x3.launch_conv_dx(*ops, pipe=True)  # noqa: E731
+    return launch, conv3x3.conv_dx_plain, lib if kernel == "conv3x3_bn_dx_pipe" else None
+
+
+def switch_bytes_ops(kernel, shape, dtype_name, batch=8):
+    """Bytes each input read once and each output written once, and the
+    operations: #37 reads x, dy, y, the weight and the vectors and writes
+    dx and dW (f32), da and db; its products are the dx's and the dW's
+    (the stem's dx not formed); the pipelined dx is #34/#35's function."""
+    if kernel != "conv3x3_bn_bwd_fused":
+        return bwd_bytes_ops("conv3x3_bn_dx_bn" if shape[3] else "conv3x3_bn_dx", shape,
+                             dtype_name, batch)
+    es = 2 if dtype_name == "bfloat16" else 4
+    H, cin, cout, prologue = shape
+    px, dx = batch * H * H, cin != 3
+    nbytes = (px * (cin + 2 * cout) * es + 9 * cin * cout * (es + 4) + 8 * cout
+              + (8 * cin if prologue else 0) + (px * cin * es if dx else 0)
+              + (8 * cin if dx and prologue else 0))
+    ops = (18 * px * cin * cout * (2 if dx else 1) + 4 * px * cout
+           + (3 * px * cin if prologue else 0) + (7 * px * cin if dx and prologue else 0))
+    return nbytes, ops
+
+
+def switch_times(kernel, shape, dtype_name="bfloat16"):
+    """(ms, plain_ms, library_ms or None, ms synchronised per launch) at
+    one shape."""
+    launch, plain, lib = switch_fns(kernel)
+    ops = bwd_operands("conv3x3_bn_dw", shape, dtype_name)
+    kw = {"need_dx": shape[1] != 3} if kernel == "conv3x3_bn_bwd_fused" else {}
+    return (time_ms(lambda: launch(*ops, **kw)), time_ms(lambda: plain(*ops, **kw)),
+            None if lib is None else time_ms(lambda: lib(*ops)),
+            time_ms(lambda: launch(*ops, **kw), queued=False))
+
+
+@contextlib.contextmanager
+def switched(fuse, pipe):
+    """``packed_gate.FUSE_BWD`` / ``DX_PIPE`` set as ``CL_TPU_FUSE_BWD`` /
+    ``CL_TPU_DX_PIPE`` would set them at import (the gates read them at
+    each forward), and restored after."""
+    from cl_tpu_torch.models import packed_gate
+
+    saved = packed_gate.FUSE_BWD, packed_gate.DX_PIPE
+    packed_gate.FUSE_BWD, packed_gate.DX_PIPE = fuse, pipe
+    try:
+        yield
+    finally:
+        packed_gate.FUSE_BWD, packed_gate.DX_PIPE = saved
+
+
+def with_switches(step, fuse, pipe):
+    """``step``, each call under ``switched(fuse, pipe)``."""
+    def run(*args):
+        with switched(fuse, pipe):
+            return step(*args)
+    return run
+
+
+def packed_head_steps(cfg, device, n_steps=3):
+    """The packed head without its prologue (#5/#6) where a user reaches
+    it: the public ``head_ce.head_cross_entropy_packed`` on
+    ``packed_eltwise.bn_relu`` of the packed body's raw output (the
+    composition ``head_cross_entropy_packed_bn`` stands for), ``n_steps``
+    optimizer steps of ``cfg``'s model on one prebuilt batch. Returns the
+    launch counts of the steps, their losses, and, on the last model's
+    features, that composition's loss beside ``head_cross_entropy_packed_bn``'s
+    (#7)."""
+    import torch
+
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.augment import augment
+    from cl_tpu_torch.kernels import head_ce, packed_eltwise
+    from cl_tpu_torch.models import packed_gate
+
+    model, opt, _, batch, valid = build_step(cfg, device)
+    d = cfg.data
+    x, y = augment(batch.image, batch.mask, batch.flip, out_size=d.image_size, mean=d.mean,
+                   std=d.std, compute_dtype=tl._dtype(cfg))
+    p = packed_gate.pick_pack(cfg.model.base_channels, cfg.model.base_channels)
+    hk, hb = model.head.weight, model.head.bias
+
+    def composed(raw, s, sh):
+        return head_ce.head_cross_entropy_packed(packed_eltwise.bn_relu(raw, s, sh), hk, hb, y,
+                                                 valid, p=p, ignore_index=d.ignore_index)[0]
+    torch.cuda.synchronize()
+    reset_counts()
+    losses = []
+    for _ in range(n_steps):
+        loss = composed(*model.train()(x, return_features=True, packed_features=True))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with torch.no_grad():
+        feats = model.train()(x, return_features=True, packed_features=True)
+        pair = (composed(*feats).item(), head_ce.head_cross_entropy_packed_bn(
+            *feats, hk, hb, y, valid, ignore_index=d.ignore_index)[0].item())
+    del model, opt
+    return counts, [v.item() for v in losses], pair
+
+
 def saved_set_mib(cfg, device):
     """MiB that autograd keeps for the backward of one train-mode forward
     of ``cfg``'s model to its packed raw features (the headline step's
@@ -1895,14 +2172,18 @@ def host_issue_ms(step, batch, valid, reps=5):
     return float(np.median(times))
 
 
-def alternating_pairs(cfgs, device, n_pairs=5, n_warm=3, n_timed=10):
+def alternating_pairs(cfgs, device, n_pairs=5, n_warm=3, n_timed=10, switches=None):
     """images/s of each config in ``cfgs`` ({name: cfg}, both built and
     warmed first), timed in turns, the order flipped every pair, and each
     step's host issue time: ({name: [images/s of each pair]}, {name:
-    issue ms})."""
+    issue ms}). ``switches`` ({name: (FUSE_BWD, DX_PIPE)}) runs each
+    config's steps under its setting of the two switches."""
     import torch
 
     built = {name: build_step(cfg, device) for name, cfg in cfgs.items()}
+    if switches:
+        built = {name: (*b[:2], with_switches(b[2], *switches[name]), *b[3:])
+                 for name, b in built.items()}
     for _, _, step, batch, valid in built.values():
         for _ in range(n_warm):
             step(batch, valid)
@@ -2729,6 +3010,30 @@ def main() -> int:
             for dtype_name in ("float32", "bfloat16"):
                 check(shape, dtype_name, batch=3)
 
+    # CL_TPU_FUSE_BWD / CL_TPU_DX_PIPE: #37 and 34p/35p at every backward
+    # shape of the headline step and at ragged ones, f32 and bf16, each
+    # launched twice and held beside #34-#36; the packed head without a
+    # prologue (#5/#6) at the headline shape and small f32 / ragged ones
+    switch_errs = {}
+    for kernel, shapes in SWITCH_PATH.items():
+        check = compare_fused if kernel == "conv3x3_bn_bwd_fused" else \
+            (lambda *a, k=kernel, **kw: compare_pipe(k, *a, **kw))
+        for shape, _ in shapes:
+            for dtype_name in ("float32", "bfloat16"):
+                err = check(shape, dtype_name)
+                if dtype_name == "bfloat16":
+                    switch_errs[(kernel, shape)] = err
+        for shape in SWITCH_ODD[kernel]:
+            for dtype_name in ("float32", "bfloat16"):
+                check(shape, dtype_name, batch=3)
+    compare_pipe("conv3x3_bn_dx_pipe", (512, 32, 32, False), "bfloat16", stats=False)
+    pk_errs = {k: compare_bn(k, bn_full) for k in PK_KERNELS}
+    for args in ((4096, 32, 19, "float32", 7), (1000, 32, 5, "float32", 5),
+                 (1000, 16, 3, "bfloat16", 6)):
+        case = bn_case(*args)
+        for k in PK_KERNELS:
+            compare_bn(k, case)
+
     print("[4] baseline_1 as it ships, through train()")
     cfg1 = get_preset("baseline_1")
     steps1 = (cfg1.data.train_images_per_task // cfg1.data.batch_size
@@ -3190,6 +3495,93 @@ def main() -> int:
     for k, n in want_qd.items():
         need(counts_qd[k] == 13 * n, f"{k} launches == steps x {n} (5q-d)")
 
+    print("[5f] the packed conv's backward under CL_TPU_FUSE_BWD (#37) and CL_TPU_DX_PIPE "
+          "(34p/35p); the packed head without its prologue (#5/#6)")
+    settings = {"default": (False, False), "FUSE_BWD": (True, False), "DX_PIPE": (False, True),
+                "both": (True, True)}
+    # per step: the headline step's kernels, the backward's routed by the
+    # switches (every conv one-pass under FUSE_BWD, the 14 dx pipelined
+    # under DX_PIPE alone)
+    no_bwd = dict(conv3x3_bn_dx=0, conv3x3_bn_dx_bn=0, conv3x3_bn_dw=0, conv3x3_bn_bwd_fused=0,
+                  conv3x3_bn_dx_pipe=0, conv3x3_bn_dx_bn_pipe=0)
+    fused_step = dict(headline_step, **dict(no_bwd, conv3x3_bn_bwd_fused=15))
+    pipe_step = dict(headline_step, **dict(
+        no_bwd, conv3x3_bn_dw=headline_step["conv3x3_bn_dw"],
+        conv3x3_bn_dx_pipe=headline_step["conv3x3_bn_dx"],
+        conv3x3_bn_dx_bn_pipe=headline_step["conv3x3_bn_dx_bn"]))
+    runs_f = {}
+    # the default again here, so that the peaks compare in one allocator state
+    for name, want in (("default", dict(headline_step, **{k: headline_step.get(k, 0)
+                                                          for k in no_bwd})),
+                       ("FUSE_BWD", fused_step), ("DX_PIPE", pipe_step), ("both", fused_step)):
+        with switched(*settings[name]):
+            counts, ips, peak, loss, first = run_steps(cfg_h, 3, 10, cuda, no_sync=True)
+        runs_f[name] = (counts, ips, peak)
+        print(f"  5f-a headline step under {name}, 13 steps: {ips:.2f} img/s, peak {peak:.0f} MiB, "
+              f"loss {first:.4f} -> {loss:.4f}; backward launches per step "
+              f"{ {k: counts[k] / 13 for k in no_bwd} }")
+        need(loss < first, f"headline training loss falls ({name})")
+        for k, n in want.items():
+            need(counts[k] == 13 * n, f"{k} launches == steps x {n} (5f-a, {name})")
+    print(f"    beside the headline step (default, phase 5h): {ips_h:.2f} img/s, peak "
+          f"{peak_h:.0f} MiB")
+    prof_f = {}
+    for name in ("default", "FUSE_BWD", "DX_PIPE"):
+        with switched(*settings[name]):
+            prof_f[name] = profile_step(cfg_h, steps=5)
+        res = prof_f[name]
+        fams = {k: round(v, 3) for k, v in res["families_ms_per_step"].items()}
+        print(f"    profile {name}: {res['ms_per_step']:.3f} ms/step unprofiled "
+              f"({res['images_per_s']:.2f} img/s), {res['device_ms_per_step']:.3f} ms of "
+              f"kernels ({res['kernels_per_step']:.0f} launches), idle {res['idle_share']:.3f}; "
+              f"{fams}")
+    pairs_f, issue_f = alternating_pairs({name: cfg_h for name in settings}, cuda,
+                                         switches=settings)
+    ratios_f = {name: [u / v for u, v in zip(pairs_f[name], pairs_f["default"])]
+                for name in settings if name != "default"}
+    print(f"  alternating pairs, 10 steps each, images/s: "
+          + "; ".join(f"{name} {[round(v, 2) for v in pairs_f[name]]}" for name in settings))
+    for name, r in ratios_f.items():
+        print(f"    {name} / default {[round(v, 4) for v in r]}, median "
+              f"{float(np.median(r)):.4f}; host issue {issue_f[name]:.3f} ms (default "
+              f"{issue_f['default']:.3f} ms)")
+    # 5f-b: one SGD step under FUSE_BWD on the card against the CPU at 128²
+    # f32 (3 packed levels, every conv one-pass: #37's f32 instance)
+    reset_counts()
+    with switched(True, False):
+        agree_with_cpu(["preset=baseline_1", "model.packed_min_size=0"],
+                       "FUSE_BWD step 128² base 32 depth 4 f32", packed_levels=3)
+    counts_fb = read_counts()
+    print(f"    launches on the card: { {k: counts_fb[k] for k in no_bwd} }")
+    need(counts_fb["conv3x3_bn_bwd_fused"] == 15
+         and all(counts_fb[k] == 0 for k in no_bwd if k != "conv3x3_bn_bwd_fused"),
+         "15 one-pass launches, no other conv backward (5f-b)")
+    # 5f-c: baseline_2's packed body through train() under FUSE_BWD: level
+    # 2's prologue convs, two-pass by default (5v-c), take #37 with the rest
+    with switched(True, False):
+        report_fc, counts_fc, wall_fc, peak_fc, steps_fc = data_path_train(
+            "5f-c preset=baseline_2 model.packed_min_size=0 under FUSE_BWD",
+            ["preset=baseline_2", "model.packed_min_size=0"])
+    print(f"    backward launches {({k: counts_fc[k] for k in no_bwd})}, two-pass "
+          f"{ {k: counts_fc[k] for k in ('conv3x3_dt', 'conv3x3_dw_bn')} } over "
+          f"{steps_fc['train']} steps; peak {peak_fc:.0f} MiB")
+    need(counts_fc["conv3x3_bn_bwd_fused"] == 15 * steps_fc["train"]
+         and counts_fc["conv3x3_dt"] == counts_fc["conv3x3_dw_bn"] == 0
+         and all(counts_fc[k] == 0 for k in no_bwd if k != "conv3x3_bn_bwd_fused"),
+         "every packed conv one-pass in baseline_2's train() (5f-c)")
+    # 5f-d: the packed head without its prologue (#5/#6), as a user reaches
+    # it: head_cross_entropy_packed on bn_relu of the headline body's raw
+    # output, 3 optimizer steps; its loss beside head_cross_entropy_packed_bn's
+    counts_pk, losses_pk, (loss_c, loss_bn) = packed_head_steps(cfg_h, cuda)
+    print(f"  5f-d head_cross_entropy_packed(bn_relu(raw)), 3 steps: losses "
+          f"{[round(v, 5) for v in losses_pk]}; launches "
+          f"{ {k: counts_pk[k] for k in ('head_ce_pk_fwd', 'head_ce_pk_bwd', 'bn_relu_fwd', 'bn_relu_bwd', 'head_ce_bn_fwd')} }; "
+          f"on the last features {loss_c!r} against head_cross_entropy_packed_bn's {loss_bn!r}")
+    need(counts_pk["head_ce_pk_fwd"] == counts_pk["head_ce_pk_bwd"] == 3
+         and counts_pk["head_ce_bn_fwd"] == 0, "#5/#6 launched once a step (5f-d)")
+    need(all(np.isfinite(losses_pk)) and abs(loss_c - loss_bn) <= 1e-5 * abs(loss_bn),
+         "the composition's loss equals the packed head's within 1e-5 (5f-d)")
+
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
         0: counts_b1, 1: counts_f, 2: counts_b1u, 3: counts_u}
@@ -3360,6 +3752,48 @@ def main() -> int:
     print(f"  the dtype kernels the int8 ones replace, per step: dx "
           f"{per_step_ms['conv3x3_bn_dx'][0] + per_step_ms['conv3x3_bn_dx_bn'][0]:.4f} ms, dW "
           f"{per_step_ms['conv3x3_bn_dw'][0]:.4f} ms")
+    # the switches' kernels: #37 (launches of 5f-a under FUSE_BWD) and
+    # 34p/35p (under DX_PIPE) at every shape of the headline step, bf16,
+    # with per-step sums beside the kernels they stand in for; #5/#6 at the
+    # headline shape (launches of 5f-d)
+    switch_step_ms = {}
+    for kernel, (source, replaces) in SWITCH_KERNELS.items():
+        launches = runs_f["FUSE_BWD" if kernel == "conv3x3_bn_bwd_fused" else "DX_PIPE"][0][kernel]
+        for shape, n_step in SWITCH_PATH[kernel]:
+            times = switch_times(kernel, shape)
+            bo = switch_bytes_ops(kernel, shape, "bfloat16")
+            bound = max(bo[0] / HBM_BYTES_PER_S, bo[1] / PEAK_OPS["bfloat16"]) * 1e3
+            lib_txt = "—" if times[2] is None else f"{times[2]:.4f}"
+            line = (f"  {packed_name(kernel, shape, 'bfloat16')} x{n_step}/step: {times[0]:.4f} ms "
+                    f"(synchronised per launch {times[3]:.4f}; plain {times[1]:.4f}, library "
+                    f"{lib_txt}, bound {bound:.4f})")
+            if shape in ((512, 32, 32, True), (512, 32, 32, False)) and \
+                    (kernel != "conv3x3_bn_bwd_fused" or shape[3]):
+                entry = kernel_entry(kernel, shape, source, replaces, launches,
+                                     switch_errs[(kernel, shape)], times, bo)
+                kernels.append(entry)
+                line += f"; launches {entry['launches']} in phase 5f-a"
+            acc = switch_step_ms.setdefault(kernel, [0.0] * 5)
+            for j, v in enumerate((times[0], times[1], bound, times[2] or 0.0, times[3])):
+                acc[j] += n_step * v
+            print(line)
+    for kernel, (ms, plain_ms, bound_ms, lib_ms, synced_ms) in switch_step_ms.items():
+        print(f"  per headline step, {kernel}: {ms:.4f} ms (synchronised per launch "
+              f"{synced_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.4f}, library "
+              f"{lib_ms:.4f} (where one exists)")
+    print(f"  the kernels they stand in for, per step: dx #34 "
+          f"{per_step_ms['conv3x3_bn_dx'][0]:.4f} ms, #35 "
+          f"{per_step_ms['conv3x3_bn_dx_bn'][0]:.4f} ms, dW #36 "
+          f"{per_step_ms['conv3x3_bn_dw'][0]:.4f} ms")
+    for kernel, (source, replaces) in PK_KERNELS.items():
+        times = bn_times(kernel, bn_full)
+        entry = kernel_entry(kernel, (2097152, 32, 19), source, replaces, counts_pk[kernel],
+                             pk_errs[kernel], times, bn_bytes_ops(kernel, bn_full))
+        kernels.append(entry)
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms (synchronised per launch "
+              f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library "
+              f"{entry['library_ms']:.4f} (head and CE only), bound {entry['bound_ms']:.4f} by "
+              f"{entry['bound_by']}); launches {entry['launches']} in phase 5f-d")
     sums = [sum(v[i] for v in per_step_ms.values()) for i in (0, 4)]
     print(f"  per packed train step, all packed kernels: {sums[0]:.4f} ms (synchronised per "
           f"launch {sums[1]:.4f})")
@@ -3384,6 +3818,13 @@ def main() -> int:
           f"{ips_h:.2f} (peak {peak_h:.0f} MiB); pairs int8 / dtype median "
           f"{float(np.median(ratios_q)):.4f}; baseline_2 packed int8 f32 {ips_qd:.2f} (peak "
           f"{peak_qd:.0f} MiB)")
+    print(f"  5f step images/s: headline {runs_f['default'][1]:.2f} (peak "
+          f"{runs_f['default'][2]:.0f} MiB), under FUSE_BWD {runs_f['FUSE_BWD'][1]:.2f} (peak "
+          f"{runs_f['FUSE_BWD'][2]:.0f} MiB), DX_PIPE {runs_f['DX_PIPE'][1]:.2f} (peak "
+          f"{runs_f['DX_PIPE'][2]:.0f} MiB), both {runs_f['both'][1]:.2f}; pairs against the "
+          f"default, medians " + ", ".join(f"{n} {float(np.median(r)):.4f}"
+                                          for n, r in ratios_f.items())
+          + f"; baseline_2 packed under FUSE_BWD train() {report_fc.get('images_per_sec_per_chip')}")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

@@ -63,6 +63,27 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(a));
 }
 
+// Asynchronous copies global -> shared (Ampere's cp.async, on Hopper too):
+// `bytes` (4, 8 or 16) when `pred`, else that many zeros (src-size 0: the
+// source is not read, but must be a valid address). Completion is by
+// group: commit after issuing a stage's copies, then wait until at most N
+// groups are in flight, then a block barrier before reading.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = pred ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
+                 "n"(BYTES), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -99,6 +120,17 @@ __global__ void reduce_rows_kernel(const float* __restrict__ part, int rows,
   for (int i = threadIdx.x; i < rows; i += blockDim.x) acc += part[(int64_t)i * stride + j];
   acc = block_sum(acc, scratch);
   if (threadIdx.x == 0) out[j] = acc;
+}
+
+// out[j] = sum over s < splits of part[s * n + j], in order of s: the
+// fixed-order sum of per-block partials (no atomics).
+__global__ void sum_splits_kernel(const float* __restrict__ part, int splits, int64_t n,
+                                  float* __restrict__ out) {
+  const int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  float acc = 0.f;
+  for (int s = 0; s < splits; ++s) acc += part[(int64_t)s * n + j];
+  out[j] = acc;
 }
 
 }  // namespace

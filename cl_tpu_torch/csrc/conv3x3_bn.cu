@@ -60,6 +60,17 @@
 //   x as deq(xq) in f32, not rounded, :1577-1579). The int8 y and x halve
 //   the dx's reads of them against the compute type's bf16.
 //
+// And, under CL_TPU_DX_PIPE=1, 34p / 35p: ::_dx_pipe_slim_kernel and
+// ::_dx_pipe_bn_kernel (conv3x3_v3.py:1187, :1179; body `_dx_pipe_body`,
+// :1112), which `_dx_bn_impl` launches at the #34/#35 sites (:1233, :1259)
+// in their place: the same dx through a cross-tile software pipeline,
+// bit-identical to #34/#35 (tests/tpu/test_dx_pipe.py). Here
+// conv3x3_bn_dx_pipe_mma_kernel / conv3x3_bn_dx_pipe_kernel: a block walks
+// many pixel tiles and stages the next (tile, chunk)'s raw dy, y and
+// weights by cp.async while the current one's products run (section
+// "34p / 35p" below); the chunks, taps and epilogue are the bodies' own,
+// so its bits are #34/#35's. Bound as #34/#35: bytes on the tensor cores.
+//
 // Two bodies, each templated on what it computes (forward, dx, plain or a
 // dx from int8);
 // the staging of the window and the epilogue differ, the tile, the tap
@@ -88,6 +99,8 @@
 // one partial row, which a second launch sums over the blocks in a fixed
 // order. No float atomics: a run repeats its sums bit for bit.
 
+#include <algorithm>
+
 #include "conv3x3_bn.cuh"
 
 namespace cltorch {
@@ -95,80 +108,6 @@ namespace {
 
 constexpr int kCoT = 32, kCiT = 16;  // output channels / input chunk
 constexpr int kConvThreads = 128;
-
-// What a body computes: the forward with the BN-ReLU prologue and the stats
-// epilogue, the dx with the prologue's backward, or the plain conv; the dx
-// from the int8 saved y (kDxQ), and also from the int8 saved x (kDxQX:
-// the XQ mode, the epilogue's x dequantized).
-constexpr int kFwd = 0, kDx = 1, kPlain = 2, kDxQ = 3, kDxQX = 4;
-
-template <int MODE>
-__host__ __device__ constexpr bool is_dx() {
-  return MODE == kDx || MODE == kDxQ || MODE == kDxQX;
-}
-
-// Operands of one launch. `Cin` / `Cout` are the channels the kernel reads
-// and writes: for dx, the forward's Cout and Cin.
-template <typename T> struct ConvArgs {
-  const T* in;         // forward: x; dx: dy
-  const T* y;          // dx: the forward's output (for e)
-  const float* s1;     // dx: the stats cotangents, or null (e = dy)
-  const float* s2;
-  const T* w;          // bf16: [3, 3, Cout, Cin]; f32: [Cin, 3, 3, Cout]
-  const float* pa;     // prologue scale/shift: the forward's input
-  const float* pb;     //   channels (forward staging, dx epilogue)
-  const T* x;          // dx epilogue: the forward's input
-  T* out;              // y or dx
-  float* partials;     // per-block rows [2, Cout] of the sums
-  int H, W, Cin, Cout;
-  int prologue;
-  const int8_t* yq;    // kDxQ, kDxQX: the forward's y as int8 [B, H, W, Cin]
-  const float* ysc;    //   and its scales [B, H, pack, Cin]
-  const int8_t* xq;    // kDxQX: the forward's x as int8 [B, H, W, Cout]
-  const float* xsc;    //   and its scales [B, H, pack, Cout]
-  int pack;            // the columns' grouping of the scales (mod pack)
-};
-
-// The row of the scales of output pixel (b*H + gy, gx) in the XQ mode
-// (kDxQX), once per pixel; 0 in the other modes.
-template <int MODE, typename T>
-__device__ __forceinline__ int64_t x_scale_row(const ConvArgs<T>& p, int row, int gx) {
-  if constexpr (MODE == kDxQX) return (int64_t)row * p.pack + gx % p.pack;
-  return 0;
-}
-
-// The epilogue at one output (pixel offset `pix`, channel o; `srow` its
-// x_scale_row) from the f32 accumulator: returns the stored value and adds
-// to the two sums.
-template <int MODE, typename T>
-__device__ __forceinline__ T epilogue_one(const ConvArgs<T>& p, int64_t pix, int o, float acc,
-                                          float& s1, float& s2, int64_t srow) {
-  if constexpr (MODE == kPlain) {
-    return from_f32<T>(acc);
-  } else if constexpr (MODE == kFwd) {
-    const T yv = from_f32<T>(acc);
-    const float yr = to_f32(yv);
-    s1 += yr;
-    s2 = fmaf(yr, yr, s2);
-    return yv;
-  } else {
-    if (!p.prologue) return from_f32<T>(acc);
-    float xv;
-    if constexpr (MODE == kDxQX)  // deq(x) in f32, not rounded (:1577-1579)
-      xv = deq_f32(p.xq[pix * p.Cout + o], p.xsc[srow * p.Cout + o]);
-    else
-      xv = to_f32(p.x[pix * p.Cout + o]);
-    const float du = __fadd_rn(__fmul_rn(xv, p.pa[o]), p.pb[o]) > 0.f ? acc : 0.f;
-    s1 = fmaf(du, xv, s1);
-    s2 += du;
-    return from_f32<T>(__fmul_rn(du, p.pa[o]));
-  }
-}
-
-template <int MODE, typename T>
-__device__ __forceinline__ bool has_sums(const ConvArgs<T>& p) {
-  return MODE == kFwd || (is_dx<MODE>() && p.prologue);
-}
 
 // The staged input at one in-image pixel: t (forward: the prologue, if on;
 // plain: x itself) or e (dx).
@@ -178,6 +117,71 @@ __device__ __forceinline__ float staged_at(const ConvArgs<T>& p, int64_t i, int 
   if constexpr (MODE == kDxQ || MODE == kDxQX)
     return e_at_q(p.in, p.yq, p.ysc, i, c, p.Cin, p.W, p.pack, p.s1, p.s2);
   return t_at(p.in, i, c, MODE == kFwd ? p.prologue : 0, p.pa, p.pb);
+}
+
+// f32: one 16-channel chunk of the window (in_s) and its weights (w_s)
+// into the thread's 8 pixels x 8 output channels, in the order ci, ky, kx.
+__device__ __forceinline__ void fma_chunk(float (&acc)[8][8], float (*in_s)[kWinH][kWinW],
+                                          float (*w_s)[9][kCoT], int ty, int seg, int cg) {
+#pragma unroll 2
+  for (int ci = 0; ci < kCiT; ++ci) {
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) {
+      float v[10];
+      const float* row = &in_s[ci][ty + ky][seg * 8];
+#pragma unroll
+      for (int j = 0; j < 10; ++j) v[j] = row[j];
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        const float4 w0 = *reinterpret_cast<const float4*>(&w_s[ci][ky * 3 + kx][cg]);
+        const float4 w1 = *reinterpret_cast<const float4*>(&w_s[ci][ky * 3 + kx][cg + 4]);
+        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(v[q + kx], wv[c], acc[q][c]);
+      }
+    }
+  }
+}
+
+// f32 epilogue of the 16 x 16 tile at (gy0, gx0) of image b: store, and sum
+// into the partial row `blk`.
+template <int MODE, typename T>
+__device__ __forceinline__ void fma_epilogue(const ConvArgs<T>& p, const float (&acc)[8][8],
+                                             int b, int gy0, int gx0, int co0, int blk, int ty,
+                                             int seg, int cg, int lane) {
+  const int H = p.H, W = p.W, Cout = p.Cout;
+  const int64_t img = (int64_t)b * H * W;
+  float s1[8], s2[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) s1[c] = s2[c] = 0.f;
+  const int gy = gy0 + ty;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int gx = gx0 + seg * 8 + q;
+    if (gy < H && gx < W) {
+      const int64_t pix = img + (int64_t)gy * W + gx;
+      const int64_t srow = x_scale_row<MODE>(p, b * H + gy, gx);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int o = co0 + cg + c;
+        if (o < Cout)
+          p.out[pix * Cout + o] = epilogue_one<MODE>(p, pix, o, acc[q][c], s1[c], s2[c], srow);
+      }
+    }
+  }
+  if (!has_sums<MODE>(p)) return;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float t1 = warp_sum(s1[c]);
+    const float t2 = warp_sum(s2[c]);
+    const int o = co0 + cg + c;
+    if (lane == 0 && o < Cout) {
+      p.partials[(int64_t)blk * 2 * Cout + o] = t1;
+      p.partials[(int64_t)blk * 2 * Cout + Cout + o] = t2;
+    }
+  }
 }
 
 template <int MODE, typename T>
@@ -221,60 +225,9 @@ __device__ __forceinline__ void conv3x3_fma_body(const ConvArgs<T>& p) {
       w_s[ci][k][co] = (c < Cin && o < Cout) ? to_f32(p.w[((int64_t)c * 9 + k) * Cout + o]) : 0.f;
     }
     __syncthreads();
-
-#pragma unroll 2
-    for (int ci = 0; ci < kCiT; ++ci) {
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        float v[10];
-        const float* row = &in_s[ci][ty + ky][seg * 8];
-#pragma unroll
-        for (int j = 0; j < 10; ++j) v[j] = row[j];
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float4 w0 = *reinterpret_cast<const float4*>(&w_s[ci][ky * 3 + kx][cg]);
-          const float4 w1 = *reinterpret_cast<const float4*>(&w_s[ci][ky * 3 + kx][cg + 4]);
-          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(v[q + kx], wv[c], acc[q][c]);
-        }
-      }
-    }
+    fma_chunk(acc, in_s, w_s, ty, seg, cg);
   }
-
-  // Epilogue: store, and sum.
-  float s1[8], s2[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) s1[c] = s2[c] = 0.f;
-  const int gy = gy0 + ty;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int gx = gx0 + seg * 8 + q;
-    if (gy < H && gx < W) {
-      const int64_t pix = img + (int64_t)gy * W + gx;
-      const int64_t srow = x_scale_row<MODE>(p, b * H + gy, gx);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int o = co0 + cg + c;
-        if (o < Cout)
-          p.out[pix * Cout + o] = epilogue_one<MODE>(p, pix, o, acc[q][c], s1[c], s2[c], srow);
-      }
-    }
-  }
-  if (!has_sums<MODE>(p)) return;
-  const int blk = b * gridDim.x + blockIdx.x;  // partial row of this tile
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float t1 = warp_sum(s1[c]);
-    const float t2 = warp_sum(s2[c]);
-    const int o = co0 + cg + c;
-    if (lane == 0 && o < Cout) {
-      p.partials[(int64_t)blk * 2 * Cout + o] = t1;
-      p.partials[(int64_t)blk * 2 * Cout + Cout + o] = t2;
-    }
-  }
+  fma_epilogue<MODE>(p, acc, b, gy0, gx0, co0, b * gridDim.x + blockIdx.x, ty, seg, cg, lane);
 }
 
 template <bool DX, typename T>
@@ -290,9 +243,6 @@ __global__ void __launch_bounds__(kConvThreads) conv3x3_v3_kernel(ConvArgs<T> p)
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
-
-constexpr int kMmaThreads = 256;
-constexpr int kRowS = 24;  // bf16 per staged row: 16 channels + 8 padding
 
 template <int MODE, int COT>
 __device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
@@ -345,95 +295,9 @@ __device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
                Cin, co0 + co < Cout, 0, nullptr, nullptr);
     }
     __syncthreads();
-
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-      uint32_t a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int wy = warp * 2 + m + ky;  // window row of this output row
-        const uint32_t* r0 =
-            reinterpret_cast<const uint32_t*>(&in_s[(wy * kWinW + g + kx) * kRowS]);
-        const uint32_t* r1 =
-            reinterpret_cast<const uint32_t*>(&in_s[(wy * kWinW + g + 8 + kx) * kRowS]);
-        a[m][0] = r0[t];
-        a[m][1] = r1[t];
-        a[m][2] = r0[t + 4];
-        a[m][3] = r1[t + 4];
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const uint32_t* wr =
-            reinterpret_cast<const uint32_t*>(&w_s[((tap * COT) + n * 8 + g) * kRowS]);
-        const uint32_t b0 = wr[t], b1 = wr[t + 4];
-#pragma unroll
-        for (int m = 0; m < 2; ++m) mma_bf16(acc[m][n], a[m], b0, b1);
-      }
-    }
+    mma_chunk<COT>(acc, in_s, w_s, warp, g, t);
   }
-
-  // Epilogue: store, and sum. Thread (g, t) holds pixels g and g + 8 of
-  // rows warp*2 + m, channels n*8 + 2t and + 1.
-  float s1[NT][2], s2[NT][2];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) s1[n][0] = s1[n][1] = s2[n][0] = s2[n][1] = 0.f;
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const int gy = gy0 + warp * 2 + m;
-#pragma unroll
-    for (int hp = 0; hp < 2; ++hp) {
-      const int gx = gx0 + g + hp * 8;
-      if (gy >= H || gx >= W) continue;
-      const int64_t pix = img + (int64_t)gy * W + gx;
-      const int64_t srow = x_scale_row<MODE>(p, b * H + gy, gx);
-      bf16* dst = p.out + pix * Cout;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int o = co0 + n * 8 + 2 * t;
-        const bf16 r0 = o < Cout ? epilogue_one<MODE>(p, pix, o, acc[m][n][hp * 2], s1[n][0],
-                                                      s2[n][0], srow)
-                                 : __float2bfloat16(0.f);
-        const bf16 r1 = o + 1 < Cout ? epilogue_one<MODE>(p, pix, o + 1, acc[m][n][hp * 2 + 1],
-                                                          s1[n][1], s2[n][1], srow)
-                                     : __float2bfloat16(0.f);
-        if (o + 1 < Cout && (Cout & 1) == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(dst + o) = __halves2bfloat162(r0, r1);
-        } else {
-          if (o < Cout) dst[o] = r0;
-          if (o + 1 < Cout) dst[o + 1] = r1;
-        }
-      }
-    }
-  }
-  if (!has_sums<MODE>(p)) return;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s1[n][j] += __shfl_xor_sync(0xffffffffu, s1[n][j], off);
-        s2[n][j] += __shfl_xor_sync(0xffffffffu, s2[n][j], off);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        red[warp][0][n * 8 + 2 * t + j] = s1[n][j];
-        red[warp][1][n * 8 + 2 * t + j] = s2[n][j];
-      }
-  }
-  __syncthreads();
-  const int blk = b * gridDim.x + blockIdx.x;  // partial row of this tile
-  for (int i = threadIdx.x; i < 2 * COT; i += kMmaThreads) {
-    const int which = i / COT, co = i % COT;
-    float v = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kMmaThreads / 32; ++wp) v += red[wp][which][co];
-    if (co0 + co < Cout) p.partials[(int64_t)blk * 2 * Cout + which * Cout + co0 + co] = v;
-  }
+  mma_epilogue<MODE, COT>(p, acc, b, gy0, gx0, co0, b * gridDim.x + blockIdx.x, red, warp, g, t);
 }
 
 template <bool DX, int COT>
@@ -493,6 +357,282 @@ int conv3x3_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, int B
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || (DX && !pf32.prologue)) return (int)err;
+  reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(pf32.partials, tiles * B, 2 * Cout,
+                                                          2 * Cout, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 34p / 35p: the dx pipelined across pixel tiles (CL_TPU_DX_PIPE)
+// ---------------------------------------------------------------------------
+//
+// A block walks the pixel tiles blockIdx.x, + gridDim.x, ... of all B
+// images for one tile of output channels, and within each tile its
+// 16-channel chunks of dy: one flat sequence of stages (tile, chunk). The
+// raw dy and y windows and the weights of stage s + 1 are in flight by
+// cp.async into the second of two buffers while stage s's products run;
+// e is then formed in place from the raw dy (its stats term from the raw
+// y) and the products read it. Within a tile the chunks, the taps, the
+// epilogue and its partial row are #34/#35's (mma_chunk / fma_chunk and
+// their epilogues), so every output is bit-equal to theirs. Out-of-image
+// pixels and channels past Cin arrive as zeros (cp.async's zero fill) and
+// stay zero: e-space padding. Where a row of dy is not 16-byte aligned
+// (bf16 with Cin % 8 != 0) the stage is loaded by plain loads instead.
+
+constexpr int kPipeBlocks = 2 * 132;  // blocks of a launch, over the channel tiles
+
+// bf16: issue stage (b, gy0, gx0, chunk ci0) into the buffers dy_s, y_s
+// (windows, rows of kRowS) and w_s ([tap][co][kRowS]).
+template <int COT>
+__device__ __forceinline__ void pipe_issue_mma(const ConvArgs<bf16>& p, bf16* dy_s, bf16* y_s,
+                                               bf16* w_s, int b, int gy0, int gx0, int ci0,
+                                               int co0) {
+  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
+  const int64_t img = (int64_t)b * H * W;
+  const bool vec = (Cin & 7) == 0;
+  for (int e = threadIdx.x; e < kWinH * kWinW * 2; e += kMmaThreads) {
+    const int pix = e >> 1, half = e & 1;
+    const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
+    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const int c = ci0 + half * 8;
+    const int64_t i = inside ? (img + (int64_t)gy * W + gx) * Cin + c : 0;
+    bf16* d = &dy_s[pix * kRowS + half * 8];
+    bf16* yd = &y_s[pix * kRowS + half * 8];
+    if (vec) {
+      const bool ok = inside && c < Cin;
+      cp_async<16>(d, p.in + (ok ? i : 0), ok);
+      if (p.s1 != nullptr) cp_async<16>(yd, p.y + (ok ? i : 0), ok);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const bool ok = inside && c + k < Cin;
+        d[k] = ok ? p.in[i + k] : __float2bfloat16(0.f);
+        if (p.s1 != nullptr) yd[k] = ok ? p.y[i + k] : __float2bfloat16(0.f);
+      }
+    }
+  }
+  for (int e = threadIdx.x; e < 9 * COT * 2; e += kMmaThreads) {
+    const int half = e & 1, row = e >> 1;  // row = tap * COT + co
+    const int co = row % COT, tap = row / COT;
+    const int c = ci0 + half * 8;
+    const bool in_co = co0 + co < Cout;
+    const int64_t i = in_co ? ((int64_t)tap * Cout + co0 + co) * Cin + c : 0;
+    bf16* d = &w_s[row * kRowS + half * 8];
+    if (vec) {
+      const bool ok = in_co && c < Cin;
+      cp_async<16>(d, p.w + (ok ? i : 0), ok);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        d[k] = in_co && c + k < Cin ? p.w[i + k] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// bf16: e = round(dy + ds1 + 2 * y * ds2) in place over the staged raw dy,
+// at in-image pixels and channels below Cin (stage8_e's arithmetic); e = dy
+// without stats cotangents.
+__device__ __forceinline__ void pipe_form_e_mma(const ConvArgs<bf16>& p, bf16* dy_s,
+                                                const bf16* y_s, int gy0, int gx0, int ci0) {
+  if (p.s1 == nullptr) return;
+  for (int e = threadIdx.x; e < kWinH * kWinW * 16; e += kMmaThreads) {
+    const int pix = e >> 4, k = e & 15;
+    const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
+    const int c = ci0 + k;
+    if (gy < 0 || gy >= p.H || gx < 0 || gx >= p.W || c >= p.Cin) continue;
+    bf16& v = dy_s[pix * kRowS + k];
+    v = __float2bfloat16(
+        e_f32(__bfloat162float(v), __bfloat162float(y_s[pix * kRowS + k]), p.s1[c], p.s2[c]));
+  }
+}
+
+template <int COT>
+constexpr size_t pipe_smem_mma() {
+  return (4 * (size_t)kWinH * kWinW * kRowS + 2 * 9 * COT * kRowS) * sizeof(bf16) +
+         (kMmaThreads / 32) * 2 * COT * sizeof(float);
+}
+
+template <int COT>
+__global__ void __launch_bounds__(kMmaThreads) conv3x3_bn_dx_pipe_mma_kernel(ConvArgs<bf16> p) {
+  constexpr int NT = COT / 8, kWin = kWinH * kWinW * kRowS, kWts = 9 * COT * kRowS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* dy_s = reinterpret_cast<bf16*>(smem);  // [2][kWin]: raw dy, then e
+  bf16* y_s = dy_s + 2 * kWin;                 // [2][kWin]
+  bf16* w_s = y_s + 2 * kWin;                  // [2][kWts]
+  float(*red)[2][COT] = reinterpret_cast<float(*)[2][COT]>(w_s + 2 * kWts);
+  const int tiles_x = (p.W + kTW - 1) / kTW, tiles = tiles_x * ((p.H + kTH - 1) / kTH);
+  const int n_tiles = p.batch * tiles, nch = (p.Cin + 15) / 16;
+  const int co0 = blockIdx.y * COT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int my_tiles = (int)blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int n_stages = my_tiles * nch;
+  auto coords = [&](int s, int& b, int& rem, int& gy0, int& gx0) {
+    const int tile = blockIdx.x + (s / nch) * gridDim.x;
+    b = tile / tiles;
+    rem = tile % tiles;
+    gy0 = (rem / tiles_x) * kTH;
+    gx0 = (rem % tiles_x) * kTW;
+  };
+  int b, rem, gy0, gx0;
+  if (n_stages > 0) {
+    coords(0, b, rem, gy0, gx0);
+    pipe_issue_mma<COT>(p, dy_s, y_s, w_s, b, gy0, gx0, 0, co0);
+  }
+  cp_async_commit();
+  float acc[2][NT][4];
+  for (int s = 0; s < n_stages; ++s) {
+    const int buf = s & 1, chunk = s % nch;
+    __syncthreads();  // stage s - 1's products are done with the other buffer
+    if (s + 1 < n_stages) {
+      coords(s + 1, b, rem, gy0, gx0);
+      pipe_issue_mma<COT>(p, dy_s + (buf ^ 1) * kWin, y_s + (buf ^ 1) * kWin,
+                          w_s + (buf ^ 1) * kWts, b, gy0, gx0, ((s + 1) % nch) * 16, co0);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // stage s has landed
+    coords(s, b, rem, gy0, gx0);
+    __syncthreads();
+    pipe_form_e_mma(p, dy_s + buf * kWin, y_s + buf * kWin, gy0, gx0, chunk * 16);
+    __syncthreads();
+    if (chunk == 0) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.f;
+    }
+    mma_chunk<COT>(acc, dy_s + buf * kWin, w_s + buf * kWts, warp, g, t);
+    if (chunk == nch - 1)
+      mma_epilogue<kDx, COT>(p, acc, b, gy0, gx0, co0, b * tiles + rem, red, warp, g, t);
+  }
+  cp_async_wait<0>();
+}
+
+// f32: the same walk; the windows staged channel-major ([16][18][18], as
+// conv3x3_fma_body stages them) by 4-byte copies, the weights [16][9][32].
+__device__ __forceinline__ void pipe_issue_fma(const ConvArgs<float>& p, float* dy_s, float* y_s,
+                                               float* w_s, int b, int gy0, int gx0, int ci0,
+                                               int co0) {
+  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
+  const int64_t img = (int64_t)b * H * W;
+  for (int e = threadIdx.x; e < kCiT * kWinH * kWinW; e += kConvThreads) {
+    const int ci = e % kCiT, pix = e / kCiT;
+    const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW, c = ci0 + ci;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
+    const int64_t i = ok ? (img + (int64_t)gy * W + gx) * Cin + c : 0;
+    cp_async<4>(&dy_s[ci * kWinH * kWinW + pix], p.in + i, ok);
+    if (p.s1 != nullptr) cp_async<4>(&y_s[ci * kWinH * kWinW + pix], p.y + i, ok);
+  }
+  for (int e = threadIdx.x; e < kCiT * 9 * kCoT; e += kConvThreads) {
+    const int co = e % kCoT, rest = e / kCoT;
+    const int k = rest % 9, ci = rest / 9;
+    const int c = ci0 + ci, o = co0 + co;
+    const bool ok = c < Cin && o < Cout;
+    cp_async<4>(&w_s[e], p.w + (ok ? ((int64_t)c * 9 + k) * Cout + o : 0), ok);
+  }
+}
+
+__device__ __forceinline__ void pipe_form_e_fma(const ConvArgs<float>& p, float* dy_s,
+                                                const float* y_s, int gy0, int gx0, int ci0) {
+  if (p.s1 == nullptr) return;
+  for (int e = threadIdx.x; e < kCiT * kWinH * kWinW; e += kConvThreads) {
+    const int ci = e / (kWinH * kWinW), pix = e % (kWinH * kWinW);
+    const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW, c = ci0 + ci;
+    if (gy < 0 || gy >= p.H || gx < 0 || gx >= p.W || c >= p.Cin) continue;
+    dy_s[e] = e_f32(dy_s[e], y_s[e], p.s1[c], p.s2[c]);
+  }
+}
+
+constexpr size_t kPipeSmemFma =
+    (4 * (size_t)kCiT * kWinH * kWinW + 2 * (size_t)kCiT * 9 * kCoT) * sizeof(float);
+
+__global__ void __launch_bounds__(kConvThreads) conv3x3_bn_dx_pipe_kernel(ConvArgs<float> p) {
+  constexpr int kWin = kCiT * kWinH * kWinW, kWts = kCiT * 9 * kCoT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dy_s = reinterpret_cast<float*>(smem);  // [2][kWin]: raw dy, then e
+  float* y_s = dy_s + 2 * kWin;                  // [2][kWin]
+  float* w_s = y_s + 2 * kWin;                   // [2][kWts]
+  const int tiles_x = (p.W + kTW - 1) / kTW, tiles = tiles_x * ((p.H + kTH - 1) / kTH);
+  const int n_tiles = p.batch * tiles, nch = (p.Cin + kCiT - 1) / kCiT;
+  const int co0 = blockIdx.y * kCoT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ty = lane >> 1, seg = lane & 1, cg = warp * 8;
+  const int my_tiles = (int)blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int n_stages = my_tiles * nch;
+  auto coords = [&](int s, int& b, int& rem, int& gy0, int& gx0) {
+    const int tile = blockIdx.x + (s / nch) * gridDim.x;
+    b = tile / tiles;
+    rem = tile % tiles;
+    gy0 = (rem / tiles_x) * kTH;
+    gx0 = (rem % tiles_x) * kTW;
+  };
+  int b, rem, gy0, gx0;
+  if (n_stages > 0) {
+    coords(0, b, rem, gy0, gx0);
+    pipe_issue_fma(p, dy_s, y_s, w_s, b, gy0, gx0, 0, co0);
+  }
+  cp_async_commit();
+  float acc[8][8];
+  for (int s = 0; s < n_stages; ++s) {
+    const int buf = s & 1, chunk = s % nch;
+    __syncthreads();
+    if (s + 1 < n_stages) {
+      coords(s + 1, b, rem, gy0, gx0);
+      pipe_issue_fma(p, dy_s + (buf ^ 1) * kWin, y_s + (buf ^ 1) * kWin, w_s + (buf ^ 1) * kWts,
+                     b, gy0, gx0, ((s + 1) % nch) * kCiT, co0);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    coords(s, b, rem, gy0, gx0);
+    __syncthreads();
+    pipe_form_e_fma(p, dy_s + buf * kWin, y_s + buf * kWin, gy0, gx0, chunk * kCiT);
+    __syncthreads();
+    if (chunk == 0) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[q][c] = 0.f;
+    }
+    fma_chunk(acc, reinterpret_cast<float(*)[kWinH][kWinW]>(dy_s + buf * kWin),
+              reinterpret_cast<float(*)[9][kCoT]>(w_s + buf * kWts), ty, seg, cg);
+    if (chunk == nch - 1)
+      fma_epilogue<kDx>(p, acc, b, gy0, gx0, co0, b * tiles + rem, ty, seg, cg, lane);
+  }
+  cp_async_wait<0>();
+}
+
+// Launches the pipelined dx of the type and, with the prologue, the
+// reduction of its per-tile partial rows (#34/#35's rows) into out.
+int conv3x3_dx_pipe_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, void* out,
+                           cudaStream_t st) {
+  const int H = pf32.H, W = pf32.W, Cout = pf32.Cout, B = pf32.batch;
+  const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
+  const int cot = !is_bf16 || Cout % 64 != 0 ? 32 : 64;
+  const int ctiles = (Cout + cot - 1) / cot;
+  const dim3 grid(std::min(tiles * B, std::max(1, kPipeBlocks / ctiles)), ctiles);
+  cudaError_t err;
+  if (!is_bf16) {
+    err = cudaFuncSetAttribute(conv3x3_bn_dx_pipe_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPipeSmemFma);
+    if (err != cudaSuccess) return (int)err;
+    conv3x3_bn_dx_pipe_kernel<<<grid, kConvThreads, kPipeSmemFma, st>>>(pf32);
+  } else if (cot == 64) {
+    err = cudaFuncSetAttribute(conv3x3_bn_dx_pipe_mma_kernel<64>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)pipe_smem_mma<64>());
+    if (err != cudaSuccess) return (int)err;
+    conv3x3_bn_dx_pipe_mma_kernel<64><<<grid, kMmaThreads, pipe_smem_mma<64>(), st>>>(pb16);
+  } else {
+    err = cudaFuncSetAttribute(conv3x3_bn_dx_pipe_mma_kernel<32>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)pipe_smem_mma<32>());
+    if (err != cudaSuccess) return (int)err;
+    conv3x3_bn_dx_pipe_mma_kernel<32><<<grid, kMmaThreads, pipe_smem_mma<32>(), st>>>(pb16);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !pf32.prologue) return (int)err;
   reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(pf32.partials, tiles * B, 2 * Cout,
                                                           2 * Cout, static_cast<float*>(out));
   return (int)cudaGetLastError();
@@ -580,6 +720,20 @@ int cltorch_conv3x3_bn_dx(const void* dy, const void* y, const void* s1, const v
       conv_args<bf16>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
       conv_args<float>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
       is_bf16, B, out, static_cast<cudaStream_t>(stream));
+}
+
+// 34p / 35p: the dx pipelined across pixel tiles; the operands and outputs
+// of cltorch_conv3x3_bn_dx, and every bit of its results.
+int cltorch_conv3x3_bn_dx_pipe(const void* dy, const void* y, const void* s1, const void* s2,
+                               const void* w, const void* x, const void* a, const void* b,
+                               void* dx, void* partials, void* out, int B, int H, int W, int Cin,
+                               int Cout, int prologue, int is_bf16, void* stream) {
+  using namespace cltorch;
+  auto pb16 = conv_args<bf16>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue);
+  auto pf32 = conv_args<float>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout,
+                               prologue);
+  pb16.batch = pf32.batch = B;
+  return conv3x3_dx_pipe_launch(pb16, pf32, is_bf16, out, static_cast<cudaStream_t>(stream));
 }
 
 // 32q: y [B, H, W, C] -> q int8 [B, H, W, C] and scale f32 [B, H, p, C];

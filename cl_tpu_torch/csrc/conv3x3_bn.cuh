@@ -31,6 +31,17 @@ __device__ __forceinline__ float e_f32(float dy, float y, float s1, float s2) {
   return __fadd_rn(__fadd_rn(dy, s1), __fmul_rn(__fmul_rn(2.f, y), s2));
 }
 
+// The dx epilogue of the BN-ReLU prologue at one output from the f32
+// accumulator dt: u = x * a + b (each rounded, no FMA), du = [u > 0] * dt,
+// da += du * x, db += du; returns du * a (to be rounded to the dtype).
+__device__ __forceinline__ float prologue_bwd_one(float xv, float a, float b, float dt,
+                                                  float& da, float& db) {
+  const float du = __fadd_rn(__fmul_rn(xv, a), b) > 0.f ? dt : 0.f;
+  da = fmaf(du, xv, da);
+  db += du;
+  return __fmul_rn(du, a);
+}
+
 // Eight channels [c, c + 8) of one pixel (or weight row) of x into `dst`,
 // zero past C or outside; with the prologue, t on the real ones.
 __device__ __forceinline__ void stage8_t(bf16* dst, const bf16* src, int c, int C, bool inside,
@@ -204,6 +215,194 @@ __device__ __forceinline__ float t_at_q(const int8_t* xq, const float* xsc, int6
                                         const float* pb) {
   const float v = deq_f32(xq[i], xsc[q_scale_row(i / C, W, p) * C + c]);
   return round_to<T>(prologue ? prologue_f32(v, pa[c], pb[c]) : v);
+}
+
+// ---------------------------------------------------------------------------
+// The conv bodies' operands, their dx epilogue and the bf16 tap loop, shared
+// by conv3x3_bn.cu and conv3x3_bn_bwd_fused.cu (#37)
+// ---------------------------------------------------------------------------
+
+// What a body computes: the forward with the BN-ReLU prologue and the stats
+// epilogue, the dx with the prologue's backward, or the plain conv; the dx
+// from the int8 saved y (kDxQ), and also from the int8 saved x (kDxQX:
+// the XQ mode, the epilogue's x dequantized).
+constexpr int kFwd = 0, kDx = 1, kPlain = 2, kDxQ = 3, kDxQX = 4;
+
+template <int MODE>
+__host__ __device__ constexpr bool is_dx() {
+  return MODE == kDx || MODE == kDxQ || MODE == kDxQX;
+}
+
+// Operands of one launch. `Cin` / `Cout` are the channels the kernel reads
+// and writes: for dx, the forward's Cout and Cin.
+template <typename T> struct ConvArgs {
+  const T* in;         // forward: x; dx: dy
+  const T* y;          // dx: the forward's output (for e)
+  const float* s1;     // dx: the stats cotangents, or null (e = dy)
+  const float* s2;
+  const T* w;          // bf16: [3, 3, Cout, Cin]; f32: [Cin, 3, 3, Cout]
+  const float* pa;     // prologue scale/shift: the forward's input
+  const float* pb;     //   channels (forward staging, dx epilogue)
+  const T* x;          // dx epilogue: the forward's input
+  T* out;              // y or dx
+  float* partials;     // per-block rows [2, Cout] of the sums
+  int H, W, Cin, Cout;
+  int prologue;
+  const int8_t* yq;    // kDxQ, kDxQX: the forward's y as int8 [B, H, W, Cin]
+  const float* ysc;    //   and its scales [B, H, pack, Cin]
+  const int8_t* xq;    // kDxQX: the forward's x as int8 [B, H, W, Cout]
+  const float* xsc;    //   and its scales [B, H, pack, Cout]
+  int pack;            // the columns' grouping of the scales (mod pack)
+  int batch;           // images (the pipelined dx and #37 walk them in-kernel)
+};
+
+// The row of the scales of output pixel (b*H + gy, gx) in the XQ mode
+// (kDxQX), once per pixel; 0 in the other modes.
+template <int MODE, typename T>
+__device__ __forceinline__ int64_t x_scale_row(const ConvArgs<T>& p, int row, int gx) {
+  if constexpr (MODE == kDxQX) return (int64_t)row * p.pack + gx % p.pack;
+  return 0;
+}
+
+// The epilogue at one output (pixel offset `pix`, channel o; `srow` its
+// x_scale_row) from the f32 accumulator: returns the stored value and adds
+// to the two sums.
+template <int MODE, typename T>
+__device__ __forceinline__ T epilogue_one(const ConvArgs<T>& p, int64_t pix, int o, float acc,
+                                          float& s1, float& s2, int64_t srow) {
+  if constexpr (MODE == kPlain) {
+    return from_f32<T>(acc);
+  } else if constexpr (MODE == kFwd) {
+    const T yv = from_f32<T>(acc);
+    const float yr = to_f32(yv);
+    s1 += yr;
+    s2 = fmaf(yr, yr, s2);
+    return yv;
+  } else {
+    if (!p.prologue) return from_f32<T>(acc);
+    float xv;
+    if constexpr (MODE == kDxQX)  // deq(x) in f32, not rounded (:1577-1579)
+      xv = deq_f32(p.xq[pix * p.Cout + o], p.xsc[srow * p.Cout + o]);
+    else
+      xv = to_f32(p.x[pix * p.Cout + o]);
+    return from_f32<T>(prologue_bwd_one(xv, p.pa[o], p.pb[o], acc, s1, s2));
+  }
+}
+
+template <int MODE, typename T>
+__device__ __forceinline__ bool has_sums(const ConvArgs<T>& p) {
+  return MODE == kFwd || (is_dx<MODE>() && p.prologue);
+}
+
+constexpr int kMmaThreads = 256;
+constexpr int kRowS = 24;  // bf16 per staged row: 16 channels + 8 padding
+
+// bf16: the nine taps of one 16-channel chunk of the window (in_s, rows of
+// kRowS) against its weights (w_s, [tap][co][16 + 8]) into the warp's two
+// output rows, in the order tap, n, m.
+template <int COT>
+__device__ __forceinline__ void mma_chunk(float (&acc)[2][COT / 8][4], const bf16* in_s,
+                                          const bf16* w_s, int warp, int g, int t) {
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int ky = tap / 3, kx = tap % 3;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int wy = warp * 2 + m + ky;  // window row of this output row
+      const uint32_t* r0 = reinterpret_cast<const uint32_t*>(&in_s[(wy * kWinW + g + kx) * kRowS]);
+      const uint32_t* r1 =
+          reinterpret_cast<const uint32_t*>(&in_s[(wy * kWinW + g + 8 + kx) * kRowS]);
+      a[m][0] = r0[t];
+      a[m][1] = r1[t];
+      a[m][2] = r0[t + 4];
+      a[m][3] = r1[t + 4];
+    }
+#pragma unroll
+    for (int n = 0; n < COT / 8; ++n) {
+      const uint32_t* wr =
+          reinterpret_cast<const uint32_t*>(&w_s[((tap * COT) + n * 8 + g) * kRowS]);
+      const uint32_t b0 = wr[t], b1 = wr[t + 4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) mma_bf16(acc[m][n], a[m], b0, b1);
+    }
+  }
+}
+
+// bf16 epilogue of the 16 x 16 tile at (gy0, gx0) of image b: store, and
+// sum into the partial row `blk` (a fixed order: shuffles within a warp,
+// then the warps in order through `red`). Thread (g, t) of warps 0-7
+// holds pixels g and g + 8 of rows warp*2 + m, channels n*8 + 2t and + 1;
+// a block with more warps calls it from all of them (for the barrier),
+// the others storing nothing.
+template <int MODE, int COT>
+__device__ __forceinline__ void mma_epilogue(const ConvArgs<bf16>& p,
+                                             const float (&acc)[2][COT / 8][4], int b, int gy0,
+                                             int gx0, int co0, int blk, float (*red)[2][COT],
+                                             int warp, int g, int t) {
+  constexpr int NT = COT / 8;
+  const int H = p.H, W = p.W, Cout = p.Cout;
+  const int64_t img = (int64_t)b * H * W;
+  const bool rows = warp < kMmaThreads / 32;
+  float s1[NT][2], s2[NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) s1[n][0] = s1[n][1] = s2[n][0] = s2[n][1] = 0.f;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int gy = gy0 + warp * 2 + m;
+    if (!rows) break;
+#pragma unroll
+    for (int hp = 0; hp < 2; ++hp) {
+      const int gx = gx0 + g + hp * 8;
+      if (gy >= H || gx >= W) continue;
+      const int64_t pix = img + (int64_t)gy * W + gx;
+      const int64_t srow = x_scale_row<MODE>(p, b * H + gy, gx);
+      bf16* dst = p.out + pix * Cout;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int o = co0 + n * 8 + 2 * t;
+        const bf16 r0 = o < Cout ? epilogue_one<MODE>(p, pix, o, acc[m][n][hp * 2], s1[n][0],
+                                                      s2[n][0], srow)
+                                 : __float2bfloat16(0.f);
+        const bf16 r1 = o + 1 < Cout ? epilogue_one<MODE>(p, pix, o + 1, acc[m][n][hp * 2 + 1],
+                                                          s1[n][1], s2[n][1], srow)
+                                     : __float2bfloat16(0.f);
+        if (o + 1 < Cout && (Cout & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + o) = __halves2bfloat162(r0, r1);
+        } else {
+          if (o < Cout) dst[o] = r0;
+          if (o + 1 < Cout) dst[o + 1] = r1;
+        }
+      }
+    }
+  }
+  if (!has_sums<MODE>(p)) return;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s1[n][j] += __shfl_xor_sync(0xffffffffu, s1[n][j], off);
+        s2[n][j] += __shfl_xor_sync(0xffffffffu, s2[n][j], off);
+      }
+  if (g == 0 && rows) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        red[warp][0][n * 8 + 2 * t + j] = s1[n][j];
+        red[warp][1][n * 8 + 2 * t + j] = s2[n][j];
+      }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * COT; i += blockDim.x) {
+    const int which = i / COT, co = i % COT;
+    float v = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < kMmaThreads / 32; ++wp) v += red[wp][which][co];
+    if (co0 + co < Cout) p.partials[(int64_t)blk * 2 * Cout + which * Cout + co0 + co] = v;
+  }
 }
 
 }  // namespace

@@ -329,16 +329,6 @@ __global__ void __launch_bounds__(kDwfThreads) conv3x3_q_dw_fma_kernel(CLTORCH_D
   dw_fma_body<kDwQ>(CLTORCH_DW_ARGS);
 }
 
-// out[j] = sum over s < splits of part[s * n + j], in order of s.
-__global__ void sum_splits_kernel(const float* __restrict__ part, int splits, int64_t n,
-                                  float* __restrict__ out) {
-  const int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc += part[(int64_t)s * n + j];
-  out[j] = acc;
-}
-
 }  // namespace
 }  // namespace cltorch
 

@@ -1,4 +1,5 @@
-"""Device time of each loss kernel launch and of the gen-3 conv's, by
+"""Device time of each loss kernel launch and of the conv kernels' that
+the options route (the gen-3 conv, int8, the two backward switches), by
 ``torch.profiler``.
 
     python -m cl_tpu_torch.kernel_bench [--reps N]
@@ -13,7 +14,11 @@ baseline_2's 256² × 64 → 64, batch 8, f32 and bf16, and the two-pass
 backward's dW (#33) at 64² × 256 → 256 with the prologue, f32; then the
 int8 conv kernels of ``model.conv_act_store=int8`` (the quantize 32q, the
 dx #38 and the dW #39 from int8 y and x, the prologue on) at the headline
-step's 512² × 32 → 32, batch 8, bf16 and f32. It prints
+step's 512² × 32 → 32, batch 8, bf16 and f32; then the one-pass conv
+backward (#37, ``CL_TPU_FUSE_BWD``) and the pipelined dx (34p/35p,
+``CL_TPU_DX_PIPE``) at the same shape, the prologue on (and off for 34p),
+bf16 and f32, and the packed head without a prologue (#5/#6) at the
+full width. It prints
 for each case the mean device time of every CUDA kernel it launched and a
 SHA-256 of its outputs (loss, dx, dW, db / dz; the KD forms' KD sum too;
 the conv's y, dx and dW). Run from two checkouts, the hashes tell whether
@@ -41,6 +46,11 @@ CASES = (  # kind, pixels, Cin, classes, dtype
     ("conv3x3_dw_bn", 64, 256, 256, torch.float32),
     ("conv3x3_q", 512, 32, 32, torch.bfloat16),
     ("conv3x3_q", 512, 32, 32, torch.float32),
+    ("conv3x3_bwd_fused", 512, 32, 32, torch.bfloat16),
+    ("conv3x3_bwd_fused", 512, 32, 32, torch.float32),
+    ("conv3x3_dx_pipe", 512, 32, 32, torch.bfloat16),
+    ("conv3x3_dx_pipe", 512, 32, 32, torch.float32),
+    ("head_ce_pk", 2097152, 32, 19, torch.bfloat16),
 )
 LWF_T = 2.0  # method.lwf_temperature's default
 
@@ -59,7 +69,7 @@ def operands(kind, P, cin, C, dtype, seed):
                            dtype=torch.int32)
     labels[torch.rand(P, generator=gen, device=dev) < 0.1] = 255
     scale = 1.0 / (labels != 255).sum().float()
-    if kind == "head_ce":
+    if kind in ("head_ce", "head_ce_pk"):
         x = torch.randn(P, cin, generator=gen, device=dev).to(dtype)
         w = torch.randn(C, cin, generator=gen, device=dev) * 0.2
         b = torch.randn(C, generator=gen, device=dev) * 0.1
@@ -100,6 +110,10 @@ def conv_operands(kind, H, cin, C, dtype, seed):
     x, dy = randn(8, H, H, cin).to(dtype), randn(8, H, H, C).to(dtype)
     if kind == "conv3x3":
         return (x, randn(C, cin, 3, 3) * (9 * cin) ** -0.5, dy), None
+    if kind in ("conv3x3_bwd_fused", "conv3x3_dx_pipe"):  # x, w, a, b, y, dy, ds1, ds2
+        return (x, randn(C, cin, 3, 3) * (9 * cin) ** -0.5, randn(cin).abs() + 0.5,
+                randn(cin) * 0.5, randn(8, H, H, C).to(dtype), dy, randn(C) * 0.1,
+                randn(C) * 0.05), None
     if kind == "conv3x3_q":  # y, the xq pair, w, a, b, dy, ds1, ds2 (P = 4)
         return (randn(8, H, H, C).to(dtype), x, randn(C, cin, 3, 3) * (9 * cin) ** -0.5,
                 randn(cin).abs() + 0.5, randn(cin) * 0.5, dy, randn(C) * 0.1,
@@ -123,7 +137,14 @@ def run(kind, args, scale):
         xq = conv3x3.launch_quant_rows(x, 4)
         qargs = (xq, w, a, b, q, scale, dy, ds1, ds2, True, 4)
         return (q, scale, *conv3x3.launch_conv_dx_q(*qargs), conv3x3.launch_conv_dw_q(*qargs))
-
+    if kind == "conv3x3_bwd_fused":  # #37 with the prologue
+        return conv3x3.launch_conv_bwd_fused(*args, True)
+    if kind == "conv3x3_dx_pipe":  # 35p, then 34p
+        x, w, a, b, *rest = args
+        return (*conv3x3.launch_conv_dx(*args, True, pipe=True),
+                conv3x3.launch_conv_dx(x, w, None, None, *rest, False, pipe=True)[0])
+    if kind == "head_ce_pk":  # #5, #6
+        return (head_ce.launch_pk_fwd(*args), *head_ce.launch_pk_bwd(*args, scale.reshape(())))
     if kind == "head_ce_kd":
         s = scale.reshape(())
         return (*head_ce.launch_kd_fwd(*args, LWF_T),

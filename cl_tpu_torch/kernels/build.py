@@ -41,6 +41,8 @@ SIGNATURES = {
     "cltorch_head_ce_kd_bn_bwd": [P] * 17 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_kd_fwd": [P] * 16 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_kd_bwd": [P] * 17 + [I] * 5 + [F, I, P],
+    "cltorch_head_ce_pk_fwd": [P] * 16 + [I] * 5 + [F, I, P],
+    "cltorch_head_ce_pk_bwd": [P] * 17 + [I] * 5 + [F, I, P],
     "cltorch_ce_fwd": [P, P, P, P, P, I, I, I, I, I, P],
     "cltorch_ce_bwd": [P, P, P, P, P, I, I, I, I, I, P],
     "cltorch_kd_fwd": [P] * 6 + [I] * 4 + [F, I, P],
@@ -56,6 +58,8 @@ SIGNATURES = {
     "cltorch_upconv_dx": [P, P, P, I, I, I, I, I, I, P],
     "cltorch_upconv_dw": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "cltorch_conv3x3_bn_dx": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "cltorch_conv3x3_bn_dx_pipe": [P] * 11 + [I] * 7 + [P],
+    "cltorch_conv3x3_bn_bwd_fused": [P] * 13 + [I] * 8 + [P],
     "cltorch_conv3x3_bn_dw": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "cltorch_conv3x3_fwd": [P, P, P, I, I, I, I, I, I, P],
     "cltorch_conv3x3_dw": [P, P, P, P, I, I, I, I, I, I, I, P],

@@ -19,12 +19,20 @@ rounded, da = Σ[u>0]·dt·x, db = Σ[u>0]·dt (without the prologue dx is dt
 rounded); dW = Σ tᵀ★e with t recomputed, summed in f32 and rounded once to
 the dtype (``dw.astype(w.dtype)``, w being of the compute dtype there).
 dx is computed only where autograd needs it (not for the stem's image).
-Where ``cl_tpu``'s fused backward kernels find no tile
-(``packed_gate.conv_bwd_two_pass``, at the conv's pack factor ``p``) the
-backward is its two-pass branch (``:962-985``): e materialized (f32,
-rounded to the dtype), dt = the plain conv (#30) of e, ROUNDED to the
-dtype, dW = #33 (the prologue recomputed over the materialized e), and
-the prologue's backward in torch on the rounded dt.
+The branch is ``cl_tpu``'s (``packed_gate.conv_bwd_branch``, at the
+conv's pack factor ``p``, read when the forward runs). Under
+``CL_TPU_FUSE_BWD=1`` a conv whose one-pass tile fits takes the one-pass
+backward (#37, ``_bwd_fused_kernel``, ``:938-950``): the same arithmetic
+as the fused branch (e formed once, the f32 dt into the prologue's
+backward, t recomputed, dW rounded once) from one launch that returns dx,
+da, db (zeros without the prologue) and dW. Under ``CL_TPU_DX_PIPE=1``
+the fused branch's dx runs pipelined on the card (34p/35p: the same
+arithmetic in the same order, bit-equal to #34/#35). Where ``cl_tpu``'s
+fused backward kernels find no tile the backward is its two-pass branch
+(``:962-985``): e materialized (f32, rounded to the dtype), dt = the
+plain conv (#30) of e, ROUNDED to the dtype, dW = #33 (the prologue
+recomputed over the materialized e), and the prologue's backward in
+torch on the rounded dt.
 
 ``conv3x3`` is ``cl_tpu.pallas.conv3x3_v3.conv3x3`` (and
 ``conv3x3_packed``, the same arithmetic): y = conv3x3_SAME(x, w) summed in
@@ -49,7 +57,8 @@ q·scale in f32, NOT rounded (``:1532-1540``, ``:1713-1715``); the dx
 epilogue reads x as deq(xq) in f32, not rounded (``:1577-1579``); the dW's
 t = round(relu(deq(xq)·a + b)) computed in f32 and rounded once
 (``:1690-1696``); dW summed in f32 and rounded once. Where no tile fits
-(``conv_bwd_two_pass``) it dequantizes y and x once, ROUNDED to the compute
+(``conv_bwd_branch`` without ``FUSE_BWD``, which ``_cbfq_bwd`` never
+reads) it dequantizes y and x once, ROUNDED to the compute
 dtype, and runs the two-pass backward on them (``:1836-1858``).
 
 ``w`` is the port's conv weight [Cout, Cin, 3, 3] (f32), rounded to x's
@@ -65,7 +74,8 @@ import torch
 import torch.nn.functional as F
 
 from cl_tpu_torch.kernels import SPLIT_BLOCKS, build
-from cl_tpu_torch.models.packed_gate import conv_bwd_two_pass, pick_pack
+from cl_tpu_torch.models import packed_gate
+from cl_tpu_torch.models.packed_gate import conv_bwd_branch, pick_pack
 
 TILE = 16  # output tile of the kernels (rows and columns)
 QMAX = 127.0  # the int8 saved activations' symmetric range
@@ -79,7 +89,10 @@ LAUNCHES = {"conv3x3_bn_fwd": 0, "conv3x3_bn_dx": 0, "conv3x3_bn_dx_bn": 0,
             "conv3x3_dw_bn": 0,
             # the int8 saved activations: the quantize after #32 (32q), the
             # dx (#38) and dW (#39) from int8
-            "conv3x3_bn_quant": 0, "conv3x3_bn_dx_q": 0, "conv3x3_bn_dw_q": 0}
+            "conv3x3_bn_quant": 0, "conv3x3_bn_dx_q": 0, "conv3x3_bn_dw_q": 0,
+            # CL_TPU_DX_PIPE: the pipelined dx (34p, 35p); CL_TPU_FUSE_BWD:
+            # the one-pass backward (#37)
+            "conv3x3_bn_dx_pipe": 0, "conv3x3_bn_dx_bn_pipe": 0, "conv3x3_bn_bwd_fused": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +158,18 @@ def conv_dw_plain(x, w, a, b, y, dy, ds1, ds2, prologue):
     """dW [Cout, Cin, 3, 3] rounded to x's dtype, as f32."""
     e = dy_eff(dy, y, ds1, ds2)
     return conv3x3_dw_bn_plain(x, a, b, e, prologue).to(x.dtype).float()
+
+
+def conv_bwd_fused_plain(x, w, a, b, y, dy, ds1, ds2, prologue, need_dx=True):
+    """#37: (dx or None, da, db, dW) of ``conv_bn_fused`` in one pass: the
+    composition of ``conv_dx_plain`` and ``conv_dw_plain`` (the fused
+    branch's arithmetic); da, db zeros without the prologue, dW rounded to
+    x's dtype, as f32. ``need_dx`` off (the stem) skips dx, da and db."""
+    zeros = torch.zeros(x.shape[-1], dtype=torch.float32, device=x.device)
+    dx, da, db = conv_dx_plain(x, w, a, b, y, dy, ds1, ds2, prologue) if need_dx else \
+        (None, None, None)
+    return (dx, zeros if da is None else da, zeros if db is None else db,
+            conv_dw_plain(x, w, a, b, y, dy, ds1, ds2, prologue))
 
 
 def conv3x3_dw_plain(x, dy):
@@ -293,8 +318,9 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue):
-    """(dx, da, db) on the card; da, db None without the prologue."""
+def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue, pipe=False):
+    """(dx, da, db) on the card; da, db None without the prologue. ``pipe``
+    launches the pipelined kernel (34p/35p), bit-equal to #34/#35."""
     s1, s2 = _grad_operands(x, w, y, dy, ds1, ds2, "conv3x3_bn dx kernel")
     B, H, W, cin = x.shape
     cout = w.shape[0]
@@ -308,12 +334,14 @@ def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue):
     partials = torch.empty(tiles * B if prologue else 1, 2, cin, dtype=torch.float32,
                            device=x.device)
     out = torch.empty(2, cin, dtype=torch.float32, device=x.device)
-    err = build.library().cltorch_conv3x3_bn_dx(
+    entry = build.library().cltorch_conv3x3_bn_dx_pipe if pipe else \
+        build.library().cltorch_conv3x3_bn_dx
+    err = entry(
         dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), wdx.data_ptr(), x.data_ptr(),
         _ptr(a if prologue else None), _ptr(b if prologue else None), dx.data_ptr(),
         partials.data_ptr(), out.data_ptr(), B, H, W, cout, cin, int(prologue),
         int(x.dtype == torch.bfloat16), _stream(x))
-    build.check(err, "conv3x3_bn_dx")
+    build.check(err, "conv3x3_bn_dx_pipe" if pipe else "conv3x3_bn_dx")
     return (dx, out[0], out[1]) if prologue else (dx, None, None)
 
 
@@ -343,6 +371,35 @@ def launch_conv_dw(x, w, a, b, y, dy, ds1, ds2, prologue):
         B, H, W, cin, cout, int(prologue), splits, int(bf16), _stream(x))
     build.check(err, "conv3x3_bn_dw")
     return dw.to(x.dtype).float()
+
+
+def launch_conv_bwd_fused(x, w, a, b, y, dy, ds1, ds2, prologue, need_dx=True):
+    """#37 on the card: (dx or None, da, db, dW) from one launch (and the
+    fixed-order sums of its partials); da, db zeros without the prologue,
+    dW rounded to x's dtype, as f32."""
+    s1, s2 = _grad_operands(x, w, y, dy, ds1, ds2, "conv3x3_bn one-pass backward kernel")
+    B, H, W, cin = x.shape
+    cout = w.shape[0]
+    bf16 = x.dtype == torch.bfloat16
+    wdx = _kernel_weight(_flip_t(w), x.dtype) if need_dx else None
+    if prologue:
+        a, b = _vec(a, cin, x.device, "conv prologue"), _vec(b, cin, x.device, "conv prologue")
+    dx = torch.empty_like(x) if need_dx else None
+    # da, db: one partial row per pixel tile (16 x 16 in bf16, 8 x 16 in f32)
+    tiles = B * -(-H // (TILE if bf16 else TILE // 2)) * -(-W // TILE)
+    part_ab = torch.empty(tiles if need_dx and prologue else 1, 2, cin, dtype=torch.float32,
+                          device=x.device)
+    out_ab = torch.zeros(2, cin, dtype=torch.float32, device=x.device)
+    splits = dw_splits(cin, cout, B, H, W, bf16)
+    part_dw = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=x.device)
+    dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=x.device)
+    err = build.library().cltorch_conv3x3_bn_bwd_fused(
+        x.data_ptr(), _ptr(a if prologue else None), _ptr(b if prologue else None),
+        y.data_ptr(), dy.data_ptr(), _ptr(s1), _ptr(s2), _ptr(wdx), _ptr(dx),
+        part_ab.data_ptr(), out_ab.data_ptr(), part_dw.data_ptr(), dw.data_ptr(),
+        B, H, W, cin, cout, int(prologue), splits, int(bf16), _stream(x))
+    build.check(err, "conv3x3_bn_bwd_fused")
+    return dx, out_ab[0], out_ab[1], dw.to(x.dtype).float()
 
 
 def launch_conv3x3(x, w):
@@ -553,12 +610,12 @@ def _two_pass_backward(need_dx, need_dw, prologue, x, w, a, b, y, dy, ds1, ds2):
     return dx, dw, da, db
 
 
-def _takes_two_pass(x, w, prologue, p):
-    """``conv_bwd_two_pass`` at the conv's packed view: ``cl_tpu``'s view
-    pads the stem's 3 channels to 128 / p."""
+def _branch(x, w, prologue, p, fuse_bwd=None):
+    """``conv_bwd_branch`` at the conv's packed view: ``cl_tpu``'s view pads
+    the stem's 3 channels to 128 / p."""
     B, H, W, cin = x.shape
     cin_view = 128 // p if (p * cin) % 128 else cin
-    return conv_bwd_two_pass(H, W, cin_view, w.shape[0], p, x.dtype.itemsize, prologue)
+    return conv_bwd_branch(H, W, cin_view, w.shape[0], p, x.dtype.itemsize, prologue, fuse_bwd)
 
 
 def _conv_bn(x, w, a, b, prologue):
@@ -574,7 +631,8 @@ class _ConvBN(torch.autograd.Function):
     def forward(ctx, x, w, a, b, prologue, p):
         ctx.set_materialize_grads(False)
         ctx.prologue = prologue
-        ctx.two_pass = _takes_two_pass(x, w, prologue, p or pick_pack(x.shape[-1], w.shape[0]))
+        ctx.branch = _branch(x, w, prologue, p or pick_pack(x.shape[-1], w.shape[0]))
+        ctx.dx_pipe = packed_gate.DX_PIPE
         y, s1, s2 = _conv_bn(x, w, a, b, prologue)
         ctx.save_for_backward(x, w, a, b, y)
         return y, s1, s2
@@ -585,15 +643,24 @@ class _ConvBN(torch.autograd.Function):
         prologue = ctx.prologue
         dy = torch.zeros_like(y) if dy is None else dy.to(y.dtype).contiguous()
         need_dx = ctx.needs_input_grad[0] or (prologue and any(ctx.needs_input_grad[2:4]))
-        if ctx.two_pass:
+        args = (x, w, a, b, y, dy, ds1, ds2, prologue)
+        if ctx.branch == "two_pass":
             return (*_two_pass_backward(need_dx, ctx.needs_input_grad[1], prologue, x, w, a, b,
                                         y, dy, ds1, ds2), None, None)
-        args = (x, w, a, b, y, dy, ds1, ds2, prologue)
+        if ctx.branch == "one_pass":
+            if x.is_cuda:
+                LAUNCHES["conv3x3_bn_bwd_fused"] += 1
+                dx, da, db, dw = launch_conv_bwd_fused(*args, need_dx=need_dx)
+            else:
+                dx, da, db, dw = conv_bwd_fused_plain(*args, need_dx=need_dx)
+            return (dx, dw if ctx.needs_input_grad[1] else None,
+                    *((da, db) if prologue else (None, None)), None, None)
         dx = da = db = dw = None
         if need_dx:
             if x.is_cuda:
-                LAUNCHES["conv3x3_bn_dx_bn" if prologue else "conv3x3_bn_dx"] += 1
-                dx, da, db = launch_conv_dx(*args)
+                LAUNCHES[("conv3x3_bn_dx_bn" if prologue else "conv3x3_bn_dx")
+                         + ("_pipe" if ctx.dx_pipe else "")] += 1
+                dx, da, db = launch_conv_dx(*args, pipe=ctx.dx_pipe)
             else:
                 dx, da, db = conv_dx_plain(*args)
         if ctx.needs_input_grad[1]:
@@ -629,7 +696,7 @@ class _ConvBNQ(torch.autograd.Function):
     def forward(ctx, x, xq, xs, w, a, b, prologue, p):
         ctx.set_materialize_grads(False)
         ctx.prologue, ctx.p, ctx.dtype = prologue, p, x.dtype
-        ctx.two_pass = _takes_two_pass(x, w, prologue, p)
+        ctx.two_pass = _branch(x, w, prologue, p, fuse_bwd=False) == "two_pass"
         y, s1, s2 = _conv_bn(x, w, a, b, prologue)
         q, scale = _quant_rows(y, p)
         ctx.mark_non_differentiable(q, scale)

@@ -1,13 +1,14 @@
 """Fused 1×1-head + masked softmax cross-entropy (``csrc/head_ce.cu``), its
 form with the LwF distillation term of a frozen teacher on the same NHWC
-features (``csrc/head_ce_kd.cu``), and its forms on the packed body's raw
-output with the BN·ReLU prologue, alone (``csrc/head_ce_bn.cu``) and with
-the LwF term (``csrc/head_ce_kd_bn.cu``; the last three from
+features (``csrc/head_ce_kd.cu``), its packed form without a prologue
+(``csrc/head_ce_pk.cu``), and its forms on the packed body's raw output
+with the BN·ReLU prologue, alone (``csrc/head_ce_bn.cu``) and with the LwF
+term (``csrc/head_ce_kd_bn.cu``; the last four from
 ``csrc/head_ce_bn.cuh``).
 
 The counterparts of ``cl_tpu.pallas.head_ce.head_cross_entropy``,
-``head_cross_entropy_kd``, ``head_cross_entropy_packed_bn`` and
-``head_cross_entropy_kd_packed_bn``:
+``head_cross_entropy_kd``, ``head_cross_entropy_packed``,
+``head_cross_entropy_packed_bn`` and ``head_cross_entropy_kd_packed_bn``:
 the train loss computes the head's logits per pixel inside the kernel, so
 the [B, H, W, C] logits (the teacher's too) never reach device memory, and
 the backward recomputes them and emits every gradient in one pass.
@@ -38,7 +39,7 @@ N_BLOCKS = 1024
 
 LAUNCHES = {"head_ce_fwd": 0, "head_ce_bwd": 0, "head_ce_kd_fwd": 0, "head_ce_kd_bwd": 0,
             "head_ce_bn_fwd": 0, "head_ce_bn_bwd": 0, "head_ce_kd_bn_fwd": 0,
-            "head_ce_kd_bn_bwd": 0}
+            "head_ce_kd_bn_bwd": 0, "head_ce_pk_fwd": 0, "head_ce_pk_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -340,10 +341,11 @@ def _check_bn(y, scale, shift, w, labels, valid, teacher=None):
 
 
 def _entry(scale, teacher):
-    """The C entry's stem: head_ce_bn, head_ce_kd_bn or (no prologue)
-    head_ce_kd."""
-    return ("head_ce_kd" if teacher is not None else "head_ce") + \
-        ("" if scale is None else "_bn")
+    """The C entry's stem: head_ce_bn, head_ce_kd_bn or, without the
+    prologue, head_ce_kd or head_ce_pk."""
+    if scale is None:
+        return "head_ce_kd" if teacher is not None else "head_ce_pk"
+    return "head_ce_kd_bn" if teacher is not None else "head_ce_bn"
 
 
 def _ptr(t):
@@ -410,6 +412,18 @@ def launch_kd_bwd(x, w, b, xt, tw, tb, labels, valid, old_valid, gce, gkd, tempe
     return _launch_bn_bwd(x, None, None, w, b, labels, valid,
                           (xt, None, None, tw, tb, old_valid),
                           torch.stack([gce.reshape(()), gkd.reshape(())]), temperature,
+                          ignore_index)
+
+
+def launch_pk_fwd(x, w, b, labels, valid, ignore_index=255):
+    """Kernel #5: Σ masked NLL as a 0-d f32 tensor on x's device."""
+    return _launch_bn_fwd(x, None, None, w, b, labels, valid, None, 1.0, ignore_index)[0]
+
+
+def launch_pk_bwd(x, w, b, labels, valid, gscale, ignore_index=255):
+    """Kernel #6: (dx, dW, db) of gscale · total; ``gscale`` a 0-d f32
+    device tensor."""
+    return _launch_bn_bwd(x, None, None, w, b, labels, valid, None, gscale.reshape(1), 1.0,
                           ignore_index)
 
 
@@ -497,6 +511,51 @@ def head_cross_entropy_kd(features, head_kernel, head_bias, tfeatures, t_kernel,
     ce_t, kd_t = _HeadCEKdTotal.apply(x, w, b, xt, tw.detach(), tb.detach(), lbl, valid, ov,
                                       float(temperature), int(ignore_index))
     return ce_t / n, kd_t / n, n
+
+
+class _HeadCEPkTotal(torch.autograd.Function):
+    """UNNORMALIZED Σ NLL of the packed head without a prologue (#5/#6):
+    ``_HeadCETotal``'s arithmetic from ``head_ce_bn.cuh``'s kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, labels, valid, ignore_index):
+        ctx.save_for_backward(x, w, b, labels, valid)
+        ctx.ignore_index = ignore_index
+        if x.is_cuda:
+            LAUNCHES["head_ce_pk_fwd"] += 1
+            return launch_pk_fwd(x, w, b, labels, valid, ignore_index)
+        return head_ce_total_plain(x, w, b, labels, valid, ignore_index)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, labels, valid = ctx.saved_tensors
+        if x.is_cuda:
+            LAUNCHES["head_ce_pk_bwd"] += 1
+            grads = launch_pk_bwd(x, w, b, labels, valid, g, ctx.ignore_index)
+        else:
+            grads = head_ce_grads_plain(x, w, b, labels, valid, g, ctx.ignore_index)
+        return (*grads, None, None, None)
+
+
+def head_cross_entropy_packed(features, head_kernel, head_bias, labels, valid_classes, *,
+                              p=None, ignore_index=255):
+    """``cl_tpu.pallas.head_ce.head_cross_entropy_packed``: the fused
+    head+CE on the packed body's features, (mean NLL over non-ignored
+    pixels, n_valid_pixels), the head zero-padded to C. ``features`` are
+    NHWC [B, H, W, Cin] in the compute dtype (the packed view
+    [B, H, W/p, p·Cin] is a reshape of the same memory); ``p``, the pack
+    factor of that view, is checked against the width and not otherwise
+    used."""
+    if p is not None and (p < 1 or features.shape[2] % p):
+        raise ValueError(f"head_cross_entropy_packed: width {features.shape[2]} is not a "
+                         f"multiple of p = {p}")
+    x = _rows(features)
+    w, b = _head_args(head_kernel, head_bias, x.shape[1], valid_classes.shape[0])
+    lbl = labels.reshape(-1).to(torch.int32)
+    valid = valid_classes.to(device=x.device, dtype=torch.float32)
+    n = _n_pix(labels, ignore_index)
+    total = _HeadCEPkTotal.apply(x, w, b, lbl, valid, int(ignore_index))
+    return total / n, n
 
 
 class _HeadCEBnTotal(torch.autograd.Function):

@@ -4,7 +4,8 @@ a packed conv takes and which packed convs store int8 saved activations
 under ``model.conv_act_store=int8``: the integer arithmetic of the JAX package's
 gates, copied so the port routes exactly where ``cl_tpu`` routes
 (``cl_tpu.models.unet.packed_prefix``, ``DoubleConv`` / ``Conv3x3``, and
-``conv3x3_v3._cbf_bwd``'s choice of its fused or two-pass backward).
+``conv3x3_v3._cbf_bwd``'s choice of its one-pass, fused or two-pass
+backward).
 
 Which levels run packed changes the arithmetic, not only the speed: a
 packed level defers its last BatchNorm to the consumer, splits the
@@ -20,21 +21,35 @@ admitted can find no tile and fail its ``caller must gate on
 supported()`` assert (``conv3x3_v3.py:218``); ``standard_body_refusal`` says where,
 so the port refuses those configs instead of running them.
 
-Sources (at their default budgets, with ``CL_TPU_DX_PIPE`` and
-``CL_TPU_FUSE_BWD`` off; the JAX package's tuning environment variables
-are not read): ``cl_tpu/pallas/conv3x3.py::pick_pack``,
+Sources (at their default budgets): ``cl_tpu/pallas/conv3x3.py::pick_pack``,
 ``conv3x3_v3.py::_vmem_estimate / _pick_th / supported / profitable /
-_geometry / _vmem_estimate_dx / _pick_th_dx / _pick_th_dw2 / _cbf_bwd``,
+_geometry / _vmem_estimate_dx / _pick_th_dx / _pick_th_dw2 /
+_vmem_estimate_bwdf / _pick_th_bwdf / _cbf_bwd``,
 ``cl_tpu/models/unet.py::packed_level_geometry``,
 ``pool_pack.py::supported / _pick_th`` and ``upconv_pack.py::geometry``.
+
+Of the JAX package's environment variables, the port reads the two that
+choose a packed conv's backward, once at import, as ``conv3x3_v3`` reads
+them: ``CL_TPU_FUSE_BWD=1`` (``FUSE_BWD``: the one-pass backward #37
+first, where its tile fits) and ``CL_TPU_DX_PIPE=1`` (``DX_PIPE``: the
+pipelined dx, whose third dy slot enters the dx tile's estimate). The
+gates read the module attributes at call time, so a caller may set them
+per run. The tuning variables (``CL_TPU_CONV_BUDGET``,
+``CL_TPU_BWDF_BUDGET``, ``CL_TPU_ROW_TARGET``, ``CL_TPU_CAT_DOTS``,
+``CL_TPU_E_BF16``) are not read: the port keeps their defaults.
 """
 
 from __future__ import annotations
 
 import functools
+import os
+
+FUSE_BWD = os.environ.get("CL_TPU_FUSE_BWD", "0") == "1"  # conv3x3_v3._FUSE_BWD
+DX_PIPE = os.environ.get("CL_TPU_DX_PIPE", "0") == "1"    # conv3x3_v3._DX_PIPE
 
 CONV_VMEM_BUDGET = 20 * 1024 * 1024  # conv3x3_v3._VMEM_BUDGET
 CONV_ROW_TARGET = 8192               # conv3x3_v3._ROW_TARGET
+FUSED_VMEM_BUDGET = 64 * 1024 * 1024  # conv3x3_v3._VMEM_BUDGET_FUSED
 POOL_VMEM_BUDGET = 10 * 1024 * 1024  # pool_pack._pick_th
 
 
@@ -81,9 +96,11 @@ def _conv_pick_th(h, wg, lanes, itemsize, k, p, c_out) -> int:
 
 
 def _dx_vmem(th, wg, lanes, k, out_lanes, itemsize, epilogue) -> int:
-    """``conv3x3_v3._vmem_estimate_dx`` (two dy slots: no ``_DX_PIPE``)."""
+    """``conv3x3_v3._vmem_estimate_dx``: two dy slots, three under
+    ``DX_PIPE``, and two y slots."""
     rows = th * wg
-    est = (4 * (th + 4) * wg * lanes * itemsize
+    dy_slots = 3 if DX_PIPE else 2
+    est = ((dy_slots + 2) * (th + 4) * wg * lanes * itemsize
            + (th + 4) * wg * lanes * 4
            + 2 * 3 * k * out_lanes * itemsize
            + 2 * th * wg * out_lanes * itemsize
@@ -108,6 +125,32 @@ def _pick_th_dw2(h, wg, lanes, k, p, c_out, itemsize) -> int:
         return _conv_vmem(th, wg, lanes, k, p, c_out, itemsize) + extra <= CONV_VMEM_BUDGET
 
     return _pick_rows(h, wg, fits)
+
+
+def _bwdf_vmem(th, wg, lanes, out_lanes, kdx, kdw, itemsize, prologue) -> int:
+    """``conv3x3_v3._vmem_estimate_bwdf``: the one-pass backward's dy, y
+    and x halo scratches, the f32 dy_eff temp, its dx weight and output
+    blocks, both piece sets, the f32 dx accumulator and the dW one."""
+    rows = th * wg
+    est = (2 * 2 * (th + 4) * wg * lanes * itemsize
+           + 2 * (th + 4) * wg * out_lanes * itemsize
+           + (th + 4) * wg * lanes * 4
+           + 2 * 3 * kdx * out_lanes * itemsize
+           + 2 * th * wg * out_lanes * itemsize
+           + 3 * rows * lanes * itemsize
+           + 3 * rows * out_lanes * itemsize
+           + rows * out_lanes * 4
+           + 2 * 3 * kdw * lanes * 4)
+    if prologue:
+        est += 3 * rows * out_lanes * 4
+    return est
+
+
+def _pick_th_bwdf(h, wg, lanes, out_lanes, kdx, kdw, itemsize, prologue) -> int:
+    """``conv3x3_v3._pick_th_bwdf``: the one-pass backward's tile, at the
+    64 MiB budget (``_VMEM_BUDGET_FUSED``)."""
+    return _pick_rows(h, wg, lambda th: _bwdf_vmem(
+        th, wg, lanes, out_lanes, kdx, kdw, itemsize, prologue) <= FUSED_VMEM_BUDGET)
 
 
 def conv_supported(h: int, w: int, c_in: int, c_out: int,
@@ -225,24 +268,33 @@ def standard_body_refusal(image_size: int, base_channels: int, depth: int,
     return None
 
 
-def conv_bwd_two_pass(h: int, w: int, c_in: int, c_out: int, p: int, itemsize: int,
-                      prologue: bool) -> bool:
-    """Whether ``conv3x3_v3._cbf_bwd`` takes its two-pass backward (a
-    materialized dy_eff, the plain conv for dt and the dW with the
-    prologue) for a packed conv: where the fused dx kernel or the fused dW
-    kernel finds no tile (``:930-952``). ``c_in`` is the channels of the
-    conv's packed input view (the stem's 3 are padded to 128 / p). Cached
-    per shape (and budget)."""
-    return _conv_bwd_two_pass(h, w, c_in, c_out, p, itemsize, bool(prologue),
-                              CONV_VMEM_BUDGET)
+def conv_bwd_branch(h: int, w: int, c_in: int, c_out: int, p: int, itemsize: int,
+                    prologue: bool, fuse_bwd: bool | None = None) -> str:
+    """The backward ``conv3x3_v3._cbf_bwd`` takes for a packed conv
+    (``:930-985``): ``"one_pass"`` (#37, asked first, only under
+    ``FUSE_BWD``, where its tile fits the 64 MiB budget), ``"fused"`` (the
+    fused dx #34/#35, pipelined under ``DX_PIPE``, and dW #36, where both
+    find a tile) or ``"two_pass"`` (a materialized dy_eff, the plain conv
+    for dt and the dW with the prologue). ``c_in`` is the channels of the
+    conv's packed input view (the stem's 3 are padded to 128 / p).
+    ``fuse_bwd`` None reads ``FUSE_BWD``; the int8 backward passes False
+    (``_cbfq_bwd`` never reads it). Cached per shape, switch and budget."""
+    fuse = FUSE_BWD if fuse_bwd is None else bool(fuse_bwd)
+    return _conv_bwd_branch(h, w, c_in, c_out, p, itemsize, bool(prologue), fuse, DX_PIPE,
+                            CONV_VMEM_BUDGET, FUSED_VMEM_BUDGET)
 
 
 @functools.lru_cache(maxsize=None)
-def _conv_bwd_two_pass(h, w, c_in, c_out, p, itemsize, prologue, budget):
+def _conv_bwd_branch(h, w, c_in, c_out, p, itemsize, prologue, fuse, dx_pipe, budget,
+                     fused_budget):
     wg = w // p
-    th = _pick_th_dx(h, wg, p * c_out, (p + 2) * c_out, p * c_in, itemsize, prologue)
-    th_dw2 = _pick_th_dw2(h, wg, p * c_in, (p + 2) * c_in, p, c_out, itemsize)
-    return not (th > 0 and th_dw2 > 0)
+    lanes, lanes_x = p * c_out, p * c_in
+    kdx, kdw = (p + 2) * c_out, (p + 2) * c_in
+    if fuse and _pick_th_bwdf(h, wg, lanes, lanes_x, kdx, kdw, itemsize, prologue) > 0:
+        return "one_pass"
+    th = _pick_th_dx(h, wg, lanes, kdx, lanes_x, itemsize, prologue)
+    th_dw2 = _pick_th_dw2(h, wg, lanes_x, kdw, p, c_out, itemsize)
+    return "fused" if th > 0 and th_dw2 > 0 else "two_pass"
 
 
 def q_supported(w: int, p: int) -> bool:

@@ -16,7 +16,10 @@ over task 0's batches, a real Fisher; the LwF snapshot; the replay
 buffer's fill), and the steps train task 1; under the device-resident
 replay buffer each step gathers its replay rows (kernel #20), under the
 host buffer the batch is mixed once. The methods' kernels (EWC's and the
-replay gather) are a family of their own.
+replay gather) are a family of their own. ``CL_TPU_FUSE_BWD=1`` and
+``CL_TPU_DX_PIPE=1`` in the environment route the packed convs' backward
+as they route ``cl_tpu``'s (``models/packed_gate.py``); their kernels are
+families of their own.
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ FAMILIES = (
     ("gen-3 conv kernels (cl_tpu_torch)", ("conv3x3_v3",)),
     # model.conv_act_store=int8: the quantize (32q), dx (#38) and dW (#39)
     ("int8 conv kernels (cl_tpu_torch)", ("conv3x3_q_",)),
+    # CL_TPU_FUSE_BWD: the one-pass conv backward (#37); CL_TPU_DX_PIPE:
+    # the pipelined dx (34p/35p)
+    ("one-pass conv backward (cl_tpu_torch)", ("conv3x3_bn_bwd_fused",)),
+    ("pipelined conv dx (cl_tpu_torch)", ("dx_pipe",)),
     ("packed body kernels (cl_tpu_torch)", ("conv3x3_bn", "conv3x3_dw", "bn_relu",
                                             "add_stats", "dy_eff", "maxpool", "upconv",
                                             "sum_splits")),

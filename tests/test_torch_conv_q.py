@@ -177,7 +177,7 @@ def _backward_case(xq_mode, prologue, dtype_name, monkeypatch, two_pass=False):
                                   b if prologue else np.zeros(C, np.float32), dtype_name)
     if two_pass:
         monkeypatch.setattr(jconv, "_pick_th_dx", lambda *a_, **k_: 0)
-        monkeypatch.setattr(conv3x3, "conv_bwd_two_pass", lambda *a_, **k_: True)
+        monkeypatch.setattr(conv3x3, "conv_bwd_branch", lambda *a_, **k_: "two_pass")
     fn = lambda xp_, k_, al_, bl_: jconv.conv_bn_fused_q(  # noqa: E731
         xp_, xq_j, k_, al_, bl_, P, prologue)[:3]
     (yj, s1j, s2j), vjp = jax.vjp(fn, xp, k, al, bl)

@@ -458,7 +458,7 @@ def test_two_pass_backward(prologue, dtype_name, monkeypatch):
     assert jconv._pick_th(H, wg, P * c, itemsize, (P + 2) * c, P, c) == H
     assert (jconv._pick_th_dx(H, wg, P * c, (P + 2) * c, P * c, itemsize, prologue) == 0
             or jconv._pick_th_dw2(H, wg, P * c, (P + 2) * c, P, c, itemsize) == 0)
-    assert packed_gate.conv_bwd_two_pass(H, W, c, c, P, itemsize, prologue)
+    assert packed_gate.conv_bwd_branch(H, W, c, c, P, itemsize, prologue) == "two_pass"
 
     rng = np.random.RandomState(31 + prologue)
     x = _randn(rng, B, H, W, c)
