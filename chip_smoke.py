@@ -52,7 +52,13 @@ Phases (any failure raises, so the exit code is non-zero):
    operands (dx and dW bit-equal; da and db bit-equal in bf16, their f32
    gap printed); the pipelined dx (34p/35p, ``CL_TPU_DX_PIPE``) at #34/#35's
    shapes, bit-equal to them; the packed head without a prologue (#5/#6)
-   at 2,097,152 x 32 -> 19 bf16 and small f32 / ragged cases;
+   at 2,097,152 x 32 -> 19 bf16 and small f32 / ragged cases; the gen-2
+   conv (#40) at baseline_2's 256² × 64 → 64, 128 → 64 and 128² × 64 →
+   128, at 16² × 1024 → 1024 and the 512² standard body's 32 → 32 (p = 4),
+   and as a dx at 16² × 1024 → 512, its dW (#41) at 256² × 64 → 64, 16² ×
+   1024 → 1024 and 512² × 32 → 32, batch 8, and all three at the odd-row
+   6 × 16 × 16 → 32 and the p = 16 32² × 8 → 16 with 3 images, f32 and
+   bf16, each launched twice and held bit-equal;
 4. the baseline_1 preset as it ships, through ``train()``: 16 steps and
    one eval (the fused head+CE kernels), then the same shape with
    ``train.fused_head_ce=false`` (the CE kernels) through
@@ -190,6 +196,20 @@ Phases (any failure raises, so the exit code is non-zero):
    (#5/#6) where a user reaches it, ``head_cross_entropy_packed`` on
    ``bn_relu`` of the headline body's raw output, 3 steps with launch
    counts, its loss beside ``head_cross_entropy_packed_bn``'s;
+5g. the gen-2 conv on the standard body (``model.conv_impl=pallas|hybrid``)
+   and the matmul up-conv: 5g-a ``preset=baseline_2 model.conv_impl=pallas``
+   as it ships through ``train()`` (every plan-driven step under sync
+   debug mode "error"), #40 17 times a forward and 17 times (dx) a
+   backward, #41 17 times a backward, images/s and peak memory beside
+   phase 5d's ``xla``, a finite mIoU; 5g-b ``conv_impl=hybrid``, 3 + 10
+   steps with 17 #41 and no #40 a step, then five turns of pallas, hybrid
+   and xla on one batch; 5g-c the 512² bf16 standard body under pallas
+   (the tensor-core instances at p = 4), 3 + 10 steps with launch counts,
+   a falling loss, five pairs against ``xla``; 5g-d one SGD step of
+   ``preset=baseline_1 model.conv_impl=pallas`` on the card against the
+   CPU (loss and params within 1e-4, each update against float64 within
+   1e-2 of its norm plus one ulp); 5g-e ``model.upconv_impl=matmul`` alone
+   on baseline_2, one step: no #40/#41 launch, its loss beside ``xla``'s;
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take.
 
@@ -1607,6 +1627,162 @@ def v3_times(kernel, shape, dtype_name):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3 / 6: the gen-2 conv of model.conv_impl=pallas|hybrid: #40 as a
+# forward and as a dx, its dW #41
+# ---------------------------------------------------------------------------
+
+G2_KERNELS = {  # kernel: (source, TPU kernel's pallas_call, launch-count keys)
+    "conv3x3_g2_fwd": ("cl_tpu_torch/csrc/conv3x3_g2.cu", "cl_tpu/pallas/conv3x3.py:279",
+                       ("conv3x3_g2_fwd", "conv3x3_g2_dx")),
+    "conv3x3_g2_dw": ("cl_tpu_torch/csrc/conv3x3_g2.cu", "cl_tpu/pallas/conv3x3.py:309",
+                      ("conv3x3_g2_dw",)),
+}
+# (H, W, Cin, Cout) at batch 8, as the kernel sees them: baseline_2's 256²
+# level under conv_impl=pallas (enc0.conv1 and dec0.conv1 64 -> 64,
+# dec0.conv0 128 -> 64), its 128² entry 64 -> 128, the bottleneck's
+# 1024 -> 1024 at 16² and the 512² standard body's 32 -> 32 (p = 4); the
+# dx (#40 on dy with the flipped, channel-swapped weight) of the
+# bottleneck's first conv, 1024 channels of dy -> 512 of dx. The first
+# shape of each is its phase 6 line
+G2_SHAPES = {"conv3x3_g2_fwd": [(256, 256, 64, 64), (256, 256, 128, 64), (128, 128, 64, 128),
+                                (16, 16, 1024, 1024), (512, 512, 32, 32)],
+             "conv3x3_g2_dx": [(16, 16, 1024, 512)],
+             "conv3x3_g2_dw": [(256, 256, 64, 64), (16, 16, 1024, 1024), (512, 512, 32, 32)]}
+# the shapes gen-3 never takes: odd rows (one whole-image tile) and p = 16,
+# with 3 images
+G2_ODD = [(6, 16, 16, 32), (32, 32, 8, 16)]
+
+
+def g2_operands(kernel, shape, dtype_name, batch=8, seed=0):
+    """Seeded operands on the card: (x, w) for #40's forward, (dy, w) for
+    its dx (w the forward conv's [C_dy, C_dx, 3, 3]), (x, dy) for #41."""
+    import torch
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*sh, scale=1.0):
+        return torch.randn(*sh, generator=g, device="cuda") * scale
+
+    H, W, cin, cout = shape
+    x = randn(batch, H, W, cin).to(dt)
+    if kernel == "conv3x3_g2_fwd":
+        return x, randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+    if kernel == "conv3x3_g2_dx":
+        return x, randn(cin, cout, 3, 3, scale=(9 * cin) ** -0.5)
+    return x, randn(batch, H, W, cout).to(dt)
+
+
+def g2_fns(kernel):
+    """(kernel launch, plain version, cuDNN call) of one gen-2 kernel, each
+    taking ``g2_operands``: ``F.conv2d`` for #40 (of dy with the flipped,
+    channel-swapped weight for the dx), ``torch.nn.grad.conv2d_weight`` (its
+    ``convolution_backward``) for #41."""
+    import torch
+    import torch.nn.functional as F
+
+    from cl_tpu_torch.kernels import conv3x3_g2
+    from cl_tpu_torch.kernels.conv3x3 import _flip_t
+
+    if kernel == "conv3x3_g2_dw":
+        def lib(x, dy):
+            return torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2),
+                                               (dy.shape[-1], x.shape[-1], 3, 3),
+                                               dy.permute(0, 3, 1, 2), padding=1)
+        return conv3x3_g2.launch_conv3x3_g2_dw, conv3x3_g2.conv3x3_g2_dw_plain, lib
+    if kernel == "conv3x3_g2_dx":
+        def launch(dy, w):
+            return conv3x3_g2.launch_conv3x3_g2(dy, _flip_t(w))
+
+        def plain(dy, w):
+            return conv3x3_g2.conv3x3_g2_plain(dy, _flip_t(w))
+
+        def lib(dy, w):
+            return F.conv2d(dy.permute(0, 3, 1, 2), _flip_t(w).to(dy.dtype), padding=1)
+        return launch, plain, lib
+
+    def lib(x, w):
+        return F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), padding=1)
+    return conv3x3_g2.launch_conv3x3_g2, conv3x3_g2.conv3x3_g2_plain, lib
+
+
+def g2_name(kernel, shape, dtype_name, batch=8):
+    return f"{kernel}[{batch}x{'x'.join(str(v) for v in shape)},{dtype_name}]"
+
+
+def compare_g2(kernel, shape, dtype_name, batch=8):
+    """A gen-2 kernel against its plain version on the card, launched twice
+    (the second launch must repeat every bit); returns the max abs error.
+    Tolerances, #30/#31's: y and dx 1e-5 of Σ|term| in f32, plus one bf16
+    ulp in bf16 (then rounded once); dW (f32, not rounded) 1e-5 of Σ|term|
+    + 1e-6."""
+    import torch
+
+    launch, plain, _ = g2_fns(kernel)
+    ops = g2_operands(kernel, shape, dtype_name, batch)
+    k_out, again, p_out = launch(*ops), launch(*ops), plain(*ops)
+    torch.cuda.synchronize()
+    name = g2_name(kernel, shape, dtype_name, batch)
+    need(torch.equal(k_out, again), f"{name}: a second launch repeats every bit")
+    need(k_out.shape == p_out.shape and k_out.dtype == p_out.dtype, f"{name} shape/dtype")
+    kf, pf = k_out.float(), p_out.float()
+    need(bool(torch.isfinite(kf).all()), f"{name} not finite")
+    terms = plain(*(t.float().abs() for t in ops)).float()
+    tol = 1e-5 * terms + 1e-6
+    txt = "1e-5 Σ|term|"
+    if kernel != "conv3x3_g2_dw" and dtype_name == "bfloat16":
+        tol = tol + bf16_ulp(torch.maximum(kf.abs(), pf.abs()))
+        txt += " + 1 bf16 ulp"
+    diff = (kf - pf).abs()
+    ok = bool((diff <= tol).all())
+    print(f"  {name}: max abs err {diff.max().item():.3g} (max|plain| "
+          f"{pf.abs().max().item():.3g}; tol {txt}); relaunch bit-equal {'ok' if ok else 'FAIL'}")
+    need(ok, name)
+    return diff.max().item()
+
+
+def g2_bytes_ops(kernel, shape, dtype_name, batch=8):
+    """Bytes each input read once and each output written once (the dW's
+    output f32), and the operations: 2·9·Cin·Cout a pixel."""
+    es = 2 if dtype_name == "bfloat16" else 4
+    H, W, cin, cout = shape
+    px = batch * H * W
+    if kernel == "conv3x3_g2_dw":
+        return px * (cin + cout) * es + 9 * cin * cout * 4, 18 * px * cin * cout
+    return px * (cin + cout) * es + 9 * cin * cout * es, 18 * px * cin * cout
+
+
+def g2_times(kernel, shape, dtype_name):
+    """(ms, plain_ms, library_ms, ms synchronised per launch) at one shape."""
+    launch, plain, lib = g2_fns(kernel)
+    ops = g2_operands(kernel, shape, dtype_name)
+    return (time_ms(lambda: launch(*ops)), time_ms(lambda: plain(*ops)),
+            time_ms(lambda: lib(*ops)), time_ms(lambda: launch(*ops), queued=False))
+
+
+def g2_counts_ok(counts, label, fwd, dx, dw):
+    """The gen-2 kernels' launches of a run: #40 ``fwd`` times as a
+    forward and ``dx`` times as a dx, #41 ``dw`` times."""
+    want = {"conv3x3_g2_fwd": fwd, "conv3x3_g2_dx": dx, "conv3x3_g2_dw": dw}
+    got = {k: counts[k] for k in want}
+    print(f"    gen-2 launches {got} (want {want})")
+    need(got == want, f"gen-2 conv launches ({label})")
+
+
+def g2_convs(cfg) -> int:
+    """How many of the standard body's convs the gen-2 gate admits: #40
+    forwards, dx and #41 a step under ``conv_impl=pallas``, #41 a step
+    under ``=hybrid``."""
+    from cl_tpu_torch.models import packed_gate as pg
+
+    m = cfg.model
+    return sum(pg.g2_supported(h, h, c, f)
+               for _, h, ci, f in pg.standard_body_levels(cfg.data.image_size, m.base_channels,
+                                                          m.depth)
+               for c in (ci, f))
+
+
+# ---------------------------------------------------------------------------
 # Phase 3 / 6: the int8 saved activations (model.conv_act_store=int8): the
 # quantize after #32 (32q), the dx (#38) and dW (#39) from int8
 # ---------------------------------------------------------------------------
@@ -2109,12 +2285,13 @@ def saved_set_mib(cfg, device):
 
 
 def _count_dicts():
-    from cl_tpu_torch.kernels import (augment, ce_loss, conv3x3, ewc_fused, head_ce, kd_loss,
-                                      packed_eltwise, pool_pack, replay_gather, upconv_pack)
+    from cl_tpu_torch.kernels import (augment, ce_loss, conv3x3, conv3x3_g2, ewc_fused, head_ce,
+                                      kd_loss, packed_eltwise, pool_pack, replay_gather,
+                                      upconv_pack)
 
     return (head_ce.LAUNCHES, ce_loss.LAUNCHES, kd_loss.LAUNCHES, conv3x3.LAUNCHES,
-            packed_eltwise.LAUNCHES, pool_pack.LAUNCHES, upconv_pack.LAUNCHES,
-            ewc_fused.LAUNCHES, replay_gather.LAUNCHES, augment.LAUNCHES)
+            conv3x3_g2.LAUNCHES, packed_eltwise.LAUNCHES, pool_pack.LAUNCHES,
+            upconv_pack.LAUNCHES, ewc_fused.LAUNCHES, replay_gather.LAUNCHES, augment.LAUNCHES)
 
 
 def reset_counts():
@@ -2992,6 +3169,18 @@ def main() -> int:
         for shape in V3_ODD[kernel]:
             for dtype_name in ("float32", "bfloat16"):
                 compare_v3(kernel, shape, dtype_name, batch=3)
+    # the gen-2 conv (#40 as a forward and as a dx, its dW #41) at
+    # baseline_2's shapes under conv_impl=pallas, at 1024 channels, at the
+    # 512² standard body's p = 4 and at the odd-row and p = 16 shapes gen-3
+    # never takes, f32 and bf16, each launched twice
+    g2_errs = {}
+    for kernel, shapes in G2_SHAPES.items():
+        for shape in shapes:
+            for dtype_name in ("float32", "bfloat16"):
+                g2_errs[(kernel, shape, dtype_name)] = compare_g2(kernel, shape, dtype_name)
+        for shape in G2_ODD:
+            for dtype_name in ("float32", "bfloat16"):
+                compare_g2(kernel, shape, dtype_name, batch=3)
     # the int8 saved activations: 32q, #38 and #39 at every int8 shape of
     # the headline step and at ragged ones, xq mode on and off, prologue on
     # and off, each launched twice
@@ -3582,6 +3771,79 @@ def main() -> int:
     need(all(np.isfinite(losses_pk)) and abs(loss_c - loss_bn) <= 1e-5 * abs(loss_bn),
          "the composition's loss equals the packed head's within 1e-5 (5f-d)")
 
+    print("[5g] the gen-2 conv on the standard body (model.conv_impl=pallas|hybrid: #40, #41) "
+          "and the matmul up-conv (model.upconv_impl=matmul)")
+    # 5g-a: baseline_2 with conv_impl=pallas as it ships through train():
+    # 17 of the 18 convs (not the stem) forward, dx and dW through gen-2
+    args_ga = ["preset=baseline_2", "model.conv_impl=pallas"]
+    n_g = g2_convs(parse_overrides(args_ga))
+    need(n_g == 17, f"conv_impl=pallas routes 17 convs of baseline_2, not {n_g}")
+    report_ga, counts_ga, wall_ga, peak_ga, steps_ga = data_path_train(
+        "5g-a baseline_2 model.conv_impl=pallas as it ships", args_ga)
+    g2_counts_ok(counts_ga, "5g-a", n_g * (steps_ga["train"] + steps_ga["eval"]),
+                 n_g * steps_ga["train"], n_g * steps_ga["train"])
+    print(f"  baseline_2 train() images/s: conv_impl=pallas "
+          f"{report_ga.get('images_per_sec_per_chip')} (peak {peak_ga:.0f} MiB, {wall_ga:.1f} "
+          f"s), xla {report_b2.get('images_per_sec_per_chip')} (peak {peak_b2:.0f} MiB, "
+          f"{wall_b2:.1f} s, phase 5d); mIoU pallas {report_ga['final_per_task_miou']}, xla "
+          f"{report_b2['final_per_task_miou']}")
+    # 5g-b: conv_impl=hybrid (cuDNN forward and dx, #41 for the 17 dW the
+    # gate admits, cuDNN's for the stem), 3 + 10 steps on one batch; then
+    # five pairs of pallas, hybrid and xla in turns
+    cfg_gb = parse_overrides(["preset=baseline_2", "model.conv_impl=hybrid"] + host)
+    counts_gb, ips_gb, peak_gb, loss_gb, first_gb = run_steps(cfg_gb, 3, 10, cuda, no_sync=True)
+    print(f"  5g-b baseline_2 conv_impl=hybrid f32, 13 steps: {ips_gb:.2f} img/s, peak "
+          f"{peak_gb:.0f} MiB, loss {first_gb:.4f} -> {loss_gb:.4f}")
+    g2_counts_ok(counts_gb, "5g-b", 0, 0, 13 * n_g)
+    cfgs_g = {impl: parse_overrides(["preset=baseline_2", f"model.conv_impl={impl}"] + host)
+              for impl in ("pallas", "hybrid", "xla")}
+    pairs_g, issue_g = alternating_pairs(cfgs_g, cuda)
+    print("  alternating turns, 10 steps each, images/s: " + "; ".join(
+        f"{k} {[round(v, 2) for v in pairs_g[k]]} (median {float(np.median(pairs_g[k])):.2f}, "
+        f"host issue {issue_g[k]:.3f} ms)" for k in cfgs_g))
+    for k in ("pallas", "hybrid"):
+        r = [p / q for p, q in zip(pairs_g[k], pairs_g["xla"])]
+        print(f"    {k} / xla {[round(v, 4) for v in r]}, median {float(np.median(r)):.4f}")
+    # 5g-c: the 512² bf16 standard body (phase 5's config) under pallas: the
+    # bf16 tensor-core instances at p = 4
+    cfg_gc = parse_overrides(full + ["model.conv_impl=pallas"])
+    n_gc = g2_convs(cfg_gc)
+    counts_gc, ips_gc, peak_gc, loss_gc, first_gc = run_steps(cfg_gc, 3, 10, cuda, no_sync=True)
+    print(f"  5g-c 512² bf16 standard body, conv_impl=pallas, 13 steps ({n_gc} gen-2 convs): "
+          f"{ips_gc:.2f} img/s, peak {peak_gc:.0f} MiB, loss {first_gc:.4f} -> {loss_gc:.4f}")
+    g2_counts_ok(counts_gc, "5g-c", 13 * n_gc, 13 * n_gc, 13 * n_gc)
+    need(loss_gc < first_gc, "the loss falls (5g-c)")
+    pairs_gc, issue_gc = alternating_pairs({"pallas": cfg_gc, "xla": parse_overrides(full)}, cuda)
+    ratios_gc = [p / q for p, q in zip(pairs_gc["pallas"], pairs_gc["xla"])]
+    print(f"  alternating pairs, 10 steps each, images/s: pallas "
+          f"{[round(v, 2) for v in pairs_gc['pallas']]}, xla "
+          f"{[round(v, 2) for v in pairs_gc['xla']]}; pallas / xla "
+          f"{[round(r, 4) for r in ratios_gc]}, median {float(np.median(ratios_gc)):.4f}; host "
+          f"issue pallas {issue_gc['pallas']:.3f} ms, xla {issue_gc['xla']:.3f} ms")
+    # 5g-d: baseline_1 with conv_impl=pallas (128² f32: every conv but the
+    # stem, the up-convs as UpConv2x2), one SGD step on the card against
+    # the CPU, each update against float64
+    reset_counts()
+    agree_with_cpu(["preset=baseline_1", "model.conv_impl=pallas"],
+                   "baseline_1 model.conv_impl=pallas 128² f32", f64=True)
+    n_gd = g2_convs(parse_overrides(["preset=baseline_1", "model.conv_impl=pallas"]))
+    g2_counts_ok(read_counts(), "5g-d", n_gd, n_gd, n_gd)
+    # 5g-e: model.upconv_impl=matmul alone on baseline_2, one step from the
+    # same seeded init and batch as xla's: no gen-2 launch, the same loss
+    losses_ge = {}
+    for impl in ("matmul", "xla"):
+        cfg_ge = parse_overrides(["preset=baseline_2", f"model.upconv_impl={impl}"] + host)
+        model, opt, step, batch, valid = build_step(cfg_ge, cuda)
+        need(model.upconv_matmul == (impl == "matmul"), f"the up-conv route ({impl}, 5g-e)")
+        reset_counts()
+        losses_ge[impl] = step(batch, valid)["loss"].item()
+        g2_counts_ok(read_counts(), f"5g-e upconv_impl={impl}", 0, 0, 0)
+        del model, opt, step
+    print(f"  5g-e baseline_2 one step, loss: upconv_impl=matmul {losses_ge['matmul']!r}, xla "
+          f"{losses_ge['xla']!r}")
+    need(abs(losses_ge["matmul"] - losses_ge["xla"]) <= 1e-5 * abs(losses_ge["xla"]),
+         "the matmul up-conv's loss equals the transposed conv's within 1e-5 (5g-e)")
+
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
         0: counts_b1, 1: counts_f, 2: counts_b1u, 3: counts_u}
@@ -3724,6 +3986,27 @@ def main() -> int:
                     line += f"; launches {entry['launches']} in phase " + \
                         ("5v-c" if kernel == "conv3x3_dw_bn" else "5v-a")
                 print(line)
+    # the gen-2 kernels: #40 and #41 at baseline_2's 256² x 64 -> 64 f32
+    # (launches of 5g-a's train()), every shape printed
+    g2_launches = {"conv3x3_g2_fwd": counts_ga["conv3x3_g2_fwd"] + counts_ga["conv3x3_g2_dx"],
+                   "conv3x3_g2_dw": counts_ga["conv3x3_g2_dw"]}
+    for kernel, shapes in G2_SHAPES.items():
+        for i, shape in enumerate(shapes):
+            for dtype_name in ("float32", "bfloat16"):
+                times = g2_times(kernel, shape, dtype_name)
+                bo = g2_bytes_ops(kernel, shape, dtype_name)
+                bound = max(bo[0] / HBM_BYTES_PER_S, bo[1] / PEAK_OPS[dtype_name]) * 1e3
+                line = (f"  {g2_name(kernel, shape, dtype_name)}: {times[0]:.4f} ms "
+                        f"(synchronised per launch {times[3]:.4f}; plain {times[1]:.4f}, "
+                        f"cuDNN {times[2]:.4f}, bound {bound:.4f})")
+                if i == 0 and dtype_name == "float32" and kernel in G2_KERNELS:
+                    g2_src, g2_rep, _ = G2_KERNELS[kernel]
+                    entry = json_entry(g2_name(kernel, shape, dtype_name), g2_src, g2_rep,
+                                       g2_launches[kernel], g2_errs[(kernel, shape, dtype_name)],
+                                       times, bo, peak="float32")
+                    kernels.append(entry)
+                    line += f"; launches {entry['launches']} in phase 5g-a"
+                print(line)
     # the int8 kernels at the headline's first int8 shape of each, bf16,
     # launches of 5q-a's 13 steps; every shape printed
     q_step_ms = {}
@@ -3825,6 +4108,12 @@ def main() -> int:
           f"default, medians " + ", ".join(f"{n} {float(np.median(r)):.4f}"
                                           for n, r in ratios_f.items())
           + f"; baseline_2 packed under FUSE_BWD train() {report_fc.get('images_per_sec_per_chip')}")
+    print(f"  5g images/s: baseline_2 train() conv_impl=pallas "
+          f"{report_ga.get('images_per_sec_per_chip')} (peak {peak_ga:.0f} MiB); one batch, "
+          f"medians of five turns: " + ", ".join(
+              f"{k} {float(np.median(v)):.2f}" for k, v in pairs_g.items())
+          + f"; 512² bf16 standard body pallas {ips_gc:.2f} (peak {peak_gc:.0f} MiB) beside "
+          f"xla {ips_f:.2f} (phase 5, peak {peak_f:.0f} MiB)")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

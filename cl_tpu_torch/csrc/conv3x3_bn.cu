@@ -71,164 +71,15 @@
 // "34p / 35p" below); the chunks, taps and epilogue are the bodies' own,
 // so its bits are #34/#35's. Bound as #34/#35: bytes on the tensor cores.
 //
-// Two bodies, each templated on what it computes (forward, dx, plain or a
-// dx from int8);
-// the staging of the window and the epilogue differ, the tile, the tap
-// loop and the fixed-order sums are shared:
-//
-// * bf16: an implicit GEMM on the tensor cores, mma.sync m16n8k16 with f32
-//   accumulation (bf16 products are exact, so only the f32 sum order
-//   differs from the TPU's). A block of 256 threads (8 warps) computes a
-//   16 x 16 pixel tile for 32 or 64 output channels. Per 16-channel input
-//   chunk it stages the 18 x 18 window (t or e, out-of-image pixels zero)
-//   as [pixel][channel] and the weights as [tap][co][channel], both bf16
-//   with a 24-element row (16 channels + 8 of padding), so every 32-bit
-//   fragment load of a warp hits 32 distinct banks. Each warp owns two
-//   output rows (two m16 tiles, one image row each) and all the block's
-//   channels; per tap it loads two A fragments straight from the window
-//   (the tap's shift is an offset) and one B fragment per n8 tile.
-// * f32: FMA, since TF32 would round the products. A block of 128 threads
-//   (4 warps) computes the same 16 x 16 tile for 32 output channels, with
-//   window and weights staged as f32; each warp owns 8 output channels
-//   (its weight reads are broadcasts), each lane 8 consecutive pixels of
-//   one row with 8 x 8 accumulators: per input channel and kernel row it
-//   reads 10 inputs and 3 x 8 weights (as float4) for 192 FMAs.
-//
-// The epilogues that sum (the forward's stats, the dx's da and db) sum a
-// block's threads by shuffles and shared memory in a fixed order and write
-// one partial row, which a second launch sums over the blocks in a fixed
-// order. No float atomics: a run repeats its sums bit for bit.
+// The two bodies (FMA for f32, mma.sync for bf16), each templated on what it
+// computes, are in conv3x3_body.cuh, shared with the gen-2 conv.
 
 #include <algorithm>
 
-#include "conv3x3_bn.cuh"
+#include "conv3x3_body.cuh"
 
 namespace cltorch {
 namespace {
-
-constexpr int kCoT = 32, kCiT = 16;  // output channels / input chunk
-constexpr int kConvThreads = 128;
-
-// The staged input at one in-image pixel: t (forward: the prologue, if on;
-// plain: x itself) or e (dx).
-template <int MODE, typename T>
-__device__ __forceinline__ float staged_at(const ConvArgs<T>& p, int64_t i, int c) {
-  if constexpr (MODE == kDx) return e_at(p.in, p.y, i, c, p.s1, p.s2);
-  if constexpr (MODE == kDxQ || MODE == kDxQX)
-    return e_at_q(p.in, p.yq, p.ysc, i, c, p.Cin, p.W, p.pack, p.s1, p.s2);
-  return t_at(p.in, i, c, MODE == kFwd ? p.prologue : 0, p.pa, p.pb);
-}
-
-// f32: one 16-channel chunk of the window (in_s) and its weights (w_s)
-// into the thread's 8 pixels x 8 output channels, in the order ci, ky, kx.
-__device__ __forceinline__ void fma_chunk(float (&acc)[8][8], float (*in_s)[kWinH][kWinW],
-                                          float (*w_s)[9][kCoT], int ty, int seg, int cg) {
-#pragma unroll 2
-  for (int ci = 0; ci < kCiT; ++ci) {
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
-      float v[10];
-      const float* row = &in_s[ci][ty + ky][seg * 8];
-#pragma unroll
-      for (int j = 0; j < 10; ++j) v[j] = row[j];
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const float4 w0 = *reinterpret_cast<const float4*>(&w_s[ci][ky * 3 + kx][cg]);
-        const float4 w1 = *reinterpret_cast<const float4*>(&w_s[ci][ky * 3 + kx][cg + 4]);
-        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(v[q + kx], wv[c], acc[q][c]);
-      }
-    }
-  }
-}
-
-// f32 epilogue of the 16 x 16 tile at (gy0, gx0) of image b: store, and sum
-// into the partial row `blk`.
-template <int MODE, typename T>
-__device__ __forceinline__ void fma_epilogue(const ConvArgs<T>& p, const float (&acc)[8][8],
-                                             int b, int gy0, int gx0, int co0, int blk, int ty,
-                                             int seg, int cg, int lane) {
-  const int H = p.H, W = p.W, Cout = p.Cout;
-  const int64_t img = (int64_t)b * H * W;
-  float s1[8], s2[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) s1[c] = s2[c] = 0.f;
-  const int gy = gy0 + ty;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int gx = gx0 + seg * 8 + q;
-    if (gy < H && gx < W) {
-      const int64_t pix = img + (int64_t)gy * W + gx;
-      const int64_t srow = x_scale_row<MODE>(p, b * H + gy, gx);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int o = co0 + cg + c;
-        if (o < Cout)
-          p.out[pix * Cout + o] = epilogue_one<MODE>(p, pix, o, acc[q][c], s1[c], s2[c], srow);
-      }
-    }
-  }
-  if (!has_sums<MODE>(p)) return;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float t1 = warp_sum(s1[c]);
-    const float t2 = warp_sum(s2[c]);
-    const int o = co0 + cg + c;
-    if (lane == 0 && o < Cout) {
-      p.partials[(int64_t)blk * 2 * Cout + o] = t1;
-      p.partials[(int64_t)blk * 2 * Cout + Cout + o] = t2;
-    }
-  }
-}
-
-template <int MODE, typename T>
-__device__ __forceinline__ void conv3x3_fma_body(const ConvArgs<T>& p) {
-  __shared__ __align__(16) float in_s[kCiT][kWinH][kWinW];
-  __shared__ __align__(16) float w_s[kCiT][9][kCoT];
-
-  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  const int tiles_x = (W + kTW - 1) / kTW;
-  const int gy0 = (blockIdx.x / tiles_x) * kTH, gx0 = (blockIdx.x % tiles_x) * kTW;
-  const int co0 = blockIdx.y * kCoT;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ty = lane >> 1, seg = lane & 1;  // output row, 8-pixel segment
-  const int cg = warp * 8;                   // first output channel of the warp
-  const int64_t img = (int64_t)b * H * W;    // first pixel of the image
-
-  float acc[8][8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[q][c] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += kCiT) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kCiT * kWinH * kWinW; e += kConvThreads) {
-      const int ci = e % kCiT, pix = e / kCiT;
-      const int wx = pix % kWinW, wy = pix / kWinW;
-      const int gy = gy0 - 1 + wy, gx = gx0 - 1 + wx, c = ci0 + ci;
-      float v = 0.f;  // SAME padding: zero in t-space and in e-space
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin) {
-        const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
-        v = staged_at<MODE>(p, i, c);
-      }
-      in_s[ci][wy][wx] = v;
-    }
-    for (int e = threadIdx.x; e < kCiT * 9 * kCoT; e += kConvThreads) {
-      const int co = e % kCoT, rest = e / kCoT;
-      const int k = rest % 9, ci = rest / 9;
-      const int c = ci0 + ci, o = co0 + co;
-      w_s[ci][k][co] = (c < Cin && o < Cout) ? to_f32(p.w[((int64_t)c * 9 + k) * Cout + o]) : 0.f;
-    }
-    __syncthreads();
-    fma_chunk(acc, in_s, w_s, ty, seg, cg);
-  }
-  fma_epilogue<MODE>(p, acc, b, gy0, gx0, co0, b * gridDim.x + blockIdx.x, ty, seg, cg, lane);
-}
 
 template <bool DX, typename T>
 __global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p) {
@@ -238,66 +89,6 @@ __global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p)
 template <typename T>
 __global__ void __launch_bounds__(kConvThreads) conv3x3_v3_kernel(ConvArgs<T> p) {
   conv3x3_fma_body<kPlain>(p);
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-
-template <int MODE, int COT>
-__device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
-  constexpr int NT = COT / 8;  // n8 tiles per warp
-  __shared__ __align__(16) bf16 in_s[kWinH * kWinW * kRowS];
-  __shared__ __align__(16) bf16 w_s[9 * COT * kRowS];
-  __shared__ float red[kMmaThreads / 32][2][COT];
-
-  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  const int tiles_x = (W + kTW - 1) / kTW;
-  const int gy0 = (blockIdx.x / tiles_x) * kTH, gx0 = (blockIdx.x % tiles_x) * kTW;
-  const int co0 = blockIdx.y * COT;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in group
-  const int64_t img = (int64_t)b * H * W;
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += 16) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kWinH * kWinW * 2; e += kMmaThreads) {
-      const int pix = e >> 1, half = e & 1;
-      const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const int c = ci0 + half * 8;
-      const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
-      if constexpr (MODE == kDx)
-        stage8_e(&in_s[pix * kRowS + half * 8], p.in + i, p.s1 ? p.y + i : nullptr, c, Cin,
-                 inside, p.s1, p.s2);
-      else if constexpr (MODE == kDxQ || MODE == kDxQX)
-        stage8_eq(&in_s[pix * kRowS + half * 8], p.in + i, p.yq + i,
-                  p.ysc + ((int64_t)(b * H + gy) * p.pack + gx % p.pack) * Cin + c, c, Cin,
-                  inside, p.s1, p.s2);
-      else
-        stage8_t(&in_s[pix * kRowS + half * 8], p.in + i, c, Cin, inside,
-                 MODE == kFwd ? p.prologue : 0, p.pa, p.pb);
-    }
-    for (int e = threadIdx.x; e < 9 * COT * 2; e += kMmaThreads) {
-      const int half = e & 1, row = e >> 1;  // row = tap * COT + co
-      const int co = row % COT, tap = row / COT;
-      const int c = ci0 + half * 8;
-      stage8_t(&w_s[row * kRowS + half * 8], p.w + ((int64_t)tap * Cout + co0 + co) * Cin + c, c,
-               Cin, co0 + co < Cout, 0, nullptr, nullptr);
-    }
-    __syncthreads();
-    mma_chunk<COT>(acc, in_s, w_s, warp, g, t);
-  }
-  mma_epilogue<MODE, COT>(p, acc, b, gy0, gx0, co0, b * gridDim.x + blockIdx.x, red, warp, g, t);
 }
 
 template <bool DX, int COT>
@@ -667,20 +458,6 @@ __global__ void __launch_bounds__(kQuantThreads)
     }
     scale[row * L + l] = __fmul_rn(m, inv_qmax);
   }
-}
-
-template <typename T>
-ConvArgs<T> conv_args(const void* in, const void* y, const void* s1, const void* s2,
-                      const void* w, const void* a, const void* b, const void* x, void* out,
-                      void* partials, int H, int W, int Cin, int Cout, int prologue) {
-  return ConvArgs<T>{static_cast<const T*>(in),    static_cast<const T*>(y),
-                     static_cast<const float*>(s1), static_cast<const float*>(s2),
-                     static_cast<const T*>(w),     static_cast<const float*>(a),
-                     static_cast<const float*>(b), static_cast<const T*>(x),
-                     static_cast<T*>(out),         static_cast<float*>(partials),
-                     H,                            W,
-                     Cin,                          Cout,
-                     prologue};
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 """Which UNet levels run in the packed body, which convs of the standard
-body take the gen-3 conv under ``model.conv_impl=v3|auto``, which backward
+body take the gen-3 conv under ``model.conv_impl=v3|auto`` and the gen-2
+conv under ``model.conv_impl=pallas|hybrid``, which backward
 a packed conv takes and which packed convs store int8 saved activations
 under ``model.conv_act_store=int8``: the integer arithmetic of the JAX package's
 gates, copied so the port routes exactly where ``cl_tpu`` routes
@@ -25,8 +26,15 @@ Sources (at their default budgets): ``cl_tpu/pallas/conv3x3.py::pick_pack``,
 ``conv3x3_v3.py::_vmem_estimate / _pick_th / supported / profitable /
 _geometry / _vmem_estimate_dx / _pick_th_dx / _pick_th_dw2 /
 _vmem_estimate_bwdf / _pick_th_bwdf / _cbf_bwd``,
-``cl_tpu/models/unet.py::packed_level_geometry``,
-``pool_pack.py::supported / _pick_th`` and ``upconv_pack.py::geometry``.
+``cl_tpu/models/unet.py::packed_level_geometry`` and ``Conv3x3``,
+``pool_pack.py::supported / _pick_th``, ``upconv_pack.py::geometry``, and
+the gen-2 conv's ``conv3x3.py::supported / _pick_th / _SCRATCH_BUDGET /
+_SCRATCH_HARD_LIMIT`` (``g2_supported``; ``dw_profitable``, the dW gate of
+``conv_impl=hybrid``, is the same function).
+
+The gen-2 gate, like the gen-3 one, sizes its tiles at an itemsize of 2
+whatever the compute dtype, but the gen-2 conv has no later assert: every
+shape it admits runs, in f32 too, so no gen-2 config is refused.
 
 Of the JAX package's environment variables, the port reads the two that
 choose a packed conv's backward, once at import, as ``conv3x3_v3`` reads
@@ -36,7 +44,9 @@ pipelined dx, whose third dy slot enters the dx tile's estimate). The
 gates read the module attributes at call time, so a caller may set them
 per run. The tuning variables (``CL_TPU_CONV_BUDGET``,
 ``CL_TPU_BWDF_BUDGET``, ``CL_TPU_ROW_TARGET``, ``CL_TPU_CAT_DOTS``,
-``CL_TPU_E_BF16``) are not read: the port keeps their defaults.
+``CL_TPU_E_BF16``) are not ported: the gates keep their defaults, and
+``tuning_refusal`` names any of them set to another value, which
+``train.check_supported`` refuses.
 """
 
 from __future__ import annotations
@@ -51,6 +61,33 @@ CONV_VMEM_BUDGET = 20 * 1024 * 1024  # conv3x3_v3._VMEM_BUDGET
 CONV_ROW_TARGET = 8192               # conv3x3_v3._ROW_TARGET
 FUSED_VMEM_BUDGET = 64 * 1024 * 1024  # conv3x3_v3._VMEM_BUDGET_FUSED
 POOL_VMEM_BUDGET = 10 * 1024 * 1024  # pool_pack._pick_th
+G2_SCRATCH_BUDGET = 4 * 1024 * 1024      # conv3x3._SCRATCH_BUDGET
+G2_SCRATCH_HARD_LIMIT = 8 * 1024 * 1024  # conv3x3._SCRATCH_HARD_LIMIT
+
+# cl_tpu's tuning variables (conv3x3_v3.py:70, :76, :85, :109, :683): how
+# cl_tpu parses each, and its default
+TUNING_DEFAULTS = {"CL_TPU_CONV_BUDGET": (int, CONV_VMEM_BUDGET),
+                   "CL_TPU_BWDF_BUDGET": (int, FUSED_VMEM_BUDGET),
+                   "CL_TPU_ROW_TARGET": (int, CONV_ROW_TARGET),
+                   "CL_TPU_CAT_DOTS": (int, 1),
+                   "CL_TPU_E_BF16": (lambda v: v == "1", False)}
+
+
+def tuning_refusal() -> str | None:
+    """The tuning variables set in the environment to a value ``cl_tpu``
+    parses to something other than its default (or cannot parse), as
+    ``NAME=value`` joined by ", ", or None."""
+    bad = []
+    for name, (parse, default) in TUNING_DEFAULTS.items():
+        if name not in os.environ:
+            continue
+        try:
+            ok = parse(os.environ[name]) == default
+        except ValueError:
+            ok = False
+        if not ok:
+            bad.append(f"{name}={os.environ[name]}")
+    return ", ".join(bad) or None
 
 
 def pick_pack(c_in: int, c_out: int) -> int:
@@ -185,6 +222,39 @@ def conv_tile(h: int, w: int, c_in: int, c_out: int, itemsize: int,
     return _conv_pick_th(h, w // p, p * c_in, itemsize, (p + 2) * c_in, p, c_out)
 
 
+def _g2_pick_th(h: int, wg: int, lanes: int, n_pieces: int, itemsize: int) -> int:
+    """``conv3x3._pick_th``: rows per grid tile of the gen-2 conv."""
+    if h <= 16:
+        return h
+    th = min(h, max(8, (2048 // max(1, wg)) // 8 * 8))
+    while th >= 8:
+        if h % th == 0:
+            scratch = 2 * n_pieces * (th + 8) * wg * lanes * itemsize
+            if scratch <= G2_SCRATCH_BUDGET:
+                return th
+        th -= 8
+    return 8
+
+
+def g2_supported(h: int, w: int, c_in: int, c_out: int, itemsize: int = 2) -> bool:
+    """``conv3x3.supported``: the shapes the gen-2 conv takes under
+    ``model.conv_impl=pallas`` (forward, dx and dW), and whose dW it takes
+    under ``=hybrid`` (``conv3x3.dw_profitable`` is this function)."""
+    p = pick_pack(c_in, c_out)
+    if (p * c_in) % 128 or w % p or (w // p) < 2:
+        return False
+    if h > 16 and h % 8:
+        return False
+    if c_in < 8 or h < 2:
+        return False
+    wg = w // p
+    lanes = p * c_in
+    n_pieces = -(-((p + 2) * c_in) // lanes)
+    th = _g2_pick_th(h, wg, lanes, n_pieces, itemsize)
+    rh = -(-(th + 2) // 8) * 8  # common.round_up(th + 2, 8)
+    return 2 * n_pieces * rh * wg * lanes * itemsize <= G2_SCRATCH_HARD_LIMIT
+
+
 def level_pack(h: int, w: int, c_in: int, features: int, conv_impl: str) -> int:
     """``cl_tpu.models.unet.packed_level_geometry``'s pack factor, or 0: a
     DoubleConv runs as a packed level where both convs pass the route's
@@ -198,16 +268,24 @@ def level_pack(h: int, w: int, c_in: int, features: int, conv_impl: str) -> int:
 
 def double_conv_route(h: int, w: int, c_in: int, features: int, conv_impl: str,
                       norm: str) -> tuple[str, str]:
-    """Each conv's route in a standard-body DoubleConv (``unet.py:113-121,
+    """Each conv's route in a standard-body DoubleConv (``unet.py:102-130,
     :314-349``): ``"packed"`` (the level through the gen-3 conv with
-    PackedBatchNorm), ``"v3"`` (the conv alone through it), ``"xla"``
-    (cuDNN). Cached per shape (and budget): the model asks at every
-    forward."""
+    PackedBatchNorm), ``"v3"`` (the conv alone through it), ``"g2"`` (the
+    gen-2 conv: forward, dx and dW; ``conv_impl=pallas`` where
+    ``g2_supported``), ``"hybrid"`` (cuDNN forward and dx, the gen-2 dW
+    where ``g2_supported``, else cuDNN's: every conv under
+    ``conv_impl=hybrid``, the stem included), ``"xla"`` (cuDNN). Cached
+    per shape (and budget): the model asks at every forward."""
     return _double_conv_route(h, w, c_in, features, conv_impl, norm, CONV_VMEM_BUDGET)
 
 
 @functools.lru_cache(maxsize=None)
 def _double_conv_route(h, w, c_in, features, conv_impl, norm, budget):
+    if conv_impl == "hybrid":
+        return "hybrid", "hybrid"
+    if conv_impl == "pallas":
+        return tuple("g2" if g2_supported(h, w, ci, features) else "xla"
+                     for ci in (c_in, features))
     if conv_impl not in ("v3", "auto"):
         return "xla", "xla"
     if norm == "batch" and level_pack(h, w, c_in, features, conv_impl):
@@ -259,7 +337,7 @@ def standard_body_refusal(image_size: int, base_channels: int, depth: int,
     for name, h, ci, feats in standard_body_levels(image_size, base_channels, depth):
         routes = double_conv_route(h, h, ci, feats, conv_impl, norm)
         for i, (route, cin_i) in enumerate(zip(routes, (ci, feats))):
-            if route == "xla":
+            if route not in ("packed", "v3"):  # only the gen-3 conv asserts
                 continue
             why = v3_launch_refusal(h, h, cin_i, feats, itemsize, route == "packed")
             if why:

@@ -40,8 +40,20 @@ a DoubleConv whose two convs pass the gate at one pack factor runs both
 through the gen-3 conv (``conv3x3.conv3x3``, kernel #30 and its dW #31),
 each followed by ``packed_batch_norm`` (``cl_tpu``'s PackedBatchNorm);
 else each conv the gate admits runs alone through the gen-3 conv and the
-rest through cuDNN. The packed body's deep region stays on cuDNN, as
-``cl_tpu`` hard-codes there.
+rest through cuDNN. Under "pallas" each conv that the gen-2 gate admits
+(``packed_gate.g2_supported``: all but the stem at the presets) runs
+forward, dx and dW through the gen-2 conv (``conv3x3_g2.conv3x3_g2``,
+kernel #40 and its dW #41), the rest through cuDNN; under "hybrid" every
+conv, the stem included, runs its forward and dx on cuDNN and its dW
+through #41 where the gate admits the shape (``conv3x3_g2.conv3x3_hybrid``).
+BatchNorm and ReLU follow each conv as on the "xla" route. The packed
+body's deep region stays on cuDNN, as ``cl_tpu`` hard-codes there.
+
+``upconv_impl`` (``model.upconv_impl``): under "matmul", and under
+``conv_impl="pallas"``, the standard body's up-convs run as ``cl_tpu``'s
+``UpConv2x2`` (``upconv2x2_matmul``: one product and a pixel shuffle, the
+bias added after the product's rounding) over the same ``up{l}`` weights;
+the packed body keeps its own up-convs, as ``cl_tpu`` does.
 
 ``act_q`` (``model.conv_act_store=int8``) stores the saved activations of
 every packed conv that ``packed_gate.q_supported`` admits (its input's
@@ -59,7 +71,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cl_tpu_torch.kernels import conv3x3, packed_eltwise, pool_pack, upconv_pack
+from cl_tpu_torch.kernels import conv3x3, conv3x3_g2, packed_eltwise, pool_pack, upconv_pack
 from cl_tpu_torch.models.packed_gate import (double_conv_route, packed_prefix, pick_pack,
                                              q_supported)
 
@@ -185,6 +197,24 @@ def deferred_bn(bn: BatchNorm, s1, s2, n: int, train: bool):
     return scale, bn.bias - mu * scale
 
 
+def upconv2x2_matmul(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``cl_tpu``'s ``UpConv2x2`` (``unet.py:132-161``): the k2/s2 transposed
+    conv as one product of x [B·H·W, Cin] and the weight [Cin, 4·Cout] in
+    the compute dtype, a pixel shuffle, then the bias rounded to the dtype
+    and added, so the result is rounded twice (``F.conv_transpose2d``
+    adds the bias before its one rounding). ``weight`` is the port's
+    [Cin, Cout, 2, 2], which holds ``interop``'s flipped flax kernel: output
+    (2h + u, 2w + v) takes ``weight[:, :, u, v]``, and ``cl_tpu``'s own
+    flip is undone by that mapping. x and the result are NCHW views of
+    channels_last memory."""
+    b, c, h, w = x.shape
+    cout = weight.shape[1]
+    rows = x.permute(0, 2, 3, 1).reshape(b * h * w, c)
+    t = rows @ weight.to(x.dtype).permute(0, 2, 3, 1).reshape(c, 4 * cout)  # cols (u, v, co)
+    y = t.reshape(b, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, cout)
+    return (y + bias.to(x.dtype)).permute(0, 3, 1, 2)
+
+
 class DoubleConv(nn.Module):
     """(conv3x3 → norm → ReLU) × 2."""
 
@@ -216,6 +246,11 @@ class DoubleConv(nn.Module):
             if route == "v3":
                 x = conv3x3.conv3x3(x.permute(0, 2, 3, 1).contiguous(),
                                     conv.weight).permute(0, 3, 1, 2)
+            elif route == "g2":
+                x = conv3x3_g2.conv3x3_g2(x.permute(0, 2, 3, 1).contiguous(),
+                                          conv.weight).permute(0, 3, 1, 2)
+            elif route == "hybrid":
+                x = conv3x3_g2.conv3x3_hybrid(x, conv.weight)
             else:
                 x = conv(x)
             if bn is not None:
@@ -272,11 +307,13 @@ class UNet(nn.Module):
     def __init__(self, num_classes: int, base_channels: int = 32,
                  depth: int = 4, norm: str = "batch",
                  dtype: torch.dtype = torch.float32, packed: bool = False,
-                 conv_impl: str = "xla", act_q: bool = False):
+                 conv_impl: str = "xla", act_q: bool = False, upconv_impl: str = "xla"):
         super().__init__()
         c = base_channels
         self.base_channels = c
         self.conv_impl = conv_impl
+        # the standard body's up-convs as cl_tpu's UpConv2x2 (unet.py:814)
+        self.upconv_matmul = upconv_impl == "matmul" or conv_impl == "pallas"
         self.act_q = act_q
         self.depth = depth
         self.norm = norm
@@ -321,7 +358,8 @@ class UNet(nn.Module):
             h = F.max_pool2d(h, 2, 2)
         h = self.bottleneck(h, self.conv_impl)
         for level in reversed(range(self.depth)):
-            h = getattr(self, f"up{level}")(h)
+            up = getattr(self, f"up{level}")
+            h = upconv2x2_matmul(h, up.weight, up.bias) if self.upconv_matmul else up(h)
             h = torch.cat([skips[level], h], dim=1)
             h = getattr(self, f"dec{level}")(h, self.conv_impl)
         if return_features:

@@ -36,6 +36,8 @@ FAMILIES = (
                                         "replay_gather")),
     ("loss kernels (cl_tpu_torch)", ("head_ce", "ce_fwd_kernel", "ce_bwd_kernel",
                                      "kd_fwd_kernel", "kd_bwd_kernel")),
+    # the gen-2 conv of model.conv_impl=pallas|hybrid (#40) and its dW (#41)
+    ("gen-2 conv kernels (cl_tpu_torch)", ("conv3x3_g2",)),
     # the gen-3 plain conv (#30), its dW (#31), the two-pass dW (#33)
     ("gen-3 conv kernels (cl_tpu_torch)", ("conv3x3_v3",)),
     # model.conv_act_store=int8: the quantize (32q), dx (#38) and dW (#39)

@@ -76,10 +76,14 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
     instead of running something else."""
     m, t, meth = cfg.model, cfg.train, cfg.method
     unported = []
-    if m.conv_impl not in ("xla", "v3", "auto"):
-        unported.append(f"model.conv_impl={m.conv_impl!r} (the gen-2 Pallas convs)")
-    if m.upconv_impl != "xla":
-        unported.append(f"model.upconv_impl={m.upconv_impl!r}")
+    if m.conv_impl not in ("xla", "v3", "auto", "pallas", "hybrid"):
+        raise ValueError(f"unknown model.conv_impl {m.conv_impl!r}")
+    if m.upconv_impl not in ("xla", "matmul"):
+        raise ValueError(f"unknown model.upconv_impl {m.upconv_impl!r}")
+    tuning = packed_gate.tuning_refusal()
+    if tuning:
+        unported.append(f"cl_tpu's tuning variables set to other than their defaults ({tuning}; "
+                        "the port keeps the defaults)")
     if m.norm == "group":
         unported.append("model.norm='group'")
     if not m.padded_head:
@@ -112,7 +116,7 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
     dtype = _dtype(cfg)
     packed = _packed_engages(cfg) and m.norm == "batch" and packed_gate.packed_prefix(
         cfg.data.image_size, m.base_channels, m.depth, dtype.itemsize) > 0
-    if not packed:  # the standard body: the gen-3 routes
+    if not packed:  # the standard body: the gen-3 routes (the gen-2 ones all run)
         why = packed_gate.standard_body_refusal(cfg.data.image_size, m.base_channels, m.depth,
                                                 m.conv_impl, m.norm, dtype.itemsize)
         if why:
@@ -129,7 +133,8 @@ def build_model(cfg: Config) -> UNet:
                 depth=cfg.model.depth, norm=cfg.model.norm,
                 dtype=_dtype(cfg), packed=_packed_engages(cfg),
                 conv_impl=cfg.model.conv_impl,
-                act_q=cfg.model.conv_act_store == "int8")
+                act_q=cfg.model.conv_act_store == "int8",
+                upconv_impl=cfg.model.upconv_impl)
 
 
 def init_state(cfg: Config, model: UNet, device: torch.device) -> UNet:

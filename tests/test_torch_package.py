@@ -69,8 +69,9 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     # activations of the packed convs since their slice
     # (test_conv_act_store_int8_trains)
     # model.conv_impl=v3 and =auto run since the gen-3 conv's slice
-    # (test_conv_impl_v3_and_auto_train)
-    "model.upconv_impl=matmul",
+    # (test_conv_impl_v3_and_auto_train); model.upconv_impl=matmul and
+    # model.conv_impl=hybrid|pallas since the gen-2 conv's slice
+    # (test_gen2_routes_train)
     "model.norm=group",
     "model.padded_head=false",
     # the data path runs since its slice (pallas_augment, device_cache,
@@ -78,10 +79,6 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     "train.multihost=true",
     # EWC runs since the methods slice; its sampled Fisher does not
     pytest.param("method.methods=ewc method.ewc_fisher_kind=true", id="method.methods=ewc"),
-    # LwF on the NHWC fused head (#9/#10) and on logits (#13/#14) run since
-    # the LwF slice; the other opt-in conv kernels do not
-    pytest.param("model.conv_impl=hybrid", id="method.methods=lwf,replay"),
-    "model.conv_impl=pallas",
     "train.checkpoint_dir=ckpt",
     "train.resume=true",
     "train.spatial_parallel=true",
@@ -119,6 +116,20 @@ def test_conv_impl_v3_and_auto_train(impl):
     cfg = config.parse_overrides(["preset=smoke", "model.base_channels=32", "model.depth=2",
                                   "data.image_size=64", "data.source_size=80",
                                   f"model.conv_impl={impl}"])
+    port_train.check_supported(cfg, torch.device("cpu"))
+    report = port_train.train(cfg, device="cpu")
+    assert np.isfinite(report["final_per_task_miou"]).all()
+
+
+@pytest.mark.parametrize("override", ["model.upconv_impl=matmul", "model.conv_impl=hybrid",
+                                      "model.conv_impl=pallas"])
+def test_gen2_routes_train(override):
+    """The three configs refused until the gen-2 conv's slice train on the
+    CPU at the smoke size (the plain versions of #40/#41; the matmul
+    up-conv): at 32², base 8, 13 of the 18 convs pass the gen-2 gate (the
+    encoder's first convs do not: the stem's 3 channels, and below it fewer
+    than two column groups of p)."""
+    cfg = config.parse_overrides(["preset=smoke", override])
     port_train.check_supported(cfg, torch.device("cpu"))
     report = port_train.train(cfg, device="cpu")
     assert np.isfinite(report["final_per_task_miou"]).all()
