@@ -49,8 +49,13 @@ Phases (any failure raises, so the exit code is non-zero):
    shape of the headline step (the stem without dx) and at ragged ones,
    f32 and bf16, prologue on and off, relaunched bit-equal, against its
    plain version and against #34/#35 and #36 launched on the same
-   operands (dx and dW bit-equal; da and db bit-equal in bf16, their f32
-   gap printed); the pipelined dx (34p/35p, ``CL_TPU_DX_PIPE``) at #34/#35's
+   operands (dx bit-equal, dW bit-equal in f32 and in bf16 within the dW
+   tolerance with the gap printed, since bf16 #36 runs its own ring body;
+   da and db bit-equal in bf16, their f32 gap printed); the ring bodies of
+   bf16 #36 and #29: each instance's resident blocks an SM as their split
+   pickers assume, with its registers, spilled bytes and shared memory
+   printed, and both at ragged shapes past every tile and at widths that
+   take their plain-load staging; the pipelined dx (34p/35p, ``CL_TPU_DX_PIPE``) at #34/#35's
    shapes, bit-equal to them; the packed head without a prologue (#5/#6)
    at 2,097,152 x 32 -> 19 bf16 and small f32 / ragged cases; the gen-2
    conv (#40) at baseline_2's 256² × 64 → 64, 128 → 64 and 128² × 64 →
@@ -969,12 +974,52 @@ PACKED_PATH.update({
 })
 PER_STEP = {k: sum(n for _, n in shapes) for k, shapes in PACKED_PATH.items()}
 PER_FORWARD = {k: PER_STEP[k] for k in FORWARD_KERNELS}
-ODD.update({"conv3x3_bn_dw": ODD["conv3x3_bn_fwd"],
+# conv3x3_bn_dw's and upconv_dw's extra ragged shapes take every bf16 ring
+# instance past its tiles (kernels/conv3x3.py::dw_ring_tile,
+# upconv_pack.py::dw_ring_tile) and the plain-load staging of a width that
+# is not a multiple of 8 (the conv's Cout 12) or 4 (the up-conv's Cout 6)
+RING_ODD = {"conv3x3_bn_dw": [(20, 40, 72, True), (20, 64, 24, True), (20, 8, 40, True),
+                              (24, 16, 12, True)],
+            "upconv_dw": [(20, 72, 20), (20, 40, 48), (20, 24, 6), (20, 12, 16)]}
+ODD.update({"conv3x3_bn_dw": ODD["conv3x3_bn_fwd"] + RING_ODD["conv3x3_bn_dw"],
            "conv3x3_bn_dx_bn": [(24, 16, 16, True)],
            "conv3x3_bn_dx": [(24, 16, 16, False), (24, 16, 3, False)],
            "bn_relu_bwd": [(24, 16)], "dy_eff": [(24, 16)],
            "maxpool_bwd": [(24, 16, False), (24, 16, True)],
-           "upconv_dx": ODD["upconv_fwd"], "upconv_dw": ODD["upconv_fwd"]})
+           "upconv_dx": ODD["upconv_fwd"],
+           "upconv_dw": ODD["upconv_fwd"] + RING_ODD["upconv_dw"]})
+
+
+def ring_info():
+    """Each bf16 ring instance (#36's, #29's) on this card: its resident
+    blocks an SM held against what its split picker assumes, with its
+    registers, local (spilled) bytes a thread and dynamic shared memory
+    printed (``cudaFuncGetAttributes``; ``nvcc -Xptxas -v`` in phase 2 says
+    the same at build time). Returns {instance: (blocks, regs, local,
+    smem)}."""
+    import ctypes
+
+    from cl_tpu_torch.kernels import build, conv3x3, upconv_pack
+
+    lib = build.library()
+    out = {}
+    for what, tiles, entry, resources in (
+            ("conv3x3_dw_ring", [(ci, co) for ci in (16, 32, 64) for co in (32, 64)],
+             lib.cltorch_conv3x3_dw_ring_info, conv3x3.dw_ring_resources),
+            ("upconv_dw_ring", [(bm, bn) for bm in (64, 128) for bn in (128, 256)],
+             lib.cltorch_upconv_dw_ring_info, upconv_pack.dw_ring_resources)):
+        for tile in tiles:
+            info = (ctypes.c_int * 4)()
+            build.check(entry(*tile, ctypes.addressof(info)), f"{what}{tile} info")
+            blocks, regs, local, smem = info
+            threads, smem_py, blocks_py = resources(*tile)
+            ok = blocks == blocks_py and smem == smem_py
+            print(f"  {what}<{tile[0]}, {tile[1]}>: {threads} threads, {regs} registers, "
+                  f"{local} local bytes a thread, {smem} B shared; {blocks} blocks an SM "
+                  f"(the picker assumes {blocks_py}){'' if ok else ' FAIL'}")
+            need(ok, f"{what}{tile}: resident blocks as the split picker assumes")
+            out[f"{what}{tile}"] = (blocks, regs, local, smem)
+    return out
 
 
 def bwd_operands(kernel, shape, dtype_name, batch=8, seed=0, stats=True):
@@ -2026,11 +2071,13 @@ def compare_fused(shape, dtype_name, batch=8):
     second launch repeats every bit), and against #34/#35 (dx, da, db) and
     #36 (dW) launched on the same operands. Tolerances against the plain
     version are ``compare_bwd``'s for #34-#36; against the kernels it
-    stands beside, dx and dW bit-equal, da and db bit-equal in bf16 and in
-    f32 held at 1e-5 of Σ|term| with the gap printed (its 8 x 16 tiles sum
-    them in another order than #35's 16 x 16 ones). The stem (Cin 3) runs
-    without dx. Returns the max abs error of dW against the plain
-    version."""
+    stands beside, dx bit-equal, dW bit-equal in f32 (#36's FMA body is
+    #37's) and in bf16 held at the dW tolerance with the gap printed (bf16
+    #36 runs its ring body, whose tiles and splits sum in another order
+    than #37's), da and db bit-equal in bf16 and in f32 held at 1e-5 of
+    Σ|term| with the gap printed (its 8 x 16 tiles sum them in another
+    order than #35's 16 x 16 ones). The stem (Cin 3) runs without dx.
+    Returns the max abs error of dW against the plain version."""
     import torch
 
     from cl_tpu_torch.kernels import conv3x3
@@ -2082,7 +2129,7 @@ def compare_fused(shape, dtype_name, batch=8):
         good = bool((diff <= tol).all())
         same = torch.equal(kv, ref)
         gap = (kf - ref.float()).abs()
-        if label in ("dx", "dW") or bf16:
+        if label == "dx" or (bf16 and label != "dW") or (label == "dW" and not bf16):
             good_ref = same
         else:
             good_ref = bool((gap <= tol).all())
@@ -3103,8 +3150,11 @@ def main() -> int:
         for shape in ODD[kernel]:
             for dtype_name in ("float32", "bfloat16"):
                 check(kernel, shape, dtype_name, batch=3)
-    # the split convs' dx: no stats cotangents (their sums are unused)
+    # the split convs' dx: no stats cotangents (their sums are unused); the
+    # ring body's dW without them (e = dy: eval-mode backward, the Fisher)
     compare_bwd("conv3x3_bn_dx", (512, 32, 32, False), "bfloat16", stats=False)
+    compare_bwd("conv3x3_bn_dw", (256, 64, 64, True), "bfloat16", stats=False)
+    ring_info()
     # the packed head: at the headline shape, and small f32 / ragged / C <= 8
     bn_full = bn_case(2097152, 32, 19, "bfloat16", 2)
     bn_errs = {k: compare_bn(k, bn_full) for k in BN_KERNELS}

@@ -122,15 +122,33 @@ __global__ void reduce_rows_kernel(const float* __restrict__ part, int rows,
   if (threadIdx.x == 0) out[j] = acc;
 }
 
+// sum over s < rows of p[s * stride], in order of s, from 0: UNROLL loads
+// in flight before their adds (the same sum, bit for bit, at any UNROLL).
+template <int UNROLL>
+__device__ __forceinline__ float sum_rows(const float* __restrict__ p, int rows,
+                                          int64_t stride) {
+  float acc = 0.f;
+  int s = 0;
+  for (; s + UNROLL <= rows; s += UNROLL) {
+    float v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) v[u] = p[(int64_t)(s + u) * stride];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) acc += v[u];
+  }
+  for (; s < rows; ++s) acc += p[(int64_t)s * stride];
+  return acc;
+}
+
 // out[j] = sum over s < splits of part[s * n + j], in order of s: the
-// fixed-order sum of per-block partials (no atomics).
+// fixed-order sum of per-block partials (no atomics). UNROLL keeps that
+// many of a thread's loads in flight (the ring bodies' many splits).
+template <int UNROLL = 1>
 __global__ void sum_splits_kernel(const float* __restrict__ part, int splits, int64_t n,
                                   float* __restrict__ out) {
   const int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (j >= n) return;
-  float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc += part[(int64_t)s * n + j];
-  out[j] = acc;
+  out[j] = sum_rows<UNROLL>(part + j, splits, n);
 }
 
 }  // namespace

@@ -2,8 +2,8 @@
 // the plain gen-3 conv.
 //
 // Replaces the TPU kernel cl_tpu/pallas/conv3x3_v3.py::_dw_bn2_kernel
-// (launched at conv3x3_v3.py:1332 by `_dw_bn2_impl`, from the fused branch
-// of `conv_bn_fused`'s VJP, :951-961):
+// (#36, launched at conv3x3_v3.py:1332 by `_dw_bn2_impl`, from the fused
+// branch of `conv_bn_fused`'s VJP, :951-961):
 //
 //   t = round(relu(x * a + b)) (prologue) or x, recomputed while staging
 //   e = round(dy + ds1 + 2 * y * ds2) (or dy), formed while staging
@@ -14,13 +14,36 @@
 // the forward and dx kernels stage them (conv3x3_bn.cuh): zero outside the
 // image, the same rounding points.
 //
-// Two more instances of the same bodies (KIND below), each computing only
-// its own function:
-// * cl_tpu/pallas/conv3x3_v3.py::_dw_kernel (launched at :564 by
+// What bounds #36 on the H100 (bf16, batch 8, x, dy and y read once; the
+// tensor cores at 989 TFLOP/s, 3.35 TB/s):
+//
+//   shape (H, Cin -> Cout)  convs  bytes   bytes bound  FLOP bound
+//   512, 3 -> 32 (stem)       1    281 MB    84 us        4 us
+//   512, 32 -> 32             4    403 MB   120 us       39 us
+//   256, 32 -> 64             1    168 MB    50 us       20 us
+//   256, 64 -> 64             4    201 MB    60 us       39 us
+//   128, 64 -> 128            1     84 MB    25 us       20 us
+//   128, 128 -> 128           4    101 MB    30 us       39 us
+//
+// bytes at levels 0-1, the tensor cores at level 2: 1.04 ms over a step.
+// bf16 #36 runs the ring body (conv3x3_dw_body.cuh::dw_ring_body): a ring of
+// stages fed by TMA (cp.async for the stem and odd widths), t and e formed
+// once per element in place, a channel tile fitted to the shape (wgmma on
+// the 64 x 64 tile of levels 1-2, mma.sync on the others), one wave of
+// resident blocks whose partials are written a weight row at a time; its
+// note there says what it does about each cause that held the first body.
+// The tile (CI_T, CO_T) and the splits come from the wrapper
+// (kernels/conv3x3.py::dw_ring_tile, dw_ring_splits), which mirrors
+// RingTile's resources; the TMA maps are made here at each launch. f32 #36
+// runs the FMA body.
+//
+// Three more instances of the first bodies (KIND below), each computing
+// only its own function:
+// * cl_tpu/pallas/conv3x3_v3.py::_dw_kernel (#31, launched at :564 by
 //   `_dw_packed`), the dW of `conv3x3` / `conv3x3_packed` under
 //   model.conv_impl=v3|auto: t = x, e = dy, no y or stats reads (kDwPlain;
 //   the VJP rounds dW once to the compute type, :621, :643);
-// * ::_dw_bn_kernel (launched at :870 by `_dw_bn_impl`), the two-pass
+// * ::_dw_bn_kernel (#33, launched at :870 by `_dw_bn_impl`), the two-pass
 //   backward's dW (:966): t recomputed through the prologue when it is on,
 //   e the MATERIALIZED dy_eff read as it is (kDwBn);
 // * ::_dw2_q_kernel (#39, launched at :1779 by `_dw2_q_impl`), the dW of
@@ -31,15 +54,8 @@
 //   f32 and rounded once (:1690-1696). Bound by bytes as kDwFused, with y
 //   (and x in the XQ mode) read as one byte an element.
 // At baseline_2's 256^2 x 64 -> 64 (batch 8, f32, FMA) #31 does 38.7 GFLOP,
-// 577 us at 67 TFLOP/s, against 268 MB read, 80 us.
-//
-// What bounds it on the H100: at the packed body's shapes, bytes on the
-// tensor cores (512^2 x 32 -> 32 at batch 8: x, dy and y read once, 403 MB,
-// 120 us at 3.35 TB/s, against 38.7 GFLOP, 39 us at 989 TFLOP/s);
-// operations on the FMA units.
-//
-// The bodies (mma.sync for bf16, FMA for f32), each templated on its KIND,
-// are in conv3x3_dw_body.cuh, shared with the gen-2 dW.
+// 577 us at 67 TFLOP/s, against 268 MB read, 80 us: operations on the FMA
+// units.
 
 #include "conv3x3_dw_body.cuh"
 
@@ -56,8 +72,14 @@ namespace {
       int Cin, int Cout, int prologue, const QArgs qa
 #define CLTORCH_DW_ARGS x, pa, pb, dy, y, s1, s2, partials, B, H, W, Cin, Cout, prologue, qa
 
-__global__ void __launch_bounds__(kDwThreads) conv3x3_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
-  dw_mma_body<kDwFused>(CLTORCH_DW_ARGS);
+// The ring kernel takes TMA maps of x, dy and y (read with CI_T >= 32 only).
+template <int CI_T, int CO_T>
+__global__ void __launch_bounds__(RingTile<CI_T, CO_T>::kThreads, RingTile<CI_T, CO_T>::kMinBlocks)
+    conv3x3_dw_ring_kernel(CLTORCH_DW_PARAMS(bf16), const __grid_constant__ CUtensorMap tm_x,
+                           const __grid_constant__ CUtensorMap tm_dy,
+                           const __grid_constant__ CUtensorMap tm_y) {
+  dw_ring_body<kDwFused, CI_T, CO_T>(x, pa, pb, dy, y, s1, s2, partials, B, H, W, Cin, Cout,
+                                     prologue, &tm_x, &tm_dy, &tm_y);
 }
 __global__ void __launch_bounds__(kDwThreads)
     conv3x3_v3_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
@@ -97,8 +119,25 @@ __global__ void __launch_bounds__(kDwfThreads) conv3x3_q_dw_fma_kernel(CLTORCH_D
 namespace cltorch {
 namespace {
 
-// Launches the dW kernel of the type and KIND, then the fixed-order sum of
-// its partials.
+// The fixed-order sum of `splits` partials [Cout, Cin, 3, 3] into dw: for
+// the ring body's many splits with 16 loads in flight a thread and small
+// blocks (more SMs for few outputs), else as the first bodies had it.
+template <bool RING = false>
+int sum_dw_splits(float* part, void* dw, int splits, int Cin, int Cout, cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n = (int64_t)Cout * Cin * 9;
+  if (RING)
+    sum_splits_kernel<16><<<(unsigned)((n + 63) / 64), 64, 0, st>>>(part, splits, n,
+                                                                   static_cast<float*>(dw));
+  else
+    sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, splits, n,
+                                                                    static_cast<float*>(dw));
+  return (int)cudaGetLastError();
+}
+
+// Launches the first bodies' dW kernel of the type and KIND (bf16 kDwFused
+// runs the ring body, below), then the fixed-order sum of its partials.
 template <int KIND>
 int dw_launch(const void* x, const void* a, const void* b, const void* dy, const void* y,
               const void* s1, const void* s2, void* partials, void* dw, int B, int H, int W,
@@ -109,14 +148,17 @@ int dw_launch(const void* x, const void* a, const void* b, const void* dy, const
   const float *f1 = static_cast<const float*>(s1), *f2 = static_cast<const float*>(s2);
   float* part = static_cast<float*>(partials);
   if (is_bf16) {
-    const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
-               *yb = static_cast<const bf16*>(y);
-    auto kernel = KIND == kDwFused   ? conv3x3_dw_mma_kernel
-                  : KIND == kDwPlain ? conv3x3_v3_dw_mma_kernel
-                  : KIND == kDwBn    ? conv3x3_v3_dw_bn_mma_kernel
+    if constexpr (KIND == kDwFused) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
+                 *yb = static_cast<const bf16*>(y);
+      auto kernel = KIND == kDwPlain ? conv3x3_v3_dw_mma_kernel
+                    : KIND == kDwBn  ? conv3x3_v3_dw_bn_mma_kernel
                                      : conv3x3_q_dw_mma_kernel;
-    kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part, B, H, W, Cin, Cout,
-                                        prologue, qa);
+      kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part, B, H, W, Cin,
+                                          Cout, prologue, qa);
+    }
   } else {
     const float *xf = static_cast<const float*>(x), *dyf = static_cast<const float*>(dy),
                 *yf = static_cast<const float*>(y);
@@ -127,26 +169,145 @@ int dw_launch(const void* x, const void* a, const void* b, const void* dy, const
     kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2, part, B, H, W, Cin, Cout,
                                          prologue, qa);
   }
-  cudaError_t err = cudaGetLastError();
+  return sum_dw_splits(part, dw, splits, Cin, Cout, st);
+}
+
+// The ring kernel's dynamic shared memory above 48 KB, allowed once per
+// instance and device.
+template <int CI_T, int CO_T>
+cudaError_t ring_smem_allowed() {
+  static bool done[16] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 16 && done[dev]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(conv3x3_dw_ring_kernel<CI_T, CO_T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           RingTile<CI_T, CO_T>::kSmem);
+  if (err == cudaSuccess && dev < 16) done[dev] = true;
+  return err;
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
+// against libcuda).
+typedef CUresult (*TmEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+TmEncodeTiled tm_encode() {
+  static TmEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) == cudaSuccess)
+      fn = reinterpret_cast<TmEncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A TMA map of the bf16 NHWC tensor p [B, H, W, C] whose box is bc channels
+// (32 or 64: the 64- or 128-byte swizzle) x bw columns x bh rows of one
+// image, zeros outside.
+cudaError_t tm_nhwc(CUtensorMap* m, const void* p, int B, int H, int W, int C, int bc, int bw,
+                    int bh) {
+  const TmEncodeTiled fn = tm_encode();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
+            ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            bc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// bf16 #36 on the ring body with the wrapper's CI_T x CO_T tile; for CI_T >=
+// 32 with TMA maps of the x window and the dy and y tiles.
+template <int CI_T, int CO_T>
+int dw_ring_launch(const void* x, const void* a, const void* b, const void* dy, const void* y,
+                   const void* s1, const void* s2, void* partials, void* dw, int B, int H,
+                   int W, int Cin, int Cout, int prologue, int splits, cudaStream_t st) {
+  using Tile = RingTile<CI_T, CO_T>;
+  cudaError_t err = ring_smem_allowed<CI_T, CO_T>();
   if (err != cudaSuccess) return (int)err;
-  const int64_t n = (int64_t)Cout * Cin * 9;
-  sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, splits, n,
-                                                                  static_cast<float*>(dw));
-  return (int)cudaGetLastError();
+  CUtensorMap tms[3] = {};
+  if constexpr (Tile::kTma) {
+    if ((err = tm_nhwc(&tms[0], x, B, H, W, Cin, CI_T, kWinW, kRingTH + 2)) != cudaSuccess ||
+        (err = tm_nhwc(&tms[1], dy, B, H, W, Cout, CO_T, kTW, kRingTH)) != cudaSuccess ||
+        (s1 != nullptr &&
+         (err = tm_nhwc(&tms[2], y, B, H, W, Cout, CO_T, kTW, kRingTH)) != cudaSuccess))
+      return (int)err;
+  }
+  const dim3 grid((Cin + CI_T - 1) / CI_T, (Cout + CO_T - 1) / CO_T, splits);
+  float* part = static_cast<float*>(partials);
+  conv3x3_dw_ring_kernel<CI_T, CO_T><<<grid, Tile::kThreads, Tile::kSmem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const bf16*>(dy), static_cast<const bf16*>(y), static_cast<const float*>(s1),
+      static_cast<const float*>(s2), part, B, H, W, Cin, Cout, prologue, QArgs{}, tms[0], tms[1],
+      tms[2]);
+  return sum_dw_splits<true>(part, dw, splits, Cin, Cout, st);
+}
+
+// What the card gives a ring instance: {resident blocks an SM, registers a
+// thread, local (spilled) bytes a thread, dynamic shared bytes a block}.
+template <int CI_T, int CO_T>
+int dw_ring_info(int* out) {
+  cudaError_t err = ring_smem_allowed<CI_T, CO_T>();
+  if (err != cudaSuccess) return (int)err;
+  using Tile = RingTile<CI_T, CO_T>;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, conv3x3_dw_ring_kernel<CI_T, CO_T>);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], conv3x3_dw_ring_kernel<CI_T, CO_T>,
+                                                      Tile::kThreads, Tile::kSmem);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = Tile::kSmem;
+  return (int)err;
 }
 
 }  // namespace
 }  // namespace cltorch
 
+// The ring instances: (CI_T, CO_T) as kernels/conv3x3.py::dw_ring_tile
+// picks them; any other pair is refused (cudaErrorInvalidValue).
+#define CLTORCH_RING_DISPATCH(CALL)                       \
+  if (ci_t == 16 && co_t == 32) return CALL(16, 32);      \
+  if (ci_t == 16 && co_t == 64) return CALL(16, 64);      \
+  if (ci_t == 32 && co_t == 32) return CALL(32, 32);      \
+  if (ci_t == 32 && co_t == 64) return CALL(32, 64);      \
+  if (ci_t == 64 && co_t == 32) return CALL(64, 32);      \
+  if (ci_t == 64 && co_t == 64) return CALL(64, 64);      \
+  return (int)cudaErrorInvalidValue;
+
 extern "C" {
 
+// #36. bf16 runs the ring body with the (ci_t, co_t) tile; f32 the FMA
+// body (ci_t, co_t unread).
 int cltorch_conv3x3_bn_dw(const void* x, const void* a, const void* b, const void* dy,
                           const void* y, const void* s1, const void* s2, void* partials,
                           void* dw, int B, int H, int W, int Cin, int Cout, int prologue,
-                          int splits, int is_bf16, void* stream) {
-  return cltorch::dw_launch<cltorch::kDwFused>(x, a, b, dy, y, s1, s2, partials, dw, B, H, W,
-                                               Cin, Cout, prologue, splits, is_bf16,
-                                               static_cast<cudaStream_t>(stream));
+                          int splits, int ci_t, int co_t, int is_bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!is_bf16)
+    return cltorch::dw_launch<cltorch::kDwFused>(x, a, b, dy, y, s1, s2, partials, dw, B, H,
+                                                 W, Cin, Cout, prologue, splits, 0, st);
+#define CLTORCH_RING_LAUNCH(CI, CO)                                                          \
+  cltorch::dw_ring_launch<CI, CO>(x, a, b, dy, y, s1, s2, partials, dw, B, H, W, Cin, Cout, \
+                                  prologue, splits, st)
+  CLTORCH_RING_DISPATCH(CLTORCH_RING_LAUNCH)
+#undef CLTORCH_RING_LAUNCH
+}
+
+// The ring instance (ci_t, co_t) on this card: out[4] as dw_ring_info.
+int cltorch_conv3x3_dw_ring_info(int ci_t, int co_t, int* out) {
+#define CLTORCH_RING_INFO(CI, CO) cltorch::dw_ring_info<CI, CO>(out)
+  CLTORCH_RING_DISPATCH(CLTORCH_RING_INFO)
+#undef CLTORCH_RING_INFO
 }
 
 // The plain gen-3 conv's dW: x [B, H, W, Cin], dy [B, H, W, Cout].

@@ -1,9 +1,9 @@
 // k=2 / stride-2 transposed conv + bias over NHWC: forward, dx, dW and db.
 //
 // Replaces the TPU kernels of cl_tpu/pallas/upconv_pack.py: ::_fwd_kernel
-// (launched at upconv_pack.py:150 by `upconv2x2_packed`), ::_dx_kernel
-// (:183) and ::_dw_kernel (:201, dW and db), the last two from its VJP
-// `_vjp_bwd`. With no kernel overlap every output pixel is one tap:
+// (#27, launched at upconv_pack.py:150 by `upconv2x2_packed`), ::_dx_kernel
+// (#28, :183) and ::_dw_kernel (#29, :201, dW and db), the last two from its
+// VJP `_vjp_bwd`. With no kernel overlap every output pixel is one tap:
 //
 //   out[b, 2h+a, 2w+c, o] = round( sum_ci x[b,h,w,ci] * K[ci, o, a, c] + bias[o] )
 //
@@ -23,30 +23,65 @@
 // block and sums them in bf16, upconv_pack.py:219; a few bf16 ulps apart)
 // and keeps db in f32 (the TPU kernel sums each tile in bf16, :132).
 //
-// What bounds it on the H100: bytes, at the packed body's shapes (e.g.
-// 256^2 x 64 -> 512^2 x 32 at batch 8: 67 MB in, 134 MB out, ~60 us at
-// 3.35 TB/s, against 8.6 GFLOP, ~9 us at the bf16 tensor cores' 989
-// TFLOP/s; on the f32 FMA units the operations bound it, ~130 us). dx and
-// dW each read dy (134 MB there) and x or write dx.
+// What bounds it on the H100: bytes, at the packed body's shapes (batch 8,
+// bf16; 3.35 TB/s against 989 TFLOP/s on the tensor cores). dW reads x and
+// dy once: 256^2 x 64 -> 512^2 x 32 201 MB, 60 us (against 8.6 GFLOP, 9 us);
+// 128^2 x 128 -> 64 101 MB, 30 us; 64^2 x 256 -> 128 50 MB, 15 us. The
+// forward and dx move the same bytes; on the f32 FMA units the operations
+// bound them (~130 us at 256^2).
 //
-// Design: one GEMM main loop per route, fed by staging functors that know
-// each operand's layout (row-major, the dy gather, or a transposed view),
-// and one epilogue per function. The bf16 route stages a transposed view
-// (dW's X^T and DY^T) k-major: a thread reads eight consecutive channels
-// of one pixel in one 16-byte load and writes them down a column of the
-// shared tile.
-// * bf16: mma.sync m16n8k16 with f32 accumulation. A block of 256 threads
-//   (8 warps, 4 along the rows x 2 along the columns) computes a
-//   128-row x 64-column tile from 32-deep slices of A [row][k] and of
+// Forward and dx (and the f32 dW): one GEMM main loop per route, fed by
+// staging functors that know each operand's layout (row-major, the dy
+// gather, or a transposed view), and one epilogue per function.
+// * bf16 forward, dx: mma.sync m16n8k16 with f32 accumulation. A block of
+//   256 threads (8 warps, 4 along the rows x 2 along the columns) computes
+//   a 128-row x 64-column tile from 32-deep slices of A [row][k] and of
 //   B^T [column][k] staged in shared memory with a 40-element row, so the
 //   32-bit fragment loads of a warp hit 32 distinct banks.
 // * f32: FMA (TF32 would round). A block of 256 threads computes a
 //   64-row x 64-column tile from 16-deep slices of A (transposed) and B
-//   staged as f32; each thread keeps a 4 x 4 register tile.
-// * dW splits the pixels (its k) over gridDim.z blocks, each taking every
-//   gridDim.z-th slice; each writes its own partial [Cin, 4*Cout] (and, in
-//   the blocks of the first row tile, its column sums of DY for db), and a
-//   second launch sums the partials in a fixed order. No float atomics.
+//   staged as f32; each thread keeps a 4 x 4 register tile. dW splits the
+//   pixels (its k) over gridDim.z blocks, each taking every gridDim.z-th
+//   slice and writing its own partial [Cin, 4*Cout] (and, in the blocks of
+//   the first row tile, its column sums of DY for db).
+//
+// bf16 dW: the ring kernel (upconv_dw_ring_kernel). The contraction runs
+// over the pixels, and both operands are pixel-major in memory, so they are
+// staged that way and the transposes are taken by the fragment loads. What
+// it does about each cause that held the first version (the mma_mainloop
+// with transposed views) at 12x its bound:
+// * Transposed scalar staging. x is staged as [k pixels][Cin tile] and the
+//   dy gather as [k pixels][4*Cout tile], in their memory order, by 16-byte
+//   cp.async (for a pixel m, the columns of phase row a are the 2*Cout
+//   contiguous values of dy at (2h + a, 2w..2w+1), so every 16-byte piece is
+//   one copy); A = X^T and B = DY fragments come from ldmatrix.trans, with
+//   rows padded by 8 bf16 so that an ldmatrix's eight rows fall on distinct
+//   banks. No transposed st.shared.
+// * No prefetch. The slices go through a ring of three stages, two ahead:
+//   the copies of slices i + 1 and i + 2 are in flight while the products of
+//   slice i run; one barrier a slice.
+// * Zero rows at level 0. The row tile is fitted to Cin: 64 rows for
+//   Cin <= 64 (level 0 has no zero rows), else 128; the column tile 128 or
+//   256 of 4*Cout. Levels 0 and 1 (64 -> 4x32, 128 -> 4x64) are one tile, so
+//   x and dy are each read once; level 2 (256 -> 4x128) is 2 x 2 tiles, each
+//   operand read twice (the second time mostly from L2).
+// * A serial db. The column sums of the staged DY come from one more
+//   m16n8k16 product: the B fragments a warp already holds ARE the A
+//   fragment of DY^T (16 columns x 16 pixels), against a ones operand, so a
+//   sum costs one MMA per 16 columns and 16 pixels; the warp rows take the
+//   k steps in turn, and the block adds their sums in a fixed order. db is
+//   f32 (exact products, f32 sums in a fixed order).
+// * Occupancy. Warps of 32 rows x BN/4 columns (8 or 16 warps), held by
+//   __launch_bounds__ at two blocks an SM for the 64 x 128 tile and one for
+//   the larger ones (16 warps an SM either way); the wrapper's picker
+//   (kernels/upconv_pack.py::dw_ring_splits) sizes one wave of resident
+//   blocks from these resources.
+// * The partials. Each block stages its dW tile in shared memory and writes
+//   its partial a row of BN floats at a time, and upconv_dw_reduce_kernel
+//   sums them in a fixed order (no float atomics): the same sums as before,
+//   bit for bit, with 16 loads in flight a thread and db's four phases
+//   summed by four lanes, added in order (in place of a serial loop of 4 x
+//   splits loads on only Cout threads).
 
 #include "common.cuh"
 
@@ -88,19 +123,6 @@ __device__ __forceinline__ void stage_rows(const View& v, bf16* s, int64_t row0,
   }
 }
 
-// k-major staging: `load8(v, r, k)` fills the 8 rows [r, r + 8) of column k.
-template <class Load8>
-__device__ __forceinline__ void stage_cols(bf16* s, int64_t row0, int64_t k0, int nrows,
-                                           const Load8& load8) {
-  for (int e = threadIdx.x; e < kMBK * (nrows / 8); e += kUpThreads) {
-    const int kk = e / (nrows / 8), r = (e % (nrows / 8)) * 8;
-    alignas(16) bf16 v[8];
-    load8(v, row0 + r, k0 + kk);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[(r + j) * kMRow + kk] = v[j];
-  }
-}
-
 // Row-major [rows, K].
 template <typename T> struct RowMajor {
   const T* p;
@@ -133,20 +155,10 @@ template <typename T> struct ColMajor {
   __device__ float at(int64_t r, int64_t k) const {
     return (r < rows && k < K) ? to_f32(p[k * rows + r]) : 0.f;
   }
-  __device__ void stage_tile(bf16* s, int64_t row0, int64_t k0, int nrows) const {
-    stage_cols(s, row0, k0, nrows, [&](bf16 (&v)[8], int64_t r, int64_t k) {
-      if (k < K && r + 8 <= rows && (rows & 7) == 0) {
-        load16<bf16>(v, reinterpret_cast<const bf16*>(p) + k * rows + r, 0);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(at(r + j, k));
-      }
-    });
-  }
 };
 
 // DY [M, 4*Cout] gathered from dy [B, 2H, 2W, Cout]; `transposed` views it
-// as [4*Cout, M] (the B operand of dW).
+// as [4*Cout, M] (the B operand of the f32 dW).
 template <typename T> struct DyGather {
   const T* dy;
   int64_t M;
@@ -167,8 +179,7 @@ template <typename T> struct DyGather {
                           + o, 0);
     } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        v[j] = __float2bfloat16(transposed ? at(n + j, m) : at(m, n + j));
+      for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(at(m, n + j));
     }
   }
   __device__ void stage8(bf16* dst, int64_t r, int64_t k) const {
@@ -177,38 +188,27 @@ template <typename T> struct DyGather {
     store16<bf16>(dst, 0, v);
   }
   __device__ void stage_tile(bf16* s, int64_t row0, int64_t k0, int nrows) const {
-    if (!transposed)
-      stage_rows(*this, s, row0, k0, nrows);
-    else
-      stage_cols(s, row0, k0, nrows,
-                 [&](bf16 (&v)[8], int64_t n, int64_t m) { load8(v, m, n); });
+    stage_rows(*this, s, row0, k0, nrows);
   }
-};
-
-struct NoHook {
-  template <typename S> __device__ void operator()(const S*) const {}
 };
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-// acc += A[m0 : m0+128, k] B[k, n0 : n0+64] over k = k_begin, k_begin +
-// k_step, ... (32-deep slices) below K; `a` views A, `b` views B^T. `hook`
-// sees each staged B^T slice (ws) after the block has synchronised.
-template <class SA, class SB, class Hook>
+// acc += A[m0 : m0+128, k] B[k, n0 : n0+64] over the 32-deep slices of k
+// below K; `a` views A, `b` views B^T.
+template <class SA, class SB>
 __device__ void mma_mainloop(float (&acc)[2][4][4], bf16* xs, bf16* ws, int64_t m0, int64_t n0,
-                             int64_t k_begin, int64_t k_step, int64_t K, const SA& a,
-                             const SB& b, const Hook& hook) {
+                             int64_t K, const SA& a, const SB& b) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;  // warp tile origin
   const int g = lane >> 2, t = lane & 3;
-  for (int64_t k0 = k_begin; k0 < K; k0 += k_step) {
+  for (int64_t k0 = 0; k0 < K; k0 += kMBK) {
     __syncthreads();
     a.stage_tile(xs, m0, k0, kMBM);
     b.stage_tile(ws, n0, k0, kMBN);
     __syncthreads();
-    hook(ws);
 #pragma unroll
     for (int kk = 0; kk < kMBK; kk += 16) {
       uint32_t af[2][4];
@@ -257,8 +257,8 @@ upconv_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kgt,
   const int N = 4 * Cout;
   const int64_t m0 = (int64_t)blockIdx.x * kMBM;
   const int n0 = blockIdx.y * kMBN;
-  mma_mainloop(acc, xs, ws, m0, n0, 0, kMBK, Cin, RowMajor<bf16>{x, M, Cin},
-               RowMajor<bf16>{kgt, N, Cin}, NoHook{});
+  mma_mainloop(acc, xs, ws, m0, n0, Cin, RowMajor<bf16>{x, M, Cin},
+               RowMajor<bf16>{kgt, N, Cin});
   // Columns 2t and 2t + 1 of an n8 tile: two consecutive output channels
   // of one phase.
 #pragma unroll
@@ -294,8 +294,8 @@ upconv_dx_mma_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ kg,
   const int64_t M = (int64_t)B * H * W;
   const int64_t m0 = (int64_t)blockIdx.x * kMBM;
   const int n0 = blockIdx.y * kMBN;
-  mma_mainloop(acc, xs, ws, m0, n0, 0, kMBK, 4 * Cout, DyGather<bf16>{dy, M, H, W, Cout, false},
-               RowMajor<bf16>{kg, Cin, 4 * Cout}, NoHook{});
+  mma_mainloop(acc, xs, ws, m0, n0, 4 * Cout, DyGather<bf16>{dy, M, H, W, Cout, false},
+               RowMajor<bf16>{kg, Cin, 4 * Cout});
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -317,52 +317,205 @@ upconv_dx_mma_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ kg,
     }
 }
 
-// Column sums of the staged DY^T slice ([column][pixel], kMBK pixels) into
-// one register per thread of the first kMBN threads; the first row tile's
-// blocks only.
-struct DbHook {
-  float* sum;
-  bool on;
-  __device__ void operator()(const bf16* ws) const {
-    if (!on || threadIdx.x >= kMBN) return;
-    float s = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < kMBK; ++k) s += __bfloat162float(ws[threadIdx.x * kMRow + k]);
-    *sum += s;
-  }
+// ---------------------------------------------------------------------------
+// bf16 dW: the ring kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kRingBK = 64;  // pixels a slice
+constexpr int kRingStagesUp = 3;
+
+// A block's shape for a BM (Cin) x BN (4*Cout) tile: warps of 32 rows x
+// BN / 4 columns; staged rows of BM (x) and BN (dy) bf16 plus 8 of padding;
+// a stage holds one slice of both; then the warp rows' db sums.
+template <int BM, int BN>
+struct UpRing {
+  static constexpr int kWN = BN / 4;
+  static constexpr int kRows = BM / 32;
+  static constexpr int kThreads = kRows * 4 * 32;
+  static constexpr int kMinBlocks = BM == 64 && BN == 128 ? 2 : 1;  // resident blocks an SM
+  static constexpr int kRowA = BM + 8, kRowB = BN + 8;
+  static constexpr int kStage = kRingBK * (kRowA + kRowB);  // bf16
+  static constexpr int kSmem = kRingStagesUp * kStage * 2 + kRows * BN * 4;
+  static_assert(BM * BN * 4 <= kRingStagesUp * kStage * 2, "the dW tile fits the ring");
 };
 
-__global__ void __launch_bounds__(kUpThreads)
-upconv_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                     float* __restrict__ part_w, float* __restrict__ part_b, int B, int H,
-                     int W, int Cin, int Cout) {
-  MMA_TILE_INIT
+// Eight columns [n, n + 8) of DY at pixel m (dy [B, 2H, 2W, Cout]): one
+// 16-byte piece when Cout % 4 == 0 (the piece then lies in one phase row a),
+// else element by element; zero past M or N.
+__device__ __forceinline__ const bf16* dy_piece(const bf16* dy, int64_t m, int n, int H, int W,
+                                                int Cout) {
+  const int a = n / (2 * Cout), rem = n - a * 2 * Cout;
+  return dy + (out_base(m, H, W) + a * (int64_t)(2 * W)) * Cout + rem;
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(UpRing<BM, BN>::kThreads, UpRing<BM, BN>::kMinBlocks)
+    upconv_dw_ring_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                          float* __restrict__ part_w, float* __restrict__ part_b, int B, int H,
+                          int W, int Cin, int Cout) {
+  using Tile = UpRing<BM, BN>;
+  constexpr int RA = Tile::kRowA, RB = Tile::kRowB, WN = Tile::kWN, NT = Tile::kThreads;
+  constexpr int QA = BM / 8, QB = BN / 8;
+  extern __shared__ __align__(16) unsigned char up_ring_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(up_ring_smem);
+  float* db_s = reinterpret_cast<float*>(ring + kRingStagesUp * Tile::kStage);  // [rows][BN]
+
   const int64_t M = (int64_t)B * H * W;
   const int N = 4 * Cout;
-  const int64_t m0 = (int64_t)blockIdx.x * kMBM;
-  const int n0 = blockIdx.y * kMBN;
-  const int s = blockIdx.z, S = gridDim.z;
-  float db = 0.f;
-  mma_mainloop(acc, xs, ws, m0, n0, (int64_t)s * kMBK, (int64_t)S * kMBK, M,
-               ColMajor<bf16>{x, Cin, M}, DyGather<bf16>{dy, M, H, W, Cout, true},
-               DbHook{&db, blockIdx.x == 0});
-  float* pw = part_w + (int64_t)s * Cin * N;
+  const int ci0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp / 4, wm = wr * 32, wn = (warp % 4) * WN;  // warp tile origin
+  const int g = lane >> 2, t = lane & 3;
+  const int lj = lane & 7, lq = lane >> 3;
+  const bool vec_a = (Cin & 7) == 0, vec_b = (Cout & 3) == 0;
+  const bool db_on = blockIdx.x == 0;  // the first row tile sums DY's columns
+  const int64_t n_slices = (M + kRingBK - 1) / kRingBK;
+  const int my_slices =
+      blockIdx.z < n_slices ? (int)((n_slices - 1 - blockIdx.z) / gridDim.z) + 1 : 0;
+
+  // Copies of this block's k-th slice into stage `st`. A thread keeps one
+  // 8-wide column of each operand (NT is a multiple of BM / 8 and BN / 8),
+  // so its dy column's phase row a and offset are fixed; a slice within one
+  // input row (W a multiple of kRingBK, as on the path) is decoded once.
+  static_assert(NT % QA == 0 && NT % QB == 0, "a fixed column a thread");
+  const int qa = threadIdx.x % QA, qb = threadIdx.x % QB;
+  const int ca = ci0 + qa * 8, nb = n0 + qb * 8;
+  const int pa_row = nb / (2 * Cout), pa_off = nb - pa_row * 2 * Cout;
+  auto issue = [&](int k, int st) {
+    const int64_t slice = blockIdx.z + (int64_t)k * gridDim.z;
+    if (slice >= n_slices) return;
+    const int64_t m0 = slice * kRingBK;
+    bf16* as = ring + st * Tile::kStage;
+    bf16* bs = as + kRingBK * RA;
+    for (int kk = threadIdx.x / QA; kk < kRingBK; kk += NT / QA) {
+      const int64_t m = m0 + kk;
+      const bool on = m < M && ca < Cin;
+      bf16* dst = &as[kk * RA + qa * 8];
+      if (vec_a) {
+        cp_async<16>(dst, on ? x + m * Cin + ca : x, on);
+      } else {
+        alignas(16) bf16 v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = m < M && ca + j < Cin ? x[m * Cin + ca + j] : __float2bfloat16(0.f);
+        store16<bf16>(dst, 0, v);
+      }
+    }
+    const bool one_row = m0 % W + kRingBK <= W;
+    const int64_t base0 = out_base(m0, H, W);
+    for (int kk = threadIdx.x / QB; kk < kRingBK; kk += NT / QB) {
+      const int64_t m = m0 + kk;
+      bf16* dst = &bs[kk * RB + qb * 8];
+      if (vec_b) {
+        const bool on = m < M && nb < N;
+        const int64_t ob = one_row ? base0 + 2 * kk : out_base(m, H, W);
+        cp_async<16>(dst, on ? dy + (ob + pa_row * (int64_t)(2 * W)) * Cout + pa_off : dy, on);
+      } else {
+        alignas(16) bf16 v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = m < M && nb + j < N ? *dy_piece(dy, m, nb + j, H, W, Cout)
+                                     : __float2bfloat16(0.f);
+        store16<bf16>(dst, 0, v);
+      }
+    }
+  };
+
+  float acc[2][WN / 8][4], dbacc[WN / 16][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int64_t m = m0 + wm + i * 16 + g + hr * 8;
-      if (m >= Cin) continue;
+    for (int j = 0; j < WN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn + j * 8 + 2 * t + e;
-          if (n < N) pw[m * N + n] = acc[i][j][hr * 2 + e];
+  for (int h = 0; h < WN / 16; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dbacc[h][e] = 0.f;
+  const uint32_t ones = 0x3F803F80u;  // two bf16 1.0
+
+#pragma unroll
+  for (int k = 0; k < kRingStagesUp - 1; ++k) {
+    issue(k, k);
+    cp_async_commit();
+  }
+  for (int k = 0; k < my_slices; ++k) {
+    const int st = k % kRingStagesUp;
+    cp_async_wait<kRingStagesUp - 2>();  // slice k has landed
+    // every warp is past the products of slice k - 1: its stage is free
+    __syncthreads();
+    issue(k + kRingStagesUp - 1, (k + kRingStagesUp - 1) % kRingStagesUp);
+    cp_async_commit();
+    const bf16* as = ring + st * Tile::kStage;
+    const bf16* bs = as + kRingBK * RA;
+#pragma unroll
+    for (int kk = 0; kk < kRingBK / 16; ++kk) {
+      // A[ci][k] = x at pixel k, B[k][n] = DY at pixel k: both stored
+      // k-major, their fragments transposed quarters (as the conv dW's).
+      uint32_t bf[WN / 16][4];
+#pragma unroll
+      for (int h = 0; h < WN / 16; ++h)  // n-tiles 2h and 2h + 1
+        ldmatrix_x4_trans(bf[h], &bs[(kk * 16 + (lq & 1) * 8 + lj) * RB + wn +
+                                     (2 * h + (lq >> 1)) * 8]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint32_t af[4];
+        ldmatrix_x4_trans(af, &as[(kk * 16 + (lq >> 1) * 8 + lj) * RA + wm + i * 16 +
+                                  (lq & 1) * 8]);
+#pragma unroll
+        for (int j = 0; j < WN / 8; ++j)
+          mma_bf16(acc[i][j], af, bf[j >> 1][(j & 1) * 2], bf[j >> 1][(j & 1) * 2 + 1]);
+      }
+      // db: DY^T's fragment for columns 16h..16h+15 is {b0 of n-tile 2h,
+      // b0 of 2h + 1, b1 of 2h, b1 of 2h + 1}; times ones, row i of the
+      // product is the column sum of column 16h + i
+      if (db_on && (k * (kRingBK / 16) + kk) % Tile::kRows == wr) {
+#pragma unroll
+        for (int h = 0; h < WN / 16; ++h) {
+          const uint32_t at[4] = {bf[h][0], bf[h][2], bf[h][1], bf[h][3]};
+          mma_bf16(dbacc[h], at, ones, ones);
         }
+      }
     }
-  if (blockIdx.x == 0 && threadIdx.x < kMBN && n0 + threadIdx.x < N)
-    part_b[(int64_t)s * N + n0 + threadIdx.x] = db;
+  }
+  cp_async_wait<0>();  // no copy outlives the block (the groups past the end are empty)
+  __syncthreads();     // every warp is past its products: the ring takes the dW tile
+
+  // dW: thread (g, t) holds acc[i][j][hr*2+e] = D[wm + i*16 + g + hr*8][wn + j*8 + 2t + e],
+  // staged as the block's [BM][BN] tile, then written to partials[z]
+  // ([Cin, N]) a row of BN consecutive floats at a time. db: lane (g, 0)
+  // holds the sums of columns wn + 16h + g (dbacc[h][0]) and + 8
+  // (dbacc[h][2]); the warp rows' sums are added in order.
+  float* out_s = reinterpret_cast<float*>(up_ring_smem);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          out_s[(wm + i * 16 + g + hr * 8) * BN + wn + j * 8 + 2 * t + e] = acc[i][j][hr * 2 + e];
+  if (db_on && t == 0) {
+#pragma unroll
+    for (int h = 0; h < WN / 16; ++h) {
+      db_s[wr * BN + wn + h * 16 + g] = dbacc[h][0];
+      db_s[wr * BN + wn + h * 16 + g + 8] = dbacc[h][2];
+    }
+  }
+  __syncthreads();
+  float* pw = part_w + (int64_t)blockIdx.z * Cin * N;
+  for (int i = threadIdx.x; i < BM * BN; i += NT) {
+    const int r = i / BN, c = i % BN;
+    if (ci0 + r < Cin && n0 + c < N) pw[(int64_t)(ci0 + r) * N + n0 + c] = out_s[i];
+  }
+  if (!db_on) return;
+  for (int c = threadIdx.x; c < BN; c += NT) {
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < Tile::kRows; ++r) v += db_s[r * BN + c];
+    if (n0 + c < N) part_b[(int64_t)blockIdx.z * N + n0 + c] = v;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -516,21 +669,23 @@ upconv_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __res
 __global__ void upconv_dw_reduce_kernel(const float* __restrict__ part_w,
                                         const float* __restrict__ part_b, int S, int64_t nw,
                                         int Cout, float* __restrict__ dw, float* __restrict__ db) {
+  // Threads [0, nw) sum dw; from nw rounded up to whole warps, thread
+  // 4o + q sums phase q of db[o] and the o's q = 0 lane adds its four
+  // phases in order. Each sum over s runs in order from 0 (sum_rows, 16
+  // loads in flight): the sums above, bit for bit.
   const int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (j < nw) {
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc += part_w[(int64_t)s * nw + j];
-    dw[j] = acc;
+  const int64_t nw_pad = (nw + 31) / 32 * 32;
+  if (j < nw_pad) {
+    if (j < nw) dw[j] = sum_rows<16>(part_w + j, S, nw);
+    return;
   }
-  if (j < Cout) {
-    float acc = 0.f;
-    for (int q = 0; q < 4; ++q) {
-      float aq = 0.f;
-      for (int s = 0; s < S; ++s) aq += part_b[(int64_t)s * 4 * Cout + q * Cout + j];
-      acc += aq;
-    }
-    db[j] = acc;
-  }
+  const int64_t d = j - nw_pad;
+  const int o = (int)(d >> 2), q = (int)(d & 3);
+  const float aq = o < Cout ? sum_rows<16>(part_b + q * Cout + o, S, 4 * Cout) : 0.f;
+  const float a1 = __shfl_down_sync(0xffffffffu, aq, 1);
+  const float a2 = __shfl_down_sync(0xffffffffu, aq, 2);
+  const float a3 = __shfl_down_sync(0xffffffffu, aq, 3);
+  if (q == 0 && o < Cout) db[o] = (((0.f + aq) + a1) + a2) + a3;
 }
 
 // ---------------------------------------------------------------------------
@@ -569,24 +724,74 @@ int upconv_dx_launch(const void* dy, const void* kg, void* dx, int B, int H, int
   return (int)cudaGetLastError();
 }
 
-int upconv_dw_launch(const void* x, const void* dy, void* part_w, void* part_b, void* dw,
-                     void* db, int B, int H, int W, int Cin, int Cout, int splits, int is_bf16,
-                     cudaStream_t st) {
-  if (is_bf16)
-    upconv_dw_mma_kernel<<<tiles(Cin, 4 * Cout, kMBM, kMBN, splits), kUpThreads, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<float*>(part_w),
-        static_cast<float*>(part_b), B, H, W, Cin, Cout);
-  else
-    upconv_dw_kernel<float><<<tiles(Cin, 4 * Cout, kUpBM, kUpBN, splits), kUpThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(part_w),
-        static_cast<float*>(part_b), B, H, W, Cin, Cout);
+// The fixed-order sums of `splits` dW / db partials.
+int upconv_dw_reduce(const void* part_w, const void* part_b, void* dw, void* db, int Cin,
+                     int Cout, int splits, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t nw = (int64_t)Cin * 4 * Cout;
-  upconv_dw_reduce_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(
+  const int64_t threads = (nw + 31) / 32 * 32 + 4 * (int64_t)Cout;
+  upconv_dw_reduce_kernel<<<(unsigned)((threads + 127) / 128), 128, 0, st>>>(
       static_cast<const float*>(part_w), static_cast<const float*>(part_b), splits, nw, Cout,
       static_cast<float*>(dw), static_cast<float*>(db));
   return (int)cudaGetLastError();
+}
+
+// The ring kernel's dynamic shared memory above 48 KB, allowed once per
+// instance and device.
+template <int BM, int BN>
+cudaError_t up_ring_smem_allowed() {
+  static bool done[16] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 16 && done[dev]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      upconv_dw_ring_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      UpRing<BM, BN>::kSmem);
+  if (err == cudaSuccess && dev < 16) done[dev] = true;
+  return err;
+}
+
+// bf16 dW on the ring kernel with the wrapper's BM x BN tile.
+template <int BM, int BN>
+int upconv_dw_ring_launch(const void* x, const void* dy, void* part_w, void* part_b, void* dw,
+                          void* db, int B, int H, int W, int Cin, int Cout, int splits,
+                          cudaStream_t st) {
+  using Tile = UpRing<BM, BN>;
+  const cudaError_t err = up_ring_smem_allowed<BM, BN>();
+  if (err != cudaSuccess) return (int)err;
+  upconv_dw_ring_kernel<BM, BN><<<tiles(Cin, 4 * Cout, BM, BN, splits), Tile::kThreads,
+                                  Tile::kSmem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<float*>(part_w),
+      static_cast<float*>(part_b), B, H, W, Cin, Cout);
+  return upconv_dw_reduce(part_w, part_b, dw, db, Cin, Cout, splits, st);
+}
+
+// What the card gives a ring instance: {resident blocks an SM, registers a
+// thread, local (spilled) bytes a thread, dynamic shared bytes a block}.
+template <int BM, int BN>
+int upconv_dw_ring_info(int* out) {
+  cudaError_t err = up_ring_smem_allowed<BM, BN>();
+  if (err != cudaSuccess) return (int)err;
+  using Tile = UpRing<BM, BN>;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, upconv_dw_ring_kernel<BM, BN>);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], upconv_dw_ring_kernel<BM, BN>,
+                                                      Tile::kThreads, Tile::kSmem);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = Tile::kSmem;
+  return (int)err;
+}
+
+int upconv_dw_fma_launch(const void* x, const void* dy, void* part_w, void* part_b, void* dw,
+                         void* db, int B, int H, int W, int Cin, int Cout, int splits,
+                         cudaStream_t st) {
+  upconv_dw_kernel<float><<<tiles(Cin, 4 * Cout, kUpBM, kUpBN, splits), kUpThreads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(part_w),
+      static_cast<float*>(part_b), B, H, W, Cin, Cout);
+  return upconv_dw_reduce(part_w, part_b, dw, db, Cin, Cout, splits, st);
 }
 
 }  // namespace
@@ -613,11 +818,36 @@ int cltorch_upconv_dx(const void* dy, const void* kg, void* dx, int B, int H, in
                                    static_cast<cudaStream_t>(stream));
 }
 
+// The ring instances: (BM, BN) as kernels/upconv_pack.py::dw_ring_tile
+// picks them; any other pair is refused (cudaErrorInvalidValue).
+#define CLTORCH_UP_RING_DISPATCH(CALL)                 \
+  if (bm == 64 && bn == 128) return CALL(64, 128);     \
+  if (bm == 64 && bn == 256) return CALL(64, 256);     \
+  if (bm == 128 && bn == 128) return CALL(128, 128);   \
+  if (bm == 128 && bn == 256) return CALL(128, 256);   \
+  return (int)cudaErrorInvalidValue;
+
+// dW and db: bf16 on the ring kernel with the (bm, bn) tile, f32 on FMAs
+// (bm, bn unread).
 int cltorch_upconv_dw(const void* x, const void* dy, void* part_w, void* part_b, void* dw,
-                      void* db, int B, int H, int W, int Cin, int Cout, int splits, int is_bf16,
-                      void* stream) {
-  return cltorch::upconv_dw_launch(x, dy, part_w, part_b, dw, db, B, H, W, Cin, Cout, splits,
-                                   is_bf16, static_cast<cudaStream_t>(stream));
+                      void* db, int B, int H, int W, int Cin, int Cout, int splits, int bm,
+                      int bn, int is_bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!is_bf16)
+    return cltorch::upconv_dw_fma_launch(x, dy, part_w, part_b, dw, db, B, H, W, Cin, Cout,
+                                         splits, st);
+#define CLTORCH_UP_RING_LAUNCH(BM, BN)                                                        \
+  cltorch::upconv_dw_ring_launch<BM, BN>(x, dy, part_w, part_b, dw, db, B, H, W, Cin, Cout, \
+                                         splits, st)
+  CLTORCH_UP_RING_DISPATCH(CLTORCH_UP_RING_LAUNCH)
+#undef CLTORCH_UP_RING_LAUNCH
+}
+
+// The ring instance (bm, bn) on this card: out[4] as upconv_dw_ring_info.
+int cltorch_upconv_dw_ring_info(int bm, int bn, int* out) {
+#define CLTORCH_UP_RING_INFO(BM, BN) cltorch::upconv_dw_ring_info<BM, BN>(out)
+  CLTORCH_UP_RING_DISPATCH(CLTORCH_UP_RING_INFO)
+#undef CLTORCH_UP_RING_INFO
 }
 
 }  // extern "C"

@@ -6,14 +6,17 @@ Each directory is a checkout's root (it holds ``chip_smoke.py`` and its
 ``cl_tpu_torch``). The turns run old, new, new, old, each in a process of
 its own whose ``sys.path`` starts with that checkout, so each version
 builds and launches its own kernels. Every turn times each kernel (default:
-the five forward kernels) at every shape of that checkout's 512² path
-(``chip_smoke.PACKED_PATH``, bf16, batch 8, ``chip_smoke.packed_operands``)
-with this file's ``time_ms`` (``chip_smoke.py`` times with it too), the
-same for both versions: the median of 20 launches from CUDA events around
-each, once with the launches queued back to back and once synchronised
-after each. Prints per kernel and shape the two versions' medians over
-their turns, the sums over one packed step, and the card's
-``nvidia-smi`` name and power limit.
+the five forward kernels; or any of ``chip_smoke.PACKED_PATH``'s names, the
+backward ones too) at every shape of that checkout's 512² path
+(``chip_smoke.PACKED_PATH``, bf16, batch 8) on that checkout's operands
+(``chip_smoke.packed_operands`` for a forward kernel, ``bwd_operands`` for
+a backward one, whose launch is ``bwd_fns``'s) with this file's
+``time_ms`` (``chip_smoke.py`` times with it too), the same for both
+versions: the median of 20 launches from CUDA events around each, once
+with the launches queued back to back and once synchronised after each.
+Prints per kernel and shape the two versions' medians over their turns,
+the sums over one packed step, and the card's ``nvidia-smi`` name and
+power limit. A name it does not know is refused before any turn runs.
 """
 
 from __future__ import annotations
@@ -26,6 +29,28 @@ import sys
 import numpy as np
 
 FORWARD = ("conv3x3_bn_fwd", "bn_relu_fwd", "add_stats_fwd", "maxpool_fwd", "upconv_fwd")
+BACKWARD = ("conv3x3_bn_dw", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "upconv_dx", "upconv_dw",
+            "maxpool_bwd", "bn_relu_bwd", "dy_eff")
+
+
+def check_names(kernels) -> None:
+    """Raise on a kernel name that is neither a forward nor a backward
+    kernel of the packed path."""
+    unknown = [k for k in kernels if k not in FORWARD + BACKWARD]
+    if unknown:
+        raise ValueError(f"kernel_ab: unknown kernel(s) {unknown}; known: "
+                         f"{', '.join(FORWARD + BACKWARD)}")
+
+
+def dispatch(smoke, kernel):
+    """(launch, operands) of one packed-path kernel from the checkout's
+    ``chip_smoke`` module ``smoke``: ``operands(shape)`` makes its seeded
+    bf16 operands on the card (batch 8), ``launch(*operands)`` runs it."""
+    check_names([kernel])
+    if kernel in FORWARD:
+        return smoke.packed_fns(kernel)[0], \
+            lambda shape: smoke.packed_operands(kernel, shape, "bfloat16")
+    return smoke.bwd_fns(kernel)[0], lambda shape: smoke.bwd_operands(kernel, shape, "bfloat16")
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
@@ -66,9 +91,9 @@ def _worker(root, kernels):
     build.library()
     out = {}
     for kernel in kernels:
-        launch = chip_smoke.packed_fns(kernel)[0]
+        launch, operands = dispatch(chip_smoke, kernel)
         for shape, n in chip_smoke.PACKED_PATH[kernel]:
-            ops = chip_smoke.packed_operands(kernel, shape, "bfloat16")
+            ops = operands(shape)
             out.setdefault(kernel, []).append(
                 [list(shape), n, time_ms(lambda: launch(*ops)),
                  time_ms(lambda: launch(*ops), queued=False)])
@@ -84,6 +109,7 @@ def main(argv) -> int:
         return 2
     dirs = {"old": os.path.abspath(argv[0]), "new": os.path.abspath(argv[1])}
     kernels = argv[2:] or list(FORWARD)
+    check_names(kernels)
     turns = {"old": [], "new": []}
     for which in ("old", "new", "new", "old"):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",

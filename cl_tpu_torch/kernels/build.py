@@ -56,11 +56,13 @@ SIGNATURES = {
     "cltorch_dy_eff": [P, P, P, P, P, L, I, I, P],
     "cltorch_maxpool_bwd": [P, P, P, P, I, I, I, I, I, P],
     "cltorch_upconv_dx": [P, P, P, I, I, I, I, I, I, P],
-    "cltorch_upconv_dw": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "cltorch_upconv_dw": [P] * 6 + [I] * 9 + [P],
+    "cltorch_upconv_dw_ring_info": [I, I, P],
     "cltorch_conv3x3_bn_dx": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     "cltorch_conv3x3_bn_dx_pipe": [P] * 11 + [I] * 7 + [P],
     "cltorch_conv3x3_bn_bwd_fused": [P] * 13 + [I] * 8 + [P],
-    "cltorch_conv3x3_bn_dw": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "cltorch_conv3x3_bn_dw": [P] * 9 + [I] * 10 + [P],
+    "cltorch_conv3x3_dw_ring_info": [I, I, P],
     "cltorch_conv3x3_fwd": [P, P, P, I, I, I, I, I, I, P],
     "cltorch_conv3x3_dw": [P, P, P, P, I, I, I, I, I, I, I, P],
     "cltorch_conv3x3_dw_bn": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],

@@ -73,7 +73,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from cl_tpu_torch.kernels import SPLIT_BLOCKS, build
+from cl_tpu_torch.kernels import SPLIT_BLOCKS, build, one_wave_splits, resident_blocks
 from cl_tpu_torch.models import packed_gate
 from cl_tpu_torch.models.packed_gate import conv_bwd_branch, pick_pack
 
@@ -354,21 +354,88 @@ def dw_splits(cin, cout, B, H, W, bf16):
     return max(1, min(-(-SPLIT_BLOCKS // channel_tiles), n_tiles))
 
 
+# The bf16 #36 ring body (csrc/conv3x3_dw_body.cuh::RingTile): pixel tiles
+# of RING_TH x 16, a ring of RING_STAGES raw stages.
+RING_TH = 8
+RING_STAGES = 3
+RING_RAW_ROW = 256  # bytes a window row of a narrow x (Cin < 8) is copied into
+
+
+def dw_ring_tile(cin, cout):
+    """(CI_T, CO_T): the ring body's channel tile for a conv Cin -> Cout, the
+    instance the C entry point launches. 16 input channels for the stem (one
+    m16 of 3), else 32 or 64; 32 or 64 output channels. The tiles past 16
+    input channels load by TMA, which needs both widths a multiple of 8
+    (16-byte rows): other widths take 16."""
+    ci_t, co_t = (16 if cin <= 16 else 32 if cin <= 32 else 64), (32 if cout <= 32 else 64)
+    return (16 if cin % 8 or cout % 8 else ci_t), co_t
+
+
+def dw_ring_wgmma(ci_t, co_t):
+    """Whether the ring instance multiplies on wgmma (the 64 x 64 tile),
+    else on mma.sync."""
+    return (ci_t, co_t) == (64, 64)
+
+
+def dw_ring_resources(ci_t, co_t):
+    """(threads, dynamic shared bytes, resident blocks an SM) of a ring
+    instance, as RingTile sizes it. A warp per (tap, 32 output channels) on
+    mma.sync, three warpgroups on wgmma. Each stage the (RING_TH + 2) x 18
+    window of x and the RING_TH x 16 tiles of dy and y: with TMA (CI_T >=
+    32) as dense rows (the window rounded up to 1024 bytes), with the
+    stages' mbarriers and 1024 bytes of alignment; else in rows padded by 8
+    bf16, and for CI_T = 16 the window's raw rows of a narrow x
+    (RING_RAW_ROW bytes each). RING_STAGES such stages, then the per-channel
+    vectors in f32; two blocks an SM for CO_T = 32 (CI_T <= 32) and one else
+    by the registers (``__launch_bounds__``), fewer if the shared memory
+    says so."""
+    win, pix = (RING_TH + 2) * 18, RING_TH * 16
+    threads = 384 if dw_ring_wgmma(ci_t, co_t) else 9 * co_t
+    if ci_t >= 32:
+        stage = -(-win * ci_t * 2 // 1024) * 512 + 2 * pix * co_t
+        extra = RING_STAGES * 8 + 1024
+    else:
+        stage = win * (ci_t + 8) + 2 * pix * (co_t + 8) + (RING_TH + 2) * RING_RAW_ROW // 2
+        extra = 0
+    smem = RING_STAGES * stage * 2 + 4 * (2 * ci_t + 2 * co_t) + extra
+    return threads, smem, resident_blocks(smem, 2 if co_t == 32 and ci_t <= 32 else 1)
+
+
+def dw_ring_splits(cin, cout, B, H, W):
+    """Blocks the bf16 #36 ring body splits the pixel tiles over: one wave
+    of resident blocks (``dw_ring_resources``) over the channel tiles, each
+    block the same number of tiles. A function of the shapes alone, so the
+    partial sums run in the same order on every call."""
+    ci_t, co_t = dw_ring_tile(cin, cout)
+    n_tiles = B * -(-H // RING_TH) * -(-W // 16)
+    channel_tiles = -(-cin // ci_t) * -(-cout // co_t)
+    return one_wave_splits(n_tiles, channel_tiles, dw_ring_resources(ci_t, co_t)[2])
+
+
+def dw_partials_shape(cin, cout, B, H, W, bf16):
+    """The f32 partials [splits, Cout, Cin, 3, 3] the #36 wrapper allocates:
+    the ring body's splits in bf16, ``dw_splits`` (shared with #37) in f32."""
+    splits = dw_ring_splits(cin, cout, B, H, W) if bf16 else dw_splits(cin, cout, B, H, W, bf16)
+    return splits, cout, cin, 3, 3
+
+
 def launch_conv_dw(x, w, a, b, y, dy, ds1, ds2, prologue):
-    """dW [Cout, Cin, 3, 3] on the card, rounded to x's dtype, as f32."""
+    """dW [Cout, Cin, 3, 3] on the card, rounded to x's dtype, as f32: the
+    ring body in bf16, the FMA body in f32."""
     s1, s2 = _grad_operands(x, w, y, dy, ds1, ds2, "conv3x3_bn dW kernel")
     B, H, W, cin = x.shape
     cout = w.shape[0]
     if prologue:
         a, b = _vec(a, cin, x.device, "conv prologue"), _vec(b, cin, x.device, "conv prologue")
     bf16 = x.dtype == torch.bfloat16
-    splits = dw_splits(cin, cout, B, H, W, bf16)
-    partials = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=x.device)
+    partials = torch.empty(dw_partials_shape(cin, cout, B, H, W, bf16), dtype=torch.float32,
+                           device=x.device)
     dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=x.device)
     err = build.library().cltorch_conv3x3_bn_dw(
         x.data_ptr(), _ptr(a if prologue else None), _ptr(b if prologue else None),
         dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), partials.data_ptr(), dw.data_ptr(),
-        B, H, W, cin, cout, int(prologue), splits, int(bf16), _stream(x))
+        B, H, W, cin, cout, int(prologue), partials.shape[0], *dw_ring_tile(cin, cout),
+        int(bf16), _stream(x))
     build.check(err, "conv3x3_bn_dw")
     return dw.to(x.dtype).float()
 

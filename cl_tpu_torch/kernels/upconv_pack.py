@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from cl_tpu_torch.kernels import SPLIT_BLOCKS, build
+from cl_tpu_torch.kernels import SPLIT_BLOCKS, build, one_wave_splits, resident_blocks
 
 LAUNCHES = {"upconv_fwd": 0, "upconv_dx": 0, "upconv_dw": 0}
 
@@ -121,13 +121,56 @@ def launch_upconv2x2_dx(dy, weight):
     return dx
 
 
-def dw_splits(cin, cout, pixels, bf16):
-    """Blocks the dW kernel splits the pixels over: ~SPLIT_BLOCKS in all,
-    at least one pixel slice each. A function of the shapes alone,
-    so the partial sums run in the same order on every call."""
-    bm, bn, bk = (128, 64, 32) if bf16 else (64, 64, 16)
+def dw_splits(cin, cout, pixels):
+    """Blocks the f32 dW kernel splits the pixels over: ~SPLIT_BLOCKS in
+    all, at least one 16-pixel slice each (64 x 64 tiles). A function of
+    the shapes alone, so the partial sums run in the same order on every
+    call."""
+    tiles = -(-cin // 64) * -(-(4 * cout) // 64)
+    return max(1, min(-(-SPLIT_BLOCKS // tiles), -(-pixels // 16)))
+
+
+# The bf16 dW ring kernel (csrc/upconv.cu::UpRing): slices of RING_BK
+# pixels, a ring of RING_STAGES stages.
+RING_BK = 64
+RING_STAGES = 3
+
+
+def dw_ring_tile(cin, cout):
+    """(BM, BN): the ring kernel's tile of Cin x 4·Cout, the instance the C
+    entry point launches: 64 rows up to Cin = 64 (no zero rows at level 0),
+    else 128; 128 columns up to 4·Cout = 128, else 256."""
+    return (64 if cin <= 64 else 128), (128 if 4 * cout <= 128 else 256)
+
+
+def dw_ring_resources(bm, bn):
+    """(threads, dynamic shared bytes, resident blocks an SM) of a ring
+    instance, as UpRing sizes it: warps of 32 rows x bn/4 columns; each
+    stage RING_BK pixels of x and of the dy gather, rows padded by 8 bf16;
+    the warp rows' db sums in f32; two blocks an SM for the 64 x 128 tile
+    and one for the others by the registers (``__launch_bounds__``), fewer
+    if the shared memory says so."""
+    rows = bm // 32
+    smem = RING_STAGES * RING_BK * (bm + 8 + bn + 8) * 2 + rows * bn * 4
+    return rows * 128, smem, resident_blocks(smem, 2 if (bm, bn) == (64, 128) else 1)
+
+
+def dw_ring_splits(cin, cout, pixels):
+    """Blocks the bf16 dW ring kernel splits the pixel slices over: one wave
+    of resident blocks (``dw_ring_resources``) over the tiles, each block
+    the same number of slices. A function of the shapes alone, so the
+    partial sums run in the same order on every call."""
+    bm, bn = dw_ring_tile(cin, cout)
     tiles = -(-cin // bm) * -(-(4 * cout) // bn)
-    return max(1, min(-(-SPLIT_BLOCKS // tiles), -(-pixels // bk)))
+    return one_wave_splits(-(-pixels // RING_BK), tiles, dw_ring_resources(bm, bn)[2])
+
+
+def dw_partials_shapes(cin, cout, pixels, bf16):
+    """The f32 partials the dW wrapper allocates: dW [splits, Cin, 4·Cout]
+    and the column sums [splits, 4·Cout], splits from the ring kernel's
+    picker in bf16 and ``dw_splits`` in f32."""
+    splits = dw_ring_splits(cin, cout, pixels) if bf16 else dw_splits(cin, cout, pixels)
+    return (splits, cin, 4 * cout), (splits, 4 * cout)
 
 
 def launch_upconv2x2_dw(x, dy):
@@ -136,15 +179,15 @@ def launch_upconv2x2_dw(x, dy):
     cout = dy.shape[-1]
     _check_dy(dy, x.shape, cout, x.dtype)
     bf16 = x.dtype == torch.bfloat16
-    splits = dw_splits(cin, cout, B * H * W, bf16)
+    w_shape, b_shape = dw_partials_shapes(cin, cout, B * H * W, bf16)
     f32 = dict(dtype=torch.float32, device=x.device)
-    part_w = torch.empty(splits, cin, 4 * cout, **f32)
-    part_b = torch.empty(splits, 4 * cout, **f32)
+    part_w = torch.empty(w_shape, **f32)
+    part_b = torch.empty(b_shape, **f32)
     dkg = torch.empty(cin, 4 * cout, **f32)
     db = torch.empty(cout, **f32)
     err = build.library().cltorch_upconv_dw(
         x.data_ptr(), dy.data_ptr(), part_w.data_ptr(), part_b.data_ptr(), dkg.data_ptr(),
-        db.data_ptr(), B, H, W, cin, cout, splits, int(bf16),
+        db.data_ptr(), B, H, W, cin, cout, w_shape[0], *dw_ring_tile(cin, cout), int(bf16),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "upconv_dw")
     return _dw_from_gemm(dkg, cout).to(x.dtype).float(), db
