@@ -12,8 +12,14 @@ Phases (any failure raises, so the exit code is non-zero):
    ignore pixels, one masked class where there are more than two), with
    the tolerance printed; the packed body's five forward and eight
    backward kernels at every shape of its 512² path and at 24² × 16
-   channels, in f32 and bf16 (the pool's backward plain and with the
-   skip tee, the conv's dx with a prologue whose relu(b) > 0, nonzero
+   channels, in f32 and bf16 (the conv's forward relaunched bit-equal;
+   its bf16 forward and dx, the ring body, also at ragged shapes past
+   every tile and picker branch of ``conv3x3.conv_ring_tile``: H not a
+   multiple of 16, Cout past a channel tile of 64 and of 128, widths that
+   take plain-load staging, 512 channels whose weights travel with each
+   stage, odd widths; each ring launch's resident blocks an SM held
+   against the picker's, its registers, spills and shared memory printed;
+   the pool's backward plain and with the skip tee, the conv's dx with a prologue whose relu(b) > 0, nonzero
    stats cotangents); the packed head+CE with the BN·ReLU prologue (#7/#8)
    and its KD form (#11/#12) at the headline shape (2,097,152 pixels, 32
    channels, 19 classes, bf16) and at small f32 and ragged ones, each
@@ -56,7 +62,7 @@ Phases (any failure raises, so the exit code is non-zero):
    pickers assume, with its registers, spilled bytes and shared memory
    printed, and both at ragged shapes past every tile and at widths that
    take their plain-load staging; the pipelined dx (34p/35p, ``CL_TPU_DX_PIPE``) at #34/#35's
-   shapes, bit-equal to them; the packed head without a prologue (#5/#6)
+   shapes and at the ring's ragged ones, bit-equal to them; the packed head without a prologue (#5/#6)
    at 2,097,152 x 32 -> 19 bf16 and small f32 / ragged cases; the gen-2
    conv (#40) at baseline_2's 256² × 64 → 64, 128 → 64 and 128² × 64 →
    128, at 16² × 1024 → 1024 and the 512² standard body's 32 → 32 (p = 4),
@@ -784,7 +790,8 @@ def kd_times(kernel, case):
 
 FORWARD_KERNELS = ("conv3x3_bn_fwd", "bn_relu_fwd", "add_stats_fwd", "maxpool_fwd", "upconv_fwd")
 PACKED_KERNELS = {  # launch-count key: (source, TPU kernel's pallas_call)
-    "conv3x3_bn_fwd": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:833"),
+    # the bf16 forward and dx (the kernels line's) run the ring body
+    "conv3x3_bn_fwd": ("cl_tpu_torch/csrc/conv3x3_ring.cu", "cl_tpu/pallas/conv3x3_v3.py:833"),
     "bn_relu_fwd": ("cl_tpu_torch/csrc/packed_eltwise.cu", "cl_tpu/pallas/packed_eltwise.py:93"),
     "add_stats_fwd": ("cl_tpu_torch/csrc/packed_eltwise.cu",
                       "cl_tpu/pallas/packed_eltwise.py:202"),
@@ -878,10 +885,15 @@ def compare_packed(kernel, shape, dtype_name, batch=8):
     launch, plain, _ = packed_fns(kernel)
     ops = packed_operands(kernel, shape, dtype_name, batch)
     k_out, p_out = launch(*ops), plain(*ops)
+    again = launch(*ops) if kernel == "conv3x3_bn_fwd" else None
     torch.cuda.synchronize()
     if not isinstance(k_out, tuple):
         k_out, p_out = (k_out,), (p_out,)
     name = packed_name(kernel, shape, dtype_name)
+    # the conv's sums are fixed-order partials: a second launch repeats
+    # every bit of y and of the sums
+    need(again is None or all(torch.equal(u, v) for u, v in zip(k_out, again)),
+         f"{name}: a second launch repeats every bit")
     y, yp = k_out[0], p_out[0]
     need(y.shape == yp.shape and y.dtype == yp.dtype, f"{name} shape/dtype")
     yf, pf = y.float(), yp.float()
@@ -903,7 +915,8 @@ def compare_packed(kernel, shape, dtype_name, batch=8):
             sok = bool((serr <= 1e-5 * terms.abs().sum(0) + 1e-6).all())
             ok = ok and sok
             msg += f"; sum{i} err {serr.max().item():.3g} vs plain {(k_out[i] - p_out[i]).abs().max().item():.3g}"
-    print(msg + (" ok" if ok else " FAIL"))
+    print(msg + (" relaunch bit-equal ok" if ok and again is not None else
+                 " ok" if ok else " FAIL"))
     need(ok, name)
     return diff.max().item()
 
@@ -949,8 +962,8 @@ PACKED_KERNELS.update({  # the backward kernels
     "dy_eff": ("cl_tpu_torch/csrc/packed_eltwise.cu", "cl_tpu/pallas/packed_eltwise.py:226"),
     "upconv_dx": ("cl_tpu_torch/csrc/upconv.cu", "cl_tpu/pallas/upconv_pack.py:183"),
     "upconv_dw": ("cl_tpu_torch/csrc/upconv.cu", "cl_tpu/pallas/upconv_pack.py:201"),
-    "conv3x3_bn_dx": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:1233"),
-    "conv3x3_bn_dx_bn": ("cl_tpu_torch/csrc/conv3x3_bn.cu",
+    "conv3x3_bn_dx": ("cl_tpu_torch/csrc/conv3x3_ring.cu", "cl_tpu/pallas/conv3x3_v3.py:1233"),
+    "conv3x3_bn_dx_bn": ("cl_tpu_torch/csrc/conv3x3_ring.cu",
                          "cl_tpu/pallas/conv3x3_v3.py:1259"),
     "conv3x3_bn_dw": ("cl_tpu_torch/csrc/conv3x3_bn_bwd.cu",
                       "cl_tpu/pallas/conv3x3_v3.py:1332"),
@@ -981,6 +994,21 @@ PER_FORWARD = {k: PER_STEP[k] for k in FORWARD_KERNELS}
 RING_ODD = {"conv3x3_bn_dw": [(20, 40, 72, True), (20, 64, 24, True), (20, 8, 40, True),
                               (24, 16, 12, True)],
             "upconv_dw": [(20, 72, 20), (20, 40, 48), (20, 24, 6), (20, 12, 16)]}
+# The bf16 forward's and dx's ring body (kernels/conv3x3.py::conv_ring_tile,
+# conv_ring_blocks) past every tile and picker branch, as (H, Cin, Cout) of
+# the forward conv: H not a multiple of the 16 x 16 tile; Cout past a
+# channel tile of 64 (72) and of 128 (130, the forward's COT 128); a Cin
+# that takes plain-load staging (12, and the dx's 130 and 5 of dy); Cin 8
+# in a 16-channel TMA box; odd widths (5: no bf16 pairs); 512 channels on
+# the read side, whose weights do not stay resident (they travel with each
+# stage); each forward with its prologue on, and each dx with and without.
+# bf16 only: f32 runs the FMA body, held at ODD's shapes
+RING_CONV_ODD = [(20, 40, 72), (19, 24, 130), (20, 12, 40), (12, 512, 40), (12, 40, 512),
+                 (17, 8, 24), (20, 16, 5), (20, 5, 16)]
+RING_ODD.update({
+    "conv3x3_bn_fwd": [(H, ci, co, True) for H, ci, co in RING_CONV_ODD],
+    "conv3x3_bn_dx": [(H, ci, co, False) for H, ci, co in RING_CONV_ODD],
+    "conv3x3_bn_dx_bn": [(H, ci, co, True) for H, ci, co in RING_CONV_ODD]})
 ODD.update({"conv3x3_bn_dw": ODD["conv3x3_bn_fwd"] + RING_ODD["conv3x3_bn_dw"],
            "conv3x3_bn_dx_bn": [(24, 16, 16, True)],
            "conv3x3_bn_dx": [(24, 16, 16, False), (24, 16, 3, False)],
@@ -1019,6 +1047,61 @@ def ring_info():
                   f"(the picker assumes {blocks_py}){'' if ok else ' FAIL'}")
             need(ok, f"{what}{tile}: resident blocks as the split picker assumes")
             out[f"{what}{tile}"] = (blocks, regs, local, smem)
+    return out
+
+
+def conv_ring_launches():
+    """Every bf16 ring launch of phase 3 (the forward's and the dx's at the
+    512² path's shapes and the ragged ones): {(dx, epilogue with the
+    prologue, stats, cot, ck, resident, xbuf, kernel Cin): (threads, smem,
+    blocks an SM)} as
+    ``conv3x3.conv_ring_resources`` sizes them."""
+    from cl_tpu_torch.kernels import conv3x3
+
+    out = {}
+    for kernel in ("conv3x3_bn_fwd", "conv3x3_bn_dx", "conv3x3_bn_dx_bn"):
+        dx = kernel != "conv3x3_bn_fwd"
+        for shape in [s for s, _ in PACKED_PATH[kernel]] + RING_ODD[kernel]:
+            _, cin, cout, prologue = shape
+            kin, kout = (cout, cin) if dx else (cin, cout)
+            for stats in ((True, False) if dx else (False,)):
+                cot, ck, resident = conv3x3.conv_ring_tile(kin, kout, dx, stats)
+                xbuf = conv3x3.conv_ring_xbuf(kin, kout, dx, stats, prologue)
+                out[(dx, dx and prologue, stats, cot, ck, resident, xbuf, kin)] = \
+                    conv3x3.conv_ring_resources(
+                    cot, ck, dx, stats, resident, kin, xbuf)
+    return out
+
+
+def conv_ring_info():
+    """Each bf16 ring launch of the forward and dx (#32, #34/#35) on this
+    card: the instance's resident blocks an SM at the launch's shared
+    memory held against what ``conv3x3.conv_ring_blocks`` assumes, with its
+    registers and local (spilled) bytes a thread printed. Returns {launch:
+    (blocks, regs, local, smem)}."""
+    import ctypes
+
+    from cl_tpu_torch.kernels import build
+
+    lib = build.library()
+    out = {}
+    for key, (threads, smem_py, blocks_py) in sorted(conv_ring_launches().items()):
+        dx, epi, stats, cot, ck, resident, xbuf, kin = key
+        info = (ctypes.c_int * 4)()
+        build.check(lib.cltorch_conv3x3_ring_info(int(dx), cot, ck, int(epi), smem_py,
+                                                  ctypes.addressof(info)),
+                    f"conv ring {key} info")
+        blocks, regs, local, smem = info
+        ok = blocks == blocks_py and smem == smem_py
+        print(f"  conv3x3_bn_ring<{'kDx' if dx else 'kFwd'}, {cot}, {ck}, {str(epi).lower()}> "
+              f"(Cin {kin}, "
+              f"{'stats, ' if stats else ''}{'x tile, ' if xbuf else ''}"
+              f"{'resident' if resident else 'streamed'} weights): "
+              f"{threads} threads, {regs} registers, {local} local bytes a thread, {smem} B "
+              f"shared; {blocks} blocks an SM (the picker assumes {blocks_py})"
+              f"{'' if ok else ' FAIL'}")
+        need(ok, f"conv ring {key}: resident blocks as the picker assumes")
+        out[key] = (blocks, regs, local, smem)
     return out
 
 
@@ -1131,7 +1214,7 @@ def _abs_terms(kernel, ops):
     return None
 
 
-def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True):
+def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True, known_fault=None):
     """Backward kernel vs its plain version on the card; returns the max abs
     error of its main output. Tolerances: exact for the pool and the two
     eltwise passes (the same f32 operations, one rounding); dx one bf16 ulp
@@ -1140,7 +1223,9 @@ def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True):
     dW and db 2 bf16 ulps + 1e-5·Σ|term| in bf16, 1e-5·Σ|term| + 1e-6 in f32
     (a sum over every pixel in another order); the per-channel sums of the
     eltwise and the conv's da, db 1e-5 of Σ|term|. A second launch must
-    give the same bits."""
+    give the same bits. ``known_fault`` (a reason): the main output is
+    expected to miss its tolerance, and a miss is printed as such instead
+    of failing; every other check holds as always."""
     import torch
 
     launch, plain, _ = bwd_fns(kernel)
@@ -1186,12 +1271,66 @@ def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True):
         else:  # f32 sums over the pixels: dW in f32, db, da
             tol, txt = 1e-5 * terms[i] + 1e-6, "1e-5 Σ|term| + 1e-6"
         good = bool((diff <= tol).all())
-        ok = ok and good
+        expected = known_fault is not None and i == 0
+        ok = ok and (good or expected)
         main_err = diff.max().item() if main_err is None else main_err
-        msg += f" out{i} max abs err {diff.max().item():.3g} ({txt}){'' if good else ' FAIL'};"
+        note = ("" if good and not expected else " (the expected failure did not show)" if good
+                else f" expected failure: {known_fault}" if expected else " FAIL")
+        msg += f" out{i} max abs err {diff.max().item():.3g} ({txt}){note};"
     print(msg + (" ok" if ok else " FAIL"))
     need(ok, name)
     return main_err
+
+
+# A known fault (ROADMAP Queue 3): the f32 dx without the prologue (#34's
+# FMA body) at the ragged 512-channel shape of RING_CONV_ODD, whose
+# 9 x 512 = 4,608 products a sum the body adds in one serial order, misses
+# compare_bwd's f32 dx tolerance (1e-5 + 1e-5·|plain|, which does not grow
+# with the sum's length): 3.81e-05 on the H100, 4.4 u·Σ|term| from float64
+# against cuDNN's 1.0. Phase 3 runs it expecting that miss and holds the
+# kernel and its plain version against float64 (``f32_dx_float64``).
+F32_DX_WIDE = (12, 40, 512)
+F32_DX_WIDE_FAULT = "f32 dx of 4,608-term sums vs a tolerance without Σ|term| (ROADMAP Queue 3)"
+
+
+def f32_dx_float64(kernel, shape, batch=3):
+    """The f32 dx (``conv3x3_bn_dx``, or ``conv3x3_bn_dx_bn`` with the
+    prologue) and its plain version against float64 on the same operands:
+    each one's max abs error, and its largest ratio to u·Σ|term| (u =
+    2^-24; Σ|term| the magnitudes of the products behind each output). Both
+    must lie within the bound of an f32 sum of n terms in any order, n·u·Σ|term|
+    (n: the products a sum, plus the roundings of e, of the sum and of the
+    epilogue). Returns {"kernel": (err, ratio), "plain": (err, ratio)}."""
+    import torch
+    import torch.nn.functional as F
+
+    launch, plain, _ = bwd_fns(kernel)
+    ops = bwd_operands(kernel, shape, "float32", batch)
+    x, w, a, b, y, dy, ds1, ds2, prologue = ops
+    got = {"kernel": launch(*ops)[0], "plain": plain(*ops)[0]}
+    e = dy.double() + ds1.double() + 2.0 * y.double() * ds2.double()
+
+    def conv_t(t, wt):  # dx of the conv alone, NHWC in and out
+        return F.conv_transpose2d(t.permute(0, 3, 1, 2), wt, padding=1).permute(0, 2, 3, 1)
+
+    ref, terms = conv_t(e, w.double()), conv_t(e.abs(), w.double().abs())
+    if prologue:  # du = [u > 0]·dt with u = x·a + b in f32, as both compute it
+        mask = (x.float() * a + b > 0).double()
+        ref, terms = ref * mask * a.double(), terms * mask * a.double().abs()
+    u, n = 2.0 ** -24, 9 * shape[2] + 4
+    out, ok = {}, True
+    msg = f"  {packed_name(kernel, shape, 'float32')} vs float64 (n·u·Σ|term|, n = {n}):"
+    for name, t in got.items():
+        err = (t.double() - ref).abs()
+        good = bool((err <= n * u * terms).all())
+        ratio = (err / (u * terms)).nan_to_num(0.0).max().item()
+        ok = ok and good
+        out[name] = (err.max().item(), ratio)
+        msg += (f" {name} max abs err {err.max().item():.3g}, at most {ratio:.1f} u·Σ|term|"
+                f"{'' if good else ' FAIL'};")
+    print(msg + (" ok" if ok else " FAIL"))
+    need(ok, f"{kernel}{shape} float32 vs float64")
+    return out
 
 
 def bwd_bytes_ops(kernel, shape, dtype_name, batch=8):
@@ -3150,11 +3289,24 @@ def main() -> int:
         for shape in ODD[kernel]:
             for dtype_name in ("float32", "bfloat16"):
                 check(kernel, shape, dtype_name, batch=3)
+    # the bf16 forward's and dx's ring past every tile and picker branch
+    for kernel in ("conv3x3_bn_fwd", "conv3x3_bn_dx", "conv3x3_bn_dx_bn"):
+        check = compare_packed if kernel in FORWARD_KERNELS else compare_bwd
+        for shape in RING_ODD[kernel]:
+            check(kernel, shape, "bfloat16", batch=3)
+    # the f32 dx's known fault at 512 channels (#35 there passes its
+    # tolerance, which grows with a), and both against float64
+    compare_bwd("conv3x3_bn_dx", (*F32_DX_WIDE, False), "float32", batch=3,
+                known_fault=F32_DX_WIDE_FAULT)
+    compare_bwd("conv3x3_bn_dx_bn", (*F32_DX_WIDE, True), "float32", batch=3)
+    for kernel, prologue in (("conv3x3_bn_dx", False), ("conv3x3_bn_dx_bn", True)):
+        f32_dx_float64(kernel, (*F32_DX_WIDE, prologue))
     # the split convs' dx: no stats cotangents (their sums are unused); the
     # ring body's dW without them (e = dy: eval-mode backward, the Fisher)
     compare_bwd("conv3x3_bn_dx", (512, 32, 32, False), "bfloat16", stats=False)
     compare_bwd("conv3x3_bn_dw", (256, 64, 64, True), "bfloat16", stats=False)
     ring_info()
+    conv_ring_info()
     # the packed head: at the headline shape, and small f32 / ragged / C <= 8
     bn_full = bn_case(2097152, 32, 19, "bfloat16", 2)
     bn_errs = {k: compare_bn(k, bn_full) for k in BN_KERNELS}
@@ -3266,6 +3418,10 @@ def main() -> int:
             for dtype_name in ("float32", "bfloat16"):
                 check(shape, dtype_name, batch=3)
     compare_pipe("conv3x3_bn_dx_pipe", (512, 32, 32, False), "bfloat16", stats=False)
+    # and the ring's dx at its ragged shapes: 34p/35p bit for bit
+    for kernel in ("conv3x3_bn_dx", "conv3x3_bn_dx_bn"):
+        for shape in RING_ODD[kernel]:
+            compare_pipe(kernel + "_pipe", shape, "bfloat16", batch=3)
     pk_errs = {k: compare_bn(k, bn_full) for k in PK_KERNELS}
     for args in ((4096, 32, 19, "float32", 7), (1000, 32, 5, "float32", 5),
                  (1000, 16, 3, "bfloat16", 6)):

@@ -28,11 +28,23 @@
 // are layout devices: zeros add nothing, and here the input channels are
 // walked in chunks of 16 with the tail zero-filled.
 //
-// What bounds it on the H100: at the packed body's shapes, bytes on the
-// tensor cores (512^2 x 32 -> 32 at batch 8: 38.7 GFLOP, 39 us at
-// 989 TFLOP/s, against 268 MB of input and output, 80 us at 3.35 TB/s;
-// the dx reads dy, y and x and writes dx, 537 MB, 160 us), operations on
-// the FMA units (580 us at the f32 peak of 67 TFLOP/s).
+// What bounds it on the H100 (bf16, batch 8; the bound the larger of the
+// bytes each input read once and each output written once at 3.35 TB/s
+// and the products at 989 TFLOP/s, chip_smoke.packed_bytes_ops /
+// bwd_bytes_ops): bytes at the 512^2 and 256^2 levels (512^2 x 32 -> 32:
+// the forward 0.080 ms, #34 0.120, #35 0.160), the tensor cores at 128^2
+// (128 -> 128: 38.7 GFLOP, 0.039 ms); in f32 the FMA units (580 us at the
+// f32 peak of 67 TFLOP/s at 512^2 x 32 -> 32).
+//
+// Where each runs: in bf16 the forward and dx (#32, #34/#35) launch the
+// ring body (conv3x3_ring.cu, conv3x3_ring_body.cuh, whose note gives the
+// per-shape bounds, what held the first body at 4-6x them and what the
+// ring does about it, and why the dx's accumulation order is fixed),
+// which the wrapper calls directly. Here remain their
+// f32 instances of the FMA body, and the first bf16 body
+// (conv3x3_body.cuh::conv3x3_mma_body) for the plain conv and the dx from
+// int8 below, with mma_chunk / mma_epilogue for 34p/35p: the order the
+// ring keeps, so its dx gives their bits.
 //
 // Also the plain gen-3 conv, cl_tpu/pallas/conv3x3_v3.py::_fwd_kernel
 // (launched at conv3x3_v3.py:522 by `_fwd_packed`): y = round(conv3x3_SAME(x,
@@ -71,8 +83,8 @@
 // "34p / 35p" below); the chunks, taps and epilogue are the bodies' own,
 // so its bits are #34/#35's. Bound as #34/#35: bytes on the tensor cores.
 //
-// The two bodies (FMA for f32, mma.sync for bf16), each templated on what it
-// computes, are in conv3x3_body.cuh, shared with the gen-2 conv.
+// The first two bodies (FMA for f32, mma.sync for bf16), each templated on
+// what it computes, are in conv3x3_body.cuh, shared with the gen-2 conv.
 
 #include <algorithm>
 
@@ -89,11 +101,6 @@ __global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p)
 template <typename T>
 __global__ void __launch_bounds__(kConvThreads) conv3x3_v3_kernel(ConvArgs<T> p) {
   conv3x3_fma_body<kPlain>(p);
-}
-
-template <bool DX, int COT>
-__global__ void __launch_bounds__(kMmaThreads) conv3x3_bn_mma_kernel(ConvArgs<bf16> p) {
-  conv3x3_mma_body<DX ? kDx : kFwd, COT>(p);
 }
 
 template <int COT>
@@ -113,7 +120,8 @@ __global__ void __launch_bounds__(kMmaThreads) conv3x3_q_dx_mma_kernel(ConvArgs<
 }
 
 // Launches the kernel of the type and mode and, when it sums, the
-// reduction of its partial rows into out [2, Cout].
+// reduction of its partial rows into out [2, Cout]. The forward and dx take
+// f32 only here: in bf16 they run the ring body (conv3x3_ring.cu).
 template <int MODE>
 int conv3x3_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, int B, void* out,
                    cudaStream_t st) {
@@ -138,13 +146,9 @@ int conv3x3_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, int B
       conv3x3_q_dx_mma_kernel<MODE, 64><<<grid64, kMmaThreads, 0, st>>>(pb16);
     else
       conv3x3_q_dx_mma_kernel<MODE, 32><<<grid32, kMmaThreads, 0, st>>>(pb16);
-  } else {
-    if (!is_bf16)
-      conv3x3_bn_kernel<DX, float><<<grid32, kConvThreads, 0, st>>>(pf32);
-    else if (Cout % 64 == 0)
-      conv3x3_bn_mma_kernel<DX, 64><<<grid64, kMmaThreads, 0, st>>>(pb16);
-    else
-      conv3x3_bn_mma_kernel<DX, 32><<<grid32, kMmaThreads, 0, st>>>(pb16);
+  } else {  // f32; bf16 runs the ring body (conv3x3_ring.cu)
+    if (is_bf16) return (int)cudaErrorInvalidValue;
+    conv3x3_bn_kernel<DX, float><<<grid32, kConvThreads, 0, st>>>(pf32);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || (DX && !pf32.prologue)) return (int)err;
@@ -471,7 +475,8 @@ __global__ void __launch_bounds__(kQuantThreads)
 // f32 [Cin] for the forward, [Cout] for dx (read only with `prologue`);
 // s1, s2 f32 [Cin] or null; `partials` holds (number of 16 x 16 tiles) *
 // B * 2 * Cout floats; `out` is [2, Cout]: the forward's (sum, sum of
-// squares), dx's (da, db).
+// squares), dx's (da, db). The forward and dx take f32 only: in bf16 the
+// wrapper calls conv3x3_ring.cu's cltorch_conv3x3_bn_ring.
 extern "C" {
 
 int cltorch_conv3x3_bn_fwd(const void* x, const void* w, const void* a, const void* b, void* y,

@@ -34,7 +34,8 @@
 // note there says what it does about each cause that held the first body.
 // The tile (CI_T, CO_T) and the splits come from the wrapper
 // (kernels/conv3x3.py::dw_ring_tile, dw_ring_splits), which mirrors
-// RingTile's resources; the TMA maps are made here at each launch. f32 #36
+// RingTile's resources; the TMA maps are made here (conv3x3_tma.cuh, cached
+// by pointer and shape). f32 #36
 // runs the FMA body.
 //
 // Three more instances of the first bodies (KIND below), each computing
@@ -186,43 +187,6 @@ cudaError_t ring_smem_allowed() {
                            RingTile<CI_T, CO_T>::kSmem);
   if (err == cudaSuccess && dev < 16) done[dev] = true;
   return err;
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
-// against libcuda).
-typedef CUresult (*TmEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-TmEncodeTiled tm_encode() {
-  static TmEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) == cudaSuccess)
-      fn = reinterpret_cast<TmEncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A TMA map of the bf16 NHWC tensor p [B, H, W, C] whose box is bc channels
-// (32 or 64: the 64- or 128-byte swizzle) x bw columns x bh rows of one
-// image, zeros outside.
-cudaError_t tm_nhwc(CUtensorMap* m, const void* p, int B, int H, int W, int C, int bc, int bw,
-                    int bh) {
-  const TmEncodeTiled fn = tm_encode();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh, 1};
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
-            ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            bc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
 }
 
 // bf16 #36 on the ring body with the wrapper's CI_T x CO_T tile; for CI_T >=

@@ -1,13 +1,44 @@
-// The 3x3 SAME conv's two bodies over NHWC, each instanced by a MODE of
-// conv3x3_bn.cuh: the forward with the BN-ReLU prologue and the batch-stats
-// epilogue, the dx, the plain conv and the dx from int8. Shared by
-// conv3x3_bn.cu (the packed conv's #32, #34/#35, 34p/35p and #38, the gen-3
-// plain conv #30) and conv3x3_g2.cu (the gen-2 conv #40).
+// The 3x3 SAME conv's first two bodies over NHWC, each instanced by a MODE
+// of conv3x3_bn.cuh. Shared by conv3x3_bn.cu and conv3x3_g2.cu.
 //
-// Two bodies, each templated on what it computes (forward, dx, plain or a
-// dx from int8);
-// the staging of the window and the epilogue differ, the tile, the tap
-// loop and the fixed-order sums are shared:
+// What they replace (cl_tpu/pallas/conv3x3_v3.py unless named):
+// * f32, the FMA body: the packed conv's forward ::_fwd_bn_kernel (#32,
+//   launched at :833) and dx ::_dx_slim_kernel / ::_dx_bn_kernel (#34, #35,
+//   :1233, :1259), the gen-3 plain conv ::_fwd_kernel (#30, :522), the dx
+//   from int8 ::_dx_q_kernel (#38, :1657) and the gen-2 conv
+//   cl_tpu/pallas/conv3x3.py::_fwd_kernel (#40, conv3x3.py:279);
+// * bf16, the mma.sync body (conv3x3_mma_body): #30, #38 and #40 (kPlain,
+//   kDxQ, kDxQX). The bf16 forward and dx of the packed conv (#32, #34,
+//   #35) run the ring body (conv3x3_ring_body.cuh); moving #30, #38 and
+//   #40 onto it is later work.
+//
+// What bounds them on the H100 (batch 8): in bf16 bytes at 512^2 and 256^2
+// and the tensor cores at 128^2, the packed conv's forward / #34 / #35
+// bounds being 0.080 / 0.120 / 0.160 ms at 512^2 x 32 -> 32, 0.040 / 0.060
+// / 0.080 at 256^2 x 64 -> 64 and 0.039 / 0.039 / 0.040 at 128^2 x 128 ->
+// 128 (3.35 TB/s, 989 TFLOP/s); in f32 the FMA units (38.7 GFLOP a conv of
+// those shapes, 577 us at 67 TFLOP/s).
+//
+// What held the bf16 body at 4-6x those bounds, and where it is addressed:
+// each 16-channel chunk is staged synchronously through registers with two
+// barriers a chunk, nothing in flight while a chunk multiplies; every block
+// re-stages its 9 x COT x Cin weights for one 16 x 16 tile (as many bytes as
+// the windows); its fragments are 32-bit shared loads (mma_chunk: about two
+// a product); the per-channel vectors are read from global memory per
+// element; the 18 x 18 halo reads 1.27x the pixels. The ring body answers
+// each for #32/#34/#35 (a persistent TMA ring, resident weights, ldmatrix,
+// vectors in shared memory); this body keeps them for the kinds above.
+//
+// Why mma_chunk's order is fixed: it defines the bits of the packed conv's
+// bf16 dx. The pipelined dx (34p/35p) and the one-pass backward (#37) run
+// mma_chunk and mma_epilogue, and the ring body's dx accumulates in the
+// same order (16-channel chunks ascending, taps 0-8, one m16n8k16 each, on
+// the same bf16 operands) and sums the same partial rows, so all of them
+// give #34/#35's bits (chip_smoke.compare_pipe, compare_fused).
+//
+// The two bodies, each templated on what it computes (forward, dx, plain or
+// a dx from int8); the staging of the window and the epilogue differ, the
+// tile, the tap loop and the fixed-order sums are shared:
 //
 // * bf16: an implicit GEMM on the tensor cores, mma.sync m16n8k16 with f32
 //   accumulation (bf16 products are exact, so only the f32 sum order
@@ -184,6 +215,8 @@ __device__ __forceinline__ void conv3x3_fma_body(const ConvArgs<T>& p) {
 
 template <int MODE, int COT>
 __device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
+  static_assert(MODE == kPlain || MODE == kDxQ || MODE == kDxQX,
+                "the bf16 forward and dx run the ring body (conv3x3_ring_body.cuh)");
   constexpr int NT = COT / 8;  // n8 tiles per warp
   __shared__ __align__(16) bf16 in_s[kWinH * kWinW * kRowS];
   __shared__ __align__(16) bf16 w_s[9 * COT * kRowS];
@@ -214,16 +247,12 @@ __device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
       const int c = ci0 + half * 8;
       const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
-      if constexpr (MODE == kDx)
-        stage8_e(&in_s[pix * kRowS + half * 8], p.in + i, p.s1 ? p.y + i : nullptr, c, Cin,
-                 inside, p.s1, p.s2);
-      else if constexpr (MODE == kDxQ || MODE == kDxQX)
+      if constexpr (MODE == kPlain)
+        stage8_t(&in_s[pix * kRowS + half * 8], p.in + i, c, Cin, inside, 0, nullptr, nullptr);
+      else
         stage8_eq(&in_s[pix * kRowS + half * 8], p.in + i, p.yq + i,
                   p.ysc + ((int64_t)(b * H + gy) * p.pack + gx % p.pack) * Cin + c, c, Cin,
                   inside, p.s1, p.s2);
-      else
-        stage8_t(&in_s[pix * kRowS + half * 8], p.in + i, c, Cin, inside,
-                 MODE == kFwd ? p.prologue : 0, p.pa, p.pb);
     }
     for (int e = threadIdx.x; e < 9 * COT * 2; e += kMmaThreads) {
       const int half = e & 1, row = e >> 1;  // row = tap * COT + co

@@ -74,9 +74,8 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap
-
 #include "conv3x3_bn.cuh"
+#include "conv3x3_tma.cuh"  // TMA, mbarriers
 
 namespace cltorch {
 namespace {
@@ -280,36 +279,6 @@ struct RingTile {
   __device__ static int e_at(int pix, int q) { return at<kRowE>(pix, q); }
 };
 
-// TMA: a 4-d box of `tm` at (c, w, h, b) into shared `dst`, completing on
-// the mbarrier `bar`; and the mbarrier operations it needs.
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* tm, int c, int w, int h,
-                                            int b, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c), "r"(w), "r"(h), "r"(b), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Waits until the mbarrier's phase `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nwait:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra wait;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
 // wgmma: a shared-memory matrix descriptor with the 128-byte swizzle (start,
 // LBO, SBO, each >> 4; layout type 1).
 __device__ __forceinline__ uint64_t wg_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
@@ -323,11 +292,6 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Generic-proxy writes to shared memory (stores, cp.async) made visible to
-// the async proxy wgmma reads through.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // Keeps the compiler from moving accumulator accesses across an async wgmma.
 template <int N>

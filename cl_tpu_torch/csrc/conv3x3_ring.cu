@@ -1,0 +1,164 @@
+// The bf16 packed conv's forward (#32) and dx (#34, #35) on the ring body
+// (conv3x3_ring_body.cuh::conv_ring_body, whose note says what bounds them
+// on the H100 and what the design does about it).
+//
+// Replaces, in bf16, the TPU kernels of cl_tpu/pallas/conv3x3_v3.py:
+// ::_fwd_bn_kernel (launched at conv3x3_v3.py:833 by `conv_bn_fused`),
+// ::_dx_slim_kernel (:1233) and ::_dx_bn_kernel (:1259), which compute what
+// conv3x3_bn.cu's header states; the f32 instances stay in conv3x3_bn.cu.
+//
+// One kernel per (MODE, COT, CK, EPI): kFwd with 32, 64 or 128 output
+// channels a block, kDx with 32 or 64, each with (#35) and without (#34) the
+// prologue's epilogue; 16 or 32 input channels a stage. The wrapper
+// (kernels/conv3x3.py::conv_ring_tile, conv_ring_blocks) picks the instance,
+// whether the weights stay resident and the blocks of one wave from the
+// shapes alone; the launcher recomputes the shared memory from the same
+// formula (conv_ring_smem) and refuses what does not fit. TMA maps of the
+// window's tensors and of the weight are encoded once per (pointer, shape)
+// and cached (conv3x3_tma.cuh::tm_tiled).
+
+#include "conv3x3_ring_body.cuh"
+
+namespace cltorch {
+namespace {
+
+constexpr int kRingConvSmemMax = 232448;  // a block's dynamic shared memory on the H100
+
+template <int MODE, int COT, int CK, bool EPI>
+__global__ void __launch_bounds__(kRingConvThreads, ConvRingTile<COT, CK>::kMinBlocks)
+    conv3x3_bn_ring_kernel(ConvArgs<bf16> p, RingArgs ra, const __grid_constant__ CUtensorMap tm_in,
+                           const __grid_constant__ CUtensorMap tm_y,
+                           const __grid_constant__ CUtensorMap tm_w,
+                           const __grid_constant__ CUtensorMap tm_x) {
+  conv_ring_body<MODE, COT, CK, EPI>(p, ra, &tm_in, &tm_y, &tm_w, &tm_x);
+}
+
+// The instance's dynamic shared memory above 48 KB, allowed once per
+// instance and device (at the most a block can have; each launch asks for
+// its own size).
+template <int MODE, int COT, int CK, bool EPI>
+cudaError_t ring_conv_smem_allowed() {
+  static bool done[16] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 16 && done[dev]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kRingConvSmemMax);
+  if (err == cudaSuccess && dev < 16) done[dev] = true;
+  return err;
+}
+
+// One launch of the instance over `blocks` x (Cout / COT) blocks, then the
+// fixed-order sum of its partial rows into `sums` [2, Cout]: the forward's
+// one row a block, the dx's (with the prologue) one row a 16 x 16 tile.
+template <int MODE, int COT, int CK, bool EPI>
+int ring_launch(const ConvArgs<bf16>& p, const RingArgs& ra, int blocks, void* sums,
+                cudaStream_t st) {
+  constexpr bool DX = MODE == kDx;
+  const bool stats = DX && p.s1 != nullptr;
+  const int B = ra.batch, H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
+  const bool xbuf = DX && EPI && ra.xbuf;
+  const int smem = conv_ring_smem<COT, CK>(DX, stats, ra.resident != 0, xbuf, Cin);
+  if ((!ra.resident && !ra.tma) || (xbuf && (Cout & 7)) || smem > kRingConvSmemMax || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = ring_conv_smem_allowed<MODE, COT, CK, EPI>();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tms[4] = {};
+  if (ra.tma) {
+    if ((err = tm_nhwc(&tms[0], p.in, B, H, W, Cin, CK, kWinW, kWinH)) != cudaSuccess ||
+        (stats && (err = tm_nhwc(&tms[1], p.y, B, H, W, Cin, CK, kWinW, kWinH)) != cudaSuccess) ||
+        (err = tm_weights(&tms[2], p.w, Cin, Cout, CK, COT)) != cudaSuccess)
+      return (int)err;
+  }
+  if (xbuf && (err = tm_nhwc(&tms[3], p.x, B, H, W, Cout, COT, kTW, kTH)) != cudaSuccess)
+    return (int)err;
+  const dim3 grid(blocks, (Cout + COT - 1) / COT);
+  conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>
+      <<<grid, kRingConvThreads, smem, st>>>(p, ra, tms[0], tms[1], tms[2], tms[3]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || (DX && !p.prologue)) return (int)err;
+  const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
+  reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(p.partials, DX ? tiles * B : blocks,
+                                                          2 * Cout, 2 * Cout,
+                                                          static_cast<float*>(sums));
+  return (int)cudaGetLastError();
+}
+
+// What the card gives an instance at `smem` dynamic bytes: {resident blocks
+// an SM, registers a thread, local (spilled) bytes a thread, smem}.
+template <int MODE, int COT, int CK, bool EPI>
+int ring_info(int smem, int* out) {
+  cudaError_t err = ring_conv_smem_allowed<MODE, COT, CK, EPI>();
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>, kRingConvThreads, smem);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = smem;
+  return (int)err;
+}
+
+}  // namespace
+}  // namespace cltorch
+
+// The instances: (dx, cot, ck) as kernels/conv3x3.py::conv_ring_tile picks
+// them, the dx's with and without the prologue's epilogue (#35, #34); any
+// other is refused (cudaErrorInvalidValue).
+#define CLTORCH_CONV_RING_DX(CALL, COT, CK)                                         \
+  if (dx && cot == COT && ck == CK)                                               \
+    return epi ? CALL(cltorch::kDx, COT, CK, true) : CALL(cltorch::kDx, COT, CK, false);
+#define CLTORCH_CONV_RING_DISPATCH(CALL)                                             \
+  if (!dx && cot == 32 && ck == 16) return CALL(cltorch::kFwd, 32, 16, false);      \
+  if (!dx && cot == 32 && ck == 32) return CALL(cltorch::kFwd, 32, 32, false);      \
+  if (!dx && cot == 64 && ck == 16) return CALL(cltorch::kFwd, 64, 16, false);      \
+  if (!dx && cot == 64 && ck == 32) return CALL(cltorch::kFwd, 64, 32, false);      \
+  if (!dx && cot == 128 && ck == 16) return CALL(cltorch::kFwd, 128, 16, false);    \
+  if (!dx && cot == 128 && ck == 32) return CALL(cltorch::kFwd, 128, 32, false);    \
+  CLTORCH_CONV_RING_DX(CALL, 32, 16)                                                \
+  CLTORCH_CONV_RING_DX(CALL, 32, 32)                                                \
+  CLTORCH_CONV_RING_DX(CALL, 64, 16)                                                \
+  CLTORCH_CONV_RING_DX(CALL, 64, 32)                                                \
+  return (int)cudaErrorInvalidValue;
+
+extern "C" {
+
+// The bf16 forward (dx = 0: in = x [B, H, W, Cin], out = y [B, H, W, Cout],
+// sums = (Σy, Σy²)) or dx (dx = 1: in = dy and y [B, H, W, Cin] of the
+// kernel's own Cin, x and out = dx [B, H, W, Cout], sums = (da, db) with
+// the prologue), w the kernel's [3, 3, Cout, Cin]; `partials` holds blocks
+// (forward) or 16 x 16 tiles x B (dx) rows of 2 x Cout floats; `xbuf`
+// (the dx with the prologue, Cout a multiple of 8) copies each tile's x
+// in by TMA; cot, ck, resident, xbuf and blocks are the wrapper's
+// schedule (kernels/conv3x3.py::conv_ring_tile, conv_ring_xbuf,
+// conv_ring_blocks).
+int cltorch_conv3x3_bn_ring(int dx, const void* in, const void* y, const void* s1,
+                            const void* s2, const void* w, const void* a, const void* b,
+                            const void* x, void* out, void* partials, void* sums, int B, int H,
+                            int W, int Cin, int Cout, int prologue, int cot, int ck, int resident,
+                            int xbuf, int blocks, void* stream) {
+  using namespace cltorch;
+  const ConvArgs<bf16> p =
+      conv_args<bf16>(in, y, s1, s2, w, a, b, x, out, partials, H, W, Cin, Cout, prologue);
+  const RingArgs ra{B, resident, (Cin & 7) == 0, xbuf};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool epi = prologue != 0;
+#define CLTORCH_CONV_RING_LAUNCH(MODE, COT, CK, EPI) \
+  ring_launch<MODE, COT, CK, EPI>(p, ra, blocks, sums, st)
+  CLTORCH_CONV_RING_DISPATCH(CLTORCH_CONV_RING_LAUNCH)
+#undef CLTORCH_CONV_RING_LAUNCH
+}
+
+// The instance (dx, cot, ck, epi: the dx's prologue) on this card at `smem`
+// bytes: out[4] as ring_info.
+int cltorch_conv3x3_ring_info(int dx, int cot, int ck, int epi, int smem, int* out) {
+#define CLTORCH_CONV_RING_INFO(MODE, COT, CK, EPI) \
+  cltorch::ring_info<MODE, COT, CK, EPI>(smem, out)
+  CLTORCH_CONV_RING_DISPATCH(CLTORCH_CONV_RING_INFO)
+#undef CLTORCH_CONV_RING_INFO
+}
+
+}  // extern "C"

@@ -17,6 +17,13 @@ with the launches queued back to back and once synchronised after each.
 Prints per kernel and shape the two versions' medians over their turns,
 the sums over one packed step, and the card's ``nvidia-smi`` name and
 power limit. A name it does not know is refused before any turn runs.
+
+    python3 -m cl_tpu_torch.kernel_ab --host-issue OLD_DIR NEW_DIR
+
+times instead, in the same turns, the host's issue of one headline step
+(``HEADLINE``: 512², batch 8, bf16, the packed body and head) with each
+checkout's ``chip_smoke.build_step`` and ``host_issue_ms`` (the median of
+five steps issued while the card sleeps), three readings a turn.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ import sys
 import numpy as np
 
 FORWARD = ("conv3x3_bn_fwd", "bn_relu_fwd", "add_stats_fwd", "maxpool_fwd", "upconv_fwd")
+HEADLINE = ["preset=baseline_1", "data.image_size=512", "data.source_size=576",
+            "data.num_classes=19", "train.compute_dtype=bfloat16", "model.packed_unet=true",
+            "data.dataset=synthetic", "train.data_parallel=false"]
 BACKWARD = ("conv3x3_bn_dw", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "upconv_dx", "upconv_dw",
             "maxpool_bwd", "bn_relu_bwd", "dy_eff")
 
@@ -79,11 +89,33 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def _use_checkout(root):
+    sys.path = [root] + [p for p in sys.path if os.path.abspath(p or ".") !=
+                         os.path.dirname(os.path.abspath(__file__))]
+
+
+def _host_issue_worker(root):
+    """One turn in checkout ``root``: {"host_issue_ms": [three readings]}
+    of the headline step, as one JSON line."""
+    _use_checkout(root)
+    import chip_smoke
+    import torch
+
+    from cl_tpu_torch.config import parse_overrides
+
+    _, _, step, batch, valid = chip_smoke.build_step(parse_overrides(HEADLINE),
+                                                     torch.device("cuda"))
+    for _ in range(3):
+        step(batch, valid)
+    torch.cuda.synchronize()
+    print(json.dumps({"host_issue_ms": [chip_smoke.host_issue_ms(step, batch, valid)
+                                        for _ in range(3)]}))
+
+
 def _worker(root, kernels):
     """One turn in checkout ``root``: {kernel: [[shape, n per step, queued
     ms, synchronised ms], ...]} as one JSON line."""
-    sys.path = [root] + [p for p in sys.path if os.path.abspath(p or ".") !=
-                         os.path.dirname(os.path.abspath(__file__))]
+    _use_checkout(root)
     import chip_smoke
     from cl_tpu_torch.kernels import build
 
@@ -104,7 +136,12 @@ def main(argv) -> int:
     if argv[:1] == ["--worker"]:
         _worker(argv[1], argv[2:])
         return 0
-    if len(argv) < 2:
+    if argv[:1] == ["--host-issue-worker"]:
+        _host_issue_worker(argv[1])
+        return 0
+    host_issue = argv[:1] == ["--host-issue"]
+    argv = argv[1:] if host_issue else argv
+    if len(argv) < 2 or (host_issue and len(argv) > 2):
         print(__doc__, file=sys.stderr)
         return 2
     dirs = {"old": os.path.abspath(argv[0]), "new": os.path.abspath(argv[1])}
@@ -112,10 +149,15 @@ def main(argv) -> int:
     check_names(kernels)
     turns = {"old": [], "new": []}
     for which in ("old", "new", "new", "old"):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                              dirs[which], *kernels], cwd=dirs[which], capture_output=True,
-                             text=True, check=True)
+        worker = ["--host-issue-worker", dirs[which]] if host_issue else \
+            ["--worker", dirs[which], *kernels]
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), *worker],
+                             cwd=dirs[which], capture_output=True, text=True, check=True)
         turns[which].append(json.loads(res.stdout.strip().splitlines()[-1]))
+        if host_issue:
+            print(f"{which}: host issue of one headline step, ms: "
+                  f"{turns[which][-1]['host_issue_ms']}")
+    kernels = [] if host_issue else kernels
     for kernel in kernels:
         sums = {}
         for i, (shape, n, _, _) in enumerate(turns["new"][0][kernel]):

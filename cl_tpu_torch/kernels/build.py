@@ -48,6 +48,8 @@ SIGNATURES = {
     "cltorch_kd_fwd": [P] * 6 + [I] * 4 + [F, I, P],
     "cltorch_kd_bwd": [P] * 6 + [I] * 4 + [F, I, P],
     "cltorch_conv3x3_bn_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "cltorch_conv3x3_bn_ring": [I] + [P] * 11 + [I] * 11 + [P],
+    "cltorch_conv3x3_ring_info": [I, I, I, I, I, P],
     "cltorch_bn_relu_fwd": [P, P, P, P, L, I, I, P],
     "cltorch_add_stats_fwd": [P, P, P, P, P, L, I, I, I, P],
     "cltorch_maxpool_fwd": [P, P, I, I, I, I, I, P],

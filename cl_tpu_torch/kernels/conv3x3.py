@@ -70,6 +70,8 @@ the plain versions. ``LAUNCHES`` counts the kernel launches.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -268,6 +270,135 @@ def _kernel_weight(w, dtype):
     return w.to(dtype).permute(*order).contiguous()
 
 
+# The bf16 forward's and dx's ring body (csrc/conv3x3_ring_body.cuh): a
+# 16 x 16 pixel tile, RING_CONV_STAGES raw stages of the 18 x 18 window.
+RING_CONV_STAGES = 2
+RING_CONV_WIN = (TILE + 2) ** 2
+RING_CONV_SMEM_MAX = 232448  # a block's dynamic shared memory on the H100
+
+
+def conv_ring_smem(cot, ck, dx, stats, resident, cin, xbuf=False):
+    """Dynamic shared bytes of a ring launch, as ``conv_ring_smem`` in the
+    CUDA body computes them: 1024 of alignment; the weights ([9][COT][CK]
+    a chunk of CK input channels) of every chunk when resident; the stages,
+    each the window's CK channels (x or dy; 1024-byte rounded) and, when
+    not resident, its weight chunk; one y window where the dx forms e from
+    a TMA copy of y (stats, Cin a multiple of 8); #35's 16 x 16 x COT x
+    tile where it is copied in (``xbuf``); the f32 vectors and sums; five
+    mbarriers."""
+    win = -(-RING_CONV_WIN * ck * 2 // 1024) * 1024
+    wch = 9 * cot * ck * 2
+    nch = -(-cin // ck)
+    stage = win + (0 if resident else wch)
+    y_win = win if stats and cin % 8 == 0 else 0
+    floats = 2 * nch * ck + (2 * cot if dx else 0) + 32 * cot + (0 if dx else 2 * cot)
+    return (1024 + (nch * wch if resident else 0) + RING_CONV_STAGES * stage + y_win
+            + (TILE * TILE * cot * 2 if xbuf else 0) + 4 * floats + 40)
+
+
+def conv_ring_min_blocks(cot):
+    """The instance's ``__launch_bounds__`` blocks an SM: two at 32 output
+    channels, one else."""
+    return 2 if cot == 32 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def conv_ring_tile(cin, cout, dx, stats):
+    """(COT, CK, resident): the ring instance for a launch whose kernel
+    reads ``cin`` channels and writes ``cout`` (the dx's: the forward's Cout
+    and Cin), ``stats`` whether the dx forms e from y. COT output channels
+    a block: 32, 64, or for the forward 128 (the dx keeps 64 at most); CK
+    input channels a stage: 32 where the window loads by TMA (Cin a
+    multiple of 8) and is wider than 16, else 16. The first (COT, CK), widest
+    first, whose resident weights and ring fit the instance's blocks an SM,
+    else the first that fits one; where no resident choice fits, the weights
+    travel with each stage (TMA widths only). Raises where nothing fits."""
+    tma = cin % 8 == 0
+    cots = [32] if cout <= 32 else [64, 32] if cout <= 64 or dx else [128, 64, 32]
+    cks = [32, 16] if tma and cin > 16 else [16]
+    for resident in (True, False) if tma else (True,):
+        fits = [(cot, ck) for cot in cots for ck in cks
+                if conv_ring_smem(cot, ck, dx, stats, resident, cin) <= RING_CONV_SMEM_MAX]
+        for cot, ck in fits:
+            smem = conv_ring_smem(cot, ck, dx, stats, resident, cin)
+            if resident_blocks(smem, conv_ring_min_blocks(cot)) == conv_ring_min_blocks(cot):
+                return cot, ck, resident
+        if fits:
+            return (*fits[0], resident)
+    raise ValueError(f"conv3x3_bn ring kernel: no tile fits a conv of {cin} -> {cout} "
+                     "channels in shared memory")
+
+
+def conv_ring_resources(cot, ck, dx, stats, resident, cin, xbuf=False):
+    """(threads, dynamic shared bytes, resident blocks an SM) of a ring
+    launch: 256 threads, and the blocks the shared memory and the
+    instance's registers (``__launch_bounds__``) allow."""
+    smem = conv_ring_smem(cot, ck, dx, stats, resident, cin, xbuf)
+    return 256, smem, resident_blocks(smem, conv_ring_min_blocks(cot))
+
+
+@functools.lru_cache(maxsize=None)
+def conv_ring_xbuf(cin, cout, dx, stats, prologue):
+    """Whether the dx with the prologue (#35) copies each tile's x in by
+    TMA while the tile multiplies, for its epilogue: where x's rows are
+    16-byte multiples (Cout a multiple of 8) and the tile fits beside the
+    ring without costing a resident block; else the epilogue reads x from
+    global memory."""
+    if not (dx and prologue and cout % 8 == 0):
+        return False
+    cot, ck, resident = conv_ring_tile(cin, cout, dx, stats)
+    base = conv_ring_resources(cot, ck, dx, stats, resident, cin)
+    with_x = conv_ring_resources(cot, ck, dx, stats, resident, cin, True)
+    return with_x[1] <= RING_CONV_SMEM_MAX and with_x[2] == base[2]
+
+
+@functools.lru_cache(maxsize=None)
+def conv_ring_blocks(cin, cout, B, H, W, dx, stats, prologue=False):
+    """Blocks a ring launch walks the 16 x 16 pixel tiles of its B images
+    with, for each tile of COT output channels: one wave of resident blocks
+    (``conv_ring_resources``), each the same number of tiles. A function of
+    the shapes alone, so the forward's partial sums (one row a block) run
+    in the same order on every call."""
+    cot, ck, resident = conv_ring_tile(cin, cout, dx, stats)
+    xbuf = conv_ring_xbuf(cin, cout, dx, stats, prologue)
+    n_tiles = B * -(-H // TILE) * -(-W // TILE)
+    blocks = conv_ring_resources(cot, ck, dx, stats, resident, cin, xbuf)[2]
+    return one_wave_splits(n_tiles, -(-cout // cot), blocks)
+
+
+def conv_partials_shape(cin, cout, B, H, W, bf16):
+    """The f32 partials [rows, 2, Cout] the forward's wrapper allocates: one
+    row a block of the ring in bf16, one a 16 x 16 tile of each image in
+    f32."""
+    rows = conv_ring_blocks(cin, cout, B, H, W, False, False) if bf16 else \
+        B * -(-H // TILE) * -(-W // TILE)
+    return rows, 2, cout
+
+
+def dx_partials_shape(cin, B, H, W, prologue):
+    """The f32 partials [rows, 2, Cin] of the dx's da and db: one row a 16 x
+    16 tile of each image with the prologue (the rows 34p/35p and #37 sum
+    in the same order), else one unread row."""
+    return (B * -(-H // TILE) * -(-W // TILE) if prologue else 1), 2, cin
+
+
+def _launch_ring(dx, src, y, s1, s2, wk, a, b, x, out, partials, sums, prologue):
+    """The bf16 ring body's launch (``csrc/conv3x3_ring.cu``) of the forward
+    (``src`` = x, ``out`` = y) or the dx (``src`` = dy, ``out`` = dx), with
+    the schedule its shapes give (``conv_ring_tile``, ``conv_ring_xbuf``,
+    ``conv_ring_blocks``); returns the entry point's error code."""
+    B, H, W, cin = src.shape
+    cout = out.shape[-1]
+    stats = s1 is not None
+    cot, ck, resident = conv_ring_tile(cin, cout, dx, stats)
+    return build.library().cltorch_conv3x3_bn_ring(
+        int(dx), src.data_ptr(), _ptr(y), _ptr(s1), _ptr(s2), wk.data_ptr(), _ptr(a), _ptr(b),
+        _ptr(x), out.data_ptr(), partials.data_ptr(), sums.data_ptr(), B, H, W, cin, cout,
+        int(prologue), cot, ck, int(resident),
+        int(conv_ring_xbuf(cin, cout, dx, stats, prologue)),
+        conv_ring_blocks(cin, cout, B, H, W, dx, stats, prologue), _stream(src))
+
+
 def launch_conv_bn(x, w, a=None, b=None, prologue=False):
     _check_nhwc(x, "conv3x3_bn kernel")
     B, H, W, cin = x.shape
@@ -275,19 +406,24 @@ def launch_conv_bn(x, w, a=None, b=None, prologue=False):
     if w.shape != (cout, cin, 3, 3):
         raise ValueError(f"conv3x3_bn kernel: weight [Cout, {cin}, 3, 3] expected, "
                          f"got {tuple(w.shape)}")
+    bf16 = x.dtype == torch.bfloat16
     wk = _kernel_weight(w, x.dtype)
     if prologue:
         a, b = _vec(a, cin, x.device, "conv prologue"), _vec(b, cin, x.device, "conv prologue")
     else:
         a = b = wk  # not read
     y = torch.empty(B, H, W, cout, dtype=x.dtype, device=x.device)
-    tiles = -(-H // TILE) * -(-W // TILE)
-    partials = torch.empty(tiles * B, 2, cout, dtype=torch.float32, device=x.device)
+    partials = torch.empty(conv_partials_shape(cin, cout, B, H, W, bf16), dtype=torch.float32,
+                           device=x.device)
     out = torch.empty(2, cout, dtype=torch.float32, device=x.device)
-    err = build.library().cltorch_conv3x3_bn_fwd(
-        x.data_ptr(), wk.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), B, H, W, cin, cout, int(prologue),
-        int(x.dtype == torch.bfloat16), _stream(x))
+    if bf16:
+        err = _launch_ring(False, x, None, None, None, wk, a, b, None, y, partials, out,
+                           prologue)
+    else:
+        err = build.library().cltorch_conv3x3_bn_fwd(
+            x.data_ptr(), wk.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), B, H, W, cin, cout, int(prologue), 0,
+            _stream(x))
     build.check(err, "conv3x3_bn_fwd")
     return y, out[0], out[1]
 
@@ -326,21 +462,24 @@ def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue, pipe=False):
     cout = w.shape[0]
     # the dx conv reads Cout channels and writes Cin: the flipped, transposed
     # weight in the kernel layout of a conv Cout -> Cin
+    bf16 = x.dtype == torch.bfloat16
     wdx = _kernel_weight(_flip_t(w), x.dtype)
     if prologue:
         a, b = _vec(a, cin, x.device, "conv prologue"), _vec(b, cin, x.device, "conv prologue")
     dx = torch.empty_like(x)
-    tiles = -(-H // TILE) * -(-W // TILE)
-    partials = torch.empty(tiles * B if prologue else 1, 2, cin, dtype=torch.float32,
+    partials = torch.empty(dx_partials_shape(cin, B, H, W, prologue), dtype=torch.float32,
                            device=x.device)
     out = torch.empty(2, cin, dtype=torch.float32, device=x.device)
-    entry = build.library().cltorch_conv3x3_bn_dx_pipe if pipe else \
-        build.library().cltorch_conv3x3_bn_dx
-    err = entry(
-        dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), wdx.data_ptr(), x.data_ptr(),
-        _ptr(a if prologue else None), _ptr(b if prologue else None), dx.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), B, H, W, cout, cin, int(prologue),
-        int(x.dtype == torch.bfloat16), _stream(x))
+    a, b = (a, b) if prologue else (None, None)
+    if bf16 and not pipe:
+        err = _launch_ring(True, dy, y, s1, s2, wdx, a, b, x, dx, partials, out, prologue)
+    else:
+        entry = build.library().cltorch_conv3x3_bn_dx_pipe if pipe else \
+            build.library().cltorch_conv3x3_bn_dx
+        err = entry(
+            dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), wdx.data_ptr(), x.data_ptr(),
+            _ptr(a), _ptr(b), dx.data_ptr(), partials.data_ptr(), out.data_ptr(), B, H, W,
+            cout, cin, int(prologue), int(bf16), _stream(x))
     build.check(err, "conv3x3_bn_dx_pipe" if pipe else "conv3x3_bn_dx")
     return (dx, out[0], out[1]) if prologue else (dx, None, None)
 
