@@ -885,13 +885,14 @@ def compare_packed(kernel, shape, dtype_name, batch=8):
     launch, plain, _ = packed_fns(kernel)
     ops = packed_operands(kernel, shape, dtype_name, batch)
     k_out, p_out = launch(*ops), plain(*ops)
-    again = launch(*ops) if kernel == "conv3x3_bn_fwd" else None
+    again = launch(*ops) if kernel in ("conv3x3_bn_fwd", "upconv_fwd") else None
     torch.cuda.synchronize()
     if not isinstance(k_out, tuple):
         k_out, p_out = (k_out,), (p_out,)
+        again = None if again is None else (again,)
     name = packed_name(kernel, shape, dtype_name)
-    # the conv's sums are fixed-order partials: a second launch repeats
-    # every bit of y and of the sums
+    # the conv's sums are fixed-order partials, the up-conv's schedule a
+    # function of the shapes: a second launch repeats every bit
     need(again is None or all(torch.equal(u, v) for u, v in zip(k_out, again)),
          f"{name}: a second launch repeats every bit")
     y, yp = k_out[0], p_out[0]
@@ -1016,6 +1017,82 @@ ODD.update({"conv3x3_bn_dw": ODD["conv3x3_bn_fwd"] + RING_ODD["conv3x3_bn_dw"],
            "maxpool_bwd": [(24, 16, False), (24, 16, True)],
            "upconv_dx": ODD["upconv_fwd"],
            "upconv_dw": ODD["upconv_fwd"] + RING_ODD["upconv_dw"]})
+
+
+# The bf16 up-conv forward's wgmma kernel (#27; kernels/upconv_pack.py::
+# fwd_tile, fwd_blocks) at ragged shapes, batch 3, as (H_in, Cin, Cout): M
+# = 3·H² not a multiple of the 128-pixel tile; Cin 40 (one k-chunk cut by
+# the edge) and 72 (two); 4·Cout 32, 96 and 160 (a column tile of 64 or 128
+# cut by the edge; 160 over two tiles of 128, the second partial).
+UPCONV_FWD_ODD = [(20, 40, 8), (19, 72, 24), (13, 40, 40), (20, 72, 40)]
+# The bf16 packed head's backward (#8; kernels/head_ce.py::bn_bwd_tile,
+# bn_bwd_blocks) at ragged shapes (P, Cin, C): P not a multiple of the
+# 128-pixel tile, below one wave and past it; Cin 8, 24, 40, 64 and C 2, 8,
+# 19, 32, every instance (CIN16 16, 32, 48, 64 x CMAX 16, 32) with the
+# headline's.
+BN_BWD_ODD = [(1000, 8, 2), (300017, 24, 8), (270001, 40, 19), (131075, 64, 32),
+              (65537, 8, 32), (99999, 64, 8), (4099, 40, 2)]
+
+
+def head_bwd_info():
+    """Each bf16 #8 instance of phase 3 (the headline's and
+    ``BN_BWD_ODD``'s) on this card: its resident blocks an SM held against
+    what ``head_ce.bn_bwd_blocks`` assumes, with its registers, local
+    (spilled) bytes a thread and shared memory printed. Returns {instance:
+    (blocks, regs, local, smem)}."""
+    import ctypes
+
+    from cl_tpu_torch.kernels import build, head_ce
+
+    lib = build.library()
+    out = {}
+    for cin, C in sorted({(cin, C) for _, cin, C in BN_BWD_ODD} | {(32, 19)}):
+        tile = head_ce.bn_bwd_tile(cin, C)
+        if tile in out:
+            continue
+        info = (ctypes.c_int * 4)()
+        build.check(lib.cltorch_head_ce_bn_mma_info(cin, C, ctypes.addressof(info)),
+                    f"head_ce_bn_bwd {tile} info")
+        blocks, regs, local, smem = info
+        threads, smem_py, blocks_py = head_ce.bn_bwd_resources(*tile)
+        ok = blocks == blocks_py and smem == smem_py
+        print(f"  head_ce_bn_bwd_mma<{tile[0]}, {tile[1]}>: {threads} threads, {regs} registers, "
+              f"{local} local bytes a thread, {smem} B shared; {blocks} blocks an SM (the picker "
+              f"assumes {blocks_py}){'' if ok else ' FAIL'}")
+        need(ok, f"head_ce_bn_bwd {tile}: resident blocks as the picker assumes")
+        out[tile] = (blocks, regs, local, smem)
+    return out
+
+
+def upconv_fwd_info():
+    """Each bf16 #27 launch of phase 3 (the 512² path's, ``ODD``'s and
+    ``UPCONV_FWD_ODD``'s shapes): its instance's resident blocks an SM at the
+    launch's shared memory held against what ``upconv_pack.fwd_blocks``
+    assumes, with its registers and local (spilled) bytes a thread printed.
+    Returns {(BN, stages, Cin): (blocks, regs, local, smem)}."""
+    import ctypes
+
+    from cl_tpu_torch.kernels import build, upconv_pack
+
+    lib = build.library()
+    out = {}
+    for _, cin, cout in [s for s, _ in PACKED_PATH["upconv_fwd"]] + ODD["upconv_fwd"] + \
+            UPCONV_FWD_ODD:
+        bn, stages = upconv_pack.fwd_tile(cin, cout)
+        if (bn, stages, cin) in out:
+            continue
+        threads, smem_py, blocks_py = upconv_pack.fwd_resources(bn, cin, stages)
+        info = (ctypes.c_int * 4)()
+        build.check(lib.cltorch_upconv_fwd_info(bn, smem_py, ctypes.addressof(info)),
+                    f"upconv_fwd {bn} info")
+        blocks, regs, local, smem = info
+        ok = blocks == blocks_py
+        print(f"  upconv_fwd_wg<{bn}> (Cin {cin}, {stages} stages): {threads} threads, {regs} "
+              f"registers, {local} local bytes a thread, {smem} B shared; {blocks} blocks an SM "
+              f"(the picker assumes {blocks_py}){'' if ok else ' FAIL'}")
+        need(ok, f"upconv_fwd {bn}: resident blocks as the picker assumes")
+        out[(bn, stages, cin)] = (blocks, regs, local, smem)
+    return out
 
 
 def ring_info():
@@ -1214,7 +1291,7 @@ def _abs_terms(kernel, ops):
     return None
 
 
-def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True, known_fault=None):
+def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True):
     """Backward kernel vs its plain version on the card; returns the max abs
     error of its main output. Tolerances: exact for the pool and the two
     eltwise passes (the same f32 operations, one rounding); dx one bf16 ulp
@@ -1223,9 +1300,7 @@ def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True, known_fault=None
     dW and db 2 bf16 ulps + 1e-5·Σ|term| in bf16, 1e-5·Σ|term| + 1e-6 in f32
     (a sum over every pixel in another order); the per-channel sums of the
     eltwise and the conv's da, db 1e-5 of Σ|term|. A second launch must
-    give the same bits. ``known_fault`` (a reason): the main output is
-    expected to miss its tolerance, and a miss is printed as such instead
-    of failing; every other check holds as always."""
+    give the same bits."""
     import torch
 
     launch, plain, _ = bwd_fns(kernel)
@@ -1271,26 +1346,22 @@ def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True, known_fault=None
         else:  # f32 sums over the pixels: dW in f32, db, da
             tol, txt = 1e-5 * terms[i] + 1e-6, "1e-5 Σ|term| + 1e-6"
         good = bool((diff <= tol).all())
-        expected = known_fault is not None and i == 0
-        ok = ok and (good or expected)
+        ok = ok and good
         main_err = diff.max().item() if main_err is None else main_err
-        note = ("" if good and not expected else " (the expected failure did not show)" if good
-                else f" expected failure: {known_fault}" if expected else " FAIL")
-        msg += f" out{i} max abs err {diff.max().item():.3g} ({txt}){note};"
+        msg += f" out{i} max abs err {diff.max().item():.3g} ({txt}){'' if good else ' FAIL'};"
     print(msg + (" ok" if ok else " FAIL"))
     need(ok, name)
     return main_err
 
 
-# A known fault (ROADMAP Queue 3): the f32 dx without the prologue (#34's
-# FMA body) at the ragged 512-channel shape of RING_CONV_ODD, whose
-# 9 x 512 = 4,608 products a sum the body adds in one serial order, misses
-# compare_bwd's f32 dx tolerance (1e-5 + 1e-5·|plain|, which does not grow
-# with the sum's length): 3.81e-05 on the H100, 4.4 u·Σ|term| from float64
-# against cuDNN's 1.0. Phase 3 runs it expecting that miss and holds the
-# kernel and its plain version against float64 (``f32_dx_float64``).
+# The f32 dx (#34's and #35's FMA body) at the ragged 512-channel shape of
+# RING_CONV_ODD: 9 x 512 = 4,608 products a sum. Added in one serial order
+# they missed compare_bwd's f32 dx tolerance (1e-5 + 1e-5·|plain|), 4.4
+# u·Σ|term| from float64 against cuDNN's 1.0; the body's blocked sum
+# (csrc/conv3x3_bn.cuh::kDxBlock) holds it. Phase 3 holds it at that
+# tolerance and the kernel and its plain version against float64
+# (``f32_dx_float64``).
 F32_DX_WIDE = (12, 40, 512)
-F32_DX_WIDE_FAULT = "f32 dx of 4,608-term sums vs a tolerance without Σ|term| (ROADMAP Queue 3)"
 
 
 def f32_dx_float64(kernel, shape, batch=3):
@@ -3294,10 +3365,8 @@ def main() -> int:
         check = compare_packed if kernel in FORWARD_KERNELS else compare_bwd
         for shape in RING_ODD[kernel]:
             check(kernel, shape, "bfloat16", batch=3)
-    # the f32 dx's known fault at 512 channels (#35 there passes its
-    # tolerance, which grows with a), and both against float64
-    compare_bwd("conv3x3_bn_dx", (*F32_DX_WIDE, False), "float32", batch=3,
-                known_fault=F32_DX_WIDE_FAULT)
+    # the f32 dx at 512 channels, and both against float64
+    compare_bwd("conv3x3_bn_dx", (*F32_DX_WIDE, False), "float32", batch=3)
     compare_bwd("conv3x3_bn_dx_bn", (*F32_DX_WIDE, True), "float32", batch=3)
     for kernel, prologue in (("conv3x3_bn_dx", False), ("conv3x3_bn_dx_bn", True)):
         f32_dx_float64(kernel, (*F32_DX_WIDE, prologue))
@@ -3307,6 +3376,12 @@ def main() -> int:
     compare_bwd("conv3x3_bn_dw", (256, 64, 64, True), "bfloat16", stats=False)
     ring_info()
     conv_ring_info()
+    # the up-conv forward's wgmma kernel (#27) past every tile and picker
+    # branch, each launched twice; its instances' resources
+    for shape in UPCONV_FWD_ODD:
+        for dtype_name in ("float32", "bfloat16"):
+            compare_packed("upconv_fwd", shape, dtype_name, batch=3)
+    upconv_fwd_info()
     # the packed head: at the headline shape, and small f32 / ragged / C <= 8
     bn_full = bn_case(2097152, 32, 19, "bfloat16", 2)
     bn_errs = {k: compare_bn(k, bn_full) for k in BN_KERNELS}
@@ -3315,6 +3390,11 @@ def main() -> int:
         case = bn_case(*args)
         for k in BN_KERNELS:
             compare_bn(k, case)
+    # the bf16 #8 on the tensor cores at every instance and ragged P, each
+    # launched twice; its instances' resources
+    for seed, args in enumerate(BN_BWD_ODD, 20):
+        compare_bn("head_ce_bn_bwd", bn_case(*args, "bfloat16", seed))
+    head_bwd_info()
     # LwF off the packed head: the KD head on NHWC features (#9/#10) at the
     # full width, at base 64 with the fused head (Cin 64, baseline_2's 21
     # classes, f32) and at a small ragged f32 case; the KD on logits

@@ -63,6 +63,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(a));
 }
 
+// The same without the transpose: lane (g, t) receives r[i] = {M_i[g][2t],
+// M_i[g][2t+1]}.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // Asynchronous copies global -> shared (Ampere's cp.async, on Hopper too):
 // `bytes` (4, 8 or 16) when `pred`, else that many zeros (src-size 0: the
 // source is not read, but must be a valid address). Completion is by

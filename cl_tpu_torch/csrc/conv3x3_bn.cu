@@ -93,8 +93,15 @@
 namespace cltorch {
 namespace {
 
+// The f32 dx instances (here, #38's and 34p's) at four blocks an SM: the
+// blocked sum's fresh accumulator (conv3x3_body.cuh::fma_chunk) would take
+// them to 165-168 registers and three blocks an SM, slower on the H100
+// than 128 registers with 20-28 bytes a thread spilled.
+constexpr int kFmaDxMinBlocks = 4;
+
 template <bool DX, typename T>
-__global__ void __launch_bounds__(kConvThreads) conv3x3_bn_kernel(ConvArgs<T> p) {
+__global__ void __launch_bounds__(kConvThreads, DX && sizeof(T) == 4 ? kFmaDxMinBlocks : 1)
+    conv3x3_bn_kernel(ConvArgs<T> p) {
   conv3x3_fma_body<DX ? kDx : kFwd>(p);
 }
 
@@ -110,7 +117,8 @@ __global__ void __launch_bounds__(kMmaThreads) conv3x3_v3_mma_kernel(ConvArgs<bf
 
 // #38: the dx from the int8 saved y (MODE kDxQ) and x (kDxQX).
 template <int MODE, typename T>
-__global__ void __launch_bounds__(kConvThreads) conv3x3_q_dx_kernel(ConvArgs<T> p) {
+__global__ void __launch_bounds__(kConvThreads, sizeof(T) == 4 ? kFmaDxMinBlocks : 1)
+    conv3x3_q_dx_kernel(ConvArgs<T> p) {
   conv3x3_fma_body<MODE>(p);
 }
 
@@ -343,7 +351,8 @@ __device__ __forceinline__ void pipe_form_e_fma(const ConvArgs<float>& p, float*
 constexpr size_t kPipeSmemFma =
     (4 * (size_t)kCiT * kWinH * kWinW + 2 * (size_t)kCiT * 9 * kCoT) * sizeof(float);
 
-__global__ void __launch_bounds__(kConvThreads) conv3x3_bn_dx_pipe_kernel(ConvArgs<float> p) {
+__global__ void __launch_bounds__(kConvThreads, kFmaDxMinBlocks)
+    conv3x3_bn_dx_pipe_kernel(ConvArgs<float> p) {
   constexpr int kWin = kCiT * kWinH * kWinW, kWts = kCiT * 9 * kCoT;
   extern __shared__ __align__(16) unsigned char smem[];
   float* dy_s = reinterpret_cast<float*>(smem);  // [2][kWin]: raw dy, then e
@@ -390,7 +399,7 @@ __global__ void __launch_bounds__(kConvThreads) conv3x3_bn_dx_pipe_kernel(ConvAr
 #pragma unroll
         for (int c = 0; c < 8; ++c) acc[q][c] = 0.f;
     }
-    fma_chunk(acc, reinterpret_cast<float(*)[kWinH][kWinW]>(dy_s + buf * kWin),
+    fma_chunk<true>(acc, reinterpret_cast<float(*)[kWinH][kWinW]>(dy_s + buf * kWin),
               reinterpret_cast<float(*)[9][kCoT]>(w_s + buf * kWts), ty, seg, cg);
     if (chunk == nch - 1)
       fma_epilogue<kDx>(p, acc, b, gy0, gx0, co0, b * tiles + rem, ty, seg, cg, lane);

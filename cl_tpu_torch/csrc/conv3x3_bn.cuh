@@ -233,6 +233,14 @@ __host__ __device__ constexpr bool is_dx() {
   return MODE == kDx || MODE == kDxQ || MODE == kDxQX;
 }
 
+// The f32 dx's blocked sum: each run of kDxBlock channels' 9 x kDxBlock
+// products goes into a fresh accumulator, added to the running total once a
+// run (the FMA body's dx, 34p and #37, in the same order: so they keep
+// their bits). A dx at 512 channels then adds 64 block sums of 72 products
+// instead of 4,608 products in one serial order, whose error from float64
+// was 4.4 u·Σ|term| (cuDNN's 1.0).
+constexpr int kDxBlock = 8;
+
 // Operands of one launch. `Cin` / `Cout` are the channels the kernel reads
 // and writes: for dx, the forward's Cout and Cin.
 template <typename T> struct ConvArgs {

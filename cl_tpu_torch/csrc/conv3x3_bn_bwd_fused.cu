@@ -50,7 +50,8 @@
 //   window (48-byte rows).
 // * f32: FMA, 256 threads, 8 x 16 tiles (#36's). dx: warp w holds input
 //   channels 4w..4w+3, lane 4 pixels of one row, in the order co, ky, kx
-//   (#35's); dW: lane = input channel, warp w output channels 4w..4w+3.
+//   with #35's blocked sum (conv3x3_bn.cuh::kDxBlock); dW: lane = input
+//   channel, warp w output channels 4w..4w+3.
 
 #include "conv3x3_bn.cuh"
 
@@ -288,22 +289,34 @@ __global__ void __launch_bounds__(kFfThreads)
       }
       __syncthreads();
       if (dx_tile) {
-        for (int co = 0; co < kFfC; ++co) {
+        // the blocked sum of the FMA body's dx (kDxBlock), so dx keeps #34/#35's bits
+        for (int cb = 0; cb < kFfC; cb += kDxBlock) {
+          float part[4][4];
 #pragma unroll
-          for (int ky = 0; ky < 3; ++ky) {
-            float v[6];
+          for (int q = 0; q < 4; ++q)
 #pragma unroll
-            for (int j = 0; j < 6; ++j) v[j] = e_s[co][ty + ky][seg * 4 + j];
+            for (int c = 0; c < 4; ++c) part[q][c] = 0.f;
+          for (int co = cb; co < cb + kDxBlock; ++co) {
 #pragma unroll
-            for (int kx = 0; kx < 3; ++kx) {
-              const float4 w4 = *reinterpret_cast<const float4*>(&w_s[co][ky * 3 + kx][cq]);
-              const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+            for (int ky = 0; ky < 3; ++ky) {
+              float v[6];
 #pragma unroll
-              for (int q = 0; q < 4; ++q)
+              for (int j = 0; j < 6; ++j) v[j] = e_s[co][ty + ky][seg * 4 + j];
 #pragma unroll
-                for (int c = 0; c < 4; ++c) accx[q][c] = fmaf(v[q + kx], wv[c], accx[q][c]);
+              for (int kx = 0; kx < 3; ++kx) {
+                const float4 w4 = *reinterpret_cast<const float4*>(&w_s[co][ky * 3 + kx][cq]);
+                const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+#pragma unroll
+                  for (int c = 0; c < 4; ++c) part[q][c] = fmaf(v[q + kx], wv[c], part[q][c]);
+              }
             }
           }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) accx[q][c] += part[q][c];
         }
       }
       if (grp == pass) {

@@ -56,7 +56,10 @@
 //   window and weights staged as f32; each warp owns 8 output channels
 //   (its weight reads are broadcasts), each lane 8 consecutive pixels of
 //   one row with 8 x 8 accumulators: per input channel and kernel row it
-//   reads 10 inputs and 3 x 8 weights (as float4) for 192 FMAs.
+//   reads 10 inputs and 3 x 8 weights (as float4) for 192 FMAs. The dx
+//   sums each 8 input channels' products in a fresh accumulator before
+//   adding them to the running sum (fma_chunk), so a dx over 512 channels
+//   is not one serial sum of 4,608 products.
 //
 // The epilogues that sum (the forward's stats, the dx's da and db) sum a
 // block's threads by shuffles and shared memory in a fixed order and write
@@ -98,12 +101,15 @@ __device__ __forceinline__ float staged_at(const ConvArgs<T>& p, int64_t i, int 
   return t_at(p.in, i, c, MODE == kFwd ? p.prologue : 0, p.pa, p.pb);
 }
 
-// f32: one 16-channel chunk of the window (in_s) and its weights (w_s)
-// into the thread's 8 pixels x 8 output channels, in the order ci, ky, kx.
-__device__ __forceinline__ void fma_chunk(float (&acc)[8][8], float (*in_s)[kWinH][kWinW],
-                                          float (*w_s)[9][kCoT], int ty, int seg, int cg) {
+// f32: input channels [ci0, ci1) of the staged window (in_s) and their
+// weights (w_s) into the 8 pixels x NC output channels acc (the thread's
+// channels cg + c0 ..), in the order ci, ky, kx.
+template <int NC>
+__device__ __forceinline__ void fma_channels(float (&acc)[8][NC], float (*in_s)[kWinH][kWinW],
+                                             float (*w_s)[9][kCoT], int ci0, int ci1, int ty,
+                                             int seg, int cg) {
 #pragma unroll 2
-  for (int ci = 0; ci < kCiT; ++ci) {
+  for (int ci = ci0; ci < ci1; ++ci) {
 #pragma unroll
     for (int ky = 0; ky < 3; ++ky) {
       float v[10];
@@ -112,13 +118,52 @@ __device__ __forceinline__ void fma_chunk(float (&acc)[8][8], float (*in_s)[kWin
       for (int j = 0; j < 10; ++j) v[j] = row[j];
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx) {
-        const float4 w0 = *reinterpret_cast<const float4*>(&w_s[ci][ky * 3 + kx][cg]);
-        const float4 w1 = *reinterpret_cast<const float4*>(&w_s[ci][ky * 3 + kx][cg + 4]);
-        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+        float wv[NC];
+#pragma unroll
+        for (int c4 = 0; c4 < NC; c4 += 4) {
+          const float4 w4 = *reinterpret_cast<const float4*>(&w_s[ci][ky * 3 + kx][cg + c4]);
+          wv[c4] = w4.x;
+          wv[c4 + 1] = w4.y;
+          wv[c4 + 2] = w4.z;
+          wv[c4 + 3] = w4.w;
+        }
 #pragma unroll
         for (int q = 0; q < 8; ++q)
 #pragma unroll
-          for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(v[q + kx], wv[c], acc[q][c]);
+          for (int c = 0; c < NC; ++c) acc[q][c] = fmaf(v[q + kx], wv[c], acc[q][c]);
+      }
+    }
+  }
+}
+
+// f32: one 16-channel chunk into the thread's 8 pixels x 8 output channels.
+// The forward and the plain conv add every product to acc in one serial
+// order; the dx (BLOCKED) sums each kDxBlock channels in a fresh
+// accumulator and adds that to acc (conv3x3_bn.cuh::kDxBlock), four output
+// channels at a time: the fresh accumulator then holds 32 values, not 64,
+// so the body keeps its registers (and its blocks an SM) at the cost of
+// reading each window row twice. Each output's sums run in the same order
+// either way.
+template <bool BLOCKED>
+__device__ __forceinline__ void fma_chunk(float (&acc)[8][8], float (*in_s)[kWinH][kWinW],
+                                          float (*w_s)[9][kCoT], int ty, int seg, int cg) {
+  if constexpr (!BLOCKED) {
+    fma_channels<8>(acc, in_s, w_s, 0, kCiT, ty, seg, cg);
+  } else {
+#pragma unroll 1
+    for (int ci0 = 0; ci0 < kCiT; ci0 += kDxBlock) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float part[8][4];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[q][c] = 0.f;
+        fma_channels<4>(part, in_s, w_s, ci0, ci0 + kDxBlock, ty, seg, cg + 4 * h);
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[q][4 * h + c] += part[q][c];
       }
     }
   }
@@ -204,7 +249,7 @@ __device__ __forceinline__ void conv3x3_fma_body(const ConvArgs<T>& p) {
       w_s[ci][k][co] = (c < Cin && o < Cout) ? to_f32(p.w[((int64_t)c * 9 + k) * Cout + o]) : 0.f;
     }
     __syncthreads();
-    fma_chunk(acc, in_s, w_s, ty, seg, cg);
+    fma_chunk<is_dx<MODE>()>(acc, in_s, w_s, ty, seg, cg);
   }
   fma_epilogue<MODE>(p, acc, b, gy0, gx0, co0, b * gridDim.x + blockIdx.x, ty, seg, cg, lane);
 }

@@ -166,15 +166,6 @@ __device__ __forceinline__ int ring_at(int r, int q) {
   return r * CK * 2 + ((q ^ ((r * CK * 2 >> 7) & (CK / 8 - 1))) << 4);
 }
 
-// Four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the
-// addresses of rows 0..7 of matrix i (16 bytes each), and lane (g, t)
-// receives r[i] = {M_i[g][2t], M_i[g][2t + 1]}.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-
 template <int MODE, int COT, int CK, bool EPI>
 __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const RingArgs& ra,
                                                const CUtensorMap* tm_in, const CUtensorMap* tm_y,

@@ -1,6 +1,7 @@
 // The Tensor Memory Accelerator (TMA) and its mbarriers, shared by the
 // packed conv's ring kernels: the forward and dx (conv3x3_ring.cu,
-// conv3x3_ring_body.cuh) and the dW (conv3x3_bn_bwd.cu, conv3x3_dw_body.cuh).
+// conv3x3_ring_body.cuh) and the dW (conv3x3_bn_bwd.cu, conv3x3_dw_body.cuh);
+// and by the up-conv's forward (upconv.cu).
 //
 // Device side: one thread asks for a box of a tensor map to be copied into
 // shared memory; the copy counts its bytes against an mbarrier's expected
@@ -31,6 +32,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* tm, in
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(tm)), "r"(c), "r"(w), "r"(h), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// A 2-d box of `tm` at (i, j) into shared `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm, int i, int j,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(i), "r"(j), "r"(bar)
       : "memory");
 }
 
@@ -165,6 +176,16 @@ cudaError_t tm_weights(CUtensorMap* m, const void* w, int Cin, int Cout, int bc,
   const cuuint64_t strides[2] = {(cuuint64_t)Cin * 2, (cuuint64_t)Cout * Cin * 2};
   const cuuint32_t box[3] = {(cuuint32_t)bc, (cuuint32_t)bo, 9};
   return tm_tiled(m, w, 3, dims, strides, box, bc);
+}
+
+// A TMA map of the bf16 row-major matrix p [rows, cols] whose box is 64
+// columns (one 128-byte swizzled row) x box_rows rows, zeros past either
+// edge: the up-conv forward's x rows and its transposed weight.
+cudaError_t tm_rows(CUtensorMap* m, const void* p, int64_t rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return tm_tiled(m, p, 2, dims, strides, box, 64);
 }
 
 }  // namespace

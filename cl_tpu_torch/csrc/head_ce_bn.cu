@@ -1,9 +1,18 @@
 // The packed head+CE with the BN·ReLU prologue, alone: replaces
 // cl_tpu/pallas/head_ce.py::_pkbn_fwd_kernel (launched at head_ce.py:571)
 // and ::_pkbn_bwd_kernel (:601). The teacher's operands are not read.
-// Arithmetic, what bounds it and the design: head_ce_bn.cuh.
+// Arithmetic, what bounds it and the design: head_ce_bn.cuh, and for the
+// bf16 backward head_ce_bn_mma.cuh.
 
 #include "head_ce_bn.cuh"
+
+namespace cltorch {
+// bf16 #8 on the tensor cores (head_ce_bn_mma.cu).
+int head_ce_bn_bwd_mma(const void* y, const void* s, const void* sh, const void* w,
+                       const void* b, const void* lbl, const void* valid, const void* cot,
+                       void* dx, void* partials, void* out, int P, int Cin, int C,
+                       int ignore_index, int blocks, cudaStream_t st);
+}  // namespace cltorch
 
 // Plain C interface, loaded with ctypes. Each returns cudaGetLastError()
 // (0 = launched). Shapes and types are checked by the Python wrapper
@@ -11,7 +20,10 @@
 // multiple of 16, 16-byte aligned contiguous y. `partials` holds
 // max_blocks rows (1 float forward; C*(Cin+1) + 2*Cin floats
 // backward); `cot` is {gce} on the device; the backward's `out` is
-// [dW | db] as [C, Cin+1], then dscale and dshift [Cin] each.
+// [dW | db] as [C, Cin+1], then dscale and dshift [Cin] each. The bf16
+// backward runs head_ce_bn_mma.cuh's body over exactly max_blocks
+// persistent blocks (the wrapper's bn_bwd_blocks); the others run
+// head_ce_bn.cuh's over at most max_blocks.
 extern "C" {
 
 int cltorch_head_ce_bn_fwd(const void* y, const void* s, const void* sh, const void* w,
@@ -38,10 +50,11 @@ int cltorch_head_ce_bn_bwd(const void* y, const void* s, const void* sh, const v
   using namespace cltorch;
   const BnArgs a{y, s, sh, w, b, yt, ts, tsh, tw, tb, lbl, valid, ovalid};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bn_bwd<__nv_bfloat16, false>(a, temperature, cot, dx, partials, out,
-                                                       P, Cin, C, ignore_index, max_blocks, st)
-                 : launch_bn_bwd<float, false>(a, temperature, cot, dx, partials, out, P, Cin,
-                                               C, ignore_index, max_blocks, st);
+  if (is_bf16)
+    return head_ce_bn_bwd_mma(y, s, sh, w, b, lbl, valid, cot, dx, partials, out, P, Cin, C,
+                              ignore_index, max_blocks, st);
+  return launch_bn_bwd<float, false>(a, temperature, cot, dx, partials, out, P, Cin, C,
+                                     ignore_index, max_blocks, st);
 }
 
 }  // extern "C"

@@ -38,7 +38,11 @@
 // ~41 us at 3.35 TB/s); the backward reads y and writes dx (~83 us); the
 // KD forms read the teacher's y as well. The logit products are 2*C*Cin
 // = 1216 flops a pixel and logit pass, far below the byte bound on the
-// tensor cores; they stay on f32 FMAs here.
+// tensor cores; here they run on f32 FMAs, one pixel a thread. The bf16
+// backward without KD (#8) no longer runs here: head_ce_bn_mma.cuh moves
+// its three products to mma.sync (what held this body at 18x its bound,
+// and what that one does about each, is written there); the f32 #8, #7,
+// the KD forms and #5/#6 stay on this template until they move onto it.
 //
 // Design: head_ce.cu's (a fixed grid of blocks of 128 threads walking
 // tiles of 128 pixels, each tile staged by coalesced 16-byte loads into

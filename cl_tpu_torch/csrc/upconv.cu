@@ -30,10 +30,45 @@
 // forward and dx move the same bytes; on the f32 FMA units the operations
 // bound them (~130 us at 256^2).
 //
-// Forward and dx (and the f32 dW): one GEMM main loop per route, fed by
+// bf16 forward (#27): upconv_fwd_wg_kernel, redesigned for the H100
+// (replaces cl_tpu/pallas/upconv_pack.py::_fwd_kernel, :83-94, launched at
+// :150). At the headline step's three launches (batch 8: 64^2 x 256 -> 128,
+// 128^2 x 128 -> 64, 256^2 x 64 -> 32) it moves 352 MB, 0.105 ms at 3.35
+// TB/s, against 25.8 GFLOP, 0.026 ms at 989 TFLOP/s: bytes bound it. What it
+// does about each cause that held the first version (an upconv_mma_kernel
+// on mma_mainloop below, 0.50-0.53 ms a step):
+// * A short, unpipelined main loop. The block is persistent: one wave of
+//   resident blocks (kernels/upconv_pack.py::fwd_blocks) each walks pixel
+//   tiles of 128 rows, and every (tile, 64-channel k-chunk) is a stage of
+//   one ring of 2-6 stages fed by TMA and completed on an mbarrier, so the
+//   copies of the next tiles are in flight while a tile multiplies and
+//   while its epilogue stores; one block barrier a stage.
+// * Weights re-staged by every row tile. The block's column slice of Kg^T
+//   ([BN][Cin] bf16) is formed once from the f32 weight (no host-side
+//   transpose: one launch a call) and stays for the walk. The column tile
+//   (kernels/upconv_pack.py::fwd_tile) is the widest that leaves room for
+//   two resident blocks an SM: 128 columns at levels 0 and 1 (16 and 32
+//   KB), 64 at level 2 (eight tiles of 32 KB); the blocks of a pixel tile's
+//   column tiles walk it at about the same time, so x is re-read from L2.
+//   Two blocks of 8 warps an SM with 2-3 stages ran faster on the H100
+//   than one with 5-6 stages and a tile twice as wide: one block's products
+//   and copies overlap the other's epilogue.
+// * The products. wgmma (m64n64k16, f32 accumulation, two warpgroups of 64
+//   rows): both operands, the x rows [pixels][Cin] and Kg^T [4 Cout][Cin],
+//   are K-major as they lie in memory, which is wgmma's native layout, so
+//   TMA's 128-byte swizzle is the operand layout and no fragment is loaded
+//   by the threads (mma.sync would need an ldmatrix a fragment for the
+//   same bytes-bound work).
+// * Scattered 4-byte stores. The rounded tile is staged [BM][BN + 8] in
+//   shared memory (rows of a warp on distinct banks) and leaves as 16-byte
+//   pieces: for a pixel, the columns of phase row a are 2 Cout contiguous
+//   values of output row 2h + a, and neighbouring pixels' runs continue
+//   each other, so a warp writes whole runs.
+//
+// dx (and the f32 forward and dW): one GEMM main loop per route, fed by
 // staging functors that know each operand's layout (row-major, the dy
 // gather, or a transposed view), and one epilogue per function.
-// * bf16 forward, dx: mma.sync m16n8k16 with f32 accumulation. A block of
+// * bf16 dx: mma.sync m16n8k16 with f32 accumulation. A block of
 //   256 threads (8 warps, 4 along the rows x 2 along the columns) computes
 //   a 128-row x 64-column tile from 32-deep slices of A [row][k] and of
 //   B^T [column][k] staged in shared memory with a 40-element row, so the
@@ -83,7 +118,7 @@
 //   summed by four lanes, added in order (in place of a serial loop of 4 x
 //   splits loads on only Cout threads).
 
-#include "common.cuh"
+#include "wgmma.cuh"  // wgmma, TMA and mbarriers
 
 namespace cltorch {
 namespace {
@@ -248,43 +283,168 @@ __device__ void mma_mainloop(float (&acc)[2][4][4], bf16* xs, bf16* ws, int64_t 
     for (int j = 0; j < 4; ++j)                                      \
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-__global__ void __launch_bounds__(kUpThreads)
-upconv_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kgt,
-                  const float* __restrict__ bias, bf16* __restrict__ out, int B, int H, int W,
-                  int Cin, int Cout) {
-  MMA_TILE_INIT
+// ---------------------------------------------------------------------------
+// bf16 forward: the persistent wgmma kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kUfBM = 128;      // pixels a tile: two warpgroups of 64 rows
+constexpr int kUfBK = 64;       // input channels a k-chunk: one 128-byte swizzled row
+constexpr int kUfThreads = 256;
+constexpr int kUfMaxStages = 6;
+constexpr int kUfSmemMax = 232448;           // dynamic shared bytes a block can have
+constexpr int kUfStage = kUfBM * kUfBK * 2;  // bytes of one x stage
+
+// A block's shared memory for a BN-column tile, `kc` k-chunks and `stages`
+// x stages: 1024 bytes of slack that align the swizzled tiles to 1024; the
+// block's weights Kg^T [BN][64] a k-chunk; the x ring; the rounded output
+// tile [BM][BN + 8] bf16; the bias of its columns; the output offsets of
+// the tile's rows and of its 16-byte column pieces; an mbarrier a stage.
+template <int BN>
+struct UpFwd {
+  static constexpr int kMinBlocks = 2;  // resident blocks an SM
+  static constexpr int kRowO = BN + 8;
+  static constexpr int kWChunk = BN * kUfBK * 2;
+  __host__ __device__ static int smem(int kc, int stages) {
+    return 1024 + kc * kWChunk + stages * kUfStage + kUfBM * kRowO * 2 + BN * 4 +
+           (kUfBM + BN / 8) * 8 + stages * 8;
+  }
+};
+
+// out[pixel m][column n] = round(sum_k x[m][k] Kg^T[n][k] + bias[n % Cout]),
+// scattered to the (a, c) phases: block (bx, by) takes the columns
+// [by BN, (by + 1) BN) and walks the pixel tiles bx, bx + gridDim.x, ...;
+// each tile's k-chunks are the stages of one ring. `w` is the f32 weight
+// [Cin, Cout, 2, 2] as the module holds it: Kg^T is formed from it here.
+template <int BN>
+__global__ void __launch_bounds__(kUfThreads, UpFwd<BN>::kMinBlocks)
+    upconv_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_x, const float* __restrict__ w,
+                         const float* __restrict__ bias, bf16* __restrict__ out, int B, int H,
+                         int W, int Cin, int Cout, int stages) {
+  using Tile = UpFwd<BN>;
+  constexpr int NB = BN / 64;  // wgmma n64 products a k-step
+  extern __shared__ __align__(16) unsigned char up_fwd_smem[];
+  unsigned char* base = up_fwd_smem + ((1024 - (smem_u32(up_fwd_smem) & 1023)) & 1023);
+  const int KC = (Cin + kUfBK - 1) / kUfBK;
+  unsigned char* ws = base;                                    // [KC][BN][64]
+  unsigned char* xs = ws + KC * Tile::kWChunk;                 // [stages][BM][64]
+  bf16* os = reinterpret_cast<bf16*>(xs + stages * kUfStage);  // [BM][kRowO]
+  float* bs = reinterpret_cast<float*>(os + kUfBM * Tile::kRowO);
+  int64_t* row_off = reinterpret_cast<int64_t*>(bs + BN);      // [BM]
+  int64_t* col_off = row_off + kUfBM;                          // [BN / 8]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(col_off + BN / 8);  // [stages]
+
   const int64_t M = (int64_t)B * H * W;
   const int N = 4 * Cout;
-  const int64_t m0 = (int64_t)blockIdx.x * kMBM;
-  const int n0 = blockIdx.y * kMBN;
-  mma_mainloop(acc, xs, ws, m0, n0, Cin, RowMajor<bf16>{x, M, Cin},
-               RowMajor<bf16>{kgt, N, Cin});
-  // Columns 2t and 2t + 1 of an n8 tile: two consecutive output channels
-  // of one phase.
+  const int n0 = blockIdx.y * BN;
+  const int n_tiles = (int)((M + kUfBM - 1) / kUfBM);
+  const int my_tiles = (int)blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int n_stages = my_tiles * KC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(smem_u32(&bars[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // stage s: k-chunk s % KC of this block's tile s / KC, into slot s % stages
+  auto issue = [&](int s) {
+    const int slot = s % stages;
+    const int tile = blockIdx.x + (s / KC) * gridDim.x;
+    const uint32_t bar = smem_u32(&bars[slot]);
+    mbar_expect_tx(bar, kUfStage);
+    tma_load_2d(xs + slot * kUfStage, &tm_x, (s % KC) * kUfBK, tile * kUfBM, bar);
+  };
+  if (threadIdx.x == 0)
+    for (int s = 0; s < stages && s < n_stages; ++s) issue(s);
+  // While the first stages are copied: the block's Kg^T [n][k] =
+  // round(w[k][o][a][c]) for its columns n = (2a + c) Cout + o, zero past N
+  // and Cin, 8 channels (16 bytes) a thread at a time, neighbouring threads
+  // on neighbouring columns, each piece q of row n where TMA's 128-byte
+  // swizzle puts it (q ^ n % 8); then the bias of the columns. No host-side
+  // copy of the weight, so the wrapper issues this one launch.
+  for (int i = threadIdx.x; i < KC * BN * 8; i += kUfThreads) {
+    const int n = i % BN, q = (i / BN) % 8, kc = i / (BN * 8);
+    const int ng = n0 + n, k0 = kc * kUfBK + q * 8;
+    const int ph = ng / Cout, o = ng - ph * Cout;
+    alignas(16) bf16 v[8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 8; ++j)
+      v[j] = __float2bfloat16(ng < N && k0 + j < Cin
+                                  ? w[((int64_t)(k0 + j) * Cout + o) * 4 + ph] : 0.f);
+    *reinterpret_cast<uint4*>(ws + kc * Tile::kWChunk + n * 128 + ((q ^ (n & 7)) << 4)) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+  for (int i = threadIdx.x; i < BN; i += kUfThreads)
+    bs[i] = n0 + i < N ? bias[(n0 + i) % Cout] : 0.f;
+  // where column piece q (columns n0 + 8q..) of a pixel goes, from the
+  // pixel's output offset: phase row a = n / (2 Cout), 2 Cout contiguous
+  // values there; -1 past N
+  for (int q = threadIdx.x; q < BN / 8; q += kUfThreads) {
+    const int n = n0 + 8 * q, a = n / (2 * Cout);
+    col_off[q] = n < N ? a * (int64_t)(2 * W) * Cout + (n - a * 2 * Cout) : -1;
+  }
+  fence_proxy_async();  // the weights' stores, to wgmma
+  __syncthreads();
+
+  float acc[NB][32];
+  for (int s = 0; s < n_stages; ++s) {
+    const int slot = s % stages, kc = s % KC;
+    mbar_wait(smem_u32(&bars[slot]), (s / stages) & 1);
+    // D[m][n] (+)= A B: A the tile's 128 pixels x 64 channels, warpgroup wg
+    // its 64 rows; B the weights' 64 channels of BN columns; both K-major,
+    // 128-byte rows swizzled by TMA, 8-row groups 1024 bytes apart (SBO); a
+    // 16-channel k-step is +32 bytes of the start.
+    wg_fence();
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int64_t m = m0 + wm + i * 16 + g + hr * 8;
-      if (m >= M) continue;
-      const int64_t base = out_base(m, H, W);
+    for (int kk = 0; kk < kUfBK / 16; ++kk) {
+      const uint64_t a = wg_desc(xs + slot * kUfStage + wg * 64 * 128 + kk * 32, 16, 1024);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn + j * 8 + 2 * t;
-        if ((Cout & 1) == 0 && n + 1 < N) {  // n even: both in one phase
-          const int q = n / Cout, o = n - q * Cout;
-          *reinterpret_cast<__nv_bfloat162*>(out + (base + phase(q, W)) * Cout + o) =
-              __floats2bfloat162_rn(acc[i][j][hr * 2] + bias[o], acc[i][j][hr * 2 + 1] + bias[o + 1]);
-          continue;
-        }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (n + e >= N) continue;
-          const int q = (n + e) / Cout, o = n + e - q * Cout;
-          out[(base + phase(q, W)) * Cout + o] = __float2bfloat16(acc[i][j][hr * 2 + e] + bias[o]);
-        }
-      }
+      for (int nb = 0; nb < NB; ++nb)
+        wgmma_n64_k(acc[nb], a,
+                    wg_desc(ws + kc * Tile::kWChunk + nb * 64 * 128 + kk * 32, 16, 1024),
+                    kc > 0 || kk > 0);
     }
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) wg_fence_regs(acc[nb]);
+    __syncthreads();  // both warpgroups are past the slot's products: it takes stage s + stages
+    if (threadIdx.x == 0 && s + stages < n_stages) issue(s + stages);
+    if (kc != KC - 1) continue;
+    // The epilogue: the f32 bias added, one rounding, into the out tile
+    // (lane (g, t) of warp wl holds acc[nb][4j + v] = D[16 wl + g + (v / 2)
+    // 8][64 nb + 8j + 2t + v % 2] of its warpgroup's rows), and each row's
+    // output offset (its pixel (2h, 2w)) decoded once; then 16-byte pieces
+    // of it to the phases. For a pixel, the columns of phase row a are 2 Cout
+    // contiguous values of out row 2h + a, so each piece (2 Cout a multiple
+    // of 8) is one 16-byte store, and neighbouring pieces of a row run on in
+    // memory.
+    const int64_t m0 = (int64_t)(blockIdx.x + (s / KC) * gridDim.x) * kUfBM;
+    if (threadIdx.x < kUfBM) {
+      const int64_t m = m0 + threadIdx.x;
+      row_off[threadIdx.x] = m < M ? out_base(m, H, W) * Cout : -1;
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wg * 64 + wl * 16 + g + 8 * h, c = nb * 64 + 8 * j + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(&os[r * Tile::kRowO + c]) = __floats2bfloat162_rn(
+              acc[nb][4 * j + 2 * h] + bs[c], acc[nb][4 * j + 2 * h + 1] + bs[c + 1]);
+        }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kUfBM * (BN / 8); i += kUfThreads) {
+      const int r = i / (BN / 8), q = i % (BN / 8);
+      const int64_t ro = row_off[r], co = col_off[q];
+      if (ro >= 0 && co >= 0)
+        *reinterpret_cast<uint4*>(out + ro + co) =
+            *reinterpret_cast<const uint4*>(&os[r * Tile::kRowO + 8 * q]);
+    }
+    // the next epilogue writes the out tile after the next stage's barrier
+  }
 }
 
 __global__ void __launch_bounds__(kUpThreads)
@@ -696,18 +856,60 @@ inline dim3 tiles(int64_t rows, int64_t cols, int bm, int bn, int splits = 1) {
   return dim3((unsigned)((rows + bm - 1) / bm), (unsigned)((cols + bn - 1) / bn), splits);
 }
 
-int upconv_fwd_launch(const void* x, const void* kg, const void* bias, void* out, int B, int H,
-                      int W, int Cin, int Cout, int is_bf16, cudaStream_t st) {
+// The forward kernel's dynamic shared memory above 48 KB, allowed once per
+// instance and device (at the most a block can have).
+template <int BN>
+cudaError_t up_fwd_smem_allowed() {
+  static bool done[16] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 16 && done[dev]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      upconv_fwd_wg_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, kUfSmemMax);
+  if (err == cudaSuccess && dev < 16) done[dev] = true;
+  return err;
+}
+
+// bf16 forward on the wgmma kernel with the wrapper's column tile BN, ring
+// of `stages` and `blocks` x (N / BN) persistent blocks, from the f32
+// weight [Cin, Cout, 2, 2]. Needs Cin % 8 == 0 (16-byte rows for TMA) and
+// Cout % 4 == 0 (16-byte output pieces).
+template <int BN>
+int upconv_fwd_wg_launch(const void* x, const void* w, const void* bias, void* out, int B,
+                         int H, int W, int Cin, int Cout, int stages, int blocks,
+                         cudaStream_t st) {
   const int64_t M = (int64_t)B * H * W;
-  if (is_bf16)
-    upconv_mma_kernel<<<tiles(M, 4 * Cout, kMBM, kMBN), kUpThreads, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(kg),
-        static_cast<const float*>(bias), static_cast<bf16*>(out), B, H, W, Cin, Cout);
-  else
-    upconv_kernel<float><<<tiles(M, 4 * Cout, kUpBM, kUpBN), kUpThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(kg),
-        static_cast<const float*>(bias), static_cast<float*>(out), B, H, W, Cin, Cout);
+  const int smem = UpFwd<BN>::smem((Cin + kUfBK - 1) / kUfBK, stages);
+  if ((Cin & 7) || (Cout & 3) || stages < 2 || stages > kUfMaxStages || blocks < 1 ||
+      smem > kUfSmemMax)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = up_fwd_smem_allowed<BN>();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tm_x;
+  if ((err = tm_rows(&tm_x, x, M, Cin, kUfBM)) != cudaSuccess) return (int)err;
+  const dim3 grid(blocks, (4 * Cout + BN - 1) / BN);
+  upconv_fwd_wg_kernel<BN><<<grid, kUfThreads, smem, st>>>(
+      tm_x, static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<bf16*>(out), B, H, W, Cin, Cout, stages);
   return (int)cudaGetLastError();
+}
+
+// What the card gives the forward's instance BN at `smem` dynamic bytes:
+// {resident blocks an SM, registers a thread, local (spilled) bytes a
+// thread, smem}.
+template <int BN>
+int upconv_fwd_wg_info(int smem, int* out) {
+  cudaError_t err = up_fwd_smem_allowed<BN>();
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, upconv_fwd_wg_kernel<BN>);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], upconv_fwd_wg_kernel<BN>,
+                                                      kUfThreads, smem);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = smem;
+  return (int)err;
 }
 
 int upconv_dx_launch(const void* dy, const void* kg, void* dx, int B, int H, int W, int Cin,
@@ -800,16 +1002,46 @@ int upconv_dw_fma_launch(const void* x, const void* dy, void* part_w, void* part
 // Plain C interface, loaded with ctypes; each returns cudaGetLastError().
 // The wrapper (cl_tpu_torch/kernels/upconv_pack.py) checks the operands:
 // contiguous, 16-byte-aligned NHWC x [B, H, W, Cin] and dy
-// [B, 2H, 2W, Cout] of one type; the weight of that type, as Kg^T
-// [4*Cout, Cin] for the bf16 forward and as Kg [Cin, 4*Cout] otherwise;
+// [B, 2H, 2W, Cout] of one type (the bf16 forward: Cin % 8 == 0 and
+// Cout % 4 == 0); the weight as the module holds it (f32 [Cin, Cout, 2, 2])
+// for the bf16 forward, else as Kg [Cin, 4*Cout] of x's type;
 // f32 bias [Cout]. dW: `part_w` holds splits * Cin * 4*Cout floats,
 // `part_b` splits * 4*Cout; dw [Cin, 4*Cout] and db [Cout] are f32.
 extern "C" {
 
+// The forward: bf16 on the wgmma kernel with the column tile bn (64 or
+// 128), `stages` x stages and `blocks` persistent blocks a column tile, as
+// kernels/upconv_pack.py::fwd_tile / fwd_blocks pick them, `kg` the f32
+// weight [Cin, Cout, 2, 2]; f32 on FMAs (bn, stages, blocks unread; `kg` is
+// Kg [Cin, 4*Cout]).
 int cltorch_upconv_fwd(const void* x, const void* kg, const void* bias, void* out, int B, int H,
-                       int W, int Cin, int Cout, int is_bf16, void* stream) {
-  return cltorch::upconv_fwd_launch(x, kg, bias, out, B, H, W, Cin, Cout, is_bf16,
-                                    static_cast<cudaStream_t>(stream));
+                       int W, int Cin, int Cout, int bn, int stages, int blocks, int is_bf16,
+                       void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    const int64_t M = (int64_t)B * H * W;
+    cltorch::upconv_kernel<float><<<cltorch::tiles(M, 4 * Cout, cltorch::kUpBM, cltorch::kUpBN),
+                                    cltorch::kUpThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(kg),
+        static_cast<const float*>(bias), static_cast<float*>(out), B, H, W, Cin, Cout);
+    return (int)cudaGetLastError();
+  }
+#define CLTORCH_UP_FWD(BN)                                                                    \
+  if (bn == BN)                                                                               \
+    return cltorch::upconv_fwd_wg_launch<BN>(x, kg, bias, out, B, H, W, Cin, Cout, stages,  \
+                                             blocks, st);
+  CLTORCH_UP_FWD(64)
+  CLTORCH_UP_FWD(128)
+#undef CLTORCH_UP_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// The forward's instance bn at `smem` dynamic bytes on this card: out[4] as
+// upconv_fwd_wg_info.
+int cltorch_upconv_fwd_info(int bn, int smem, int* out) {
+  if (bn == 64) return cltorch::upconv_fwd_wg_info<64>(smem, out);
+  if (bn == 128) return cltorch::upconv_fwd_wg_info<128>(smem, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 int cltorch_upconv_dx(const void* dy, const void* kg, void* dx, int B, int H, int W, int Cin,

@@ -1,22 +1,26 @@
 """Time the packed body's kernels of two checkouts in turns on one card.
 
-    python3 -m cl_tpu_torch.kernel_ab OLD_DIR NEW_DIR [KERNEL ...]
+    python3 -m cl_tpu_torch.kernel_ab [--f32] OLD_DIR NEW_DIR [KERNEL ...]
 
 Each directory is a checkout's root (it holds ``chip_smoke.py`` and its
 ``cl_tpu_torch``). The turns run old, new, new, old, each in a process of
 its own whose ``sys.path`` starts with that checkout, so each version
 builds and launches its own kernels. Every turn times each kernel (default:
 the five forward kernels; or any of ``chip_smoke.PACKED_PATH``'s names, the
-backward ones too) at every shape of that checkout's 512² path
-(``chip_smoke.PACKED_PATH``, bf16, batch 8) on that checkout's operands
-(``chip_smoke.packed_operands`` for a forward kernel, ``bwd_operands`` for
-a backward one, whose launch is ``bwd_fns``'s) with this file's
-``time_ms`` (``chip_smoke.py`` times with it too), the same for both
-versions: the median of 20 launches from CUDA events around each, once
-with the launches queued back to back and once synchronised after each.
-Prints per kernel and shape the two versions' medians over their turns,
-the sums over one packed step, and the card's ``nvidia-smi`` name and
-power limit. A name it does not know is refused before any turn runs.
+backward ones too; or ``head_ce_bn_bwd``, the packed head's backward #8)
+at every shape of that checkout's 512² path (``chip_smoke.PACKED_PATH``,
+bf16, batch 8; #8 at ``HEAD_SHAPE`` on ``chip_smoke.bn_case``'s operands)
+on that checkout's operands (``chip_smoke.packed_operands`` for a forward
+kernel, ``bwd_operands`` for a backward one, whose launch is
+``bwd_fns``'s; ``--f32``: in float32) with this file's ``time_ms``
+(``chip_smoke.py`` times with it too), the same for both versions: the
+median of 20 launches from CUDA events around each, once with the launches
+queued back to back, once synchronised after each, and once queued behind
+a card sleep (``time_ms_slept``: the host's issue then stays out of the
+card's time). Prints per kernel and shape the two versions' medians over
+their turns, the sums over one packed step, and the card's ``nvidia-smi``
+name and power limit. A name it does not know is refused before any turn
+runs.
 
     python3 -m cl_tpu_torch.kernel_ab --host-issue OLD_DIR NEW_DIR
 
@@ -24,6 +28,12 @@ times instead, in the same turns, the host's issue of one headline step
 (``HEADLINE``: 512², batch 8, bf16, the packed body and head) with each
 checkout's ``chip_smoke.build_step`` and ``host_issue_ms`` (the median of
 five steps issued while the card sleeps), three readings a turn.
+
+    python3 -m cl_tpu_torch.kernel_ab --ptxas OLD_DIR NEW_DIR SOURCE [NAME]
+
+compiles ``cl_tpu_torch/csrc/SOURCE`` of each checkout as the build does,
+with ``-Xptxas -v``, and prints each kernel's registers and spilled bytes
+(those whose name holds NAME): no card is needed, only ``nvcc``.
 """
 
 from __future__ import annotations
@@ -41,26 +51,39 @@ HEADLINE = ["preset=baseline_1", "data.image_size=512", "data.source_size=576",
             "data.dataset=synthetic", "train.data_parallel=false"]
 BACKWARD = ("conv3x3_bn_dw", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "upconv_dx", "upconv_dw",
             "maxpool_bwd", "bn_relu_bwd", "dy_eff")
+HEAD = ("head_ce_bn_bwd",)
+# The packed head's shape on the headline step: (pixels, Cin, classes),
+# once a step, with bn_case's seed of chip_smoke's phase 3.
+HEAD_SHAPE = (2097152, 32, 19)
+HEAD_SEED = 2
 
 
 def check_names(kernels) -> None:
     """Raise on a kernel name that is neither a forward nor a backward
-    kernel of the packed path."""
-    unknown = [k for k in kernels if k not in FORWARD + BACKWARD]
+    kernel of the packed path, nor the packed head's backward."""
+    unknown = [k for k in kernels if k not in FORWARD + BACKWARD + HEAD]
     if unknown:
         raise ValueError(f"kernel_ab: unknown kernel(s) {unknown}; known: "
-                         f"{', '.join(FORWARD + BACKWARD)}")
+                         f"{', '.join(FORWARD + BACKWARD + HEAD)}")
 
 
-def dispatch(smoke, kernel):
-    """(launch, operands) of one packed-path kernel from the checkout's
-    ``chip_smoke`` module ``smoke``: ``operands(shape)`` makes its seeded
-    bf16 operands on the card (batch 8), ``launch(*operands)`` runs it."""
+def shapes(smoke, kernel):
+    """[(shape, launches a step), ...] of one kernel on the headline step."""
+    return [(HEAD_SHAPE, 1)] if kernel in HEAD else smoke.PACKED_PATH[kernel]
+
+
+def dispatch(smoke, kernel, dtype_name="bfloat16"):
+    """(launch, operands) of one kernel from the checkout's ``chip_smoke``
+    module ``smoke``: ``operands(shape)`` makes its seeded operands on the
+    card (batch 8), ``launch(*operands)`` runs it."""
     check_names([kernel])
+    if kernel in HEAD:
+        return lambda case: smoke.bn_fns(kernel, case)[0](), \
+            lambda shape: (smoke.bn_case(*shape, dtype_name, HEAD_SEED),)
     if kernel in FORWARD:
         return smoke.packed_fns(kernel)[0], \
-            lambda shape: smoke.packed_operands(kernel, shape, "bfloat16")
-    return smoke.bwd_fns(kernel)[0], lambda shape: smoke.bwd_operands(kernel, shape, "bfloat16")
+            lambda shape: smoke.packed_operands(kernel, shape, dtype_name)
+    return smoke.bwd_fns(kernel)[0], lambda shape: smoke.bwd_operands(kernel, shape, dtype_name)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
@@ -89,6 +112,29 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def time_ms_slept(fn, reps: int = 20, warmup: int = 3, sleep_cycles: int = 40_000_000) -> float:
+    """``time_ms`` queued, behind a card sleep of ``sleep_cycles`` (~20 ms):
+    the host queues every launch while the card sleeps, so a wrapper's host
+    work between launches is not counted even where a kernel is shorter
+    than it."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(sleep_cycles)
+    events = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
 def _use_checkout(root):
     sys.path = [root] + [p for p in sys.path if os.path.abspath(p or ".") !=
                          os.path.dirname(os.path.abspath(__file__))]
@@ -112,9 +158,9 @@ def _host_issue_worker(root):
                                         for _ in range(3)]}))
 
 
-def _worker(root, kernels):
+def _worker(root, kernels, dtype_name="bfloat16"):
     """One turn in checkout ``root``: {kernel: [[shape, n per step, queued
-    ms, synchronised ms], ...]} as one JSON line."""
+    ms, synchronised ms, slept ms], ...]} as one JSON line."""
     _use_checkout(root)
     import chip_smoke
     from cl_tpu_torch.kernels import build
@@ -123,24 +169,68 @@ def _worker(root, kernels):
     build.library()
     out = {}
     for kernel in kernels:
-        launch, operands = dispatch(chip_smoke, kernel)
-        for shape, n in chip_smoke.PACKED_PATH[kernel]:
+        launch, operands = dispatch(chip_smoke, kernel, dtype_name)
+        for shape, n in shapes(chip_smoke, kernel):
             ops = operands(shape)
             out.setdefault(kernel, []).append(
                 [list(shape), n, time_ms(lambda: launch(*ops)),
-                 time_ms(lambda: launch(*ops), queued=False)])
+                 time_ms(lambda: launch(*ops), queued=False),
+                 time_ms_slept(lambda: launch(*ops))])
     print(json.dumps(out))
+
+
+def _ptxas(dirs, source, name):
+    """Registers and spills of the kernels in ``source`` of each checkout,
+    from ``nvcc -Xptxas -v`` with the build's flags."""
+    import re
+    import tempfile
+
+    from cl_tpu_torch.kernels import build
+
+    nvcc = build._nvcc()
+    for which, root in dirs.items():
+        src = os.path.join(root, "cl_tpu_torch", "csrc", source)
+        if not os.path.exists(src):
+            print(f"{which}: no {source}")
+            continue
+        with tempfile.TemporaryDirectory() as tmp:
+            res = subprocess.run([nvcc, "-Xptxas=-v", *build.ARCH_FLAGS, *build.CFLAGS, "-c", src,
+                                  "-o", os.path.join(tmp, "k.o")],
+                                 capture_output=True, text=True, check=True)
+        fn, spill = None, (0, 0)
+        for line in (res.stdout + res.stderr).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn is not None:
+                spill = (int(m.group(1)), int(m.group(2)))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None and name in fn:
+                print(f"{which}: {fn}: {m.group(1)} registers, spill stores {spill[0]} B, "
+                      f"spill loads {spill[1]} B")
+                fn = None
 
 
 def main(argv) -> int:
     if argv[:1] == ["--worker"]:
-        _worker(argv[1], argv[2:])
+        _worker(argv[2], argv[3:], argv[1])
         return 0
     if argv[:1] == ["--host-issue-worker"]:
         _host_issue_worker(argv[1])
         return 0
+    if argv[:1] == ["--ptxas"]:
+        if len(argv) not in (4, 5):
+            print(__doc__, file=sys.stderr)
+            return 2
+        _ptxas({"old": os.path.abspath(argv[1]), "new": os.path.abspath(argv[2])}, argv[3],
+               argv[4] if len(argv) == 5 else "")
+        return 0
     host_issue = argv[:1] == ["--host-issue"]
-    argv = argv[1:] if host_issue else argv
+    dtype_name = "float32" if argv[:1] == ["--f32"] else "bfloat16"
+    argv = argv[1:] if host_issue or dtype_name == "float32" else argv
     if len(argv) < 2 or (host_issue and len(argv) > 2):
         print(__doc__, file=sys.stderr)
         return 2
@@ -150,7 +240,7 @@ def main(argv) -> int:
     turns = {"old": [], "new": []}
     for which in ("old", "new", "new", "old"):
         worker = ["--host-issue-worker", dirs[which]] if host_issue else \
-            ["--worker", dirs[which], *kernels]
+            ["--worker", dtype_name, dirs[which], *kernels]
         res = subprocess.run([sys.executable, os.path.abspath(__file__), *worker],
                              cwd=dirs[which], capture_output=True, text=True, check=True)
         turns[which].append(json.loads(res.stdout.strip().splitlines()[-1]))
@@ -160,18 +250,20 @@ def main(argv) -> int:
     kernels = [] if host_issue else kernels
     for kernel in kernels:
         sums = {}
-        for i, (shape, n, _, _) in enumerate(turns["new"][0][kernel]):
+        for i, (shape, n, *_) in enumerate(turns["new"][0][kernel]):
             row = []
             for which in ("old", "new"):
-                q, s = (float(np.median([t[kernel][i][j] for t in turns[which]]))
-                        for j in (2, 3))
-                acc = sums.setdefault(which, [0.0, 0.0])
+                q, s, z = (float(np.median([t[kernel][i][j] for t in turns[which]]))
+                           for j in (2, 3, 4))
+                acc = sums.setdefault(which, [0.0, 0.0, 0.0])
                 acc[0] += n * q
                 acc[1] += n * s
-                row.append(f"{which} {q:.4f} (synchronised {s:.4f})")
-            print(f"{kernel}{shape} x{n}/step: " + ", ".join(row))
+                acc[2] += n * z
+                row.append(f"{which} {q:.4f} (synchronised {s:.4f}, card sleep {z:.4f})")
+            print(f"{kernel}{shape} {dtype_name} x{n}/step: " + ", ".join(row))
         print(f"{kernel} per step: " + ", ".join(
-            f"{w} {q:.4f} ms (synchronised {s:.4f})" for w, (q, s) in sums.items()))
+            f"{w} {q:.4f} ms (synchronised {s:.4f}, card sleep {z:.4f})"
+            for w, (q, s, z) in sums.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

@@ -37,6 +37,7 @@ SIGNATURES = {
     "cltorch_head_ce_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "cltorch_head_ce_bn_fwd": [P] * 16 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_bn_bwd": [P] * 17 + [I] * 5 + [F, I, P],
+    "cltorch_head_ce_bn_mma_info": [I, I, P],
     "cltorch_head_ce_kd_bn_fwd": [P] * 16 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_kd_bn_bwd": [P] * 17 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_kd_fwd": [P] * 16 + [I] * 5 + [F, I, P],
@@ -53,7 +54,8 @@ SIGNATURES = {
     "cltorch_bn_relu_fwd": [P, P, P, P, L, I, I, P],
     "cltorch_add_stats_fwd": [P, P, P, P, P, L, I, I, I, P],
     "cltorch_maxpool_fwd": [P, P, I, I, I, I, I, P],
-    "cltorch_upconv_fwd": [P, P, P, P, I, I, I, I, I, I, P],
+    "cltorch_upconv_fwd": [P] * 4 + [I] * 9 + [P],
+    "cltorch_upconv_fwd_info": [I, I, P],
     "cltorch_bn_relu_bwd": [P, P, P, P, P, P, P, L, I, I, I, P],
     "cltorch_dy_eff": [P, P, P, P, P, L, I, I, P],
     "cltorch_maxpool_bwd": [P, P, P, P, I, I, I, I, I, P],

@@ -18,16 +18,21 @@ and are not carried over: the packed forms take the NHWC raw output).
 
 Each entry runs the CUDA kernels on a CUDA tensor and the plain PyTorch
 version (``*_plain``, the same arithmetic) on a CPU tensor; nothing falls
-back from one to the other. ``LAUNCHES`` counts the kernel launches.
+back from one to the other. ``LAUNCHES`` counts the kernel launches. The
+bf16 backward of the packed head (#8) runs ``csrc/head_ce_bn_mma.cuh`` on
+the tensor cores over a persistent grid the wrapper picks from the shapes
+(``bn_bwd_blocks``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from cl_tpu_torch import losses
-from cl_tpu_torch.kernels import build
+from cl_tpu_torch.kernels import build, one_wave_splits, resident_blocks
 from cl_tpu_torch.kernels.packed_eltwise import bn_relu_bwd_plain, bn_relu_plain
 from cl_tpu_torch.losses import NEG_INF
 
@@ -36,6 +41,50 @@ MAX_CIN = 64
 # Most blocks a launch uses, fixed (not the card's SM count) so the sums
 # run in the same order on every card; the rows of the partials buffer.
 N_BLOCKS = 1024
+
+# The bf16 #8 on the tensor cores (csrc/head_ce_bn_mma.cuh): tiles of
+# BN_BWD_TILE pixels (8 warps of 16 rows), a ring of BN_BWD_STAGES tiles.
+BN_BWD_TILE = 128
+BN_BWD_THREADS = 256
+BN_BWD_STAGES = 3
+
+
+def bn_bwd_tile(cin, C):
+    """(CIN16, CMAX): the bf16 #8 instance for Cin channels (rounded up to
+    16) and C classes (16 or 32)."""
+    return -(-cin // 16) * 16, 16 if C <= 16 else 32
+
+
+def bn_bwd_resources(cin16, cmax):
+    """(threads, dynamic shared bytes, resident blocks an SM) of an
+    instance, as ``HbLayout`` sizes it: the ring of y tiles [128][CIN16 +
+    8] bf16 and their labels, W [CMAX][CIN16 + 8] bf16, eight g tiles
+    [16][CMAX + 8] bf16, the f32 vectors; as ``__launch_bounds__`` fits
+    the registers, three blocks an SM of the (16, 16) instance, two up to
+    32 channels, one else, fewer if the shared memory says so."""
+    row_y = cin16 + 8
+    smem = (BN_BWD_STAGES * BN_BWD_TILE * (row_y * 2 + 4) + cmax * row_y * 2
+            + 8 * 16 * (cmax + 8) * 2 + (2 * cin16 + 2 * cmax) * 4)
+    min_blocks = 3 if (cin16, cmax) == (16, 16) else 2 if cin16 <= 32 else 1
+    return BN_BWD_THREADS, smem, resident_blocks(smem, min_blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def bn_bwd_blocks(P, cin, C):
+    """Persistent blocks of the bf16 #8 (the rows of its partials): one
+    wave of resident blocks over the 128-pixel tiles, each the same number
+    of tiles. A function of the shapes alone, so the partial sums run in
+    the same order on every call."""
+    return one_wave_splits(-(-P // BN_BWD_TILE), 1,
+                           bn_bwd_resources(*bn_bwd_tile(cin, C))[2])
+
+
+def bn_bwd_partials_rows(P, cin, C, bf16, kd=False, prologue=True):
+    """The rows of the partials the backward's wrapper allocates (and the
+    blocks it passes to the C entry): the bf16 #8's schedule, else
+    N_BLOCKS (the launch takes at most that many)."""
+    return bn_bwd_blocks(P, cin, C) if bf16 and prologue and not kd else N_BLOCKS
+
 
 LAUNCHES = {"head_ce_fwd": 0, "head_ce_bwd": 0, "head_ce_kd_fwd": 0, "head_ce_kd_bwd": 0,
             "head_ce_bn_fwd": 0, "head_ce_bn_bwd": 0, "head_ce_kd_bn_fwd": 0,
@@ -379,7 +428,8 @@ def _launch_bn_bwd(y, scale, shift, w, b, labels, valid, teacher, cot, temperatu
     kd = teacher is not None
     dy = torch.empty_like(y)
     n_ent = C * (cin + 1) + (0 if scale is None else 2 * cin)
-    partials = torch.empty(N_BLOCKS, n_ent, dtype=torch.float32, device=y.device)
+    rows = bn_bwd_partials_rows(P, cin, C, y.dtype == torch.bfloat16, kd, scale is not None)
+    partials = torch.empty(rows, n_ent, dtype=torch.float32, device=y.device)
     out = torch.empty(n_ent, dtype=torch.float32, device=y.device)
     cot = cot.to(device=y.device, dtype=torch.float32).contiguous()
     yt, ts, tsh, tw, tb, ov = teacher if kd else (None,) * 6
@@ -389,7 +439,7 @@ def _launch_bn_bwd(y, scale, shift, w, b, labels, valid, teacher, cot, temperatu
         _ptr(yt), _ptr(ts), _ptr(tsh), _ptr(tw), _ptr(tb), labels.data_ptr(),
         valid.data_ptr(), _ptr(ov), cot.data_ptr(), dy.data_ptr(), partials.data_ptr(),
         out.data_ptr(), P, cin, C, int(ignore_index), int(y.dtype == torch.bfloat16),
-        float(temperature), N_BLOCKS, torch.cuda.current_stream(y.device).cuda_stream)
+        float(temperature), rows, torch.cuda.current_stream(y.device).cuda_stream)
     build.check(err, name)
     dwb = out[:C * (cin + 1)].view(C, cin + 1)
     if scale is None:

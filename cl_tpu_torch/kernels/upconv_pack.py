@@ -17,10 +17,14 @@ and sums the blocks in bf16, ``upconv_pack.py:219``: a few bf16 ulps
 apart); db = Σ DY over pixels and phases in f32.
 
 On a CUDA tensor the wrappers launch the kernels, on a CPU tensor they run
-the plain versions. ``LAUNCHES`` counts the kernel launches.
+the plain versions. ``LAUNCHES`` counts the kernel launches. The bf16
+forward runs a persistent wgmma kernel whose column tile, ring and grid
+the wrapper picks from the shapes alone (``fwd_tile``, ``fwd_blocks``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -80,6 +84,73 @@ def _check_x(x, what):
         raise ValueError(f"{what} needs a contiguous 16-byte-aligned NHWC tensor")
 
 
+# The bf16 forward's persistent wgmma kernel (csrc/upconv.cu::UpFwd,
+# upconv_fwd_wg_kernel): tiles of FWD_BM pixels, k-chunks of FWD_BK input
+# channels, FWD_THREADS threads, a ring of 2 to FWD_MAX_STAGES stages, at
+# most FWD_SMEM_MAX bytes of dynamic shared memory a block, registers for
+# FWD_MIN_BLOCKS blocks an SM (its __launch_bounds__).
+FWD_BM = 128
+FWD_BK = 64
+FWD_THREADS = 256
+FWD_MAX_STAGES = 6
+FWD_SMEM_MAX = 232448
+FWD_MIN_BLOCKS = 2
+
+
+def fwd_smem(bn, cin, stages):
+    """Dynamic shared bytes of a forward launch, as ``UpFwd::smem``: 1024 of
+    alignment, the block's Kgᵀ [BN][64] a k-chunk, the x stages [128][64],
+    the out tile [128][BN + 8] bf16, the bias [BN] f32, the output offsets
+    of the tile's 128 rows and BN / 8 column pieces (int64), an mbarrier a
+    stage."""
+    kc = -(-cin // FWD_BK)
+    return (1024 + kc * bn * FWD_BK * 2 + stages * FWD_BM * FWD_BK * 2
+            + FWD_BM * (bn + 8) * 2 + bn * 4 + (FWD_BM + bn // 8) * 8 + stages * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_tile(cin, cout):
+    """(BN, stages): the bf16 forward's column tile of 4·Cout and its ring.
+    Two resident blocks an SM first (eight warps each: one block's products
+    and copies run while the other's epilogue stores), then one; at that
+    count the widest column tile (128 above 64 columns, else 64) with at
+    least two stages, and the most stages (at most FWD_MAX_STAGES) that
+    keep it. Raises where nothing fits."""
+    bns = ([128] if 4 * cout > 64 else []) + [64]
+    for want in (2, 1):
+        for bn in bns:
+            fits = [st for st in range(2, FWD_MAX_STAGES + 1)
+                    if fwd_smem(bn, cin, st) <= FWD_SMEM_MAX
+                    and resident_blocks(fwd_smem(bn, cin, st), FWD_MIN_BLOCKS) >= want]
+            if fits:
+                return bn, fits[-1]
+    raise ValueError(f"upconv forward kernel: no tile fits {cin} -> {cout} channels in "
+                     "shared memory")
+
+
+def fwd_resources(bn, cin, stages):
+    """(threads, dynamic shared bytes, resident blocks an SM) of a forward
+    launch."""
+    smem = fwd_smem(bn, cin, stages)
+    return FWD_THREADS, smem, resident_blocks(smem, FWD_MIN_BLOCKS)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_blocks(cin, cout, pixels):
+    """Persistent blocks a column tile of the bf16 forward walks the
+    FWD_BM-pixel tiles with: one wave of resident blocks over the column
+    tiles, each the same number of tiles. A function of the shapes alone."""
+    bn, stages = fwd_tile(cin, cout)
+    return one_wave_splits(-(-pixels // FWD_BM), -(-(4 * cout) // bn),
+                           fwd_resources(bn, cin, stages)[2])
+
+
+def _check_fwd_bf16(cin, cout):
+    if cin % 8 or cout % 4:
+        raise ValueError(f"upconv bf16 forward kernel needs Cin % 8 == 0 (16-byte rows) and "
+                         f"Cout % 4 == 0 (16-byte output pieces), got Cin={cin} Cout={cout}")
+
+
 def launch_upconv2x2(x, weight, bias):
     _check_x(x, "upconv kernel")
     B, H, W, cin = x.shape
@@ -87,14 +158,18 @@ def launch_upconv2x2(x, weight, bias):
     if weight.shape != (cin, cout, 2, 2) or bias.shape != (cout,):
         raise ValueError(f"upconv kernel: weight [Cin, Cout, 2, 2] and bias [Cout] "
                          f"expected, got {tuple(weight.shape)} {tuple(bias.shape)}")
-    kg = gemm_weight(weight, x.dtype)
-    if x.dtype == torch.bfloat16:  # the tensor-core kernel reads Kgᵀ
-        kg = kg.T.contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:  # the wgmma kernel forms Kgᵀ from the f32 weight itself
+        _check_fwd_bf16(cin, cout)
+        kg = weight.to(device=x.device, dtype=torch.float32).contiguous()
+        schedule = (*fwd_tile(cin, cout), fwd_blocks(cin, cout, B * H * W))
+    else:
+        kg, schedule = gemm_weight(weight, x.dtype), (0, 0, 0)
     b = bias.to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty(B, 2 * H, 2 * W, cout, dtype=x.dtype, device=x.device)
     err = build.library().cltorch_upconv_fwd(
         x.data_ptr(), kg.data_ptr(), b.data_ptr(), y.data_ptr(), B, H, W, cin, cout,
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+        *schedule, int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "upconv_fwd")
     return y
 
