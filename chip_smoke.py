@@ -61,7 +61,14 @@ Phases (any failure raises, so the exit code is non-zero):
    bf16 #36 and #29: each instance's resident blocks an SM as their split
    pickers assume, with its registers, spilled bytes and shared memory
    printed, and both at ragged shapes past every tile and at widths that
-   take their plain-load staging; the pipelined dx (34p/35p, ``CL_TPU_DX_PIPE``) at #34/#35's
+   take their plain-load staging; the up-conv's bf16 forward (#27) and dx
+   (#28) wgmma kernels at ragged shapes past every tile and picker branch
+   (the dx's DY by TMA boxes of one row and of whole rows, and by cp.async
+   where no box serves), and the packed head's bf16 forward (#7) and
+   backward (#8) at every instance and ragged P, each launched twice and
+   held bit-equal, each launch's resident blocks an SM held against its
+   picker's with its registers, spills and shared memory printed; the
+   pipelined dx (34p/35p, ``CL_TPU_DX_PIPE``) at #34/#35's
    shapes and at the ring's ragged ones, bit-equal to them; the packed head without a prologue (#5/#6)
    at 2,097,152 x 32 -> 19 bf16 and small f32 / ragged cases; the gen-2
    conv (#40) at baseline_2's 256² × 64 → 64, 128 → 64 and 128² × 64 →
@@ -440,8 +447,9 @@ def kernel_times(case):
 # ---------------------------------------------------------------------------
 
 BN_KERNELS = {  # launch-count key: (source, TPU kernel's pallas_call)
-    "head_ce_bn_fwd": ("cl_tpu_torch/csrc/head_ce_bn.cu", "cl_tpu/pallas/head_ce.py:571"),
-    "head_ce_bn_bwd": ("cl_tpu_torch/csrc/head_ce_bn.cu", "cl_tpu/pallas/head_ce.py:601"),
+    # the bf16 forward and backward (the kernels line's) run the mma body
+    "head_ce_bn_fwd": ("cl_tpu_torch/csrc/head_ce_bn_mma.cuh", "cl_tpu/pallas/head_ce.py:571"),
+    "head_ce_bn_bwd": ("cl_tpu_torch/csrc/head_ce_bn_mma.cuh", "cl_tpu/pallas/head_ce.py:601"),
     "head_ce_kd_bn_fwd": ("cl_tpu_torch/csrc/head_ce_kd_bn.cu", "cl_tpu/pallas/head_ce.py:997"),
     "head_ce_kd_bn_bwd": ("cl_tpu_torch/csrc/head_ce_kd_bn.cu",
                           "cl_tpu/pallas/head_ce.py:1036"),
@@ -531,13 +539,13 @@ def compare_bn(kernel, case):
     1e-5 of Σ_c |g|·|W|·|scale|; the sums over pixels (dscale, dshift, dW,
     db) as head_ce's backward: 1e-3 of max|plain| in bf16, 1e-4 relative
     plus 1e-5 of max|plain| in f32. A backward launched twice repeats
-    every bit. The KD head on NHWC features (``head_ce_kd_*``) has no
-    prologue: |scale| is 1 and its backward gives dx, dW and db."""
+    every bit, and so does a forward. The KD head on NHWC features
+    (``head_ce_kd_*``) has no prologue: |scale| is 1 and its backward
+    gives dx, dW and db."""
     import torch
 
     launch, plain = bn_fns(kernel, case)
-    k_out, p_out = launch(), plain()
-    again = launch() if kernel.endswith("bwd") else k_out
+    k_out, p_out, again = launch(), plain(), launch()
     torch.cuda.synchronize()
     if not isinstance(k_out, tuple):
         k_out, p_out, again = (k_out,), (p_out,), (again,)
@@ -1025,74 +1033,121 @@ ODD.update({"conv3x3_bn_dw": ODD["conv3x3_bn_fwd"] + RING_ODD["conv3x3_bn_dw"],
 # the edge) and 72 (two); 4·Cout 32, 96 and 160 (a column tile of 64 or 128
 # cut by the edge; 160 over two tiles of 128, the second partial).
 UPCONV_FWD_ODD = [(20, 40, 8), (19, 72, 24), (13, 40, 40), (20, 72, 40)]
+# The bf16 up-conv dx's wgmma kernel (#28; kernels/upconv_pack.py::dx_tile,
+# dx_blocks) at ragged shapes, batch 3, as (H_in, Cin, Cout): the forward's
+# (M not a multiple of the 128-pixel tile; Cin 40 and 72, a column tile of
+# 64 or 128 cut by the edge; 4·Cout 32, 96 and 160, a k-chunk of 64 cut by
+# the edge), whose W (20, 19, 13) and 2·Cout take the cp.async path; then
+# two the TMA box serves: W 8, a box of 16 whole rows whose last tile runs
+# past the image (M = 192), Cin 72; and 2·Cout 192, a k-chunk at a phase
+# row's offset 64, W 16 (a box of eight rows), Cin 24; then two whose Kg
+# slice does not fit whole and is streamed a chunk a stage: 4·Cout 1536 by
+# TMA (W 8), 1600 by cp.async (W 5, 2·Cout 800).
+UPCONV_DX_ODD = UPCONV_FWD_ODD + [(8, 72, 32), (16, 24, 96), (8, 16, 384), (5, 24, 400)]
 # The bf16 packed head's backward (#8; kernels/head_ce.py::bn_bwd_tile,
-# bn_bwd_blocks) at ragged shapes (P, Cin, C): P not a multiple of the
-# 128-pixel tile, below one wave and past it; Cin 8, 24, 40, 64 and C 2, 8,
-# 19, 32, every instance (CIN16 16, 32, 48, 64 x CMAX 16, 32) with the
-# headline's.
+# bn_bwd_blocks) and forward (#7; bn_fwd_tile, bn_fwd_blocks) at ragged
+# shapes (P, Cin, C): P not a multiple of the 128- or 256-pixel tile, below
+# one wave and past it; Cin 8, 24, 40, 64 and C 2, 8, 19, 32, every
+# instance (CIN16 16, 32, 48, 64 x CMAX 16, 32) with the headline's.
 BN_BWD_ODD = [(1000, 8, 2), (300017, 24, 8), (270001, 40, 19), (131075, 64, 32),
               (65537, 8, 32), (99999, 64, 8), (4099, 40, 2)]
 
 
-def head_bwd_info():
-    """Each bf16 #8 instance of phase 3 (the headline's and
-    ``BN_BWD_ODD``'s) on this card: its resident blocks an SM held against
-    what ``head_ce.bn_bwd_blocks`` assumes, with its registers, local
-    (spilled) bytes a thread and shared memory printed. Returns {instance:
-    (blocks, regs, local, smem)}."""
+def _head_mma_info(kernel):
+    """Each bf16 #8 (``kernel`` head_ce_bn_bwd) or #7 (head_ce_bn_fwd)
+    instance of phase 3 (the headline's and ``BN_BWD_ODD``'s) on this card:
+    its resident blocks an SM and shared memory held against what
+    ``head_ce.bn_bwd_blocks`` / ``bn_fwd_blocks`` assume, with its
+    registers and local (spilled) bytes a thread printed. Returns
+    {instance: (blocks, regs, local, smem)}."""
     import ctypes
 
     from cl_tpu_torch.kernels import build, head_ce
 
     lib = build.library()
+    fwd = kernel == "head_ce_bn_fwd"
+    entry = lib.cltorch_head_ce_bn_fwd_mma_info if fwd else lib.cltorch_head_ce_bn_mma_info
+    resources = head_ce.bn_fwd_resources if fwd else head_ce.bn_bwd_resources
     out = {}
     for cin, C in sorted({(cin, C) for _, cin, C in BN_BWD_ODD} | {(32, 19)}):
         tile = head_ce.bn_bwd_tile(cin, C)
         if tile in out:
             continue
         info = (ctypes.c_int * 4)()
-        build.check(lib.cltorch_head_ce_bn_mma_info(cin, C, ctypes.addressof(info)),
-                    f"head_ce_bn_bwd {tile} info")
+        build.check(entry(cin, C, ctypes.addressof(info)), f"{kernel} {tile} info")
         blocks, regs, local, smem = info
-        threads, smem_py, blocks_py = head_ce.bn_bwd_resources(*tile)
+        threads, smem_py, blocks_py = resources(*tile)
         ok = blocks == blocks_py and smem == smem_py
-        print(f"  head_ce_bn_bwd_mma<{tile[0]}, {tile[1]}>: {threads} threads, {regs} registers, "
+        print(f"  {kernel}_mma<{tile[0]}, {tile[1]}>: {threads} threads, {regs} registers, "
               f"{local} local bytes a thread, {smem} B shared; {blocks} blocks an SM (the picker "
               f"assumes {blocks_py}){'' if ok else ' FAIL'}")
-        need(ok, f"head_ce_bn_bwd {tile}: resident blocks as the picker assumes")
+        need(ok, f"{kernel} {tile}: resident blocks as the picker assumes")
         out[tile] = (blocks, regs, local, smem)
+    return out
+
+
+def head_bwd_info():
+    """The bf16 #8's instances, as ``_head_mma_info``."""
+    return _head_mma_info("head_ce_bn_bwd")
+
+
+def head_fwd_info():
+    """The bf16 #7's instances, as ``_head_mma_info``."""
+    return _head_mma_info("head_ce_bn_fwd")
+
+
+def _upconv_wg_info(kernel, launches, tile, resources, entry):
+    """Each bf16 wgmma launch of the up-conv (``kernel`` upconv_fwd or
+    upconv_dx) at ``launches`` [(Cin, Cout), ...]: its instance's resident
+    blocks an SM at the launch's shared memory held against what the
+    picker assumes, with its registers and local (spilled) bytes a thread
+    printed. Returns {(BN, stages, width): (blocks, regs, local, smem)},
+    width the Cin (forward) or Cout (dx) the shared memory depends on."""
+    import ctypes
+
+    from cl_tpu_torch.kernels import build
+
+    name = {"upconv_fwd": "upconv_fwd_wg", "upconv_dx": "upconv_dx_wg"}[kernel]
+    out = {}
+    for cin, cout in launches:
+        bn, stages = tile(cin, cout)
+        width = cin if kernel == "upconv_fwd" else cout
+        if (bn, stages, width) in out:
+            continue
+        threads, smem_py, blocks_py = resources(bn, width, stages)
+        info = (ctypes.c_int * 4)()
+        build.check(entry(bn, smem_py, ctypes.addressof(info)), f"{kernel} {bn} info")
+        blocks, regs, local, smem = info
+        ok = blocks == blocks_py
+        print(f"  {name}<{bn}> ({'Cin' if kernel == 'upconv_fwd' else 'Cout'} {width}, "
+              f"{stages} stages): {threads} threads, {regs} registers, {local} local bytes a "
+              f"thread, {smem} B shared; {blocks} blocks an SM (the picker assumes "
+              f"{blocks_py}){'' if ok else ' FAIL'}")
+        need(ok, f"{kernel} {bn}: resident blocks as the picker assumes")
+        out[(bn, stages, width)] = (blocks, regs, local, smem)
     return out
 
 
 def upconv_fwd_info():
     """Each bf16 #27 launch of phase 3 (the 512² path's, ``ODD``'s and
-    ``UPCONV_FWD_ODD``'s shapes): its instance's resident blocks an SM at the
-    launch's shared memory held against what ``upconv_pack.fwd_blocks``
-    assumes, with its registers and local (spilled) bytes a thread printed.
-    Returns {(BN, stages, Cin): (blocks, regs, local, smem)}."""
-    import ctypes
-
+    ``UPCONV_FWD_ODD``'s shapes), as ``_upconv_wg_info``."""
     from cl_tpu_torch.kernels import build, upconv_pack
 
-    lib = build.library()
-    out = {}
-    for _, cin, cout in [s for s, _ in PACKED_PATH["upconv_fwd"]] + ODD["upconv_fwd"] + \
-            UPCONV_FWD_ODD:
-        bn, stages = upconv_pack.fwd_tile(cin, cout)
-        if (bn, stages, cin) in out:
-            continue
-        threads, smem_py, blocks_py = upconv_pack.fwd_resources(bn, cin, stages)
-        info = (ctypes.c_int * 4)()
-        build.check(lib.cltorch_upconv_fwd_info(bn, smem_py, ctypes.addressof(info)),
-                    f"upconv_fwd {bn} info")
-        blocks, regs, local, smem = info
-        ok = blocks == blocks_py
-        print(f"  upconv_fwd_wg<{bn}> (Cin {cin}, {stages} stages): {threads} threads, {regs} "
-              f"registers, {local} local bytes a thread, {smem} B shared; {blocks} blocks an SM "
-              f"(the picker assumes {blocks_py}){'' if ok else ' FAIL'}")
-        need(ok, f"upconv_fwd {bn}: resident blocks as the picker assumes")
-        out[(bn, stages, cin)] = (blocks, regs, local, smem)
-    return out
+    shapes = [s for s, _ in PACKED_PATH["upconv_fwd"]] + ODD["upconv_fwd"] + UPCONV_FWD_ODD
+    return _upconv_wg_info("upconv_fwd", [(ci, co) for _, ci, co in shapes],
+                           upconv_pack.fwd_tile, upconv_pack.fwd_resources,
+                           build.library().cltorch_upconv_fwd_info)
+
+
+def upconv_dx_info():
+    """Each bf16 #28 launch of phase 3 (the 512² path's, ``ODD``'s and
+    ``UPCONV_DX_ODD``'s shapes), as ``_upconv_wg_info``."""
+    from cl_tpu_torch.kernels import build, upconv_pack
+
+    shapes = [s for s, _ in PACKED_PATH["upconv_dx"]] + ODD["upconv_dx"] + UPCONV_DX_ODD
+    return _upconv_wg_info("upconv_dx", [(ci, co) for _, ci, co in shapes],
+                           upconv_pack.dx_tile, upconv_pack.dx_resources,
+                           build.library().cltorch_upconv_dx_info)
 
 
 def ring_info():
@@ -3382,6 +3437,11 @@ def main() -> int:
         for dtype_name in ("float32", "bfloat16"):
             compare_packed("upconv_fwd", shape, dtype_name, batch=3)
     upconv_fwd_info()
+    # the up-conv dx's wgmma kernel (#28) past every tile, picker branch and
+    # staging path, each launched twice; its instances' resources
+    for shape in UPCONV_DX_ODD:
+        compare_bwd("upconv_dx", shape, "bfloat16", batch=3)
+    upconv_dx_info()
     # the packed head: at the headline shape, and small f32 / ragged / C <= 8
     bn_full = bn_case(2097152, 32, 19, "bfloat16", 2)
     bn_errs = {k: compare_bn(k, bn_full) for k in BN_KERNELS}
@@ -3390,10 +3450,13 @@ def main() -> int:
         case = bn_case(*args)
         for k in BN_KERNELS:
             compare_bn(k, case)
-    # the bf16 #8 on the tensor cores at every instance and ragged P, each
-    # launched twice; its instances' resources
+    # the bf16 #7 and #8 on the tensor cores at every instance and ragged
+    # P, each launched twice; their instances' resources
     for seed, args in enumerate(BN_BWD_ODD, 20):
-        compare_bn("head_ce_bn_bwd", bn_case(*args, "bfloat16", seed))
+        case = bn_case(*args, "bfloat16", seed)
+        for kernel in ("head_ce_bn_fwd", "head_ce_bn_bwd"):
+            compare_bn(kernel, case)
+    head_fwd_info()
     head_bwd_info()
     # LwF off the packed head: the KD head on NHWC features (#9/#10) at the
     # full width, at base 64 with the fused head (Cin 64, baseline_2's 21

@@ -2,12 +2,16 @@
 // cl_tpu/pallas/head_ce.py::_pkbn_fwd_kernel (launched at head_ce.py:571)
 // and ::_pkbn_bwd_kernel (:601). The teacher's operands are not read.
 // Arithmetic, what bounds it and the design: head_ce_bn.cuh, and for the
-// bf16 backward head_ce_bn_mma.cuh.
+// bf16 forward and backward head_ce_bn_mma.cuh.
 
 #include "head_ce_bn.cuh"
 
 namespace cltorch {
-// bf16 #8 on the tensor cores (head_ce_bn_mma.cu).
+// bf16 #7 and #8 on the tensor cores (head_ce_bn_mma.cu).
+int head_ce_bn_fwd_mma(const void* y, const void* s, const void* sh, const void* w,
+                       const void* b, const void* lbl, const void* valid, void* partials,
+                       void* out_ce, int P, int Cin, int C, int ignore_index, int blocks,
+                       cudaStream_t st);
 int head_ce_bn_bwd_mma(const void* y, const void* s, const void* sh, const void* w,
                        const void* b, const void* lbl, const void* valid, const void* cot,
                        void* dx, void* partials, void* out, int P, int Cin, int C,
@@ -21,9 +25,9 @@ int head_ce_bn_bwd_mma(const void* y, const void* s, const void* sh, const void*
 // max_blocks rows (1 float forward; C*(Cin+1) + 2*Cin floats
 // backward); `cot` is {gce} on the device; the backward's `out` is
 // [dW | db] as [C, Cin+1], then dscale and dshift [Cin] each. The bf16
-// backward runs head_ce_bn_mma.cuh's body over exactly max_blocks
-// persistent blocks (the wrapper's bn_bwd_blocks); the others run
-// head_ce_bn.cuh's over at most max_blocks.
+// forward and backward run head_ce_bn_mma.cuh's bodies over exactly
+// max_blocks persistent blocks (the wrapper's bn_fwd_blocks, bn_bwd_blocks);
+// the f32 ones run head_ce_bn.cuh's over at most max_blocks.
 extern "C" {
 
 int cltorch_head_ce_bn_fwd(const void* y, const void* s, const void* sh, const void* w,
@@ -35,10 +39,11 @@ int cltorch_head_ce_bn_fwd(const void* y, const void* s, const void* sh, const v
   using namespace cltorch;
   const BnArgs a{y, s, sh, w, b, yt, ts, tsh, tw, tb, lbl, valid, ovalid};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bn_fwd<__nv_bfloat16, false>(a, temperature, partials, out_ce, out_kd,
-                                                       P, Cin, C, ignore_index, max_blocks, st)
-                 : launch_bn_fwd<float, false>(a, temperature, partials, out_ce, out_kd, P, Cin,
-                                               C, ignore_index, max_blocks, st);
+  if (is_bf16)
+    return head_ce_bn_fwd_mma(y, s, sh, w, b, lbl, valid, partials, out_ce, P, Cin, C,
+                              ignore_index, max_blocks, st);
+  return launch_bn_fwd<float, false>(a, temperature, partials, out_ce, out_kd, P, Cin, C,
+                                     ignore_index, max_blocks, st);
 }
 
 int cltorch_head_ce_bn_bwd(const void* y, const void* s, const void* sh, const void* w,

@@ -1,7 +1,8 @@
-// The packed head+CE's backward (#8) in bf16 on the tensor cores: the
-// BN·ReLU prologue, the 1x1 head's logits, the masked softmax CE's
-// cotangent and every gradient in one pass over the raw last-level output
-// y [P, Cin], redesigned for the H100.
+// The packed head+CE's backward (#8) and forward (#7) in bf16 on the
+// tensor cores: the BN·ReLU prologue, the 1x1 head's logits, and the
+// masked softmax CE's cotangent and every gradient (#8) or its sum (#7),
+// in one pass over the raw last-level output y [P, Cin], redesigned for
+// the H100.
 //
 // Replaces cl_tpu/pallas/head_ce.py::_pkbn_bwd_kernel (:505-549, launched
 // at :601) for bf16 features. Its arithmetic, with W rounded to bf16:
@@ -10,8 +11,8 @@
 //   g = gce*pix*(softmax - onehot), masked by valid; gc = round(g); dz =
 //   round(gc W); du = [t > 0] dz on the f32 t; dx = round(du*s); dscale =
 //   sum du*y, dshift = sum du, dW = sum gc^T z, db = sum g (unrounded).
-// head_ce_bn.cuh keeps the f32 #8, the forward #7, the KD forms #9-#12 and
-// #5/#6; the body is templated on the widths only, for those to move onto.
+// head_ce_bn.cuh keeps the f32 #7 and #8, the KD forms #9-#12 and #5/#6;
+// the bodies are templated on the widths only, for those to move onto.
 //
 // What bounds it on the H100: bytes. At the headline shape (P = 2,097,152
 // pixels x 32 channels, 19 classes) it reads y (134 MB) and the labels (8
@@ -47,6 +48,30 @@
 //   warps' sums are added in warp order in shared memory, and the second
 //   launch sums the rows in a fixed order. No float atomics: a relaunch
 //   repeats every bit.
+//
+// The forward (#7; replaces cl_tpu/pallas/head_ce.py::_pkbn_fwd_kernel,
+// :482-502, launched at :571, for bf16 features): total = sum_p pix
+// (logsumexp - z_label) over the same logits. What bounds it: bytes, y
+// (134 MB) and the labels (8 MB) at the headline shape, 0.043 ms. What
+// held the first body (head_ce_bn.cuh, 0.215 ms: one pixel a thread, the
+// logits on f32 FMAs, synchronous staging) and what this one does:
+// * The products: #8's logits on mma.sync against the resident W, the
+//   prologue on the ldmatrix'd A fragments (its max on the rounded bf16
+//   pair), the logits starting at the bias in the first product.
+// * Instructions a pixel, which bound it once the copies overlap (a deeper
+//   ring alone barely moved it): no column needs a mask (W's rows of the
+//   invalid classes are zero and their bias -1e9, so their logits are the
+//   plain version's -1e9 exactly); the column tiles past C are skipped;
+//   exp by ex2 of (z - max) log2 e and one log a row; the label's logit by
+//   a compare against label - 2t and the same quad shuffles as the sum; s
+//   and sh stay in registers up to 32 channels.
+// * One barrier and one copy set-up a 256-pixel tile up to 32 channels
+//   (two slabs a warp, branch-free so that the compiler interleaves them),
+//   through a ring of the stages that fit a third of the SM's shared
+//   memory; three blocks an SM, exactly, by asking for that third
+//   (kernels/head_ce.py::bn_fwd_blocks sizes one wave from it).
+// * One partial a block (the warps' sums in warp order), summed by the
+//   fixed-order second launch: a relaunch repeats every bit.
 
 #pragma once
 
@@ -92,6 +117,67 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float ex2_approx(float x) {  // 2^x, one MUFU op
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Both kernels' set-up, by the block: the ring of `ring_words` 16-byte
+// words zeroed where Cin < CIN16 (channels Cin..CIN16 stay zero: no copy
+// writes them), W
+// rounded to bf16 and zero-padded [CMAX][CIN16 + 8], the vectors s, sh
+// [CIN16] and b, valid [CMAX] at vec (zero past Cin and C).
+// With ZERO_INVALID, W's rows of the classes that are not valid are zero
+// too (the forward's masked logits are then exactly its bias of -1e9).
+template <int CIN16, int CMAX, bool ZERO_INVALID = false>
+__device__ __forceinline__ void hb_load(uint4* ring, int ring_words, bf16* w_s, float* vec,
+                                        const float* __restrict__ s,
+                                        const float* __restrict__ sh,
+                                        const float* __restrict__ w,
+                                        const float* __restrict__ b,
+                                        const float* __restrict__ valid, int Cin, int C) {
+  constexpr int RY = CIN16 + 8;
+  if (Cin < CIN16)  // else no channel past Cin is read (rows past P are zero-filled copies)
+    for (int i = threadIdx.x; i < ring_words; i += kHbThreads) ring[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < CMAX * CIN16; i += kHbThreads) {
+    const int c = i / CIN16, k = i % CIN16;
+    const bool on = c < C && k < Cin && (!ZERO_INVALID || valid[c] > 0.f);
+    w_s[c * RY + k] = __float2bfloat16(on ? w[c * Cin + k] : 0.f);
+  }
+  float *s_s = vec, *sh_s = vec + CIN16, *b_s = vec + 2 * CIN16, *v_s = b_s + CMAX;
+  for (int i = threadIdx.x; i < CIN16; i += kHbThreads) {
+    s_s[i] = i < Cin ? s[i] : 0.f;
+    sh_s[i] = i < Cin ? sh[i] : 0.f;
+  }
+  for (int i = threadIdx.x; i < CMAX; i += kHbThreads) {
+    b_s[i] = i < C ? b[i] : 0.f;
+    v_s[i] = i < C ? valid[i] : 0.f;
+  }
+}
+
+// Copies of the block's k-th tile into stage st (ys its y rows [128][CIN16
+// + 8], ls its labels), by the block: y rows, zero past P; labels (zero
+// past P, where pix is 0 by the row test).
+template <int CIN16, int TILE = kHbTile>
+__device__ __forceinline__ void hb_issue(int k, int my_tiles, bf16* ys, int* ls,
+                                         const bf16* __restrict__ y,
+                                         const int* __restrict__ labels, int P, int Cin) {
+  if (k >= my_tiles) return;
+  constexpr int RY = CIN16 + 8;
+  const int chunks = Cin / 8;  // 16-byte pieces of a pixel's row
+  const int64_t base = ((int64_t)blockIdx.x + (int64_t)k * gridDim.x) * TILE;
+  for (int i = threadIdx.x; i < TILE * chunks; i += kHbThreads) {
+    const int r = i / chunks, q = i - r * chunks;
+    const bool on = base + r < P;
+    cp_async<16>(ys + r * RY + q * 8, on ? y + (base + r) * Cin + q * 8 : y, on);
+  }
+  for (int r = threadIdx.x; r < TILE; r += kHbThreads) {
+    const bool on = base + r < P;
+    cp_async<4>(ls + r, on ? labels + base + r : labels, on);
+  }
+}
 
 template <int CIN16, int CMAX>
 __global__ void __launch_bounds__(kHbThreads, HbLayout<CIN16, CMAX>::kMinBlocks)
@@ -119,22 +205,8 @@ __global__ void __launch_bounds__(kHbThreads, HbLayout<CIN16, CMAX>::kMinBlocks)
   const int lr = lane & 7, lm = lane >> 3;  // ldmatrix: the row of matrix lm this lane addresses
   bf16* g_s = reinterpret_cast<bf16*>(hb_smem + L::kG) + warp * 16 * RG;
 
-  // the ring zeroed (channels Cin..CIN16 stay zero: no copy writes them),
-  // W rounded to bf16 and zero-padded, the vectors
-  for (int i = threadIdx.x; i < kHbStages * L::kStageY / 8; i += kHbThreads)
-    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < CMAX * CIN16; i += kHbThreads) {
-    const int c = i / CIN16, k = i % CIN16;
-    w_s[c * RY + k] = __float2bfloat16(c < C && k < Cin ? w[c * Cin + k] : 0.f);
-  }
-  for (int i = threadIdx.x; i < CIN16; i += kHbThreads) {
-    s_s[i] = i < Cin ? s[i] : 0.f;
-    sh_s[i] = i < Cin ? sh[i] : 0.f;
-  }
-  for (int i = threadIdx.x; i < CMAX; i += kHbThreads) {
-    b_s[i] = i < C ? b[i] : 0.f;
-    v_s[i] = i < C ? valid[i] : 0.f;
-  }
+  hb_load<CIN16, CMAX>(reinterpret_cast<uint4*>(ring), kHbStages * L::kStageY / 8, w_s, s_s, s,
+                       sh, w, b, valid, Cin, C);
   const float gce = cot[0];
   __syncthreads();
   // this thread's logit columns 8j + 2t + e: bias, and bit 2j + e of `in`
@@ -154,22 +226,8 @@ __global__ void __launch_bounds__(kHbThreads, HbLayout<CIN16, CMAX>::kMinBlocks)
   const int n_tiles = (P + kHbTile - 1) / kHbTile;
   const int my_tiles = (int)blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   const int chunks = Cin / 8;  // 16-byte pieces of a pixel's row
-  // Copies of this block's k-th tile into stage st: y rows, zero past P;
-  // labels (zero past P, where pix is 0 by the row test below).
   auto issue = [&](int k, int st) {
-    if (k >= my_tiles) return;
-    const int64_t base = ((int64_t)blockIdx.x + (int64_t)k * gridDim.x) * kHbTile;
-    bf16* ys = ring + st * L::kStageY;
-    for (int i = threadIdx.x; i < kHbTile * chunks; i += kHbThreads) {
-      const int r = i / chunks, q = i - r * chunks;
-      const bool on = base + r < P;
-      cp_async<16>(ys + r * RY + q * 8, on ? y + (base + r) * Cin + q * 8 : y, on);
-    }
-    if (threadIdx.x < kHbTile) {
-      const bool on = base + threadIdx.x < P;
-      cp_async<4>(lbl_s + st * kHbTile + threadIdx.x, on ? labels + base + threadIdx.x : labels,
-                  on);
-    }
+    hb_issue<CIN16>(k, my_tiles, ring + st * L::kStageY, lbl_s + st * kHbTile, y, labels, P, Cin);
   };
 
   // This thread's sums: dW (D[class][channel] fragments), db of its
@@ -441,30 +499,274 @@ __global__ void __launch_bounds__(kHbThreads, HbLayout<CIN16, CMAX>::kMinBlocks)
   }
 }
 
-// The instance's dynamic shared memory above 48 KB, allowed once per
-// instance and device.
+// ---------------------------------------------------------------------------
+// The forward (#7): the logits and the row softmax of the body above,
+// without dz, dW and dx
+// ---------------------------------------------------------------------------
+
+// The SM's shared memory as the pickers count it (kernels/__init__.py::
+// SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK).
+constexpr int kSmemPerSm = 233472, kSmemReservedPerBlock = 1024;
+
+// The forward's shared memory for CIN16 and CMAX: #8's without the g
+// tiles (a ring of y tiles and their labels, W, the vectors), then the
+// warps' sums. Each block asks for a third of the SM's shared memory
+// (kSmem), so that exactly three are resident (kMinBlocks, as
+// __launch_bounds__ fits the registers) whatever registers the compiler
+// leaves, as the wrapper's picker (kernels/head_ce.py::bn_fwd_blocks)
+// assumes. A stage is 256 pixels up to 32 channels (two slabs of 16 rows a
+// warp, so the barrier and the copies' set-up count half as often), else
+// 128; the ring takes as many stages as fit, at most kHfMaxStages.
+constexpr int kHfMaxStages = 6;
+
 template <int CIN16, int CMAX>
+struct HfLayout {
+  static_assert(CIN16 % 16 == 0 && CIN16 <= 64 && (CMAX == 16 || CMAX == 32), "the instances");
+  static constexpr int kTile = CIN16 <= 32 ? 2 * kHbTile : kHbTile;  // pixels a stage
+  static constexpr int kRowY = CIN16 + 8;                             // bf16
+  static constexpr int kStageY = kTile * kRowY;                       // bf16
+  static constexpr int kMinBlocks = 3;
+  static constexpr int kSmem = kSmemPerSm / kMinBlocks - kSmemReservedPerBlock;
+  static constexpr int kFixed = CMAX * kRowY * 2 + (2 * CIN16 + 2 * CMAX) * 4 + kHbWarps * 4;
+  static constexpr int kFit = (kSmem - kFixed) / (kStageY * 2 + kTile * 4);
+  static constexpr int kStages = kFit < kHfMaxStages ? kFit : kHfMaxStages;
+  static constexpr int kY = 0;
+  static constexpr int kLbl = kY + kStages * kStageY * 2;
+  static constexpr int kW = kLbl + kStages * kTile * 4;
+  static constexpr int kVec = kW + CMAX * kRowY * 2;
+  static constexpr int kRed = kVec + (2 * CIN16 + 2 * CMAX) * 4;
+  static_assert(kStages >= 3 && kRed + kHbWarps * 4 <= kSmem, "the ring fits the share");
+};
+
+// d = a b + c on the tensor cores, as mma_bf16 with the accumulator in
+// from other registers (the logits start at the bias without a copy).
+__device__ __forceinline__ void mma_bf16_c(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1, float c0, float c1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%11,%10,%11};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c0), "f"(c1));
+}
+
+// partials[block] = sum over the block's rows of pix (logsumexp(z W^T + b)
+// - logit[label]), the logits masked to the valid classes (-1e9), z =
+// round(max(y s + sh, 0)); pix is 0 at ignore_index and past P. The
+// persistent blocks walk the pixel tiles through a ring as #8's.
+template <int CIN16, int CMAX>
+__global__ void __launch_bounds__(kHbThreads, HfLayout<CIN16, CMAX>::kMinBlocks)
+    head_ce_bn_fwd_mma_kernel(const bf16* __restrict__ y, const float* __restrict__ s,
+                              const float* __restrict__ sh, const float* __restrict__ w,
+                              const float* __restrict__ b, const int* __restrict__ labels,
+                              const float* __restrict__ valid, float* __restrict__ partials,
+                              int P, int Cin, int C, int ignore_index) {
+  using L = HfLayout<CIN16, CMAX>;
+  constexpr int KS = CIN16 / 16;  // k-steps of the logits
+  constexpr int NT = CMAX / 8;    // n8 tiles of the logits (classes)
+  constexpr int RY = L::kRowY, NS = L::kStages, TILE = L::kTile;
+  extern __shared__ __align__(16) unsigned char hf_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(hf_smem + L::kY);
+  int* lbl_s = reinterpret_cast<int*>(hf_smem + L::kLbl);
+  bf16* w_s = reinterpret_cast<bf16*>(hf_smem + L::kW);
+  float* s_s = reinterpret_cast<float*>(hf_smem + L::kVec);
+  float *sh_s = s_s + CIN16, *b_s = sh_s + CIN16, *v_s = b_s + CMAX;
+  float* red = reinterpret_cast<float*>(hf_smem + L::kRed);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix: the row of matrix lm this lane addresses
+  hb_load<CIN16, CMAX, true>(reinterpret_cast<uint4*>(ring), NS * L::kStageY / 8, w_s, s_s, s,
+                             sh, w, b, valid, Cin, C);
+  __syncthreads();
+  // This thread's logit columns 8j + 2t + e start at the bias, or at -1e9
+  // where the class is past C or not valid (its row of W is zero): the
+  // products then give the masked logits, -1e9 exactly, and no column needs
+  // a test. The columns past C join the max at -1e9 and add 0 to the sum
+  // (or, where no class is valid, log CMAX instead of log C to -1e9, below
+  // its half ulp). Its channels' s and sh (16kk + 8hh + 2t, +1) stay in
+  // registers up to 32 channels.
+  float bcol[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + 2 * t + e;
+      bcol[j][e] = c < C && v_s[c] > 0.f ? b_s[c] : kNegInf;
+    }
+  const int nt_live = (C + 7) / 8;  // column tiles with a class below C
+  constexpr bool kVecRegs = KS <= 2;
+  float2 sv[KS][2], hv[KS][2];
+  if constexpr (kVecRegs)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int ch = kk * 16 + hh * 8 + 2 * t;
+        sv[kk][hh] = *reinterpret_cast<const float2*>(&s_s[ch]);
+        hv[kk][hh] = *reinterpret_cast<const float2*>(&sh_s[ch]);
+      }
+
+  const int n_tiles = (P + TILE - 1) / TILE;
+  const int my_tiles = (int)blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto issue = [&](int k, int st) {
+    hb_issue<CIN16, TILE>(k, my_tiles, ring + st * L::kStageY, lbl_s + st * TILE, y, labels, P,
+                          Cin);
+  };
+
+  float ce = 0.f;  // this lane's rows' terms (lanes t = 0)
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k) {
+    issue(k, k);
+    cp_async_commit();
+  }
+  for (int k = 0; k < my_tiles; ++k) {
+    const int st = k % NS;
+    cp_async_wait<NS - 2>();  // tile k has landed
+    // every warp is past tile k - 1: its stage takes tile k + NS - 1
+    __syncthreads();
+    issue(k + NS - 1, (k + NS - 1) % NS);
+    cp_async_commit();
+    const int64_t tile0 = ((int64_t)blockIdx.x + (int64_t)k * gridDim.x) * TILE;
+    // the warp's slabs of 16 rows, branch-free (rows past P are zeros with
+    // pix 0), so that the compiler interleaves them
+#pragma unroll
+    for (int i = 0; i < TILE / 16 / kHbWarps; ++i) {
+      const int sl = warp + i * kHbWarps;
+      const int64_t row0 = tile0 + sl * 16;
+      const bf16* ys = ring + st * L::kStageY + sl * 16 * RY;
+      const int* ls = lbl_s + st * TILE + sl * 16;
+
+      // z = round(max(y s + sh, 0)) as the logits' A fragments, from y's by
+      // ldmatrix: za[kk] = {rows g, g + 8} x {channels 16kk + 2t, +1} and
+      // {16kk + 8 + 2t, +1}; the max taken on the rounded pair (rounding
+      // is monotonic and keeps 0)
+      uint32_t za[KS][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(za[kk], ys + ((lm & 1) * 8 + lr) * RY + kk * 16 + (lm >> 1) * 8);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int hh = r >> 1, ch = kk * 16 + hh * 8 + 2 * t;
+          const float2 yv = unpack_bf16x2(za[kk][r]);
+          float2 s2, h2;
+          if constexpr (kVecRegs) {
+            s2 = sv[kk][hh];
+            h2 = hv[kk][hh];
+          } else {
+            s2 = *reinterpret_cast<const float2*>(&s_s[ch]);
+            h2 = *reinterpret_cast<const float2*>(&sh_s[ch]);
+          }
+          const uint32_t tr = pack_bf16x2(__fadd_rn(__fmul_rn(yv.x, s2.x), h2.x),
+                                          __fadd_rn(__fmul_rn(yv.y, s2.y), h2.y));
+          asm("max.bf16x2 %0, %1, %2;" : "=r"(za[kk][r]) : "r"(tr), "r"(0u));
+        }
+      // the logits z W^T + b: lg[j] = {row g, row g + 8} x classes 8j + 2t, +1
+      float lg[NT][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {  // class tiles 2jp and 2jp + 1
+          uint32_t wb[4];
+          ldmatrix_x4(wb, w_s + ((2 * jp + (lm >> 1)) * 8 + lr) * RY + kk * 16 + (lm & 1) * 8);
+          if (kk == 0) {
+            mma_bf16_c(lg[2 * jp], za[kk], wb[0], wb[1], bcol[2 * jp][0], bcol[2 * jp][1]);
+            mma_bf16_c(lg[2 * jp + 1], za[kk], wb[2], wb[3], bcol[2 * jp + 1][0],
+                       bcol[2 * jp + 1][1]);
+          } else {
+            mma_bf16(lg[2 * jp], za[kk], wb[0], wb[1]);
+            mma_bf16(lg[2 * jp + 1], za[kk], wb[2], wb[3]);
+          }
+        }
+
+      // the softmax CE of rows g, g + 8 (e / 2): the quad's four lanes hold
+      // a row's columns; the max and the sum by two quad shuffles each, exp
+      // by ex2 of (z - max) log2 e, one log a row; the label's logit from
+      // the one lane that holds it (column 8j + e of its own at label - 2t),
+      // by the same shuffles; the column tiles past C skipped
+      int dl[2];
+      bool pix[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lbl = ls[g + 8 * h];
+        pix[h] = row0 + g + 8 * h < P && lbl != ignore_index;
+        dl[h] = (lbl == ignore_index ? 0 : lbl) - 2 * t;
+      }
+      float mx[2] = {kNegInf, kNegInf}, pk[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt_live)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            mx[e >> 1] = fmaxf(mx[e >> 1], lg[j][e]);
+            if (dl[e >> 1] == 8 * j + (e & 1)) pk[e >> 1] = lg[j][e];
+          }
+      float sum[2] = {0.f, 0.f}, nm[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        pk[h] += __shfl_xor_sync(0xffffffffu, pk[h], 1);
+        pk[h] += __shfl_xor_sync(0xffffffffu, pk[h], 2);
+        nm[h] = -mx[h] * kLog2e;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < nt_live)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sum[e >> 1] += ex2_approx(fmaf(lg[j][e], kLog2e, nm[e >> 1]));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        if (t == 0 && pix[h]) ce += (mx[h] + __logf(sum[h])) - pk[h];
+      }
+    }
+  }
+  // the lanes' sums over the warp, then the warps' in warp order
+  ce = warp_sum(ce);
+  if (lane == 0) red[warp] = ce;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float v = 0.f;
+#pragma unroll
+    for (int wv = 0; wv < kHbWarps; ++wv) v += red[wv];
+    partials[blockIdx.x] = v;
+  }
+  cp_async_wait<0>();  // no copy outlives the block (the groups past the end are empty)
+}
+
+// An instance's dynamic shared memory above 48 KB (#8's, FWD false; #7's,
+// FWD true), allowed once per instance and device.
+template <int CIN16, int CMAX, bool FWD>
 cudaError_t hb_smem_allowed() {
   static bool done[16] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 16 && done[dev]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(head_ce_bn_bwd_mma_kernel<CIN16, CMAX>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           HbLayout<CIN16, CMAX>::kSmem);
+  cudaError_t err;
+  if constexpr (FWD)
+    err = cudaFuncSetAttribute(head_ce_bn_fwd_mma_kernel<CIN16, CMAX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               HfLayout<CIN16, CMAX>::kSmem);
+  else
+    err = cudaFuncSetAttribute(head_ce_bn_bwd_mma_kernel<CIN16, CMAX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               HbLayout<CIN16, CMAX>::kSmem);
   if (err == cudaSuccess && dev < 16) done[dev] = true;
   return err;
 }
 
-// One launch over `blocks` persistent blocks (one partial row each), then
-// the fixed-order sum of the rows into out = [dW | db] [C, Cin + 1],
+// #8: one launch over `blocks` persistent blocks (one partial row each),
+// then the fixed-order sum of the rows into out = [dW | db] [C, Cin + 1],
 // dscale, dshift.
 template <int CIN16, int CMAX>
 int hb_launch(const void* y, const void* s, const void* sh, const void* w, const void* b,
               const void* lbl, const void* valid, const void* cot, void* dx, void* partials,
               void* out, int P, int Cin, int C, int ignore_index, int blocks, cudaStream_t st) {
-  cudaError_t err = hb_smem_allowed<CIN16, CMAX>();
+  cudaError_t err = hb_smem_allowed<CIN16, CMAX, false>();
   if (err != cudaSuccess) return (int)err;
   head_ce_bn_bwd_mma_kernel<CIN16, CMAX>
       <<<blocks, kHbThreads, HbLayout<CIN16, CMAX>::kSmem, st>>>(
@@ -482,20 +784,51 @@ int hb_launch(const void* y, const void* s, const void* sh, const void* w, const
   return (int)cudaGetLastError();
 }
 
-// What the card gives the instance: {resident blocks an SM, registers a
-// thread, local (spilled) bytes a thread, dynamic shared bytes a block}.
+// #7: one launch over `blocks` persistent blocks (one partial each), then
+// the fixed-order sum of the partials into out_ce.
 template <int CIN16, int CMAX>
+int hf_launch(const void* y, const void* s, const void* sh, const void* w, const void* b,
+              const void* lbl, const void* valid, void* partials, void* out_ce, int P, int Cin,
+              int C, int ignore_index, int blocks, cudaStream_t st) {
+  cudaError_t err = hb_smem_allowed<CIN16, CMAX, true>();
+  if (err != cudaSuccess) return (int)err;
+  head_ce_bn_fwd_mma_kernel<CIN16, CMAX>
+      <<<blocks, kHbThreads, HfLayout<CIN16, CMAX>::kSmem, st>>>(
+          static_cast<const bf16*>(y), static_cast<const float*>(s),
+          static_cast<const float*>(sh), static_cast<const float*>(w),
+          static_cast<const float*>(b), static_cast<const int*>(lbl),
+          static_cast<const float*>(valid), static_cast<float*>(partials), P, Cin, C,
+          ignore_index);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_rows_kernel<<<1, kReduceThreads, 0, st>>>(static_cast<const float*>(partials), blocks,
+                                                   1, 1, static_cast<float*>(out_ce));
+  return (int)cudaGetLastError();
+}
+
+// What the card gives an instance (#8's, FWD false; #7's, FWD true):
+// {resident blocks an SM, registers a thread, local (spilled) bytes a
+// thread, dynamic shared bytes a block}.
+template <int CIN16, int CMAX, bool FWD>
 int hb_info(int* out) {
-  cudaError_t err = hb_smem_allowed<CIN16, CMAX>();
+  cudaError_t err = hb_smem_allowed<CIN16, CMAX, FWD>();
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, head_ce_bn_bwd_mma_kernel<CIN16, CMAX>);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], head_ce_bn_bwd_mma_kernel<CIN16, CMAX>, kHbThreads, HbLayout<CIN16, CMAX>::kSmem);
+  if constexpr (FWD) {
+    out[3] = HfLayout<CIN16, CMAX>::kSmem;
+    err = cudaFuncGetAttributes(&attr, head_ce_bn_fwd_mma_kernel<CIN16, CMAX>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[0], head_ce_bn_fwd_mma_kernel<CIN16, CMAX>, kHbThreads, out[3]);
+  } else {
+    out[3] = HbLayout<CIN16, CMAX>::kSmem;
+    err = cudaFuncGetAttributes(&attr, head_ce_bn_bwd_mma_kernel<CIN16, CMAX>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[0], head_ce_bn_bwd_mma_kernel<CIN16, CMAX>, kHbThreads, out[3]);
+  }
   out[1] = attr.numRegs;
   out[2] = (int)attr.localSizeBytes;
-  out[3] = HbLayout<CIN16, CMAX>::kSmem;
   return (int)err;
 }
 

@@ -35,8 +35,8 @@
 // :150). At the headline step's three launches (batch 8: 64^2 x 256 -> 128,
 // 128^2 x 128 -> 64, 256^2 x 64 -> 32) it moves 352 MB, 0.105 ms at 3.35
 // TB/s, against 25.8 GFLOP, 0.026 ms at 989 TFLOP/s: bytes bound it. What it
-// does about each cause that held the first version (an upconv_mma_kernel
-// on mma_mainloop below, 0.50-0.53 ms a step):
+// does about each cause that held the first version (mma.sync on a
+// synchronous 32-deep main loop, 0.50-0.53 ms a step):
 // * A short, unpipelined main loop. The block is persistent: one wave of
 //   resident blocks (kernels/upconv_pack.py::fwd_blocks) each walks pixel
 //   tiles of 128 rows, and every (tile, 64-channel k-chunk) is a stage of
@@ -57,34 +57,66 @@
 //   rows): both operands, the x rows [pixels][Cin] and Kg^T [4 Cout][Cin],
 //   are K-major as they lie in memory, which is wgmma's native layout, so
 //   TMA's 128-byte swizzle is the operand layout and no fragment is loaded
-//   by the threads (mma.sync would need an ldmatrix a fragment for the
-//   same bytes-bound work).
+//   by the threads.
 // * Scattered 4-byte stores. The rounded tile is staged [BM][BN + 8] in
 //   shared memory (rows of a warp on distinct banks) and leaves as 16-byte
 //   pieces: for a pixel, the columns of phase row a are 2 Cout contiguous
 //   values of output row 2h + a, and neighbouring pixels' runs continue
 //   each other, so a warp writes whole runs.
 //
-// dx (and the f32 forward and dW): one GEMM main loop per route, fed by
-// staging functors that know each operand's layout (row-major, the dy
-// gather, or a transposed view), and one epilogue per function.
-// * bf16 dx: mma.sync m16n8k16 with f32 accumulation. A block of
-//   256 threads (8 warps, 4 along the rows x 2 along the columns) computes
-//   a 128-row x 64-column tile from 32-deep slices of A [row][k] and of
-//   B^T [column][k] staged in shared memory with a 40-element row, so the
-//   32-bit fragment loads of a warp hit 32 distinct banks.
-// * f32: FMA (TF32 would round). A block of 256 threads computes a
-//   64-row x 64-column tile from 16-deep slices of A (transposed) and B
-//   staged as f32; each thread keeps a 4 x 4 register tile. dW splits the
-//   pixels (its k) over gridDim.z blocks, each taking every gridDim.z-th
-//   slice and writing its own partial [Cin, 4*Cout] (and, in the blocks of
-//   the first row tile, its column sums of DY for db).
+// bf16 dx (#28): upconv_dx_wg_kernel, redesigned for the H100 on #27's
+// design (replaces cl_tpu/pallas/upconv_pack.py::_dx_kernel, :97-108,
+// launched at :183). At the headline step's three launches (batch 8: dy
+// 128^2 x 128 -> dx 64^2 x 256, 256^2 x 64 -> 128^2 x 128, 512^2 x 32 ->
+// 256^2 x 64) it moves 352 MB, 0.105 ms at 3.35 TB/s, against 25.8 GFLOP,
+// 0.026 ms at 989 TFLOP/s: bytes bound it. What it does about each cause
+// that held the first version (mma.sync on a synchronous main loop, 0.48 ms
+// a step):
+// * A short, unpipelined main loop. Persistent blocks (one wave,
+//   kernels/upconv_pack.py::dx_blocks) walk pixel tiles of 128 rows, and
+//   every (tile, 64-wide k-chunk of 4 Cout) is a stage of one ring of 2-6
+//   stages completed on an mbarrier; one block barrier a stage.
+// * The dy gather through registers, by 64-bit division a piece. For a
+//   pixel, the columns of phase row a are 2 Cout contiguous values of dy row
+//   2h + a, so with dy viewed as [B H][2][W][2 Cout] a tile's k-chunk is one
+//   TMA box (64 values x the tile's pixels of one phase row) where 2 Cout is
+//   a multiple of 64 and a tile covers whole rows or lies in one (W a
+//   multiple or a divisor of 128): every launch of the headline step. Else
+//   (ragged shapes) 16-byte cp.async pieces land in the same swizzled
+//   layout, their rows decoded once a piece.
+// * The weight's cast and copies on the host. The block's slice of Kg
+//   ([BN][4 Cout] bf16, BN a slice of Cin) is formed once from the f32
+//   weight [Cin, Cout, 2, 2] (one float4, the four phases of (ci, o), a
+//   thread) and stays for the walk: the wrapper issues one launch a call.
+//   The column tile (kernels/upconv_pack.py::dx_tile) is the widest that
+//   leaves room for two resident blocks an SM: 64 at the headline's levels,
+//   level 2's Kg (256 KB) as four slices of 64 KB; the blocks of a pixel
+//   tile's column tiles walk it at about the same time, so dy is re-read
+//   from L2.
+// * 32-bit fragment loads: wgmma (m64n64k16, f32 accumulation, two
+//   warpgroups of 64 rows) on both operands as staged, DY rows [pixels][k]
+//   and Kg rows [Cin][k], both K-major with TMA's 128-byte swizzle.
+// * Scattered 4-byte stores. The rounded tile is staged [BM][BN] in shared
+//   memory, 16-byte pieces swizzled by the row (a warp's pairs on distinct
+//   banks), and leaves as 16-byte pieces of whole dx rows ([M, Cin] is
+//   contiguous).
+// The mbarriers live in the 1024 bytes of alignment slack, so that level
+// 2's slice, two stages and the output tile fit two blocks an SM exactly.
+//
+// f32 forward, dx and dW: one FMA main loop, fed by views that know each
+// operand's layout (row-major, the dy gather, or a transposed view), and
+// one epilogue per function. A block of 256 threads computes a 64-row x
+// 64-column tile from 16-deep slices of A (transposed) and B staged as f32;
+// each thread keeps a 4 x 4 register tile (TF32 would round). dW splits the
+// pixels (its k) over gridDim.z blocks, each taking every gridDim.z-th
+// slice and writing its own partial [Cin, 4*Cout] (and, in the blocks of
+// the first row tile, its column sums of DY for db).
 //
 // bf16 dW: the ring kernel (upconv_dw_ring_kernel). The contraction runs
 // over the pixels, and both operands are pixel-major in memory, so they are
 // staged that way and the transposes are taken by the fragment loads. What
-// it does about each cause that held the first version (the mma_mainloop
-// with transposed views) at 12x its bound:
+// it does about each cause that held the first version (mma.sync on a
+// synchronous main loop over transposed views) at 12x its bound:
 // * Transposed scalar staging. x is staged as [k pixels][Cin tile] and the
 //   dy gather as [k pixels][4*Cout tile], in their memory order, by 16-byte
 //   cp.async (for a pixel m, the columns of phase row a are the 2*Cout
@@ -125,7 +157,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr int kUpThreads = 256;
-constexpr int kMBM = 128, kMBN = 64, kMBK = 32, kMRow = 40;  // bf16 tiles
 
 // Pixel row m = (b, h, w) of the input grid -> offset of output pixel
 // (2h, 2w); phase q = a*2 + c is output pixel (2h+a, 2w+c), `phase(q, W)`
@@ -143,20 +174,8 @@ __device__ __forceinline__ int64_t phase(int q, int W) {
 }
 
 // ---------------------------------------------------------------------------
-// Operand views: element (r, k) of a matrix (f32 route), and the bf16
-// route's slice s[r * kMRow + kk] = (row0 + r, k0 + kk) for r < nrows,
-// kk < kMBK, staged by the block (zero past the matrix)
+// Operand views of the f32 route: element (r, k) of a matrix, zero past it
 // ---------------------------------------------------------------------------
-
-// Row-major staging from a view's 8-along-k loads.
-template <class View>
-__device__ __forceinline__ void stage_rows(const View& v, bf16* s, int64_t row0, int64_t k0,
-                                           int nrows) {
-  for (int e = threadIdx.x; e < nrows * (kMBK / 8); e += kUpThreads) {
-    const int r = e / (kMBK / 8), q = (e % (kMBK / 8)) * 8;
-    v.stage8(&s[r * kMRow + q], row0 + r, k0 + q);
-  }
-}
 
 // Row-major [rows, K].
 template <typename T> struct RowMajor {
@@ -165,20 +184,6 @@ template <typename T> struct RowMajor {
   int64_t K;
   __device__ float at(int64_t r, int64_t k) const {
     return (r < rows && k < K) ? to_f32(p[r * K + k]) : 0.f;
-  }
-  __device__ void stage8(bf16* dst, int64_t r, int64_t k) const {
-    alignas(16) bf16 v[8];
-    if (r < rows && (K & 7) == 0 && k < K) {
-      load16<bf16>(v, reinterpret_cast<const bf16*>(p) + r * K + k, 0);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        v[j] = __float2bfloat16(at(r, k + j));
-    }
-    store16<bf16>(dst, 0, v);
-  }
-  __device__ void stage_tile(bf16* s, int64_t row0, int64_t k0, int nrows) const {
-    stage_rows(*this, s, row0, k0, nrows);
   }
 };
 
@@ -206,82 +211,7 @@ template <typename T> struct DyGather {
     const int q = (int)(n / Cout), o = (int)(n - (int64_t)q * Cout);
     return to_f32(dy[(out_base(m, H, W) + phase(q, W)) * Cout + o]);
   }
-  // Eight columns [n, n + 8) of DY at pixel m (one phase when Cout % 8 == 0).
-  __device__ void load8(bf16 (&v)[8], int64_t m, int64_t n) const {
-    if (m < M && (Cout & 7) == 0 && n < 4 * Cout) {
-      const int q = (int)(n / Cout), o = (int)(n - (int64_t)q * Cout);
-      load16<bf16>(v, reinterpret_cast<const bf16*>(dy) + (out_base(m, H, W) + phase(q, W)) * Cout
-                          + o, 0);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(at(m, n + j));
-    }
-  }
-  __device__ void stage8(bf16* dst, int64_t r, int64_t k) const {
-    alignas(16) bf16 v[8];
-    load8(v, r, k);
-    store16<bf16>(dst, 0, v);
-  }
-  __device__ void stage_tile(bf16* s, int64_t row0, int64_t k0, int nrows) const {
-    stage_rows(*this, s, row0, k0, nrows);
-  }
 };
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-
-// acc += A[m0 : m0+128, k] B[k, n0 : n0+64] over the 32-deep slices of k
-// below K; `a` views A, `b` views B^T.
-template <class SA, class SB>
-__device__ void mma_mainloop(float (&acc)[2][4][4], bf16* xs, bf16* ws, int64_t m0, int64_t n0,
-                             int64_t K, const SA& a, const SB& b) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;  // warp tile origin
-  const int g = lane >> 2, t = lane & 3;
-  for (int64_t k0 = 0; k0 < K; k0 += kMBK) {
-    __syncthreads();
-    a.stage_tile(xs, m0, k0, kMBM);
-    b.stage_tile(ws, n0, k0, kMBN);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kMBK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const uint32_t* r0 =
-            reinterpret_cast<const uint32_t*>(&xs[(wm + i * 16 + g) * kMRow + kk]);
-        const uint32_t* r1 =
-            reinterpret_cast<const uint32_t*>(&xs[(wm + i * 16 + g + 8) * kMRow + kk]);
-        af[i][0] = r0[t];
-        af[i][1] = r1[t];
-        af[i][2] = r0[t + 4];
-        af[i][3] = r1[t + 4];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t* wr =
-            reinterpret_cast<const uint32_t*>(&ws[(wn + j * 8 + g) * kMRow + kk]);
-        const uint32_t b0 = wr[t], b1 = wr[t + 4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], af[i], b0, b1);
-      }
-    }
-  }
-}
-
-// Thread (g, t) of warp w holds, for i, j, hr, e in {0,1}x{0..3}x{0,1}x{0,1},
-// acc[i][j][hr*2+e] = D[m0 + wm + i*16 + g + hr*8][n0 + wn + j*8 + 2t + e].
-#define MMA_TILE_INIT                                                \
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;        \
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;             \
-  const int g = lane >> 2, t = lane & 3;                             \
-  __shared__ __align__(16) bf16 xs[kMBM * kMRow];                    \
-  __shared__ __align__(16) bf16 ws[kMBN * kMRow];                    \
-  float acc[2][4][4];                                                \
-  for (int i = 0; i < 2; ++i)                                        \
-    for (int j = 0; j < 4; ++j)                                      \
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
 // ---------------------------------------------------------------------------
 // bf16 forward: the persistent wgmma kernel
@@ -447,34 +377,229 @@ __global__ void __launch_bounds__(kUfThreads, UpFwd<BN>::kMinBlocks)
   }
 }
 
-__global__ void __launch_bounds__(kUpThreads)
-upconv_dx_mma_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ kg,
-                     bf16* __restrict__ dx, int B, int H, int W, int Cin, int Cout) {
-  MMA_TILE_INIT
+// ---------------------------------------------------------------------------
+// bf16 dx: the persistent wgmma kernel
+// ---------------------------------------------------------------------------
+
+// A block's shared memory for a BN-column tile (a slice of Cin), `kc`
+// k-chunks of 4 Cout and `stages` DY stages: 1024 bytes of slack that align
+// the swizzled tiles to 1024 (and hold the mbarriers, an mbarrier a stage,
+// in the part of it the alignment leaves: 1024 minus the slack taken lie
+// after the tiles, the rest before them, so 48 bytes lie on one side); the
+// block's Kg slice [BN][64] a k-chunk; the DY ring [BM][64] a stage; the
+// rounded dx tile [BM][BN] bf16. Where the whole slice does not fit (4 Cout
+// above ~1400 at BN 64), it is streamed: a Kg chunk a ring stage, formed
+// beside its DY chunk (smem_streamed).
+template <int BN>
+struct UpDx {
+  static constexpr int kMinBlocks = 2;  // resident blocks an SM
+  static constexpr int kWChunk = BN * kUfBK * 2;
+  static constexpr int kOut = kUfBM * BN * 2;
+  __host__ __device__ static int smem(int kc, int stages) {
+    return 1024 + kc * kWChunk + stages * kUfStage + kOut;
+  }
+  __host__ __device__ static int smem_streamed(int stages) {
+    return 1024 + stages * (kWChunk + kUfStage) + kOut;
+  }
+};
+
+// cp.async.wait_group with a count known at run time (the ring's stages).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    default: cp_async_wait<5>(); break;
+  }
+}
+
+// dx[pixel m][ci] = round(sum_n DY[m][n] Kg[ci][n]): block (bx, by) takes
+// the input channels [by BN, (by + 1) BN) and walks the pixel tiles bx,
+// bx + gridDim.x, ...; each tile's k-chunks (64 columns n of DY) are the
+// stages of one ring, by TMA (`use_tma`, the map tm_dy of dy as [B H][2][W]
+// [2 Cout] with a box of 64 values x the tile's pixels of one phase row) or
+// by 16-byte cp.async pieces. `w` is the f32 weight [Cin, Cout, 2, 2] as
+// the module holds it: the Kg slice is formed from it here, whole, or with
+// `streamed` a chunk a stage.
+template <int BN>
+__global__ void __launch_bounds__(kUfThreads, UpDx<BN>::kMinBlocks)
+    upconv_dx_wg_kernel(const __grid_constant__ CUtensorMap tm_dy, const bf16* __restrict__ dy,
+                        const float* __restrict__ w, bf16* __restrict__ dx, int B, int H, int W,
+                        int Cin, int Cout, int stages, int use_tma, int streamed) {
+  using Tile = UpDx<BN>;
+  constexpr int NB = BN / 64;  // wgmma n64 products a k-step
+  extern __shared__ __align__(16) unsigned char up_dx_smem[];
+  const int slack = (int)((1024 - (smem_u32(up_dx_smem) & 1023)) & 1023);
+  const int K = 4 * Cout, two_c = 2 * Cout;
+  const int KC = (K + kUfBK - 1) / kUfBK;
+  unsigned char* ws = up_dx_smem + slack;                          // [KC or stages][BN][64]
+  unsigned char* ds = ws + (streamed ? stages : KC) * Tile::kWChunk;  // [stages][BM][64]
+  unsigned char* os = ds + stages * kUfStage;      // [BM][BN]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slack >= 8 * kUfMaxStages ? up_dx_smem
+                                                                          : os + Tile::kOut);
+
   const int64_t M = (int64_t)B * H * W;
-  const int64_t m0 = (int64_t)blockIdx.x * kMBM;
-  const int n0 = blockIdx.y * kMBN;
-  mma_mainloop(acc, xs, ws, m0, n0, 4 * Cout, DyGather<bf16>{dy, M, H, W, Cout, false},
-               RowMajor<bf16>{kg, Cin, 4 * Cout});
+  const int n0 = blockIdx.y * BN;
+  const int n_tiles = (int)((M + kUfBM - 1) / kUfBM);
+  const int my_tiles = (int)blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int n_stages = my_tiles * KC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+
+  if (use_tma && threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(smem_u32(&bars[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // stage s: k-chunk s % KC of this block's tile s / KC, into slot s %
+  // stages; the chunk's 64 columns n lie in phase row a = n / (2 Cout) where
+  // TMA serves (2 Cout a multiple of 64), at offset n - a 2 Cout of its 2
+  // Cout contiguous values. Piece p of row r lands at p ^ (r % 8), as TMA's
+  // 128-byte swizzle puts it.
+  auto issue = [&](int s) {
+    const int slot = s % stages, kc = s % KC;
+    const int64_t m0 = (int64_t)(blockIdx.x + (s / KC) * gridDim.x) * kUfBM;
+    unsigned char* dst = ds + slot * kUfStage;
+    if (use_tma) {
+      if (threadIdx.x != 0) return;
+      const int a = kc * kUfBK / two_c;
+      const uint32_t bar = smem_u32(&bars[slot]);
+      mbar_expect_tx(bar, kUfStage);
+      tma_load_4d(dst, &tm_dy, kc * kUfBK - a * two_c, (int)(m0 % W), a, (int)(m0 / W), bar);
+      return;
+    }
+    for (int i = threadIdx.x; i < kUfBM * 8; i += kUfThreads) {
+      const int r = i >> 3, p = i & 7, n = kc * kUfBK + 8 * p;
+      const int64_t m = m0 + r;
+      const bool on = m < M && n < K;
+      const bf16* src = dy;
+      if (on) {
+        const int a = n / two_c;
+        src = dy + (out_base(m, H, W) + a * (int64_t)(2 * W)) * Cout + (n - a * two_c);
+      }
+      cp_async<16>(dst + r * 128 + ((p ^ (r & 7)) << 4), src, on);
+    }
+  };
+  // Streamed: k-chunk kc of the Kg slice into `dst` [BN][64], 16-byte
+  // pieces swizzled as below, element by element from the f32 weight.
+  auto form_chunk = [&](int kc, unsigned char* dst) {
+    for (int i = threadIdx.x; i < BN * 8; i += kUfThreads) {
+      const int ci = i % BN, q = i / BN, n = kc * kUfBK + 8 * q;
+      alignas(16) bf16 v[8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 8; ++j) {
+        const int o = (n + j) % Cout, ph = (n + j) / Cout;
+        v[j] = __float2bfloat16(n0 + ci < Cin && n + j < K
+                                    ? w[((int64_t)(n0 + ci) * Cout + o) * 4 + ph] : 0.f);
+      }
+      *reinterpret_cast<uint4*>(dst + ci * 128 + ((q ^ (ci & 7)) << 4)) =
+          *reinterpret_cast<const uint4*>(v);
+    }
+  };
+  if (use_tma) {
+    for (int s = 0; s < stages && s < n_stages; ++s) issue(s);
+  } else {
+    for (int s = 0; s < stages; ++s) {  // one group a stage, empty past the walk
+      if (s < n_stages) issue(s);
+      cp_async_commit();
+    }
+  }
+  if (streamed)
+    for (int s = 0; s < stages && s < n_stages; ++s) form_chunk(s % KC, ws + s * Tile::kWChunk);
+  // While the first stages are copied: the block's Kg slice [ci][n] =
+  // round(w[ci][o][a][c]) at n = (2a + c) Cout + o, each 16-byte piece q of
+  // row ci where the swizzle puts it (q ^ ci % 8). The pieces past Cin or K
+  // are zero; the others are written by one float4 a thread, the four
+  // phases of (ci, o), neighbouring threads on neighbouring o. No host-side
+  // copy of the weight, so the wrapper issues this one launch.
+  for (int i = threadIdx.x; i < (streamed ? 0 : KC * BN * 8); i += kUfThreads) {
+    const int ci = i % BN, q = (i / BN) % 8, kc = i / (BN * 8);
+    if (n0 + ci < Cin && kc * kUfBK + 8 * q < K) continue;
+    *reinterpret_cast<uint4*>(ws + kc * Tile::kWChunk + ci * 128 + ((q ^ (ci & 7)) << 4)) =
+        make_uint4(0, 0, 0, 0);
+  }
+  const int n_ci = streamed ? 0 : Cin - n0 < BN ? Cin - n0 : BN;
+  for (int i = threadIdx.x; i < n_ci * Cout; i += kUfThreads) {
+    const int ci = i / Cout, o = i - ci * Cout;
+    const float4 v = *reinterpret_cast<const float4*>(w + ((int64_t)(n0 + ci) * Cout + o) * 4);
+    const float ph[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int64_t m = m0 + wm + i * 16 + g + hr * 8;
-      if (m >= M) continue;
+    for (int q = 0; q < 4; ++q) {
+      const int n = q * Cout + o, c = n % kUfBK;
+      *reinterpret_cast<bf16*>(ws + (n / kUfBK) * Tile::kWChunk + ci * 128 +
+                               (((c >> 3) ^ (ci & 7)) << 4) + (c & 7) * 2) =
+          __float2bfloat16(ph[q]);
+    }
+  }
+  fence_proxy_async();  // the weights' stores, to wgmma
+  __syncthreads();
+
+  float acc[NB][32];
+  for (int s = 0; s < n_stages; ++s) {
+    const int slot = s % stages, kc = s % KC;
+    if (use_tma) {
+      mbar_wait(smem_u32(&bars[slot]), (s / stages) & 1);
+    } else {
+      cp_async_wait_upto(stages - 1);  // this thread's pieces of stage s have landed
+      fence_proxy_async();             // ... and are visible to wgmma
+      __syncthreads();                 // every thread's
+    }
+    // D[m][ci] (+)= A B: A the tile's 128 pixels x 64 columns of DY,
+    // warpgroup wg its 64 rows; B the Kg slice's BN rows x the same 64
+    // columns; both K-major, 128-byte rows swizzled, 8-row groups 1024 bytes
+    // apart (SBO); a 16-column k-step is +32 bytes of the start.
+    const unsigned char* wk = ws + (streamed ? slot : kc) * Tile::kWChunk;
+    wg_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn + j * 8 + 2 * t;
-        if ((Cin & 1) == 0 && n + 1 < Cin) {
-          *reinterpret_cast<__nv_bfloat162*>(dx + m * Cin + n) =
-              __floats2bfloat162_rn(acc[i][j][hr * 2], acc[i][j][hr * 2 + 1]);
-          continue;
-        }
+    for (int kk = 0; kk < kUfBK / 16; ++kk) {
+      const uint64_t a = wg_desc(ds + slot * kUfStage + wg * 64 * 128 + kk * 32, 16, 1024);
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (n + e < Cin) dx[m * Cin + n + e] = __float2bfloat16(acc[i][j][hr * 2 + e]);
+      for (int nb = 0; nb < NB; ++nb)
+        wgmma_n64_k(acc[nb], a, wg_desc(wk + nb * 64 * 128 + kk * 32, 16, 1024),
+                    kc > 0 || kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) wg_fence_regs(acc[nb]);
+    __syncthreads();  // both warpgroups are past the slot's products: it takes stage s + stages
+    if (s + stages < n_stages) {
+      issue(s + stages);
+      if (streamed) {  // read by wgmma after the next stage's barrier
+        form_chunk((s + stages) % KC, ws + slot * Tile::kWChunk);
+        fence_proxy_async();
       }
     }
+    if (!use_tma) cp_async_commit();
+    if (kc != KC - 1) continue;
+    // The epilogue: one rounding into the dx tile (lane (g, t) of warp wl
+    // holds acc[nb][4j + v] = D[16 wl + g + (v / 2) 8][64 nb + 8j + 2t + v %
+    // 2] of its warpgroup's rows; piece 8 nb + j of row r at (8 nb + j) ^ r %
+    // 8, so a warp's pairs fall on 32 banks), then 16-byte pieces of whole
+    // dx rows.
+    const int64_t m0 = (int64_t)(blockIdx.x + (s / KC) * gridDim.x) * kUfBM;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wg * 64 + wl * 16 + g + 8 * h, q = nb * 8 + j;
+          *reinterpret_cast<__nv_bfloat162*>(os + r * (BN * 2) + ((q ^ (r & 7)) << 4) + 4 * t) =
+              __floats2bfloat162_rn(acc[nb][4 * j + 2 * h], acc[nb][4 * j + 2 * h + 1]);
+        }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kUfBM * (BN / 8); i += kUfThreads) {
+      const int r = i / (BN / 8), q = i % (BN / 8);
+      const int64_t m = m0 + r;
+      if (m < M && n0 + 8 * q < Cin)
+        *reinterpret_cast<uint4*>(dx + m * Cin + n0 + 8 * q) =
+            *reinterpret_cast<const uint4*>(os + r * (BN * 2) + ((q ^ (r & 7)) << 4));
+    }
+    // the next epilogue writes the dx tile after the next stage's barrier
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -856,16 +981,22 @@ inline dim3 tiles(int64_t rows, int64_t cols, int bm, int bn, int splits = 1) {
   return dim3((unsigned)((rows + bm - 1) / bm), (unsigned)((cols + bn - 1) / bn), splits);
 }
 
-// The forward kernel's dynamic shared memory above 48 KB, allowed once per
-// instance and device (at the most a block can have).
-template <int BN>
-cudaError_t up_fwd_smem_allowed() {
+// A wgmma kernel's dynamic shared memory above 48 KB (the forward's, DX
+// false; the dx's, DX true), allowed once per instance and device (at the
+// most a block can have).
+template <int BN, bool DX>
+cudaError_t up_wg_smem_allowed() {
   static bool done[16] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 16 && done[dev]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      upconv_fwd_wg_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, kUfSmemMax);
+  cudaError_t err;
+  if constexpr (DX)
+    err = cudaFuncSetAttribute(upconv_dx_wg_kernel<BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kUfSmemMax);
+  else
+    err = cudaFuncSetAttribute(upconv_fwd_wg_kernel<BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kUfSmemMax);
   if (err == cudaSuccess && dev < 16) done[dev] = true;
   return err;
 }
@@ -883,7 +1014,7 @@ int upconv_fwd_wg_launch(const void* x, const void* w, const void* bias, void* o
   if ((Cin & 7) || (Cout & 3) || stages < 2 || stages > kUfMaxStages || blocks < 1 ||
       smem > kUfSmemMax)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = up_fwd_smem_allowed<BN>();
+  cudaError_t err = up_wg_smem_allowed<BN, false>();
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tm_x;
   if ((err = tm_rows(&tm_x, x, M, Cin, kUfBM)) != cudaSuccess) return (int)err;
@@ -894,36 +1025,67 @@ int upconv_fwd_wg_launch(const void* x, const void* w, const void* bias, void* o
   return (int)cudaGetLastError();
 }
 
-// What the card gives the forward's instance BN at `smem` dynamic bytes:
-// {resident blocks an SM, registers a thread, local (spilled) bytes a
-// thread, smem}.
+// bf16 dx on the wgmma kernel with the wrapper's column tile BN (of Cin),
+// ring of `stages` and `blocks` x (Cin / BN) persistent blocks, from the
+// f32 weight [Cin, Cout, 2, 2]. Needs Cin % 8 == 0 (16-byte dx pieces) and
+// Cout % 4 == 0 (16-byte dy pieces, each in one phase row). DY comes by TMA
+// where a box serves: 2 Cout a multiple of 64 (a k-chunk in one phase row)
+// and W a multiple or a divisor of 128 (a pixel tile is the pixels of one
+// row, or of whole rows: the box is 64 values x min(W, 128) pixels x one
+// phase row x 128 / min(W, 128) rows); else by cp.async.
+// The Kg slice is resident where it fits at (BN, stages), else streamed.
 template <int BN>
-int upconv_fwd_wg_info(int smem, int* out) {
-  cudaError_t err = up_fwd_smem_allowed<BN>();
+int upconv_dx_wg_launch(const void* dy, const void* w, void* dx, int B, int H, int W, int Cin,
+                        int Cout, int stages, int blocks, cudaStream_t st) {
+  const int resident = UpDx<BN>::smem((4 * Cout + kUfBK - 1) / kUfBK, stages);
+  const int streamed = resident > kUfSmemMax;
+  const int smem = streamed ? UpDx<BN>::smem_streamed(stages) : resident;
+  if ((Cin & 7) || (Cout & 3) || stages < 2 || stages > kUfMaxStages || blocks < 1 ||
+      smem > kUfSmemMax)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = up_wg_smem_allowed<BN, true>();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tm_dy = {};
+  const int use_tma = (2 * Cout) % kUfBK == 0 && (W % kUfBM == 0 || kUfBM % W == 0);
+  if (use_tma) {
+    const int bw = W < kUfBM ? W : kUfBM;
+    const cuuint64_t dims[4] = {(cuuint64_t)(2 * Cout), (cuuint64_t)W, 2, (cuuint64_t)B * H};
+    const cuuint64_t strides[3] = {(cuuint64_t)Cout * 4, (cuuint64_t)W * Cout * 4,
+                                   (cuuint64_t)W * Cout * 8};
+    const cuuint32_t box[4] = {(cuuint32_t)kUfBK, (cuuint32_t)bw, 1, (cuuint32_t)(kUfBM / bw)};
+    if ((err = tm_tiled(&tm_dy, dy, 4, dims, strides, box, kUfBK)) != cudaSuccess)
+      return (int)err;
+  }
+  const dim3 grid(blocks, (Cin + BN - 1) / BN);
+  upconv_dx_wg_kernel<BN><<<grid, kUfThreads, smem, st>>>(
+      tm_dy, static_cast<const bf16*>(dy), static_cast<const float*>(w), static_cast<bf16*>(dx),
+      B, H, W, Cin, Cout, stages, use_tma, streamed);
+  return (int)cudaGetLastError();
+}
+
+// What the card gives a wgmma instance (the forward's, DX false; the dx's,
+// DX true) at `smem` dynamic bytes: {resident blocks an SM, registers a
+// thread, local (spilled) bytes a thread, smem}.
+template <int BN, bool DX>
+int upconv_wg_info(int smem, int* out) {
+  cudaError_t err = up_wg_smem_allowed<BN, DX>();
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, upconv_fwd_wg_kernel<BN>);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], upconv_fwd_wg_kernel<BN>,
-                                                      kUfThreads, smem);
+  if constexpr (DX) {
+    err = cudaFuncGetAttributes(&attr, upconv_dx_wg_kernel<BN>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], upconv_dx_wg_kernel<BN>,
+                                                          kUfThreads, smem);
+  } else {
+    err = cudaFuncGetAttributes(&attr, upconv_fwd_wg_kernel<BN>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], upconv_fwd_wg_kernel<BN>,
+                                                          kUfThreads, smem);
+  }
   out[1] = attr.numRegs;
   out[2] = (int)attr.localSizeBytes;
   out[3] = smem;
   return (int)err;
-}
-
-int upconv_dx_launch(const void* dy, const void* kg, void* dx, int B, int H, int W, int Cin,
-                     int Cout, int is_bf16, cudaStream_t st) {
-  const int64_t M = (int64_t)B * H * W;
-  if (is_bf16)
-    upconv_dx_mma_kernel<<<tiles(M, Cin, kMBM, kMBN), kUpThreads, 0, st>>>(
-        static_cast<const bf16*>(dy), static_cast<const bf16*>(kg), static_cast<bf16*>(dx), B,
-        H, W, Cin, Cout);
-  else
-    upconv_dx_kernel<float><<<tiles(M, Cin, kUpBM, kUpBN), kUpThreads, 0, st>>>(
-        static_cast<const float*>(dy), static_cast<const float*>(kg), static_cast<float*>(dx),
-        B, H, W, Cin, Cout);
-  return (int)cudaGetLastError();
 }
 
 // The fixed-order sums of `splits` dW / db partials.
@@ -1002,9 +1164,9 @@ int upconv_dw_fma_launch(const void* x, const void* dy, void* part_w, void* part
 // Plain C interface, loaded with ctypes; each returns cudaGetLastError().
 // The wrapper (cl_tpu_torch/kernels/upconv_pack.py) checks the operands:
 // contiguous, 16-byte-aligned NHWC x [B, H, W, Cin] and dy
-// [B, 2H, 2W, Cout] of one type (the bf16 forward: Cin % 8 == 0 and
+// [B, 2H, 2W, Cout] of one type (the bf16 forward and dx: Cin % 8 == 0 and
 // Cout % 4 == 0); the weight as the module holds it (f32 [Cin, Cout, 2, 2])
-// for the bf16 forward, else as Kg [Cin, 4*Cout] of x's type;
+// for the bf16 forward and dx, else as Kg [Cin, 4*Cout] of x's type;
 // f32 bias [Cout]. dW: `part_w` holds splits * Cin * 4*Cout floats,
 // `part_b` splits * 4*Cout; dw [Cin, 4*Cout] and db [Cout] are f32.
 extern "C" {
@@ -1037,17 +1199,44 @@ int cltorch_upconv_fwd(const void* x, const void* kg, const void* bias, void* ou
 }
 
 // The forward's instance bn at `smem` dynamic bytes on this card: out[4] as
-// upconv_fwd_wg_info.
+// upconv_wg_info.
 int cltorch_upconv_fwd_info(int bn, int smem, int* out) {
-  if (bn == 64) return cltorch::upconv_fwd_wg_info<64>(smem, out);
-  if (bn == 128) return cltorch::upconv_fwd_wg_info<128>(smem, out);
+  if (bn == 64) return cltorch::upconv_wg_info<64, false>(smem, out);
+  if (bn == 128) return cltorch::upconv_wg_info<128, false>(smem, out);
   return (int)cudaErrorInvalidValue;
 }
 
+// dx: bf16 on the wgmma kernel with the column tile bn (64 or 128 of Cin),
+// `stages` DY stages and `blocks` persistent blocks a column tile, as
+// kernels/upconv_pack.py::dx_tile / dx_blocks pick them, `kg` the f32
+// weight [Cin, Cout, 2, 2]; f32 on FMAs (bn, stages, blocks unread; `kg` is
+// Kg [Cin, 4*Cout]).
 int cltorch_upconv_dx(const void* dy, const void* kg, void* dx, int B, int H, int W, int Cin,
-                      int Cout, int is_bf16, void* stream) {
-  return cltorch::upconv_dx_launch(dy, kg, dx, B, H, W, Cin, Cout, is_bf16,
-                                   static_cast<cudaStream_t>(stream));
+                      int Cout, int bn, int stages, int blocks, int is_bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    const int64_t M = (int64_t)B * H * W;
+    cltorch::upconv_dx_kernel<float><<<cltorch::tiles(M, Cin, cltorch::kUpBM, cltorch::kUpBN),
+                                       cltorch::kUpThreads, 0, st>>>(
+        static_cast<const float*>(dy), static_cast<const float*>(kg), static_cast<float*>(dx),
+        B, H, W, Cin, Cout);
+    return (int)cudaGetLastError();
+  }
+#define CLTORCH_UP_DX(BN)                                                                     \
+  if (bn == BN)                                                                               \
+    return cltorch::upconv_dx_wg_launch<BN>(dy, kg, dx, B, H, W, Cin, Cout, stages, blocks, st);
+  CLTORCH_UP_DX(64)
+  CLTORCH_UP_DX(128)
+#undef CLTORCH_UP_DX
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dx's instance bn at `smem` dynamic bytes on this card: out[4] as
+// upconv_wg_info.
+int cltorch_upconv_dx_info(int bn, int smem, int* out) {
+  if (bn == 64) return cltorch::upconv_wg_info<64, true>(smem, out);
+  if (bn == 128) return cltorch::upconv_wg_info<128, true>(smem, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The ring instances: (BM, BN) as kernels/upconv_pack.py::dw_ring_tile

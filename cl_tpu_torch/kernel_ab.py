@@ -7,9 +7,10 @@ Each directory is a checkout's root (it holds ``chip_smoke.py`` and its
 its own whose ``sys.path`` starts with that checkout, so each version
 builds and launches its own kernels. Every turn times each kernel (default:
 the five forward kernels; or any of ``chip_smoke.PACKED_PATH``'s names, the
-backward ones too; or ``head_ce_bn_bwd``, the packed head's backward #8)
-at every shape of that checkout's 512² path (``chip_smoke.PACKED_PATH``,
-bf16, batch 8; #8 at ``HEAD_SHAPE`` on ``chip_smoke.bn_case``'s operands)
+backward ones too; or ``head_ce_bn_fwd`` / ``head_ce_bn_bwd``, the packed
+head's forward #7 and backward #8) at every shape of that checkout's 512²
+path (``chip_smoke.PACKED_PATH``, bf16, batch 8; #7 and #8 at
+``HEAD_SHAPE`` on ``chip_smoke.bn_case``'s operands)
 on that checkout's operands (``chip_smoke.packed_operands`` for a forward
 kernel, ``bwd_operands`` for a backward one, whose launch is
 ``bwd_fns``'s; ``--f32``: in float32) with this file's ``time_ms``
@@ -51,16 +52,16 @@ HEADLINE = ["preset=baseline_1", "data.image_size=512", "data.source_size=576",
             "data.dataset=synthetic", "train.data_parallel=false"]
 BACKWARD = ("conv3x3_bn_dw", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "upconv_dx", "upconv_dw",
             "maxpool_bwd", "bn_relu_bwd", "dy_eff")
-HEAD = ("head_ce_bn_bwd",)
+HEAD = ("head_ce_bn_fwd", "head_ce_bn_bwd")
 # The packed head's shape on the headline step: (pixels, Cin, classes),
-# once a step, with bn_case's seed of chip_smoke's phase 3.
+# each kernel once a step, with bn_case's seed of chip_smoke's phase 3.
 HEAD_SHAPE = (2097152, 32, 19)
 HEAD_SEED = 2
 
 
 def check_names(kernels) -> None:
     """Raise on a kernel name that is neither a forward nor a backward
-    kernel of the packed path, nor the packed head's backward."""
+    kernel of the packed path, nor the packed head's forward or backward."""
     unknown = [k for k in kernels if k not in FORWARD + BACKWARD + HEAD]
     if unknown:
         raise ValueError(f"kernel_ab: unknown kernel(s) {unknown}; known: "

@@ -38,6 +38,7 @@ SIGNATURES = {
     "cltorch_head_ce_bn_fwd": [P] * 16 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_bn_bwd": [P] * 17 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_bn_mma_info": [I, I, P],
+    "cltorch_head_ce_bn_fwd_mma_info": [I, I, P],
     "cltorch_head_ce_kd_bn_fwd": [P] * 16 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_kd_bn_bwd": [P] * 17 + [I] * 5 + [F, I, P],
     "cltorch_head_ce_kd_fwd": [P] * 16 + [I] * 5 + [F, I, P],
@@ -59,7 +60,8 @@ SIGNATURES = {
     "cltorch_bn_relu_bwd": [P, P, P, P, P, P, P, L, I, I, I, P],
     "cltorch_dy_eff": [P, P, P, P, P, L, I, I, P],
     "cltorch_maxpool_bwd": [P, P, P, P, I, I, I, I, I, P],
-    "cltorch_upconv_dx": [P, P, P, I, I, I, I, I, I, P],
+    "cltorch_upconv_dx": [P, P, P] + [I] * 9 + [P],
+    "cltorch_upconv_dx_info": [I, I, P],
     "cltorch_upconv_dw": [P] * 6 + [I] * 9 + [P],
     "cltorch_upconv_dw_ring_info": [I, I, P],
     "cltorch_conv3x3_bn_dx": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],

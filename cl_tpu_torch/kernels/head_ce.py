@@ -19,9 +19,9 @@ and are not carried over: the packed forms take the NHWC raw output).
 Each entry runs the CUDA kernels on a CUDA tensor and the plain PyTorch
 version (``*_plain``, the same arithmetic) on a CPU tensor; nothing falls
 back from one to the other. ``LAUNCHES`` counts the kernel launches. The
-bf16 backward of the packed head (#8) runs ``csrc/head_ce_bn_mma.cuh`` on
-the tensor cores over a persistent grid the wrapper picks from the shapes
-(``bn_bwd_blocks``).
+bf16 forward and backward of the packed head (#7, #8) run
+``csrc/head_ce_bn_mma.cuh`` on the tensor cores over persistent grids the
+wrapper picks from the shapes (``bn_fwd_blocks``, ``bn_bwd_blocks``).
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from cl_tpu_torch import losses
-from cl_tpu_torch.kernels import build, one_wave_splits, resident_blocks
+from cl_tpu_torch.kernels import (SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK, build,
+                                  one_wave_splits, resident_blocks)
 from cl_tpu_torch.kernels.packed_eltwise import bn_relu_bwd_plain, bn_relu_plain
 from cl_tpu_torch.losses import NEG_INF
 
@@ -42,21 +43,25 @@ MAX_CIN = 64
 # run in the same order on every card; the rows of the partials buffer.
 N_BLOCKS = 1024
 
-# The bf16 #8 on the tensor cores (csrc/head_ce_bn_mma.cuh): tiles of
-# BN_BWD_TILE pixels (8 warps of 16 rows), a ring of BN_BWD_STAGES tiles.
+# The bf16 #7 and #8 on the tensor cores (csrc/head_ce_bn_mma.cuh): #8's
+# tiles of BN_BWD_TILE pixels (8 warps of 16 rows), a ring of
+# BN_BWD_STAGES tiles; #7's ring of at most BN_FWD_MAX_STAGES tiles,
+# BN_FWD_MIN_BLOCKS blocks an SM.
 BN_BWD_TILE = 128
 BN_BWD_THREADS = 256
 BN_BWD_STAGES = 3
+BN_FWD_MAX_STAGES = 6
+BN_FWD_MIN_BLOCKS = 3
 
 
 def bn_bwd_tile(cin, C):
-    """(CIN16, CMAX): the bf16 #8 instance for Cin channels (rounded up to
-    16) and C classes (16 or 32)."""
+    """(CIN16, CMAX): the bf16 #7 / #8 instance for Cin channels (rounded
+    up to 16) and C classes (16 or 32)."""
     return -(-cin // 16) * 16, 16 if C <= 16 else 32
 
 
 def bn_bwd_resources(cin16, cmax):
-    """(threads, dynamic shared bytes, resident blocks an SM) of an
+    """(threads, dynamic shared bytes, resident blocks an SM) of a #8
     instance, as ``HbLayout`` sizes it: the ring of y tiles [128][CIN16 +
     8] bf16 and their labels, W [CMAX][CIN16 + 8] bf16, eight g tiles
     [16][CMAX + 8] bf16, the f32 vectors; as ``__launch_bounds__`` fits
@@ -77,6 +82,49 @@ def bn_bwd_blocks(P, cin, C):
     the same order on every call."""
     return one_wave_splits(-(-P // BN_BWD_TILE), 1,
                            bn_bwd_resources(*bn_bwd_tile(cin, C))[2])
+
+
+def bn_fwd_tile(cin16):
+    """Pixels a stage of #7's ring (``HfLayout::kTile``): 256 up to 32
+    channels (two slabs of 16 rows a warp), else 128."""
+    return 2 * BN_BWD_TILE if cin16 <= 32 else BN_BWD_TILE
+
+
+def bn_fwd_resources(cin16, cmax):
+    """(threads, dynamic shared bytes, resident blocks an SM) of a #7
+    instance, as ``HfLayout`` sizes it: three blocks an SM
+    (``__launch_bounds__``), each asking for a third of the SM's shared
+    memory, so that exactly three are resident; its ring takes as many
+    stages of that share as fit (``bn_fwd_stages``)."""
+    smem = SMEM_PER_SM // BN_FWD_MIN_BLOCKS - SMEM_RESERVED_PER_BLOCK
+    return BN_BWD_THREADS, smem, resident_blocks(smem, BN_FWD_MIN_BLOCKS)
+
+
+def bn_fwd_stages(cin16, cmax):
+    """Stages of #7's ring (``HfLayout::kStages``): as many y tiles
+    [``bn_fwd_tile``][CIN16 + 8] bf16 and their labels as fit the block's
+    share beside W [CMAX][CIN16 + 8] bf16, the f32 vectors and the eight
+    warps' sums, at most BN_FWD_MAX_STAGES."""
+    row_y, tile = cin16 + 8, bn_fwd_tile(cin16)
+    fixed = cmax * row_y * 2 + (2 * cin16 + 2 * cmax) * 4 + BN_BWD_THREADS // 32 * 4
+    stage = tile * (row_y * 2 + 4)
+    return min(BN_FWD_MAX_STAGES, (bn_fwd_resources(cin16, cmax)[1] - fixed) // stage)
+
+
+@functools.lru_cache(maxsize=None)
+def bn_fwd_blocks(P, cin, C):
+    """Persistent blocks of the bf16 #7 (the rows of its partials): one
+    wave of resident blocks over its pixel tiles, each the same number of
+    tiles, as ``bn_bwd_blocks``."""
+    cin16, cmax = bn_bwd_tile(cin, C)
+    return one_wave_splits(-(-P // bn_fwd_tile(cin16)), 1, bn_fwd_resources(cin16, cmax)[2])
+
+
+def bn_fwd_partials_rows(P, cin, C, bf16, kd=False, prologue=True):
+    """The rows of the partials the forward's wrapper allocates (and the
+    blocks it passes to the C entry): the bf16 #7's schedule, else
+    N_BLOCKS (the launch takes at most that many)."""
+    return bn_fwd_blocks(P, cin, C) if bf16 and prologue and not kd else N_BLOCKS
 
 
 def bn_bwd_partials_rows(P, cin, C, bf16, kd=False, prologue=True):
@@ -405,7 +453,8 @@ def _launch_bn_fwd(y, scale, shift, w, b, labels, valid, teacher, temperature,
                    ignore_index):
     P, cin, C = _check_bn(y, scale, shift, w, labels, valid, teacher)
     kd = teacher is not None
-    partials = torch.empty(N_BLOCKS, 2 if kd else 1, dtype=torch.float32, device=y.device)
+    rows = bn_fwd_partials_rows(P, cin, C, y.dtype == torch.bfloat16, kd, scale is not None)
+    partials = torch.empty(rows, 2 if kd else 1, dtype=torch.float32, device=y.device)
     ce_t = torch.empty((), dtype=torch.float32, device=y.device)
     kd_t = torch.empty((), dtype=torch.float32, device=y.device) if kd else None
     yt, ts, tsh, tw, tb, ov = teacher if kd else (None,) * 6
@@ -415,7 +464,7 @@ def _launch_bn_fwd(y, scale, shift, w, b, labels, valid, teacher, temperature,
         _ptr(yt), _ptr(ts), _ptr(tsh), _ptr(tw), _ptr(tb), labels.data_ptr(),
         valid.data_ptr(), _ptr(ov), partials.data_ptr(), ce_t.data_ptr(), _ptr(kd_t),
         P, cin, C, int(ignore_index), int(y.dtype == torch.bfloat16), float(temperature),
-        N_BLOCKS, torch.cuda.current_stream(y.device).cuda_stream)
+        rows, torch.cuda.current_stream(y.device).cuda_stream)
     build.check(err, name)
     return ce_t, kd_t
 

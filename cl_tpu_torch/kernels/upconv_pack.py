@@ -18,8 +18,10 @@ apart); db = Σ DY over pixels and phases in f32.
 
 On a CUDA tensor the wrappers launch the kernels, on a CPU tensor they run
 the plain versions. ``LAUNCHES`` counts the kernel launches. The bf16
-forward runs a persistent wgmma kernel whose column tile, ring and grid
-the wrapper picks from the shapes alone (``fwd_tile``, ``fwd_blocks``).
+forward and dx run persistent wgmma kernels whose column tile, ring and
+grid the wrapper picks from the shapes alone (``fwd_tile``, ``fwd_blocks``;
+``dx_tile``, ``dx_blocks``); each forms its bf16 weight from the module's
+f32 weight itself, so the wrapper issues one launch a call.
 """
 
 from __future__ import annotations
@@ -145,10 +147,69 @@ def fwd_blocks(cin, cout, pixels):
                            fwd_resources(bn, cin, stages)[2])
 
 
-def _check_fwd_bf16(cin, cout):
+# The bf16 dx's persistent wgmma kernel (csrc/upconv.cu::UpDx,
+# upconv_dx_wg_kernel): the forward's pixel tiles, k-chunks (here 64
+# columns of 4·Cout), threads, ring bounds and shared-memory limit;
+# registers for DX_MIN_BLOCKS blocks an SM.
+DX_MIN_BLOCKS = 2
+
+
+def dx_smem(bn, cout, stages, streamed=False):
+    """Dynamic shared bytes of a dx launch, as ``UpDx::smem``: 1024 of
+    alignment (the mbarriers live in it), the block's Kg slice [BN][64] a
+    k-chunk of 4·Cout (``streamed``: a chunk a stage, ``smem_streamed``),
+    the DY stages [128][64], the dx tile [128][BN] bf16."""
+    kc = stages if streamed else -(-(4 * cout) // FWD_BK)
+    return 1024 + kc * bn * FWD_BK * 2 + stages * FWD_BM * FWD_BK * 2 + FWD_BM * bn * 2
+
+
+def dx_streamed(bn, cout, stages):
+    """Whether the dx's Kg slice is streamed, a chunk a stage (the C
+    launcher's rule): where the whole slice does not fit."""
+    return dx_smem(bn, cout, stages) > FWD_SMEM_MAX
+
+
+@functools.lru_cache(maxsize=None)
+def dx_tile(cin, cout):
+    """(BN, stages): the bf16 dx's column tile of Cin and its ring. The
+    whole Kg slice resident first, then streamed; within each, two
+    resident blocks an SM first, then one; at that count the widest column
+    tile (128 above 64 input channels, else 64) with at least two stages,
+    and the most stages (at most FWD_MAX_STAGES) that keep it."""
+    bns = ([128] if cin > 64 else []) + [64]
+    for streamed in (False, True):
+        for want in (2, 1):
+            for bn in bns:
+                fits = [st for st in range(2, FWD_MAX_STAGES + 1)
+                        if dx_smem(bn, cout, st, streamed) <= FWD_SMEM_MAX
+                        and resident_blocks(dx_smem(bn, cout, st, streamed),
+                                            DX_MIN_BLOCKS) >= want]
+                if fits:
+                    return bn, fits[-1]
+    raise AssertionError("a streamed tile always fits")
+
+
+def dx_resources(bn, cout, stages):
+    """(threads, dynamic shared bytes, resident blocks an SM) of a dx
+    launch."""
+    smem = dx_smem(bn, cout, stages, dx_streamed(bn, cout, stages))
+    return FWD_THREADS, smem, resident_blocks(smem, DX_MIN_BLOCKS)
+
+
+@functools.lru_cache(maxsize=None)
+def dx_blocks(cin, cout, pixels):
+    """Persistent blocks a column tile of the bf16 dx walks the FWD_BM-pixel
+    tiles with: one wave of resident blocks over the column tiles, each the
+    same number of tiles. A function of the shapes alone."""
+    bn, stages = dx_tile(cin, cout)
+    return one_wave_splits(-(-pixels // FWD_BM), -(-cin // bn),
+                           dx_resources(bn, cout, stages)[2])
+
+
+def _check_bf16(cin, cout, what):
     if cin % 8 or cout % 4:
-        raise ValueError(f"upconv bf16 forward kernel needs Cin % 8 == 0 (16-byte rows) and "
-                         f"Cout % 4 == 0 (16-byte output pieces), got Cin={cin} Cout={cout}")
+        raise ValueError(f"upconv bf16 {what} kernel needs Cin % 8 == 0 and Cout % 4 == 0 "
+                         f"(16-byte pieces of x and dy rows), got Cin={cin} Cout={cout}")
 
 
 def launch_upconv2x2(x, weight, bias):
@@ -160,7 +221,7 @@ def launch_upconv2x2(x, weight, bias):
                          f"expected, got {tuple(weight.shape)} {tuple(bias.shape)}")
     bf16 = x.dtype == torch.bfloat16
     if bf16:  # the wgmma kernel forms Kgᵀ from the f32 weight itself
-        _check_fwd_bf16(cin, cout)
+        _check_bf16(cin, cout, "forward")
         kg = weight.to(device=x.device, dtype=torch.float32).contiguous()
         schedule = (*fwd_tile(cin, cout), fwd_blocks(cin, cout, B * H * W))
     else:
@@ -187,11 +248,17 @@ def launch_upconv2x2_dx(dy, weight):
     B, H2, W2, _ = dy.shape
     x_shape = (B, H2 // 2, W2 // 2, cin)
     _check_dy(dy, x_shape, cout, dy.dtype)
-    kg = gemm_weight(weight, dy.dtype)
+    bf16 = dy.dtype == torch.bfloat16
+    if bf16:  # the wgmma kernel forms its Kg slice from the f32 weight itself
+        _check_bf16(cin, cout, "dx")
+        kg = weight.to(device=dy.device, dtype=torch.float32).contiguous()
+        schedule = (*dx_tile(cin, cout), dx_blocks(cin, cout, B * (H2 // 2) * (W2 // 2)))
+    else:
+        kg, schedule = gemm_weight(weight, dy.dtype), (0, 0, 0)
     dx = torch.empty(x_shape, dtype=dy.dtype, device=dy.device)
     err = build.library().cltorch_upconv_dx(
         dy.data_ptr(), kg.data_ptr(), dx.data_ptr(), B, H2 // 2, W2 // 2, cin, cout,
-        int(dy.dtype == torch.bfloat16), torch.cuda.current_stream(dy.device).cuda_stream)
+        *schedule, int(bf16), torch.cuda.current_stream(dy.device).cuda_stream)
     build.check(err, "upconv_dx")
     return dx
 
