@@ -153,6 +153,29 @@ Phases (any failure raises, so the exit code is non-zero):
    ships (EWC alone, f32, 21 classes), 16 train and 8 val images per
    task: finite mIoU matrix and forgetting, the methods kernels launched
    as counted (both on the device-resident dataset, as the presets ship);
+5r. the run's life cycle at full width: 5r-a, does the headline step
+   (phase 5h's config) repeat bit for bit? Two deep copies of the model
+   and Adam's state after one step, 3 steps each on the same batch, each
+   leaf's max |diff| (where they differ, the leaves after one step and
+   the same steps under ``torch.backends.cudnn.deterministic``), and five
+   pairs of 10 steps with ``cudnn.deterministic`` on and off in turns;
+   5r-b, the baseline_5 cut of phase 5m, 3 tasks of 16 + 8 images on the
+   device cache: two uninterrupted ``train()`` runs, a run killed by
+   ``train.fail_after_task=0`` and its ``train.resume=true``, each with
+   its own checkpoint directory; the last task's ``state.pt`` leaf by leaf
+   (params, BN buffers, Adam's moments and step, EWC's anchor and Fisher,
+   the teacher) and the mIoU matrix: bit-equal where 5r-a found the step
+   bit-repeatable, else within twice the two uninterrupted runs' largest
+   gap; the methods kernels counted as in 5m; 5r-c, the CLI's ``eval``
+   and ``predict`` from that checkpoint: ``eval``'s mIoU equals the last
+   row of the uninterrupted run's matrix (to 5r-a's standard), the
+   confusion matrix of ``predict``'s masks equals ``evaluate``'s entry for
+   entry, the packed forward kernels launched once per forward each;
+   5r-d, baseline_3 with ``method.ewc_fisher_kind=true`` (16 + 8 images a
+   task) through ``train()``, every plan-driven step (the Fisher's too)
+   under sync debug mode "error", #19 once per Fisher batch, a finite
+   Fisher; the draw at 8 x 512² x 21 f32: no masked class, 255 kept, one
+   seed equal twice, χ² of 2¹⁶ draws at four pixels, p > 1e-3;
 5d. the data path (the native rasterizer, the device-resident dataset,
    plan-driven epochs): baseline_2 and baseline_3 as they ship and
    baseline_4 as it ships with ``train.pallas_augment=true`` through
@@ -242,6 +265,7 @@ or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -3367,6 +3391,401 @@ def packed_agrees_with_cpu():
     need(e_err <= 1e-4 and t_err <= 1e-4 and s_ok, "packed body, card vs CPU")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5r: step determinism, resume, eval / predict, the sampled Fisher
+# ---------------------------------------------------------------------------
+
+
+def methods_want(cfg, start=0, stop=None) -> dict:
+    """The methods kernels' launches of tasks [start, stop) of a ``train()``
+    of ``cfg``: the penalty and its gradient at every step (weight 0 on task
+    0, as in ``cl_tpu``), the Fisher accumulation once per Fisher batch
+    after every task but the last, the gather twice per step from task 1
+    on (task 0 widens its batch with its own rows)."""
+    T = cfg.train.num_tasks
+    stop = T if stop is None else stop
+    per_task = cfg.data.train_images_per_task // cfg.data.batch_size * cfg.train.epochs_per_task
+    nf = min(cfg.data.train_images_per_task // cfg.data.batch_size,
+             cfg.method.ewc_fisher_batches)
+    tasks = range(start, stop)
+    return {"ewc_penalty": len(tasks) * per_task, "ewc_grad": len(tasks) * per_task,
+            "ewc_sq_acc": sum(t < T - 1 for t in tasks) * nf,
+            "replay_gather": 2 * sum(t >= 1 for t in tasks) * per_task
+            if "replay" in cfg.method.methods else 0}
+
+
+def state_leaves(model, opt) -> dict:
+    """Every param and BatchNorm buffer of ``model`` and every tensor of
+    ``opt``'s state (Adam's moments and step), cloned, by name."""
+    out = {f"model{'/' + k}": v.detach().clone() for k, v in model.state_dict().items()}
+    names = {id(p): n for n, p in model.named_parameters()}
+    for p, st in opt.state.items():
+        for k, v in st.items():
+            out[f"adam/{names[id(p)]}/{k}"] = v.detach().clone()
+    return out
+
+
+def leaf_gaps(a: dict, b: dict) -> dict:
+    """max |a − b| of each tensor leaf (float64), by name; a Python value
+    (a checkpoint's ``n_tasks``, the optimizer's settings) 0 where equal,
+    inf where not."""
+    import torch
+
+    need(a.keys() == b.keys(), "the same leaves on both sides")
+    out = {}
+    for k, x in a.items():
+        if isinstance(x, torch.Tensor):
+            d = x.double() - b[k].double().to(x.device)
+            out[k] = float(d.abs().max()) if d.numel() else 0.0
+        else:
+            out[k] = 0.0 if x == b[k] else float("inf")
+    return out
+
+
+def step_repeats(cfg, device, n_steps=3):
+    """5r-a: does a step repeat bit for bit? One step from the seeded init
+    (Adam's state exists), then two deep copies of the model and of Adam's
+    state, ``n_steps`` steps on the same batch from each: each leaf's max
+    |diff|. Where they differ, the leaves after one step name the layers,
+    and the same steps under ``torch.backends.cudnn.deterministic`` say
+    whether cuDNN's algorithms are the cause. Returns (bit-equal, gaps)."""
+    import copy
+
+    import torch
+
+    from cl_tpu_torch import train as tl
+
+    model, opt, step, batch, valid = build_step(cfg, device)
+    step(batch, valid)
+
+    def copies():
+        out = []
+        for _ in range(2):
+            m = copy.deepcopy(model)
+            o = tl.build_optimizer(cfg, m)
+            o.load_state_dict(copy.deepcopy(opt.state_dict()))
+            out.append((m, o, tl.make_train_step(cfg, m, o, device)))
+        return out
+
+    def run(n, deterministic=False):
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            leaves = []
+            for m, o, s in copies():
+                for _ in range(n):
+                    s(batch, valid)
+                torch.cuda.synchronize()
+                leaves.append(state_leaves(m, o))
+                del m, o, s
+            return leaf_gaps(*leaves)
+        finally:
+            torch.backends.cudnn.deterministic = False
+
+    gaps = run(n_steps)
+    differ = {k: v for k, v in gaps.items() if v != 0}
+    print(f"  {n_steps} steps from two copies, {len(gaps)} leaves (params, BN statistics, Adam's "
+          f"moments and step): {len(differ)} differ; max |diff| by leaf: "
+          + json.dumps({k: v for k, v in gaps.items()}))
+    if differ:
+        first = {k: v for k, v in run(1).items() if v != 0}
+        by_level = {}
+        for k in first:  # "model/enc3.conv0.weight", "adam/enc3.conv0.weight/exp_avg"
+            level = k.split("/")[1].split(".")[0]
+            by_level[level] = by_level.get(level, 0) + 1
+        print(f"  after one step, {len(first)} leaves differ, by level: {by_level}; "
+              f"{sorted(k for k in first if k.startswith('model/'))}")
+        det = {k: v for k, v in run(n_steps, deterministic=True).items() if v != 0}
+        print(f"  under torch.backends.cudnn.deterministic=True: {len(det)} leaves differ")
+    # the cost of cuDNN's deterministic algorithms: five pairs of 10 steps
+    # in turns, the order flipped every pair
+    ips = {False: [], True: []}
+    try:
+        for i in range(5):
+            for det in ((False, True) if i % 2 == 0 else (True, False)):
+                torch.backends.cudnn.deterministic = det
+                step(batch, valid)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    step(batch, valid)
+                torch.cuda.synchronize()
+                ips[det].append(cfg.data.batch_size * 10 / (time.perf_counter() - t0))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ratios = [a / b for a, b in zip(ips[True], ips[False])]
+    print(f"  images/s, five pairs of 10 steps: default {[round(v, 2) for v in ips[False]]}, "
+          f"cudnn.deterministic {[round(v, 2) for v in ips[True]]}; deterministic / default "
+          f"{[round(r, 4) for r in ratios]}, median {float(np.median(ratios)):.4f}")
+    del model, opt, step
+    return not differ, gaps
+
+
+def checkpoint_leaves(path) -> dict:
+    """Every tensor of a ``state.pt`` by its path in the tree (and the
+    Python values beside them)."""
+    import torch
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from walk(v, f"{prefix}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from walk(v, f"{prefix}[{i}]")
+        else:
+            yield prefix, tree
+
+    return dict(walk(torch.load(path, map_location="cpu", weights_only=True), ""))
+
+
+def cli_run(args, what):
+    """``python3 -m cl_tpu_torch.cli`` with ``args`` in a process of its own
+    (a crash loses the process; its resume starts a new one): (exit code,
+    the last lines of its output)."""
+    out = subprocess.run([sys.executable, "-m", "cl_tpu_torch.cli", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    tail = "\n".join((out.stdout + out.stderr).strip().splitlines()[-3:])
+    print(f"    {what}: exit {out.returncode}")
+    return out.returncode, tail
+
+
+def resume_at_full_width(args, bitwise, root):
+    """5r-b: two uninterrupted ``train()`` runs (a, b), a run killed after
+    task 0 and its resume in this process (r), and the same through the
+    CLI, each in a new process (c), each pair with its own
+    ``train.checkpoint_dir`` under ``root``. The last task's ``state.pt``
+    compared leaf by leaf (params, BN buffers, Adam's moments and step,
+    EWC's anchor, Fisher and weight, the teacher) and the mIoU matrix:
+    bit-equal where 5r-a found the step bit-repeatable (``bitwise``), else
+    no leaf further from run a than twice the largest gap between a and b.
+    Returns (the resumed run's config, run a's report, the gate's mIoU
+    tolerance)."""
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.config import parse_overrides
+
+    def with_dir(k, *extra):
+        return args + [f"train.checkpoint_dir={os.path.join(root, k)}", *extra]
+
+    cfg_a = parse_overrides(with_dir("a"))
+    T = cfg_a.train.num_tasks
+    mats, counts = {}, {}
+    for k in ("a", "b"):
+        t0 = time.perf_counter()
+        reset_counts()
+        mats[k] = np.asarray(tl.train(parse_overrides(with_dir(k)))["miou_matrix"], float)
+        counts[k] = read_counts()
+        print(f"  uninterrupted run {k}: {time.perf_counter() - t0:.1f} s, mIoU matrix "
+              f"{mats[k].tolist()}")
+    reset_counts()
+    try:
+        tl.train(parse_overrides(with_dir("r", "train.fail_after_task=0")))
+        need(False, "train.fail_after_task=0 raises")
+    except RuntimeError as e:
+        need("fault injection" in str(e), f"the fault injection raised ({e})")
+    counts["fail"] = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    report_r = tl.train(parse_overrides(with_dir("r", "train.resume=true")))
+    mats["r"] = np.asarray(report_r["miou_matrix"], float)
+    counts["r"] = read_counts()
+    print(f"  killed after task 0, resumed in this process: {time.perf_counter() - t0:.1f} s, "
+          f"mIoU matrix {mats['r'].tolist()}")
+    for k, (start, stop) in (("a", (0, T)), ("b", (0, T)), ("fail", (0, 1)), ("r", (1, T))):
+        want = methods_want(cfg_a, start, stop)
+        print(f"    methods launches, run {k} (tasks {start}..{stop - 1}): "
+              f"{ {n: counts[k][n] for n in want} }")
+        for n, v in want.items():
+            need(counts[k][n] == v, f"{n} launches {counts[k][n]} == {v} (5r-b run {k})")
+    t0 = time.perf_counter()
+    rc, tail = cli_run(with_dir("c", "train.fail_after_task=0"),
+                       "the CLI killed after task 0, a process of its own")
+    need(rc != 0 and "fault injection" in tail, f"the CLI's run died of the fault ({tail})")
+    rc, tail = cli_run(with_dir("c", "train.resume=true"), "the CLI resumed, a new process")
+    need(rc == 0, f"the CLI's resume ({tail})")
+    with open(os.path.join(root, "c", f"task_{T - 1}", "meta.json")) as f:
+        mats["c"] = np.asarray(json.load(f)["miou_matrix"], float)
+    print(f"  the CLI's pair: {time.perf_counter() - t0:.1f} s, mIoU matrix {mats['c'].tolist()}")
+    last = f"task_{T - 1}/state.pt"
+    leaves = {k: checkpoint_leaves(os.path.join(root, k, last)) for k in ("a", "b", "r", "c")}
+    gaps = {k: leaf_gaps(leaves[k], leaves["a"]) for k in ("b", "r", "c")}
+    low = np.tril_indices(T)
+    mgaps = {k: float(np.abs(mats[k] - mats["a"])[low].max()) for k in gaps}
+    kinds = sorted({k.split("/")[1] for k in leaves["a"]})
+    print(f"  the last state.pt, {len(leaves['a'])} leaves ({', '.join(kinds)}), against run a: "
+          + "; ".join(f"{name} {sum(v != 0 for v in gaps[k].values())} leaves differ, largest "
+                      f"max |diff| {max(gaps[k].values()):.3e}, mIoU gap {mgaps[k]:.3e}"
+                      for k, name in (("b", "run b"), ("r", "resumed here"),
+                                      ("c", "the CLI's resume"))))
+    need({"model", "optimizer", "ewc", "lwf"} <= set(kinds), "every part of the state compared")
+    tol = 0.0 if bitwise else 2 * mgaps["b"]
+    for k in ("r", "c"):
+        if bitwise:
+            need(all(v == 0 for v in gaps[k].values()) and mgaps[k] == 0,
+                 f"run {k} equals the uninterrupted run bit for bit (5r-a: bit-repeatable)")
+        else:
+            bound = 2 * max(gaps["b"].values())
+            worst = max(gaps[k], key=gaps[k].get)
+            need(gaps[k][worst] <= bound,
+                 f"run {k}'s leaf {worst} within twice the uninterrupted runs' largest gap "
+                 f"({gaps[k][worst]:.3e} <= {bound:.3e})")
+            need(mgaps[k] <= tol, f"run {k}'s mIoU within twice a and b's gap ({mgaps[k]})")
+    return parse_overrides(with_dir("r")), {"miou_matrix": mats["a"]}, tol
+
+
+def eval_predict_from_checkpoint(cfg, report, tol):
+    """5r-c: the CLI's ``eval`` and ``predict`` modes from 5r-b's resumed
+    checkpoint on the card. ``eval``'s per-task mIoU equals the last row of
+    the uninterrupted run's matrix (within ``tol``: 0 where a step repeats
+    bit for bit); the confusion matrix of ``predict``'s masks against the
+    val masks equals ``evaluate``'s, entry for entry; the packed forward
+    kernels launched once per forward each."""
+    import torch
+
+    from cl_tpu_torch import cli, predict
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.data import pipeline
+    from cl_tpu_torch.kernels import augment as aug_kernels
+
+    T, C = cfg.train.num_tasks, cfg.data.num_classes
+    forwards = -(-cfg.data.val_images_per_task // cfg.data.batch_size)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out_e = cli.run_eval(cfg)
+    torch.cuda.synchronize()
+    counts_e, wall_e = read_counts(), time.perf_counter() - t0
+    row = np.asarray(report["miou_matrix"], float)[T - 1]
+    gap = float(np.abs(np.asarray(out_e["per_task_miou"]) - row).max())
+    print(f"  eval: {out_e} in {wall_e:.1f} s; the uninterrupted run's last row {row.tolist()}, "
+          f"gap {gap:.3e}")
+    need(out_e["task"] == T - 1 and gap <= tol, f"eval equals the run's last mIoU row ({gap})")
+    reset_counts()
+    t0 = time.perf_counter()
+    out_p = cli.run_predict(cfg)
+    torch.cuda.synchronize()
+    counts_p, wall_p = read_counts(), time.perf_counter() - t0
+    need(os.path.basename(out_p["out"]) == f"task{T - 1}_val_masks.npy", "predict's file name")
+    masks = np.load(out_p["out"])
+    _, val_ds = pipeline.make_datasets(cfg, T - 1)
+    src = torch.from_numpy(np.stack([val_ds[i][1] for i in range(len(val_ds))]).astype(np.uint8))
+    y = aug_kernels.mask_plain(src, torch.zeros(len(val_ds), dtype=torch.bool),
+                               out_size=cfg.data.image_size).numpy()
+    keep = y != cfg.data.ignore_index
+    conf = np.bincount(y[keep].astype(np.int64) * C + masks[keep], minlength=C * C).reshape(C, C)
+    model, _ = predict.restore_for_inference(cfg)
+    want = tl.evaluate(cfg, model, T - 1, seen_task=T - 1)["confusion"]
+    print(f"  predict: {out_p['n_images']} masks {masks.shape} {masks.dtype}, classes "
+          f"{out_p['classes_present']}, {wall_p:.1f} s; confusion of the masks against the val "
+          f"masks == evaluate's: {np.array_equal(conf, want)} ({int(conf.sum())} pixels)")
+    need(masks.shape == (len(val_ds), cfg.data.image_size, cfg.data.image_size)
+         and masks.dtype == np.uint8, "predict's masks")
+    need(np.array_equal(conf, want), "predict's confusion matrix equals evaluate's")
+    for label, counts, n in (("eval", counts_e, T * forwards), ("predict", counts_p, forwards)):
+        print(f"    {label} launches: { {k: counts[k] for k in PER_FORWARD} } for {n} forwards")
+        for k in PER_STEP:
+            want_n = n * PER_FORWARD.get(k, 0)  # no backward kernel in an eval
+            need(counts[k] == want_n, f"{k} launches {counts[k]} == {want_n} ({label})")
+    return counts_e, counts_p
+
+
+def sampled_draw_checks(device, seen_classes=11, C=21):
+    """5r-d: the sampled Fisher's draw at the full-width logits shape (8 x
+    512² x 21, f32): no masked class drawn, ignore pixels keep 255, one
+    seed draws the same labels twice, and 2¹⁶ draws at four fixed pixels
+    fit their softmax (χ², p > 1e-3 each). Returns the draw's ms."""
+    import torch
+    from scipy.stats import chisquare
+
+    from cl_tpu_torch.methods import ewc
+
+    g = torch.Generator(device=device).manual_seed(0)
+    logits = torch.randn((8, 512, 512, C), generator=g, device=device) * 2
+    y = torch.randint(0, seen_classes, (8, 512, 512), generator=g, device=device,
+                      dtype=torch.int32)
+    y[torch.rand((8, 512, 512), generator=g, device=device) < 0.1] = 255
+    valid = torch.zeros(C, dtype=torch.bool, device=device)
+    valid[:seen_classes] = True
+
+    def draw(seed, lg=logits, yy=y):
+        return ewc.sample_fisher_labels(lg, yy, valid,
+                                        torch.Generator(device=device).manual_seed(seed))
+
+    a, b = draw(5), draw(5)
+    ms = time_ms(lambda: draw(5), reps=10, queued=False)
+    ign = y == 255
+    drawn_masked = int((a[~ign] >= seen_classes).sum())
+    print(f"  draw at {tuple(logits.shape)} f32: {ms:.3f} ms; masked classes drawn "
+          f"{drawn_masked}; ignore pixels kept {bool((a[ign] == 255).all())} "
+          f"({int(ign.sum())}); same seed equal {bool(torch.equal(a, b))}; another seed differs "
+          f"at {float((a != draw(6)).float().mean()):.4f} of pixels")
+    need(drawn_masked == 0, "no masked class drawn")
+    need(bool((a[ign] == 255).all()), "ignore pixels keep 255")
+    need(bool(torch.equal(a, b)), "two draws from one seed are equal")
+    n = 1 << 16
+    pix = logits[0, 0, :4]
+    got = draw(1, pix[None, None].expand(n, 1, 4, C).contiguous(),
+               torch.zeros((n, 1, 4), dtype=torch.int32, device=device))
+    p = torch.softmax(torch.where(valid, pix.double(), float("-inf")), dim=-1).cpu().numpy()
+    v = valid.cpu().numpy()
+    pvals = []
+    for j in range(4):
+        counts = np.bincount(got[:, 0, j].cpu().numpy(), minlength=C)
+        need(counts[~v].sum() == 0, "no masked class in the χ² draws")
+        pvals.append(float(chisquare(counts[v], n * p[j][v]).pvalue))
+    print(f"  χ² of 2^16 draws at four pixels against their softmax: p {pvals}")
+    need(min(pvals) > 1e-3, f"the draws fit their softmax (p {pvals})")
+    return ms
+
+
+def phase_5r(cfg_h, b5_args, small):
+    """Phase 5r: 5r-a on the headline step ``cfg_h``; 5r-b and 5r-c on the
+    baseline_5 cut ``b5_args``, 5r-d on baseline_3, both with ``small``'s
+    images a task (phase 5m's ``train()`` runs')."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    cuda = torch.device("cuda")
+    print("[5r] the run's life cycle at full width: step determinism, resume, eval and "
+          "predict from a checkpoint, the sampled Fisher")
+    t_r = time.perf_counter()
+    print("  5r-a: does the headline step (phase 5h's config) repeat bit for bit?")
+    bitwise, _ = step_repeats(cfg_h, cuda)
+    print(f"  5r-a: the headline step {'repeats' if bitwise else 'does NOT repeat'} bit for bit "
+          f"on this card")
+    # the same step in f32 (baseline_3's and baseline_4's dtype): the deep
+    # region's cuDNN convs take other algorithms in f32
+    cfg_f = dataclasses.replace(cfg_h, train=dataclasses.replace(cfg_h.train,
+                                                                 compute_dtype="float32"))
+    print("  5r-a, the same step in f32:")
+    f32_bitwise, _ = step_repeats(cfg_f, cuda)
+    print(f"  5r-a: in f32 the step {'repeats' if f32_bitwise else 'does NOT repeat'} bit for bit")
+    root_r = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        print("  5r-b: fail after task 0 and resume, the baseline_5 cut, 3 tasks, 16 + 8 images "
+              "a task, the device cache")
+        cfg_r, report_ra, tol_r = resume_at_full_width(
+            b5_args + small + ["train.num_tasks=3", "train.epochs_per_task=1"], bitwise, root_r)
+        print("  5r-c: the CLI's eval and predict from 5r-b's checkpoint")
+        eval_predict_from_checkpoint(cfg_r, report_ra, tol_r)
+        print("  5r-d: the sampled Fisher (method.ewc_fisher_kind=true) on baseline_3")
+        data_path_train("5r-d baseline_3 with the sampled Fisher, 16 + 8 images a task",
+                        ["preset=baseline_3", "method.ewc_fisher_kind=true"] + small
+                        + [f"train.checkpoint_dir={os.path.join(root_r, 'fisher')}"])
+        fisher = checkpoint_leaves(os.path.join(root_r, "fisher", "task_0", "state.pt"))[
+            "/ewc/fisher"]
+        print(f"    the sampled Fisher after task 0: {fisher.numel()} entries, finite "
+              f"{bool(torch.isfinite(fisher).all())}, max {float(fisher.max()):.4e}, mean "
+              f"{float(fisher.mean()):.4e}")
+        need(bool(torch.isfinite(fisher).all()) and bool((fisher >= 0).all())
+             and bool((fisher > 0).any()), "a finite, non-negative, nonzero sampled Fisher")
+        sampled_draw_checks(cuda)
+    finally:
+        shutil.rmtree(root_r, ignore_errors=True)
+    print(f"  phase 5r: {time.perf_counter() - t_r:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3864,6 +4283,8 @@ def main() -> int:
     methods_train("baseline_5 cut, 3 tasks", b5_train + small + ["train.num_tasks=3",
                                                                  "train.epochs_per_task=1"])
     methods_train("baseline_3, 16 + 8 images a task", ["preset=baseline_3"] + small)
+
+    phase_5r(cfg_h, b5_train, small)
 
     print("[5d] the data path: baselines 2, 3 and 4 as they ship through train() (the "
           "native rasterizer, the device-resident dataset, plan-driven epochs)")

@@ -17,8 +17,12 @@ Layer map:
                           (flat anchor and Fisher, the Fisher pass's
                           gradient), the host replay buffer; the
                           device-resident buffer is kernels/replay_gather.py
-  L4 train.py           — task loop, train/eval steps
-  L5 metrics.py         — on-device confusion matrix, mIoU, forgetting
+  L4 train.py           — task loop, train/eval steps, ``evaluate``;
+                          predict.py, the batch inference API
+  L5 metrics.py         — on-device confusion matrix, mIoU, forgetting;
+                          checkpoint.py, per-task checkpoints and resume;
+                          plots.py, curves from the JSONL log
+  L0 cli.py             — the train / eval / predict / plot modes
 Hand-written CUDA kernels live in csrc/, their wrappers and plain
 versions in kernels/.
 """

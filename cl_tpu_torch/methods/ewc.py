@@ -78,16 +78,41 @@ def penalty(theta: torch.Tensor, state: EWCState, *, mode: str) -> torch.Tensor:
     return 0.5 * state.weight * (state.fisher * d * d).sum()
 
 
+@torch.no_grad()
+def sample_fisher_labels(logits: torch.Tensor, y: torch.Tensor, valid_classes: torch.Tensor,
+                         generator: torch.Generator, *, ignore_index: int = 255) -> torch.Tensor:
+    """The sampled Fisher's labels (``kind="true"``, ``cl_tpu/methods/ewc.py:
+    103-108``): one class a pixel drawn from softmax(mask_logits(logits)),
+    the ignore label kept where ``y`` has it. ``cl_tpu`` draws with
+    ``jax.random.categorical``; the port by the Gumbel-max trick, argmax of
+    the masked f32 logits minus log(−log U), U from ``torch.rand`` on
+    ``generator`` (on the logits' device: no host wait). A masked class
+    (−1e9) is never drawn: −log(−log U) lies within [−4.5, 16.7] for U in
+    [2⁻¹²⁶, 1 − 2⁻²⁴]. Returns labels of ``y``'s dtype."""
+    z = losses.mask_logits(logits.float(), valid_classes)
+    u = torch.rand(z.shape, generator=generator, dtype=torch.float32, device=z.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min_(torch.finfo(torch.float32).tiny)))
+    sampled = torch.argmax(z + gumbel, dim=-1)
+    return torch.where(y == ignore_index, y, sampled.to(y.dtype))
+
+
 def fisher_batch_grads(model: torch.nn.Module, x, y, valid_classes, *,
-                       ignore_index: int = 255) -> torch.Tensor:
-    """The empirical Fisher's raw gradient of one batch (``kind="empirical"``,
-    ``cl_tpu/methods/ewc.py:74-115`` with ``square=False``): ∂CE/∂θ at the
-    true labels, the model in eval mode (running statistics, which do not
-    move), as one flat f32 vector in ``flat_params`` order. The gradients
-    come from ``torch.autograd.grad``: no param's ``.grad`` changes."""
+                       ignore_index: int = 255,
+                       generator: torch.Generator | None = None) -> torch.Tensor:
+    """The Fisher's raw gradient of one batch (``cl_tpu/methods/ewc.py:74-115``
+    with ``square=False``): ∂CE/∂θ, the model in eval mode (running
+    statistics, which do not move), as one flat f32 vector in
+    ``flat_params`` order. The labels are ``y`` (the empirical Fisher), or
+    with ``generator`` drawn by ``sample_fisher_labels`` from this
+    forward's logits (the sampled Fisher: ``cl_tpu`` runs the forward
+    twice, once to draw and once under ``jax.grad``, on the same params and
+    input). The gradients come from ``torch.autograd.grad``: no param's
+    ``.grad`` changes."""
     model.eval()
     params = list(model.parameters())
     logits = model(x)
+    if generator is not None:
+        y = sample_fisher_labels(logits, y, valid_classes, generator, ignore_index=ignore_index)
     ce, _ = losses.cross_entropy(logits, y, valid_classes, ignore_index=ignore_index)
     grads = torch.autograd.grad(ce, params)
     return torch.cat([g.reshape(-1).float() for g in grads])

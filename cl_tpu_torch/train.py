@@ -11,9 +11,12 @@ and no host wait inside a step. Per task: epochs of (replay mix →) augment
 (the augment kernels #15/#16 under ``train.pallas_augment``) → forward →
 loss → backward → optimizer step, then an eval of every seen task and the
 after-task hooks in ``cl_tpu``'s order (EWC's Fisher pass and
-consolidation, the LwF snapshot, the replay buffer's fill); the same JSONL
-events (``epoch``, ``eval``, ``hbm_live_set``, ``task_done``, ``done``)
-and the same report as the JAX package.
+consolidation, the LwF snapshot, the replay buffer's fill), then with
+``train.checkpoint_dir`` the task's checkpoint (``checkpoint.py``);
+``train.resume`` goes on after the latest one. The same JSONL events
+(``resumed``, ``epoch``, ``eval``, ``hbm_live_set``, ``task_done``,
+``done``) and the same report as the JAX package; ``evaluate`` is the
+public eval API.
 
 The loss takes the JAX package's branches (``cl_tpu/train.py:391-515``):
 on the packed body with the fused head and ``train.packed_head_ce`` (the
@@ -90,12 +93,8 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
         unported.append("model.padded_head=false (the grow-the-head variant)")
     if set(meth.methods) - {"ewc", "lwf", "replay"}:
         unported.append(f"method.methods={meth.methods}")
-    if "ewc" in meth.methods and meth.ewc_fisher_kind != "empirical":
-        unported.append(
-            f"method.ewc_fisher_kind={meth.ewc_fisher_kind!r} (EWC's sampled Fisher "
-            "draws its labels from JAX's PRNG; the port runs the empirical Fisher)")
-    if t.checkpoint_dir or t.resume:
-        unported.append("train.checkpoint_dir / train.resume (checkpoints)")
+    if meth.ewc_fisher_kind not in ("empirical", "true"):
+        raise ValueError(f"unknown method.ewc_fisher_kind {meth.ewc_fisher_kind!r}")
     if t.spatial_parallel:
         unported.append("train.spatial_parallel")
     if t.remat:
@@ -360,12 +359,12 @@ def make_cached_eval_step(cfg: Config, eval_step: Callable) -> Callable:
 
 
 def make_cached_fisher_step(fisher_step: Callable) -> Callable:
-    """``cstep(acc, s, cache, plan, valid_classes) -> acc``: Fisher step
-    ``s`` over the train cache."""
+    """``cstep(acc, s, cache, plan, valid_classes, generator=None) -> acc``:
+    Fisher step ``s`` over the train cache."""
 
-    def cstep(acc, s, cache, plan, valid_classes):
+    def cstep(acc, s, cache, plan, valid_classes, generator=None):
         return fisher_step(acc, cached_exec.gather_batch(cache.images, cache.masks, plan, s),
-                           valid_classes)
+                           valid_classes, generator)
 
     return cstep
 
@@ -395,6 +394,20 @@ def evaluate_task(cfg: Config, eval_step, task_id: int,
     return eval_result(cfg, conf, task_id)
 
 
+def evaluate(cfg: Config, model: UNet, task_id: int, seen_task: int | None = None,
+             device=None) -> dict:
+    """The public eval API (``cl_tpu/train.py:1530-1549``): the mIoU of
+    ``task_id``'s val set through the host pipeline, predicting among the
+    classes seen up to ``seen_task`` (default: ``task_id``). ``model`` on
+    ``device`` (None = ``cuda``)."""
+    device = resolve_device(device)
+    eval_step = make_eval_step(cfg, model, device)
+    seen_task = task_id if seen_task is None else seen_task
+    seen_valid = task_lib.valid_class_mask(
+        cfg.data.num_classes, task_lib.seen_classes(cfg.classes_per_task, seen_task))
+    return evaluate_task(cfg, eval_step, task_id, seen_valid, device)
+
+
 def eval_result(cfg: Config, conf: torch.Tensor, task_id: int) -> dict:
     """Finish an eval: fetch the confusion matrix, reduce to mIoU."""
     conf_np = conf.cpu().numpy()
@@ -411,13 +424,24 @@ def eval_result(cfg: Config, conf: torch.Tensor, task_id: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def fisher_generator(cfg: Config, task_id: int, device=None) -> torch.Generator:
+    """The sampled Fisher's generator for the pass after ``task_id``, on
+    ``device``, seeded from ``train.seed`` and the task id (``cl_tpu`` folds
+    1000 + task_id into its state's key, ``cl_tpu/train.py:873-906``)."""
+    seed = np.random.SeedSequence([cfg.train.seed, 1000 + task_id]).generate_state(1)[0]
+    return torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
+
+
 def make_fisher_step(cfg: Config, model: UNet, device=None) -> Callable:
-    """``step(acc, batch, valid_classes) -> acc``: acc += (∂CE/∂θ)² of one
-    batch, the model in eval mode (``cl_tpu/train.py:773-819``, the
-    empirical Fisher). ``acc``: a flat f32 vector in ``flat_params`` order,
-    updated in place by the accumulation kernel (#19) under
-    ``train.use_pallas``, else by its plain version. The CE is the plain
-    ``losses.cross_entropy``, as in ``cl_tpu``."""
+    """``step(acc, batch, valid_classes, generator=None) -> acc``: acc +=
+    (∂CE/∂θ)² of one batch, the model in eval mode (``cl_tpu/train.py:773-819``).
+    The labels are the batch's (``method.ewc_fisher_kind=empirical``) or,
+    under ``true``, drawn from the model's softmax on ``generator``
+    (``fisher_generator``; ``methods.ewc.sample_fisher_labels``). ``acc``: a
+    flat f32 vector in ``flat_params`` order, updated in place by the
+    accumulation kernel (#19) under ``train.use_pallas``, else by its plain
+    version. The CE is the plain ``losses.cross_entropy``, as in
+    ``cl_tpu``."""
     device = resolve_device(device)
     check_supported(cfg, device)
     _set_precision(device)
@@ -425,13 +449,18 @@ def make_fisher_step(cfg: Config, model: UNet, device=None) -> Callable:
     compute_dtype = _dtype(cfg)
     aug_kernels = augment_kernels_on(cfg)
     accumulate = ewc_fused.sq_accumulate if cfg.train.use_pallas else ewc_fused.sq_acc_plain
+    sampled = cfg.method.ewc_fisher_kind == "true"
 
-    def step(acc, batch: pipeline.HostBatch, valid_classes):
+    def step(acc, batch: pipeline.HostBatch, valid_classes, generator=None):
+        if sampled and generator is None:
+            raise ValueError("method.ewc_fisher_kind=true: pass the pass's "
+                             "generator (train.fisher_generator)")
         x, y = augment(batch.image, batch.mask, batch.flip,
                        out_size=d.image_size, mean=d.mean, std=d.std,
                        compute_dtype=compute_dtype, use_kernels=aug_kernels)
         g = ewc_lib.fisher_batch_grads(model, x, y, valid_classes,
-                                       ignore_index=d.ignore_index)
+                                       ignore_index=d.ignore_index,
+                                       generator=generator if sampled else None)
         return accumulate(acc, g)
 
     return step
@@ -444,10 +473,14 @@ def run_fisher_pass(cfg: Config, fisher_step, model: UNet, task_id: int,
     10_000 + task_id)`` (``cl_tpu/train.py:885-911``): a flat f32 vector.
     Given ``cache`` (the task's train set on the device), the same batches
     come from the plan of that epoch, truncated to the Fisher's batches
-    (``cl_tpu/train.py:1425-1446``)."""
+    (``cl_tpu/train.py:1425-1446``). Under the sampled Fisher both paths
+    draw from one ``fisher_generator(cfg, task_id)`` in the batches'
+    order, so they draw the same labels."""
     device = resolve_device(device)
     acc = torch.zeros(ewc_lib.n_params(model), dtype=torch.float32, device=device)
     valid = torch.from_numpy(np.asarray(seen_valid, bool)).to(device)
+    gen = fisher_generator(cfg, task_id, device) \
+        if cfg.method.ewc_fisher_kind == "true" else None
     if cache is not None:
         plan = cached_exec.build_plan(
             cache.n, batch_size=cfg.data.batch_size, epoch=10_000 + task_id,
@@ -456,7 +489,7 @@ def run_fisher_pass(cfg: Config, fisher_step, model: UNet, task_id: int,
         n = min(plan.steps, cfg.method.ewc_fisher_batches)
         cstep = make_cached_fisher_step(fisher_step)
         for s in range(n):
-            acc = cstep(acc, s, cache, plan, valid)
+            acc = cstep(acc, s, cache, plan, valid, gen)
         return acc / max(n, 1)
     n = 0
     batch_it = pipeline.prefetch_to_device(
@@ -466,7 +499,7 @@ def run_fisher_pass(cfg: Config, fisher_step, model: UNet, task_id: int,
         for batch in batch_it:
             if n >= cfg.method.ewc_fisher_batches:
                 break
-            acc = fisher_step(acc, batch, valid)
+            acc = fisher_step(acc, batch, valid, gen)
             n += 1
     finally:
         batch_it.close()  # the pass usually stops early: retire the prefetch now
@@ -607,6 +640,7 @@ def _live_set_mb(model, opt, ewc, lwf, caches: dict, rep_arrays: dict,
 
 
 def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
+    from cl_tpu_torch import checkpoint as ckpt_lib
     from cl_tpu_torch.interop import load_jax_variables
 
     model = init_state(cfg, build_model(cfg), device)
@@ -641,6 +675,16 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
 
     splits = cfg.classes_per_task
     miou_matrix = np.full((T, T), np.nan)
+    # train.resume: the latest task's checkpoint loads into the objects the
+    # steps hold, and the loop goes on after it (cl_tpu/train.py:1206-1220)
+    state = ckpt_lib.TrainState(model, opt, ewc, lwf)
+    start_task = 0
+    if cfg.train.resume and cfg.train.checkpoint_dir:
+        restored = ckpt_lib.restore_latest(cfg, state, replay)
+        if restored is not None:
+            _, replay, last_task, miou_matrix = restored
+            start_task = last_task + 1
+            logger.log(event="resumed", task=last_task)
     step_times: list[tuple[float, int]] = []  # (epoch seconds, steps)
     # Eval accounting as in the JAX package: the first eval pass (first
     # use: kernel build, cuDNN set-up) and the val caches' builds are
@@ -669,7 +713,7 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
             eval_times.append((exec_s, int(r["n_images"])))
         return r
 
-    for task_id in range(T):
+    for task_id in range(start_task, T):
         seen = task_lib.seen_classes(splits, task_id)
         seen_valid = task_lib.valid_class_mask(d.num_classes, seen)
         valid_dev = torch.from_numpy(seen_valid).to(device)
@@ -729,9 +773,9 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
             ep_loss = float(np.mean(torch.stack(losses_dev).cpu().numpy())) \
                 if losses_dev else 0.0
             ep_time = time.perf_counter() - t_ep
-            # Steady state only: the run's first epoch carries the kernel
-            # build and first-use set-up.
-            if not (epoch == 0 and task_id == 0) and not first_use:
+            # Steady state only: the run's first epoch (after a resume, its
+            # first task's) carries the kernel build and first-use set-up.
+            if not (epoch == 0 and task_id == start_task) and not first_use:
                 step_times.append((ep_time, len(losses_dev)))
             logger.log(event="epoch", task=task_id, epoch=epoch,
                        loss=ep_loss, steps=len(losses_dev))
@@ -758,12 +802,17 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
                 caches.pop(key)
         logger.log(event="hbm_live_set", task=task_id,
                    **_live_set_mb(model, opt, ewc, lwf, caches, rep_arrays, device))
-
+        if cfg.train.checkpoint_dir:
+            ckpt_lib.save_task(cfg, state, replay, task_id, miou_matrix)
         logger.log(event="task_done", task=task_id,
                    seconds=time.perf_counter() - t_task)
         if cfg.train.fail_after_task == task_id:
+            # the checkpoint goes to disk before the run dies, so a resume
+            # finds this task complete
+            ckpt_lib.wait_for_saves()
             raise RuntimeError(f"fault injection: fail_after_task={task_id}")
 
+    ckpt_lib.wait_for_saves()  # the last task's checkpoint
     report = metrics.forgetting_report(miou_matrix)
     report["config_hash"] = cfg.config_hash()
     report["device"] = device_name(device)

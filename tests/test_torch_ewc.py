@@ -326,8 +326,11 @@ def test_methods_presets_run(args):
 
 
 def test_sampled_fisher_raises():
-    cfg = parse_overrides(SMOKE + ["method.ewc_fisher_kind=true"])
-    with pytest.raises(NotImplementedError, match="sampled Fisher"):
+    """The sampled Fisher (``method.ewc_fisher_kind=true``) runs since the
+    checkpoint slice; a kind that is neither raises."""
+    port_train.check_supported(parse_overrides(SMOKE + ["method.ewc_fisher_kind=true"]), CPU)
+    cfg = parse_overrides(SMOKE + ["method.ewc_fisher_kind=sampled"])
+    with pytest.raises(ValueError, match="ewc_fisher_kind"):
         port_train.check_supported(cfg, CPU)
 
 

@@ -250,14 +250,17 @@ def test_two_task_lwf_train_matches_jax(monkeypatch):
     ["preset=smoke", "method.methods=lwf", "train.fused_head_ce=false"],
     ["preset=smoke", "method.methods=lwf,replay", "train.fused_head_ce=false",
      "data.device_cache=true"],
+    # with EWC's sampled Fisher (runs since the checkpoint slice)
+    ["preset=smoke", "method.methods=ewc,lwf", "train.use_pallas=false",
+     "method.ewc_fisher_kind=true"],
 ])
 def test_lwf_routes_that_run(args):
     port_train.check_supported(parse_overrides(args), CPU)
 
 
 @pytest.mark.parametrize("args,match", [
-    (["preset=smoke", "method.methods=ewc,lwf", "train.use_pallas=false",
-      "method.ewc_fisher_kind=true"], "EWC"),                    # the sampled Fisher
+    (["preset=smoke", "method.methods=lwf", "model.padded_head=false"],
+     "padded_head"),                                             # the grow-the-head variant
 ])
 def test_lwf_routes_that_raise(args, match):
     cfg = parse_overrides(args)

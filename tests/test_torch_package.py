@@ -3,6 +3,7 @@ its entry points run on the card unless told ``device="cpu"``, configs it
 cannot run raise ``NotImplementedError``, and its config hashes equal the
 JAX package's."""
 
+import json
 import os
 import subprocess
 import sys
@@ -77,10 +78,8 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     # the data path runs since its slice (pallas_augment, device_cache,
     # synthetic_native: test_data_path_configs_run); these three do not
     "train.multihost=true",
-    # EWC runs since the methods slice; its sampled Fisher does not
-    pytest.param("method.methods=ewc method.ewc_fisher_kind=true", id="method.methods=ewc"),
-    "train.checkpoint_dir=ckpt",
-    "train.resume=true",
+    # the sampled Fisher, checkpoints and resume run since their slice
+    # (test_configs_the_checkpoint_slice_made_runnable)
     "train.spatial_parallel=true",
     "train.remat=true",
     "train.profile_dir=trace",
@@ -90,6 +89,26 @@ def test_unported_configs_raise(override):
     cfg = config.parse_overrides(["preset=smoke", *override.split()])
     with pytest.raises(NotImplementedError, match="later slice"):
         port_train.train(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    pytest.param("method.methods=ewc method.ewc_fisher_kind=true", id="method.methods=ewc"),
+    "train.checkpoint_dir=ckpt",
+    "train.resume=true",
+])
+def test_configs_the_checkpoint_slice_made_runnable(override, tmp_path, monkeypatch):
+    """The three configs refused until the checkpoint slice train on the
+    CPU: the sampled Fisher; a checkpoint after the task (here under the
+    test's directory); ``train.resume`` without a checkpoint directory
+    trains from the start, as in ``cl_tpu``."""
+    monkeypatch.chdir(tmp_path)
+    cfg = config.parse_overrides(["preset=smoke", "train.num_tasks=2", "data.num_classes=3",
+                                  *override.split()])
+    port_train.check_supported(cfg, torch.device("cpu"))
+    report = port_train.train(cfg, device="cpu")
+    assert np.isfinite(report["final_per_task_miou"]).all()
+    assert os.path.exists(tmp_path / "ckpt" / "task_1" / "meta.json") == \
+        ("checkpoint_dir" in override)
 
 
 @pytest.mark.parametrize("override", [
@@ -250,12 +269,39 @@ def test_baseline_1_as_shipped_is_supported():
     assert not port_train.fused_head_on(config.get_preset("baseline_2"))
 
 
-def test_cli_modes_beyond_train_raise():
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """A 2-task smoke run through ``cli.main`` on the CPU, with its
+    checkpoints and its JSONL log."""
     from cl_tpu_torch import cli
 
-    for mode in ("eval", "predict", "plot"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            cli.main([mode, "preset=smoke"])
+    root = tmp_path_factory.mktemp("cli")
+    args = ["preset=smoke", "train.num_tasks=2", "data.num_classes=3",
+            f"train.checkpoint_dir={root / 'ckpt'}", f"train.log_path={root / 'run.jsonl'}"]
+    assert cli.main(args, device="cpu") == 0
+    return root, args
+
+
+@pytest.mark.parametrize("mode", ["eval", "predict", "plot"])
+def test_cli_modes_beyond_train_run(cli_run, mode, capsys):
+    """Each mode runs from the train run's checkpoint or log on the CPU and
+    prints one JSON line, as ``cl_tpu.cli``'s does."""
+    from cl_tpu_torch import cli
+
+    root, args = cli_run
+    capsys.readouterr()
+    assert cli.main([mode, *args], device="cpu") == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    if mode == "eval":
+        assert out["task"] == 1 and len(out["per_task_miou"]) == 2
+        assert np.isfinite(out["per_task_miou"]).all()
+    elif mode == "predict":
+        masks = np.load(out["out"])
+        assert out["out"] == str(root / "ckpt" / "predictions" / "task1_val_masks.npy")
+        assert masks.shape == (4, 32, 32) and masks.dtype == np.uint8 and masks.max() <= 2
+    else:
+        assert [os.path.basename(p) for p in out["written"]] == [
+            "loss_curves.png", "miou_heatmap.png", "forgetting_curves.png"]
 
 
 def test_conv_act_store_int8_trains(monkeypatch):
