@@ -176,6 +176,31 @@ Phases (any failure raises, so the exit code is non-zero):
    under sync debug mode "error", #19 once per Fisher batch, a finite
    Fisher; the draw at 8 x 512² x 21 f32: no masked class, 255 kept, one
    seed equal twice, χ² of 2¹⁶ draws at four pixels, p > 1e-3;
+5m. baseline_5 as it ships through ``train()`` (``train.remat=true``,
+   64 + 8 images a step, 5 tasks of 256 + 64 images, 2 epochs, the device
+   cache and the device replay buffer; ``train.data_parallel=true`` on one
+   card runs one process): images/s per card, the mIoU matrix and
+   forgetting, the methods kernels launched as counted; then one methods
+   step at 64 + 8 images with remat on and off, the peak of each (remat's
+   must be lower);
+5x. per-level rematerialization on the headline step (phase 5h's
+   config): ``train.remat=true`` against ``false``, 3 Adam steps each from
+   the seeded init: the losses and all 292 leaves (params, BN statistics,
+   Adam's moments and step) bit-equal, the peak over the steps lower, the
+   launches those of 5h plus one more #32 a packed conv and #25 a decoder
+   level a step (the recompute); in f32 with SGD the leaves within twice
+   the largest gap among three ``remat=false`` runs (f32 does not repeat,
+   5r-a);
+5w. data parallelism on the one card (``cl_tpu_torch.dp_cards``): two
+   ranks, separate processes on ``cuda:0`` over gloo, one SGD step of the
+   headline config (global batch 8, bf16 and f32) and of the baseline_5
+   cut (16 + 2, task 0's hooks first) against the one-process step on the
+   same global batch: the loss, CE, KD and penalty within rtol 1e-5, the
+   two ranks' leaves bit-equal, each rank's launches (hooks and step) equal
+   to one process's, each update within 1e-2 of its norm plus one ulp, or
+   (bf16) twice the gap of the one-process step with the batch's halves
+   swapped where that is larger, f32 within 1e-2; then one NCCL group of
+   one rank takes the headline step;
 5d. the data path (the native rasterizer, the device-resident dataset,
    plan-driven epochs): baseline_2 and baseline_3 as they ship and
    baseline_4 as it ships with ``train.pallas_augment=true`` through
@@ -2620,27 +2645,16 @@ def saved_set_mib(cfg, device):
 # ---------------------------------------------------------------------------
 
 
-def _count_dicts():
-    from cl_tpu_torch.kernels import (augment, ce_loss, conv3x3, conv3x3_g2, ewc_fused, head_ce,
-                                      kd_loss, packed_eltwise, pool_pack, replay_gather,
-                                      upconv_pack)
-
-    return (head_ce.LAUNCHES, ce_loss.LAUNCHES, kd_loss.LAUNCHES, conv3x3.LAUNCHES,
-            conv3x3_g2.LAUNCHES, packed_eltwise.LAUNCHES, pool_pack.LAUNCHES,
-            upconv_pack.LAUNCHES, ewc_fused.LAUNCHES, replay_gather.LAUNCHES, augment.LAUNCHES)
-
-
 def reset_counts():
-    for d in _count_dicts():
-        for k in d:
-            d[k] = 0
+    from cl_tpu_torch.kernels import reset_launches
+
+    reset_launches()
 
 
 def read_counts() -> dict:
-    out = {}
-    for d in _count_dicts():
-        out.update(d)
-    return out
+    from cl_tpu_torch.kernels import read_launches
+
+    return read_launches()
 
 
 def build_step(cfg, device, seed_batch=0, keep=None):
@@ -2925,6 +2939,7 @@ def methods_train(label, args, device=None):
          f"finite mIoU and forgetting ({label})")
     for k, n in want.items():
         need(counts[k] == n, f"{k} launches == {n} in the train() of {label}")
+    return report
 
 
 def lwf_card_vs_cpu(args):
@@ -3786,6 +3801,151 @@ def phase_5r(cfg_h, b5_args, small):
     print(f"  phase 5r: {time.perf_counter() - t_r:.1f} s")
 
 
+def remat_run(cfg, device, n_steps=3):
+    """``n_steps`` of ``cfg``'s step on one prebuilt batch from the seeded
+    init: (losses, launch counts, peak MiB over the steps, every state
+    leaf)."""
+    import torch
+
+    model, opt, step, batch, valid = build_step(cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = [step(batch, valid)["loss"] for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    leaves = state_leaves(model, opt)
+    del model, opt, step
+    return [v.item() for v in losses], counts, peak, leaves
+
+
+def phase_5x(cfg_h, headline_step):
+    """Phase 5x: per-level rematerialization (``train.remat``) on the
+    headline step: bit-equal to ``remat=false`` in bf16 after 3 steps with
+    a lower peak and the recomputed forwards counted; in f32 (SGD) within
+    twice the largest gap among three ``remat=false`` runs (f32 does not
+    repeat, 5r-a)."""
+    import torch
+
+    cuda = torch.device("cuda")
+    print("[5x] per-level rematerialization (train.remat) on the headline step")
+    t_x = time.perf_counter()
+    on = dataclasses.replace(cfg_h, train=dataclasses.replace(cfg_h.train, remat=True))
+    loss0, counts0, peak0, leaves0 = remat_run(cfg_h, cuda)
+    loss1, counts1, peak1, leaves1 = remat_run(on, cuda)
+    gaps = leaf_gaps(leaves0, leaves1)
+    differ = [k for k, v in gaps.items() if v != 0]
+    print(f"  bf16, 3 steps: losses remat=false {loss0}, remat=true {loss1}; {len(gaps)} leaves "
+          f"(params, BN statistics, Adam's moments and step), {len(differ)} differ {differ[:8]}")
+    print(f"  peak MiB over the steps: remat=false {peak0:.0f}, remat=true {peak1:.0f} "
+          f"({peak1 / peak0:.4f})")
+    need(loss0 == loss1 and not differ, "remat=true is bit-equal to remat=false (bf16)")
+    need(peak1 < peak0, "remat lowers the peak")
+    # per step: the headline step's launches, and the rematerialized levels'
+    # forward kernels once more (#32 in every packed conv, #25 in each
+    # decoder level's split conv); the pool, bn_relu, up-conv and head run
+    # outside the levels
+    want = dict(headline_step)
+    for k in ("conv3x3_bn_fwd", "add_stats_fwd"):
+        want[k] += PER_FORWARD[k]
+    print(f"  launches under remat: {counts1}")
+    for k, n in want.items():
+        need(counts0[k] == 3 * headline_step[k], f"{k} launches == 3 x {headline_step[k]}")
+        need(counts1[k] == 3 * n, f"{k} launches == 3 x {n} under remat")
+    # f32 with SGD: the card's f32 step does not repeat (5r-a), and Adam's
+    # first steps turn a gradient's noise into a step of ±lr, so the gaps
+    # are read on SGD's updates, which follow the gradients' own noise
+    cfg_f = dataclasses.replace(cfg_h, train=dataclasses.replace(
+        cfg_h.train, compute_dtype="float32", optimizer="sgd", lr=0.05))
+    on_f = dataclasses.replace(cfg_f, train=dataclasses.replace(cfg_f.train, remat=True))
+    off = [remat_run(cfg_f, cuda) for _ in range(3)]
+    _, _, fpeak_c, fc = remat_run(on_f, cuda)
+    ref = max(max(leaf_gaps(off[i][3], off[j][3]).values())
+              for i, j in ((0, 1), (0, 2), (1, 2)))
+    got = max(max(leaf_gaps(o[3], fc).values()) for o in off)
+    print(f"  f32 with SGD, 3 steps: largest leaf gap among three remat=false runs {ref:.3e}, "
+          f"remat=true against them {got:.3e}; peak MiB {off[0][2]:.0f} / {fpeak_c:.0f}")
+    need(got <= 2 * ref, "f32 remat within twice the gap among remat=false runs")
+    print(f"  phase 5x: {time.perf_counter() - t_x:.1f} s")
+
+
+def phase_5w():
+    """Phase 5w: data parallelism on the one card (``cl_tpu_torch.dp_cards``).
+    Two ranks, separate processes on ``cuda:0`` in a gloo group (NCCL
+    refuses two ranks on one card), take one SGD step of the headline
+    config on a global batch of 8 (bf16, and f32), and of the baseline_5 cut
+    on 16 + 2, each against the one-process step on the same global batch
+    (``dp_cards.check``: the loss within rtol 1e-5, replicas bit-equal, a
+    rank's launches equal one process's, each update within 1e-2 of its
+    norm plus one ulp or twice the gap of the same step with the batch's
+    halves swapped, where larger); then one NCCL group of one rank takes the
+    headline step, so NCCL's set-up and collectives run on the card."""
+    import tempfile
+
+    from cl_tpu_torch import dp_cards, sharding
+
+    print("[5w] data parallelism on the one card: two ranks over gloo, one NCCL rank")
+    t_w = time.perf_counter()
+    head = dp_cards.HEADLINE + dp_cards.SGD
+    store = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    for i, (label, args) in enumerate((
+            ("headline, global batch 8", head),
+            ("headline in f32, global batch 8", head + ["train.compute_dtype=float32"]),
+            ("baseline_5 cut, global batch 16 + 2",
+             dp_cards.B5_CUT + dp_cards.SGD + ["method.replay_batch=2"]))):
+        res = dp_cards.check(label, args, world=2, backend="gloo",
+                             init_method=f"file://{store}/store{i}", devices=["cuda:0"] * 2)
+        if "f32" in label:
+            need(res["worst"] <= 1e-2, "f32 DP updates within 1e-2 of their norms")
+    dp_cards.check("headline, global batch 8", head, world=1, backend="nccl",
+                   init_method=f"tcp://localhost:{sharding.free_port()}", devices=["cuda:0"])
+    print(f"  phase 5w: {time.perf_counter() - t_w:.1f} s")
+
+
+def baseline_5_as_it_ships():
+    """``preset=baseline_5`` with nothing changed through ``train()`` on the
+    one card (remat on, 64 + 8 images a step, 5 tasks of 256 + 64 images,
+    2 epochs, the device cache and the device replay buffer), then its
+    methods step with remat on and off: the peak of one step from the
+    built state, and images/s of 3 more."""
+    import torch
+
+    from cl_tpu_torch.config import parse_overrides
+
+    cuda = torch.device("cuda")
+    t_b = time.perf_counter()
+    report = methods_train("baseline_5 as it ships", ["preset=baseline_5"])
+    print(f"  baseline_5 as it ships: {report.get('images_per_sec_per_chip')} images/s per "
+          f"card, eval {report.get('eval_images_per_sec_per_chip')} images/s, mean "
+          f"forgetting {report.get('mean_forgetting')}, final per-task mIoU "
+          f"{report.get('final_per_task_miou')}; {time.perf_counter() - t_b:.1f} s")
+    peaks, ips = {}, {}
+    for remat in (True, False):
+        cfg = parse_overrides(["preset=baseline_5", f"train.remat={str(remat).lower()}"])
+        model, opt, step, batch, valid = build_step(cfg, cuda)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = step(batch, valid)["loss"].item()
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 20
+        need(np.isfinite(loss), f"finite loss (baseline_5, remat={remat})")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(batch, valid)
+        torch.cuda.synchronize()
+        ips[remat] = 3 * (cfg.data.batch_size + cfg.method.replay_batch) / (
+            time.perf_counter() - t0)
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+    print(f"  the methods step at 64 + 8 images: peak of one step {peaks[True]:.0f} MiB with "
+          f"remat, {peaks[False]:.0f} MiB without ({peaks[True] / peaks[False]:.4f}); "
+          f"images/s of 3 steps {ips[True]:.2f} with, {ips[False]:.2f} without "
+          f"({ips[True] / ips[False]:.4f})")
+    need(peaks[True] < peaks[False], "remat lowers baseline_5's peak")
+    return report, peaks
+
+
 def main() -> int:
     import torch
 
@@ -4285,6 +4445,12 @@ def main() -> int:
     methods_train("baseline_3, 16 + 8 images a task", ["preset=baseline_3"] + small)
 
     phase_5r(cfg_h, b5_train, small)
+    # baseline_5 as it ships: remat on, 64 + 8 images a step, the whole run
+    print("[5m] baseline_5 as it ships through train() (train.remat=true, 64 + 8 images a "
+          "step; train.data_parallel=true on one card: one process)")
+    report_b5, peaks_b5 = baseline_5_as_it_ships()
+    phase_5x(cfg_h, headline_step)
+    phase_5w()
 
     print("[5d] the data path: baselines 2, 3 and 4 as they ship through train() (the "
           "native rasterizer, the device-resident dataset, plan-driven epochs)")

@@ -23,6 +23,13 @@ modes as ``python -m cl_tpu.cli``:
 
 Each mode's function takes ``device`` (None = the card); the command line
 never sets it.
+
+Data parallelism (``train.data_parallel``, as in ``preset=baseline_5``):
+``train`` spreads over every visible card by itself (one spawned worker
+per card, rank 0's report printed), or one process per card under
+``torchrun --nproc_per_node=N -m cl_tpu_torch.cli ...``, each process
+joining the group the environment names; ``eval`` shards the val batches
+over that group. ``predict`` and ``plot`` run in one process.
 """
 
 from __future__ import annotations
@@ -102,7 +109,23 @@ def main(argv: list[str] | None = None, device=None) -> int:
     mode = "train"
     if argv and argv[0] in MODES:
         mode, argv = argv[0], argv[1:]
-    print(json.dumps(MODES[mode](parse_overrides(argv), device), default=float))
+    cfg = parse_overrides(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if mode in ("predict", "plot"):
+            raise SystemExit(f"{mode} runs in one process: launch it without torchrun")
+        from cl_tpu_torch import sharding
+        from cl_tpu_torch.devices import resolve_device
+
+        # join the group first: the card of this process is LOCAL_RANK's
+        dp = sharding.join(cfg, resolve_device(device))
+        try:
+            out = MODES[mode](cfg, device)
+        finally:
+            sharding.leave()
+        if dp is None or dp.rank == 0:
+            print(json.dumps(out, default=float))
+        return 0
+    print(json.dumps(MODES[mode](cfg, device), default=float))
     return 0
 
 

@@ -29,3 +29,29 @@ def one_wave_splits(n_units, channel_tiles, blocks_per_sm):
     splits = max(1, SM_COUNT * blocks_per_sm // channel_tiles)
     rounds = -(-n_units // splits)
     return max(1, -(-n_units // rounds))
+
+
+def _launch_counters():
+    from cl_tpu_torch.kernels import (augment, ce_loss, conv3x3, conv3x3_g2, ewc_fused, head_ce,
+                                      kd_loss, packed_eltwise, pool_pack, replay_gather,
+                                      upconv_pack)
+
+    return (head_ce.LAUNCHES, ce_loss.LAUNCHES, kd_loss.LAUNCHES, conv3x3.LAUNCHES,
+            conv3x3_g2.LAUNCHES, packed_eltwise.LAUNCHES, pool_pack.LAUNCHES,
+            upconv_pack.LAUNCHES, ewc_fused.LAUNCHES, replay_gather.LAUNCHES, augment.LAUNCHES)
+
+
+def reset_launches() -> None:
+    """Every wrapper's launch count to 0 (each wrapper adds one where it
+    launches its kernel)."""
+    for d in _launch_counters():
+        for k in d:
+            d[k] = 0
+
+
+def read_launches() -> dict:
+    """Every wrapper's launch count, by kernel key."""
+    out = {}
+    for d in _launch_counters():
+        out.update(d)
+    return out

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from cl_tpu_torch.kernels import build
 from cl_tpu_torch.losses import NEG_INF
+from cl_tpu_torch.sharding import pixel_count
 
 MAX_CLASSES = 32
 # Most blocks a launch uses, fixed so the sums run in the same order on
@@ -130,16 +131,18 @@ class _CETotal(torch.autograd.Function):
         return dz, None, None, None
 
 
-def cross_entropy(logits, labels, valid_classes, *, ignore_index=255):
+def cross_entropy(logits, labels, valid_classes, *, ignore_index=255, dp=None):
     """Kernel variant of ``cl_tpu_torch.losses.cross_entropy``: (mean NLL over
     non-ignored pixels, n_valid_pixels). ``logits`` [B, H, W, C] in f32 or
-    bf16 (kept in its dtype: the kernel upcasts in registers)."""
+    bf16 (kept in its dtype: the kernel upcasts in registers). With ``dp``
+    (``cl_tpu``'s ``cross_entropy_sharded``) n is the global batch's and
+    the mean is this rank's share: its own total over that n."""
     C = logits.shape[-1]
     z = logits.reshape(-1, C)
     if not z.is_contiguous():
         z = z.contiguous()
     lbl = labels.reshape(-1).to(torch.int32)
     valid = valid_classes.to(device=z.device, dtype=torch.float32)
-    n = (labels != ignore_index).sum().float().clamp_min(1.0)
+    n = pixel_count(labels, ignore_index, dp)
     total = _CETotal.apply(z, lbl, valid, int(ignore_index))
     return total / n, n

@@ -22,6 +22,12 @@ back from one to the other. ``LAUNCHES`` counts the kernel launches. The
 bf16 forward and backward of the packed head (#7, #8) run
 ``csrc/head_ce_bn_mma.cuh`` on the tensor cores over persistent grids the
 wrapper picks from the shapes (``bn_fwd_blocks``, ``bn_bwd_blocks``).
+
+Each entry's ``dp`` (a ``sharding.DataParallel``) gives its sharded form,
+``cl_tpu``'s ``*_sharded``: the rank's kernel sums its own pixels and the
+count n is the global batch's, so the returned means are the rank's
+shares, its totals over the global n; the group's shares sum to the
+global means, and so do their gradients.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from cl_tpu_torch.kernels import (SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK, build,
                                   one_wave_splits, resident_blocks)
 from cl_tpu_torch.kernels.packed_eltwise import bn_relu_bwd_plain, bn_relu_plain
 from cl_tpu_torch.losses import NEG_INF
+from cl_tpu_torch.sharding import pixel_count
 
 MAX_CLASSES = 32
 MAX_CIN = 64
@@ -297,12 +304,12 @@ def _rows(features):
     return x if x.is_contiguous() else x.contiguous()
 
 
-def _n_pix(labels, ignore_index):
-    return (labels != ignore_index).sum().float().clamp_min(1.0)
+def _n_pix(labels, ignore_index, dp=None):
+    return pixel_count(labels, ignore_index, dp)
 
 
 def head_cross_entropy(features, head_kernel, head_bias, labels,
-                       valid_classes, *, ignore_index=255):
+                       valid_classes, *, ignore_index=255, dp=None):
     """Fused head+CE: (mean NLL over non-ignored pixels, n_valid_pixels).
 
     ``features`` are the pre-head activations [B, H, W, Cin] in the compute
@@ -313,7 +320,7 @@ def head_cross_entropy(features, head_kernel, head_bias, labels,
     w, b = _head_args(head_kernel, head_bias, x.shape[1], valid_classes.shape[0])
     lbl = labels.reshape(-1).to(torch.int32)
     valid = valid_classes.to(device=x.device, dtype=torch.float32)
-    n = _n_pix(labels, ignore_index)
+    n = _n_pix(labels, ignore_index, dp)
     total = _HeadCETotal.apply(x, w, b, lbl, valid, int(ignore_index))
     return total / n, n
 
@@ -592,7 +599,7 @@ class _HeadCEKdTotal(torch.autograd.Function):
 
 def head_cross_entropy_kd(features, head_kernel, head_bias, tfeatures, t_kernel, t_bias,
                           labels, valid_classes, old_valid, *, temperature,
-                          ignore_index=255):
+                          ignore_index=255, dp=None):
     """Fused head + CE + LwF-KD on plain NHWC features: (ce_mean, kd_mean,
     n). ``features`` and ``tfeatures`` (the frozen teacher's) [B, H, W,
     Cin] in the compute dtype; the heads as ``head_cross_entropy`` takes
@@ -606,7 +613,7 @@ def head_cross_entropy_kd(features, head_kernel, head_bias, tfeatures, t_kernel,
     lbl = labels.reshape(-1).to(torch.int32)
     valid = valid_classes.to(device=x.device, dtype=torch.float32)
     ov = old_valid.to(device=x.device, dtype=torch.float32)
-    n = _n_pix(labels, ignore_index)
+    n = _n_pix(labels, ignore_index, dp)
     ce_t, kd_t = _HeadCEKdTotal.apply(x, w, b, xt, tw.detach(), tb.detach(), lbl, valid, ov,
                                       float(temperature), int(ignore_index))
     return ce_t / n, kd_t / n, n
@@ -637,7 +644,7 @@ class _HeadCEPkTotal(torch.autograd.Function):
 
 
 def head_cross_entropy_packed(features, head_kernel, head_bias, labels, valid_classes, *,
-                              p=None, ignore_index=255):
+                              p=None, ignore_index=255, dp=None):
     """``cl_tpu.pallas.head_ce.head_cross_entropy_packed``: the fused
     head+CE on the packed body's features, (mean NLL over non-ignored
     pixels, n_valid_pixels), the head zero-padded to C. ``features`` are
@@ -652,7 +659,7 @@ def head_cross_entropy_packed(features, head_kernel, head_bias, labels, valid_cl
     w, b = _head_args(head_kernel, head_bias, x.shape[1], valid_classes.shape[0])
     lbl = labels.reshape(-1).to(torch.int32)
     valid = valid_classes.to(device=x.device, dtype=torch.float32)
-    n = _n_pix(labels, ignore_index)
+    n = _n_pix(labels, ignore_index, dp)
     total = _HeadCEPkTotal.apply(x, w, b, lbl, valid, int(ignore_index))
     return total / n, n
 
@@ -715,7 +722,7 @@ class _HeadCEKdBnTotal(torch.autograd.Function):
 
 
 def head_cross_entropy_packed_bn(raw, scale, shift, head_kernel, head_bias,
-                                 labels, valid_classes, *, ignore_index=255):
+                                 labels, valid_classes, *, ignore_index=255, dp=None):
     """Fused BN·ReLU + head + CE on the packed body's raw last-level output
     ``raw`` [B, H, W, Cin] (compute dtype) with its deferred per-channel
     ``scale``/``shift`` (f32 [Cin]): (mean NLL, n_valid_pixels), equal to
@@ -725,7 +732,7 @@ def head_cross_entropy_packed_bn(raw, scale, shift, head_kernel, head_bias,
     w, b = _head_args(head_kernel, head_bias, y.shape[1], valid_classes.shape[0])
     lbl = labels.reshape(-1).to(torch.int32)
     valid = valid_classes.to(device=y.device, dtype=torch.float32)
-    n = _n_pix(labels, ignore_index)
+    n = _n_pix(labels, ignore_index, dp)
     total = _HeadCEBnTotal.apply(y, scale.contiguous(), shift.contiguous(), w, b,
                                  lbl, valid, int(ignore_index))
     return total / n, n
@@ -734,7 +741,7 @@ def head_cross_entropy_packed_bn(raw, scale, shift, head_kernel, head_bias,
 def head_cross_entropy_kd_packed_bn(raw, scale, shift, head_kernel, head_bias,
                                     traw, tscale, tshift, t_kernel, t_bias, labels,
                                     valid_classes, old_valid, *, temperature,
-                                    ignore_index=255):
+                                    ignore_index=255, dp=None):
     """Fused BN·ReLU + head + CE + LwF-KD on the student's and the teacher's
     packed raw outputs, each with its own deferred scale/shift: (ce_mean,
     kd_mean, n). ``kd_mean`` equals ``losses.kd_loss`` of the two
@@ -747,7 +754,7 @@ def head_cross_entropy_kd_packed_bn(raw, scale, shift, head_kernel, head_bias,
     lbl = labels.reshape(-1).to(torch.int32)
     valid = valid_classes.to(device=y.device, dtype=torch.float32)
     ov = old_valid.to(device=y.device, dtype=torch.float32)
-    n = _n_pix(labels, ignore_index)
+    n = _n_pix(labels, ignore_index, dp)
     ce_t, kd_t = _HeadCEKdBnTotal.apply(
         y, scale.contiguous(), shift.contiguous(), w, b, yt, tscale.contiguous(),
         tshift.contiguous(), tw.detach(), tb.detach(), lbl, valid, ov,

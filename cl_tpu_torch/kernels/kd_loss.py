@@ -24,6 +24,7 @@ import torch
 
 from cl_tpu_torch.kernels import build
 from cl_tpu_torch.losses import NEG_INF
+from cl_tpu_torch.sharding import pixel_count
 
 MAX_CLASSES = 32
 # Most blocks a launch uses, fixed so the sums run in the same order on
@@ -157,18 +158,21 @@ def _rows(logits):
     return z if z.is_contiguous() else z.contiguous()
 
 
-def kd_loss(new_logits, old_logits, old_valid, labels, *, temperature, ignore_index=255):
+def kd_loss(new_logits, old_logits, old_valid, labels, *, temperature, ignore_index=255,
+            dp=None):
     """T²·KL(softmax(old/T) ‖ softmax(new/T)) averaged over non-ignored
     pixels, over the classes ``old_valid`` (bool [C]) marks: the kernel
     variant of ``losses.kd_loss`` (``cl_tpu.pallas.kd_loss.kd_loss``).
     ``new_logits`` and ``old_logits`` [B, H, W, C] of one dtype, f32 or
     bf16 (kept in it: the kernels upcast in registers); the gradient of
-    ``new_logits`` comes back in its dtype, the teacher's is none."""
+    ``new_logits`` comes back in its dtype, the teacher's is none. With
+    ``dp`` (``cl_tpu``'s ``kd_loss_sharded``) the mean is this rank's
+    share: its own total over the global pixel count."""
     t = float(temperature)
     new = _rows(new_logits)
     old = _rows(old_logits.detach())
     lbl = labels.reshape(-1).to(torch.int32)
     ov = old_valid.to(device=new.device, dtype=torch.float32)
-    n = (labels != ignore_index).sum().float().clamp_min(1.0)
+    n = pixel_count(labels, ignore_index, dp)
     total = _KdTotal.apply(new, old, ov, lbl, t, int(ignore_index))
     return t * t * total / n

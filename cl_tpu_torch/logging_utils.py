@@ -56,3 +56,14 @@ class EventLogger:
             self._fh.close()
         if self._tb is not None:
             self._tb.flush()
+
+
+class NullLogger:
+    """The logger of a data-parallel rank other than 0: rank 0 logs the
+    run."""
+
+    def log(self, **event) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from cl_tpu_torch.sharding import pixel_count
+
 NEG_INF = -1e9
 
 
@@ -26,15 +28,18 @@ def cross_entropy(
     valid_classes: torch.Tensor,  # bool [C]
     *,
     ignore_index: int = 255,
+    dp=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mean masked softmax-CE. Returns (loss scalar f32, n_valid_pixels f32)."""
+    """Mean masked softmax-CE. Returns (loss scalar f32, n_valid_pixels f32).
+    With ``dp`` (a ``sharding.DataParallel``) n is the global batch's and
+    the loss is this rank's share of the global mean."""
     logits = mask_logits(logits.float(), valid_classes)
     mask = labels != ignore_index
     safe_labels = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, safe_labels[..., None]).squeeze(-1)
     pixel_nll = (logz - picked) * mask
-    n = mask.sum().float().clamp_min(1.0)
+    n = pixel_count(labels, ignore_index, dp)
     return pixel_nll.sum() / n, n
 
 
@@ -58,10 +63,12 @@ def kd_loss(
     *,
     temperature: float,
     ignore_index: int = 255,
+    dp=None,
 ) -> torch.Tensor:
     """LwF distillation on materialized logits, averaged over non-ignored
-    pixels (``kd_loss_jnp``); α and the LwF weight are the caller's."""
+    pixels (``kd_loss_jnp``); α and the LwF weight are the caller's. With
+    ``dp``, this rank's share of the global mean."""
     mask = labels != ignore_index
-    n = mask.sum().float().clamp_min(1.0)
+    n = pixel_count(labels, ignore_index, dp)
     return kd_sum(new_logits, old_logits, old_valid, mask,
                   temperature=temperature) / n

@@ -80,7 +80,8 @@ def penalty(theta: torch.Tensor, state: EWCState, *, mode: str) -> torch.Tensor:
 
 @torch.no_grad()
 def sample_fisher_labels(logits: torch.Tensor, y: torch.Tensor, valid_classes: torch.Tensor,
-                         generator: torch.Generator, *, ignore_index: int = 255) -> torch.Tensor:
+                         generator: torch.Generator, *, ignore_index: int = 255,
+                         dp=None) -> torch.Tensor:
     """The sampled Fisher's labels (``kind="true"``, ``cl_tpu/methods/ewc.py:
     103-108``): one class a pixel drawn from softmax(mask_logits(logits)),
     the ignore label kept where ``y`` has it. ``cl_tpu`` draws with
@@ -88,9 +89,16 @@ def sample_fisher_labels(logits: torch.Tensor, y: torch.Tensor, valid_classes: t
     the masked f32 logits minus log(−log U), U from ``torch.rand`` on
     ``generator`` (on the logits' device: no host wait). A masked class
     (−1e9) is never drawn: −log(−log U) lies within [−4.5, 16.7] for U in
-    [2⁻¹²⁶, 1 − 2⁻²⁴]. Returns labels of ``y``'s dtype."""
+    [2⁻¹²⁶, 1 − 2⁻²⁴]. Returns labels of ``y``'s dtype. With ``dp`` (a
+    ``sharding.DataParallel``; ``logits`` this rank's rows) U is drawn
+    over the GLOBAL batch, as one process draws it, and the rank takes its
+    rows of that draw."""
     z = losses.mask_logits(logits.float(), valid_classes)
-    u = torch.rand(z.shape, generator=generator, dtype=torch.float32, device=z.device)
+    if dp is None:
+        u = torch.rand(z.shape, generator=generator, dtype=torch.float32, device=z.device)
+    else:
+        u = torch.rand((z.shape[0] * dp.world,) + z.shape[1:], generator=generator,
+                       dtype=torch.float32, device=z.device)[dp.rows(z.shape[0] * dp.world)]
     gumbel = -torch.log(-torch.log(u.clamp_min_(torch.finfo(torch.float32).tiny)))
     sampled = torch.argmax(z + gumbel, dim=-1)
     return torch.where(y == ignore_index, y, sampled.to(y.dtype))
@@ -98,7 +106,7 @@ def sample_fisher_labels(logits: torch.Tensor, y: torch.Tensor, valid_classes: t
 
 def fisher_batch_grads(model: torch.nn.Module, x, y, valid_classes, *,
                        ignore_index: int = 255,
-                       generator: torch.Generator | None = None) -> torch.Tensor:
+                       generator: torch.Generator | None = None, dp=None) -> torch.Tensor:
     """The Fisher's raw gradient of one batch (``cl_tpu/methods/ewc.py:74-115``
     with ``square=False``): ∂CE/∂θ, the model in eval mode (running
     statistics, which do not move), as one flat f32 vector in
@@ -107,15 +115,19 @@ def fisher_batch_grads(model: torch.nn.Module, x, y, valid_classes, *,
     forward's logits (the sampled Fisher: ``cl_tpu`` runs the forward
     twice, once to draw and once under ``jax.grad``, on the same params and
     input). The gradients come from ``torch.autograd.grad``: no param's
-    ``.grad`` changes."""
+    ``.grad`` changes. With ``dp`` (``x``, ``y`` this rank's rows) it is
+    the gradient of the global batch's mean CE (``cl_tpu`` under a mesh):
+    each rank's share, summed over the group, which the caller squares."""
     model.eval()
     params = list(model.parameters())
     logits = model(x)
     if generator is not None:
-        y = sample_fisher_labels(logits, y, valid_classes, generator, ignore_index=ignore_index)
-    ce, _ = losses.cross_entropy(logits, y, valid_classes, ignore_index=ignore_index)
+        y = sample_fisher_labels(logits, y, valid_classes, generator, ignore_index=ignore_index,
+                                 dp=dp)
+    ce, _ = losses.cross_entropy(logits, y, valid_classes, ignore_index=ignore_index, dp=dp)
     grads = torch.autograd.grad(ce, params)
-    return torch.cat([g.reshape(-1).float() for g in grads])
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    return flat if dp is None else dp.all_reduce_(flat)
 
 
 @torch.no_grad()

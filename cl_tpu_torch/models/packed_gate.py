@@ -267,7 +267,7 @@ def level_pack(h: int, w: int, c_in: int, features: int, conv_impl: str) -> int:
 
 
 def double_conv_route(h: int, w: int, c_in: int, features: int, conv_impl: str,
-                      norm: str) -> tuple[str, str]:
+                      norm: str, level: bool = True) -> tuple[str, str]:
     """Each conv's route in a standard-body DoubleConv (``unet.py:102-130,
     :314-349``): ``"packed"`` (the level through the gen-3 conv with
     PackedBatchNorm), ``"v3"`` (the conv alone through it), ``"g2"`` (the
@@ -275,12 +275,14 @@ def double_conv_route(h: int, w: int, c_in: int, features: int, conv_impl: str,
     ``g2_supported``), ``"hybrid"`` (cuDNN forward and dx, the gen-2 dW
     where ``g2_supported``, else cuDNN's: every conv under
     ``conv_impl=hybrid``, the stem included), ``"xla"`` (cuDNN). Cached
-    per shape (and budget): the model asks at every forward."""
-    return _double_conv_route(h, w, c_in, features, conv_impl, norm, CONV_VMEM_BUDGET)
+    per shape (and budget): the model asks at every forward. ``level``
+    False leaves the packed level out (``cl_tpu``'s DoubleConv under
+    ``dp_axis``): each conv takes its own route."""
+    return _double_conv_route(h, w, c_in, features, conv_impl, norm, level, CONV_VMEM_BUDGET)
 
 
 @functools.lru_cache(maxsize=None)
-def _double_conv_route(h, w, c_in, features, conv_impl, norm, budget):
+def _double_conv_route(h, w, c_in, features, conv_impl, norm, level, budget):
     if conv_impl == "hybrid":
         return "hybrid", "hybrid"
     if conv_impl == "pallas":
@@ -288,7 +290,7 @@ def _double_conv_route(h, w, c_in, features, conv_impl, norm, budget):
                      for ci in (c_in, features))
     if conv_impl not in ("v3", "auto"):
         return "xla", "xla"
-    if norm == "batch" and level_pack(h, w, c_in, features, conv_impl):
+    if level and norm == "batch" and level_pack(h, w, c_in, features, conv_impl):
         return "packed", "packed"
     ok = profitable if conv_impl == "auto" else conv_supported
     return tuple("v3" if ok(h, w, ci, features) else "xla" for ci in (c_in, features))

@@ -55,6 +55,28 @@ body's deep region stays on cuDNN, as ``cl_tpu`` hard-codes there.
 bias added after the product's rounding) over the same ``up{l}`` weights;
 the packed body keeps its own up-convs, as ``cl_tpu`` does.
 
+``remat`` (``train.remat``) is ``cl_tpu``'s per-level rematerialization
+(``nn.remat`` on each ``PackedLevel`` and ``DoubleConv``): each level's
+``packed_plain`` / ``packed_split`` and each standard ``DoubleConv`` runs
+under ``torch.utils.checkpoint`` (``remat``), so only the levels'
+inputs and outputs stay resident and the backward runs each level's
+forward again; the pool tee, the up-convs and the head stay outside, as
+in ``cl_tpu``. The recompute gives the same bits and must not move the
+running statistics a second time (flax's ``nn.remat`` does not): every
+running update is skipped while ``recomputing()``.
+
+Under data parallelism (``set_data_parallel``: ``cl_tpu``'s ``dp_axis``)
+every BatchNorm takes its statistics over the global batch: the deferred
+BN's sums s1, s2 and its count n (``DeferredBatchNorm``'s psum), the
+standard BatchNorm's E[x] and E[x²] with flax's arithmetic (a pmean of
+both, var = max(0, E[x²] − E[x]²)), and ``packed_batch_norm``'s sums,
+each through an all-reduce whose backward all-reduces the cotangent
+(``sharding.all_reduce_sum``; ``_BnReluTrain``'s backward sums its folded
+statistics over the group itself). The running statistics come from the
+global ones, so they stay equal on every rank. With ``model.packed_unet``
+the gen-3 packed-level route is off under DP, as ``cl_tpu``'s
+``DoubleConv`` turns it off under ``dp_axis`` (``unet.py:314-315``).
+
 ``act_q`` (``model.conv_act_store=int8``) stores the saved activations of
 every packed conv that ``packed_gate.q_supported`` admits (its input's
 width over the level's P a multiple of 32) as int8 with row scales
@@ -65,18 +87,66 @@ int8 pair in place of its input. The forward is unchanged, bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from cl_tpu_torch.kernels import conv3x3, conv3x3_g2, packed_eltwise, pool_pack, upconv_pack
 from cl_tpu_torch.models.packed_gate import (double_conv_route, packed_prefix, pick_pack,
                                              q_supported)
+from cl_tpu_torch.sharding import all_reduce_sum
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax convention: weight of the old running value
+
+# Set in the thread that runs a rematerialized level's forward again
+# inside the backward.
+_REMAT = threading.local()
+
+
+def recomputing() -> bool:
+    """True while ``remat`` runs a level's forward again in the backward."""
+    return getattr(_REMAT, "recompute", False)
+
+
+@contextlib.contextmanager
+def _recompute():
+    prev = recomputing()
+    _REMAT.recompute = True
+    try:
+        yield
+    finally:
+        _REMAT.recompute = prev
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recompute()
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant, so
+    ``torch.autograd.grad`` works through it): nothing ``fn`` saves for
+    the backward stays resident; the backward runs ``fn`` again under
+    ``recomputing()``. No level draws random numbers, so no RNG state is
+    kept."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             context_fn=_remat_contexts,
+                                             preserve_rng_state=False)
+
+
+@torch.no_grad()
+def _update_running(bn, mu, var) -> None:
+    """running = 0.9·running + 0.1·batch, once a forward: not in a
+    rematerialized level's recompute."""
+    if recomputing():
+        return
+    bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mu)
+    bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
 
 
 class Conv(nn.Module):
@@ -110,12 +180,15 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.dp = None  # sharding.DataParallel: statistics over the global batch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
                                 eps=BN_EPS)
+        if self.dp is not None:
+            return self._global(x)
         # No running buffers passed: the op normalizes with the biased
         # batch variance, updates nothing, and returns the batch mean and
         # 1/sqrt(var + eps) it computed (f32), so the running update
@@ -123,10 +196,24 @@ class BatchNorm(nn.Module):
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, BN_EPS)
         with torch.no_grad():
-            var = invstd.pow(-2) - BN_EPS
-            self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
-            self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+            _update_running(self, mean, invstd.pow(-2) - BN_EPS)
         return y
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's ``nn.BatchNorm(axis_name=...)`` on NCHW x: f32 E[x] and
+        E[x²] of the rank's rows, their mean over the group (one
+        differentiable all-reduce of both), var = max(0, E[x²] − E[x]²),
+        then (x − mean)·(rsqrt(var + eps)·γ) + β in f32, cast to x's dtype."""
+        xf = x.float()
+        dims = (0, 2, 3)
+        m = all_reduce_sum(torch.stack([xf.mean(dims), (xf * xf).mean(dims)]), self.dp)
+        m = m / self.dp.world
+        mean, var = m[0], torch.clamp_min(m[1] - m[0] * m[0], 0.0)
+        _update_running(self, mean.detach(), var.detach())
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        shape = (1, -1, 1, 1)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class _BnReluTrain(torch.autograd.Function):
@@ -137,8 +224,9 @@ class _BnReluTrain(torch.autograd.Function):
     and var get no cotangent."""
 
     @staticmethod
-    def forward(ctx, y, mu, var, gamma, beta):
+    def forward(ctx, y, mu, var, gamma, beta, dp=None):
         ctx.save_for_backward(y, mu, var, gamma, beta)
+        ctx.dp = dp
         r = torch.rsqrt(var + BN_EPS)
         scale, shift = r * gamma, beta - (mu * r) * gamma
         return torch.relu(y.float() * scale + shift).to(y.dtype)
@@ -153,8 +241,15 @@ class _BnReluTrain(torch.autograd.Function):
         g = torch.where(yhat * gamma + beta > 0, dz.float(), 0.0)
         s1 = g.reshape(-1, c).sum(0)
         s2 = (g * yhat).reshape(-1, c).sum(0)
-        dy = ((r * gamma) * (g - (s1 + yhat * s2) / n)).to(y.dtype)
-        return dy, None, None, s2, s1
+        f1, f2 = s1, s2
+        if ctx.dp is not None:
+            # the statistics are the global batch's: their folded paths
+            # take every rank's sums and the global count; γ's and β's
+            # gradients stay the rank's share
+            f1, f2 = ctx.dp.all_reduce_(torch.stack([s1, s2]))
+            n *= ctx.dp.world
+        dy = ((r * gamma) * (g - (f1 + yhat * f2) / n)).to(y.dtype)
+        return dy, None, None, s2, s1, None
 
 
 def packed_batch_norm(bn: BatchNorm, y: torch.Tensor, train: bool) -> torch.Tensor:
@@ -184,13 +279,16 @@ def deferred_bn(bn: BatchNorm, s1, s2, n: int, train: bool):
     BatchNorm whose application the consumer does. Train mode takes the
     batch statistics from the producer's sums (mu = Σy/n, biased var =
     Σy²/n − mu², f32) and updates the running ones; eval mode uses the
-    running ones."""
+    running ones. Under ``bn.dp`` s1 and s2 are summed over the group
+    through a differentiable all-reduce and n is the local count times
+    the group's size (``cl_tpu``'s psum of s1, s2 and 1)."""
     if train:
+        if bn.dp is not None:
+            s1, s2 = all_reduce_sum(torch.stack([s1, s2]), bn.dp)
+            n = n * bn.dp.world
         mu = s1 / n
         var = s2 / n - mu * mu
-        with torch.no_grad():
-            bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mu)
-            bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+        _update_running(bn, mu.detach(), var.detach())
     else:
         mu, var = bn.running_mean, bn.running_var
     scale = torch.rsqrt(var + BN_EPS) * bn.weight
@@ -229,13 +327,15 @@ class DoubleConv(nn.Module):
         self.conv1 = Conv(c_out, c_out, 3, bias=False)
         self.bn0 = BatchNorm(c_out) if norm == "batch" else None
         self.bn1 = BatchNorm(c_out) if norm == "batch" else None
+        # the gen-3 packed-level route; off under cl_tpu's dp_axis
+        self.level_route = True
 
     def forward(self, x: torch.Tensor, conv_impl: str = "xla") -> torch.Tensor:
         """x is NCHW (channels_last memory); ``conv_impl`` routes the convs
         (``packed_gate.double_conv_route``)."""
         _, c_in, h, w = x.shape
         routes = double_conv_route(h, w, c_in, self.conv0.weight.shape[0], conv_impl,
-                                   self.norm)
+                                   self.norm, level=self.level_route)
         if routes[0] == "packed":
             x = x.permute(0, 2, 3, 1).contiguous()
             for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
@@ -307,9 +407,12 @@ class UNet(nn.Module):
     def __init__(self, num_classes: int, base_channels: int = 32,
                  depth: int = 4, norm: str = "batch",
                  dtype: torch.dtype = torch.float32, packed: bool = False,
-                 conv_impl: str = "xla", act_q: bool = False, upconv_impl: str = "xla"):
+                 conv_impl: str = "xla", act_q: bool = False, upconv_impl: str = "xla",
+                 remat: bool = False):
         super().__init__()
         c = base_channels
+        self.remat = remat
+        self.dp = None
         self.base_channels = c
         self.conv_impl = conv_impl
         # the standard body's up-convs as cl_tpu's UpConv2x2 (unet.py:814)
@@ -330,6 +433,28 @@ class UNet(nn.Module):
                     Conv(feats * 2, feats, 2, bias=True, transposed=True))
             setattr(self, f"dec{level}", DoubleConv(feats * 2, feats, norm))
         self.head = Conv(c, num_classes, 1, bias=True)
+
+    def set_data_parallel(self, dp, *, per_shard: bool = True) -> "UNet":
+        """Take every BatchNorm's statistics over ``dp``'s group (None: this
+        process's batch). ``per_shard`` (``model.packed_unet``: ``cl_tpu``
+        runs the model per shard with ``dp_axis`` set, else plain GSPMD on
+        the global batch) turns the gen-3 packed-level route off under a
+        group, as ``cl_tpu``'s ``DoubleConv`` does under ``dp_axis``."""
+        self.dp = dp
+        for mod in self.modules():
+            if isinstance(mod, BatchNorm):
+                mod.dp = dp
+            elif isinstance(mod, DoubleConv):
+                mod.level_route = dp is None or not per_shard
+        return self
+
+    def _level(self, fn, *args):
+        """One level's forward, rematerialized under ``remat`` where the
+        backward will need it (cl_tpu's ``nn.remat`` on PackedLevel and
+        DoubleConv; a forward without grad saves nothing anyway)."""
+        if self.remat and torch.is_grad_enabled():
+            return remat(fn, *args)
+        return fn(*args)
 
     def forward(self, x: torch.Tensor, *, return_features: bool = False,
                 packed_features: bool = False):
@@ -353,15 +478,15 @@ class UNet(nn.Module):
         h = x.to(self.dtype).permute(0, 3, 1, 2)
         skips = []
         for level in range(self.depth):
-            h = getattr(self, f"enc{level}")(h, self.conv_impl)
+            h = self._level(getattr(self, f"enc{level}"), h, self.conv_impl)
             skips.append(h)
             h = F.max_pool2d(h, 2, 2)
-        h = self.bottleneck(h, self.conv_impl)
+        h = self._level(self.bottleneck, h, self.conv_impl)
         for level in reversed(range(self.depth)):
             up = getattr(self, f"up{level}")
             h = upconv2x2_matmul(h, up.weight, up.bias) if self.upconv_matmul else up(h)
             h = torch.cat([skips[level], h], dim=1)
-            h = getattr(self, f"dec{level}")(h, self.conv_impl)
+            h = self._level(getattr(self, f"dec{level}"), h, self.conv_impl)
         if return_features:
             return h.permute(0, 2, 3, 1)
         return self.head(h).float().permute(0, 2, 3, 1)
@@ -386,7 +511,8 @@ class UNet(nn.Module):
         P = pick_pack(self.base_channels, self.base_channels)
         skips = []
         for level in range(prefix):
-            y, sc, sh = getattr(self, f"enc{level}").packed_plain(x, train, P, self.act_q)
+            y, sc, sh = self._level(getattr(self, f"enc{level}").packed_plain, x, train, P,
+                                    self.act_q)
             z = packed_eltwise.bn_relu(y, sc, sh)
             # the pool's input is the skip
             z, x = pool_pack.maxpool2x2_tee(z)
@@ -395,14 +521,14 @@ class UNet(nn.Module):
         h = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         deep_skips = []
         for level in range(prefix, self.depth):
-            h = getattr(self, f"enc{level}")(h)
+            h = self._level(getattr(self, f"enc{level}"), h)
             deep_skips.append(h)
             h = F.max_pool2d(h, 2, 2)
-        h = self.bottleneck(h)
+        h = self._level(self.bottleneck, h)
         for level in reversed(range(prefix, self.depth)):
             h = getattr(self, f"up{level}")(h)
             h = torch.cat([deep_skips[level - prefix], h], dim=1)
-            h = getattr(self, f"dec{level}")(h)
+            h = self._level(getattr(self, f"dec{level}"), h)
 
         below = h.permute(0, 2, 3, 1).contiguous()
         for level in reversed(range(prefix)):
@@ -410,8 +536,8 @@ class UNet(nn.Module):
                 below = packed_eltwise.bn_relu(y, sc, sh)
             up = getattr(self, f"up{level}")
             u = upconv_pack.upconv2x2(below, up.weight, up.bias)
-            y, sc, sh = getattr(self, f"dec{level}").packed_split(
-                skips[level], u, train, P, self.act_q)
+            y, sc, sh = self._level(getattr(self, f"dec{level}").packed_split,
+                                    skips[level], u, train, P, self.act_q)
         if keep_raw:
             return y, sc, sh
         return packed_eltwise.bn_relu(y, sc, sh)

@@ -4,7 +4,7 @@ The counterpart of ``cl_tpu/train.py`` for the configurations the port
 runs so far: the fine-tune baseline and the three methods (EWC, LwF,
 replay with the host or the device-resident buffer), the standard UNet
 body and the packed one (``model.packed_unet`` at its engage sizes), one
-device. Data comes from the host pipeline, or with ``data.device_cache``
+device or a data-parallel group of them. Data comes from the host pipeline, or with ``data.device_cache``
 from the task's dataset parked on the device and plan-driven epochs
 (``data/device_cache.py``, ``data/cached_exec.py``): no host → device copy
 and no host wait inside a step. Per task: epochs of (replay mix →) augment
@@ -34,6 +34,18 @@ card: ``device`` None means ``cuda``, and without CUDA they raise; the CPU
 runs only when the caller passes ``device="cpu"``. A config that needs a
 part of the JAX package not ported yet raises ``NotImplementedError``
 (``check_supported``), and no route drops to another loss.
+
+``train.remat`` rematerializes each UNet level (``models/unet.py``).
+``train.data_parallel`` over a group of processes (``sharding.py``: one
+per card, under ``torchrun``, spawned by ``train()`` over the visible
+cards, or a group the caller initialized) runs ``cl_tpu``'s mesh routes:
+the model built with the group (``build_model(cfg, dp)``: BatchNorm over
+the global batch), each rank's rows of the same global batch, the loss
+kernels' sharded forms (each rank's share of the global mean), the
+gradient summed over the group in one flat all-reduce, then EWC's
+replicated penalty's gradient added once on every rank; the eval's
+confusion matrix and the Fisher's gradient summed likewise. The steps read
+the group from ``model.dp``; rank 0 logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from cl_tpu_torch import losses, metrics
+from cl_tpu_torch import losses, metrics, sharding
 from cl_tpu_torch.augment import augment
 from cl_tpu_torch.config import Config
 from cl_tpu_torch.data import cached_exec, pipeline
@@ -97,17 +109,8 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
         raise ValueError(f"unknown method.ewc_fisher_kind {meth.ewc_fisher_kind!r}")
     if t.spatial_parallel:
         unported.append("train.spatial_parallel")
-    if t.remat:
-        unported.append("train.remat")
-    if t.multihost:
-        unported.append("train.multihost")
     if t.profile_dir:
         unported.append("train.profile_dir (profiler traces)")
-    if (t.data_parallel and device is not None and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        unported.append(
-            f"data parallelism over {torch.cuda.device_count()} cards "
-            "(pass train.data_parallel=false to train on one)")
     if unported:
         raise NotImplementedError(
             "not in this slice of the port: " + "; ".join(unported)
@@ -125,15 +128,18 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
                 f"port refuses it: {why}")
 
 
-def build_model(cfg: Config) -> UNet:
-    """The UNet of ``cfg`` on the CPU, weights not yet initialized."""
-    return UNet(num_classes=cfg.data.num_classes,
-                base_channels=cfg.model.base_channels,
-                depth=cfg.model.depth, norm=cfg.model.norm,
-                dtype=_dtype(cfg), packed=_packed_engages(cfg),
-                conv_impl=cfg.model.conv_impl,
-                act_q=cfg.model.conv_act_store == "int8",
-                upconv_impl=cfg.model.upconv_impl)
+def build_model(cfg: Config, dp: sharding.DataParallel | None = None) -> UNet:
+    """The UNet of ``cfg`` on the CPU, weights not yet initialized; with
+    ``dp``, its BatchNorm over the group's global batch (``cl_tpu``'s
+    model under a mesh, ``_pick_fwd_apply``)."""
+    model = UNet(num_classes=cfg.data.num_classes,
+                 base_channels=cfg.model.base_channels,
+                 depth=cfg.model.depth, norm=cfg.model.norm,
+                 dtype=_dtype(cfg), packed=_packed_engages(cfg),
+                 conv_impl=cfg.model.conv_impl,
+                 act_q=cfg.model.conv_act_store == "int8",
+                 upconv_impl=cfg.model.upconv_impl, remat=cfg.train.remat)
+    return model.set_data_parallel(dp, per_shard=cfg.model.packed_unet)
 
 
 def init_state(cfg: Config, model: UNet, device: torch.device) -> UNet:
@@ -174,11 +180,19 @@ def fused_head_on(cfg: Config) -> bool:
     return cfg.train.use_pallas and on
 
 
-def augment_kernels_on(cfg: Config) -> bool:
+def augment_kernels_on(cfg: Config, dp=None) -> bool:
     """The train, eval and Fisher steps augment through kernels #15/#16
     (``cl_tpu/train.py:59-69``: ``train.use_pallas`` and
-    ``train.pallas_augment``), else through their plain versions."""
-    return cfg.train.use_pallas and cfg.train.pallas_augment
+    ``train.pallas_augment``), else through their plain versions. Under a
+    group the kernels are off: ``cl_tpu``'s route under a mesh
+    (``train.py:243``, ``:357``, ``:664-665``)."""
+    return cfg.train.use_pallas and cfg.train.pallas_augment and dp is None
+
+
+def _local(batch, dp):
+    """This rank's rows of a global batch (the batch itself without a
+    group)."""
+    return batch if dp is None else dp.local(batch)
 
 
 def packed_head_on(cfg: Config) -> bool:
@@ -204,13 +218,16 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
     under EWC, kd under LwF), so the step does not wait for the device.
     ``lwf`` / ``ewc``: the ``methods.lwf.LwFState`` / ``methods.ewc.EWCState``
     when ``method.methods`` has the method; the step reads them at every
-    call."""
+    call. Under ``model.dp`` (``build_model(cfg, dp)``) ``batch`` is this
+    rank's rows of the global batch, and ``aux`` holds the global batch's
+    losses on every rank."""
     device = resolve_device(device)
     check_supported(cfg, device)
     _set_precision(device)
     d, m = cfg.data, cfg.method
+    dp = model.dp
     compute_dtype = _dtype(cfg)
-    aug_kernels = augment_kernels_on(cfg)
+    aug_kernels = augment_kernels_on(cfg, dp)
     use_packed_head = packed_head_on(cfg)
     use_fused_head = fused_head_on(cfg)
     use_kernels = cfg.train.use_pallas
@@ -225,9 +242,11 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
     ewc_penalty = ewc_fused.penalty if use_kernels else ewc_lib.penalty
 
     def loss_fn(x, y, valid_classes):
-        """(ce, n_pix, weighted KD or None). The teacher runs first, as in
-        ``cl_tpu``: its forward's transients are freed before the
-        student's forward saves its activations."""
+        """(ce, n_pix, weighted KD or None); under a group ce and KD are
+        the rank's shares of the global means (the loss kernels' sharded
+        forms, ``cl_tpu/train.py:254-335``) and n_pix the global count. The
+        teacher runs first, as in ``cl_tpu``: its forward's transients are
+        freed before the student's forward saves its activations."""
         ignore, temp = d.ignore_index, m.lwf_temperature
         if use_fused_head:
             hk, hb = model.head.weight, model.head.bias
@@ -242,17 +261,17 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
                 if use_lwf:
                     ce, kd_raw, n_pix = head_ce.head_cross_entropy_kd_packed_bn(
                         *feats, hk, hb, *tfeats, thk, thb, y, valid_classes,
-                        lwf.old_valid, temperature=temp, ignore_index=ignore)
+                        lwf.old_valid, temperature=temp, ignore_index=ignore, dp=dp)
                     return ce, n_pix, lwf.weight * kd_raw
                 return (*head_ce.head_cross_entropy_packed_bn(
-                    *feats, hk, hb, y, valid_classes, ignore_index=ignore), None)
+                    *feats, hk, hb, y, valid_classes, ignore_index=ignore, dp=dp), None)
             if use_lwf:
                 ce, kd_raw, n_pix = head_ce.head_cross_entropy_kd(
                     feats, hk, hb, tfeats, thk, thb, y, valid_classes, lwf.old_valid,
-                    temperature=temp, ignore_index=ignore)
+                    temperature=temp, ignore_index=ignore, dp=dp)
                 return ce, n_pix, lwf.weight * kd_raw
             return (*head_ce.head_cross_entropy(feats, hk, hb, y, valid_classes,
-                                                ignore_index=ignore), None)
+                                                ignore_index=ignore, dp=dp), None)
         old = lwf_lib.old_logits(lwf, x) if use_lwf else None
         logits = model(x)
         if use_kernels:
@@ -260,17 +279,19 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
             # so the downcast is lossless and halves the kernels' operands;
             # the teacher's likewise (cl_tpu/train.py:498-504).
             logits = logits.to(compute_dtype)
-            ce, n_pix = ce_loss.cross_entropy(logits, y, valid_classes, ignore_index=ignore)
+            ce, n_pix = ce_loss.cross_entropy(logits, y, valid_classes, ignore_index=ignore,
+                                              dp=dp)
             if not use_lwf:
                 return ce, n_pix, None
             kd = kd_loss.kd_loss(logits, old.to(compute_dtype), lwf.old_valid, y,
-                                 temperature=temp, ignore_index=ignore)
+                                 temperature=temp, ignore_index=ignore, dp=dp)
             return ce, n_pix, lwf.weight * kd
-        ce, n_pix = losses.cross_entropy(logits, y, valid_classes, ignore_index=ignore)
+        ce, n_pix = losses.cross_entropy(logits, y, valid_classes, ignore_index=ignore,
+                                          dp=dp)
         if not use_lwf:
             return ce, n_pix, None
         kd = losses.kd_loss(logits, old, lwf.old_valid, y, temperature=temp,
-                            ignore_index=ignore)
+                            ignore_index=ignore, dp=dp)
         return ce, n_pix, lwf.weight * kd
 
     def step(batch: pipeline.HostBatch, valid_classes: torch.Tensor) -> dict:
@@ -279,20 +300,47 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
                        compute_dtype=compute_dtype, use_kernels=aug_kernels)
         model.train()
         ce, n_pix, kd = loss_fn(x, y, valid_classes)
+        opt.zero_grad(set_to_none=True)
+        pen = ewc_penalty(ewc_lib.flat_params(model), ewc, mode=m.ewc_mode) if use_ewc else None
+        if dp is not None:
+            return dp_backward(ce, n_pix, kd, pen)
         # cl_tpu's order (train.py:404-420): ce, + λ·penalty, + α·kd
         total = ce
         aux = {"ce": ce.detach(), "n_pix": n_pix}
         if use_ewc:
-            pen = ewc_penalty(ewc_lib.flat_params(model), ewc, mode=m.ewc_mode)
             total = total + m.ewc_lambda * pen
             aux["ewc_penalty"] = pen.detach()
         if kd is not None:
             total = total + m.lwf_alpha * kd
             aux["kd"] = kd.detach()
-        opt.zero_grad(set_to_none=True)
         total.backward()
         opt.step()
         aux["loss"] = total.detach()
+        return aux
+
+    def dp_backward(ce, n_pix, kd, pen):
+        """The data-parallel backward: the rank's shares' gradient, summed
+        over the group in one flat all-reduce, then the replicated EWC
+        penalty's gradient once on every rank (``cl_tpu/train.py:340-356``),
+        then the step. The losses in ``aux`` are the global ones, in
+        ``cl_tpu``'s order."""
+        share = ce if kd is None else ce + m.lwf_alpha * kd
+        share.backward()
+        sharding.all_reduce_grads(model.parameters(), dp)
+        if pen is not None:
+            (m.ewc_lambda * pen).backward()
+        opt.step()
+        parts = torch.stack([ce.detach(), ce.detach() if kd is None else kd.detach()])
+        ce_g, kd_g = dp.all_reduce_(parts)
+        aux = {"ce": ce_g, "n_pix": n_pix}
+        total = ce_g
+        if pen is not None:
+            total = total + m.ewc_lambda * pen.detach()
+            aux["ewc_penalty"] = pen.detach()
+        if kd is not None:
+            total = total + m.lwf_alpha * kd_g
+            aux["kd"] = kd_g
+        aux["loss"] = total
         return aux
 
     return step
@@ -300,13 +348,14 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
 
 def make_eval_step(cfg: Config, model: UNet, device=None) -> Callable:
     """``step(conf, batch, valid_classes) -> conf``: eval-mode forward and
-    confusion-matrix update on the device."""
+    confusion-matrix update on the device (under ``model.dp``, of this
+    rank's rows: ``evaluate_task`` sums the matrices over the group)."""
     device = resolve_device(device)
     check_supported(cfg, device)
     _set_precision(device)
     d = cfg.data
     compute_dtype = _dtype(cfg)
-    aug_kernels = augment_kernels_on(cfg)
+    aug_kernels = augment_kernels_on(cfg, model.dp)
 
     @torch.no_grad()
     def step(conf, batch: pipeline.HostBatch, valid_classes):
@@ -326,54 +375,60 @@ def make_eval_step(cfg: Config, model: UNet, device=None) -> Callable:
 # ---------------------------------------------------------------------------
 
 
-def make_cached_train_step(train_step: Callable) -> Callable:
+def make_cached_train_step(train_step: Callable, dp=None) -> Callable:
     """``cstep(s, cache, plan, valid_classes, replay=None) -> aux``: step
     ``s`` of a plan-driven epoch (``cl_tpu``'s ``make_cached_train_step``):
     the batch gathered on the device from ``cache`` by row ``s`` of the
     device-resident ``plan``, widened by step ``s``'s replay rows
     (``replay``: ``(mode, idx, flips[, images, masks])`` of
     ``cached_exec.build_replay_plan`` / ``replay_arrays``), then
-    ``train_step``. No host → device copy and no host wait."""
+    ``train_step``. No host → device copy and no host wait. Under ``dp``
+    every rank holds the whole cache and the same plan, gathers the
+    global batch and trains on its rows (``cl_tpu``'s ``_constrain_batch``)."""
 
     def cstep(s, cache, plan, valid_classes, replay=None):
         batch = cached_exec.gather_batch(cache.images, cache.masks, plan, s)
         if replay is not None:
             batch = cached_exec.widen_with_replay(batch, replay[0], replay[1], replay[2], s,
                                                   *replay[3:])
-        return train_step(batch, valid_classes)
+        return train_step(_local(batch, dp), valid_classes)
 
     return cstep
 
 
-def make_cached_eval_step(cfg: Config, eval_step: Callable) -> Callable:
+def make_cached_eval_step(cfg: Config, eval_step: Callable, dp=None) -> Callable:
     """``cstep(conf, s, cache, plan, valid_classes) -> conf``: eval step
-    ``s`` over the val cache; the plan's padded rows carry an all-ignore
-    mask."""
+    ``s`` over the val cache (under ``dp`` on this rank's rows); the
+    plan's padded rows carry an all-ignore mask."""
     ignore = cfg.data.ignore_index
 
     def cstep(conf, s, cache, plan, valid_classes):
         batch = cached_exec.gather_batch(cache.images, cache.masks, plan, s, ignore_index=ignore)
-        return eval_step(conf, batch, valid_classes)
+        return eval_step(conf, _local(batch, dp), valid_classes)
 
     return cstep
 
 
-def make_cached_fisher_step(fisher_step: Callable) -> Callable:
+def make_cached_fisher_step(fisher_step: Callable, dp=None) -> Callable:
     """``cstep(acc, s, cache, plan, valid_classes, generator=None) -> acc``:
-    Fisher step ``s`` over the train cache."""
+    Fisher step ``s`` over the train cache (under ``dp`` on this rank's
+    rows)."""
 
     def cstep(acc, s, cache, plan, valid_classes, generator=None):
-        return fisher_step(acc, cached_exec.gather_batch(cache.images, cache.masks, plan, s),
-                           valid_classes, generator)
+        batch = cached_exec.gather_batch(cache.images, cache.masks, plan, s)
+        return fisher_step(acc, _local(batch, dp), valid_classes, generator)
 
     return cstep
 
 
 def evaluate_task(cfg: Config, eval_step, task_id: int,
-                  seen_valid: np.ndarray, device=None, cache=None) -> dict:
+                  seen_valid: np.ndarray, device=None, cache=None, dp=None) -> dict:
     """mIoU of ``task_id``'s val set, predicting among all seen classes:
     from the host pipeline, or, given ``cache`` (the task's val set on the
-    device), over the padded eval plan (``cl_tpu/train.py:1239-1296``)."""
+    device), over the padded eval plan (``cl_tpu/train.py:1239-1296``).
+    Under ``dp`` each rank evaluates its rows of every batch and the
+    confusion matrices are summed over the group (integer counts in f32:
+    the same matrix as one process's)."""
     device = resolve_device(device)
     C = cfg.data.num_classes
     conf = torch.zeros((C, C), dtype=torch.float32, device=device)
@@ -383,14 +438,16 @@ def evaluate_task(cfg: Config, eval_step, task_id: int,
             cache.n, batch_size=cfg.data.batch_size, epoch=0,
             seed=cfg.data.shuffle_seed + 1000 * task_id, shuffle=False, flip_prob=0.0,
             pad_final=True, device=device)
-        cstep = make_cached_eval_step(cfg, eval_step)
+        cstep = make_cached_eval_step(cfg, eval_step, dp)
         for s in range(plan.steps):
             conf = cstep(conf, s, cache, plan, valid)
-        return eval_result(cfg, conf, task_id)
-    for batch in pipeline.prefetch_to_device(
-            pipeline.val_batches(cfg, task_id), device=device,
-            depth=cfg.data.prefetch_depth):
-        conf = eval_step(conf, batch, valid)
+    else:
+        for batch in pipeline.prefetch_to_device(
+                (_local(b, dp) for b in pipeline.val_batches(cfg, task_id)), device=device,
+                depth=cfg.data.prefetch_depth):
+            conf = eval_step(conf, batch, valid)
+    if dp is not None:
+        dp.all_reduce_(conf)
     return eval_result(cfg, conf, task_id)
 
 
@@ -399,13 +456,19 @@ def evaluate(cfg: Config, model: UNet, task_id: int, seen_task: int | None = Non
     """The public eval API (``cl_tpu/train.py:1530-1549``): the mIoU of
     ``task_id``'s val set through the host pipeline, predicting among the
     classes seen up to ``seen_task`` (default: ``task_id``). ``model`` on
-    ``device`` (None = ``cuda``)."""
+    ``device`` (None = ``cuda``). Honors ``train.data_parallel`` as
+    ``train()`` does: in a group (``sharding.join``) the val batches shard
+    over it and ``model`` takes the group (``set_data_parallel``); with no
+    group the eval runs on the one device."""
     device = resolve_device(device)
+    dp = sharding.join(cfg, device)
+    device = sharding.rank_device(device)
+    model.set_data_parallel(dp, per_shard=cfg.model.packed_unet)
     eval_step = make_eval_step(cfg, model, device)
     seen_task = task_id if seen_task is None else seen_task
     seen_valid = task_lib.valid_class_mask(
         cfg.data.num_classes, task_lib.seen_classes(cfg.classes_per_task, seen_task))
-    return evaluate_task(cfg, eval_step, task_id, seen_valid, device)
+    return evaluate_task(cfg, eval_step, task_id, seen_valid, device, dp=dp)
 
 
 def eval_result(cfg: Config, conf: torch.Tensor, task_id: int) -> dict:
@@ -441,13 +504,17 @@ def make_fisher_step(cfg: Config, model: UNet, device=None) -> Callable:
     flat f32 vector in ``flat_params`` order, updated in place by the
     accumulation kernel (#19) under ``train.use_pallas``, else by its plain
     version. The CE is the plain ``losses.cross_entropy``, as in
-    ``cl_tpu``."""
+    ``cl_tpu``. Under ``model.dp`` ``batch`` is this rank's rows, and the
+    squared gradient is the global batch's mean CE's, summed over the group
+    before #19 squares it; the sampled labels are drawn over the global
+    batch."""
     device = resolve_device(device)
     check_supported(cfg, device)
     _set_precision(device)
     d = cfg.data
+    dp = model.dp
     compute_dtype = _dtype(cfg)
-    aug_kernels = augment_kernels_on(cfg)
+    aug_kernels = augment_kernels_on(cfg, dp)
     accumulate = ewc_fused.sq_accumulate if cfg.train.use_pallas else ewc_fused.sq_acc_plain
     sampled = cfg.method.ewc_fisher_kind == "true"
 
@@ -460,7 +527,7 @@ def make_fisher_step(cfg: Config, model: UNet, device=None) -> Callable:
                        compute_dtype=compute_dtype, use_kernels=aug_kernels)
         g = ewc_lib.fisher_batch_grads(model, x, y, valid_classes,
                                        ignore_index=d.ignore_index,
-                                       generator=generator if sampled else None)
+                                       generator=generator if sampled else None, dp=dp)
         return accumulate(acc, g)
 
     return step
@@ -475,8 +542,10 @@ def run_fisher_pass(cfg: Config, fisher_step, model: UNet, task_id: int,
     come from the plan of that epoch, truncated to the Fisher's batches
     (``cl_tpu/train.py:1425-1446``). Under the sampled Fisher both paths
     draw from one ``fisher_generator(cfg, task_id)`` in the batches'
-    order, so they draw the same labels."""
+    order, so they draw the same labels. Under ``model.dp`` each rank
+    steps through the same batches and feeds its rows."""
     device = resolve_device(device)
+    dp = model.dp
     acc = torch.zeros(ewc_lib.n_params(model), dtype=torch.float32, device=device)
     valid = torch.from_numpy(np.asarray(seen_valid, bool)).to(device)
     gen = fisher_generator(cfg, task_id, device) \
@@ -487,14 +556,14 @@ def run_fisher_pass(cfg: Config, fisher_step, model: UNet, task_id: int,
             seed=cfg.data.shuffle_seed + 1000 * task_id, shuffle=True,
             flip_prob=cfg.data.flip_prob, device=device)
         n = min(plan.steps, cfg.method.ewc_fisher_batches)
-        cstep = make_cached_fisher_step(fisher_step)
+        cstep = make_cached_fisher_step(fisher_step, dp)
         for s in range(n):
             acc = cstep(acc, s, cache, plan, valid, gen)
         return acc / max(n, 1)
     n = 0
     batch_it = pipeline.prefetch_to_device(
-        pipeline.train_batches(cfg, task_id, 10_000 + task_id), device=device,
-        depth=cfg.data.prefetch_depth)
+        (_local(b, dp) for b in pipeline.train_batches(cfg, task_id, 10_000 + task_id)),
+        device=device, depth=cfg.data.prefetch_depth)
     try:
         for batch in batch_it:
             if n >= cfg.method.ewc_fisher_batches:
@@ -506,13 +575,22 @@ def run_fisher_pass(cfg: Config, fisher_step, model: UNet, task_id: int,
     return acc / max(n, 1)
 
 
-def make_replay_buffer(cfg: Config, device=None):
+def device_replay_on(cfg: Config, dp=None) -> bool:
+    """The device-resident replay buffer (``method.replay_device_resident``),
+    off under a group without ``data.device_cache``: ``cl_tpu``'s route on
+    a mesh (``train.py:1151-1160``), where the host buffer's draws are the
+    same ``RandomState`` calls, so the result is the same."""
+    return cfg.method.replay_device_resident and (dp is None or cfg.data.device_cache)
+
+
+def make_replay_buffer(cfg: Config, device=None, dp=None):
     """The config's replay buffer: the device-resident one
-    (``method.replay_device_resident``), the host one, or None."""
+    (``device_replay_on``), the host one, or None. Under ``dp`` every rank
+    holds the whole buffer and makes the same draws."""
     if "replay" not in cfg.method.methods:
         return None
     seed = cfg.data.shuffle_seed + 999
-    if cfg.method.replay_device_resident:
+    if device_replay_on(cfg, dp):
         return replay_gather.DeviceReplayBuffer(cfg.method.replay_capacity,
                                                 cfg.data.source_size, seed=seed,
                                                 device=resolve_device(device))
@@ -574,14 +652,26 @@ def train(cfg: Config, init_variables=None, device=None) -> dict:
 
     ``init_variables``: optional flax ``{'params', 'batch_stats'}`` tree of
     numpy arrays to start from instead of the seeded init (the parity tests
-    give both packages the same weights). ``device``: None = ``cuda``."""
-    from cl_tpu_torch.logging_utils import EventLogger
+    give both packages the same weights). ``device``: None = ``cuda``.
+
+    Under ``train.data_parallel`` the run is data-parallel over the group
+    this process is in (``sharding.join``: the caller's, or the one
+    ``torchrun`` names), or, with no group and more than one visible card,
+    over every card: ``train()`` spawns one worker per card and returns
+    rank 0's report. Every rank returns the same report; rank 0 alone
+    logs and writes the checkpoints."""
+    from cl_tpu_torch.logging_utils import EventLogger, NullLogger
 
     device = resolve_device(device)
     check_supported(cfg, device)
-    logger = EventLogger(cfg.train.log_path, cfg.train.tensorboard_dir)
+    if sharding.should_spawn(cfg, device):
+        return sharding.spawn_cards(train, (cfg, init_variables))[0]
+    dp = sharding.join(cfg, device)
+    device = sharding.rank_device(device)
+    logger = (EventLogger(cfg.train.log_path, cfg.train.tensorboard_dir)
+              if dp is None or dp.rank == 0 else NullLogger())
     try:
-        return _train_impl(cfg, logger, init_variables, device)
+        return _train_impl(cfg, logger, init_variables, device, dp)
     finally:
         logger.close()
         pipeline.make_datasets.cache_clear()
@@ -639,32 +729,50 @@ def _live_set_mb(model, opt, ewc, lwf, caches: dict, rep_arrays: dict,
     return {k: (round(v, 1) if isinstance(v, float) else v) for k, v in out.items()}
 
 
-def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
+def _saved(ckpt_lib, dp) -> None:
+    """Rank 0's checkpoints are on disk, and every rank waits for them: a
+    barrier before any rank reads one."""
+    ckpt_lib.wait_for_saves()
+    if dp is not None:
+        dp.barrier()
+
+
+def _train_impl(cfg: Config, logger, init_variables, device, dp=None) -> dict:
     from cl_tpu_torch import checkpoint as ckpt_lib
     from cl_tpu_torch.interop import load_jax_variables
 
-    model = init_state(cfg, build_model(cfg), device)
+    d, m = cfg.data, cfg.method
+    if dp is not None:
+        # cl_tpu/train.py:1070-1072, :1200-1204: the global batch, and with
+        # replay the widened one, must divide over the group
+        sharding.check_divisible(d.batch_size, dp.world)
+        if "replay" in m.methods:
+            sharding.check_divisible(d.batch_size + m.replay_batch, dp.world)
+    model = init_state(cfg, build_model(cfg, dp), device)
     if init_variables is not None:
         load_jax_variables(model, init_variables)
     opt = build_optimizer(cfg, model)
-    d, m = cfg.data, cfg.method
     T = cfg.train.num_tasks
     lwf = lwf_lib.make_lwf_state(model) if "lwf" in m.methods else None
     ewc = ewc_lib.make_ewc_state(model, mode=m.ewc_mode, max_tasks=max(T - 1, 1)) \
         if "ewc" in m.methods else None
     fisher_step = make_fisher_step(cfg, model, device) if ewc is not None else None
-    replay = make_replay_buffer(cfg, device)
+    replay = make_replay_buffer(cfg, device, dp)
     dev_replay = isinstance(replay, replay_gather.DeviceReplayBuffer)
+    if m.replay_device_resident and "replay" in m.methods and not dev_replay:
+        logger.log(event="replay_device_resident_disabled", reason="dp_mesh")
     train_step = make_train_step(cfg, model, opt, device, lwf=lwf, ewc=ewc)
     eval_step = make_eval_step(cfg, model, device)
+    world = 1 if dp is None else dp.world
 
     # The device-resident dataset (data.device_cache): the task's train set
     # and each task's val set parked on the device, the plan-driven steps
-    # over them (cl_tpu/train.py:1174-1199).
+    # over them (cl_tpu/train.py:1174-1199); under a group every rank holds
+    # the whole cache.
     dev_cache = d.device_cache
     caches: dict = {}      # task id -> train cache; ("val", task id) -> val cache
     rep_arrays: dict = {}  # task id -> the replay arrays of the plan (one task's)
-    cached_step = make_cached_train_step(train_step) if dev_cache else None
+    cached_step = make_cached_train_step(train_step, dp) if dev_cache else None
     used_modes: set = set()  # replay modes of the plan-driven epochs so far
 
     def _train_cache(task_id):
@@ -703,7 +811,7 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
                 eval_overhead["cache_build_s"] += time.perf_counter() - t0
             vcache = caches[("val", k)]
         t0 = time.perf_counter()
-        r = evaluate_task(cfg, eval_step, k, seen_valid, device, cache=vcache)
+        r = evaluate_task(cfg, eval_step, k, seen_valid, device, cache=vcache, dp=dp)
         r["n_images"] = len(pipeline.make_datasets(cfg, k)[1])
         exec_s = time.perf_counter() - t0
         if first:
@@ -762,7 +870,7 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
                     src = (pipeline.replay_mix(b, replay.sample_or_current(
                         m.replay_batch, b, flip_prob=d.flip_prob)) for b in src)
                 batch_it = pipeline.prefetch_to_device(
-                    src, device=device, depth=d.prefetch_depth)
+                    (_local(b, dp) for b in src), device=device, depth=d.prefetch_depth)
                 t_ep = time.perf_counter()
                 for batch in batch_it:
                     if dev_replay:
@@ -802,32 +910,35 @@ def _train_impl(cfg: Config, logger, init_variables, device) -> dict:
                 caches.pop(key)
         logger.log(event="hbm_live_set", task=task_id,
                    **_live_set_mb(model, opt, ewc, lwf, caches, rep_arrays, device))
-        if cfg.train.checkpoint_dir:
+        if cfg.train.checkpoint_dir and (dp is None or dp.rank == 0):
             ckpt_lib.save_task(cfg, state, replay, task_id, miou_matrix)
         logger.log(event="task_done", task=task_id,
                    seconds=time.perf_counter() - t_task)
         if cfg.train.fail_after_task == task_id:
             # the checkpoint goes to disk before the run dies, so a resume
             # finds this task complete
-            ckpt_lib.wait_for_saves()
+            _saved(ckpt_lib, dp)
             raise RuntimeError(f"fault injection: fail_after_task={task_id}")
 
-    ckpt_lib.wait_for_saves()  # the last task's checkpoint
+    _saved(ckpt_lib, dp)  # the last task's checkpoint
     report = metrics.forgetting_report(miou_matrix)
     report["config_hash"] = cfg.config_hash()
     report["device"] = device_name(device)
+    if dp is not None:
+        report["data_parallel"] = dp.world
     if step_times:
         total_s = sum(t for t, _ in step_times)
         total_steps = sum(n for _, n in step_times)
-        # images a step: the fresh batch and its replay rows, as cl_tpu counts
+        # images a step: the fresh batch and its replay rows, as cl_tpu
+        # counts, per card (cl_tpu/train.py:1501-1510)
         gb = d.batch_size + (m.replay_batch if replay is not None else 0)
         if total_s > 0 and total_steps > 0:
-            report["images_per_sec_per_chip"] = float(gb * total_steps / total_s)
+            report["images_per_sec_per_chip"] = float(gb * total_steps / total_s / world)
     if eval_times:
         e_s = sum(t for t, _ in eval_times)
         e_n = sum(n for _, n in eval_times)
         if e_s > 0 and e_n > 0:
-            report["eval_images_per_sec_per_chip"] = float(e_n / e_s)
+            report["eval_images_per_sec_per_chip"] = float(e_n / e_s / world)
     if eval_overhead["compile_passes"] or eval_overhead["cache_build_s"]:
         report["eval_overhead_seconds"] = {
             "cache_build": round(eval_overhead["cache_build_s"], 3),

@@ -76,12 +76,12 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     "model.norm=group",
     "model.padded_head=false",
     # the data path runs since its slice (pallas_augment, device_cache,
-    # synthetic_native: test_data_path_configs_run); these three do not
-    "train.multihost=true",
-    # the sampled Fisher, checkpoints and resume run since their slice
-    # (test_configs_the_checkpoint_slice_made_runnable)
+    # synthetic_native: test_data_path_configs_run); the sampled Fisher,
+    # checkpoints and resume since theirs
+    # (test_configs_the_checkpoint_slice_made_runnable); train.remat and
+    # train.multihost since the data-parallel slice
+    # (test_configs_the_dp_slice_made_runnable)
     "train.spatial_parallel=true",
-    "train.remat=true",
     "train.profile_dir=trace",
 ])
 def test_unported_configs_raise(override):
@@ -89,6 +89,21 @@ def test_unported_configs_raise(override):
     cfg = config.parse_overrides(["preset=smoke", *override.split()])
     with pytest.raises(NotImplementedError, match="later slice"):
         port_train.train(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", ["train.remat=true", "train.multihost=true"])
+def test_configs_the_dp_slice_made_runnable(override):
+    """Refused until the data-parallel slice: ``train.remat`` trains on the
+    CPU; ``train.multihost`` joins the process group the environment names,
+    and with none named it raises instead of training one replica."""
+    cfg = config.parse_overrides(["preset=smoke", *override.split()])
+    port_train.check_supported(cfg, torch.device("cpu"))
+    if override == "train.multihost=true":
+        with pytest.raises(RuntimeError, match="no process group is named"):
+            port_train.train(cfg, device="cpu")
+        return
+    report = port_train.train(cfg, device="cpu")
+    assert np.isfinite(report["final_per_task_miou"]).all()
 
 
 @pytest.mark.parametrize("override", [
@@ -179,14 +194,12 @@ def test_data_path_configs_run(override):
 
 
 def test_baselines_2_to_4_as_shipped_are_supported():
-    """Baselines 2, 3 and 4 pass ``check_supported`` as they ship on one
-    card; baseline_5 is refused for ``train.remat`` alone."""
+    """Baselines 2, 3 and 4 pass ``check_supported`` as they ship, and since
+    the data-parallel slice baseline_5 too (``train.remat``,
+    ``train.data_parallel``)."""
     cpu = torch.device("cpu")
-    for name in ("baseline_2", "baseline_3", "baseline_4"):
+    for name in ("baseline_2", "baseline_3", "baseline_4", "baseline_5"):
         port_train.check_supported(config.get_preset(name), cpu)
-    with pytest.raises(NotImplementedError) as err:
-        port_train.check_supported(config.get_preset("baseline_5"), cpu)
-    assert str(err.value).startswith("not in this slice of the port: train.remat —")
 
 
 _PACKED = ["preset=smoke", "model.base_channels=32", "model.depth=2",
