@@ -201,6 +201,32 @@ Phases (any failure raises, so the exit code is non-zero):
    (bf16) twice the gap of the one-process step with the batch's halves
    swapped where that is larger, f32 within 1e-2; then one NCCL group of
    one rank takes the headline step;
+5n. GroupNorm (``model.norm=group``): 5n-a the headline widths (512²,
+   batch 8, 19 classes, bf16) on the GroupNorm standard body (the packed
+   body declines it), 3 + 10 steps with the fused head (#1/#2) once a
+   step, images/s and peak beside phase 5's BatchNorm standard body; 5n-b
+   ``model.conv_impl=auto`` and ``=v3`` (#30/#31 at the GroupNorm levels,
+   counted), five pairs each against ``xla``; 5n-c one SGD step of
+   baseline_1 (128², f32) with GroupNorm, and with ``conv_impl=v3``, on the
+   card against the CPU (loss and params within 1e-4, each update within
+   1e-2 of its norm plus one ulp of the float64 step); 5n-d two gloo ranks
+   on ``cuda:0`` against one process (5w's harness);
+5e. grow-the-head (``model.padded_head=false``): 5e-a phase 5m's
+   baseline_5 cut through ``train()`` over 3 tasks of 16 + 8 images, the
+   head 7 wide and grown to 13 and 19, every launch of the run equal to the
+   padded run's, and the headline step with task 0's narrow head (10 of 19
+   classes): the packed head #7/#8 on the zero-padded head, 5h's launches
+   a step; 5e-b ``preset=baseline_5 model.padded_head=false`` as it
+   ships (widths 5 → 19), images/s beside the padded head's; 5e-c one SGD
+   step of task 1 after growth with EWC, LwF and replay on the card
+   against the CPU (128² f32, the packed body); 5e-d 5r-b's fail and
+   resume under grow (bit-equal where 5r-a found the step repeatable),
+   then the CLI's ``eval`` and ``predict`` from its checkpoint at the
+   stored width;
+5y. the profiler's trace (``train.profile_dir``): baseline_1 through
+   ``train()`` with 2 epochs: one Chrome / Perfetto trace file with CUDA
+   kernel events, the port's head kernel among them, the ``profile``
+   event logged, the traced epoch left out of the rate;
 5d. the data path (the native rasterizer, the device-resident dataset,
    plan-driven epochs): baseline_2 and baseline_3 as they ship and
    baseline_4 as it ships with ``train.pallas_augment=true`` through
@@ -2806,10 +2832,15 @@ def agree_with_cpu(args, label, packed_levels=0, f64=False):
     a positive random Fisher and weight 1; its penalty checked. Under
     replay, the batch widened by rows gathered from a device-resident
     buffer filled with four of task 0's images (the same seeded draws on
-    both devices)."""
+    both devices). Under ``model.padded_head=false`` the model starts at
+    task 0's head width and the state grows to task 1's
+    (``train.expand_state``: the new rows from the same seeded CPU
+    generator on both devices) before the step, which trains task 1's
+    classes."""
     import torch
 
     from cl_tpu_torch import train as tl
+    from cl_tpu_torch.checkpoint import TrainState
     from cl_tpu_torch.config import parse_overrides
     from cl_tpu_torch.data import pipeline
     from cl_tpu_torch.interop import (export_jax_variables, flat_from_params_tree,
@@ -2834,8 +2865,6 @@ def agree_with_cpu(args, label, packed_levels=0, f64=False):
         if variables is None:
             variables = export_jax_variables(model)
         load_jax_variables(model, variables)
-        if before is None:
-            before = {k: v.detach().double().cpu() for k, v in model.state_dict().items()}
         lwf = ewc = None
         if "lwf" in m.methods:
             lwf = lwf_lib.make_lwf_state(model)
@@ -2849,6 +2878,12 @@ def agree_with_cpu(args, label, packed_levels=0, f64=False):
             ewc.fisher.copy_(torch.from_numpy(
                 (np.random.RandomState(9).rand(n) + 0.5).astype(np.float32) * 1e-3))
             ewc.weight.fill_(1.0)
+        opt = tl.build_optimizer(cfg, model)
+        if not cfg.model.padded_head:
+            opt = tl.expand_state(cfg, TrainState(model, opt, ewc, lwf),
+                                  tl.task_head_width(cfg, 1), 1).optimizer
+        if before is None:
+            before = {k: v.detach().double().cpu() for k, v in model.state_dict().items()}
         batch = pipeline.put_batch(hb, dev)
         if "replay" in m.methods:
             buf = DeviceReplayBuffer(m.replay_capacity, cfg.data.source_size, seed=99,
@@ -2856,8 +2891,7 @@ def agree_with_cpu(args, label, packed_levels=0, f64=False):
             buf.add_examples(pipeline.make_datasets(cfg, 0)[0], 4, task_id=0)
             batch = tl._device_replay_mix(buf, batch, m.replay_batch,
                                           flip_prob=cfg.data.flip_prob)
-        step = tl.make_train_step(cfg, model, tl.build_optimizer(cfg, model), dev, lwf=lwf,
-                                  ewc=ewc)
+        step = tl.make_train_step(cfg, model, opt, dev, lwf=lwf, ewc=ewc)
         aux = step(batch, valid.to(dev))
         out[dev.type] = (aux["loss"].item(), {
             k: v.detach().double().cpu() for k, v in model.state_dict().items()})
@@ -2910,13 +2944,14 @@ def agree_with_cpu(args, label, packed_levels=0, f64=False):
          f"card vs CPU step ({label})")
 
 
-def methods_train(label, args, device=None):
+def methods_train(label, args, device=None, keep=None):
     """``train()`` of a methods config: a finite mIoU matrix and forgetting,
     and the methods kernels launched as counted: the penalty and its
     gradient at every step (weight 0 on task 0, as in ``cl_tpu``), the
     Fisher accumulation once per Fisher batch after every task but the
     last, the gather twice per step from task 1 on (task 0 widens its
-    batch with its own rows)."""
+    batch with its own rows). ``keep``, a dict, receives the run's launch
+    counts (``"counts"``)."""
     from cl_tpu_torch import train as tl
     from cl_tpu_torch.config import parse_overrides
 
@@ -2939,6 +2974,8 @@ def methods_train(label, args, device=None):
          f"finite mIoU and forgetting ({label})")
     for k, n in want.items():
         need(counts[k] == n, f"{k} launches == {n} in the train() of {label}")
+    if keep is not None:
+        keep["counts"] = counts
     return report
 
 
@@ -3564,7 +3601,7 @@ def cli_run(args, what):
     return out.returncode, tail
 
 
-def resume_at_full_width(args, bitwise, root):
+def resume_at_full_width(args, bitwise, root, cli=True, twice=True):
     """5r-b: two uninterrupted ``train()`` runs (a, b), a run killed after
     task 0 and its resume in this process (r), and the same through the
     CLI, each in a new process (c), each pair with its own
@@ -3573,6 +3610,8 @@ def resume_at_full_width(args, bitwise, root):
     EWC's anchor, Fisher and weight, the teacher) and the mIoU matrix:
     bit-equal where 5r-a found the step bit-repeatable (``bitwise``), else
     no leaf further from run a than twice the largest gap between a and b.
+    ``cli`` False leaves out the CLI's pair; ``twice`` False, where the
+    step is bit-repeatable, leaves out run b (no tolerance to measure).
     Returns (the resumed run's config, run a's report, the gate's mIoU
     tolerance)."""
     from cl_tpu_torch import train as tl
@@ -3584,7 +3623,8 @@ def resume_at_full_width(args, bitwise, root):
     cfg_a = parse_overrides(with_dir("a"))
     T = cfg_a.train.num_tasks
     mats, counts = {}, {}
-    for k in ("a", "b"):
+    twice = twice or not bitwise
+    for k in ("a", "b") if twice else ("a",):
         t0 = time.perf_counter()
         reset_counts()
         mats[k] = np.asarray(tl.train(parse_overrides(with_dir(k)))["miou_matrix"], float)
@@ -3606,23 +3646,27 @@ def resume_at_full_width(args, bitwise, root):
     print(f"  killed after task 0, resumed in this process: {time.perf_counter() - t0:.1f} s, "
           f"mIoU matrix {mats['r'].tolist()}")
     for k, (start, stop) in (("a", (0, T)), ("b", (0, T)), ("fail", (0, 1)), ("r", (1, T))):
+        if k not in counts:
+            continue
         want = methods_want(cfg_a, start, stop)
         print(f"    methods launches, run {k} (tasks {start}..{stop - 1}): "
               f"{ {n: counts[k][n] for n in want} }")
         for n, v in want.items():
             need(counts[k][n] == v, f"{n} launches {counts[k][n]} == {v} (5r-b run {k})")
-    t0 = time.perf_counter()
-    rc, tail = cli_run(with_dir("c", "train.fail_after_task=0"),
-                       "the CLI killed after task 0, a process of its own")
-    need(rc != 0 and "fault injection" in tail, f"the CLI's run died of the fault ({tail})")
-    rc, tail = cli_run(with_dir("c", "train.resume=true"), "the CLI resumed, a new process")
-    need(rc == 0, f"the CLI's resume ({tail})")
-    with open(os.path.join(root, "c", f"task_{T - 1}", "meta.json")) as f:
-        mats["c"] = np.asarray(json.load(f)["miou_matrix"], float)
-    print(f"  the CLI's pair: {time.perf_counter() - t0:.1f} s, mIoU matrix {mats['c'].tolist()}")
+    if cli:
+        t0 = time.perf_counter()
+        rc, tail = cli_run(with_dir("c", "train.fail_after_task=0"),
+                           "the CLI killed after task 0, a process of its own")
+        need(rc != 0 and "fault injection" in tail, f"the CLI's run died of the fault ({tail})")
+        rc, tail = cli_run(with_dir("c", "train.resume=true"), "the CLI resumed, a new process")
+        need(rc == 0, f"the CLI's resume ({tail})")
+        with open(os.path.join(root, "c", f"task_{T - 1}", "meta.json")) as f:
+            mats["c"] = np.asarray(json.load(f)["miou_matrix"], float)
+        print(f"  the CLI's pair: {time.perf_counter() - t0:.1f} s, mIoU matrix "
+              f"{mats['c'].tolist()}")
     last = f"task_{T - 1}/state.pt"
-    leaves = {k: checkpoint_leaves(os.path.join(root, k, last)) for k in ("a", "b", "r", "c")}
-    gaps = {k: leaf_gaps(leaves[k], leaves["a"]) for k in ("b", "r", "c")}
+    leaves = {k: checkpoint_leaves(os.path.join(root, k, last)) for k in mats}
+    gaps = {k: leaf_gaps(leaves[k], leaves["a"]) for k in mats if k != "a"}
     low = np.tril_indices(T)
     mgaps = {k: float(np.abs(mats[k] - mats["a"])[low].max()) for k in gaps}
     kinds = sorted({k.split("/")[1] for k in leaves["a"]})
@@ -3630,10 +3674,10 @@ def resume_at_full_width(args, bitwise, root):
           + "; ".join(f"{name} {sum(v != 0 for v in gaps[k].values())} leaves differ, largest "
                       f"max |diff| {max(gaps[k].values()):.3e}, mIoU gap {mgaps[k]:.3e}"
                       for k, name in (("b", "run b"), ("r", "resumed here"),
-                                      ("c", "the CLI's resume"))))
+                                      ("c", "the CLI's resume")) if k in gaps))
     need({"model", "optimizer", "ewc", "lwf"} <= set(kinds), "every part of the state compared")
     tol = 0.0 if bitwise else 2 * mgaps["b"]
-    for k in ("r", "c"):
+    for k in ("r", "c") if cli else ("r",):
         if bitwise:
             need(all(v == 0 for v in gaps[k].values()) and mgaps[k] == 0,
                  f"run {k} equals the uninterrupted run bit for bit (5r-a: bit-repeatable)")
@@ -3799,6 +3843,7 @@ def phase_5r(cfg_h, b5_args, small):
     finally:
         shutil.rmtree(root_r, ignore_errors=True)
     print(f"  phase 5r: {time.perf_counter() - t_r:.1f} s")
+    return bitwise
 
 
 def remat_run(cfg, device, n_steps=3):
@@ -3944,6 +3989,234 @@ def baseline_5_as_it_ships():
           f"({ips[True] / ips[False]:.4f})")
     need(peaks[True] < peaks[False], "remat lowers baseline_5's peak")
     return report, peaks
+
+
+# ---------------------------------------------------------------------------
+# Phases 5n, 5e, 5y: GroupNorm, grow-the-head, the profiler's trace
+# ---------------------------------------------------------------------------
+
+GN_FULL = ["preset=baseline_1", "data.image_size=512", "data.source_size=576",
+           "data.num_classes=19", "train.compute_dtype=bfloat16", "model.norm=group",
+           "data.dataset=synthetic", "train.data_parallel=false"]
+
+
+def phase_5n(ips_f, peak_f):
+    """Phase 5n: GroupNorm (``model.norm=group``) at full width. 5n-a the
+    headline widths on the GroupNorm standard body (the packed body
+    declines a GroupNorm model), 3 + 10 steps: #1/#2 once a step, no packed
+    kernel, a falling loss, images/s and peak beside phase 5's BatchNorm
+    standard body (``ips_f``, ``peak_f``); 5n-b ``model.conv_impl=auto``
+    and ``=v3`` where ``standard_body_refusal`` admits them, 3 + 10 steps
+    with #30/#31 counted at the GroupNorm levels, five pairs each against
+    ``xla``; 5n-c one SGD step of baseline_1 (128², f32) with GroupNorm on
+    the card against the CPU, and with ``model.conv_impl=v3`` (loss and
+    params within 1e-4, each update within 1e-2 of its norm plus one ulp of
+    the float64 step); 5n-d two gloo ranks on ``cuda:0`` against one
+    process (``dp_cards.check``: replicas bit-equal, each update within
+    twice the reorder gap). Returns images/s of 5n-a."""
+    import tempfile
+
+    import torch
+
+    from cl_tpu_torch import dp_cards
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.config import parse_overrides
+    from cl_tpu_torch.models import packed_gate as pg
+
+    cuda = torch.device("cuda")
+    print("[5n] GroupNorm (model.norm=group) at full width: 512², batch 8, 19 classes, bf16")
+    t_n = time.perf_counter()
+    cfg = parse_overrides(GN_FULL)
+    need(tl.build_model(cfg).packed_levels(512, 512) == 0,
+         "a GroupNorm model declines the packed body")
+    counts, ips, peak, loss, first = run_steps(cfg, 3, 10, cuda, no_sync=True)
+    print(f"  5n-a GroupNorm standard body, 13 steps: {ips:.2f} img/s, peak {peak:.0f} MiB, loss "
+          f"{first:.4f} -> {loss:.4f}; launches { {k: v for k, v in counts.items() if v} }")
+    print(f"    beside phase 5's BatchNorm standard body: {ips_f:.2f} img/s, peak {peak_f:.0f} "
+          f"MiB ({ips / ips_f:.4f} of its images/s)")
+    need(loss < first, "the GroupNorm training loss falls")
+    need(counts["head_ce_fwd"] == 13 and counts["head_ce_bwd"] == 13,
+         "head_ce launches == steps (GroupNorm)")
+    need(all(counts[k] == 0 for k in PER_STEP) and counts["conv3x3_fwd"] == 0,
+         "no packed or gen-3 kernel on the GroupNorm xla route")
+    for impl in ("auto", "v3"):
+        why = pg.standard_body_refusal(512, 32, 4, impl, "group", 2)
+        if why:
+            print(f"  5n-b conv_impl={impl}: refused at 512² bf16 ({why})")
+            continue
+        cfg_i = parse_overrides(GN_FULL + [f"model.conv_impl={impl}"])
+        n = v3_convs(cfg_i)
+        counts_i, ips_i, peak_i, loss_i, first_i = run_steps(cfg_i, 3, 10, cuda, no_sync=True)
+        print(f"  5n-b GroupNorm conv_impl={impl}, 13 steps ({n} convs on the gen-3 conv, none "
+              f"on the packed level): {ips_i:.2f} img/s, peak {peak_i:.0f} MiB, loss "
+              f"{first_i:.4f} -> {loss_i:.4f}")
+        need(n > 0 and loss_i < first_i, f"conv_impl={impl} routes convs and trains")
+        v3_counts_ok(counts_i, f"5n-b {impl}", 13 * n, 13 * n)
+        pairs, issue = alternating_pairs({impl: cfg_i, "xla": cfg}, cuda)
+        ratios = [p / q for p, q in zip(pairs[impl], pairs["xla"])]
+        print(f"    alternating pairs, 10 steps each, images/s: {impl} "
+              f"{[round(v, 2) for v in pairs[impl]]}, xla {[round(v, 2) for v in pairs['xla']]}; "
+              f"{impl} / xla {[round(r, 4) for r in ratios]}, median "
+              f"{float(np.median(ratios)):.4f}; host issue {impl} {issue[impl]:.3f} ms, xla "
+              f"{issue['xla']:.3f} ms")
+    for extra in ([], ["model.conv_impl=v3"]):
+        reset_counts()
+        agree_with_cpu(["preset=baseline_1", "model.norm=group"] + extra,
+                       "5n-c GroupNorm baseline_1 128² f32 " + (" ".join(extra) or "xla"),
+                       f64=True)
+        if extra:
+            n_c = v3_convs(parse_overrides(["preset=baseline_1", "model.norm=group"] + extra))
+            v3_counts_ok(read_counts(), "5n-c", n_c, n_c)
+    store = tempfile.mkdtemp(prefix="chip_smoke_dp_gn_")
+    dp_cards.check("5n-d GroupNorm headline widths, global batch 8",
+                   dp_cards.HEADLINE + dp_cards.SGD + ["model.norm=group"], world=2,
+                   backend="gloo", init_method=f"file://{store}/store", devices=["cuda:0"] * 2)
+    print(f"  phase 5n: {time.perf_counter() - t_n:.1f} s")
+    return ips
+
+
+def _events(log, kind):
+    with open(log) as f:
+        return [e for e in map(json.loads, f) if e.get("event") == kind]
+
+
+def phase_5e(b5_train, small, padded_counts, report_b5, bitwise, cfg_h, headline_step):
+    """Phase 5e: grow-the-head (``model.padded_head=false``). 5e-a phase
+    5m's baseline_5 cut, 3 tasks of 16 + 8 images, through ``train()``: the
+    head 7 wide, then grown to 13 and 19 (``make_task_splits(19, 3)``: the
+    cut's 3 tasks split the 18 classes in three), the methods kernels as
+    counted and every launch of the run equal to the
+    padded run's (``padded_counts``), the KD head (#11/#12) among them;
+    then the headline step (``cfg_h``) with task 0's narrow head (10 of
+    19 classes, 2 tasks): 3 + 10 steps with the packed head (#7/#8) on the
+    zero-padded head, the launches 5h's (``headline_step``) a step; 5e-b
+    ``preset=baseline_5 model.padded_head=false`` as it ships (widths 5,
+    9, 13, 16, 19), images/s beside 5m's padded run
+    (``report_b5``); 5e-c one SGD step of task 1 after growth with all three
+    methods on the card against the CPU (baseline_1 at 128², the packed
+    body, f32); 5e-d 5r-b's fail-and-resume under grow (bit-equal where
+    5r-a found the step bit-repeatable, ``bitwise``), then the CLI's
+    ``eval`` and ``predict`` from its checkpoint at the stored width."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cl_tpu_torch import predict
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.config import parse_overrides
+
+    cuda = torch.device("cuda")
+    print("[5e] grow-the-head (model.padded_head=false)")
+    t_e = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_grow_")
+    try:
+        log = os.path.join(root, "cut.jsonl")
+        args_a = b5_train + small + ["train.num_tasks=3", "train.epochs_per_task=1",
+                                     "model.padded_head=false", f"train.log_path={log}"]
+        cfg_a = parse_overrides(args_a)
+        widths = [tl.task_head_width(cfg_a, t) for t in range(3)]
+        need(widths == [7, 13, 19], f"the cut's widths {widths}")
+        keep = {}
+        methods_train("5e-a the baseline_5 cut under grow, 3 tasks", args_a, keep=keep)
+        grown = [(e["task"], e["width"]) for e in _events(log, "head_expanded")]
+        counts = keep["counts"]
+        differ = {k: (counts[k], padded_counts[k]) for k in counts
+                  if counts[k] != padded_counts[k]}
+        print(f"    head {widths[0]} wide, then head_expanded {grown}; launches equal to the "
+              f"padded run's: {not differ} {differ}; packed head #7/#8 {counts['head_ce_bn_fwd']}/"
+              f"{counts['head_ce_bn_bwd']}, KD head #11/#12 {counts['head_ce_kd_bn_fwd']}/"
+              f"{counts['head_ce_kd_bn_bwd']}")
+        need(grown == [(1, 13), (2, 19)], "the head grows to 13, then 19")
+        need(not differ, "the grow run launches every kernel as the padded run does")
+        need(counts["head_ce_kd_bn_fwd"] > 0 and counts["head_ce_kd_bn_bwd"] > 0,
+             "the packed KD head launched under grow")
+        cfg_n = dataclasses.replace(
+            cfg_h, model=dataclasses.replace(cfg_h.model, padded_head=False),
+            train=dataclasses.replace(cfg_h.train, num_tasks=2))
+        counts_n, ips_n, peak_n, loss_n, first_n = run_steps(cfg_n, 3, 10, cuda)
+        print(f"  5e-a the headline step with task 0's head ({tl.task_head_width(cfg_n, 0)} of "
+              f"19 classes), 13 steps: {ips_n:.2f} img/s, peak {peak_n:.0f} MiB, loss "
+              f"{first_n:.4f} -> {loss_n:.4f}; packed head #7/#8 {counts_n['head_ce_bn_fwd']}/"
+              f"{counts_n['head_ce_bn_bwd']}")
+        need(loss_n < first_n, "the narrow head's loss falls")
+        for k, n in headline_step.items():
+            need(counts_n[k] == 13 * n, f"{k} launches == steps x {n} (the narrow head)")
+        log_b = os.path.join(root, "b5.jsonl")
+        report = methods_train("5e-b baseline_5 model.padded_head=false as it ships",
+                               ["preset=baseline_5", "model.padded_head=false",
+                                f"train.log_path={log_b}"])
+        grown_b = [(e["task"], e["width"]) for e in _events(log_b, "head_expanded")]
+        print(f"    head_expanded {grown_b}; images/s per card "
+              f"{report.get('images_per_sec_per_chip')} beside the padded head's {report_b5.get('images_per_sec_per_chip')} (5m, as it "
+              f"ships); final per-task mIoU {report['final_per_task_miou']}")
+        need(grown_b == [(1, 9), (2, 13), (3, 16), (4, 19)], "baseline_5's widths 5 → 19")
+        agree_with_cpu(["preset=baseline_1", "model.packed_min_size=0", "data.num_classes=5",
+                        "train.num_tasks=2", "method.methods=ewc,lwf,replay",
+                        "method.replay_device_resident=true", "method.replay_batch=1",
+                        "model.padded_head=false"],
+                       "5e-c task 1's methods step after growth (3 -> 5), 128² f32",
+                       packed_levels=3)
+        print("  5e-d: fail after task 0 and resume under grow, the baseline_5 cut, 3 tasks")
+        cfg_r, report_ra, tol = resume_at_full_width(
+            b5_train + small + ["train.num_tasks=3", "train.epochs_per_task=1",
+                                "model.padded_head=false"],
+            bitwise, os.path.join(root, "resume"), cli=False, twice=False)
+        model, last = predict.restore_for_inference(cfg_r)
+        print(f"    the checkpoint of task {last} restores a head "
+              f"{model.head.weight.shape[0]} wide")
+        need(model.head.weight.shape[0] == tl.task_head_width(cfg_r, last),
+             "the stored width restores")
+        del model
+        eval_predict_from_checkpoint(cfg_r, report_ra, tol)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 5e: {time.perf_counter() - t_e:.1f} s")
+    return report
+
+
+def phase_5y():
+    """Phase 5y: the profiler's trace (``train.profile_dir``): baseline_1
+    through ``train()`` with 2 epochs; epoch 1 traced into one Chrome /
+    Perfetto file holding CUDA kernel events, the fused head's (#1) among
+    them, the ``profile`` event logged, and no steady epoch left for the
+    rate (epoch 0 carries the first use, epoch 1 the tracer)."""
+    import shutil
+    import tempfile
+
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.config import parse_overrides
+
+    print("[5y] the profiler's trace (train.profile_dir), baseline_1 through train()")
+    t_y = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        out, log = os.path.join(root, "trace"), os.path.join(root, "run.jsonl")
+        cfg = parse_overrides(["preset=baseline_1", "train.epochs_per_task=2",
+                               f"train.profile_dir={out}", f"train.log_path={log}"])
+        steps = cfg.data.train_images_per_task // cfg.data.batch_size * 2
+        reset_counts()
+        report = tl.train(cfg)
+        counts = read_counts()
+        files = sorted(os.listdir(out))
+        need(files == ["trace_task0_epoch1.json"], f"one trace file ({files})")
+        with open(os.path.join(out, files[0])) as f:
+            trace = json.load(f)["traceEvents"]
+        kernels = [e for e in trace if e.get("cat") == "kernel"]
+        ours = sorted({e["name"] for e in kernels if "head_ce" in e["name"]})
+        profiled = _events(log, "profile")
+        print(f"  {files[0]}: {os.path.getsize(os.path.join(out, files[0]))} bytes, "
+              f"{len(trace)} events, {len(kernels)} CUDA kernel events, the port's head kernels "
+              f"{[n[:60] for n in ours]}; profile events {profiled}; the report's images/s "
+              f"{report.get('images_per_sec_per_chip')}; head_ce launches "
+              f"{counts['head_ce_fwd']} for {steps} steps")
+        need(len(kernels) > 0 and ours, "the trace holds CUDA kernels, the port's among them")
+        need([e["dir"] for e in profiled] == [out], "the profile event is logged")
+        need("images_per_sec_per_chip" not in report, "the profiled epoch is left out of the rate")
+        need(counts["head_ce_fwd"] == steps, "the fused head once a step")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 5y: {time.perf_counter() - t_y:.1f} s")
 
 
 def main() -> int:
@@ -4440,17 +4713,23 @@ def main() -> int:
     # prebuilt host batch
     small = ["data.train_images_per_task=16", "data.val_images_per_task=8"]
     b5_train = [a for a in b5 if a not in ("data.dataset=synthetic", "data.device_cache=false")]
+    keep_cut = {}
     methods_train("baseline_5 cut, 3 tasks", b5_train + small + ["train.num_tasks=3",
-                                                                 "train.epochs_per_task=1"])
+                                                                 "train.epochs_per_task=1"],
+                  keep=keep_cut)
     methods_train("baseline_3, 16 + 8 images a task", ["preset=baseline_3"] + small)
 
-    phase_5r(cfg_h, b5_train, small)
+    bitwise = phase_5r(cfg_h, b5_train, small)
     # baseline_5 as it ships: remat on, 64 + 8 images a step, the whole run
     print("[5m] baseline_5 as it ships through train() (train.remat=true, 64 + 8 images a "
           "step; train.data_parallel=true on one card: one process)")
     report_b5, peaks_b5 = baseline_5_as_it_ships()
     phase_5x(cfg_h, headline_step)
     phase_5w()
+    ips_n = phase_5n(ips_f, peak_f)
+    report_e = phase_5e(b5_train, small, keep_cut["counts"], report_b5, bitwise, cfg_h,
+                        headline_step)
+    phase_5y()
 
     print("[5d] the data path: baselines 2, 3 and 4 as they ship through train() (the "
           "native rasterizer, the device-resident dataset, plan-driven epochs)")
@@ -5050,6 +5329,10 @@ def main() -> int:
               f"{k} {float(np.median(v)):.2f}" for k, v in pairs_g.items())
           + f"; 512² bf16 standard body pallas {ips_gc:.2f} (peak {peak_gc:.0f} MiB) beside "
           f"xla {ips_f:.2f} (phase 5, peak {peak_f:.0f} MiB)")
+    print(f"  variants: GroupNorm standard body 512² bf16 {ips_n:.2f} img/s (5n-a) beside "
+          f"BatchNorm's {ips_f:.2f} (phase 5); baseline_5 with model.padded_head=false "
+          f"train() {report_e.get('images_per_sec_per_chip')} beside the padded head's "
+          f"{report_b5.get('images_per_sec_per_chip')} (5m)")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}))

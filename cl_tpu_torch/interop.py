@@ -12,7 +12,11 @@ Layout mapping:
     [kh, kw, I, O] with both spatial axes reversed: torch's transposed conv
     flips the kernel, lax.conv_transpose does not.
   * BatchNorm weight/bias <-> scale/bias; running_mean/var <-> batch_stats
-    mean/var.
+    mean/var. GroupNorm (``gn{i}``) weight/bias <-> scale/bias, with no
+    batch_stats.
+  * The head maps at whatever width it has: a grow-the-head tree (a head
+    narrower than ``num_classes``) loads into a port UNet built with that
+    ``head_width``.
 
 Module names line up 1:1: the port's UNet names its modules after the flax
 tree (enc{l}.conv{i}/bn{i}, bottleneck, up{l}, dec{l}, head).
@@ -55,7 +59,7 @@ def torch_state_dict_to_variables(sd: dict[str, Any]) -> dict[str, Any]:
         if parts[-1] == "num_batches_tracked":
             continue
         *mod, leaf = parts
-        if mod[-1].startswith("bn"):
+        if mod[-1].startswith(("bn", "gn")):
             key = {"weight": (params, "scale"), "bias": (params, "bias"),
                    "running_mean": (stats, "mean"),
                    "running_var": (stats, "var")}[leaf]

@@ -16,7 +16,8 @@ and the penalty sums over them. The Fisher is f32 whatever the compute
 dtype: g² underflows in bf16.
 
 ``EWCState`` is mutable where the JAX one is a pytree: the train step
-reads it at every call and ``ewc_after_task`` updates it in place.
+reads it at every call and ``ewc_after_task`` updates it in place;
+``expand_head_zeros`` gives it longer vectors when the head grows.
 ``weight`` is a 0-d f32 tensor on the device (0 until the first
 consolidation, then 1), so the penalty runs from task 0 on, as in
 ``cl_tpu``, without a host sync.
@@ -128,6 +129,35 @@ def fisher_batch_grads(model: torch.nn.Module, x, y, valid_classes, *,
     grads = torch.autograd.grad(ce, params)
     flat = torch.cat([g.reshape(-1).float() for g in grads])
     return flat if dp is None else dp.all_reduce_(flat)
+
+
+@torch.no_grad()
+def expand_head_zeros(state: EWCState, model: torch.nn.Module, old_width: int) -> EWCState:
+    """Re-lay the anchor and Fisher, in place on ``state``, for ``model``
+    whose head has just grown from ``old_width`` rows (``cl_tpu``'s
+    ``expand_head_zeros`` on the EWC trees, ``train.py:926-930``): zeros
+    at the new rows, so no penalty falls on classes that post-date the
+    stored state. The head's weight [width, Cin, 1, 1] and bias are the
+    last two params of the flat order, each row-major, so the new rows
+    append at the end of the weight's block and of the bias's block.
+    Both modes: the last axis of [n] or [max_tasks, n]."""
+    names = [n for n, _ in model.named_parameters()]
+    if names[-2:] != ["head.weight", "head.bias"]:
+        raise ValueError(f"the head must be the last params of the flat order, not {names[-2:]}")
+    new_width, cin = model.head.weight.shape[:2]
+    k = new_width - old_width
+    if k <= 0:
+        return state
+
+    def relay(v):
+        head_w, head_b = old_width * cin, old_width
+        body, w, b = v.split([v.shape[-1] - head_w - head_b, head_w, head_b], dim=-1)
+        return torch.cat([body, w, v.new_zeros(v.shape[:-1] + (k * cin,)),
+                          b, v.new_zeros(v.shape[:-1] + (k,))], dim=-1)
+
+    state.anchor = relay(state.anchor)
+    state.fisher = relay(state.fisher)
+    return state
 
 
 @torch.no_grad()

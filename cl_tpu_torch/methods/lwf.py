@@ -34,14 +34,18 @@ def make_lwf_state(model: UNet) -> LwFState:
     """A teacher of ``model``'s shape with every param and BatchNorm buffer
     zero (``jnp.zeros_like`` of params and batch stats in ``cl_tpu``), no
     class known, weight 0. On task 0 the KD term of a zero teacher is
-    finite and exactly 0 (uniform softmaxes on both sides)."""
+    finite and exactly 0 (uniform softmaxes on both sides). ``old_valid``
+    spans the global label space, ``model.num_classes`` (``cl_tpu/methods/
+    lwf.py:24-30``), whatever the head's width: the KD kernels take a [C]
+    mask."""
     teacher = copy.deepcopy(model).eval().requires_grad_(False)
     with torch.no_grad():
         for t in teacher.state_dict().values():
             t.zero_()
-    C = model.head.weight.shape[0]
-    old_valid = torch.zeros(C, dtype=torch.bool, device=model.head.weight.device)
+    old_valid = torch.zeros(model.num_classes, dtype=torch.bool,
+                            device=model.head.weight.device)
     return LwFState(teacher=teacher, old_valid=old_valid, weight=0.0)
+
 
 
 @torch.no_grad()

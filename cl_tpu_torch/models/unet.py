@@ -1,13 +1,22 @@
 """UNet encoder-decoder in PyTorch — the standard and packed bodies of
 ``cl_tpu.models.unet.UNet``.
 
-Structure: ``depth`` encoder levels, each (3×3 SAME conv without bias → BN
-→ ReLU) × 2 then a 2×2 max pool; a bottleneck double conv; ``depth``
+Structure: ``depth`` encoder levels, each (3×3 SAME conv without bias →
+norm → ReLU) × 2 then a 2×2 max pool; a bottleneck double conv; ``depth``
 decoder levels, each a k2/s2 transposed conv with bias, concat
-``[skip, up]`` and a double conv; a 1×1 ``head`` of width ``num_classes``
-(the padded head). Module names follow the flax tree (``enc{l}.conv{i}``,
-``enc{l}.bn{i}``, ``bottleneck``, ``up{l}``, ``dec{l}``, ``head``), so
+``[skip, up]`` and a double conv; a 1×1 ``head`` of width ``head_width``
+(None: ``num_classes``, the padded head). Module names follow the flax
+tree (``enc{l}.conv{i}``, ``enc{l}.bn{i}`` or ``enc{l}.gn{i}``,
+``bottleneck``, ``up{l}``, ``dec{l}``, ``head``), so
 ``cl_tpu_torch.interop`` maps weights 1:1.
+
+Grow-the-head (``model.padded_head=false``, ``cl_tpu``'s ``head_width``):
+the head is as wide as the classes seen so far, and the logits are padded
+to ``num_classes`` with −1e9 (``cl_tpu``'s ``_pad_logits``), so every
+consumer (the losses on logits, the LwF teacher's logits, the eval, the
+Fisher pass, predict) sees the global label space. ``expand_head`` grows
+the head between tasks; ``expand_head_zeros`` grows an auxiliary copy
+(the LwF teacher) with zero rows.
 
 Layouts: the public input and output are NHWC, as in the JAX package; the
 convs run on the NCHW view of that memory, which is PyTorch's
@@ -18,7 +27,11 @@ to f32.
 BatchNorm follows flax, not ``nn.BatchNorm2d``: train mode normalizes with
 the biased batch variance AND updates ``running = 0.9·running +
 0.1·batch`` with that biased variance (torch's BatchNorm2d would update
-with the unbiased one); eps is 1e-5.
+with the unbiased one); eps is 1e-5. GroupNorm (``norm="group"``) follows
+flax's ``nn.GroupNorm`` likewise, not ``F.group_norm``: min(8, C) groups,
+f32 statistics of each image and group as E[x] and E[x²] sums, var =
+max(0, E[x²] − E[x]²), (x − mean)·(rsqrt(var + 1e-6)·scale) + bias in f32,
+one cast to the compute dtype.
 
 The packed body (``packed=True``, ``cl_tpu``'s ``UNet._packed_body``)
 runs the leading ``packed_gate.packed_prefix`` levels through the packed
@@ -97,11 +110,13 @@ import torch.utils.checkpoint
 from torch import nn
 
 from cl_tpu_torch.kernels import conv3x3, conv3x3_g2, packed_eltwise, pool_pack, upconv_pack
+from cl_tpu_torch.losses import NEG_INF
 from cl_tpu_torch.models.packed_gate import (double_conv_route, packed_prefix, pick_pack,
                                              q_supported)
 from cl_tpu_torch.sharding import all_reduce_sum
 
 BN_EPS = 1e-5
+GN_EPS = 1e-6  # flax nn.GroupNorm's default
 BN_MOMENTUM = 0.9  # flax convention: weight of the old running value
 
 # Set in the thread that runs a rematerialized level's forward again
@@ -216,6 +231,38 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups=min(8, C), epsilon=1e-6)`` on NCHW x
+    (channels_last memory): per image and group, the f32 sums of x and x²
+    over (H, W, C/G) give E[x] and E[x²], var = max(0, E[x²] − E[x]²)
+    (``use_fast_variance``), then y = (x − mean)·(rsqrt(var + eps)·scale)
+    + bias in f32 and one cast to x's dtype (``_normalize``). Written as
+    sums, not ``F.group_norm`` (a Welford variance, other rounding points,
+    and on CUDA a weight in the input's dtype). Per image: no statistic
+    crosses the batch, so data parallelism needs no collective here."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.groups = min(8, c)
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        g = self.groups
+        # f32 (float64 stays float64, flax's promote_types(dtype, float32));
+        # the NHWC view of channels_last memory
+        xf = x.to(torch.promote_types(x.dtype, torch.float32)).permute(0, 2, 3, 1)
+        xg = xf.reshape(b, h * w, g, c // g)
+        n = h * w * (c // g)
+        mean = xg.sum((1, 3)) / n
+        var = torch.clamp_min((xg * xg).sum((1, 3)) / n - mean * mean, 0.0)
+        mean = mean.repeat_interleave(c // g, dim=1)[:, None, None, :]
+        mul = torch.rsqrt(var + GN_EPS).repeat_interleave(c // g, dim=1)[:, None, None, :]
+        y = (xf - mean) * (mul * self.weight) + self.bias
+        return y.to(x.dtype).permute(0, 3, 1, 2)
+
+
 class _BnReluTrain(torch.autograd.Function):
     """``cl_tpu``'s ``_bn_relu_train``: z = relu(y·scale + shift) with the
     batch's own mu and var, and the train-mode BatchNorm backward in two
@@ -314,19 +361,21 @@ def upconv2x2_matmul(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) 
 
 
 class DoubleConv(nn.Module):
-    """(conv3x3 → norm → ReLU) × 2."""
+    """(conv3x3 → norm → ReLU) × 2: BatchNorm (``bn0`` / ``bn1``),
+    GroupNorm (``gn0`` / ``gn1``, which never takes the packed level) or
+    none."""
 
     def __init__(self, c_in: int, c_out: int, norm: str = "batch"):
         super().__init__()
-        if norm not in ("batch", "none"):
-            raise NotImplementedError(
-                f"model.norm={norm!r}: GroupNorm comes with spatial "
-                "parallelism in a later slice (ROADMAP Queue 1)")
+        if norm not in ("batch", "group", "none"):
+            raise ValueError(f"unknown model.norm {norm!r}")
         self.norm = norm
         self.conv0 = Conv(c_in, c_out, 3, bias=False)
         self.conv1 = Conv(c_out, c_out, 3, bias=False)
         self.bn0 = BatchNorm(c_out) if norm == "batch" else None
         self.bn1 = BatchNorm(c_out) if norm == "batch" else None
+        if norm == "group":
+            self.gn0, self.gn1 = GroupNorm(c_out), GroupNorm(c_out)
         # the gen-3 packed-level route; off under cl_tpu's dp_axis
         self.level_route = True
 
@@ -341,8 +390,9 @@ class DoubleConv(nn.Module):
             for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
                 x = packed_batch_norm(bn, conv3x3.conv3x3(x, conv.weight), self.training)
             return x.permute(0, 3, 1, 2)
-        for conv, bn, route in ((self.conv0, self.bn0, routes[0]),
-                                (self.conv1, self.bn1, routes[1])):
+        norms = (self.bn0, self.bn1) if self.norm != "group" else (self.gn0, self.gn1)
+        for conv, bn, route in ((self.conv0, norms[0], routes[0]),
+                                (self.conv1, norms[1], routes[1])):
             if route == "v3":
                 x = conv3x3.conv3x3(x.permute(0, 2, 3, 1).contiguous(),
                                     conv.weight).permute(0, 3, 1, 2)
@@ -402,15 +452,18 @@ class DoubleConv(nn.Module):
 
 
 class UNet(nn.Module):
-    """UNet(x: [B, H, W, 3]) -> logits [B, H, W, num_classes] (f32)."""
+    """UNet(x: [B, H, W, 3]) -> logits [B, H, W, num_classes] (f32); a head
+    narrower than ``num_classes`` (``head_width``) has its logits padded
+    with −1e9."""
 
     def __init__(self, num_classes: int, base_channels: int = 32,
                  depth: int = 4, norm: str = "batch",
                  dtype: torch.dtype = torch.float32, packed: bool = False,
                  conv_impl: str = "xla", act_q: bool = False, upconv_impl: str = "xla",
-                 remat: bool = False):
+                 remat: bool = False, head_width: int | None = None):
         super().__init__()
         c = base_channels
+        self.num_classes = num_classes
         self.remat = remat
         self.dp = None
         self.base_channels = c
@@ -432,7 +485,7 @@ class UNet(nn.Module):
             setattr(self, f"up{level}",
                     Conv(feats * 2, feats, 2, bias=True, transposed=True))
             setattr(self, f"dec{level}", DoubleConv(feats * 2, feats, norm))
-        self.head = Conv(c, num_classes, 1, bias=True)
+        self.head = Conv(c, head_width or num_classes, 1, bias=True)
 
     def set_data_parallel(self, dp, *, per_shard: bool = True) -> "UNet":
         """Take every BatchNorm's statistics over ``dp``'s group (None: this
@@ -473,7 +526,7 @@ class UNet(nn.Module):
             z = self._packed_body(x.to(self.dtype).contiguous(), keep_raw=keep)
             if return_features:
                 return z
-            return self.head(z.permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1)
+            return self._logits(z.permute(0, 3, 1, 2))
         # NHWC memory seen as NCHW: channels_last for the convs.
         h = x.to(self.dtype).permute(0, 3, 1, 2)
         skips = []
@@ -489,7 +542,15 @@ class UNet(nn.Module):
             h = self._level(getattr(self, f"dec{level}"), h, self.conv_impl)
         if return_features:
             return h.permute(0, 2, 3, 1)
-        return self.head(h).float().permute(0, 2, 3, 1)
+        return self._logits(h)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The head on NCHW features: f32 NHWC logits, padded to
+        ``num_classes`` with −1e9 where the head is narrower (``cl_tpu``'s
+        ``_pad_logits``)."""
+        logits = self.head(h).float().permute(0, 2, 3, 1)
+        pad = self.num_classes - logits.shape[-1]
+        return F.pad(logits, (0, pad), value=NEG_INF) if pad > 0 else logits
 
     def packed_levels(self, h: int, w: int) -> int:
         """How many leading levels the packed body runs for an h × w input
@@ -545,8 +606,9 @@ class UNet(nn.Module):
 
 def init_weights(model: UNet, generator: torch.Generator) -> None:
     """flax's default init from a seeded generator: lecun-normal conv
-    kernels (truncated normal, variance 1/fan_in), zero biases, BN scale 1
-    and shift 0. Not flax's bits: parity tests inject JAX variables."""
+    kernels (truncated normal, variance 1/fan_in), zero biases, BN and GN
+    scale 1 and shift 0. Not flax's bits: parity tests inject JAX
+    variables."""
     # stddev of a standard normal truncated to [-2, 2]
     trunc_std = 0.87962566103423978
     with torch.no_grad():
@@ -557,8 +619,54 @@ def init_weights(model: UNet, generator: torch.Generator) -> None:
                                       generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, BatchNorm):
+            elif isinstance(mod, (BatchNorm, GroupNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-                mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
+                if isinstance(mod, BatchNorm):
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
+
+
+def _grown_head(model: UNet, new_width: int, new_rows, new_bias) -> None:
+    """Put a 1×1 head of ``new_width`` in place of ``model.head``: the old
+    rows and bias first, bit for bit, then ``new_rows`` [k, Cin, 1, 1] and
+    ``new_bias`` [k]; the old head's device, dtype and memory format
+    kept. The head keeps its place among the model's params (the last)."""
+    old = model.head
+    w, b = old.weight.detach(), old.bias.detach()
+    head = Conv(w.shape[1], new_width, 1, bias=True)
+    with torch.no_grad():
+        weight = torch.cat([w, new_rows.to(w)])
+        if w.is_contiguous(memory_format=torch.channels_last):
+            weight = weight.contiguous(memory_format=torch.channels_last)
+        head.weight = nn.Parameter(weight, requires_grad=old.weight.requires_grad)
+        head.bias = nn.Parameter(torch.cat([b, new_bias.to(b)]),
+                                 requires_grad=old.bias.requires_grad)
+    model.head = head
+
+
+def expand_head(model: UNet, new_width: int, generator: torch.Generator) -> UNet:
+    """Grow ``model``'s head to ``new_width`` classes in place (``cl_tpu``'s
+    ``expand_head_params``, ``unet.py:836-861``): the old classes' rows and
+    bias copied bit for bit, the new rows an untruncated normal ×
+    sqrt(1/fan_in) drawn from ``generator`` (a CPU generator, so every
+    device and every rank draws the same bits), the new bias zero. A
+    width not above the head's is a no-op."""
+    k = new_width - model.head.weight.shape[0]
+    if k <= 0:
+        return model
+    cin = model.head.weight.shape[1]
+    rows = torch.randn((k, cin, 1, 1), generator=generator, dtype=torch.float32)
+    _grown_head(model, new_width, rows * math.sqrt(1.0 / cin), torch.zeros(k))
+    return model
+
+
+def expand_head_zeros(model: UNet, new_width: int) -> UNet:
+    """Grow ``model``'s head to ``new_width`` with zero rows and bias, in
+    place (``cl_tpu``'s ``expand_head_zeros`` on the LwF snapshot: no
+    distillation signal on classes the snapshot never knew)."""
+    k = new_width - model.head.weight.shape[0]
+    if k > 0:
+        cin = model.head.weight.shape[1]
+        _grown_head(model, new_width, torch.zeros((k, cin, 1, 1)), torch.zeros(k))
+    return model

@@ -4,9 +4,9 @@ The counterpart of ``cl_tpu/predict.py``. ``make_predict_step`` runs the
 training path's device-side augmentation with flips off (the image's
 kernel #15 under ``train.use_pallas`` and ``train.pallas_augment``; the
 mask's half, #16, has nothing to do here), the eval-mode forward (the
-packed body where it engages), the masked logits (the head is always
-``num_classes`` wide: ``model.padded_head=false`` is refused) and the
-argmax to uint8. ``predict_dataset`` streams any dataset through it,
+packed body where it engages), the masked logits (``num_classes`` wide: a
+grow-the-head model pads its narrower head's with −1e9) and the argmax to
+uint8. ``predict_dataset`` streams any dataset through it,
 padding the trailing batch, and returns class-id masks at the model's
 output size. The CLI's ``predict`` mode restores the latest checkpoint and
 writes the masks of the val split.
@@ -75,12 +75,15 @@ def predict_dataset(cfg: Config, model, dataset, *, batch_size: int = 0,
 
 def restore_for_inference(cfg: Config, device=None):
     """(model, last task) from the latest per-task checkpoint: the model
-    alone (params and BatchNorm buffers) on ``device``."""
+    alone (params and BatchNorm buffers) on ``device``, under
+    ``model.padded_head=false`` built at the last task's head width
+    (``cl_tpu/predict.py:80-83``)."""
     from cl_tpu_torch import checkpoint as ckpt_lib
 
     device = resolve_device(device)
     last = ckpt_lib.latest_task(cfg)
     if last is None:
         raise FileNotFoundError(f"no checkpoints in {cfg.train.checkpoint_dir!r}")
-    model = train_lib.init_state(cfg, train_lib.build_model(cfg), device)
+    width = None if cfg.model.padded_head else train_lib.task_head_width(cfg, last)
+    model = train_lib.init_state(cfg, train_lib.build_model(cfg, head_width=width), device)
     return ckpt_lib.restore_model(cfg, model, last), last

@@ -13,7 +13,9 @@ then one JSON line with the same numbers. The batch is made once, so host data w
 Under a method (with ``train.num_tasks`` >= 2) task 0's after-task hooks
 run first on the seeded init, as ``train()`` runs them (EWC's Fisher pass
 over task 0's batches, a real Fisher; the LwF snapshot; the replay
-buffer's fill), and the steps train task 1; under the device-resident
+buffer's fill), and the steps train task 1 (under
+``model.padded_head=false`` after the head grows to task 1's width, as
+``train()`` grows it); under the device-resident
 replay buffer each step gathers its replay rows (kernel #20), under the
 host buffer the batch is mixed once. The methods' kernels (EWC's and the
 replay gather) are a family of their own. ``CL_TPU_FUSE_BWD=1`` and
@@ -109,6 +111,11 @@ def build(cfg, device, batch_epoch: int = 0):
         fisher_step = tl.make_fisher_step(cfg, model, device) if ewc is not None else None
         tl.after_task(cfg, 0, model, ewc=ewc, fisher_step=fisher_step, lwf=lwf, replay=replay,
                       device=device)
+        if not cfg.model.padded_head:
+            from cl_tpu_torch.checkpoint import TrainState
+
+            opt = tl.expand_state(cfg, TrainState(model, opt, ewc, lwf),
+                                  tl.task_head_width(cfg, task), task).optimizer
     step = tl.make_train_step(cfg, model, opt, device, lwf=lwf, ewc=ewc)
     hb = next(iter(pipeline.train_batches(cfg, task, batch_epoch)))
     if isinstance(replay, DeviceReplayBuffer):

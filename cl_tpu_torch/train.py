@@ -3,7 +3,9 @@
 The counterpart of ``cl_tpu/train.py`` for the configurations the port
 runs so far: the fine-tune baseline and the three methods (EWC, LwF,
 replay with the host or the device-resident buffer), the standard UNet
-body and the packed one (``model.packed_unet`` at its engage sizes), one
+body (BatchNorm, GroupNorm or none) and the packed one
+(``model.packed_unet`` at its engage sizes), the padded head or
+grow-the-head (``model.padded_head=false``), one
 device or a data-parallel group of them. Data comes from the host pipeline, or with ``data.device_cache``
 from the task's dataset parked on the device and plan-driven epochs
 (``data/device_cache.py``, ``data/cached_exec.py``): no host → device copy
@@ -35,6 +37,21 @@ runs only when the caller passes ``device="cpu"``. A config that needs a
 part of the JAX package not ported yet raises ``NotImplementedError``
 (``check_supported``), and no route drops to another loss.
 
+Grow-the-head (``model.padded_head=false``, ``cl_tpu/train.py:1092-1103,
+:1298-1303``): the model starts with a head as wide as task 0's classes
+(``task_head_width``); at the start of each task whose classes reach past
+it, ``expand_state`` grows the head (new rows from a generator seeded by
+``train.seed`` and 500 + the task id), the EWC vectors and the LwF
+teacher with zeros, and builds a fresh optimizer, and the loop rebuilds
+its steps. The logits are padded to ``num_classes`` with −1e9 in the
+model; the head kernels zero-pad a narrow head themselves.
+
+``train.profile_dir`` traces epoch min(1, epochs_per_task − 1) of the
+first task run with ``torch.profiler`` (CPU, and CUDA on a card) into a
+Chrome / Perfetto trace there, one file a rank, logs ``profile`` and
+leaves the epoch out of the rate (``cl_tpu/train.py:1307-1312,
+:1396-1407``).
+
 ``train.remat`` rematerializes each UNet level (``models/unet.py``).
 ``train.data_parallel`` over a group of processes (``sharding.py``: one
 per card, under ``torchrun``, spawned by ``train()`` over the visible
@@ -50,6 +67,7 @@ the group from ``model.dp``; rank 0 logs and writes the checkpoints.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable
 
@@ -68,7 +86,7 @@ from cl_tpu_torch.methods import ewc as ewc_lib
 from cl_tpu_torch.methods import lwf as lwf_lib
 from cl_tpu_torch.methods.replay import ReplayBuffer
 from cl_tpu_torch.models import packed_gate
-from cl_tpu_torch.models.unet import UNet, init_weights
+from cl_tpu_torch.models.unet import UNet, expand_head, expand_head_zeros, init_weights
 
 _LATER = "comes in a later slice of the port (ROADMAP.md Queue 1)"
 
@@ -99,18 +117,12 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
     if tuning:
         unported.append(f"cl_tpu's tuning variables set to other than their defaults ({tuning}; "
                         "the port keeps the defaults)")
-    if m.norm == "group":
-        unported.append("model.norm='group'")
-    if not m.padded_head:
-        unported.append("model.padded_head=false (the grow-the-head variant)")
     if set(meth.methods) - {"ewc", "lwf", "replay"}:
         unported.append(f"method.methods={meth.methods}")
     if meth.ewc_fisher_kind not in ("empirical", "true"):
         raise ValueError(f"unknown method.ewc_fisher_kind {meth.ewc_fisher_kind!r}")
     if t.spatial_parallel:
         unported.append("train.spatial_parallel")
-    if t.profile_dir:
-        unported.append("train.profile_dir (profiler traces)")
     if unported:
         raise NotImplementedError(
             "not in this slice of the port: " + "; ".join(unported)
@@ -128,11 +140,22 @@ def check_supported(cfg: Config, device: torch.device | None = None) -> None:
                 f"port refuses it: {why}")
 
 
-def build_model(cfg: Config, dp: sharding.DataParallel | None = None) -> UNet:
+def task_head_width(cfg: Config, task_id: int) -> int:
+    """The grow-the-head width after ``task_id``'s classes are seen: the
+    splits are contiguous global ids, so max(seen) + 1
+    (``cl_tpu/train.py:91-95``)."""
+    return max(task_lib.seen_classes(cfg.classes_per_task, task_id)) + 1
+
+
+def build_model(cfg: Config, dp: sharding.DataParallel | None = None,
+                head_width: int | None = None) -> UNet:
     """The UNet of ``cfg`` on the CPU, weights not yet initialized; with
     ``dp``, its BatchNorm over the group's global batch (``cl_tpu``'s
-    model under a mesh, ``_pick_fwd_apply``)."""
-    model = UNet(num_classes=cfg.data.num_classes,
+    model under a mesh, ``_pick_fwd_apply``). ``head_width`` None: the
+    padded head, or under ``model.padded_head=false`` task 0's width."""
+    if head_width is None and not cfg.model.padded_head:
+        head_width = task_head_width(cfg, 0)
+    model = UNet(num_classes=cfg.data.num_classes, head_width=head_width,
                  base_channels=cfg.model.base_channels,
                  depth=cfg.model.depth, norm=cfg.model.norm,
                  dtype=_dtype(cfg), packed=_packed_engages(cfg),
@@ -162,6 +185,37 @@ def build_optimizer(cfg: Config, model: UNet) -> torch.optim.Optimizer:
         return torch.optim.SGD(model.parameters(), lr=t.lr,
                                momentum=t.momentum, weight_decay=t.weight_decay)
     raise ValueError(f"unknown optimizer {t.optimizer!r}")
+
+
+def head_generator(cfg: Config, task_id: int) -> torch.Generator:
+    """The CPU generator of the new head rows when the head grows for
+    ``task_id``, seeded from ``train.seed`` and 500 + ``task_id``
+    (``cl_tpu`` folds 500 + task_id into its state's key, ``train.py:924``;
+    the bits differ, as the seeded init's do). On the CPU, so every
+    device and every rank of a group draws the same rows."""
+    seed = np.random.SeedSequence([cfg.train.seed, 500 + task_id]).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(seed))
+
+
+def expand_state(cfg: Config, state, new_width: int, task_id: int):
+    """Grow-the-head's state surgery (``cl_tpu``'s ``_expand_state``,
+    ``train.py:914-939``) on a ``checkpoint.TrainState``, in place: the
+    model's head to ``new_width`` (``unet.expand_head``, rows from
+    ``head_generator``), EWC's anchor and Fisher and the LwF teacher with
+    zeros at the new rows, and a fresh optimizer for every param (Adam's
+    moments zero and its step 0, SGD's momentum gone), as ``cl_tpu``'s
+    ``tx.init(params)``. The caller rebuilds its steps: they hold the old
+    optimizer. A width not above the head's changes nothing."""
+    old = state.model.head.weight.shape[0]
+    if new_width <= old:
+        return state
+    expand_head(state.model, new_width, head_generator(cfg, task_id))
+    if state.ewc is not None:
+        ewc_lib.expand_head_zeros(state.ewc, state.model, old)
+    if state.lwf is not None:  # old_valid keeps its num_classes width
+        expand_head_zeros(state.lwf.teacher, new_width)
+    state.optimizer = build_optimizer(cfg, state.model)
+    return state
 
 
 def _set_precision(device: torch.device) -> None:
@@ -729,6 +783,29 @@ def _live_set_mb(model, opt, ewc, lwf, caches: dict, rep_arrays: dict,
     return {k: (round(v, 1) if isinstance(v, float) else v) for k, v in out.items()}
 
 
+def _start_profile(device: torch.device):
+    """A running ``torch.profiler.profile``: CPU activity, and CUDA's on a
+    card."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _finish_profile(prof, out_dir: str, task_id: int, epoch: int, dp=None) -> str:
+    """Stop ``prof`` (the epoch's losses were fetched: the card is done)
+    and write its Chrome / Perfetto trace into ``out_dir``, one file a rank
+    under a group. Returns the file's path."""
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    rank = "" if dp is None else f"_rank{dp.rank}"
+    path = os.path.join(out_dir, f"trace_task{task_id}_epoch{epoch}{rank}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 def _saved(ckpt_lib, dp) -> None:
     """Rank 0's checkpoints are on disk, and every rank waits for them: a
     barrier before any rank reads one."""
@@ -748,31 +825,41 @@ def _train_impl(cfg: Config, logger, init_variables, device, dp=None) -> dict:
         sharding.check_divisible(d.batch_size, dp.world)
         if "replay" in m.methods:
             sharding.check_divisible(d.batch_size + m.replay_batch, dp.world)
+    grow = not cfg.model.padded_head
+    if init_variables is not None and grow:
+        raise ValueError("init_variables requires model.padded_head (the injected head "
+                         "must be num_classes wide)")
     model = init_state(cfg, build_model(cfg, dp), device)
     if init_variables is not None:
         load_jax_variables(model, init_variables)
-    opt = build_optimizer(cfg, model)
     T = cfg.train.num_tasks
     lwf = lwf_lib.make_lwf_state(model) if "lwf" in m.methods else None
     ewc = ewc_lib.make_ewc_state(model, mode=m.ewc_mode, max_tasks=max(T - 1, 1)) \
         if "ewc" in m.methods else None
-    fisher_step = make_fisher_step(cfg, model, device) if ewc is not None else None
     replay = make_replay_buffer(cfg, device, dp)
     dev_replay = isinstance(replay, replay_gather.DeviceReplayBuffer)
     if m.replay_device_resident and "replay" in m.methods and not dev_replay:
         logger.log(event="replay_device_resident_disabled", reason="dp_mesh")
-    train_step = make_train_step(cfg, model, opt, device, lwf=lwf, ewc=ewc)
-    eval_step = make_eval_step(cfg, model, device)
     world = 1 if dp is None else dp.world
-
     # The device-resident dataset (data.device_cache): the task's train set
     # and each task's val set parked on the device, the plan-driven steps
     # over them (cl_tpu/train.py:1174-1199); under a group every rank holds
     # the whole cache.
     dev_cache = d.device_cache
+    state = ckpt_lib.TrainState(model, build_optimizer(cfg, model), ewc, lwf)
+
+    def _build_steps():
+        """The steps over the state's current optimizer: built at the start
+        and again after every growth of the head (the train step holds the
+        optimizer, which holds the params)."""
+        ts = make_train_step(cfg, model, state.optimizer, device, lwf=lwf, ewc=ewc)
+        return (ts, make_eval_step(cfg, model, device),
+                make_fisher_step(cfg, model, device) if ewc is not None else None,
+                make_cached_train_step(ts, dp) if dev_cache else None)
+
+    train_step, eval_step, fisher_step, cached_step = _build_steps()
     caches: dict = {}      # task id -> train cache; ("val", task id) -> val cache
     rep_arrays: dict = {}  # task id -> the replay arrays of the plan (one task's)
-    cached_step = make_cached_train_step(train_step, dp) if dev_cache else None
     used_modes: set = set()  # replay modes of the plan-driven epochs so far
 
     def _train_cache(task_id):
@@ -784,10 +871,14 @@ def _train_impl(cfg: Config, logger, init_variables, device, dp=None) -> dict:
     splits = cfg.classes_per_task
     miou_matrix = np.full((T, T), np.nan)
     # train.resume: the latest task's checkpoint loads into the objects the
-    # steps hold, and the loop goes on after it (cl_tpu/train.py:1206-1220)
-    state = ckpt_lib.TrainState(model, opt, ewc, lwf)
+    # steps hold, and the loop goes on after it (cl_tpu/train.py:1206-1220);
+    # under grow the state first takes the stored head's width
     start_task = 0
     if cfg.train.resume and cfg.train.checkpoint_dir:
+        lt = ckpt_lib.latest_task(cfg) if grow else None
+        if lt is not None:
+            expand_state(cfg, state, task_head_width(cfg, lt), lt)
+            train_step, eval_step, fisher_step, cached_step = _build_steps()
         restored = ckpt_lib.restore_latest(cfg, state, replay)
         if restored is not None:
             _, replay, last_task, miou_matrix = restored
@@ -826,12 +917,21 @@ def _train_impl(cfg: Config, logger, init_variables, device, dp=None) -> dict:
         seen_valid = task_lib.valid_class_mask(d.num_classes, seen)
         valid_dev = torch.from_numpy(seen_valid).to(device)
         t_task = time.perf_counter()
+        w = task_head_width(cfg, task_id)
+        if grow and model.head.weight.shape[0] < w:
+            expand_state(cfg, state, w, task_id)
+            train_step, eval_step, fisher_step, cached_step = _build_steps()
+            logger.log(event="head_expanded", task=task_id, width=w)
 
         for epoch in range(cfg.train.epochs_per_task):
             # Losses stay on the device during the epoch: fetching each
             # one would wait for the device every step.
             losses_dev = []
             first_use = False
+            # the profiler's trace of the first steady epoch of the run's
+            # first task (cl_tpu/train.py:1307-1312)
+            prof = _start_profile(device) if cfg.train.profile_dir and task_id == start_task \
+                and epoch == min(1, cfg.train.epochs_per_task - 1) else None
             if dev_cache:
                 # The epoch's plan and replay draws go to the device once
                 # (cl_tpu/train.py:1316-1377); every step then slices its
@@ -882,9 +982,15 @@ def _train_impl(cfg: Config, logger, init_variables, device, dp=None) -> dict:
                 if losses_dev else 0.0
             ep_time = time.perf_counter() - t_ep
             # Steady state only: the run's first epoch (after a resume, its
-            # first task's) carries the kernel build and first-use set-up.
-            if not (epoch == 0 and task_id == start_task) and not first_use:
+            # first task's; under grow every task's, whose steps are new)
+            # carries the kernel build and first-use set-up, and a profiled
+            # epoch the tracer's cost (cl_tpu/train.py:1396-1401).
+            if not (epoch == 0 and (task_id == start_task or grow)) and not first_use \
+                    and prof is None:
                 step_times.append((ep_time, len(losses_dev)))
+            if prof is not None:
+                _finish_profile(prof, cfg.train.profile_dir, task_id, epoch, dp)
+                logger.log(event="profile", dir=cfg.train.profile_dir)
             logger.log(event="epoch", task=task_id, epoch=epoch,
                        loss=ep_loss, steps=len(losses_dev))
             if cfg.train.eval_every_epoch:
@@ -909,7 +1015,8 @@ def _train_impl(cfg: Config, logger, init_variables, device, dp=None) -> dict:
             for key in [k for k in caches if isinstance(k, tuple)]:
                 caches.pop(key)
         logger.log(event="hbm_live_set", task=task_id,
-                   **_live_set_mb(model, opt, ewc, lwf, caches, rep_arrays, device))
+                   **_live_set_mb(model, state.optimizer, ewc, lwf, caches, rep_arrays,
+                                  device))
         if cfg.train.checkpoint_dir and (dp is None or dp.rank == 0):
             ckpt_lib.save_task(cfg, state, replay, task_id, miou_matrix)
         logger.log(event="task_done", task=task_id,

@@ -19,6 +19,10 @@ against ``cl_tpu`` and against the port's own one-process runs.
   device replay buffer (mIoU within 0.5 points); ``check_divisible``
   refusing 8 + 1 over 2 ranks; ``train.data_parallel=false`` in a group
   refused.
+* 2 ranks, grow-the-head: one SGD step of task 1 after the head grows
+  (3 → 5 of 5 classes; EWC and LwF re-laid, a fresh optimizer) against one
+  process: every rank draws the new rows from the same seeded generator,
+  so the replicas stay bit-equal.
 * Replicas are bit-equal across ranks. ``train.multihost=true`` with no
   group raises.
 
@@ -48,6 +52,8 @@ METHODS_DP = PACKED_DP + ["train.num_tasks=2", "method.methods=ewc,lwf,replay",
                           "method.replay_batch=2"]
 FISHER_DP = PACKED_DP + ["train.num_tasks=2", "method.methods=ewc",
                          "method.ewc_fisher_kind=true"]
+GROW_DP = ["preset=smoke", "data.num_classes=5", "train.num_tasks=2",
+           "model.padded_head=false", "method.methods=ewc,lwf"] + SGD
 TRAIN_DP = ["preset=smoke", "data.num_classes=3", "train.num_tasks=2", "model.depth=3",
             "method.methods=replay", "method.replay_batch=2", "data.device_cache=true",
             "method.replay_device_resident=true", "train.data_parallel=true"]
@@ -100,6 +106,24 @@ def methods_run(dp):
     return {k: float(v) for k, v in aux.items()}, before, _leaves(model)
 
 
+def grow_run(dp):
+    """One SGD step of task 1 with EWC and LwF after the head grows from
+    task 0's width to task 1's (``train.expand_state``)."""
+    from cl_tpu_torch.checkpoint import TrainState
+
+    cfg = parse_overrides(GROW_DP)
+    model = port_train.init_state(cfg, port_train.build_model(cfg, dp), CPU)
+    ewc, lwf, _ = methods_state(cfg, model)
+    state = TrainState(model, port_train.build_optimizer(cfg, model), ewc, lwf)
+    port_train.expand_state(cfg, state, port_train.task_head_width(cfg, 1), 1)
+    assert model.head.weight.shape[0] == 5
+    before = _leaves(model)
+    step = port_train.make_train_step(cfg, model, state.optimizer, CPU, lwf=lwf, ewc=ewc)
+    hb = next(iter(pipeline.train_batches(cfg, 1, 0)))
+    aux = step(pipeline.put_batch(_local(hb, dp), CPU), _valid(cfg, 1))
+    return {k: float(v) for k, v in aux.items()}, before, _leaves(model)
+
+
 def fisher_run(dp):
     """One sampled-Fisher step on task 0's first Fisher batch: the flat
     squared gradient."""
@@ -148,7 +172,7 @@ def two_ranks():
     dp = sharding.DataParallel()
     out = {"packed": step_run(PACKED_DP, dp, n_steps=2),
            "packed_remat": step_run(PACKED_DP + ["train.remat=true"], dp, n_steps=2),
-           "methods": methods_run(dp), "fisher": fisher_run(dp),
+           "methods": methods_run(dp), "grow": grow_run(dp), "fisher": fisher_run(dp),
            "conf": eval_run(PACKED_DP, dp), "conf_public": eval_run(PACKED_DP, dp, public=True)}
     report = port_train.train(parse_overrides(TRAIN_DP), device=CPU)
     out["train"] = {k: report[k] for k in ("miou_matrix", "final_per_task_miou",
@@ -231,6 +255,8 @@ def one_process(key):
                         None, n_steps=2)
     if key == "methods":
         return methods_run(None)
+    if key == "grow":
+        return grow_run(None)
     if key == "fisher":
         return fisher_run(None)
     if key in ("conf", "conf_public"):
@@ -302,12 +328,12 @@ def test_replicas_bit_equal(world, group2, group4):
             assert res[0][key][0] == res[r][key][0], key
 
 
-@pytest.mark.parametrize("key", ["packed", "packed_remat", "methods"])
+@pytest.mark.parametrize("key", ["packed", "packed_remat", "methods", "grow"])
 def test_step_matches_one_process(key, group2):
     want = one_process(key)
     got = group2[0][key]
     check_update(got, want, want[1], key)
-    if key == "methods":
+    if key in ("methods", "grow"):
         for term in ("ewc_penalty", "kd", "ce"):
             np.testing.assert_allclose(got[0][term], want[0][term], rtol=1e-5, err_msg=term)
         assert want[0]["ewc_penalty"] > 0 and want[0]["kd"] > 0

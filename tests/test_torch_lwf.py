@@ -9,7 +9,7 @@ of its norm plus one f32 ulp. Then a 2-task ``train()`` with
 ``train.use_pallas=false`` (the KD on materialized logits) against
 ``cl_tpu.train.train`` from the same ``init_variables``: final per-task
 mIoU within 0.5 points. The teacher snapshot shares no storage with the
-student, and the gates: which LwF routes run and which raise. Where the
+student, and the gate: which LwF routes run. Where the
 packed head is asked for and the packed body does not engage, the step
 takes the fused head on NHWC features, as ``cl_tpu``'s does.
 """
@@ -253,19 +253,11 @@ def test_two_task_lwf_train_matches_jax(monkeypatch):
     # with EWC's sampled Fisher (runs since the checkpoint slice)
     ["preset=smoke", "method.methods=ewc,lwf", "train.use_pallas=false",
      "method.ewc_fisher_kind=true"],
+    # the grow-the-head variant (runs since the variants' slice)
+    ["preset=smoke", "method.methods=lwf", "model.padded_head=false"],
 ])
 def test_lwf_routes_that_run(args):
     port_train.check_supported(parse_overrides(args), CPU)
-
-
-@pytest.mark.parametrize("args,match", [
-    (["preset=smoke", "method.methods=lwf", "model.padded_head=false"],
-     "padded_head"),                                             # the grow-the-head variant
-])
-def test_lwf_routes_that_raise(args, match):
-    cfg = parse_overrides(args)
-    with pytest.raises(NotImplementedError, match=match):
-        port_train.check_supported(cfg, CPU)
 
 
 def test_packed_head_without_the_packed_body_takes_the_nhwc_head():

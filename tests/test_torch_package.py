@@ -73,8 +73,8 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     # (test_conv_impl_v3_and_auto_train); model.upconv_impl=matmul and
     # model.conv_impl=hybrid|pallas since the gen-2 conv's slice
     # (test_gen2_routes_train)
-    "model.norm=group",
-    "model.padded_head=false",
+    # model.norm=group, model.padded_head=false and train.profile_dir run
+    # since the variants' slice (test_configs_the_variants_slice_made_runnable)
     # the data path runs since its slice (pallas_augment, device_cache,
     # synthetic_native: test_data_path_configs_run); the sampled Fisher,
     # checkpoints and resume since theirs
@@ -82,13 +82,43 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     # train.multihost since the data-parallel slice
     # (test_configs_the_dp_slice_made_runnable)
     "train.spatial_parallel=true",
-    "train.profile_dir=trace",
 ])
 def test_unported_configs_raise(override):
     """Each raises NotImplementedError: a later slice of the port."""
     cfg = config.parse_overrides(["preset=smoke", *override.split()])
     with pytest.raises(NotImplementedError, match="later slice"):
         port_train.train(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    "model.norm=group",
+    "model.padded_head=false data.num_classes=5 train.num_tasks=2 "
+    "method.methods=ewc,lwf,replay",
+    "train.profile_dir=trace train.epochs_per_task=2",
+])
+def test_configs_the_variants_slice_made_runnable(override, tmp_path, monkeypatch):
+    """Refused until the variants' slice: GroupNorm, grow-the-head with the
+    three methods, and the profiler's trace (one epoch traced, its file
+    written, the ``profile`` event logged, the epoch left out of the
+    rate) train on the CPU."""
+    import json
+
+    monkeypatch.chdir(tmp_path)
+    cfg = config.parse_overrides(["preset=smoke", *override.split(),
+                                  f"train.log_path={tmp_path / 'run.jsonl'}"])
+    port_train.check_supported(cfg, torch.device("cpu"))
+    report = port_train.train(cfg, device="cpu")
+    assert np.isfinite(report["final_per_task_miou"]).all()
+    events = [json.loads(line) for line in open(tmp_path / "run.jsonl")]
+    if cfg.train.profile_dir:
+        assert [e["dir"] for e in events if e["event"] == "profile"] == ["trace"]
+        with open(tmp_path / "trace" / "trace_task0_epoch1.json") as f:
+            assert json.load(f)["traceEvents"]
+        # epoch 0 carries the first use and epoch 1 the tracer: no steady epoch
+        assert "images_per_sec_per_chip" not in report
+    if not cfg.model.padded_head:
+        assert [(e["task"], e["width"]) for e in events
+                if e["event"] == "head_expanded"] == [(1, 5)]
 
 
 @pytest.mark.parametrize("override", ["train.remat=true", "train.multihost=true"])
