@@ -211,6 +211,22 @@ Phases (any failure raises, so the exit code is non-zero):
    card against the CPU (loss and params within 1e-4, each update within
    1e-2 of its norm plus one ulp of the float64 step); 5n-d two gloo ranks
    on ``cuda:0`` against one process (5w's harness);
+5s. spatial parallelism (``train.spatial_parallel``) at the headline
+   widths (phase 5n's GroupNorm config): 5s-a two gloo ranks on ``cuda:0``,
+   256 rows of every image each, one SGD step against the one-rank
+   spatial step (5w's gate: loss rtol 1e-5, replicas bit-equal, each update
+   within 1e-2 of its norm plus one ulp or twice the gap of the one-rank
+   step with the batch's halves swapped; each rank's peak and images/s of
+   3 steps beside the one rank's), no kernel launched (``cl_tpu`` runs
+   none under spatial), the ranks' stitched logits against the one-rank
+   forward (f32 within 2e-4; bf16 no further from the one-rank f32 logits
+   than twice the one-rank bf16's own distance); 5s-b ``preset=baseline_1
+   model.norm=group model.depth=2 data.num_classes=5 train.num_tasks=2
+   method.methods=ewc,lwf,replay``, 32 + 8 images a task, through
+   ``train()`` over the two ranks against one process, every final
+   per-task mIoU within 5e-3; 5s-c one
+   card with ``train.spatial_parallel=true`` trains unsharded, its
+   launches those of ``spatial_parallel=false``;
 5e. grow-the-head (``model.padded_head=false``): 5e-a phase 5m's
    baseline_5 cut through ``train()`` over 3 tasks of 16 + 8 images, the
    head 7 wide and grown to 13 and 19, every launch of the run equal to the
@@ -302,8 +318,20 @@ Phases (any failure raises, so the exit code is non-zero):
    CPU (loss and params within 1e-4, each update against float64 within
    1e-2 of its norm plus one ulp); 5g-e ``model.upconv_impl=matmul`` alone
    on baseline_2, one step: no #40/#41 launch, its loss beside ``xla``'s;
+5b. ``cl_tpu``'s route-only tuning variables, set per run (``tuned``):
+   5b-a the headline step at ``CL_TPU_CONV_BUDGET=23068672``, where level 3
+   (64², 256 channels) runs packed: every kernel at its level-3 shapes
+   against its plain version in f32 and bf16 (the two-pass #30 and #33 of
+   its prologue convs in bf16, and #35 at 256 channels), 3 + 10 steps with
+   each kernel's launches a step against the default's, five pairs
+   against the default; 5b-b ``preset=baseline_1 model.packed_min_size=0``
+   at ``CL_TPU_CONV_BUDGET=8388608`` (2 packed levels), one SGD step on the
+   card against the CPU; 5b-c ``CL_TPU_BWDF_BUDGET=14680064`` under
+   ``CL_TPU_FUSE_BWD=1``: level 2's four convs from #37 to the fused dx and
+   dW, 3 + 10 steps each with launch counts;
 6. kernel times against the plain version, one PyTorch library call for
-   the same function, and the least time the card could take.
+   the same function, and the least time the card could take; the level-3
+   kernels of 5b-a at their shapes.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails the
@@ -322,6 +350,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -694,32 +723,29 @@ def bn_bytes_ops(kernel, case):
 
 
 def bn_times(kernel, case):
-    """(ms, plain_ms, library_ms or None, ms synchronised per launch). The
-    library call for #7/#8 is ``F.linear`` + ``F.cross_entropy`` on the
-    materialized z (the head and CE only, not the BN·ReLU), for the KD head
-    on NHWC features (#9/#10) the same on x (the head and CE only, not the
-    teacher's head or the KD); none for the packed KD forms (#11/#12)."""
+    """(ms, plain_ms, library_ms, ms synchronised per launch). The library
+    call for #7/#8 is ``F.linear`` + ``F.cross_entropy`` on the
+    materialized z (the head and CE only, not the BN·ReLU), for the packed
+    KD forms (#11/#12) the same (the head and CE only, not the BN·ReLU,
+    the teacher's head or the KD), for the KD head on NHWC features
+    (#9/#10) the same on x."""
     import torch
     import torch.nn.functional as F
 
     from cl_tpu_torch.kernels.packed_eltwise import bn_relu_plain
 
     launch, plain = bn_fns(kernel, case)
-    lib = None
-    if "kd_bn" not in kernel:
-        z = (bn_relu_plain(case["y"], case["s"], case["sh"]) if "_bn_" in kernel
-             else case["y"])
-        wx, bx = case["w"].to(z.dtype), case["b"].to(z.dtype)
-        lbl64 = case["labels"].long()
-        if kernel.endswith("fwd"):
-            lib = lambda: F.cross_entropy(F.linear(z, wx, bx), lbl64,  # noqa: E731
-                                          ignore_index=255)
-        else:
-            zr, wr, br = (t.detach().clone().requires_grad_(True) for t in (z, wx, bx))
-            loss = F.cross_entropy(F.linear(zr, wr, br), lbl64, ignore_index=255)
-            lib = lambda: torch.autograd.grad(loss, (zr, wr, br), retain_graph=True)  # noqa: E731
-    return (time_ms(launch), time_ms(plain), None if lib is None else time_ms(lib),
-            time_ms(launch, queued=False))
+    z = bn_relu_plain(case["y"], case["s"], case["sh"]) if "_bn_" in kernel else case["y"]
+    wx, bx = case["w"].to(z.dtype), case["b"].to(z.dtype)
+    lbl64 = case["labels"].long()
+    if kernel.endswith("fwd"):
+        lib = lambda: F.cross_entropy(F.linear(z, wx, bx), lbl64,  # noqa: E731
+                                      ignore_index=255)
+    else:
+        zr, wr, br = (t.detach().clone().requires_grad_(True) for t in (z, wx, bx))
+        loss = F.cross_entropy(F.linear(zr, wr, br), lbl64, ignore_index=255)
+        lib = lambda: torch.autograd.grad(loss, (zr, wr, br), retain_graph=True)  # noqa: E731
+    return time_ms(launch), time_ms(plain), time_ms(lib), time_ms(launch, queued=False)
 
 
 def zero_teacher_kd(kind, case):
@@ -2560,26 +2586,40 @@ def switch_times(kernel, shape, dtype_name="bfloat16"):
 
 
 @contextlib.contextmanager
-def switched(fuse, pipe):
-    """``packed_gate.FUSE_BWD`` / ``DX_PIPE`` set as ``CL_TPU_FUSE_BWD`` /
-    ``CL_TPU_DX_PIPE`` would set them at import (the gates read them at
-    each forward), and restored after."""
+def tuned(**attrs):
+    """``packed_gate``'s module attributes set as ``cl_tpu``'s environment
+    variables would set them at import (``FUSE_BWD`` / ``DX_PIPE`` for
+    ``CL_TPU_FUSE_BWD`` / ``CL_TPU_DX_PIPE``, ``CONV_VMEM_BUDGET``,
+    ``FUSED_VMEM_BUDGET``, ``CONV_ROW_TARGET`` for the tuning variables; the
+    gates read them at each forward), and restored after."""
     from cl_tpu_torch.models import packed_gate
 
-    saved = packed_gate.FUSE_BWD, packed_gate.DX_PIPE
-    packed_gate.FUSE_BWD, packed_gate.DX_PIPE = fuse, pipe
+    saved = {k: getattr(packed_gate, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(packed_gate, k, v)
     try:
         yield
     finally:
-        packed_gate.FUSE_BWD, packed_gate.DX_PIPE = saved
+        for k, v in saved.items():
+            setattr(packed_gate, k, v)
+
+
+def switched(fuse, pipe):
+    """``tuned`` with ``FUSE_BWD`` and ``DX_PIPE``."""
+    return tuned(FUSE_BWD=fuse, DX_PIPE=pipe)
+
+
+def with_tuning(step, **attrs):
+    """``step``, each call under ``tuned(**attrs)``."""
+    def run(*args):
+        with tuned(**attrs):
+            return step(*args)
+    return run
 
 
 def with_switches(step, fuse, pipe):
     """``step``, each call under ``switched(fuse, pipe)``."""
-    def run(*args):
-        with switched(fuse, pipe):
-            return step(*args)
-    return run
+    return with_tuning(step, FUSE_BWD=fuse, DX_PIPE=pipe)
 
 
 def packed_head_steps(cfg, device, n_steps=3):
@@ -2729,14 +2769,20 @@ def alternating_pairs(cfgs, device, n_pairs=5, n_warm=3, n_timed=10, switches=No
     """images/s of each config in ``cfgs`` ({name: cfg}, both built and
     warmed first), timed in turns, the order flipped every pair, and each
     step's host issue time: ({name: [images/s of each pair]}, {name:
-    issue ms}). ``switches`` ({name: (FUSE_BWD, DX_PIPE)}) runs each
-    config's steps under its setting of the two switches."""
+    issue ms}). ``switches`` ({name: (FUSE_BWD, DX_PIPE)}, or {name: a
+    dict of ``tuned``'s attributes}) runs each config's steps, and builds
+    it, under its setting."""
     import torch
 
-    built = {name: build_step(cfg, device) for name, cfg in cfgs.items()}
-    if switches:
-        built = {name: (*b[:2], with_switches(b[2], *switches[name]), *b[3:])
-                 for name, b in built.items()}
+    def setting(name):
+        sw = (switches or {}).get(name, {})
+        return sw if isinstance(sw, dict) else dict(FUSE_BWD=sw[0], DX_PIPE=sw[1])
+
+    built = {}
+    for name, cfg in cfgs.items():
+        with tuned(**setting(name)):
+            b = build_step(cfg, device)
+        built[name] = (*b[:2], with_tuning(b[2], **setting(name)), *b[3:])
     for _, _, step, batch, valid in built.values():
         for _ in range(n_warm):
             step(batch, valid)
@@ -4219,6 +4265,190 @@ def phase_5y():
     print(f"  phase 5y: {time.perf_counter() - t_y:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phases 5s, 5b: spatial parallelism; cl_tpu's route-only tuning variables
+# ---------------------------------------------------------------------------
+
+
+def phase_5s():
+    """Phase 5s: spatial parallelism (``train.spatial_parallel``) at the
+    headline widths (phase 5n's GroupNorm config). 5s-a: two gloo ranks on
+    ``cuda:0`` (256 rows each) take one SGD step against the one-rank
+    spatial step (``dp_cards.check``, 5w's gate; each rank's peak and
+    images/s beside the one rank's), and their stitched logits against the
+    one-rank forward (``dp_cards.compare_logits``); no kernel launches
+    under spatial (``cl_tpu`` runs none). 5s-b: ``preset=baseline_1
+    model.norm=group model.depth=2 data.num_classes=5 train.num_tasks=2
+    method.methods=ewc,lwf,replay`` with 32 + 8 images a task through
+    ``train()`` over the two ranks
+    against one process, every final per-task mIoU within 5e-3
+    (``tests/dp/test_spatial.py``'s). 5s-c: one card with
+    ``train.spatial_parallel=true`` trains unsharded, its launches those of
+    ``spatial_parallel=false``."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from cl_tpu_torch import dp_cards, sharding
+    from cl_tpu_torch import train as tl
+    from cl_tpu_torch.config import parse_overrides
+
+    print("[5s] spatial parallelism (train.spatial_parallel) at the headline widths: two gloo "
+          "ranks on cuda:0, 256 rows each")
+    t_s = time.perf_counter()
+    # the two ranks share this card: release what the earlier phases cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  free on the card before the ranks start: "
+          f"{torch.cuda.mem_get_info()[0] / 2 ** 30:.1f} GiB")
+    store = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    head = dp_cards.HEADLINE + dp_cards.SGD + dp_cards.SPATIAL
+    two = dict(world=2, backend="gloo", devices=["cuda:0"] * 2)
+    reset_counts()
+    res = dp_cards.check("5s-a headline GroupNorm step, 256 rows a rank", head, timed=3,
+                         init_method=f"file://{store}/a", **two)
+    need(not any(read_counts().values()), "no kernel launched under spatial parallelism")
+    args_b = ["preset=baseline_1", "model.norm=group", "model.depth=2", "data.num_classes=5",
+              "train.num_tasks=2", "method.methods=ewc,lwf,replay", "train.spatial_parallel=true",
+              "data.train_images_per_task=32", "data.val_images_per_task=8"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = sharding.spawn(dp_cards.train_with_peak, (args_b,), init_method=f"file://{store}/b",
+                           timeout=900, **two)
+    t_ranks = time.perf_counter() - t0
+    cuda0 = torch.device("cuda", 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        one = tl.train(parse_overrides(args_b), device=cuda0)
+    gap = np.abs(np.subtract(ranks[0]["final_per_task_miou"], one["final_per_task_miou"]))
+    print(f"  5s-b baseline_1 GroupNorm depth 2, ewc,lwf,replay, 2 tasks of 32 + 8 images "
+          f"through train(): two "
+          f"ranks {ranks[0]['final_per_task_miou']} ({ranks[0]['images_per_sec_per_chip']} "
+          f"img/s, peaks {[round(r['peak_mib']) for r in ranks]} MiB, {t_ranks:.1f} s), one "
+          f"process (unsharded) {one['final_per_task_miou']} "
+          f"({one.get('images_per_sec_per_chip')} img/s); max gap {gap.max():.3e} (tol 5e-3)")
+    need(ranks[0]["spatial_parallel"] == 2 and "spatial_parallel" not in one,
+         "5s-b: two ranks sharded, one process not")
+    need(bool((gap <= 5e-3).all()), "spatial train() within 5e-3 mIoU of one process")
+    small = ["preset=baseline_1", "model.norm=group", "data.train_images_per_task=16",
+             "data.val_images_per_task=8"]
+    counts = {}
+    for sp in (True, False):
+        reset_counts()
+        tl.train(parse_overrides(small + [f"train.spatial_parallel={str(sp).lower()}"]),
+                 device=cuda0)
+        counts[sp] = read_counts()
+    print(f"  5s-c one card, train.spatial_parallel=true (unsharded): launches "
+          f"{ {k: v for k, v in counts[True].items() if v} }")
+    need(counts[True] == counts[False] and any(counts[True].values()),
+         "one card with spatial_parallel=true launches what spatial_parallel=false does")
+    print(f"  phase 5s: {time.perf_counter() - t_s:.1f} s")
+    return res
+
+
+CONV_BUDGET_22 = 23068672  # CL_TPU_CONV_BUDGET: the budget cl_tpu's comment compiles at
+CONV_BUDGET_8 = 8388608
+BWDF_BUDGET_14 = 14680064  # CL_TPU_BWDF_BUDGET: one of the budgets cl_tpu's comment swept
+# Level 3 of the headline's packed body at a 22 MiB budget (64², 256
+# channels, P = 4; the bottleneck's up-conv 32² x 512 -> 256 into it), with
+# each kernel's launches per step, as PACKED_PATH lists levels 0-2. Its two
+# prologue convs take the two-pass backward (#30 as dt, #33) in place of
+# the fused dx #35 and dW #36.
+LEVEL3_PATH = {
+    "conv3x3_bn_fwd": [((64, 128, 256, False), 1), ((64, 256, 256, True), 2),
+                       ((64, 256, 256, False), 2)],
+    "conv3x3_bn_dx": [((64, 128, 256, False), 1), ((64, 256, 256, False), 2)],
+    "conv3x3_bn_dw": [((64, 128, 256, False), 1), ((64, 256, 256, False), 2)],
+    "bn_relu_fwd": [((64, 256), 2)], "bn_relu_bwd": [((64, 256), 2)],
+    "add_stats_fwd": [((64, 256), 1)], "dy_eff": [((64, 256), 1)],
+    "maxpool_fwd": [((64, 256), 1)], "maxpool_bwd": [((64, 256, True), 1)],
+    "upconv_fwd": [((32, 512, 256), 1)], "upconv_dx": [((32, 512, 256), 1)],
+    "upconv_dw": [((32, 512, 256), 1)],
+}
+LEVEL3_TWO_PASS = {"conv3x3_fwd": ((64, 256, 256), "conv3x3_dt", 2),
+                   "conv3x3_dw_bn": ((64, 256, 256, True), "conv3x3_dw_bn", 2)}
+
+
+def phase_5b(cfg_h, headline_step):
+    """Phase 5b: ``cl_tpu``'s route-only tuning variables, set per run as the
+    environment would set them at import (``tuned``). 5b-a: the headline
+    step at ``CL_TPU_CONV_BUDGET=23068672``, where level 3 runs packed:
+    every kernel at its level-3 shapes against its plain version (phase 3's
+    checks, f32 and bf16; #35 at 256 channels too, which the fused branch
+    takes at larger budgets), 3 + 10 steps with each kernel's launches
+    against the default's, five pairs against the default. 5b-b:
+    ``preset=baseline_1 model.packed_min_size=0`` at
+    ``CL_TPU_CONV_BUDGET=8388608`` (2 packed levels), one SGD step on the
+    card against the CPU. 5b-c: ``CL_TPU_BWDF_BUDGET=14680064`` under
+    ``CL_TPU_FUSE_BWD=1``: level 2's four convs move from #37 to the fused
+    dx and dW. Returns (5b-a's counts, images/s, peak)."""
+    import torch
+
+    from cl_tpu_torch import train as tl
+
+    cuda = torch.device("cuda")
+    print("[5b] cl_tpu's route-only tuning variables: CL_TPU_CONV_BUDGET, CL_TPU_BWDF_BUDGET")
+    t_b = time.perf_counter()
+    l3_errs = {}
+    with tuned(CONV_VMEM_BUDGET=CONV_BUDGET_22):
+        need(tl.build_model(cfg_h).packed_levels(512, 512) == 4,
+             "level 3 of the headline runs packed at 22 MiB")
+        for kernel, shapes in LEVEL3_PATH.items():
+            check = compare_packed if kernel in FORWARD_KERNELS else compare_bwd
+            for shape, _ in shapes:
+                for dtype_name in ("float32", "bfloat16"):
+                    err = check(kernel, shape, dtype_name)
+                    if dtype_name == "bfloat16":
+                        l3_errs[(kernel, shape)] = err
+        compare_bwd("conv3x3_bn_dx_bn", (64, 256, 256, True), "bfloat16")
+        for kernel, (shape, _, _) in LEVEL3_TWO_PASS.items():
+            compare_v3(kernel, shape, "bfloat16")
+        counts, ips, peak, loss, first = run_steps(cfg_h, 3, 10, cuda, no_sync=True)
+    want = dict(headline_step, conv3x3_dt=0, conv3x3_dw_bn=0)
+    for kernel, shapes in LEVEL3_PATH.items():
+        want[kernel] += sum(n for _, n in shapes)
+    for _, key, n in LEVEL3_TWO_PASS.values():
+        want[key] += n
+    print(f"  5b-a headline step at CL_TPU_CONV_BUDGET={CONV_BUDGET_22} (level 3 packed), 13 "
+          f"steps: {ips:.2f} img/s, peak {peak:.0f} MiB, loss {first:.4f} -> {loss:.4f}")
+    print("    launches per step, 22 MiB / default: " + ", ".join(
+        f"{k} {counts[k] / 13:g} / {headline_step.get(k, 0)}" for k in want))
+    need(loss < first, "headline training loss falls at 22 MiB")
+    for k, n in want.items():
+        need(counts[k] == 13 * n, f"{k} launches == steps x {n} (5b-a)")
+    pairs, issue = alternating_pairs({"22 MiB": cfg_h, "default": cfg_h}, cuda,
+                                     switches={"22 MiB": {"CONV_VMEM_BUDGET": CONV_BUDGET_22}})
+    ratios = [p / q for p, q in zip(pairs["22 MiB"], pairs["default"])]
+    print(f"    alternating pairs, 10 steps each, images/s: 22 MiB "
+          f"{[round(v, 2) for v in pairs['22 MiB']]}, default "
+          f"{[round(v, 2) for v in pairs['default']]}; ratio {[round(r, 4) for r in ratios]}, "
+          f"median {float(np.median(ratios)):.4f}; host issue 22 MiB {issue['22 MiB']:.3f} ms, "
+          f"default {issue['default']:.3f} ms")
+    with tuned(CONV_VMEM_BUDGET=CONV_BUDGET_8):
+        reset_counts()
+        agree_with_cpu(["preset=baseline_1", "model.packed_min_size=0"],
+                       f"5b-b baseline_1 128² f32 at CL_TPU_CONV_BUDGET={CONV_BUDGET_8}",
+                       packed_levels=2)
+        print(f"    launches of the card's step: "
+              f"{ {k: v for k, v in read_counts().items() if v} }")
+    moved = dict(conv3x3_bn_bwd_fused=11, conv3x3_bn_dx=2, conv3x3_bn_dx_bn=2, conv3x3_bn_dw=4)
+    for label, attrs, per_step in (
+            ("64 MiB", {}, dict(conv3x3_bn_bwd_fused=15, conv3x3_bn_dx=0, conv3x3_bn_dx_bn=0,
+                                conv3x3_bn_dw=0)),
+            (f"CL_TPU_BWDF_BUDGET={BWDF_BUDGET_14}", {"FUSED_VMEM_BUDGET": BWDF_BUDGET_14},
+             moved)):
+        with tuned(FUSE_BWD=True, **attrs):
+            counts_c, ips_c, peak_c, loss_c, first_c = run_steps(cfg_h, 3, 10, cuda)
+        print(f"  5b-c headline step under CL_TPU_FUSE_BWD=1, {label}, 13 steps: {ips_c:.2f} "
+              f"img/s, peak {peak_c:.0f} MiB, loss {first_c:.4f} -> {loss_c:.4f}; backward "
+              f"launches per step { {k: counts_c[k] / 13 for k in per_step} }")
+        for k, n in per_step.items():
+            need(counts_c[k] == 13 * n, f"{k} launches == steps x {n} (5b-c, {label})")
+    print(f"  phase 5b: {time.perf_counter() - t_b:.1f} s")
+    return counts, ips, peak, l3_errs
+
+
 def main() -> int:
     import torch
 
@@ -4727,6 +4957,7 @@ def main() -> int:
     phase_5x(cfg_h, headline_step)
     phase_5w()
     ips_n = phase_5n(ips_f, peak_f)
+    phase_5s()
     report_e = phase_5e(b5_train, small, keep_cut["counts"], report_b5, bitwise, cfg_h,
                         headline_step)
     phase_5y()
@@ -5059,6 +5290,8 @@ def main() -> int:
     need(abs(losses_ge["matmul"] - losses_ge["xla"]) <= 1e-5 * abs(losses_ge["xla"]),
          "the matmul up-conv's loss equals the transposed conv's within 1e-5 (5g-e)")
 
+    counts_b, ips_b, peak_b, l3_errs = phase_5b(cfg_h, headline_step)
+
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
         0: counts_b1, 1: counts_f, 2: counts_b1u, 3: counts_u}
@@ -5106,17 +5339,38 @@ def main() -> int:
               f"{synced_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.4f}, library "
               f"{lib_ms:.4f} (where one exists); launches {counts_t[kernel]} in phase 5t"
               + (f", {counts_p[kernel]} in phase 5p" if kernel in FORWARD_KERNELS else ""))
+    # level 3 of the headline at a 22 MiB budget (phase 5b-a): each kernel
+    # at its level-3 shapes, launches there beside the default's
+    for kernel, shapes in LEVEL3_PATH.items():
+        fwd = kernel in FORWARD_KERNELS
+        for shape, n_step in shapes:
+            times = (packed_times if fwd else bwd_times)(kernel, shape)
+            bo = (packed_bytes_ops if fwd else bwd_bytes_ops)(kernel, shape, "bfloat16")
+            bound = max(bo[0] / HBM_BYTES_PER_S, bo[1] / PEAK_OPS["bfloat16"]) * 1e3
+            lib_txt = "—" if times[2] is None else f"{times[2]:.4f}"
+            print(f"  level 3 at 22 MiB, {packed_name(kernel, shape, 'bfloat16')} x{n_step}/step: "
+                  f"{times[0]:.4f} ms (synchronised per launch {times[3]:.4f}; plain "
+                  f"{times[1]:.4f}, library {lib_txt}, bound {bound:.4f}); err "
+                  f"{l3_errs[(kernel, shape)]:.3g}; launches {counts_b[kernel]} in phase 5b-a's "
+                  f"13 steps, {13 * headline_step[kernel]} at the default (5h)")
+    for kernel, (shape, key, n_step) in LEVEL3_TWO_PASS.items():
+        times = v3_times(kernel, shape, "bfloat16")
+        bo = v3_bytes_ops(kernel, shape, "bfloat16")
+        bound = max(bo[0] / HBM_BYTES_PER_S, bo[1] / PEAK_OPS["bfloat16"]) * 1e3
+        print(f"  level 3 at 22 MiB, two-pass {v3_name(kernel, shape, 'bfloat16')} "
+              f"x{n_step}/step: {times[0]:.4f} ms (synchronised per launch {times[3]:.4f}; "
+              f"plain {times[1]:.4f}, library {times[2]:.4f}, bound {bound:.4f}); launches "
+              f"{counts_b[key]} ({key}) in phase 5b-a, 0 at the default")
     for kernel, (source, replaces) in BN_KERNELS.items():
         times = bn_times(kernel, bn_full)
         launches = (counts_l if "kd" in kernel else counts_h)[kernel]
         entry = kernel_entry(kernel, (2097152, 32, 19), source, replaces, launches,
                              bn_errs[kernel], times, bn_bytes_ops(kernel, bn_full))
         kernels.append(entry)
-        lib_txt = "—" if entry["library_ms"] is None else \
-            f"{entry['library_ms']:.4f} (head and CE only)"
         print(f"  {entry['name']}: {entry['ms']:.4f} ms (synchronised per launch "
-              f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library {lib_txt}, bound "
-              f"{entry['bound_ms']:.4f} by {entry['bound_by']}); launches {launches} in phase "
+              f"{times[3]:.4f}; plain {entry['plain_ms']:.4f}, library "
+              f"{entry['library_ms']:.4f} (head and CE only), bound {entry['bound_ms']:.4f} by "
+              f"{entry['bound_by']}); launches {launches} in phase "
               f"{'5l' if 'kd' in kernel else '5h'}")
     for kernel, (source, replaces) in KD_HEAD_KERNELS.items():
         times = bn_times(kernel, kdh_full)
@@ -5329,6 +5583,9 @@ def main() -> int:
               f"{k} {float(np.median(v)):.2f}" for k, v in pairs_g.items())
           + f"; 512² bf16 standard body pallas {ips_gc:.2f} (peak {peak_gc:.0f} MiB) beside "
           f"xla {ips_f:.2f} (phase 5, peak {peak_f:.0f} MiB)")
+    print(f"  5b: the headline step at CL_TPU_CONV_BUDGET={CONV_BUDGET_22} (level 3 packed) "
+          f"{ips_b:.2f} img/s (peak {peak_b:.0f} MiB) beside the default's {ips_h:.2f} (peak "
+          f"{peak_h:.0f} MiB, 5h)")
     print(f"  variants: GroupNorm standard body 512² bf16 {ips_n:.2f} img/s (5n-a) beside "
           f"BatchNorm's {ips_f:.2f} (phase 5); baseline_5 with model.padded_head=false "
           f"train() {report_e.get('images_per_sec_per_chip')} beside the padded head's "

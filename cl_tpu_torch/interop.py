@@ -114,6 +114,13 @@ def variables_to_torch_state_dict(variables: dict[str, Any]) -> dict[str, np.nda
     return sd
 
 
+def output_channel_dim(name: str) -> int:
+    """The output-channel dim of a port weight named ``name`` (the last
+    axis of its flax kernel): 1 for a transposed conv's [I, O, kh, kw],
+    else 0."""
+    return 1 if name.split(".")[0].startswith("up") else 0
+
+
 def load_jax_variables(model: torch.nn.Module, variables: dict[str, Any]) -> None:
     """Fill ``model`` (the port's UNet) from a flax variable tree of numpy
     arrays. Every entry of the model must be given; copies keep each

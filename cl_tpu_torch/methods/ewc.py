@@ -91,15 +91,15 @@ def sample_fisher_labels(logits: torch.Tensor, y: torch.Tensor, valid_classes: t
     ``generator`` (on the logits' device: no host wait). A masked class
     (−1e9) is never drawn: −log(−log U) lies within [−4.5, 16.7] for U in
     [2⁻¹²⁶, 1 − 2⁻²⁴]. Returns labels of ``y``'s dtype. With ``dp`` (a
-    ``sharding.DataParallel``; ``logits`` this rank's rows) U is drawn
-    over the GLOBAL batch, as one process draws it, and the rank takes its
-    rows of that draw."""
+    ``sharding.DataParallel``; ``logits`` this rank's part: its rows of the
+    batch, or under spatial parallelism its rows of the image) U is drawn
+    over the GLOBAL logits, as one process draws it, and the rank takes its
+    part of that draw."""
     z = losses.mask_logits(logits.float(), valid_classes)
-    if dp is None:
-        u = torch.rand(z.shape, generator=generator, dtype=torch.float32, device=z.device)
-    else:
-        u = torch.rand((z.shape[0] * dp.world,) + z.shape[1:], generator=generator,
-                       dtype=torch.float32, device=z.device)[dp.rows(z.shape[0] * dp.world)]
+    shape = z.shape if dp is None else dp.global_shape(z.shape)
+    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=z.device)
+    if dp is not None:
+        u = dp.own(u)
     gumbel = -torch.log(-torch.log(u.clamp_min_(torch.finfo(torch.float32).tiny)))
     sampled = torch.argmax(z + gumbel, dim=-1)
     return torch.where(y == ignore_index, y, sampled.to(y.dtype))

@@ -22,7 +22,7 @@ admitted can find no tile and fail its ``caller must gate on
 supported()`` assert (``conv3x3_v3.py:218``); ``standard_body_refusal`` says where,
 so the port refuses those configs instead of running them.
 
-Sources (at their default budgets): ``cl_tpu/pallas/conv3x3.py::pick_pack``,
+Sources: ``cl_tpu/pallas/conv3x3.py::pick_pack``,
 ``conv3x3_v3.py::_vmem_estimate / _pick_th / supported / profitable /
 _geometry / _vmem_estimate_dx / _pick_th_dx / _pick_th_dw2 /
 _vmem_estimate_bwdf / _pick_th_bwdf / _cbf_bwd``,
@@ -40,13 +40,25 @@ Of the JAX package's environment variables, the port reads the two that
 choose a packed conv's backward, once at import, as ``conv3x3_v3`` reads
 them: ``CL_TPU_FUSE_BWD=1`` (``FUSE_BWD``: the one-pass backward #37
 first, where its tile fits) and ``CL_TPU_DX_PIPE=1`` (``DX_PIPE``: the
-pipelined dx, whose third dy slot enters the dx tile's estimate). The
-gates read the module attributes at call time, so a caller may set them
-per run. The tuning variables (``CL_TPU_CONV_BUDGET``,
-``CL_TPU_BWDF_BUDGET``, ``CL_TPU_ROW_TARGET``, ``CL_TPU_CAT_DOTS``,
-``CL_TPU_E_BF16``) are not ported: the gates keep their defaults, and
-``tuning_refusal`` names any of them set to another value, which
-``train.check_supported`` refuses.
+pipelined dx, whose third dy slot enters the dx tile's estimate); and
+three of its tuning variables with ``cl_tpu``'s parsing
+(``conv3x3_v3.py:70-85``): ``CL_TPU_CONV_BUDGET`` (``CONV_VMEM_BUDGET``,
+the conv tiles' VMEM budget, which decides how many levels run packed and
+which gen-3 routes and backward branches fit), ``CL_TPU_BWDF_BUDGET``
+(``FUSED_VMEM_BUDGET``, the one-pass backward's) and ``CL_TPU_ROW_TARGET``
+(``CONV_ROW_TARGET``, the dot rows a tile aims at, where the tile search
+starts). ``cl_tpu``'s th sets no tile of the port's kernels: under these
+three only the routes move (which levels are packed, which convs take the
+gen-3 conv, which backward a packed conv takes), and each route runs the
+port's own kernels, so the results differ from ``cl_tpu``'s by summation
+order alone. The gates read the module attributes at call time (the
+cached ones take them as arguments), so a caller may set them per run.
+``CL_TPU_CAT_DOTS`` (``conv3x3_v3.py:109-116``) is a dot schedule: 0 and 1
+move only the TPU's f32 summation order and nothing in the port, and any
+other value ``cl_tpu`` rejects at import; the port raises it as
+``ValueError`` from ``check_tuning`` (``train.check_supported``), not at
+its own import. ``CL_TPU_E_BF16=1`` (bf16 elementwise chains in the packed
+convs) is not ported: ``tuning_refusal`` names it.
 """
 
 from __future__ import annotations
@@ -57,37 +69,46 @@ import os
 FUSE_BWD = os.environ.get("CL_TPU_FUSE_BWD", "0") == "1"  # conv3x3_v3._FUSE_BWD
 DX_PIPE = os.environ.get("CL_TPU_DX_PIPE", "0") == "1"    # conv3x3_v3._DX_PIPE
 
-CONV_VMEM_BUDGET = 20 * 1024 * 1024  # conv3x3_v3._VMEM_BUDGET
-CONV_ROW_TARGET = 8192               # conv3x3_v3._ROW_TARGET
-FUSED_VMEM_BUDGET = 64 * 1024 * 1024  # conv3x3_v3._VMEM_BUDGET_FUSED
+_TUNING_ERRORS: list[str] = []  # values cl_tpu's int() would fail to parse at its import
+
+
+def _env_int(name: str, default: int) -> int:
+    """``int(os.environ.get(name, default))``, as ``conv3x3_v3`` parses
+    it; a value it cannot parse is kept for ``check_tuning`` to raise."""
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        _TUNING_ERRORS.append(f"{name}={os.environ[name]!r} is not an integer")
+        return default
+
+
+CONV_VMEM_BUDGET = _env_int("CL_TPU_CONV_BUDGET", 20 * 1024 * 1024)  # conv3x3_v3._VMEM_BUDGET
+CONV_ROW_TARGET = _env_int("CL_TPU_ROW_TARGET", 8192)                # conv3x3_v3._ROW_TARGET
+FUSED_VMEM_BUDGET = _env_int("CL_TPU_BWDF_BUDGET", 64 * 1024 * 1024)  # ._VMEM_BUDGET_FUSED
+CAT_DOTS = _env_int("CL_TPU_CAT_DOTS", 1)                            # conv3x3_v3._CAT_DOTS
+E_BF16 = os.environ.get("CL_TPU_E_BF16", "0") == "1"                 # conv3x3_v3._E_BF16
 POOL_VMEM_BUDGET = 10 * 1024 * 1024  # pool_pack._pick_th
 G2_SCRATCH_BUDGET = 4 * 1024 * 1024      # conv3x3._SCRATCH_BUDGET
 G2_SCRATCH_HARD_LIMIT = 8 * 1024 * 1024  # conv3x3._SCRATCH_HARD_LIMIT
 
-# cl_tpu's tuning variables (conv3x3_v3.py:70, :76, :85, :109, :683): how
-# cl_tpu parses each, and its default
-TUNING_DEFAULTS = {"CL_TPU_CONV_BUDGET": (int, CONV_VMEM_BUDGET),
-                   "CL_TPU_BWDF_BUDGET": (int, FUSED_VMEM_BUDGET),
-                   "CL_TPU_ROW_TARGET": (int, CONV_ROW_TARGET),
-                   "CL_TPU_CAT_DOTS": (int, 1),
-                   "CL_TPU_E_BF16": (lambda v: v == "1", False)}
+def check_tuning() -> None:
+    """Raise ``ValueError`` where ``cl_tpu`` rejects a tuning variable at
+    its import: a value ``int()`` cannot parse, or ``CL_TPU_CAT_DOTS``
+    outside {0, 1} (``conv3x3_v3.py:110-116``, its message)."""
+    if _TUNING_ERRORS:
+        raise ValueError("; ".join(_TUNING_ERRORS))
+    if CAT_DOTS not in (0, 1):
+        raise ValueError(
+            f"CL_TPU_CAT_DOTS={CAT_DOTS} unsupported: 2 (all five pieces in "
+            "one mixed-width dot) is rejected by Mosaic ('result/input offset "
+            "mismatch on non-concat dimension' — mixed-width lane concat is "
+            "unsupported); use 0 (five dots) or 1 (merged center dots, default)")
 
 
 def tuning_refusal() -> str | None:
-    """The tuning variables set in the environment to a value ``cl_tpu``
-    parses to something other than its default (or cannot parse), as
-    ``NAME=value`` joined by ", ", or None."""
-    bad = []
-    for name, (parse, default) in TUNING_DEFAULTS.items():
-        if name not in os.environ:
-            continue
-        try:
-            ok = parse(os.environ[name]) == default
-        except ValueError:
-            ok = False
-        if not ok:
-            bad.append(f"{name}={os.environ[name]}")
-    return ", ".join(bad) or None
+    """``CL_TPU_E_BF16=1`` as ``"CL_TPU_E_BF16=1"``, the one tuning
+    variable not ported, or None."""
+    return "CL_TPU_E_BF16=1" if E_BF16 else None
 
 
 def pick_pack(c_in: int, c_out: int) -> int:
@@ -275,14 +296,15 @@ def double_conv_route(h: int, w: int, c_in: int, features: int, conv_impl: str,
     ``g2_supported``), ``"hybrid"`` (cuDNN forward and dx, the gen-2 dW
     where ``g2_supported``, else cuDNN's: every conv under
     ``conv_impl=hybrid``, the stem included), ``"xla"`` (cuDNN). Cached
-    per shape (and budget): the model asks at every forward. ``level``
+    per shape, budget and row target: the model asks at every forward. ``level``
     False leaves the packed level out (``cl_tpu``'s DoubleConv under
     ``dp_axis``): each conv takes its own route."""
-    return _double_conv_route(h, w, c_in, features, conv_impl, norm, level, CONV_VMEM_BUDGET)
+    return _double_conv_route(h, w, c_in, features, conv_impl, norm, level, CONV_VMEM_BUDGET,
+                              CONV_ROW_TARGET)
 
 
 @functools.lru_cache(maxsize=None)
-def _double_conv_route(h, w, c_in, features, conv_impl, norm, level, budget):
+def _double_conv_route(h, w, c_in, features, conv_impl, norm, level, budget, row_target):
     if conv_impl == "hybrid":
         return "hybrid", "hybrid"
     if conv_impl == "pallas":
@@ -358,15 +380,16 @@ def conv_bwd_branch(h: int, w: int, c_in: int, c_out: int, p: int, itemsize: int
     for dt and the dW with the prologue). ``c_in`` is the channels of the
     conv's packed input view (the stem's 3 are padded to 128 / p).
     ``fuse_bwd`` None reads ``FUSE_BWD``; the int8 backward passes False
-    (``_cbfq_bwd`` never reads it). Cached per shape, switch and budget."""
+    (``_cbfq_bwd`` never reads it). Cached per shape, switch, budget and
+    row target."""
     fuse = FUSE_BWD if fuse_bwd is None else bool(fuse_bwd)
     return _conv_bwd_branch(h, w, c_in, c_out, p, itemsize, bool(prologue), fuse, DX_PIPE,
-                            CONV_VMEM_BUDGET, FUSED_VMEM_BUDGET)
+                            CONV_VMEM_BUDGET, FUSED_VMEM_BUDGET, CONV_ROW_TARGET)
 
 
 @functools.lru_cache(maxsize=None)
 def _conv_bwd_branch(h, w, c_in, c_out, p, itemsize, prologue, fuse, dx_pipe, budget,
-                     fused_budget):
+                     fused_budget, row_target):
     wg = w // p
     lanes, lanes_x = p * c_out, p * c_in
     kdx, kdw = (p + 2) * c_out, (p + 2) * c_in

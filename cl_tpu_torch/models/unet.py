@@ -90,6 +90,11 @@ global ones, so they stay equal on every rank. With ``model.packed_unet``
 the gen-3 packed-level route is off under DP, as ``cl_tpu``'s
 ``DoubleConv`` turns it off under ``dp_axis`` (``unet.py:314-315``).
 
+Under spatial parallelism (``set_data_parallel`` with a
+``sharding.SpatialParallel``) ``forward`` is ``parallel/spatial.py``'s
+height-sharded forward over the same params, with ``cl_tpu``'s spatial
+arithmetic (GroupNorm only; its own normalization order, no kernel).
+
 ``act_q`` (``model.conv_act_store=int8``) stores the saved activations of
 every packed conv that ``packed_gate.q_supported`` admits (its input's
 width over the level's P a multiple of 32) as int8 with row scales
@@ -113,6 +118,7 @@ from cl_tpu_torch.kernels import conv3x3, conv3x3_g2, packed_eltwise, pool_pack,
 from cl_tpu_torch.losses import NEG_INF
 from cl_tpu_torch.models.packed_gate import (double_conv_route, packed_prefix, pick_pack,
                                              q_supported)
+from cl_tpu_torch.parallel import spatial
 from cl_tpu_torch.sharding import all_reduce_sum
 
 BN_EPS = 1e-5
@@ -492,11 +498,14 @@ class UNet(nn.Module):
         process's batch). ``per_shard`` (``model.packed_unet``: ``cl_tpu``
         runs the model per shard with ``dp_axis`` set, else plain GSPMD on
         the global batch) turns the gen-3 packed-level route off under a
-        group, as ``cl_tpu``'s ``DoubleConv`` does under ``dp_axis``."""
+        group, as ``cl_tpu``'s ``DoubleConv`` does under ``dp_axis``. A
+        ``sharding.SpatialParallel`` group sends every forward through the
+        height-sharded one (``parallel/spatial.py``), which has no
+        BatchNorm."""
         self.dp = dp
         for mod in self.modules():
             if isinstance(mod, BatchNorm):
-                mod.dp = dp
+                mod.dp = None if dp is None or dp.spatial else dp
             elif isinstance(mod, DoubleConv):
                 mod.level_route = dp is None or not per_shard
         return self
@@ -520,7 +529,17 @@ class UNet(nn.Module):
         skips the final BN·ReLU (the operands of
         ``head_ce.head_cross_entropy_packed_bn``, which applies it
         in-kernel; ``keep_packed`` in ``cl_tpu``). Where the packed body
-        does not engage, the features come back plain, as in ``cl_tpu``."""
+        does not engage, the features come back plain, as in ``cl_tpu``.
+
+        Under a height-sharded group (``self.dp.spatial``) the forward is
+        ``spatial.spatial_apply``'s: the logits of this rank's rows of the
+        whole batch ``x`` (``cl_tpu``'s ``spatial_apply_fn``, which the
+        train, eval and Fisher steps and the LwF teacher all take)."""
+        if self.dp is not None and self.dp.spatial:
+            if return_features:
+                raise ValueError("the spatial forward returns logits only: the fused head "
+                                 "is off under train.spatial_parallel")
+            return spatial.spatial_apply(self, x, self.dp, self.dtype)
         if self.packed_levels(x.shape[1], x.shape[2]) > 0:
             keep = return_features and packed_features
             z = self._packed_body(x.to(self.dtype).contiguous(), keep_raw=keep)

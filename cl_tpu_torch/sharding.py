@@ -1,5 +1,6 @@
-"""Data parallelism across cards: the process group, the rank's rows of
-the global batch and the collectives of a data-parallel step.
+"""Data and spatial parallelism across cards: the process group, the
+rank's rows of the global batch (or of every image), the collectives of a
+sharded step, and the 2-D mesh's channel-sharding rule.
 
 The counterpart of ``cl_tpu/sharding.py`` and of the mesh routes of
 ``cl_tpu/train.py``. ``cl_tpu`` runs one controller over a 1-D mesh of
@@ -23,6 +24,17 @@ group, each holding the whole replicated state:
   * collectives are all-reduce and barrier only: gloo does both on CUDA
     tensors, so two ranks can share one card over gloo (NCCL refuses two
     ranks on one card).
+
+Under ``train.spatial_parallel`` (``SpatialParallel``, which takes
+precedence over data parallelism) every rank holds the whole replicated
+batch, the replay rows and the augment included, and computes rows
+``[r·H/n, (r+1)·H/n)`` of every level (``parallel/spatial.py``); the loss,
+the gradient's all-reduce and the replicated EWC penalty are those of data
+parallelism, over the rank's rows of every image. ``make_mesh_2d`` /
+``param_specs`` are ``cl_tpu``'s ``('data', 'model')`` mesh and its rule
+for sharding conv output channels over the model axis ("TP readiness"):
+no training path uses them, in ``cl_tpu`` either; ``gathered_forward``
+runs the model from weights stored as shards.
 
 Launching (``join``): a process joins the default group the caller
 initialized (the CPU tests, a gloo group), or the one that ``torchrun``
@@ -60,9 +72,12 @@ class DataParallel:
     tensors live on. Shared, never copied: a deep copy of a model (the LwF
     teacher) keeps the same object."""
 
-    def __init__(self, device: torch.device | str = "cpu"):
-        self.rank = dist.get_rank()
-        self.world = dist.get_world_size()
+    spatial = False  # each rank trains on its rows of the batch
+
+    def __init__(self, device: torch.device | str = "cpu", *, alone: bool = False):
+        """``alone``: a group of this process only (rank 0 of 1, no
+        collective), the one-rank reference of a sharded run."""
+        self.rank, self.world = (0, 1) if alone else (dist.get_rank(), dist.get_world_size())
         self.device = torch.device(device)
 
     def __deepcopy__(self, memo):
@@ -80,15 +95,62 @@ class DataParallel:
         sl = self.rows(len(batch[0]))
         return type(batch)(*(a[sl] for a in batch))
 
+    def global_shape(self, shape) -> tuple:
+        """The shape of the global tensor of which a tensor of ``shape``
+        is this rank's part."""
+        return (shape[0] * self.world,) + tuple(shape[1:])
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a global tensor."""
+        return t[self.rows(t.shape[0])]
+
+    def output_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a tensor computed from the batch the rank
+        was given (the labels after the augment): here the tensor itself,
+        since the rank was given its rows."""
+        return t
+
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """In-place sum over the group, outside autograd."""
-        dist.all_reduce(t)
+        if self.world > 1:
+            dist.all_reduce(t)
         return t
 
     def barrier(self) -> None:
         """Every rank reaches this point before any goes on (an all-reduce
         of one element: the same call on gloo and NCCL)."""
         self.all_reduce_(torch.zeros(1, device=self.device))
+
+
+class SpatialParallel(DataParallel):
+    """This process's place in a height-sharded group
+    (``train.spatial_parallel``, ``parallel/spatial.py``): every rank holds
+    the whole replicated batch, the replay rows and the augment included,
+    and computes rows ``[r·H/n, (r+1)·H/n)`` of every level
+    (``cl_tpu/train.py:1062-1064``: the batch replicated, H sharded)."""
+
+    spatial = True
+
+    def rows(self, n_global: int) -> slice:
+        """This rank's contiguous rows of a height of ``n_global``."""
+        if n_global % self.world:
+            raise ValueError(f"height {n_global} does not divide over {self.world} ranks")
+        per = n_global // self.world
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+    def local(self, batch):
+        """The batch itself: every rank holds all of it."""
+        return batch
+
+    def global_shape(self, shape) -> tuple:
+        return (shape[0], shape[1] * self.world) + tuple(shape[2:])
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        return t[:, self.rows(t.shape[1])]
+
+    def output_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a [B, H, ...] tensor of the whole batch."""
+        return self.own(t)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -137,6 +199,73 @@ def all_reduce_grads(params, dp: DataParallel) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The 2-D mesh: conv output channels over a model axis (cl_tpu/sharding.py:
+# 104-143, "TP readiness"). No training path uses it, in cl_tpu either.
+# ---------------------------------------------------------------------------
+
+DATA_AXIS, MODEL_AXIS = "data", "model"
+
+
+def make_mesh_2d(model: int, world: int | None = None, device_type: str = "cuda"):
+    """A ``("data", "model")`` device mesh of shape (world / model, model)
+    over the default group (``world`` None: its size); raises
+    ``ValueError`` when ``model`` does not divide the world."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size() if world is None else world
+    if world % model:
+        raise ValueError(f"{world} devices not divisible by model={model}")
+    return init_device_mesh(device_type, (world // model, model),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+def param_specs(model, mesh, *, min_channels: int = 64) -> dict:
+    """Each parameter's placements on ``mesh`` by name: a 4-D weight whose
+    output channels (``interop.output_channel_dim``: dim 0 of a conv or
+    the head, dim 1 of a transposed conv, flax's HWIO last axis either
+    way) number at least ``min_channels`` and divide by the model axis is
+    sharded on that dim over the model axis and replicated over the data
+    axis; everything else is replicated. A mesh without a model axis
+    replicates everything."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from cl_tpu_torch.interop import output_channel_dim
+
+    rep = tuple(Replicate() for _ in mesh.mesh_dim_names)
+    if MODEL_AXIS not in mesh.mesh_dim_names:
+        return {name: rep for name, _ in model.named_parameters()}
+    ax = mesh.mesh_dim_names.index(MODEL_AXIS)
+    m = mesh.size(ax)
+    specs = {}
+    for name, p in model.named_parameters():
+        d = output_channel_dim(name)
+        if p.ndim == 4 and p.shape[d] >= min_channels and p.shape[d] % m == 0:
+            specs[name] = rep[:ax] + (Shard(d),) + rep[ax + 1:]
+        else:
+            specs[name] = rep
+    return specs
+
+
+def shard_params(model, mesh, specs: dict) -> dict:
+    """The model's parameters stored as ``DTensor``s on ``mesh`` by
+    ``specs``: each rank keeps only its shard of a sharded weight."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return {name: distribute_tensor(p.detach(), mesh, specs[name])
+            for name, p in model.named_parameters()}
+
+
+def gathered_forward(model, x: torch.Tensor, shards: dict) -> torch.Tensor:
+    """The model's forward on ``x`` from parameters stored as shards
+    (``shard_params``): each weight gathered at use over the model axis
+    (``full_tensor``), so the logits are the replicated model's. (DTensor's
+    own convolution rule propagates only the input's placement and would
+    ignore a sharded weight.)"""
+    full = {name: t.full_tensor() for name, t in shards.items()}
+    return torch.func.functional_call(model, full, (x,))
+
+
+# ---------------------------------------------------------------------------
 # Launching
 # ---------------------------------------------------------------------------
 
@@ -159,14 +288,15 @@ def rank_device(device: torch.device) -> torch.device:
 
 
 def join(cfg, device: torch.device) -> DataParallel | None:
-    """This process's ``DataParallel`` for ``cfg`` on ``device``, or None
-    (one process). A group the caller initialized is used as it is; else,
+    """This process's ``DataParallel`` for ``cfg`` on ``device`` (a
+    ``SpatialParallel`` under ``train.spatial_parallel``), or None (one
+    process). A group the caller initialized is used as it is; else,
     under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment), the
     process joins the group the environment names, NCCL on a card and
     gloo on the CPU, and a failed init raises. ``train.multihost=true``
     with no group named raises; a group of more than one process with
-    ``train.data_parallel=false`` raises too (N processes would train N
-    replicas)."""
+    neither ``train.spatial_parallel`` nor ``train.data_parallel`` raises
+    too (N processes would train N replicas)."""
     t = cfg.train
     if not dist.is_initialized() and _env_world() > 1:
         missing = [k for k in _ENV if k not in os.environ]
@@ -191,6 +321,8 @@ def join(cfg, device: torch.device) -> DataParallel | None:
     world = dist.get_world_size()
     if world == 1:
         return None
+    if t.spatial_parallel:  # takes precedence over data parallelism (cl_tpu/train.py:1062)
+        return SpatialParallel(device=rank_device(device))
     if not t.data_parallel:
         raise ValueError(f"{world} processes in the group but train.data_parallel=false: "
                          "each would train a replica of its own")
@@ -204,10 +336,11 @@ def leave() -> None:
 
 
 def should_spawn(cfg, device: torch.device) -> bool:
-    """``train.data_parallel``, no group and none named in the environment,
-    the card unpinned (``cuda`` with no index) and more than one visible:
-    ``train()`` spawns one worker per card."""
-    return (cfg.train.data_parallel and device.type == "cuda" and device.index is None
+    """``train.data_parallel`` or ``train.spatial_parallel``, no group and
+    none named in the environment, the card unpinned (``cuda`` with no
+    index) and more than one visible: ``train()`` spawns one worker per
+    card."""
+    return ((cfg.train.data_parallel or cfg.train.spatial_parallel) and device.type == "cuda" and device.index is None
             and not dist.is_initialized() and _env_world() == 1
             and torch.cuda.device_count() > 1)
 

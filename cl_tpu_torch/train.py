@@ -63,12 +63,27 @@ gradient summed over the group in one flat all-reduce, then EWC's
 replicated penalty's gradient added once on every rank; the eval's
 confusion matrix and the Fisher's gradient summed likewise. The steps read
 the group from ``model.dp``; rank 0 logs and writes the checkpoints.
+
+``train.spatial_parallel`` over a group (``sharding.SpatialParallel``,
+which takes precedence over data parallelism) runs ``cl_tpu``'s spatial
+routes (``cl_tpu/train.py:1062-1186``): the model's forward height-sharded
+(``parallel/spatial.py``) in the train, eval and Fisher steps and the LwF
+teacher; the whole batch on every rank and the labels of the rank's rows;
+no kernel route (the plain losses, KD, EWC penalty, augment and Fisher
+accumulation, as ``cl_tpu`` runs there); the packed body, the device
+replay buffer and the device cache turned off with ``cl_tpu``'s warnings
+and events; ``ValueError`` unless ``model.norm=group`` and the image size
+divides by n·2^depth. ``model.conv_impl`` and ``train.remat`` do not
+reach the spatial forward, as in ``cl_tpu``; a grown head runs at its own
+width. One process with the flag trains unsharded, with no check.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -107,22 +122,21 @@ def _packed_engages(cfg: Config) -> bool:
 def check_supported(cfg: Config, device: torch.device | None = None) -> None:
     """Raise ``NotImplementedError`` for a config this slice does not run,
     instead of running something else."""
-    m, t, meth = cfg.model, cfg.train, cfg.method
+    m, meth = cfg.model, cfg.method
     unported = []
     if m.conv_impl not in ("xla", "v3", "auto", "pallas", "hybrid"):
         raise ValueError(f"unknown model.conv_impl {m.conv_impl!r}")
     if m.upconv_impl not in ("xla", "matmul"):
         raise ValueError(f"unknown model.upconv_impl {m.upconv_impl!r}")
+    packed_gate.check_tuning()
     tuning = packed_gate.tuning_refusal()
     if tuning:
-        unported.append(f"cl_tpu's tuning variables set to other than their defaults ({tuning}; "
-                        "the port keeps the defaults)")
+        unported.append(f"{tuning} (the bf16 elementwise chains of the packed convs' prologue "
+                        "and backward)")
     if set(meth.methods) - {"ewc", "lwf", "replay"}:
         unported.append(f"method.methods={meth.methods}")
     if meth.ewc_fisher_kind not in ("empirical", "true"):
         raise ValueError(f"unknown method.ewc_fisher_kind {meth.ewc_fisher_kind!r}")
-    if t.spatial_parallel:
-        unported.append("train.spatial_parallel")
     if unported:
         raise NotImplementedError(
             "not in this slice of the port: " + "; ".join(unported)
@@ -282,9 +296,12 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
     dp = model.dp
     compute_dtype = _dtype(cfg)
     aug_kernels = augment_kernels_on(cfg, dp)
-    use_packed_head = packed_head_on(cfg)
-    use_fused_head = fused_head_on(cfg)
-    use_kernels = cfg.train.use_pallas
+    # no kernel route under spatial parallelism: cl_tpu runs the plain
+    # losses, KD and EWC penalty there (train.py:234, :253, :345)
+    spatial = dp is not None and dp.spatial
+    use_packed_head = packed_head_on(cfg) and not spatial
+    use_fused_head = fused_head_on(cfg) and not spatial
+    use_kernels = cfg.train.use_pallas and not spatial
     use_lwf = "lwf" in m.methods
     if use_lwf and lwf is None:
         raise ValueError("method.methods has lwf: pass "
@@ -352,6 +369,8 @@ def make_train_step(cfg: Config, model: UNet, opt: torch.optim.Optimizer,
         x, y = augment(batch.image, batch.mask, batch.flip,
                        out_size=d.image_size, mean=d.mean, std=d.std,
                        compute_dtype=compute_dtype, use_kernels=aug_kernels)
+        if dp is not None:  # under spatial, the labels of this rank's rows
+            y = dp.output_rows(y)
         model.train()
         ce, n_pix, kd = loss_fn(x, y, valid_classes)
         opt.zero_grad(set_to_none=True)
@@ -418,6 +437,8 @@ def make_eval_step(cfg: Config, model: UNet, device=None) -> Callable:
                        compute_dtype=compute_dtype, use_kernels=aug_kernels)
         model.eval()
         logits = model(x)
+        if model.dp is not None:
+            y = model.dp.output_rows(y)
         return metrics.confusion_matrix_update(
             conf, logits, y, valid_classes, ignore_index=d.ignore_index)
 
@@ -569,7 +590,9 @@ def make_fisher_step(cfg: Config, model: UNet, device=None) -> Callable:
     dp = model.dp
     compute_dtype = _dtype(cfg)
     aug_kernels = augment_kernels_on(cfg, dp)
-    accumulate = ewc_fused.sq_accumulate if cfg.train.use_pallas else ewc_fused.sq_acc_plain
+    # #19's plain version under spatial parallelism (cl_tpu/train.py:778)
+    use_kernel = cfg.train.use_pallas and not (dp is not None and dp.spatial)
+    accumulate = ewc_fused.sq_accumulate if use_kernel else ewc_fused.sq_acc_plain
     sampled = cfg.method.ewc_fisher_kind == "true"
 
     def step(acc, batch: pipeline.HostBatch, valid_classes, generator=None):
@@ -579,6 +602,8 @@ def make_fisher_step(cfg: Config, model: UNet, device=None) -> Callable:
         x, y = augment(batch.image, batch.mask, batch.flip,
                        out_size=d.image_size, mean=d.mean, std=d.std,
                        compute_dtype=compute_dtype, use_kernels=aug_kernels)
+        if dp is not None:
+            y = dp.output_rows(y)
         g = ewc_lib.fisher_batch_grads(model, x, y, valid_classes,
                                        ignore_index=d.ignore_index,
                                        generator=generator if sampled else None, dp=dp)
@@ -633,8 +658,10 @@ def device_replay_on(cfg: Config, dp=None) -> bool:
     """The device-resident replay buffer (``method.replay_device_resident``),
     off under a group without ``data.device_cache``: ``cl_tpu``'s route on
     a mesh (``train.py:1151-1160``), where the host buffer's draws are the
-    same ``RandomState`` calls, so the result is the same."""
-    return cfg.method.replay_device_resident and (dp is None or cfg.data.device_cache)
+    same ``RandomState`` calls, so the result is the same; off under
+    spatial parallelism (``train.py:1140-1150``)."""
+    return cfg.method.replay_device_resident and (
+        dp is None or (cfg.data.device_cache and not dp.spatial))
 
 
 def make_replay_buffer(cfg: Config, device=None, dp=None):
@@ -819,7 +846,23 @@ def _train_impl(cfg: Config, logger, init_variables, device, dp=None) -> dict:
     from cl_tpu_torch.interop import load_jax_variables
 
     d, m = cfg.data, cfg.method
-    if dp is not None:
+    spatial = dp is not None and dp.spatial
+    if spatial:
+        # height-sharded training (cl_tpu/train.py:1062-1088): the batch
+        # replicated, every level's H sharded; the packed body is off
+        if cfg.model.norm != "group":
+            raise ValueError("spatial_parallel needs model.norm='group' (BatchNorm batch "
+                             "stats are not sharded spatially)")
+        if d.image_size % (dp.world << cfg.model.depth):
+            raise ValueError(f"spatial_parallel: image_size {d.image_size} must divide by "
+                             f"n_devices*2^depth = {dp.world << cfg.model.depth}")
+        if cfg.model.packed_unet:
+            logger.log(event="packed_unet_disabled", reason="spatial_mesh")
+            warnings.warn("model.packed_unet disabled under spatial_parallel (falling back "
+                          "to the standard body)", stacklevel=2)
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                     packed_unet=False))
+    elif dp is not None:
         # cl_tpu/train.py:1070-1072, :1200-1204: the global batch, and with
         # replay the widened one, must divide over the group
         sharding.check_divisible(d.batch_size, dp.world)
@@ -839,13 +882,25 @@ def _train_impl(cfg: Config, logger, init_variables, device, dp=None) -> dict:
     replay = make_replay_buffer(cfg, device, dp)
     dev_replay = isinstance(replay, replay_gather.DeviceReplayBuffer)
     if m.replay_device_resident and "replay" in m.methods and not dev_replay:
-        logger.log(event="replay_device_resident_disabled", reason="dp_mesh")
-    world = 1 if dp is None else dp.world
+        logger.log(event="replay_device_resident_disabled",
+                   reason="spatial_mesh" if spatial else "dp_mesh")
+        if spatial:
+            warnings.warn("method.replay_device_resident disabled under spatial_parallel "
+                          "(falling back to the host buffer; result-identical)", stacklevel=2)
+    # images/s per chip: cl_tpu divides by its data mesh's size, and under
+    # spatial parallelism it has none (cl_tpu/train.py:1500)
+    world = 1 if dp is None or spatial else dp.world
     # The device-resident dataset (data.device_cache): the task's train set
     # and each task's val set parked on the device, the plan-driven steps
     # over them (cl_tpu/train.py:1174-1199); under a group every rank holds
-    # the whole cache.
+    # the whole cache. Under spatial parallelism the host pipeline feeds the
+    # same stream (cl_tpu/train.py:1177-1186).
     dev_cache = d.device_cache
+    if dev_cache and spatial:
+        logger.log(event="device_cache_disabled", reason="spatial_mesh")
+        warnings.warn("data.device_cache disabled under spatial_parallel (falling back to "
+                      "the host pipeline; result-identical)", stacklevel=2)
+        dev_cache = False
     state = ckpt_lib.TrainState(model, build_optimizer(cfg, model), ewc, lwf)
 
     def _build_steps():
@@ -1032,7 +1087,7 @@ def _train_impl(cfg: Config, logger, init_variables, device, dp=None) -> dict:
     report["config_hash"] = cfg.config_hash()
     report["device"] = device_name(device)
     if dp is not None:
-        report["data_parallel"] = dp.world
+        report["spatial_parallel" if spatial else "data_parallel"] = dp.world
     if step_times:
         total_s = sum(t for t, _ in step_times)
         total_steps = sum(n for _, n in step_times)

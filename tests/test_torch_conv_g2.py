@@ -29,8 +29,8 @@ CPU.
   ``jax.eval_shape`` trace of a train-mode gradient, the port on the
   ``meta`` device: baselines 1 and 2 under pallas and hybrid, f32 and bf16,
   and baseline_3 (the packed body) under pallas, where nothing is launched.
-- ``cl_tpu``'s tuning variables: ``check_supported`` refuses each set to a
-  value other than its default and accepts all five at their defaults.
+- ``cl_tpu``'s tuning variables: ``check_supported`` refuses
+  ``CL_TPU_E_BF16=1`` and accepts all five at their defaults.
 """
 
 import collections
@@ -521,19 +521,13 @@ def test_routes_packed_body_ignores_pallas():
 
 
 @pytest.mark.parametrize("name,value", [
-    ("CL_TPU_CONV_BUDGET", str(16 * 1024 * 1024)),
-    ("CL_TPU_BWDF_BUDGET", str(14 * 1024 * 1024)),
-    ("CL_TPU_ROW_TARGET", "4096"),
-    ("CL_TPU_CAT_DOTS", "0"),
     ("CL_TPU_E_BF16", "1"),
 ])
 def test_tuning_variables_refused(name, value, monkeypatch):
-    """A tuning variable set to a value ``cl_tpu`` parses to other than its
-    default changes ``cl_tpu``'s tiles, branches or roundings; the port
-    keeps the defaults and refuses the run."""
-    for other in packed_gate.TUNING_DEFAULTS:
-        monkeypatch.delenv(other, raising=False)
-    monkeypatch.setenv(name, value)
+    """``CL_TPU_E_BF16=1`` changes the rounding inside ``cl_tpu``'s bf16
+    packed kernels; the port has no such variant and refuses the run (the
+    four route-only variables run: ``tests/test_torch_tuning.py``)."""
+    monkeypatch.setattr(packed_gate, "E_BF16", value == "1")
     cfg = parse_overrides(["preset=smoke"])
     with pytest.raises(NotImplementedError, match=f"{name}={value}"):
         port_train.check_supported(cfg, CPU)
@@ -542,12 +536,11 @@ def test_tuning_variables_refused(name, value, monkeypatch):
 
 
 def test_tuning_variables_at_their_defaults_accepted(monkeypatch):
-    """All five set to what ``cl_tpu`` parses as its defaults (20 MiB,
-    64 MiB, 8192, 1 and off) are accepted."""
-    for name, value in (("CL_TPU_CONV_BUDGET", str(20 * 1024 * 1024)),
-                        ("CL_TPU_BWDF_BUDGET", str(64 * 1024 * 1024)),
-                        ("CL_TPU_ROW_TARGET", "8192"), ("CL_TPU_CAT_DOTS", "1"),
-                        ("CL_TPU_E_BF16", "0")):
-        monkeypatch.setenv(name, value)
+    """All five at what ``cl_tpu`` parses as its defaults (20 MiB, 64 MiB,
+    8192, 1 and off) are accepted."""
+    for name, value in (("CONV_VMEM_BUDGET", 20 * 1024 * 1024),
+                        ("FUSED_VMEM_BUDGET", 64 * 1024 * 1024),
+                        ("CONV_ROW_TARGET", 8192), ("CAT_DOTS", 1), ("E_BF16", False)):
+        monkeypatch.setattr(packed_gate, name, value)
     assert packed_gate.tuning_refusal() is None
     port_train.check_supported(parse_overrides(["preset=smoke"]), CPU)

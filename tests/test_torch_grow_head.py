@@ -95,6 +95,7 @@ def test_expand_head_keeps_old_class_logits_exactly():
     # the new rows: untruncated N(0, 1/fan_in) (cl_tpu's lecun_normal
     # without the truncation) on a CPU generator, so every device draws them
     big = UNet(5, base_channels=64, depth=1, head_width=1)
+    init_weights(big, torch.Generator().manual_seed(4))  # no row of uninitialized memory
     expand_head(big, 5, torch.Generator().manual_seed(3))
     rows = big.head.weight[1:].detach().numpy().ravel() * np.sqrt(64)
     assert abs(rows.std() - 1) < 0.15 and np.abs(rows).max() > 2.0

@@ -65,32 +65,6 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    # the packed head where the packed body declines runs since the LwF
-    # slice (test_configs_the_lwf_slice_made_runnable); int8 saved
-    # activations of the packed convs since their slice
-    # (test_conv_act_store_int8_trains)
-    # model.conv_impl=v3 and =auto run since the gen-3 conv's slice
-    # (test_conv_impl_v3_and_auto_train); model.upconv_impl=matmul and
-    # model.conv_impl=hybrid|pallas since the gen-2 conv's slice
-    # (test_gen2_routes_train)
-    # model.norm=group, model.padded_head=false and train.profile_dir run
-    # since the variants' slice (test_configs_the_variants_slice_made_runnable)
-    # the data path runs since its slice (pallas_augment, device_cache,
-    # synthetic_native: test_data_path_configs_run); the sampled Fisher,
-    # checkpoints and resume since theirs
-    # (test_configs_the_checkpoint_slice_made_runnable); train.remat and
-    # train.multihost since the data-parallel slice
-    # (test_configs_the_dp_slice_made_runnable)
-    "train.spatial_parallel=true",
-])
-def test_unported_configs_raise(override):
-    """Each raises NotImplementedError: a later slice of the port."""
-    cfg = config.parse_overrides(["preset=smoke", *override.split()])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_train.train(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("override", [
     "model.norm=group",
     "model.padded_head=false data.num_classes=5 train.num_tasks=2 "
     "method.methods=ewc,lwf,replay",
