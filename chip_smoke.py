@@ -329,9 +329,26 @@ Phases (any failure raises, so the exit code is non-zero):
    card against the CPU; 5b-c ``CL_TPU_BWDF_BUDGET=14680064`` under
    ``CL_TPU_FUSE_BWD=1``: level 2's four convs from #37 to the fused dx and
    dW, 3 + 10 steps each with launch counts;
+5u. ``CL_TPU_E_BF16=1`` (``tuned(E_BF16=True)``), the bf16 elementwise
+   chains of the packed convs (phase 3u first holds each kernel that takes
+   them, #32, #34/#35, 34p/35p, #36, #37, #33 and #39, at every shape of
+   its path and a ragged one against its plain variant: random operands
+   at the default's tolerance, relaunched bit-equal; exact probes bit for
+   bit (the centre-tap identity weight, or one nonzero pixel of x or dy)
+   and, where they reach a chain, unlike the flag-off launch; the f32
+   instances unchanged): 5u-a the headline step under the flag, 3 + 10
+   steps with 5h's launches under the variants' keys, five pairs against
+   the default with the card's name and power limit; 5u-b one step each
+   with ``model.conv_act_store=int8``, ``CL_TPU_FUSE_BWD``,
+   ``CL_TPU_DX_PIPE`` and the 22 MiB budget (#33), the variants launched;
+   5u-c ``preset=baseline_1 model.packed_min_size=0
+   train.compute_dtype=bfloat16``, one SGD step on the card against the
+   CPU with and without the flag: the flag's worst update gap within
+   twice the default's;
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take; the level-3
-   kernels of 5b-a at their shapes.
+   kernels of 5b-a at their shapes; each variant of 5u beside its default
+   at every shape of its path.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails the
@@ -982,24 +999,26 @@ def packed_name(kernel, shape, dtype_name):
     return f"{kernel}[{','.join(str(v) for v in shape)},{dtype_name}]"
 
 
-def compare_packed(kernel, shape, dtype_name, batch=8):
+def compare_packed(kernel, shape, dtype_name, batch=8, ew=False):
     """Kernel vs plain on the card; returns the max abs error of the main
     output. Tolerances: exact where both round one exact f32 value (the
     eltwise passes, the pool); for the conv and up-conv 1e-5 + 1e-5·|plain|
     in f32 (f32 sums in another order) and one bf16 ulp + 1e-5 in bf16;
     the conv's and add's sums against a sum of the kernel's own output at
-    1e-5 of Σ|term|."""
+    1e-5 of Σ|term|. ``ew``: the conv's variant under CL_TPU_E_BF16 (both
+    with ``e_bf16``)."""
     import torch
 
     launch, plain, _ = packed_fns(kernel)
+    kw = {"e_bf16": True} if ew else {}
     ops = packed_operands(kernel, shape, dtype_name, batch)
-    k_out, p_out = launch(*ops), plain(*ops)
-    again = launch(*ops) if kernel in ("conv3x3_bn_fwd", "upconv_fwd") else None
+    k_out, p_out = launch(*ops, **kw), plain(*ops, **kw)
+    again = launch(*ops, **kw) if kernel in ("conv3x3_bn_fwd", "upconv_fwd") else None
     torch.cuda.synchronize()
     if not isinstance(k_out, tuple):
         k_out, p_out = (k_out,), (p_out,)
         again = None if again is None else (again,)
-    name = packed_name(kernel, shape, dtype_name)
+    name = packed_name(kernel, shape, dtype_name) + ("[ebf16]" if ew else "")
     # the conv's sums are fixed-order partials, the up-conv's schedule a
     # function of the shapes: a second launch repeats every bit
     need(again is None or all(torch.equal(u, v) for u, v in zip(k_out, again)),
@@ -1447,7 +1466,7 @@ def _abs_terms(kernel, ops):
     return None
 
 
-def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True):
+def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True, ew=False):
     """Backward kernel vs its plain version on the card; returns the max abs
     error of its main output. Tolerances: exact for the pool and the two
     eltwise passes (the same f32 operations, one rounding); dx one bf16 ulp
@@ -1456,19 +1475,21 @@ def compare_bwd(kernel, shape, dtype_name, batch=8, stats=True):
     dW and db 2 bf16 ulps + 1e-5·Σ|term| in bf16, 1e-5·Σ|term| + 1e-6 in f32
     (a sum over every pixel in another order); the per-channel sums of the
     eltwise and the conv's da, db 1e-5 of Σ|term|. A second launch must
-    give the same bits."""
+    give the same bits. ``ew``: the conv's variant under CL_TPU_E_BF16."""
     import torch
 
     launch, plain, _ = bwd_fns(kernel)
+    kw = {"e_bf16": True} if ew else {}
     ops = bwd_operands(kernel, shape, dtype_name, batch, stats=stats)
-    k_out, p_out, again = launch(*ops), plain(*ops), launch(*ops)
+    k_out, p_out, again = launch(*ops, **kw), plain(*ops, **kw), launch(*ops, **kw)
     torch.cuda.synchronize()
     if not isinstance(k_out, tuple):
         k_out, p_out, again = (k_out,), (p_out,), (again,)
     # no float atomics: a second launch repeats every bit
     need(all(u is None or torch.equal(u, v) for u, v in zip(k_out, again)),
          f"{kernel}{shape} {dtype_name}: a second launch repeats every bit")
-    name = packed_name(kernel, shape, dtype_name) + ("" if stats else "[no stats]")
+    name = packed_name(kernel, shape, dtype_name) + ("" if stats else "[no stats]") + \
+        ("[ebf16]" if ew else "")
     bf16 = dtype_name == "bfloat16"
     terms = _abs_terms(kernel, ops)
     if terms is not None and not isinstance(terms, tuple):
@@ -1973,21 +1994,22 @@ def v3_name(kernel, shape, dtype_name, batch=8):
     return f"{kernel}[{batch}x{'x'.join(str(v) for v in shape)},{dtype_name}]"
 
 
-def compare_v3(kernel, shape, dtype_name, batch=8):
+def compare_v3(kernel, shape, dtype_name, batch=8, ew=False):
     """A v3 kernel against its plain version on the card, launched twice
     (the second launch must repeat every bit); returns the max abs error.
     Tolerances: y 1e-5 of Σ|term| in f32 (an f32 sum in another order),
     plus one bf16 ulp in bf16 (then rounded once); dW (f32, not rounded)
-    1e-5 of Σ|term| + 1e-6."""
+    1e-5 of Σ|term| + 1e-6. ``ew``: #33 under CL_TPU_E_BF16."""
     import torch
 
     from cl_tpu_torch.kernels import conv3x3
 
     launch, plain, _ = v3_fns(kernel)
+    kw = {"e_bf16": True} if ew else {}
     ops = v3_operands(kernel, shape, dtype_name, batch)
-    k_out, again, p_out = launch(*ops), launch(*ops), plain(*ops)
+    k_out, again, p_out = launch(*ops, **kw), launch(*ops, **kw), plain(*ops, **kw)
     torch.cuda.synchronize()
-    name = v3_name(kernel, shape, dtype_name, batch)
+    name = v3_name(kernel, shape, dtype_name, batch) + ("[ebf16]" if ew else "")
     need(torch.equal(k_out, again), f"{name}: a second launch repeats every bit")
     need(k_out.shape == p_out.shape and k_out.dtype == p_out.dtype, f"{name} shape/dtype")
     kf, pf = k_out.float(), p_out.float()
@@ -2303,25 +2325,26 @@ def q_fns(kernel):
     return conv3x3.launch_conv_dw_q, conv3x3.conv_dw_q_plain, lib
 
 
-def compare_q_bwd(kernel, shape, dtype_name, batch=8):
+def compare_q_bwd(kernel, shape, dtype_name, batch=8, ew=False):
     """#38 or #39 against its plain version on the card, launched twice
     (the second launch repeats every bit); returns the max abs error of
     dx or dW. Tolerances as ``compare_bwd``'s for the dtype kernels: e is
     the same f32 operations in both (deq(y) in f32, unrounded), so dx is
     one bf16 ulp + 1e-5·max(1, a) in bf16 and 1e-5·max(1, a) + 1e-5 rel in
     f32; dW 2 bf16 ulps + 1e-5·Σ|term| in bf16, 1e-5·Σ|term| + 1e-6 in f32;
-    da, db 1e-5·Σ|term| + 1e-6."""
+    da, db 1e-5·Σ|term| + 1e-6. ``ew``: #39 under CL_TPU_E_BF16."""
     import torch
 
     from cl_tpu_torch.kernels import conv3x3
 
     launch, plain, _ = q_fns(kernel)
+    kw = {"e_bf16": True} if ew else {}
     ops = q_operands(shape, dtype_name, batch)
-    k_out, again, p_out = launch(*ops), launch(*ops), plain(*ops)
+    k_out, again, p_out = launch(*ops, **kw), launch(*ops, **kw), plain(*ops, **kw)
     torch.cuda.synchronize()
     if not isinstance(k_out, tuple):
         k_out, again, p_out = (k_out,), (again,), (p_out,)
-    name = q_name(kernel, shape, dtype_name, batch)
+    name = q_name(kernel, shape, dtype_name, batch) + ("[ebf16]" if ew else "")
     need(all(u is None or torch.equal(u, v) for u, v in zip(k_out, again)),
          f"{name}: a second launch repeats every bit")
     x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p = ops
@@ -2432,7 +2455,7 @@ PK_KERNELS = {  # the packed head+CE without a prologue, on bn_case's y as x
 }
 
 
-def compare_fused(shape, dtype_name, batch=8):
+def compare_fused(shape, dtype_name, batch=8, ew=False):
     """#37 against its plain version on the card, launched twice (the
     second launch repeats every bit), and against #34/#35 (dx, da, db) and
     #36 (dW) launched on the same operands. Tolerances against the plain
@@ -2443,6 +2466,7 @@ def compare_fused(shape, dtype_name, batch=8):
     than #37's), da and db bit-equal in bf16 and in f32 held at 1e-5 of
     Σ|term| with the gap printed (its 8 x 16 tiles sum them in another
     order than #35's 16 x 16 ones). The stem (Cin 3) runs without dx.
+    ``ew``: every launch and the plain version under CL_TPU_E_BF16.
     Returns the max abs error of dW against the plain version."""
     import torch
 
@@ -2451,14 +2475,15 @@ def compare_fused(shape, dtype_name, batch=8):
     H, cin, cout, prologue = shape
     ops = bwd_operands("conv3x3_bn_dw", shape, dtype_name, batch)
     need_dx = cin != 3
-    k = conv3x3.launch_conv_bwd_fused(*ops, need_dx=need_dx)
-    again = conv3x3.launch_conv_bwd_fused(*ops, need_dx=need_dx)
-    p = conv3x3.conv_bwd_fused_plain(*ops, need_dx=need_dx)
-    beside = (*(conv3x3.launch_conv_dx(*ops) if need_dx else (None,) * 3),
-              conv3x3.launch_conv_dw(*ops))
+    k = conv3x3.launch_conv_bwd_fused(*ops, e_bf16=ew, need_dx=need_dx)
+    again = conv3x3.launch_conv_bwd_fused(*ops, e_bf16=ew, need_dx=need_dx)
+    p = conv3x3.conv_bwd_fused_plain(*ops, e_bf16=ew, need_dx=need_dx)
+    beside = (*(conv3x3.launch_conv_dx(*ops, e_bf16=ew) if need_dx else (None,) * 3),
+              conv3x3.launch_conv_dw(*ops, e_bf16=ew))
     torch.cuda.synchronize()
     name = packed_name("conv3x3_bn_bwd_fused", shape, dtype_name) + ("" if need_dx else
-                                                                     "[no dx]")
+                                                                     "[no dx]") + \
+        ("[ebf16]" if ew else "")
     need(all((u is None and v is None) or torch.equal(u, v) for u, v in zip(k, again)),
          f"{name}: a second launch repeats every bit")
     bf16 = dtype_name == "bfloat16"
@@ -2509,21 +2534,23 @@ def compare_fused(shape, dtype_name, batch=8):
     return dw_err
 
 
-def compare_pipe(kernel, shape, dtype_name, batch=8, stats=True):
+def compare_pipe(kernel, shape, dtype_name, batch=8, stats=True, ew=False):
     """34p / 35p against #34 / #35 on the same operands: every output bit
     for bit, and a relaunch too; returns the max abs error of dx against
-    the plain version (#34/#35's own, held in ``compare_bwd``)."""
+    the plain version (#34/#35's own, held in ``compare_bwd``). ``ew``:
+    each under CL_TPU_E_BF16."""
     import torch
 
     from cl_tpu_torch.kernels import conv3x3
 
     ops = bwd_operands("conv3x3_bn_dx", shape, dtype_name, batch, stats=stats)
-    k = conv3x3.launch_conv_dx(*ops, pipe=True)
-    again = conv3x3.launch_conv_dx(*ops, pipe=True)
-    ref = conv3x3.launch_conv_dx(*ops)
-    p = conv3x3.conv_dx_plain(*ops)
+    k = conv3x3.launch_conv_dx(*ops, pipe=True, e_bf16=ew)
+    again = conv3x3.launch_conv_dx(*ops, pipe=True, e_bf16=ew)
+    ref = conv3x3.launch_conv_dx(*ops, e_bf16=ew)
+    p = conv3x3.conv_dx_plain(*ops, e_bf16=ew)
     torch.cuda.synchronize()
-    name = packed_name(kernel, shape, dtype_name) + ("" if stats else "[no stats]")
+    name = packed_name(kernel, shape, dtype_name) + ("" if stats else "[no stats]") + \
+        ("[ebf16]" if ew else "")
     same = all((u is None and v is None) or torch.equal(u, v) for u, v in zip(k, ref))
     rel = all((u is None and v is None) or torch.equal(u, v) for u, v in zip(k, again))
     err = (k[0].float() - p[0].float()).abs().max().item()
@@ -2590,8 +2617,9 @@ def tuned(**attrs):
     """``packed_gate``'s module attributes set as ``cl_tpu``'s environment
     variables would set them at import (``FUSE_BWD`` / ``DX_PIPE`` for
     ``CL_TPU_FUSE_BWD`` / ``CL_TPU_DX_PIPE``, ``CONV_VMEM_BUDGET``,
-    ``FUSED_VMEM_BUDGET``, ``CONV_ROW_TARGET`` for the tuning variables; the
-    gates read them at each forward), and restored after."""
+    ``FUSED_VMEM_BUDGET``, ``CONV_ROW_TARGET``, ``E_BF16`` for the tuning
+    variables; the gates and the convs read them at each forward), and
+    restored after."""
     from cl_tpu_torch.models import packed_gate
 
     saved = {k: getattr(packed_gate, k) for k in attrs}
@@ -2862,7 +2890,7 @@ def perturbed(variables, seed):
     return walk(variables)
 
 
-def agree_with_cpu(args, label, packed_levels=0, f64=False):
+def agree_with_cpu(args, label, packed_levels=0, f64=False, held=True):
     """One SGD step on the card (kernels) against one on the CPU (plain
     versions) from the same weights and batch: loss and params in f32.
     With ``f64`` each leaf's update is held against the same step in
@@ -2882,7 +2910,9 @@ def agree_with_cpu(args, label, packed_levels=0, f64=False):
     task 0's head width and the state grows to task 1's
     (``train.expand_state``: the new rows from the same seeded CPU
     generator on both devices) before the step, which trains task 1's
-    classes."""
+    classes. Returns the gaps (|loss|, max |param|, the worst update's
+    share of its tolerance); ``held`` False prints them without holding
+    them (a bf16 step, held against another config's gaps)."""
     import torch
 
     from cl_tpu_torch import train as tl
@@ -2986,8 +3016,11 @@ def agree_with_cpu(args, label, packed_levels=0, f64=False):
             k = max(ref, key=lambda k: update_err(k, got, want))
             print(f"    worst update diff, {name}: {update_err(k, got, want):.3g} of the same "
                   f"tolerance, {k} (printed, not held)")
-    need(abs(lg - lc) <= 1e-4 and perr <= 1e-4 and update_err(worst, pg, ref) <= 1,
-         f"card vs CPU step ({label})")
+    gaps = (abs(lg - lc), perr, update_err(worst, pg, ref))
+    if held:
+        need(gaps[0] <= 1e-4 and gaps[1] <= 1e-4 and gaps[2] <= 1,
+             f"card vs CPU step ({label})")
+    return gaps
 
 
 def methods_train(label, args, device=None, keep=None):
@@ -4449,6 +4482,397 @@ def phase_5b(cfg_h, headline_step):
     return counts, ips, peak, l3_errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 / 5u / 6: CL_TPU_E_BF16, the bf16 elementwise chains
+# ---------------------------------------------------------------------------
+
+EBF16 = "_ebf16"  # the variant's launch-count key: the default's + EBF16
+EBF16_KERNELS = {  # the default's launch-count key: (source, TPU kernel's pallas_call)
+    "conv3x3_bn_fwd": PACKED_KERNELS["conv3x3_bn_fwd"],
+    "conv3x3_bn_dx": PACKED_KERNELS["conv3x3_bn_dx"],
+    "conv3x3_bn_dx_bn": PACKED_KERNELS["conv3x3_bn_dx_bn"],
+    "conv3x3_bn_dw": PACKED_KERNELS["conv3x3_bn_dw"],
+    "conv3x3_bn_dx_pipe": SWITCH_KERNELS["conv3x3_bn_dx_pipe"],
+    "conv3x3_bn_dx_bn_pipe": SWITCH_KERNELS["conv3x3_bn_dx_bn_pipe"],
+    "conv3x3_bn_bwd_fused": SWITCH_KERNELS["conv3x3_bn_bwd_fused"],
+    "conv3x3_dw_bn": V3_KERNELS["conv3x3_dw_bn"][:2],
+    "conv3x3_bn_dw_q": Q_KERNELS["conv3x3_bn_dw_q"],
+}
+# Each variant's shapes on its path at 512² with their launches a step (the
+# headline step; 34p/35p and #37 under the switches; #33 at the 22 MiB
+# budget of 5b-a, level 3's two-pass convs; #39 in the int8 step, where
+# its xq-mode shapes keep the default's f32 t), then one ragged shape
+EBF16_PATH = {
+    "conv3x3_bn_fwd": PACKED_PATH["conv3x3_bn_fwd"],
+    "conv3x3_bn_dx": PACKED_PATH["conv3x3_bn_dx"],
+    "conv3x3_bn_dx_bn": PACKED_PATH["conv3x3_bn_dx_bn"],
+    "conv3x3_bn_dw": PACKED_PATH["conv3x3_bn_dw"],
+    "conv3x3_bn_dx_pipe": SWITCH_PATH["conv3x3_bn_dx_pipe"],
+    "conv3x3_bn_dx_bn_pipe": SWITCH_PATH["conv3x3_bn_dx_bn_pipe"],
+    "conv3x3_bn_bwd_fused": SWITCH_PATH["conv3x3_bn_bwd_fused"],
+    "conv3x3_dw_bn": [LEVEL3_TWO_PASS["conv3x3_dw_bn"][::2]],
+    "conv3x3_bn_dw_q": Q_PATH["conv3x3_bn_dw_q"],
+}
+EBF16_ODD = {"conv3x3_bn_fwd": (20, 40, 72, True), "conv3x3_bn_dx": (20, 40, 72, False),
+             "conv3x3_bn_dx_bn": (20, 40, 72, True), "conv3x3_bn_dw": (20, 40, 72, True),
+             "conv3x3_bn_dx_pipe": (20, 24, 40, False),
+             "conv3x3_bn_dx_bn_pipe": (20, 24, 40, True),
+             "conv3x3_bn_bwd_fused": (20, 24, 40, True), "conv3x3_dw_bn": (20, 24, 40, True),
+             "conv3x3_bn_dw_q": (24, 16, 16, True, False)}
+# the shape of each variant's kernels-line entry (the first level's, with
+# the chain on)
+EBF16_ENTRY = {"conv3x3_bn_fwd": (512, 32, 32, True), "conv3x3_bn_dx": (512, 32, 32, False),
+               "conv3x3_bn_dx_bn": (512, 32, 32, True), "conv3x3_bn_dw": (512, 32, 32, True),
+               "conv3x3_bn_dx_pipe": (512, 32, 32, False),
+               "conv3x3_bn_dx_bn_pipe": (512, 32, 32, True),
+               "conv3x3_bn_bwd_fused": (512, 32, 32, True),
+               "conv3x3_dw_bn": (64, 256, 256, True),
+               "conv3x3_bn_dw_q": (512, 32, 32, True, False)}
+# the exact probes of each: "identity" (the centre-tap identity weight: y
+# = t, the dx conv returns e), "t_pixel" (x zero but at one pixel, b < 0:
+# every dW entry one product), "e_pixel" (dy zero but at one pixel, ds1 =
+# ds2 = 0)
+EBF16_PROBES = {"conv3x3_bn_fwd": ("identity",), "conv3x3_bn_dx": ("identity",),
+                "conv3x3_bn_dx_bn": ("identity",), "conv3x3_bn_dx_pipe": ("identity",),
+                "conv3x3_bn_dx_bn_pipe": ("identity",), "conv3x3_bn_dw": ("t_pixel", "e_pixel"),
+                "conv3x3_bn_bwd_fused": ("identity", "t_pixel", "e_pixel"),
+                "conv3x3_dw_bn": ("t_pixel", "e_pixel"),
+                "conv3x3_bn_dw_q": ("t_pixel", "e_pixel")}
+
+
+def ebf16_fns(base):
+    """(operands(shape, batch, seed), launch(ops, ew), plain(ops, ew),
+    library(ops) or None, bytes_ops(shape)) of the kernel under
+    launch-count key ``base``, ``ew`` its CL_TPU_E_BF16 switch; the
+    operands, library calls and bounds are the default's (phase 3 / 6)."""
+    from cl_tpu_torch.kernels import conv3x3
+
+    bf = "bfloat16"
+    if base == "conv3x3_bn_fwd":
+        return (lambda sh, n, sd: packed_operands(base, sh, bf, n, sd),
+                lambda o, ew: conv3x3.launch_conv_bn(*o, e_bf16=ew),
+                lambda o, ew: conv3x3.conv_bn_plain(*o, e_bf16=ew), packed_fns(base)[2],
+                lambda sh: packed_bytes_ops(base, sh, bf))
+    if base in ("conv3x3_bn_dx", "conv3x3_bn_dx_bn", "conv3x3_bn_dw"):
+        launch, plain, lib = bwd_fns(base)
+        return (lambda sh, n, sd: bwd_operands(base, sh, bf, n, sd),
+                lambda o, ew: launch(*o, e_bf16=ew), lambda o, ew: plain(*o, e_bf16=ew), lib,
+                lambda sh: bwd_bytes_ops(base, sh, bf))
+    if base in ("conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe", "conv3x3_bn_bwd_fused"):
+        lib = switch_fns(base)[2]
+        if base == "conv3x3_bn_bwd_fused":
+            launch = lambda o, ew: conv3x3.launch_conv_bwd_fused(  # noqa: E731
+                *o, e_bf16=ew, need_dx=o[0].shape[-1] != 3)
+            plain = lambda o, ew: conv3x3.conv_bwd_fused_plain(  # noqa: E731
+                *o, e_bf16=ew, need_dx=o[0].shape[-1] != 3)
+        else:
+            launch = lambda o, ew: conv3x3.launch_conv_dx(*o, pipe=True, e_bf16=ew)  # noqa: E731
+            plain = lambda o, ew: conv3x3.conv_dx_plain(*o, e_bf16=ew)  # noqa: E731
+        return (lambda sh, n, sd: bwd_operands("conv3x3_bn_dw", sh, bf, n, sd), launch, plain,
+                lib, lambda sh: switch_bytes_ops(base, sh, bf))
+    if base == "conv3x3_dw_bn":
+        launch, plain, lib = v3_fns(base)
+        return (lambda sh, n, sd: v3_operands(base, sh, bf, n, sd),
+                lambda o, ew: launch(*o, e_bf16=ew), lambda o, ew: plain(*o, e_bf16=ew), lib,
+                lambda sh: v3_bytes_ops(base, sh, bf))
+    launch, plain, lib = q_fns(base)
+    return (lambda sh, n, sd: q_operands(sh, bf, n, sd), lambda o, ew: launch(*o, e_bf16=ew),
+            lambda o, ew: plain(*o, e_bf16=ew), lib, lambda sh: q_bytes_ops(base, sh, bf))
+
+
+def ebf16_compare(base, shape):
+    """Phase 3's comparison of the kernel's variant against its plain
+    variant on random operands, at the default instance's tolerance
+    (relaunched bit-equal); returns the max abs error."""
+    bf = "bfloat16"
+    if base == "conv3x3_bn_fwd":
+        return compare_packed(base, shape, bf, ew=True)
+    if base in ("conv3x3_bn_dx", "conv3x3_bn_dx_bn", "conv3x3_bn_dw"):
+        return compare_bwd(base, shape, bf, ew=True)
+    if base in ("conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe"):
+        return compare_pipe(base, shape, bf, ew=True)
+    if base == "conv3x3_bn_bwd_fused":
+        return compare_fused(shape, bf, ew=True)
+    if base == "conv3x3_dw_bn":
+        return compare_v3(base, shape, bf, ew=True)
+    return compare_q_bwd(base, shape, bf, ew=True)
+
+
+def _identity_weight(w):
+    """The centre-tap identity in ``w``'s shape [Cout, Cin, 3, 3] (its
+    first min(Cin, Cout) channels): the conv returns t, the dx conv e."""
+    import torch
+
+    out = torch.zeros_like(w)
+    n = torch.arange(min(w.shape[:2]), device=w.device)
+    out[n, n, 1, 1] = 1.0
+    return out
+
+
+def ebf16_exact_ops(base, shape, probe, seed=5):
+    """Seeded operands (batch 1) of one exact probe of the kernel under
+    ``base``: the identity weight, and for "t_pixel" x zero but at one
+    pixel with b < 0, for "e_pixel" dy (or #33's e) zero but at one pixel
+    with ds1 = ds2 = 0."""
+    import torch
+
+    from cl_tpu_torch.kernels import conv3x3
+
+    ops = list(ebf16_fns(base)[0](shape, 1, seed))
+    H = shape[0]
+    pix = (0, H // 2, H // 2 + 1)
+
+    def one_pixel(t, low=0.0):
+        out = torch.zeros_like(t)
+        out[pix] = (low + t[pix].float().abs()).to(t.dtype)
+        return out
+
+    if base == "conv3x3_dw_bn":  # (x, a, b, e, prologue)
+        if probe == "t_pixel":
+            ops[0], ops[2] = one_pixel(ops[0], 2.0), -(ops[2].abs() + 0.1)
+        else:
+            ops[3] = one_pixel(ops[3])
+        return tuple(ops)
+    if base == "conv3x3_bn_dw_q":  # (x or (xq, xs), w, a, b, q, scale, dy, ds1, ds2, prologue, p)
+        if probe == "t_pixel":
+            x = packed_operands("conv3x3_bn_fwd", shape[:4], "bfloat16", 1, seed)[0]
+            x = one_pixel(x, 2.0)
+            ops[0] = conv3x3.quant_rows_plain(x, Q_P) if shape[4] else x
+            if ops[3] is not None:
+                ops[3] = -(ops[3].abs() + 0.1)
+        else:
+            ops[6], ops[7], ops[8] = one_pixel(ops[6]), ops[7] * 0, ops[8] * 0
+        return tuple(ops)
+    ops[1] = _identity_weight(ops[1])
+    if base == "conv3x3_bn_fwd" or probe == "identity":
+        return tuple(ops)
+    if probe == "t_pixel":  # (x, w, a, b, y, dy, ds1, ds2, prologue)
+        ops[0] = one_pixel(ops[0], 2.0)
+        if ops[3] is not None:
+            ops[3] = -(ops[3].abs() + 0.1)
+    else:
+        ops[5], ops[6], ops[7] = one_pixel(ops[5]), ops[6] * 0, ops[7] * 0
+    return tuple(ops)
+
+
+def _exact_outputs(base, out, probe):
+    """The outputs an exact probe holds bit for bit: y, dx, or dW (#37:
+    dx, and dW in the one-pixel probes)."""
+    if base == "conv3x3_bn_fwd" or "dx" in base:
+        return [out[0]]
+    if base == "conv3x3_bn_bwd_fused":
+        return [v for v in (out[0], out[3] if probe != "identity" else None) if v is not None]
+    return [out]
+
+
+def compare_ebf16_exact(base, shape, probe):
+    """One exact probe of a variant: the kernel under the flag bit for bit
+    its plain variant (run with cuDNN off: an f32 GEMM of one product and
+    zeros is that product) and itself relaunched; and unlike the flag-off
+    launch where the probe's operands reach a bf16 chain (else bit-equal
+    to it: #39's xq mode, a forward without the prologue)."""
+    import torch
+
+    _, launch, plain, _, _ = ebf16_fns(base)
+    ops = ebf16_exact_ops(base, shape, probe)
+    on, again, off = (launch(ops, ew) for ew in (True, True, False))
+    with torch.backends.cudnn.flags(enabled=False):
+        want = plain(ops, True)
+    torch.cuda.synchronize()
+    k_on, k_again, k_off, p_on = (_exact_outputs(base, v, probe) for v in (on, again, off, want))
+    prologue = ops[4] if base == "conv3x3_dw_bn" else ops[-2] if base == "conv3x3_bn_dw_q" \
+        else ops[-1]
+    if base == "conv3x3_bn_fwd" or base == "conv3x3_dw_bn":
+        reaches = prologue
+    elif base == "conv3x3_bn_dw_q":
+        reaches = prologue and not shape[4]
+    else:  # the e chain (stats present) or, in e_pixel, the prologue's
+        reaches = probe != "e_pixel" or prologue
+    same = all(torch.equal(u, v) for u, v in zip(k_on, p_on))
+    rel = all(torch.equal(u, v) for u, v in zip(k_on, k_again))
+    moved = sum(int((u != v).sum().item()) for u, v in zip(k_on, k_off))
+    name = f"{packed_name(base, shape, 'bfloat16')}[ebf16 {probe}]"
+    ok = same and rel and (moved > 0) == bool(reaches)
+    print(f"  {name}: bit-equal to the plain variant {same}, relaunch {rel}; {moved} values "
+          f"moved by the flag ({'a chain reached' if reaches else 'no chain reached'}) "
+          f"{'ok' if ok else 'FAIL'}")
+    need(ok, name)
+
+
+def ebf16_f32_unchanged(base, shape):
+    """The f32 instance of the kernel under ``base`` keeps every bit with
+    ``e_bf16`` on."""
+    import torch
+
+    operands, launch, _, _, _ = ebf16_fns(base)
+    if base == "conv3x3_bn_dw_q":
+        ops = q_operands(shape, "float32", 3)
+    elif base == "conv3x3_dw_bn":
+        ops = v3_operands(base, shape, "float32", 3)
+    elif base == "conv3x3_bn_fwd":
+        ops = packed_operands(base, shape, "float32", 3)
+    else:
+        ops = bwd_operands("conv3x3_bn_dw", shape, "float32", 3)
+    on, off = launch(ops, True), launch(ops, False)
+    torch.cuda.synchronize()
+    on, off = (v if isinstance(v, tuple) else (v,) for v in (on, off))
+    same = all((u is None and v is None) or torch.equal(u, v) for u, v in zip(on, off))
+    print(f"  {packed_name(base, shape, 'float32')}: f32 unchanged under the flag "
+          f"{'ok' if same else 'FAIL'}")
+    need(same, f"{base}{shape} float32 under CL_TPU_E_BF16")
+
+
+def phase_3u():
+    """Phase 3's checks of CL_TPU_E_BF16's variants: each kernel that
+    takes the bf16 chains, at every shape of its path (``EBF16_PATH``) and
+    a ragged one, on random operands against its plain variant at the
+    default's tolerance and relaunched bit-equal, then its exact probes;
+    its f32 instance unchanged. Returns {(base, shape): max abs err}."""
+    print("[3u] CL_TPU_E_BF16: the bf16 chains' kernels against their plain variants")
+    t_u = time.perf_counter()
+    errs = {}
+    for base, shapes in EBF16_PATH.items():
+        for shape in [s for s, _ in shapes] + [EBF16_ODD[base]]:
+            errs[(base, shape)] = ebf16_compare(base, shape)
+            for probe in EBF16_PROBES[base]:
+                if base == "conv3x3_bn_bwd_fused" and probe == "identity" and shape[1] == 3:
+                    continue  # the stem: no dx
+                compare_ebf16_exact(base, shape, probe)
+        ebf16_f32_unchanged(base, EBF16_ODD[base])
+    print(f"  phase 3u: {time.perf_counter() - t_u:.1f} s")
+    return errs
+
+
+def ebf16_want(per_step, steps=1):
+    """The launch counts of ``steps`` steps of a config whose default
+    counts a step are ``per_step``, under the flag: each kernel of
+    ``EBF16_KERNELS`` under its variant's key, but #39's xq-mode launches
+    (t from deq(xq), f32), which keep the default's."""
+    want = {k: n * steps for k, n in per_step.items()}
+    for base in EBF16_KERNELS:
+        n = want.get(base, 0)
+        keep = steps * sum(c for sh, c in Q_PATH[base] if sh[4]) \
+            if base == "conv3x3_bn_dw_q" and n else 0
+        want[base], want[base + EBF16] = keep, n - keep
+    return want
+
+
+def phase_5u(cfg_h, cfg_q, headline_step, ips_h, peak_h, per_steps):
+    """Phase 5u: CL_TPU_E_BF16 (``tuned(E_BF16=True)``, as the variable
+    sets it at import). 5u-a: the headline step at full width under the
+    flag, 3 + 10 steps, its launches those of 5h under the variants' keys,
+    five pairs against the default. 5u-b: one step each under the flag
+    with model.conv_act_store=int8 (``cfg_q``, 5q-a's), CL_TPU_FUSE_BWD,
+    CL_TPU_DX_PIPE and the 22 MiB budget of 5b-a (``per_steps``: their
+    default counts a step), the variants launched. 5u-c: baseline_1 model.packed_min_size=0
+    train.compute_dtype=bfloat16, one SGD step on the card against the
+    CPU with and without the flag: the flag's worst update gap within
+    twice the default's. Returns (5u-a's counts, images/s, peak, the
+    5u-b counts by label)."""
+    import torch
+
+    from cl_tpu_torch.models import packed_gate
+
+    cuda = torch.device("cuda")
+    smi = nvidia_smi_line()
+    print(f"[5u] CL_TPU_E_BF16: the headline step with the bf16 elementwise chains ({smi})")
+    t_u = time.perf_counter()
+    with tuned(E_BF16=True):
+        counts, ips, peak, loss, first = run_steps(cfg_h, 3, 10, cuda, no_sync=True)
+    want = ebf16_want(headline_step, 13)
+    print(f"  5u-a headline step under the flag, 13 steps: {ips:.2f} img/s, peak {peak:.0f} MiB, "
+          f"loss {first:.4f} -> {loss:.4f} ({smi}); default (5h) {ips_h:.2f} img/s, peak "
+          f"{peak_h:.0f} MiB")
+    print("    conv launches per step, flag: " + ", ".join(
+        f"{k} {counts[k] / 13:g}" for k in want if k.startswith("conv") and want[k]))
+    need(loss < first, "headline training loss falls under the flag")
+    for k, n in want.items():
+        need(counts[k] == n, f"{k} launches == {n} (5u-a)")
+    pairs, issue = alternating_pairs({"E_BF16": cfg_h, "default": cfg_h}, cuda,
+                                     switches={"E_BF16": {"E_BF16": True}})
+    ratios = [p / q for p, q in zip(pairs["E_BF16"], pairs["default"])]
+    print(f"    alternating pairs, 10 steps each, images/s ({smi}): E_BF16 "
+          f"{[round(v, 2) for v in pairs['E_BF16']]}, default "
+          f"{[round(v, 2) for v in pairs['default']]}; ratio {[round(r, 4) for r in ratios]}, "
+          f"median {float(np.median(ratios)):.4f}; host issue E_BF16 {issue['E_BF16']:.3f} ms, "
+          f"default {issue['default']:.3f} ms")
+    one = {}
+    for label, cfg, attrs in (("int8", cfg_q, {}), ("FUSE_BWD", cfg_h, {"FUSE_BWD": True}),
+                              ("DX_PIPE", cfg_h, {"DX_PIPE": True}),
+                              ("22 MiB", cfg_h, {"CONV_VMEM_BUDGET": CONV_BUDGET_22})):
+        with tuned(E_BF16=True, **attrs):
+            model, opt, step, batch, valid = build_step(cfg, cuda)
+            reset_counts()
+            aux = step(batch, valid)
+            torch.cuda.synchronize()
+            got = read_counts()
+        del model, opt, step
+        want = ebf16_want(per_steps[label])
+        moved = {k: got[k] for k in want if k.endswith(EBF16) and want[k]}
+        print(f"  5u-b one step under the flag and {label}: loss {aux['loss'].item():.4f}; "
+              f"variant launches {moved}")
+        need(np.isfinite(aux["loss"].item()), f"finite loss (5u-b, {label})")
+        for k, n in want.items():
+            need(got[k] == n, f"{k} launches == {n} (5u-b, {label})")
+        one[label] = got
+    args_c = ["preset=baseline_1", "model.packed_min_size=0", "train.compute_dtype=bfloat16"]
+    levels = packed_gate.packed_prefix(128, 32, 4, 2)
+    gaps = {}
+    for label, flag in (("default", False), ("E_BF16", True)):
+        with tuned(E_BF16=flag):
+            gaps[label] = agree_with_cpu(args_c, f"5u-c bf16 step 128² base 32 depth 4, {label}",
+                                         packed_levels=levels, held=False)
+    print(f"  5u-c card vs CPU, (|loss|, max |param|, worst update share): default "
+          f"{gaps['default']}, E_BF16 {gaps['E_BF16']} (held: the worst update within "
+          f"twice the default's)")
+    need(gaps["E_BF16"][2] <= 2 * gaps["default"][2],
+         "the flag's card-vs-CPU update gap within twice the default's (5u-c)")
+    print(f"  phase 5u: {time.perf_counter() - t_u:.1f} s")
+    return counts, ips, peak, one
+
+
+def ebf16_phase6(counts_u, one, errs):
+    """Phase 6's lines of the variants: each at every shape of its path
+    beside its default at the same shapes (launches queued back to back,
+    then synchronised per launch), the per-step sums, and one kernels-line
+    entry a variant (``EBF16_ENTRY``: its plain variant's and the library
+    call's times, the default's bound, launches from 5u)."""
+    launches = {base + EBF16: counts_u[base + EBF16] for base in
+                ("conv3x3_bn_fwd", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "conv3x3_bn_dw")}
+    for label, bases in (("int8", ("conv3x3_bn_dw_q",)), ("FUSE_BWD", ("conv3x3_bn_bwd_fused",)),
+                         ("DX_PIPE", ("conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe")),
+                         ("22 MiB", ("conv3x3_dw_bn",))):
+        for base in bases:
+            launches[base + EBF16] = one[label][base + EBF16]
+    entries = []
+    for base, shapes in EBF16_PATH.items():
+        operands, launch, plain, lib, bytes_ops = ebf16_fns(base)
+        sums = [0.0, 0.0]
+        for shape, n_step in shapes:
+            ops = operands(shape, 8, 0)
+            t_on, t_off = (time_ms(lambda ew=ew: launch(ops, ew)) for ew in (True, False))
+            s_on, s_off = (time_ms(lambda ew=ew: launch(ops, ew), queued=False)
+                           for ew in (True, False))
+            sums[0] += n_step * t_on
+            sums[1] += n_step * t_off
+            print(f"  {packed_name(base, shape, 'bfloat16')}[ebf16] x{n_step}/step: {t_on:.4f} ms "
+                  f"(default {t_off:.4f}, ratio {t_on / t_off:.4f}; synchronised per launch "
+                  f"{s_on:.4f} / {s_off:.4f})")
+            if shape == EBF16_ENTRY[base]:
+                times = (t_on, time_ms(lambda: plain(ops, True)),
+                         None if lib is None else time_ms(lambda: lib(*ops)))
+                entry = json_entry(f"{packed_name(base, shape, 'bfloat16')}[ebf16]",
+                                   EBF16_KERNELS[base][0], EBF16_KERNELS[base][1],
+                                   launches[base + EBF16], errs[(base, shape)], times,
+                                   bytes_ops(shape))
+                entries.append(entry)
+        print(f"  per step, {base} under the flag: {sums[0]:.4f} ms beside the default's "
+              f"{sums[1]:.4f} (ratio {sums[0] / sums[1]:.4f}); launches "
+              f"{launches[base + EBF16]} in phase 5u")
+    need(len(entries) == len(EBF16_KERNELS), "a kernels-line entry for every variant")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -4653,6 +5077,7 @@ def main() -> int:
         case = bn_case(*args)
         for k in PK_KERNELS:
             compare_bn(k, case)
+    ebf16_errs = phase_3u()
 
     print("[4] baseline_1 as it ships, through train()")
     cfg1 = get_preset("baseline_1")
@@ -5291,6 +5716,10 @@ def main() -> int:
          "the matmul up-conv's loss equals the transposed conv's within 1e-5 (5g-e)")
 
     counts_b, ips_b, peak_b, l3_errs = phase_5b(cfg_h, headline_step)
+    counts_e, ips_e, peak_e, one_e = phase_5u(
+        cfg_h, cfg_q, headline_step, ips_h, peak_h,
+        {"int8": q_step, "FUSE_BWD": fused_step, "DX_PIPE": pipe_step,
+         "22 MiB": {k: v // 13 for k, v in counts_b.items()}})
 
     print("[6] kernel times (median of 20, CUDA events)")
     launches = {  # the path each case's shape comes from
@@ -5537,6 +5966,7 @@ def main() -> int:
           f"{per_step_ms['conv3x3_bn_dx'][0]:.4f} ms, #35 "
           f"{per_step_ms['conv3x3_bn_dx_bn'][0]:.4f} ms, dW #36 "
           f"{per_step_ms['conv3x3_bn_dw'][0]:.4f} ms")
+    kernels.extend(ebf16_phase6(counts_e, one_e, ebf16_errs))
     for kernel, (source, replaces) in PK_KERNELS.items():
         times = bn_times(kernel, bn_full)
         entry = kernel_entry(kernel, (2097152, 32, 19), source, replaces, counts_pk[kernel],
@@ -5586,6 +6016,8 @@ def main() -> int:
     print(f"  5b: the headline step at CL_TPU_CONV_BUDGET={CONV_BUDGET_22} (level 3 packed) "
           f"{ips_b:.2f} img/s (peak {peak_b:.0f} MiB) beside the default's {ips_h:.2f} (peak "
           f"{peak_h:.0f} MiB, 5h)")
+    print(f"  5u: the headline step under CL_TPU_E_BF16 {ips_e:.2f} img/s (peak {peak_e:.0f} "
+          f"MiB) beside the default's {ips_h:.2f} (5h)")
     print(f"  variants: GroupNorm standard body 512² bf16 {ips_n:.2f} img/s (5n-a) beside "
           f"BatchNorm's {ips_f:.2f} (phase 5); baseline_5 with model.padded_head=false "
           f"train() {report_e.get('images_per_sec_per_chip')} beside the padded head's "

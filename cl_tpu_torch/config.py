@@ -3,10 +3,9 @@ overrides.
 
 This package's own copy of ``cl_tpu/config.py``: the same dataclasses,
 fields, defaults and presets, so that ``config_hash()`` of a config is the
-same in both packages (tested for every preset). Fields that select a part
-of the JAX package this port does not have yet are kept, so a config reads
-the same in both; ``cl_tpu_torch.train.check_supported`` raises on the
-values it cannot run.
+same in both packages (tested for every preset);
+``cl_tpu_torch.train.check_supported`` raises on the values ``cl_tpu``
+rejects or whose train step it fails.
 """
 
 from __future__ import annotations

@@ -233,20 +233,22 @@ __device__ __forceinline__ void pipe_issue_mma(const ConvArgs<bf16>& p, bf16* dy
 }
 
 // bf16: e = round(dy + ds1 + 2 * y * ds2) in place over the staged raw dy,
-// at in-image pixels and channels below Cin (stage8_e's arithmetic); e = dy
-// without stats cotangents.
+// at in-image pixels and channels below Cin (stage8_e's arithmetic, the
+// bf16 chain under p.ew_bf16); e = dy without stats cotangents.
 __device__ __forceinline__ void pipe_form_e_mma(const ConvArgs<bf16>& p, bf16* dy_s,
                                                 const bf16* y_s, int gy0, int gx0, int ci0) {
   if (p.s1 == nullptr) return;
-  for (int e = threadIdx.x; e < kWinH * kWinW * 16; e += kMmaThreads) {
-    const int pix = e >> 4, k = e & 15;
-    const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-    const int c = ci0 + k;
-    if (gy < 0 || gy >= p.H || gx < 0 || gx >= p.W || c >= p.Cin) continue;
-    bf16& v = dy_s[pix * kRowS + k];
-    v = __float2bfloat16(
-        e_f32(__bfloat162float(v), __bfloat162float(y_s[pix * kRowS + k]), p.s1[c], p.s2[c]));
-  }
+  with_ew(p.ew_bf16, [&](auto ew) {
+    for (int e = threadIdx.x; e < kWinH * kWinW * 16; e += kMmaThreads) {
+      const int pix = e >> 4, k = e & 15;
+      const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
+      const int c = ci0 + k;
+      if (gy < 0 || gy >= p.H || gx < 0 || gx >= p.W || c >= p.Cin) continue;
+      bf16& v = dy_s[pix * kRowS + k];
+      v = __float2bfloat16(e_ew<decltype(ew)::value>(
+          __bfloat162float(v), __bfloat162float(y_s[pix * kRowS + k]), p.s1[c], p.s2[c]));
+    }
+  });
 }
 
 template <int COT>
@@ -514,16 +516,18 @@ int cltorch_conv3x3_bn_dx(const void* dy, const void* y, const void* s1, const v
 }
 
 // 34p / 35p: the dx pipelined across pixel tiles; the operands and outputs
-// of cltorch_conv3x3_bn_dx, and every bit of its results.
+// of cltorch_conv3x3_bn_dx, and every bit of its results (in bf16, of the
+// ring's dx: `ew_bf16` forms e with the bf16 chain, as it does there).
 int cltorch_conv3x3_bn_dx_pipe(const void* dy, const void* y, const void* s1, const void* s2,
                                const void* w, const void* x, const void* a, const void* b,
                                void* dx, void* partials, void* out, int B, int H, int W, int Cin,
-                               int Cout, int prologue, int is_bf16, void* stream) {
+                               int Cout, int prologue, int is_bf16, int ew_bf16, void* stream) {
   using namespace cltorch;
   auto pb16 = conv_args<bf16>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue);
   auto pf32 = conv_args<float>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout,
                                prologue);
   pb16.batch = pf32.batch = B;
+  pb16.ew_bf16 = ew_bf16;
   return conv3x3_dx_pipe_launch(pb16, pf32, is_bf16, out, static_cast<cudaStream_t>(stream));
 }
 

@@ -9,9 +9,24 @@
 // Both in f32, products and sums each rounded (__fmul_rn / __fadd_rn keep
 // nvcc from contracting them into an FMA), as the plain PyTorch versions
 // and the TPU kernels (conv3x3_v3.py:686-690, :1050-1061) compute them.
+// Under CL_TPU_E_BF16=1 the bf16 kernels run both chains in bf16
+// (`_ew_dtype`, conv3x3_v3.py:670-683): a, b, ds1 and ds2 are rounded to
+// bf16 first, then every product and sum is rounded to bf16 before the
+// next (prologue_bf16 / e_bf16; the dx epilogue keeps the f32 a and b). A
+// launch takes the choice as a run-time flag (`ew_bf16`), turned into a
+// compile-time one once per staging loop (with_ew), so each loop is
+// compiled for both chains and neither tests the flag per element. Each op
+// is taken in f32 and rounded once: a sum or product of two bf16 values
+// computed in f32 (24 bits >= 2 * 8 + 2) and rounded to bf16 is the
+// correctly rounded bf16 result, so the kernels, the plain versions and
+// the TPU kernels agree bit for bit.
+// No native bf16 FMA (fma.rn.bf16, __hfma2): one rounding of x * a + b is
+// a different number.
 // Out-of-image pixels are staged as zero, in t-space and in e-space: a
 // padded tap is 0, never relu(b) or ds1 (conv3x3_v3.py:693-716, :1069-1070).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -31,6 +46,46 @@ __device__ __forceinline__ float e_f32(float dy, float y, float s1, float s2) {
   return __fadd_rn(__fadd_rn(dy, s1), __fmul_rn(__fmul_rn(2.f, y), s2));
 }
 
+// v rounded to bf16 (nearest even), as an f32.
+__device__ __forceinline__ float bf16_rn(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The bf16 chains (CL_TPU_E_BF16): x, dy and y are bf16 values; the f32
+// vectors are rounded here, so a kernel that also reads them in f32 (the dx
+// epilogue) passes them as they are.
+__device__ __forceinline__ float prologue_bf16(float x, float a, float b) {
+  return fmaxf(bf16_rn(__fadd_rn(bf16_rn(__fmul_rn(x, bf16_rn(a))), bf16_rn(b))), 0.f);
+}
+
+__device__ __forceinline__ float e_bf16(float dy, float y, float s1, float s2) {
+  const float d = bf16_rn(__fadd_rn(dy, bf16_rn(s1)));
+  const float q = bf16_rn(__fmul_rn(bf16_rn(__fmul_rn(2.f, y)), bf16_rn(s2)));
+  return bf16_rn(__fadd_rn(d, q));
+}
+
+// The chain a bf16 kernel stages: the bf16 one under EW, else the f32 one.
+template <bool EW>
+__device__ __forceinline__ float prologue_ew(float x, float a, float b) {
+  if constexpr (EW) return prologue_bf16(x, a, b);
+  else return prologue_f32(x, a, b);
+}
+
+template <bool EW>
+__device__ __forceinline__ float e_ew(float dy, float y, float s1, float s2) {
+  if constexpr (EW) return e_bf16(dy, y, s1, s2);
+  else return e_f32(dy, y, s1, s2);
+}
+
+// f(std::true_type{}) under the bf16 chains (`ew` non-zero, uniform over
+// the launch), else f(std::false_type{}): the body takes its chain as
+// decltype(tag)::value.
+template <typename F>
+__device__ __forceinline__ void with_ew(int ew, F&& f) {
+  if (ew) f(std::true_type{});
+  else f(std::false_type{});
+}
+
 // The dx epilogue of the BN-ReLU prologue at one output from the f32
 // accumulator dt: u = x * a + b (each rounded, no FMA), du = [u > 0] * dt,
 // da += du * x, db += du; returns du * a (to be rounded to the dtype).
@@ -43,7 +98,9 @@ __device__ __forceinline__ float prologue_bwd_one(float xv, float a, float b, fl
 }
 
 // Eight channels [c, c + 8) of one pixel (or weight row) of x into `dst`,
-// zero past C or outside; with the prologue, t on the real ones.
+// zero past C or outside; with the prologue, t on the real ones (the bf16
+// chain under EW).
+template <bool EW = false>
 __device__ __forceinline__ void stage8_t(bf16* dst, const bf16* src, int c, int C, bool inside,
                                          int prologue, const float* pa, const float* pb) {
   alignas(16) bf16 v[8];
@@ -57,13 +114,14 @@ __device__ __forceinline__ void stage8_t(bf16* dst, const bf16* src, int c, int 
 #pragma unroll
     for (int k = 0; k < 8; ++k)
       if (c + k < C)
-        v[k] = __float2bfloat16(prologue_f32(__bfloat162float(v[k]), pa[c + k], pb[c + k]));
+        v[k] = __float2bfloat16(prologue_ew<EW>(__bfloat162float(v[k]), pa[c + k], pb[c + k]));
   }
   store16<bf16>(dst, 0, v);
 }
 
 // Eight channels of e at one pixel from dy and y (e = dy when s1 is null),
-// zero past C or outside.
+// zero past C or outside; the bf16 chain under EW.
+template <bool EW = false>
 __device__ __forceinline__ void stage8_e(bf16* dst, const bf16* dy, const bf16* y, int c, int C,
                                          bool inside, const float* s1, const float* s2) {
   alignas(16) bf16 v[8];
@@ -78,7 +136,7 @@ __device__ __forceinline__ void stage8_e(bf16* dst, const bf16* dy, const bf16* 
 #pragma unroll
       for (int k = 0; k < 8; ++k)
         v[k] = __float2bfloat16(
-            e_f32(__bfloat162float(v[k]), __bfloat162float(yv[k]), s1[c + k], s2[c + k]));
+            e_ew<EW>(__bfloat162float(v[k]), __bfloat162float(yv[k]), s1[c + k], s2[c + k]));
     }
   } else {
 #pragma unroll
@@ -88,7 +146,7 @@ __device__ __forceinline__ void stage8_e(bf16* dst, const bf16* dy, const bf16* 
         e = __bfloat162float(dy[k]);
         if (s1 != nullptr)
           e = __bfloat162float(__float2bfloat16(
-              e_f32(e, __bfloat162float(y[k]), s1[c + k], s2[c + k])));
+              e_ew<EW>(e, __bfloat162float(y[k]), s1[c + k], s2[c + k])));
       }
       v[k] = __float2bfloat16(e);
     }
@@ -262,6 +320,7 @@ template <typename T> struct ConvArgs {
   const float* xsc;    //   and its scales [B, H, pack, Cout]
   int pack;            // the columns' grouping of the scales (mod pack)
   int batch;           // images (the pipelined dx and #37 walk them in-kernel)
+  int ew_bf16;         // bf16 kernels: stage t and e with the bf16 chains
 };
 
 // The row of the scales of output pixel (b*H + gy, gx) in the XQ mode

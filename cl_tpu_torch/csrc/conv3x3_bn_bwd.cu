@@ -70,8 +70,9 @@ namespace {
   const T *__restrict__ x, const float *__restrict__ pa, const float *__restrict__ pb,   \
       const T *__restrict__ dy, const T *__restrict__ y, const float *__restrict__ s1,    \
       const float *__restrict__ s2, float *__restrict__ partials, int B, int H, int W,    \
-      int Cin, int Cout, int prologue, const QArgs qa
-#define CLTORCH_DW_ARGS x, pa, pb, dy, y, s1, s2, partials, B, H, W, Cin, Cout, prologue, qa
+      int Cin, int Cout, int prologue, const QArgs qa, int ew_bf16
+#define CLTORCH_DW_ARGS \
+  x, pa, pb, dy, y, s1, s2, partials, B, H, W, Cin, Cout, prologue, qa, ew_bf16
 
 // The ring kernel takes TMA maps of x, dy and y (read with CI_T >= 32 only).
 template <int CI_T, int CO_T>
@@ -80,7 +81,7 @@ __global__ void __launch_bounds__(RingTile<CI_T, CO_T>::kThreads, RingTile<CI_T,
                            const __grid_constant__ CUtensorMap tm_dy,
                            const __grid_constant__ CUtensorMap tm_y) {
   dw_ring_body<kDwFused, CI_T, CO_T>(x, pa, pb, dy, y, s1, s2, partials, B, H, W, Cin, Cout,
-                                     prologue, &tm_x, &tm_dy, &tm_y);
+                                     prologue, &tm_x, &tm_dy, &tm_y, ew_bf16);
 }
 __global__ void __launch_bounds__(kDwThreads)
     conv3x3_v3_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
@@ -143,7 +144,7 @@ template <int KIND>
 int dw_launch(const void* x, const void* a, const void* b, const void* dy, const void* y,
               const void* s1, const void* s2, void* partials, void* dw, int B, int H, int W,
               int Cin, int Cout, int prologue, int splits, int is_bf16, cudaStream_t st,
-              QArgs qa = QArgs{}) {
+              QArgs qa = QArgs{}, int ew_bf16 = 0) {
   const dim3 grid((Cin + kDwC - 1) / kDwC, (Cout + kDwC - 1) / kDwC, splits);
   const float *fa = static_cast<const float*>(a), *fb = static_cast<const float*>(b);
   const float *f1 = static_cast<const float*>(s1), *f2 = static_cast<const float*>(s2);
@@ -158,7 +159,7 @@ int dw_launch(const void* x, const void* a, const void* b, const void* dy, const
                     : KIND == kDwBn  ? conv3x3_v3_dw_bn_mma_kernel
                                      : conv3x3_q_dw_mma_kernel;
       kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part, B, H, W, Cin,
-                                          Cout, prologue, qa);
+                                          Cout, prologue, qa, ew_bf16);
     }
   } else {
     const float *xf = static_cast<const float*>(x), *dyf = static_cast<const float*>(dy),
@@ -168,7 +169,7 @@ int dw_launch(const void* x, const void* a, const void* b, const void* dy, const
                   : KIND == kDwBn    ? conv3x3_v3_dw_bn_fma_kernel
                                      : conv3x3_q_dw_fma_kernel;
     kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2, part, B, H, W, Cin, Cout,
-                                         prologue, qa);
+                                         prologue, qa, 0);
   }
   return sum_dw_splits(part, dw, splits, Cin, Cout, st);
 }
@@ -194,7 +195,8 @@ cudaError_t ring_smem_allowed() {
 template <int CI_T, int CO_T>
 int dw_ring_launch(const void* x, const void* a, const void* b, const void* dy, const void* y,
                    const void* s1, const void* s2, void* partials, void* dw, int B, int H,
-                   int W, int Cin, int Cout, int prologue, int splits, cudaStream_t st) {
+                   int W, int Cin, int Cout, int prologue, int splits, int ew_bf16,
+                   cudaStream_t st) {
   using Tile = RingTile<CI_T, CO_T>;
   cudaError_t err = ring_smem_allowed<CI_T, CO_T>();
   if (err != cudaSuccess) return (int)err;
@@ -211,8 +213,8 @@ int dw_ring_launch(const void* x, const void* a, const void* b, const void* dy, 
   conv3x3_dw_ring_kernel<CI_T, CO_T><<<grid, Tile::kThreads, Tile::kSmem, st>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const bf16*>(dy), static_cast<const bf16*>(y), static_cast<const float*>(s1),
-      static_cast<const float*>(s2), part, B, H, W, Cin, Cout, prologue, QArgs{}, tms[0], tms[1],
-      tms[2]);
+      static_cast<const float*>(s2), part, B, H, W, Cin, Cout, prologue, QArgs{}, ew_bf16, tms[0],
+      tms[1], tms[2]);
   return sum_dw_splits<true>(part, dw, splits, Cin, Cout, st);
 }
 
@@ -251,18 +253,20 @@ int dw_ring_info(int* out) {
 extern "C" {
 
 // #36. bf16 runs the ring body with the (ci_t, co_t) tile; f32 the FMA
-// body (ci_t, co_t unread).
+// body (ci_t, co_t unread). `ew_bf16` (bf16): t and e with the bf16 chains
+// (CL_TPU_E_BF16); the same for #33 and #39 below.
 int cltorch_conv3x3_bn_dw(const void* x, const void* a, const void* b, const void* dy,
                           const void* y, const void* s1, const void* s2, void* partials,
                           void* dw, int B, int H, int W, int Cin, int Cout, int prologue,
-                          int splits, int ci_t, int co_t, int is_bf16, void* stream) {
+                          int splits, int ci_t, int co_t, int is_bf16, int ew_bf16,
+                          void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
     return cltorch::dw_launch<cltorch::kDwFused>(x, a, b, dy, y, s1, s2, partials, dw, B, H,
                                                  W, Cin, Cout, prologue, splits, 0, st);
 #define CLTORCH_RING_LAUNCH(CI, CO)                                                          \
   cltorch::dw_ring_launch<CI, CO>(x, a, b, dy, y, s1, s2, partials, dw, B, H, W, Cin, Cout, \
-                                  prologue, splits, st)
+                                  prologue, splits, ew_bf16, st)
   CLTORCH_RING_DISPATCH(CLTORCH_RING_LAUNCH)
 #undef CLTORCH_RING_LAUNCH
 }
@@ -290,22 +294,23 @@ int cltorch_conv3x3_bn_dw_q(const void* x, const void* xq, const void* xsc, cons
                             const void* b, const void* dy, const void* yq, const void* ysc,
                             const void* s1, const void* s2, void* partials, void* dw, int B,
                             int H, int W, int Cin, int Cout, int prologue, int pack, int splits,
-                            int is_bf16, void* stream) {
+                            int is_bf16, int ew_bf16, void* stream) {
   const cltorch::QArgs qa{static_cast<const int8_t*>(yq), static_cast<const float*>(ysc),
                           static_cast<const int8_t*>(xq), static_cast<const float*>(xsc), pack};
   return cltorch::dw_launch<cltorch::kDwQ>(x, a, b, dy, nullptr, s1, s2, partials, dw, B, H, W,
                                            Cin, Cout, prologue, splits, is_bf16,
-                                           static_cast<cudaStream_t>(stream), qa);
+                                           static_cast<cudaStream_t>(stream), qa, ew_bf16);
 }
 
 // The two-pass backward's dW: x [B, H, W, Cin] through the prologue (a, b
 // f32 [Cin], read only with `prologue`), e [B, H, W, Cout] materialized.
 int cltorch_conv3x3_dw_bn(const void* x, const void* a, const void* b, const void* e,
                           void* partials, void* dw, int B, int H, int W, int Cin, int Cout,
-                          int prologue, int splits, int is_bf16, void* stream) {
+                          int prologue, int splits, int is_bf16, int ew_bf16, void* stream) {
   return cltorch::dw_launch<cltorch::kDwBn>(x, a, b, e, nullptr, nullptr, nullptr, partials, dw,
                                             B, H, W, Cin, Cout, prologue, splits, is_bf16,
-                                            static_cast<cudaStream_t>(stream));
+                                            static_cast<cudaStream_t>(stream), cltorch::QArgs{},
+                                            ew_bf16);
 }
 
 }  // extern "C"

@@ -20,7 +20,10 @@
 // dx epilogue with its per-tile partial rows of da and db (shared with
 // conv3x3_bn.cu), the dW's pixel split and per-tile order (#36's). In bf16
 // dx, da, db and dW are bit-equal to #34/#35 + #36; in f32 dx and dW are,
-// and da, db sum 8 x 16 tiles where #35 sums 16 x 16 ones.
+// and da, db sum 8 x 16 tiles where #35 sums 16 x 16 ones. Under
+// CL_TPU_E_BF16 (ew_bf16, bf16 only) e and t take the bf16 chains
+// (conv3x3_bn.cuh), as #34/#35 and #36 do, while the dx epilogue reads the
+// same a and b in f32.
 //
 // What bounds it on the H100: bytes. At 512^2 x 32 -> 32, batch 8, bf16:
 // x, dy and y read once and dx written, 537 MB, 160 us at 3.35 TB/s,
@@ -134,14 +137,17 @@ __global__ void __launch_bounds__(kFbThreads, 2)
     const bool dx_tile = p.out != nullptr && k % n_pass == pass;
     const int g_lo = dx_tile ? 0 : pass, g_hi = dx_tile ? n_pass : pass + 1;
     __syncthreads();
-    for (int e = threadIdx.x; e < kWinH * kWinW * 4; e += kFbThreads) {
-      const int pix = e >> 2, q = e & 3;
-      const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const int c = ci0 + q * 8;
-      const int64_t i = (img + (int64_t)gy * W + gx) * Ci + c;
-      stage8_t(&t_s[pix * kTRow + q * 8], p.x + i, c, Ci, inside, p.prologue, p.pa, p.pb);
-    }
+    with_ew(p.ew_bf16, [&](auto ew) {
+      for (int e = threadIdx.x; e < kWinH * kWinW * 4; e += kFbThreads) {
+        const int pix = e >> 2, q = e & 3;
+        const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const int c = ci0 + q * 8;
+        const int64_t i = (img + (int64_t)gy * W + gx) * Ci + c;
+        stage8_t<decltype(ew)::value>(&t_s[pix * kTRow + q * 8], p.x + i, c, Ci, inside,
+                                      p.prologue, p.pa, p.pb);
+      }
+    });
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -154,15 +160,17 @@ __global__ void __launch_bounds__(kFbThreads, 2)
         const int c0 = grp * COG + ch * 16;
         if (c0 >= Co) break;
         __syncthreads();  // the previous chunk's products are done
-        for (int e = threadIdx.x; e < kWinH * kWinW * 2; e += kFbThreads) {
-          const int pix = e >> 1, half = e & 1;
-          const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-          const int c = c0 + half * 8;
-          const int64_t i = (img + (int64_t)gy * W + gx) * Co + c;
-          stage8_e(&e_s[pix * kRowS + half * 8], p.in + i, p.s1 ? p.y + i : nullptr, c, Co,
-                   inside, p.s1, p.s2);
-        }
+        with_ew(p.ew_bf16, [&](auto ew) {
+          for (int e = threadIdx.x; e < kWinH * kWinW * 2; e += kFbThreads) {
+            const int pix = e >> 1, half = e & 1;
+            const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
+            const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+            const int c = c0 + half * 8;
+            const int64_t i = (img + (int64_t)gy * W + gx) * Co + c;
+            stage8_e<decltype(ew)::value>(&e_s[pix * kRowS + half * 8], p.in + i,
+                                          p.s1 ? p.y + i : nullptr, c, Co, inside, p.s1, p.s2);
+          }
+        });
         if (dx_tile) {
           for (int e = threadIdx.x; e < 9 * kFbC * 2; e += kFbThreads) {
             const int half = e & 1, row = e >> 1;  // row = tap * kFbC + ci
@@ -428,17 +436,21 @@ int fused_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, void* out_ab, float*
 // wanted (the stem: dx, da and db are then not computed); part_ab one row
 // [2, Cin] per pixel tile (16 x 16 bf16, 8 x 16 f32), out_ab [2, Cin]
 // (da, db; written with dx and the prologue); part_dw splits * Cout * Cin
-// * 9 floats, dw f32 [Cout, Cin, 3, 3], not rounded.
+// * 9 floats, dw f32 [Cout, Cin, 3, 3], not rounded; `ew_bf16` (bf16):
+// the bf16 chains.
 extern "C" {
 
 int cltorch_conv3x3_bn_bwd_fused(const void* x, const void* a, const void* b, const void* y,
                                  const void* dy, const void* s1, const void* s2, const void* wdx,
                                  void* dx, void* part_ab, void* out_ab, void* part_dw, void* dw,
                                  int B, int H, int W, int Cin, int Cout, int prologue,
-                                 int splits, int is_bf16, void* stream) {
+                                 int splits, int is_bf16, int ew_bf16, void* stream) {
   using namespace cltorch;
+  ConvArgs<bf16> pb16 =
+      dx_view<bf16>(dy, y, s1, s2, wdx, a, b, x, dx, part_ab, B, H, W, Cin, Cout, prologue);
+  pb16.ew_bf16 = ew_bf16;
   return fused_launch(
-      dx_view<bf16>(dy, y, s1, s2, wdx, a, b, x, dx, part_ab, B, H, W, Cin, Cout, prologue),
+      pb16,
       dx_view<float>(dy, y, s1, s2, wdx, a, b, x, dx, part_ab, B, H, W, Cin, Cout, prologue),
       out_ab, static_cast<float*>(part_dw), dw, splits, is_bf16,
       static_cast<cudaStream_t>(stream));

@@ -29,8 +29,9 @@
 //     was what held the first ring version at half the memory rate.
 //   - t = round(relu(x a + b)) and e = round(dy + ds1 + 2 y ds2) are formed
 //     ONCE per element, in place in the stage, with stage8_t's / stage8_e's
-//     arithmetic and one rounding (raw x and dy are the operands as they
-//     land when the prologue or the stats are off). Zero padding stays in
+//     arithmetic and one rounding, or their bf16 chains under CL_TPU_E_BF16
+//     (`ew_bf16`, which every bf16 body takes); raw x and dy are the operands
+//     as they land when the prologue or the stats are off. Zero padding stays in
 //     t-space: out-of-image pixels land as zeros and the transform skips
 //     them (a narrow x's are written as zeros), so a padded tap is 0, never
 //     relu(b); channels past Cin or Cout get a = b = ds1 = ds2 = 0.
@@ -127,7 +128,8 @@ __device__ __forceinline__ void dw_mma_body(const bf16* __restrict__ x,
                                             const float* __restrict__ s1_in,
                                             const float* __restrict__ s2_in,
                                             float* __restrict__ partials, int B, int H, int W,
-                                            int Cin, int Cout, int prologue_in, const QArgs qa) {
+                                            int Cin, int Cout, int prologue_in, const QArgs qa,
+                                            int ew_bf16 = 0) {
   const int prologue = dw_prologue<KIND>(prologue_in);
   const float* s1 = dw_stats<KIND>(s1_in);
   const float* s2 = dw_stats<KIND>(s2_in);
@@ -155,32 +157,35 @@ __device__ __forceinline__ void dw_mma_body(const bf16* __restrict__ x,
     const int gy0 = (rem / tiles_x) * kTH, gx0 = (rem % tiles_x) * kTW;
     const int64_t img = (int64_t)b * H * W;
     __syncthreads();
-    for (int e = threadIdx.x; e < kWinH * kWinW * 4; e += kDwThreads) {
-      const int pix = e >> 2, q = e & 3;
-      const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const int c = ci0 + q * 8;
-      const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
-      if (KIND == kDwQ && qa.xq != nullptr)
-        stage8_tq(&t_s[pix * kDwRow + q * 8], qa.xq + i,
-                  qa.xsc + ((int64_t)(b * H + gy) * qa.pack + gx % qa.pack) * Cin + c, c, Cin,
-                  inside, prologue, pa, pb);
-      else
-        stage8_t(&t_s[pix * kDwRow + q * 8], x + i, c, Cin, inside, prologue, pa, pb);
-    }
-    for (int e = threadIdx.x; e < kTH * kTW * 4; e += kDwThreads) {
-      const int pix = e >> 2, q = e & 3;
-      const int gy = gy0 + pix / kTW, gx = gx0 + pix % kTW;
-      const int c = co0 + q * 8;
-      const int64_t i = (img + (int64_t)gy * W + gx) * Cout + c;
-      if constexpr (KIND == kDwQ)
-        stage8_eq(&e_s[pix * kDwRow + q * 8], dy + i, qa.yq + i,
-                  qa.ysc + ((int64_t)(b * H + gy) * qa.pack + gx % qa.pack) * Cout + c, c, Cout,
-                  gy < H && gx < W, s1, s2);
-      else
-        stage8_e(&e_s[pix * kDwRow + q * 8], dy + i, s1 ? y + i : nullptr, c, Cout,
-                 gy < H && gx < W, s1, s2);
-    }
+    with_ew(ew_bf16, [&](auto ew) {
+      constexpr bool EW = decltype(ew)::value;
+      for (int e = threadIdx.x; e < kWinH * kWinW * 4; e += kDwThreads) {
+        const int pix = e >> 2, q = e & 3;
+        const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const int c = ci0 + q * 8;
+        const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
+        if (KIND == kDwQ && qa.xq != nullptr)
+          stage8_tq(&t_s[pix * kDwRow + q * 8], qa.xq + i,
+                    qa.xsc + ((int64_t)(b * H + gy) * qa.pack + gx % qa.pack) * Cin + c, c,
+                    Cin, inside, prologue, pa, pb);
+        else
+          stage8_t<EW>(&t_s[pix * kDwRow + q * 8], x + i, c, Cin, inside, prologue, pa, pb);
+      }
+      for (int e = threadIdx.x; e < kTH * kTW * 4; e += kDwThreads) {
+        const int pix = e >> 2, q = e & 3;
+        const int gy = gy0 + pix / kTW, gx = gx0 + pix % kTW;
+        const int c = co0 + q * 8;
+        const int64_t i = (img + (int64_t)gy * W + gx) * Cout + c;
+        if constexpr (KIND == kDwQ)
+          stage8_eq(&e_s[pix * kDwRow + q * 8], dy + i, qa.yq + i,
+                    qa.ysc + ((int64_t)(b * H + gy) * qa.pack + gx % qa.pack) * Cout + c, c,
+                    Cout, gy < H && gx < W, s1, s2);
+        else
+          stage8_e<EW>(&e_s[pix * kDwRow + q * 8], dy + i, s1 ? y + i : nullptr, c, Cout,
+                       gy < H && gx < W, s1, s2);
+      }
+    });
     __syncthreads();
 
     for (int r = 0; r < kTH; ++r) {
@@ -308,7 +313,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
                                              float* __restrict__ partials, int B, int H, int W,
                                              int Cin, int Cout, int prologue_in,
                                              const CUtensorMap* tm_x, const CUtensorMap* tm_dy,
-                                             const CUtensorMap* tm_y) {
+                                             const CUtensorMap* tm_y, int ew_bf16) {
   static_assert(KIND != kDwQ, "the ring stages bf16 operands; kDwQ stays on dw_mma_body");
   using Tile = RingTile<CI_T, CO_T>;
   constexpr int QX = CI_T / 8, QE = CO_T / 8;
@@ -448,7 +453,8 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
   // a narrow x scattered from its raw rows), e = round(dy + ds1 + 2 y ds2).
   // Out-of-image pixels keep the zeros they were copied as (a narrow x's
   // are written as zeros): zero padding in t-space and in e-space.
-  auto form = [&](int i, int st, int b, int gy0, int gx0) {
+  auto form = [&](auto ew, int i, int st, int b, int gy0, int gx0) {
+    constexpr bool EW = decltype(ew)::value;
     bf16* xs = ring + st * Tile::kStage;
     bf16* es = xs + Tile::kX;
     const bf16* ys = es + Tile::kE;
@@ -467,7 +473,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
         for (int j = 0; j < 8; ++j) {
           const float xv = inside && j < Cin ? __bfloat162float(src[j]) : 0.f;
           v[j] = __float2bfloat16(prologue && inside && j < Cin
-                                      ? prologue_f32(xv, a_s[j], b_s[j]) : xv);
+                                      ? prologue_ew<EW>(xv, a_s[j], b_s[j]) : xv);
         }
       } else {
         if (!inside) return;
@@ -475,7 +481,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           v[j] = __float2bfloat16(
-              prologue_f32(__bfloat162float(v[j]), a_s[q * 8 + j], b_s[q * 8 + j]));
+              prologue_ew<EW>(__bfloat162float(v[j]), a_s[q * 8 + j], b_s[q * 8 + j]));
       }
       store16<bf16>(&xs[Tile::x_at(pix, q)], 0, v);
     } else {
@@ -487,10 +493,16 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
       load16<bf16>(yv, &ys[at], 0);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        v[j] = __float2bfloat16(e_f32(__bfloat162float(v[j]), __bfloat162float(yv[j]),
-                                      s1_s[q * 8 + j], s2_s[q * 8 + j]));
+        v[j] = __float2bfloat16(e_ew<EW>(__bfloat162float(v[j]), __bfloat162float(yv[j]),
+                                         s1_s[q * 8 + j], s2_s[q * 8 + j]));
       store16<bf16>(&es[at], 0, v);
     }
+  };
+  // Every item of a tile's transform, the chain chosen once.
+  auto form_all = [&](int st, int b, int gy0, int gx0) {
+    with_ew(ew_bf16, [&](auto ew) {
+      for (int i = threadIdx.x; i < n_items; i += NT) form(ew, i, st, b, gy0, gx0);
+    });
   };
 
   float acc[Tile::kAccRows][Tile::kAccCols];
@@ -517,7 +529,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
   {
     int b, gy0, gx0;
     if (origin(0, b, gy0, gx0))
-      for (int i = threadIdx.x; i < n_items; i += NT) form(i, 0, b, gy0, gx0);
+      form_all(0, b, gy0, gx0);
   }
   for (int k = 0; k < my_tiles; ++k) {
     const int st = k % S, next = (k + 1) % S;
@@ -555,7 +567,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
       }
       wg_commit();
       if (more)
-        for (int i = threadIdx.x; i < n_items; i += NT) form(i, next, b, gy0, gx0);
+        form_all(next, b, gy0, gx0);
       wg_wait_all();  // before the barrier: this stage takes tile k + 3
 #pragma unroll
       for (int tx = 0; tx < 3; ++tx) wg_fence_regs(acc[tx]);
@@ -585,7 +597,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
       // then tile k + 1's transform: a warp past its products starts on it
       // while the others finish theirs
       if (more)
-        for (int i = threadIdx.x; i < n_items; i += NT) form(i, next, b, gy0, gx0);
+        form_all(next, b, gy0, gx0);
     }
   }
   cp_async_wait<0>();  // no copy outlives the block (the groups past the end are empty)
@@ -646,7 +658,8 @@ __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
                                             const float* __restrict__ s1_in,
                                             const float* __restrict__ s2_in,
                                             float* __restrict__ partials, int B, int H, int W,
-                                            int Cin, int Cout, int prologue_in, const QArgs qa) {
+                                            int Cin, int Cout, int prologue_in, const QArgs qa,
+                                            int = 0) {  // f32: no bf16 chains
   const int prologue = dw_prologue<KIND>(prologue_in);
   const float* s1 = dw_stats<KIND>(s1_in);
   const float* s2 = dw_stats<KIND>(s2_in);

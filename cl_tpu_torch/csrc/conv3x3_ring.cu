@@ -134,15 +134,17 @@ extern "C" {
 // (the dx with the prologue, Cout a multiple of 8) copies each tile's x
 // in by TMA; cot, ck, resident, xbuf and blocks are the wrapper's
 // schedule (kernels/conv3x3.py::conv_ring_tile, conv_ring_xbuf,
-// conv_ring_blocks).
+// conv_ring_blocks); `ew_bf16` stages t or e with the bf16 chains
+// (CL_TPU_E_BF16; the dx epilogue keeps the f32 a and b).
 int cltorch_conv3x3_bn_ring(int dx, const void* in, const void* y, const void* s1,
                             const void* s2, const void* w, const void* a, const void* b,
                             const void* x, void* out, void* partials, void* sums, int B, int H,
                             int W, int Cin, int Cout, int prologue, int cot, int ck, int resident,
-                            int xbuf, int blocks, void* stream) {
+                            int xbuf, int blocks, int ew_bf16, void* stream) {
   using namespace cltorch;
-  const ConvArgs<bf16> p =
+  ConvArgs<bf16> p =
       conv_args<bf16>(in, y, s1, s2, w, a, b, x, out, partials, H, W, Cin, Cout, prologue);
+  p.ew_bf16 = ew_bf16;
   const RingArgs ra{B, resident, (Cin & 7) == 0, xbuf};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool epi = prologue != 0;

@@ -58,7 +58,8 @@
 //   them into: a tap's A is two ldmatrix.x4, its B one per two n-tiles.
 // - Transforms and re-reads. t = round(relu(x a + b)) and e = round(dy +
 //   ds1 + 2 y ds2) are formed once per element of a window, in place, with
-//   stage8_t's / stage8_e's f32 arithmetic and one rounding; a, b, ds1, ds2
+//   stage8_t's / stage8_e's f32 arithmetic and one rounding (or, under
+//   CL_TPU_E_BF16, their bf16 chains: p.ew_bf16); a, b, ds1, ds2
 //   are staged in shared memory once per block (zero past the channels).
 //   Out-of-image pixels keep TMA's zeros (the transform skips them): zero
 //   padding in t-space and in e-space, never relu(b) or ds1. The forward
@@ -284,17 +285,21 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
       return;
     }
     const int64_t img = (int64_t)b * H * W;
-    for (int i = threadIdx.x; i < kRingConvWin * QC; i += kRingConvThreads) {
-      const int pix = i / QC, q = i % QC;
-      const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW, c = ci0 + q * 8;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const int64_t off = inside ? (img + (int64_t)gy * W + gx) * Cin + c : 0;
-      bf16* dst = reinterpret_cast<bf16*>(st + ring_at<CK>(pix, q));
-      if constexpr (DX)
-        stage8_e(dst, p.in + off, stats ? p.y + off : nullptr, c, Cin, inside, p.s1, p.s2);
-      else
-        stage8_t(dst, p.in + off, c, Cin, inside, p.prologue, p.pa, p.pb);
-    }
+    with_ew(p.ew_bf16, [&](auto ew) {
+      constexpr bool EW = decltype(ew)::value;
+      for (int i = threadIdx.x; i < kRingConvWin * QC; i += kRingConvThreads) {
+        const int pix = i / QC, q = i % QC;
+        const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW, c = ci0 + q * 8;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const int64_t off = inside ? (img + (int64_t)gy * W + gx) * Cin + c : 0;
+        bf16* dst = reinterpret_cast<bf16*>(st + ring_at<CK>(pix, q));
+        if constexpr (DX)
+          stage8_e<EW>(dst, p.in + off, stats ? p.y + off : nullptr, c, Cin, inside, p.s1,
+                       p.s2);
+        else
+          stage8_t<EW>(dst, p.in + off, c, Cin, inside, p.prologue, p.pa, p.pb);
+      }
+    });
   };
   // t or e of stage k, in place, once per element, at in-image pixels,
   // once stage k (and its y window) have landed.
@@ -304,32 +309,35 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
     unsigned char* st = ring + (k % S) * stage_b;
     mbar_wait(smem_u32(&bars[k % S]), (k / S) & 1);
     if (y_win) mbar_wait(smem_u32(&bars[kBarY]), k & 1);
-    for (int i = threadIdx.x; i < kRingConvWin * QC; i += kRingConvThreads) {
-      const int pix = i / QC, q = i % QC;
-      const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-      if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;  // TMA's zeros stay
-      const int at = ring_at<CK>(pix, q), c = ci0 + q * 8;
-      alignas(16) bf16 v[8];
-      alignas(16) float av[8], bv[8];
-      load16<bf16>(v, reinterpret_cast<const bf16*>(st + at), 0);
-      load16<float>(reinterpret_cast<float(&)[4]>(av[0]), va + c, 0);
-      load16<float>(reinterpret_cast<float(&)[4]>(av[4]), va + c + 4, 0);
-      load16<float>(reinterpret_cast<float(&)[4]>(bv[0]), vb + c, 0);
-      load16<float>(reinterpret_cast<float(&)[4]>(bv[4]), vb + c + 4, 0);
-      if constexpr (DX) {
-        alignas(16) bf16 yv[8];
-        load16<bf16>(yv, reinterpret_cast<const bf16*>(y_s + at), 0);
+    with_ew(p.ew_bf16, [&](auto ew) {
+      constexpr bool EW = decltype(ew)::value;
+      for (int i = threadIdx.x; i < kRingConvWin * QC; i += kRingConvThreads) {
+        const int pix = i / QC, q = i % QC;
+        const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
+        if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;  // TMA's zeros stay
+        const int at = ring_at<CK>(pix, q), c = ci0 + q * 8;
+        alignas(16) bf16 v[8];
+        alignas(16) float av[8], bv[8];
+        load16<bf16>(v, reinterpret_cast<const bf16*>(st + at), 0);
+        load16<float>(reinterpret_cast<float(&)[4]>(av[0]), va + c, 0);
+        load16<float>(reinterpret_cast<float(&)[4]>(av[4]), va + c + 4, 0);
+        load16<float>(reinterpret_cast<float(&)[4]>(bv[0]), vb + c, 0);
+        load16<float>(reinterpret_cast<float(&)[4]>(bv[4]), vb + c + 4, 0);
+        if constexpr (DX) {
+          alignas(16) bf16 yv[8];
+          load16<bf16>(yv, reinterpret_cast<const bf16*>(y_s + at), 0);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = __float2bfloat16(
-              e_f32(__bfloat162float(v[j]), __bfloat162float(yv[j]), av[j], bv[j]));
-      } else {
+          for (int j = 0; j < 8; ++j)
+            v[j] = __float2bfloat16(
+                e_ew<EW>(__bfloat162float(v[j]), __bfloat162float(yv[j]), av[j], bv[j]));
+        } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = __float2bfloat16(prologue_f32(__bfloat162float(v[j]), av[j], bv[j]));
+          for (int j = 0; j < 8; ++j)
+            v[j] = __float2bfloat16(prologue_ew<EW>(__bfloat162float(v[j]), av[j], bv[j]));
+        }
+        store16<bf16>(reinterpret_cast<bf16*>(st + at), 0, v);
       }
-      store16<bf16>(reinterpret_cast<bf16*>(st + at), 0, v);
-    }
+    });
   };
 
   float acc[2][NT][4];

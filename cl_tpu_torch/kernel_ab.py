@@ -8,9 +8,13 @@ its own whose ``sys.path`` starts with that checkout, so each version
 builds and launches its own kernels. Every turn times each kernel (default:
 the five forward kernels; or any of ``chip_smoke.PACKED_PATH``'s names, the
 backward ones too; or ``head_ce_bn_fwd`` / ``head_ce_bn_bwd``, the packed
-head's forward #7 and backward #8) at every shape of that checkout's 512²
-path (``chip_smoke.PACKED_PATH``, bf16, batch 8; #7 and #8 at
-``HEAD_SHAPE`` on ``chip_smoke.bn_case``'s operands)
+head's forward #7 and backward #8; or the switches' ``conv3x3_bn_bwd_fused``
+(#37), ``conv3x3_bn_dx_pipe`` / ``conv3x3_bn_dx_bn_pipe`` (34p/35p), the
+int8 dW ``conv3x3_bn_dw_q`` (#39) and the two-pass dW ``conv3x3_dw_bn``
+(#33)) at every shape of that checkout's 512² path (``chip_smoke.PACKED_PATH``,
+``SWITCH_PATH``, ``Q_PATH``; #33 at level 3's two-pass shape of the 22 MiB
+budget, ``LEVEL3_TWO_PASS``; bf16, batch 8; #7 and #8 at ``HEAD_SHAPE`` on
+``chip_smoke.bn_case``'s operands)
 on that checkout's operands (``chip_smoke.packed_operands`` for a forward
 kernel, ``bwd_operands`` for a backward one, whose launch is
 ``bwd_fns``'s; ``--f32``: in float32) with this file's ``time_ms``
@@ -53,6 +57,8 @@ HEADLINE = ["preset=baseline_1", "data.image_size=512", "data.source_size=576",
 BACKWARD = ("conv3x3_bn_dw", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "upconv_dx", "upconv_dw",
             "maxpool_bwd", "bn_relu_bwd", "dy_eff")
 HEAD = ("head_ce_bn_fwd", "head_ce_bn_bwd")
+OTHER = ("conv3x3_bn_bwd_fused", "conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe", "conv3x3_bn_dw_q",
+         "conv3x3_dw_bn")
 # The packed head's shape on the headline step: (pixels, Cin, classes),
 # each kernel once a step, with bn_case's seed of chip_smoke's phase 3.
 HEAD_SHAPE = (2097152, 32, 19)
@@ -62,15 +68,21 @@ HEAD_SEED = 2
 def check_names(kernels) -> None:
     """Raise on a kernel name that is neither a forward nor a backward
     kernel of the packed path, nor the packed head's forward or backward."""
-    unknown = [k for k in kernels if k not in FORWARD + BACKWARD + HEAD]
+    unknown = [k for k in kernels if k not in FORWARD + BACKWARD + HEAD + OTHER]
     if unknown:
         raise ValueError(f"kernel_ab: unknown kernel(s) {unknown}; known: "
-                         f"{', '.join(FORWARD + BACKWARD + HEAD)}")
+                         f"{', '.join(FORWARD + BACKWARD + HEAD + OTHER)}")
 
 
 def shapes(smoke, kernel):
     """[(shape, launches a step), ...] of one kernel on the headline step."""
-    return [(HEAD_SHAPE, 1)] if kernel in HEAD else smoke.PACKED_PATH[kernel]
+    if kernel in HEAD:
+        return [(HEAD_SHAPE, 1)]
+    if kernel == "conv3x3_dw_bn":
+        return [smoke.LEVEL3_TWO_PASS[kernel][::2]]
+    if kernel == "conv3x3_bn_dw_q":
+        return smoke.Q_PATH[kernel]
+    return smoke.SWITCH_PATH[kernel] if kernel in OTHER else smoke.PACKED_PATH[kernel]
 
 
 def dispatch(smoke, kernel, dtype_name="bfloat16"):
@@ -84,6 +96,16 @@ def dispatch(smoke, kernel, dtype_name="bfloat16"):
     if kernel in FORWARD:
         return smoke.packed_fns(kernel)[0], \
             lambda shape: smoke.packed_operands(kernel, shape, dtype_name)
+    if kernel == "conv3x3_dw_bn":
+        return smoke.v3_fns(kernel)[0], lambda shape: smoke.v3_operands(kernel, shape, dtype_name)
+    if kernel == "conv3x3_bn_dw_q":
+        return smoke.q_fns(kernel)[0], lambda shape: smoke.q_operands(shape, dtype_name)
+    if kernel in OTHER:
+        launch = smoke.switch_fns(kernel)[0]
+        if kernel == "conv3x3_bn_bwd_fused":  # the stem (Cin 3) without dx
+            fused = launch
+            launch = lambda *ops: fused(*ops, need_dx=ops[0].shape[-1] != 3)  # noqa: E731
+        return launch, lambda shape: smoke.bwd_operands("conv3x3_bn_dw", shape, dtype_name)
     return smoke.bwd_fns(kernel)[0], lambda shape: smoke.bwd_operands(kernel, shape, dtype_name)
 
 

@@ -31,7 +31,8 @@ I = ctypes.c_int
 L = ctypes.c_int64
 F = ctypes.c_float
 # C entry points: name -> argtypes (every pointer and the stream as void*,
-# a float as c_float).
+# a float as c_float). The packed conv's bf16 entry points take `ew_bf16`
+# (CL_TPU_E_BF16's bf16 chains) as the int before the stream.
 SIGNATURES = {
     "cltorch_head_ce_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "cltorch_head_ce_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
@@ -50,7 +51,7 @@ SIGNATURES = {
     "cltorch_kd_fwd": [P] * 6 + [I] * 4 + [F, I, P],
     "cltorch_kd_bwd": [P] * 6 + [I] * 4 + [F, I, P],
     "cltorch_conv3x3_bn_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "cltorch_conv3x3_bn_ring": [I] + [P] * 11 + [I] * 11 + [P],
+    "cltorch_conv3x3_bn_ring": [I] + [P] * 11 + [I] * 12 + [P],
     "cltorch_conv3x3_ring_info": [I, I, I, I, I, P],
     "cltorch_bn_relu_fwd": [P, P, P, P, L, I, I, P],
     "cltorch_add_stats_fwd": [P, P, P, P, P, L, I, I, I, P],
@@ -65,18 +66,18 @@ SIGNATURES = {
     "cltorch_upconv_dw": [P] * 6 + [I] * 9 + [P],
     "cltorch_upconv_dw_ring_info": [I, I, P],
     "cltorch_conv3x3_bn_dx": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "cltorch_conv3x3_bn_dx_pipe": [P] * 11 + [I] * 7 + [P],
-    "cltorch_conv3x3_bn_bwd_fused": [P] * 13 + [I] * 8 + [P],
-    "cltorch_conv3x3_bn_dw": [P] * 9 + [I] * 10 + [P],
+    "cltorch_conv3x3_bn_dx_pipe": [P] * 11 + [I] * 8 + [P],
+    "cltorch_conv3x3_bn_bwd_fused": [P] * 13 + [I] * 9 + [P],
+    "cltorch_conv3x3_bn_dw": [P] * 9 + [I] * 11 + [P],
     "cltorch_conv3x3_dw_ring_info": [I, I, P],
     "cltorch_conv3x3_fwd": [P, P, P, I, I, I, I, I, I, P],
     "cltorch_conv3x3_dw": [P, P, P, P, I, I, I, I, I, I, I, P],
-    "cltorch_conv3x3_dw_bn": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "cltorch_conv3x3_dw_bn": [P] * 6 + [I] * 9 + [P],
     "cltorch_conv3x3_g2_fwd": [P, P, P, I, I, I, I, I, I, P],
     "cltorch_conv3x3_g2_dw": [P, P, P, P, I, I, I, I, I, I, I, P],
     "cltorch_conv3x3_bn_quant": [P, P, P] + [I] * 6 + [P],
     "cltorch_conv3x3_bn_dx_q": [P] * 14 + [I] * 8 + [P],
-    "cltorch_conv3x3_bn_dw_q": [P] * 12 + [I] * 9 + [P],
+    "cltorch_conv3x3_bn_dw_q": [P] * 12 + [I] * 10 + [P],
     "cltorch_ewc_penalty": [P, P, P, L, I, P, P, I, P],
     "cltorch_ewc_grad": [P, P, P, P, P, L, I, P],
     "cltorch_ewc_sq_acc": [P, P, L, I, P],

@@ -61,6 +61,19 @@ t = round(relu(deq(xq)·a + b)) computed in f32 and rounded once
 reads) it dequantizes y and x once, ROUNDED to the compute
 dtype, and runs the two-pass backward on them (``:1836-1858``).
 
+Under ``CL_TPU_E_BF16=1`` (``packed_gate.E_BF16``, read at each forward
+as ``cl_tpu``'s ``_ew_dtype`` keys it, ``conv3x3_v3.py:670-683``: the flag
+on and the chain's operand in bf16) the bf16 kernels run two chains in
+bf16: the prologue's t = relu((x·a) + b) and the backward's e = (dy + ds1)
++ ((2·y)·ds2), with a, b, ds1 and ds2 rounded to bf16 first and every
+product and sum rounded to bf16 (``prologue_t`` / ``dy_eff`` with
+``e_bf16``). Every kernel that forms them takes the variant (#32, #33,
+#34/#35, 34p/35p, #36, #37, #39 from x); f32 kernels never change, and
+neither do the dx epilogue (f32 a and b), the two-pass branch's
+materialized e, #38's e and #39's e from deq(y) or its t from deq(xq), whose
+operands are f32. The variant's launches count under the key with
+``_ebf16`` appended.
+
 ``w`` is the port's conv weight [Cout, Cin, 3, 3] (f32), rounded to x's
 dtype as the JAX package rounds its kernel. Tensors are NHWC.
 
@@ -95,6 +108,16 @@ LAUNCHES = {"conv3x3_bn_fwd": 0, "conv3x3_bn_dx": 0, "conv3x3_bn_dx_bn": 0,
             # CL_TPU_DX_PIPE: the pipelined dx (34p, 35p); CL_TPU_FUSE_BWD:
             # the one-pass backward (#37)
             "conv3x3_bn_dx_pipe": 0, "conv3x3_bn_dx_bn_pipe": 0, "conv3x3_bn_bwd_fused": 0}
+# CL_TPU_E_BF16: each kernel that takes the bf16 chains, launched with them
+EBF16 = "_ebf16"
+LAUNCHES.update({k + EBF16: 0 for k in (
+    "conv3x3_bn_fwd", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "conv3x3_bn_dw", "conv3x3_dw_bn",
+    "conv3x3_bn_dw_q", "conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe", "conv3x3_bn_bwd_fused")})
+
+
+def _count(key, e_bf16):
+    """One launch under ``key``, or its variant's key."""
+    LAUNCHES[key + (EBF16 if e_bf16 else "")] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -102,9 +125,19 @@ LAUNCHES = {"conv3x3_bn_fwd": 0, "conv3x3_bn_dx": 0, "conv3x3_bn_dx_bn": 0,
 # ---------------------------------------------------------------------------
 
 
-def prologue_t(x, a, b, prologue):
-    """t: x through the BN·ReLU prologue (rounded to x's dtype), or x."""
-    return torch.relu(x.float() * a + b).to(x.dtype) if prologue else x
+def _bf16_chain(e_bf16, t):
+    """Whether a chain on ``t`` runs in bf16: ``_ew_dtype``'s key."""
+    return e_bf16 and t.dtype == torch.bfloat16
+
+
+def prologue_t(x, a, b, prologue, e_bf16=False):
+    """t: x through the BN·ReLU prologue (rounded to x's dtype), or x. With
+    ``e_bf16`` and x in bf16, relu((x·a) + b) in bf16, op by op."""
+    if not prologue:
+        return x
+    if _bf16_chain(e_bf16, x):
+        return torch.relu(x * a.to(torch.bfloat16) + b.to(torch.bfloat16))
+    return torch.relu(x.float() * a + b).to(x.dtype)
 
 
 def _nchw(t):
@@ -117,17 +150,22 @@ def conv3x3_plain(x, w):
     return y.to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
-def conv_bn_plain(x, w, a=None, b=None, prologue=False):
-    y = conv3x3_plain(prologue_t(x, a, b, prologue), w)
+def conv_bn_plain(x, w, a=None, b=None, prologue=False, e_bf16=False):
+    y = conv3x3_plain(prologue_t(x, a, b, prologue, e_bf16), w)
     yf = y.float().reshape(-1, y.shape[-1])
     return y, yf.sum(0), (yf * yf).sum(0)
 
 
-def dy_eff(dy, y, ds1, ds2):
+def dy_eff(dy, y, ds1, ds2, e_bf16=False):
     """e = dy + ds1 + 2·y·ds2 in f32, rounded to dy's dtype; dy itself when
-    both are None."""
+    both are None. With ``e_bf16`` and dy in bf16, (dy + ds1) + ((2·y)·ds2)
+    in bf16, op by op (a missing one zero, as the kernels read it)."""
     if ds1 is None and ds2 is None:
         return dy
+    if _bf16_chain(e_bf16, dy):
+        s1, s2 = (torch.zeros(dy.shape[-1], dtype=torch.bfloat16, device=dy.device) if v is None
+                  else v.to(torch.bfloat16) for v in (ds1, ds2))
+        return (dy + s1) + (2.0 * y.to(torch.bfloat16)) * s2
     e = dy.float()
     if ds1 is not None:
         e = e + ds1
@@ -136,9 +174,9 @@ def dy_eff(dy, y, ds1, ds2):
     return e.to(dy.dtype)
 
 
-def conv_dx_plain(x, w, a, b, y, dy, ds1, ds2, prologue):
+def conv_dx_plain(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16=False):
     """(dx, da, db) of ``conv_bn_fused``; da, db None without the prologue."""
-    e = dy_eff(dy, y, ds1, ds2)
+    e = dy_eff(dy, y, ds1, ds2, e_bf16)
     dt = F.conv_transpose2d(_nchw(e), w.to(x.dtype).float(), padding=1).permute(0, 2, 3, 1)
     if not prologue:
         return dt.to(x.dtype), None, None
@@ -156,22 +194,22 @@ def prologue_bwd(x, a, b, dt, dtype=None):
     return dx, (du * xf).sum(0), du.sum(0)
 
 
-def conv_dw_plain(x, w, a, b, y, dy, ds1, ds2, prologue):
+def conv_dw_plain(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16=False):
     """dW [Cout, Cin, 3, 3] rounded to x's dtype, as f32."""
-    e = dy_eff(dy, y, ds1, ds2)
-    return conv3x3_dw_bn_plain(x, a, b, e, prologue).to(x.dtype).float()
+    e = dy_eff(dy, y, ds1, ds2, e_bf16)
+    return conv3x3_dw_bn_plain(x, a, b, e, prologue, e_bf16).to(x.dtype).float()
 
 
-def conv_bwd_fused_plain(x, w, a, b, y, dy, ds1, ds2, prologue, need_dx=True):
+def conv_bwd_fused_plain(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16=False, need_dx=True):
     """#37: (dx or None, da, db, dW) of ``conv_bn_fused`` in one pass: the
     composition of ``conv_dx_plain`` and ``conv_dw_plain`` (the fused
     branch's arithmetic); da, db zeros without the prologue, dW rounded to
     x's dtype, as f32. ``need_dx`` off (the stem) skips dx, da and db."""
     zeros = torch.zeros(x.shape[-1], dtype=torch.float32, device=x.device)
-    dx, da, db = conv_dx_plain(x, w, a, b, y, dy, ds1, ds2, prologue) if need_dx else \
+    dx, da, db = conv_dx_plain(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16) if need_dx else \
         (None, None, None)
     return (dx, zeros if da is None else da, zeros if db is None else db,
-            conv_dw_plain(x, w, a, b, y, dy, ds1, ds2, prologue))
+            conv_dw_plain(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16))
 
 
 def conv3x3_dw_plain(x, dy):
@@ -180,10 +218,10 @@ def conv3x3_dw_plain(x, dy):
     return conv3x3_dw_bn_plain(x, None, None, dy, False)
 
 
-def conv3x3_dw_bn_plain(x, a, b, e, prologue):
+def conv3x3_dw_bn_plain(x, a, b, e, prologue, e_bf16=False):
     """#33: dW [Cout, Cin, 3, 3] of t = prologue_t(x) against a materialized
     e, f32, not rounded."""
-    t = prologue_t(x, a, b, prologue)
+    t = prologue_t(x, a, b, prologue, e_bf16)
     return torch.nn.grad.conv2d_weight(_nchw(t), (e.shape[-1], x.shape[-1], 3, 3), _nchw(e),
                                        padding=1)
 
@@ -225,13 +263,14 @@ def conv_dx_q_plain(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
     return prologue_bwd(_x_f32(x_res, p), a, b, dt, dy.dtype)
 
 
-def conv_dw_q_plain(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
+def conv_dw_q_plain(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p, e_bf16=False):
     """#39: dW [Cout, Cin, 3, 3] of ``conv_bn_fused_q``, rounded to the
-    compute dtype, as f32: e from deq(y) in f32 (point 1); t from x, or
-    t = round(relu(deq(xq)·a + b)) computed in f32 and rounded once (point
-    3); the sum in f32, rounded once."""
+    compute dtype, as f32: e from deq(y) in f32 (point 1); t from x (the
+    bf16 chain under ``e_bf16``), or t = round(relu(deq(xq)·a + b))
+    computed in f32 and rounded once (point 3); the sum in f32, rounded
+    once."""
     e = dy_eff(dy, deq_rows(q, scale, p), ds1, ds2)
-    t = prologue_t(_x_f32(x_res, p), a, b, prologue).to(dy.dtype)
+    t = prologue_t(_x_f32(x_res, p), a, b, prologue, e_bf16).to(dy.dtype)
     return conv3x3_dw_bn_plain(t, None, None, e, False).to(dy.dtype).float()
 
 
@@ -382,11 +421,12 @@ def dx_partials_shape(cin, B, H, W, prologue):
     return (B * -(-H // TILE) * -(-W // TILE) if prologue else 1), 2, cin
 
 
-def _launch_ring(dx, src, y, s1, s2, wk, a, b, x, out, partials, sums, prologue):
+def _launch_ring(dx, src, y, s1, s2, wk, a, b, x, out, partials, sums, prologue, e_bf16):
     """The bf16 ring body's launch (``csrc/conv3x3_ring.cu``) of the forward
     (``src`` = x, ``out`` = y) or the dx (``src`` = dy, ``out`` = dx), with
     the schedule its shapes give (``conv_ring_tile``, ``conv_ring_xbuf``,
-    ``conv_ring_blocks``); returns the entry point's error code."""
+    ``conv_ring_blocks``), the bf16 chains under ``e_bf16``; returns the
+    entry point's error code."""
     B, H, W, cin = src.shape
     cout = out.shape[-1]
     stats = s1 is not None
@@ -396,10 +436,10 @@ def _launch_ring(dx, src, y, s1, s2, wk, a, b, x, out, partials, sums, prologue)
         _ptr(x), out.data_ptr(), partials.data_ptr(), sums.data_ptr(), B, H, W, cin, cout,
         int(prologue), cot, ck, int(resident),
         int(conv_ring_xbuf(cin, cout, dx, stats, prologue)),
-        conv_ring_blocks(cin, cout, B, H, W, dx, stats, prologue), _stream(src))
+        conv_ring_blocks(cin, cout, B, H, W, dx, stats, prologue), int(e_bf16), _stream(src))
 
 
-def launch_conv_bn(x, w, a=None, b=None, prologue=False):
+def launch_conv_bn(x, w, a=None, b=None, prologue=False, e_bf16=False):
     _check_nhwc(x, "conv3x3_bn kernel")
     B, H, W, cin = x.shape
     cout = w.shape[0]
@@ -418,7 +458,7 @@ def launch_conv_bn(x, w, a=None, b=None, prologue=False):
     out = torch.empty(2, cout, dtype=torch.float32, device=x.device)
     if bf16:
         err = _launch_ring(False, x, None, None, None, wk, a, b, None, y, partials, out,
-                           prologue)
+                           prologue, e_bf16)
     else:
         err = build.library().cltorch_conv3x3_bn_fwd(
             x.data_ptr(), wk.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
@@ -454,9 +494,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue, pipe=False):
+def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue, pipe=False, e_bf16=False):
     """(dx, da, db) on the card; da, db None without the prologue. ``pipe``
-    launches the pipelined kernel (34p/35p), bit-equal to #34/#35."""
+    launches the pipelined kernel (34p/35p), bit-equal to #34/#35;
+    ``e_bf16``: e with the bf16 chain (bf16 only)."""
     s1, s2 = _grad_operands(x, w, y, dy, ds1, ds2, "conv3x3_bn dx kernel")
     B, H, W, cin = x.shape
     cout = w.shape[0]
@@ -472,14 +513,14 @@ def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue, pipe=False):
     out = torch.empty(2, cin, dtype=torch.float32, device=x.device)
     a, b = (a, b) if prologue else (None, None)
     if bf16 and not pipe:
-        err = _launch_ring(True, dy, y, s1, s2, wdx, a, b, x, dx, partials, out, prologue)
+        err = _launch_ring(True, dy, y, s1, s2, wdx, a, b, x, dx, partials, out, prologue,
+                           e_bf16)
     else:
-        entry = build.library().cltorch_conv3x3_bn_dx_pipe if pipe else \
-            build.library().cltorch_conv3x3_bn_dx
-        err = entry(
-            dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), wdx.data_ptr(), x.data_ptr(),
-            _ptr(a), _ptr(b), dx.data_ptr(), partials.data_ptr(), out.data_ptr(), B, H, W,
-            cout, cin, int(prologue), int(bf16), _stream(x))
+        args = (dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), wdx.data_ptr(), x.data_ptr(),
+                _ptr(a), _ptr(b), dx.data_ptr(), partials.data_ptr(), out.data_ptr(), B, H, W,
+                cout, cin, int(prologue), int(bf16))
+        err = build.library().cltorch_conv3x3_bn_dx_pipe(*args, int(bf16 and e_bf16), _stream(x)) \
+            if pipe else build.library().cltorch_conv3x3_bn_dx(*args, _stream(x))
     build.check(err, "conv3x3_bn_dx_pipe" if pipe else "conv3x3_bn_dx")
     return (dx, out[0], out[1]) if prologue else (dx, None, None)
 
@@ -558,9 +599,10 @@ def dw_partials_shape(cin, cout, B, H, W, bf16):
     return splits, cout, cin, 3, 3
 
 
-def launch_conv_dw(x, w, a, b, y, dy, ds1, ds2, prologue):
+def launch_conv_dw(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16=False):
     """dW [Cout, Cin, 3, 3] on the card, rounded to x's dtype, as f32: the
-    ring body in bf16, the FMA body in f32."""
+    ring body in bf16 (the bf16 chains under ``e_bf16``), the FMA body in
+    f32."""
     s1, s2 = _grad_operands(x, w, y, dy, ds1, ds2, "conv3x3_bn dW kernel")
     B, H, W, cin = x.shape
     cout = w.shape[0]
@@ -574,15 +616,15 @@ def launch_conv_dw(x, w, a, b, y, dy, ds1, ds2, prologue):
         x.data_ptr(), _ptr(a if prologue else None), _ptr(b if prologue else None),
         dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), partials.data_ptr(), dw.data_ptr(),
         B, H, W, cin, cout, int(prologue), partials.shape[0], *dw_ring_tile(cin, cout),
-        int(bf16), _stream(x))
+        int(bf16), int(bf16 and e_bf16), _stream(x))
     build.check(err, "conv3x3_bn_dw")
     return dw.to(x.dtype).float()
 
 
-def launch_conv_bwd_fused(x, w, a, b, y, dy, ds1, ds2, prologue, need_dx=True):
+def launch_conv_bwd_fused(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16=False, need_dx=True):
     """#37 on the card: (dx or None, da, db, dW) from one launch (and the
     fixed-order sums of its partials); da, db zeros without the prologue,
-    dW rounded to x's dtype, as f32."""
+    dW rounded to x's dtype, as f32; the bf16 chains under ``e_bf16``."""
     s1, s2 = _grad_operands(x, w, y, dy, ds1, ds2, "conv3x3_bn one-pass backward kernel")
     B, H, W, cin = x.shape
     cout = w.shape[0]
@@ -603,7 +645,7 @@ def launch_conv_bwd_fused(x, w, a, b, y, dy, ds1, ds2, prologue, need_dx=True):
         x.data_ptr(), _ptr(a if prologue else None), _ptr(b if prologue else None),
         y.data_ptr(), dy.data_ptr(), _ptr(s1), _ptr(s2), _ptr(wdx), _ptr(dx),
         part_ab.data_ptr(), out_ab.data_ptr(), part_dw.data_ptr(), dw.data_ptr(),
-        B, H, W, cin, cout, int(prologue), splits, int(bf16), _stream(x))
+        B, H, W, cin, cout, int(prologue), splits, int(bf16), int(bf16 and e_bf16), _stream(x))
     build.check(err, "conv3x3_bn_bwd_fused")
     return dx, out_ab[0], out_ab[1], dw.to(x.dtype).float()
 
@@ -651,16 +693,16 @@ def launch_conv3x3_dw(x, dy):
     return dw
 
 
-def launch_conv3x3_dw_bn(x, a, b, e, prologue):
+def launch_conv3x3_dw_bn(x, a, b, e, prologue, e_bf16=False):
     """#33 on the card: dW [Cout, Cin, 3, 3] of prologue_t(x) against the
-    materialized e, f32, not rounded."""
+    materialized e, f32, not rounded; the bf16 prologue under ``e_bf16``."""
     shape, splits, bf16, partials, dw = _dw_outputs(x, e, "conv3x3_dw_bn")
     if prologue:
         a, b = (_vec(v, x.shape[-1], x.device, "conv3x3_dw_bn") for v in (a, b))
     err = build.library().cltorch_conv3x3_dw_bn(
         x.data_ptr(), a.data_ptr() if prologue else None, b.data_ptr() if prologue else None,
         e.data_ptr(), partials.data_ptr(), dw.data_ptr(), *shape, int(prologue), splits, bf16,
-        _stream(x))
+        int(bf16 and e_bf16), _stream(x))
     build.check(err, "conv3x3_dw_bn")
     return dw
 
@@ -734,9 +776,10 @@ def launch_conv_dx_q(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
     return (dx, out[0], out[1]) if prologue else (dx, None, None)
 
 
-def launch_conv_dw_q(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
+def launch_conv_dw_q(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p, e_bf16=False):
     """#39 on the card: dW [Cout, Cin, 3, 3] rounded to the compute dtype,
-    as f32."""
+    as f32; t from x with the bf16 prologue under ``e_bf16`` (not from
+    deq(xq), an f32 operand)."""
     x, xq, xs, s1, s2 = _q_operands(x_res, w, q, scale, dy, ds1, ds2, p, "conv3x3_bn dw_q kernel")
     B, H, W, cout = dy.shape
     cin = w.shape[1]
@@ -750,7 +793,7 @@ def launch_conv_dw_q(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
         _ptr(x), _ptr(xq), _ptr(xs), _ptr(a if prologue else None),
         _ptr(b if prologue else None), dy.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(s1),
         _ptr(s2), partials.data_ptr(), dw.data_ptr(), B, H, W, cin, cout, int(prologue), p,
-        splits, int(bf16), _stream(dy))
+        splits, int(bf16), int(bf16 and e_bf16 and x is not None), _stream(dy))
     build.check(err, "conv3x3_bn_dw_q")
     return dw.to(dy.dtype).float()
 
@@ -797,10 +840,12 @@ def conv3x3(x, w):
     return _Conv3x3.apply(x, w)
 
 
-def _two_pass_backward(need_dx, need_dw, prologue, x, w, a, b, y, dy, ds1, ds2):
-    """``_cbf_bwd``'s two-pass branch: e materialized, dt = #30 (rounded),
-    dW = #33, the prologue's backward in torch on the rounded dt. Returns
-    (dx, dW, da, db); ``need_dx`` asks for dx (or da, db)."""
+def _two_pass_backward(need_dx, need_dw, prologue, x, w, a, b, y, dy, ds1, ds2, e_bf16=False):
+    """``_cbf_bwd``'s two-pass branch: e materialized (in f32, rounded, also
+    under ``e_bf16``: ``conv3x3_v3.py:961-963``), dt = #30 (rounded), dW =
+    #33 (its prologue the bf16 chain under ``e_bf16``), the prologue's
+    backward in torch on the rounded dt. Returns (dx, dW, da, db);
+    ``need_dx`` asks for dx (or da, db)."""
     e = dy_eff(dy, y, ds1, ds2)
     dx = da = db = dw = None
     if need_dx:
@@ -808,10 +853,10 @@ def _two_pass_backward(need_dx, need_dw, prologue, x, w, a, b, y, dy, ds1, ds2):
         dx, da, db = prologue_bwd(x, a, b, dt) if prologue else (dt, None, None)
     if need_dw:
         if x.is_cuda:
-            LAUNCHES["conv3x3_dw_bn"] += 1
-            dw = launch_conv3x3_dw_bn(x, a, b, e, prologue)
+            _count("conv3x3_dw_bn", e_bf16)
+            dw = launch_conv3x3_dw_bn(x, a, b, e, prologue, e_bf16)
         else:
-            dw = conv3x3_dw_bn_plain(x, a, b, e, prologue)
+            dw = conv3x3_dw_bn_plain(x, a, b, e, prologue, e_bf16)
         dw = dw.to(x.dtype).float()
     return dx, dw, da, db
 
@@ -824,12 +869,17 @@ def _branch(x, w, prologue, p, fuse_bwd=None):
     return conv_bwd_branch(H, W, cin_view, w.shape[0], p, x.dtype.itemsize, prologue, fuse_bwd)
 
 
-def _conv_bn(x, w, a, b, prologue):
+def _conv_bn(x, w, a, b, prologue, e_bf16):
     """#32 (counted) or its plain version: (y, Σy, Σy²)."""
     if x.is_cuda:
-        LAUNCHES["conv3x3_bn_fwd"] += 1
-        return launch_conv_bn(x, w, a, b, prologue)
-    return conv_bn_plain(x, w, a, b, prologue)
+        _count("conv3x3_bn_fwd", e_bf16)
+        return launch_conv_bn(x, w, a, b, prologue, e_bf16)
+    return conv_bn_plain(x, w, a, b, prologue, e_bf16)
+
+
+def _e_bf16(x):
+    """``CL_TPU_E_BF16`` for a conv on x, read when its forward runs."""
+    return packed_gate.E_BF16 and x.dtype == torch.bfloat16
 
 
 class _ConvBN(torch.autograd.Function):
@@ -839,42 +889,43 @@ class _ConvBN(torch.autograd.Function):
         ctx.prologue = prologue
         ctx.branch = _branch(x, w, prologue, p or pick_pack(x.shape[-1], w.shape[0]))
         ctx.dx_pipe = packed_gate.DX_PIPE
-        y, s1, s2 = _conv_bn(x, w, a, b, prologue)
+        ctx.e_bf16 = _e_bf16(x)
+        y, s1, s2 = _conv_bn(x, w, a, b, prologue, ctx.e_bf16)
         ctx.save_for_backward(x, w, a, b, y)
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, dy, ds1, ds2):
         x, w, a, b, y = ctx.saved_tensors
-        prologue = ctx.prologue
+        prologue, ew = ctx.prologue, ctx.e_bf16
         dy = torch.zeros_like(y) if dy is None else dy.to(y.dtype).contiguous()
         need_dx = ctx.needs_input_grad[0] or (prologue and any(ctx.needs_input_grad[2:4]))
         args = (x, w, a, b, y, dy, ds1, ds2, prologue)
         if ctx.branch == "two_pass":
             return (*_two_pass_backward(need_dx, ctx.needs_input_grad[1], prologue, x, w, a, b,
-                                        y, dy, ds1, ds2), None, None)
+                                        y, dy, ds1, ds2, ew), None, None)
         if ctx.branch == "one_pass":
             if x.is_cuda:
-                LAUNCHES["conv3x3_bn_bwd_fused"] += 1
-                dx, da, db, dw = launch_conv_bwd_fused(*args, need_dx=need_dx)
+                _count("conv3x3_bn_bwd_fused", ew)
+                dx, da, db, dw = launch_conv_bwd_fused(*args, ew, need_dx=need_dx)
             else:
-                dx, da, db, dw = conv_bwd_fused_plain(*args, need_dx=need_dx)
+                dx, da, db, dw = conv_bwd_fused_plain(*args, ew, need_dx=need_dx)
             return (dx, dw if ctx.needs_input_grad[1] else None,
                     *((da, db) if prologue else (None, None)), None, None)
         dx = da = db = dw = None
         if need_dx:
             if x.is_cuda:
-                LAUNCHES[("conv3x3_bn_dx_bn" if prologue else "conv3x3_bn_dx")
-                         + ("_pipe" if ctx.dx_pipe else "")] += 1
-                dx, da, db = launch_conv_dx(*args, pipe=ctx.dx_pipe)
+                _count(("conv3x3_bn_dx_bn" if prologue else "conv3x3_bn_dx")
+                       + ("_pipe" if ctx.dx_pipe else ""), ew)
+                dx, da, db = launch_conv_dx(*args, pipe=ctx.dx_pipe, e_bf16=ew)
             else:
-                dx, da, db = conv_dx_plain(*args)
+                dx, da, db = conv_dx_plain(*args, ew)
         if ctx.needs_input_grad[1]:
             if x.is_cuda:
-                LAUNCHES["conv3x3_bn_dw"] += 1
-                dw = launch_conv_dw(*args)
+                _count("conv3x3_bn_dw", ew)
+                dw = launch_conv_dw(*args, ew)
             else:
-                dw = conv_dw_plain(*args)
+                dw = conv_dw_plain(*args, ew)
         return dx, dw, da, db, None, None
 
 
@@ -903,7 +954,8 @@ class _ConvBNQ(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.prologue, ctx.p, ctx.dtype = prologue, p, x.dtype
         ctx.two_pass = _branch(x, w, prologue, p, fuse_bwd=False) == "two_pass"
-        y, s1, s2 = _conv_bn(x, w, a, b, prologue)
+        ctx.e_bf16 = _e_bf16(x)
+        y, s1, s2 = _conv_bn(x, w, a, b, prologue, ctx.e_bf16)
         q, scale = _quant_rows(y, p)
         ctx.mark_non_differentiable(q, scale)
         # the saved tensors: (q, scale) in place of y; in the xq mode the
@@ -924,7 +976,8 @@ class _ConvBNQ(torch.autograd.Function):
             # dtype, and take the two-pass backward on them (:1836-1858)
             x = x if xq is None else deq_rows(xq, xs, p).to(dtype)
             dx, dw, da, db = _two_pass_backward(need_dx, need_dw, prologue, x, w, a, b,
-                                                deq_rows(q, scale, p).to(dtype), dy, ds1, ds2)
+                                                deq_rows(q, scale, p).to(dtype), dy, ds1, ds2,
+                                                ctx.e_bf16)
             return dx, None, None, dw, da, db, None, None
         args = (x if xq is None else (xq, xs), w, a, b, q, scale, dy, ds1, ds2, prologue, p)
         dx = da = db = dw = None
@@ -935,11 +988,12 @@ class _ConvBNQ(torch.autograd.Function):
             else:
                 dx, da, db = conv_dx_q_plain(*args)
         if need_dw:
+            ew = ctx.e_bf16 and xq is None  # t from the bf16 x, not from deq(xq)
             if dy.is_cuda:
-                LAUNCHES["conv3x3_bn_dw_q"] += 1
-                dw = launch_conv_dw_q(*args)
+                _count("conv3x3_bn_dw_q", ew)
+                dw = launch_conv_dw_q(*args, ew)
             else:
-                dw = conv_dw_q_plain(*args)
+                dw = conv_dw_q_plain(*args, ew)
         return dx, None, None, dw, da, db, None, None
 
 

@@ -57,8 +57,9 @@ cached ones take them as arguments), so a caller may set them per run.
 move only the TPU's f32 summation order and nothing in the port, and any
 other value ``cl_tpu`` rejects at import; the port raises it as
 ``ValueError`` from ``check_tuning`` (``train.check_supported``), not at
-its own import. ``CL_TPU_E_BF16=1`` (bf16 elementwise chains in the packed
-convs) is not ported: ``tuning_refusal`` names it.
+its own import. ``CL_TPU_E_BF16=1`` (``E_BF16``, ``conv3x3_v3._E_BF16``)
+runs the bf16 packed convs' prologue and backward chains in bf16
+(``kernels/conv3x3.py``, read at each conv's forward).
 """
 
 from __future__ import annotations
@@ -103,12 +104,6 @@ def check_tuning() -> None:
             "one mixed-width dot) is rejected by Mosaic ('result/input offset "
             "mismatch on non-concat dimension' — mixed-width lane concat is "
             "unsupported); use 0 (five dots) or 1 (merged center dots, default)")
-
-
-def tuning_refusal() -> str | None:
-    """``CL_TPU_E_BF16=1`` as ``"CL_TPU_E_BF16=1"``, the one tuning
-    variable not ported, or None."""
-    return "CL_TPU_E_BF16=1" if E_BF16 else None
 
 
 def pick_pack(c_in: int, c_out: int) -> int:

@@ -33,8 +33,8 @@ logit tensors cast to the compute dtype; else the plain
 λ·penalty on every route, through
 the penalty kernels under ``train.use_pallas``. Entry points run on the
 card: ``device`` None means ``cuda``, and without CUDA they raise; the CPU
-runs only when the caller passes ``device="cpu"``. A config that needs a
-part of the JAX package not ported yet raises ``NotImplementedError``
+runs only when the caller passes ``device="cpu"``. The port runs every
+config ``cl_tpu`` runs; one whose train step ``cl_tpu`` fails raises
 (``check_supported``), and no route drops to another loss.
 
 Grow-the-head (``model.padded_head=false``, ``cl_tpu/train.py:1092-1103,
@@ -103,9 +103,6 @@ from cl_tpu_torch.methods.replay import ReplayBuffer
 from cl_tpu_torch.models import packed_gate
 from cl_tpu_torch.models.unet import UNet, expand_head, expand_head_zeros, init_weights
 
-_LATER = "comes in a later slice of the port (ROADMAP.md Queue 1)"
-
-
 def _dtype(cfg: Config) -> torch.dtype:
     if cfg.train.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {cfg.train.compute_dtype!r}")
@@ -120,27 +117,20 @@ def _packed_engages(cfg: Config) -> bool:
 
 
 def check_supported(cfg: Config, device: torch.device | None = None) -> None:
-    """Raise ``NotImplementedError`` for a config this slice does not run,
-    instead of running something else."""
+    """Raise for a config ``cl_tpu`` rejects or fails, instead of running
+    something else: ``ValueError`` for an unknown option or a tuning
+    variable ``cl_tpu`` cannot parse, ``NotImplementedError`` for a
+    standard-body route whose train step ``cl_tpu`` fails. Unknown
+    ``method.methods`` names are ignored, as ``cl_tpu`` ignores them (it
+    only tests membership)."""
     m, meth = cfg.model, cfg.method
-    unported = []
     if m.conv_impl not in ("xla", "v3", "auto", "pallas", "hybrid"):
         raise ValueError(f"unknown model.conv_impl {m.conv_impl!r}")
     if m.upconv_impl not in ("xla", "matmul"):
         raise ValueError(f"unknown model.upconv_impl {m.upconv_impl!r}")
     packed_gate.check_tuning()
-    tuning = packed_gate.tuning_refusal()
-    if tuning:
-        unported.append(f"{tuning} (the bf16 elementwise chains of the packed convs' prologue "
-                        "and backward)")
-    if set(meth.methods) - {"ewc", "lwf", "replay"}:
-        unported.append(f"method.methods={meth.methods}")
     if meth.ewc_fisher_kind not in ("empirical", "true"):
         raise ValueError(f"unknown method.ewc_fisher_kind {meth.ewc_fisher_kind!r}")
-    if unported:
-        raise NotImplementedError(
-            "not in this slice of the port: " + "; ".join(unported)
-            + f" — each {_LATER}")
     dtype = _dtype(cfg)
     packed = _packed_engages(cfg) and m.norm == "batch" and packed_gate.packed_prefix(
         cfg.data.image_size, m.base_channels, m.depth, dtype.itemsize) > 0

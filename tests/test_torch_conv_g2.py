@@ -29,8 +29,8 @@ CPU.
   ``jax.eval_shape`` trace of a train-mode gradient, the port on the
   ``meta`` device: baselines 1 and 2 under pallas and hybrid, f32 and bf16,
   and baseline_3 (the packed body) under pallas, where nothing is launched.
-- ``cl_tpu``'s tuning variables: ``check_supported`` refuses
-  ``CL_TPU_E_BF16=1`` and accepts all five at their defaults.
+- ``cl_tpu``'s tuning variables: ``check_supported`` accepts all five at
+  their defaults.
 """
 
 import collections
@@ -520,21 +520,6 @@ def test_routes_packed_body_ignores_pallas():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name,value", [
-    ("CL_TPU_E_BF16", "1"),
-])
-def test_tuning_variables_refused(name, value, monkeypatch):
-    """``CL_TPU_E_BF16=1`` changes the rounding inside ``cl_tpu``'s bf16
-    packed kernels; the port has no such variant and refuses the run (the
-    four route-only variables run: ``tests/test_torch_tuning.py``)."""
-    monkeypatch.setattr(packed_gate, "E_BF16", value == "1")
-    cfg = parse_overrides(["preset=smoke"])
-    with pytest.raises(NotImplementedError, match=f"{name}={value}"):
-        port_train.check_supported(cfg, CPU)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_train.train(cfg, device="cpu")
-
-
 def test_tuning_variables_at_their_defaults_accepted(monkeypatch):
     """All five at what ``cl_tpu`` parses as its defaults (20 MiB, 64 MiB,
     8192, 1 and off) are accepted."""
@@ -542,5 +527,4 @@ def test_tuning_variables_at_their_defaults_accepted(monkeypatch):
                         ("FUSED_VMEM_BUDGET", 64 * 1024 * 1024),
                         ("CONV_ROW_TARGET", 8192), ("CAT_DOTS", 1), ("E_BF16", False)):
         monkeypatch.setattr(packed_gate, name, value)
-    assert packed_gate.tuning_refusal() is None
     port_train.check_supported(parse_overrides(["preset=smoke"]), CPU)

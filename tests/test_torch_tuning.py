@@ -17,7 +17,6 @@
   value ``int()`` cannot parse, and ``CL_TPU_CAT_DOTS=2``, raise
   ``ValueError`` with ``cl_tpu``'s message from ``check_supported``, not at
   import (``python -m cl_tpu_torch.cli --help`` still runs).
-* ``CL_TPU_E_BF16=1`` is still refused.
 * One SGD step of ``preset=baseline_1 model.packed_min_size=0`` (128²,
   f32, batch 8) at an 8 MiB budget, where 2 levels run
   packed, against ``cl_tpu``'s ``make_train_step`` under the same patch:
@@ -150,11 +149,11 @@ def _run(code, **env):
 def test_import_time_parse():
     out = _run("from cl_tpu_torch.models import packed_gate as g; "
                "print(g.CONV_VMEM_BUDGET, g.FUSED_VMEM_BUDGET, g.CONV_ROW_TARGET, g.CAT_DOTS, "
-               "g.packed_prefix(512, 32, 4, 2), g.tuning_refusal())",
+               "g.packed_prefix(512, 32, 4, 2), g.E_BF16)",
                CL_TPU_CONV_BUDGET="23068672", CL_TPU_BWDF_BUDGET=" 14680064 ",
                CL_TPU_ROW_TARGET="4096", CL_TPU_CAT_DOTS="0")
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["23068672", "14680064", "4096", "0", "4", "None"]
+    assert out.stdout.split() == ["23068672", "14680064", "4096", "0", "4", "False"]
 
 
 @pytest.mark.parametrize("env,match", [
@@ -186,12 +185,6 @@ def test_cat_dots_message_is_cl_tpu_s():
 def test_cat_dots_zero_and_one_accepted(cat, monkeypatch):
     monkeypatch.setattr(packed_gate, "CAT_DOTS", cat)
     port_train.check_supported(parse_overrides(["preset=smoke"]), CPU)
-
-
-def test_e_bf16_still_refused(monkeypatch):
-    monkeypatch.setattr(packed_gate, "E_BF16", True)
-    with pytest.raises(NotImplementedError, match="CL_TPU_E_BF16=1"):
-        port_train.check_supported(parse_overrides(["preset=smoke"]), CPU)
 
 
 STEP = ["preset=baseline_1", "model.packed_min_size=0",
