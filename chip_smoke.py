@@ -43,9 +43,12 @@ Phases (any failure raises, so the exit code is non-zero):
    the gen-3 plain conv (#30) at baseline_2's 256² × 64 → 64, 128 → 64 and
    64 → 128 and at 64² × 256 → 256, its dW (#31) at 256² × 64 → 64 and 128 →
    64, in f32 and bf16, and the two-pass backward's dW (#33) at 64² × 256 →
-   256 in f32 with the prologue on and off, batch 8, and all three at a
-   ragged 20² × 24 → 40 with 3 images, each launched twice and held
-   bit-equal; the int8 saved activations' kernels at every int8 shape of
+   256 in f32 and bf16 with the prologue on and off, batch 8, and all three
+   at a ragged 20² × 24 → 40 with 3 images, each launched twice and held
+   bit-equal; #33 and #41 (the bf16 ring and f32 register-blocked bodies)
+   at ``DW_ODD``'s narrow, odd-width and ragged shapes, and each of their
+   instances' resident blocks against its split picker; the int8 saved
+   activations' kernels at every int8 shape of
    the headline step (512², 256², 128², batch 8, P = 4) and at ragged 24²
    ones, f32 and bf16, xq mode on and off, prologue on and off: the
    quantize (32q) on #32's own output exactly equal to the plain
@@ -1284,8 +1287,8 @@ def ring_info():
     lib = build.library()
     out = {}
     for what, tiles, entry, resources in (
-            ("conv3x3_dw_ring", [(ci, co) for ci in (16, 32, 64) for co in (32, 64)],
-             lib.cltorch_conv3x3_dw_ring_info, conv3x3.dw_ring_resources),
+            ("conv3x3_dw_ring", DW_RING_TILES, lib.cltorch_conv3x3_dw_ring_info,
+             conv3x3.dw_ring_resources),
             ("upconv_dw_ring", [(bm, bn) for bm in (64, 128) for bn in (128, 256)],
              lib.cltorch_upconv_dw_ring_info, upconv_pack.dw_ring_resources)):
         for tile in tiles:
@@ -1927,7 +1930,7 @@ V3_KERNELS = {  # kernel: (source, TPU kernel's pallas_call, launch-count keys)
                     ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dt")),
     "conv3x3_dw": ("cl_tpu_torch/csrc/conv3x3_bn_bwd.cu", "cl_tpu/pallas/conv3x3_v3.py:564",
                    ("conv3x3_dw",)),
-    "conv3x3_dw_bn": ("cl_tpu_torch/csrc/conv3x3_bn_bwd.cu", "cl_tpu/pallas/conv3x3_v3.py:870",
+    "conv3x3_dw_bn": ("cl_tpu_torch/csrc/conv3x3_dw_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:870",
                       ("conv3x3_dw_bn",)),
 }
 # (H, Cin, Cout[, prologue]) at batch 8: baseline_2's 256² level under
@@ -2084,6 +2087,19 @@ G2_SHAPES = {"conv3x3_g2_fwd": [(256, 256, 64, 64), (256, 256, 128, 64), (128, 1
 # the shapes gen-3 never takes: odd rows (one whole-image tile) and p = 16,
 # with 3 images
 G2_ODD = [(6, 16, 16, 32), (32, 32, 8, 16)]
+# #33 (H, Cin, Cout, prologue) and #41 (H, W, Cin, Cout) past their path
+# tiles, with 3 images: a narrow x (Cin < 8: the bf16 ring's raw window rows;
+# the f32 body's plain loads), widths that are not a multiple of 8 (the
+# ring's plain loads) or 4 (the f32 body's), ragged channel tiles of the
+# ring's 64 x 64 and 64 x 32 and the f32 body's 32 x 64 and 32 x 32 tiles
+DW_ODD = {"conv3x3_dw_bn": [(19, 3, 40, True), (20, 40, 72, True), (12, 6, 18, False),
+                            (20, 72, 24, True)],
+          "conv3x3_g2_dw": [(19, 21, 3, 40), (20, 20, 40, 72), (12, 13, 6, 18),
+                            (20, 20, 72, 24)]}
+# the dW ring's instances (CI_T, CO_T) (#36's, and #33's and #41's in bf16),
+# the register-blocked body's (#33's and #41's in f32)
+DW_RING_TILES = [(ci, co) for ci in (16, 32, 64) for co in (32, 64)]
+DW_FMA_TILES = [(32, 32), (32, 64)]
 
 
 def g2_operands(kernel, shape, dtype_name, batch=8, seed=0):
@@ -2191,6 +2207,39 @@ def g2_times(kernel, shape, dtype_name):
     ops = g2_operands(kernel, shape, dtype_name)
     return (time_ms(lambda: launch(*ops)), time_ms(lambda: plain(*ops)),
             time_ms(lambda: lib(*ops)), time_ms(lambda: launch(*ops), queued=False))
+
+
+def dw_tiled_info():
+    """#33's and #41's instances on this card (the ring body's in bf16, the
+    register-blocked body's in f32): each one's resident blocks an SM held
+    against what its split picker assumes, with its registers, local
+    (spilled) bytes a thread and dynamic shared memory printed
+    (``cudaFuncGetAttributes``). Returns {instance: (blocks, regs, local,
+    smem)}."""
+    import ctypes
+
+    from cl_tpu_torch.kernels import build, conv3x3
+
+    lib = build.library()
+    out = {}
+    for what, entry in (("conv3x3_v3_dw_bn", lib.cltorch_conv3x3_dw_bn_info),
+                        ("conv3x3_g2_dw", lib.cltorch_conv3x3_g2_dw_info)):
+        for body, bf16, tiles, resources in (
+                ("ring", 1, DW_RING_TILES, conv3x3.dw_ring_resources),
+                ("reg", 0, DW_FMA_TILES, conv3x3.dw_fma_resources)):
+            for tile in tiles:
+                info = (ctypes.c_int * 4)()
+                build.check(entry(*tile, bf16, ctypes.addressof(info)),
+                            f"{what}_{body}{tile} info")
+                blocks, regs, local, smem = info
+                threads, smem_py, blocks_py = resources(*tile)[:3]
+                ok = blocks == blocks_py and smem == smem_py
+                print(f"  {what}_{body}<{tile[0]}, {tile[1]}>: {threads} threads, {regs} "
+                      f"registers, {local} local bytes a thread, {smem} B shared; {blocks} "
+                      f"blocks an SM (the picker assumes {blocks_py}){'' if ok else ' FAIL'}")
+                need(ok, f"{what}_{body}{tile}: resident blocks as the split picker assumes")
+                out[f"{what}_{body}{tile}"] = (blocks, regs, local, smem)
+    return out
 
 
 def g2_counts_ok(counts, label, fwd, dx, dw):
@@ -5008,13 +5057,12 @@ def main() -> int:
             if (src, dst, B, dtype_name) == AUG_MAIN:
                 aug_errs = errs_
     # the gen-3 conv (#30), its dW (#31) and the two-pass dW (#33) at this
-    # slice's full-width shapes (#33 in f32, as the path runs it) and at a
+    # slice's full-width shapes (#33's bf16 is level 3's at 22 MiB) and at a
     # ragged one, each launched twice
     v3_errs = {}
     for kernel, shapes in V3_SHAPES.items():
         for shape in shapes:
-            for dtype_name in ("float32",) if kernel == "conv3x3_dw_bn" else \
-                    ("float32", "bfloat16"):
+            for dtype_name in ("float32", "bfloat16"):
                 err = compare_v3(kernel, shape, dtype_name)
                 v3_errs.setdefault((kernel, shape), err)
         for shape in V3_ODD[kernel]:
@@ -5032,6 +5080,14 @@ def main() -> int:
         for shape in G2_ODD:
             for dtype_name in ("float32", "bfloat16"):
                 compare_g2(kernel, shape, dtype_name, batch=3)
+    # #33 and #41 past their path tiles and staging paths, f32 and bf16,
+    # each launched twice; every instance's resources against its picker
+    for kernel, shapes in DW_ODD.items():
+        check = compare_v3 if kernel in V3_KERNELS else compare_g2
+        for shape in shapes:
+            for dtype_name in ("float32", "bfloat16"):
+                check(kernel, shape, dtype_name, batch=3)
+    dw_tiled_info()
     # the int8 saved activations: 32q, #38 and #39 at every int8 shape of
     # the headline step and at ragged ones, xq mode on and off, prologue on
     # and off, each launched twice

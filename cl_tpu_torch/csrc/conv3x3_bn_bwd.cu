@@ -38,15 +38,13 @@
 // by pointer and shape). f32 #36
 // runs the FMA body.
 //
-// Three more instances of the first bodies (KIND below), each computing
-// only its own function:
+// Two more instances of the first bodies (KIND below), each computing
+// only its own function (the third, #33, kDwBn, was redesigned onto the
+// ring and register-blocked bodies: conv3x3_dw_bn.cu):
 // * cl_tpu/pallas/conv3x3_v3.py::_dw_kernel (#31, launched at :564 by
 //   `_dw_packed`), the dW of `conv3x3` / `conv3x3_packed` under
 //   model.conv_impl=v3|auto: t = x, e = dy, no y or stats reads (kDwPlain;
 //   the VJP rounds dW once to the compute type, :621, :643);
-// * ::_dw_bn_kernel (#33, launched at :870 by `_dw_bn_impl`), the two-pass
-//   backward's dW (:966): t recomputed through the prologue when it is on,
-//   e the MATERIALIZED dy_eff read as it is (kDwBn);
 // * ::_dw2_q_kernel (#39, launched at :1779 by `_dw2_q_impl`), the dW of
 //   `conv_bn_fused_q` under model.conv_act_store=int8 (kDwQ): e =
 //   round(dy + ds1 + 2 * deq(y) * ds2) from the int8 y (deq in f32, not
@@ -87,10 +85,6 @@ __global__ void __launch_bounds__(kDwThreads)
     conv3x3_v3_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
   dw_mma_body<kDwPlain>(CLTORCH_DW_ARGS);
 }
-__global__ void __launch_bounds__(kDwThreads)
-    conv3x3_v3_dw_bn_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
-  dw_mma_body<kDwBn>(CLTORCH_DW_ARGS);
-}
 __global__ void __launch_bounds__(kDwThreads) conv3x3_q_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
   dw_mma_body<kDwQ>(CLTORCH_DW_ARGS);
 }
@@ -100,10 +94,6 @@ __global__ void __launch_bounds__(kDwfThreads) conv3x3_dw_fma_kernel(CLTORCH_DW_
 __global__ void __launch_bounds__(kDwfThreads)
     conv3x3_v3_dw_fma_kernel(CLTORCH_DW_PARAMS(float)) {
   dw_fma_body<kDwPlain>(CLTORCH_DW_ARGS);
-}
-__global__ void __launch_bounds__(kDwfThreads)
-    conv3x3_v3_dw_bn_fma_kernel(CLTORCH_DW_PARAMS(float)) {
-  dw_fma_body<kDwBn>(CLTORCH_DW_ARGS);
 }
 __global__ void __launch_bounds__(kDwfThreads) conv3x3_q_dw_fma_kernel(CLTORCH_DW_PARAMS(float)) {
   dw_fma_body<kDwQ>(CLTORCH_DW_ARGS);
@@ -120,23 +110,6 @@ __global__ void __launch_bounds__(kDwfThreads) conv3x3_q_dw_fma_kernel(CLTORCH_D
 // f32 [Cout, Cin, 3, 3].
 namespace cltorch {
 namespace {
-
-// The fixed-order sum of `splits` partials [Cout, Cin, 3, 3] into dw: for
-// the ring body's many splits with 16 loads in flight a thread and small
-// blocks (more SMs for few outputs), else as the first bodies had it.
-template <bool RING = false>
-int sum_dw_splits(float* part, void* dw, int splits, int Cin, int Cout, cudaStream_t st) {
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n = (int64_t)Cout * Cin * 9;
-  if (RING)
-    sum_splits_kernel<16><<<(unsigned)((n + 63) / 64), 64, 0, st>>>(part, splits, n,
-                                                                   static_cast<float*>(dw));
-  else
-    sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, splits, n,
-                                                                    static_cast<float*>(dw));
-  return (int)cudaGetLastError();
-}
 
 // Launches the first bodies' dW kernel of the type and KIND (bf16 kDwFused
 // runs the ring body, below), then the fixed-order sum of its partials.
@@ -155,9 +128,7 @@ int dw_launch(const void* x, const void* a, const void* b, const void* dy, const
     } else {
       const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
                  *yb = static_cast<const bf16*>(y);
-      auto kernel = KIND == kDwPlain ? conv3x3_v3_dw_mma_kernel
-                    : KIND == kDwBn  ? conv3x3_v3_dw_bn_mma_kernel
-                                     : conv3x3_q_dw_mma_kernel;
+      auto kernel = KIND == kDwPlain ? conv3x3_v3_dw_mma_kernel : conv3x3_q_dw_mma_kernel;
       kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part, B, H, W, Cin,
                                           Cout, prologue, qa, ew_bf16);
     }
@@ -166,7 +137,6 @@ int dw_launch(const void* x, const void* a, const void* b, const void* dy, const
                 *yf = static_cast<const float*>(y);
     auto kernel = KIND == kDwFused   ? conv3x3_dw_fma_kernel
                   : KIND == kDwPlain ? conv3x3_v3_dw_fma_kernel
-                  : KIND == kDwBn    ? conv3x3_v3_dw_bn_fma_kernel
                                      : conv3x3_q_dw_fma_kernel;
     kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2, part, B, H, W, Cin, Cout,
                                          prologue, qa, 0);
@@ -174,87 +144,14 @@ int dw_launch(const void* x, const void* a, const void* b, const void* dy, const
   return sum_dw_splits(part, dw, splits, Cin, Cout, st);
 }
 
-// The ring kernel's dynamic shared memory above 48 KB, allowed once per
-// instance and device.
-template <int CI_T, int CO_T>
-cudaError_t ring_smem_allowed() {
-  static bool done[16] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 16 && done[dev]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(conv3x3_dw_ring_kernel<CI_T, CO_T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           RingTile<CI_T, CO_T>::kSmem);
-  if (err == cudaSuccess && dev < 16) done[dev] = true;
-  return err;
-}
-
-// bf16 #36 on the ring body with the wrapper's CI_T x CO_T tile; for CI_T >=
-// 32 with TMA maps of the x window and the dy and y tiles.
-template <int CI_T, int CO_T>
-int dw_ring_launch(const void* x, const void* a, const void* b, const void* dy, const void* y,
-                   const void* s1, const void* s2, void* partials, void* dw, int B, int H,
-                   int W, int Cin, int Cout, int prologue, int splits, int ew_bf16,
-                   cudaStream_t st) {
-  using Tile = RingTile<CI_T, CO_T>;
-  cudaError_t err = ring_smem_allowed<CI_T, CO_T>();
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap tms[3] = {};
-  if constexpr (Tile::kTma) {
-    if ((err = tm_nhwc(&tms[0], x, B, H, W, Cin, CI_T, kWinW, kRingTH + 2)) != cudaSuccess ||
-        (err = tm_nhwc(&tms[1], dy, B, H, W, Cout, CO_T, kTW, kRingTH)) != cudaSuccess ||
-        (s1 != nullptr &&
-         (err = tm_nhwc(&tms[2], y, B, H, W, Cout, CO_T, kTW, kRingTH)) != cudaSuccess))
-      return (int)err;
-  }
-  const dim3 grid((Cin + CI_T - 1) / CI_T, (Cout + CO_T - 1) / CO_T, splits);
-  float* part = static_cast<float*>(partials);
-  conv3x3_dw_ring_kernel<CI_T, CO_T><<<grid, Tile::kThreads, Tile::kSmem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(y), static_cast<const float*>(s1),
-      static_cast<const float*>(s2), part, B, H, W, Cin, Cout, prologue, QArgs{}, ew_bf16, tms[0],
-      tms[1], tms[2]);
-  return sum_dw_splits<true>(part, dw, splits, Cin, Cout, st);
-}
-
-// What the card gives a ring instance: {resident blocks an SM, registers a
-// thread, local (spilled) bytes a thread, dynamic shared bytes a block}.
-template <int CI_T, int CO_T>
-int dw_ring_info(int* out) {
-  cudaError_t err = ring_smem_allowed<CI_T, CO_T>();
-  if (err != cudaSuccess) return (int)err;
-  using Tile = RingTile<CI_T, CO_T>;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, conv3x3_dw_ring_kernel<CI_T, CO_T>);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], conv3x3_dw_ring_kernel<CI_T, CO_T>,
-                                                      Tile::kThreads, Tile::kSmem);
-  out[1] = attr.numRegs;
-  out[2] = (int)attr.localSizeBytes;
-  out[3] = Tile::kSmem;
-  return (int)err;
-}
-
 }  // namespace
 }  // namespace cltorch
-
-// The ring instances: (CI_T, CO_T) as kernels/conv3x3.py::dw_ring_tile
-// picks them; any other pair is refused (cudaErrorInvalidValue).
-#define CLTORCH_RING_DISPATCH(CALL)                       \
-  if (ci_t == 16 && co_t == 32) return CALL(16, 32);      \
-  if (ci_t == 16 && co_t == 64) return CALL(16, 64);      \
-  if (ci_t == 32 && co_t == 32) return CALL(32, 32);      \
-  if (ci_t == 32 && co_t == 64) return CALL(32, 64);      \
-  if (ci_t == 64 && co_t == 32) return CALL(64, 32);      \
-  if (ci_t == 64 && co_t == 64) return CALL(64, 64);      \
-  return (int)cudaErrorInvalidValue;
 
 extern "C" {
 
 // #36. bf16 runs the ring body with the (ci_t, co_t) tile; f32 the FMA
 // body (ci_t, co_t unread). `ew_bf16` (bf16): t and e with the bf16 chains
-// (CL_TPU_E_BF16); the same for #33 and #39 below.
+// (CL_TPU_E_BF16); the same for #39 below.
 int cltorch_conv3x3_bn_dw(const void* x, const void* a, const void* b, const void* dy,
                           const void* y, const void* s1, const void* s2, void* partials,
                           void* dw, int B, int H, int W, int Cin, int Cout, int prologue,
@@ -264,16 +161,32 @@ int cltorch_conv3x3_bn_dw(const void* x, const void* a, const void* b, const voi
   if (!is_bf16)
     return cltorch::dw_launch<cltorch::kDwFused>(x, a, b, dy, y, s1, s2, partials, dw, B, H,
                                                  W, Cin, Cout, prologue, splits, 0, st);
-#define CLTORCH_RING_LAUNCH(CI, CO)                                                          \
-  cltorch::dw_ring_launch<CI, CO>(x, a, b, dy, y, s1, s2, partials, dw, B, H, W, Cin, Cout, \
-                                  prologue, splits, ew_bf16, st)
+  using namespace cltorch;
+  const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
+             *yb = static_cast<const bf16*>(y);
+  const float *fa = static_cast<const float*>(a), *fb = static_cast<const float*>(b);
+  const float *f1 = static_cast<const float*>(s1), *f2 = static_cast<const float*>(s2);
+#define CLTORCH_RING_LAUNCH(CI, CO)                                                                \
+  dw_ring_run<CI, CO>(                                                                             \
+      kernel_ptr(conv3x3_dw_ring_kernel<CI, CO>),                                                  \
+      [&](dim3 grid, int threads, int smem, float* out, const CUtensorMap* tm) {                   \
+        conv3x3_dw_ring_kernel<CI, CO><<<grid, threads, smem, st>>>(                               \
+            xb, fa, fb, dyb, yb, f1, f2, out, B, H, W, Cin, Cout, prologue, QArgs{}, ew_bf16,   \
+            tm[0], tm[1], tm[2]);                                                                  \
+      },                                                                                           \
+      x, dy, s1 != nullptr ? y : nullptr, partials, dw, B, H, W, Cin, Cout, splits, st)
   CLTORCH_RING_DISPATCH(CLTORCH_RING_LAUNCH)
 #undef CLTORCH_RING_LAUNCH
 }
 
-// The ring instance (ci_t, co_t) on this card: out[4] as dw_ring_info.
+// The ring instance (ci_t, co_t) on this card: out[4] = {resident blocks
+// an SM, registers a thread, local (spilled) bytes a thread, dynamic shared
+// bytes a block}.
 int cltorch_conv3x3_dw_ring_info(int ci_t, int co_t, int* out) {
-#define CLTORCH_RING_INFO(CI, CO) cltorch::dw_ring_info<CI, CO>(out)
+  using namespace cltorch;
+#define CLTORCH_RING_INFO(CI, CO)                                                                  \
+  kernel_info(kernel_ptr(conv3x3_dw_ring_kernel<CI, CO>),                                          \
+              RingTile<CI, CO>::kThreads, RingTile<CI, CO>::kSmem, out)
   CLTORCH_RING_DISPATCH(CLTORCH_RING_INFO)
 #undef CLTORCH_RING_INFO
 }
@@ -300,17 +213,6 @@ int cltorch_conv3x3_bn_dw_q(const void* x, const void* xq, const void* xsc, cons
   return cltorch::dw_launch<cltorch::kDwQ>(x, a, b, dy, nullptr, s1, s2, partials, dw, B, H, W,
                                            Cin, Cout, prologue, splits, is_bf16,
                                            static_cast<cudaStream_t>(stream), qa, ew_bf16);
-}
-
-// The two-pass backward's dW: x [B, H, W, Cin] through the prologue (a, b
-// f32 [Cin], read only with `prologue`), e [B, H, W, Cout] materialized.
-int cltorch_conv3x3_dw_bn(const void* x, const void* a, const void* b, const void* e,
-                          void* partials, void* dw, int B, int H, int W, int Cin, int Cout,
-                          int prologue, int splits, int is_bf16, int ew_bf16, void* stream) {
-  return cltorch::dw_launch<cltorch::kDwBn>(x, a, b, e, nullptr, nullptr, nullptr, partials, dw,
-                                            B, H, W, Cin, Cout, prologue, splits, is_bf16,
-                                            static_cast<cudaStream_t>(stream), cltorch::QArgs{},
-                                            ew_bf16);
 }
 
 }  // extern "C"

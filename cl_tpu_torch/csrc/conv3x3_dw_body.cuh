@@ -1,16 +1,25 @@
 // The 3x3 SAME conv's weight-gradient bodies over NHWC, each instanced by a
 // KIND: the packed conv's fused dW (#36), the plain dW (t = x, e = dy), the
 // two-pass dW (#33) and the dW from int8 (#39). Shared by conv3x3_bn_bwd.cu
-// and conv3x3_g2.cu (the gen-2 dW #41, a kDwPlain instance).
+// (#36, #31, #39), conv3x3_dw_bn.cu (#33, a kDwBn instance) and
+// conv3x3_g2.cu (the gen-2 dW #41, a kDwPlain instance), with the host
+// side of their launches (the ring and register-blocked instances'
+// dispatch, their shared memory, the sum of their partials).
 //
 // The contraction runs over pixels, so the pixels are split over gridDim.z
 // blocks (each takes every gridDim.z-th pixel tile) for one channel tile of
 // all nine taps; each block writes its own partial dW and a second launch
-// sums the partials in a fixed order. No float atomics: a run repeats its
-// sums bit for bit.
+// sums the partials in a fixed order (none for one split). No float
+// atomics: a run repeats its sums bit for bit.
 //
 // * bf16, the ring body (dw_ring_body; kDwFused, #36, the headline step's
-//   dW). Bound on the H100 by bytes at 512^2 and 256^2 (x, dy and y read
+//   dW; kDwBn, #33, and kDwPlain, #41, since their redesign). Bound on the
+//   H100 by bytes at 512^2 and 256^2 (x, dy and y read
+//   once: 403 MB, 120 us at 3.35 TB/s at 512^2 x 32 -> 32, batch 8, against
+//   39 us of tensor-core work) and by the tensor cores at 128^2 x 128 -> 128
+//   (39 us against 30 us of bytes); 1.04 ms over the step's 15 convs. What it
+//   does about the causes that held the first body (dw_mma_body) at 4.6x
+//   that bound:
 //   once: 403 MB, 120 us at 3.35 TB/s at 512^2 x 32 -> 32, batch 8, against
 //   39 us of tensor-core work) and by the tensor cores at 128^2 x 128 -> 128
 //   (39 us against 30 us of bytes); 1.04 ms over the step's 15 convs. What it
@@ -59,9 +68,9 @@
 //     its dW tile in shared memory and writes its partial a weight row
 //     (CI_T * 9 consecutive floats) at a time; the scattered 4-byte stores of
 //     the first body cost as much as a level's bytes bound.
-// * bf16, the first body (dw_mma_body: kDwPlain #31 / #41, kDwBn #33, kDwQ
-//   #39). A block of 288 threads is nine warps, one per tap, for a 32 x 32
-//   channel tile. Per 16 x 16 pixel tile it stages the 18 x 18 window of t
+// * bf16, the first body (dw_mma_body: kDwPlain #31, kDwQ #39). A block
+//   of 288 threads is nine warps, one per tap, for a 32 x 32 channel tile.
+//   Per 16 x 16 pixel tile it stages the 18 x 18 window of t
 //   and the 16 x 16 tile of e as [pixel][channel] with an 80-byte row (32
 //   channels + 8 of padding), synchronously; per output row each warp forms
 //   A = t^T (its tap's shift is an offset into the window) and B = e, the
@@ -69,9 +78,23 @@
 //   fragments of both straight from that layout (four 8 x 8 quarters an
 //   instruction; the 80-byte row keeps its eight row reads on distinct
 //   banks).
-// * f32: FMA (TF32 would round). A block of 256 threads: lane = input
+// * f32: FMA (TF32 would round), the first body (dw_fma_body: kDwFused
+//   #36, kDwPlain #31, kDwQ #39). A block of 256 threads: lane = input
 //   channel, warp = 4 output channels, each thread 9 taps x 4 channels of
-//   accumulators; per pixel one float4 of e (a broadcast) and nine t.
+//   accumulators; per pixel one float4 of e (a broadcast) and nine t: 3.6
+//   FMAs a shared load, staged synchronously, x re-read Cout / 32 times.
+// * f32, the register-blocked body (dw_reg_body: kDwBn #33, kDwPlain #41).
+//   Bound by the FMA units (18 px Cin Cout operations at 67 TFLOP/s: 577 us
+//   at 256^2 x 64 -> 64, batch 8, against 80 us of bytes). A thread holds
+//   the outer product of 4 output x 4 input channels for the three taps of
+//   one kernel row (48 accumulators) and walks a pixel row's 18 window
+//   columns with the last three t columns in registers: one float4 of t
+//   and one of e (both 16-byte shared loads) for 48 FMAs. A 32 x 64 (or
+//   32 x 32) channel tile, so x is read Cout / 64 times; a ring of three
+//   cp.async-fed stages (copies of tile k + 2 and the prologue of tile k + 1
+//   while tile k's products run); fixed-order partials as above. No TF32
+//   and no transform: the products are the direct f32 sums the TPU kernel
+//   and the plain version take.
 
 #pragma once
 
@@ -326,9 +349,12 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
   // agree on them from a 1024-byte aligned ring
   bf16* ring = reinterpret_cast<bf16*>(
       dw_ring_smem + (Tile::kTma ? (1024 - (smem_u32(dw_ring_smem) & 1023)) & 1023 : 0));
-  float* a_s = reinterpret_cast<float*>(ring + S * Tile::kStage);
-  float *b_s = a_s + CI_T, *s1_s = b_s + CI_T, *s2_s = s1_s + CO_T;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(s2_s + CO_T);  // a stage's TMA loads
+  // the per-channel vectors as (a, b) and (ds1, ds2) pairs, channel q * 8 +
+  // j at [j * Q + q]: an item's eight pairs are eight 8-byte loads, and a
+  // warp's items (consecutive q) read consecutive pairs, on distinct banks
+  float2* ab_s = reinterpret_cast<float2*>(ring + S * Tile::kStage);
+  float2* se_s = ab_s + CI_T;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(se_s + CO_T);  // a stage's TMA loads
 
   const int ci0 = blockIdx.x * CI_T, co0 = blockIdx.y * CO_T;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -355,13 +381,13 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
   // stay 0 there); a narrow t's channels 8-15 are zero in every stage
   for (int c = threadIdx.x; c < CI_T; c += NT) {
     const bool on = prologue && ci0 + c < Cin;
-    a_s[c] = on ? pa[ci0 + c] : 0.f;
-    b_s[c] = on ? pb[ci0 + c] : 0.f;
+    ab_s[(c & 7) * QX + (c >> 3)] = on ? make_float2(pa[ci0 + c], pb[ci0 + c])
+                                       : make_float2(0.f, 0.f);
   }
   for (int c = threadIdx.x; c < CO_T; c += NT) {
     const bool on = form_e && co0 + c < Cout;
-    s1_s[c] = on ? s1[co0 + c] : 0.f;
-    s2_s[c] = on ? s2[co0 + c] : 0.f;
+    se_s[(c & 7) * QE + (c >> 3)] = on ? make_float2(s1[co0 + c], s2[co0 + c])
+                                       : make_float2(0.f, 0.f);
   }
   if constexpr (Tile::kTma) {
     if (threadIdx.x == 0) {
@@ -472,16 +498,18 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float xv = inside && j < Cin ? __bfloat162float(src[j]) : 0.f;
+          const float2 ab = ab_s[j * QX];
           v[j] = __float2bfloat16(prologue && inside && j < Cin
-                                      ? prologue_ew<EW>(xv, a_s[j], b_s[j]) : xv);
+                                      ? prologue_ew<EW>(xv, ab.x, ab.y) : xv);
         }
       } else {
         if (!inside) return;
         load16<bf16>(v, &xs[Tile::x_at(pix, q)], 0);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = __float2bfloat16(
-              prologue_ew<EW>(__bfloat162float(v[j]), a_s[q * 8 + j], b_s[q * 8 + j]));
+        for (int j = 0; j < 8; ++j) {
+          const float2 ab = ab_s[j * QX + q];
+          v[j] = __float2bfloat16(prologue_ew<EW>(__bfloat162float(v[j]), ab.x, ab.y));
+        }
       }
       store16<bf16>(&xs[Tile::x_at(pix, q)], 0, v);
     } else {
@@ -492,9 +520,11 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
       load16<bf16>(v, &es[at], 0);
       load16<bf16>(yv, &ys[at], 0);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        v[j] = __float2bfloat16(e_ew<EW>(__bfloat162float(v[j]), __bfloat162float(yv[j]),
-                                         s1_s[q * 8 + j], s2_s[q * 8 + j]));
+      for (int j = 0; j < 8; ++j) {
+        const float2 se = se_s[j * QE + q];
+        v[j] = __float2bfloat16(
+            e_ew<EW>(__bfloat162float(v[j]), __bfloat162float(yv[j]), se.x, se.y));
+      }
       store16<bf16>(&es[at], 0, v);
     }
   };
@@ -734,5 +764,361 @@ __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32: the register-blocked FMA body (kDwBn #33, kDwPlain #41)
+// ---------------------------------------------------------------------------
+
+constexpr int kRegCiT = 32;         // input channels of a tile
+constexpr int kRegStages = 3;       // the ring's stages
+constexpr int kRegTHWide = 8;       // pixel tile rows (x kTW columns) of the 64-wide tile
+constexpr int kRegTHNarrow = 4;     // ... of the 32-wide tile
+constexpr int kRegBlocksWide = 1;   // resident blocks an SM of the 64-wide tile
+constexpr int kRegBlocksNarrow = 3;  // ... of the 32-wide tile
+
+// A block's shape for a 32 (input) x CO_T (output) channel tile. Warp w
+// takes kernel row ky = w / (CO_T / 16) and 16 output channels; its lane
+// (co4, ci4) = (lane / 8, lane % 8) 4 output x 4 input channels, and holds
+// their outer product for the three taps (ky, 0..2): 48 accumulators. A
+// stage holds the x window (TH + 2 rows of 18 pixels) and the e tile (TH
+// rows of 16 pixels) as [pixel][channel] f32, 128 or 256 bytes a pixel.
+template <int CO_T>
+struct RegTile {
+  static_assert(CO_T == 32 || CO_T == 64, "32- or 64-wide output tiles");
+  static constexpr int kTH = CO_T == 64 ? kRegTHWide : kRegTHNarrow;
+  static constexpr int kMinBlocks = CO_T == 64 ? kRegBlocksWide : kRegBlocksNarrow;
+  static constexpr int kWarpsKy = CO_T / 16;
+  static constexpr int kThreads = 3 * kWarpsKy * 32;
+  static constexpr int kWin = (kTH + 2) * kWinW;  // window pixels
+  static constexpr int kPix = kTH * kTW;          // tile pixels
+  static constexpr int kX = kWin * kRegCiT, kE = kPix * CO_T;  // floats
+  static constexpr int kStage = kX + kE;
+  // the ring, then the prologue's a and b
+  static constexpr int kSmem = (kRegStages * kStage + 2 * kRegCiT) * 4;
+  static_assert(CO_T * kRegCiT * 9 <= kRegStages * kStage, "the dW tile fits the ring");
+};
+
+// Four channels [c, c + 4) of one pixel, by plain loads (a width that is
+// not a multiple of 4), zero past C or outside.
+__device__ __forceinline__ void stage4_raw(float* dst, const float* src, int c, int C,
+                                           bool inside) {
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = inside && c + k < C ? src[k] : 0.f;
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc[j][i] += e[j] * t[i]: one tap's 4 x 4 outer product.
+__device__ __forceinline__ void fma_outer(float (&acc)[4][4], const float4& e, const float4& t) {
+  const float ev[4] = {e.x, e.y, e.z, e.w}, tv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = fmaf(ev[j], tv[i], acc[j][i]);
+}
+
+// dW of t = prologue(x) (kDwBn, t = x without it) against e = dy as given
+// (the materialized dy_eff of the two-pass branch, or the plain dW's dy),
+// into `out` [gridDim.z][Cout, Cin, 3, 3]. The ring of kRegStages stages:
+// tile k's products run while tile k + 1 is formed in the next stage and
+// tile k + 2 is copied into the third, by 16-byte cp.async (4 channels;
+// zeros outside the image and past Cin / Cout, plain loads for widths that
+// are not a multiple of 4): one barrier a tile. t = relu(x a + b) is formed
+// once per element in place, with conv3x3_bn.cuh's rounded ops;
+// out-of-image pixels keep their zeros (padding in t-space). The products:
+// per pixel row a thread walks the 18 window columns of its kernel row, one
+// float4 of t and one of e a column; the taps' one-pixel shift is the last
+// three t columns held in registers, so a staged value is read once a
+// thread and row: 48 FMAs for two shared loads.
+template <int KIND, int CO_T>
+__device__ __forceinline__ void dw_reg_body(const float* __restrict__ x,
+                                            const float* __restrict__ pa,
+                                            const float* __restrict__ pb,
+                                            const float* __restrict__ dy,
+                                            float* __restrict__ out, int B, int H, int W,
+                                            int Cin, int Cout, int prologue_in) {
+  static_assert(KIND == kDwPlain || KIND == kDwBn, "e as given: the plain and two-pass dW");
+  using Tile = RegTile<CO_T>;
+  constexpr int CI_T = kRegCiT, TH = Tile::kTH, S = kRegStages, NT = Tile::kThreads;
+  constexpr int QX = CI_T / 4, QE = CO_T / 4;  // 16-byte pieces of a staged pixel
+  const int prologue = dw_prologue<KIND>(prologue_in);
+  extern __shared__ __align__(16) float dw_reg_smem[];
+  float* ring = dw_reg_smem;
+  float* a_s = ring + S * Tile::kStage;
+  float* b_s = a_s + CI_T;
+
+  const int ci0 = blockIdx.x * CI_T, co0 = blockIdx.y * CO_T;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ky = warp / Tile::kWarpsKy;
+  const int co_l = (warp % Tile::kWarpsKy) * 16 + (lane >> 3) * 4;  // 4 output channels
+  const int ci_l = (lane & 7) * 4;                                    // 4 input channels
+  const int tiles_x = (W + kTW - 1) / kTW, tiles_y = (H + TH - 1) / TH;
+  const int n_tiles = B * tiles_x * tiles_y;
+  const bool vec_x = (Cin & 3) == 0, vec_e = (Cout & 3) == 0;
+
+  for (int c = threadIdx.x; c < CI_T; c += NT) {
+    const bool on = prologue && ci0 + c < Cin;
+    a_s[c] = on ? pa[ci0 + c] : 0.f;
+    b_s[c] = on ? pb[ci0 + c] : 0.f;
+  }
+
+  // The k-th tile of this block: its image and origin; false past the end.
+  auto origin = [&](int k, int& b, int& gy0, int& gx0) {
+    const int tile = blockIdx.z + k * gridDim.z;
+    b = tile / (tiles_x * tiles_y);
+    const int rem = tile % (tiles_x * tiles_y);
+    gy0 = (rem / tiles_x) * TH;
+    gx0 = (rem % tiles_x) * kTW;
+    return tile < n_tiles;
+  };
+  // Copies of the raw x window and the e tile of tile k into stage `st`.
+  auto issue = [&](int k, int st) {
+    int b, gy0, gx0;
+    if (!origin(k, b, gy0, gx0)) return;
+    float* xs = ring + st * Tile::kStage;
+    float* es = xs + Tile::kX;
+    const int64_t img = (int64_t)b * H * W;
+    for (int i = threadIdx.x; i < Tile::kWin * QX; i += NT) {
+      const int pix = i / QX, q = i % QX;
+      const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW, c = ci0 + q * 4;
+      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W, on = inside && c < Cin;
+      const int64_t off = inside ? (img + (int64_t)gy * W + gx) * Cin + c : 0;
+      if (vec_x)
+        cp_async<16>(&xs[pix * CI_T + q * 4], on ? x + off : x, on);
+      else
+        stage4_raw(&xs[pix * CI_T + q * 4], x + off, c, Cin, inside);
+    }
+    for (int i = threadIdx.x; i < Tile::kPix * QE; i += NT) {
+      const int pix = i / QE, q = i % QE;
+      const int gy = gy0 + pix / kTW, gx = gx0 + pix % kTW, c = co0 + q * 4;
+      const bool inside = gy < H && gx < W, on = inside && c < Cout;
+      const int64_t off = inside ? (img + (int64_t)gy * W + gx) * Cout + c : 0;
+      if (vec_e)
+        cp_async<16>(&es[pix * CO_T + q * 4], on ? dy + off : dy, on);
+      else
+        stage4_raw(&es[pix * CO_T + q * 4], dy + off, c, Cout, inside);
+    }
+  };
+  // The prologue of a tile at (gy0, gx0) in stage `st`, in place, once per
+  // element; out-of-image pixels stay 0, channels past Cin have a = b = 0.
+  auto form_all = [&](int st, int gy0, int gx0) {
+    if (!prologue) return;
+    float* xs = ring + st * Tile::kStage;
+    for (int i = threadIdx.x; i < Tile::kWin * QX; i += NT) {
+      const int pix = i / QX, q = i % QX;
+      const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
+      if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
+      float4* p = reinterpret_cast<float4*>(&xs[pix * CI_T + q * 4]);
+      float4 v = *p;
+      const int c = q * 4;
+      v.x = prologue_f32(v.x, a_s[c], b_s[c]);
+      v.y = prologue_f32(v.y, a_s[c + 1], b_s[c + 1]);
+      v.z = prologue_f32(v.z, a_s[c + 2], b_s[c + 2]);
+      v.w = prologue_f32(v.w, a_s[c + 3], b_s[c + 3]);
+      *p = v;
+    }
+  };
+
+  float acc[3][4][4];  // [kx][output channel][input channel]
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[k][j][i] = 0.f;
+
+  static_assert(S == 3, "a stage each for the products, the prologue, the copies");
+  const int my_tiles = blockIdx.z < n_tiles ? (n_tiles - 1 - blockIdx.z) / gridDim.z + 1 : 0;
+  issue(0, 0);
+  cp_async_commit();
+  issue(1, 1);
+  cp_async_commit();
+  cp_async_wait<1>();  // tile 0 has landed
+  __syncthreads();
+  {
+    int b, gy0, gx0;
+    if (origin(0, b, gy0, gx0)) form_all(0, gy0, gx0);
+  }
+  for (int k = 0; k < my_tiles; ++k) {
+    cp_async_wait<0>();  // tile k + 1 has landed
+    // tile k is formed, tile k + 1 copied, and every warp is past the
+    // products of tile k - 1, whose stage takes tile k + 2
+    __syncthreads();
+    issue(k + 2, (k + 2) % S);
+    cp_async_commit();
+    const float* ts = ring + (k % S) * Tile::kStage + ci_l;
+    const float* es = ring + (k % S) * Tile::kStage + Tile::kX + co_l;
+#pragma unroll 1
+    for (int r = 0; r < TH; ++r) {
+      const float* trow = ts + (r + ky) * kWinW * CI_T;
+      const float* erow = es + r * kTW * CO_T;
+      float4 t0 = lds4(trow), t1 = lds4(trow + CI_T);
+#pragma unroll
+      for (int col = 0; col < kTW; ++col) {
+        const float4 t2 = lds4(trow + (col + 2) * CI_T);
+        const float4 e = lds4(erow + col * CO_T);
+        fma_outer(acc[0], e, t0);
+        fma_outer(acc[1], e, t1);
+        fma_outer(acc[2], e, t2);
+        t0 = t1;
+        t1 = t2;
+      }
+    }
+    // then tile k + 1's prologue: a warp past its products starts on it
+    int b, gy0, gx0;
+    if (origin(k + 1, b, gy0, gx0)) form_all((k + 1) % S, gy0, gx0);
+  }
+  cp_async_wait<0>();  // no copy outlives the block (the groups past the end are empty)
+  __syncthreads();     // every warp is past its products: the ring takes the dW tile
+
+  // The dW tile staged as this block's slice of the weight [CO_T][CI_T][3 x
+  // 3], then written to out[z] a row of CI_T * 9 consecutive floats at a time.
+  float* out_s = dw_reg_smem;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
+        out_s[((co_l + j) * CI_T + ci_l + i) * 9 + ky * 3 + kx] = acc[kx][j][i];
+  __syncthreads();
+  float* part = out + (int64_t)blockIdx.z * Cout * Cin * 9;
+  const int row = min(CI_T, Cin - ci0) * 9;
+  for (int i = threadIdx.x; i < CO_T * CI_T * 9; i += NT) {
+    const int co = i / (CI_T * 9), c = i % (CI_T * 9);
+    if (co0 + co < Cout && c < row) part[((int64_t)(co0 + co) * Cin + ci0) * 9 + c] = out_s[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side, shared by the translation units that instance the bodies
+// ---------------------------------------------------------------------------
+
+// A kernel as the runtime's C functions take it.
+template <typename K>
+const void* kernel_ptr(K* kernel) {
+  return reinterpret_cast<const void*>(kernel);
+}
+
+// A kernel's dynamic shared memory above 48 KB, allowed once per kernel
+// and device (under a lock: the backward launches from autograd's thread).
+cudaError_t smem_allowed(const void* kernel, int bytes) {
+  constexpr int kSlots = 64;
+  static const void* kernels[kSlots] = {};
+  static int devices[kSlots] = {};
+  static int n = 0;
+  static std::mutex lock;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < n; ++i)
+    if (kernels[i] == kernel && devices[i] == dev) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && n < kSlots) {
+    kernels[n] = kernel;
+    devices[n++] = dev;
+  }
+  return err;
+}
+
+// What the card gives a kernel of `threads` threads and `smem` dynamic
+// shared bytes: out = {resident blocks an SM, registers a thread, local
+// (spilled) bytes a thread, smem}.
+int kernel_info(const void* kernel, int threads, int smem, int* out) {
+  cudaError_t err = smem_allowed(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, smem);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = smem;
+  return (int)err;
+}
+
+// The fixed-order sum of `splits` partials [Cout, Cin, 3, 3] into dw: for
+// the ring and register-blocked bodies' many splits with 16 loads in
+// flight a thread and small blocks (more SMs for few outputs), else as the
+// first bodies had it. One split was written to dw itself (dw_out).
+template <bool RING = false>
+int sum_dw_splits(float* part, void* dw, int splits, int Cin, int Cout, cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || (RING && splits == 1)) return (int)err;
+  const int64_t n = (int64_t)Cout * Cin * 9;
+  if (RING)
+    sum_splits_kernel<16><<<(unsigned)((n + 63) / 64), 64, 0, st>>>(part, splits, n,
+                                                                   static_cast<float*>(dw));
+  else
+    sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, splits, n,
+                                                                    static_cast<float*>(dw));
+  return (int)cudaGetLastError();
+}
+
+// Where the ring and register-blocked bodies write: dw itself for one
+// split (nothing to sum), else the partials.
+float* dw_out(void* partials, void* dw, int splits) {
+  return static_cast<float*>(splits == 1 ? dw : partials);
+}
+
+// A ring kernel's launch with the CI_T x CO_T tile, then the sum of its
+// partials. `launch(grid, threads, smem, out, maps)` launches the caller's
+// kernel (of its own name, for the profile families); for CI_T >= 32 the
+// TMA maps of the x window, the dy tile and, where `y` is given, the y tile.
+template <int CI_T, int CO_T, typename Launch>
+int dw_ring_run(const void* kernel, Launch&& launch, const void* x, const void* dy,
+                const void* y, void* partials, void* dw, int B, int H, int W, int Cin, int Cout,
+                int splits, cudaStream_t st) {
+  using Tile = RingTile<CI_T, CO_T>;
+  cudaError_t err = smem_allowed(kernel, Tile::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tms[3] = {};
+  if constexpr (Tile::kTma) {
+    if ((err = tm_nhwc(&tms[0], x, B, H, W, Cin, CI_T, kWinW, kRingTH + 2)) != cudaSuccess ||
+        (err = tm_nhwc(&tms[1], dy, B, H, W, Cout, CO_T, kTW, kRingTH)) != cudaSuccess ||
+        (y != nullptr &&
+         (err = tm_nhwc(&tms[2], y, B, H, W, Cout, CO_T, kTW, kRingTH)) != cudaSuccess))
+      return (int)err;
+  }
+  const dim3 grid((Cin + CI_T - 1) / CI_T, (Cout + CO_T - 1) / CO_T, splits);
+  launch(grid, Tile::kThreads, Tile::kSmem, dw_out(partials, dw, splits), tms);
+  return sum_dw_splits<true>(static_cast<float*>(partials), dw, splits, Cin, Cout, st);
+}
+
+// The same for a register-blocked kernel: `launch(grid, threads, smem, out)`.
+template <int CO_T, typename Launch>
+int dw_reg_run(const void* kernel, Launch&& launch, void* partials, void* dw, int Cin, int Cout,
+               int splits, cudaStream_t st) {
+  using Tile = RegTile<CO_T>;
+  const cudaError_t err = smem_allowed(kernel, Tile::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Cin + kRegCiT - 1) / kRegCiT, (Cout + CO_T - 1) / CO_T, splits);
+  launch(grid, Tile::kThreads, Tile::kSmem, dw_out(partials, dw, splits));
+  return sum_dw_splits<true>(static_cast<float*>(partials), dw, splits, Cin, Cout, st);
+}
+
 }  // namespace
 }  // namespace cltorch
+
+// The ring instances: (CI_T, CO_T) as kernels/conv3x3.py::dw_ring_tile
+// picks them; any other pair is refused (cudaErrorInvalidValue). CALL(CI,
+// CO) returns the instance's result.
+#define CLTORCH_RING_DISPATCH(CALL)                       \
+  if (ci_t == 16 && co_t == 32) return CALL(16, 32);      \
+  if (ci_t == 16 && co_t == 64) return CALL(16, 64);      \
+  if (ci_t == 32 && co_t == 32) return CALL(32, 32);      \
+  if (ci_t == 32 && co_t == 64) return CALL(32, 64);      \
+  if (ci_t == 64 && co_t == 32) return CALL(64, 32);      \
+  if (ci_t == 64 && co_t == 64) return CALL(64, 64);      \
+  return (int)cudaErrorInvalidValue;
+
+// The register-blocked instances: (32, CO_T) as kernels/conv3x3.py::
+// dw_fma_tile picks them; CALL(CO) returns the instance's result.
+#define CLTORCH_REG_DISPATCH(CALL)                   \
+  if (ci_t == 32 && co_t == 32) return CALL(32);     \
+  if (ci_t == 32 && co_t == 64) return CALL(64);     \
+  return (int)cudaErrorInvalidValue;

@@ -20,21 +20,29 @@
 // j (_fold_dw, :144-153, in f32) are layout devices of the TPU: each output
 // is still one f32 sum of its 9 * Cin products (dW: of its pixels' products)
 // rounded once, in another order. So these are the plain conv's and plain
-// dW's arithmetic, and the kernels here are instances of the bodies the
-// gen-3 plain conv (#30, #31) runs, with MODE kPlain (conv3x3_body.cuh) and
-// KIND kDwPlain (conv3x3_dw_body.cuh), under names of their own
-// (conv3x3_g2_*: a profile family of their own):
+// dW's arithmetic, and the kernels here are instances of the conv bodies,
+// with MODE kPlain (conv3x3_body.cuh, as the gen-3 plain conv #30) and KIND
+// kDwPlain (conv3x3_dw_body.cuh), under names of their own (conv3x3_g2_*:
+// a profile family of their own):
 // * forward: f32 on FMAs (128 threads, a 16 x 16 pixel tile for 32 output
 //   channels; TF32 would round the products), bf16 on mma.sync m16n8k16
 //   (256 threads, 32 or 64 output channels). The input channels are walked
 //   in chunks of 16 staged in shared memory, so the block's footprint does
 //   not grow with the channels (39 KB f32, at most 47 KB bf16, at 1024 -> 1024
 //   as at 32 -> 32), with zeros past Cin or Cout and outside the image.
-// * dW: a block per 32 x 32 (input x output channel) tile of all nine taps,
-//   the pixel tiles split over gridDim.z blocks (16 x 16 for bf16 on
-//   mma.sync, 16 x 8 for f32 on FMAs); each block writes its own partial
-//   dW, which sum_splits_kernel sums over the blocks in a fixed order. No
-//   float atomics: a relaunch repeats every bit.
+// * dW (redesigned for the H100): a block per channel tile of all nine
+//   taps, the pixel tiles split over gridDim.z blocks, one wave of resident
+//   blocks; each block writes its own partial dW, which sum_splits_kernel
+//   sums over the blocks in a fixed order (one split is written to dW
+//   itself). No float atomics: a relaunch repeats every bit. bf16 runs the
+//   ring body (dw_ring_body, kDwPlain: TMA or cp.async into three stages,
+//   x and dy read as they land, wgmma on the 64 x 64 tile, mma.sync on the
+//   others; tile and splits from kernels/conv3x3.py::dw_ring_tile /
+//   dw_ring_splits); f32 the register-blocked FMA body (dw_reg_body: 48
+//   FMAs for two 16-byte shared loads, a 32 x 64 or 32 x 32 channel tile, a
+//   three-stage cp.async ring; dw_fma_tile / dw_fma_splits). The first
+//   bodies they replace ran at 6.3x (bf16, 256^2 x 64 -> 64: 0.2519 ms
+//   against 0.0401) and 3.3x (f32: 1.8824 against 0.5769) their bounds.
 //
 // What bounds it on the H100: at baseline_2's 256^2 x 64 -> 64 (batch 8,
 // f32) 38.7 GFLOP, 577 us at the f32 FMA peak of 67 TFLOP/s, against 268 MB
@@ -57,20 +65,21 @@ __global__ void __launch_bounds__(kMmaThreads) conv3x3_g2_mma_kernel(ConvArgs<bf
   conv3x3_mma_body<kPlain, COT>(p);
 }
 
-__global__ void __launch_bounds__(kDwThreads)
-    conv3x3_g2_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                             float* __restrict__ partials, int B, int H, int W, int Cin,
-                             int Cout) {
-  dw_mma_body<kDwPlain>(x, nullptr, nullptr, dy, nullptr, nullptr, nullptr, partials, B, H, W,
-                        Cin, Cout, 0, QArgs{});
+template <int CI_T, int CO_T>
+__global__ void __launch_bounds__(RingTile<CI_T, CO_T>::kThreads, RingTile<CI_T, CO_T>::kMinBlocks)
+    conv3x3_g2_dw_ring_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                              float* __restrict__ out, int B, int H, int W, int Cin, int Cout,
+                              const __grid_constant__ CUtensorMap tm_x,
+                              const __grid_constant__ CUtensorMap tm_dy) {
+  dw_ring_body<kDwPlain, CI_T, CO_T>(x, nullptr, nullptr, dy, nullptr, nullptr, nullptr, out, B,
+                                     H, W, Cin, Cout, 0, &tm_x, &tm_dy, nullptr, 0);
 }
 
-__global__ void __launch_bounds__(kDwfThreads)
-    conv3x3_g2_dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                             float* __restrict__ partials, int B, int H, int W, int Cin,
-                             int Cout) {
-  dw_fma_body<kDwPlain>(x, nullptr, nullptr, dy, nullptr, nullptr, nullptr, partials, B, H, W,
-                        Cin, Cout, 0, QArgs{});
+template <int CO_T>
+__global__ void __launch_bounds__(RegTile<CO_T>::kThreads, RegTile<CO_T>::kMinBlocks)
+    conv3x3_g2_dw_reg_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                             float* __restrict__ out, int B, int H, int W, int Cin, int Cout) {
+  dw_reg_body<kDwPlain, CO_T>(x, nullptr, nullptr, dy, out, B, H, W, Cin, Cout, 0);
 }
 
 }  // namespace
@@ -106,25 +115,57 @@ int cltorch_conv3x3_g2_fwd(const void* x, const void* w, void* y, int B, int H, 
 }
 
 // #41: x [B, H, W, Cin], dy [B, H, W, Cout] -> dw f32 [Cout, Cin, 3, 3];
-// `partials` holds splits * Cout * Cin * 9 floats.
+// `partials` holds splits * Cout * Cin * 9 floats. bf16: the ring instance
+// (ci_t, co_t); f32: the register-blocked one (ci_t = 32, co_t).
 int cltorch_conv3x3_g2_dw(const void* x, const void* dy, void* partials, void* dw, int B, int H,
-                          int W, int Cin, int Cout, int splits, int is_bf16, void* stream) {
+                          int W, int Cin, int Cout, int splits, int ci_t, int co_t, int is_bf16,
+                          void* stream) {
   using namespace cltorch;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((Cin + kDwC - 1) / kDwC, (Cout + kDwC - 1) / kDwC, splits);
-  float* part = static_cast<float*>(partials);
-  if (is_bf16)
-    conv3x3_g2_dw_mma_kernel<<<grid, kDwThreads, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dy), part, B, H, W, Cin, Cout);
-  else
-    conv3x3_g2_dw_fma_kernel<<<grid, kDwfThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), part, B, H, W, Cin, Cout);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n = (int64_t)Cout * Cin * 9;
-  sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, splits, n,
-                                                                  static_cast<float*>(dw));
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy);
+#define CLTORCH_RING_LAUNCH(CI, CO)                                                                \
+  dw_ring_run<CI, CO>(                                                                             \
+      kernel_ptr(conv3x3_g2_dw_ring_kernel<CI, CO>),                                               \
+      [&](dim3 grid, int threads, int smem, float* out, const CUtensorMap* tm) {                   \
+        conv3x3_g2_dw_ring_kernel<CI, CO><<<grid, threads, smem, st>>>(xb, dyb, out, B, H, W,      \
+                                                                       Cin, Cout, tm[0],           \
+                                                                       tm[1]);                     \
+      },                                                                                           \
+      x, dy, nullptr, partials, dw, B, H, W, Cin, Cout, splits, st)
+    CLTORCH_RING_DISPATCH(CLTORCH_RING_LAUNCH)
+#undef CLTORCH_RING_LAUNCH
+  }
+  const float *xf = static_cast<const float*>(x), *dyf = static_cast<const float*>(dy);
+#define CLTORCH_REG_LAUNCH(CO)                                                                     \
+  dw_reg_run<CO>(                                                                                  \
+      kernel_ptr(conv3x3_g2_dw_reg_kernel<CO>),                                                    \
+      [&](dim3 grid, int threads, int smem, float* out) {                                          \
+        conv3x3_g2_dw_reg_kernel<CO><<<grid, threads, smem, st>>>(xf, dyf, out, B, H, W, Cin,      \
+                                                                  Cout);                           \
+      },                                                                                           \
+      partials, dw, Cin, Cout, splits, st)
+  CLTORCH_REG_DISPATCH(CLTORCH_REG_LAUNCH)
+#undef CLTORCH_REG_LAUNCH
+}
+
+// What the card gives #41's instance (ci_t, co_t) of the type: out[4] =
+// {resident blocks an SM, registers a thread, local bytes a thread,
+// dynamic shared bytes a block}.
+int cltorch_conv3x3_g2_dw_info(int ci_t, int co_t, int is_bf16, int* out) {
+  using namespace cltorch;
+  if (is_bf16) {
+#define CLTORCH_RING_INFO(CI, CO)                                                                  \
+  kernel_info(kernel_ptr(conv3x3_g2_dw_ring_kernel<CI, CO>),                                       \
+              RingTile<CI, CO>::kThreads, RingTile<CI, CO>::kSmem, out)
+    CLTORCH_RING_DISPATCH(CLTORCH_RING_INFO)
+#undef CLTORCH_RING_INFO
+  }
+#define CLTORCH_REG_INFO(CO)                                                                       \
+  kernel_info(kernel_ptr(conv3x3_g2_dw_reg_kernel<CO>),                                            \
+              RegTile<CO>::kThreads, RegTile<CO>::kSmem, out)
+  CLTORCH_REG_DISPATCH(CLTORCH_REG_INFO)
+#undef CLTORCH_REG_INFO
 }
 
 }  // extern "C"

@@ -10,10 +10,12 @@ the five forward kernels; or any of ``chip_smoke.PACKED_PATH``'s names, the
 backward ones too; or ``head_ce_bn_fwd`` / ``head_ce_bn_bwd``, the packed
 head's forward #7 and backward #8; or the switches' ``conv3x3_bn_bwd_fused``
 (#37), ``conv3x3_bn_dx_pipe`` / ``conv3x3_bn_dx_bn_pipe`` (34p/35p), the
-int8 dW ``conv3x3_bn_dw_q`` (#39) and the two-pass dW ``conv3x3_dw_bn``
-(#33)) at every shape of that checkout's 512² path (``chip_smoke.PACKED_PATH``,
-``SWITCH_PATH``, ``Q_PATH``; #33 at level 3's two-pass shape of the 22 MiB
-budget, ``LEVEL3_TWO_PASS``; bf16, batch 8; #7 and #8 at ``HEAD_SHAPE`` on
+int8 dW ``conv3x3_bn_dw_q`` (#39), the two-pass dW ``conv3x3_dw_bn``
+(#33) and the gen-2 dW ``conv3x3_g2_dw`` (#41)) at every shape of that
+checkout's 512² path (``chip_smoke.PACKED_PATH``, ``SWITCH_PATH``,
+``Q_PATH``; #33 at level 3's two-pass shape of the 22 MiB budget,
+``LEVEL3_TWO_PASS``, and with ``--f32`` at ``V3_SHAPES``; #41 at
+``G2_SHAPES``; bf16, batch 8; #7 and #8 at ``HEAD_SHAPE`` on
 ``chip_smoke.bn_case``'s operands)
 on that checkout's operands (``chip_smoke.packed_operands`` for a forward
 kernel, ``bwd_operands`` for a backward one, whose launch is
@@ -59,6 +61,7 @@ BACKWARD = ("conv3x3_bn_dw", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "upconv_dx", "
 HEAD = ("head_ce_bn_fwd", "head_ce_bn_bwd")
 OTHER = ("conv3x3_bn_bwd_fused", "conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe", "conv3x3_bn_dw_q",
          "conv3x3_dw_bn")
+GEN2 = ("conv3x3_g2_dw",)  # the gen-2 conv's dW (#41), off the packed path
 # The packed head's shape on the headline step: (pixels, Cin, classes),
 # each kernel once a step, with bn_case's seed of chip_smoke's phase 3.
 HEAD_SHAPE = (2097152, 32, 19)
@@ -67,19 +70,24 @@ HEAD_SEED = 2
 
 def check_names(kernels) -> None:
     """Raise on a kernel name that is neither a forward nor a backward
-    kernel of the packed path, nor the packed head's forward or backward."""
-    unknown = [k for k in kernels if k not in FORWARD + BACKWARD + HEAD + OTHER]
+    kernel of the packed path, nor the packed head's forward or backward,
+    nor one of ``OTHER``'s or ``GEN2``'s."""
+    known = FORWARD + BACKWARD + HEAD + OTHER + GEN2
+    unknown = [k for k in kernels if k not in known]
     if unknown:
-        raise ValueError(f"kernel_ab: unknown kernel(s) {unknown}; known: "
-                         f"{', '.join(FORWARD + BACKWARD + HEAD + OTHER)}")
+        raise ValueError(f"kernel_ab: unknown kernel(s) {unknown}; known: {', '.join(known)}")
 
 
-def shapes(smoke, kernel):
-    """[(shape, launches a step), ...] of one kernel on the headline step."""
+def shapes(smoke, kernel, dtype_name="bfloat16"):
+    """[(shape, launches a step), ...] of one kernel on the headline step;
+    #33 in f32 and #41 at their phase-6 shapes, once each."""
     if kernel in HEAD:
         return [(HEAD_SHAPE, 1)]
+    if kernel == "conv3x3_g2_dw":
+        return [(shape, 1) for shape in smoke.G2_SHAPES[kernel]]
     if kernel == "conv3x3_dw_bn":
-        return [smoke.LEVEL3_TWO_PASS[kernel][::2]]
+        return [(shape, 1) for shape in smoke.V3_SHAPES[kernel]] if dtype_name == "float32" \
+            else [smoke.LEVEL3_TWO_PASS[kernel][::2]]
     if kernel == "conv3x3_bn_dw_q":
         return smoke.Q_PATH[kernel]
     return smoke.SWITCH_PATH[kernel] if kernel in OTHER else smoke.PACKED_PATH[kernel]
@@ -98,6 +106,8 @@ def dispatch(smoke, kernel, dtype_name="bfloat16"):
             lambda shape: smoke.packed_operands(kernel, shape, dtype_name)
     if kernel == "conv3x3_dw_bn":
         return smoke.v3_fns(kernel)[0], lambda shape: smoke.v3_operands(kernel, shape, dtype_name)
+    if kernel == "conv3x3_g2_dw":
+        return smoke.g2_fns(kernel)[0], lambda shape: smoke.g2_operands(kernel, shape, dtype_name)
     if kernel == "conv3x3_bn_dw_q":
         return smoke.q_fns(kernel)[0], lambda shape: smoke.q_operands(shape, dtype_name)
     if kernel in OTHER:
@@ -193,7 +203,7 @@ def _worker(root, kernels, dtype_name="bfloat16"):
     out = {}
     for kernel in kernels:
         launch, operands = dispatch(chip_smoke, kernel, dtype_name)
-        for shape, n in shapes(chip_smoke, kernel):
+        for shape, n in shapes(chip_smoke, kernel, dtype_name):
             ops = operands(shape)
             out.setdefault(kernel, []).append(
                 [list(shape), n, time_ms(lambda: launch(*ops)),

@@ -72,9 +72,11 @@ SIGNATURES = {
     "cltorch_conv3x3_dw_ring_info": [I, I, P],
     "cltorch_conv3x3_fwd": [P, P, P, I, I, I, I, I, I, P],
     "cltorch_conv3x3_dw": [P, P, P, P, I, I, I, I, I, I, I, P],
-    "cltorch_conv3x3_dw_bn": [P] * 6 + [I] * 9 + [P],
+    "cltorch_conv3x3_dw_bn": [P] * 6 + [I] * 11 + [P],
+    "cltorch_conv3x3_dw_bn_info": [I, I, I, P],
     "cltorch_conv3x3_g2_fwd": [P, P, P, I, I, I, I, I, I, P],
-    "cltorch_conv3x3_g2_dw": [P, P, P, P, I, I, I, I, I, I, I, P],
+    "cltorch_conv3x3_g2_dw": [P] * 4 + [I] * 9 + [P],
+    "cltorch_conv3x3_g2_dw_info": [I, I, I, P],
     "cltorch_conv3x3_bn_quant": [P, P, P] + [I] * 6 + [P],
     "cltorch_conv3x3_bn_dx_q": [P] * 14 + [I] * 8 + [P],
     "cltorch_conv3x3_bn_dw_q": [P] * 12 + [I] * 10 + [P],

@@ -592,6 +592,55 @@ def dw_ring_splits(cin, cout, B, H, W):
     return one_wave_splits(n_tiles, channel_tiles, dw_ring_resources(ci_t, co_t)[2])
 
 
+# The f32 register-blocked body of #33 and #41
+# (csrc/conv3x3_dw_body.cuh::RegTile): 32 input channels a tile, a ring of
+# FMA_STAGES stages; pixel tiles of 8 (64-wide tile) or 4 (32-wide) rows x
+# 16, with 1 or 3 resident blocks an SM.
+FMA_CI_T = 32
+FMA_STAGES = 3
+FMA_TH = {64: 8, 32: 4}
+FMA_BLOCKS = {64: 1, 32: 3}
+
+
+def dw_fma_tile(cin, cout):
+    """(CI_T, CO_T): the register-blocked body's channel tile for a conv
+    Cin -> Cout, the instance the C entry points launch: 32 input channels,
+    32 or 64 output channels."""
+    return FMA_CI_T, (32 if cout <= 32 else 64)
+
+
+def dw_fma_resources(ci_t, co_t):
+    """(threads, dynamic shared bytes, resident blocks an SM, pixel tile
+    rows) of a register-blocked instance, as RegTile sizes it: three warps'
+    rows (one per kernel row) of CO_T / 16 warps; each stage the (TH + 2) x
+    18 window of x and the TH x 16 tile of e in f32, FMA_STAGES such stages
+    and the prologue's a and b; the blocks its ``__launch_bounds__`` fits
+    the registers to, fewer if the shared memory says so."""
+    th = FMA_TH[co_t]
+    stage = (th + 2) * 18 * ci_t + th * 16 * co_t
+    smem = (FMA_STAGES * stage + 2 * ci_t) * 4
+    return 6 * co_t, smem, resident_blocks(smem, FMA_BLOCKS[co_t]), th
+
+
+def dw_fma_splits(cin, cout, B, H, W):
+    """Blocks the f32 register-blocked body splits the pixel tiles over: one
+    wave of resident blocks (``dw_fma_resources``) over the channel tiles,
+    each block the same number of tiles. A function of the shapes alone."""
+    ci_t, co_t = dw_fma_tile(cin, cout)
+    _, _, blocks, th = dw_fma_resources(ci_t, co_t)
+    n_tiles = B * -(-H // th) * -(-W // 16)
+    channel_tiles = -(-cin // ci_t) * -(-cout // co_t)
+    return one_wave_splits(n_tiles, channel_tiles, blocks)
+
+
+def dw_tile_splits(cin, cout, B, H, W, bf16):
+    """(CI_T, CO_T, splits) of #33's and #41's dW: the ring body's in bf16,
+    the register-blocked FMA body's in f32."""
+    if bf16:
+        return (*dw_ring_tile(cin, cout), dw_ring_splits(cin, cout, B, H, W))
+    return (*dw_fma_tile(cin, cout), dw_fma_splits(cin, cout, B, H, W))
+
+
 def dw_partials_shape(cin, cout, B, H, W, bf16):
     """The f32 partials [splits, Cout, Cin, 3, 3] the #36 wrapper allocates:
     the ring body's splits in bf16, ``dw_splits`` (shared with #37) in f32."""
@@ -667,20 +716,34 @@ def launch_conv3x3(x, w):
     return y
 
 
-def _dw_outputs(x, e, what):
-    """The dW kernels' shared checks and outputs: (shape args, splits, bf16
-    flag, partials, dW)."""
+def _dw_shape(x, e, what):
+    """The dW kernels' shared checks: (B, H, W, Cin, Cout), bf16 flag."""
     _check_nhwc(x, what)
     _check_nhwc(e, what)
     B, H, W, cin = x.shape
-    cout = e.shape[-1]
     if e.shape[:3] != x.shape[:3] or e.dtype != x.dtype:
         raise ValueError(f"{what}: dy of shape {(B, H, W)} + [Cout] and {x.dtype} expected")
-    bf16 = x.dtype == torch.bfloat16
+    return (B, H, W, cin, e.shape[-1]), x.dtype == torch.bfloat16
+
+
+def _dw_outputs(x, e, what):
+    """The first dW bodies' shared checks and outputs (#31): (shape args,
+    splits, bf16 flag, partials, dW)."""
+    (B, H, W, cin, cout), bf16 = _dw_shape(x, e, what)
     splits = dw_splits(cin, cout, B, H, W, bf16)
     partials = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=x.device)
     dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=x.device)
     return (B, H, W, cin, cout), splits, int(bf16), partials, dw
+
+
+def dw_tiled_outputs(x, e, what):
+    """#33's and #41's shared checks and outputs: (shape args, (CI_T, CO_T,
+    splits) from ``dw_tile_splits``, bf16 flag, partials, dW)."""
+    (B, H, W, cin, cout), bf16 = _dw_shape(x, e, what)
+    tile = dw_tile_splits(cin, cout, B, H, W, bf16)
+    partials = torch.empty(tile[2], cout, cin, 3, 3, dtype=torch.float32, device=x.device)
+    dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=x.device)
+    return (B, H, W, cin, cout), tile, int(bf16), partials, dw
 
 
 def launch_conv3x3_dw(x, dy):
@@ -695,14 +758,16 @@ def launch_conv3x3_dw(x, dy):
 
 def launch_conv3x3_dw_bn(x, a, b, e, prologue, e_bf16=False):
     """#33 on the card: dW [Cout, Cin, 3, 3] of prologue_t(x) against the
-    materialized e, f32, not rounded; the bf16 prologue under ``e_bf16``."""
-    shape, splits, bf16, partials, dw = _dw_outputs(x, e, "conv3x3_dw_bn")
+    materialized e, f32, not rounded; the bf16 prologue under ``e_bf16``.
+    The ring body in bf16, the register-blocked FMA body in f32, with the
+    tile and splits of ``dw_tile_splits``."""
+    shape, (ci_t, co_t, splits), bf16, partials, dw = dw_tiled_outputs(x, e, "conv3x3_dw_bn")
     if prologue:
         a, b = (_vec(v, x.shape[-1], x.device, "conv3x3_dw_bn") for v in (a, b))
     err = build.library().cltorch_conv3x3_dw_bn(
         x.data_ptr(), a.data_ptr() if prologue else None, b.data_ptr() if prologue else None,
-        e.data_ptr(), partials.data_ptr(), dw.data_ptr(), *shape, int(prologue), splits, bf16,
-        int(bf16 and e_bf16), _stream(x))
+        e.data_ptr(), partials.data_ptr(), dw.data_ptr(), *shape, int(prologue), splits, ci_t,
+        co_t, bf16, int(bf16 and e_bf16), _stream(x))
     build.check(err, "conv3x3_dw_bn")
     return dw
 

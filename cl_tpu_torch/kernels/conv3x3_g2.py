@@ -37,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from cl_tpu_torch.kernels import build
-from cl_tpu_torch.kernels.conv3x3 import _check_nhwc, _flip_t, _kernel_weight, _stream, dw_splits
+from cl_tpu_torch.kernels.conv3x3 import _check_nhwc, _flip_t, _kernel_weight, _stream, \
+    dw_tiled_outputs
 from cl_tpu_torch.models.packed_gate import g2_supported
 
 LAUNCHES = {"conv3x3_g2_fwd": 0, "conv3x3_g2_dx": 0, "conv3x3_g2_dw": 0}
@@ -89,23 +90,14 @@ def launch_conv3x3_g2(x, w):
 
 
 def launch_conv3x3_g2_dw(x, dy):
-    """#41 on the card: dW [Cout, Cin, 3, 3] f32, not rounded; the pixel
-    tiles split over ``dw_splits`` blocks whose partials are summed in a
-    fixed order."""
-    _check_nhwc(x, "conv3x3_g2_dw")
-    _check_nhwc(dy, "conv3x3_g2_dw")
-    B, H, W, cin = x.shape
-    cout = dy.shape[-1]
-    if dy.shape[:3] != x.shape[:3] or dy.dtype != x.dtype:
-        raise ValueError(f"conv3x3_g2_dw: dy of shape {(B, H, W)} + [Cout] and {x.dtype} "
-                         "expected")
-    bf16 = x.dtype == torch.bfloat16
-    splits = dw_splits(cin, cout, B, H, W, bf16)
-    partials = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=x.device)
-    dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=x.device)
+    """#41 on the card: dW [Cout, Cin, 3, 3] f32, not rounded: the ring body
+    in bf16, the register-blocked FMA body in f32, their pixel tiles split
+    over the blocks of ``conv3x3.dw_tile_splits``, whose partials are summed
+    in a fixed order."""
+    shape, (ci_t, co_t, splits), bf16, partials, dw = dw_tiled_outputs(x, dy, "conv3x3_g2_dw")
     err = build.library().cltorch_conv3x3_g2_dw(
-        x.data_ptr(), dy.data_ptr(), partials.data_ptr(), dw.data_ptr(), B, H, W, cin, cout,
-        splits, int(bf16), _stream(x))
+        x.data_ptr(), dy.data_ptr(), partials.data_ptr(), dw.data_ptr(), *shape, splits, ci_t,
+        co_t, bf16, _stream(x))
     build.check(err, "conv3x3_g2_dw")
     return dw
 

@@ -1,12 +1,15 @@
-"""The bf16 weight-gradient kernels' block schedules, on the CPU.
+"""The weight-gradient kernels' block schedules, on the CPU.
 
 The packed conv's dW (#36) and the up-conv's dW (#29) run in bf16 on ring
 kernels (``csrc/conv3x3_dw_body.cuh::dw_ring_body``,
 ``csrc/upconv.cu::upconv_dw_ring_kernel``) whose tiles and pixel splits the
 wrappers pick from the shapes alone (``kernels/conv3x3.py::dw_ring_tile`` /
 ``dw_ring_splits``, ``kernels/upconv_pack.py::dw_ring_tile`` /
-``dw_ring_splits``). A kernel cannot run here, so these tests hold what
-surrounds it: the pickers are pure and give at least one split, the blocks
+``dw_ring_splits``). The two-pass dW (#33) and the gen-2 dW (#41) run the
+same ring body in bf16 and the register-blocked FMA body
+(``dw_reg_body``) in f32, with the tile and splits of
+``conv3x3.dw_tile_splits`` (``dw_fma_tile`` / ``dw_fma_splits`` in f32).
+A kernel cannot run here, so these tests hold what surrounds it: the pickers are pure and give at least one split, the blocks
 they imply take every (channel tile, pixel tile) pair exactly once in one
 wave of resident blocks, the wrappers allocate the partials they imply and
 pass the tile the C entry points instance, the constants the pickers mirror
@@ -26,7 +29,7 @@ import torch
 
 import chip_smoke
 from cl_tpu_torch import kernel_ab
-from cl_tpu_torch.kernels import SM_COUNT, build, conv3x3, upconv_pack
+from cl_tpu_torch.kernels import SM_COUNT, build, conv3x3, conv3x3_g2, upconv_pack
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CSRC = build.CSRC
@@ -36,6 +39,13 @@ CSRC = build.CSRC
 CONV_PATH = [(512, 3, 32), (512, 32, 32), (256, 32, 64), (256, 64, 64), (128, 64, 128),
              (128, 128, 128)]
 CONV_RAGGED = [(20, 40, 72), (24, 16, 12), (20, 64, 24), (20, 8, 40), (19, 3, 16)]
+# #33's and #41's convs at their path shapes (batch 8; H, W, Cin, Cout):
+# level 2's two-pass convs, baseline_2's 256² level and bottleneck, the
+# 512² standard body; and ragged ones (batch 3) past every tile.
+TILED_PATH = [(64, 64, 256, 256), (256, 256, 64, 64), (16, 16, 1024, 1024),
+              (512, 512, 32, 32)]
+TILED_RAGGED = [(19, 21, 3, 40), (20, 20, 40, 72), (12, 13, 6, 18), (20, 20, 72, 24),
+                (20, 20, 24, 40), (6, 16, 16, 32), (32, 32, 8, 16)]
 # Each up-conv of the step (H_in, Cin, Cout), and ragged ones.
 UP_PATH = [(64, 256, 128), (128, 128, 64), (256, 64, 32)]
 UP_RAGGED = [(20, 72, 20), (20, 40, 48), (20, 24, 6), (20, 12, 16), (7, 16, 16)]
@@ -48,6 +58,18 @@ def conv_schedule(cin, cout, B, H, W):
     ci_t, co_t = conv3x3.dw_ring_tile(cin, cout)
     splits = conv3x3.dw_ring_splits(cin, cout, B, H, W)
     n_tiles = B * -(-H // conv3x3.RING_TH) * -(-W // 16)
+    return {(bx, by, bz): [((bx, by), tile) for tile in range(bz, n_tiles, splits)]
+            for bx in range(-(-cin // ci_t)) for by in range(-(-cout // co_t))
+            for bz in range(splits)}
+
+
+def fma_schedule(cin, cout, B, H, W):
+    """The same for an f32 #33 / #41 launch on the register-blocked body:
+    (channel tile, pixel tile) pairs of TH x 16 pixel tiles."""
+    ci_t, co_t = conv3x3.dw_fma_tile(cin, cout)
+    th = conv3x3.dw_fma_resources(ci_t, co_t)[3]
+    splits = conv3x3.dw_fma_splits(cin, cout, B, H, W)
+    n_tiles = B * -(-H // th) * -(-W // 16)
     return {(bx, by, bz): [((bx, by), tile) for tile in range(bz, n_tiles, splits)]
             for bx in range(-(-cin // ci_t)) for by in range(-(-cout // co_t))
             for bz in range(splits)}
@@ -106,6 +128,43 @@ def test_conv_ring_schedule_covers_each_pair_once(shape):
     assert max(counts) - min(counts) <= 1
 
 
+@pytest.mark.parametrize("shape", TILED_PATH + TILED_RAGGED)
+@pytest.mark.parametrize("batch", [8, 3])
+def test_fma_splits_pure_and_one_wave(shape, batch):
+    H, W, cin, cout = shape
+    splits = conv3x3.dw_fma_splits(cin, cout, batch, H, W)
+    assert splits == conv3x3.dw_fma_splits(cin, cout, batch, H, W)
+    ci_t, co_t = conv3x3.dw_fma_tile(cin, cout)
+    _, _, blocks, th = conv3x3.dw_fma_resources(ci_t, co_t)
+    assert 1 <= splits <= batch * -(-H // th) * -(-W // 16)
+    channel_tiles = -(-cin // ci_t) * -(-cout // co_t)
+    assert channel_tiles * splits <= max(SM_COUNT * blocks, channel_tiles)
+
+
+@pytest.mark.parametrize("shape", TILED_PATH + TILED_RAGGED)
+def test_fma_schedule_covers_each_pair_once(shape):
+    H, W, cin, cout = shape
+    batch = 8 if shape in TILED_PATH else 3
+    schedule = fma_schedule(cin, cout, batch, H, W)
+    ci_t, co_t = conv3x3.dw_fma_tile(cin, cout)
+    th = conv3x3.dw_fma_resources(ci_t, co_t)[3]
+    n_tiles = batch * -(-H // th) * -(-W // 16)
+    pairs = Counter(p for taken in schedule.values() for p in taken)
+    want = {((bx, by), t) for bx in range(-(-cin // ci_t)) for by in range(-(-cout // co_t))
+            for t in range(n_tiles)}
+    assert set(pairs) == want and set(pairs.values()) == {1}
+    counts = [len(taken) for taken in schedule.values()]
+    assert all(p[0] == (bx, by) for (bx, by, _), taken in schedule.items() for p in taken)
+    assert max(counts) - min(counts) <= 1
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_bottleneck_dw_takes_one_split(bf16):
+    # 16² x 1024 -> 1024: more channel tiles than one wave holds, so one
+    # split, written to dW itself (37.7 MB of partials otherwise)
+    assert conv3x3.dw_tile_splits(1024, 1024, 8, 16, 16, bf16)[2] == 1
+
+
 @pytest.mark.parametrize("shape", UP_PATH + UP_RAGGED)
 @pytest.mark.parametrize("batch", [8, 3])
 def test_upconv_ring_splits_pure_and_one_wave(shape, batch):
@@ -148,10 +207,13 @@ def _tiles_in_dispatch(src, a, b):
 
 
 def test_ring_tiles_are_instanced_and_constants_agree():
-    conv_src = _source("conv3x3_bn_bwd.cu")
     body_src = _source("conv3x3_dw_body.cuh")
     up_src = _source("upconv.cu")
-    conv_tiles = _tiles_in_dispatch(conv_src, "ci_t", "co_t")
+    # the dispatch lives beside the body; #36's, #33's and #41's entry
+    # points and their info entries launch through it
+    conv_tiles = _tiles_in_dispatch(_macro(body_src, "CLTORCH_RING_DISPATCH"), "ci_t", "co_t")
+    for name, uses in (("conv3x3_bn_bwd.cu", 2), ("conv3x3_dw_bn.cu", 2), ("conv3x3_g2.cu", 2)):
+        assert _source(name).count("CLTORCH_RING_DISPATCH(") == uses, name
     up_tiles = _tiles_in_dispatch(up_src, "bm", "bn")
     shapes = [(ci, co) for ci in (1, 3, 8, 16, 24, 32, 40, 64, 128, 1024)
               for co in (3, 12, 16, 32, 40, 64, 128, 1024)]
@@ -162,6 +224,36 @@ def test_ring_tiles_are_instanced_and_constants_agree():
     assert _constant(body_src, "kRawRow") == conv3x3.RING_RAW_ROW
     assert _constant(up_src, "kRingBK") == upconv_pack.RING_BK
     assert _constant(up_src, "kRingStagesUp") == upconv_pack.RING_STAGES
+
+
+def _macro(src, name):
+    """The text of the macro ``name``'s definition in ``src``."""
+    lines = src[src.index(f"#define {name}("):].splitlines()
+    n = next(i for i, line in enumerate(lines) if not line.endswith("\\"))
+    return "\n".join(lines[:n + 1])
+
+
+def _reg_tiles_in_dispatch(src):
+    return {(int(m.group(1)), int(m.group(2)))
+            for m in re.finditer(r"if \(ci_t == (\d+) && co_t == (\d+)\) return CALL\(\2\)", src)}
+
+
+def test_fma_tiles_are_instanced_and_constants_agree():
+    body_src = _source("conv3x3_dw_body.cuh")
+    tiles = _reg_tiles_in_dispatch(_macro(body_src, "CLTORCH_REG_DISPATCH"))
+    shapes = [(ci, co) for ci in (1, 3, 8, 16, 24, 32, 40, 64, 128, 1024)
+              for co in (3, 12, 16, 32, 40, 64, 128, 1024)]
+    assert {conv3x3.dw_fma_tile(ci, co) for ci, co in shapes} == tiles == {(32, 32), (32, 64)}
+    for name in ("conv3x3_dw_bn.cu", "conv3x3_g2.cu"):
+        assert _source(name).count("CLTORCH_REG_DISPATCH(") == 2, name
+    assert _constant(body_src, "kRegCiT") == conv3x3.FMA_CI_T
+    assert _constant(body_src, "kRegStages") == conv3x3.FMA_STAGES
+    assert {64: _constant(body_src, "kRegTHWide"),
+            32: _constant(body_src, "kRegTHNarrow")} == conv3x3.FMA_TH
+    assert {64: _constant(body_src, "kRegBlocksWide"),
+            32: _constant(body_src, "kRegBlocksNarrow")} == conv3x3.FMA_BLOCKS
+    # threads: three kernel rows of CO_T / 16 warps
+    assert [conv3x3.dw_fma_resources(32, co)[0] for co in (32, 64)] == [192, 384]
 
 
 class _FakeLibrary:
@@ -241,6 +333,37 @@ def test_upconv_dw_wrapper_allocates_the_picked_partials(fake_card, shape, dtype
     assert (splits, cin, 4 * cout) in allocated and (splits, 4 * cout) in allocated
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["conv3x3_dw_bn", "conv3x3_g2_dw"])
+@pytest.mark.parametrize("shape", [(16, 16, 3, 32), (16, 12, 40, 72), (24, 24, 64, 64),
+                                   (8, 8, 72, 24)])
+def test_tiled_dw_wrappers_pass_the_picked_tile(fake_card, shape, kernel, dtype):
+    lib, allocated = fake_card
+    H, W, cin, cout = shape
+    B = 2
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(B, H, W, cin, generator=g).to(dtype)
+    e = torch.randn(B, H, W, cout, generator=g).to(dtype)
+    bf16 = dtype == torch.bfloat16
+    if kernel == "conv3x3_dw_bn":
+        conv3x3.launch_conv3x3_dw_bn(x, torch.ones(cin), torch.zeros(cin), e, True, e_bf16=True)
+        args = lib.calls["cltorch_conv3x3_dw_bn"]
+        (splits, ci_t, co_t, is_bf16), ew = args[12:16], args[16]
+        assert ew == int(bf16)  # the bf16 chain only in bf16
+    else:
+        conv3x3_g2.launch_conv3x3_g2_dw(x, e)
+        args = lib.calls["cltorch_conv3x3_g2_dw"]
+        splits, ci_t, co_t, is_bf16 = args[9:13]
+    name = "cltorch_conv3x3_dw_bn" if kernel == "conv3x3_dw_bn" else "cltorch_conv3x3_g2_dw"
+    assert len(args) == len(build.SIGNATURES[name])
+    want_tile = conv3x3.dw_ring_tile(cin, cout) if bf16 else conv3x3.dw_fma_tile(cin, cout)
+    want_splits = conv3x3.dw_ring_splits(cin, cout, B, H, W) if bf16 else \
+        conv3x3.dw_fma_splits(cin, cout, B, H, W)
+    assert (ci_t, co_t) == want_tile and splits == want_splits and is_bf16 == int(bf16)
+    assert conv3x3.dw_tile_splits(cin, cout, B, H, W, bf16) == (*want_tile, want_splits)
+    assert (splits, cout, cin, 3, 3) in allocated and (cout, cin, 3, 3) in allocated
+
+
 # conv3x3.dw_splits at the headline step's convs (batch 8), as #37 and the
 # first dW bodies take them: (H, Cin, Cout) -> (bf16, f32)
 DW_SPLITS_BEFORE = {(512, 3, 32): (264, 264), (512, 32, 32): (264, 264),
@@ -269,6 +392,22 @@ def test_kernel_ab_names_cover_the_path_and_refuse_others():
         kernel_ab.dispatch(chip_smoke, "upconv_dW")
     with pytest.raises(ValueError, match="unknown kernel"):
         kernel_ab.main(["old", "new", "conv3x3_bn_dw", "no_such_kernel"])
+
+
+@pytest.mark.parametrize("dtype_name", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kernel", kernel_ab.OTHER + kernel_ab.GEN2)
+def test_kernel_ab_dispatches_the_switch_and_gen3_gen2_kernels(kernel, dtype_name):
+    launch, operands = kernel_ab.dispatch(chip_smoke, kernel, dtype_name)
+    assert callable(launch) and callable(operands)
+    got = kernel_ab.shapes(chip_smoke, kernel, dtype_name)
+    assert got and all(n >= 1 for _, n in got)
+    if kernel == "conv3x3_g2_dw":  # #41 at every phase-6 shape
+        assert launch is chip_smoke.g2_fns(kernel)[0]
+        assert [s for s, _ in got] == chip_smoke.G2_SHAPES[kernel]
+    if kernel == "conv3x3_dw_bn":  # #33: V3_SHAPES in f32, level 3's in bf16
+        want = chip_smoke.V3_SHAPES[kernel] if dtype_name == "float32" else \
+            [chip_smoke.LEVEL3_TWO_PASS[kernel][0]]
+        assert [s for s, _ in got] == want
 
 
 def test_one_wave_splits_rounds():
