@@ -45,8 +45,10 @@ Phases (any failure raises, so the exit code is non-zero):
    64, in f32 and bf16, and the two-pass backward's dW (#33) at 64² × 256 →
    256 in f32 and bf16 with the prologue on and off, batch 8, and all three
    at a ragged 20² × 24 → 40 with 3 images, each launched twice and held
-   bit-equal; #33 and #41 (the bf16 ring and f32 register-blocked bodies)
-   at ``DW_ODD``'s narrow, odd-width and ragged shapes, and each of their
+   bit-equal; #31 in bf16 at every ring tile that 5v-b's and 5n-b's convs
+   take, with its splits and partials' bytes at the widest of them; #31,
+   #33 and #41 (the bf16 ring and f32 register-blocked bodies) at
+   ``DW_ODD``'s narrow, odd-width and ragged shapes, and each of their
    instances' resident blocks against its split picker; the int8 saved
    activations' kernels at every int8 shape of
    the headline step (512², 256², 128², batch 8, P = 4) and at ragged 24²
@@ -71,8 +73,9 @@ Phases (any failure raises, so the exit code is non-zero):
    backward (#8) at every instance and ragged P, each launched twice and
    held bit-equal, each launch's resident blocks an SM held against its
    picker's with its registers, spills and shared memory printed; the
-   pipelined dx (34p/35p, ``CL_TPU_DX_PIPE``) at #34/#35's
-   shapes and at the ring's ragged ones, bit-equal to them; the packed head without a prologue (#5/#6)
+   pipelined dx (34p/35p, ``CL_TPU_DX_PIPE``: the ring's dx in bf16) at
+   #34/#35's shapes and at the ring's ragged ones, bit-equal to them; the
+   packed head without a prologue (#5/#6)
    at 2,097,152 x 32 -> 19 bf16 and small f32 / ragged cases; the gen-2
    conv (#40) at baseline_2's 256² × 64 → 64, 128 → 64 and 128² × 64 →
    128, at 16² × 1024 → 1024 and the 512² standard body's 32 → 32 (p = 4),
@@ -351,7 +354,8 @@ Phases (any failure raises, so the exit code is non-zero):
 6. kernel times against the plain version, one PyTorch library call for
    the same function, and the least time the card could take; the level-3
    kernels of 5b-a at their shapes; each variant of 5u beside its default
-   at every shape of its path.
+   at every shape of its path; #31 in both dtypes at ``V3_SHAPES``; 34p/35p
+   in bf16 and in f32 at the headline step's dx shapes.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails the
@@ -1928,7 +1932,7 @@ def aug_entry(kernel, launches, err, times, shape):
 V3_KERNELS = {  # kernel: (source, TPU kernel's pallas_call, launch-count keys)
     "conv3x3_fwd": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:522",
                     ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dt")),
-    "conv3x3_dw": ("cl_tpu_torch/csrc/conv3x3_bn_bwd.cu", "cl_tpu/pallas/conv3x3_v3.py:564",
+    "conv3x3_dw": ("cl_tpu_torch/csrc/conv3x3_v3_dw.cu", "cl_tpu/pallas/conv3x3_v3.py:564",
                    ("conv3x3_dw",)),
     "conv3x3_dw_bn": ("cl_tpu_torch/csrc/conv3x3_dw_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:870",
                       ("conv3x3_dw_bn",)),
@@ -1943,6 +1947,57 @@ V3_SHAPES = {"conv3x3_fwd": [(256, 64, 64), (256, 128, 64), (256, 64, 128), (64,
              "conv3x3_dw_bn": [(64, 256, 256, True), (64, 256, 256, False)]}
 V3_ODD = {"conv3x3_fwd": [(20, 24, 40)], "conv3x3_dw": [(20, 24, 40)],
           "conv3x3_dw_bn": [(20, 24, 40, True), (20, 24, 40, False)]}
+# 5v-b: baseline_2 with every conv the gate admits on the gen-3 conv, bf16
+V3B_ARGS = ["preset=baseline_2", "model.conv_impl=v3", "train.compute_dtype=bfloat16"]
+
+
+def v3_path_shapes():
+    """(H, Cin, Cout) of each conv that 5v-b and 5n-b (``GN_FULL`` under
+    ``conv_impl=auto|v3``, where admitted) route to the gen-3 conv, whose
+    dW is #31 in bf16."""
+    from cl_tpu_torch.config import parse_overrides
+    from cl_tpu_torch.models import packed_gate as pg
+
+    cfgs = [parse_overrides(V3B_ARGS)] + [
+        parse_overrides(GN_FULL + [f"model.conv_impl={impl}"]) for impl in ("auto", "v3")
+        if not pg.standard_body_refusal(512, 32, 4, impl, "group", 2)]
+    shapes = set()
+    for cfg in cfgs:
+        m = cfg.model
+        for _, h, ci, f in pg.standard_body_levels(cfg.data.image_size, m.base_channels,
+                                                   m.depth):
+            for j, route in enumerate(pg.double_conv_route(h, h, ci, f, m.conv_impl, m.norm)):
+                if route != "xla":
+                    shapes.add((h, ci if j == 0 else f, f))
+    return sorted(shapes)
+
+
+def v3_dw_path_tiles():
+    """Phase 3: #31 in bf16 at one shape of each ring tile that
+    ``v3_path_shapes`` takes and ``V3_SHAPES`` does not (batch 8, launched
+    twice), and at the widest of them, with its tile, splits and partials'
+    bytes printed; returns the tiles."""
+    from cl_tpu_torch.kernels import SM_COUNT, conv3x3
+
+    shapes = v3_path_shapes()
+    seen = {conv3x3.dw_ring_tile(*s[1:]) for s in V3_SHAPES["conv3x3_dw"]}
+    tiles = {}
+    for shape in shapes:
+        tiles.setdefault(conv3x3.dw_ring_tile(*shape[1:]), shape)
+    for tile, shape in tiles.items():
+        if tile not in seen:
+            compare_v3("conv3x3_dw", shape, "bfloat16")
+    H, cin, cout = widest = max(shapes, key=lambda s: (s[1] * s[2], s[0]))
+    ci_t, co_t, splits = conv3x3.dw_tile_splits(cin, cout, 8, H, H, True)
+    ctiles = -(-cin // ci_t) * -(-cout // co_t)
+    wave = SM_COUNT * conv3x3.dw_ring_resources(ci_t, co_t)[2]
+    print(f"  #31 at 5v-b's and 5n-b's {len(shapes)} conv shapes: ring tiles "
+          f"{sorted(tiles)}; the widest {widest}: tile ({ci_t}, {co_t}), {splits} splits, "
+          f"{ctiles * splits} blocks (a wave {wave}), partials {splits * cout * cin * 9 * 4} B")
+    need(splits >= 1 and ctiles * splits <= max(ctiles, wave),
+         "#31's widest split count: one wave of resident blocks")
+    compare_v3("conv3x3_dw", widest, "bfloat16")
+    return sorted(tiles)
 
 
 def v3_operands(kernel, shape, dtype_name, batch=8, seed=0):
@@ -2087,17 +2142,18 @@ G2_SHAPES = {"conv3x3_g2_fwd": [(256, 256, 64, 64), (256, 256, 128, 64), (128, 1
 # the shapes gen-3 never takes: odd rows (one whole-image tile) and p = 16,
 # with 3 images
 G2_ODD = [(6, 16, 16, 32), (32, 32, 8, 16)]
-# #33 (H, Cin, Cout, prologue) and #41 (H, W, Cin, Cout) past their path
-# tiles, with 3 images: a narrow x (Cin < 8: the bf16 ring's raw window rows;
-# the f32 body's plain loads), widths that are not a multiple of 8 (the
+# #33 (H, Cin, Cout, prologue), #31 (H, Cin, Cout) and #41 (H, W, Cin,
+# Cout) past their path tiles, with 3 images: a narrow x (Cin < 8: the bf16
+# ring's raw window rows; the f32 body's plain loads), widths that are not a multiple of 8 (the
 # ring's plain loads) or 4 (the f32 body's), ragged channel tiles of the
 # ring's 64 x 64 and 64 x 32 and the f32 body's 32 x 64 and 32 x 32 tiles
 DW_ODD = {"conv3x3_dw_bn": [(19, 3, 40, True), (20, 40, 72, True), (12, 6, 18, False),
                             (20, 72, 24, True)],
+          "conv3x3_dw": [(19, 3, 40), (20, 40, 72), (12, 6, 18), (20, 72, 24)],
           "conv3x3_g2_dw": [(19, 21, 3, 40), (20, 20, 40, 72), (12, 13, 6, 18),
                             (20, 20, 72, 24)]}
-# the dW ring's instances (CI_T, CO_T) (#36's, and #33's and #41's in bf16),
-# the register-blocked body's (#33's and #41's in f32)
+# the dW ring's instances (CI_T, CO_T) (#36's, and #31's, #33's and #41's in
+# bf16), the register-blocked body's (#31's, #33's and #41's in f32)
 DW_RING_TILES = [(ci, co) for ci in (16, 32, 64) for co in (32, 64)]
 DW_FMA_TILES = [(32, 32), (32, 64)]
 
@@ -2210,8 +2266,8 @@ def g2_times(kernel, shape, dtype_name):
 
 
 def dw_tiled_info():
-    """#33's and #41's instances on this card (the ring body's in bf16, the
-    register-blocked body's in f32): each one's resident blocks an SM held
+    """#31's, #33's and #41's instances on this card (the ring body's in
+    bf16, the register-blocked body's in f32): each one's resident blocks an SM held
     against what its split picker assumes, with its registers, local
     (spilled) bytes a thread and dynamic shared memory printed
     (``cudaFuncGetAttributes``). Returns {instance: (blocks, regs, local,
@@ -2222,7 +2278,8 @@ def dw_tiled_info():
 
     lib = build.library()
     out = {}
-    for what, entry in (("conv3x3_v3_dw_bn", lib.cltorch_conv3x3_dw_bn_info),
+    for what, entry in (("conv3x3_v3_dw", lib.cltorch_conv3x3_v3_dw_info),
+                        ("conv3x3_v3_dw_bn", lib.cltorch_conv3x3_dw_bn_info),
                         ("conv3x3_g2_dw", lib.cltorch_conv3x3_g2_dw_info)):
         for body, bf16, tiles, resources in (
                 ("ring", 1, DW_RING_TILES, conv3x3.dw_ring_resources),
@@ -2483,9 +2540,10 @@ def q_times(kernel, shape, dtype_name="bfloat16"):
 SWITCH_KERNELS = {  # launch-count key: (source, TPU kernel)
     "conv3x3_bn_bwd_fused": ("cl_tpu_torch/csrc/conv3x3_bn_bwd_fused.cu",
                              "cl_tpu/pallas/conv3x3_v3.py:1480"),
-    # the pipelined kernels run at #34/#35's pallas_call (:1233, :1259)
-    "conv3x3_bn_dx_pipe": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:1187"),
-    "conv3x3_bn_dx_bn_pipe": ("cl_tpu_torch/csrc/conv3x3_bn.cu",
+    # the pipelined kernels run at #34/#35's pallas_call (:1233, :1259); in
+    # bf16 (the kernels line's instance) as the ring's dx
+    "conv3x3_bn_dx_pipe": ("cl_tpu_torch/csrc/conv3x3_ring.cu", "cl_tpu/pallas/conv3x3_v3.py:1187"),
+    "conv3x3_bn_dx_bn_pipe": ("cl_tpu_torch/csrc/conv3x3_ring.cu",
                               "cl_tpu/pallas/conv3x3_v3.py:1179"),
 }
 # #37 at every conv of the headline step (the stem without dx), the
@@ -5068,6 +5126,7 @@ def main() -> int:
         for shape in V3_ODD[kernel]:
             for dtype_name in ("float32", "bfloat16"):
                 compare_v3(kernel, shape, dtype_name, batch=3)
+    v3_dw_path_tiles()
     # the gen-2 conv (#40 as a forward and as a dx, its dW #41) at
     # baseline_2's shapes under conv_impl=pallas, at 1024 channels, at the
     # 512² standard body's p = 4 and at the odd-row and p = 16 shapes gen-3
@@ -5080,8 +5139,9 @@ def main() -> int:
         for shape in G2_ODD:
             for dtype_name in ("float32", "bfloat16"):
                 compare_g2(kernel, shape, dtype_name, batch=3)
-    # #33 and #41 past their path tiles and staging paths, f32 and bf16,
-    # each launched twice; every instance's resources against its picker
+    # #33, #31 and #41 past their path tiles and staging paths, f32 and
+    # bf16, each launched twice; every instance's resources against its
+    # picker
     for kernel, shapes in DW_ODD.items():
         check = compare_v3 if kernel in V3_KERNELS else compare_g2
         for shape in shapes:
@@ -5486,7 +5546,7 @@ def main() -> int:
           f"{report_b2['final_per_task_miou']}")
     # 5v-b: conv_impl=v3 in bf16: every conv the gate admits, at every level
     host = ["data.dataset=synthetic", "data.device_cache=false"]
-    args_b = ["preset=baseline_2", "model.conv_impl=v3", "train.compute_dtype=bfloat16"] + host
+    args_b = V3B_ARGS + host
     cfg_b = parse_overrides(args_b)
     n_b = v3_convs(cfg_b)
     counts_vb, ips_vb, peak_vb, loss_vb, first_vb = run_steps(cfg_b, 3, 10, cuda, no_sync=True)
@@ -5651,6 +5711,9 @@ def main() -> int:
               f"({res['images_per_s']:.2f} img/s), {res['device_ms_per_step']:.3f} ms of "
               f"kernels ({res['kernels_per_step']:.0f} launches), idle {res['idle_share']:.3f}; "
               f"{fams}")
+    dev_ms = {name: res["device_ms_per_step"] for name, res in prof_f.items()}
+    print(f"    DX_PIPE's kernel ms a step / the default's: "
+          f"{dev_ms['DX_PIPE'] / dev_ms['default']:.4f}")
     pairs_f, issue_f = alternating_pairs({name: cfg_h for name in settings}, cuda,
                                          switches=settings)
     ratios_f = {name: [u / v for u, v in zip(pairs_f[name], pairs_f["default"])]
@@ -6022,6 +6085,22 @@ def main() -> int:
           f"{per_step_ms['conv3x3_bn_dx'][0]:.4f} ms, #35 "
           f"{per_step_ms['conv3x3_bn_dx_bn'][0]:.4f} ms, dW #36 "
           f"{per_step_ms['conv3x3_bn_dw'][0]:.4f} ms")
+    # 34p/35p in f32 (#34/#35's f32 instances, which ran faster than a
+    # pipelined FMA kernel at every one of these shapes) at the headline
+    # step's dx shapes
+    for kernel in ("conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe"):
+        sums = [0.0] * 4
+        for shape, n_step in SWITCH_PATH[kernel]:
+            t = switch_times(kernel, shape, "float32")
+            bo = switch_bytes_ops(kernel, shape, "float32")
+            bound = max(bo[0] / HBM_BYTES_PER_S, bo[1] / PEAK_OPS["float32"]) * 1e3
+            sums = [acc + n_step * v for acc, v in zip(sums, (t[0], t[3], bound, t[2] or 0.0))]
+            lib_txt = "—" if t[2] is None else f"{t[2]:.4f}"
+            print(f"  {packed_name(kernel, shape, 'float32')} x{n_step}/step: {t[0]:.4f} ms "
+                  f"(synchronised per launch {t[3]:.4f}; plain {t[1]:.4f}, library {lib_txt}, "
+                  f"bound {bound:.4f})")
+        print(f"  per headline step in f32, {kernel}: {sums[0]:.4f} ms (synchronised "
+              f"{sums[1]:.4f}), bound {sums[2]:.4f}, library {sums[3]:.4f} (where one exists)")
     kernels.extend(ebf16_phase6(counts_e, one_e, ebf16_errs))
     for kernel, (source, replaces) in PK_KERNELS.items():
         times = bn_times(kernel, bn_full)

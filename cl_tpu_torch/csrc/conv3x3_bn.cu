@@ -43,8 +43,7 @@
 // which the wrapper calls directly. Here remain their
 // f32 instances of the FMA body, and the first bf16 body
 // (conv3x3_body.cuh::conv3x3_mma_body) for the plain conv and the dx from
-// int8 below, with mma_chunk / mma_epilogue for 34p/35p: the order the
-// ring keeps, so its dx gives their bits.
+// int8 below, whose mma_chunk / mma_epilogue order the ring's dx keeps.
 //
 // Also the plain gen-3 conv, cl_tpu/pallas/conv3x3_v3.py::_fwd_kernel
 // (launched at conv3x3_v3.py:522 by `_fwd_packed`): y = round(conv3x3_SAME(x,
@@ -72,31 +71,30 @@
 //   x as deq(xq) in f32, not rounded, :1577-1579). The int8 y and x halve
 //   the dx's reads of them against the compute type's bf16.
 //
-// And, under CL_TPU_DX_PIPE=1, 34p / 35p: ::_dx_pipe_slim_kernel and
-// ::_dx_pipe_bn_kernel (conv3x3_v3.py:1187, :1179; body `_dx_pipe_body`,
+// Under CL_TPU_DX_PIPE=1, 34p / 35p (::_dx_pipe_slim_kernel and
+// ::_dx_pipe_bn_kernel, conv3x3_v3.py:1187, :1179; body `_dx_pipe_body`,
 // :1112), which `_dx_bn_impl` launches at the #34/#35 sites (:1233, :1259)
-// in their place: the same dx through a cross-tile software pipeline,
-// bit-identical to #34/#35 (tests/tpu/test_dx_pipe.py). Here
-// conv3x3_bn_dx_pipe_mma_kernel / conv3x3_bn_dx_pipe_kernel: a block walks
-// many pixel tiles and stages the next (tile, chunk)'s raw dy, y and
-// weights by cp.async while the current one's products run (section
-// "34p / 35p" below); the chunks, taps and epilogue are the bodies' own,
-// so its bits are #34/#35's. Bound as #34/#35: bytes on the tensor cores.
+// in their place, are the same dx through a cross-tile software pipeline,
+// bit-identical to #34/#35 (tests/tpu/test_dx_pipe.py). The wrapper runs
+// them on #34/#35's kernels: in bf16 the ring's dx (conv3x3_ring.cu), whose
+// persistent blocks already overlap the next tile's copies with the current
+// tile's products, with resident weights; in f32 the FMA instances here,
+// which the card ran faster than a cp.async-pipelined FMA kernel at every
+// headline shape (1.4-1.6x, kernel_ab).
 //
 // The first two bodies (FMA for f32, mma.sync for bf16), each templated on
 // what it computes, are in conv3x3_body.cuh, shared with the gen-2 conv.
-
-#include <algorithm>
 
 #include "conv3x3_body.cuh"
 
 namespace cltorch {
 namespace {
 
-// The f32 dx instances (here, #38's and 34p's) at four blocks an SM: the
-// blocked sum's fresh accumulator (conv3x3_body.cuh::fma_chunk) would take
-// them to 165-168 registers and three blocks an SM, slower on the H100
-// than 128 registers with 20-28 bytes a thread spilled.
+// The f32 dx instances (#34/#35's, which 34p/35p run too, and #38's) at
+// four blocks an SM: the blocked sum's fresh accumulator
+// (conv3x3_body.cuh::fma_chunk) would take them to 165-168 registers and
+// three blocks an SM, slower on the H100 than 128 registers with 20-28
+// bytes a thread spilled.
 constexpr int kFmaDxMinBlocks = 4;
 
 template <bool DX, typename T>
@@ -160,285 +158,6 @@ int conv3x3_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, int B
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || (DX && !pf32.prologue)) return (int)err;
-  reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(pf32.partials, tiles * B, 2 * Cout,
-                                                          2 * Cout, static_cast<float*>(out));
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// 34p / 35p: the dx pipelined across pixel tiles (CL_TPU_DX_PIPE)
-// ---------------------------------------------------------------------------
-//
-// A block walks the pixel tiles blockIdx.x, + gridDim.x, ... of all B
-// images for one tile of output channels, and within each tile its
-// 16-channel chunks of dy: one flat sequence of stages (tile, chunk). The
-// raw dy and y windows and the weights of stage s + 1 are in flight by
-// cp.async into the second of two buffers while stage s's products run;
-// e is then formed in place from the raw dy (its stats term from the raw
-// y) and the products read it. Within a tile the chunks, the taps, the
-// epilogue and its partial row are #34/#35's (mma_chunk / fma_chunk and
-// their epilogues), so every output is bit-equal to theirs. Out-of-image
-// pixels and channels past Cin arrive as zeros (cp.async's zero fill) and
-// stay zero: e-space padding. Where a row of dy is not 16-byte aligned
-// (bf16 with Cin % 8 != 0) the stage is loaded by plain loads instead.
-
-constexpr int kPipeBlocks = 2 * 132;  // blocks of a launch, over the channel tiles
-
-// bf16: issue stage (b, gy0, gx0, chunk ci0) into the buffers dy_s, y_s
-// (windows, rows of kRowS) and w_s ([tap][co][kRowS]).
-template <int COT>
-__device__ __forceinline__ void pipe_issue_mma(const ConvArgs<bf16>& p, bf16* dy_s, bf16* y_s,
-                                               bf16* w_s, int b, int gy0, int gx0, int ci0,
-                                               int co0) {
-  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  const int64_t img = (int64_t)b * H * W;
-  const bool vec = (Cin & 7) == 0;
-  for (int e = threadIdx.x; e < kWinH * kWinW * 2; e += kMmaThreads) {
-    const int pix = e >> 1, half = e & 1;
-    const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const int c = ci0 + half * 8;
-    const int64_t i = inside ? (img + (int64_t)gy * W + gx) * Cin + c : 0;
-    bf16* d = &dy_s[pix * kRowS + half * 8];
-    bf16* yd = &y_s[pix * kRowS + half * 8];
-    if (vec) {
-      const bool ok = inside && c < Cin;
-      cp_async<16>(d, p.in + (ok ? i : 0), ok);
-      if (p.s1 != nullptr) cp_async<16>(yd, p.y + (ok ? i : 0), ok);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const bool ok = inside && c + k < Cin;
-        d[k] = ok ? p.in[i + k] : __float2bfloat16(0.f);
-        if (p.s1 != nullptr) yd[k] = ok ? p.y[i + k] : __float2bfloat16(0.f);
-      }
-    }
-  }
-  for (int e = threadIdx.x; e < 9 * COT * 2; e += kMmaThreads) {
-    const int half = e & 1, row = e >> 1;  // row = tap * COT + co
-    const int co = row % COT, tap = row / COT;
-    const int c = ci0 + half * 8;
-    const bool in_co = co0 + co < Cout;
-    const int64_t i = in_co ? ((int64_t)tap * Cout + co0 + co) * Cin + c : 0;
-    bf16* d = &w_s[row * kRowS + half * 8];
-    if (vec) {
-      const bool ok = in_co && c < Cin;
-      cp_async<16>(d, p.w + (ok ? i : 0), ok);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        d[k] = in_co && c + k < Cin ? p.w[i + k] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// bf16: e = round(dy + ds1 + 2 * y * ds2) in place over the staged raw dy,
-// at in-image pixels and channels below Cin (stage8_e's arithmetic, the
-// bf16 chain under p.ew_bf16); e = dy without stats cotangents.
-__device__ __forceinline__ void pipe_form_e_mma(const ConvArgs<bf16>& p, bf16* dy_s,
-                                                const bf16* y_s, int gy0, int gx0, int ci0) {
-  if (p.s1 == nullptr) return;
-  with_ew(p.ew_bf16, [&](auto ew) {
-    for (int e = threadIdx.x; e < kWinH * kWinW * 16; e += kMmaThreads) {
-      const int pix = e >> 4, k = e & 15;
-      const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-      const int c = ci0 + k;
-      if (gy < 0 || gy >= p.H || gx < 0 || gx >= p.W || c >= p.Cin) continue;
-      bf16& v = dy_s[pix * kRowS + k];
-      v = __float2bfloat16(e_ew<decltype(ew)::value>(
-          __bfloat162float(v), __bfloat162float(y_s[pix * kRowS + k]), p.s1[c], p.s2[c]));
-    }
-  });
-}
-
-template <int COT>
-constexpr size_t pipe_smem_mma() {
-  return (4 * (size_t)kWinH * kWinW * kRowS + 2 * 9 * COT * kRowS) * sizeof(bf16) +
-         (kMmaThreads / 32) * 2 * COT * sizeof(float);
-}
-
-template <int COT>
-__global__ void __launch_bounds__(kMmaThreads) conv3x3_bn_dx_pipe_mma_kernel(ConvArgs<bf16> p) {
-  constexpr int NT = COT / 8, kWin = kWinH * kWinW * kRowS, kWts = 9 * COT * kRowS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* dy_s = reinterpret_cast<bf16*>(smem);  // [2][kWin]: raw dy, then e
-  bf16* y_s = dy_s + 2 * kWin;                 // [2][kWin]
-  bf16* w_s = y_s + 2 * kWin;                  // [2][kWts]
-  float(*red)[2][COT] = reinterpret_cast<float(*)[2][COT]>(w_s + 2 * kWts);
-  const int tiles_x = (p.W + kTW - 1) / kTW, tiles = tiles_x * ((p.H + kTH - 1) / kTH);
-  const int n_tiles = p.batch * tiles, nch = (p.Cin + 15) / 16;
-  const int co0 = blockIdx.y * COT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int my_tiles = (int)blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  const int n_stages = my_tiles * nch;
-  auto coords = [&](int s, int& b, int& rem, int& gy0, int& gx0) {
-    const int tile = blockIdx.x + (s / nch) * gridDim.x;
-    b = tile / tiles;
-    rem = tile % tiles;
-    gy0 = (rem / tiles_x) * kTH;
-    gx0 = (rem % tiles_x) * kTW;
-  };
-  int b, rem, gy0, gx0;
-  if (n_stages > 0) {
-    coords(0, b, rem, gy0, gx0);
-    pipe_issue_mma<COT>(p, dy_s, y_s, w_s, b, gy0, gx0, 0, co0);
-  }
-  cp_async_commit();
-  float acc[2][NT][4];
-  for (int s = 0; s < n_stages; ++s) {
-    const int buf = s & 1, chunk = s % nch;
-    __syncthreads();  // stage s - 1's products are done with the other buffer
-    if (s + 1 < n_stages) {
-      coords(s + 1, b, rem, gy0, gx0);
-      pipe_issue_mma<COT>(p, dy_s + (buf ^ 1) * kWin, y_s + (buf ^ 1) * kWin,
-                          w_s + (buf ^ 1) * kWts, b, gy0, gx0, ((s + 1) % nch) * 16, co0);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // stage s has landed
-    coords(s, b, rem, gy0, gx0);
-    __syncthreads();
-    pipe_form_e_mma(p, dy_s + buf * kWin, y_s + buf * kWin, gy0, gx0, chunk * 16);
-    __syncthreads();
-    if (chunk == 0) {
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.f;
-    }
-    mma_chunk<COT>(acc, dy_s + buf * kWin, w_s + buf * kWts, warp, g, t);
-    if (chunk == nch - 1)
-      mma_epilogue<kDx, COT>(p, acc, b, gy0, gx0, co0, b * tiles + rem, red, warp, g, t);
-  }
-  cp_async_wait<0>();
-}
-
-// f32: the same walk; the windows staged channel-major ([16][18][18], as
-// conv3x3_fma_body stages them) by 4-byte copies, the weights [16][9][32].
-__device__ __forceinline__ void pipe_issue_fma(const ConvArgs<float>& p, float* dy_s, float* y_s,
-                                               float* w_s, int b, int gy0, int gx0, int ci0,
-                                               int co0) {
-  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  const int64_t img = (int64_t)b * H * W;
-  for (int e = threadIdx.x; e < kCiT * kWinH * kWinW; e += kConvThreads) {
-    const int ci = e % kCiT, pix = e / kCiT;
-    const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW, c = ci0 + ci;
-    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin;
-    const int64_t i = ok ? (img + (int64_t)gy * W + gx) * Cin + c : 0;
-    cp_async<4>(&dy_s[ci * kWinH * kWinW + pix], p.in + i, ok);
-    if (p.s1 != nullptr) cp_async<4>(&y_s[ci * kWinH * kWinW + pix], p.y + i, ok);
-  }
-  for (int e = threadIdx.x; e < kCiT * 9 * kCoT; e += kConvThreads) {
-    const int co = e % kCoT, rest = e / kCoT;
-    const int k = rest % 9, ci = rest / 9;
-    const int c = ci0 + ci, o = co0 + co;
-    const bool ok = c < Cin && o < Cout;
-    cp_async<4>(&w_s[e], p.w + (ok ? ((int64_t)c * 9 + k) * Cout + o : 0), ok);
-  }
-}
-
-__device__ __forceinline__ void pipe_form_e_fma(const ConvArgs<float>& p, float* dy_s,
-                                                const float* y_s, int gy0, int gx0, int ci0) {
-  if (p.s1 == nullptr) return;
-  for (int e = threadIdx.x; e < kCiT * kWinH * kWinW; e += kConvThreads) {
-    const int ci = e / (kWinH * kWinW), pix = e % (kWinH * kWinW);
-    const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW, c = ci0 + ci;
-    if (gy < 0 || gy >= p.H || gx < 0 || gx >= p.W || c >= p.Cin) continue;
-    dy_s[e] = e_f32(dy_s[e], y_s[e], p.s1[c], p.s2[c]);
-  }
-}
-
-constexpr size_t kPipeSmemFma =
-    (4 * (size_t)kCiT * kWinH * kWinW + 2 * (size_t)kCiT * 9 * kCoT) * sizeof(float);
-
-__global__ void __launch_bounds__(kConvThreads, kFmaDxMinBlocks)
-    conv3x3_bn_dx_pipe_kernel(ConvArgs<float> p) {
-  constexpr int kWin = kCiT * kWinH * kWinW, kWts = kCiT * 9 * kCoT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dy_s = reinterpret_cast<float*>(smem);  // [2][kWin]: raw dy, then e
-  float* y_s = dy_s + 2 * kWin;                  // [2][kWin]
-  float* w_s = y_s + 2 * kWin;                   // [2][kWts]
-  const int tiles_x = (p.W + kTW - 1) / kTW, tiles = tiles_x * ((p.H + kTH - 1) / kTH);
-  const int n_tiles = p.batch * tiles, nch = (p.Cin + kCiT - 1) / kCiT;
-  const int co0 = blockIdx.y * kCoT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ty = lane >> 1, seg = lane & 1, cg = warp * 8;
-  const int my_tiles = (int)blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  const int n_stages = my_tiles * nch;
-  auto coords = [&](int s, int& b, int& rem, int& gy0, int& gx0) {
-    const int tile = blockIdx.x + (s / nch) * gridDim.x;
-    b = tile / tiles;
-    rem = tile % tiles;
-    gy0 = (rem / tiles_x) * kTH;
-    gx0 = (rem % tiles_x) * kTW;
-  };
-  int b, rem, gy0, gx0;
-  if (n_stages > 0) {
-    coords(0, b, rem, gy0, gx0);
-    pipe_issue_fma(p, dy_s, y_s, w_s, b, gy0, gx0, 0, co0);
-  }
-  cp_async_commit();
-  float acc[8][8];
-  for (int s = 0; s < n_stages; ++s) {
-    const int buf = s & 1, chunk = s % nch;
-    __syncthreads();
-    if (s + 1 < n_stages) {
-      coords(s + 1, b, rem, gy0, gx0);
-      pipe_issue_fma(p, dy_s + (buf ^ 1) * kWin, y_s + (buf ^ 1) * kWin, w_s + (buf ^ 1) * kWts,
-                     b, gy0, gx0, ((s + 1) % nch) * kCiT, co0);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    coords(s, b, rem, gy0, gx0);
-    __syncthreads();
-    pipe_form_e_fma(p, dy_s + buf * kWin, y_s + buf * kWin, gy0, gx0, chunk * kCiT);
-    __syncthreads();
-    if (chunk == 0) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[q][c] = 0.f;
-    }
-    fma_chunk<true>(acc, reinterpret_cast<float(*)[kWinH][kWinW]>(dy_s + buf * kWin),
-              reinterpret_cast<float(*)[9][kCoT]>(w_s + buf * kWts), ty, seg, cg);
-    if (chunk == nch - 1)
-      fma_epilogue<kDx>(p, acc, b, gy0, gx0, co0, b * tiles + rem, ty, seg, cg, lane);
-  }
-  cp_async_wait<0>();
-}
-
-// Launches the pipelined dx of the type and, with the prologue, the
-// reduction of its per-tile partial rows (#34/#35's rows) into out.
-int conv3x3_dx_pipe_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, void* out,
-                           cudaStream_t st) {
-  const int H = pf32.H, W = pf32.W, Cout = pf32.Cout, B = pf32.batch;
-  const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
-  const int cot = !is_bf16 || Cout % 64 != 0 ? 32 : 64;
-  const int ctiles = (Cout + cot - 1) / cot;
-  const dim3 grid(std::min(tiles * B, std::max(1, kPipeBlocks / ctiles)), ctiles);
-  cudaError_t err;
-  if (!is_bf16) {
-    err = cudaFuncSetAttribute(conv3x3_bn_dx_pipe_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPipeSmemFma);
-    if (err != cudaSuccess) return (int)err;
-    conv3x3_bn_dx_pipe_kernel<<<grid, kConvThreads, kPipeSmemFma, st>>>(pf32);
-  } else if (cot == 64) {
-    err = cudaFuncSetAttribute(conv3x3_bn_dx_pipe_mma_kernel<64>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)pipe_smem_mma<64>());
-    if (err != cudaSuccess) return (int)err;
-    conv3x3_bn_dx_pipe_mma_kernel<64><<<grid, kMmaThreads, pipe_smem_mma<64>(), st>>>(pb16);
-  } else {
-    err = cudaFuncSetAttribute(conv3x3_bn_dx_pipe_mma_kernel<32>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)pipe_smem_mma<32>());
-    if (err != cudaSuccess) return (int)err;
-    conv3x3_bn_dx_pipe_mma_kernel<32><<<grid, kMmaThreads, pipe_smem_mma<32>(), st>>>(pb16);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !pf32.prologue) return (int)err;
   reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(pf32.partials, tiles * B, 2 * Cout,
                                                           2 * Cout, static_cast<float*>(out));
   return (int)cudaGetLastError();
@@ -513,22 +232,6 @@ int cltorch_conv3x3_bn_dx(const void* dy, const void* y, const void* s1, const v
       conv_args<bf16>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
       conv_args<float>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
       is_bf16, B, out, static_cast<cudaStream_t>(stream));
-}
-
-// 34p / 35p: the dx pipelined across pixel tiles; the operands and outputs
-// of cltorch_conv3x3_bn_dx, and every bit of its results (in bf16, of the
-// ring's dx: `ew_bf16` forms e with the bf16 chain, as it does there).
-int cltorch_conv3x3_bn_dx_pipe(const void* dy, const void* y, const void* s1, const void* s2,
-                               const void* w, const void* x, const void* a, const void* b,
-                               void* dx, void* partials, void* out, int B, int H, int W, int Cin,
-                               int Cout, int prologue, int is_bf16, int ew_bf16, void* stream) {
-  using namespace cltorch;
-  auto pb16 = conv_args<bf16>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue);
-  auto pf32 = conv_args<float>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout,
-                               prologue);
-  pb16.batch = pf32.batch = B;
-  pb16.ew_bf16 = ew_bf16;
-  return conv3x3_dx_pipe_launch(pb16, pf32, is_bf16, out, static_cast<cudaStream_t>(stream));
 }
 
 // 32q: y [B, H, W, C] -> q int8 [B, H, W, C] and scale f32 [B, H, p, C];

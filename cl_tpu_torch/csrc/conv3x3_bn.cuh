@@ -293,8 +293,8 @@ __host__ __device__ constexpr bool is_dx() {
 
 // The f32 dx's blocked sum: each run of kDxBlock channels' 9 x kDxBlock
 // products goes into a fresh accumulator, added to the running total once a
-// run (the FMA body's dx, 34p and #37, in the same order: so they keep
-// their bits). A dx at 512 channels then adds 64 block sums of 72 products
+// run (the FMA body's dx and #37 in the same order: so they keep their
+// bits). A dx at 512 channels then adds 64 block sums of 72 products
 // instead of 4,608 products in one serial order, whose error from float64
 // was 4.4 u·Σ|term| (cuDNN's 1.0).
 constexpr int kDxBlock = 8;
@@ -319,7 +319,7 @@ template <typename T> struct ConvArgs {
   const int8_t* xq;    // kDxQX: the forward's x as int8 [B, H, W, Cout]
   const float* xsc;    //   and its scales [B, H, pack, Cout]
   int pack;            // the columns' grouping of the scales (mod pack)
-  int batch;           // images (the pipelined dx and #37 walk them in-kernel)
+  int batch;           // images (#37 walks them in-kernel)
   int ew_bf16;         // bf16 kernels: stage t and e with the bf16 chains
 };
 

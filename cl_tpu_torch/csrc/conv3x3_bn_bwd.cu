@@ -1,5 +1,5 @@
-// Weight gradient of the 3x3 SAME conv with the BN-ReLU prologue, and of
-// the plain gen-3 conv.
+// Weight gradient of the 3x3 SAME conv with the BN-ReLU prologue, from the
+// saved activations in the compute type and from their int8 form.
 //
 // Replaces the TPU kernel cl_tpu/pallas/conv3x3_v3.py::_dw_bn2_kernel
 // (#36, launched at conv3x3_v3.py:1332 by `_dw_bn2_impl`, from the fused
@@ -38,23 +38,17 @@
 // by pointer and shape). f32 #36
 // runs the FMA body.
 //
-// Two more instances of the first bodies (KIND below), each computing
-// only its own function (the third, #33, kDwBn, was redesigned onto the
-// ring and register-blocked bodies: conv3x3_dw_bn.cu):
-// * cl_tpu/pallas/conv3x3_v3.py::_dw_kernel (#31, launched at :564 by
-//   `_dw_packed`), the dW of `conv3x3` / `conv3x3_packed` under
-//   model.conv_impl=v3|auto: t = x, e = dy, no y or stats reads (kDwPlain;
-//   the VJP rounds dW once to the compute type, :621, :643);
-// * ::_dw2_q_kernel (#39, launched at :1779 by `_dw2_q_impl`), the dW of
-//   `conv_bn_fused_q` under model.conv_act_store=int8 (kDwQ): e =
-//   round(dy + ds1 + 2 * deq(y) * ds2) from the int8 y (deq in f32, not
-//   rounded, :1713-1715), t from x as kDwFused stages it or, in the XQ
-//   mode, t = round(relu(deq(xq) * a + b)) from the int8 x, computed in
-//   f32 and rounded once (:1690-1696). Bound by bytes as kDwFused, with y
-//   (and x in the XQ mode) read as one byte an element.
-// At baseline_2's 256^2 x 64 -> 64 (batch 8, f32, FMA) #31 does 38.7 GFLOP,
-// 577 us at 67 TFLOP/s, against 268 MB read, 80 us: operations on the FMA
-// units.
+// One more instance of the first bodies (KIND below), computing only its
+// own function (#33, kDwBn, and #31, kDwPlain, were redesigned onto the ring
+// and register-blocked bodies: conv3x3_dw_bn.cu, conv3x3_v3_dw.cu):
+// * cl_tpu/pallas/conv3x3_v3.py::_dw2_q_kernel (#39, launched at :1779 by
+//   `_dw2_q_impl`), the dW of `conv_bn_fused_q` under
+//   model.conv_act_store=int8 (kDwQ): e = round(dy + ds1 + 2 * deq(y) *
+//   ds2) from the int8 y (deq in f32, not rounded, :1713-1715), t from x as
+//   kDwFused stages it or, in the XQ mode, t = round(relu(deq(xq) * a + b))
+//   from the int8 x, computed in f32 and rounded once (:1690-1696). Bound
+//   by bytes as kDwFused, with y (and x in the XQ mode) read as one byte an
+//   element.
 
 #include "conv3x3_dw_body.cuh"
 
@@ -62,8 +56,7 @@ namespace cltorch {
 namespace {
 
 // The kernels: one instance of each body per KIND, named for the profile
-// families (conv3x3_dw*: the packed body's; conv3x3_v3_dw*: the gen-3
-// conv's).
+// families (conv3x3_dw*: the packed body's; conv3x3_q_*: the int8 conv's).
 #define CLTORCH_DW_PARAMS(T)                                                              \
   const T *__restrict__ x, const float *__restrict__ pa, const float *__restrict__ pb,   \
       const T *__restrict__ dy, const T *__restrict__ y, const float *__restrict__ s1,    \
@@ -81,19 +74,11 @@ __global__ void __launch_bounds__(RingTile<CI_T, CO_T>::kThreads, RingTile<CI_T,
   dw_ring_body<kDwFused, CI_T, CO_T>(x, pa, pb, dy, y, s1, s2, partials, B, H, W, Cin, Cout,
                                      prologue, &tm_x, &tm_dy, &tm_y, ew_bf16);
 }
-__global__ void __launch_bounds__(kDwThreads)
-    conv3x3_v3_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
-  dw_mma_body<kDwPlain>(CLTORCH_DW_ARGS);
-}
 __global__ void __launch_bounds__(kDwThreads) conv3x3_q_dw_mma_kernel(CLTORCH_DW_PARAMS(bf16)) {
   dw_mma_body<kDwQ>(CLTORCH_DW_ARGS);
 }
 __global__ void __launch_bounds__(kDwfThreads) conv3x3_dw_fma_kernel(CLTORCH_DW_PARAMS(float)) {
   dw_fma_body<kDwFused>(CLTORCH_DW_ARGS);
-}
-__global__ void __launch_bounds__(kDwfThreads)
-    conv3x3_v3_dw_fma_kernel(CLTORCH_DW_PARAMS(float)) {
-  dw_fma_body<kDwPlain>(CLTORCH_DW_ARGS);
 }
 __global__ void __launch_bounds__(kDwfThreads) conv3x3_q_dw_fma_kernel(CLTORCH_DW_PARAMS(float)) {
   dw_fma_body<kDwQ>(CLTORCH_DW_ARGS);
@@ -128,16 +113,14 @@ int dw_launch(const void* x, const void* a, const void* b, const void* dy, const
     } else {
       const bf16 *xb = static_cast<const bf16*>(x), *dyb = static_cast<const bf16*>(dy),
                  *yb = static_cast<const bf16*>(y);
-      auto kernel = KIND == kDwPlain ? conv3x3_v3_dw_mma_kernel : conv3x3_q_dw_mma_kernel;
-      kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part, B, H, W, Cin,
-                                          Cout, prologue, qa, ew_bf16);
+      conv3x3_q_dw_mma_kernel<<<grid, kDwThreads, 0, st>>>(xb, fa, fb, dyb, yb, f1, f2, part, B,
+                                                           H, W, Cin, Cout, prologue, qa,
+                                                           ew_bf16);
     }
   } else {
     const float *xf = static_cast<const float*>(x), *dyf = static_cast<const float*>(dy),
                 *yf = static_cast<const float*>(y);
-    auto kernel = KIND == kDwFused   ? conv3x3_dw_fma_kernel
-                  : KIND == kDwPlain ? conv3x3_v3_dw_fma_kernel
-                                     : conv3x3_q_dw_fma_kernel;
+    auto kernel = KIND == kDwFused ? conv3x3_dw_fma_kernel : conv3x3_q_dw_fma_kernel;
     kernel<<<grid, kDwfThreads, 0, st>>>(xf, fa, fb, dyf, yf, f1, f2, part, B, H, W, Cin, Cout,
                                          prologue, qa, 0);
   }
@@ -189,15 +172,6 @@ int cltorch_conv3x3_dw_ring_info(int ci_t, int co_t, int* out) {
               RingTile<CI, CO>::kThreads, RingTile<CI, CO>::kSmem, out)
   CLTORCH_RING_DISPATCH(CLTORCH_RING_INFO)
 #undef CLTORCH_RING_INFO
-}
-
-// The plain gen-3 conv's dW: x [B, H, W, Cin], dy [B, H, W, Cout].
-int cltorch_conv3x3_dw(const void* x, const void* dy, void* partials, void* dw, int B, int H,
-                       int W, int Cin, int Cout, int splits, int is_bf16, void* stream) {
-  return cltorch::dw_launch<cltorch::kDwPlain>(x, nullptr, nullptr, dy, nullptr, nullptr,
-                                               nullptr, partials, dw, B, H, W, Cin, Cout, 0,
-                                               splits, is_bf16,
-                                               static_cast<cudaStream_t>(stream));
 }
 
 // #39: the dW from int8 saved activations: y as yq [B, H, W, Cout] with

@@ -1,10 +1,11 @@
 // The 3x3 SAME conv's weight-gradient bodies over NHWC, each instanced by a
 // KIND: the packed conv's fused dW (#36), the plain dW (t = x, e = dy), the
 // two-pass dW (#33) and the dW from int8 (#39). Shared by conv3x3_bn_bwd.cu
-// (#36, #31, #39), conv3x3_dw_bn.cu (#33, a kDwBn instance) and
-// conv3x3_g2.cu (the gen-2 dW #41, a kDwPlain instance), with the host
-// side of their launches (the ring and register-blocked instances'
-// dispatch, their shared memory, the sum of their partials).
+// (#36, #39), conv3x3_dw_bn.cu (#33, a kDwBn instance), conv3x3_v3_dw.cu
+// (the gen-3 dW #31, a kDwPlain instance) and conv3x3_g2.cu (the gen-2 dW
+// #41, a kDwPlain instance), with the host side of their launches (the ring
+// and register-blocked instances' dispatch, their shared memory, the sum of
+// their partials).
 //
 // The contraction runs over pixels, so the pixels are split over gridDim.z
 // blocks (each takes every gridDim.z-th pixel tile) for one channel tile of
@@ -13,13 +14,8 @@
 // atomics: a run repeats its sums bit for bit.
 //
 // * bf16, the ring body (dw_ring_body; kDwFused, #36, the headline step's
-//   dW; kDwBn, #33, and kDwPlain, #41, since their redesign). Bound on the
-//   H100 by bytes at 512^2 and 256^2 (x, dy and y read
-//   once: 403 MB, 120 us at 3.35 TB/s at 512^2 x 32 -> 32, batch 8, against
-//   39 us of tensor-core work) and by the tensor cores at 128^2 x 128 -> 128
-//   (39 us against 30 us of bytes); 1.04 ms over the step's 15 convs. What it
-//   does about the causes that held the first body (dw_mma_body) at 4.6x
-//   that bound:
+//   dW; kDwBn, #33, and kDwPlain, #41 and #31, since their redesign).
+//   Bound on the H100 by bytes at 512^2 and 256^2 (x, dy and y read
 //   once: 403 MB, 120 us at 3.35 TB/s at 512^2 x 32 -> 32, batch 8, against
 //   39 us of tensor-core work) and by the tensor cores at 128^2 x 128 -> 128
 //   (39 us against 30 us of bytes); 1.04 ms over the step's 15 convs. What it
@@ -68,7 +64,7 @@
 //     its dW tile in shared memory and writes its partial a weight row
 //     (CI_T * 9 consecutive floats) at a time; the scattered 4-byte stores of
 //     the first body cost as much as a level's bytes bound.
-// * bf16, the first body (dw_mma_body: kDwPlain #31, kDwQ #39). A block
+// * bf16, the first body (dw_mma_body: kDwQ #39 alone). A block
 //   of 288 threads is nine warps, one per tap, for a 32 x 32 channel tile.
 //   Per 16 x 16 pixel tile it stages the 18 x 18 window of t
 //   and the 16 x 16 tile of e as [pixel][channel] with an 80-byte row (32
@@ -79,11 +75,12 @@
 //   instruction; the 80-byte row keeps its eight row reads on distinct
 //   banks).
 // * f32: FMA (TF32 would round), the first body (dw_fma_body: kDwFused
-//   #36, kDwPlain #31, kDwQ #39). A block of 256 threads: lane = input
+//   #36, kDwQ #39). A block of 256 threads: lane = input
 //   channel, warp = 4 output channels, each thread 9 taps x 4 channels of
 //   accumulators; per pixel one float4 of e (a broadcast) and nine t: 3.6
 //   FMAs a shared load, staged synchronously, x re-read Cout / 32 times.
-// * f32, the register-blocked body (dw_reg_body: kDwBn #33, kDwPlain #41).
+// * f32, the register-blocked body (dw_reg_body: kDwBn #33, kDwPlain #41
+//   and #31).
 //   Bound by the FMA units (18 px Cin Cout operations at 67 TFLOP/s: 577 us
 //   at 256^2 x 64 -> 64, batch 8, against 80 us of bytes). A thread holds
 //   the outer product of 4 output x 4 input channels for the three taps of
@@ -765,7 +762,7 @@ __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// f32: the register-blocked FMA body (kDwBn #33, kDwPlain #41)
+// f32: the register-blocked FMA body (kDwBn #33, kDwPlain #41 and #31)
 // ---------------------------------------------------------------------------
 
 constexpr int kRegCiT = 32;         // input channels of a tile

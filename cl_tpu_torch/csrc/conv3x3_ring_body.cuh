@@ -88,9 +88,9 @@
 // m16n8k16 an SM here (the forward at 128^2 without its prologue), which
 // holds levels 1 and 2 at ~3.6x their bounds.
 //
-// Why the dx's order is fixed: the pipelined dx (34p/35p) and the one-pass
-// backward (#37) must give #34/#35's bits (chip_smoke.compare_pipe,
-// compare_fused). So each dx output is accumulated as the first body does:
+// Why the dx's order is fixed: the one-pass backward (#37) must give
+// #34/#35's bits (chip_smoke.compare_fused), as the pipelined dx (34p/35p,
+// this body's dx itself in bf16) does (compare_pipe). So each dx output is accumulated as the first body does:
 // its 16-channel chunks ascending, within a chunk the taps 0-8, each one
 // mma.sync m16n8k16 on the same bf16 operands (a CK = 32 stage is two such
 // chunks in order; a chunk wholly past Cin is skipped, as the first body's

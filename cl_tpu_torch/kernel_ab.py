@@ -11,11 +11,13 @@ backward ones too; or ``head_ce_bn_fwd`` / ``head_ce_bn_bwd``, the packed
 head's forward #7 and backward #8; or the switches' ``conv3x3_bn_bwd_fused``
 (#37), ``conv3x3_bn_dx_pipe`` / ``conv3x3_bn_dx_bn_pipe`` (34p/35p), the
 int8 dW ``conv3x3_bn_dw_q`` (#39), the two-pass dW ``conv3x3_dw_bn``
-(#33) and the gen-2 dW ``conv3x3_g2_dw`` (#41)) at every shape of that
+(#33), the gen-3 dW ``conv3x3_dw`` (#31) and the gen-2 dW
+``conv3x3_g2_dw`` (#41)) at every shape of that
 checkout's 512² path (``chip_smoke.PACKED_PATH``, ``SWITCH_PATH``,
 ``Q_PATH``; #33 at level 3's two-pass shape of the 22 MiB budget,
-``LEVEL3_TWO_PASS``, and with ``--f32`` at ``V3_SHAPES``; #41 at
-``G2_SHAPES``; bf16, batch 8; #7 and #8 at ``HEAD_SHAPE`` on
+``LEVEL3_TWO_PASS``, and with ``--f32`` at ``V3_SHAPES``; #31 at
+``V3_SHAPES``; #41 at ``G2_SHAPES``; bf16, batch 8; #7 and #8 at
+``HEAD_SHAPE`` on
 ``chip_smoke.bn_case``'s operands)
 on that checkout's operands (``chip_smoke.packed_operands`` for a forward
 kernel, ``bwd_operands`` for a backward one, whose launch is
@@ -24,7 +26,8 @@ kernel, ``bwd_operands`` for a backward one, whose launch is
 median of 20 launches from CUDA events around each, once with the launches
 queued back to back, once synchronised after each, and once queued behind
 a card sleep (``time_ms_slept``: the host's issue then stays out of the
-card's time). Prints per kernel and shape the two versions' medians over
+card's time). Prints each turn's build time (the first turn of a checkout
+builds its kernels), per kernel and shape the two versions' medians over
 their turns, the sums over one packed step, and the card's ``nvidia-smi``
 name and power limit. A name it does not know is refused before any turn
 runs.
@@ -61,6 +64,7 @@ BACKWARD = ("conv3x3_bn_dw", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "upconv_dx", "
 HEAD = ("head_ce_bn_fwd", "head_ce_bn_bwd")
 OTHER = ("conv3x3_bn_bwd_fused", "conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe", "conv3x3_bn_dw_q",
          "conv3x3_dw_bn")
+GEN3 = ("conv3x3_dw",)  # the gen-3 conv's dW (#31), off the packed path
 GEN2 = ("conv3x3_g2_dw",)  # the gen-2 conv's dW (#41), off the packed path
 # The packed head's shape on the headline step: (pixels, Cin, classes),
 # each kernel once a step, with bn_case's seed of chip_smoke's phase 3.
@@ -71,8 +75,8 @@ HEAD_SEED = 2
 def check_names(kernels) -> None:
     """Raise on a kernel name that is neither a forward nor a backward
     kernel of the packed path, nor the packed head's forward or backward,
-    nor one of ``OTHER``'s or ``GEN2``'s."""
-    known = FORWARD + BACKWARD + HEAD + OTHER + GEN2
+    nor one of ``OTHER``'s, ``GEN3``'s or ``GEN2``'s."""
+    known = FORWARD + BACKWARD + HEAD + OTHER + GEN3 + GEN2
     unknown = [k for k in kernels if k not in known]
     if unknown:
         raise ValueError(f"kernel_ab: unknown kernel(s) {unknown}; known: {', '.join(known)}")
@@ -80,11 +84,13 @@ def check_names(kernels) -> None:
 
 def shapes(smoke, kernel, dtype_name="bfloat16"):
     """[(shape, launches a step), ...] of one kernel on the headline step;
-    #33 in f32 and #41 at their phase-6 shapes, once each."""
+    #33 in f32, #31 and #41 at their phase-6 shapes, once each."""
     if kernel in HEAD:
         return [(HEAD_SHAPE, 1)]
     if kernel == "conv3x3_g2_dw":
         return [(shape, 1) for shape in smoke.G2_SHAPES[kernel]]
+    if kernel == "conv3x3_dw":
+        return [(shape, 1) for shape in smoke.V3_SHAPES[kernel]]
     if kernel == "conv3x3_dw_bn":
         return [(shape, 1) for shape in smoke.V3_SHAPES[kernel]] if dtype_name == "float32" \
             else [smoke.LEVEL3_TWO_PASS[kernel][::2]]
@@ -104,7 +110,7 @@ def dispatch(smoke, kernel, dtype_name="bfloat16"):
     if kernel in FORWARD:
         return smoke.packed_fns(kernel)[0], \
             lambda shape: smoke.packed_operands(kernel, shape, dtype_name)
-    if kernel == "conv3x3_dw_bn":
+    if kernel in ("conv3x3_dw_bn", "conv3x3_dw"):
         return smoke.v3_fns(kernel)[0], lambda shape: smoke.v3_operands(kernel, shape, dtype_name)
     if kernel == "conv3x3_g2_dw":
         return smoke.g2_fns(kernel)[0], lambda shape: smoke.g2_operands(kernel, shape, dtype_name)
@@ -193,14 +199,18 @@ def _host_issue_worker(root):
 
 def _worker(root, kernels, dtype_name="bfloat16"):
     """One turn in checkout ``root``: {kernel: [[shape, n per step, queued
-    ms, synchronised ms, slept ms], ...]} as one JSON line."""
+    ms, synchronised ms, slept ms], ...], "build_s": seconds} as one JSON
+    line."""
     _use_checkout(root)
+    import time
+
     import chip_smoke
     from cl_tpu_torch.kernels import build
 
+    t0 = time.perf_counter()
     build.build()
     build.library()
-    out = {}
+    out = {"build_s": time.perf_counter() - t0}
     for kernel in kernels:
         launch, operands = dispatch(chip_smoke, kernel, dtype_name)
         for shape, n in shapes(chip_smoke, kernel, dtype_name):
@@ -277,6 +287,8 @@ def main(argv) -> int:
         res = subprocess.run([sys.executable, os.path.abspath(__file__), *worker],
                              cwd=dirs[which], capture_output=True, text=True, check=True)
         turns[which].append(json.loads(res.stdout.strip().splitlines()[-1]))
+        if "build_s" in turns[which][-1]:
+            print(f"{which}: build and load {turns[which][-1]['build_s']:.1f} s")
         if host_issue:
             print(f"{which}: host issue of one headline step, ms: "
                   f"{turns[which][-1]['host_issue_ms']}")

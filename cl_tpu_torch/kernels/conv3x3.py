@@ -26,8 +26,9 @@ backward (#37, ``_bwd_fused_kernel``, ``:938-950``): the same arithmetic
 as the fused branch (e formed once, the f32 dt into the prologue's
 backward, t recomputed, dW rounded once) from one launch that returns dx,
 da, db (zeros without the prologue) and dW. Under ``CL_TPU_DX_PIPE=1``
-the fused branch's dx runs pipelined on the card (34p/35p: the same
-arithmetic in the same order, bit-equal to #34/#35). Where ``cl_tpu``'s
+the fused branch's dx is 34p/35p (launch keys of their own), the same
+arithmetic in the same order, bit-equal to #34/#35: on the card their
+kernels (the bf16 ring is the pipelined design). Where ``cl_tpu``'s
 fused backward kernels find no tile the backward is its two-pass branch
 (``:962-985``): e materialized (f32, rounded to the dtype), dt = the
 plain conv (#30) of e, ROUNDED to the dtype, dW = #33 (the prologue
@@ -38,8 +39,8 @@ torch on the rounded dt.
 ``conv3x3_packed``, the same arithmetic): y = conv3x3_SAME(x, w) summed in
 f32 and rounded to x's dtype, no prologue, no statistics (#30). Its VJP
 (``:629-648``): dy cast to x's dtype, dx = #30 on dy with the flipped,
-transposed weight, dW = Σ xᵀ★dy in f32 (#31) rounded once to the compute
-dtype.
+transposed weight, dW = Σ xᵀ★dy in f32 (#31, ``csrc/conv3x3_v3_dw.cu``:
+#41's bodies) rounded once to the compute dtype.
 
 ``conv_bn_fused_q`` is ``cl_tpu.pallas.conv3x3_v3.conv_bn_fused_q``
 (``:1800-1870``), the packed conv under ``model.conv_act_store=int8``: the
@@ -495,9 +496,13 @@ def _ptr(t):
 
 
 def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue, pipe=False, e_bf16=False):
-    """(dx, da, db) on the card; da, db None without the prologue. ``pipe``
-    launches the pipelined kernel (34p/35p), bit-equal to #34/#35;
-    ``e_bf16``: e with the bf16 chain (bf16 only)."""
+    """(dx, da, db) on the card; da, db None without the prologue: the
+    ring's dx in bf16, the FMA body in f32; ``e_bf16``: e with the bf16
+    chain (bf16 only). ``pipe`` (34p/35p, ``CL_TPU_DX_PIPE``) launches the
+    same kernels, bit-equal to #34/#35 as ``cl_tpu``'s pipelined dx is:
+    the ring already overlaps the next tile's copies with the current
+    tile's products, and the card ran #34/#35's f32 instances faster than a
+    pipelined FMA kernel at every headline shape."""
     s1, s2 = _grad_operands(x, w, y, dy, ds1, ds2, "conv3x3_bn dx kernel")
     B, H, W, cin = x.shape
     cout = w.shape[0]
@@ -512,22 +517,22 @@ def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue, pipe=False, e_bf16=Fal
                            device=x.device)
     out = torch.empty(2, cin, dtype=torch.float32, device=x.device)
     a, b = (a, b) if prologue else (None, None)
-    if bf16 and not pipe:
+    if bf16:
         err = _launch_ring(True, dy, y, s1, s2, wdx, a, b, x, dx, partials, out, prologue,
                            e_bf16)
     else:
-        args = (dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), wdx.data_ptr(), x.data_ptr(),
-                _ptr(a), _ptr(b), dx.data_ptr(), partials.data_ptr(), out.data_ptr(), B, H, W,
-                cout, cin, int(prologue), int(bf16))
-        err = build.library().cltorch_conv3x3_bn_dx_pipe(*args, int(bf16 and e_bf16), _stream(x)) \
-            if pipe else build.library().cltorch_conv3x3_bn_dx(*args, _stream(x))
+        err = build.library().cltorch_conv3x3_bn_dx(
+            dy.data_ptr(), y.data_ptr(), _ptr(s1), _ptr(s2), wdx.data_ptr(), x.data_ptr(),
+            _ptr(a), _ptr(b), dx.data_ptr(), partials.data_ptr(), out.data_ptr(), B, H, W, cout,
+            cin, int(prologue), 0, _stream(x))
     build.check(err, "conv3x3_bn_dx_pipe" if pipe else "conv3x3_bn_dx")
     return (dx, out[0], out[1]) if prologue else (dx, None, None)
 
 
 def dw_splits(cin, cout, B, H, W, bf16):
-    """Blocks the dW kernel splits the pixel tiles over: ~SPLIT_BLOCKS in
-    all, at least one tile each. A function of the shapes alone, so the
+    """Blocks the first dW bodies (#36 in f32, #39) and the one-pass
+    backward (#37) split the pixel tiles over: ~SPLIT_BLOCKS in all, at
+    least one tile each. A function of the shapes alone, so the
     partial sums run in the same order on every call."""
     n_tiles = B * -(-H // (TILE if bf16 else TILE // 2)) * -(-W // TILE)
     channel_tiles = -(-cin // 32) * -(-cout // 32)
@@ -592,7 +597,7 @@ def dw_ring_splits(cin, cout, B, H, W):
     return one_wave_splits(n_tiles, channel_tiles, dw_ring_resources(ci_t, co_t)[2])
 
 
-# The f32 register-blocked body of #33 and #41
+# The f32 register-blocked body of #31, #33 and #41
 # (csrc/conv3x3_dw_body.cuh::RegTile): 32 input channels a tile, a ring of
 # FMA_STAGES stages; pixel tiles of 8 (64-wide tile) or 4 (32-wide) rows x
 # 16, with 1 or 3 resident blocks an SM.
@@ -634,8 +639,8 @@ def dw_fma_splits(cin, cout, B, H, W):
 
 
 def dw_tile_splits(cin, cout, B, H, W, bf16):
-    """(CI_T, CO_T, splits) of #33's and #41's dW: the ring body's in bf16,
-    the register-blocked FMA body's in f32."""
+    """(CI_T, CO_T, splits) of #31's, #33's and #41's dW: the ring body's in
+    bf16, the register-blocked FMA body's in f32."""
     if bf16:
         return (*dw_ring_tile(cin, cout), dw_ring_splits(cin, cout, B, H, W))
     return (*dw_fma_tile(cin, cout), dw_fma_splits(cin, cout, B, H, W))
@@ -726,19 +731,9 @@ def _dw_shape(x, e, what):
     return (B, H, W, cin, e.shape[-1]), x.dtype == torch.bfloat16
 
 
-def _dw_outputs(x, e, what):
-    """The first dW bodies' shared checks and outputs (#31): (shape args,
-    splits, bf16 flag, partials, dW)."""
-    (B, H, W, cin, cout), bf16 = _dw_shape(x, e, what)
-    splits = dw_splits(cin, cout, B, H, W, bf16)
-    partials = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=x.device)
-    dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=x.device)
-    return (B, H, W, cin, cout), splits, int(bf16), partials, dw
-
-
 def dw_tiled_outputs(x, e, what):
-    """#33's and #41's shared checks and outputs: (shape args, (CI_T, CO_T,
-    splits) from ``dw_tile_splits``, bf16 flag, partials, dW)."""
+    """#31's, #33's and #41's shared checks and outputs: (shape args, (CI_T,
+    CO_T, splits) from ``dw_tile_splits``, bf16 flag, partials, dW)."""
     (B, H, W, cin, cout), bf16 = _dw_shape(x, e, what)
     tile = dw_tile_splits(cin, cout, B, H, W, bf16)
     partials = torch.empty(tile[2], cout, cin, 3, 3, dtype=torch.float32, device=x.device)
@@ -747,11 +742,13 @@ def dw_tiled_outputs(x, e, what):
 
 
 def launch_conv3x3_dw(x, dy):
-    """#31 on the card: dW [Cout, Cin, 3, 3] f32, not rounded."""
-    shape, splits, bf16, partials, dw = _dw_outputs(x, dy, "conv3x3_dw")
+    """#31 on the card: dW [Cout, Cin, 3, 3] f32, not rounded: the ring body
+    in bf16, the register-blocked FMA body in f32, with the tile and splits
+    of ``dw_tile_splits``."""
+    shape, (ci_t, co_t, splits), bf16, partials, dw = dw_tiled_outputs(x, dy, "conv3x3_dw")
     err = build.library().cltorch_conv3x3_dw(
-        x.data_ptr(), dy.data_ptr(), partials.data_ptr(), dw.data_ptr(), *shape, splits, bf16,
-        _stream(x))
+        x.data_ptr(), dy.data_ptr(), partials.data_ptr(), dw.data_ptr(), *shape, splits, ci_t,
+        co_t, bf16, _stream(x))
     build.check(err, "conv3x3_dw")
     return dw
 

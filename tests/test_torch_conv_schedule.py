@@ -10,8 +10,10 @@ pure and give at least one block, the walk they imply takes every (image,
 blocks, every choice fits the shared memory, the wrappers allocate the
 partials the schedule implies (the dx's still one row a tile: the rows
 34p/35p and #37 sum in the same order) and pass the schedule to the ring's
-C entry point (f32 keeps the FMA body's entry points), the instances and constants they mirror agree with the CUDA
-sources, and the dW pickers of #36 and #37 give the values they gave before.
+C entry point (f32 keeps the FMA body's entry points; the pipelined dx
+34p/35p launches #34/#35's kernel with their arguments), the instances and
+constants they mirror agree with the CUDA sources, and the dW pickers of
+#36 and #37 give the values they gave before.
 """
 
 import os
@@ -246,14 +248,36 @@ def test_dx_wrapper_keeps_one_partial_row_a_tile(fake_card, shape, prologue, sta
     assert conv3x3.dx_partials_shape(cin, B, H, H, prologue) == (rows, 2, cin)
 
 
-def test_pipelined_dx_keeps_its_entry(fake_card):
-    # 34p/35p take the unpipelined dx's operands, without the ring's schedule
-    lib, _ = fake_card
-    x, w, y, dy = _operands((16, 32, 32), 2, torch.bfloat16, 2)
-    conv3x3.launch_conv_dx(x, w, torch.ones(32), torch.zeros(32), y, dy, None, None, True,
-                           pipe=True)
-    assert len(lib.calls["cltorch_conv3x3_bn_dx_pipe"]) == len(
-        build.SIGNATURES["cltorch_conv3x3_bn_dx_pipe"])
+# the arguments a dx launch allocates afresh (the kernel weight, dx, the
+# partials, the sums), by entry point
+_FRESH = {"cltorch_conv3x3_bn_ring": (5, 9, 10, 11), "cltorch_conv3x3_bn_dx": (4, 8, 9, 10)}
+
+
+@pytest.mark.parametrize("e_bf16", [False, True])
+@pytest.mark.parametrize("prologue", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pipelined_dx_keeps_its_entry(fake_card, dtype, prologue, e_bf16):
+    # 34p/35p launch #34/#35's kernel with every argument the unpipelined
+    # dx passes: the ring's dx in bf16 (the pipelined design), the FMA
+    # body's dx in f32 (faster on the card than a pipelined FMA kernel)
+    lib, allocated = fake_card
+    shape = (16, 32, 32)
+    x, w, y, dy = _operands(shape, 2, dtype, 2)
+    args = (x, w, torch.ones(32), torch.zeros(32), y, dy, torch.zeros(32), torch.ones(32),
+            prologue)
+    name = "cltorch_conv3x3_bn_ring" if dtype == torch.bfloat16 else "cltorch_conv3x3_bn_dx"
+    conv3x3.launch_conv_dx(*args, pipe=True, e_bf16=e_bf16)
+    assert list(lib.calls) == [name]
+    piped, piped_alloc = lib.calls.pop(name), list(allocated)
+    allocated.clear()
+    conv3x3.launch_conv_dx(*args, e_bf16=e_bf16)
+    plain = lib.calls[name]
+    assert len(piped) == len(plain) == len(build.SIGNATURES[name])
+    assert [v for i, v in enumerate(piped) if i not in _FRESH[name]] == \
+        [v for i, v in enumerate(plain) if i not in _FRESH[name]]
+    assert piped_alloc == allocated
+    # the bf16 chain only in bf16 (the ring's int before the stream)
+    assert piped[-2] == (int(e_bf16) if dtype == torch.bfloat16 else 0)
 
 
 def test_signatures_match_the_wrappers(fake_card):

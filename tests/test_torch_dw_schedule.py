@@ -5,9 +5,9 @@ kernels (``csrc/conv3x3_dw_body.cuh::dw_ring_body``,
 ``csrc/upconv.cu::upconv_dw_ring_kernel``) whose tiles and pixel splits the
 wrappers pick from the shapes alone (``kernels/conv3x3.py::dw_ring_tile`` /
 ``dw_ring_splits``, ``kernels/upconv_pack.py::dw_ring_tile`` /
-``dw_ring_splits``). The two-pass dW (#33) and the gen-2 dW (#41) run the
-same ring body in bf16 and the register-blocked FMA body
-(``dw_reg_body``) in f32, with the tile and splits of
+``dw_ring_splits``). The gen-3 dW (#31), the two-pass dW (#33) and the
+gen-2 dW (#41) run the same ring body in bf16 and the register-blocked FMA
+body (``dw_reg_body``) in f32, with the tile and splits of
 ``conv3x3.dw_tile_splits`` (``dw_fma_tile`` / ``dw_fma_splits`` in f32).
 A kernel cannot run here, so these tests hold what surrounds it: the pickers are pure and give at least one split, the blocks
 they imply take every (channel tile, pixel tile) pair exactly once in one
@@ -209,10 +209,11 @@ def _tiles_in_dispatch(src, a, b):
 def test_ring_tiles_are_instanced_and_constants_agree():
     body_src = _source("conv3x3_dw_body.cuh")
     up_src = _source("upconv.cu")
-    # the dispatch lives beside the body; #36's, #33's and #41's entry
-    # points and their info entries launch through it
+    # the dispatch lives beside the body; #36's, #31's, #33's and #41's
+    # entry points and their info entries launch through it
     conv_tiles = _tiles_in_dispatch(_macro(body_src, "CLTORCH_RING_DISPATCH"), "ci_t", "co_t")
-    for name, uses in (("conv3x3_bn_bwd.cu", 2), ("conv3x3_dw_bn.cu", 2), ("conv3x3_g2.cu", 2)):
+    for name, uses in (("conv3x3_bn_bwd.cu", 2), ("conv3x3_v3_dw.cu", 2), ("conv3x3_dw_bn.cu", 2),
+                       ("conv3x3_g2.cu", 2)):
         assert _source(name).count("CLTORCH_RING_DISPATCH(") == uses, name
     up_tiles = _tiles_in_dispatch(up_src, "bm", "bn")
     shapes = [(ci, co) for ci in (1, 3, 8, 16, 24, 32, 40, 64, 128, 1024)
@@ -244,7 +245,7 @@ def test_fma_tiles_are_instanced_and_constants_agree():
     shapes = [(ci, co) for ci in (1, 3, 8, 16, 24, 32, 40, 64, 128, 1024)
               for co in (3, 12, 16, 32, 40, 64, 128, 1024)]
     assert {conv3x3.dw_fma_tile(ci, co) for ci, co in shapes} == tiles == {(32, 32), (32, 64)}
-    for name in ("conv3x3_dw_bn.cu", "conv3x3_g2.cu"):
+    for name in ("conv3x3_v3_dw.cu", "conv3x3_dw_bn.cu", "conv3x3_g2.cu"):
         assert _source(name).count("CLTORCH_REG_DISPATCH(") == 2, name
     assert _constant(body_src, "kRegCiT") == conv3x3.FMA_CI_T
     assert _constant(body_src, "kRegStages") == conv3x3.FMA_STAGES
@@ -334,7 +335,7 @@ def test_upconv_dw_wrapper_allocates_the_picked_partials(fake_card, shape, dtype
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kernel", ["conv3x3_dw_bn", "conv3x3_g2_dw"])
+@pytest.mark.parametrize("kernel", ["conv3x3_dw_bn", "conv3x3_g2_dw", "conv3x3_dw"])
 @pytest.mark.parametrize("shape", [(16, 16, 3, 32), (16, 12, 40, 72), (24, 24, 64, 64),
                                    (8, 8, 72, 24)])
 def test_tiled_dw_wrappers_pass_the_picked_tile(fake_card, shape, kernel, dtype):
@@ -350,12 +351,14 @@ def test_tiled_dw_wrappers_pass_the_picked_tile(fake_card, shape, kernel, dtype)
         args = lib.calls["cltorch_conv3x3_dw_bn"]
         (splits, ci_t, co_t, is_bf16), ew = args[12:16], args[16]
         assert ew == int(bf16)  # the bf16 chain only in bf16
-    else:
-        conv3x3_g2.launch_conv3x3_g2_dw(x, e)
-        args = lib.calls["cltorch_conv3x3_g2_dw"]
+    else:  # #41 and #31: x and dy
+        launch = conv3x3_g2.launch_conv3x3_g2_dw if kernel == "conv3x3_g2_dw" else \
+            conv3x3.launch_conv3x3_dw
+        launch(x, e)
+        args = lib.calls["cltorch_" + kernel]
         splits, ci_t, co_t, is_bf16 = args[9:13]
-    name = "cltorch_conv3x3_dw_bn" if kernel == "conv3x3_dw_bn" else "cltorch_conv3x3_g2_dw"
-    assert len(args) == len(build.SIGNATURES[name])
+    assert list(lib.calls) == ["cltorch_" + kernel]
+    assert len(args) == len(build.SIGNATURES["cltorch_" + kernel])
     want_tile = conv3x3.dw_ring_tile(cin, cout) if bf16 else conv3x3.dw_fma_tile(cin, cout)
     want_splits = conv3x3.dw_ring_splits(cin, cout, B, H, W) if bf16 else \
         conv3x3.dw_fma_splits(cin, cout, B, H, W)
@@ -395,7 +398,7 @@ def test_kernel_ab_names_cover_the_path_and_refuse_others():
 
 
 @pytest.mark.parametrize("dtype_name", ["bfloat16", "float32"])
-@pytest.mark.parametrize("kernel", kernel_ab.OTHER + kernel_ab.GEN2)
+@pytest.mark.parametrize("kernel", kernel_ab.OTHER + kernel_ab.GEN3 + kernel_ab.GEN2)
 def test_kernel_ab_dispatches_the_switch_and_gen3_gen2_kernels(kernel, dtype_name):
     launch, operands = kernel_ab.dispatch(chip_smoke, kernel, dtype_name)
     assert callable(launch) and callable(operands)
@@ -404,6 +407,9 @@ def test_kernel_ab_dispatches_the_switch_and_gen3_gen2_kernels(kernel, dtype_nam
     if kernel == "conv3x3_g2_dw":  # #41 at every phase-6 shape
         assert launch is chip_smoke.g2_fns(kernel)[0]
         assert [s for s, _ in got] == chip_smoke.G2_SHAPES[kernel]
+    if kernel == "conv3x3_dw":  # #31 at every phase-6 shape, in both dtypes
+        assert launch is chip_smoke.v3_fns(kernel)[0] is conv3x3.launch_conv3x3_dw
+        assert [s for s, _ in got] == chip_smoke.V3_SHAPES[kernel]
     if kernel == "conv3x3_dw_bn":  # #33: V3_SHAPES in f32, level 3's in bf16
         want = chip_smoke.V3_SHAPES[kernel] if dtype_name == "float32" else \
             [chip_smoke.LEVEL3_TWO_PASS[kernel][0]]
