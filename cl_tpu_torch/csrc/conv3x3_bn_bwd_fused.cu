@@ -1,5 +1,6 @@
 // The one-pass backward of the 3x3 SAME conv with the BN-ReLU prologue
-// (#37, under CL_TPU_FUSE_BWD=1): dx, da, db and dW from one launch.
+// (#37, under CL_TPU_FUSE_BWD=1): dx, da, db and dW of one conv from one
+// call of kernels/conv3x3.py::launch_conv_bwd_fused.
 //
 // Replaces the TPU kernel cl_tpu/pallas/conv3x3_v3.py::_bwd_fused_kernel
 // (launched at conv3x3_v3.py:1480 by `_bwd_fused_impl`, body :1420, from
@@ -15,70 +16,66 @@
 //   t  = round(relu(x * a + b)) (or x), zero outside the image (t-space)
 //   dW += t-pieces * e                  f32, rounded once by the wrapper
 //
-// the arithmetic of the fused branch (#34/#35 and #36), so the outputs are
-// theirs: the e and t staging (conv3x3_bn.cuh), the bf16 tap loop and the
-// dx epilogue with its per-tile partial rows of da and db (shared with
-// conv3x3_bn.cu), the dW's pixel split and per-tile order (#36's). In bf16
-// dx, da, db and dW are bit-equal to #34/#35 + #36; in f32 dx and dW are,
-// and da, db sum 8 x 16 tiles where #35 sums 16 x 16 ones. Under
-// CL_TPU_E_BF16 (ew_bf16, bf16 only) e and t take the bf16 chains
-// (conv3x3_bn.cuh), as #34/#35 and #36 do, while the dx epilogue reads the
-// same a and b in f32.
-//
-// What bounds it on the H100: bytes. At 512^2 x 32 -> 32, batch 8, bf16:
-// x, dy and y read once and dx written, 537 MB, 160 us at 3.35 TB/s,
-// against 77 GFLOP (dx and dW), 78 us at 989 TFLOP/s; f32 on the FMA units.
-//
-// Design. The grid is #36's: a block owns 32 of the forward's input
-// channels (dx's outputs, the dW's rows), 32 of its output channels (one
-// dW pass: an f32 accumulator of 32 x 32 x 9) and a split of the pixel
-// tiles (every gridDim.z-th). The passes of one input tile and split walk
-// the same tiles and share out their dx: the block of pass k forms the dx
-// of every n-th of them (n passes), over every output channel. Per tile a
-// block stages the 18 x 18 window of t once; then, per 16 (bf16) or 32
-// (f32) channels of e, it forms that chunk of the e window once and feeds
-// it to both products: the dx (on its dx tiles, over every chunk) and the
-// dW (its pass's chunks). The dx epilogue reads the raw x rows; partial
-// dW go out per split and partial da/db rows per tile, each summed in a
-// fixed order by a second launch. No float atomics: a run repeats its
-// bits. The decomposition re-reads: dy and y (the window, halo included)
-// once per 32 input channels for the dx and once per pass for the dW
-// (2 - 1/n times in all, n = Cout / 32 passes), x once per pass, the
-// weights per dx tile. At the headline's 128 -> 128: dy and y read 7
-// times (4 input tiles x (2 - 1/4)), x 4 times.
-// * bf16: mma.sync m16n8k16, 288 threads, two blocks an SM. Warps 0-7
-//   hold the dx of two output rows each for the 32 channels (the conv
-//   bodies' tap loop); warp w holds tap w of the dW, A = t^T by
-//   ldmatrix.trans from the t window (80-byte rows), B = e from the e
-//   window (48-byte rows).
-// * f32: FMA, 256 threads, 8 x 16 tiles (#36's). dx: warp w holds input
-//   channels 4w..4w+3, lane 4 pixels of one row, in the order co, ky, kx
-//   with #35's blocked sum (conv3x3_bn.cuh::kDxBlock); dW: lane = input
-//   channel, warp w output channels 4w..4w+3.
+// bf16: no kernel of its own. The wrapper launches the ring dx
+// (conv3x3_ring.cu, #34/#35's kernel; none for the stem) and #36's ring
+// (conv3x3_bn_bwd.cu, dw_ring_body), counted as one #37 launch: dx, da, db
+// bit-equal to #34/#35 and dW bit-equal to #36 (chip_smoke.compare_fused),
+// the bf16 chains under CL_TPU_E_BF16 theirs. Why, on the card (NVIDIA
+// H100 80GB HBM3, 700.00 W; kernel_ab, card sleep, in the same turns;
+// PERF.md section 6): a one-pass ring kernel of its own (persistent, TMA
+// ring of 16 x 16 tiles, e and t formed once in place, 8 mma.sync dx warps
+// on resident weights beside 6 mma.sync dW warps on 32 x 64 channel tiles,
+// setmaxnreg, no spills) ran the headline step's 15 convs in 7.0083 ms
+// against 5.8497 for these two kernels. It won 3 of the 15 launches by
+// 0.053 ms in all (512^2, 32 -> 32 with the prologue: 0.6288 against
+// 0.6532; 256^2, 32 -> 64: 0.2388 against 0.2427) and lost the other 11
+// by 1.21 ms (128^2, 128 -> 128: 0.5127 against 0.3103), so it went.
+// What held it: registers. Its dW warps held 96 accumulators of a
+// 32 x 64 x 3-tap tile on mma.sync where #36 multiplies 64 x 64 tiles on
+// wgmma, and its 32 input channels a block formed e once per 32 dx
+// channels where the ring dx takes 64. Where Cout > 64 (two dW passes) it
+// shared each pass's tiles' dx out among the passes; giving every dx to
+// the first pass instead ran those convs 25-28% slower (128 -> 128:
+// 0.5127 -> 0.6543) and the one-pass convs 3-5% faster (no run-time
+// modulo on the tile walk): 6.9966 -> 7.4919 a step. The ring dx takes
+// the dx of a tile whole, over every chunk of e, in a launch of its own.
 
-#include "conv3x3_bn.cuh"
+// f32: the FMA kernel below, one launch for dx and dW. dx and dW are
+// bit-equal to #34/#35 and #36 (its dw_fma_body); da and db sum 8 x 16
+// tiles where #35 sums 16 x 16 ones. 256 threads, 8 x 16 tiles (#36's);
+// a block owns 32 of the forward's input channels (dx's outputs, the dW's
+// rows), 32 of its output channels (one dW pass) and a split of the pixel
+// tiles (every gridDim.z-th, kernels/conv3x3.py::dw_splits); the passes of
+// one input tile and split share out their dx, the block of pass k taking
+// the dx of every n-th tile over every output channel. dx: warp w holds
+// input channels 4w..4w+3, lane 4 pixels of one row, in the order co, ky,
+// kx with #35's blocked sum (conv3x3_bn.cuh::kDxBlock); dW: lane = input
+// channel, warp w output channels 4w..4w+3. Partial dW go out per split
+// and partial da/db rows per tile, each summed in a fixed order by a
+// second launch. No float atomics: a run repeats its bits.
+
+#include "conv3x3_dw_body.cuh"  // sum_dw_splits
 
 namespace cltorch {
 namespace {
 
 // The operands as the conv bodies' dx view takes them: in = dy, y, s1, s2,
-// w = the flipped weight (bf16 [3, 3, Cin, Cout], f32 [Cout, 3, 3, Cin]),
-// pa, pb, x, out = dx (null: no dx, da or db), partials = the per-tile rows
-// of da and db, Cin = the forward's Cout, Cout = the forward's Cin.
-template <typename T>
-ConvArgs<T> dx_view(const void* dy, const void* y, const void* s1, const void* s2,
-                    const void* wdx, const void* a, const void* b, const void* x, void* dx,
-                    void* part_ab, int B, int H, int W, int Cin, int Cout, int prologue) {
-  ConvArgs<T> p{};
-  p.in = static_cast<const T*>(dy);
-  p.y = static_cast<const T*>(y);
+// w = the flipped weight [Cout, 3, 3, Cin], pa, pb, x, out = dx (null: no
+// dx, da or db), partials = the per-tile rows of da and db, Cin = the
+// forward's Cout, Cout = the forward's Cin.
+ConvArgs<float> dx_view(const void* dy, const void* y, const void* s1, const void* s2,
+                        const void* wdx, const void* a, const void* b, const void* x, void* dx,
+                        void* part_ab, int B, int H, int W, int Cin, int Cout, int prologue) {
+  ConvArgs<float> p{};
+  p.in = static_cast<const float*>(dy);
+  p.y = static_cast<const float*>(y);
   p.s1 = static_cast<const float*>(s1);
   p.s2 = static_cast<const float*>(s2);
-  p.w = static_cast<const T*>(wdx);
+  p.w = static_cast<const float*>(wdx);
   p.pa = static_cast<const float*>(a);
   p.pb = static_cast<const float*>(b);
-  p.x = static_cast<const T*>(x);
-  p.out = static_cast<T*>(dx);
+  p.x = static_cast<const float*>(x);
+  p.out = static_cast<float*>(dx);
   p.partials = static_cast<float*>(part_ab);
   p.H = H;
   p.W = W;
@@ -87,138 +84,6 @@ ConvArgs<T> dx_view(const void* dy, const void* y, const void* s1, const void* s
   p.prologue = prologue;
   p.batch = B;
   return p;
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int kFbThreads = 9 * 32;  // warps 0-7: the dx rows; warp w: the dW's tap w
-constexpr int kFbC = 32;            // the forward's input channels of a block
-constexpr int kTRow = 40;           // bf16 per staged t pixel: 32 channels + 8
-
-constexpr size_t kFusedSmemMma =
-    ((size_t)kWinH * kWinW * (kTRow + kRowS) + 9 * kFbC * kRowS) * sizeof(bf16) +
-    (kMmaThreads / 32) * 2 * kFbC * sizeof(float);
-
-// Two blocks an SM (96 registers a thread, a few spilled): over the
-// headline step's 15 convs 11.6 ms against 14.4 with one block of 155
-// registers (NVIDIA H100 80GB HBM3, 700.00 W).
-__global__ void __launch_bounds__(kFbThreads, 2)
-    conv3x3_bn_bwd_fused_mma_kernel(ConvArgs<bf16> p, float* __restrict__ part_dw) {
-  constexpr int COG = kFbC, NCH = COG / 16;  // output channels (e chunks) of a dW pass
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* t_s = reinterpret_cast<bf16*>(smem);  // t window [pixel][kTRow]
-  bf16* e_s = t_s + kWinH * kWinW * kTRow;     // e window, one chunk [pixel][kRowS]
-  bf16* w_s = e_s + kWinH * kWinW * kRowS;     // dx weights, one chunk [tap][ci][kRowS]
-  float(*red)[2][kFbC] = reinterpret_cast<float(*)[2][kFbC]>(w_s + 9 * kFbC * kRowS);
-  const int H = p.H, W = p.W, Ci = p.Cout, Co = p.Cin;  // the forward's channels
-  const int ci0 = blockIdx.x * kFbC, pass = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lj = lane & 7, lq = lane >> 3;  // ldmatrix rows: pixel, quarter
-  const int ky = warp / 3, kx = warp % 3;   // this warp's dW tap
-  const int tiles_x = (W + kTW - 1) / kTW, tiles = tiles_x * ((H + kTH - 1) / kTH);
-  const int n_tiles = p.batch * tiles, n_pass = gridDim.y;
-
-  float accw[2][COG / 8][4], accx[2][kFbC / 8][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < COG / 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) accw[m][n][j] = 0.f;
-
-  for (int tile = blockIdx.z, k = 0; tile < n_tiles; tile += gridDim.z, ++k) {
-    const int b = tile / tiles, rem = tile % tiles;
-    const int gy0 = (rem / tiles_x) * kTH, gx0 = (rem % tiles_x) * kTW;
-    const int64_t img = (int64_t)b * H * W;
-    // the passes share out the dx of their common tiles: every n_pass-th
-    const bool dx_tile = p.out != nullptr && k % n_pass == pass;
-    const int g_lo = dx_tile ? 0 : pass, g_hi = dx_tile ? n_pass : pass + 1;
-    __syncthreads();
-    with_ew(p.ew_bf16, [&](auto ew) {
-      for (int e = threadIdx.x; e < kWinH * kWinW * 4; e += kFbThreads) {
-        const int pix = e >> 2, q = e & 3;
-        const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        const int c = ci0 + q * 8;
-        const int64_t i = (img + (int64_t)gy * W + gx) * Ci + c;
-        stage8_t<decltype(ew)::value>(&t_s[pix * kTRow + q * 8], p.x + i, c, Ci, inside,
-                                      p.prologue, p.pa, p.pb);
-      }
-    });
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < kFbC / 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) accx[m][n][j] = 0.f;
-    for (int grp = g_lo; grp < g_hi; ++grp) {
-#pragma unroll
-      for (int ch = 0; ch < NCH; ++ch) {
-        const int c0 = grp * COG + ch * 16;
-        if (c0 >= Co) break;
-        __syncthreads();  // the previous chunk's products are done
-        with_ew(p.ew_bf16, [&](auto ew) {
-          for (int e = threadIdx.x; e < kWinH * kWinW * 2; e += kFbThreads) {
-            const int pix = e >> 1, half = e & 1;
-            const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-            const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-            const int c = c0 + half * 8;
-            const int64_t i = (img + (int64_t)gy * W + gx) * Co + c;
-            stage8_e<decltype(ew)::value>(&e_s[pix * kRowS + half * 8], p.in + i,
-                                          p.s1 ? p.y + i : nullptr, c, Co, inside, p.s1, p.s2);
-          }
-        });
-        if (dx_tile) {
-          for (int e = threadIdx.x; e < 9 * kFbC * 2; e += kFbThreads) {
-            const int half = e & 1, row = e >> 1;  // row = tap * kFbC + ci
-            const int ci = row % kFbC, tap = row / kFbC;
-            const int c = c0 + half * 8;
-            stage8_t(&w_s[row * kRowS + half * 8], p.w + ((int64_t)tap * Ci + ci0 + ci) * Co + c,
-                     c, Co, ci0 + ci < Ci, 0, nullptr, nullptr);
-          }
-        }
-        __syncthreads();
-        if (dx_tile && warp < kMmaThreads / 32) mma_chunk<kFbC>(accx, e_s, w_s, warp, g, t);
-        if (grp == pass) {
-          // D[ci][co] of this warp's tap over the tile's rows: A[ci][k] = t
-          // at window (r + ky, k + kx), B[k][co] = e at (r, k) (#36's)
-          for (int r = 0; r < kTH; ++r) {
-            uint32_t a[2][4], eb[4];
-            const int t_pix = (r + ky) * kWinW + kx + (lq >> 1) * 8 + lj;
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-              ldmatrix_x4_trans(a[m], &t_s[t_pix * kTRow + m * 16 + (lq & 1) * 8]);
-            const int e_pix = (r + 1) * kWinW + 1 + (lq & 1) * 8 + lj;
-            ldmatrix_x4_trans(eb, &e_s[e_pix * kRowS + (lq >> 1) * 8]);
-#pragma unroll
-            for (int n = 0; n < 2; ++n)
-#pragma unroll
-              for (int m = 0; m < 2; ++m)
-                mma_bf16(accw[m][ch * 2 + n], a[m], eb[n * 2], eb[n * 2 + 1]);
-          }
-        }
-      }
-    }
-    if (dx_tile)
-      mma_epilogue<kDx, kFbC>(p, accx, b, gy0, gx0, ci0, b * tiles + rem, red, warp, g, t);
-  }
-
-  // accw[m][n] = {D[m*16+g][n*8+2t], D[..][+1], D[m*16+g+8][n*8+2t], D[..][+1]}
-  // into this split's partial dW, laid out as the weight [Co, Ci, 3, 3]
-  float* part = part_dw + (int64_t)blockIdx.z * Co * Ci * 9;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < COG / 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ci = ci0 + m * 16 + g + (j >> 1) * 8;
-        const int co = pass * COG + n * 8 + 2 * t + (j & 1);
-        if (ci < Ci && co < Co) part[((int64_t)co * Ci + ci) * 9 + warp] = accw[m][n][j];
-      }
 }
 
 // ---------------------------------------------------------------------------
@@ -390,37 +255,25 @@ __global__ void __launch_bounds__(kFfThreads)
   }
 }
 
-// Launches the kernel of the type, then the fixed-order sums: the per-tile
-// rows of da and db (with dx and the prologue) and the splits' dW.
-int fused_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, void* out_ab, float* part_dw,
-                 void* dw, int splits, int is_bf16, cudaStream_t st) {
-  const int H = pf32.H, W = pf32.W, Ci = pf32.Cout, Co = pf32.Cin, B = pf32.batch;
-  int rows;  // pixel tiles: the partial rows of da and db
-  cudaError_t err;
-  if (!is_bf16) {
-    rows = B * ((H + kFfTH - 1) / kFfTH) * ((W + kTW - 1) / kTW);
-    const dim3 grid((Ci + kFfC - 1) / kFfC, (Co + kFfC - 1) / kFfC, splits);
-    err = cudaFuncSetAttribute(conv3x3_bn_bwd_fused_fma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFusedSmemFma);
-    if (err != cudaSuccess) return (int)err;
-    conv3x3_bn_bwd_fused_fma_kernel<<<grid, kFfThreads, kFusedSmemFma, st>>>(pf32, part_dw);
-  } else {
-    rows = B * ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
-    const dim3 grid((Ci + kFbC - 1) / kFbC, (Co + kFbC - 1) / kFbC, splits);
-    err = cudaFuncSetAttribute(conv3x3_bn_bwd_fused_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFusedSmemMma);
-    if (err != cudaSuccess) return (int)err;
-    conv3x3_bn_bwd_fused_mma_kernel<<<grid, kFbThreads, kFusedSmemMma, st>>>(pb16, part_dw);
-  }
+
+// The f32 kernel's launch, then the fixed-order sums: the per-tile rows of
+// da and db (with dx and the prologue) and the splits' dW.
+int fma_launch(const ConvArgs<float>& p, void* out_ab, float* part_dw, void* dw, int splits,
+               cudaStream_t st) {
+  const int H = p.H, W = p.W, Ci = p.Cout, Co = p.Cin, B = p.batch;
+  const int rows = B * ((H + kFfTH - 1) / kFfTH) * ((W + kTW - 1) / kTW);  // da, db rows
+  const dim3 grid((Ci + kFfC - 1) / kFfC, (Co + kFfC - 1) / kFfC, splits);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_bn_bwd_fused_fma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kFusedSmemFma);
+  if (err != cudaSuccess) return (int)err;
+  conv3x3_bn_bwd_fused_fma_kernel<<<grid, kFfThreads, kFusedSmemFma, st>>>(p, part_dw);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (pf32.out != nullptr && pf32.prologue)
-    reduce_rows_kernel<<<2 * Ci, kReduceThreads, 0, st>>>(pf32.partials, rows, 2 * Ci, 2 * Ci,
+  if (p.out != nullptr && p.prologue)
+    reduce_rows_kernel<<<2 * Ci, kReduceThreads, 0, st>>>(p.partials, rows, 2 * Ci, 2 * Ci,
                                                           static_cast<float*>(out_ab));
-  const int64_t n = (int64_t)Co * Ci * 9;
-  sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part_dw, splits, n,
-                                                                  static_cast<float*>(dw));
-  return (int)cudaGetLastError();
+  return sum_dw_splits(part_dw, dw, splits, Ci, Co, st);
 }
 
 }  // namespace
@@ -428,32 +281,25 @@ int fused_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, void* out_ab, float*
 
 // Plain C interface, loaded with ctypes; returns cudaGetLastError(). The
 // wrapper (cl_tpu_torch/kernels/conv3x3.py::launch_conv_bwd_fused) checks
-// the operands: x [B, H, W, Cin], y and dy [B, H, W, Cout], contiguous,
-// 16-byte aligned, of one type; a, b f32 [Cin] (read only with
-// `prologue`); s1, s2 f32 [Cout] or null (e = dy); wdx the flipped,
-// transposed weight in the dx kernel's layout (bf16 [3, 3, Cin, Cout], f32
-// [Cout, 3, 3, Cin]), and dx [B, H, W, Cin], both null where no dx is
-// wanted (the stem: dx, da and db are then not computed); part_ab one row
-// [2, Cin] per pixel tile (16 x 16 bf16, 8 x 16 f32), out_ab [2, Cin]
-// (da, db; written with dx and the prologue); part_dw splits * Cout * Cin
-// * 9 floats, dw f32 [Cout, Cin, 3, 3], not rounded; `ew_bf16` (bf16):
-// the bf16 chains.
+// the operands, all f32: x [B, H, W, Cin], y and dy [B, H, W, Cout],
+// contiguous, 16-byte aligned; a, b [Cin] (read only with `prologue`); s1,
+// s2 [Cout] or null (e = dy); wdx the flipped, transposed weight in the dx
+// kernel's layout ([Cout, 3, 3, Cin]), and dx [B, H, W, Cin], both null
+// where no dx is wanted (the stem: dx, da and db are then not computed);
+// part_ab one row [2, Cin] per 8 x 16 pixel tile, out_ab [2, Cin] (da, db;
+// written with dx and the prologue); part_dw splits * Cout * Cin * 9
+// floats, dw [Cout, Cin, 3, 3], not rounded.
 extern "C" {
 
 int cltorch_conv3x3_bn_bwd_fused(const void* x, const void* a, const void* b, const void* y,
                                  const void* dy, const void* s1, const void* s2, const void* wdx,
                                  void* dx, void* part_ab, void* out_ab, void* part_dw, void* dw,
                                  int B, int H, int W, int Cin, int Cout, int prologue,
-                                 int splits, int is_bf16, int ew_bf16, void* stream) {
+                                 int splits, void* stream) {
   using namespace cltorch;
-  ConvArgs<bf16> pb16 =
-      dx_view<bf16>(dy, y, s1, s2, wdx, a, b, x, dx, part_ab, B, H, W, Cin, Cout, prologue);
-  pb16.ew_bf16 = ew_bf16;
-  return fused_launch(
-      pb16,
-      dx_view<float>(dy, y, s1, s2, wdx, a, b, x, dx, part_ab, B, H, W, Cin, Cout, prologue),
-      out_ab, static_cast<float*>(part_dw), dw, splits, is_bf16,
-      static_cast<cudaStream_t>(stream));
+  return fma_launch(
+      dx_view(dy, y, s1, s2, wdx, a, b, x, dx, part_ab, B, H, W, Cin, Cout, prologue),
+      out_ab, static_cast<float*>(part_dw), dw, splits, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

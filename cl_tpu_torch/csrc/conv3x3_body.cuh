@@ -30,11 +30,11 @@
 // vectors in shared memory); this body keeps them for the kinds above.
 //
 // Why mma_chunk's order is fixed: it defines the bits of the packed conv's
-// bf16 dx. The one-pass backward (#37) runs mma_chunk and mma_epilogue,
-// and the ring body's dx (#34/#35, and 34p/35p) accumulates in the same
-// order (16-channel chunks ascending, taps 0-8, one m16n8k16 each, on the
-// same bf16 operands) and sums the same partial rows, so all of them give
-// #34/#35's bits (chip_smoke.compare_pipe, compare_fused).
+// bf16 dx. The ring body's dx (#34/#35, and 34p/35p and #37, which launch
+// it) accumulates in the same order (16-channel chunks ascending, taps
+// 0-8, one m16n8k16 each, on the same bf16 operands) and sums the same
+// partial rows as mma_epilogue, so all of them give #34/#35's bits
+// (chip_smoke.compare_pipe, compare_fused).
 //
 // The two bodies, each templated on what it computes (forward, dx, plain or
 // a dx from int8); the staging of the window and the epilogue differ, the

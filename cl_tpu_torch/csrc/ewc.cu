@@ -26,6 +26,18 @@
 // gradient and the accumulation round as the plain PyTorch versions do
 // (each product rounded, no contraction into an FMA), so they agree with
 // them bit for bit.
+//
+// The accumulation (#19) runs once per Fisher batch at the data rate: its
+// first version (a grid of at most 2048 blocks, 1.94 waves of resident
+// blocks at n = 7.76 M, one float4 of acc and of g in flight a thread,
+// cached loads of data used once) read 0.039-0.077 ms against the 0.028
+// of its bound and addcmul_'s 0.035 (NVIDIA H100 80GB HBM3, 700.00 W,
+// PERF.md). It now runs one wave: the resident blocks of the card
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, read once per
+// device), each thread kSqAccUnroll float4s of acc and of g in flight
+// before its first store, with streaming hints (__ldcs / __stcs: every
+// byte is read once and written once). The grid changes no bit: each
+// element is its own sum.
 
 #include "common.cuh"
 
@@ -89,17 +101,52 @@ __device__ __forceinline__ float sq_term(float acc, float g) {
   return __fadd_rn(acc, __fmul_rn(g, g));
 }
 
+constexpr int kSqAccUnroll = 4;  // float4s of acc and of g a thread has in flight
+
+__device__ __forceinline__ float4 sq_term4(const float4& a, const float4& v) {
+  return make_float4(sq_term(a.x, v.x), sq_term(a.y, v.y), sq_term(a.z, v.z), sq_term(a.w, v.w));
+}
+
 __global__ void __launch_bounds__(kEwcThreads)
 ewc_sq_acc_kernel(float* __restrict__ acc, const float* __restrict__ g, int64_t n, int vec) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t t0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t n4 = vec ? n / 4 : 0;
-  for (int64_t i = t0; i < n4; i += stride) {
-    const float4 a = ld4(acc, i), v = ld4(g, i);
-    reinterpret_cast<float4*>(acc)[i] =
-        make_float4(sq_term(a.x, v.x), sq_term(a.y, v.y), sq_term(a.z, v.z), sq_term(a.w, v.w));
+  float4* a4 = reinterpret_cast<float4*>(acc);
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  for (int64_t i = t0; i < n4; i += kSqAccUnroll * stride) {
+    float4 a[kSqAccUnroll], v[kSqAccUnroll];
+#pragma unroll
+    for (int u = 0; u < kSqAccUnroll; ++u) {
+      const int64_t j = i + u * stride;
+      if (j < n4) {
+        a[u] = __ldcs(a4 + j);
+        v[u] = __ldcs(g4 + j);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSqAccUnroll; ++u) {
+      const int64_t j = i + u * stride;
+      if (j < n4) __stcs(a4 + j, sq_term4(a[u], v[u]));
+    }
   }
   for (int64_t i = 4 * n4 + t0; i < n; i += stride) acc[i] = sq_term(acc[i], g[i]);
+}
+
+// The accumulation's grid: the card's resident blocks of it, read once per
+// device (the grid changes no bit, so it may follow the card).
+int sq_acc_grid() {
+  constexpr int kDevices = 16;
+  static int grid[kDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < kDevices && grid[dev] > 0) return grid[dev];
+  int per_sm = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ewc_sq_acc_kernel, kEwcThreads, 0);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = per_sm * sms > 0 ? per_sm * sms : kEwcMaxBlocks;
+  if (dev < kDevices) grid[dev] = blocks;
+  return blocks;
 }
 
 // Blocks of a pass over n elements: one thread per float4 (or float), at
@@ -147,7 +194,7 @@ int cltorch_ewc_grad(const void* theta, const void* anchor, const void* fisher, 
 
 int cltorch_ewc_sq_acc(void* acc, const void* g, int64_t n, int vec, void* stream) {
   using namespace cltorch;
-  ewc_sq_acc_kernel<<<ewc_blocks(n, vec, kEwcMaxBlocks), kEwcThreads, 0,
+  ewc_sq_acc_kernel<<<ewc_blocks(n, vec, sq_acc_grid()), kEwcThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(acc), static_cast<const float*>(g), n, vec);
   return (int)cudaGetLastError();

@@ -1,22 +1,24 @@
 """Time the packed body's kernels of two checkouts in turns on one card.
 
-    python3 -m cl_tpu_torch.kernel_ab [--f32] OLD_DIR NEW_DIR [KERNEL ...]
+    python3 -m cl_tpu_torch.kernel_ab [--rounds N] [--f32] OLD_DIR NEW_DIR [KERNEL ...]
 
 Each directory is a checkout's root (it holds ``chip_smoke.py`` and its
-``cl_tpu_torch``). The turns run old, new, new, old, each in a process of
-its own whose ``sys.path`` starts with that checkout, so each version
-builds and launches its own kernels. Every turn times each kernel (default:
+``cl_tpu_torch``). The turns run old, new, new, old (``--rounds N``: N
+times over), each in a process of its own whose ``sys.path`` starts with
+that checkout, so each version builds and launches its own kernels. Every turn times each kernel (default:
 the five forward kernels; or any of ``chip_smoke.PACKED_PATH``'s names, the
 backward ones too; or ``head_ce_bn_fwd`` / ``head_ce_bn_bwd``, the packed
 head's forward #7 and backward #8; or the switches' ``conv3x3_bn_bwd_fused``
 (#37), ``conv3x3_bn_dx_pipe`` / ``conv3x3_bn_dx_bn_pipe`` (34p/35p), the
 int8 dW ``conv3x3_bn_dw_q`` (#39), the two-pass dW ``conv3x3_dw_bn``
 (#33), the gen-3 dW ``conv3x3_dw`` (#31) and the gen-2 dW
-``conv3x3_g2_dw`` (#41)) at every shape of that
+``conv3x3_g2_dw`` (#41); or the Fisher accumulation ``ewc_sq_acc`` (#19)) at every
+shape of that
 checkout's 512² path (``chip_smoke.PACKED_PATH``, ``SWITCH_PATH``,
 ``Q_PATH``; #33 at level 3's two-pass shape of the 22 MiB budget,
 ``LEVEL3_TWO_PASS``, and with ``--f32`` at ``V3_SHAPES``; #31 at
-``V3_SHAPES``; #41 at ``G2_SHAPES``; bf16, batch 8; #7 and #8 at
+``V3_SHAPES``; #41 at ``G2_SHAPES``; #19 at ``EWC_N``, f32, on
+``chip_smoke.ewc_operands``; bf16, batch 8; #7 and #8 at
 ``HEAD_SHAPE`` on
 ``chip_smoke.bn_case``'s operands)
 on that checkout's operands (``chip_smoke.packed_operands`` for a forward
@@ -26,9 +28,13 @@ kernel, ``bwd_operands`` for a backward one, whose launch is
 median of 20 launches from CUDA events around each, once with the launches
 queued back to back, once synchronised after each, and once queued behind
 a card sleep (``time_ms_slept``: the host's issue then stays out of the
-card's time). Prints each turn's build time (the first turn of a checkout
+card's time); and for #37, 34p and #19 the one PyTorch call that computes
+the same function (``library``: cuDNN's ``convolution_backward``, in f32
+without TF32 as ``chip_smoke.py`` runs it; ``addcmul_``) behind a card
+sleep in every turn. Prints each turn's build time (the first turn of a checkout
 builds its kernels), per kernel and shape the two versions' medians over
-their turns, the sums over one packed step, and the card's ``nvidia-smi``
+their turns and each turn's card-sleep reading in the order run (their
+spread), the sums over one packed step, and the card's ``nvidia-smi``
 name and power limit. A name it does not know is refused before any turn
 runs.
 
@@ -66,6 +72,10 @@ OTHER = ("conv3x3_bn_bwd_fused", "conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe", 
          "conv3x3_dw_bn")
 GEN3 = ("conv3x3_dw",)  # the gen-3 conv's dW (#31), off the packed path
 GEN2 = ("conv3x3_g2_dw",)  # the gen-2 conv's dW (#41), off the packed path
+SWITCHED = OTHER[:3]  # #37 and 34p/35p: chip_smoke.switch_fns's kernels
+METHODS = ("ewc_sq_acc",)  # the Fisher pass's accumulation (#19)
+# #19's length: baseline_5's flat parameters (UNet-32, depth 4), f32
+EWC_N = 7763635
 # The packed head's shape on the headline step: (pixels, Cin, classes),
 # each kernel once a step, with bn_case's seed of chip_smoke's phase 3.
 HEAD_SHAPE = (2097152, 32, 19)
@@ -75,8 +85,8 @@ HEAD_SEED = 2
 def check_names(kernels) -> None:
     """Raise on a kernel name that is neither a forward nor a backward
     kernel of the packed path, nor the packed head's forward or backward,
-    nor one of ``OTHER``'s, ``GEN3``'s or ``GEN2``'s."""
-    known = FORWARD + BACKWARD + HEAD + OTHER + GEN3 + GEN2
+    nor one of ``OTHER``'s, ``GEN3``'s, ``GEN2``'s or ``METHODS``'s."""
+    known = FORWARD + BACKWARD + HEAD + OTHER + GEN3 + GEN2 + METHODS
     unknown = [k for k in kernels if k not in known]
     if unknown:
         raise ValueError(f"kernel_ab: unknown kernel(s) {unknown}; known: {', '.join(known)}")
@@ -84,7 +94,10 @@ def check_names(kernels) -> None:
 
 def shapes(smoke, kernel, dtype_name="bfloat16"):
     """[(shape, launches a step), ...] of one kernel on the headline step;
-    #33 in f32, #31 and #41 at their phase-6 shapes, once each."""
+    #33 in f32, #31 and #41 at their phase-6 shapes, once each; #19 eight
+    times, once a Fisher batch."""
+    if kernel in METHODS:
+        return [((EWC_N,), 8)]
     if kernel in HEAD:
         return [(HEAD_SHAPE, 1)]
     if kernel == "conv3x3_g2_dw":
@@ -104,6 +117,15 @@ def dispatch(smoke, kernel, dtype_name="bfloat16"):
     module ``smoke``: ``operands(shape)`` makes its seeded operands on the
     card (batch 8), ``launch(*operands)`` runs it."""
     check_names([kernel])
+    if kernel in METHODS:  # f32 whatever the flag: the Fisher is f32
+        from cl_tpu_torch.kernels import ewc_fused
+
+        def operands(shape):
+            import torch
+
+            grad = smoke.ewc_operands(shape[0], 0)[4]
+            return torch.rand(shape[0], device="cuda"), grad
+        return ewc_fused.launch_sq_acc, operands
     if kernel in HEAD:
         return lambda case: smoke.bn_fns(kernel, case)[0](), \
             lambda shape: (smoke.bn_case(*shape, dtype_name, HEAD_SEED),)
@@ -123,6 +145,16 @@ def dispatch(smoke, kernel, dtype_name="bfloat16"):
             launch = lambda *ops: fused(*ops, need_dx=ops[0].shape[-1] != 3)  # noqa: E731
         return launch, lambda shape: smoke.bwd_operands("conv3x3_bn_dw", shape, dtype_name)
     return smoke.bwd_fns(kernel)[0], lambda shape: smoke.bwd_operands(kernel, shape, dtype_name)
+
+
+def library(smoke, kernel):
+    """The one PyTorch call that computes a kernel's function on its
+    ``dispatch`` operands, timed beside it (never used by the port), or
+    None: cuDNN's ``convolution_backward`` for #37 and 34p, ``addcmul_``
+    for #19."""
+    if kernel in METHODS:
+        return lambda acc, g: acc.addcmul_(g, g)
+    return smoke.switch_fns(kernel)[2] if kernel in SWITCHED else None
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
@@ -199,13 +231,19 @@ def _host_issue_worker(root):
 
 def _worker(root, kernels, dtype_name="bfloat16"):
     """One turn in checkout ``root``: {kernel: [[shape, n per step, queued
-    ms, synchronised ms, slept ms], ...], "build_s": seconds} as one JSON
-    line."""
+    ms, synchronised ms, slept ms, and the library's slept ms where
+    ``library`` has one], ...], "build_s": seconds} as one JSON line."""
     _use_checkout(root)
     import time
 
     import chip_smoke
+    import torch
+
     from cl_tpu_torch.kernels import build
+
+    # f32 library calls in f32, as chip_smoke.py times them (cuDNN's default is TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
     build.build()
@@ -213,12 +251,14 @@ def _worker(root, kernels, dtype_name="bfloat16"):
     out = {"build_s": time.perf_counter() - t0}
     for kernel in kernels:
         launch, operands = dispatch(chip_smoke, kernel, dtype_name)
+        lib = library(chip_smoke, kernel)
         for shape, n in shapes(chip_smoke, kernel, dtype_name):
             ops = operands(shape)
             out.setdefault(kernel, []).append(
                 [list(shape), n, time_ms(lambda: launch(*ops)),
                  time_ms(lambda: launch(*ops), queued=False),
-                 time_ms_slept(lambda: launch(*ops))])
+                 time_ms_slept(lambda: launch(*ops))]
+                + ([] if lib is None else [time_ms_slept(lambda: lib(*ops))]))
     print(json.dumps(out))
 
 
@@ -271,6 +311,9 @@ def main(argv) -> int:
         _ptxas({"old": os.path.abspath(argv[1]), "new": os.path.abspath(argv[2])}, argv[3],
                argv[4] if len(argv) == 5 else "")
         return 0
+    rounds = 1
+    if argv[:1] == ["--rounds"]:
+        rounds, argv = int(argv[1]), argv[2:]
     host_issue = argv[:1] == ["--host-issue"]
     dtype_name = "float32" if argv[:1] == ["--f32"] else "bfloat16"
     argv = argv[1:] if host_issue or dtype_name == "float32" else argv
@@ -281,7 +324,7 @@ def main(argv) -> int:
     kernels = argv[2:] or list(FORWARD)
     check_names(kernels)
     turns = {"old": [], "new": []}
-    for which in ("old", "new", "new", "old"):
+    for which in ("old", "new", "new", "old") * rounds:
         worker = ["--host-issue-worker", dirs[which]] if host_issue else \
             ["--worker", dtype_name, dirs[which], *kernels]
         res = subprocess.run([sys.executable, os.path.abspath(__file__), *worker],
@@ -304,11 +347,18 @@ def main(argv) -> int:
                 acc[0] += n * q
                 acc[1] += n * s
                 acc[2] += n * z
-                row.append(f"{which} {q:.4f} (synchronised {s:.4f}, card sleep {z:.4f})")
+                row.append(f"{which} {q:.4f} (synchronised {s:.4f}, card sleep {z:.4f}; turns "
+                           f"{' '.join(f'{t[kernel][i][4]:.4f}' for t in turns[which])})")
+            if len(turns["new"][0][kernel][i]) > 5:  # the library, over all four turns
+                lib = float(np.median([t[kernel][i][5] for w in ("old", "new")
+                                       for t in turns[w]]))
+                sums["library"] = sums.get("library", 0.0) + n * lib
+                row.append(f"library (card sleep) {lib:.4f}")
             print(f"{kernel}{shape} {dtype_name} x{n}/step: " + ", ".join(row))
         print(f"{kernel} per step: " + ", ".join(
-            f"{w} {q:.4f} ms (synchronised {s:.4f}, card sleep {z:.4f})"
-            for w, (q, s, z) in sums.items()))
+            f"{w} {v:.4f} ms (card sleep)" if w == "library" else
+            f"{w} {v[0]:.4f} ms (synchronised {v[1]:.4f}, card sleep {v[2]:.4f})"
+            for w, v in sums.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

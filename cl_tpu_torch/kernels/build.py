@@ -66,7 +66,7 @@ SIGNATURES = {
     "cltorch_upconv_dw": [P] * 6 + [I] * 9 + [P],
     "cltorch_upconv_dw_ring_info": [I, I, P],
     "cltorch_conv3x3_bn_dx": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    "cltorch_conv3x3_bn_bwd_fused": [P] * 13 + [I] * 9 + [P],
+    "cltorch_conv3x3_bn_bwd_fused": [P] * 13 + [I] * 7 + [P],
     "cltorch_conv3x3_bn_dw": [P] * 9 + [I] * 11 + [P],
     "cltorch_conv3x3_dw_ring_info": [I, I, P],
     "cltorch_conv3x3_fwd": [P, P, P, I, I, I, I, I, I, P],

@@ -530,7 +530,7 @@ def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue, pipe=False, e_bf16=Fal
 
 
 def dw_splits(cin, cout, B, H, W, bf16):
-    """Blocks the first dW bodies (#36 in f32, #39) and the one-pass
+    """Blocks the first dW bodies (#36 in f32, #39) and the f32 one-pass
     backward (#37) split the pixel tiles over: ~SPLIT_BLOCKS in all, at
     least one tile each. A function of the shapes alone, so the
     partial sums run in the same order on every call."""
@@ -676,30 +676,41 @@ def launch_conv_dw(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16=False):
 
 
 def launch_conv_bwd_fused(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16=False, need_dx=True):
-    """#37 on the card: (dx or None, da, db, dW) from one launch (and the
-    fixed-order sums of its partials); da, db zeros without the prologue,
-    dW rounded to x's dtype, as f32; the bf16 chains under ``e_bf16``."""
+    """#37 on the card: (dx or None, da, db, dW); da, db zeros without the
+    prologue, dW rounded to x's dtype, as f32; the bf16 chains under
+    ``e_bf16``. In bf16 the ring dx (``launch_conv_dx``, #34/#35's kernel,
+    no dx for the stem) and #36's ring (``launch_conv_dw``), which the card
+    ran faster than a one-pass ring kernel over the headline step
+    (csrc/conv3x3_bn_bwd_fused.cu); in f32 the FMA kernel, dx and dW from
+    one launch (and the fixed-order sums of its partials) with
+    ``dw_splits``."""
     s1, s2 = _grad_operands(x, w, y, dy, ds1, ds2, "conv3x3_bn one-pass backward kernel")
     B, H, W, cin = x.shape
     cout = w.shape[0]
-    bf16 = x.dtype == torch.bfloat16
+    if x.dtype == torch.bfloat16:
+        dx, da, db = launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16=e_bf16) \
+            if need_dx else (None, None, None)
+        dw = launch_conv_dw(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16)
+        if da is None:
+            da, db = torch.zeros(2, cin, dtype=torch.float32, device=x.device)
+        return dx, da, db, dw
     wdx = _kernel_weight(_flip_t(w), x.dtype) if need_dx else None
     if prologue:
         a, b = _vec(a, cin, x.device, "conv prologue"), _vec(b, cin, x.device, "conv prologue")
     dx = torch.empty_like(x) if need_dx else None
-    # da, db: one partial row per pixel tile (16 x 16 in bf16, 8 x 16 in f32)
-    tiles = B * -(-H // (TILE if bf16 else TILE // 2)) * -(-W // TILE)
+    # da, db: one partial row per 8 x 16 pixel tile
+    tiles = B * -(-H // (TILE // 2)) * -(-W // TILE)
     part_ab = torch.empty(tiles if need_dx and prologue else 1, 2, cin, dtype=torch.float32,
                           device=x.device)
     out_ab = torch.zeros(2, cin, dtype=torch.float32, device=x.device)
-    splits = dw_splits(cin, cout, B, H, W, bf16)
+    splits = dw_splits(cin, cout, B, H, W, False)
     part_dw = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=x.device)
     dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=x.device)
     err = build.library().cltorch_conv3x3_bn_bwd_fused(
         x.data_ptr(), _ptr(a if prologue else None), _ptr(b if prologue else None),
         y.data_ptr(), dy.data_ptr(), _ptr(s1), _ptr(s2), _ptr(wdx), _ptr(dx),
         part_ab.data_ptr(), out_ab.data_ptr(), part_dw.data_ptr(), dw.data_ptr(),
-        B, H, W, cin, cout, int(prologue), splits, int(bf16), int(bf16 and e_bf16), _stream(x))
+        B, H, W, cin, cout, int(prologue), splits, _stream(x))
     build.check(err, "conv3x3_bn_bwd_fused")
     return dx, out_ab[0], out_ab[1], dw.to(x.dtype).float()
 

@@ -44,8 +44,9 @@ FAMILIES = (
     ("gen-3 conv kernels (cl_tpu_torch)", ("conv3x3_v3",)),
     # model.conv_act_store=int8: the quantize (32q), dx (#38) and dW (#39)
     ("int8 conv kernels (cl_tpu_torch)", ("conv3x3_q_",)),
-    # CL_TPU_FUSE_BWD: the one-pass conv backward (#37); CL_TPU_DX_PIPE's
-    # dx (34p/35p) runs #34/#35's kernels, counted with the packed body's
+    # CL_TPU_FUSE_BWD: the one-pass conv backward's f32 kernel (#37; in
+    # bf16 it runs #34/#35's and #36's kernels); CL_TPU_DX_PIPE's dx
+    # (34p/35p) runs #34/#35's kernels: both counted with the packed body's
     ("one-pass conv backward (cl_tpu_torch)", ("conv3x3_bn_bwd_fused",)),
     ("packed body kernels (cl_tpu_torch)", ("conv3x3_bn", "conv3x3_dw", "bn_relu",
                                             "add_stats", "dy_eff", "maxpool", "upconv",

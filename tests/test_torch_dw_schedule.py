@@ -18,6 +18,7 @@ one-pass backward (#37) the splits it gave before. Also ``kernel_ab``'s
 dispatch over the packed path's kernel names.
 """
 
+import json
 import math
 import os
 import re
@@ -367,8 +368,9 @@ def test_tiled_dw_wrappers_pass_the_picked_tile(fake_card, shape, kernel, dtype)
     assert (splits, cout, cin, 3, 3) in allocated and (cout, cin, 3, 3) in allocated
 
 
-# conv3x3.dw_splits at the headline step's convs (batch 8), as #37 and the
-# first dW bodies take them: (H, Cin, Cout) -> (bf16, f32)
+# conv3x3.dw_splits at the headline step's convs (batch 8), as f32 #37 and
+# the first dW bodies (#36 in f32, #39) take them (bf16 #37 launches the
+# ring dx and #36's ring): (H, Cin, Cout) -> (bf16, f32)
 DW_SPLITS_BEFORE = {(512, 3, 32): (264, 264), (512, 32, 32): (264, 264),
                     (256, 32, 64): (132, 132), (256, 64, 64): (66, 66),
                     (128, 64, 128): (33, 33), (128, 128, 128): (17, 17)}
@@ -395,6 +397,50 @@ def test_kernel_ab_names_cover_the_path_and_refuse_others():
         kernel_ab.dispatch(chip_smoke, "upconv_dW")
     with pytest.raises(ValueError, match="unknown kernel"):
         kernel_ab.main(["old", "new", "conv3x3_bn_dw", "no_such_kernel"])
+
+
+def test_kernel_ab_takes_the_fisher_accumulation():
+    # #19 by name: f32 at baseline_5's flat parameters, eight a Fisher
+    # pass, with addcmul_ beside it in every turn
+    kernel_ab.check_names(["ewc_sq_acc", "conv3x3_bn_bwd_fused"])
+    from cl_tpu_torch.kernels import ewc_fused
+
+    for dtype_name in ("bfloat16", "float32"):
+        launch, operands = kernel_ab.dispatch(chip_smoke, "ewc_sq_acc", dtype_name)
+        assert launch is ewc_fused.launch_sq_acc and callable(operands)
+        assert kernel_ab.shapes(chip_smoke, "ewc_sq_acc", dtype_name) == [((7763635,), 8)]
+    acc, g = torch.ones(5), torch.arange(5.0)
+    kernel_ab.library(chip_smoke, "ewc_sq_acc")(acc, g)
+    assert torch.equal(acc, ewc_fused.sq_acc_plain(torch.ones(5), g))
+    assert kernel_ab.library(chip_smoke, "conv3x3_bn_bwd_fused") is not None
+    assert kernel_ab.library(chip_smoke, "conv3x3_bn_dw") is None
+
+
+@pytest.mark.parametrize("rounds", [1, 3])
+def test_kernel_ab_rounds_repeat_the_turns(monkeypatch, capsys, rounds):
+    # --rounds N runs old, new, new, old N times over and prints every
+    # turn's card-sleep reading beside each side's median
+    import subprocess
+
+    runs = []
+
+    def fake_run(cmd, **kw):
+        if cmd[0] == "nvidia-smi":
+            return SimpleNamespace(stdout="NVIDIA H100 80GB HBM3, 700.00 W\n")
+        which = "old" if cmd[-2].endswith("old") else "new"
+        runs.append(which)
+        slept = 0.03 + 0.001 * len(runs)
+        row = [[7763635], 8, 0.05, 0.06, slept, 0.034]
+        return SimpleNamespace(stdout=json.dumps({"ewc_sq_acc": [row], "build_s": 0.0}) + "\n")
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    args = ["--rounds", str(rounds)] if rounds > 1 else []
+    assert kernel_ab.main(args + ["/tmp/old", "/tmp/new", "ewc_sq_acc"]) == 0
+    assert runs == ["old", "new", "new", "old"] * rounds
+    out = capsys.readouterr().out
+    for which in ("old", "new"):
+        turns = [f"{0.03 + 0.001 * (i + 1):.4f}" for i, w in enumerate(runs) if w == which]
+        assert f"turns {' '.join(turns)})" in out
 
 
 @pytest.mark.parametrize("dtype_name", ["bfloat16", "float32"])

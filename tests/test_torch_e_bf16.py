@@ -400,7 +400,8 @@ class _FakeLibrary:
 def test_wrappers_pass_the_flag(monkeypatch, flag, dtype):
     """Each bf16 entry point of the chain's kernels gets ``ew_bf16`` (the
     int before the stream) = 1 under the flag, else 0; f32 launches and
-    #39's xq mode pass 0; every call has its signature's arity."""
+    #39's xq mode pass 0; #37 launches the ring dx and #36's ring in bf16,
+    its f32 kernel takes no flag; every call has its signature's arity."""
     lib = _FakeLibrary()
     monkeypatch.setattr(build, "library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -412,17 +413,28 @@ def test_wrappers_pass_the_flag(monkeypatch, flag, dtype):
     want = int(flag and bf16)
     conv3x3.launch_conv_bn(x, w, a, b, True, flag)
     conv3x3.launch_conv_dw(*args, flag)
-    conv3x3.launch_conv_bwd_fused(*args, flag)
     conv3x3.launch_conv3x3_dw_bn(x, a, b, dy, True, flag)
     q = conv3x3.quant_rows_plain(y, P)
     conv3x3.launch_conv_dw_q(x, w, a, b, *q, dy, ds1, ds2, True, P, flag)
-    got = {"cltorch_conv3x3_bn_dw": want, "cltorch_conv3x3_bn_bwd_fused": want,
-           "cltorch_conv3x3_dw_bn": want, "cltorch_conv3x3_bn_dw_q": want}
+    got = {"cltorch_conv3x3_bn_dw": want, "cltorch_conv3x3_dw_bn": want,
+           "cltorch_conv3x3_bn_dw_q": want}
     if bf16:
         got["cltorch_conv3x3_bn_ring"] = want
     for name, ew in got.items():
         call = lib.calls.pop(name)
         assert len(call) == len(build.SIGNATURES[name]) and call[-2] == ew, name
+    # #37: in bf16 the ring dx and #36's ring, each with the flag; in f32
+    # its FMA kernel, whose entry takes none
+    lib.calls.clear()
+    conv3x3.launch_conv_bwd_fused(*args, flag)
+    names = ["cltorch_conv3x3_bn_ring", "cltorch_conv3x3_bn_dw"] if bf16 else \
+        ["cltorch_conv3x3_bn_bwd_fused"]
+    assert sorted(lib.calls) == sorted(names)
+    for name in names:
+        call = lib.calls.pop(name)
+        assert len(call) == len(build.SIGNATURES[name]), name
+        splits = conv3x3.dw_splits(x.shape[3], w.shape[0], *x.shape[:3], False)
+        assert call[-2] == (want if bf16 else splits), name
     conv3x3.launch_conv_dw_q(x, w, a, b, *q, dy, ds1, ds2, True, P, flag)
     conv3x3.launch_conv_dw_q(q, w, a, b, *q, dy, ds1, ds2, True, P, flag)  # the xq mode
     assert lib.calls["cltorch_conv3x3_bn_dw_q"][-2] == 0
