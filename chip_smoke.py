@@ -81,7 +81,12 @@ Phases (any failure raises, so the exit code is non-zero):
    and as a dx at 16² × 1024 → 512, its dW (#41) at 256² × 64 → 64, 16² ×
    1024 → 1024 and 512² × 32 → 32, batch 8, and all three at the odd-row
    6 × 16 × 16 → 32 and the p = 16 32² × 8 → 16 with 3 images, f32 and
-   bf16, each launched twice and held bit-equal;
+   bf16, each launched twice and held bit-equal; #30 and #40 in bf16 at one
+   conv of each plain instance (COT, CK, resident weights) that the 5v-b,
+   5n-b and 5g-c paths pick past those lists (the streamed weights of 32²
+   × 512 → 512 among them), at a 3 → 32 conv (plain loads) and at 64 → 40
+   (ragged channel tiles), each launched twice, with every plain
+   instance's blocks an SM on the card held against its picker's;
 4. the baseline_1 preset as it ships, through ``train()``: 16 steps and
    one eval (the fused head+CE kernels), then the same shape with
    ``train.fused_head_ce=false`` (the CE kernels) through
@@ -354,7 +359,8 @@ Phases (any failure raises, so the exit code is non-zero):
    the same function, and the least time the card could take; the level-3
    kernels of 5b-a at their shapes; each variant of 5u beside its default
    at every shape of its path; #31 in both dtypes at ``V3_SHAPES``; 34p/35p
-   in bf16 and in f32 at the headline step's dx shapes.
+   in bf16 and in f32 at the headline step's dx shapes; phase 3's plain
+   path convs (#30, #40) behind a card sleep beside ``F.conv2d``.
 
 Each path resets the kernels' launch counts just before it runs and reads
 them just after; a kernel of the path that was not launched fails the
@@ -2000,6 +2006,121 @@ def v3_dw_path_tiles():
          "#31's widest split count: one wave of resident blocks")
     compare_v3("conv3x3_dw", widest, "bfloat16")
     return sorted(tiles)
+
+
+# Phase 5's config (the 512² bf16 standard body); 5g-c runs it under
+# model.conv_impl=pallas
+FULL_ARGS = ["preset=baseline_1", "data.image_size=512", "data.source_size=576",
+             "data.num_classes=19", "train.compute_dtype=bfloat16", "model.packed_unet=false",
+             "data.dataset=synthetic", "train.data_parallel=false"]
+# the plain conv's staging past the paths: the plain loads of a narrow Cin
+# (3 -> 32 at 64², a stem's), ragged channel tiles, Cout not a multiple of
+# 64 (64 -> 40: at 16² a COT 32 tile, at 64² a COT 64 one), and 5g-c's
+# bottleneck 512 -> 512 at 32² (its weights travel with each stage)
+PLAIN_EXTRA = [(64, 3, 32), (16, 64, 40), (64, 64, 40), (32, 512, 512)]
+
+
+def plain_path_convs():
+    """{(kernel, (H, Cin, Cout)), ...}: every plain conv the bf16 paths
+    launch, as a forward and as its dx (the conv Cout -> Cin): #30 on the
+    convs 5v-b and 5n-b route to the gen-3 conv (``v3_path_shapes``), #40 on
+    those 5g-c routes to the gen-2 conv (``g2_supported`` at phase 5's
+    standard-body levels)."""
+    from cl_tpu_torch.config import parse_overrides
+    from cl_tpu_torch.models import packed_gate as pg
+
+    convs = {("conv3x3_fwd", s) for h, ci, f in v3_path_shapes() for s in ((h, ci, f), (h, f, ci))}
+    m = parse_overrides(FULL_ARGS + ["model.conv_impl=pallas"]).model
+    for _, h, ci, f in pg.standard_body_levels(512, m.base_channels, m.depth):
+        for c in (ci, f):
+            if pg.g2_supported(h, h, c, f):
+                convs |= {("conv3x3_g2_fwd", (h, c, f)), ("conv3x3_g2_fwd", (h, f, c))}
+    return convs
+
+
+def plain_instance(shape, batch=8):
+    """(COT, CK, resident) of the bf16 plain ring at a conv (H, Cin, Cout)."""
+    from cl_tpu_torch.kernels import conv3x3
+
+    H, cin, cout = shape
+    return conv3x3.conv_plain_tile(cin, cout, batch * (-(-H // 16)) ** 2)
+
+
+def plain_path_tiles():
+    """Phase 3: #30 and #40 (each its own kernels) in bf16 at one conv of
+    each plain ring instance (COT, CK, resident) that ``plain_path_convs``
+    picks and ``V3_SHAPES`` / ``G2_SHAPES`` do not, and at ``PLAIN_EXTRA``
+    (batch 8, launched twice, against the plain version); every instance's
+    resources held against the picker's (``plain_info``). Returns [(kernel,
+    shape), ...] of the convs checked here."""
+    listed = {plain_instance(s) for s in V3_SHAPES["conv3x3_fwd"]}
+    listed |= {plain_instance((H, ci, co)) for k in ("conv3x3_g2_fwd", "conv3x3_g2_dx")
+               for H, _, ci, co in G2_SHAPES[k]}
+    picked = {}
+    for _, shape in sorted(plain_path_convs()):
+        picked.setdefault(plain_instance(shape), shape)
+    rows = [(k, s) for s in [s for inst, s in sorted(picked.items()) if inst not in listed]
+            + PLAIN_EXTRA for k in ("conv3x3_fwd", "conv3x3_g2_fwd")]
+    for kernel, shape in rows:
+        print(f"  plain ring instance {plain_instance(shape)} at {kernel} {shape}:")
+        if kernel == "conv3x3_fwd":
+            compare_v3(kernel, shape, "bfloat16")
+        else:
+            compare_g2(kernel, (shape[0], shape[0], *shape[1:]), "bfloat16")
+    print(f"  the paths' plain ring instances: {sorted(picked)} (listed shapes: {sorted(listed)})")
+    plain_info(sorted({(*plain_instance(s), s[1]) for s in [*picked.values(), *PLAIN_EXTRA]}))
+    return rows
+
+
+def plain_info(instances):
+    """Each plain instance's resident blocks an SM on this card (at least)
+    and its dynamic shared bytes (the CUDA source's own formula) against its
+    picker's (``conv_plain_resources`` at the instance's Cin in bf16,
+    ``plain_fma_resources`` in f32), with its registers and local (spilled)
+    bytes a thread printed (``cudaFuncGetAttributes``); ``instances`` are
+    bf16 (COT, CK, resident, Cin)."""
+    import ctypes
+
+    from cl_tpu_torch.kernels import build, conv3x3
+
+    lib = build.library()
+    cases = [(1, cot, ck, res, cin, conv3x3.conv_plain_resources(cot, ck, res, cin),
+              f"resident {res}, Cin {cin}") for cot, ck, res, cin in instances]
+    cases += [(0, cot, 0, 0, 0, conv3x3.plain_fma_resources(cot), "f32") for cot in (32, 64)]
+    for bf16, cot, ck, res, cin, (threads, smem, blocks_py), what in cases:
+        info = (ctypes.c_int * 4)()
+        build.check(lib.cltorch_conv3x3_plain_info(bf16, cot, ck, int(res), cin,
+                                                    ctypes.addressof(info)),
+                    f"conv3x3 plain info {cot, ck}")
+        blocks, regs, local, smem_c = info
+        # registers may leave room for more blocks than __launch_bounds__ asks
+        ok = blocks >= blocks_py and smem_c == smem
+        print(f"  plain {'ring' if bf16 else 'fma'}<{cot}{f', {ck}' if bf16 else ''}> ({what}): "
+              f"{threads} threads, {regs} registers, {local} local bytes a thread, {smem} B "
+              f"shared; {blocks} blocks an SM (the picker assumes {blocks_py})"
+              f"{'' if ok else ' FAIL'}")
+        need(ok, f"plain instance {cot, ck} ({what}): resident blocks as the picker assumes")
+
+
+def plain_tile_times(rows):
+    """Phase 6: each of ``plain_path_tiles``' convs in bf16 behind a card
+    sleep, beside ``F.conv2d``'s on the same operands (batch 8)."""
+    from cl_tpu_torch.kernel_ab import time_ms_slept
+
+    for kernel, shape in rows:
+        if kernel == "conv3x3_fwd":
+            launch, _, lib = v3_fns(kernel)
+            ops, name = v3_operands(kernel, shape, "bfloat16"), v3_name(kernel, shape, "bfloat16")
+        else:
+            g2_shape = (shape[0], shape[0], *shape[1:])
+            launch, _, lib = g2_fns(kernel)
+            ops = g2_operands(kernel, g2_shape, "bfloat16")
+            name = g2_name(kernel, g2_shape, "bfloat16")
+        bo = v3_bytes_ops("conv3x3_fwd", shape, "bfloat16")
+        bound = max(bo[0] / HBM_BYTES_PER_S, bo[1] / PEAK_OPS["bfloat16"]) * 1e3
+        print(f"  {name} (plain ring {plain_instance(shape)}): card sleep "
+              f"{time_ms_slept(lambda: launch(*ops)):.4f} ms, F.conv2d "
+              f"{time_ms_slept(lambda: lib(*ops)):.4f}, bound {bound:.4f}")
 
 
 def v3_operands(kernel, shape, dtype_name, batch=8, seed=0):
@@ -5142,6 +5263,11 @@ def main() -> int:
         for shape in G2_ODD:
             for dtype_name in ("float32", "bfloat16"):
                 compare_g2(kernel, shape, dtype_name, batch=3)
+    # the plain conv's (#30's, #40's) bf16 instances the paths pick past the
+    # lists, its plain-load staging and a ragged channel tile
+    t0 = time.perf_counter()
+    plain_rows = plain_path_tiles()
+    print(f"  plain path tiles: {time.perf_counter() - t0:.1f} s")
     # #33, #31 and #41 past their path tiles and staging paths, f32 and
     # bf16, each launched twice; every instance's resources against its
     # picker
@@ -5225,10 +5351,7 @@ def main() -> int:
                         f"train.fused_head_ce={fused}"], f"fused_head_ce={fused}")
 
     print("[5] full width: 512², batch 8, 19 classes, bf16, standard body")
-    full = ["preset=baseline_1", "data.image_size=512", "data.source_size=576",
-            "data.num_classes=19", "train.compute_dtype=bfloat16",
-            "model.packed_unet=false", "data.dataset=synthetic",
-            "train.data_parallel=false"]
+    full = list(FULL_ARGS)
     trained = {}
     counts_f, ips_f, peak_f, loss_f, _ = run_steps(
         parse_overrides(full), 3, 10, torch.device("cuda"), keep=trained)
@@ -6027,6 +6150,10 @@ def main() -> int:
                     kernels.append(entry)
                     line += f"; launches {entry['launches']} in phase 5g-a"
                 print(line)
+    # the plain conv's path instances past the lists (phase 3), card sleep
+    t0 = time.perf_counter()
+    plain_tile_times(plain_rows)
+    print(f"  plain path tiles' times: {time.perf_counter() - t0:.1f} s")
     # the int8 kernels at the headline's first int8 shape of each, bf16,
     # launches of 5q-a's 13 steps; every shape printed
     q_step_ms = {}

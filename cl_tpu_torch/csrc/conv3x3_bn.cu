@@ -42,19 +42,19 @@
 // ring does about it, and why the dx's accumulation order is fixed),
 // which the wrapper calls directly. Here remain their
 // f32 instances of the FMA body, and the first bf16 body
-// (conv3x3_body.cuh::conv3x3_mma_body) for the plain conv and the dx from
-// int8 below, whose mma_chunk / mma_epilogue order the ring's dx keeps.
+// (conv3x3_body.cuh::conv3x3_mma_body) for the dx from int8 below, whose
+// mma_chunk / mma_epilogue order the ring's dx keeps.
 //
 // Also the plain gen-3 conv, cl_tpu/pallas/conv3x3_v3.py::_fwd_kernel
 // (launched at conv3x3_v3.py:522 by `_fwd_packed`): y = round(conv3x3_SAME(x,
 // w)), no prologue and no statistics, as the forward of `conv3x3` /
 // `conv3x3_packed` under model.conv_impl=v3|auto, as their dx (the same conv
 // on dy with the flipped, transposed weight, :619-620, :641-642) and as the
-// two-pass backward's dt (:965). Its kernels are the instances
-// `conv3x3_v3_kernel` / `conv3x3_v3_mma_kernel` of the bodies below with
-// MODE = kPlain: x staged as it is, the accumulator rounded and stored,
-// no sums. At baseline_2's 256^2 x 64 -> 64, batch 8, f32 (FMA): 38.7
-// GFLOP, 577 us at 67 TFLOP/s, against 268 MB, 80 us.
+// two-pass backward's dt (:965). Its kernels, conv3x3_v3_plain_ring_kernel
+// (bf16: the ring body's kPlain MODE, products on wgmma) and
+// conv3x3_v3_plain_fma_kernel (f32: the register-blocked FMA body), are
+// conv3x3_plain_body.cuh's, whose note gives the bounds and the design;
+// the gen-2 conv (#40, conv3x3_g2.cu) instances the same bodies.
 //
 // And the int8 saved activations of model.conv_act_store=int8
 // (`conv_bn_fused_q`, conv3x3_v3.py:1800-1870):
@@ -83,9 +83,9 @@
 // headline shape (1.4-1.6x, kernel_ab).
 //
 // The first two bodies (FMA for f32, mma.sync for bf16), each templated on
-// what it computes, are in conv3x3_body.cuh, shared with the gen-2 conv.
+// what it computes, are in conv3x3_body.cuh.
 
-#include "conv3x3_body.cuh"
+#include "conv3x3_plain_body.cuh"
 
 namespace cltorch {
 namespace {
@@ -103,15 +103,8 @@ __global__ void __launch_bounds__(kConvThreads, DX && sizeof(T) == 4 ? kFmaDxMin
   conv3x3_fma_body<DX ? kDx : kFwd>(p);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kConvThreads) conv3x3_v3_kernel(ConvArgs<T> p) {
-  conv3x3_fma_body<kPlain>(p);
-}
-
-template <int COT>
-__global__ void __launch_bounds__(kMmaThreads) conv3x3_v3_mma_kernel(ConvArgs<bf16> p) {
-  conv3x3_mma_body<kPlain, COT>(p);
-}
+// #30: the plain conv's instances (conv3x3_plain_body.cuh)
+CLTORCH_PLAIN_KERNELS(conv3x3_v3_plain)
 
 // #38: the dx from the int8 saved y (MODE kDxQ) and x (kDxQX).
 template <int MODE, typename T>
@@ -125,9 +118,10 @@ __global__ void __launch_bounds__(kMmaThreads) conv3x3_q_dx_mma_kernel(ConvArgs<
   conv3x3_mma_body<MODE, COT>(p);
 }
 
-// Launches the kernel of the type and mode and, when it sums, the
-// reduction of its partial rows into out [2, Cout]. The forward and dx take
-// f32 only here: in bf16 they run the ring body (conv3x3_ring.cu).
+// Launches the kernel of the type and mode (the forward, the dx, the dx from
+// int8) and, when it sums, the reduction of its partial rows into out [2,
+// Cout]. The forward and dx take f32 only here: in bf16 they run the ring
+// body (conv3x3_ring.cu).
 template <int MODE>
 int conv3x3_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, int B, void* out,
                    cudaStream_t st) {
@@ -136,15 +130,6 @@ int conv3x3_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, int B
   const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
   const dim3 grid32(tiles, (Cout + 31) / 32, B);
   const dim3 grid64(tiles, Cout / 64, B);
-  if constexpr (MODE == kPlain) {
-    if (!is_bf16)
-      conv3x3_v3_kernel<float><<<grid32, kConvThreads, 0, st>>>(pf32);
-    else if (Cout % 64 == 0)
-      conv3x3_v3_mma_kernel<64><<<grid64, kMmaThreads, 0, st>>>(pb16);
-    else
-      conv3x3_v3_mma_kernel<32><<<grid32, kMmaThreads, 0, st>>>(pb16);
-    return (int)cudaGetLastError();
-  }
   if constexpr (MODE == kDxQ || MODE == kDxQX) {
     if (!is_bf16)
       conv3x3_q_dx_kernel<MODE, float><<<grid32, kConvThreads, 0, st>>>(pf32);
@@ -275,17 +260,40 @@ int cltorch_conv3x3_bn_dx_q(const void* dy, const void* yq, const void* ysc, con
                        : conv3x3_launch<kDxQ>(pb16, pf32, is_bf16, B, out, st);
 }
 
-// The plain gen-3 conv: x [B, H, W, Cin] -> y [B, H, W, Cout], w as for
-// the forward above.
+// #30, the plain gen-3 conv: x [B, H, W, Cin] -> y [B, H, W, Cout], w as
+// for the forward above; cot, ck, resident and blocks the wrapper's
+// schedule (kernels/conv3x3.py::conv_plain_tile, conv_plain_blocks in
+// bf16; plain_fma_tile's cot in f32, the others unread). One launch.
 int cltorch_conv3x3_fwd(const void* x, const void* w, void* y, int B, int H, int W, int Cin,
-                        int Cout, int is_bf16, void* stream) {
+                        int Cout, int is_bf16, int cot, int ck, int resident, int blocks,
+                        void* stream) {
   using namespace cltorch;
-  return conv3x3_launch<kPlain>(
-      conv_args<bf16>(x, nullptr, nullptr, nullptr, w, nullptr, nullptr, nullptr, y, nullptr, H,
-                      W, Cin, Cout, 0),
-      conv_args<float>(x, nullptr, nullptr, nullptr, w, nullptr, nullptr, nullptr, y, nullptr,
-                       H, W, Cin, Cout, 0),
-      is_bf16, B, nullptr, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ConvArgs<bf16> pb = conv_args<bf16>(x, nullptr, nullptr, nullptr, w, nullptr, nullptr,
+                                            nullptr, y, nullptr, H, W, Cin, Cout, 0);
+#define CLTORCH_V3_PLAIN_RING(COT, CK) CLTORCH_PLAIN_RING_RUN(conv3x3_v3_plain, COT, CK)
+#define CLTORCH_V3_PLAIN_FMA(COT) CLTORCH_PLAIN_FMA_RUN(conv3x3_v3_plain, COT)
+  CLTORCH_PLAIN_DISPATCH(CLTORCH_V3_PLAIN_RING, CLTORCH_V3_PLAIN_FMA)
+#undef CLTORCH_V3_PLAIN_RING
+#undef CLTORCH_V3_PLAIN_FMA
+}
+
+// What the card gives the plain conv's instance (is_bf16, cot, ck; the
+// gen-2 conv's are the same bodies) at the dynamic shared bytes of a launch
+// with `resident` weights over `cin` input channels (bf16, as its runs
+// compute them; f32 its own): out[4] = {resident blocks an SM, registers a
+// thread, local bytes a thread, dynamic shared bytes}.
+int cltorch_conv3x3_plain_info(int is_bf16, int cot, int ck, int resident, int cin, int* out) {
+  using namespace cltorch;
+#define CLTORCH_V3_PLAIN_RING_INFO(COT, CK)                                        \
+  plain_ring_info(kernel_ptr(conv3x3_v3_plain_ring_kernel<COT, CK>),             \
+                  conv_plain_smem<COT, CK>(resident != 0, cin), out)
+#define CLTORCH_V3_PLAIN_FMA_INFO(COT)                                              \
+  kernel_info(kernel_ptr(conv3x3_v3_plain_fma_kernel<COT>), kPfThreads,           \
+              PlainFmaTile<COT>::kSmem, out)
+  CLTORCH_PLAIN_DISPATCH(CLTORCH_V3_PLAIN_RING_INFO, CLTORCH_V3_PLAIN_FMA_INFO)
+#undef CLTORCH_V3_PLAIN_RING_INFO
+#undef CLTORCH_V3_PLAIN_FMA_INFO
 }
 
 }  // extern "C"

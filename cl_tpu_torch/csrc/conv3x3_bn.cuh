@@ -337,9 +337,7 @@ __device__ __forceinline__ int64_t x_scale_row(const ConvArgs<T>& p, int row, in
 template <int MODE, typename T>
 __device__ __forceinline__ T epilogue_one(const ConvArgs<T>& p, int64_t pix, int o, float acc,
                                           float& s1, float& s2, int64_t srow) {
-  if constexpr (MODE == kPlain) {
-    return from_f32<T>(acc);
-  } else if constexpr (MODE == kFwd) {
+  if constexpr (MODE == kFwd) {
     const T yv = from_f32<T>(acc);
     const float yr = to_f32(yv);
     s1 += yr;

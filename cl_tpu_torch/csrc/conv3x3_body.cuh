@@ -1,16 +1,16 @@
 // The 3x3 SAME conv's first two bodies over NHWC, each instanced by a MODE
-// of conv3x3_bn.cuh. Shared by conv3x3_bn.cu and conv3x3_g2.cu.
+// of conv3x3_bn.cuh. Instanced by conv3x3_bn.cu.
 //
-// What they replace (cl_tpu/pallas/conv3x3_v3.py unless named):
+// What they replace (cl_tpu/pallas/conv3x3_v3.py):
 // * f32, the FMA body: the packed conv's forward ::_fwd_bn_kernel (#32,
 //   launched at :833) and dx ::_dx_slim_kernel / ::_dx_bn_kernel (#34, #35,
-//   :1233, :1259), the gen-3 plain conv ::_fwd_kernel (#30, :522), the dx
-//   from int8 ::_dx_q_kernel (#38, :1657) and the gen-2 conv
-//   cl_tpu/pallas/conv3x3.py::_fwd_kernel (#40, conv3x3.py:279);
-// * bf16, the mma.sync body (conv3x3_mma_body): #30, #38 and #40 (kPlain,
-//   kDxQ, kDxQX). The bf16 forward and dx of the packed conv (#32, #34,
-//   #35) run the ring body (conv3x3_ring_body.cuh); moving #30, #38 and
-//   #40 onto it is later work.
+//   :1233, :1259) and the dx from int8 ::_dx_q_kernel (#38, :1657);
+// * bf16, the mma.sync body (conv3x3_mma_body): #38 alone (kDxQ, kDxQX).
+//   The bf16 forward and dx of the packed conv (#32, #34, #35) run the ring
+//   body (conv3x3_ring_body.cuh); moving #38 onto it is later work.
+// The plain conv (#30, #40) ran here in both types until it moved onto its
+// own bodies (conv3x3_plain_body.cuh: the ring's kPlain MODE on wgmma in
+// bf16, a register-blocked FMA body in f32).
 //
 // What bounds them on the H100 (batch 8): in bf16 bytes at 512^2 and 256^2
 // and the tensor cores at 128^2, the packed conv's forward / #34 / #35
@@ -36,8 +36,8 @@
 // partial rows as mma_epilogue, so all of them give #34/#35's bits
 // (chip_smoke.compare_pipe, compare_fused).
 //
-// The two bodies, each templated on what it computes (forward, dx, plain or
-// a dx from int8); the staging of the window and the epilogue differ, the
+// The two bodies, each templated on what it computes (forward, dx or a dx
+// from int8); the staging of the window and the epilogue differ, the
 // tile, the tap loop and the fixed-order sums are shared:
 //
 // * bf16: an implicit GEMM on the tensor cores, mma.sync m16n8k16 with f32
@@ -91,14 +91,14 @@ ConvArgs<T> conv_args(const void* in, const void* y, const void* s1, const void*
 constexpr int kCoT = 32, kCiT = 16;  // output channels / input chunk
 constexpr int kConvThreads = 128;
 
-// The staged input at one in-image pixel: t (forward: the prologue, if on;
-// plain: x itself) or e (dx).
+// The staged input at one in-image pixel: t (forward: the prologue, if on)
+// or e (dx).
 template <int MODE, typename T>
 __device__ __forceinline__ float staged_at(const ConvArgs<T>& p, int64_t i, int c) {
   if constexpr (MODE == kDx) return e_at(p.in, p.y, i, c, p.s1, p.s2);
   if constexpr (MODE == kDxQ || MODE == kDxQX)
     return e_at_q(p.in, p.yq, p.ysc, i, c, p.Cin, p.W, p.pack, p.s1, p.s2);
-  return t_at(p.in, i, c, MODE == kFwd ? p.prologue : 0, p.pa, p.pb);
+  return t_at(p.in, i, c, p.prologue, p.pa, p.pb);
 }
 
 // f32: input channels [ci0, ci1) of the staged window (in_s) and their
@@ -260,8 +260,8 @@ __device__ __forceinline__ void conv3x3_fma_body(const ConvArgs<T>& p) {
 
 template <int MODE, int COT>
 __device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
-  static_assert(MODE == kPlain || MODE == kDxQ || MODE == kDxQX,
-                "the bf16 forward and dx run the ring body (conv3x3_ring_body.cuh)");
+  static_assert(MODE == kDxQ || MODE == kDxQX,
+                "the bf16 forward, dx and plain conv run the ring body (conv3x3_ring_body.cuh)");
   constexpr int NT = COT / 8;  // n8 tiles per warp
   __shared__ __align__(16) bf16 in_s[kWinH * kWinW * kRowS];
   __shared__ __align__(16) bf16 w_s[9 * COT * kRowS];
@@ -292,12 +292,9 @@ __device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
       const int c = ci0 + half * 8;
       const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
-      if constexpr (MODE == kPlain)
-        stage8_t(&in_s[pix * kRowS + half * 8], p.in + i, c, Cin, inside, 0, nullptr, nullptr);
-      else
-        stage8_eq(&in_s[pix * kRowS + half * 8], p.in + i, p.yq + i,
-                  p.ysc + ((int64_t)(b * H + gy) * p.pack + gx % p.pack) * Cin + c, c, Cin,
-                  inside, p.s1, p.s2);
+      stage8_eq(&in_s[pix * kRowS + half * 8], p.in + i, p.yq + i,
+                p.ysc + ((int64_t)(b * H + gy) * p.pack + gx % p.pack) * Cin + c, c, Cin,
+                inside, p.s1, p.s2);
     }
     for (int e = threadIdx.x; e < 9 * COT * 2; e += kMmaThreads) {
       const int half = e & 1, row = e >> 1;  // row = tap * COT + co

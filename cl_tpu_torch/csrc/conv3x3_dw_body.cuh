@@ -992,51 +992,8 @@ __device__ __forceinline__ void dw_reg_body(const float* __restrict__ x,
 
 // ---------------------------------------------------------------------------
 // Host side, shared by the translation units that instance the bodies
+// (kernel_ptr, smem_allowed and kernel_info: conv3x3_tma.cuh)
 // ---------------------------------------------------------------------------
-
-// A kernel as the runtime's C functions take it.
-template <typename K>
-const void* kernel_ptr(K* kernel) {
-  return reinterpret_cast<const void*>(kernel);
-}
-
-// A kernel's dynamic shared memory above 48 KB, allowed once per kernel
-// and device (under a lock: the backward launches from autograd's thread).
-cudaError_t smem_allowed(const void* kernel, int bytes) {
-  constexpr int kSlots = 64;
-  static const void* kernels[kSlots] = {};
-  static int devices[kSlots] = {};
-  static int n = 0;
-  static std::mutex lock;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  std::lock_guard<std::mutex> guard(lock);
-  for (int i = 0; i < n; ++i)
-    if (kernels[i] == kernel && devices[i] == dev) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && n < kSlots) {
-    kernels[n] = kernel;
-    devices[n++] = dev;
-  }
-  return err;
-}
-
-// What the card gives a kernel of `threads` threads and `smem` dynamic
-// shared bytes: out = {resident blocks an SM, registers a thread, local
-// (spilled) bytes a thread, smem}.
-int kernel_info(const void* kernel, int threads, int smem, int* out) {
-  cudaError_t err = smem_allowed(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, smem);
-  out[1] = attr.numRegs;
-  out[2] = (int)attr.localSizeBytes;
-  out[3] = smem;
-  return (int)err;
-}
 
 // The fixed-order sum of `splits` partials [Cout, Cin, 3, 3] into dw: for
 // the ring and register-blocked bodies' many splits with 16 loads in

@@ -20,16 +20,15 @@
 // j (_fold_dw, :144-153, in f32) are layout devices of the TPU: each output
 // is still one f32 sum of its 9 * Cin products (dW: of its pixels' products)
 // rounded once, in another order. So these are the plain conv's and plain
-// dW's arithmetic, and the kernels here are instances of the conv bodies,
-// with MODE kPlain (conv3x3_body.cuh, as the gen-3 plain conv #30) and KIND
-// kDwPlain (conv3x3_dw_body.cuh), under names of their own (conv3x3_g2_*:
-// a profile family of their own):
-// * forward: f32 on FMAs (128 threads, a 16 x 16 pixel tile for 32 output
-//   channels; TF32 would round the products), bf16 on mma.sync m16n8k16
-//   (256 threads, 32 or 64 output channels). The input channels are walked
-//   in chunks of 16 staged in shared memory, so the block's footprint does
-//   not grow with the channels (39 KB f32, at most 47 KB bf16, at 1024 -> 1024
-//   as at 32 -> 32), with zeros past Cin or Cout and outside the image.
+// dW's arithmetic, and the kernels here are instances of the conv bodies
+// under names of their own (conv3x3_g2_*: a profile family of their own):
+// * forward: the plain conv's bodies (conv3x3_plain_body.cuh, as the gen-3
+//   plain conv #30, whose note gives the bounds and the design): bf16 the
+//   ring body's kPlain MODE (persistent blocks, a TMA ring of windows,
+//   resident weights where they fit, the products on wgmma with A from
+//   registers), f32 a register-blocked FMA body (a three-stage cp.async
+//   ring, 16 pixels x COT / 8 channels a thread; TF32 would round the
+//   products), each with the wrapper's schedule.
 // * dW (redesigned for the H100): a block per channel tile of all nine
 //   taps, the pixel tiles split over gridDim.z blocks, one wave of resident
 //   blocks; each block writes its own partial dW, which sum_splits_kernel
@@ -50,20 +49,14 @@
 // 32 -> 32 standard body in bf16: 38.7 GFLOP, 39 us on the tensor cores,
 // against 268 MB, 80 us: bytes.
 
-#include "conv3x3_body.cuh"
 #include "conv3x3_dw_body.cuh"
+#include "conv3x3_plain_body.cuh"
 
 namespace cltorch {
 namespace {
 
-__global__ void __launch_bounds__(kConvThreads) conv3x3_g2_kernel(ConvArgs<float> p) {
-  conv3x3_fma_body<kPlain>(p);
-}
-
-template <int COT>
-__global__ void __launch_bounds__(kMmaThreads) conv3x3_g2_mma_kernel(ConvArgs<bf16> p) {
-  conv3x3_mma_body<kPlain, COT>(p);
-}
+// #40: the plain conv's instances (conv3x3_plain_body.cuh)
+CLTORCH_PLAIN_KERNELS(conv3x3_g2_plain)
 
 template <int CI_T, int CO_T>
 __global__ void __launch_bounds__(RingTile<CI_T, CO_T>::kThreads, RingTile<CI_T, CO_T>::kMinBlocks)
@@ -92,26 +85,20 @@ extern "C" {
 
 // #40: x [B, H, W, Cin] -> y [B, H, W, Cout]; w [3, 3, Cout, Cin] for bf16
 // and [Cin, 3, 3, Cout] for f32 (for the dx: the flipped, channel-swapped
-// weight, dy in and dx out).
+// weight, dy in and dx out); cot, ck, resident and blocks the wrapper's
+// schedule, as for cltorch_conv3x3_fwd (#30). One launch.
 int cltorch_conv3x3_g2_fwd(const void* x, const void* w, void* y, int B, int H, int W, int Cin,
-                           int Cout, int is_bf16, void* stream) {
+                           int Cout, int is_bf16, int cot, int ck, int resident, int blocks,
+                           void* stream) {
   using namespace cltorch;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
-  if (!is_bf16) {
-    conv3x3_g2_kernel<<<dim3(tiles, (Cout + kCoT - 1) / kCoT, B), kConvThreads, 0, st>>>(
-        conv_args<float>(x, nullptr, nullptr, nullptr, w, nullptr, nullptr, nullptr, y,
-                         nullptr, H, W, Cin, Cout, 0));
-  } else if (Cout % 64 == 0) {
-    conv3x3_g2_mma_kernel<64><<<dim3(tiles, Cout / 64, B), kMmaThreads, 0, st>>>(
-        conv_args<bf16>(x, nullptr, nullptr, nullptr, w, nullptr, nullptr, nullptr, y,
-                        nullptr, H, W, Cin, Cout, 0));
-  } else {
-    conv3x3_g2_mma_kernel<32><<<dim3(tiles, (Cout + 31) / 32, B), kMmaThreads, 0, st>>>(
-        conv_args<bf16>(x, nullptr, nullptr, nullptr, w, nullptr, nullptr, nullptr, y,
-                        nullptr, H, W, Cin, Cout, 0));
-  }
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ConvArgs<bf16> pb = conv_args<bf16>(x, nullptr, nullptr, nullptr, w, nullptr, nullptr,
+                                            nullptr, y, nullptr, H, W, Cin, Cout, 0);
+#define CLTORCH_G2_PLAIN_RING(COT, CK) CLTORCH_PLAIN_RING_RUN(conv3x3_g2_plain, COT, CK)
+#define CLTORCH_G2_PLAIN_FMA(COT) CLTORCH_PLAIN_FMA_RUN(conv3x3_g2_plain, COT)
+  CLTORCH_PLAIN_DISPATCH(CLTORCH_G2_PLAIN_RING, CLTORCH_G2_PLAIN_FMA)
+#undef CLTORCH_G2_PLAIN_RING
+#undef CLTORCH_G2_PLAIN_FMA
 }
 
 // #41: x [B, H, W, Cin], dy [B, H, W, Cout] -> dw f32 [Cout, Cin, 3, 3];

@@ -1,8 +1,11 @@
-// The bf16 ring body of the packed conv's forward (#32) and dx (#34, #35):
-// conv_ring_body<MODE, COT, CK, EPI>, instanced for kFwd and kDx only
-// (conv3x3_ring.cu). It replaces, for those two, the first body
-// (conv3x3_body.cuh::conv3x3_mma_body), which still serves the plain conv
-// (#30, #40) and the dx from int8 (#38).
+// The bf16 ring body of the packed conv's forward (#32) and dx (#34, #35),
+// and of the plain conv (#30, #40): conv_ring_body<MODE, COT, CK, EPI>,
+// instanced for kFwd and kDx (conv3x3_ring.cu) and kPlain (conv3x3_bn.cu,
+// conv3x3_g2.cu, through conv3x3_plain_body.cuh). It replaces, for those,
+// the first body (conv3x3_body.cuh::conv3x3_mma_body), which still serves
+// the dx from int8 (#38). kPlain forms nothing (no prologue, no e), sums
+// nothing and keeps no vectors; it runs a ring of three stages and its
+// products on wgmma (below).
 //
 // TPU kernels: cl_tpu/pallas/conv3x3_v3.py::_fwd_bn_kernel (launched at
 // conv3x3_v3.py:833), ::_dx_slim_kernel (:1233) and ::_dx_bn_kernel (:1259).
@@ -81,12 +84,17 @@
 // The tile: 256 threads, 8 warps, a 16 x 16 pixel tile; warp w owns output
 // rows 2w and 2w + 1 (two m16 tiles, one image row each) and all COT
 // channels, mma.sync m16n8k16 with f32 accumulation, as the first body.
-// wgmma is not used: its M of 64 rows would need 64 contiguous pixels of a
-// row in a window (or a layout whose one-pixel tap shift is a descriptor
-// offset under the swizzle), and the dx keeps mma.sync's per-output order
-// (below); the forward shares the body. mma.sync runs at ~3.4 cycles an
-// m16n8k16 an SM here (the forward at 128^2 without its prologue), which
-// holds levels 1 and 2 at ~3.6x their bounds.
+// The forward and the dx stay on mma.sync: the dx keeps mma.sync's
+// per-output order (below), and the forward shares the body. mma.sync runs
+// at ~3.4 cycles an m16n8k16 an SM here (the forward at 128^2 without its
+// prologue), which holds levels 1 and 2 at ~3.6x their bounds. The plain
+// conv (kPlain), whose bits nothing else repeats, takes wgmma with A from
+// registers: warp w of a warpgroup supplies rows 16w .. 16w + 15 of the
+// 64-row A as mma.sync's A fragment, which the ldmatrix.x4 here loads at
+// any tap offset, so no 64 contiguous pixels are needed (wgmma with A in
+// shared memory would need them, or a layout whose one-pixel tap shift is
+// a descriptor offset under the swizzle); B is the tap's weight slice by
+// descriptor (wgmma.cuh::wg_desc's 32- and 64-byte swizzles).
 //
 // Why the dx's order is fixed: the one-pass backward (#37) must give
 // #34/#35's bits (chip_smoke.compare_fused), as the pipelined dx (34p/35p,
@@ -107,12 +115,14 @@
 
 #include "conv3x3_body.cuh"
 #include "conv3x3_tma.cuh"
+#include "wgmma.cuh"
 
 namespace cltorch {
 namespace {
 
 constexpr int kRingConvThreads = 256;  // 8 warps x 2 output rows of a 16 x 16 tile
 constexpr int kRingConvStages = 2;     // the products of one, the copies of the next
+constexpr int kPlainStages = 3;        // kPlain: the products of one, the copies of two
 constexpr int kRingConvWin = kWinH * kWinW;  // window pixels
 
 // The launch's schedule and staging, as the wrapper picks them
@@ -159,6 +169,19 @@ __host__ __device__ constexpr int conv_ring_smem(bool dx, bool stats, bool resid
          (y_win ? Tile::kWinB : 0) + (xbuf ? Tile::kXB : 0) + 4 * floats + 40;
 }
 
+// Dynamic shared bytes of a plain launch (kPlain; mirrored by
+// conv3x3.conv_plain_smem): the alignment slack, the resident weights or
+// none, kPlainStages stages (each the window and, without resident
+// weights, its weight chunk), then their mbarriers and three more; no
+// vectors and no sums.
+template <int COT, int CK>
+__host__ __device__ constexpr int conv_plain_smem(bool resident, int Cin) {
+  using Tile = ConvRingTile<COT, CK>;
+  const int nch = (Cin + CK - 1) / CK;
+  return 1024 + (resident ? nch * Tile::kWchB : 0) +
+         kPlainStages * (Tile::kWinB + (resident ? 0 : Tile::kWchB)) + 8 * (kPlainStages + 3);
+}
+
 // Byte offset of the 16-byte piece q of row r in rows of CK bf16, swizzled
 // as TMA's 32- or 64-byte swizzle writes them (tm_swizzle): the piece is
 // XORed with the row's address bits 7 and up.
@@ -171,11 +194,13 @@ template <int MODE, int COT, int CK, bool EPI>
 __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const RingArgs& ra,
                                                const CUtensorMap* tm_in, const CUtensorMap* tm_y,
                                                const CUtensorMap* tm_w, const CUtensorMap* tm_x) {
-  static_assert(MODE == kFwd || MODE == kDx, "the ring body is the forward and the dx only");
+  static_assert(MODE == kFwd || MODE == kDx || MODE == kPlain,
+                "the ring body is the forward, the dx and the plain conv");
   using Tile = ConvRingTile<COT, CK>;
   constexpr bool DX = MODE == kDx;
+  constexpr bool PLAIN = MODE == kPlain;  // no transform, no sums: y stored
   constexpr bool DXP = DX && EPI;  // #35: the dx with the prologue's epilogue
-  constexpr int NT = COT / 8, QC = CK / 8, S = kRingConvStages;
+  constexpr int NT = COT / 8, QC = CK / 8, S = PLAIN ? kPlainStages : kRingConvStages;
   constexpr int kWinB = Tile::kWinB, kWchB = Tile::kWchB;
   extern __shared__ __align__(16) unsigned char conv_ring_smem_raw[];
   unsigned char* base =
@@ -192,8 +217,8 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
   const bool xbuf = DXP && ra.xbuf;
   unsigned char* x_s = y_s + (y_win ? kWinB : 0);  // #35: the tile's x [16 x 16][COT]
   float* va = reinterpret_cast<float*>(x_s + (xbuf ? Tile::kXB : 0));  // a or ds1, over nch * CK
-  float* vb = va + nch * CK;                                  // b or ds2
-  float* xa = vb + nch * CK;                                  // dx epilogue: a, b over COT
+  float* vb = va + (PLAIN ? 0 : nch * CK);                    // b or ds2
+  float* xa = vb + (PLAIN ? 0 : nch * CK);                    // dx epilogue: a, b over COT
   float* xb = xa + (DX ? COT : 0);
   // the warps' sums of a tile, in two slots (tile parity): a tile's are
   // summed after the next barrier, while the next tile's are written
@@ -201,7 +226,8 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
       reinterpret_cast<float(*)[kRingConvThreads / 32][2][COT]>(xb + (DX ? COT : 0));
   float* tsum = reinterpret_cast<float*>(red + 2);  // forward: [2][COT]
   // the stages', the weights', the y window's and the x tile's mbarriers
-  uint64_t* bars = reinterpret_cast<uint64_t*>(tsum + (DX ? 0 : 2 * COT));
+  uint64_t* bars = PLAIN ? reinterpret_cast<uint64_t*>(va)
+                         : reinterpret_cast<uint64_t*>(tsum + (DX ? 0 : 2 * COT));
   constexpr int kBarW = S, kBarY = S + 1, kBarX = S + 2;
 
   const int co0 = blockIdx.y * COT;
@@ -215,12 +241,12 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
   const int n_stages = my_tiles * nch;
 
   // the per-channel vectors, zero past the channels (t and e stay 0 there)
-  for (int c = threadIdx.x; c < nch * CK; c += kRingConvThreads) {
+  for (int c = threadIdx.x; c < (PLAIN ? 0 : nch * CK); c += kRingConvThreads) {
     const bool on = c < Cin && (DX ? stats : p.prologue != 0);
     va[c] = on ? (DX ? p.s1[c] : p.pa[c]) : 0.f;
     vb[c] = on ? (DX ? p.s2[c] : p.pb[c]) : 0.f;
   }
-  for (int c = threadIdx.x; c < COT; c += kRingConvThreads) {
+  for (int c = threadIdx.x; c < (PLAIN ? 0 : COT); c += kRingConvThreads) {
     if constexpr (DX) {
       const bool on = DXP && co0 + c < Cout;
       xa[c] = on ? p.pa[co0 + c] : 0.f;
@@ -341,6 +367,14 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
   };
 
   float acc[2][NT][4];
+  if constexpr (PLAIN) {  // defined before the first product (which overwrites them)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.f;
+  }
   // The products of stage k: its 16-channel chunks below Cin in order, each
   // the nine taps in order, one mma.sync per (tap, n-tile, m-tile).
   auto products = [&](int k) {
@@ -376,7 +410,49 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
       }
     }
   };
-  constexpr bool sums = !DX || EPI;
+  // The products of stage k for the plain conv, on wgmma with A from
+  // registers: per 16-channel chunk below Cin and tap, each warpgroup
+  // multiplies its two 64-row A tiles (m: row 2 warp + m of each of its
+  // four warps, loaded by the ldmatrix.x4 above at the tap's shift) by the
+  // tap's [COT][16] weight slice, read by descriptor from its rows of CK
+  // bf16 under the 32- or 64-byte swizzle (the chunk's k16 a 32-byte step
+  // of the start). A tap's A goes into the next of three register buffers
+  // (nine taps a chunk: a tap's buffer is its own across chunks and
+  // stages) once the products that read it three taps before are done,
+  // while the two taps between run; a tile's first product overwrites the
+  // accumulators. Only weights that travel with the stage are waited for
+  // before the stage's slot is copied over; the tile's epilogue waits for
+  // all of them (wg_wait).
+  uint32_t wa[3][2][4];
+  auto products_wg = [&](int k) {
+    const unsigned char* st = ring + (k % S) * stage_b;
+    const unsigned char* ws = ra.resident ? w_res + (k % nch) * kWchB : st + kWinB;
+    const int left = Cin - (k % nch) * CK;
+    constexpr int kLayout = CK == 16 ? 3 : 2;  // the 32- or 64-byte swizzle
+#pragma unroll
+    for (int j = 0; j < CK / 16; ++j) {
+      if (j * 16 >= left) break;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int ky = tap / 3, kx = tap % 3, buf = tap % 3;
+        wg_wait<2>();  // the products that read wa[buf] are done
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int pix = (warp * 2 + m + ky) * kWinW + kx + (li & 1) * 8 + lr;
+          ldmatrix_x4(wa[buf][m], st + ring_at<CK>(pix, 2 * j + (li >> 1)));
+        }
+        const uint64_t bd = wg_desc(ws + tap * COT * CK * 2 + j * 32, 16, 8 * CK * 2, kLayout);
+        const int accumulate = k % nch != 0 || j != 0 || tap != 0;
+        wg_fence();
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          wgmma_rs<COT>(reinterpret_cast<float(&)[COT / 2]>(acc[m]), wa[buf][m], bd, accumulate);
+        wg_commit();
+      }
+    }
+    if (!ra.resident) wg_wait<0>();  // the slot's weights are copied over next
+  };
+  constexpr bool sums = !PLAIN && (!DX || EPI);
   // The tile of stage k: y (forward) or dx stored, and the sums: the
   // forward's added to the block's row, the dx's (da, db with the prologue)
   // written as the tile's partial row, as mma_epilogue sums them.
@@ -425,7 +501,10 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
           const int64_t pix = img + (int64_t)gy * W + gx;
           const float d0 = acc[m][n][hp * 2], d1 = acc[m][n][hp * 2 + 1];
           bf16 r0 = __float2bfloat16(0.f), r1 = r0;
-          if constexpr (!DX) {
+          if constexpr (PLAIN) {
+            r0 = __float2bfloat16(d0);
+            r1 = __float2bfloat16(d1);
+          } else if constexpr (!DX) {
             r0 = __float2bfloat16(d0);
             r1 = __float2bfloat16(d1);
             const float y0 = __bfloat162float(r0), y1 = __bfloat162float(r1);
@@ -501,21 +580,23 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
     }
   };
 
-  // The ring: the copies of stage k + 1 (and its y window) land while the
+  // The ring: the copies of stage k + S - 1 (and its y window) land while the
   // products of stage k run; then stage k + 1 is transformed in place, and
   // the tile of stage k, if complete, stored.
-  issue(0);
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) issue(i);
   if (ra.tma && ra.resident && n_stages > 0) mbar_wait(smem_u32(&bars[kBarW]), 0);
   if (form && n_stages > 0) transform(0);
   for (int k = 0; k < n_stages; ++k) {
     if (ra.tma) mbar_wait(smem_u32(&bars[k % S]), (k / S) & 1);  // stage k has landed
     // this thread's reads and writes of the ring and the x tile, before TMA's
-    if (ra.tma || xbuf) fence_proxy_async();
+    // (and the plain conv's resident weights by plain loads, before wgmma's)
+    if (ra.tma || xbuf || PLAIN) fence_proxy_async();
     // stage k is formed (and stored, by plain loads), and every warp is past
-    // the products of stage k - 1, whose slot takes stage k + 1, the
+    // the products of stage k - 1, whose slot takes stage k + S - 1, the
     // transform that read the y window and the epilogue that read x
     __syncthreads();
-    issue(k + 1);
+    issue(k + S - 1);
     if (sums && k >= nch && k % nch == 0) sum_tile(k - 1);  // the last tile's sums
     if (xbuf && k % nch == 0 && threadIdx.x == 0) {  // #35: the tile's x, for its epilogue
       int b, rem, gy0, gx0, ci0;
@@ -524,7 +605,7 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
       mbar_expect_tx(xbar, Tile::kXB);
       tma_load_4d(x_s, tm_x, co0, gx0, gy0, b, xbar);
     }
-    if (k % nch == 0) {
+    if (!PLAIN && k % nch == 0) {
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -532,14 +613,23 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.f;
     }
-    products(k);
+    if constexpr (PLAIN) {
+      products_wg(k);
+      if (k % nch == nch - 1) {  // the tile's products, before its epilogue reads them
+        wg_wait<0>();
+#pragma unroll
+        for (int m = 0; m < 2; ++m) wg_fence_regs(reinterpret_cast<float(&)[COT / 2]>(acc[m]));
+      }
+    } else {
+      products(k);
+    }
     // the next stage's transform first: the tile's x copy has longer to land
     if (form && k + 1 < n_stages) transform(k + 1);
     if (k % nch == nch - 1) epilogue(k);
   }
   __syncthreads();
   if (sums && n_stages > 0) sum_tile(n_stages - 1);
-  if constexpr (!DX) {  // the block's row of the forward's sums
+  if constexpr (!DX && !PLAIN) {  // the block's row of the forward's sums
     for (int i = threadIdx.x; i < 2 * COT; i += kRingConvThreads) {
       const int which = i / COT, co = i % COT;
       if (co0 + co < Cout)

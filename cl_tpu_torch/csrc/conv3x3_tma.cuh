@@ -1,14 +1,15 @@
 // The Tensor Memory Accelerator (TMA) and its mbarriers, shared by the
-// packed conv's ring kernels: the forward and dx (conv3x3_ring.cu,
+// conv's ring kernels: the forward and dx (conv3x3_ring.cu,
 // conv3x3_ring_body.cuh) and the dW (conv3x3_bn_bwd.cu, conv3x3_dw_body.cuh);
 // and by the up-conv's forward (upconv.cu).
 //
 // Device side: one thread asks for a box of a tensor map to be copied into
 // shared memory; the copy counts its bytes against an mbarrier's expected
 // transaction, and the threads that read the box wait on the barrier's
-// phase. Host side: the maps of bf16 NHWC activations and of the packed
-// conv's weights, encoded by cuTensorMapEncodeTiled as the CUDA runtime looks
-// it up (no link against libcuda).
+// phase. Host side: the maps of bf16 NHWC activations and of the conv's
+// weights, encoded by cuTensorMapEncodeTiled as the CUDA runtime looks it up
+// (no link against libcuda); and a kernel's dynamic shared memory allowed
+// once, and what the card gives it (kernel_info).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
@@ -186,6 +187,53 @@ cudaError_t tm_rows(CUtensorMap* m, const void* p, int64_t rows, int cols, int b
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   return tm_tiled(m, p, 2, dims, strides, box, 64);
+}
+
+// Host side: the kernels' launch attributes, shared by the translation
+// units that instance the ring and register-blocked bodies.
+
+// A kernel as the runtime's C functions take it.
+template <typename K>
+inline const void* kernel_ptr(K* kernel) {
+  return reinterpret_cast<const void*>(kernel);
+}
+
+// A kernel's dynamic shared memory above 48 KB, allowed once per kernel
+// and device (under a lock: the backward launches from autograd's thread).
+inline cudaError_t smem_allowed(const void* kernel, int bytes) {
+  constexpr int kSlots = 64;
+  static const void* kernels[kSlots] = {};
+  static int devices[kSlots] = {};
+  static int n = 0;
+  static std::mutex lock;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < n; ++i)
+    if (kernels[i] == kernel && devices[i] == dev) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && n < kSlots) {
+    kernels[n] = kernel;
+    devices[n++] = dev;
+  }
+  return err;
+}
+
+// What the card gives a kernel of `threads` threads and `smem` dynamic
+// shared bytes: out = {resident blocks an SM, registers a thread, local
+// (spilled) bytes a thread, smem}.
+inline int kernel_info(const void* kernel, int threads, int smem, int* out) {
+  cudaError_t err = smem_allowed(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, smem);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = smem;
+  return (int)err;
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
-// Hopper's warpgroup matrix multiply (wgmma) on operands in shared memory,
-// shared by the packed conv's dW ring (conv3x3_dw_body.cuh, both operands
-// MN-major) and the up-conv's forward (upconv.cu, both K-major).
+// Hopper's warpgroup matrix multiply (wgmma), shared by the packed conv's
+// dW ring (conv3x3_dw_body.cuh, both operands MN-major in shared memory),
+// the up-conv's forward (upconv.cu, both K-major) and the plain conv's
+// bf16 ring (conv3x3_ring_body.cuh, kPlain: A from registers, B K-major).
 #pragma once
 
 #include "conv3x3_tma.cuh"  // smem_u32
@@ -8,12 +9,18 @@
 namespace cltorch {
 namespace {
 
-// A shared-memory matrix descriptor with the 128-byte swizzle (start, LBO,
-// SBO, each >> 4; layout type 1).
-__device__ __forceinline__ uint64_t wg_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+// A shared-memory matrix descriptor (start, LBO, SBO, each >> 4) with the
+// swizzle of `layout`: 1 the 128-byte swizzle (the default), 2 the 64-byte,
+// 3 the 32-byte (the layout types of the descriptor's bits 62-63). A
+// K-major operand under a swizzle has rows of 128, 64 or 32 bytes, 8-row
+// groups SBO bytes apart and LBO 16 (unused); a k16 step inside a row adds
+// 32 bytes to the start, the rows' base being aligned to the swizzle's
+// span (8 rows).
+__device__ __forceinline__ uint64_t wg_desc(const void* smem, uint32_t lbo, uint32_t sbo,
+                                            int layout = 1) {
   const uint32_t a = smem_u32(smem);
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
 }
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -62,6 +69,77 @@ __device__ __forceinline__ void wgmma_n64_k(float (&d)[32], uint64_t a, uint64_t
                ", %32, %33, p, 1, 1, 0, 0;\n}\n"
                : CLTORCH_WG_N64_OUT(d)
                : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x N] += A[64 x 16] B[16 x N] (d = A B where `accumulate` is 0) with
+// A from registers (wgmma's RS form), bf16 in, f32 accumulators; B K-major
+// in shared memory (its N rows of 16 k, imm-trans-b 0). Warp w of the
+// warpgroup supplies rows 16w .. 16w + 15 of A as mma.sync's m16 x k16 A
+// fragment (a[0..3]: rows g and g + 8, k 2t.. and 2t + 8..); lane (g, t)
+// holds d[4j + v] = D[16w + g + (v / 2) * 8][8j + 2t + v % 2], as
+// mma.sync's accumulators of n-tile j. The A registers must not change
+// until the product has completed (wg_wait), and a wg_fence must come
+// between their writes and the product.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                                  int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+               "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                                  int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+               "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                 "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                 "+f"(d[30]), "+f"(d[31])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                                  int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+               "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+               "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+               "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+               "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                 "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                 "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+                 "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+                 "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+                 "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                 "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// Waits until at most N committed groups of this warpgroup's products are
+// in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 #undef CLTORCH_WG_N64_D

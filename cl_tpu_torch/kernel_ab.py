@@ -11,13 +11,14 @@ backward ones too; or ``head_ce_bn_fwd`` / ``head_ce_bn_bwd``, the packed
 head's forward #7 and backward #8; or the switches' ``conv3x3_bn_bwd_fused``
 (#37), ``conv3x3_bn_dx_pipe`` / ``conv3x3_bn_dx_bn_pipe`` (34p/35p), the
 int8 dW ``conv3x3_bn_dw_q`` (#39), the two-pass dW ``conv3x3_dw_bn``
-(#33), the gen-3 dW ``conv3x3_dw`` (#31) and the gen-2 dW
-``conv3x3_g2_dw`` (#41); or the Fisher accumulation ``ewc_sq_acc`` (#19)) at every
-shape of that
+(#33), the gen-3 plain conv ``conv3x3_fwd`` (#30) and its dW
+``conv3x3_dw`` (#31), the gen-2 plain conv ``conv3x3_g2_fwd`` (#40) and
+its dx ``conv3x3_g2_dx`` and the gen-2 dW ``conv3x3_g2_dw`` (#41); or the
+Fisher accumulation ``ewc_sq_acc`` (#19)) at every shape of that
 checkout's 512² path (``chip_smoke.PACKED_PATH``, ``SWITCH_PATH``,
 ``Q_PATH``; #33 at level 3's two-pass shape of the 22 MiB budget,
-``LEVEL3_TWO_PASS``, and with ``--f32`` at ``V3_SHAPES``; #31 at
-``V3_SHAPES``; #41 at ``G2_SHAPES``; #19 at ``EWC_N``, f32, on
+``LEVEL3_TWO_PASS``, and with ``--f32`` at ``V3_SHAPES``; #30 and #31 at
+``V3_SHAPES``; #40 and #41 at ``G2_SHAPES``; #19 at ``EWC_N``, f32, on
 ``chip_smoke.ewc_operands``; bf16, batch 8; #7 and #8 at
 ``HEAD_SHAPE`` on
 ``chip_smoke.bn_case``'s operands)
@@ -30,8 +31,11 @@ queued back to back, once synchronised after each, and once queued behind
 a card sleep (``time_ms_slept``: the host's issue then stays out of the
 card's time); and for #37, 34p and #19 the one PyTorch call that computes
 the same function (``library``: cuDNN's ``convolution_backward``, in f32
-without TF32 as ``chip_smoke.py`` runs it; ``addcmul_``) behind a card
-sleep in every turn. Prints each turn's build time (the first turn of a checkout
+without TF32 as ``chip_smoke.py`` runs it; ``addcmul_``; ``F.conv2d`` for
+#30 and #40) behind a card sleep in every turn; and for #30 and #40 in bf16
+the yardstick of their ring design, the packed conv's ring forward
+without the prologue (``conv3x3.launch_conv_bn``, which also sums the
+statistics) on the same operands, behind a card sleep in every turn. Prints each turn's build time (the first turn of a checkout
 builds its kernels), per kernel and shape the two versions' medians over
 their turns and each turn's card-sleep reading in the order run (their
 spread), the sums over one packed step, and the card's ``nvidia-smi``
@@ -49,7 +53,8 @@ five steps issued while the card sleeps), three readings a turn.
 
 compiles ``cl_tpu_torch/csrc/SOURCE`` of each checkout as the build does,
 with ``-Xptxas -v``, and prints each kernel's registers and spilled bytes
-(those whose name holds NAME): no card is needed, only ``nvcc``.
+(those whose name holds NAME) and any note that ptxas serialized their
+``wgmma`` or injected a wait for it: no card is needed, only ``nvcc``.
 """
 
 from __future__ import annotations
@@ -70,8 +75,10 @@ BACKWARD = ("conv3x3_bn_dw", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "upconv_dx", "
 HEAD = ("head_ce_bn_fwd", "head_ce_bn_bwd")
 OTHER = ("conv3x3_bn_bwd_fused", "conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe", "conv3x3_bn_dw_q",
          "conv3x3_dw_bn")
-GEN3 = ("conv3x3_dw",)  # the gen-3 conv's dW (#31), off the packed path
-GEN2 = ("conv3x3_g2_dw",)  # the gen-2 conv's dW (#41), off the packed path
+GEN3 = ("conv3x3_dw", "conv3x3_fwd")  # the gen-3 conv's dW (#31) and plain conv (#30)
+# the gen-2 conv's dW (#41), its plain conv (#40) as a forward and as a dx
+GEN2 = ("conv3x3_g2_dw", "conv3x3_g2_fwd", "conv3x3_g2_dx")
+PLAIN = ("conv3x3_fwd", "conv3x3_g2_fwd", "conv3x3_g2_dx")  # #30 and #40
 SWITCHED = OTHER[:3]  # #37 and 34p/35p: chip_smoke.switch_fns's kernels
 METHODS = ("ewc_sq_acc",)  # the Fisher pass's accumulation (#19)
 # #19's length: baseline_5's flat parameters (UNet-32, depth 4), f32
@@ -94,15 +101,15 @@ def check_names(kernels) -> None:
 
 def shapes(smoke, kernel, dtype_name="bfloat16"):
     """[(shape, launches a step), ...] of one kernel on the headline step;
-    #33 in f32, #31 and #41 at their phase-6 shapes, once each; #19 eight
-    times, once a Fisher batch."""
+    #33 in f32, #30, #31, #40 and #41 at their phase-6 shapes, once each;
+    #19 eight times, once a Fisher batch."""
     if kernel in METHODS:
         return [((EWC_N,), 8)]
     if kernel in HEAD:
         return [(HEAD_SHAPE, 1)]
-    if kernel == "conv3x3_g2_dw":
+    if kernel in GEN2:
         return [(shape, 1) for shape in smoke.G2_SHAPES[kernel]]
-    if kernel == "conv3x3_dw":
+    if kernel in GEN3:
         return [(shape, 1) for shape in smoke.V3_SHAPES[kernel]]
     if kernel == "conv3x3_dw_bn":
         return [(shape, 1) for shape in smoke.V3_SHAPES[kernel]] if dtype_name == "float32" \
@@ -132,9 +139,9 @@ def dispatch(smoke, kernel, dtype_name="bfloat16"):
     if kernel in FORWARD:
         return smoke.packed_fns(kernel)[0], \
             lambda shape: smoke.packed_operands(kernel, shape, dtype_name)
-    if kernel in ("conv3x3_dw_bn", "conv3x3_dw"):
+    if kernel in ("conv3x3_dw_bn",) + GEN3:
         return smoke.v3_fns(kernel)[0], lambda shape: smoke.v3_operands(kernel, shape, dtype_name)
-    if kernel == "conv3x3_g2_dw":
+    if kernel in GEN2:
         return smoke.g2_fns(kernel)[0], lambda shape: smoke.g2_operands(kernel, shape, dtype_name)
     if kernel == "conv3x3_bn_dw_q":
         return smoke.q_fns(kernel)[0], lambda shape: smoke.q_operands(shape, dtype_name)
@@ -151,10 +158,27 @@ def library(smoke, kernel):
     """The one PyTorch call that computes a kernel's function on its
     ``dispatch`` operands, timed beside it (never used by the port), or
     None: cuDNN's ``convolution_backward`` for #37 and 34p, ``addcmul_``
-    for #19."""
+    for #19, ``F.conv2d`` for #30 and #40 (of dy with the flipped,
+    channel-swapped weight for #40's dx)."""
     if kernel in METHODS:
         return lambda acc, g: acc.addcmul_(g, g)
+    if kernel in PLAIN:
+        return (smoke.v3_fns if kernel == "conv3x3_fwd" else smoke.g2_fns)(kernel)[2]
     return smoke.switch_fns(kernel)[2] if kernel in SWITCHED else None
+
+
+def yardstick(kernel, dtype_name):
+    """#30's and #40's yardstick in bf16 on their ``dispatch`` operands (x,
+    w), or None: the packed conv's ring forward without the prologue
+    (``conv3x3.launch_conv_bn``, the statistics summed too) on the same
+    conv, the weight flipped and channel-swapped for #40's dx."""
+    if kernel not in PLAIN or dtype_name != "bfloat16":
+        return None
+    from cl_tpu_torch.kernels import conv3x3
+
+    if kernel == "conv3x3_g2_dx":
+        return lambda dy, w: conv3x3.launch_conv_bn(dy, conv3x3._flip_t(w))
+    return lambda x, w: conv3x3.launch_conv_bn(x, w)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
@@ -232,7 +256,8 @@ def _host_issue_worker(root):
 def _worker(root, kernels, dtype_name="bfloat16"):
     """One turn in checkout ``root``: {kernel: [[shape, n per step, queued
     ms, synchronised ms, slept ms, and the library's slept ms where
-    ``library`` has one], ...], "build_s": seconds} as one JSON line."""
+    ``library`` has one, then the yardstick's where ``yardstick`` has
+    one], ...], "build_s": seconds} as one JSON line."""
     _use_checkout(root)
     import time
 
@@ -252,13 +277,15 @@ def _worker(root, kernels, dtype_name="bfloat16"):
     for kernel in kernels:
         launch, operands = dispatch(chip_smoke, kernel, dtype_name)
         lib = library(chip_smoke, kernel)
+        ring = yardstick(kernel, dtype_name)
         for shape, n in shapes(chip_smoke, kernel, dtype_name):
             ops = operands(shape)
             out.setdefault(kernel, []).append(
                 [list(shape), n, time_ms(lambda: launch(*ops)),
                  time_ms(lambda: launch(*ops), queued=False),
                  time_ms_slept(lambda: launch(*ops))]
-                + ([] if lib is None else [time_ms_slept(lambda: lib(*ops))]))
+                + ([] if lib is None else [time_ms_slept(lambda: lib(*ops))])
+                + ([] if ring is None else [time_ms_slept(lambda: ring(*ops))]))
     print(json.dumps(out))
 
 
@@ -285,6 +312,9 @@ def _ptxas(dirs, source, name):
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 fn = m.group(1)
+                continue
+            if ("serialized" in line or "wait is injected" in line) and name in line:
+                print(f"{which}: {line.strip()}")  # ptxas held a kernel's wgmma back
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and fn is not None:
@@ -354,6 +384,11 @@ def main(argv) -> int:
                                        for t in turns[w]]))
                 sums["library"] = sums.get("library", 0.0) + n * lib
                 row.append(f"library (card sleep) {lib:.4f}")
+            if len(turns["new"][0][kernel][i]) > 6:  # the yardstick, each checkout's
+                for which in ("old", "new"):
+                    ring = [t[kernel][i][6] for t in turns[which]]
+                    row.append(f"{which} ring forward (card sleep) {np.median(ring):.4f} "
+                               f"(turns {' '.join(f'{v:.4f}' for v in ring)})")
             print(f"{kernel}{shape} {dtype_name} x{n}/step: " + ", ".join(row))
         print(f"{kernel} per step: " + ", ".join(
             f"{w} {v:.4f} ms (card sleep)" if w == "library" else

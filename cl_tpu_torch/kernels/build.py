@@ -69,12 +69,13 @@ SIGNATURES = {
     "cltorch_conv3x3_bn_bwd_fused": [P] * 13 + [I] * 7 + [P],
     "cltorch_conv3x3_bn_dw": [P] * 9 + [I] * 11 + [P],
     "cltorch_conv3x3_dw_ring_info": [I, I, P],
-    "cltorch_conv3x3_fwd": [P, P, P, I, I, I, I, I, I, P],
+    "cltorch_conv3x3_fwd": [P, P, P] + [I] * 10 + [P],
+    "cltorch_conv3x3_plain_info": [I] * 5 + [P],
     "cltorch_conv3x3_dw": [P] * 4 + [I] * 9 + [P],
     "cltorch_conv3x3_v3_dw_info": [I, I, I, P],
     "cltorch_conv3x3_dw_bn": [P] * 6 + [I] * 11 + [P],
     "cltorch_conv3x3_dw_bn_info": [I, I, I, P],
-    "cltorch_conv3x3_g2_fwd": [P, P, P, I, I, I, I, I, I, P],
+    "cltorch_conv3x3_g2_fwd": [P, P, P] + [I] * 10 + [P],
     "cltorch_conv3x3_g2_dw": [P] * 4 + [I] * 9 + [P],
     "cltorch_conv3x3_g2_dw_info": [I, I, I, P],
     "cltorch_conv3x3_bn_quant": [P, P, P] + [I] * 6 + [P],

@@ -89,7 +89,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from cl_tpu_torch.kernels import SPLIT_BLOCKS, build, one_wave_splits, resident_blocks
+from cl_tpu_torch.kernels import SM_COUNT, SPLIT_BLOCKS, build, one_wave_splits, resident_blocks
 from cl_tpu_torch.models import packed_gate
 from cl_tpu_torch.models.packed_gate import conv_bwd_branch, pick_pack
 
@@ -406,6 +406,138 @@ def conv_ring_blocks(cin, cout, B, H, W, dx, stats, prologue=False):
     return one_wave_splits(n_tiles, -(-cout // cot), blocks)
 
 
+# The plain conv's bodies (#30, #40: csrc/conv3x3_plain_body.cuh). bf16: the
+# ring body's kPlain MODE, the forward's 16 x 16 tiles in a ring of
+# PLAIN_STAGES stages, with no vectors and no sums in its shared memory.
+PLAIN_STAGES = 3
+
+
+def conv_plain_smem(cot, ck, resident, cin):
+    """Dynamic shared bytes of a plain ring launch, as ``conv_plain_smem``
+    in the CUDA body computes them: 1024 of alignment, the resident weights
+    (every chunk's [9][COT][CK]) or none, PLAIN_STAGES stages (each the
+    window's CK channels, 1024-byte rounded, and without resident weights
+    its weight chunk), their mbarriers and three more."""
+    win = -(-RING_CONV_WIN * ck * 2 // 1024) * 1024
+    wch = 9 * cot * ck * 2
+    nch = -(-cin // ck)
+    return (1024 + (nch * wch if resident else 0)
+            + PLAIN_STAGES * (win + (0 if resident else wch)) + 8 * (PLAIN_STAGES + 3))
+
+
+def conv_plain_min_blocks(cot):
+    """The plain ring instance's ``__launch_bounds__`` blocks an SM
+    (``PlainRing``): two up to 64 output channels, one at 128."""
+    return 1 if cot == 128 else 2
+
+
+def conv_plain_resources(cot, ck, resident, cin):
+    """(threads, dynamic shared bytes, resident blocks an SM) of a plain
+    ring launch."""
+    smem = conv_plain_smem(cot, ck, resident, cin)
+    return 256, smem, resident_blocks(smem, conv_plain_min_blocks(cot))
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plain_tile(cin, cout, n_tiles):
+    """(COT, CK, resident): the bf16 plain ring instance for a conv of
+    ``cin`` -> ``cout`` channels (the dx's: the forward's Cout -> Cin) over
+    ``n_tiles`` 16 x 16 pixel tiles. COT output channels a block, the
+    wgmma's N: 32, 64 or 128, the widest first up to Cout, but none whose
+    channel tiles times the pixel tiles would give fewer blocks than half
+    the SMs (the deep levels' few tiles), unless it is the narrowest; CK
+    input channels a stage: 32 where the window loads by TMA (Cin a
+    multiple of 8) and is wider than 16, else 16. Of the (COT, resident,
+    CK) that fit shared memory, in that order (widest, resident weights,
+    wider stages first), the first that holds the instance's blocks an SM,
+    or the first at all where the blocks cannot fill the SMs at one an SM;
+    else the first that fits. Resident weights where they fit, else the
+    weights travel with each stage (TMA widths only): the card ran two
+    blocks an SM with travelling weights faster than one with resident
+    ones (PERF.md §6). Raises where nothing fits."""
+    tma = cin % 8 == 0
+    cots = [32] if cout <= 32 else [64, 32] if cout <= 64 else [128, 64, 32]
+    cots = [c for c in cots if 2 * n_tiles * -(-cout // c) >= SM_COUNT] or cots[-1:]
+    cks = [32, 16] if tma and cin > 16 else [16]
+    fits = [(cot, ck, resident) for cot in cots for resident in ((True, False) if tma else (True,))
+            for ck in cks if conv_plain_smem(cot, ck, resident, cin) <= RING_CONV_SMEM_MAX]
+    for cot, ck, resident in fits:
+        blocks = conv_plain_resources(cot, ck, resident, cin)[2]
+        if n_tiles * -(-cout // cot) <= SM_COUNT or blocks == conv_plain_min_blocks(cot):
+            return cot, ck, resident
+    if fits:
+        return fits[0]
+    raise ValueError(f"conv3x3 plain ring kernel: no tile fits a conv of {cin} -> {cout} "
+                     "channels in shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plain_blocks(cin, cout, B, H, W):
+    """Blocks a plain ring launch walks the 16 x 16 pixel tiles of its B
+    images with, for each tile of COT output channels: one wave of resident
+    blocks, each the same number of tiles."""
+    n_tiles = B * -(-H // TILE) * -(-W // TILE)
+    cot, ck, resident = conv_plain_tile(cin, cout, n_tiles)
+    blocks = conv_plain_resources(cot, ck, resident, cin)[2]
+    return one_wave_splits(n_tiles, -(-cout // cot), blocks)
+
+
+# f32: the register-blocked FMA body (``PlainFmaTile``): 128 threads, a 16 x
+# 16 pixel tile for COT output channels; a ring of PLAIN_FMA_STAGES stages
+# of PLAIN_FMA_CI input channels, each the window's channel planes
+# (PLAIN_FMA_PLANE floats: 18 rows of 20) and their weights [CI][9][COT].
+PLAIN_FMA_CI = 8
+PLAIN_FMA_STAGES = 3
+PLAIN_FMA_PLANE = (TILE + 2) * 20 + 4
+PLAIN_FMA_BLOCKS = {64: 2, 32: 3}
+
+
+def plain_fma_resources(cot):
+    """(threads, dynamic shared bytes, resident blocks an SM) of an f32
+    plain instance: the blocks its ``__launch_bounds__`` fits the registers
+    to, fewer if the shared memory says so."""
+    smem = PLAIN_FMA_STAGES * (PLAIN_FMA_CI * PLAIN_FMA_PLANE + PLAIN_FMA_CI * 9 * cot) * 4
+    return 128, smem, resident_blocks(smem, PLAIN_FMA_BLOCKS[cot])
+
+
+@functools.lru_cache(maxsize=None)
+def plain_fma_tile(cout, B, H, W):
+    """COT of the f32 plain instance: 64 (16 x 8 accumulators a thread)
+    where Cout is wider than 32 and its blocks fill one wave of the card,
+    else 32 (twice the blocks, for the small images of the deep levels)."""
+    blocks64 = B * -(-H // TILE) * -(-W // TILE) * -(-cout // 64)
+    return 64 if cout > 32 and blocks64 >= SM_COUNT * plain_fma_resources(64)[2] else 32
+
+
+def plain_schedule(cin, cout, B, H, W, bf16):
+    """(cot, ck, resident, blocks): the schedule the plain entry points
+    (#30's ``cltorch_conv3x3_fwd``, #40's ``cltorch_conv3x3_g2_fwd``) take;
+    f32 reads only cot."""
+    if bf16:
+        cot, ck, resident = conv_plain_tile(cin, cout, B * -(-H // TILE) * -(-W // TILE))
+        return cot, ck, int(resident), conv_plain_blocks(cin, cout, B, H, W)
+    return plain_fma_tile(cout, B, H, W), 0, 0, 0
+
+
+def launch_plain(entry, x, w, what):
+    """One launch of a plain conv entry point (``build.library()``'s
+    ``entry``): y [B, H, W, Cout] = conv3x3_SAME(x, w) in x's dtype, with
+    the schedule of ``plain_schedule``."""
+    _check_nhwc(x, what)
+    B, H, W, cin = x.shape
+    cout = w.shape[0]
+    if w.shape != (cout, cin, 3, 3):
+        raise ValueError(f"{what}: weight [Cout, {cin}, 3, 3] expected, got {tuple(w.shape)}")
+    bf16 = x.dtype == torch.bfloat16
+    wk = _kernel_weight(w, x.dtype)
+    y = torch.empty(B, H, W, cout, dtype=x.dtype, device=x.device)
+    err = getattr(build.library(), entry)(
+        x.data_ptr(), wk.data_ptr(), y.data_ptr(), B, H, W, cin, cout, int(bf16),
+        *plain_schedule(cin, cout, B, H, W, bf16), _stream(x))
+    build.check(err, what)
+    return y
+
+
 def conv_partials_shape(cin, cout, B, H, W, bf16):
     """The f32 partials [rows, 2, Cout] the forward's wrapper allocates: one
     row a block of the ring in bf16, one a 16 x 16 tile of each image in
@@ -716,20 +848,10 @@ def launch_conv_bwd_fused(x, w, a, b, y, dy, ds1, ds2, prologue, e_bf16=False, n
 
 
 def launch_conv3x3(x, w):
-    """#30 on the card: y = conv3x3_SAME(x, w) in x's dtype."""
-    _check_nhwc(x, "conv3x3 kernel")
-    B, H, W, cin = x.shape
-    cout = w.shape[0]
-    if w.shape != (cout, cin, 3, 3):
-        raise ValueError(f"conv3x3 kernel: weight [Cout, {cin}, 3, 3] expected, "
-                         f"got {tuple(w.shape)}")
-    wk = _kernel_weight(w, x.dtype)
-    y = torch.empty(B, H, W, cout, dtype=x.dtype, device=x.device)
-    err = build.library().cltorch_conv3x3_fwd(
-        x.data_ptr(), wk.data_ptr(), y.data_ptr(), B, H, W, cin, cout,
-        int(x.dtype == torch.bfloat16), _stream(x))
-    build.check(err, "conv3x3_fwd")
-    return y
+    """#30 on the card: y = conv3x3_SAME(x, w) in x's dtype, one launch of
+    the plain conv's bodies (the ring's kPlain MODE in bf16, the
+    register-blocked FMA body in f32) with ``plain_schedule``'s schedule."""
+    return launch_plain("cltorch_conv3x3_fwd", x, w, "conv3x3_fwd")
 
 
 def _dw_shape(x, e, what):

@@ -37,8 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from cl_tpu_torch.kernels import build
-from cl_tpu_torch.kernels.conv3x3 import _check_nhwc, _flip_t, _kernel_weight, _stream, \
-    dw_tiled_outputs
+from cl_tpu_torch.kernels.conv3x3 import _flip_t, _stream, dw_tiled_outputs, launch_plain
 from cl_tpu_torch.models.packed_gate import g2_supported
 
 LAUNCHES = {"conv3x3_g2_fwd": 0, "conv3x3_g2_dx": 0, "conv3x3_g2_dw": 0}
@@ -73,20 +72,10 @@ def conv3x3_g2_dw_plain(x, dy):
 
 
 def launch_conv3x3_g2(x, w):
-    """#40 on the card: y [B, H, W, Cout] = conv3x3_SAME(x, w) in x's dtype."""
-    _check_nhwc(x, "conv3x3_g2 kernel")
-    B, H, W, cin = x.shape
-    cout = w.shape[0]
-    if w.shape != (cout, cin, 3, 3):
-        raise ValueError(f"conv3x3_g2 kernel: weight [Cout, {cin}, 3, 3] expected, "
-                         f"got {tuple(w.shape)}")
-    wk = _kernel_weight(w, x.dtype)
-    y = torch.empty(B, H, W, cout, dtype=x.dtype, device=x.device)
-    err = build.library().cltorch_conv3x3_g2_fwd(
-        x.data_ptr(), wk.data_ptr(), y.data_ptr(), B, H, W, cin, cout,
-        int(x.dtype == torch.bfloat16), _stream(x))
-    build.check(err, "conv3x3_g2_fwd")
-    return y
+    """#40 on the card: y [B, H, W, Cout] = conv3x3_SAME(x, w) in x's dtype,
+    one launch of the plain conv's bodies (#30's, under gen-2 names) with
+    ``conv3x3.plain_schedule``'s schedule."""
+    return launch_plain("cltorch_conv3x3_g2_fwd", x, w, "conv3x3_g2_fwd")
 
 
 def launch_conv3x3_g2_dw(x, dy):

@@ -356,3 +356,31 @@ def test_kernel_ab_host_issue_turns_take_two_checkouts():
     assert (cfg.data.image_size, cfg.data.batch_size, cfg.model.packed_unet) == (512, 8, True)
     assert kernel_ab.main(["--host-issue", "old"]) == 2
     assert kernel_ab.main(["--host-issue", "old", "new", "conv3x3_bn_fwd"]) == 2
+
+
+@pytest.mark.parametrize("kernel", ["conv3x3_fwd", "conv3x3_g2_fwd", "conv3x3_g2_dx"])
+def test_kernel_ab_takes_the_plain_conv_with_its_library_call(kernel):
+    # #30 and #40 (forward and dx) at their phase-3 lists, both dtypes, each
+    # with F.conv2d beside it and, in bf16, the ring forward as the yardstick
+    from cl_tpu_torch import kernel_ab
+
+    kernel_ab.check_names([kernel])
+    lists = chip_smoke.V3_SHAPES if kernel == "conv3x3_fwd" else chip_smoke.G2_SHAPES
+    for dtype_name in ("bfloat16", "float32"):
+        assert kernel_ab.shapes(chip_smoke, kernel, dtype_name) == \
+            [(shape, 1) for shape in lists[kernel]]
+        assert (kernel_ab.yardstick(kernel, dtype_name) is None) == (dtype_name == "float32")
+    lib = kernel_ab.library(chip_smoke, kernel)
+    assert lib is not None
+    # on CPU operands the library call is F.conv2d of the plain conv's function
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1, 8, 8, 8, generator=g)
+    w = torch.randn(4, 8, 3, 3, generator=g)
+    if kernel == "conv3x3_g2_dx":  # dy and the forward conv's weight [C_dy, C_dx]
+        w = torch.randn(8, 4, 3, 3, generator=g)
+        want = conv3x3.conv3x3_plain(x, conv3x3._flip_t(w))
+    else:
+        want = conv3x3.conv3x3_plain(x, w)
+    got = lib(x, w).permute(0, 2, 3, 1)
+    assert torch.allclose(got, want, atol=1e-5)
+    assert kernel in kernel_ab.__doc__
