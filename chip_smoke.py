@@ -55,7 +55,9 @@ Phases (any failure raises, so the exit code is non-zero):
    ones, f32 and bf16, xq mode on and off, prologue on and off: the
    quantize (32q) on #32's own output exactly equal to the plain
    quantizer, the dx (#38) and dW (#39) from int8 within the dtype
-   kernels' tolerances, each launched twice and held bit-equal; the
+   kernels' tolerances, each launched twice and held bit-equal, also
+   without the stats cotangents (e = dy) at each of their instances and
+   at 5q-c's convs; the
    one-pass conv backward (#37, ``CL_TPU_FUSE_BWD``) at every backward
    shape of the headline step (the stem without dx) and at ragged ones,
    f32 and bf16, prologue on and off, relaunched bit-equal, against its
@@ -2451,9 +2453,8 @@ def g2_convs(cfg) -> int:
 
 Q_KERNELS = {  # launch-count key: (source, TPU kernel)
     "conv3x3_bn_quant": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:757"),
-    "conv3x3_bn_dx_q": ("cl_tpu_torch/csrc/conv3x3_bn.cu", "cl_tpu/pallas/conv3x3_v3.py:1657"),
-    "conv3x3_bn_dw_q": ("cl_tpu_torch/csrc/conv3x3_bn_bwd.cu",
-                        "cl_tpu/pallas/conv3x3_v3.py:1779"),
+    "conv3x3_bn_dx_q": ("cl_tpu_torch/csrc/conv3x3_dx_q.cu", "cl_tpu/pallas/conv3x3_v3.py:1657"),
+    "conv3x3_bn_dw_q": ("cl_tpu_torch/csrc/conv3x3_dw_q.cu", "cl_tpu/pallas/conv3x3_v3.py:1779"),
 }
 Q_P = 4  # the headline body's pack factor: the scales' column grouping
 # Every int8 launch of one headline train step at 512², batch 8, every
@@ -2474,13 +2475,26 @@ Q_PATH["conv3x3_bn_dx_q"] = Q_PATH["conv3x3_bn_quant"][1:]
 Q_PER_STEP = {k: sum(n for _, n in shapes) for k, shapes in Q_PATH.items()}
 Q_ODD = [(24, 16, 16, False, False), (24, 16, 16, True, True), (24, 16, 16, True, False),
          (24, 3, 16, False, False), (24, 16, 3, True, True)]
+# The int8 convs of 5q-d (baseline_2's packed body, 256², base 64, f32) at
+# its pack factor, past Q_PATH's widths: #39's f32 tile (32, 64) with two
+# channel tiles of 64 and the scales grouped mod 2, in and out of the xq
+# mode, and #38 with them (batch 3).
+Q_P_D = 2
+Q_D_SHAPES = [(128, 64, 128, True, True), (128, 128, 128, True, False)]
+# The int8 convs of 5q-b/c (baseline_1 at 128², base 32, batch 8, level 0
+# int8 at pack 4): 5q-c's Fisher pass runs their backward in eval mode,
+# with no stats cotangents (e = dy).
+Q_C_SHAPES = [(128, 3, 32, False, False), (128, 32, 32, True, True),
+              (128, 32, 32, True, False), (128, 32, 32, False, False)]
 
 
-def q_operands(shape, dtype_name, batch=8, seed=0):
+def q_operands(shape, dtype_name, batch=8, seed=0, pack=Q_P, stats=True):
     """Seeded operands on the card for the int8 backward: (x or the pair
     (xq, scale), w, a, b, q, scale, dy, ds1, ds2, prologue, p), the pairs
     from the plain quantizer on seeded x and y (a prologue with relu(b) > 0
-    on part of the channels, nonzero stats cotangents)."""
+    on part of the channels, nonzero stats cotangents, or none without
+    ``stats``: ds1 = ds2 = None, as an eval-mode backward has them), the
+    scales grouping the columns mod ``pack``."""
     import torch
 
     from cl_tpu_torch.kernels import conv3x3
@@ -2495,11 +2509,11 @@ def q_operands(shape, dtype_name, batch=8, seed=0):
     x = randn(batch, H, H, cin).to(dt)
     w = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
     a, b = (randn(cin).abs() + 0.5, randn(cin) * 0.5 + 0.25) if prologue else (None, None)
-    q, scale = conv3x3.quant_rows_plain(randn(batch, H, H, cout).to(dt), Q_P)
+    q, scale = conv3x3.quant_rows_plain(randn(batch, H, H, cout).to(dt), pack)
     dy = randn(batch, H, H, cout).to(dt)
-    ds1, ds2 = randn(cout) * 0.1, randn(cout) * 0.05
-    x_res = conv3x3.quant_rows_plain(x, Q_P) if xq else x
-    return x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, Q_P
+    ds1, ds2 = (randn(cout) * 0.1, randn(cout) * 0.05) if stats else (None, None)
+    x_res = conv3x3.quant_rows_plain(x, pack) if xq else x
+    return x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, pack
 
 
 def q_name(kernel, shape, dtype_name, batch=8):
@@ -2554,26 +2568,29 @@ def q_fns(kernel):
     return conv3x3.launch_conv_dw_q, conv3x3.conv_dw_q_plain, lib
 
 
-def compare_q_bwd(kernel, shape, dtype_name, batch=8, ew=False):
+def compare_q_bwd(kernel, shape, dtype_name, batch=8, ew=False, pack=Q_P, stats=True):
     """#38 or #39 against its plain version on the card, launched twice
     (the second launch repeats every bit); returns the max abs error of
     dx or dW. Tolerances as ``compare_bwd``'s for the dtype kernels: e is
     the same f32 operations in both (deq(y) in f32, unrounded), so dx is
     one bf16 ulp + 1e-5·max(1, a) in bf16 and 1e-5·max(1, a) + 1e-5 rel in
     f32; dW 2 bf16 ulps + 1e-5·Σ|term| in bf16, 1e-5·Σ|term| + 1e-6 in f32;
-    da, db 1e-5·Σ|term| + 1e-6. ``ew``: #39 under CL_TPU_E_BF16."""
+    da, db 1e-5·Σ|term| + 1e-6. ``ew``: #39 under CL_TPU_E_BF16; ``pack``:
+    the scales' column grouping; ``stats``: False for no stats cotangents
+    (e = dy)."""
     import torch
 
     from cl_tpu_torch.kernels import conv3x3
 
     launch, plain, _ = q_fns(kernel)
     kw = {"e_bf16": True} if ew else {}
-    ops = q_operands(shape, dtype_name, batch)
+    ops = q_operands(shape, dtype_name, batch, pack=pack, stats=stats)
     k_out, again, p_out = launch(*ops, **kw), launch(*ops, **kw), plain(*ops, **kw)
     torch.cuda.synchronize()
     if not isinstance(k_out, tuple):
         k_out, again, p_out = (k_out,), (again,), (p_out,)
-    name = q_name(kernel, shape, dtype_name, batch) + ("[ebf16]" if ew else "")
+    name = q_name(kernel, shape, dtype_name, batch) + ("[ebf16]" if ew else "") + \
+        ("" if pack == Q_P else f"[p={pack}]") + ("" if stats else "[no stats]")
     need(all(u is None or torch.equal(u, v) for u, v in zip(k_out, again)),
          f"{name}: a second launch repeats every bit")
     x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p = ops
@@ -2617,6 +2634,100 @@ def compare_q_bwd(kernel, shape, dtype_name, batch=8, ew=False):
     return main_err
 
 
+def q_nostats_cases():
+    """(kernel, shape, dtype_name, batch) of phase 3's int8 launches without
+    the stats cotangents: #38's bf16 ring and #39's bf16 ring and f32
+    register-blocked instances at the first ``Q_PATH`` shape of each
+    schedule the pickers give without them (prologue and xq mode on and off
+    apart), then both kernels at every 5q-c shape in f32 and bf16."""
+    from cl_tpu_torch.kernels import conv3x3
+
+    seen, cases = set(), []
+
+    def add(key, case):
+        if key not in seen:
+            seen.add(key)
+            cases.append(case)
+    for shape, _ in Q_PATH["conv3x3_bn_dw_q"]:
+        H, cin, cout, prologue, xq = shape
+        if cin != 3:  # the stem's dx is never launched
+            add(("dx", prologue, xq,
+                 conv3x3.dx_q_schedule(cout, cin, 8, H, H, False, prologue, xq, Q_P)[:4]),
+                ("conv3x3_bn_dx_q", shape, "bfloat16", 8))
+        for dtype_name in ("bfloat16", "float32"):
+            add(("dw", dtype_name, prologue, xq,
+                 conv3x3.dw_q_tile_splits(cin, cout, 8, H, H, dtype_name == "bfloat16", xq,
+                                          Q_P)[:2]),
+                ("conv3x3_bn_dw_q", shape, dtype_name, 8))
+    for shape in Q_C_SHAPES:
+        for kernel in ("conv3x3_bn_dx_q", "conv3x3_bn_dw_q"):
+            if kernel == "conv3x3_bn_dw_q" or shape[1] != 3:
+                for dtype_name in ("float32", "bfloat16"):
+                    add((kernel, shape, dtype_name), (kernel, shape, dtype_name, 8))
+    return cases
+
+
+def q_info():
+    """#38's bf16 ring instances and #39's ring (bf16) and register-blocked
+    (f32) instances at every int8 launch of phase 3 (``Q_PATH``, ``Q_ODD``,
+    ``Q_D_SHAPES``, ``Q_C_SHAPES``, with and without the stats cotangents
+    for #38): each one's resident blocks an SM and dynamic shared bytes,
+    as the CUDA source computes them for the launch's schedule, held
+    against what its picker assumes (``conv3x3.dx_q_schedule``,
+    ``dw_q_tile_splits`` and their resource mirrors), with its registers
+    and local (spilled) bytes a thread printed. Returns {launch: (blocks,
+    regs, local, smem)}."""
+    import ctypes
+
+    from cl_tpu_torch.kernels import build, conv3x3
+
+    lib = build.library()
+    launches = {}
+    for (H, cin, cout, prologue, xq), B, pack in (
+            [(s, 8, Q_P) for s, _ in Q_PATH["conv3x3_bn_dw_q"]] + [(s, 3, Q_P) for s in Q_ODD]
+            + [(s, 3, Q_P_D) for s in Q_D_SHAPES] + [(s, 8, Q_P) for s in Q_C_SHAPES]):
+        if cin != 3:  # the stem's dx is never launched
+            q = conv3x3.dx_q_mode(xq, prologue)
+            for stats in (True, False):
+                cot, ck, resident, xbuf, _ = conv3x3.dx_q_schedule(cout, cin, B, H, H, stats,
+                                                                   prologue, xq, pack)
+                res = conv3x3.conv_ring_resources(cot, ck, True, stats, bool(resident), cout,
+                                                  bool(xbuf), q, pack)
+                launches[("dx_q", cot, ck, bool(prologue), q, stats, resident, xbuf, cout,
+                          pack)] = res
+        for bf16 in (1, 0):
+            ci_t, co_t, _ = conv3x3.dw_q_tile_splits(cin, cout, B, H, H, bool(bf16), xq, pack)
+            resources = conv3x3.dw_ring_resources if bf16 else conv3x3.dw_fma_resources
+            launches[("dw_q", bf16, ci_t, co_t, bool(xq), pack)] = \
+                resources(ci_t, co_t, True, xq, pack)[:3]
+    out = {}
+    for key, (threads, smem_py, blocks_py) in sorted(launches.items()):
+        info = (ctypes.c_int * 4)()
+        if key[0] == "dx_q":
+            _, cot, ck, epi, q, stats, resident, xbuf, cin, pack = key
+            what = f"conv3x3_q_dx_ring<{'kDxQX' if q == conv3x3.Q_X else 'kDxQ'}, {cot}, {ck}, " \
+                   f"{str(epi).lower()}> ({'' if stats else 'no '}stats, Cin {cin}, " \
+                   f"pack {pack}{', resident' if resident else ''}{', x tile' if xbuf else ''})"
+            err = lib.cltorch_conv3x3_dx_q_info(cot, ck, int(epi), int(q == conv3x3.Q_X),
+                                               int(stats), resident, xbuf, cin, pack,
+                                               ctypes.addressof(info))
+        else:
+            _, bf16, ci_t, co_t, xq, pack = key
+            what = f"conv3x3_q_dw_{'ring' if bf16 else 'reg'}<{ci_t}, {co_t}> (" \
+                   f"{'xq, ' if xq else ''}pack {pack})"
+            err = lib.cltorch_conv3x3_dw_q_info(ci_t, co_t, bf16, int(xq), pack,
+                                               ctypes.addressof(info))
+        build.check(err, f"{what} info")
+        blocks, regs, local, smem = info
+        ok = blocks == blocks_py and smem == smem_py
+        print(f"  {what}: {threads} threads, {regs} registers, {local} local bytes a thread, "
+              f"{smem} B shared; {blocks} blocks an SM (the picker assumes {blocks_py})"
+              f"{'' if ok else ' FAIL'}")
+        need(ok, f"{what}: resident blocks as the picker assumes")
+        out[key] = (blocks, regs, local, smem)
+    return out
+
+
 def q_bytes_ops(kernel, shape, dtype_name, batch=8):
     """Bytes each input read once and each output written once, and the
     operations, at the path's operands: the int8 tensors one byte an
@@ -2637,8 +2748,11 @@ def q_bytes_ops(kernel, shape, dtype_name, batch=8):
 
 
 def q_times(kernel, shape, dtype_name="bfloat16"):
-    """(ms, plain_ms, library_ms or None, ms synchronised per launch) at
-    one shape."""
+    """(ms, plain_ms, library_ms or None, ms synchronised per launch, the
+    kernel's and the dtype route's kernel's (``kernel_ab.yardstick``: the
+    ring dx for #38, #36's ring for #39; None for 32q) ms behind a card
+    sleep) at one shape."""
+    from cl_tpu_torch.kernel_ab import time_ms_slept, yardstick
     from cl_tpu_torch.kernels import conv3x3
 
     if kernel == "conv3x3_bn_quant":
@@ -2647,11 +2761,13 @@ def q_times(kernel, shape, dtype_name="bfloat16"):
         y = conv3x3.launch_conv_bn(*ops)[0]
         launch = lambda: conv3x3.launch_quant_rows(y, Q_P)  # noqa: E731
         return (time_ms(launch), time_ms(lambda: conv3x3.quant_rows_plain(y, Q_P)), None,
-                time_ms(launch, queued=False))
+                time_ms(launch, queued=False), time_ms_slept(launch), None)
     launch, plain, lib = q_fns(kernel)
     ops = q_operands(shape, dtype_name)
     return (time_ms(lambda: launch(*ops)), time_ms(lambda: plain(*ops)),
-            time_ms(lambda: lib(*ops)), time_ms(lambda: launch(*ops), queued=False))
+            time_ms(lambda: lib(*ops)), time_ms(lambda: launch(*ops), queued=False),
+            time_ms_slept(lambda: launch(*ops)),
+            time_ms_slept(yardstick(kernel, dtype_name)(*ops)))
 
 
 # ---------------------------------------------------------------------------
@@ -5280,6 +5396,7 @@ def main() -> int:
     # the int8 saved activations: 32q, #38 and #39 at every int8 shape of
     # the headline step and at ragged ones, xq mode on and off, prologue on
     # and off, each launched twice
+    t0 = time.perf_counter()
     q_errs = {}
     for kernel, shapes in Q_PATH.items():
         check = compare_quant if kernel == "conv3x3_bn_quant" else \
@@ -5294,6 +5411,17 @@ def main() -> int:
                 continue  # the stem's dx: never launched
             for dtype_name in ("float32", "bfloat16"):
                 check(shape, dtype_name, batch=3)
+    # #38 and #39 at 5q-d's widths and pack; without the stats cotangents
+    # (e = dy: no y window) at each instance of the headline step and at
+    # 5q-c's Fisher pass; every int8 instance's resources
+    for kernel in ("conv3x3_bn_dx_q", "conv3x3_bn_dw_q"):
+        for shape in Q_D_SHAPES:
+            for dtype_name in ("float32", "bfloat16"):
+                compare_q_bwd(kernel, shape, dtype_name, batch=3, pack=Q_P_D)
+    for kernel, shape, dtype_name, batch in q_nostats_cases():
+        compare_q_bwd(kernel, shape, dtype_name, batch=batch, stats=False)
+    q_info()
+    print(f"  int8 backward checks: {time.perf_counter() - t0:.1f} s")
 
     # CL_TPU_FUSE_BWD / CL_TPU_DX_PIPE: #37 and 34p/35p at every backward
     # shape of the headline step and at ragged ones, f32 and bf16, each
@@ -6156,6 +6284,7 @@ def main() -> int:
     print(f"  plain path tiles' times: {time.perf_counter() - t0:.1f} s")
     # the int8 kernels at the headline's first int8 shape of each, bf16,
     # launches of 5q-a's 13 steps; every shape printed
+    t0 = time.perf_counter()
     q_step_ms = {}
     for kernel, (source, replaces) in Q_KERNELS.items():
         for shape, n_step in Q_PATH[kernel]:
@@ -6163,25 +6292,31 @@ def main() -> int:
             bo = q_bytes_ops(kernel, shape, "bfloat16")
             bound = max(bo[0] / HBM_BYTES_PER_S, bo[1] / PEAK_OPS["bfloat16"]) * 1e3
             lib_txt = "—" if times[2] is None else f"{times[2]:.4f}"
+            yard_txt = "" if times[5] is None else \
+                f", the dtype route's kernel (card sleep) {times[5]:.4f}"
             line = (f"  {q_name(kernel, shape, 'bfloat16')} x{n_step}/step: {times[0]:.4f} ms "
-                    f"(synchronised per launch {times[3]:.4f}; plain {times[1]:.4f}, library "
-                    f"{lib_txt}, bound {bound:.4f})")
+                    f"(synchronised per launch {times[3]:.4f}, card sleep {times[4]:.4f}; plain "
+                    f"{times[1]:.4f}, library {lib_txt}, bound {bound:.4f}{yard_txt})")
             if shape == (512, 32, 32, True, True):
                 entry = json_entry(q_name(kernel, shape, "bfloat16"), source, replaces,
                                    counts_q[kernel], q_errs[(kernel, shape)], times, bo)
                 kernels.append(entry)
                 line += f"; launches {entry['launches']} in phase 5q-a"
-            acc = q_step_ms.setdefault(kernel, [0.0] * 5)
-            for j, v in enumerate((times[0], times[1], bound, times[2] or 0.0, times[3])):
+            acc = q_step_ms.setdefault(kernel, [0.0] * 7)
+            for j, v in enumerate((times[0], times[1], bound, times[2] or 0.0, times[3],
+                                   times[4], times[5] or 0.0)):
                 acc[j] += n_step * v
             print(line)
-    for kernel, (ms, plain_ms, bound_ms, lib_ms, synced_ms) in q_step_ms.items():
+    for kernel, (ms, plain_ms, bound_ms, lib_ms, synced_ms, slept_ms, yard_ms) in \
+            q_step_ms.items():
         print(f"  per int8 train step (5q-a's shapes), {kernel}: {ms:.4f} ms (synchronised per "
-              f"launch {synced_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.4f}, library "
-              f"{lib_ms:.4f} (where one exists); launches {counts_q[kernel]} in phase 5q-a")
+              f"launch {synced_ms:.4f}, card sleep {slept_ms:.4f}), plain {plain_ms:.4f}, bound "
+              f"{bound_ms:.4f}, library {lib_ms:.4f} and the dtype route's kernel {yard_ms:.4f} "
+              f"(card sleep, where one exists); launches {counts_q[kernel]} in phase 5q-a")
     print(f"  the dtype kernels the int8 ones replace, per step: dx "
           f"{per_step_ms['conv3x3_bn_dx'][0] + per_step_ms['conv3x3_bn_dx_bn'][0]:.4f} ms, dW "
           f"{per_step_ms['conv3x3_bn_dw'][0]:.4f} ms")
+    print(f"  int8 kernels' times: {time.perf_counter() - t0:.1f} s")
     # the switches' kernels: #37 (launches of 5f-a under FUSE_BWD) and
     # 34p/35p (under DX_PIPE) at every shape of the headline step, bf16,
     # with per-step sums beside the kernels they stand in for; #5/#6 at the

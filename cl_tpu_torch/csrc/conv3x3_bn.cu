@@ -40,10 +40,8 @@
 // ring body (conv3x3_ring.cu, conv3x3_ring_body.cuh, whose note gives the
 // per-shape bounds, what held the first body at 4-6x them and what the
 // ring does about it, and why the dx's accumulation order is fixed),
-// which the wrapper calls directly. Here remain their
-// f32 instances of the FMA body, and the first bf16 body
-// (conv3x3_body.cuh::conv3x3_mma_body) for the dx from int8 below, whose
-// mma_chunk / mma_epilogue order the ring's dx keeps.
+// which the wrapper calls directly. Here remain their f32 instances of the
+// FMA body.
 //
 // Also the plain gen-3 conv, cl_tpu/pallas/conv3x3_v3.py::_fwd_kernel
 // (launched at conv3x3_v3.py:522 by `_fwd_packed`): y = round(conv3x3_SAME(x,
@@ -64,12 +62,9 @@
 //   forward, which keeps its bits: q and a scale per image row, column mod
 //   p and channel (conv3x3_bn.cuh). Bound by bytes: y read, q and the
 //   scales written (512^2 x 32 bf16 at batch 8: 201 MB, 60 us).
-// * #38, ::_dx_q_kernel (launched at :1657 by `_dx_q_impl`): the dx
-//   instances conv3x3_q_dx_kernel / conv3x3_q_dx_mma_kernel of the bodies
-//   below with MODE = kDxQ (e from dy and deq(y): the stats term reads
-//   deq(y) in f32, not rounded, :1532-1540) or kDxQX (also the epilogue's
-//   x as deq(xq) in f32, not rounded, :1577-1579). The int8 y and x halve
-//   the dx's reads of them against the compute type's bf16.
+// * #38, ::_dx_q_kernel (launched at :1657 by `_dx_q_impl`), the dx from
+//   the int8 y (and x), has a translation unit of its own: conv3x3_dx_q.cu
+//   (the ring body's kDxQ / kDxQX in bf16, the FMA body in f32).
 //
 // Under CL_TPU_DX_PIPE=1, 34p / 35p (::_dx_pipe_slim_kernel and
 // ::_dx_pipe_bn_kernel, conv3x3_v3.py:1187, :1179; body `_dx_pipe_body`,
@@ -82,20 +77,12 @@
 // which the card ran faster than a cp.async-pipelined FMA kernel at every
 // headline shape (1.4-1.6x, kernel_ab).
 //
-// The first two bodies (FMA for f32, mma.sync for bf16), each templated on
-// what it computes, are in conv3x3_body.cuh.
+// The FMA body, templated on what it computes, is in conv3x3_body.cuh.
 
 #include "conv3x3_plain_body.cuh"
 
 namespace cltorch {
 namespace {
-
-// The f32 dx instances (#34/#35's, which 34p/35p run too, and #38's) at
-// four blocks an SM: the blocked sum's fresh accumulator
-// (conv3x3_body.cuh::fma_chunk) would take them to 165-168 registers and
-// three blocks an SM, slower on the H100 than 128 registers with 20-28
-// bytes a thread spilled.
-constexpr int kFmaDxMinBlocks = 4;
 
 template <bool DX, typename T>
 __global__ void __launch_bounds__(kConvThreads, DX && sizeof(T) == 4 ? kFmaDxMinBlocks : 1)
@@ -106,41 +93,16 @@ __global__ void __launch_bounds__(kConvThreads, DX && sizeof(T) == 4 ? kFmaDxMin
 // #30: the plain conv's instances (conv3x3_plain_body.cuh)
 CLTORCH_PLAIN_KERNELS(conv3x3_v3_plain)
 
-// #38: the dx from the int8 saved y (MODE kDxQ) and x (kDxQX).
-template <int MODE, typename T>
-__global__ void __launch_bounds__(kConvThreads, sizeof(T) == 4 ? kFmaDxMinBlocks : 1)
-    conv3x3_q_dx_kernel(ConvArgs<T> p) {
-  conv3x3_fma_body<MODE>(p);
-}
-
-template <int MODE, int COT>
-__global__ void __launch_bounds__(kMmaThreads) conv3x3_q_dx_mma_kernel(ConvArgs<bf16> p) {
-  conv3x3_mma_body<MODE, COT>(p);
-}
-
-// Launches the kernel of the type and mode (the forward, the dx, the dx from
-// int8) and, when it sums, the reduction of its partial rows into out [2,
-// Cout]. The forward and dx take f32 only here: in bf16 they run the ring
-// body (conv3x3_ring.cu).
+// Launches the f32 kernel of the forward or the dx and, when it sums, the
+// reduction of its partial rows into out [2, Cout]. In bf16 they run the
+// ring body (conv3x3_ring.cu).
 template <int MODE>
-int conv3x3_launch(ConvArgs<bf16> pb16, ConvArgs<float> pf32, int is_bf16, int B, void* out,
-                   cudaStream_t st) {
+int conv3x3_launch(ConvArgs<float> pf32, int is_bf16, int B, void* out, cudaStream_t st) {
   constexpr bool DX = is_dx<MODE>();
   const int H = pf32.H, W = pf32.W, Cout = pf32.Cout;
   const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
-  const dim3 grid32(tiles, (Cout + 31) / 32, B);
-  const dim3 grid64(tiles, Cout / 64, B);
-  if constexpr (MODE == kDxQ || MODE == kDxQX) {
-    if (!is_bf16)
-      conv3x3_q_dx_kernel<MODE, float><<<grid32, kConvThreads, 0, st>>>(pf32);
-    else if (Cout % 64 == 0)
-      conv3x3_q_dx_mma_kernel<MODE, 64><<<grid64, kMmaThreads, 0, st>>>(pb16);
-    else
-      conv3x3_q_dx_mma_kernel<MODE, 32><<<grid32, kMmaThreads, 0, st>>>(pb16);
-  } else {  // f32; bf16 runs the ring body (conv3x3_ring.cu)
-    if (is_bf16) return (int)cudaErrorInvalidValue;
-    conv3x3_bn_kernel<DX, float><<<grid32, kConvThreads, 0, st>>>(pf32);
-  }
+  if (is_bf16) return (int)cudaErrorInvalidValue;
+  conv3x3_bn_kernel<DX, float><<<dim3(tiles, (Cout + 31) / 32, B), kConvThreads, 0, st>>>(pf32);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || (DX && !pf32.prologue)) return (int)err;
   reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(pf32.partials, tiles * B, 2 * Cout,
@@ -199,8 +161,6 @@ int cltorch_conv3x3_bn_fwd(const void* x, const void* w, const void* a, const vo
                            int prologue, int is_bf16, void* stream) {
   using namespace cltorch;
   return conv3x3_launch<kFwd>(
-      conv_args<bf16>(x, nullptr, nullptr, nullptr, w, a, b, nullptr, y, partials, H, W, Cin,
-                      Cout, prologue),
       conv_args<float>(x, nullptr, nullptr, nullptr, w, a, b, nullptr, y, partials, H, W, Cin,
                        Cout, prologue),
       is_bf16, B, out, static_cast<cudaStream_t>(stream));
@@ -214,7 +174,6 @@ int cltorch_conv3x3_bn_dx(const void* dy, const void* y, const void* s1, const v
                           int prologue, int is_bf16, void* stream) {
   using namespace cltorch;
   return conv3x3_launch<kDx>(
-      conv_args<bf16>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
       conv_args<float>(dy, y, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout, prologue),
       is_bf16, B, out, static_cast<cudaStream_t>(stream));
 }
@@ -235,29 +194,6 @@ int cltorch_conv3x3_bn_quant(const void* y, void* q, void* scale, int B, int H, 
         static_cast<const float*>(y), static_cast<int8_t*>(q), static_cast<float*>(scale), W,
         C, p);
   return (int)cudaGetLastError();
-}
-
-// #38: dx of the conv from the int8 saved y (yq, ysc [B, H, pack, Cin]) and,
-// when xq is given, the int8 saved x (xq, xsc [B, H, pack, Cout]) in place
-// of x; the other operands as for cltorch_conv3x3_bn_dx.
-int cltorch_conv3x3_bn_dx_q(const void* dy, const void* yq, const void* ysc, const void* s1,
-                            const void* s2, const void* w, const void* x, const void* xq,
-                            const void* xsc, const void* a, const void* b, void* dx,
-                            void* partials, void* out, int B, int H, int W, int Cin, int Cout,
-                            int prologue, int pack, int is_bf16, void* stream) {
-  using namespace cltorch;
-  auto pb16 = conv_args<bf16>(dy, nullptr, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout,
-                              prologue);
-  auto pf32 = conv_args<float>(dy, nullptr, s1, s2, w, a, b, x, dx, partials, H, W, Cin, Cout,
-                               prologue);
-  pb16.yq = pf32.yq = static_cast<const int8_t*>(yq);
-  pb16.xq = pf32.xq = static_cast<const int8_t*>(xq);
-  pb16.ysc = pf32.ysc = static_cast<const float*>(ysc);
-  pb16.xsc = pf32.xsc = static_cast<const float*>(xsc);
-  pb16.pack = pf32.pack = pack;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return xq != nullptr ? conv3x3_launch<kDxQX>(pb16, pf32, is_bf16, B, out, st)
-                       : conv3x3_launch<kDxQ>(pb16, pf32, is_bf16, B, out, st);
 }
 
 // #30, the plain gen-3 conv: x [B, H, W, Cin] -> y [B, H, W, Cout], w as

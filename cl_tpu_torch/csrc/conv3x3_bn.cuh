@@ -184,6 +184,12 @@ __device__ __forceinline__ int64_t q_scale_row(int64_t pix, int W, int p) {
   return (pix / W) * p + (pix % W) % p;
 }
 
+// Column c's group of the scales, c mod p, by a mask where p is a power of
+// two (every pack the model picks), else by a division.
+__device__ __forceinline__ int scale_col(int c, int p) {
+  return (p & (p - 1)) == 0 ? c & (p - 1) : c % p;
+}
+
 __device__ __forceinline__ float deq_f32(int8_t q, float scale) {
   return __fmul_rn(static_cast<float>(q), scale);
 }
@@ -266,18 +272,9 @@ __device__ __forceinline__ void stage8_tq(bf16* dst, const int8_t* xq, const flo
   store16<bf16>(dst, 0, v);
 }
 
-// One t of the int8 x (f32 kernels): element i, channel c of C.
-template <typename T>
-__device__ __forceinline__ float t_at_q(const int8_t* xq, const float* xsc, int64_t i, int c,
-                                        int C, int W, int p, int prologue, const float* pa,
-                                        const float* pb) {
-  const float v = deq_f32(xq[i], xsc[q_scale_row(i / C, W, p) * C + c]);
-  return round_to<T>(prologue ? prologue_f32(v, pa[c], pb[c]) : v);
-}
-
 // ---------------------------------------------------------------------------
-// The conv bodies' operands, their dx epilogue and the bf16 tap loop, shared
-// by conv3x3_bn.cu and conv3x3_bn_bwd_fused.cu (#37)
+// The conv bodies' operands and their dx epilogue, shared by the FMA body
+// (conv3x3_body.cuh), the ring body and conv3x3_bn_bwd_fused.cu (#37)
 // ---------------------------------------------------------------------------
 
 // What a body computes: the forward with the BN-ReLU prologue and the stats
@@ -357,117 +354,6 @@ __device__ __forceinline__ T epilogue_one(const ConvArgs<T>& p, int64_t pix, int
 template <int MODE, typename T>
 __device__ __forceinline__ bool has_sums(const ConvArgs<T>& p) {
   return MODE == kFwd || (is_dx<MODE>() && p.prologue);
-}
-
-constexpr int kMmaThreads = 256;
-constexpr int kRowS = 24;  // bf16 per staged row: 16 channels + 8 padding
-
-// bf16: the nine taps of one 16-channel chunk of the window (in_s, rows of
-// kRowS) against its weights (w_s, [tap][co][16 + 8]) into the warp's two
-// output rows, in the order tap, n, m.
-template <int COT>
-__device__ __forceinline__ void mma_chunk(float (&acc)[2][COT / 8][4], const bf16* in_s,
-                                          const bf16* w_s, int warp, int g, int t) {
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int ky = tap / 3, kx = tap % 3;
-    uint32_t a[2][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const int wy = warp * 2 + m + ky;  // window row of this output row
-      const uint32_t* r0 = reinterpret_cast<const uint32_t*>(&in_s[(wy * kWinW + g + kx) * kRowS]);
-      const uint32_t* r1 =
-          reinterpret_cast<const uint32_t*>(&in_s[(wy * kWinW + g + 8 + kx) * kRowS]);
-      a[m][0] = r0[t];
-      a[m][1] = r1[t];
-      a[m][2] = r0[t + 4];
-      a[m][3] = r1[t + 4];
-    }
-#pragma unroll
-    for (int n = 0; n < COT / 8; ++n) {
-      const uint32_t* wr =
-          reinterpret_cast<const uint32_t*>(&w_s[((tap * COT) + n * 8 + g) * kRowS]);
-      const uint32_t b0 = wr[t], b1 = wr[t + 4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) mma_bf16(acc[m][n], a[m], b0, b1);
-    }
-  }
-}
-
-// bf16 epilogue of the 16 x 16 tile at (gy0, gx0) of image b: store, and
-// sum into the partial row `blk` (a fixed order: shuffles within a warp,
-// then the warps in order through `red`). Thread (g, t) of warps 0-7
-// holds pixels g and g + 8 of rows warp*2 + m, channels n*8 + 2t and + 1;
-// a block with more warps calls it from all of them (for the barrier),
-// the others storing nothing.
-template <int MODE, int COT>
-__device__ __forceinline__ void mma_epilogue(const ConvArgs<bf16>& p,
-                                             const float (&acc)[2][COT / 8][4], int b, int gy0,
-                                             int gx0, int co0, int blk, float (*red)[2][COT],
-                                             int warp, int g, int t) {
-  constexpr int NT = COT / 8;
-  const int H = p.H, W = p.W, Cout = p.Cout;
-  const int64_t img = (int64_t)b * H * W;
-  const bool rows = warp < kMmaThreads / 32;
-  float s1[NT][2], s2[NT][2];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) s1[n][0] = s1[n][1] = s2[n][0] = s2[n][1] = 0.f;
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const int gy = gy0 + warp * 2 + m;
-    if (!rows) break;
-#pragma unroll
-    for (int hp = 0; hp < 2; ++hp) {
-      const int gx = gx0 + g + hp * 8;
-      if (gy >= H || gx >= W) continue;
-      const int64_t pix = img + (int64_t)gy * W + gx;
-      const int64_t srow = x_scale_row<MODE>(p, b * H + gy, gx);
-      bf16* dst = p.out + pix * Cout;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int o = co0 + n * 8 + 2 * t;
-        const bf16 r0 = o < Cout ? epilogue_one<MODE>(p, pix, o, acc[m][n][hp * 2], s1[n][0],
-                                                      s2[n][0], srow)
-                                 : __float2bfloat16(0.f);
-        const bf16 r1 = o + 1 < Cout ? epilogue_one<MODE>(p, pix, o + 1, acc[m][n][hp * 2 + 1],
-                                                          s1[n][1], s2[n][1], srow)
-                                     : __float2bfloat16(0.f);
-        if (o + 1 < Cout && (Cout & 1) == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(dst + o) = __halves2bfloat162(r0, r1);
-        } else {
-          if (o < Cout) dst[o] = r0;
-          if (o + 1 < Cout) dst[o + 1] = r1;
-        }
-      }
-    }
-  }
-  if (!has_sums<MODE>(p)) return;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s1[n][j] += __shfl_xor_sync(0xffffffffu, s1[n][j], off);
-        s2[n][j] += __shfl_xor_sync(0xffffffffu, s2[n][j], off);
-      }
-  if (g == 0 && rows) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        red[warp][0][n * 8 + 2 * t + j] = s1[n][j];
-        red[warp][1][n * 8 + 2 * t + j] = s2[n][j];
-      }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 2 * COT; i += blockDim.x) {
-    const int which = i / COT, co = i % COT;
-    float v = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kMmaThreads / 32; ++wp) v += red[wp][which][co];
-    if (co0 + co < Cout) p.partials[(int64_t)blk * 2 * Cout + which * Cout + co0 + co] = v;
-  }
 }
 
 }  // namespace

@@ -1,70 +1,42 @@
-// The 3x3 SAME conv's first two bodies over NHWC, each instanced by a MODE
-// of conv3x3_bn.cuh. Instanced by conv3x3_bn.cu.
+// The 3x3 SAME conv's first body over NHWC, f32 FMA, instanced by a MODE of
+// conv3x3_bn.cuh: in conv3x3_bn.cu (the packed conv's forward and dx) and
+// conv3x3_dx_q.cu (the dx from int8).
 //
-// What they replace (cl_tpu/pallas/conv3x3_v3.py):
-// * f32, the FMA body: the packed conv's forward ::_fwd_bn_kernel (#32,
-//   launched at :833) and dx ::_dx_slim_kernel / ::_dx_bn_kernel (#34, #35,
-//   :1233, :1259) and the dx from int8 ::_dx_q_kernel (#38, :1657);
-// * bf16, the mma.sync body (conv3x3_mma_body): #38 alone (kDxQ, kDxQX).
-//   The bf16 forward and dx of the packed conv (#32, #34, #35) run the ring
-//   body (conv3x3_ring_body.cuh); moving #38 onto it is later work.
-// The plain conv (#30, #40) ran here in both types until it moved onto its
-// own bodies (conv3x3_plain_body.cuh: the ring's kPlain MODE on wgmma in
-// bf16, a register-blocked FMA body in f32).
+// What it replaces in f32 (cl_tpu/pallas/conv3x3_v3.py): the packed conv's
+// forward ::_fwd_bn_kernel (#32, launched at :833) and dx ::_dx_slim_kernel
+// / ::_dx_bn_kernel (#34, #35, :1233, :1259) and the dx from int8
+// ::_dx_q_kernel (#38, :1657). Their bf16 instances run the ring body
+// (conv3x3_ring_body.cuh): #32/#34/#35, and #38 since its move onto
+// the ring's kDxQ / kDxQX MODEs, which ended the first bf16 body
+// (conv3x3_mma_body: 16-channel chunks staged synchronously through
+// registers, the weights re-staged by every block, 32-bit fragment loads;
+// 4-6x its bounds). The plain conv (#30, #40) ran here until it moved onto
+// its own bodies (conv3x3_plain_body.cuh).
 //
-// What bounds them on the H100 (batch 8): in bf16 bytes at 512^2 and 256^2
-// and the tensor cores at 128^2, the packed conv's forward / #34 / #35
-// bounds being 0.080 / 0.120 / 0.160 ms at 512^2 x 32 -> 32, 0.040 / 0.060
-// / 0.080 at 256^2 x 64 -> 64 and 0.039 / 0.039 / 0.040 at 128^2 x 128 ->
-// 128 (3.35 TB/s, 989 TFLOP/s); in f32 the FMA units (38.7 GFLOP a conv of
-// those shapes, 577 us at 67 TFLOP/s).
+// What bounds it on the H100 (batch 8): the FMA units (38.7 GFLOP a conv of
+// 512^2 x 32 -> 32, 256^2 x 64 -> 64 or 128^2 x 128 -> 128: 577 us at 67
+// TFLOP/s).
 //
-// What held the bf16 body at 4-6x those bounds, and where it is addressed:
-// each 16-channel chunk is staged synchronously through registers with two
-// barriers a chunk, nothing in flight while a chunk multiplies; every block
-// re-stages its 9 x COT x Cin weights for one 16 x 16 tile (as many bytes as
-// the windows); its fragments are 32-bit shared loads (mma_chunk: about two
-// a product); the per-channel vectors are read from global memory per
-// element; the 18 x 18 halo reads 1.27x the pixels. The ring body answers
-// each for #32/#34/#35 (a persistent TMA ring, resident weights, ldmatrix,
-// vectors in shared memory); this body keeps them for the kinds above.
+// Why the dx's order is fixed in bf16: the ring body's dx (#34/#35, and
+// 34p/35p and #37, which launch it, and #38) accumulates each output in
+// 16-channel chunks ascending, taps 0-8, one m16n8k16 each, on bf16
+// operands, and sums its partial rows in one fixed order
+// (conv3x3_ring_body.cuh), so all of them repeat their bits.
 //
-// Why mma_chunk's order is fixed: it defines the bits of the packed conv's
-// bf16 dx. The ring body's dx (#34/#35, and 34p/35p and #37, which launch
-// it) accumulates in the same order (16-channel chunks ascending, taps
-// 0-8, one m16n8k16 each, on the same bf16 operands) and sums the same
-// partial rows as mma_epilogue, so all of them give #34/#35's bits
-// (chip_smoke.compare_pipe, compare_fused).
-//
-// The two bodies, each templated on what it computes (forward, dx or a dx
-// from int8); the staging of the window and the epilogue differ, the
-// tile, the tap loop and the fixed-order sums are shared:
-//
-// * bf16: an implicit GEMM on the tensor cores, mma.sync m16n8k16 with f32
-//   accumulation (bf16 products are exact, so only the f32 sum order
-//   differs from the TPU's). A block of 256 threads (8 warps) computes a
-//   16 x 16 pixel tile for 32 or 64 output channels. Per 16-channel input
-//   chunk it stages the 18 x 18 window (t or e, out-of-image pixels zero)
-//   as [pixel][channel] and the weights as [tap][co][channel], both bf16
-//   with a 24-element row (16 channels + 8 of padding), so every 32-bit
-//   fragment load of a warp hits 32 distinct banks. Each warp owns two
-//   output rows (two m16 tiles, one image row each) and all the block's
-//   channels; per tap it loads two A fragments straight from the window
-//   (the tap's shift is an offset) and one B fragment per n8 tile.
-// * f32: FMA, since TF32 would round the products. A block of 128 threads
-//   (4 warps) computes the same 16 x 16 tile for 32 output channels, with
-//   window and weights staged as f32; each warp owns 8 output channels
-//   (its weight reads are broadcasts), each lane 8 consecutive pixels of
-//   one row with 8 x 8 accumulators: per input channel and kernel row it
-//   reads 10 inputs and 3 x 8 weights (as float4) for 192 FMAs. The dx
-//   sums each 8 input channels' products in a fresh accumulator before
-//   adding them to the running sum (fma_chunk), so a dx over 512 channels
-//   is not one serial sum of 4,608 products.
+// f32: FMA, since TF32 would round the products. A block of 128 threads (4
+// warps) computes a 16 x 16 pixel tile for 32 output channels, with window
+// and weights staged as f32; each warp owns 8 output channels (its weight
+// reads are broadcasts), each lane 8 consecutive pixels of one row with 8 x
+// 8 accumulators: per input channel and kernel row it reads 10 inputs and 3
+// x 8 weights (as float4) for 192 FMAs. The dx sums each 8 input channels'
+// products in a fresh accumulator before adding them to the running sum
+// (fma_chunk), so a dx over 512 channels is not one serial sum of 4,608
+// products.
 //
 // The epilogues that sum (the forward's stats, the dx's da and db) sum a
-// block's threads by shuffles and shared memory in a fixed order and write
-// one partial row, which a second launch sums over the blocks in a fixed
-// order. No float atomics: a run repeats its sums bit for bit.
+// block's threads by shuffles and write one partial row, which a second
+// launch sums over the blocks in a fixed order. No float atomics: a run
+// repeats its sums bit for bit.
 
 #pragma once
 
@@ -90,6 +62,11 @@ ConvArgs<T> conv_args(const void* in, const void* y, const void* s1, const void*
 
 constexpr int kCoT = 32, kCiT = 16;  // output channels / input chunk
 constexpr int kConvThreads = 128;
+// The f32 dx instances (#34/#35's, which 34p/35p run too, and #38's) at
+// four blocks an SM: the blocked sum's fresh accumulator (fma_chunk) would
+// take them to 165-168 registers and three blocks an SM, slower on the
+// H100 than 128 registers with 20-28 bytes a thread spilled.
+constexpr int kFmaDxMinBlocks = 4;
 
 // The staged input at one in-image pixel: t (forward: the prologue, if on)
 // or e (dx).
@@ -252,61 +229,6 @@ __device__ __forceinline__ void conv3x3_fma_body(const ConvArgs<T>& p) {
     fma_chunk<is_dx<MODE>()>(acc, in_s, w_s, ty, seg, cg);
   }
   fma_epilogue<MODE>(p, acc, b, gy0, gx0, co0, b * gridDim.x + blockIdx.x, ty, seg, cg, lane);
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-
-template <int MODE, int COT>
-__device__ __forceinline__ void conv3x3_mma_body(const ConvArgs<bf16>& p) {
-  static_assert(MODE == kDxQ || MODE == kDxQX,
-                "the bf16 forward, dx and plain conv run the ring body (conv3x3_ring_body.cuh)");
-  constexpr int NT = COT / 8;  // n8 tiles per warp
-  __shared__ __align__(16) bf16 in_s[kWinH * kWinW * kRowS];
-  __shared__ __align__(16) bf16 w_s[9 * COT * kRowS];
-  __shared__ float red[kMmaThreads / 32][2][COT];
-
-  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  const int tiles_x = (W + kTW - 1) / kTW;
-  const int gy0 = (blockIdx.x / tiles_x) * kTH, gx0 = (blockIdx.x % tiles_x) * kTW;
-  const int co0 = blockIdx.y * COT;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in group
-  const int64_t img = (int64_t)b * H * W;
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += 16) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kWinH * kWinW * 2; e += kMmaThreads) {
-      const int pix = e >> 1, half = e & 1;
-      const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const int c = ci0 + half * 8;
-      const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
-      stage8_eq(&in_s[pix * kRowS + half * 8], p.in + i, p.yq + i,
-                p.ysc + ((int64_t)(b * H + gy) * p.pack + gx % p.pack) * Cin + c, c, Cin,
-                inside, p.s1, p.s2);
-    }
-    for (int e = threadIdx.x; e < 9 * COT * 2; e += kMmaThreads) {
-      const int half = e & 1, row = e >> 1;  // row = tap * COT + co
-      const int co = row % COT, tap = row / COT;
-      const int c = ci0 + half * 8;
-      stage8_t(&w_s[row * kRowS + half * 8], p.w + ((int64_t)tap * Cout + co0 + co) * Cin + c, c,
-               Cin, co0 + co < Cout, 0, nullptr, nullptr);
-    }
-    __syncthreads();
-    mma_chunk<COT>(acc, in_s, w_s, warp, g, t);
-  }
-  mma_epilogue<MODE, COT>(p, acc, b, gy0, gx0, co0, b * gridDim.x + blockIdx.x, red, warp, g, t);
 }
 
 }  // namespace

@@ -19,8 +19,9 @@
 //   once: 403 MB, 120 us at 3.35 TB/s at 512^2 x 32 -> 32, batch 8, against
 //   39 us of tensor-core work) and by the tensor cores at 128^2 x 128 -> 128
 //   (39 us against 30 us of bytes); 1.04 ms over the step's 15 convs. What it
-//   does about the causes that held the first body (dw_mma_body) at 4.6x
-//   that bound:
+//   does about the causes that held the first bf16 body (dw_mma_body, a
+//   32 x 32 tile of nine warps staged synchronously, deleted once #39 moved
+//   here) at 4.6x that bound:
 //   - Nothing overlapped. The raw tiles (the x window with its one-pixel
 //     halo, dy and y) go through a ring of three stages: while the products
 //     of pixel tile k run, tile k + 1 is formed in the next stage and tile
@@ -35,7 +36,10 @@
 //   - t = round(relu(x a + b)) and e = round(dy + ds1 + 2 y ds2) are formed
 //     ONCE per element, in place in the stage, with stage8_t's / stage8_e's
 //     arithmetic and one rounding, or their bf16 chains under CL_TPU_E_BF16
-//     (`ew_bf16`, which every bf16 body takes); raw x and dy are the operands
+//     (`ew_bf16`, which every bf16 body takes; kDwQ's e from deq(y), and its
+//     t from deq(xq), are f32 chains whose operands are f32: the int8 tiles
+//     and their scales land beside the stage, e is formed in place from them
+//     and t into the stage's x window); raw x and dy are the operands
 //     as they land when the prologue or the stats are off. Zero padding stays in
 //     t-space: out-of-image pixels land as zeros and the transform skips
 //     them (a narrow x's are written as zeros), so a padded tap is 0, never
@@ -43,7 +47,7 @@
 //   - Channel re-staging. The tile is CI_T x CO_T = (16, 32 or 64) x (32 or
 //     64), fitted to the shape: e is staged once per Cin chunk and t once
 //     per Cout chunk, so at 64 channels each is read once and at 128 twice
-//     (four times each in the 32 x 32 tiles of dw_mma_body).
+//     (four times each in the 32 x 32 tiles of the first body).
 //   - Tensor cores. The 64 x 64 tile (levels 1 and 2) multiplies on wgmma:
 //     three warpgroups, one per kernel row, each three taps' m64n64k16 per
 //     pixel row with A = e^T (64 output channels x 16 pixels) and B = the
@@ -64,23 +68,13 @@
 //     its dW tile in shared memory and writes its partial a weight row
 //     (CI_T * 9 consecutive floats) at a time; the scattered 4-byte stores of
 //     the first body cost as much as a level's bytes bound.
-// * bf16, the first body (dw_mma_body: kDwQ #39 alone). A block
-//   of 288 threads is nine warps, one per tap, for a 32 x 32 channel tile.
-//   Per 16 x 16 pixel tile it stages the 18 x 18 window of t
-//   and the 16 x 16 tile of e as [pixel][channel] with an 80-byte row (32
-//   channels + 8 of padding), synchronously; per output row each warp forms
-//   A = t^T (its tap's shift is an offset into the window) and B = e, the
-//   row's 16 pixels the k of one m16n8k16 product. ldmatrix.trans loads the
-//   fragments of both straight from that layout (four 8 x 8 quarters an
-//   instruction; the 80-byte row keeps its eight row reads on distinct
-//   banks).
 // * f32: FMA (TF32 would round), the first body (dw_fma_body: kDwFused
-//   #36, kDwQ #39). A block of 256 threads: lane = input
+//   #36 alone). A block of 256 threads: lane = input
 //   channel, warp = 4 output channels, each thread 9 taps x 4 channels of
 //   accumulators; per pixel one float4 of e (a broadcast) and nine t: 3.6
 //   FMAs a shared load, staged synchronously, x re-read Cout / 32 times.
 // * f32, the register-blocked body (dw_reg_body: kDwBn #33, kDwPlain #41
-//   and #31).
+//   and #31, kDwQ #39).
 //   Bound by the FMA units (18 px Cin Cout operations at 67 TFLOP/s: 577 us
 //   at 256^2 x 64 -> 64, batch 8, against 80 us of bytes). A thread holds
 //   the outer product of 4 output x 4 input channels for the three taps of
@@ -89,9 +83,10 @@
 //   and one of e (both 16-byte shared loads) for 48 FMAs. A 32 x 64 (or
 //   32 x 32) channel tile, so x is read Cout / 64 times; a ring of three
 //   cp.async-fed stages (copies of tile k + 2 and the prologue of tile k + 1
-//   while tile k's products run); fixed-order partials as above. No TF32
-//   and no transform: the products are the direct f32 sums the TPU kernel
-//   and the plain version take.
+//   while tile k's products run); fixed-order partials as above. No TF32:
+//   the products are the direct f32 sums the TPU kernel and the plain
+//   version take. kDwQ forms e (and in the xq mode t) in f32 once per
+//   element from its raw int8 slots.
 
 #pragma once
 
@@ -130,118 +125,6 @@ __device__ __forceinline__ int dw_prologue(int prologue) {
 template <int KIND>
 __device__ __forceinline__ const float* dw_stats(const float* s) {
   return KIND == kDwFused || KIND == kDwQ ? s : nullptr;
-}
-
-// ---------------------------------------------------------------------------
-// bf16: the first body (tensor cores)
-// ---------------------------------------------------------------------------
-
-constexpr int kDwThreads = 9 * 32;
-constexpr int kDwRow = 40;  // bf16 per staged pixel: 32 channels + 8 padding
-
-template <int KIND>
-__device__ __forceinline__ void dw_mma_body(const bf16* __restrict__ x,
-                                            const float* __restrict__ pa,
-                                            const float* __restrict__ pb,
-                                            const bf16* __restrict__ dy,
-                                            const bf16* __restrict__ y,
-                                            const float* __restrict__ s1_in,
-                                            const float* __restrict__ s2_in,
-                                            float* __restrict__ partials, int B, int H, int W,
-                                            int Cin, int Cout, int prologue_in, const QArgs qa,
-                                            int ew_bf16 = 0) {
-  const int prologue = dw_prologue<KIND>(prologue_in);
-  const float* s1 = dw_stats<KIND>(s1_in);
-  const float* s2 = dw_stats<KIND>(s2_in);
-  __shared__ __align__(16) bf16 t_s[kWinH * kWinW * kDwRow];
-  __shared__ __align__(16) bf16 e_s[kTH * kTW * kDwRow];
-  const int ci0 = blockIdx.x * kDwC, co0 = blockIdx.y * kDwC;
-  const int tap = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ky = tap / 3, kx = tap % 3;
-  const int g = lane >> 2, t = lane & 3;
-  // ldmatrix rows: lane -> (pixel j, channel half) of quarter i = lane / 8
-  const int lj = lane & 7, lq = lane >> 3;
-  const int tiles_x = (W + kTW - 1) / kTW, tiles_y = (H + kTH - 1) / kTH;
-  const int n_tiles = B * tiles_x * tiles_y;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.f;
-
-  for (int tile = blockIdx.z; tile < n_tiles; tile += gridDim.z) {
-    const int b = tile / (tiles_x * tiles_y), rem = tile % (tiles_x * tiles_y);
-    const int gy0 = (rem / tiles_x) * kTH, gx0 = (rem % tiles_x) * kTW;
-    const int64_t img = (int64_t)b * H * W;
-    __syncthreads();
-    with_ew(ew_bf16, [&](auto ew) {
-      constexpr bool EW = decltype(ew)::value;
-      for (int e = threadIdx.x; e < kWinH * kWinW * 4; e += kDwThreads) {
-        const int pix = e >> 2, q = e & 3;
-        const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
-        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        const int c = ci0 + q * 8;
-        const int64_t i = (img + (int64_t)gy * W + gx) * Cin + c;
-        if (KIND == kDwQ && qa.xq != nullptr)
-          stage8_tq(&t_s[pix * kDwRow + q * 8], qa.xq + i,
-                    qa.xsc + ((int64_t)(b * H + gy) * qa.pack + gx % qa.pack) * Cin + c, c,
-                    Cin, inside, prologue, pa, pb);
-        else
-          stage8_t<EW>(&t_s[pix * kDwRow + q * 8], x + i, c, Cin, inside, prologue, pa, pb);
-      }
-      for (int e = threadIdx.x; e < kTH * kTW * 4; e += kDwThreads) {
-        const int pix = e >> 2, q = e & 3;
-        const int gy = gy0 + pix / kTW, gx = gx0 + pix % kTW;
-        const int c = co0 + q * 8;
-        const int64_t i = (img + (int64_t)gy * W + gx) * Cout + c;
-        if constexpr (KIND == kDwQ)
-          stage8_eq(&e_s[pix * kDwRow + q * 8], dy + i, qa.yq + i,
-                    qa.ysc + ((int64_t)(b * H + gy) * qa.pack + gx % qa.pack) * Cout + c, c,
-                    Cout, gy < H && gx < W, s1, s2);
-        else
-          stage8_e<EW>(&e_s[pix * kDwRow + q * 8], dy + i, s1 ? y + i : nullptr, c, Cout,
-                       gy < H && gx < W, s1, s2);
-      }
-    });
-    __syncthreads();
-
-    for (int r = 0; r < kTH; ++r) {
-      // A[ci][k] = t at window (r + ky, k + kx), B[k][co] = e at (r, k):
-      // both stored k-major, so their fragments are transposed quarters.
-      // A's quarters (k, ci) = (0-7, 0-7), (0-7, 8-15), (8-15, 0-7),
-      // (8-15, 8-15) are a0..a3; B's (k, co) = (0-7, n), (8-15, n) are b0, b1.
-      uint32_t a[2][4], b[2][4];
-      const int t_pix = (r + ky) * kWinW + kx + (lq >> 1) * 8 + lj;
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        ldmatrix_x4_trans(a[m], &t_s[t_pix * kDwRow + m * 16 + (lq & 1) * 8]);
-      const int e_pix = r * kTW + (lq & 1) * 8 + lj;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)  // n-tiles 2h and 2h + 1
-        ldmatrix_x4_trans(b[h], &e_s[e_pix * kDwRow + (2 * h + (lq >> 1)) * 8]);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-          mma_bf16(acc[m][n], a[m], b[n >> 1][(n & 1) * 2], b[n >> 1][(n & 1) * 2 + 1]);
-    }
-  }
-
-  // D[ci][co]: acc[m][n] = {D[m*16+g][n*8+2t], D[..][+1], D[m*16+g+8][n*8+2t], D[..][+1]};
-  // partials[z] is laid out as the weight, [Cout, Cin, 3, 3].
-  float* part = partials + (int64_t)blockIdx.z * Cout * Cin * 9;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ci = ci0 + m * 16 + g + (j >> 1) * 8, co = co0 + n * 8 + 2 * t + (j & 1);
-        if (ci < Cin && co < Cout) part[((int64_t)co * Cin + ci) * 9 + tap] = acc[m][n][j];
-      }
 }
 
 // ---------------------------------------------------------------------------
@@ -305,6 +188,42 @@ struct RingTile {
   __device__ static int e_at(int pix, int q) { return at<kRowE>(pix, q); }
 };
 
+// The dW from int8 (kDwQ) on a TMA tile: a stage holds the x window (or, in
+// the xq mode, t formed from the int8 x), the dy tile (becoming e), the
+// int8 y tile (dense rows of CO_T bytes) and its rows' scales ([RING_TH]
+// [pack][CO_T] floats), 1024-byte rounded; the xq mode's int8 x window
+// (dense rows of CI_T bytes, 128-byte rounded) and its rows' scales
+// ([RING_TH + 2][pack][CI_T]) land in one of two raw slots after the
+// stages (tile j's in slot j % 2: the transform of tile j is done before
+// the copies of tile j + 2 start). The 16-wide tiles' stages are the other
+// kinds': their kDwQ forms e and t by plain loads as they are copied.
+template <int CI_T, int CO_T>
+__host__ __device__ constexpr int dw_ring_stage_bytes(bool q, int pack) {
+  using Tile = RingTile<CI_T, CO_T>;
+  return q && Tile::kTma ? (Tile::kX * 2 + Tile::kE * 2 + kRingPix * CO_T +
+                            kRingTH * pack * CO_T * 4 + 1023) / 1024 * 1024
+                         : Tile::kStage * 2;
+}
+template <int CI_T>
+__host__ __device__ constexpr int dw_ring_x8_bytes() {
+  return (kRingWin * CI_T + 127) / 128 * 128;
+}
+template <int CI_T, int CO_T>
+__host__ __device__ constexpr int dw_ring_raw_bytes(bool xq, int pack) {
+  return xq && RingTile<CI_T, CO_T>::kTma ? dw_ring_x8_bytes<CI_T>() + kRingWinH * pack * CI_T * 4
+                                          : 0;
+}
+// A launch's dynamic shared bytes (mirrored by conv3x3.dw_ring_resources):
+// the ring's stages, kDwQ's two raw slots, the vectors, the mbarriers and
+// the alignment slack; RingTile::kSmem for the other kinds.
+template <int CI_T, int CO_T>
+__host__ __device__ constexpr int dw_ring_smem(bool q, bool xq, int pack) {
+  using Tile = RingTile<CI_T, CO_T>;
+  return kRingStages * dw_ring_stage_bytes<CI_T, CO_T>(q, pack) +
+         2 * dw_ring_raw_bytes<CI_T, CO_T>(xq, pack) + (2 * CI_T + 2 * CO_T) * 4 +
+         (Tile::kTma ? kRingStages * 8 + 1024 : 0);
+}
+
 // Eight channels [c, c + 8) of one pixel, copied as they are by plain
 // loads (a width that is not a multiple of 8), zero past C or outside.
 __device__ __forceinline__ void stage8_raw(bf16* dst, const bf16* src, int c, int C,
@@ -322,6 +241,8 @@ __device__ __forceinline__ void cp_async4_n(void* smem, const void* gmem, int n)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
+// kDwQ reads y as qa's int8 y (tm_y its map, tm_ys its scales') and, in
+// the xq mode, x as qa's int8 x (tm_x its map, tm_xs its scales').
 template <int KIND, int CI_T, int CO_T>
 __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
                                              const float* __restrict__ pa,
@@ -333,23 +254,33 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
                                              float* __restrict__ partials, int B, int H, int W,
                                              int Cin, int Cout, int prologue_in,
                                              const CUtensorMap* tm_x, const CUtensorMap* tm_dy,
-                                             const CUtensorMap* tm_y, int ew_bf16) {
-  static_assert(KIND != kDwQ, "the ring stages bf16 operands; kDwQ stays on dw_mma_body");
+                                             const CUtensorMap* tm_y, int ew_bf16,
+                                             const QArgs qa = QArgs{},
+                                             const CUtensorMap* tm_ys = nullptr,
+                                             const CUtensorMap* tm_xs = nullptr) {
   using Tile = RingTile<CI_T, CO_T>;
   constexpr int QX = CI_T / 8, QE = CO_T / 8;
   constexpr int NT = Tile::kThreads, S = kRingStages;
+  constexpr bool Q = KIND == kDwQ;
+  constexpr bool QT = Q && Tile::kTma;  // the int8 tiles by TMA, formed in the transform
   const int prologue = dw_prologue<KIND>(prologue_in);
   const float* s1 = dw_stats<KIND>(s1_in);
   const float* s2 = dw_stats<KIND>(s2_in);
+  const bool xq = Q && qa.xq != nullptr;  // t from the int8 x
+  const int pack = qa.pack;
+  // a stage's and a raw slot's bytes, and a stage's bf16
+  const int stage_b = dw_ring_stage_bytes<CI_T, CO_T>(Q, pack);
+  const int raw_b = dw_ring_raw_bytes<CI_T, CO_T>(xq, pack), stage_e = stage_b / 2;
   extern __shared__ __align__(16) unsigned char dw_ring_smem[];
   // the swizzles repeat every 1024 bytes or less: TMA, ldmatrix and wgmma
   // agree on them from a 1024-byte aligned ring
   bf16* ring = reinterpret_cast<bf16*>(
       dw_ring_smem + (Tile::kTma ? (1024 - (smem_u32(dw_ring_smem) & 1023)) & 1023 : 0));
+  unsigned char* xraw = reinterpret_cast<unsigned char*>(ring) + S * stage_b;  // xq: [2][raw_b]
   // the per-channel vectors as (a, b) and (ds1, ds2) pairs, channel q * 8 +
   // j at [j * Q + q]: an item's eight pairs are eight 8-byte loads, and a
   // warp's items (consecutive q) read consecutive pairs, on distinct banks
-  float2* ab_s = reinterpret_cast<float2*>(ring + S * Tile::kStage);
+  float2* ab_s = reinterpret_cast<float2*>(xraw + 2 * raw_b);
   float2* se_s = ab_s + CI_T;
   uint64_t* bars = reinterpret_cast<uint64_t*>(se_s + CO_T);  // a stage's TMA loads
 
@@ -366,13 +297,17 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
   // the stem) is copied as whole window rows in 4-byte pieces and scattered
   // into t by the transform; Cin % 8 == 0 in 16-byte pieces per pixel; any
   // other width by plain loads (stage8_raw)
-  const bool narrow = CI_T == 16 && Cin < 8, vec_x = (Cin & 7) == 0, vec_e = (Cout & 7) == 0;
+  // (the xq mode's 16-wide tiles form t from the int8 x by plain loads)
+  const bool narrow = CI_T == 16 && Cin < 8 && !xq, vec_x = (Cin & 7) == 0,
+             vec_e = (Cout & 7) == 0;
   const bool form_e = s1 != nullptr;
   const int64_t x_bytes = (int64_t)B * H * W * Cin * 2;
   // the transform's items: the x window's pixels (narrow) or 8-channel
-  // pieces (with the prologue), then e's 8-channel pieces (with the stats)
-  const int nx = narrow ? kRingWin : prologue ? kRingWin * QX : 0;
-  const int n_items = nx + (form_e ? kRingPix * QE : 0);
+  // pieces (with the prologue; kDwQ's t from the int8 x, at every pixel of
+  // the window), then e's 8-channel pieces (with the stats); the 16-wide
+  // tiles of kDwQ form both as they are copied
+  const int nx = xq ? (QT ? kRingWin * QX : 0) : narrow ? kRingWin : prologue ? kRingWin * QX : 0;
+  const int n_items = nx + (form_e && (QT || !Q) ? kRingPix * QE : 0);
 
   // the per-channel vectors of this tile, zero past Cin / Cout (so t and e
   // stay 0 there); a narrow t's channels 8-15 are zero in every stage
@@ -396,7 +331,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
   if (narrow) {
     const uint4 zero = make_uint4(0, 0, 0, 0);
     for (int i = threadIdx.x; i < S * kRingWin; i += NT)
-      *reinterpret_cast<uint4*>(&ring[(i / kRingWin) * Tile::kStage +
+      *reinterpret_cast<uint4*>(&ring[(i / kRingWin) * stage_e +
                                       Tile::x_at(i % kRingWin, 1)]) = zero;
   }
 
@@ -409,25 +344,55 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
     gx0 = (rem % tiles_x) * kTW;
     return tile < n_tiles;
   };
-  // Copies of the raw x window, dy and y of tile k into stage `st`.
+  // The scales' row of pixel (gy, gx) of image b, at channel c of C.
+  auto scale_at = [&](const float* sc, int b, int gy, int gx, int c, int C) {
+    return sc + ((int64_t)(b * H + gy) * pack + scale_col(gx, pack)) * C + c;
+  };
+  // Copies of the raw x window, dy and y of tile k into stage `st` (kDwQ:
+  // the int8 y tile and its scales; in the xq mode the int8 x window and
+  // its scales into raw slot k % 2).
   auto issue = [&](int k, int st) {
     int b, gy0, gx0;
     if (!origin(k, b, gy0, gx0)) return;
-    bf16* xs = ring + st * Tile::kStage;
+    bf16* xs = ring + st * stage_e;
     bf16* es = xs + Tile::kX;
     bf16* ys = es + Tile::kE;
-    if constexpr (Tile::kTma) {  // one thread: the window and the two tiles, zeros outside
+    if constexpr (Tile::kTma) {  // one thread: the window and the tiles, zeros outside
       if (threadIdx.x == 0) {
         const uint32_t bar = smem_u32(&bars[st]);
-        mbar_expect_tx(bar, kRingWin * CI_T * 2 + (form_e ? 2 : 1) * kRingPix * CO_T * 2);
-        tma_load_4d(xs, tm_x, ci0, gx0 - 1, gy0 - 1, b, bar);
+        const int y_bytes = Q ? kRingPix * CO_T + kRingTH * pack * CO_T * 4 : kRingPix * CO_T * 2;
+        const int x_bytes_tile =
+            xq ? kRingWin * CI_T + kRingWinH * pack * CI_T * 4 : kRingWin * CI_T * 2;
+        mbar_expect_tx(bar, x_bytes_tile + kRingPix * CO_T * 2 + (form_e ? y_bytes : 0));
+        if (xq) {
+          unsigned char* r = xraw + (k & 1) * raw_b;
+          tma_load_4d(r, tm_x, ci0, gx0 - 1, gy0 - 1, b, bar);
+          tma_load_4d(r + dw_ring_x8_bytes<CI_T>(), tm_xs, ci0, 0, gy0 - 1, b, bar);
+        } else {
+          tma_load_4d(xs, tm_x, ci0, gx0 - 1, gy0 - 1, b, bar);
+        }
         tma_load_4d(es, tm_dy, co0, gx0, gy0, b, bar);
-        if (form_e) tma_load_4d(ys, tm_y, co0, gx0, gy0, b, bar);
+        if (form_e) {
+          tma_load_4d(ys, tm_y, co0, gx0, gy0, b, bar);
+          if constexpr (Q)
+            tma_load_4d(reinterpret_cast<unsigned char*>(ys) + kRingPix * CO_T, tm_ys, co0, 0,
+                        gy0, b, bar);
+        }
       }
       return;
     }
     const int64_t img = (int64_t)b * H * W;
-    if (narrow) {
+    if (xq) {  // t from the int8 x by plain loads, zero outside
+      for (int i = threadIdx.x; i < kRingWin * QX; i += NT) {
+        const int pix = i / QX, q = i % QX;
+        const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW, c = ci0 + q * 8;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const int64_t off = inside ? (img + (int64_t)gy * W + gx) * Cin + c : 0;
+        stage8_tq(&xs[Tile::x_at(pix, q)], qa.xq + off,
+                  inside ? scale_at(qa.xsc, b, gy, gx, c, Cin) : qa.xsc, c, Cin, inside, prologue,
+                  pa, pb);
+      }
+    } else if (narrow) {
       // window row wr: the 18 * Cin * 2 bytes from pixel (gy, gx0 - 1), in
       // the 4-byte pieces that cover them; past either end of x, zeros
       unsigned char* raw = reinterpret_cast<unsigned char*>(ys + Tile::kY);
@@ -462,7 +427,10 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
       const bool inside = gy < H && gx < W, on = inside && c < Cout;
       const int64_t off = inside ? (img + (int64_t)gy * W + gx) * Cout + c : 0;
       const int at = Tile::e_at(pix, q);
-      if (vec_e) {
+      if constexpr (Q) {  // e from dy and the int8 y by plain loads, zero outside
+        stage8_eq(&es[at], dy + off, qa.yq + off,
+                  inside ? scale_at(qa.ysc, b, gy, gx, c, Cout) : qa.ysc, c, Cout, inside, s1, s2);
+      } else if (vec_e) {
         cp_async<16>(&es[at], on ? dy + off : dy, on);
         if (form_e) cp_async<16>(&ys[at], on ? y + off : y, on);
       } else {
@@ -471,14 +439,17 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
       }
     }
   };
-  // Item i of the transform of a tile at (b, gy0, gx0) in stage `st`, in
+  // Item i of the transform of tile k at (b, gy0, gx0) in stage `st`, in
   // place and once per element: t = round(relu(x a + b)) (or x itself, for
-  // a narrow x scattered from its raw rows), e = round(dy + ds1 + 2 y ds2).
+  // a narrow x scattered from its raw rows), e = round(dy + ds1 + 2 y ds2);
+  // kDwQ: e from deq(y) in f32, and in the xq mode t = round(relu(deq(xq)
+  // a + b)) from the raw slot, both with one rounding.
   // Out-of-image pixels keep the zeros they were copied as (a narrow x's
-  // are written as zeros): zero padding in t-space and in e-space.
-  auto form = [&](auto ew, int i, int st, int b, int gy0, int gx0) {
+  // and the xq mode's t are written as zeros): zero padding in t-space and
+  // in e-space.
+  auto form = [&](auto ew, int i, int k, int st, int b, int gy0, int gx0) {
     constexpr bool EW = decltype(ew)::value;
-    bf16* xs = ring + st * Tile::kStage;
+    bf16* xs = ring + st * stage_e;
     bf16* es = xs + Tile::kX;
     const bf16* ys = es + Tile::kE;
     alignas(16) bf16 v[8];
@@ -487,7 +458,19 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
       const int wr = pix / kWinW, wc = pix % kWinW;
       const int gy = gy0 - 1 + wr, gx = gx0 - 1 + wc;
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      if (narrow) {
+      if (Q && xq) {
+        const unsigned char* r = xraw + (k & 1) * raw_b;
+        float d[8] = {};
+        if (inside)
+          deq8(d, reinterpret_cast<const int8_t*>(r) + pix * CI_T + q * 8,
+               reinterpret_cast<const float*>(r + dw_ring_x8_bytes<CI_T>()) +
+                   (wr * pack + scale_col(gx, pack)) * CI_T + q * 8);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 ab = ab_s[j * QX + q];
+          v[j] = __float2bfloat16(!inside ? 0.f : prologue ? prologue_f32(d[j], ab.x, ab.y) : d[j]);
+        }
+      } else if (narrow) {
         const int64_t lo = ((int64_t)b * H * W + (int64_t)gy * W + gx0 - 1) * Cin * 2;
         const bf16* src = reinterpret_cast<const bf16*>(
             reinterpret_cast<const unsigned char*>(ys + Tile::kY) + wr * kRawRow +
@@ -512,23 +495,36 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
     } else {
       const int pix = (i - nx) / QE, q = (i - nx) % QE;
       if (gy0 + pix / kTW >= H || gx0 + pix % kTW >= W) return;
-      alignas(16) bf16 yv[8];
       const int at = Tile::e_at(pix, q);
       load16<bf16>(v, &es[at], 0);
-      load16<bf16>(yv, &ys[at], 0);
+      if constexpr (Q) {  // deq(y) in f32, not rounded; the pixel's row of scales
+        const unsigned char* y8 = reinterpret_cast<const unsigned char*>(ys);
+        float yv[8];
+        deq8(yv, reinterpret_cast<const int8_t*>(y8) + pix * CO_T + q * 8,
+             reinterpret_cast<const float*>(y8 + kRingPix * CO_T) +
+                 ((pix / kTW) * pack + scale_col(gx0 + pix % kTW, pack)) * CO_T + q * 8);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 se = se_s[j * QE + q];
-        v[j] = __float2bfloat16(
-            e_ew<EW>(__bfloat162float(v[j]), __bfloat162float(yv[j]), se.x, se.y));
+        for (int j = 0; j < 8; ++j) {
+          const float2 se = se_s[j * QE + q];
+          v[j] = __float2bfloat16(e_f32(__bfloat162float(v[j]), yv[j], se.x, se.y));
+        }
+      } else {
+        alignas(16) bf16 yv[8];
+        load16<bf16>(yv, &ys[at], 0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 se = se_s[j * QE + q];
+          v[j] = __float2bfloat16(
+              e_ew<EW>(__bfloat162float(v[j]), __bfloat162float(yv[j]), se.x, se.y));
+        }
       }
       store16<bf16>(&es[at], 0, v);
     }
   };
-  // Every item of a tile's transform, the chain chosen once.
-  auto form_all = [&](int st, int b, int gy0, int gx0) {
+  // Every item of tile k's transform, the chain chosen once.
+  auto form_all = [&](int k, int st, int b, int gy0, int gx0) {
     with_ew(ew_bf16, [&](auto ew) {
-      for (int i = threadIdx.x; i < n_items; i += NT) form(ew, i, st, b, gy0, gx0);
+      for (int i = threadIdx.x; i < n_items; i += NT) form(ew, i, k, st, b, gy0, gx0);
     });
   };
 
@@ -556,7 +552,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
   {
     int b, gy0, gx0;
     if (origin(0, b, gy0, gx0))
-      form_all(0, b, gy0, gx0);
+      form_all(0, 0, b, gy0, gx0);
   }
   for (int k = 0; k < my_tiles; ++k) {
     const int st = k % S, next = (k + 1) % S;
@@ -574,7 +570,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
     cp_async_commit();
     int b, gy0, gx0;
     const bool more = origin(k + 1, b, gy0, gx0);
-    const bf16* ts = ring + st * Tile::kStage;
+    const bf16* ts = ring + st * stage_e;
     const bf16* es = ts + Tile::kX;
     if constexpr (Tile::kWg) {
       // Warpgroup ky's taps (ky, 0..2) on pixel row r: D[co][ci] += A B with
@@ -594,7 +590,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
       }
       wg_commit();
       if (more)
-        form_all(next, b, gy0, gx0);
+        form_all(k + 1, next, b, gy0, gx0);
       wg_wait_all();  // before the barrier: this stage takes tile k + 3
 #pragma unroll
       for (int tx = 0; tx < 3; ++tx) wg_fence_regs(acc[tx]);
@@ -624,7 +620,7 @@ __device__ __forceinline__ void dw_ring_body(const bf16* __restrict__ x,
       // then tile k + 1's transform: a warp past its products starts on it
       // while the others finish theirs
       if (more)
-        form_all(next, b, gy0, gx0);
+        form_all(k + 1, next, b, gy0, gx0);
     }
   }
   cp_async_wait<0>();  // no copy outlives the block (the groups past the end are empty)
@@ -685,7 +681,7 @@ __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
                                             const float* __restrict__ s1_in,
                                             const float* __restrict__ s2_in,
                                             float* __restrict__ partials, int B, int H, int W,
-                                            int Cin, int Cout, int prologue_in, const QArgs qa,
+                                            int Cin, int Cout, int prologue_in,
                                             int = 0) {  // f32: no bf16 chains
   const int prologue = dw_prologue<KIND>(prologue_in);
   const float* s1 = dw_stats<KIND>(s1_in);
@@ -714,9 +710,7 @@ __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
       float v = 0.f;
       if (gy >= 0 && gy < H && gx >= 0 && gx < W && ci0 + c < Cin) {
         const int64_t i = (img + (int64_t)gy * W + gx) * Cin + ci0 + c;
-        v = KIND == kDwQ && qa.xq != nullptr
-                ? t_at_q<float>(qa.xq, qa.xsc, i, ci0 + c, Cin, W, qa.pack, prologue, pa, pb)
-                : t_at(x, i, ci0 + c, prologue, pa, pb);
+        v = t_at(x, i, ci0 + c, prologue, pa, pb);
       }
       t_s[pix][c] = v;
     }
@@ -726,8 +720,7 @@ __device__ __forceinline__ void dw_fma_body(const float* __restrict__ x,
       float v = 0.f;
       if (gy < H && gx < W && co0 + c < Cout) {
         const int64_t i = (img + (int64_t)gy * W + gx) * Cout + co0 + c;
-        v = KIND == kDwQ ? e_at_q(dy, qa.yq, qa.ysc, i, co0 + c, Cout, W, qa.pack, s1, s2)
-                         : e_at(dy, y, i, co0 + c, s1, s2);
+        v = e_at(dy, y, i, co0 + c, s1, s2);
       }
       e_s[pix][c] = v;
     }
@@ -808,6 +801,66 @@ __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// kDwQ's raw slots in f32 (two, tile j's in slot j % 2, as the bf16 ring's):
+// the int8 y tile (TH x 16 pixels, dense rows of CO_T bytes) and its rows'
+// scales ([TH][pack][CO_T] floats); in the xq mode the int8 x window and its
+// rows' scales ([TH + 2][pack][32]). Each piece 128-byte rounded.
+template <int CO_T>
+struct RegQRaw {
+  using Tile = RegTile<CO_T>;
+  int y8, ysc, x8, xsc, bytes;  // offsets in a slot, and its bytes
+  __host__ __device__ constexpr RegQRaw(bool xq, int pack)
+      : y8(0),
+        ysc(round(Tile::kPix * CO_T)),
+        x8(ysc + round(Tile::kTH * pack * CO_T * 4)),
+        xsc(x8 + (xq ? round(Tile::kWin * kRegCiT) : 0)),
+        bytes(xsc + (xq ? round((Tile::kTH + 2) * pack * kRegCiT * 4) : 0)) {}
+  __host__ __device__ static constexpr int round(int b) { return (b + 127) / 128 * 128; }
+};
+
+// A launch's dynamic shared bytes (mirrored by conv3x3.dw_fma_resources):
+// the ring, kDwQ's two raw slots, the prologue's a and b and kDwQ's ds1 and
+// ds2; RegTile::kSmem for the other kinds.
+template <int CO_T>
+__host__ __device__ constexpr int dw_reg_smem(bool q, bool xq, int pack) {
+  return RegTile<CO_T>::kSmem + (q ? 2 * RegQRaw<CO_T>(xq, pack).bytes + 2 * CO_T * 4 : 0);
+}
+
+// Sixteen int8 values [c, c + 16) of one pixel: by cp.async where C is a
+// multiple of 16, else by plain loads; zero past C or outside. `base` is a
+// valid address for a copy that reads nothing.
+__device__ __forceinline__ void stage16_i8(int8_t* dst, const int8_t* src, int c, int C,
+                                           bool inside, const int8_t* base) {
+  if ((C & 15) == 0) {
+    cp_async<16>(dst, inside && c < C ? src : base, inside && c < C);
+    return;
+  }
+  alignas(16) int8_t v[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = inside && c + k < C ? src[k] : 0;
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+}
+
+// Four f32 values [c, c + 4): by cp.async where C is a multiple of 4, else
+// by plain loads; zero past C or outside.
+__device__ __forceinline__ void stage4_f32(float* dst, const float* src, int c, int C, bool inside,
+                                           const float* base) {
+  if ((C & 3) == 0)
+    cp_async<16>(dst, inside && c < C ? src : base, inside && c < C);
+  else
+    stage4_raw(dst, src, c, C, inside);
+}
+
+// Four int8 values and their four scales as f32 deq values.
+__device__ __forceinline__ void deq4(float (&d)[4], const int8_t* q, const float* sc) {
+  const char4 qv = *reinterpret_cast<const char4*>(q);
+  const float4 s = *reinterpret_cast<const float4*>(sc);
+  d[0] = deq_f32(qv.x, s.x);
+  d[1] = deq_f32(qv.y, s.y);
+  d[2] = deq_f32(qv.z, s.z);
+  d[3] = deq_f32(qv.w, s.w);
+}
+
 // acc[j][i] += e[j] * t[i]: one tap's 4 x 4 outer product.
 __device__ __forceinline__ void fma_outer(float (&acc)[4][4], const float4& e, const float4& t) {
   const float ev[4] = {e.x, e.y, e.z, e.w}, tv[4] = {t.x, t.y, t.z, t.w};
@@ -819,6 +872,9 @@ __device__ __forceinline__ void fma_outer(float (&acc)[4][4], const float4& e, c
 
 // dW of t = prologue(x) (kDwBn, t = x without it) against e = dy as given
 // (the materialized dy_eff of the two-pass branch, or the plain dW's dy),
+// or (kDwQ) against e = dy + ds1 + 2 deq(y) ds2 formed from dy and the
+// int8 y, with t from x or, in the xq mode, from deq(xq), each in f32 once
+// per element after its copies land (from the raw slots),
 // into `out` [gridDim.z][Cout, Cin, 3, 3]. The ring of kRegStages stages:
 // tile k's products run while tile k + 1 is formed in the next stage and
 // tile k + 2 is copied into the third, by 16-byte cp.async (4 channels;
@@ -836,16 +892,27 @@ __device__ __forceinline__ void dw_reg_body(const float* __restrict__ x,
                                             const float* __restrict__ pb,
                                             const float* __restrict__ dy,
                                             float* __restrict__ out, int B, int H, int W,
-                                            int Cin, int Cout, int prologue_in) {
-  static_assert(KIND == kDwPlain || KIND == kDwBn, "e as given: the plain and two-pass dW");
+                                            int Cin, int Cout, int prologue_in,
+                                            const float* __restrict__ s1 = nullptr,
+                                            const float* __restrict__ s2 = nullptr,
+                                            const QArgs qa = QArgs{}) {
+  static_assert(KIND == kDwPlain || KIND == kDwBn || KIND == kDwQ,
+                "e as given (the plain and two-pass dW) or from the int8 y (kDwQ)");
   using Tile = RegTile<CO_T>;
   constexpr int CI_T = kRegCiT, TH = Tile::kTH, S = kRegStages, NT = Tile::kThreads;
   constexpr int QX = CI_T / 4, QE = CO_T / 4;  // 16-byte pieces of a staged pixel
+  constexpr bool Q = KIND == kDwQ;
   const int prologue = dw_prologue<KIND>(prologue_in);
+  const bool xq = Q && qa.xq != nullptr, form_e = Q && s1 != nullptr;
+  const int pack = qa.pack;
+  const RegQRaw<CO_T> rq(xq, pack);
   extern __shared__ __align__(16) float dw_reg_smem[];
   float* ring = dw_reg_smem;
-  float* a_s = ring + S * Tile::kStage;
+  unsigned char* qraw = reinterpret_cast<unsigned char*>(ring + S * Tile::kStage);  // [2][rq]
+  float* a_s = reinterpret_cast<float*>(qraw + (Q ? 2 * rq.bytes : 0));
   float* b_s = a_s + CI_T;
+  float* s1_s = b_s + CI_T;  // kDwQ: ds1, ds2 over the tile's CO_T channels
+  float* s2_s = s1_s + CO_T;
 
   const int ci0 = blockIdx.x * CI_T, co0 = blockIdx.y * CO_T;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -861,6 +928,11 @@ __device__ __forceinline__ void dw_reg_body(const float* __restrict__ x,
     a_s[c] = on ? pa[ci0 + c] : 0.f;
     b_s[c] = on ? pb[ci0 + c] : 0.f;
   }
+  for (int c = threadIdx.x; c < (Q ? CO_T : 0); c += NT) {
+    const bool on = form_e && co0 + c < Cout;
+    s1_s[c] = on ? s1[co0 + c] : 0.f;
+    s2_s[c] = on ? s2[co0 + c] : 0.f;
+  }
 
   // The k-th tile of this block: its image and origin; false past the end.
   auto origin = [&](int k, int& b, int& gy0, int& gx0) {
@@ -871,14 +943,52 @@ __device__ __forceinline__ void dw_reg_body(const float* __restrict__ x,
     gx0 = (rem % tiles_x) * kTW;
     return tile < n_tiles;
   };
-  // Copies of the raw x window and the e tile of tile k into stage `st`.
+  // Copies of the raw x window and the e tile of tile k into stage `st`
+  // (kDwQ: dy, the int8 y tile and its scales into raw slot k % 2; in the
+  // xq mode the int8 x window and its scales in place of x).
   auto issue = [&](int k, int st) {
     int b, gy0, gx0;
     if (!origin(k, b, gy0, gx0)) return;
     float* xs = ring + st * Tile::kStage;
     float* es = xs + Tile::kX;
     const int64_t img = (int64_t)b * H * W;
-    for (int i = threadIdx.x; i < Tile::kWin * QX; i += NT) {
+    unsigned char* r = qraw + (k & 1) * rq.bytes;
+    if (form_e) {
+      for (int i = threadIdx.x; i < Tile::kPix * (CO_T / 16); i += NT) {
+        const int pix = i / (CO_T / 16), q = i % (CO_T / 16);
+        const int gy = gy0 + pix / kTW, gx = gx0 + pix % kTW, c = co0 + q * 16;
+        const bool inside = gy < H && gx < W;
+        stage16_i8(reinterpret_cast<int8_t*>(r + rq.y8) + pix * CO_T + q * 16,
+                   qa.yq + (inside ? (img + (int64_t)gy * W + gx) * Cout + c : 0), c, Cout, inside,
+                   qa.yq);
+      }
+      for (int i = threadIdx.x; i < TH * pack * QE; i += NT) {
+        const int row = i / (pack * QE), j = (i / QE) % pack, c = co0 + (i % QE) * 4;
+        const bool inside = gy0 + row < H;
+        stage4_f32(reinterpret_cast<float*>(r + rq.ysc) + i * 4,
+                   qa.ysc + (inside ? ((int64_t)(b * H + gy0 + row) * pack + j) * Cout + c : 0), c,
+                   Cout, inside, qa.ysc);
+      }
+    }
+    if (xq) {
+      for (int i = threadIdx.x; i < Tile::kWin * (CI_T / 16); i += NT) {
+        const int pix = i / (CI_T / 16), q = i % (CI_T / 16);
+        const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW, c = ci0 + q * 16;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        stage16_i8(reinterpret_cast<int8_t*>(r + rq.x8) + pix * CI_T + q * 16,
+                   qa.xq + (inside ? (img + (int64_t)gy * W + gx) * Cin + c : 0), c, Cin, inside,
+                   qa.xq);
+      }
+      for (int i = threadIdx.x; i < (TH + 2) * pack * QX; i += NT) {
+        const int row = i / (pack * QX), j = (i / QX) % pack, c = ci0 + (i % QX) * 4;
+        const int gy = gy0 - 1 + row;
+        const bool inside = gy >= 0 && gy < H;
+        stage4_f32(reinterpret_cast<float*>(r + rq.xsc) + i * 4,
+                   qa.xsc + (inside ? ((int64_t)(b * H + gy) * pack + j) * Cin + c : 0), c, Cin,
+                   inside, qa.xsc);
+      }
+    }
+    for (int i = threadIdx.x; i < (xq ? 0 : Tile::kWin * QX); i += NT) {
       const int pix = i / QX, q = i % QX;
       const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW, c = ci0 + q * 4;
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W, on = inside && c < Cin;
@@ -899,11 +1009,51 @@ __device__ __forceinline__ void dw_reg_body(const float* __restrict__ x,
         stage4_raw(&es[pix * CO_T + q * 4], dy + off, c, Cout, inside);
     }
   };
-  // The prologue of a tile at (gy0, gx0) in stage `st`, in place, once per
+  // The prologue of tile k at (gy0, gx0) in stage `st`, in place, once per
   // element; out-of-image pixels stay 0, channels past Cin have a = b = 0.
-  auto form_all = [&](int st, int gy0, int gx0) {
-    if (!prologue) return;
+  // kDwQ: e = dy + ds1 + 2 deq(y) ds2 in place of dy, and in the xq mode
+  // t = relu(deq(xq) a + b) (or deq(xq)) from the raw slot, zero outside.
+  auto form_all = [&](int k, int st, int gy0, int gx0) {
     float* xs = ring + st * Tile::kStage;
+    const unsigned char* r = qraw + (k & 1) * rq.bytes;
+    if (form_e) {
+      float* es = xs + Tile::kX;
+      for (int i = threadIdx.x; i < Tile::kPix * QE; i += NT) {
+        const int pix = i / QE, q = i % QE, gx = gx0 + pix % kTW;
+        if (gy0 + pix / kTW >= H || gx >= W) continue;  // the zeros stay
+        float d[4];
+        deq4(d, reinterpret_cast<const int8_t*>(r + rq.y8) + pix * CO_T + q * 4,
+             reinterpret_cast<const float*>(r + rq.ysc) +
+                 ((pix / kTW) * pack + scale_col(gx, pack)) * CO_T + q * 4);
+        float4* p = reinterpret_cast<float4*>(&es[pix * CO_T + q * 4]);
+        float4 v = *p;
+        const int c = q * 4;
+        v.x = e_f32(v.x, d[0], s1_s[c], s2_s[c]);
+        v.y = e_f32(v.y, d[1], s1_s[c + 1], s2_s[c + 1]);
+        v.z = e_f32(v.z, d[2], s1_s[c + 2], s2_s[c + 2]);
+        v.w = e_f32(v.w, d[3], s1_s[c + 3], s2_s[c + 3]);
+        *p = v;
+      }
+    }
+    if (xq) {
+      for (int i = threadIdx.x; i < Tile::kWin * QX; i += NT) {
+        const int pix = i / QX, q = i % QX, wr = pix / kWinW;
+        const int gy = gy0 - 1 + wr, gx = gx0 - 1 + pix % kWinW;
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          deq4(d, reinterpret_cast<const int8_t*>(r + rq.x8) + pix * CI_T + q * 4,
+               reinterpret_cast<const float*>(r + rq.xsc) +
+                   (wr * pack + scale_col(gx, pack)) * CI_T + q * 4);
+          const int c = q * 4;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (prologue) d[j] = prologue_f32(d[j], a_s[c + j], b_s[c + j]);
+        }
+        *reinterpret_cast<float4*>(&xs[pix * CI_T + q * 4]) = make_float4(d[0], d[1], d[2], d[3]);
+      }
+      return;
+    }
+    if (!prologue) return;
     for (int i = threadIdx.x; i < Tile::kWin * QX; i += NT) {
       const int pix = i / QX, q = i % QX;
       const int gy = gy0 - 1 + pix / kWinW, gx = gx0 - 1 + pix % kWinW;
@@ -937,7 +1087,7 @@ __device__ __forceinline__ void dw_reg_body(const float* __restrict__ x,
   __syncthreads();
   {
     int b, gy0, gx0;
-    if (origin(0, b, gy0, gx0)) form_all(0, gy0, gx0);
+    if (origin(0, b, gy0, gx0)) form_all(0, 0, gy0, gx0);
   }
   for (int k = 0; k < my_tiles; ++k) {
     cp_async_wait<0>();  // tile k + 1 has landed
@@ -966,7 +1116,7 @@ __device__ __forceinline__ void dw_reg_body(const float* __restrict__ x,
     }
     // then tile k + 1's prologue: a warp past its products starts on it
     int b, gy0, gx0;
-    if (origin(k + 1, b, gy0, gx0)) form_all((k + 1) % S, gy0, gx0);
+    if (origin(k + 1, b, gy0, gx0)) form_all(k + 1, (k + 1) % S, gy0, gx0);
   }
   cp_async_wait<0>();  // no copy outlives the block (the groups past the end are empty)
   __syncthreads();     // every warp is past its products: the ring takes the dW tile

@@ -78,8 +78,6 @@ namespace {
 // bf16: the ring body's plain MODE
 // ---------------------------------------------------------------------------
 
-constexpr int kPlainSmemMax = 232448;  // a block's dynamic shared memory on the H100
-
 // Blocks an SM the instance's registers are fitted to (__launch_bounds__):
 // two up to 64 output channels, one at 128 (128 accumulators a thread).
 template <int COT>
@@ -95,9 +93,9 @@ int plain_ring_run(const void* kernel, Launch&& launch, const void* x, const voi
                    int W, int Cin, int Cout, int resident, int blocks) {
   const RingArgs ra{B, resident, (Cin & 7) == 0, 0};
   const int smem = conv_plain_smem<COT, CK>(resident != 0, Cin);
-  if ((!resident && !ra.tma) || smem > kPlainSmemMax || blocks < 1)
+  if ((!resident && !ra.tma) || smem > kSmemMax || blocks < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = smem_allowed(kernel, kPlainSmemMax);
+  cudaError_t err = smem_allowed(kernel, kSmemMax);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tms[2] = {};
   if (ra.tma && ((err = tm_nhwc(&tms[0], x, B, H, W, Cin, CK, kWinW, kWinH)) != cudaSuccess ||
@@ -110,7 +108,7 @@ int plain_ring_run(const void* kernel, Launch&& launch, const void* x, const voi
 // What the card gives a plain ring instance at `smem` bytes (out[4] as
 // kernel_info), its shared memory allowed at the most first, as its runs do.
 inline int plain_ring_info(const void* kernel, int smem, int* out) {
-  const cudaError_t err = smem_allowed(kernel, kPlainSmemMax);
+  const cudaError_t err = smem_allowed(kernel, kSmemMax);
   return err != cudaSuccess ? (int)err : kernel_info(kernel, kRingConvThreads, smem, out);
 }
 

@@ -22,8 +22,6 @@
 namespace cltorch {
 namespace {
 
-constexpr int kRingConvSmemMax = 232448;  // a block's dynamic shared memory on the H100
-
 template <int MODE, int COT, int CK, bool EPI>
 __global__ void __launch_bounds__(kRingConvThreads, ConvRingTile<COT, CK>::kMinBlocks)
     conv3x3_bn_ring_kernel(ConvArgs<bf16> p, RingArgs ra, const __grid_constant__ CUtensorMap tm_in,
@@ -33,73 +31,16 @@ __global__ void __launch_bounds__(kRingConvThreads, ConvRingTile<COT, CK>::kMinB
   conv_ring_body<MODE, COT, CK, EPI>(p, ra, &tm_in, &tm_y, &tm_w, &tm_x);
 }
 
-// The instance's dynamic shared memory above 48 KB, allowed once per
-// instance and device (at the most a block can have; each launch asks for
-// its own size).
-template <int MODE, int COT, int CK, bool EPI>
-cudaError_t ring_conv_smem_allowed() {
-  static bool done[16] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 16 && done[dev]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kRingConvSmemMax);
-  if (err == cudaSuccess && dev < 16) done[dev] = true;
-  return err;
-}
-
-// One launch of the instance over `blocks` x (Cout / COT) blocks, then the
-// fixed-order sum of its partial rows into `sums` [2, Cout]: the forward's
-// one row a block, the dx's (with the prologue) one row a 16 x 16 tile.
 template <int MODE, int COT, int CK, bool EPI>
 int ring_launch(const ConvArgs<bf16>& p, const RingArgs& ra, int blocks, void* sums,
                 cudaStream_t st) {
-  constexpr bool DX = MODE == kDx;
-  const bool stats = DX && p.s1 != nullptr;
-  const int B = ra.batch, H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  const bool xbuf = DX && EPI && ra.xbuf;
-  const int smem = conv_ring_smem<COT, CK>(DX, stats, ra.resident != 0, xbuf, Cin);
-  if ((!ra.resident && !ra.tma) || (xbuf && (Cout & 7)) || smem > kRingConvSmemMax || blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = ring_conv_smem_allowed<MODE, COT, CK, EPI>();
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap tms[4] = {};
-  if (ra.tma) {
-    if ((err = tm_nhwc(&tms[0], p.in, B, H, W, Cin, CK, kWinW, kWinH)) != cudaSuccess ||
-        (stats && (err = tm_nhwc(&tms[1], p.y, B, H, W, Cin, CK, kWinW, kWinH)) != cudaSuccess) ||
-        (err = tm_weights(&tms[2], p.w, Cin, Cout, CK, COT)) != cudaSuccess)
-      return (int)err;
-  }
-  if (xbuf && (err = tm_nhwc(&tms[3], p.x, B, H, W, Cout, COT, kTW, kTH)) != cudaSuccess)
-    return (int)err;
-  const dim3 grid(blocks, (Cout + COT - 1) / COT);
-  conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>
-      <<<grid, kRingConvThreads, smem, st>>>(p, ra, tms[0], tms[1], tms[2], tms[3]);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || (DX && !p.prologue)) return (int)err;
-  const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
-  reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(p.partials, DX ? tiles * B : blocks,
-                                                          2 * Cout, 2 * Cout,
-                                                          static_cast<float*>(sums));
-  return (int)cudaGetLastError();
-}
-
-// What the card gives an instance at `smem` dynamic bytes: {resident blocks
-// an SM, registers a thread, local (spilled) bytes a thread, smem}.
-template <int MODE, int COT, int CK, bool EPI>
-int ring_info(int smem, int* out) {
-  cudaError_t err = ring_conv_smem_allowed<MODE, COT, CK, EPI>();
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>, kRingConvThreads, smem);
-  out[1] = attr.numRegs;
-  out[2] = (int)attr.localSizeBytes;
-  out[3] = smem;
-  return (int)err;
+  return conv_ring_run<MODE, COT, CK, EPI>(
+      kernel_ptr(conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>),
+      [&](dim3 grid, int smem, const CUtensorMap* tm) {
+        conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>
+            <<<grid, kRingConvThreads, smem, st>>>(p, ra, tm[0], tm[1], tm[2], tm[3]);
+      },
+      p, ra, blocks, sums, st);
 }
 
 }  // namespace
@@ -157,8 +98,9 @@ int cltorch_conv3x3_bn_ring(int dx, const void* in, const void* y, const void* s
 // The instance (dx, cot, ck, epi: the dx's prologue) on this card at `smem`
 // bytes: out[4] as ring_info.
 int cltorch_conv3x3_ring_info(int dx, int cot, int ck, int epi, int smem, int* out) {
+  using namespace cltorch;
 #define CLTORCH_CONV_RING_INFO(MODE, COT, CK, EPI) \
-  cltorch::ring_info<MODE, COT, CK, EPI>(smem, out)
+  conv_ring_info(kernel_ptr(conv3x3_bn_ring_kernel<MODE, COT, CK, EPI>), smem, out)
   CLTORCH_CONV_RING_DISPATCH(CLTORCH_CONV_RING_INFO)
 #undef CLTORCH_CONV_RING_INFO
 }

@@ -1,14 +1,18 @@
 // The bf16 ring body of the packed conv's forward (#32) and dx (#34, #35),
-// and of the plain conv (#30, #40): conv_ring_body<MODE, COT, CK, EPI>,
-// instanced for kFwd and kDx (conv3x3_ring.cu) and kPlain (conv3x3_bn.cu,
-// conv3x3_g2.cu, through conv3x3_plain_body.cuh). It replaces, for those,
-// the first body (conv3x3_body.cuh::conv3x3_mma_body), which still serves
-// the dx from int8 (#38). kPlain forms nothing (no prologue, no e), sums
-// nothing and keeps no vectors; it runs a ring of three stages and its
-// products on wgmma (below).
+// of the dx from int8 saved activations (#38), and of the plain conv (#30,
+// #40): conv_ring_body<MODE, COT, CK, EPI>, instanced for kFwd and kDx
+// (conv3x3_ring.cu), kDxQ and kDxQX (conv3x3_dx_q.cu) and kPlain
+// (conv3x3_bn.cu, conv3x3_g2.cu, through conv3x3_plain_body.cuh). It
+// replaced, for all of them, the first body (conv3x3_mma_body, deleted once
+// #38 moved here). kPlain forms nothing (no prologue, no e), sums nothing
+// and keeps no vectors; it runs a ring of three stages and its products on
+// wgmma (below). kDxQ / kDxQX are kDx with the y window copied as int8 and
+// its rows' scales, e formed from deq(y) in f32, and (kDxQX) the epilogue's
+// x dequantized from the int8 x (conv3x3_dx_q.cu).
 //
 // TPU kernels: cl_tpu/pallas/conv3x3_v3.py::_fwd_bn_kernel (launched at
-// conv3x3_v3.py:833), ::_dx_slim_kernel (:1233) and ::_dx_bn_kernel (:1259).
+// conv3x3_v3.py:833), ::_dx_slim_kernel (:1233), ::_dx_bn_kernel (:1259) and
+// ::_dx_q_kernel (:1657).
 //
 // What bounds them on the H100 (bf16, batch 8, a shape (H, Cin -> Cout) of
 // the forward conv; the bound is the larger of the bytes each input read
@@ -57,7 +61,7 @@
 //   32), each stage carries its weight chunk (TMA), as the first body staged
 //   them.
 // - 32-bit fragment loads. The A fragments (window) and B fragments
-//   (weights) come from ldmatrix.x4, into the registers mma_chunk loaded
+//   (weights) come from ldmatrix.x4, into the registers the first body loaded
 //   them into: a tap's A is two ldmatrix.x4, its B one per two n-tiles.
 // - Transforms and re-reads. t = round(relu(x a + b)) and e = round(dy +
 //   ds1 + 2 y ds2) are formed once per element of a window, in place, with
@@ -88,7 +92,8 @@
 // per-output order (below), and the forward shares the body. mma.sync runs
 // at ~3.4 cycles an m16n8k16 an SM here (the forward at 128^2 without its
 // prologue), which holds levels 1 and 2 at ~3.6x their bounds. The plain
-// conv (kPlain), whose bits nothing else repeats, takes wgmma with A from
+// conv (kPlain), whose bits nothing else repeats, and the dx from int8
+// (kDxQ, kDxQX) at 64 output channels take wgmma with A from
 // registers: warp w of a warpgroup supplies rows 16w .. 16w + 15 of the
 // 64-row A as mma.sync's A fragment, which the ldmatrix.x4 here loads at
 // any tap offset, so no 64 contiguous pixels are needed (wgmma with A in
@@ -98,15 +103,18 @@
 //
 // Why the dx's order is fixed: the one-pass backward (#37) must give
 // #34/#35's bits (chip_smoke.compare_fused), as the pipelined dx (34p/35p,
-// this body's dx itself in bf16) does (compare_pipe). So each dx output is accumulated as the first body does:
-// its 16-channel chunks ascending, within a chunk the taps 0-8, each one
-// mma.sync m16n8k16 on the same bf16 operands (a CK = 32 stage is two such
-// chunks in order; a chunk wholly past Cin is skipped, as the first body's
-// loop never reaches it), and the epilogue's partial row of da and db is
-// one per 16 x 16 tile, summed in mma_epilogue's thread order (a thread's
-// pixels in the order row, half; shuffles over xor 4, 8, 16; the warps in
-// order). The forward keeps that accumulation too (its y bits are the first
-// body's), but sums its statistics per block: each tile's row is added, in
+// this body's dx itself in bf16) does (compare_pipe). So each dx output
+// (and #38's, which keeps the first body's bits) is accumulated as the
+// first body did: its 16-channel chunks ascending, within a chunk the taps
+// 0-8, each one mma.sync m16n8k16 on the same bf16 operands (#38's wgmma
+// instances take the same k16 steps in the same order, one m64nCOTk16 a
+// tap, and gave the same bits at every shape kernel_ab --bits ran) (a CK = 32 stage is two such chunks in order; a chunk wholly
+// past Cin is skipped, as the first body's loop never reached it), and the
+// epilogue's partial row of da and db is one per 16 x 16 tile, summed in
+// the first body's thread order (a thread's pixels in the order row, half;
+// shuffles over xor 4, 8, 16; the warps in order). The forward keeps that
+// accumulation too (its y bits are the first body's), but sums its
+// statistics per block: each tile's row is added, in
 // the block's tile order, to a row kept in shared memory, and the block
 // writes one partial row (gridDim.x rows in all), which a second launch
 // sums in a fixed order. No float atomics: a run repeats its sums bit for
@@ -144,6 +152,10 @@ struct ConvRingTile {
   static constexpr int kWinB = (kRingConvWin * CK * 2 + 1023) / 1024 * 1024;
   static constexpr int kWchB = 9 * COT * CK * 2;
   static constexpr int kXB = kTH * kTW * COT * 2;  // #35's x tile
+  // the dx from int8: the y window's int8 values (dense rows of CK bytes,
+  // 128-byte rounded) and the xq mode's int8 x tile
+  static constexpr int kY8B = (kRingConvWin * CK + 127) / 128 * 128;
+  static constexpr int kX8B = kTH * kTW * COT;
   // registers for two blocks an SM at 32 output channels, one else
   static constexpr int kMinBlocks = COT == 32 ? 2 : 1;
 };
@@ -152,21 +164,33 @@ struct ConvRingTile {
 // 1024 bytes of alignment slack; the resident weights (nch chunks) or none;
 // two stages, each the window (x or dy) and, without resident weights, the
 // stage's weight chunk; the dx's y window when e is formed in place (one:
-// it is read only by the transform); #35's x tile (16 x 16 x COT) where
-// it is copied in; then in f32 the input channels' vectors (a, b or ds1,
-// ds2: 2 x nch x CK), the dx epilogue's a and b (2 x COT), the warps' sums
-// (two slots of 8 x 2 x COT), the forward's block sums (2 x COT); then five
-// mbarriers.
+// it is read only by the transform): bf16, or for the dx from int8 (q) the
+// int8 window (kY8B) and its rows' scales (18 rows x pack x CK floats);
+// #35's x tile (16 x 16 x COT) where it is copied in: bf16, or in the xq
+// mode (q == kQx) int8 with its rows' scales (16 x pack x COT floats); then
+// in f32 the input channels' vectors (a, b or ds1, ds2: 2 x nch x CK), the
+// dx epilogue's a and b (2 x COT), the warps' sums (two slots of 8 x 2 x
+// COT), the forward's block sums (2 x COT); then five mbarriers.
+constexpr int kQNone = 0, kQy = 1, kQx = 2;  // q: bf16, int8 y (kDxQ), int8 y and x (kDxQX)
+// The int8 y window with its scales, 1024-byte rounded (the bf16 x tile
+// after it keeps its swizzle's alignment).
+template <int COT, int CK>
+__host__ __device__ constexpr int conv_ring_y8_bytes(int pack) {
+  return (ConvRingTile<COT, CK>::kY8B + kWinH * pack * CK * 4 + 1023) / 1024 * 1024;
+}
 template <int COT, int CK>
 __host__ __device__ constexpr int conv_ring_smem(bool dx, bool stats, bool resident, bool xbuf,
-                                                 int Cin) {
+                                                 int Cin, int q = kQNone, int pack = 0) {
   using Tile = ConvRingTile<COT, CK>;
   const int nch = (Cin + CK - 1) / CK;
-  const bool y_win = stats && (Cin & 7) == 0;  // by TMA; plain loads form e as they land
+  // by TMA (Cin a multiple of 8, of 16 for int8); plain loads form e as they land
+  const bool y_win = stats && (Cin & (q ? 15 : 7)) == 0;
   const int stage = Tile::kWinB + (resident ? 0 : Tile::kWchB);
+  const int y_b = q ? conv_ring_y8_bytes<COT, CK>(pack) : Tile::kWinB;
+  const int x_b = q == kQx ? Tile::kX8B + kTH * pack * COT * 4 : Tile::kXB;
   const int floats = 2 * nch * CK + (dx ? 2 * COT : 0) + 32 * COT + (dx ? 0 : 2 * COT);
   return 1024 + (resident ? nch * Tile::kWchB : 0) + kRingConvStages * stage +
-         (y_win ? Tile::kWinB : 0) + (xbuf ? Tile::kXB : 0) + 4 * floats + 40;
+         (y_win ? y_b : 0) + (xbuf ? x_b : 0) + 4 * floats + 40;
 }
 
 // Dynamic shared bytes of a plain launch (kPlain; mirrored by
@@ -190,15 +214,27 @@ __device__ __forceinline__ int ring_at(int r, int q) {
   return r * CK * 2 + ((q ^ ((r * CK * 2 >> 7) & (CK / 8 - 1))) << 4);
 }
 
+// tm_y and tm_x are the int8 maps for the dx from int8 (Q), tm_ys and tm_xs
+// their scales'.
 template <int MODE, int COT, int CK, bool EPI>
 __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const RingArgs& ra,
                                                const CUtensorMap* tm_in, const CUtensorMap* tm_y,
-                                               const CUtensorMap* tm_w, const CUtensorMap* tm_x) {
-  static_assert(MODE == kFwd || MODE == kDx || MODE == kPlain,
-                "the ring body is the forward, the dx and the plain conv");
+                                               const CUtensorMap* tm_w, const CUtensorMap* tm_x,
+                                               const CUtensorMap* tm_ys = nullptr,
+                                               const CUtensorMap* tm_xs = nullptr) {
+  static_assert(MODE == kFwd || MODE == kDx || MODE == kPlain || MODE == kDxQ || MODE == kDxQX,
+                "the ring body is the forward, the dx (from bf16 or int8) and the plain conv");
   using Tile = ConvRingTile<COT, CK>;
-  constexpr bool DX = MODE == kDx;
+  constexpr bool Q = MODE == kDxQ || MODE == kDxQX;  // the dx from the int8 y
+  constexpr bool QX = MODE == kDxQX && EPI;          // and the epilogue's x from the int8 x
+  constexpr bool DX = MODE == kDx || Q;
   constexpr bool PLAIN = MODE == kPlain;  // no transform, no sums: y stored
+  // the products on wgmma: kPlain, and the dx from int8 at 64 output
+  // channels (at 32 its m64n32 products ran slower than mma.sync). The dx
+  // from bf16 (kDx: #34/#35, and through them #37 and 34p/35p) keeps
+  // mma.sync at 64 too: its wgmma form was not timed, and its bits bind
+  // #37 and 34p/35p, so it waits for its own reading (ROADMAP A2).
+  constexpr bool WG = PLAIN || (Q && COT == 64);
   constexpr bool DXP = DX && EPI;  // #35: the dx with the prologue's epilogue
   constexpr int NT = COT / 8, QC = CK / 8, S = PLAIN ? kPlainStages : kRingConvStages;
   constexpr int kWinB = Tile::kWinB, kWchB = Tile::kWchB;
@@ -213,10 +249,15 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
   const int stage_b = kWinB + (ra.resident ? 0 : kWchB);
   unsigned char* w_res = base;  // [nch][9][COT][CK], resident
   unsigned char* ring = base + (ra.resident ? nch * kWchB : 0);
-  unsigned char* y_s = ring + S * stage_b;  // the y window of the stage being formed
+  // the y window of the stage being formed: bf16, or (Q) int8 [18 x 18][CK]
+  // and its rows' scales [18][pack][CK] from kY8B on
+  unsigned char* y_s = ring + S * stage_b;
   const bool xbuf = DXP && ra.xbuf;
-  unsigned char* x_s = y_s + (y_win ? kWinB : 0);  // #35: the tile's x [16 x 16][COT]
-  float* va = reinterpret_cast<float*>(x_s + (xbuf ? Tile::kXB : 0));  // a or ds1, over nch * CK
+  // #35: the tile's x, bf16 [16 x 16][COT], or (QX) int8 with its rows'
+  // scales [16][pack][COT] from kX8B on
+  unsigned char* x_s = y_s + (y_win ? (Q ? conv_ring_y8_bytes<COT, CK>(p.pack) : kWinB) : 0);
+  const int x_b = QX ? Tile::kX8B + kTH * p.pack * COT * 4 : Tile::kXB;
+  float* va = reinterpret_cast<float*>(x_s + (xbuf ? x_b : 0));  // a or ds1, over nch * CK
   float* vb = va + (PLAIN ? 0 : nch * CK);                    // b or ds2
   float* xa = vb + (PLAIN ? 0 : nch * CK);                    // dx epilogue: a, b over COT
   float* xb = xa + (DX ? COT : 0);
@@ -304,8 +345,14 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
         if (!ra.resident) tma_load_3d(st + kWinB, tm_w, ci0, co0, 0, bar);
         if (y_win) {
           const uint32_t ybar = smem_u32(&bars[kBarY]);
-          mbar_expect_tx(ybar, kRingConvWin * CK * 2);
-          tma_load_4d(y_s, tm_y, ci0, gx0 - 1, gy0 - 1, b, ybar);
+          if constexpr (Q) {  // the int8 window and its rows' scales
+            mbar_expect_tx(ybar, kRingConvWin * CK + kWinH * p.pack * CK * 4);
+            tma_load_4d(y_s, tm_y, ci0, gx0 - 1, gy0 - 1, b, ybar);
+            tma_load_4d(y_s + Tile::kY8B, tm_ys, ci0, 0, gy0 - 1, b, ybar);
+          } else {
+            mbar_expect_tx(ybar, kRingConvWin * CK * 2);
+            tma_load_4d(y_s, tm_y, ci0, gx0 - 1, gy0 - 1, b, ybar);
+          }
         }
       }
       return;
@@ -319,7 +366,13 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
         const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
         const int64_t off = inside ? (img + (int64_t)gy * W + gx) * Cin + c : 0;
         bf16* dst = reinterpret_cast<bf16*>(st + ring_at<CK>(pix, q));
-        if constexpr (DX)
+        if constexpr (Q)
+          stage8_eq(dst, p.in + off, p.yq + off,
+                    p.ysc + (inside ? ((int64_t)(b * H + gy) * p.pack + scale_col(gx, p.pack)) *
+                                              Cin + c
+                                    : 0),
+                    c, Cin, inside, p.s1, p.s2);
+        else if constexpr (DX)
           stage8_e<EW>(dst, p.in + off, stats ? p.y + off : nullptr, c, Cin, inside, p.s1,
                        p.s2);
         else
@@ -349,7 +402,15 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
         load16<float>(reinterpret_cast<float(&)[4]>(av[4]), va + c + 4, 0);
         load16<float>(reinterpret_cast<float(&)[4]>(bv[0]), vb + c, 0);
         load16<float>(reinterpret_cast<float(&)[4]>(bv[4]), vb + c + 4, 0);
-        if constexpr (DX) {
+        if constexpr (Q) {  // deq(y) in f32, not rounded; a pixel's row of scales
+          float yv[8];
+          deq8(yv, reinterpret_cast<const int8_t*>(y_s) + pix * CK + q * 8,
+               reinterpret_cast<const float*>(y_s + Tile::kY8B) +
+                   ((pix / kWinW) * p.pack + scale_col(gx, p.pack)) * CK + q * 8);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[j] = __float2bfloat16(e_f32(__bfloat162float(v[j]), yv[j], av[j], bv[j]));
+        } else if constexpr (DX) {
           alignas(16) bf16 yv[8];
           load16<bf16>(yv, reinterpret_cast<const bf16*>(y_s + at), 0);
 #pragma unroll
@@ -367,7 +428,7 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
   };
 
   float acc[2][NT][4];
-  if constexpr (PLAIN) {  // defined before the first product (which overwrites them)
+  if constexpr (WG) {  // defined before the first product (which overwrites them)
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -388,7 +449,7 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
       for (int tap = 0; tap < 9; ++tap) {
         const int ky = tap / 3, kx = tap % 3;
         // A: matrices (pixels 0-7 | 8-15) x (k 0-7 | 8-15) of output row
-        // 2 warp + m at the tap's shift: a[m] = mma_chunk's four registers
+        // 2 warp + m at the tap's shift: a[m] = the first body's four registers
         uint32_t a[2][4];
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
@@ -455,19 +516,20 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
   constexpr bool sums = !PLAIN && (!DX || EPI);
   // The tile of stage k: y (forward) or dx stored, and the sums: the
   // forward's added to the block's row, the dx's (da, db with the prologue)
-  // written as the tile's partial row, as mma_epilogue sums them.
+  // written as the tile's partial row, in the first body's order.
   auto epilogue = [&](int k) {
     int b, rem, gy0, gx0, ci0;
     coords(k, b, rem, gy0, gx0, ci0);
     const int64_t img = (int64_t)b * H * W;
     const bool pairs = (Cout & 1) == 0;
     // #35: the thread's x pairs, all loads in flight before the first use
-    constexpr int XN = DXP ? NT : 1;
+    // (the xq mode's an n-tile at a time, below)
+    constexpr int XN = DXP && !QX ? NT : 1;
     __nv_bfloat162 xs[2][2][XN];
-    if constexpr (DXP) {
+    if (xbuf) mbar_wait(smem_u32(&bars[kBarX]), (k / nch) & 1);  // the copied tile
+    if constexpr (DXP && !QX) {
       {
         // the copied tile: pixel tp's 16-byte piece n, swizzled as TMA wrote it
-        if (xbuf) mbar_wait(smem_u32(&bars[kBarX]), (k / nch) & 1);
 #pragma unroll
         for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -487,10 +549,57 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
             }
       }
     }
+    // QX: where the thread's pixels' int8 x and scale rows start (in the
+    // copied tile, or in global memory), once a tile
+    int xq_at[2][2] = {}, xs_at[2][2] = {};
+    constexpr int XB = QX && NT > 4 ? NT / 2 : NT;  // n-tiles whose x loads are in flight together
+    float xv[QX ? XB : 1][2][2][2];
+    if constexpr (QX) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int hp = 0; hp < 2; ++hp) {
+          const int r = warp * 2 + m, gx = gx0 + g + hp * 8, col = scale_col(gx, p.pack);
+          xq_at[m][hp] = xbuf ? (r * kTW + g + hp * 8) * COT : ((gy0 + r) * W + gx) * Cout;
+          xs_at[m][hp] = xbuf ? (r * p.pack + col) * COT : ((gy0 + r) * p.pack + col) * Cout;
+        }
+    }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int oc = n * 8 + 2 * t, o = co0 + oc;
       float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+      // QX: deq(x) of the thread's four pixel pairs of n-tiles n .. n + XB - 1
+      // in f32, not rounded, every load of them in flight before the first
+      // use (a pair as one char2 and one float2 where Cout is even)
+      if constexpr (QX) {
+        if (n % XB == 0) {
+          const int8_t* q8 = xbuf ? reinterpret_cast<const int8_t*>(x_s) : p.xq + img * Cout;
+          const float* sc = xbuf ? reinterpret_cast<const float*>(x_s + Tile::kX8B)
+                                 : p.xsc + (int64_t)b * H * p.pack * Cout;
+#pragma unroll
+          for (int j = 0; j < XB; ++j) {
+            const int oj = co0 + (n + j) * 8 + 2 * t, oo = xbuf ? oj - co0 : oj;
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+#pragma unroll
+              for (int hp = 0; hp < 2; ++hp) {
+                const bool ok = gy0 + warp * 2 + m < H && gx0 + g + hp * 8 < W;
+                const int8_t* qp = q8 + xq_at[m][hp] + oo;
+                const float* sp = sc + xs_at[m][hp] + oo;
+                float(&v)[2] = xv[j][m][hp];
+                if (ok && pairs && oj + 1 < Cout) {
+                  const char2 qv = *reinterpret_cast<const char2*>(qp);
+                  const float2 sv = *reinterpret_cast<const float2*>(sp);
+                  v[0] = deq_f32(qv.x, sv.x);
+                  v[1] = deq_f32(qv.y, sv.y);
+                } else {
+                  v[0] = ok && oj < Cout ? deq_f32(qp[0], sp[0]) : 0.f;
+                  v[1] = ok && oj + 1 < Cout ? deq_f32(qp[1], sp[1]) : 0.f;
+                }
+              }
+          }
+        }
+      }
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         const int gy = gy0 + warp * 2 + m;
@@ -520,16 +629,20 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
             r0 = __float2bfloat16(d0);
             r1 = __float2bfloat16(d1);
           } else {
-            const bf16* xp = p.x + pix * Cout + o;
             float x0 = 0.f, x1 = 0.f;
-            if (pairs && o + 1 < Cout) {
+            if constexpr (QX) {
+              x0 = xv[n % XB][m][hp][0];
+              x1 = xv[n % XB][m][hp][1];
+            } else if (pairs && o + 1 < Cout) {
               x0 = __low2float(xs[m][hp][n < XN ? n : 0]);
               x1 = __high2float(xs[m][hp][n < XN ? n : 0]);
             } else {
+              const bf16* xp = p.x + pix * Cout + o;
               if (o < Cout) x0 = __bfloat162float(xp[0]);
               if (o + 1 < Cout) x1 = __bfloat162float(xp[1]);
             }
-            if (o < Cout) r0 = __float2bfloat16(prologue_bwd_one(x0, xa[oc], xb[oc], d0, s1[0], s2[0]));
+            if (o < Cout)
+              r0 = __float2bfloat16(prologue_bwd_one(x0, xa[oc], xb[oc], d0, s1[0], s2[0]));
             if (o + 1 < Cout)
               r1 = __float2bfloat16(prologue_bwd_one(x1, xa[oc + 1], xb[oc + 1], d1, s1[1], s2[1]));
           }
@@ -591,7 +704,7 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
     if (ra.tma) mbar_wait(smem_u32(&bars[k % S]), (k / S) & 1);  // stage k has landed
     // this thread's reads and writes of the ring and the x tile, before TMA's
     // (and the plain conv's resident weights by plain loads, before wgmma's)
-    if (ra.tma || xbuf || PLAIN) fence_proxy_async();
+    if (ra.tma || xbuf || WG) fence_proxy_async();
     // stage k is formed (and stored, by plain loads), and every warp is past
     // the products of stage k - 1, whose slot takes stage k + S - 1, the
     // transform that read the y window and the epilogue that read x
@@ -602,10 +715,11 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
       int b, rem, gy0, gx0, ci0;
       coords(k, b, rem, gy0, gx0, ci0);
       const uint32_t xbar = smem_u32(&bars[kBarX]);
-      mbar_expect_tx(xbar, Tile::kXB);
+      mbar_expect_tx(xbar, x_b);
       tma_load_4d(x_s, tm_x, co0, gx0, gy0, b, xbar);
+      if constexpr (QX) tma_load_4d(x_s + Tile::kX8B, tm_xs, co0, 0, gy0, b, xbar);
     }
-    if (!PLAIN && k % nch == 0) {
+    if (!WG && k % nch == 0) {
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -613,19 +727,20 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.f;
     }
-    if constexpr (PLAIN) {
+    if constexpr (WG)
       products_wg(k);
-      if (k % nch == nch - 1) {  // the tile's products, before its epilogue reads them
+    else
+      products(k);
+    // the next stage's transform first: the tile's x copy has longer to land
+    if (form && k + 1 < n_stages) transform(k + 1);
+    if (k % nch == nch - 1) {
+      if constexpr (WG) {  // the tile's products, before its epilogue reads them
         wg_wait<0>();
 #pragma unroll
         for (int m = 0; m < 2; ++m) wg_fence_regs(reinterpret_cast<float(&)[COT / 2]>(acc[m]));
       }
-    } else {
-      products(k);
+      epilogue(k);
     }
-    // the next stage's transform first: the tile's x copy has longer to land
-    if (form && k + 1 < n_stages) transform(k + 1);
-    if (k % nch == nch - 1) epilogue(k);
   }
   __syncthreads();
   if (sums && n_stages > 0) sum_tile(n_stages - 1);
@@ -636,6 +751,74 @@ __device__ __forceinline__ void conv_ring_body(const ConvArgs<bf16>& p, const Ri
         p.partials[(int64_t)blockIdx.x * 2 * Cout + which * Cout + co0 + co] = tsum[i];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Host side of a ring launch, shared by the translation units that instance
+// the body for the forward and dx (conv3x3_ring.cu) and the dx from int8
+// (conv3x3_dx_q.cu)
+// ---------------------------------------------------------------------------
+
+// One launch of the instance over `blocks` x (Cout / COT) blocks, then the
+// fixed-order sum of its partial rows into `sums` [2, Cout]: the forward's
+// one row a block, the dx's (with the prologue) one row a 16 x 16 tile.
+// `launch(grid, smem, maps)` launches the caller's kernel (of its own name,
+// for the profile families) with the six maps: the window's tensor, y (or
+// the int8 y), the weights, #35's x (or the int8 x), the int8 y's and x's
+// scales. Refuses (cudaErrorInvalidValue) what the schedule cannot run.
+template <int MODE, int COT, int CK, bool EPI, typename Launch>
+int conv_ring_run(const void* kernel, Launch&& launch, const ConvArgs<bf16>& p,
+                  const RingArgs& ra, int blocks, void* sums, cudaStream_t st) {
+  constexpr bool Q = MODE == kDxQ || MODE == kDxQX;
+  constexpr bool DX = MODE == kDx || Q;
+  constexpr int q = MODE == kDxQX && EPI ? kQx : Q ? kQy : kQNone;
+  const bool stats = DX && p.s1 != nullptr;
+  const int B = ra.batch, H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
+  const bool xbuf = DX && EPI && ra.xbuf;
+  const int smem = conv_ring_smem<COT, CK>(DX, stats, ra.resident != 0, xbuf, Cin, q, p.pack);
+  if ((!ra.resident && !ra.tma) || (Q && ra.tma && (Cin & 15)) ||
+      (xbuf && (Cout & (q == kQx ? 15 : 7))) || (Q && p.pack < 1) ||
+      smem > kSmemMax || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = smem_allowed(kernel, kSmemMax);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tms[6] = {};
+  if (ra.tma) {
+    if ((err = tm_nhwc(&tms[0], p.in, B, H, W, Cin, CK, kWinW, kWinH)) != cudaSuccess ||
+        (err = tm_weights(&tms[2], p.w, Cin, Cout, CK, COT)) != cudaSuccess)
+      return (int)err;
+    if (stats && Q &&
+        ((err = tm_nhwc_i8(&tms[1], p.yq, B, H, W, Cin, CK, kWinW, kWinH)) != cudaSuccess ||
+         (err = tm_scales(&tms[4], p.ysc, B, H, p.pack, Cin, CK, kWinH)) != cudaSuccess))
+      return (int)err;
+    if (stats && !Q &&
+        (err = tm_nhwc(&tms[1], p.y, B, H, W, Cin, CK, kWinW, kWinH)) != cudaSuccess)
+      return (int)err;
+  }
+  if (xbuf && q == kQx &&
+      ((err = tm_nhwc_i8(&tms[3], p.xq, B, H, W, Cout, COT, kTW, kTH)) != cudaSuccess ||
+       (err = tm_scales(&tms[5], p.xsc, B, H, p.pack, Cout, COT, kTH)) != cudaSuccess))
+    return (int)err;
+  if (xbuf && q != kQx &&
+      (err = tm_nhwc(&tms[3], p.x, B, H, W, Cout, COT, kTW, kTH)) != cudaSuccess)
+    return (int)err;
+  launch(dim3(blocks, (Cout + COT - 1) / COT), smem, tms);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || (DX && !p.prologue)) return (int)err;
+  const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
+  reduce_rows_kernel<<<2 * Cout, kReduceThreads, 0, st>>>(p.partials, DX ? tiles * B : blocks,
+                                                          2 * Cout, 2 * Cout,
+                                                          static_cast<float*>(sums));
+  return (int)cudaGetLastError();
+}
+
+// What the card gives a ring kernel at `smem` dynamic bytes: out[4] =
+// {resident blocks an SM, registers a thread, local (spilled) bytes a
+// thread, smem}. Its launches allow it the most a block can have.
+inline int conv_ring_info(const void* kernel, int smem, int* out) {
+  const cudaError_t err = smem_allowed(kernel, kSmemMax);
+  if (err != cudaSuccess) return (int)err;
+  return kernel_info(kernel, kRingConvThreads, smem, out);
 }
 
 }  // namespace

@@ -7,9 +7,10 @@
 // shared memory; the copy counts its bytes against an mbarrier's expected
 // transaction, and the threads that read the box wait on the barrier's
 // phase. Host side: the maps of bf16 NHWC activations and of the conv's
-// weights, encoded by cuTensorMapEncodeTiled as the CUDA runtime looks it up
-// (no link against libcuda); and a kernel's dynamic shared memory allowed
-// once, and what the card gives it (kernel_info).
+// weights, and of the int8 saved activations and their f32 scales
+// (model.conv_act_store=int8), encoded by cuTensorMapEncodeTiled as the
+// CUDA runtime looks it up (no link against libcuda); and a kernel's dynamic
+// shared memory allowed once, and what the card gives it (kernel_info).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
@@ -104,9 +105,9 @@ CUtensorMapSwizzle tm_swizzle(int bc) {
                   : bc == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// The maps already encoded, by (pointer, rank, dims, box; the strides
-// follow from the dims for both callers below, and the swizzle from the
-// box): a step launches the same tensors' maps again and again (the
+// The maps already encoded, by (pointer, element type, rank, dims, box;
+// the strides follow from the dims for every caller below, and the swizzle
+// from the type and the box): a step launches the same tensors' maps again and again (the
 // caching allocator hands the same addresses back), and encoding costs host
 // time at every launch. A map holds only the address and the layout, so a
 // hit is the same map. The slots are read and written under a lock:
@@ -115,11 +116,12 @@ CUtensorMapSwizzle tm_swizzle(int bc) {
 // cache.
 struct TmKey {
   const void* p;
+  int type;
   int rank;
   cuuint64_t dims[4];
   cuuint32_t box[4];
   bool operator==(const TmKey& o) const {
-    if (p != o.p || rank != o.rank) return false;
+    if (p != o.p || type != o.type || rank != o.rank) return false;
     for (int i = 0; i < 4; ++i)
       if (dims[i] != o.dims[i] || box[i] != o.box[i]) return false;
     return true;
@@ -127,13 +129,16 @@ struct TmKey {
 };
 constexpr int kTmCache = 256;
 
+// bf16 boxes take tm_swizzle(bc); the int8 values and f32 scales are
+// copied as dense, unswizzled rows.
 cudaError_t tm_tiled(CUtensorMap* m, const void* p, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box, int bc) {
+                     const cuuint64_t* strides, const cuuint32_t* box, int bc,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static TmKey keys[kTmCache];
   static CUtensorMap maps[kTmCache];
   static std::mutex lock;
-  TmKey key{p, rank, {1, 1, 1, 1}, {1, 1, 1, 1}};
-  uint64_t h = reinterpret_cast<uint64_t>(p) * 0x9E3779B97F4A7C15ull + rank;
+  TmKey key{p, (int)type, rank, {1, 1, 1, 1}, {1, 1, 1, 1}};
+  uint64_t h = (reinterpret_cast<uint64_t>(p) * 0x9E3779B97F4A7C15ull + rank) ^ (uint64_t)type;
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
     key.box[i] = box[i];
@@ -149,8 +154,10 @@ cudaError_t tm_tiled(CUtensorMap* m, const void* p, int rank, const cuuint64_t* 
   const TmEncodeTiled fn = tm_encode();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  if (fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims, strides, box,
-         ones, CU_TENSOR_MAP_INTERLEAVE_NONE, tm_swizzle(bc), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUtensorMapSwizzle swizzle =
+      type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? tm_swizzle(bc) : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (fn(m, type, rank, const_cast<void*>(p), dims, strides, box, ones,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   keys[slot] = key;
@@ -167,6 +174,29 @@ cudaError_t tm_nhwc(CUtensorMap* m, const void* p, int B, int H, int W, int C, i
                                  (cuuint64_t)H * W * C * 2};
   const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh, 1};
   return tm_tiled(m, p, 4, dims, strides, box, bc);
+}
+
+// A TMA map of the int8 NHWC tensor q [B, H, W, C] (C a multiple of 16:
+// rows of 16-byte multiples) whose box is bc channels x bw columns x bh rows
+// of one image, as dense rows of bc bytes, zeros outside.
+cudaError_t tm_nhwc_i8(CUtensorMap* m, const void* q, int B, int H, int W, int C, int bc, int bw,
+                       int bh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C, (cuuint64_t)W * C, (cuuint64_t)H * W * C};
+  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  return tm_tiled(m, q, 4, dims, strides, box, bc, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+}
+
+// A TMA map of the int8 values' f32 scales s [B, H, pack, C] (conv3x3_bn.cuh)
+// whose box is bc channels x all pack column groups x bh rows of one image,
+// as dense rows of bc floats ([row][pack][bc]), zeros outside.
+cudaError_t tm_scales(CUtensorMap* m, const void* s, int B, int H, int pack, int C, int bc,
+                      int bh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)pack, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 4, (cuuint64_t)pack * C * 4,
+                                 (cuuint64_t)H * pack * C * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)pack, (cuuint32_t)bh, 1};
+  return tm_tiled(m, s, 4, dims, strides, box, bc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 // A TMA map of the bf16 conv weight w [9, Cout, Cin] (tap, output channel,
@@ -197,6 +227,8 @@ template <typename K>
 inline const void* kernel_ptr(K* kernel) {
   return reinterpret_cast<const void*>(kernel);
 }
+
+constexpr int kSmemMax = 232448;  // a block's dynamic shared memory on the H100
 
 // A kernel's dynamic shared memory above 48 KB, allowed once per kernel
 // and device (under a lock: the backward launches from autograd's thread).

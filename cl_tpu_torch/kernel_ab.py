@@ -10,7 +10,8 @@ the five forward kernels; or any of ``chip_smoke.PACKED_PATH``'s names, the
 backward ones too; or ``head_ce_bn_fwd`` / ``head_ce_bn_bwd``, the packed
 head's forward #7 and backward #8; or the switches' ``conv3x3_bn_bwd_fused``
 (#37), ``conv3x3_bn_dx_pipe`` / ``conv3x3_bn_dx_bn_pipe`` (34p/35p), the
-int8 dW ``conv3x3_bn_dw_q`` (#39), the two-pass dW ``conv3x3_dw_bn``
+int8 dx ``conv3x3_bn_dx_q`` (#38) and dW ``conv3x3_bn_dw_q`` (#39), the
+two-pass dW ``conv3x3_dw_bn``
 (#33), the gen-3 plain conv ``conv3x3_fwd`` (#30) and its dW
 ``conv3x3_dw`` (#31), the gen-2 plain conv ``conv3x3_g2_fwd`` (#40) and
 its dx ``conv3x3_g2_dx`` and the gen-2 dW ``conv3x3_g2_dw`` (#41); or the
@@ -24,23 +25,35 @@ checkout's 512² path (``chip_smoke.PACKED_PATH``, ``SWITCH_PATH``,
 ``chip_smoke.bn_case``'s operands)
 on that checkout's operands (``chip_smoke.packed_operands`` for a forward
 kernel, ``bwd_operands`` for a backward one, whose launch is
-``bwd_fns``'s; ``--f32``: in float32) with this file's ``time_ms``
+``bwd_fns``'s; ``q_operands`` / ``q_fns`` for #38 and #39; ``--f32``: in
+float32) with this file's ``time_ms``
 (``chip_smoke.py`` times with it too), the same for both versions: the
 median of 20 launches from CUDA events around each, once with the launches
 queued back to back, once synchronised after each, and once queued behind
 a card sleep (``time_ms_slept``: the host's issue then stays out of the
-card's time); and for #37, 34p and #19 the one PyTorch call that computes
-the same function (``library``: cuDNN's ``convolution_backward``, in f32
-without TF32 as ``chip_smoke.py`` runs it; ``addcmul_``; ``F.conv2d`` for
-#30 and #40) behind a card sleep in every turn; and for #30 and #40 in bf16
-the yardstick of their ring design, the packed conv's ring forward
-without the prologue (``conv3x3.launch_conv_bn``, which also sums the
-statistics) on the same operands, behind a card sleep in every turn. Prints each turn's build time (the first turn of a checkout
-builds its kernels), per kernel and shape the two versions' medians over
-their turns and each turn's card-sleep reading in the order run (their
-spread), the sums over one packed step, and the card's ``nvidia-smi``
-name and power limit. A name it does not know is refused before any turn
-runs.
+card's time); and for #37, 34p, #38, #39 and #19 the one PyTorch call that
+computes the same function (``library``: cuDNN's ``convolution_backward``,
+in f32 without TF32 as ``chip_smoke.py`` runs it, the dx alone for #38 and
+the dW alone for #39; ``addcmul_``; ``F.conv2d`` for #30 and #40) behind a
+card sleep in every turn; and the yardstick of each design (``yardstick``)
+behind a card sleep in every turn: for #30 and #40 in bf16 the packed
+conv's ring forward without the prologue (``conv3x3.launch_conv_bn``,
+which also sums the statistics) on the same operands, for #38 and #39 the
+dtype route's kernel of the same conv (#34/#35's ring dx,
+``conv3x3.launch_conv_dx``, and #36's ring, ``launch_conv_dw``) on y =
+deq(q, scale) and x = deq(xq) rounded to the dtype. Prints each turn's
+build time (the first turn of a checkout builds its kernels), per kernel
+and shape the two versions' medians over their turns and each turn's
+card-sleep reading in the order run (their spread), the sums over one
+packed step, and the card's ``nvidia-smi`` name and power limit. A name it
+does not know is refused before any turn runs.
+
+    python3 -m cl_tpu_torch.kernel_ab --bits [--f32] OLD_DIR NEW_DIR KERNEL ...
+
+runs each kernel of each checkout once at every shape of ``shapes`` and,
+for #38 and #39, of ``chip_smoke.Q_ODD`` (batch 3, #38 without the stem's
+dx, as phase 3 runs them) on the same seeded operands, and prints whether
+the two checkouts' outputs are equal bit for bit, shape by shape.
 
     python3 -m cl_tpu_torch.kernel_ab --host-issue OLD_DIR NEW_DIR
 
@@ -75,6 +88,7 @@ BACKWARD = ("conv3x3_bn_dw", "conv3x3_bn_dx", "conv3x3_bn_dx_bn", "upconv_dx", "
 HEAD = ("head_ce_bn_fwd", "head_ce_bn_bwd")
 OTHER = ("conv3x3_bn_bwd_fused", "conv3x3_bn_dx_pipe", "conv3x3_bn_dx_bn_pipe", "conv3x3_bn_dw_q",
          "conv3x3_dw_bn")
+INT8 = ("conv3x3_bn_dx_q", "conv3x3_bn_dw_q")  # #38 and #39: chip_smoke.q_fns's kernels
 GEN3 = ("conv3x3_dw", "conv3x3_fwd")  # the gen-3 conv's dW (#31) and plain conv (#30)
 # the gen-2 conv's dW (#41), its plain conv (#40) as a forward and as a dx
 GEN2 = ("conv3x3_g2_dw", "conv3x3_g2_fwd", "conv3x3_g2_dx")
@@ -92,8 +106,8 @@ HEAD_SEED = 2
 def check_names(kernels) -> None:
     """Raise on a kernel name that is neither a forward nor a backward
     kernel of the packed path, nor the packed head's forward or backward,
-    nor one of ``OTHER``'s, ``GEN3``'s, ``GEN2``'s or ``METHODS``'s."""
-    known = FORWARD + BACKWARD + HEAD + OTHER + GEN3 + GEN2 + METHODS
+    nor one of ``OTHER``'s, ``INT8``'s, ``GEN3``'s, ``GEN2``'s or ``METHODS``'s."""
+    known = FORWARD + BACKWARD + HEAD + OTHER + INT8[:1] + GEN3 + GEN2 + METHODS
     unknown = [k for k in kernels if k not in known]
     if unknown:
         raise ValueError(f"kernel_ab: unknown kernel(s) {unknown}; known: {', '.join(known)}")
@@ -114,7 +128,7 @@ def shapes(smoke, kernel, dtype_name="bfloat16"):
     if kernel == "conv3x3_dw_bn":
         return [(shape, 1) for shape in smoke.V3_SHAPES[kernel]] if dtype_name == "float32" \
             else [smoke.LEVEL3_TWO_PASS[kernel][::2]]
-    if kernel == "conv3x3_bn_dw_q":
+    if kernel in INT8:
         return smoke.Q_PATH[kernel]
     return smoke.SWITCH_PATH[kernel] if kernel in OTHER else smoke.PACKED_PATH[kernel]
 
@@ -143,7 +157,7 @@ def dispatch(smoke, kernel, dtype_name="bfloat16"):
         return smoke.v3_fns(kernel)[0], lambda shape: smoke.v3_operands(kernel, shape, dtype_name)
     if kernel in GEN2:
         return smoke.g2_fns(kernel)[0], lambda shape: smoke.g2_operands(kernel, shape, dtype_name)
-    if kernel == "conv3x3_bn_dw_q":
+    if kernel in INT8:
         return smoke.q_fns(kernel)[0], lambda shape: smoke.q_operands(shape, dtype_name)
     if kernel in OTHER:
         launch = smoke.switch_fns(kernel)[0]
@@ -157,28 +171,50 @@ def dispatch(smoke, kernel, dtype_name="bfloat16"):
 def library(smoke, kernel):
     """The one PyTorch call that computes a kernel's function on its
     ``dispatch`` operands, timed beside it (never used by the port), or
-    None: cuDNN's ``convolution_backward`` for #37 and 34p, ``addcmul_``
-    for #19, ``F.conv2d`` for #30 and #40 (of dy with the flipped,
-    channel-swapped weight for #40's dx)."""
+    None: cuDNN's ``convolution_backward`` for #37 and 34p (and, the dx or
+    the dW alone, for #38 and #39), ``addcmul_`` for #19, ``F.conv2d`` for
+    #30 and #40 (of dy with the flipped, channel-swapped weight for #40's
+    dx)."""
     if kernel in METHODS:
         return lambda acc, g: acc.addcmul_(g, g)
     if kernel in PLAIN:
         return (smoke.v3_fns if kernel == "conv3x3_fwd" else smoke.g2_fns)(kernel)[2]
+    if kernel in INT8:
+        return smoke.q_fns(kernel)[2]
     return smoke.switch_fns(kernel)[2] if kernel in SWITCHED else None
 
 
+# What ``yardstick`` times, by kernel, as printed
+YARDSTICK = {"conv3x3_fwd": "ring forward", "conv3x3_g2_fwd": "ring forward",
+             "conv3x3_g2_dx": "ring forward", "conv3x3_bn_dx_q": "dtype ring dx",
+             "conv3x3_bn_dw_q": "dtype ring dW"}
+
+
 def yardstick(kernel, dtype_name):
-    """#30's and #40's yardstick in bf16 on their ``dispatch`` operands (x,
-    w), or None: the packed conv's ring forward without the prologue
+    """The yardstick of a kernel's design, or None: ``prepare(*operands)``
+    on its ``dispatch`` operands returns the call to time. #30 and #40 in
+    bf16: the packed conv's ring forward without the prologue
     (``conv3x3.launch_conv_bn``, the statistics summed too) on the same
-    conv, the weight flipped and channel-swapped for #40's dx."""
-    if kernel not in PLAIN or dtype_name != "bfloat16":
-        return None
+    conv, the weight flipped and channel-swapped for #40's dx. #38 and #39:
+    the dtype route's kernel of the same conv on the same operands, y =
+    deq(q, scale) and (xq mode) x = deq(xq) rounded to the dtype: #34/#35's
+    ring dx (``launch_conv_dx``) and #36's ring (``launch_conv_dw``) in
+    bf16, their FMA bodies in f32."""
     from cl_tpu_torch.kernels import conv3x3
 
+    if kernel in INT8:
+        launch = conv3x3.launch_conv_dx if kernel == "conv3x3_bn_dx_q" else conv3x3.launch_conv_dw
+
+        def prepare(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
+            y = conv3x3.deq_rows(q, scale, p).to(dy.dtype)
+            x = conv3x3.deq_rows(*x_res, p).to(dy.dtype) if isinstance(x_res, tuple) else x_res
+            return lambda: launch(x, w, a, b, y, dy, ds1, ds2, prologue)
+        return prepare
+    if kernel not in PLAIN or dtype_name != "bfloat16":
+        return None
     if kernel == "conv3x3_g2_dx":
-        return lambda dy, w: conv3x3.launch_conv_bn(dy, conv3x3._flip_t(w))
-    return lambda x, w: conv3x3.launch_conv_bn(x, w)
+        return lambda dy, w: lambda: conv3x3.launch_conv_bn(dy, conv3x3._flip_t(w))
+    return lambda x, w: lambda: conv3x3.launch_conv_bn(x, w)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3, queued: bool = True) -> float:
@@ -285,8 +321,59 @@ def _worker(root, kernels, dtype_name="bfloat16"):
                  time_ms(lambda: launch(*ops), queued=False),
                  time_ms_slept(lambda: launch(*ops))]
                 + ([] if lib is None else [time_ms_slept(lambda: lib(*ops))])
-                + ([] if ring is None else [time_ms_slept(lambda: ring(*ops))]))
+                + ([] if ring is None else [time_ms_slept(ring(*ops))]))
     print(json.dumps(out))
+
+
+def _bits_worker(root, out_path, dtype_name, kernels):
+    """One checkout's outputs of each kernel at every shape of ``shapes``
+    (and ``Q_ODD`` at batch 3 for #38 and #39) on the seeded operands, saved
+    to ``out_path`` as {case: [output, ...]} on the host."""
+    _use_checkout(root)
+    import chip_smoke
+    import torch
+
+    outs = {}
+    for kernel in kernels:
+        launch, operands = dispatch(chip_smoke, kernel, dtype_name)
+        cases = [(shape, 8) for shape, _ in shapes(chip_smoke, kernel, dtype_name)]
+        if kernel in INT8:
+            cases += [(shape, 3) for shape in chip_smoke.Q_ODD
+                      if not (kernel == "conv3x3_bn_dx_q" and shape[1] == 3)]
+        for shape, batch in cases:
+            ops = chip_smoke.q_operands(shape, dtype_name, batch) if kernel in INT8 else \
+                operands(shape)
+            res = launch(*ops)
+            res = res if isinstance(res, tuple) else (res,)
+            outs[f"{kernel}{list(shape)} x{batch}"] = [None if r is None else r.cpu() for r in res]
+    torch.save(outs, out_path)
+
+
+def _bits(dirs, dtype_name, kernels) -> int:
+    """Runs ``_bits_worker`` in each checkout and prints, case by case,
+    whether every output is equal bit for bit; returns 0 when all are."""
+    import tempfile
+
+    import torch
+
+    check_names(kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        got = {}
+        for which, root in dirs.items():
+            path = os.path.join(tmp, f"{which}.pt")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--bits-worker", root,
+                            path, dtype_name, *kernels], cwd=root, check=True)
+            got[which] = torch.load(path)
+    same_all = True
+    for case, old in got["old"].items():
+        new = got["new"][case]
+        same = len(old) == len(new) and all(
+            (u is None and v is None) or (u is not None and v is not None and torch.equal(u, v))
+            for u, v in zip(old, new))
+        same_all = same_all and same
+        print(f"{case} {dtype_name}: {'bit-equal' if same else 'DIFFERENT'}")
+    print(f"all bit-equal: {same_all}")
+    return 0 if same_all else 1
 
 
 def _ptxas(dirs, source, name):
@@ -334,6 +421,18 @@ def main(argv) -> int:
     if argv[:1] == ["--host-issue-worker"]:
         _host_issue_worker(argv[1])
         return 0
+    if argv[:1] == ["--bits-worker"]:
+        _bits_worker(argv[1], argv[2], argv[3], argv[4:])
+        return 0
+    if argv[:1] == ["--bits"]:
+        argv = argv[1:]
+        dtype_name = "float32" if argv[:1] == ["--f32"] else "bfloat16"
+        argv = argv[1:] if dtype_name == "float32" else argv
+        if len(argv) < 3:
+            print(__doc__, file=sys.stderr)
+            return 2
+        return _bits({"old": os.path.abspath(argv[0]), "new": os.path.abspath(argv[1])},
+                     dtype_name, argv[2:])
     if argv[:1] == ["--ptxas"]:
         if len(argv) not in (4, 5):
             print(__doc__, file=sys.stderr)
@@ -387,12 +486,14 @@ def main(argv) -> int:
             if len(turns["new"][0][kernel][i]) > 6:  # the yardstick, each checkout's
                 for which in ("old", "new"):
                     ring = [t[kernel][i][6] for t in turns[which]]
-                    row.append(f"{which} ring forward (card sleep) {np.median(ring):.4f} "
+                    sums[f"{which} {YARDSTICK[kernel]}"] = \
+                        sums.get(f"{which} {YARDSTICK[kernel]}", 0.0) + n * float(np.median(ring))
+                    row.append(f"{which} {YARDSTICK[kernel]} (card sleep) {np.median(ring):.4f} "
                                f"(turns {' '.join(f'{v:.4f}' for v in ring)})")
             print(f"{kernel}{shape} {dtype_name} x{n}/step: " + ", ".join(row))
         print(f"{kernel} per step: " + ", ".join(
-            f"{w} {v:.4f} ms (card sleep)" if w == "library" else
             f"{w} {v[0]:.4f} ms (synchronised {v[1]:.4f}, card sleep {v[2]:.4f})"
+            if isinstance(v, list) else f"{w} {v:.4f} ms (card sleep)"
             for w, v in sums.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -79,8 +79,10 @@ SIGNATURES = {
     "cltorch_conv3x3_g2_dw": [P] * 4 + [I] * 9 + [P],
     "cltorch_conv3x3_g2_dw_info": [I, I, I, P],
     "cltorch_conv3x3_bn_quant": [P, P, P] + [I] * 6 + [P],
-    "cltorch_conv3x3_bn_dx_q": [P] * 14 + [I] * 8 + [P],
-    "cltorch_conv3x3_bn_dw_q": [P] * 12 + [I] * 10 + [P],
+    "cltorch_conv3x3_bn_dx_q": [P] * 14 + [I] * 13 + [P],
+    "cltorch_conv3x3_dx_q_info": [I] * 9 + [P],
+    "cltorch_conv3x3_bn_dw_q": [P] * 12 + [I] * 12 + [P],
+    "cltorch_conv3x3_dw_q_info": [I] * 5 + [P],
     "cltorch_ewc_penalty": [P, P, P, L, I, P, P, I, P],
     "cltorch_ewc_grad": [P, P, P, P, P, L, I, P],
     "cltorch_ewc_sq_acc": [P, P, L, I, P],

@@ -315,25 +315,37 @@ def _kernel_weight(w, dtype):
 RING_CONV_STAGES = 2
 RING_CONV_WIN = (TILE + 2) ** 2
 RING_CONV_SMEM_MAX = 232448  # a block's dynamic shared memory on the H100
+# ``q`` of the ring's launch: the dx from bf16 y, from the int8 y (#38's
+# kDxQ), from the int8 y and x (kDxQX: the xq mode with the prologue)
+Q_NONE, Q_Y, Q_X = 0, 1, 2
 
 
-def conv_ring_smem(cot, ck, dx, stats, resident, cin, xbuf=False):
+def _up(n, m):
+    """n rounded up to a multiple of m."""
+    return -(-n // m) * m
+
+
+def conv_ring_smem(cot, ck, dx, stats, resident, cin, xbuf=False, q=Q_NONE, pack=0):
     """Dynamic shared bytes of a ring launch, as ``conv_ring_smem`` in the
     CUDA body computes them: 1024 of alignment; the weights ([9][COT][CK]
     a chunk of CK input channels) of every chunk when resident; the stages,
     each the window's CK channels (x or dy; 1024-byte rounded) and, when
     not resident, its weight chunk; one y window where the dx forms e from
-    a TMA copy of y (stats, Cin a multiple of 8); #35's 16 x 16 x COT x
-    tile where it is copied in (``xbuf``); the f32 vectors and sums; five
-    mbarriers."""
+    a TMA copy of y (stats, Cin a multiple of 8, of 16 for int8): bf16, or
+    (``q``) the int8 window (128-byte rounded) and its 18 rows' scales
+    (``pack`` x CK floats a row), 1024-byte rounded; #35's 16 x 16 x COT x
+    tile where it is copied in (``xbuf``): bf16, or (``q == Q_X``) int8
+    with its 16 rows' scales; the f32 vectors and sums; five mbarriers."""
     win = -(-RING_CONV_WIN * ck * 2 // 1024) * 1024
     wch = 9 * cot * ck * 2
     nch = -(-cin // ck)
     stage = win + (0 if resident else wch)
-    y_win = win if stats and cin % 8 == 0 else 0
+    y_b = _up(_up(RING_CONV_WIN * ck, 128) + (TILE + 2) * pack * ck * 4, 1024) if q else win
+    y_win = y_b if stats and cin % (16 if q else 8) == 0 else 0
+    x_b = TILE * TILE * cot + TILE * pack * cot * 4 if q == Q_X else TILE * TILE * cot * 2
     floats = 2 * nch * ck + (2 * cot if dx else 0) + 32 * cot + (0 if dx else 2 * cot)
     return (1024 + (nch * wch if resident else 0) + RING_CONV_STAGES * stage + y_win
-            + (TILE * TILE * cot * 2 if xbuf else 0) + 4 * floats + 40)
+            + (x_b if xbuf else 0) + 4 * floats + 40)
 
 
 def conv_ring_min_blocks(cot):
@@ -343,24 +355,27 @@ def conv_ring_min_blocks(cot):
 
 
 @functools.lru_cache(maxsize=None)
-def conv_ring_tile(cin, cout, dx, stats):
+def conv_ring_tile(cin, cout, dx, stats, q=Q_NONE, pack=0):
     """(COT, CK, resident): the ring instance for a launch whose kernel
     reads ``cin`` channels and writes ``cout`` (the dx's: the forward's Cout
-    and Cin), ``stats`` whether the dx forms e from y. COT output channels
+    and Cin), ``stats`` whether the dx forms e from y (``q``: from the int8
+    y, whose scales group the columns mod ``pack``). COT output channels
     a block: 32, 64, or for the forward 128 (the dx keeps 64 at most); CK
     input channels a stage: 32 where the window loads by TMA (Cin a
-    multiple of 8) and is wider than 16, else 16. The first (COT, CK), widest
+    multiple of 8; of 16 for the int8 y's rows) and is wider than 16, else
+    16. The first (COT, CK), widest
     first, whose resident weights and ring fit the instance's blocks an SM,
     else the first that fits one; where no resident choice fits, the weights
     travel with each stage (TMA widths only). Raises where nothing fits."""
-    tma = cin % 8 == 0
+    tma = cin % (16 if q else 8) == 0
     cots = [32] if cout <= 32 else [64, 32] if cout <= 64 or dx else [128, 64, 32]
     cks = [32, 16] if tma and cin > 16 else [16]
     for resident in (True, False) if tma else (True,):
         fits = [(cot, ck) for cot in cots for ck in cks
-                if conv_ring_smem(cot, ck, dx, stats, resident, cin) <= RING_CONV_SMEM_MAX]
+                if conv_ring_smem(cot, ck, dx, stats, resident, cin, q=q, pack=pack)
+                <= RING_CONV_SMEM_MAX]
         for cot, ck in fits:
-            smem = conv_ring_smem(cot, ck, dx, stats, resident, cin)
+            smem = conv_ring_smem(cot, ck, dx, stats, resident, cin, q=q, pack=pack)
             if resident_blocks(smem, conv_ring_min_blocks(cot)) == conv_ring_min_blocks(cot):
                 return cot, ck, resident
         if fits:
@@ -369,41 +384,60 @@ def conv_ring_tile(cin, cout, dx, stats):
                      "channels in shared memory")
 
 
-def conv_ring_resources(cot, ck, dx, stats, resident, cin, xbuf=False):
+def conv_ring_resources(cot, ck, dx, stats, resident, cin, xbuf=False, q=Q_NONE, pack=0):
     """(threads, dynamic shared bytes, resident blocks an SM) of a ring
     launch: 256 threads, and the blocks the shared memory and the
     instance's registers (``__launch_bounds__``) allow."""
-    smem = conv_ring_smem(cot, ck, dx, stats, resident, cin, xbuf)
+    smem = conv_ring_smem(cot, ck, dx, stats, resident, cin, xbuf, q, pack)
     return 256, smem, resident_blocks(smem, conv_ring_min_blocks(cot))
 
 
 @functools.lru_cache(maxsize=None)
-def conv_ring_xbuf(cin, cout, dx, stats, prologue):
-    """Whether the dx with the prologue (#35) copies each tile's x in by
-    TMA while the tile multiplies, for its epilogue: where x's rows are
-    16-byte multiples (Cout a multiple of 8) and the tile fits beside the
-    ring without costing a resident block; else the epilogue reads x from
-    global memory."""
-    if not (dx and prologue and cout % 8 == 0):
+def conv_ring_xbuf(cin, cout, dx, stats, prologue, q=Q_NONE, pack=0):
+    """Whether the dx with the prologue (#35, #38) copies each tile's x in
+    by TMA while the tile multiplies, for its epilogue: where x's rows are
+    16-byte multiples (Cout a multiple of 8; of 16 for the int8 x of
+    ``q == Q_X``) and the tile fits beside the ring without costing a
+    resident block; else the epilogue reads x from global memory."""
+    if not (dx and prologue and cout % (16 if q == Q_X else 8) == 0):
         return False
-    cot, ck, resident = conv_ring_tile(cin, cout, dx, stats)
-    base = conv_ring_resources(cot, ck, dx, stats, resident, cin)
-    with_x = conv_ring_resources(cot, ck, dx, stats, resident, cin, True)
+    cot, ck, resident = conv_ring_tile(cin, cout, dx, stats, q, pack)
+    base = conv_ring_resources(cot, ck, dx, stats, resident, cin, False, q, pack)
+    with_x = conv_ring_resources(cot, ck, dx, stats, resident, cin, True, q, pack)
     return with_x[1] <= RING_CONV_SMEM_MAX and with_x[2] == base[2]
 
 
 @functools.lru_cache(maxsize=None)
-def conv_ring_blocks(cin, cout, B, H, W, dx, stats, prologue=False):
+def conv_ring_blocks(cin, cout, B, H, W, dx, stats, prologue=False, q=Q_NONE, pack=0):
     """Blocks a ring launch walks the 16 x 16 pixel tiles of its B images
     with, for each tile of COT output channels: one wave of resident blocks
     (``conv_ring_resources``), each the same number of tiles. A function of
     the shapes alone, so the forward's partial sums (one row a block) run
     in the same order on every call."""
-    cot, ck, resident = conv_ring_tile(cin, cout, dx, stats)
-    xbuf = conv_ring_xbuf(cin, cout, dx, stats, prologue)
+    cot, ck, resident = conv_ring_tile(cin, cout, dx, stats, q, pack)
+    xbuf = conv_ring_xbuf(cin, cout, dx, stats, prologue, q, pack)
     n_tiles = B * -(-H // TILE) * -(-W // TILE)
-    blocks = conv_ring_resources(cot, ck, dx, stats, resident, cin, xbuf)[2]
+    blocks = conv_ring_resources(cot, ck, dx, stats, resident, cin, xbuf, q, pack)[2]
     return one_wave_splits(n_tiles, -(-cout // cot), blocks)
+
+
+def dx_q_mode(xq, prologue):
+    """``q`` of #38's ring instance: Q_X in the xq mode with the prologue
+    (its epilogue reads deq(xq)), else Q_Y (without the prologue x is
+    unread, and the xq mode takes kDxQ's instance)."""
+    return Q_X if xq and prologue else Q_Y
+
+
+def dx_q_schedule(cin, cout, B, H, W, stats, prologue, xq, pack):
+    """(cot, ck, resident, xbuf, blocks): #38's bf16 ring schedule for a dx
+    kernel reading ``cin`` channels (the forward's Cout) and writing
+    ``cout``, the int8 y's scales grouping the columns mod ``pack``: the
+    dx's pickers at the int8 sizes."""
+    q = dx_q_mode(xq, prologue)
+    cot, ck, resident = conv_ring_tile(cin, cout, True, stats, q, pack)
+    return (cot, ck, int(resident),
+            int(conv_ring_xbuf(cin, cout, True, stats, prologue, q, pack)),
+            conv_ring_blocks(cin, cout, B, H, W, True, stats, prologue, q, pack))
 
 
 # The plain conv's bodies (#30, #40: csrc/conv3x3_plain_body.cuh). bf16: the
@@ -662,7 +696,7 @@ def launch_conv_dx(x, w, a, b, y, dy, ds1, ds2, prologue, pipe=False, e_bf16=Fal
 
 
 def dw_splits(cin, cout, B, H, W, bf16):
-    """Blocks the first dW bodies (#36 in f32, #39) and the f32 one-pass
+    """Blocks the first f32 dW body (#36 in f32) and the f32 one-pass
     backward (#37) split the pixel tiles over: ~SPLIT_BLOCKS in all, at
     least one tile each. A function of the shapes alone, so the
     partial sums run in the same order on every call."""
@@ -694,39 +728,49 @@ def dw_ring_wgmma(ci_t, co_t):
     return (ci_t, co_t) == (64, 64)
 
 
-def dw_ring_resources(ci_t, co_t):
+def dw_ring_resources(ci_t, co_t, q=False, xq=False, pack=0):
     """(threads, dynamic shared bytes, resident blocks an SM) of a ring
-    instance, as RingTile sizes it. A warp per (tap, 32 output channels) on
-    mma.sync, three warpgroups on wgmma. Each stage the (RING_TH + 2) x 18
-    window of x and the RING_TH x 16 tiles of dy and y: with TMA (CI_T >=
-    32) as dense rows (the window rounded up to 1024 bytes), with the
-    stages' mbarriers and 1024 bytes of alignment; else in rows padded by 8
-    bf16, and for CI_T = 16 the window's raw rows of a narrow x
-    (RING_RAW_ROW bytes each). RING_STAGES such stages, then the per-channel
-    vectors in f32; two blocks an SM for CO_T = 32 (CI_T <= 32) and one else
-    by the registers (``__launch_bounds__``), fewer if the shared memory
-    says so."""
+    instance, as RingTile sizes it (``dw_ring_smem``). A warp per (tap, 32
+    output channels) on mma.sync, three warpgroups on wgmma. Each stage the
+    (RING_TH + 2) x 18 window of x and the RING_TH x 16 tiles of dy and y:
+    with TMA (CI_T >= 32) as dense rows (the window rounded up to 1024
+    bytes), with the stages' mbarriers and 1024 bytes of alignment; else in
+    rows padded by 8 bf16, and for CI_T = 16 the window's raw rows of a
+    narrow x (RING_RAW_ROW bytes each). #39 (``q``) with TMA holds the int8
+    y tile and its RING_TH rows' scales (``pack`` x CO_T floats a row) in
+    place of y, the stage 1024-byte rounded, and in the xq mode two raw
+    slots of the int8 x window (128-byte rounded) and its RING_TH + 2 rows'
+    scales. RING_STAGES such stages, then the per-channel vectors in f32;
+    two blocks an SM for CO_T = 32 (CI_T <= 32) and one else by the
+    registers (``__launch_bounds__``), fewer if the shared memory says so."""
     win, pix = (RING_TH + 2) * 18, RING_TH * 16
     threads = 384 if dw_ring_wgmma(ci_t, co_t) else 9 * co_t
+    raw = 0
     if ci_t >= 32:
-        stage = -(-win * ci_t * 2 // 1024) * 512 + 2 * pix * co_t
+        kx = _up(win * ci_t * 2, 1024)
+        stage = kx + 4 * pix * co_t
+        if q:
+            stage = _up(kx + 2 * pix * co_t + pix * co_t + RING_TH * pack * co_t * 4, 1024)
+            raw = _up(win * ci_t, 128) + (RING_TH + 2) * pack * ci_t * 4 if xq else 0
         extra = RING_STAGES * 8 + 1024
     else:
-        stage = win * (ci_t + 8) + 2 * pix * (co_t + 8) + (RING_TH + 2) * RING_RAW_ROW // 2
+        stage = 2 * (win * (ci_t + 8) + 2 * pix * (co_t + 8) + (RING_TH + 2) * RING_RAW_ROW // 2)
         extra = 0
-    smem = RING_STAGES * stage * 2 + 4 * (2 * ci_t + 2 * co_t) + extra
+    smem = RING_STAGES * stage + 2 * raw + 4 * (2 * ci_t + 2 * co_t) + extra
     return threads, smem, resident_blocks(smem, 2 if co_t == 32 and ci_t <= 32 else 1)
 
 
-def dw_ring_splits(cin, cout, B, H, W):
-    """Blocks the bf16 #36 ring body splits the pixel tiles over: one wave
-    of resident blocks (``dw_ring_resources``) over the channel tiles, each
+def dw_ring_splits(cin, cout, B, H, W, tile=None, q=False, xq=False, pack=0):
+    """Blocks the bf16 ring body splits the pixel tiles over: one wave of
+    resident blocks (``dw_ring_resources``) over the channel tiles, each
     block the same number of tiles. A function of the shapes alone, so the
-    partial sums run in the same order on every call."""
-    ci_t, co_t = dw_ring_tile(cin, cout)
+    partial sums run in the same order on every call. ``tile``: the
+    (CI_T, CO_T) launched (default ``dw_ring_tile``'s); ``q``, ``xq``,
+    ``pack``: #39's sizes."""
+    ci_t, co_t = tile or dw_ring_tile(cin, cout)
     n_tiles = B * -(-H // RING_TH) * -(-W // 16)
     channel_tiles = -(-cin // ci_t) * -(-cout // co_t)
-    return one_wave_splits(n_tiles, channel_tiles, dw_ring_resources(ci_t, co_t)[2])
+    return one_wave_splits(n_tiles, channel_tiles, dw_ring_resources(ci_t, co_t, q, xq, pack)[2])
 
 
 # The f32 register-blocked body of #31, #33 and #41
@@ -746,25 +790,36 @@ def dw_fma_tile(cin, cout):
     return FMA_CI_T, (32 if cout <= 32 else 64)
 
 
-def dw_fma_resources(ci_t, co_t):
+def dw_fma_resources(ci_t, co_t, q=False, xq=False, pack=0):
     """(threads, dynamic shared bytes, resident blocks an SM, pixel tile
-    rows) of a register-blocked instance, as RegTile sizes it: three warps'
-    rows (one per kernel row) of CO_T / 16 warps; each stage the (TH + 2) x
-    18 window of x and the TH x 16 tile of e in f32, FMA_STAGES such stages
-    and the prologue's a and b; the blocks its ``__launch_bounds__`` fits
-    the registers to, fewer if the shared memory says so."""
+    rows) of a register-blocked instance, as RegTile sizes it
+    (``dw_reg_smem``): three warps' rows (one per kernel row) of CO_T / 16
+    warps; each stage the (TH + 2) x 18 window of x and the TH x 16 tile of
+    e in f32, FMA_STAGES such stages and the prologue's a and b; #39
+    (``q``) two raw slots (each the int8 y tile and its TH rows' scales,
+    ``pack`` x CO_T floats a row, and in the xq mode the int8 x window and
+    its TH + 2 rows' scales, each piece 128-byte rounded) and ds1, ds2; the
+    blocks its ``__launch_bounds__`` fits the registers to, fewer if the
+    shared memory says so."""
     th = FMA_TH[co_t]
-    stage = (th + 2) * 18 * ci_t + th * 16 * co_t
+    win = (th + 2) * 18
+    stage = win * ci_t + th * 16 * co_t
     smem = (FMA_STAGES * stage + 2 * ci_t) * 4
+    if q:
+        raw = _up(th * 16 * co_t, 128) + _up(th * pack * co_t * 4, 128)
+        if xq:
+            raw += _up(win * ci_t, 128) + _up((th + 2) * pack * ci_t * 4, 128)
+        smem += 2 * raw + 2 * co_t * 4
     return 6 * co_t, smem, resident_blocks(smem, FMA_BLOCKS[co_t]), th
 
 
-def dw_fma_splits(cin, cout, B, H, W):
+def dw_fma_splits(cin, cout, B, H, W, tile=None, q=False, xq=False, pack=0):
     """Blocks the f32 register-blocked body splits the pixel tiles over: one
     wave of resident blocks (``dw_fma_resources``) over the channel tiles,
-    each block the same number of tiles. A function of the shapes alone."""
-    ci_t, co_t = dw_fma_tile(cin, cout)
-    _, _, blocks, th = dw_fma_resources(ci_t, co_t)
+    each block the same number of tiles. A function of the shapes alone.
+    ``tile``, ``q``, ``xq``, ``pack`` as ``dw_ring_splits``'."""
+    ci_t, co_t = tile or dw_fma_tile(cin, cout)
+    _, _, blocks, th = dw_fma_resources(ci_t, co_t, q, xq, pack)
     n_tiles = B * -(-H // th) * -(-W // 16)
     channel_tiles = -(-cin // ci_t) * -(-cout // co_t)
     return one_wave_splits(n_tiles, channel_tiles, blocks)
@@ -776,6 +831,31 @@ def dw_tile_splits(cin, cout, B, H, W, bf16):
     if bf16:
         return (*dw_ring_tile(cin, cout), dw_ring_splits(cin, cout, B, H, W))
     return (*dw_fma_tile(cin, cout), dw_fma_splits(cin, cout, B, H, W))
+
+
+@functools.lru_cache(maxsize=None)
+def dw_q_tile_splits(cin, cout, B, H, W, bf16, xq, pack):
+    """(CI_T, CO_T, splits) of #39 (the int8 y; ``xq``: the int8 x too; the
+    scales grouping the columns mod ``pack``). bf16: the ring body's tile
+    of ``dw_ring_tile``, where its TMA stages take the int8 rows (Cout, and
+    in the xq mode Cin, a multiple of 16) and fit shared memory at
+    ``pack``, else the next narrower input tile (16 wide: plain loads form e
+    and t, the other kinds' stages). f32: the register-blocked tile, CO_T 64
+    or 32, the widest that fits. Raises where nothing fits."""
+    if bf16:
+        ci_t, co_t = dw_ring_tile(cin, cout)
+        if cout % 16 or (xq and cin % 16):
+            ci_t = 16
+        for ci in [c for c in (64, 32, 16) if c <= ci_t]:
+            if dw_ring_resources(ci, co_t, True, xq, pack)[1] <= RING_CONV_SMEM_MAX:
+                return ci, co_t, dw_ring_splits(cin, cout, B, H, W, (ci, co_t), True, xq, pack)
+    else:
+        for co_t in (64, 32) if cout > 32 else (32,):
+            if dw_fma_resources(FMA_CI_T, co_t, True, xq, pack)[1] <= RING_CONV_SMEM_MAX:
+                return FMA_CI_T, co_t, dw_fma_splits(cin, cout, B, H, W, (FMA_CI_T, co_t), True,
+                                                     xq, pack)
+    raise ValueError(f"conv3x3_bn dw_q kernel: no tile fits a conv of {cin} -> {cout} channels "
+                     f"at pack {pack} in shared memory")
 
 
 def dw_partials_shape(cin, cout, B, H, W, bf16):
@@ -950,23 +1030,27 @@ def _q_operands(x_res, w, q, scale, dy, ds1, ds2, p, what):
 
 
 def launch_conv_dx_q(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
-    """#38 on the card: (dx, da, db); da, db None without the prologue."""
+    """#38 on the card: (dx, da, db); da, db None without the prologue. bf16
+    runs the ring body (kDxQ, kDxQX) with ``dx_q_schedule``'s schedule, f32
+    the FMA body."""
     x, xq, xs, s1, s2 = _q_operands(x_res, w, q, scale, dy, ds1, ds2, p, "conv3x3_bn dx_q kernel")
     B, H, W, cout = dy.shape
     cin = w.shape[1]
+    bf16 = dy.dtype == torch.bfloat16
     wdx = _kernel_weight(_flip_t(w), dy.dtype)
     if prologue:
         a, b = _vec(a, cin, dy.device, "conv prologue"), _vec(b, cin, dy.device, "conv prologue")
     dx = torch.empty(B, H, W, cin, dtype=dy.dtype, device=dy.device)
-    tiles = -(-H // TILE) * -(-W // TILE)
-    partials = torch.empty(tiles * B if prologue else 1, 2, cin, dtype=torch.float32,
+    partials = torch.empty(dx_partials_shape(cin, B, H, W, prologue), dtype=torch.float32,
                            device=dy.device)
     out = torch.empty(2, cin, dtype=torch.float32, device=dy.device)
+    sched = dx_q_schedule(cout, cin, B, H, W, s1 is not None, bool(prologue), xq is not None,
+                          p) if bf16 else (0, 0, 0, 0, 0)
     err = build.library().cltorch_conv3x3_bn_dx_q(
         dy.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(s1), _ptr(s2), wdx.data_ptr(),
         _ptr(x), _ptr(xq), _ptr(xs), _ptr(a if prologue else None),
         _ptr(b if prologue else None), dx.data_ptr(), partials.data_ptr(), out.data_ptr(),
-        B, H, W, cout, cin, int(prologue), p, int(dy.dtype == torch.bfloat16), _stream(dy))
+        B, H, W, cout, cin, int(prologue), p, int(bf16), *sched, _stream(dy))
     build.check(err, "conv3x3_bn_dx_q")
     return (dx, out[0], out[1]) if prologue else (dx, None, None)
 
@@ -974,21 +1058,23 @@ def launch_conv_dx_q(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p):
 def launch_conv_dw_q(x_res, w, a, b, q, scale, dy, ds1, ds2, prologue, p, e_bf16=False):
     """#39 on the card: dW [Cout, Cin, 3, 3] rounded to the compute dtype,
     as f32; t from x with the bf16 prologue under ``e_bf16`` (not from
-    deq(xq), an f32 operand)."""
+    deq(xq), an f32 operand). bf16 runs the ring body, f32 the
+    register-blocked FMA body (kDwQ), with ``dw_q_tile_splits``'s tile and
+    splits."""
     x, xq, xs, s1, s2 = _q_operands(x_res, w, q, scale, dy, ds1, ds2, p, "conv3x3_bn dw_q kernel")
     B, H, W, cout = dy.shape
     cin = w.shape[1]
     if prologue:
         a, b = _vec(a, cin, dy.device, "conv prologue"), _vec(b, cin, dy.device, "conv prologue")
     bf16 = dy.dtype == torch.bfloat16
-    splits = dw_splits(cin, cout, B, H, W, bf16)
+    ci_t, co_t, splits = dw_q_tile_splits(cin, cout, B, H, W, bf16, xq is not None, p)
     partials = torch.empty(splits, cout, cin, 3, 3, dtype=torch.float32, device=dy.device)
     dw = torch.empty(cout, cin, 3, 3, dtype=torch.float32, device=dy.device)
     err = build.library().cltorch_conv3x3_bn_dw_q(
         _ptr(x), _ptr(xq), _ptr(xs), _ptr(a if prologue else None),
         _ptr(b if prologue else None), dy.data_ptr(), q.data_ptr(), scale.data_ptr(), _ptr(s1),
         _ptr(s2), partials.data_ptr(), dw.data_ptr(), B, H, W, cin, cout, int(prologue), p,
-        splits, int(bf16), int(bf16 and e_bf16 and x is not None), _stream(dy))
+        splits, ci_t, co_t, int(bf16), int(bf16 and e_bf16 and x is not None), _stream(dy))
     build.check(err, "conv3x3_bn_dw_q")
     return dw.to(dy.dtype).float()
 

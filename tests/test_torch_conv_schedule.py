@@ -148,7 +148,7 @@ def test_instances_and_constants_agree_with_the_sources():
     assert picked == instanced
     assert int(re.search(r"kRingConvStages = (\d+);", body).group(1)) == \
         conv3x3.RING_CONV_STAGES
-    assert int(re.search(r"kRingConvSmemMax = (\d+);", ring).group(1)) == \
+    assert int(re.search(r"kSmemMax = (\d+);", _source("conv3x3_tma.cuh")).group(1)) == \
         conv3x3.RING_CONV_SMEM_MAX
     assert "kRingConvThreads = 256;" in body
 
@@ -384,3 +384,78 @@ def test_kernel_ab_takes_the_plain_conv_with_its_library_call(kernel):
     got = lib(x, w).permute(0, 2, 3, 1)
     assert torch.allclose(got, want, atol=1e-5)
     assert kernel in kernel_ab.__doc__
+
+
+@pytest.mark.parametrize("kernel", ["conv3x3_bn_dx_q", "conv3x3_bn_dw_q"])
+def test_kernel_ab_takes_the_int8_backward_with_its_library_call_and_yardstick(
+        monkeypatch, kernel):
+    # #38 and #39 by name at Q_PATH, both dtypes, with cuDNN's dx or dW beside
+    # them and the dtype route's kernel (#34/#35's ring dx, #36's ring) as the
+    # yardstick, on y = deq(q, scale) and x = deq(xq) rounded to the dtype
+    from cl_tpu_torch import kernel_ab
+
+    kernel_ab.check_names([kernel])
+    for dtype_name in ("bfloat16", "float32"):
+        assert kernel_ab.shapes(chip_smoke, kernel, dtype_name) == chip_smoke.Q_PATH[kernel]
+        launch, operands = kernel_ab.dispatch(chip_smoke, kernel, dtype_name)
+        assert launch is chip_smoke.q_fns(kernel)[0] and callable(operands)
+        assert kernel_ab.yardstick(kernel, dtype_name) is not None
+    assert kernel_ab.library(chip_smoke, kernel) is not None
+    assert kernel in kernel_ab.__doc__ and kernel in kernel_ab.YARDSTICK
+    seen = []
+    dtype_route = "launch_conv_dx" if kernel == "conv3x3_bn_dx_q" else "launch_conv_dw"
+    monkeypatch.setattr(conv3x3, dtype_route, lambda *ops: seen.append(ops))
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 8, 8, 16, generator=g).to(torch.bfloat16)
+    w = torch.randn(16, 16, 3, 3, generator=g)
+    q, scale = conv3x3.quant_rows_plain(torch.randn(2, 8, 8, 16, generator=g), 4)
+    dy = torch.randn(2, 8, 8, 16, generator=g).to(torch.bfloat16)
+    for x_res in (x, conv3x3.quant_rows_plain(x, 4)):
+        call = kernel_ab.yardstick(kernel, "bfloat16")(x_res, w, None, None, q, scale, dy, None,
+                                                      None, False, 4)
+        assert not seen  # prepared, not launched
+        call()
+        xs, ws, _, _, ys, dys = seen.pop()[:6]
+        assert ws is w and dys is dy
+        assert torch.equal(ys, conv3x3.deq_rows(q, scale, 4).to(torch.bfloat16))
+        want_x = x if x_res is x else conv3x3.deq_rows(*x_res, 4).to(torch.bfloat16)
+        assert torch.equal(xs, want_x)
+
+
+def test_kernel_ab_int8_turns_and_bit_check(monkeypatch, capsys, tmp_path):
+    # the int8 dx in the turns (old, new, new, old) with each checkout's
+    # yardstick and its sum a step; --bits: each checkout's outputs
+    # compared bit for bit
+    import json
+    import subprocess
+    from types import SimpleNamespace
+
+    from cl_tpu_torch import kernel_ab
+
+    runs = []
+
+    def fake_run(cmd, **kw):
+        if cmd[0] == "nvidia-smi":
+            return SimpleNamespace(stdout="NVIDIA H100 80GB HBM3, 700.00 W\n")
+        if "--bits-worker" in cmd:
+            root, path = cmd[cmd.index("--bits-worker") + 1:][:2]
+            runs.append(os.path.basename(root))
+            out = torch.arange(4.0) + (root.endswith("other") or 0)
+            torch.save({"conv3x3_bn_dx_q[16] x8": [out, None]}, path)
+            return SimpleNamespace(stdout="")
+        runs.append(os.path.basename(cmd[cmd.index("--worker") + 2]))
+        row = [[512, 32, 32, True, True], 1, 0.5, 0.6, 0.4 + 0.01 * len(runs), 0.3, 0.35]
+        return SimpleNamespace(stdout=json.dumps({"conv3x3_bn_dx_q": [row], "build_s": 1.0}))
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    dirs = [str(tmp_path / d) for d in ("old", "new", "other")]
+    assert kernel_ab.main(["--rounds", "2", dirs[0], dirs[1], "conv3x3_bn_dx_q"]) == 0
+    assert runs == ["old", "new", "new", "old"] * 2
+    out = capsys.readouterr().out
+    assert "new dtype ring dx (card sleep) 0.3500" in out and "library (card sleep) 0.3000" in out
+    assert "new dtype ring dx 0.3500 ms (card sleep)" in out
+    runs.clear()
+    assert kernel_ab.main(["--bits", dirs[0], dirs[1], "conv3x3_bn_dx_q"]) == 0
+    assert runs == ["old", "new"] and "all bit-equal: True" in capsys.readouterr().out
+    assert kernel_ab.main(["--bits", dirs[0], dirs[2], "conv3x3_bn_dx_q"]) == 1
+    assert "DIFFERENT" in capsys.readouterr().out

@@ -141,7 +141,7 @@ def test_instances_and_constants_agree_with_the_sources():
                   r"(\d+) : (\d+);", body)
     assert (int(m.group(1)), int(m.group(2))) == (conv3x3.conv_plain_min_blocks(128),
                                                   conv3x3.conv_plain_min_blocks(64))
-    assert int(re.search(r"kPlainSmemMax = (\d+);", body).group(1)) == \
+    assert int(re.search(r"kSmemMax = (\d+);", _source("conv3x3_tma.cuh")).group(1)) == \
         conv3x3.RING_CONV_SMEM_MAX
     assert "constexpr int kPfThreads = 128;" in body
     assert conv3x3.plain_fma_resources(64)[0] == 128
